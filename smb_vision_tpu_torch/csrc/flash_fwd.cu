@@ -1,0 +1,402 @@
+// Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) and int8
+// scores (K3), one templated body.
+//
+// Replaces
+//   K1  smb_vision_tpu/ops/attention.py:_fwd_kernel      (bf16 flash forward)
+//   K3  smb_vision_tpu/ops/attention.py:_fwd_i8_kernel   (pv=False: int8 q k^T)
+//
+// What it computes, per (batch, head) and query row i:
+//   s_ij = (q_i . k_j) * c          c = scale*log2(e)        (K1)
+//   s_ij = (q8_i . k8_j) * c        c = sq*sk, q8 pre-scaled (K3)
+//   o_i  = sum_j exp2(s_ij - m_i) v_j / sum_j exp2(s_ij - m_i)
+//   lse2_i = m_i + log2(sum_j exp2(s_ij - m_i))             (K1, optional)
+// with an ordinary online softmax: m_i is a running max, rescaled per kv
+// tile. The TPU kernels fixed the shift from the first kv block and
+// accumulated o^T against [v | 1 | pad]; both were MXU tiling choices and
+// are not carried over: the denominator is a plain row sum here.
+//
+// Bound on the H100: at N = 20,480, d = 64 the kernel does 4*N^2*d flops per
+// head against O(N*d) bytes of q, k, v, so device memory is never the
+// limit; tensor-core issue, the exp2 work on the f32 scores, and the
+// shared-memory traffic that feeds the tensor cores are. The design:
+//   - one block = 8 warps = 128 query rows of one (batch, head); each warp
+//     owns 16 rows and keeps its q fragments, its 16 x 64 score tile and
+//     its 16 x d o accumulator in registers, in the mma.sync m16n8k16
+//     (bf16) or m16n8k32 (s8) fragment layouts; 128 rows per block halve
+//     the k/v tile traffic per query row against 64;
+//   - the f32 score fragments convert in registers into the A operand of
+//     the p.v product (the C layout of m16n8 equals the A layout of
+//     m16n8k16), so p never touches shared memory;
+//   - k and v stream through shared memory in 64-row tiles, two stages
+//     deep, by cp.async, so the next tile's copy overlaps this tile's math;
+//   - B fragments come by ldmatrix: k (row-major) as is, v (row-major) with
+//     .trans, so v needs no transposing store; rows are padded by 16 bytes
+//     so the 8 row addresses of each ldmatrix hit distinct banks.
+// Ragged lengths: q rows past Nq load as zero and are not stored; k and v
+// rows past Nk are zero-filled by cp.async and their scores masked to -inf.
+// Not yet done (later work): wgmma, TMA, warp specialisation.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 16 * kWarps;  // query rows per block
+constexpr int kBK = 64;           // kv rows per tile
+
+struct FlashParams {
+  const char* q;
+  const char* k;
+  const char* v;
+  const float* sq;  // int8 only: per (b*H + h) scales
+  const float* sk;
+  __nv_bfloat16* o;
+  float* lse;  // may be null
+  int H, Nq, Nk;
+  // strides in elements: batch, token, head (the last dim is contiguous)
+  long long q_sb, q_sn, q_sh;
+  long long k_sb, k_sn, k_sh;
+  long long v_sb, v_sn, v_sh;
+  long long o_sb, o_sn, o_sh;
+  float scale_log2;
+};
+
+template <int D, bool I8>
+struct Tiles {
+  static constexpr int ES = I8 ? 1 : 2;        // bytes per q/k element
+  static constexpr int KROW = D * ES + 16;     // padded k row, bytes
+  static constexpr int VROW = D * 2 + 16;      // padded v row, bytes
+  static constexpr int STAGE = kBK * (KROW + VROW);
+  static constexpr int BYTES = 2 * STAGE;      // two stages
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 16-byte global->shared copy; src_bytes = 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(char* dst, const char* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x in one MUFU op (subnormal results flush to 0; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int D, bool I8>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    flash_fwd_kernel(const FlashParams p) {
+  using T = Tiles<D, I8>;
+  constexpr int ES = T::ES;
+  constexpr int KSTEP = I8 ? 32 : 16;  // mma depth in elements (32 bytes)
+  constexpr int KQ = D / KSTEP;        // k-steps of the q k^T product
+  constexpr int ND = D / 8;            // n8 tiles of the o accumulator
+  constexpr int NS = kBK / 8;          // n8 tiles of one score tile
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBQ + warp * 16 + g;  // this thread's rows
+  const int r1 = r0 + 8;
+
+  const char* qb = p.q + (b * p.q_sb + h * p.q_sh) * ES;
+  const char* kb = p.k + (b * p.k_sb + h * p.k_sh) * ES;
+  const char* vb = p.v + (b * p.v_sb + h * p.v_sh) * 2;
+
+  // stage one kv tile (k and v rows kv0 .. kv0 + kBK) into `stage`
+  auto load_tile = [&](int stage, int kv0) {
+    char* ks = smem + stage * T::STAGE;
+    char* vs = ks + kBK * T::KROW;
+    constexpr int KCH = D * ES / 16, VCH = D * 2 / 16;
+    for (int c = tid; c < kBK * KCH; c += kThreads) {
+      const int row = c / KCH, col = (c % KCH) * 16;
+      const bool ok = kv0 + row < p.Nk;
+      cp_async16(ks + row * T::KROW + col,
+                 ok ? kb + (long long)(kv0 + row) * p.k_sn * ES + col : kb,
+                 ok ? 16 : 0);
+    }
+    for (int c = tid; c < kBK * VCH; c += kThreads) {
+      const int row = c / VCH, col = (c % VCH) * 16;
+      const bool ok = kv0 + row < p.Nk;
+      cp_async16(vs + row * T::VROW + col,
+                 ok ? vb + (long long)(kv0 + row) * p.v_sn * 2 + col : vb,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  // q fragments (A operand), straight from global memory
+  uint32_t qa[KQ][4];
+  {
+    const char* q0 = qb + (long long)r0 * p.q_sn * ES;
+    const char* q1 = qb + (long long)r1 * p.q_sn * ES;
+    const bool v0 = r0 < p.Nq, v1 = r1 < p.Nq;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int c0 = kk * 32 + 4 * t;  // bytes: a k-step is 32 bytes
+      qa[kk][0] = v0 ? ld32(q0 + c0) : 0u;
+      qa[kk][1] = v1 ? ld32(q1 + c0) : 0u;
+      qa[kk][2] = v0 ? ld32(q0 + c0 + 16) : 0u;
+      qa[kk][3] = v1 ? ld32(q1 + c0 + 16) : 0u;
+    }
+  }
+  // scores stay raw (q.k, or the int32 q8.k8); c scales them into log2
+  // units inside the exp2's FFMA, and the running max m is kept raw (c > 0)
+  const float c = I8 ? p.sq[bh] * p.sk[bh] : p.scale_log2;
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  const int ntiles = (p.Nk + kBK - 1) / kBK;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * kBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `it` is in shared memory for every warp
+    const char* ks = smem + (it & 1) * T::STAGE;
+    const char* vs = ks + kBK * T::KROW;
+    const int kv0 = it * kBK;
+
+    // scores: 16 rows x kBK columns per warp, in C-fragment layout. One
+    // ldmatrix.x4 brings the B fragments of two k-steps (64 bytes of a
+    // k row) for one n8 tile.
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const char* krow = ks + (j * 8 + (lane & 7)) * T::KROW + (lane >> 3) * 16;
+      if constexpr (I8) {
+        int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int hh = 0; hh < KQ / 2; ++hh) {
+          uint32_t bf[4];
+          ldsm_x4(bf, krow + hh * 64);
+          mma_s8(acc, qa[2 * hh], bf[0], bf[1]);
+          mma_s8(acc, qa[2 * hh + 1], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = (float)acc[i];
+      } else {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int hh = 0; hh < KQ / 2; ++hh) {
+          uint32_t bf[4];
+          ldsm_x4(bf, krow + hh * 64);
+          mma_bf16(acc, qa[2 * hh], bf[0], bf[1]);
+          mma_bf16(acc, qa[2 * hh + 1], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = acc[i];
+      }
+    }
+    if (kv0 + kBK > p.Nk) {  // ragged kv tail
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) s[j][i] = -INFINITY;
+    }
+
+    // online softmax; the 4 threads of a quad share rows g and g + 8
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = ex2((m0 - mx0) * c), a1 = ex2((m1 - mx1) * c);
+    m0 = mx0;
+    m1 = mx1;
+    const float mc0 = m0 * c, mc1 = m1 * c;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], c, -mc0));
+      s[j][1] = ex2(fmaf(s[j][1], c, -mc0));
+      s[j][2] = ex2(fmaf(s[j][2], c, -mc1));
+      s[j][3] = ex2(fmaf(s[j][3], c, -mc1));
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= a0;
+      o[n][1] *= a0;
+      o[n][2] *= a1;
+      o[n][3] *= a1;
+    }
+
+    // o += p v: p (bf16) from the score registers; one ldmatrix.x4.trans
+    // brings the B fragments of two n8 tiles of v for one 16-row k-step
+#pragma unroll
+    for (int c = 0; c < kBK / 16; ++c) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
+                              pack_bf16(s[2 * c][2], s[2 * c][3]),
+                              pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
+                              pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+      const char* vrow = vs + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                  T::VROW + (lane >> 4) * 16;
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, vrow + n * 16);
+        mma_bf16(o[n], pa, bf[0], bf[1]);
+        mma_bf16(o[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float safe0 = l0 == 0.f ? 1.f : l0, safe1 = l1 == 0.f ? 1.f : l1;
+  const float inv0 = 1.f / safe0, inv1 = 1.f / safe1;
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < p.Nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.o_sn + col) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (r1 < p.Nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * p.o_sn + col) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+  if (p.lse != nullptr && t == 0) {
+    float* lb = p.lse + (long long)bh * p.Nq;
+    if (r0 < p.Nq) lb[r0] = m0 * c + log2f(safe0);
+    if (r1 < p.Nq) lb[r1] = m1 * c + log2f(safe1);
+  }
+}
+
+template <int D, bool I8>
+cudaError_t launch(const FlashParams& p, int BH, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<D, I8>;
+  const int bytes = Tiles<D, I8>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Nq + kBQ - 1) / kBQ, BH);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
+// int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
+// otherwise K1 (q, k bf16, scores scaled by scale_log2). v and o are bf16.
+// Returns a cudaError_t (0 on success).
+extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
+                             const void* sq, const void* sk, void* o,
+                             void* lse, int B, int H, int Nq, int Nk, int D,
+                             int int8, const long long* strides,
+                             float scale_log2, void* stream) {
+  FlashParams p;
+  p.q = static_cast<const char*>(q);
+  p.k = static_cast<const char*>(k);
+  p.v = static_cast<const char*>(v);
+  p.sq = static_cast<const float*>(sq);
+  p.sk = static_cast<const float*>(sk);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];
+  p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_sh = strides[11];
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (int8) {
+    if (D == 64) return (int)launch<64, true>(p, BH, s);
+    if (D == 128) return (int)launch<128, true>(p, BH, s);
+  } else {
+    if (D == 64) return (int)launch<64, false>(p, BH, s);
+    if (D == 128) return (int)launch<128, false>(p, BH, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* smb_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,95 @@
+"""Model configurations.
+
+Counterpart of `smb_vision_tpu/models/configs.py`. Field names mirror the
+HuggingFace configs, so JSON config files written by the JAX package load
+here unchanged (keys this slice does not use, such as the pretraining
+decoder's, are ignored). The other model families' configs come with their
+models.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass
+class BaseConfig:
+    def update(self, updates: dict) -> "BaseConfig":
+        """HF-style in-place update; unknown keys are ignored."""
+        names = {f.name for f in dataclasses.fields(self)}
+        for k, v in updates.items():
+            if k in names:
+                setattr(self, k, v)
+        return self
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["model_type"] = getattr(self, "model_type", "")
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BaseConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @classmethod
+    def from_json(cls, path: str) -> "BaseConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, sort_keys=True)
+
+
+@dataclass
+class VideoMAEConfig(BaseConfig):
+    """3D ViT over CT volumes: depth as frames, with tubelet_size ==
+    patch_size giving cubic patches."""
+
+    model_type: str = "videomae"
+
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 1
+    num_frames: int = 160          # volume depth
+    tubelet_size: int = 16
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+    qkv_bias: bool = True
+    use_mean_pooling: bool = True
+
+    # framework knobs (not in the HF config)
+    dtype: str = "bfloat16"         # compute dtype
+    # attention: auto | pallas | pallas_i8bwd | pallas_int8 | xla
+    # ("pallas*" name the hand-written kernels, as in the JAX package)
+    attn_impl: str = "auto"
+    mlp_impl: str = "auto"          # auto | pallas | pallas_bwd | xla
+    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
+    fused_qkv: bool = False         # not ported yet
+    gradient_checkpointing: bool = False
+    sequence_parallel: bool = False  # not ported yet
+    quant8: bool = False            # not ported yet
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(T', H', W') patch grid; token index t*H'*W' + h*W' + w."""
+        return (
+            self.num_frames // self.tubelet_size,
+            self.image_size // self.patch_size,
+            self.image_size // self.patch_size,
+        )
+
+    @property
+    def seq_len(self) -> int:
+        t, h, w = self.grid
+        return t * h * w

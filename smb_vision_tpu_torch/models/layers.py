@@ -1,0 +1,265 @@
+"""Transformer building blocks.
+
+Counterpart of `smb_vision_tpu/models/layers.py`. Parameters are float32
+and named after the JAX package's parameter tree (`attention.query`,
+`norm1`, `mlp.fc1`, ...), in PyTorch's layouts: Linear weights (out, in),
+LayerNorm `weight`/`bias`. Compute runs in the configured dtype, with
+LayerNorm statistics in float32. Attention and the MLP half-block route to
+the hand-written kernels through `ops.attention` and `ops.mlp`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from smb_vision_tpu_torch.ops.attention import attention
+from smb_vision_tpu_torch.ops.mlp import (
+    act_fn,
+    kernel_maps,
+    mlp_block_forward,
+    mlp_forward,
+)
+
+_MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
+
+
+def not_ported(what: str, where: str):
+    return NotImplementedError(
+        f"{what} is not ported to smb_vision_tpu_torch yet ({where} in "
+        "ROADMAP.md); use the JAX package for it")
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator=None):
+    """Truncated normal at +-2 std, in place (the JAX package's init)."""
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in a given dtype from float32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype: torch.dtype):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with float32 statistics, scale and bias; output in the
+    compute dtype."""
+
+    def __init__(self, features: int, eps: float, dtype: torch.dtype):
+        super().__init__(features, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention. bias_mode: "qkv" (bias on q, k and v),
+    "qv" (on q and v only: the VideoMAE q/v-bias), "none"."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 bias_mode: str = "qkv", out_bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        if bias_mode not in ("qkv", "qv", "none"):
+            raise ValueError(f"unknown bias_mode {bias_mode!r}")
+        if hidden_size % num_heads:
+            raise ValueError(f"hidden {hidden_size} does not split into "
+                             f"{num_heads} heads")
+        h = hidden_size
+        self.num_heads = num_heads
+        self.attn_impl = attn_impl
+        self.query = Linear(h, h, bias_mode != "none", dtype)
+        self.key = Linear(h, h, bias_mode == "qkv", dtype)
+        self.value = Linear(h, h, bias_mode != "none", dtype)
+        self.proj = Linear(h, h, out_bias, dtype)
+
+    def forward(self, x):
+        b, n, h = x.shape
+        shape = (b, n, self.num_heads, h // self.num_heads)
+        q = self.query(x).reshape(shape)
+        k = self.key(x).reshape(shape)
+        v = self.value(x).reshape(shape)
+        out = attention(q, k, v, impl=self.attn_impl)
+        return self.proj(out.reshape(b, n, h))
+
+
+class Mlp(nn.Module):
+    """fc1 -> act -> fc2. gelu-family MLPs route through `mlp_forward`
+    (kernel K6) for "pallas"/"pallas_bwd", and for "auto" in bf16."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 act: str = "gelu", dtype: torch.dtype = torch.bfloat16,
+                 mlp_impl: str = "auto"):
+        super().__init__()
+        if mlp_impl not in _MLP_IMPLS:
+            raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
+                             + ", ".join(map(repr, _MLP_IMPLS)))
+        self.act = act
+        self.dtype = dtype
+        self.mlp_impl = mlp_impl
+        self.fc1 = Linear(hidden_size, intermediate_size, True, dtype)
+        self.fc2 = Linear(intermediate_size, hidden_size, True, dtype)
+
+    def forward(self, x):
+        route = (self.mlp_impl in ("pallas", "pallas_bwd")
+                 or (self.mlp_impl == "auto"
+                     and self.dtype == torch.bfloat16))
+        if route and self.act in ("gelu", "gelu_new"):
+            dt = self.dtype
+            return mlp_forward(x.to(dt), self.fc1.weight.to(dt).t(),
+                               self.fc1.bias, self.fc2.weight.to(dt).t(),
+                               self.fc2.bias, act=self.act,
+                               impl=self.mlp_impl)
+        return self.fc2(act_fn(self.act)(self.fc1(x)))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample: the identity at eval, which is all the
+    embedding path runs. Training with a non-zero rate comes with the
+    trainers."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise not_ported("DropPath in training (drop_path_rate > 0)",
+                             "queue 1, MIM slice")
+        return x
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block: x += attn(LN(x)); x += mlp(LN(x)).
+
+    The MLP half-block goes through `mlp_block_forward` (kernel K2) when
+    mlp_impl is "pallas", or "auto" with bf16 compute; LayerScale folds
+    into w2/b2. "pallas_bwd" skips that fusion, as in the JAX package, and
+    routes LN + Mlp (kernel K6) separately."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 intermediate_size: int, act: str = "gelu",
+                 bias_mode: str = "qkv", layer_norm_eps: float = 1e-6,
+                 layerscale_value: Optional[float] = None,
+                 drop_path_rate: float = 0.0, use_swiglu: bool = False,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto", mlp_impl: str = "auto",
+                 fused_qkv: bool = False, glue_impl: str = "auto",
+                 quant8: bool = False, sequence_parallel: bool = False):
+        super().__init__()
+        if glue_impl not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown glue impl {glue_impl!r}; "
+                             "valid: 'auto', 'pallas', 'xla'")
+        if glue_impl == "pallas":
+            raise not_ported("glue_impl='pallas' (attention-glue kernels "
+                             "K10a/K10b, ops/attn_glue.py)",
+                             "queue 1, K8 and K10")
+        if fused_qkv:
+            raise not_ported("fused_qkv", "queue 1, K8 and K10")
+        if quant8:
+            raise not_ported("quant8 (W8A8 projections, ops/quant.py)",
+                             "queue 1, W8A8")
+        if sequence_parallel:
+            raise not_ported("sequence_parallel (parallel/context.py)",
+                             "queue 1, multi-GPU")
+        if use_swiglu:
+            raise not_ported("use_swiglu (SwiGLU block, kernel K9)",
+                             "queue 1, zoo")
+        if mlp_impl not in _MLP_IMPLS:
+            raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
+                             + ", ".join(map(repr, _MLP_IMPLS)))
+        self.act = act
+        self.dtype = dtype
+        self.mlp_impl = mlp_impl
+        self.eps = layer_norm_eps
+        self.norm1 = LayerNorm(hidden_size, layer_norm_eps, dtype)
+        self.attention = Attention(hidden_size, num_heads, bias_mode,
+                                   dtype=dtype, attn_impl=attn_impl)
+        self.norm2 = LayerNorm(hidden_size, layer_norm_eps, dtype)
+        self.mlp = Mlp(hidden_size, intermediate_size, act=act, dtype=dtype,
+                       mlp_impl=mlp_impl)
+        if layerscale_value is not None:
+            self.layerscale1 = nn.Parameter(
+                torch.full((hidden_size,), float(layerscale_value)))
+            self.layerscale2 = nn.Parameter(
+                torch.full((hidden_size,), float(layerscale_value)))
+        else:
+            self.layerscale1 = self.layerscale2 = None
+        self.drop_path = DropPath(drop_path_rate)
+
+    def _scaled(self, lam, h):
+        return h if lam is None else h * lam.to(h.dtype)
+
+    def forward(self, x):
+        h = self.attention(self.norm1(x))
+        x = x + self.drop_path(self._scaled(self.layerscale1, h))
+
+        dp_off = not self.training or self.drop_path.rate == 0.0
+        route = (self.mlp_impl == "pallas"
+                 or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16
+                     and kernel_maps(x.shape[-1],
+                                     self.mlp.fc1.out_features, self.act)))
+        if route and dp_off and self.act in ("gelu", "gelu_new"):
+            dt = self.dtype
+            w1 = self.mlp.fc1.weight.to(dt).t()
+            w2 = self.mlp.fc2.weight.t()
+            b2 = self.mlp.fc2.bias
+            if self.layerscale2 is not None:
+                w2 = w2 * self.layerscale2[None, :]
+                b2 = b2 * self.layerscale2
+            return mlp_block_forward(
+                x.to(dt), self.norm2.weight, self.norm2.bias, w1,
+                self.mlp.fc1.bias, w2.to(dt), b2, act=self.act,
+                eps=self.eps, impl=self.mlp_impl)
+        h = self.mlp(self.norm2(x))
+        return x + self.drop_path(self._scaled(self.layerscale2, h))
+
+
+class Encoder(nn.Module):
+    """Stack of Blocks, `layer_{i}`; drop-path rate rises linearly to
+    drop_path_rate over the depth."""
+
+    def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
+                 intermediate_size: int, act: str = "gelu",
+                 bias_mode: str = "qkv", layer_norm_eps: float = 1e-6,
+                 layerscale_value: Optional[float] = None,
+                 drop_path_rate: float = 0.0, use_swiglu: bool = False,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto", mlp_impl: str = "auto",
+                 remat: bool = False, fused_qkv: bool = False,
+                 glue_impl: str = "auto", quant8: bool = False,
+                 sequence_parallel: bool = False):
+        super().__init__()
+        if remat:
+            raise not_ported("remat / gradient_checkpointing (training)",
+                             "queue 1, MIM slice")
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            rate = drop_path_rate * i / max(num_layers - 1, 1)
+            self.add_module(f"layer_{i}", Block(
+                hidden_size, num_heads, intermediate_size, act=act,
+                bias_mode=bias_mode, layer_norm_eps=layer_norm_eps,
+                layerscale_value=layerscale_value, drop_path_rate=rate,
+                use_swiglu=use_swiglu, dtype=dtype, attn_impl=attn_impl,
+                mlp_impl=mlp_impl, fused_qkv=fused_qkv, glue_impl=glue_impl,
+                quant8=quant8, sequence_parallel=sequence_parallel))
+
+    def forward(self, x):
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x)
+        return x

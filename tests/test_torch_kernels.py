@@ -1,0 +1,171 @@
+"""The port's hand-written kernels: import hygiene on any machine, and
+parity with their plain PyTorch versions on an NVIDIA Hopper GPU.
+
+This file imports torch only (no JAX), so the card tests run where JAX is
+absent; tests/conftest.py imports JAX, hence --noconftest there:
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+Without CUDA they skip."""
+
+import json
+import math
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from smb_vision_tpu_torch.ops import _build
+from smb_vision_tpu_torch.ops import attention as A
+from smb_vision_tpu_torch.ops import mlp as M
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _listing(path: Path):
+    return sorted(str(p) for p in path.rglob("*")) if path.exists() else None
+
+
+def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
+    """Every module of smb_vision_tpu_torch imports in a process where
+    `import jax` fails; afterwards neither jax nor smb_vision_tpu is
+    loaded, and no kernel was built or loaded."""
+    code = textwrap.dedent("""
+        import importlib, json, pkgutil, sys
+        for name in [k for k in sys.modules if k.split(".")[0] == "jax"]:
+            del sys.modules[name]
+        sys.modules["jax"] = None
+        import smb_vision_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        from smb_vision_tpu_torch.ops import _build
+        print(json.dumps({
+            "names": names,
+            "jax": sorted(k for k, v in sys.modules.items()
+                          if k.split(".")[0] == "jax" and v is not None),
+            "jax_package": sorted(k for k in sys.modules
+                                  if k.split(".")[0] == "smb_vision_tpu"),
+            "lib_loaded": _build._lib is not None}))
+    """)
+    before = _listing(_build.BUILD_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "smb_vision_tpu_torch.cli.run_inference" in seen["names"]
+    assert "smb_vision_tpu_torch.ops._build" in seen["names"]
+    assert seen["jax"] == [] and seen["jax_package"] == []
+    assert not seen["lib_loaded"]
+    assert _listing(_build.BUILD_ROOT) == before
+
+
+def test_build_key_tracks_sources():
+    key = _build.build_key()
+    assert len(key) == 16 and key == _build.build_key()
+    assert _build.build_dir().parent == _build.BUILD_ROOT
+    for name in _build.SOURCES:
+        assert (_build.CSRC / name).is_file()
+
+
+def test_wrappers_reject_unsupported_devices():
+    x = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        A.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        M.mlp_fused(torch.zeros(4, 128, device="meta"), None, None, None,
+                    None)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU with nvcc (sm_90a)")
+    return torch.device("cuda")
+
+
+def _rel(out, ref):
+    out, ref = out.float(), ref.float()
+    assert bool(out.isfinite().all())
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(256, 64), (100, 64), (130, 128)])
+def test_flash_kernels_match_plain(cuda, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16) for _ in range(3)]
+    before = A.flash_attention.launches
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    assert A.flash_attention.launches == before + 1
+    ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
+    assert _rel(out, ref) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
+    out8 = A.flash_attention_int8(q, k, v)
+    assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    assert _rel(out8, A.xla_attention(q.float(), k.float(), v.float())) \
+        <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_kernels_cross_lengths_and_refusals(cuda):
+    """Nq != Nk with both tails ragged; inputs the kernel does not take
+    raise instead of falling back to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = (torch.randn((1, 70, 2, 64), generator=gen, device=cuda)
+         * 0.4).to(torch.bfloat16)
+    k, v = [(torch.randn((1, 200, 2, 64), generator=gen, device=cuda)
+             * 0.4).to(torch.bfloat16) for _ in range(2)]
+    assert _rel(A.flash_attention(q, k, v), A.xla_attention(q, k, v)) \
+        <= 1e-2
+    before = A.flash_attention.launches
+    with pytest.raises(ValueError, match="head width"):
+        A.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError, match="bfloat16"):
+        A.flash_attention(q.float(), k.float(), v.float())
+    assert A.flash_attention.launches == before
+    x = torch.zeros(8, 96, dtype=torch.bfloat16, device=cuda)
+    w1, b1 = torch.zeros(96, 64, device=cuda), torch.zeros(64, device=cuda)
+    w2, b2 = torch.zeros(64, 96, device=cuda), torch.zeros(96, device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        M.mlp_fused(x, w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q, k, v as views of one fused (B, N, 3, H, D) projection."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = (torch.randn((2, 96, 3, 4, 64), generator=gen, device=cuda)
+           * 0.4).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    assert _rel(A.flash_attention(q, k, v), A.xla_attention(q, k, v)) \
+        <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072),
+                                   (33, 384, 1536)])
+def test_mlp_kernels_match_plain(cuda, m, k, f):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * s
+
+    x = r(m, k).to(torch.bfloat16)
+    lnw, lnb = 1.0 + r(k, s=0.1), r(k, s=0.1)
+    w1 = r(k, f, s=k ** -0.5)
+    w2 = r(f, k, s=f ** -0.5)
+    b1, b2 = r(f, s=0.1), r(k, s=0.1)
+    for act in ("gelu", "gelu_new"):
+        yb = M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, act=act,
+                               eps=1e-6)
+        ref = M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, act, 1e-6)
+        assert _rel(yb, ref) <= 8e-3
+        y = M.mlp_fused(x, w1, b1, w2, b2, act=act)
+        assert _rel(y, M._mlp_xla(x, w1, b1, w2, b2, act)) <= 8e-3

@@ -1,0 +1,226 @@
+"""The PyTorch port's ops against the JAX package on the CPU: attention and
+MLP (the plain versions that stand beside kernels K1, K2, K3 and K6),
+patches and the sincos table. The JAX side runs its Pallas kernels in
+interpret mode, as its own tests do. Inputs come from numpy seeds."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smb_vision_tpu.ops import attention as jattn
+from smb_vision_tpu.ops import mlp as jmlp
+from smb_vision_tpu.ops import patches as jpatches
+from smb_vision_tpu_torch.ops import attention as tattn
+from smb_vision_tpu_torch.ops import mlp as tmlp
+from smb_vision_tpu_torch.ops import patches as tpatches
+
+torch.set_num_threads(1)
+
+
+def _rand(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _qkv(seed, b=1, n=128, h=2, d=64):
+    """q, k, v ~ N(0, 0.4^2), the JAX attention tests' distribution."""
+    return [_rand(seed + i, (b, n, h, d), 0.4) for i in range(3)]
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _from_bf16(x):
+    """numpy f32 values of a bf16 torch tensor, for JAX (same values)."""
+    return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+
+def _rel(out, ref):
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_plain_attention_f32_matches_xla(with_bias):
+    q, k, v = _qkv(0, b=2, n=96, h=3, d=32)
+    bias = _rand(7, (1, 3, 96, 96)) if with_bias else None
+    ref = jattn.xla_attention(q, k, v, bias=bias)
+    out = tattn.xla_attention(
+        *map(torch.from_numpy, (q, k, v)),
+        bias=None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_plain_attention_chunks_queries(monkeypatch):
+    """The plain version processes queries in chunks; the chunking must not
+    change the result."""
+    q, k, v = map(torch.from_numpy, _qkv(1, n=100))
+    whole = tattn.xla_attention(q, k, v, with_lse=True)
+    monkeypatch.setattr(tattn, "_PLAIN_SCORE_ELEMS", 2 * 100 * 7)
+    assert tattn._plain_chunk(1, 2, 100) == 7
+    chunked = tattn.xla_attention(q, k, v, with_lse=True)
+    for a, b in zip(whole, chunked):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [256, 100])
+def test_attention_bf16_matches_pallas_kernel(n):
+    """K1's plain version in bf16 against the JAX flash kernel (interpret),
+    at an aligned and a ragged length."""
+    q, k, v = (_bf16(x) for x in _qkv(2, n=n))
+    ref = jattn.attention(*map(_from_bf16, (q, k, v)), impl="pallas",
+                          interpret=True, block_q=64, block_k=64)
+    before = tattn.flash_attention.launches
+    out = tattn.attention(q, k, v, impl="pallas")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out.float(), ref) < 1e-2
+    assert tattn.flash_attention.launches == before   # cpu: plain version
+
+
+@pytest.mark.parametrize("n", [256, 100])
+def test_attention_with_lse_matches_pallas_kernel(n):
+    q, k, v = (_bf16(x) for x in _qkv(3, n=n))
+    ref, ref_lse = jattn.attention_with_lse(
+        *map(_from_bf16, (q, k, v)), impl="pallas", interpret=True,
+        block_q=64, block_k=64)
+    out, lse = tattn.attention_with_lse(q, k, v, impl="pallas")
+    assert lse.shape == (1, 2, n) and lse.dtype == torch.float32
+    assert _rel(out.float(), ref) < 1e-2
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=2e-2)
+
+
+def test_attention_with_lse_xla_f32():
+    q, k, v = _qkv(4, n=64)
+    ref, ref_lse = jattn.attention_with_lse(q, k, v, impl="xla")
+    out, lse = tattn.attention_with_lse(*map(torch.from_numpy, (q, k, v)),
+                                        impl="xla")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [256, 100])
+def test_int8_attention_matches_pallas_int8_kernel(n):
+    """K3's plain version (same quantisation, exact integer scores)
+    against the JAX int8-score kernel (interpret)."""
+    q, k, v = (_bf16(x) for x in _qkv(5, n=n))
+    ref = jattn.attention(*map(_from_bf16, (q, k, v)), impl="pallas_int8",
+                          interpret=True, block_q=64, block_k=64)
+    out = tattn.attention(q, k, v, impl="pallas_int8")
+    assert _rel(out.float(), ref) < 1e-2
+    f32 = jattn.xla_attention(*(x.float().numpy() for x in (q, k, v)))
+    assert _rel(out.float(), f32) < 2e-2
+
+
+def test_attention_impl_names():
+    q, k, v = (_bf16(x) for x in _qkv(6, n=16))
+    with pytest.raises(NotImplementedError, match="K8"):
+        tattn.attention(q, k, v, impl="pallas_int8pv")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.attention(q, k, v, impl="pallas_int8_pv")
+    with pytest.raises(NotImplementedError, match="bias"):
+        tattn.attention(q, k, v, impl="pallas",
+                        bias=torch.zeros(1, 2, 16, 16))
+    a = tattn.attention(q, k, v, impl="pallas_i8bwd")
+    b = tattn.attention(q, k, v, impl="auto")
+    assert torch.equal(a, b)
+    # auto takes K1 only where it maps: bf16, no bias, head width 64 / 128
+    assert tattn._auto_impl(q, None) == "pallas"
+    assert tattn._auto_impl(q, torch.zeros(1, 2, 16, 16)) == "xla"
+    assert tattn._auto_impl(q.float(), None) == "xla"
+    assert tattn._auto_impl(q[..., :32], None) == "xla"
+
+
+def _mlp_params(k=128, f=512):
+    w1, b1 = _rand(11, (k, f), k ** -0.5), _rand(12, (f,), 0.1)
+    w2, b2 = _rand(13, (f, k), f ** -0.5), _rand(14, (k,), 0.1)
+    lnw, lnb = 1.0 + _rand(15, (k,), 0.1), _rand(16, (k,), 0.1)
+    return lnw, lnb, w1, b1, w2, b2
+
+
+def test_mlp_block_matches_pallas_kernel():
+    """K2's plain version against the JAX half-block kernel (interpret) at
+    K = 128, F = 512 and 256 rows (the kernel's 128-row rule)."""
+    x = _bf16(_rand(10, (2, 128, 128)))
+    lnw, lnb, w1, b1, w2, b2 = _mlp_params()
+    ref = jmlp.mlp_block_forward(_from_bf16(x), lnw, lnb, w1, b1, w2, b2,
+                                 eps=1e-12, impl="pallas", interpret=True)
+    out = tmlp.mlp_block_forward(x, *map(torch.from_numpy,
+                                         (lnw, lnb, w1, b1, w2, b2)),
+                                 eps=1e-12, impl="pallas")
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert _rel(out.float(), ref) < 8e-3
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_bwd"])
+def test_mlp_matches_pallas_kernel(impl):
+    """K6's plain version against the JAX MLP kernel (interpret);
+    'pallas_bwd' runs the same no-spill forward when not differentiated."""
+    x = _bf16(_rand(20, (256, 128)))
+    _, _, w1, b1, w2, b2 = _mlp_params()
+    ref = jmlp.mlp_forward(_from_bf16(x), w1, b1, w2, b2, impl=impl,
+                           interpret=True)
+    before = tmlp.mlp_fused.launches
+    out = tmlp.mlp_forward(x, *map(torch.from_numpy, (w1, b1, w2, b2)),
+                           impl=impl)
+    assert _rel(out.float(), ref) < 8e-3
+    assert tmlp.mlp_fused.launches == before
+
+
+def test_mlp_xla_f32_matches():
+    x = _rand(21, (2, 24, 128))
+    lnw, lnb, w1, b1, w2, b2 = _mlp_params()
+    ref = jmlp.mlp_block_forward(x, lnw, lnb, w1, b1, w2, b2, eps=1e-6,
+                                 impl="xla")
+    out = tmlp.mlp_block_forward(*map(torch.from_numpy,
+                                      (x, lnw, lnb, w1, b1, w2, b2)),
+                                 eps=1e-6, impl="auto")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+    ref = jmlp.mlp_forward(x, w1, b1, w2, b2, act="gelu_new", impl="xla")
+    out = tmlp.mlp_forward(*map(torch.from_numpy, (x, w1, b1, w2, b2)),
+                           act="gelu_new", impl="xla")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+
+
+def test_mlp_impl_routing():
+    x = torch.zeros(4, 96, dtype=torch.bfloat16)
+    w1, b1 = torch.zeros(96, 64), torch.zeros(64)
+    w2, b2 = torch.zeros(64, 96), torch.zeros(96)
+    with pytest.raises(ValueError, match="cannot map"):
+        tmlp.mlp_forward(x, w1, b1, w2, b2, impl="pallas")
+    with pytest.raises(ValueError, match="unknown mlp impl"):
+        tmlp.mlp_block_forward(x, torch.ones(96), b2, w1, b1, w2, b2,
+                               impl="pallas_bwd")
+    assert tmlp.mlp_forward(x, w1, b1, w2, b2).shape == x.shape   # auto
+    assert tmlp.kernel_maps(768, 3072, "gelu")
+    assert not tmlp.kernel_maps(768, 3000, "gelu")
+    assert not tmlp.kernel_maps(768, 3072, "relu")
+
+
+@pytest.mark.parametrize("channel_major", [True, False])
+def test_extract_patches_exact(channel_major):
+    px = _rand(30, (2, 8, 3, 8, 12))
+    ref = jpatches.extract_patches(px, 4, 4, channel_major=channel_major)
+    out = tpatches.extract_patches(torch.from_numpy(px), 4, 4,
+                                   channel_major=channel_major)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_patch_embed_matches():
+    px = _rand(31, (2, 16, 1, 32, 32))
+    kern, bias = _rand(32, (24, 1, 16, 16, 16), 0.02), _rand(33, (24,))
+    ref = jpatches.patch_embed(px, kern, bias, dtype=jnp.float32)
+    out = tpatches.patch_embed(*map(torch.from_numpy, (px, kern, bias)),
+                               dtype=torch.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d", [(20480, 768), (64, 32)])
+def test_sincos_table_exact(n, d):
+    ref = np.asarray(jpatches.sincos_position_table(n, d))
+    out = tpatches.sincos_position_table(n, d)
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
