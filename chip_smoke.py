@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding path once on one NVIDIA GPU.
+"""Drive the PyTorch port's batch-embedding and MIM-pretraining paths once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,20 +8,31 @@ Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`;
-  3. kernels: every kernel of the path against its plain PyTorch version at
-     the main-path and a ragged shape, with its time beside the plain one;
+  3. kernels: every kernel of the embedding path against its plain PyTorch
+     version at the main-path and a ragged shape, with its time beside the
+     plain one; then the training kernels (K4, K5a, K5b) at the MIM
+     encoder's and decoder's shapes and a ragged one;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
      mlp_impl "pallas_bwd" (kernels K3 and K6);
   6. whole model: kernels against the plain path on one volume;
-  7. throughput: encoder volumes/s at batch 4 for both legs.
+  7. throughput: encoder volumes/s at batch 4 for both legs;
+  8. training parity: one MIM step of the configs/mim_base_512.json model
+     at full width on one volume, kernels against the plain path in bf16
+     and a float32 plain run;
+  9. leg C: `run_mim` with a copy of configs/mim_base_512.json on the 4
+     volumes, 4 steps with checkpoints, then a resume to 6 (kernels K1, K4,
+     K5a and K5b in training, K6 in eval);
+ 10. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -47,9 +59,25 @@ TOL_MLP = 8e-3
 TOL_MODEL = 3e-2
 TOL_MODEL_VS_F32 = 1.25
 
+# training kernels: K4 is held to 2e-2 of max (as K1), K5a/K5b to 3e-2 of
+# max, the JAX package's bound for its own pair (tests/test_mlp_bwd.py)
+TOL_FLASH_BWD = 2e-2
+TOL_MLP_TRAIN = 3e-2
+# one MIM step at full width: the kernel path's loss within 1e-2 relative
+# of the plain bf16 path's, and its global gradient error against a
+# float32 run, ||g - g32|| / ||g32|| over all parameters, at most 1.25x the
+# plain bf16 path's (the rule of the whole-model forward above)
+TOL_TRAIN_LOSS = 1e-2
+TOL_TRAIN_GRAD_VS_F32 = 1.25
+
 MAIN_N = 20480          # 512/16 * 512/16 * 320/16 tokens
 RAGGED_N = 1960         # 224/16 * 224/16 * 160/16 tokens
 HEADS, HEAD_DIM, HIDDEN, FFN = 12, 64, 768, 3072
+# MIM at mask 0.65 (configs/mim_base_512.json): the encoder sees 7,168 of
+# the 20,480 tokens; the decoder is 384 wide with 6 heads of 64
+ENC_N = 7168
+DEC_HIDDEN, DEC_HEADS, DEC_FFN = 384, 6, 1536
+MIM_PRESET = ROOT / "configs" / "mim_base_512.json"
 
 SOURCES = {
     "flash_fwd": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
@@ -60,6 +88,12 @@ SOURCES = {
                       "smb_vision_tpu/ops/mlp.py:214"),
     "mlp_fwd": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
                 "smb_vision_tpu/ops/mlp.py:109"),
+    "flash_bwd": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                  "smb_vision_tpu/ops/attention.py:436"),
+    "mlp_train_fwd": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                      "smb_vision_tpu/ops/mlp.py:137"),
+    "mlp_bwd": ("smb_vision_tpu_torch/csrc/mlp_bwd.cu",
+                "smb_vision_tpu/ops/mlp.py:171"),
 }
 
 
@@ -70,13 +104,28 @@ def log(msg: str) -> None:
 def wrappers():
     from smb_vision_tpu_torch.ops.attention import (
         flash_attention,
+        flash_attention_bwd,
         flash_attention_int8,
     )
-    from smb_vision_tpu_torch.ops.mlp import mlp_block_fused, mlp_fused
+    from smb_vision_tpu_torch.ops.mlp import (
+        mlp_block_fused,
+        mlp_bwd_fused,
+        mlp_fused,
+        mlp_train_fused,
+    )
 
     return {"flash_fwd": flash_attention,
             "flash_fwd_i8": flash_attention_int8,
-            "mlp_block_fwd": mlp_block_fused, "mlp_fwd": mlp_fused}
+            "mlp_block_fwd": mlp_block_fused, "mlp_fwd": mlp_fused,
+            "flash_bwd": flash_attention_bwd,
+            "mlp_train_fwd": mlp_train_fused, "mlp_bwd": mlp_bwd_fused}
+
+
+def reset_launches() -> dict:
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    return ws
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -232,9 +281,88 @@ def phase_kernels() -> dict:
             timed("mlp_fwd", lambda: M.mlp_fused(x, w1, b1, w2, b2),
                   lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20)
     for rec in table.values():
-        log(f"time {rec['name']:<14} kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms (main-path shape, CUDA events)")
+        if rec["ms"] is not None:
+            log(f"time {rec['name']:<14} kernel {rec['ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms (main-path shape, CUDA events)")
+    phase_train_kernels(table, gen, dev)
     return table
+
+
+def phase_train_kernels(table: dict, gen, dev) -> None:
+    """K4 against its plain backward, K5a and K5b against theirs, at the
+    MIM encoder's and decoder's shapes and a ragged one, on the same
+    inputs; times at both MIM shapes (the table keeps the encoder's)."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    def check(name, what, out, ref, tol):
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        log(f"{name:<14} {what:<26} max|d| {err:.3e}  rel {rel:.3e} "
+            f"(bound {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{name} {what}: rel {rel} > {tol}")
+        table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
+
+    def timed(name, shape, kernel, plain, iters, keep):
+        ms, plain_ms = cuda_ms(kernel, iters=iters), cuda_ms(plain, iters=2)
+        log(f"time {name:<14} {shape:<22} kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (CUDA events)")
+        if keep:
+            table[name]["ms"], table[name]["plain_ms"] = ms, plain_ms
+
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    for n, h, label in ((ENC_N, HEADS, "encoder"), (MAIN_N, DEC_HEADS,
+                                                    "decoder"),
+                        (RAGGED_N, HEADS, "ragged")):
+        q, k, v, do = [(torch.randn((1, n, h, HEAD_DIM), generator=gen,
+                                    device=dev) * 0.4).to(torch.bfloat16)
+                       for _ in range(4)]
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        got = A.flash_attention_bwd(q, k, v, out, lse, do)
+        want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            check("flash_bwd", f"N={n} H={h} {what}", a, b, TOL_FLASH_BWD)
+        del got, want
+        if label != "ragged":
+            timed("flash_bwd", f"{label} N={n} H={h}",
+                  lambda: A.flash_attention_bwd(q, k, v, out, lse, do),
+                  lambda: A.attention_bwd_plain(q, k, v, out, lse, do,
+                                                scale=scale),
+                  5, label == "encoder")
+        del q, k, v, do, out, lse
+
+    for m, kd, f, label in ((ENC_N, HIDDEN, FFN, "encoder"),
+                            (MAIN_N, DEC_HIDDEN, DEC_FFN, "decoder"),
+                            (RAGGED_N, HIDDEN, FFN, "ragged")):
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+
+        x = r(m, kd).to(torch.bfloat16)
+        w1 = r(f, kd, s=kd ** -0.5).to(torch.bfloat16).t()
+        w2 = r(kd, f, s=f ** -0.5).to(torch.bfloat16).t()
+        b1, b2 = r(f, s=0.1), r(kd, s=0.1)
+        g = r(m, kd).to(torch.bfloat16)
+        y, hh = M.mlp_train_fused(x, w1, b1, w2, b2)
+        y_ref, h_ref = M._mlp_train_plain(x, w1, b1, w2, b2, "gelu")
+        what = f"M={m} K={kd} F={f}"
+        check("mlp_train_fwd", what + " y", y, y_ref, TOL_MLP_TRAIN)
+        check("mlp_train_fwd", what + " h", hh, h_ref, TOL_MLP_TRAIN)
+        got = M.mlp_bwd_fused(hh, g, w1, w2)
+        want = M._mlp_bwd_plain(hh, g, w1, w2, "gelu")
+        for name, a, b in zip(("dx", "dh", "a"), got, want):
+            check("mlp_bwd", f"{what} {name}", a, b, TOL_MLP_TRAIN)
+        if label != "ragged":
+            keep = label == "encoder"
+            timed("mlp_train_fwd", f"{label} {what}",
+                  lambda: M.mlp_train_fused(x, w1, b1, w2, b2),
+                  lambda: M._mlp_train_plain(x, w1, b1, w2, b2, "gelu"),
+                  20, keep)
+            timed("mlp_bwd", f"{label} {what}",
+                  lambda: M.mlp_bwd_fused(hh, g, w1, w2),
+                  lambda: M._mlp_bwd_plain(hh, g, w1, w2, "gelu"), 20, keep)
 
 
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
@@ -281,9 +409,7 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
     from smb_vision_tpu_torch.cli.run_inference import main as run_inference
 
     out = root / f"emb_{leg}"
-    ws = wrappers()
-    for w in ws.values():
-        w.launches = 0
+    ws = reset_launches()
     t0 = time.perf_counter()
     stats = run_inference([
         "--data_dir", str(vols), "--output_dir", str(out),
@@ -411,25 +537,26 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
             f"batch of {batch}, 512x512x320 ViT-Base d64, encoder only, "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) "
             f"on {card}")
-        profile_forward(m, batches[0], leg)
+        with torch.inference_mode():
+            profile_call(lambda: m(batches[0]),
+                         f"{leg}: one batch-{batch} forward")
         del m
     return rates
 
 
-def profile_forward(model, px, leg: str, top: int = 8) -> None:
-    """One forward under torch.profiler: device busy and idle share of the
+def profile_call(fn, label: str, top: int = 8) -> None:
+    """fn() once under torch.profiler: device busy and idle share of the
     wall time, and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(px)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -440,14 +567,228 @@ def profile_forward(model, px, leg: str, top: int = 8) -> None:
             rows.append((us / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if not rows:
-        log(f"profile {leg}: the profiler saw no device time")
+        log(f"profile {label}: the profiler saw no device time")
         return
-    log(f"profile {leg}: one batch-{px.shape[0]} forward {wall:.1f} ms wall "
-        f"(profiler on), device busy {busy:.1f} ms = {100 * busy / wall:.1f}%"
-        f", idle {100 * (1 - busy / wall):.1f}%")
+    log(f"profile {label}: {wall:.1f} ms wall (profiler on), device busy "
+        f"{busy:.1f} ms = {100 * busy / wall:.1f}%, idle "
+        f"{100 * (1 - busy / wall):.1f}%")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% of busy  x{count:<4} "
             f"{key[:100]}")
+
+
+def mim_config(**kw):
+    """The configs/mim_base_512.json model (ViT-Base VideoMAE at 512^2 x
+    320, decoder 384 wide and 4 deep, bf16, mlp_impl pallas_bwd, remat)
+    built as run_mim builds it, at full width; kw overrides config keys.
+    Returns (config, the preset's keys)."""
+    from smb_vision_tpu_torch.cli.run_mim import ModelArguments, build_config
+
+    preset = json.loads(MIM_PRESET.read_text())
+    names = {f.name for f in dataclasses.fields(ModelArguments)}
+    cfg = build_config(ModelArguments(
+        **{k: v for k, v in preset.items() if k in names}))
+    cfg.update(kw)
+    return cfg, preset
+
+
+def phase_train_parity() -> None:
+    """One MIM step (forward + backward, no update) on one volume, the
+    same seeded weights and mask, through the kernels (attn auto, mlp
+    pallas_bwd, remat), through the plain path in bf16 and through the
+    plain path in float32 (TF32 off)."""
+    import torch
+
+    from smb_vision_tpu_torch.models.videomae import VideoMAEForPreTraining
+    from smb_vision_tpu_torch.ops.masking import mim_mask, num_masked_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg0, preset = mim_config()
+    geo = dict(input_size=cfg0.image_size, depth=cfg0.num_frames,
+               mask_patch_size=preset["mask_patch_size"],
+               model_patch_size=cfg0.patch_size,
+               mask_ratio=preset["mask_ratio"])
+    nm = num_masked_tokens(**geo)
+    if cfg0.seq_len - nm != ENC_N:
+        raise AssertionError(f"the preset encodes {cfg0.seq_len - nm} "
+                             f"tokens, not {ENC_N}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    px = torch.rand((1, cfg0.num_frames, 1, cfg0.image_size,
+                     cfg0.image_size), generator=gen, device=dev)
+    mask = mim_mask(torch.Generator().manual_seed(0), 1, **geo).to(dev)
+
+    def step(**kw):
+        cfg, _ = mim_config(**kw)
+        model = VideoMAEForPreTraining(cfg).init_weights(
+            torch.Generator().manual_seed(0)).to(dev).train()
+        loss = model(px, mask, nm)["loss"]
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        if any(g is None for g in grads):
+            raise AssertionError(f"{kw or 'kernel path'}: a parameter got "
+                                 "no gradient")
+        flat = torch.cat([g.float().flatten() for g in grads])
+        del model, grads
+        torch.cuda.empty_cache()
+        return float(loss.detach()), flat
+
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    k_loss, k_grad = step()
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in ws.items()}
+    for name in ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"training step: {name} never launched")
+    p_loss, p_grad = step(attn_impl="xla", mlp_impl="xla")
+    f_loss, f_grad = step(attn_impl="xla", mlp_impl="xla", dtype="float32")
+    norm = float(f_grad.norm())
+    k_err = float((k_grad - f_grad).norm()) / norm
+    p_err = float((p_grad - f_grad).norm()) / norm
+    rel_loss = abs(k_loss - p_loss) / abs(p_loss)
+    finite = bool(k_grad.isfinite().all())
+    log(f"training parity, one MIM step at full width: loss kernels "
+        f"{k_loss:.6f}, plain bf16 {p_loss:.6f}, f32 {f_loss:.6f}; rel "
+        f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32: "
+        f"kernels {k_err:.3e}, plain bf16 {p_err:.3e} (bound "
+        f"{TOL_TRAIN_GRAD_VS_F32} x plain); kernel step {wall:.1f} s with "
+        f"the first calls; launches {counts}")
+    if not (finite and math.isfinite(k_loss)):
+        raise AssertionError("the kernel path's loss or gradient is not "
+                             "finite")
+    if not rel_loss <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"training loss rel {rel_loss}")
+    if not k_err <= TOL_TRAIN_GRAD_VS_F32 * p_err:
+        raise AssertionError(f"kernel gradients are {k_err} from float32, "
+                             f"the plain bf16 path's {p_err}")
+
+
+def run_leg_c(work: Path, vols: Path, table: dict) -> None:
+    """run_mim on the volumes with a copy of configs/mim_base_512.json:
+    4 steps, a checkpoint every 2, eval; then the same to 6 steps, which
+    resumes at 4. Asserts the logs, the checkpoints, the export and that
+    the training kernels and K6 (eval) launched."""
+    import numpy as np
+
+    from smb_vision_tpu_torch.cli.run_mim import main as run_mim
+    from smb_vision_tpu_torch.train.trainer import Trainer
+
+    spec = work / "mim_data.json"
+    spec.write_text(json.dumps({"train": [
+        {"image": str(p)} for p in sorted(vols.glob("*.nii"))]}))
+    out = work / "mim_out"
+    preset = json.loads(MIM_PRESET.read_text())
+
+    def run(steps):
+        path = work / f"mim_{steps}.json"
+        path.write_text(json.dumps(dict(
+            preset, json_path=str(spec), output_dir=str(out),
+            num_train_steps=steps, save_steps=2, logging_steps=1,
+            do_eval=True)))
+        t0 = time.perf_counter()
+        res = run_mim([str(path)])
+        return res, time.perf_counter() - t0
+
+    ws = reset_launches()
+    res4, wall4 = run(4)
+    counts = {name: w.launches for name, w in ws.items()}
+    res6, wall6 = run(6)
+    log(f"leg C: {res4} in {wall4:.1f} s, resumed {res6} in {wall6:.1f} s "
+        f"(preprocess + train + eval + save); launches of the first run "
+        f"{counts}")
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    for r in train:
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, "
+            f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
+    if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"leg C logged steps "
+                             f"{[r['step'] for r in train]}")
+    for r in train:
+        if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
+            raise AssertionError(f"leg C step record {r}")
+    for res in (res4, res6):
+        if not math.isfinite(res.get("eval_loss", math.nan)):
+            raise AssertionError(f"leg C eval: {res}")
+    ckpts = Trainer.checkpoint_steps(out / "checkpoints")
+    if ckpts != [2, 4, 6] or res6["train_steps"] != 6:
+        raise AssertionError(f"leg C checkpoints {ckpts}, result {res6}")
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+
+    export = read_safetensors(out / "model.safetensors")
+    if not (out / "config.json").exists() or not all(
+            np.isfinite(v).all() for v in export.values()):
+        raise AssertionError("leg C: config.json or a finite "
+                             "model.safetensors is missing")
+    log(f"leg C: checkpoints {ckpts}, model.safetensors "
+        f"{len(export)} tensors, config.json")
+    for name in ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
+                 "mlp_fwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"leg C: kernel {name} never launched")
+    for name in ("flash_bwd", "mlp_train_fwd", "mlp_bwd"):
+        table[name]["launches"] = counts[name]
+
+
+def phase_train_throughput(card: str, iters: int = 3) -> None:
+    """MIM steps of the preset at batch 1 and 2: CUDA events over `iters`
+    seeded steps after one warm-up, MFU against the card's dense bf16
+    peak, peak memory, and one step under the profiler."""
+    import torch
+
+    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import (
+        device_peak_flops,
+        mim_flops_per_sample,
+    )
+
+    dev = torch.device("cuda")
+    cfg, preset = mim_config()
+    flops = mim_flops_per_sample(cfg, preset["mask_ratio"])
+    peak = device_peak_flops(dev)
+    for bs in (1, 2):
+        model, init_fn, step_fn, _ = make_mim_workload(
+            cfg, mask_patch_size=preset["mask_patch_size"],
+            mask_ratio=preset["mask_ratio"], tx=functools.partial(
+                make_optimizer, learning_rate=preset["learning_rate"],
+                total_steps=100, warmup_ratio=preset["warmup_ratio"],
+                weight_decay=preset["weight_decay"]), device=dev)
+        state = init_fn(0)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        pxs = [torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
+                           cfg.image_size), generator=gen, device=dev)
+               for _ in range(iters + 1)]
+
+        def step(i):
+            return step_fn(state, {"pixel_values": pxs[i]},
+                           step_generator(0, i))
+
+        step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = [step(i)["loss"] for i in range(1, iters + 1)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"MIM batch {bs}: losses {losses}")
+        mfu = flops * bs / (ms / 1e3) / peak if peak else None
+        log(f"MIM train step batch {bs}: {ms:.1f} ms = {1e3 / ms:.3f} "
+            f"steps/s, {bs * 1e3 / ms:.3f} volumes/s, MFU {mfu} "
+            f"({flops / 1e12:.2f} TFLOP/sample analytic, no remat "
+            f"recompute), peak {mem:.1f} GiB, on {card}")
+        profile_call(lambda: step(0), f"MIM train step batch {bs}")
+        del model, state, pxs
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -474,9 +815,12 @@ def main() -> int:
                 ["--attn_impl", "pallas_int8"],
                 ("flash_fwd_i8", "mlp_fwd"), table)
         phase_whole_model(vols, emb_a)
+        run_leg_c(work, vols, table)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
+    phase_train_parity()
+    phase_train_throughput(card)
     log(card)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

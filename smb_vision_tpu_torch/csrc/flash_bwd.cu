@@ -1,0 +1,477 @@
+// Flash-attention backward for Hopper (sm_90a), bf16 (K4).
+//
+// Replaces
+//   K4  smb_vision_tpu/ops/attention.py:_bwd_dq_kernel and _bwd_dkv_kernel
+//
+// What it computes, per (batch, head), from q, k, v, do (bf16), the forward's
+// row logsumexp lse2 (log2 units) and delta_i = sum_d do_id * o_id (f32, both
+// (B, H, Nq)):
+//   p_ij  = exp2((q_i . k_j) * c - lse2_i)          c = scale*log2(e)
+//   dp_ij = do_i . v_j
+//   ds_ij = p_ij * (dp_ij - delta_i)
+//   dq_i  = scale * sum_j ds_ij k_j
+//   dk_j  = scale * sum_i ds_ij q_i
+//   dv_j  =         sum_i p_ij do_i
+// in two passes with no atomics, as the TPU kernel has, so the result is
+// deterministic: a dq pass (a block owns 128 query rows and walks every kv
+// tile) and a dk/dv pass (a block owns 128 kv rows and walks every query
+// tile). The TPU kernel accumulated dq^T and dk^T transposed and pre-scaled
+// q by c; both were MXU choices and are not carried over.
+//
+// Bound on the H100: each pass recomputes the score tile and the dp tile
+// (2 x 2*N^2*d flops) and adds one or two N^2*d products, against O(N*d)
+// bytes, so device memory is never the limit; tensor-core issue, the exp2
+// and elementwise work on the f32 tiles, and the shared-memory traffic that
+// feeds the tensor cores are. The design follows the forward (flash_fwd.cu):
+//   - one block = 8 warps; each warp owns 16 rows of its pass and keeps its
+//     A operands (q and do in the dq pass, k and v in the dk/dv pass) and
+//     its f32 accumulators in registers, in the mma.sync m16n8k16 fragment
+//     layouts;
+//   - the streamed operand pair (k, v in the dq pass; q, do in the dk/dv
+//     pass) comes through shared memory in tiles, two stages deep, by
+//     cp.async, so the next tile's copy overlaps this tile's math;
+//   - score and dp tiles are computed transposed in the dk/dv pass
+//     (s^T = k q^T, dp^T = v do^T), so that p^T and ds^T land in the
+//     C-fragment layout, which is the A layout of the next product: p and
+//     ds never touch shared memory in either pass;
+//   - B fragments come by ldmatrix, .trans where the contraction runs over
+//     the tile's rows; rows are padded by 16 bytes against bank conflicts.
+// Ragged lengths: streamed rows past their length are zero-filled; in the
+// dk/dv pass their lse2 is +inf and delta 0, so p and ds are exactly 0
+// there; in the dq pass kv columns past Nk are masked to p = 0. Rows a block
+// owns past its length are computed and not stored.
+// Not yet done (later work): wgmma, TMA, warp specialisation.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBR = 16 * kWarps;  // rows a block owns (queries or keys)
+
+struct BwdParams {
+  const char* q;
+  const char* k;
+  const char* v;
+  const char* dout;
+  const float* lse;    // (B*H, Nq), log2 units
+  const float* delta;  // (B*H, Nq)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int H, Nq, Nk;
+  // strides in elements: batch, token, head (the last dim is contiguous)
+  long long q_sb, q_sn, q_sh;
+  long long k_sb, k_sn, k_sh;
+  long long v_sb, v_sn, v_sh;
+  long long o_sb, o_sn, o_sh;     // do
+  long long dq_sb, dq_sn, dq_sh;
+  long long dk_sb, dk_sn, dk_sh;
+  long long dv_sb, dv_sn, dv_sh;
+  float scale, scale_log2;
+};
+
+// streamed tile rows: 64 in the dq pass; in the dk/dv pass 64 at d = 64 and
+// 32 at d = 128 (the larger d holds twice the accumulators in registers)
+template <int D, bool DQ>
+struct Tiles {
+  static constexpr int BT = DQ ? 64 : (D <= 64 ? 64 : 32);
+  static constexpr int ROW = D * 2 + 16;      // padded row, bytes
+  static constexpr int STAGE = 2 * BT * ROW;  // two operands per stage
+  static constexpr int AUX = DQ ? 0 : 2 * BT * 4;  // lse2 and delta
+  static constexpr int BYTES = 2 * (STAGE + AUX);
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const char* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 16-byte global->shared copy; src_bytes = 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(char* dst, const char* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x in one MUFU op (subnormal results flush to 0; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragments of rows r0 and r0 + 8 of a (rows, D) bf16 operand, straight
+// from global memory; rows at or past n load as zero
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
+                                       const char* base, long long row_stride,
+                                       int r0, int n, int t) {
+  const char* p0 = base + (long long)r0 * row_stride * 2;
+  const char* p1 = base + (long long)(r0 + 8) * row_stride * 2;
+  const bool v0 = r0 < n, v1 = r0 + 8 < n;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c0 = kk * 32 + 4 * t;  // bytes: a k-step is 32 bytes
+    a[kk][0] = v0 ? ld32(p0 + c0) : 0u;
+    a[kk][1] = v1 ? ld32(p1 + c0) : 0u;
+    a[kk][2] = v0 ? ld32(p0 + c0 + 16) : 0u;
+    a[kk][3] = v1 ? ld32(p1 + c0 + 16) : 0u;
+  }
+}
+
+// acc[j] (16 x 8 per n8 tile j of a BT-row tile) = A (16 x D) . T^T, with T
+// the (BT, D) row-major tile in shared memory: one ldmatrix.x4 brings the B
+// fragments of two k-steps of one n8 tile
+template <int D, int NS, int ROW>
+__device__ __forceinline__ void row_products(float (&acc)[NS][4],
+                                             const uint32_t (&a)[D / 16][4],
+                                             const char* tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const char* row = tile + (j * 8 + (lane & 7)) * ROW + (lane >> 3) * 16;
+#pragma unroll
+    for (int hh = 0; hh < D / 32; ++hh) {
+      uint32_t bf[4];
+      ldsm_x4(bf, row + hh * 64);
+      mma_bf16(acc[j], a[2 * hh], bf[0], bf[1]);
+      mma_bf16(acc[j], a[2 * hh + 1], bf[2], bf[3]);
+    }
+  }
+}
+
+// out (16 x D) += P (16 x BT, f32 C fragments, rounded to bf16 here) . T,
+// with T the (BT, D) row-major tile in shared memory: one ldmatrix.x4.trans
+// brings the B fragments of two n8 tiles for one 16-row k-step
+template <int D, int NS, int ROW>
+__device__ __forceinline__ void col_products(float (&out)[D / 8][4],
+                                             const float (&pm)[NS][4],
+                                             const char* tile, int lane) {
+#pragma unroll
+  for (int c = 0; c < NS / 2; ++c) {
+    const uint32_t pa[4] = {pack_bf16(pm[2 * c][0], pm[2 * c][1]),
+                            pack_bf16(pm[2 * c][2], pm[2 * c][3]),
+                            pack_bf16(pm[2 * c + 1][0], pm[2 * c + 1][1]),
+                            pack_bf16(pm[2 * c + 1][2], pm[2 * c + 1][3])};
+    const char* row =
+        tile + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
+        (lane >> 4) * 16;
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, row + n * 16);
+      mma_bf16(out[n], pa, bf[0], bf[1]);
+      mma_bf16(out[n + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+// bf16 store of a 16 x D accumulator (rows r0, r0 + 8) times `mul`
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           long long row_stride,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, int r0, int n, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (r0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r0 * row_stride +
+                                         col) =
+          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
+    if (r0 + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          base + (long long)(r0 + 8) * row_stride + col) =
+          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+// stage rows r0 .. r0 + BT of two (N, D) operands into shared memory
+template <int D, int BT, int ROW>
+__device__ __forceinline__ void load_pair(char* dst, const char* a,
+                                          long long a_sn, const char* b,
+                                          long long b_sn, int r0, int n,
+                                          int tid) {
+  constexpr int CH = D * 2 / 16;  // 16-byte chunks per row
+  char* db = dst + BT * ROW;
+  for (int c = tid; c < BT * CH; c += kThreads) {
+    const int row = c / CH, col = (c % CH) * 16;
+    const bool ok = r0 + row < n;
+    cp_async16(dst + row * ROW + col,
+               ok ? a + (long long)(r0 + row) * a_sn * 2 + col : a,
+               ok ? 16 : 0);
+    cp_async16(db + row * ROW + col,
+               ok ? b + (long long)(r0 + row) * b_sn * 2 + col : b,
+               ok ? 16 : 0);
+  }
+}
+
+// dq pass: a block owns kBR query rows of one (batch, head)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const BwdParams p) {
+  using T = Tiles<D, true>;
+  constexpr int BT = T::BT;
+  constexpr int NS = BT / 8;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBR + warp * 16 + g;
+
+  const char* kb = p.k + (b * p.k_sb + h * p.k_sh) * 2;
+  const char* vb = p.v + (b * p.v_sb + h * p.v_sh) * 2;
+  load_pair<D, BT, T::ROW>(smem, kb, p.k_sn, vb, p.v_sn, 0, p.Nk, tid);
+  cp_async_commit();
+
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  load_a<D>(qa, p.q + (b * p.q_sb + h * p.q_sh) * 2, p.q_sn, r0, p.Nq, t);
+  load_a<D>(da, p.dout + (b * p.o_sb + h * p.o_sh) * 2, p.o_sn, r0, p.Nq, t);
+  const float* lb = p.lse + (long long)bh * p.Nq;
+  const float* db = p.delta + (long long)bh * p.Nq;
+  const float lse0 = r0 < p.Nq ? lb[r0] : 0.f;
+  const float lse1 = r0 + 8 < p.Nq ? lb[r0 + 8] : 0.f;
+  const float dl0 = r0 < p.Nq ? db[r0] : 0.f;
+  const float dl1 = r0 + 8 < p.Nq ? db[r0 + 8] : 0.f;
+  const float c = p.scale_log2;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int ntiles = (p.Nk + BT - 1) / BT;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_pair<D, BT, T::ROW>(smem + ((it + 1) & 1) * T::STAGE, kb, p.k_sn,
+                               vb, p.v_sn, (it + 1) * BT, p.Nk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const char* ks = smem + (it & 1) * T::STAGE;
+    const char* vs = ks + BT * T::ROW;
+    const int kv0 = it * BT;
+
+    float s[NS][4], dp[NS][4];
+    row_products<D, NS, T::ROW>(s, qa, ks, lane);
+    row_products<D, NS, T::ROW>(dp, da, vs, lane);
+    // ds = p (dp - delta), p = exp2(s c - lse2); kv columns past Nk -> 0
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lse = i < 2 ? lse0 : lse1, dl = i < 2 ? dl0 : dl1;
+        float pv = ex2(fmaf(s[j][i], c, -lse));
+        if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) pv = 0.f;
+        s[j][i] = pv * (dp[j][i] - dl);
+      }
+    }
+    // dq += ds k
+    col_products<D, NS, T::ROW>(acc, s, ks, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
+                p.Nq, t);
+}
+
+// dk/dv pass: a block owns kBR kv rows of one (batch, head); scores and dp
+// are computed transposed (rows = keys, columns = queries)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const BwdParams p) {
+  using T = Tiles<D, false>;
+  constexpr int BT = T::BT;
+  constexpr int NS = BT / 8;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBR + warp * 16 + g;  // this thread's keys
+
+  const char* qb = p.q + (b * p.q_sb + h * p.q_sh) * 2;
+  const char* ob = p.dout + (b * p.o_sb + h * p.o_sh) * 2;
+  const float* lb = p.lse + (long long)bh * p.Nq;
+  const float* db = p.delta + (long long)bh * p.Nq;
+  float* aux = reinterpret_cast<float*>(smem + 2 * T::STAGE);
+
+  // stage query rows q0 .. q0 + BT: q and do by cp.async; lse2 and delta by
+  // plain loads (+inf and 0 past Nq, so those columns give p = ds = 0)
+  auto load_tile = [&](int stage, int q0) {
+    load_pair<D, BT, T::ROW>(smem + stage * T::STAGE, qb, p.q_sn, ob,
+                             p.o_sn, q0, p.Nq, tid);
+    if (tid < BT) {
+      const bool ok = q0 + tid < p.Nq;
+      aux[stage * 2 * BT + tid] = ok ? lb[q0 + tid] : INFINITY;
+      aux[stage * 2 * BT + BT + tid] = ok ? db[q0 + tid] : 0.f;
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a<D>(ka, p.k + (b * p.k_sb + h * p.k_sh) * 2, p.k_sn, r0, p.Nk, t);
+  load_a<D>(va, p.v + (b * p.v_sb + h * p.v_sh) * 2, p.v_sn, r0, p.Nk, t);
+  const float c = p.scale_log2;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+
+  const int ntiles = (p.Nq + BT - 1) / BT;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * BT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const char* qs = smem + (it & 1) * T::STAGE;
+    const char* os = qs + BT * T::ROW;
+    const float* ls = aux + (it & 1) * 2 * BT;
+    const float* ds = ls + BT;
+
+    float st[NS][4], dpt[NS][4];
+    row_products<D, NS, T::ROW>(st, ka, qs, lane);   // s^T = k q^T
+    row_products<D, NS, T::ROW>(dpt, va, os, lane);  // dp^T = v do^T
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int col = j * 8 + 2 * t;
+      const float l0 = ls[col], l1 = ls[col + 1];
+      const float d0 = ds[col], d1 = ds[col + 1];
+      st[j][0] = ex2(fmaf(st[j][0], c, -l0));
+      st[j][1] = ex2(fmaf(st[j][1], c, -l1));
+      st[j][2] = ex2(fmaf(st[j][2], c, -l0));
+      st[j][3] = ex2(fmaf(st[j][3], c, -l1));
+      dpt[j][0] = st[j][0] * (dpt[j][0] - d0);
+      dpt[j][1] = st[j][1] * (dpt[j][1] - d1);
+      dpt[j][2] = st[j][2] * (dpt[j][2] - d0);
+      dpt[j][3] = st[j][3] * (dpt[j][3] - d1);
+    }
+    col_products<D, NS, T::ROW>(dv, st, os, lane);   // dv += p^T do
+    col_products<D, NS, T::ROW>(dk, dpt, qs, lane);  // dk += ds^T q
+    __syncthreads();  // every warp is done with this stage
+  }
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
+                p.Nk, t);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
+                p.Nk, t);
+}
+
+template <int D>
+cudaError_t launch(const BwdParams& p, int BH, cudaStream_t stream) {
+  auto dq = flash_bwd_dq_kernel<D>;
+  auto dkv = flash_bwd_dkv_kernel<D>;
+  const int bq = Tiles<D, true>::BYTES, bkv = Tiles<D, false>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq, cudaFuncAttributeMaxDynamicSharedMemorySize, bq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, bkv);
+  if (err != cudaSuccess) return err;
+  dq<<<dim3((p.Nq + kBR - 1) / kBR, BH), kThreads, bq, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv<<<dim3((p.Nk + kBR - 1) / kBR, BH), kThreads, bkv, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D) through strides; strides: 21
+// int64 in elements, (batch, token, head) for q, k, v, dout, dq, dk, dv.
+// lse2 and delta: f32 (B, H, Nq), contiguous. scale_log2 = scale*log2(e)
+// as the forward took it. Launches the dq pass and the
+// dk/dv pass on `stream`. Returns a cudaError_t (0 on success).
+extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, void* dk, void* dv,
+                             int B, int H, int Nq, int Nk, int D,
+                             const long long* strides, float scale,
+                             float scale_log2, void* stream) {
+  BwdParams p;
+  p.q = static_cast<const char*>(q);
+  p.k = static_cast<const char*>(k);
+  p.v = static_cast<const char*>(v);
+  p.dout = static_cast<const char*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];
+  p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_sh = strides[11];
+  p.dq_sb = strides[12]; p.dq_sn = strides[13]; p.dq_sh = strides[14];
+  p.dk_sb = strides[15]; p.dk_sn = strides[16]; p.dk_sh = strides[17];
+  p.dv_sb = strides[18]; p.dv_sn = strides[19]; p.dv_sh = strides[20];
+  p.scale = scale;
+  p.scale_log2 = scale_log2;  // as the forward's, so p matches its lse2
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64) return (int)launch<64>(p, BH, s);
+  if (D == 128) return (int)launch<128>(p, BH, s);
+  return (int)cudaErrorInvalidValue;
+}

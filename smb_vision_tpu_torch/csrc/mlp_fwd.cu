@@ -1,9 +1,12 @@
-// Fused transformer MLP forward for Hopper (sm_90a): the plain MLP (K6) and
-// the whole MLP half-block with LayerNorm prologue and residual (K2), one
-// templated body.
+// Fused transformer MLP forward for Hopper (sm_90a): the plain MLP (K6), the
+// training forward that also spills the pre-activation (K5a) and the whole
+// MLP half-block with LayerNorm prologue and residual (K2), one templated
+// body.
 //
 // Replaces
 //   K6  smb_vision_tpu/ops/mlp.py:_mlp_kernel        y = act(x w1 + b1) w2 + b2
+//   K5a smb_vision_tpu/ops/mlp.py:_mlp_train_kernel  K6, plus h = x w1 + b1
+//                                                    stored in bf16
 //   K2  smb_vision_tpu/ops/mlp.py:_mlp_block_kernel  y = x + act(LN(x) w1 + b1) w2 + b2
 //
 // Numerics as the TPU kernels: bf16 operands, f32 accumulation, LayerNorm
@@ -33,7 +36,11 @@
 //     room for two): cp.async brings the next chunk's w1 rows during this
 //     chunk's h w2 product, and the next w2 columns during the next
 //     chunk's xn w1 product;
-//   - the epilogue adds b2 (and the residual x) in f32 and stores bf16.
+//   - the epilogue adds b2 (and the residual x) in f32 and stores bf16;
+//   - K5a (SPILL) also stores each chunk's h = x w1 + b1, rounded to bf16,
+//     from the phase-1 registers: the (M, F) tensor the backward kernel
+//     (mlp_bwd.cu) reads instead of recomputing x w1. The activation is
+//     still taken of the f32 h, as in K6.
 // Weights come in PyTorch's Linear layout, w1 (F, K) and w2 (K, F); every
 // fragment is loaded by ldmatrix, and rows are padded by 16 bytes so the 8
 // row addresses of an ldmatrix hit distinct banks. Ragged M: rows past M
@@ -63,6 +70,7 @@ struct MlpParams {
   const __nv_bfloat16* w2;   // (K, F)
   const float* b2;           // (K,)
   __nv_bfloat16* out;        // (M, K)
+  __nv_bfloat16* h;          // (M, F) pre-activation spill, K5a only
   int M, F;
   float eps;
   int act;                   // 0: exact gelu, 1: tanh gelu
@@ -122,7 +130,7 @@ struct Smem {
   static constexpr int BYTES = ELEMS * 2;
 };
 
-template <int K, bool LN>
+template <int K, bool LN, bool SPILL>
 __global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p) {
   using S = Smem<K>;
   constexpr int NT = K / 64;  // n8 output tiles per warp (K/8 columns)
@@ -252,6 +260,15 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p)
         acc[i] = (part[0][i] + part[1][i]) + (part[2][i] + part[3][i]);
       const int col = pn * 8 + 2 * t;
       const float bb0 = p.b1[f0 + col], bb1 = p.b1[f0 + col + 1];
+      if constexpr (SPILL) {
+        const long long r = m0 + pm * 16 + g;
+        if (r < p.M)
+          *reinterpret_cast<__nv_bfloat162*>(p.h + r * p.F + f0 + col) =
+              __floats2bfloat162_rn(acc[0] + bb0, acc[1] + bb1);
+        if (r + 8 < p.M)
+          *reinterpret_cast<__nv_bfloat162*>(p.h + (r + 8) * p.F + f0 + col) =
+              __floats2bfloat162_rn(acc[2] + bb0, acc[3] + bb1);
+      }
       *reinterpret_cast<__nv_bfloat162*>(hs + (pm * 16 + g) * S::WS + col) =
           __floats2bfloat162_rn(activation(acc[0] + bb0, p.act),
                                 activation(acc[1] + bb1, p.act));
@@ -312,9 +329,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p)
   }
 }
 
-template <int K, bool LN>
+template <int K, bool LN, bool SPILL>
 cudaError_t launch(const MlpParams& p, cudaStream_t stream) {
-  auto kernel = mlp_fwd_kernel<K, LN>;
+  auto kernel = mlp_fwd_kernel<K, LN, SPILL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<K>::BYTES);
   if (err != cudaSuccess) return err;
@@ -323,28 +340,31 @@ cudaError_t launch(const MlpParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool LN>
+template <bool LN, bool SPILL>
 cudaError_t dispatch(const MlpParams& p, int K, cudaStream_t s) {
   switch (K) {
-    case 128: return launch<128, LN>(p, s);
-    case 256: return launch<256, LN>(p, s);
-    case 384: return launch<384, LN>(p, s);
-    case 512: return launch<512, LN>(p, s);
-    case 768: return launch<768, LN>(p, s);
-    case 1024: return launch<1024, LN>(p, s);
+    case 128: return launch<128, LN, SPILL>(p, s);
+    case 256: return launch<256, LN, SPILL>(p, s);
+    case 384: return launch<384, LN, SPILL>(p, s);
+    case 512: return launch<512, LN, SPILL>(p, s);
+    case 768: return launch<768, LN, SPILL>(p, s);
+    case 1024: return launch<1024, LN, SPILL>(p, s);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, w1 (F, K), w2 (K, F), out: bf16; lnw, lnb, b1, b2: f32. ln != 0 selects
-// K2 (LayerNorm prologue + residual), otherwise K6. Returns a cudaError_t.
+// x, w1 (F, K), w2 (K, F), out, h (M, F): bf16; lnw, lnb, b1, b2: f32.
+// ln != 0 selects K2 (LayerNorm prologue + residual); otherwise h != null
+// selects K5a (K6 plus the pre-activation spill into h), h == null K6.
+// Returns a cudaError_t.
 extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
                            const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* out, int M, int K, int F,
-                           float eps, int ln, int act, void* stream) {
-  if (M <= 0 || F <= 0 || F % kBF != 0 || (act != 0 && act != 1))
+                           const void* b2, void* out, void* h, int M, int K,
+                           int F, float eps, int ln, int act, void* stream) {
+  if (M <= 0 || F <= 0 || F % kBF != 0 || (act != 0 && act != 1) ||
+      (ln && h != nullptr))
     return (int)cudaErrorInvalidValue;
   MlpParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
@@ -355,10 +375,12 @@ extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
   p.w2 = static_cast<const __nv_bfloat16*>(w2);
   p.b2 = static_cast<const float*>(b2);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.h = static_cast<__nv_bfloat16*>(h);
   p.M = M;
   p.F = F;
   p.eps = eps;
   p.act = act;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(ln ? dispatch<true>(p, K, s) : dispatch<false>(p, K, s));
+  if (ln) return (int)dispatch<true, false>(p, K, s);
+  return (int)(h ? dispatch<false, true>(p, K, s) : dispatch<false, false>(p, K, s));
 }

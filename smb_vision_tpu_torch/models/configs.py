@@ -2,9 +2,8 @@
 
 Counterpart of `smb_vision_tpu/models/configs.py`. Field names mirror the
 HuggingFace configs, so JSON config files written by the JAX package load
-here unchanged (keys this slice does not use, such as the pretraining
-decoder's, are ignored). The other model families' configs come with their
-models.
+here unchanged (keys the port has no field for are ignored). The other
+model families' configs come with their models.
 """
 
 from __future__ import annotations
@@ -63,10 +62,19 @@ class VideoMAEConfig(BaseConfig):
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.0           # read by neither model
+    attention_probs_dropout_prob: float = 0.0  # read by neither model
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-12
     qkv_bias: bool = True
     use_mean_pooling: bool = True
+
+    # decoder (pretraining)
+    decoder_num_attention_heads: int = 6
+    decoder_hidden_size: int = 384
+    decoder_num_hidden_layers: int = 4
+    decoder_intermediate_size: int = 1536
+    norm_pix_loss: bool = True
 
     # framework knobs (not in the HF config)
     dtype: str = "bfloat16"         # compute dtype
@@ -76,7 +84,7 @@ class VideoMAEConfig(BaseConfig):
     mlp_impl: str = "auto"          # auto | pallas | pallas_bwd | xla
     glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
     fused_qkv: bool = False         # not ported yet
-    gradient_checkpointing: bool = False
+    gradient_checkpointing: bool = False   # remat each block in training
     sequence_parallel: bool = False  # not ported yet
     quant8: bool = False            # not ported yet
 
@@ -93,3 +101,7 @@ class VideoMAEConfig(BaseConfig):
     def seq_len(self) -> int:
         t, h, w = self.grid
         return t * h * w
+
+    @property
+    def patch_dim(self) -> int:
+        return self.num_channels * self.tubelet_size * self.patch_size ** 2

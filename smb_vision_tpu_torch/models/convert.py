@@ -1,15 +1,16 @@
-"""Checkpoints into the port: the JAX package's safetensors export and
-HF-layout VideoMAE files.
+"""Checkpoints in and out of the port: the JAX package's safetensors export
+and HF-layout VideoMAE files.
 
-Counterpart of `smb_vision_tpu/models/convert.py` for the encoder backbone.
+Counterpart of `smb_vision_tpu/models/convert.py` for VideoMAE.
 `params_from_flax` maps the JAX package's flattened parameter names
 (`params.encoder.layer_0.attention.query.kernel`, ...) to this package's
 state_dict (`encoder.layer_0.attention.query.weight`, ...): Dense kernels
 are transposed into Linear weights, LayerNorm `scale` becomes `weight`, and
-the Conv3d layout of `patch_embed_kernel` is kept. The safetensors reader is
-a small numpy one (the format: an 8-byte little-endian header length, a
-JSON header, raw little-endian tensor bytes), so no `safetensors` package is
-needed.
+the Conv3d layout of `patch_embed_kernel` is kept; `params_to_flax` is its
+inverse, which `Trainer.save_model` writes. The safetensors reader and
+writer are small numpy ones (the format: an 8-byte little-endian header
+length, a JSON header, raw little-endian tensor bytes), so no `safetensors`
+package is needed.
 """
 
 from __future__ import annotations
@@ -31,8 +32,14 @@ _ST_DTYPES = {
     "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
     "U8": np.uint8, "BOOL": np.bool_,
 }
+_ST_NAMES = {np.dtype(v).name: k for k, v in _ST_DTYPES.items()}
 _WRAPPERS = ("videomae.",)
 _BACKBONE = re.compile(r"^(patch_embed_(kernel|bias)|encoder\.|layernorm\.)")
+# the pretraining tree: the backbone under `videomae.` and the decoder side
+_PRETRAINING = re.compile(
+    r"^(videomae\.(patch_embed_(kernel|bias)|encoder\.|layernorm\.)"
+    r"|encoder_to_decoder\.|mask_token$|decoder\.|decoder_norm\."
+    r"|decoder_head\.)")
 
 
 def read_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
@@ -69,19 +76,50 @@ def read_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The JAX package's flattened backbone parameters -> this package's
-    VideoMAEModel state_dict. Keys may carry `params.` and a `videomae.`
-    wrapper (a pretraining or classification export); parameters outside
-    the encoder backbone (decoder, heads) are left out."""
+def write_safetensors(path: Union[str, Path],
+                      tensors: Dict[str, np.ndarray]) -> None:
+    """Write numpy arrays as one .safetensors file, in sorted name order
+    with contiguous offsets and the header padded to 8 bytes."""
+    header, offset, blobs = {}, 0, []
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        dt = _ST_NAMES.get(arr.dtype.name)
+        if dt is None:
+            raise ValueError(f"tensor {name!r}: dtype {arr.dtype} has no "
+                             "safetensors name here")
+        raw = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": dt, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def params_from_flax(flat: Dict[str, np.ndarray], *,
+                     pretraining: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX package's flattened parameters -> this package's state_dict.
+    Keys may carry `params.`. By default the backbone for VideoMAEModel:
+    a `videomae.` wrapper (a pretraining or classification export) is
+    taken off and parameters outside the backbone are left out. With
+    pretraining=True the whole VideoMAEForPreTraining tree, wrapper kept."""
     out: Dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         k = key[len("params."):] if key.startswith("params.") else key
-        for w in _WRAPPERS:
-            if k.startswith(w):
-                k = k[len(w):]
-        if not _BACKBONE.match(k):
-            continue
+        if pretraining:
+            if not _PRETRAINING.match(k):
+                continue
+        else:
+            for w in _WRAPPERS:
+                if k.startswith(w):
+                    k = k[len(w):]
+            if not _BACKBONE.match(k):
+                continue
         arr = np.array(val, dtype=np.float32)   # a writable copy
         if k.endswith(".kernel"):
             if arr.ndim != 2:
@@ -90,6 +128,25 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         elif k.endswith(".scale"):
             k = k[:-len(".scale")] + ".weight"
         out[k] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of `params_from_flax`: a state_dict -> the JAX package's flat
+    names under `params.` (float32): 2-D `.weight`s become transposed
+    `.kernel`s, 1-D ones (LayerNorm) `.scale`s."""
+    out: Dict[str, np.ndarray] = {}
+    for k, t in state.items():
+        arr = t.detach().float().cpu().numpy()
+        if k.endswith(".weight"):
+            base = k[:-len(".weight")]
+            if arr.ndim == 2:
+                k, arr = base + ".kernel", arr.T
+            elif arr.ndim == 1:
+                k = base + ".scale"
+            else:
+                raise ValueError(f"{k}: weight of shape {arr.shape}")
+        out["params." + k] = np.ascontiguousarray(arr)
     return out
 
 

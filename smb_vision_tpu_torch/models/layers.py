@@ -5,7 +5,9 @@ and named after the JAX package's parameter tree (`attention.query`,
 `norm1`, `mlp.fc1`, ...), in PyTorch's layouts: Linear weights (out, in),
 LayerNorm `weight`/`bias`. Compute runs in the configured dtype, with
 LayerNorm statistics in float32. Attention and the MLP half-block route to
-the hand-written kernels through `ops.attention` and `ops.mlp`.
+the hand-written kernels through `ops.attention` and `ops.mlp`, whose
+autograd Functions carry the kernels' backward; an Encoder with remat
+checkpoints each block, as `nn.remat(Block)` does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from smb_vision_tpu_torch.ops.attention import attention
@@ -129,9 +132,9 @@ class Mlp(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample: the identity at eval, which is all the
-    embedding path runs. Training with a non-zero rate comes with the
-    trainers."""
+    """Stochastic depth per sample: the identity at eval and at rate 0,
+    which is all the embedding and MIM paths run (VideoMAEConfig has no
+    drop-path rate). Training with a non-zero rate comes with V-JEPA."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -140,7 +143,7 @@ class DropPath(nn.Module):
     def forward(self, x):
         if self.training and self.rate > 0.0:
             raise not_ported("DropPath in training (drop_path_rate > 0)",
-                             "queue 1, MIM slice")
+                             "queue 1, V-JEPA slice")
         return x
 
 
@@ -150,7 +153,8 @@ class Block(nn.Module):
     The MLP half-block goes through `mlp_block_forward` (kernel K2) when
     mlp_impl is "pallas", or "auto" with bf16 compute; LayerScale folds
     into w2/b2. "pallas_bwd" skips that fusion, as in the JAX package, and
-    routes LN + Mlp (kernel K6) separately."""
+    routes LN + Mlp separately (kernels K5a + K5b under autograd, K6
+    otherwise)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -232,7 +236,10 @@ class Block(nn.Module):
 
 class Encoder(nn.Module):
     """Stack of Blocks, `layer_{i}`; drop-path rate rises linearly to
-    drop_path_rate over the depth."""
+    drop_path_rate over the depth. remat (gradient checkpointing) keeps
+    only each block's input for the backward and runs the block again
+    there (`torch.utils.checkpoint`, non-reentrant), as `nn.remat(Block)`
+    does in the JAX package; it applies only while autograd records."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -245,10 +252,8 @@ class Encoder(nn.Module):
                  glue_impl: str = "auto", quant8: bool = False,
                  sequence_parallel: bool = False):
         super().__init__()
-        if remat:
-            raise not_ported("remat / gradient_checkpointing (training)",
-                             "queue 1, MIM slice")
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             rate = drop_path_rate * i / max(num_layers - 1, 1)
             self.add_module(f"layer_{i}", Block(
@@ -260,6 +265,12 @@ class Encoder(nn.Module):
                 quant8=quant8, sequence_parallel=sequence_parallel))
 
     def forward(self, x):
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
         return x

@@ -1,8 +1,10 @@
-"""VideoMAE-3D encoder.
+"""VideoMAE-3D: the encoder and masked-image-modeling pretraining.
 
-Counterpart of `smb_vision_tpu/models/videomae.py::VideoMAEModel`, the
-unmasked branch (batch embedding). The masked branch, the pretraining
-decoder and the classification head belong to later slices.
+Counterpart of `smb_vision_tpu/models/videomae.py`: `VideoMAEModel` (both
+branches: every token for batch embedding, the visible tokens only for
+MIM) and `VideoMAEForPreTraining` (encoder on the visible tokens, a narrow
+decoder over the whole sequence, MSE on the per-patch-normalised pixels of
+the masked patches). The classification head belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -16,10 +18,15 @@ from smb_vision_tpu_torch.models.configs import VideoMAEConfig
 from smb_vision_tpu_torch.models.layers import (
     Encoder,
     LayerNorm,
-    not_ported,
+    Linear,
     trunc_normal_,
 )
-from smb_vision_tpu_torch.ops.patches import patch_embed, sincos_position_table
+from smb_vision_tpu_torch.ops.patches import (
+    extract_patches,
+    normalize_pixel_targets,
+    patch_embed,
+    sincos_position_table,
+)
 
 
 def compute_dtype(config: VideoMAEConfig) -> torch.dtype:
@@ -29,11 +36,32 @@ def compute_dtype(config: VideoMAEConfig) -> torch.dtype:
     return dt
 
 
+def _init_(module: nn.Module, std: float,
+           generator: Optional[torch.Generator]) -> None:
+    """Truncated normal (std) for patch kernels, mask tokens and every
+    Linear weight; zero biases; LayerNorm at identity."""
+    for name, p in module.named_parameters():
+        if name.endswith(("patch_embed_kernel", "mask_token")) or (
+                name.endswith(".weight") and p.dim() == 2):
+            trunc_normal_(p, std, generator)
+        elif "norm" in name and name.endswith(".weight"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, D) rows idx (B, n) -> (B, n, D)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
 class VideoMAEModel(nn.Module):
     """Patch embed + sincos positions + transformer stack. Input
-    (B, T, C, H, W) pixels; output (B, seq_len, hidden) in the compute
-    dtype, and None in place of the JAX model's token order (which only
-    the masked branch produces)."""
+    (B, T, C, H, W) pixels. Unmasked: output (B, seq_len, hidden) in the
+    compute dtype and None. With bool_masked_pos (B, seq_len) and
+    num_masked, the exact masked count per sample: only the visible tokens
+    are encoded, (B, seq_len - num_masked, hidden), and the token order
+    (B, seq_len), visible tokens first, is returned for the decoder."""
 
     def __init__(self, config: VideoMAEConfig):
         super().__init__()
@@ -64,25 +92,113 @@ class VideoMAEModel(nn.Module):
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """Truncated normal (initializer_range) for the patch kernel and
         every Linear weight; zero biases; LayerNorm at identity."""
-        std = self.config.initializer_range
-        for name, p in self.named_parameters():
-            if name == "patch_embed_kernel" or (
-                    name.endswith(".weight") and p.dim() == 2):
-                trunc_normal_(p, std, generator)
-            elif "norm" in name and name.endswith(".weight"):
-                p.fill_(1.0)
-            else:
-                p.zero_()
+        _init_(self, self.config.initializer_range, generator)
         return self
 
-    def forward(self, pixel_values, bool_masked_pos=None):
-        if bool_masked_pos is not None:
-            raise not_ported("the masked (MIM) branch of VideoMAEModel",
-                             "queue 1, MIM slice")
-        x = patch_embed(pixel_values, self.patch_embed_kernel,
-                        self.patch_embed_bias, dtype=self.dtype)
-        x = x + self.pos.to(self.dtype)
+    def forward(self, pixel_values, bool_masked_pos=None,
+                num_masked: int = 0):
+        cfg, dt = self.config, self.dtype
+        order = None
+        if bool_masked_pos is not None and num_masked > 0:
+            # stable sort: visible tokens first in their original order,
+            # as boolean indexing with ~mask; the pixel patches (which need
+            # no gradient) are gathered before the embed product, so it
+            # runs on the visible rows only
+            n = cfg.seq_len
+            order = torch.argsort(bool_masked_pos.to(torch.int32), dim=-1,
+                                  stable=True)
+            vis_idx = order[:, :n - num_masked]
+            patches = extract_patches(pixel_values, cfg.tubelet_size,
+                                      cfg.patch_size, channel_major=True)
+            patches = _gather_rows(patches.detach(), vis_idx)
+            wmat = self.patch_embed_kernel.reshape(cfg.hidden_size, -1).t()
+            x = torch.matmul(patches.to(dt), wmat.to(dt)).float()
+            x = (x + self.patch_embed_bias.float()).to(dt)
+            pos = self.pos.to(dt).expand(x.shape[0], -1, -1)
+            x = x + _gather_rows(pos, vis_idx)
+        else:
+            x = patch_embed(pixel_values, self.patch_embed_kernel,
+                            self.patch_embed_bias, dtype=dt)
+            x = x + self.pos.to(dt)
         x = self.encoder(x)
         if self.layernorm is not None:
             x = self.layernorm(x)
-        return x, None
+        return x, order
+
+
+class VideoMAEForPreTraining(nn.Module):
+    """SimMIM-style pretraining: encode the visible tokens, map them to the
+    decoder width, re-insert a learned mask token (plus the decoder's
+    sincos positions) at the masked places, run the decoder over the whole
+    sequence, project the masked tokens to pixels and take the MSE against
+    the per-patch-normalised pixels of the masked patches. Parameter names
+    follow the JAX model's tree (`videomae.*`, `encoder_to_decoder`,
+    `mask_token`, `decoder.layer_i.*`, `decoder_norm`, `decoder_head`)."""
+
+    def __init__(self, config: VideoMAEConfig):
+        super().__init__()
+        cfg = self.config = config
+        dt = self.dtype = compute_dtype(cfg)
+        dh = cfg.decoder_hidden_size
+        self.videomae = VideoMAEModel(cfg)
+        self.encoder_to_decoder = Linear(cfg.hidden_size, dh, False, dt)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, dh))
+        self.register_buffer("pos_dec", sincos_position_table(
+            cfg.seq_len, dh), persistent=False)
+        self.decoder = Encoder(
+            num_layers=cfg.decoder_num_hidden_layers, hidden_size=dh,
+            num_heads=cfg.decoder_num_attention_heads,
+            intermediate_size=cfg.decoder_intermediate_size,
+            act=cfg.hidden_act, bias_mode="qv" if cfg.qkv_bias else "none",
+            layer_norm_eps=cfg.layer_norm_eps, dtype=dt,
+            attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
+            glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
+            remat=cfg.gradient_checkpointing, quant8=cfg.quant8,
+            sequence_parallel=cfg.sequence_parallel)
+        self.decoder_norm = LayerNorm(dh, cfg.layer_norm_eps, dt)
+        self.decoder_head = Linear(dh, cfg.patch_dim, True, dt)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        _init_(self, self.config.initializer_range, generator)
+        return self
+
+    def forward(self, pixel_values, bool_masked_pos, num_masked: int,
+                valid=None):
+        """valid: optional (B,) 0/1 row weights: rows of 0 (the Trainer's
+        eval padding) stay out of the loss mean."""
+        cfg, dt = self.config, self.dtype
+        b = pixel_values.shape[0]
+        n = cfg.seq_len
+        enc, order = self.videomae(pixel_values, bool_masked_pos, num_masked)
+        x = self.encoder_to_decoder(enc)
+        vis_idx, mask_idx = order[:, :n - num_masked], order[:, n - num_masked:]
+        pos = self.pos_dec.to(dt).expand(b, -1, -1)
+        x = torch.cat([x + _gather_rows(pos, vis_idx),
+                       self.mask_token.to(dt) + _gather_rows(pos, mask_idx)],
+                      dim=1)
+        x = self.decoder(x)
+        h = self.decoder_norm(x[:, -num_masked:])
+        logits = self.decoder_head(h)
+
+        # labels: the masked patches' pixels, per-patch normalised after
+        # the gather (normalisation is per row); no gradient
+        with torch.no_grad():
+            patches = extract_patches(pixel_values, cfg.tubelet_size,
+                                      cfg.patch_size,
+                                      channel_major=cfg.num_channels == 1)
+            labels = _gather_rows(patches, mask_idx)
+            labels = (normalize_pixel_targets(labels) if cfg.norm_pix_loss
+                      else labels.float())
+        sq = (logits.float() - labels) ** 2
+        loss = (sq.mean() if valid is None
+                else row_weighted_mean(sq.mean(dim=(1, 2)), valid))
+        return {"loss": loss, "logits": logits}
+
+
+def row_weighted_mean(row: torch.Tensor, valid) -> torch.Tensor:
+    """Mean of per-row losses over the valid rows (valid=None: all)."""
+    if valid is None:
+        return row.mean()
+    v = valid.to(torch.float32)
+    return (row * v).sum() / torch.clamp(v.sum(), min=1.0)

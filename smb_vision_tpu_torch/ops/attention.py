@@ -1,17 +1,22 @@
 """Multi-head attention: the plain PyTorch versions and the flash kernels.
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
-the JAX package's `(B, N, H, D)` layout. Two hand-written CUDA kernels
-(`csrc/flash_fwd.cu`) stand behind them:
+the JAX package's `(B, N, H, D)` layout. Three hand-written CUDA kernels
+stand behind them:
 
-- K1 `flash_attention`: bf16 flash forward with an optional row
-  logsumexp (replaces `_fwd_kernel`);
-- K3 `flash_attention_int8`: the same forward with `q k^T` on int8 with
-  per-(batch, head) symmetric scales (replaces `_fwd_i8_kernel`, pv=False).
+- K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
+  row logsumexp (replaces `_fwd_kernel`);
+- K4 `flash_attention_bwd` (`csrc/flash_bwd.cu`): its backward, dq and
+  dk/dv in two passes (replaces `_bwd_dq_kernel` and `_bwd_dkv_kernel`);
+- K3 `flash_attention_int8` (`csrc/flash_fwd.cu`): the forward with `q k^T`
+  on int8 with per-(batch, head) symmetric scales (replaces
+  `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package.
 
-Each wrapper runs its plain version for a tensor on the CPU and launches
-its kernel for a CUDA tensor; there is no fallback between the two.
-`launches` on each wrapper counts kernel launches.
+K1 and K4 form one `torch.autograd.Function`, the counterpart of the JAX
+package's `jax.custom_vjp` around `_flash`/`_flash_lse`. Each wrapper runs
+its plain version for a tensor on the CPU and launches its kernel for a
+CUDA tensor; there is no fallback between the two. `launches` on each
+wrapper counts kernel launches.
 """
 
 from __future__ import annotations
@@ -130,6 +135,49 @@ def _check_qkv(q, k, v, qk_dtype):
                              f"{t.stride()}")
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def attention_bwd_plain(q, k, v, out, lse, do, *, scale: float,
+                        g_lse=None):
+    """Plain version of K4: the flash backward by its formula, in f32,
+    chunked over queries like `xla_attention` (no (N, N) block is held):
+      p = exp2(s*scale*log2(e) - lse2), delta = rowsum(do*out)
+          [- g_lse*log2(e) when lse2 has a cotangent too],
+      ds = p*(dp - delta), dq = scale*ds k, dk = scale*ds^T q, dv = p^T do.
+    q, out, do (B, Nq, H, D); k, v (B, Nk, H, D); lse, g_lse (B, H, Nq).
+    Returns dq, dk, dv in the dtypes of q, k, v."""
+    b, nq, h, _ = q.shape
+    nk = k.shape[1]
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, H, Nk, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    if g_lse is not None:
+        delta = delta - g_lse.float() * LOG2E
+    lse = lse.float()
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    step = _plain_chunk(b, h, nk)
+    dqs = []
+    for s0 in range(0, nq, step):
+        qc = q[:, s0:s0 + step].float().permute(0, 2, 1, 3)
+        doc = do[:, s0:s0 + step].float().permute(0, 2, 1, 3)
+        s = torch.matmul(qc, kf.transpose(-1, -2))      # (B, H, c, Nk)
+        p = torch.exp2(s * (scale * LOG2E) - lse[..., s0:s0 + step, None])
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        ds = p * (dp - delta[..., s0:s0 + step, None])
+        dqs.append(torch.matmul(ds, kf) * scale)
+        dk += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        dv += torch.matmul(p.transpose(-1, -2), doc)
+    dq = torch.cat(dqs, dim=2).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype).contiguous(),
+            dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
+
+
 def _launch_flash(q, k, v, sq, sk, out, lse, int8: bool, scale_log2: float):
     b, nq, h, d = q.shape
     strides = (ctypes.c_longlong * 12)(
@@ -142,13 +190,8 @@ def _launch_flash(q, k, v, sq, sk, out, lse, int8: bool, scale_log2: float):
     _build.check(rc, "flash_fwd_i8" if int8 else "flash_fwd")
 
 
-def flash_attention(q, k, v, *, scale: Optional[float] = None,
-                    with_lse: bool = False):
-    """K1: bf16 flash-attention forward. q (B, Nq, H, D), k, v (B, Nk, H,
-    D) -> out (B, Nq, H, D) [, lse2 (B, H, Nq) f32]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _flash_fwd(q, k, v, scale: float, with_lse: bool):
+    """K1 or its plain version, by the device of q; no autograd."""
     if q.device.type == "cpu":
         return xla_attention(q, k, v, scale=scale, with_lse=with_lse)
     if q.device.type != "cuda":
@@ -164,13 +207,104 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     return (out, lse) if with_lse else out
 
 
+def flash_attention_bwd(q, k, v, out, lse, do, *,
+                        scale: Optional[float] = None, g_lse=None):
+    """K4: the flash-attention backward. q, out, do (B, Nq, H, D); k, v
+    (B, Nk, H, D); lse (B, H, Nq) f32, the forward's lse2; g_lse: an
+    optional cotangent of lse2, folded into delta as the JAX package does.
+    Returns dq, dk, dv. delta = rowsum(do*out) is taken in plain torch
+    beforehand, as the JAX package takes it in XLA. CPU tensors take
+    `attention_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, lse, do, scale=scale,
+                                   g_lse=g_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_qkv(q, k, v, torch.bfloat16)
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    do = do.to(torch.bfloat16).contiguous()
+    if do.shape != q.shape or lse.shape != (b, h, nq):
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} and "
+                         f"lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float() * LOG2E
+    delta = delta.contiguous()
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((b, nk, h, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    strides = (ctypes.c_longlong * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
+    rc = _build.lib().smb_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, nq, nk, d, ctypes.cast(strides, ctypes.c_void_p),
+        scale, scale * LOG2E, _build.stream_ptr(q.device))
+    _build.check(rc, "flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 backward. Differentiable through both outputs: the
+    lse2 cotangent folds into delta (`smb_vision_tpu/ops/attention.py`
+    `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _flash_fwd(q, k, v, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out,
+                                         scale=ctx.scale, g_lse=g_lse)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None,
+                    with_lse: bool = False):
+    """K1: bf16 flash-attention forward. q (B, Nq, H, D), k, v (B, Nk, H,
+    D) -> out (B, Nq, H, D) [, lse2 (B, H, Nq) f32]. Under autograd its
+    backward is K4. CPU tensors take the plain versions; CUDA tensors
+    launch the kernels or raise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if needs_grad(q, k, v):
+        out, lse = _FlashAttention.apply(q, k, v, scale)
+        return (out, lse) if with_lse else out
+    return _flash_fwd(q, k, v, scale, with_lse)
+
+
 flash_attention.launches = 0
 
 
 def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     """K3: flash forward with int8 scores. Quantises q and k per (batch,
     head) in plain torch (`quantize_qk`), then runs the kernel on CUDA
-    tensors or `int8_attention_plain` on CPU tensors. Forward only."""
+    tensors or `int8_attention_plain` on CPU tensors. Forward only: under
+    autograd it raises rather than return a result with no gradient."""
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention_int8 (kernel K3, attn_impl='pallas_int8') is "
+            "forward-only and has no backward; run it under "
+            "torch.no_grad() or train with attn_impl 'pallas' or 'auto'")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     q8, k8, sq, sk = quantize_qk(q, k, scale)
@@ -203,13 +337,22 @@ def _auto_impl(q, bias) -> str:
     return "pallas" if maps else "xla"
 
 
+def _refuse_i8bwd_grad(impl: str, q, k, v) -> None:
+    if impl == "pallas_i8bwd" and needs_grad(q, k, v):
+        raise NotImplementedError(
+            "attn_impl='pallas_i8bwd' under autograd is not ported: "
+            "int8-score backward K7, V-JEPA slice (ROADMAP.md queue 1); "
+            "train with attn_impl 'pallas' or 'auto' (backward K4)")
+
+
 def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
               impl: str = "auto"):
     """Multi-head attention, (B, Nq, H, D) x (B, Nk, H, D) -> (B, Nq, H, D).
 
     impl: "auto" (K1 where it maps, see `_auto_impl`, else plain) | "pallas"
-    and "pallas_i8bwd" (K1; the int8 backward is training work) |
-    "pallas_int8" (K3) | "xla" (plain). "pallas_int8pv" is not ported yet.
+    (K1, backward K4) | "pallas_i8bwd" (K1 forward; its int8-score backward
+    K7 is not ported, so it raises under autograd) | "pallas_int8" (K3,
+    forward only) | "xla" (plain). "pallas_int8pv" is not ported yet.
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; valid: "
@@ -218,6 +361,7 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
         raise NotImplementedError(
             "attn_impl='pallas_int8pv' (int8 p@v, kernel K8; ROADMAP.md "
             "queue 1, K8 and K10) is not ported yet; use 'pallas_int8'")
+    _refuse_i8bwd_grad(impl, q, k, v)
     if impl == "auto":
         impl = _auto_impl(q, bias)
     if impl == "xla":
@@ -236,9 +380,11 @@ def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
     """Attention that also returns lse2 (B, H, Nq): the row logsumexp in
     log2 units of the scores scaled by scale*log2(e), so that the softmax
     weights are p = exp2(s*scale*log2(e) - lse2). The int8 spellings
-    coerce to K1, as in the JAX package (the int8 kernel exposes no lse)."""
+    coerce to K1, as in the JAX package (the int8 kernel exposes no lse);
+    "pallas_i8bwd" raises under autograd, as in `attention`."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
+    _refuse_i8bwd_grad(impl, q, k, v)
     if impl == "auto":
         impl = _auto_impl(q, None)
     if impl == "xla":

@@ -1,16 +1,24 @@
 """Transformer MLP: the plain PyTorch versions and the fused kernels.
 
 Counterpart of `smb_vision_tpu/ops/mlp.py`. Public functions keep the JAX
-package's weight layout, w1 (K, F) and w2 (F, K). Two hand-written CUDA
-kernels (`csrc/mlp_fwd.cu`) stand behind them:
+package's weight layout, w1 (K, F) and w2 (F, K). Four hand-written CUDA
+kernels stand behind them:
 
-- K6 `mlp_fused`: y = act(x w1 + b1) w2 + b2 (replaces `_mlp_kernel`);
-- K2 `mlp_block_fused`: y = x + act(LN(x) w1 + b1) w2 + b2, the whole MLP
-  half-block (replaces `_mlp_block_kernel`).
+- K6 `mlp_fused` (`csrc/mlp_fwd.cu`): y = act(x w1 + b1) w2 + b2 (replaces
+  `_mlp_kernel`);
+- K2 `mlp_block_fused` (`csrc/mlp_fwd.cu`): y = x + act(LN(x) w1 + b1) w2
+  + b2, the whole MLP half-block (replaces `_mlp_block_kernel`);
+- K5a `mlp_train_fused` (`csrc/mlp_fwd.cu`): K6 that also stores the
+  pre-activation h = x w1 + b1 in bf16 (replaces `_mlp_train_kernel`);
+- K5b `mlp_bwd_fused` (`csrc/mlp_bwd.cu`): dx, dh and a = act(h) from h and
+  dL/dy (replaces `_mlp_bwd_kernel`).
 
-Both keep the (M, F) intermediate on the SM. Each wrapper runs the plain
-version for CPU tensors and launches its kernel for CUDA tensors; there is
-no fallback between the two. `launches` on each wrapper counts launches.
+K6 and K2 keep the (M, F) intermediate on the SM. Under autograd K6 and K2
+take the JAX package's recompute backward (the plain version differentiated
+again), and mlp_impl "pallas_bwd" trains through K5a + K5b, the
+counterpart of `_mlp_fused_tb`. Each wrapper runs the plain version for CPU
+tensors and launches its kernel for CUDA tensors; there is no fallback
+between the two. `launches` on each wrapper counts launches.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from smb_vision_tpu_torch.ops import _build
+from smb_vision_tpu_torch.ops.attention import needs_grad
 
 _ACTS = {"gelu": 0, "gelu_new": 1}
 _KERNEL_K = (128, 256, 384, 512, 768, 1024)
@@ -47,6 +56,59 @@ def _mlp_xla(x, w1, b1, w2, b2, act: str):
     return y
 
 
+def act_and_grad(h, act: str):
+    """(act(h), act'(h)) in f32; the exact GELU's derivative uses the real
+    erf: 0.5*(1 + erf(h/sqrt2)) + h*pdf(h)."""
+    h = h.float()
+    if act == "gelu":
+        cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+        pdf = 0.3989422804014327 * torch.exp(-0.5 * h * h)
+        return h * cdf, cdf + h * pdf
+    if act == "gelu_new":
+        c = 0.7978845608028654
+        t = torch.tanh(c * (h + 0.044715 * h * h * h))
+        du = c * (1.0 + 3.0 * 0.044715 * h * h)
+        return 0.5 * h * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * du
+    raise ValueError(f"unsupported mlp act {act!r}")
+
+
+def _mlp_train_plain(x2, w1, b1, w2, b2, act: str):
+    """Plain version of K5a: (y, h) with h = x w1 + b1 (bf16 product, bias
+    in f32) returned in bf16, the activation taken of the f32 h and
+    rounded to bf16 before the second product, as the kernel does."""
+    bf16 = torch.bfloat16
+    h = torch.matmul(x2.to(bf16), w1.to(bf16)).float() + b1.float()
+    a = act_fn(act)(h).to(bf16)
+    y = torch.matmul(a, w2.to(bf16)).float() + b2.float()
+    return y.to(bf16), h.to(bf16)
+
+
+def _mlp_bwd_plain(h, g2, w1, w2, act: str):
+    """Plain version of K5b: from h (M, F) and g2 = dL/dy (M, K), both
+    bf16, return dx (M, K), dh and a (M, F), all bf16:
+    a = act(h), dh = (g2 w2^T) * act'(h), dx = dh w1^T."""
+    bf16 = torch.bfloat16
+    a, d = act_and_grad(h, act)
+    da = torch.matmul(g2.to(bf16), w2.to(bf16).t()).float()
+    dh = (da * d).to(bf16)
+    dx = torch.matmul(dh, w1.to(bf16).t())
+    return dx.to(bf16), dh, a.to(bf16)
+
+
+def _recompute_grads(fn, inputs, grad_out):
+    """Gradients of fn(*inputs) against grad_out, by running fn again under
+    autograd: the recompute backward of the JAX package's K6 and K2
+    (`jax.vjp` of the plain forward). None where an input needs none."""
+    with torch.enable_grad():
+        xs = [None if t is None else t.detach().requires_grad_(
+            t.requires_grad) for t in inputs]
+        y = fn(*xs)
+    want = [x for x in xs if x is not None and x.requires_grad]
+    grads = iter(torch.autograd.grad(y, want, grad_out, allow_unused=True))
+    return tuple(next(grads) if x is not None and x.requires_grad else None
+                 for x in xs)
+
+
 def _mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, act: str, eps: float):
     """x + mlp(LayerNorm(x)): LayerNorm statistics, scale and bias in f32,
     the MLP in x.dtype."""
@@ -60,17 +122,23 @@ def kernel_maps(k: int, f: int, act: str) -> bool:
     return k in _KERNEL_K and f % _KERNEL_F_STEP == 0 and act in _ACTS
 
 
-def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name):
-    """x2 (M, K) and w1 (K, F), w2 (F, K) in any float dtype; returns bf16.
-    The kernel wants the Linear layout (F, K) / (K, F) in bf16: for weights
-    that are transposed views of a Linear's bf16 weight the conversion
-    below copies nothing."""
-    m, k = x2.shape
-    f = w1.shape[1]
+def _check_mlp_shape(k: int, f: int, act: str, name: str) -> None:
     if not kernel_maps(k, f, act):
         raise ValueError(f"{name}: no kernel for K={k}, F={f}, act={act!r} "
                          f"(K in {_KERNEL_K}, F a multiple of "
                          f"{_KERNEL_F_STEP}, act in {tuple(_ACTS)})")
+
+
+def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
+                spill: bool = False):
+    """x2 (M, K) and w1 (K, F), w2 (F, K) in any float dtype; returns bf16
+    y, and with spill also the bf16 pre-activation h (M, F) (K5a). The
+    kernel wants the Linear layout (F, K) / (K, F) in bf16: for weights
+    that are transposed views of a Linear's bf16 weight the conversion
+    below copies nothing."""
+    m, k = x2.shape
+    f = w1.shape[1]
+    _check_mlp_shape(k, f, act, name)
     if w1.shape != (k, f) or w2.shape != (f, k):
         raise ValueError(f"{name}: w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)} do not fit x {tuple(x2.shape)}")
@@ -88,26 +156,87 @@ def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name):
         if t.device != dev:
             raise ValueError(f"{name}: weights on {t.device}, x on {dev}")
     out = torch.empty((m, k), dtype=bf16, device=dev)
+    h = torch.empty((m, f), dtype=bf16, device=dev) if spill else None
     rc = _build.lib().smb_mlp_fwd(
         x2.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), w1t.data_ptr(),
-        b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), out.data_ptr(), m, k,
-        f, float(eps), int(lnw is not None), _ACTS[act],
-        _build.stream_ptr(dev))
+        b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        _build.ptr(h), m, k, f, float(eps), int(lnw is not None),
+        _ACTS[act], _build.stream_ptr(dev))
     _build.check(rc, name)
+    return (out, h) if spill else out
+
+
+def _device_of(x2, name: str) -> str:
+    if x2.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x2.device}")
+    return x2.device.type
+
+
+def _mlp_fwd(x2, w1, b1, w2, b2, act: str):
+    """K6 or its plain version, by the device of x2; no autograd."""
+    if _device_of(x2, "mlp_fused") == "cpu":
+        return _mlp_xla(x2.to(torch.bfloat16), w1, b1, w2, b2, act)
+    out = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0, "mlp_fwd")
+    mlp_fused.launches += 1
     return out
+
+
+def _mlp_block_fwd(x2, lnw, lnb, w1, b1, w2, b2, act: str, eps: float):
+    """K2 or its plain version, by the device of x2; no autograd."""
+    if _device_of(x2, "mlp_block_fused") == "cpu":
+        return _mlp_block_xla(x2.to(torch.bfloat16), lnw, lnb, w1, b1, w2,
+                              b2, act, eps)
+    out = _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps,
+                      "mlp_block_fwd")
+    mlp_block_fused.launches += 1
+    return out
+
+
+class _MlpFused(torch.autograd.Function):
+    """K6 forward; the backward recomputes the plain chain under autograd
+    (`smb_vision_tpu/ops/mlp.py` `_mlp_fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, act):
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        ctx.act = act
+        return _mlp_fwd(x2, w1, b1, w2, b2, act)
+
+    @staticmethod
+    def backward(ctx, gy):
+        act = ctx.act
+        grads = _recompute_grads(
+            lambda x, *w: _mlp_xla(x.to(torch.bfloat16), *w, act),
+            ctx.saved_tensors, gy)
+        return (*grads, None)
+
+
+class _MlpBlockFused(torch.autograd.Function):
+    """K2 forward; the backward recomputes the plain half-block under
+    autograd (`smb_vision_tpu/ops/mlp.py` `_mlp_block_fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x2, lnw, lnb, w1, b1, w2, b2, act, eps):
+        ctx.save_for_backward(x2, lnw, lnb, w1, b1, w2, b2)
+        ctx.act, ctx.eps = act, eps
+        return _mlp_block_fwd(x2, lnw, lnb, w1, b1, w2, b2, act, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        act, eps = ctx.act, ctx.eps
+        grads = _recompute_grads(
+            lambda x, *w: _mlp_block_xla(x.to(torch.bfloat16), *w, act, eps),
+            ctx.saved_tensors, gy)
+        return (*grads, None, None)
 
 
 def mlp_fused(x2, w1, b1, w2, b2, *, act: str = "gelu"):
     """K6 on (M, K) rows, bf16 result. CPU tensors take the plain
-    `_mlp_xla` in bf16; CUDA tensors launch the kernel or raise."""
-    if x2.device.type == "cpu":
-        bf16 = torch.bfloat16
-        return _mlp_xla(x2.to(bf16), w1, b1, w2, b2, act)
-    if x2.device.type != "cuda":
-        raise ValueError(f"mlp_fused runs on cpu or cuda, not {x2.device}")
-    out = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0, "mlp_fwd")
-    mlp_fused.launches += 1
-    return out
+    `_mlp_xla` in bf16; CUDA tensors launch the kernel or raise. Under
+    autograd the backward recomputes the plain version."""
+    if needs_grad(x2, w1, b1, w2, b2):
+        return _MlpFused.apply(x2, w1, b1, w2, b2, act)
+    return _mlp_fwd(x2, w1, b1, w2, b2, act)
 
 
 mlp_fused.launches = 0
@@ -116,20 +245,107 @@ mlp_fused.launches = 0
 def mlp_block_fused(x2, lnw, lnb, w1, b1, w2, b2, *, act: str = "gelu",
                     eps: float = 1e-6):
     """K2 on (M, K) rows, bf16 result. CPU tensors take the plain
-    `_mlp_block_xla` in bf16; CUDA tensors launch the kernel or raise."""
-    if x2.device.type == "cpu":
-        return _mlp_block_xla(x2.to(torch.bfloat16), lnw, lnb, w1, b1, w2,
-                              b2, act, eps)
-    if x2.device.type != "cuda":
-        raise ValueError(f"mlp_block_fused runs on cpu or cuda, not "
-                         f"{x2.device}")
-    out = _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps,
-                      "mlp_block_fwd")
-    mlp_block_fused.launches += 1
-    return out
+    `_mlp_block_xla` in bf16; CUDA tensors launch the kernel or raise.
+    Under autograd the backward recomputes the plain version."""
+    if needs_grad(x2, lnw, lnb, w1, b1, w2, b2):
+        return _MlpBlockFused.apply(x2, lnw, lnb, w1, b1, w2, b2, act, eps)
+    return _mlp_block_fwd(x2, lnw, lnb, w1, b1, w2, b2, act, eps)
 
 
 mlp_block_fused.launches = 0
+
+
+def mlp_train_fused(x2, w1, b1, w2, b2, *, act: str = "gelu"):
+    """K5a on (M, K) rows: (y (M, K), h (M, F)), both bf16, h = x w1 + b1
+    the pre-activation the backward reads. CPU tensors take
+    `_mlp_train_plain`; CUDA tensors launch the kernel or raise."""
+    if _device_of(x2, "mlp_train_fused") == "cpu":
+        return _mlp_train_plain(x2, w1, b1, w2, b2, act)
+    y, h = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0,
+                       "mlp_train_fwd", spill=True)
+    mlp_train_fused.launches += 1
+    return y, h
+
+
+mlp_train_fused.launches = 0
+
+
+def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
+    """K5b: from the spilled h (M, F) and g2 = dL/dy (M, K) return dx
+    (M, K), dh and a = act(h) (M, F), all bf16; w1 (K, F), w2 (F, K).
+    CPU tensors take `_mlp_bwd_plain`; CUDA tensors launch the kernel or
+    raise."""
+    if _device_of(h, "mlp_bwd_fused") == "cpu":
+        return _mlp_bwd_plain(h, g2, w1, w2, act)
+    m, f = h.shape
+    k = g2.shape[1]
+    _check_mlp_shape(k, f, act, "mlp_bwd")
+    if g2.shape != (m, k) or w1.shape != (k, f) or w2.shape != (f, k):
+        raise ValueError(f"mlp_bwd: h {tuple(h.shape)}, g {tuple(g2.shape)}"
+                         f", w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} do "
+                         "not fit")
+    for t in (g2, w1, w2):
+        if t.device != h.device:
+            raise ValueError(f"mlp_bwd: operands on {t.device}, h on "
+                             f"{h.device}")
+    bf16 = torch.bfloat16
+    # the kernel reads w1 and w2 in the JAX layouts (K, F) and (F, K); for
+    # a Linear's transposed views this is one copy of each weight
+    h, g2 = h.to(bf16).contiguous(), g2.to(bf16).contiguous()
+    w1, w2 = w1.to(bf16).contiguous(), w2.to(bf16).contiguous()
+    dx = torch.empty((m, k), dtype=bf16, device=h.device)
+    dh = torch.empty((m, f), dtype=bf16, device=h.device)
+    a = torch.empty_like(dh)
+    rc = _build.lib().smb_mlp_bwd(
+        h.data_ptr(), g2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), dh.data_ptr(), a.data_ptr(), m, k, f, _ACTS[act],
+        _build.stream_ptr(h.device))
+    _build.check(rc, "mlp_bwd")
+    mlp_bwd_fused.launches += 1
+    return dx, dh, a
+
+
+mlp_bwd_fused.launches = 0
+
+
+class _MlpTrain(torch.autograd.Function):
+    """mlp_impl "pallas_bwd" under autograd: K5a forward, K5b backward, and
+    the weight gradients as plain products outside the kernel
+    (`smb_vision_tpu/ops/mlp.py` `_mlp_fused_tb`). dw1 = x^T dh and dw2 =
+    a^T g are bf16 products rounded to bf16, as the plain bf16 path's are
+    (the JAX package keeps their f32 product); db1 and db2 are f32 sums."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, act):
+        xb = x2.to(torch.bfloat16).contiguous()
+        y, h = mlp_train_fused(xb, w1, b1, w2, b2, act=act)
+        ctx.save_for_backward(xb, h, w1, w2)
+        ctx.act = act
+        ctx.dtypes = (x2.dtype, b1.dtype, b2.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        xb, h, w1, w2 = ctx.saved_tensors
+        x_dt, b1_dt, b2_dt = ctx.dtypes
+        g2 = gy.to(torch.bfloat16).contiguous()
+        dx, dh, a = mlp_bwd_fused(h, g2, w1, w2, act=ctx.act)
+        need = ctx.needs_input_grad
+        dw1 = torch.matmul(xb.t(), dh).to(w1.dtype) if need[1] else None
+        db1 = dh.float().sum(0).to(b1_dt) if need[2] else None
+        dw2 = torch.matmul(a.t(), g2).to(w2.dtype) if need[3] else None
+        db2 = g2.float().sum(0).to(b2_dt) if need[4] else None
+        return dx.to(x_dt), dw1, db1, dw2, db2, None
+
+
+def mlp_pallas_bwd(x2, w1, b1, w2, b2, *, act: str = "gelu"):
+    """mlp_impl "pallas_bwd" on (M, K) rows, bf16 result: K5a + K5b under
+    autograd; K6 when nothing is differentiated (eval, no_grad, the
+    forward half of a checkpointed block run without grad), since the h
+    spill exists only for the backward."""
+    if needs_grad(x2, w1, b1, w2, b2):
+        return _MlpTrain.apply(x2, w1, b1, w2, b2, act)
+    return mlp_fused(x2, w1, b1, w2, b2, act=act)
 
 
 def _route(impl: str, x, w1, b1, b2, act: str, kernel_impls) -> bool:
@@ -154,14 +370,16 @@ def _route(impl: str, x, w1, b1, b2, act: str, kernel_impls) -> bool:
 def mlp_forward(x, w1, b1, w2, b2, *, act: str = "gelu", impl: str = "auto"):
     """Transformer MLP y = act(x w1 + b1) w2 + b2; x (..., K), w1 (K, F),
     b1 (F,), w2 (F, K), b2 (K,). impl: "auto" (K6 for bf16 inputs whose
-    shape maps, else plain) | "pallas" | "pallas_bwd" (K6: this is the
-    forward that runs when nothing is differentiated) | "xla" (plain)."""
+    shape maps, else plain) | "pallas" (K6, recompute backward) |
+    "pallas_bwd" (K5a + K5b under autograd, K6 otherwise) | "xla"
+    (plain)."""
     if impl not in ("auto", "pallas", "pallas_bwd", "xla"):
         raise ValueError(f"unknown mlp impl {impl!r}; "
                          "valid: 'auto', 'pallas', 'pallas_bwd', 'xla'")
     if not _route(impl, x, w1, b1, b2, act, ("pallas", "pallas_bwd")):
         return _mlp_xla(x, w1, b1, w2, b2, act)
-    y = mlp_fused(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, act=act)
+    fused = mlp_pallas_bwd if impl == "pallas_bwd" else mlp_fused
+    y = fused(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, act=act)
     return y.reshape(x.shape).to(x.dtype)
 
 

@@ -52,3 +52,16 @@ def sincos_position_table(n_position: int, d_hid: int) -> torch.Tensor:
     table[:, 0::2] = np.sin(table[:, 0::2])
     table[:, 1::2] = np.cos(table[:, 1::2])
     return torch.from_numpy(table[None].astype(np.float32))
+
+
+def normalize_pixel_targets(patches: torch.Tensor,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """Per-patch normalisation for norm_pix_loss: subtract the patch mean
+    and divide by the unbiased (n - 1) std + eps, statistics in f32 over
+    the last axis (for one channel this is the reference's per-channel
+    normalisation)."""
+    patches = patches.float()
+    mean = patches.mean(dim=-1, keepdim=True)
+    n = patches.shape[-1]
+    var = ((patches - mean) ** 2).sum(dim=-1, keepdim=True) / (n - 1)
+    return (patches - mean) / (var.sqrt() + eps)

@@ -1,0 +1,88 @@
+"""MIM (SimMIM-style) pretraining workload.
+
+Counterpart of `smb_vision_tpu/train/mim.py::make_mim_workload`: the model,
+its initialisation, the train step and the eval step of
+VideoMAEForPreTraining. The block mask of a step comes from the generator
+the Trainer seeds for that step; `step_fn` also takes an explicit mask.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+from smb_vision_tpu_torch.models.videomae import VideoMAEForPreTraining
+from smb_vision_tpu_torch.ops.masking import mim_mask, num_masked_tokens
+from smb_vision_tpu_torch.train.trainer import accumulate_gradients
+
+
+def make_mim_workload(config: VideoMAEConfig, *, mask_patch_size: int,
+                      mask_ratio: float, tx: Callable, grad_accum: int = 1,
+                      accum_dtype: Optional[torch.dtype] = None,
+                      device="cpu"):
+    """Returns (model, init_fn, step_fn, eval_fn).
+
+    tx(named_parameters) -> optimizer (train/optim.py `make_optimizer`
+    with its arguments bound). init_fn(seed) -> state {"model",
+    "optimizer", "step"}; step_fn(state, batch, generator=None, mask=None)
+    -> {"loss"}: one optimizer update on batch["pixel_values"], with the
+    given (B, N) bool mask or one drawn from generator; eval_fn(state,
+    batch) -> {"loss"} under a fixed mask (seed 0), honouring
+    batch["valid_mask"]."""
+    if config.quant8:
+        raise ValueError(
+            "quant8 is an inference-only fast path: its rounding has zero "
+            "gradient almost everywhere, so training with it would go "
+            "nowhere. Unset config.quant8 for pretraining.")
+    device = torch.device(device)
+    model = VideoMAEForPreTraining(config)
+    num_masked = num_masked_tokens(
+        config.image_size, config.num_frames, mask_patch_size,
+        config.patch_size, mask_ratio)
+
+    def gen_mask(generator: torch.Generator, batch: int) -> torch.Tensor:
+        return mim_mask(generator, batch, input_size=config.image_size,
+                        depth=config.num_frames,
+                        mask_patch_size=mask_patch_size,
+                        model_patch_size=config.patch_size,
+                        mask_ratio=mask_ratio)
+
+    def init_fn(seed: int) -> dict:
+        model.init_weights(torch.Generator().manual_seed(seed))
+        model.to(device)
+        return {"model": model, "optimizer": tx(model.named_parameters()),
+                "step": 0}
+
+    def loss_fn(batch) -> torch.Tensor:
+        return model(batch["pixel_values"], batch["mask"], num_masked,
+                     valid=batch.get("valid_mask"))["loss"]
+
+    def step_fn(state, batch, generator=None, mask=None) -> dict:
+        opt = state["optimizer"]
+        px = batch["pixel_values"]
+        if mask is None:
+            mask = gen_mask(generator, px.shape[0])
+        if not isinstance(mask, torch.Tensor):
+            mask = torch.from_numpy(np.array(mask, dtype=bool))
+        mask = mask.to(px.device)
+        model.train()
+        opt.zero_grad()
+        params = [p for p in model.parameters() if p.requires_grad]
+        loss = accumulate_gradients(loss_fn, params,
+                                    {"pixel_values": px, "mask": mask},
+                                    grad_accum, accum_dtype)
+        opt.step()
+        state["step"] += 1
+        return {"loss": loss}
+
+    @torch.no_grad()
+    def eval_fn(state, batch) -> dict:
+        px = batch["pixel_values"]
+        mask = gen_mask(torch.Generator().manual_seed(0), px.shape[0])
+        model.eval()
+        return {"loss": loss_fn({**batch, "mask": mask.to(px.device)})}
+
+    return model, init_fn, step_fn, eval_fn

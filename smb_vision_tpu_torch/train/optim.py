@@ -1,0 +1,141 @@
+"""The optimizer and learning-rate schedule of the MIM recipe.
+
+Counterpart of `smb_vision_tpu/train/optim.py` for what MIM pretraining
+uses: `optax.chain(clip_by_global_norm(c), adamw(schedule, mask=
+decay_mask))` with a linear warmup into a cosine, linear or constant
+decay. The schedule is evaluated at the number of updates already made, as
+optax counts, so warmup starts at lr 0 on the first update. Two-tier
+learning rates and the 8-bit AdamW are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from smb_vision_tpu_torch.models.layers import not_ported
+
+
+def is_decayed(name: str) -> bool:
+    """Weight decay applies to every parameter but biases and norms (HF
+    Trainer's rule, as the JAX package's `decay_mask`): the mask token and
+    the patch kernel are decayed."""
+    name = name.lower()
+    return not ("bias" in name or "norm" in name)
+
+
+def make_schedule(learning_rate: float, total_steps: int,
+                  warmup_ratio: float = 0.0, warmup_steps: int = 0,
+                  schedule: str = "cosine",
+                  min_lr: float = 0.0) -> Callable[[int], float]:
+    """lr as a function of the number of updates made, as optax's
+    join_schedules([linear 0 -> lr over warmup], [decay]) with warmup =
+    warmup_steps or ceil(total_steps * warmup_ratio)."""
+    warmup = warmup_steps or math.ceil(total_steps * warmup_ratio)
+    decay_steps = max(total_steps - warmup, 1)
+    if schedule not in ("cosine", "linear", "constant"):
+        raise ValueError(f"unknown schedule {schedule}")
+
+    def after(count: int) -> float:
+        frac = min(max(count, 0), decay_steps) / decay_steps
+        if schedule == "cosine":
+            alpha = min_lr / learning_rate if learning_rate else 0.0
+            cos = 0.5 * (1.0 + math.cos(math.pi * frac))
+            return learning_rate * ((1.0 - alpha) * cos + alpha)
+        if schedule == "linear":
+            return learning_rate + (min_lr - learning_rate) * frac
+        return learning_rate
+
+    def lr(count: int) -> float:
+        if warmup and count < warmup:
+            return learning_rate * count / warmup
+        return after(count - warmup)
+
+    return lr
+
+
+class ClippedAdamW:
+    """Global-norm gradient clipping, then AdamW (decoupled weight decay on
+    the `is_decayed` parameters), then the schedule: one `step()` is one
+    optax update. `state_dict` holds the AdamW moments, the update count
+    and the current lr."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
+                 schedule: Callable[[int], float], weight_decay: float,
+                 b1: float, b2: float, eps: float,
+                 grad_clip: Optional[float]):
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        self.params = [p for _, p in named]
+        groups = [
+            {"params": [p for n, p in named if is_decayed(n)],
+             "weight_decay": weight_decay},
+            {"params": [p for n, p in named if not is_decayed(n)],
+             "weight_decay": 0.0}]
+        self.schedule = schedule
+        self.grad_clip = grad_clip
+        self.updates = 0
+        self.opt = torch.optim.AdamW([g for g in groups if g["params"]],
+                                     lr=schedule(0), betas=(b1, b2), eps=eps)
+
+    @property
+    def lr(self) -> float:
+        """The lr the next update takes."""
+        return self.schedule(self.updates)
+
+    @torch.no_grad()
+    def clip_(self) -> None:
+        """Scale every gradient by max_norm / ||g|| when the global norm
+        ||g|| is at least max_norm (optax.clip_by_global_norm)."""
+        if not self.grad_clip:
+            return
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        scale = torch.where(norm < self.grad_clip, 1.0,
+                            self.grad_clip / norm)
+        torch._foreach_mul_(grads, scale)
+
+    def step(self) -> None:
+        for g in self.opt.param_groups:
+            g["lr"] = self.lr
+        self.clip_()
+        self.opt.step()
+        self.updates += 1
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> Dict:
+        return {"adamw": self.opt.state_dict(), "updates": self.updates}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.opt.load_state_dict(state["adamw"])
+        self.updates = int(state["updates"])
+
+
+def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
+                   weight_decay: float = 0.01, warmup_ratio: float = 0.0,
+                   warmup_steps: int = 0, schedule: str = "cosine",
+                   min_lr: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8, grad_clip: Optional[float] = 1.0,
+                   vision_lr: Optional[float] = None,
+                   merger_lr: Optional[float] = None,
+                   optim: str = "adamw") -> ClippedAdamW:
+    """Global-norm clip (default 1.0), then AdamW with eps 1e-8 over the
+    model's named parameters, on `make_schedule`'s learning rate."""
+    if vision_lr is not None or merger_lr is not None:
+        raise not_ported("two-tier learning rates (vision_lr, merger_lr)",
+                         "queue 1, fine-tuning")
+    if optim == "adamw8bit":
+        raise not_ported("optim='adamw8bit' (train/quantized.py)",
+                         "queue 1, 8-bit optimizer state")
+    if optim != "adamw":
+        raise ValueError(f"unknown optim {optim!r}")
+    return ClippedAdamW(
+        named_params, schedule=make_schedule(
+            learning_rate, total_steps, warmup_ratio, warmup_steps,
+            schedule, min_lr),
+        weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+        grad_clip=grad_clip)

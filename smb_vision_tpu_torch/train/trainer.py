@@ -1,0 +1,341 @@
+"""Training loop on PyTorch: one device, gradient accumulation, checkpoints
+with auto-resume, periodic eval and metric logging.
+
+Counterpart of `smb_vision_tpu/train/trainer.py` (`TrainingArguments`,
+`accumulate_gradients`, `Trainer`) for one device. A checkpoint is one
+`torch.save` of the model, the optimizer (moments, update count) and the
+step and epoch, under `output_dir/checkpoints/<step>/state.pt`. Each step
+seeds its own mask generator from (seed, step), and a resumed run skips
+the batches its epoch already consumed, so it replays no batch and no
+mask: 2 steps + resume + 2 steps equals 4 steps bitwise.
+"""
+
+from __future__ import annotations
+
+import itertools
+import shutil
+import signal
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from smb_vision_tpu_torch.utils.logging import MetricLogger, get_logger
+from smb_vision_tpu_torch.utils.profiling import device_peak_flops
+
+logger = get_logger(__name__)
+
+_PIXEL_KEYS = ("pixel_values",)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclass
+class TrainingArguments:
+    """The HF TrainingArguments subset the reference recipes use, and the
+    JAX package's knobs, under the same names (its config files parse
+    here); `device` is the port's own."""
+
+    output_dir: str = "output"
+    do_train: bool = True
+    do_eval: bool = False
+    num_train_steps: Optional[int] = None
+    num_train_epochs: float = 1.0
+    per_device_train_batch_size: int = 1
+    per_device_eval_batch_size: int = 1
+    gradient_accumulation_steps: int = 1
+    grad_accum_dtype: str = "float32"   # float32 | bfloat16 accumulator
+    input_dtype: str = "float32"        # dtype pixels are shipped in
+    learning_rate: float = 5e-5
+    weight_decay: float = 0.01
+    warmup_ratio: float = 0.0
+    warmup_steps: int = 0
+    lr_scheduler_type: str = "cosine"
+    optim: str = "adamw"
+    min_lr: float = 0.0
+    max_grad_norm: float = 1.0
+    seed: int = 42
+    logging_steps: int = 10
+    save_steps: int = 500
+    save_total_limit: Optional[int] = 3
+    eval_steps: Optional[int] = None
+    resume_from_checkpoint: Optional[str] = None
+    overwrite_output_dir: bool = False
+    report_to: str = "none"
+    vision_lr: Optional[float] = None
+    merger_lr: Optional[float] = None
+    sharding_policy: str = "dp"
+    model_parallel: int = 1
+    dcn_slices: int = 1
+    multihost: Optional[bool] = None
+    model_flops_per_sample: Optional[float] = None
+    profile_steps: Optional[str] = None  # not ported yet
+    device: str = "cuda"                # cuda | cuda:N | cpu
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The random generator of one global step, seeded from (seed, step)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+def accumulate_gradients(loss_fn: Callable, params: List[torch.Tensor],
+                         batch: Dict[str, torch.Tensor], n_accum: int = 1,
+                         accum_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """Backward of loss_fn over n_accum microbatches (the batch's leading
+    axis split in order), leaving the mean gradient in each p.grad (f32)
+    and returning the mean loss. The running sum is kept in accum_dtype
+    (f32 by default; bf16 halves it)."""
+    if n_accum == 1:
+        loss = loss_fn(batch)
+        loss.backward()
+        return loss.detach()
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n_accum:
+        raise ValueError(f"batch of {rows} does not split into {n_accum} "
+                         "microbatches")
+    micro = rows // n_accum
+    acc_dt = accum_dtype or torch.float32
+    acc = [torch.zeros_like(p, dtype=acc_dt) for p in params]
+    total = 0.0
+    for i in range(n_accum):
+        mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+        for p in params:
+            p.grad = None
+        loss = loss_fn(mb)
+        loss.backward()
+        for a, p in zip(acc, params):
+            if p.grad is not None:
+                a += p.grad.to(acc_dt)
+        total = total + loss.detach()
+    for a, p in zip(acc, params):
+        p.grad = (a.float() / n_accum).to(p.dtype)
+    return total / n_accum
+
+
+class Trainer:
+    """Drives step_fn(state, batch, generator) -> metrics over a
+    BatchLoader. state: {"model", "optimizer", "step"}, built by the
+    workload (train/mim.py)."""
+
+    def __init__(self, *, args: TrainingArguments, state: dict,
+                 step_fn: Callable, train_loader, eval_loader=None,
+                 eval_fn: Optional[Callable] = None):
+        self.args = args
+        self.state = state
+        self.step_fn = step_fn
+        self.train_loader = train_loader
+        self.eval_loader = eval_loader
+        self.eval_fn = eval_fn
+        self.device = torch.device(args.device)
+        if args.input_dtype not in _DTYPES:
+            raise ValueError(f"input_dtype {args.input_dtype!r}: expected "
+                             f"one of {sorted(_DTYPES)}")
+        self.in_dtype = _DTYPES[args.input_dtype]
+        self.out_dir = Path(args.output_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.ckpt_dir = self.out_dir / "checkpoints"
+        self.mlog = MetricLogger(self.out_dir)
+
+    # -- batches -----------------------------------------------------------
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """numpy batch -> tensors on the device; pixels cast to input_dtype
+        on the host first, so the copy moves the narrower type."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if k in _PIXEL_KEYS and t.is_floating_point():
+                t = t.to(self.in_dtype)
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    # -- checkpoints -------------------------------------------------------
+    @staticmethod
+    def checkpoint_steps(ckpt_dir: Path) -> List[int]:
+        if not ckpt_dir.is_dir():
+            return []
+        return sorted(int(d.name) for d in ckpt_dir.iterdir()
+                      if d.name.isdigit() and (d / "state.pt").exists())
+
+    def save_checkpoint(self, step: int, epoch: int) -> None:
+        final = self.ckpt_dir / str(step)
+        tmp = self.ckpt_dir / f".{step}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        torch.save({"model": self.state["model"].state_dict(),
+                    "optimizer": self.state["optimizer"].state_dict(),
+                    "step": step, "epoch": epoch}, tmp / "state.pt")
+        shutil.rmtree(final, ignore_errors=True)
+        tmp.rename(final)
+        limit = self.args.save_total_limit
+        if limit:
+            for old in self.checkpoint_steps(self.ckpt_dir)[:-limit]:
+                shutil.rmtree(self.ckpt_dir / str(old), ignore_errors=True)
+
+    def _restore(self, path: Path) -> int:
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        self.state["model"].load_state_dict(blob["model"])
+        self.state["optimizer"].load_state_dict(blob["optimizer"])
+        self.state["step"] = int(blob["step"])
+        return self.state["step"]
+
+    def maybe_restore(self) -> int:
+        """HF-style resume: an explicit resume_from_checkpoint (a
+        checkpoints directory or one step's directory) > the latest step
+        in output_dir, unless overwrite_output_dir deletes them."""
+        if self.args.resume_from_checkpoint:
+            path = Path(self.args.resume_from_checkpoint)
+            if not (path / "state.pt").exists():
+                steps = self.checkpoint_steps(path)
+                if not steps:
+                    raise FileNotFoundError(f"no checkpoint under {path}")
+                path = path / str(steps[-1])
+            return self._restore(path / "state.pt")
+        steps = self.checkpoint_steps(self.ckpt_dir)
+        if self.args.overwrite_output_dir:
+            if steps:
+                logger.info("overwrite_output_dir: deleting checkpoints up "
+                            "to step %d, training from scratch", steps[-1])
+            shutil.rmtree(self.ckpt_dir, ignore_errors=True)
+            return 0
+        if steps:
+            logger.info("checkpoint detected, resuming at step %d",
+                        steps[-1])
+            return self._restore(self.ckpt_dir / str(steps[-1]) / "state.pt")
+        return 0
+
+    def save_model(self) -> None:
+        """Final weights as one flat safetensors file in the JAX package's
+        names (`params.videomae.encoder.layer_0...kernel`)."""
+        from smb_vision_tpu_torch.models.convert import (
+            params_to_flax,
+            write_safetensors,
+        )
+
+        write_safetensors(self.out_dir / "model.safetensors",
+                          params_to_flax(self.state["model"].state_dict()))
+
+    # -- loops -------------------------------------------------------------
+    def train(self) -> Dict[str, int]:
+        args = self.args
+        loader = self.train_loader
+        steps_per_epoch = len(loader)
+        if steps_per_epoch == 0:
+            raise ValueError(
+                f"the batch size exceeds the dataset ({len(loader.ds)} "
+                "items): no full batch can be formed; reduce "
+                "per_device_train_batch_size or grad-accum, or add data")
+        total = args.num_train_steps or int(steps_per_epoch
+                                            * args.num_train_epochs)
+        start = self.maybe_restore()
+
+        # a SIGTERM or SIGINT asks for a checkpoint at the next step
+        # boundary instead of dying mid-update
+        stop = {"flag": False}
+
+        def request_stop(signum, frame):
+            logger.warning("signal %s received: checkpointing and stopping "
+                           "at the next step boundary", signum)
+            stop["flag"] = True
+
+        prev = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev[sig] = signal.signal(sig, request_stop)
+            except ValueError:   # not the main thread
+                pass
+
+        samples_per_step = (args.per_device_train_batch_size
+                            * args.gradient_accumulation_steps)
+        flops = args.model_flops_per_sample
+        peak = device_peak_flops(self.device)
+        epoch, skip = divmod(start, steps_per_epoch)
+        if skip:
+            logger.info("resume: skipping %d consumed batches of epoch %d",
+                        skip, epoch)
+        logger.info("training: %d -> %d steps, %d samples/step on %s",
+                    start, total, samples_per_step, self.device)
+        step = start
+        window: List[torch.Tensor] = []
+        t_last = time.perf_counter()
+        try:
+            while step < total and not stop["flag"]:
+                loader.set_epoch(epoch)
+                batches = iter(loader)
+                if skip:
+                    batches = itertools.islice(batches, skip, None)
+                    skip = 0
+                for raw in batches:
+                    if step >= total:
+                        break
+                    metrics = self.step_fn(self.state, self.to_device(raw),
+                                           step_generator(args.seed, step))
+                    step += 1
+                    window.append(metrics["loss"].detach())
+                    if step % args.logging_steps == 0:
+                        losses = [float(x) for x in window]   # synchronises
+                        dt = time.perf_counter() - t_last
+                        sps = len(losses) * samples_per_step / dt
+                        rec = {"step": step,
+                               "loss": float(np.mean(losses)),
+                               "samples_per_sec": sps,
+                               "step_time_ms": dt / len(losses) * 1e3}
+                        if flops and peak:
+                            rec["mfu"] = flops * sps / peak
+                        self.mlog.log(rec)
+                        window.clear()
+                        t_last = time.perf_counter()
+                    if step % args.save_steps == 0:
+                        self.save_checkpoint(step, epoch)
+                    if (args.eval_steps and self.eval_loader is not None
+                            and step % args.eval_steps == 0):
+                        self.evaluate(step=step)
+                    if stop["flag"]:
+                        break
+                else:
+                    epoch += 1
+        finally:
+            for sig, handler in prev.items():
+                signal.signal(sig, handler)
+        steps = self.checkpoint_steps(self.ckpt_dir)
+        if not steps or steps[-1] != step:
+            self.save_checkpoint(step, epoch)
+        if stop["flag"]:
+            logger.warning("stopped early at step %d (checkpoint saved); "
+                           "run again to resume", step)
+        return {"train_steps": step}
+
+    def evaluate(self, step: Optional[int] = None) -> Dict[str, float]:
+        """eval_fn over the eval loader. A short final batch is padded to
+        the first batch's size by repeating its last row, with a
+        `valid_mask` of 0 on the padding, and weighted by its true count."""
+        if self.eval_loader is None or self.eval_fn is None:
+            return {}
+        losses, size = [], None
+        for raw in self.eval_loader:
+            if "valid_mask" in raw:
+                raise ValueError("eval batches must not carry a "
+                                 "'valid_mask' column: the Trainer injects "
+                                 "its own padding mask under that name")
+            n = len(raw["pixel_values"])
+            size = size or n
+            batch = {k: np.concatenate([np.asarray(v)]
+                                       + [np.asarray(v)[-1:]] * (size - n))
+                     for k, v in raw.items()}
+            batch["valid_mask"] = np.concatenate(
+                [np.ones(n, np.float32), np.zeros(size - n, np.float32)])
+            out = self.eval_fn(self.state, self.to_device(batch))
+            losses.append((float(out["loss"]), n))
+        rec: Dict[str, float] = {}
+        if losses:
+            tot = sum(w for _, w in losses)
+            rec["eval_loss"] = sum(v * w for v, w in losses) / max(tot, 1)
+        if step is not None:
+            rec["step"] = step
+        if rec:
+            self.mlog.log(rec)
+        return rec

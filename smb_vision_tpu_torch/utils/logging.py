@@ -1,12 +1,17 @@
-"""Logging: one stdlib logger per module, printing to stdout.
+"""Logging: one stdlib logger per module, printing to stdout, and the
+trainers' metrics sink.
 
-Counterpart of `smb_vision_tpu/utils/logging.py::get_logger`; the metrics
-sink (`MetricLogger`) comes with the trainers."""
+Counterpart of `smb_vision_tpu/utils/logging.py` (`get_logger`,
+`MetricLogger` without its wandb sink)."""
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
+import time
+from pathlib import Path
+from typing import Dict
 
 _FORMAT = "%(asctime)s - %(levelname)s - %(name)s - %(message)s"
 
@@ -20,3 +25,23 @@ def get_logger(name: str, level: int = logging.INFO) -> logging.Logger:
         logger.propagate = False
     logger.setLevel(level)
     return logger
+
+
+class MetricLogger:
+    """Console + `metrics.jsonl` metric sink: one JSON record a line, with
+    the wall time added as `time`."""
+
+    def __init__(self, out_dir):
+        self.out_dir = Path(out_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.out_dir / "metrics.jsonl"
+        self.logger = get_logger("metrics")
+
+    def log(self, record: Dict) -> None:
+        record = dict(record)
+        record.setdefault("time", time.time())
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        show = {k: (round(v, 5) if isinstance(v, float) else v)
+                for k, v in record.items() if k != "time"}
+        self.logger.info("%s", show)

@@ -1,0 +1,59 @@
+"""Analytic FLOP counts for MFU accounting.
+
+Counterpart of `smb_vision_tpu/utils/profiling.py` (`transformer_flops`,
+`mim_flops_per_sample`), and the dense bf16 peak of the card the Trainer
+divides by."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+# dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), matched
+# on the lower-cased device name in order: the PCIe and NVL parts of the
+# H100 are slower than the SXM part ("NVIDIA H100 80GB HBM3")
+_PEAK_BF16 = (("h100 pcie", 756e12), ("h100 nvl", 835e12), ("h100", 989e12))
+
+
+def transformer_flops(seq_len: int, hidden: int, layers: int,
+                      intermediate: Optional[int] = None,
+                      fwd_only: bool = False) -> float:
+    """Forward FLOPs of a pre-LN transformer stack on `seq_len` tokens:
+    qkv/proj (8*N*D^2) + attention (4*N^2*D) + mlp (4*N*D*I) per layer.
+    Training (fwd+bwd) multiplies by 3."""
+    intermediate = intermediate or 4 * hidden
+    per_layer = (8 * seq_len * hidden * hidden
+                 + 4 * seq_len * seq_len * hidden
+                 + 4 * seq_len * hidden * intermediate)
+    total = per_layer * layers
+    return total if fwd_only else 3 * total
+
+
+def mim_flops_per_sample(config, mask_ratio: float) -> float:
+    """Train-step FLOPs per sample of VideoMAEForPreTraining: the encoder on
+    the visible tokens + the decoder on the whole sequence + the patch
+    embedding (the remat recompute is not counted)."""
+    n = config.seq_len
+    n_vis = int(n * (1 - mask_ratio))
+    enc = transformer_flops(n_vis, config.hidden_size,
+                            config.num_hidden_layers,
+                            config.intermediate_size)
+    dec = transformer_flops(n, config.decoder_hidden_size,
+                            config.decoder_num_hidden_layers,
+                            config.decoder_intermediate_size)
+    embed = 3 * 2 * n * config.patch_dim * config.hidden_size
+    return enc + dec + embed
+
+
+def device_peak_flops(device) -> Optional[float]:
+    """Dense bf16 FLOP/s of a CUDA device from its name; None for the CPU
+    and for a card this table does not know."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device).lower()
+    for key, peak in _PEAK_BF16:
+        if key in name:
+            return peak
+    return None

@@ -56,8 +56,10 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "smb_vision_tpu_torch.cli.run_inference" in seen["names"]
-    assert "smb_vision_tpu_torch.ops._build" in seen["names"]
+    for name in ("cli.run_inference", "cli.run_mim", "ops._build",
+                 "ops.masking", "train.mim", "train.optim", "train.trainer",
+                 "utils.profiling"):
+        assert f"smb_vision_tpu_torch.{name}" in seen["names"]
     assert seen["jax"] == [] and seen["jax_package"] == []
     assert not seen["lib_loaded"]
     assert _listing(_build.BUILD_ROOT) == before
@@ -169,3 +171,108 @@ def test_mlp_kernels_match_plain(cuda, m, k, f):
         assert _rel(yb, ref) <= 8e-3
         y = M.mlp_fused(x, w1, b1, w2, b2, act=act)
         assert _rel(y, M._mlp_xla(x, w1, b1, w2, b2, act)) <= 8e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(256, 64), (100, 64), (130, 128)])
+def test_flash_bwd_kernel_matches_plain(cuda, n, d):
+    """K4 against its plain backward, with and without an lse2 cotangent,
+    on the lse2 of K1."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                    * 0.4).to(torch.bfloat16) for _ in range(4)]
+    g_lse = torch.randn((2, 3, n), generator=gen, device=cuda)
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    scale = 1.0 / math.sqrt(d)
+    for gl in (None, g_lse):
+        before = A.flash_attention_bwd.launches
+        got = A.flash_attention_bwd(q, k, v, out, lse, do, g_lse=gl)
+        assert A.flash_attention_bwd.launches == before + 1
+        want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale,
+                                     g_lse=gl)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+            assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072)])
+def test_mlp_train_and_bwd_kernels_match_plain(cuda, m, k, f):
+    """K5a (y and the spilled h) and K5b (dx, dh, a) against their plain
+    versions, on the same inputs; bound 3e-2 of max as the JAX package's
+    tests/test_mlp_bwd.py."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * s
+
+    x = r(m, k).to(torch.bfloat16)
+    w1 = r(f, k, s=k ** -0.5).to(torch.bfloat16).t()
+    w2 = r(k, f, s=f ** -0.5).to(torch.bfloat16).t()
+    b1, b2 = r(f, s=0.1), r(k, s=0.1)
+    g = r(m, k).to(torch.bfloat16)
+    for act in ("gelu", "gelu_new"):
+        before = (M.mlp_train_fused.launches, M.mlp_bwd_fused.launches)
+        y, h = M.mlp_train_fused(x, w1, b1, w2, b2, act=act)
+        y_ref, h_ref = M._mlp_train_plain(x, w1, b1, w2, b2, act)
+        assert _rel(y, y_ref) <= 3e-2 and _rel(h, h_ref) <= 3e-2
+        got = M.mlp_bwd_fused(h, g, w1, w2, act=act)
+        want = M._mlp_bwd_plain(h, g, w1, w2, act)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and _rel(a, b) <= 3e-2
+        assert (M.mlp_train_fused.launches, M.mlp_bwd_fused.launches) == (
+            before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_impl", ["auto", "pallas_bwd"])
+def test_block_backward_runs_through_the_kernels(cuda, mlp_impl):
+    """loss.backward() through one bf16 Block on the kernels: every
+    parameter gets a finite, non-zero gradient, within 3e-2 of max of a
+    float32 Block's, as the plain bf16 path's are."""
+    from smb_vision_tpu_torch.models.layers import Block
+
+    torch.manual_seed(0)
+
+    def block(**kw):
+        b = Block(128, 2, 512, bias_mode="qv", layer_norm_eps=1e-12, **kw)
+        b.load_state_dict(ref_state)
+        return b.to(cuda)
+
+    ref_state = Block(128, 2, 512, bias_mode="qv").state_dict()
+    for name, p in ref_state.items():
+        p.add_(torch.randn(p.shape) * 0.05)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, 200, 128), generator=gen, device=cuda)
+    w = torch.randn((2, 200, 128), generator=gen, device=cuda)
+
+    def grads(b):
+        (b(x.to(b.dtype)).float() * w).sum().backward()
+        return {n: p.grad for n, p in b.named_parameters()}
+
+    launches = (A.flash_attention_bwd.launches, M.mlp_bwd_fused.launches)
+    kern = grads(block(dtype=torch.bfloat16, mlp_impl=mlp_impl))
+    assert A.flash_attention_bwd.launches == launches[0] + 1
+    if mlp_impl == "pallas_bwd":
+        assert M.mlp_bwd_fused.launches == launches[1] + 1
+    plain = grads(block(dtype=torch.bfloat16, attn_impl="xla",
+                        mlp_impl="xla"))
+    f32 = grads(block(dtype=torch.float32, attn_impl="xla", mlp_impl="xla"))
+    for name, g in kern.items():
+        assert g is not None and bool(g.isfinite().all()), name
+        assert float(g.abs().max()) > 0, name
+        assert _rel(plain[name], f32[name]) <= 3e-2, name
+        assert _rel(g, f32[name]) <= 3e-2, name
+
+
+@pytest.mark.cuda
+def test_int8_forward_and_i8bwd_refuse_autograd(cuda):
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        A.attention(q, q, q, impl="pallas_int8")
+    with pytest.raises(NotImplementedError, match="K7"):
+        A.attention(q, q, q, impl="pallas_i8bwd")
+    with torch.no_grad():
+        assert torch.equal(A.attention(q, q, q, impl="pallas_i8bwd"),
+                           A.attention(q, q, q, impl="pallas"))

@@ -145,8 +145,7 @@ def test_unported_options_raise():
     for kw, match in [({"glue_impl": "pallas"}, "K10"),
                       ({"fused_qkv": True}, "fused_qkv"),
                       ({"quant8": True}, "quant8"),
-                      ({"sequence_parallel": True}, "sequence_parallel"),
-                      ({"gradient_checkpointing": True}, "remat")]:
+                      ({"sequence_parallel": True}, "sequence_parallel")]:
         cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
                              num_hidden_layers=1, num_attention_heads=2,
                              intermediate_size=64, **kw)
@@ -162,12 +161,6 @@ def test_unported_options_raise():
     assert torch.equal(block.drop_path(x), x)          # eval: identity
     with pytest.raises(NotImplementedError, match="DropPath"):
         block.train()(x)
-    model = VideoMAEModel(VideoMAEConfig(
-        image_size=32, num_frames=32, hidden_size=32, num_hidden_layers=1,
-        num_attention_heads=2, intermediate_size=64))
-    with pytest.raises(NotImplementedError, match="MIM"):
-        model(torch.zeros(1, 32, 1, 32, 32),
-              bool_masked_pos=torch.zeros(1, 8, dtype=torch.bool))
 
 
 def test_init_weights_is_seeded():
