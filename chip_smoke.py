@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding and MIM-pretraining paths once
-on one NVIDIA GPU.
+"""Drive the PyTorch port's batch-embedding, MIM-pretraining and
+V-JEPA2-pretraining paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,11 @@ error:
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one; then the training kernels (K4, K5a, K5b) at the MIM
-     encoder's and decoder's shapes and a ragged one;
+     encoder's and decoder's shapes and a ragged one; then the V-JEPA
+     shapes: the int8-score backward K7 at the encoder's, the predictor's,
+     the reference-head encoder's and two ragged shapes (timed beside its
+     plain version and K4), K1 and K3 at head width 128, and K5a, K5b and
+     K6 at the ViT-L MLP;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -24,15 +28,25 @@ error:
   9. leg C: `run_mim` with a copy of configs/mim_base_512.json on the 4
      volumes, 4 steps with checkpoints, then a resume to 6 (kernels K1, K4,
      K5a and K5b in training, K6 in eval);
- 10. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2.
+ 10. leg D: `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
+     (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
+     256, 4 steps with checkpoints and eval, then a resume to 6 (K1, K7,
+     K5a and K5b in the student, K3 and K6 in the EMA teacher);
+ 11. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2;
+ 12. V-JEPA parity: one full-width step of the preset at batch 1 through
+     the kernels, through their plain versions under the same impl names,
+     and in float32; loss, gradient error and the EMA teacher's change;
+ 13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import shutil
@@ -78,6 +92,16 @@ HEADS, HEAD_DIM, HIDDEN, FFN = 12, 64, 768, 3072
 ENC_N = 7168
 DEC_HIDDEN, DEC_HEADS, DEC_FFN = 384, 6, 1536
 MIM_PRESET = ROOT / "configs" / "mim_base_512.json"
+# V-JEPA2 (configs/vjepa_large_384_tpu.json): 384^2 x 256 at patch and
+# tubelet 16 is a (16, 24, 24) grid of 9,216 tokens; the ViT-L encoder has
+# 8 heads of 128 and an MLP of 4,096, the predictor 3 heads of 128
+VJEPA_PRESET = ROOT / "configs" / "vjepa_large_384_tpu.json"
+VJ_N = 9216
+VJ_HIDDEN, VJ_FFN = 1024, 4096
+LEG_D_ACCUM = 2         # the preset's 64 micro-batches, cut for a smoke run
+# the EMA check: the teacher moves by (1 - momentum) times the student's
+# update, up to f32 rounding of t*m + s*(1 - m); held within a factor of 2
+TOL_EMA_RATIO = 2.0
 
 SOURCES = {
     "flash_fwd": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
@@ -94,6 +118,8 @@ SOURCES = {
                       "smb_vision_tpu/ops/mlp.py:137"),
     "mlp_bwd": ("smb_vision_tpu_torch/csrc/mlp_bwd.cu",
                 "smb_vision_tpu/ops/mlp.py:171"),
+    "flash_bwd_i8": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                     "smb_vision_tpu/ops/attention.py:549"),
 }
 
 
@@ -105,6 +131,7 @@ def wrappers():
     from smb_vision_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_bwd,
+        flash_attention_bwd_i8,
         flash_attention_int8,
     )
     from smb_vision_tpu_torch.ops.mlp import (
@@ -118,7 +145,8 @@ def wrappers():
             "flash_fwd_i8": flash_attention_int8,
             "mlp_block_fwd": mlp_block_fused, "mlp_fwd": mlp_fused,
             "flash_bwd": flash_attention_bwd,
-            "mlp_train_fwd": mlp_train_fused, "mlp_bwd": mlp_bwd_fused}
+            "mlp_train_fwd": mlp_train_fused, "mlp_bwd": mlp_bwd_fused,
+            "flash_bwd_i8": flash_attention_bwd_i8}
 
 
 def reset_launches() -> dict:
@@ -229,18 +257,12 @@ def phase_kernels() -> dict:
              for name, (src, rep) in SOURCES.items()}
 
     def check(name, n, out, ref, tol, what="plain"):
-        torch.cuda.synchronize()
-        err, rel = errors(out, ref)
-        log(f"{name:<14} N={n:<6} vs {what:<11} max|d| {err:.3e}  "
-            f"rel {rel:.3e} (bound {tol})")
-        if not rel <= tol:
-            raise AssertionError(f"{name} at N={n}: rel {rel} > {tol}")
-        if what == "plain":
-            table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
+        check_kernel(table, name, f"N={n} vs {what}", out, ref, tol,
+                     record=what == "plain")
 
     def timed(name, kernel, plain, iters):
-        table[name]["ms"] = cuda_ms(kernel, iters=iters)
-        table[name]["plain_ms"] = cuda_ms(plain, iters=max(2, iters // 4))
+        time_kernel(table, name, f"main-path N={MAIN_N}", kernel, plain,
+                    iters, True)
 
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for n in (MAIN_N, RAGGED_N):
@@ -280,39 +302,50 @@ def phase_kernels() -> dict:
                                            "gelu", eps), 20)
             timed("mlp_fwd", lambda: M.mlp_fused(x, w1, b1, w2, b2),
                   lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20)
-    for rec in table.values():
-        if rec["ms"] is not None:
-            log(f"time {rec['name']:<14} kernel {rec['ms']:.3f} ms, plain "
-                f"{rec['plain_ms']:.3f} ms (main-path shape, CUDA events)")
     phase_train_kernels(table, gen, dev)
+    phase_vjepa_kernels(table, gen, dev)
     return table
+
+
+def check_kernel(table: dict, name: str, what: str, out, ref, tol: float,
+                 record: bool = True) -> None:
+    """Hold a kernel's result against its plain version's: rel =
+    max|d| / max|ref| <= tol; record keeps max|d| in the table."""
+    import torch
+
+    torch.cuda.synchronize()
+    err, rel = errors(out, ref)
+    log(f"{name:<14} {what:<30} max|d| {err:.3e}  rel {rel:.3e} "
+        f"(bound {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"{name} {what}: rel {rel} > {tol}")
+    if record:
+        table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
+
+
+def time_kernel(table: dict, name: str, shape: str, kernel, plain,
+                iters: int, keep: bool) -> None:
+    """The kernel's and its plain version's time by CUDA events; keep puts
+    them in the table."""
+    ms, plain_ms = cuda_ms(kernel, iters=iters), cuda_ms(plain, iters=2)
+    log(f"time {name:<14} {shape:<30} kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events)")
+    if keep:
+        table[name]["ms"], table[name]["plain_ms"] = ms, plain_ms
 
 
 def phase_train_kernels(table: dict, gen, dev) -> None:
     """K4 against its plain backward, K5a and K5b against theirs, at the
-    MIM encoder's and decoder's shapes and a ragged one, on the same
-    inputs; times at both MIM shapes (the table keeps the encoder's)."""
+    MIM encoder's and decoder's shapes and a ragged one, and K5a, K5b and
+    K6 at the V-JEPA encoder's MLP, on the same inputs; times at the MIM
+    and V-JEPA shapes (the table keeps the MIM encoder's)."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
     from smb_vision_tpu_torch.ops import mlp as M
 
-    def check(name, what, out, ref, tol):
-        torch.cuda.synchronize()
-        err, rel = errors(out, ref)
-        log(f"{name:<14} {what:<26} max|d| {err:.3e}  rel {rel:.3e} "
-            f"(bound {tol})")
-        if not rel <= tol:
-            raise AssertionError(f"{name} {what}: rel {rel} > {tol}")
-        table[name]["max_abs_err"] = max(table[name]["max_abs_err"], err)
-
-    def timed(name, shape, kernel, plain, iters, keep):
-        ms, plain_ms = cuda_ms(kernel, iters=iters), cuda_ms(plain, iters=2)
-        log(f"time {name:<14} {shape:<22} kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (CUDA events)")
-        if keep:
-            table[name]["ms"], table[name]["plain_ms"] = ms, plain_ms
-
+    check = functools.partial(check_kernel, table)
+    timed = functools.partial(time_kernel, table)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for n, h, label in ((ENC_N, HEADS, "encoder"), (MAIN_N, DEC_HEADS,
                                                     "decoder"),
@@ -336,7 +369,8 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
 
     for m, kd, f, label in ((ENC_N, HIDDEN, FFN, "encoder"),
                             (MAIN_N, DEC_HIDDEN, DEC_FFN, "decoder"),
-                            (RAGGED_N, HIDDEN, FFN, "ragged")):
+                            (RAGGED_N, HIDDEN, FFN, "ragged"),
+                            (VJ_N, VJ_HIDDEN, VJ_FFN, "V-JEPA")):
         def r(*shape, s=1.0):
             return torch.randn(shape, generator=gen, device=dev) * s
 
@@ -363,6 +397,81 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
             timed("mlp_bwd", f"{label} {what}",
                   lambda: M.mlp_bwd_fused(hh, g, w1, w2),
                   lambda: M._mlp_bwd_plain(hh, g, w1, w2, "gelu"), 20, keep)
+        if label == "V-JEPA":   # the EMA teacher's MLP
+            check("mlp_fwd", what, M.mlp_fused(x, w1, b1, w2, b2),
+                  M._mlp_xla(x, w1, b1, w2, b2, "gelu"), TOL_MLP)
+            timed("mlp_fwd", f"{label} {what}",
+                  lambda: M.mlp_fused(x, w1, b1, w2, b2),
+                  lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20, False)
+
+
+def phase_vjepa_kernels(table: dict, gen, dev) -> None:
+    """K7 against its plain version at the V-JEPA shapes: the encoder (8
+    heads of 128), the predictor (3 heads of 128), the reference-head
+    encoder (16 heads of 64) and ragged N = 1,960 at d 64 and 128 (these
+    two with an lse2 cotangent), timed beside its plain version and K4 on
+    the same inputs (the table keeps the encoder's times). Then K1 and K3
+    at the encoder's shape against theirs, with times."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+
+    def qkv(n, h, d, count):
+        return [(torch.randn((1, n, h, d), generator=gen, device=dev)
+                 * 0.4).to(torch.bfloat16) for _ in range(count)]
+
+    for n, h, d, label in ((VJ_N, 8, 128, "encoder"),
+                           (VJ_N, 3, 128, "predictor"),
+                           (VJ_N, 16, 64, "reference-head encoder"),
+                           (RAGGED_N, 8, 64, "ragged"),
+                           (RAGGED_N, 8, 128, "ragged")):
+        q, k, v, do = qkv(n, h, d, 4)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        g_lse = (torch.randn((1, h, n), generator=gen, device=dev)
+                 if label == "ragged" else None)
+        got = A.flash_attention_bwd_i8(q, k, v, out, lse, do, g_lse=g_lse)
+        want = A.attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale,
+                                        g_lse=g_lse)
+        shape = f"N={n} H={h} d={d}" + (" g_lse" if label == "ragged"
+                                         else "")
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            check_kernel(table, "flash_bwd_i8", f"{shape} {what}", a, b,
+                         TOL_FLASH_BWD)
+        del got, want
+        if label != "ragged":
+            ms = cuda_ms(lambda: A.flash_attention_bwd_i8(q, k, v, out, lse,
+                                                          do))
+            plain_ms = cuda_ms(lambda: A.attention_bwd_i8_plain(
+                q, k, v, out, lse, do, scale=scale), iters=2)
+            k4_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, out, lse,
+                                                          do))
+            log(f"time flash_bwd_i8   {label} {shape}: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, K4 on the same inputs "
+                f"{k4_ms:.3f} ms (CUDA events)")
+            if label == "encoder":
+                table["flash_bwd_i8"]["ms"] = ms
+                table["flash_bwd_i8"]["plain_ms"] = plain_ms
+        del q, k, v, do, out, lse
+
+    q, k, v = qkv(VJ_N, 8, 128, 3)
+    scale = 1.0 / math.sqrt(128)
+    shape = f"V-JEPA N={VJ_N} H=8 d=128"
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
+    check_kernel(table, "flash_fwd", shape, out, ref, TOL_FLASH)
+    check_kernel(table, "flash_fwd", shape + " lse2", lse, ref_lse,
+                 TOL_FLASH, record=False)
+    q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+    check_kernel(table, "flash_fwd_i8", shape, A.flash_attention_int8(q, k, v),
+                 A.int8_attention_plain(q8, k8, sq, sk, v), TOL_INT8)
+    time_kernel(table, "flash_fwd", shape,
+                lambda: A.flash_attention(q, k, v),
+                lambda: A.xla_attention(q, k, v), 8, False)
+    time_kernel(table, "flash_fwd_i8", shape,
+                lambda: A.flash_attention_int8(q, k, v),
+                lambda: A.int8_attention_plain(*A.quantize_qk(q, k, scale),
+                                               v), 8, False)
 
 
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
@@ -577,19 +686,30 @@ def profile_call(fn, label: str, top: int = 8) -> None:
             f"{key[:100]}")
 
 
-def mim_config(**kw):
-    """The configs/mim_base_512.json model (ViT-Base VideoMAE at 512^2 x
-    320, decoder 384 wide and 4 deep, bf16, mlp_impl pallas_bwd, remat)
-    built as run_mim builds it, at full width; kw overrides config keys.
+def preset_config(cli: str, path: Path, **kw):
+    """The model of a shipped preset, built at full width as the CLI
+    `smb_vision_tpu_torch.cli.<cli>` builds it; kw overrides config keys.
     Returns (config, the preset's keys)."""
-    from smb_vision_tpu_torch.cli.run_mim import ModelArguments, build_config
-
-    preset = json.loads(MIM_PRESET.read_text())
-    names = {f.name for f in dataclasses.fields(ModelArguments)}
-    cfg = build_config(ModelArguments(
+    mod = importlib.import_module(f"smb_vision_tpu_torch.cli.{cli}")
+    preset = json.loads(path.read_text())
+    names = {f.name for f in dataclasses.fields(mod.ModelArguments)}
+    cfg = mod.build_config(mod.ModelArguments(
         **{k: v for k, v in preset.items() if k in names}))
     cfg.update(kw)
     return cfg, preset
+
+
+def mim_config(**kw):
+    """configs/mim_base_512.json: ViT-Base VideoMAE at 512^2 x 320, decoder
+    384 wide and 4 deep, bf16, mlp_impl pallas_bwd, remat."""
+    return preset_config("run_mim", MIM_PRESET, **kw)
+
+
+def vjepa_config(**kw):
+    """configs/vjepa_large_384_tpu.json: V-JEPA2 ViT-L at 384^2 x 256, 8
+    heads of 128, predictor 384 wide, 12 deep, 3 heads of 128; bf16,
+    attn_impl pallas_i8bwd, mlp_impl pallas_bwd, remat."""
+    return preset_config("run_vjepa", VJEPA_PRESET, **kw)
 
 
 def phase_train_parity() -> None:
@@ -742,15 +862,11 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
     from smb_vision_tpu_torch.train.mim import make_mim_workload
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import step_generator
-    from smb_vision_tpu_torch.utils.profiling import (
-        device_peak_flops,
-        mim_flops_per_sample,
-    )
+    from smb_vision_tpu_torch.utils.profiling import mim_flops_per_sample
 
     dev = torch.device("cuda")
     cfg, preset = mim_config()
     flops = mim_flops_per_sample(cfg, preset["mask_ratio"])
-    peak = device_peak_flops(dev)
     for bs in (1, 2):
         model, init_fn, step_fn, _ = make_mim_workload(
             cfg, mask_patch_size=preset["mask_patch_size"],
@@ -768,26 +884,315 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
             return step_fn(state, {"pixel_values": pxs[i]},
                            step_generator(0, i))
 
-        step(0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses = [step(i)["loss"] for i in range(1, iters + 1)]
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / iters
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        if not all(math.isfinite(float(x)) for x in losses):
-            raise AssertionError(f"MIM batch {bs}: losses {losses}")
-        mfu = flops * bs / (ms / 1e3) / peak if peak else None
-        log(f"MIM train step batch {bs}: {ms:.1f} ms = {1e3 / ms:.3f} "
-            f"steps/s, {bs * 1e3 / ms:.3f} volumes/s, MFU {mfu} "
-            f"({flops / 1e12:.2f} TFLOP/sample analytic, no remat "
-            f"recompute), peak {mem:.1f} GiB, on {card}")
-        profile_call(lambda: step(0), f"MIM train step batch {bs}")
-        del model, state, pxs
+        time_train_steps("MIM", card, bs, flops, step, iters)
+        del model, init_fn, step_fn, state, pxs, step
+        torch.cuda.empty_cache()
+
+
+def time_train_steps(label: str, card: str, bs: int, flops: float, step,
+                     iters: int) -> None:
+    """step(0) as warm-up, then CUDA events over step(1) .. step(iters):
+    ms a step, MFU against the card's dense bf16 peak (analytic FLOPs a
+    sample, no remat recompute) and peak memory; then step(0) once under
+    the profiler."""
+    import torch
+
+    from smb_vision_tpu_torch.utils.profiling import device_peak_flops
+
+    step(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(i)["loss"] for i in range(1, iters + 1)]
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"{label} batch {bs}: losses {losses}")
+    peak = device_peak_flops(torch.device("cuda"))
+    mfu = flops * bs / (ms / 1e3) / peak if peak else None
+    log(f"{label} train step batch {bs}: {ms:.1f} ms = {1e3 / ms:.3f} "
+        f"steps/s, {bs * 1e3 / ms:.3f} volumes/s, MFU {mfu} "
+        f"({flops / 1e12:.2f} TFLOP/sample analytic, no remat "
+        f"recompute), peak {mem:.1f} GiB, on {card}")
+    profile_call(lambda: step(0), f"{label} train step batch {bs}", top=10)
+
+
+def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
+    """make_vjepa_workload with the preset's optimizer (no warm-up, so the
+    first update moves the weights) and EMA momentum."""
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.vjepa import make_vjepa_workload
+
+    return make_vjepa_workload(
+        cfg, tx=functools.partial(
+            make_optimizer, learning_rate=preset["learning_rate"],
+            total_steps=100, weight_decay=preset["weight_decay"],
+            schedule=preset["lr_scheduler_type"], min_lr=preset["min_lr"]),
+        ema_momentum=preset["ema_momentum"],
+        teacher_attn_impl=teacher_attn_impl, device=dev)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block every kernel the V-JEPA step reaches (K1, K7, K3,
+    K5a, K5b, K6) runs its plain PyTorch version on the card, under the
+    same impl names: the reference of the step parity phase. This swaps
+    module attributes for the phase only; the package has no such switch
+    and never falls back."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    def scale_of(q, scale):
+        return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+    swaps = {
+        (A, "_flash_fwd"): lambda q, k, v, scale, with_lse: A.xla_attention(
+            q, k, v, scale=scale, with_lse=with_lse),
+        (A, "flash_attention_bwd_i8"):
+            lambda q, k, v, out, lse, do, *, scale=None, g_lse=None:
+            A.attention_bwd_i8_plain(q, k, v, out, lse, do,
+                                     scale=scale_of(q, scale), g_lse=g_lse),
+        (A, "flash_attention_int8"): lambda q, k, v, *, scale=None:
+            A.int8_attention_plain(*A.quantize_qk(q, k, scale_of(q, scale)),
+                                   v),
+        (M, "_mlp_fwd"): lambda x2, w1, b1, w2, b2, act: M._mlp_xla(
+            x2.to(torch.bfloat16), w1, b1, w2, b2, act),
+        (M, "mlp_train_fused"): lambda x2, w1, b1, w2, b2, *, act="gelu":
+            M._mlp_train_plain(x2, w1, b1, w2, b2, act),
+        (M, "mlp_bwd_fused"): lambda h, g2, w1, w2, *, act="gelu":
+            M._mlp_bwd_plain(h, g2, w1, w2, act),
+    }
+    saved = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+VJEPA_KERNELS = ("flash_fwd", "flash_bwd_i8", "mlp_train_fwd", "mlp_bwd",
+                 "flash_fwd_i8", "mlp_fwd")
+
+
+def check_vjepa_launches(what: str, counts: dict) -> None:
+    """The V-JEPA step's kernels launched, and K4 did not: the student's
+    backward is K7."""
+    missing = [n for n in VJEPA_KERNELS if counts[n] <= 0]
+    if missing or counts["flash_bwd"]:
+        raise AssertionError(f"{what}: launches {counts}")
+
+
+def phase_vjepa_parity() -> None:
+    """One V-JEPA step of the preset (forward, backward, AdamW update, EMA)
+    at batch 1 on one seeded volume and target mask, from the same seeded
+    weights: through the kernels, through their plain versions under the
+    same impl names (`plain_kernels`), and in float32 with the plain
+    attention and MLP (TF32 off). Holds the loss and the gradient over
+    all student parameters, and the EMA teacher's change against the
+    student's update."""
+    import torch
+
+    from smb_vision_tpu_torch.ops.masking import vjepa_target_mask
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg0, preset = vjepa_config()
+    if cfg0.seq_len != VJ_N:
+        raise AssertionError(f"the preset has {cfg0.seq_len} tokens")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    px = torch.rand((1, cfg0.frames_per_clip, 1, cfg0.crop_size,
+                     cfg0.crop_size), generator=gen, device=dev)
+    mask = vjepa_target_mask(torch.Generator().manual_seed(0), 1,
+                             grid=cfg0.grid)
+    momentum = preset["ema_momentum"]
+
+    def step(teacher_attn_impl, **kw):
+        cfg, _ = vjepa_config(**kw)
+        _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev,
+                                                teacher_attn_impl)
+        state = init_fn(0)
+        model, teacher, opt = (state["model"], state["teacher"],
+                               state["optimizer"])
+        s0 = [p.detach().clone() for p in model.parameters()]
+        t0 = [p.detach().clone() for p in teacher.parameters()]
+        grads, clip = [], opt.clip_
+
+        def snapshot():     # the raw gradient, before the global-norm clip
+            if any(p.grad is None for p in opt.params):
+                raise AssertionError(f"{kw or 'kernel path'}: a parameter "
+                                     "got no gradient")
+            grads.append(torch.cat([p.grad.float().flatten()
+                                    for p in opt.params]))
+            clip()
+
+        opt.clip_ = snapshot
+        loss = float(step_fn(state, {"pixel_values": px}, mask=mask)["loss"])
+        del opt.clip_       # drops the snapshot's reference cycle
+        ds = torch.cat([(p.detach() - a).flatten()
+                        for p, a in zip(model.parameters(), s0)])
+        dt = torch.cat([(p.detach() - a).flatten()
+                        for p, a in zip(teacher.parameters(), t0)])
+        ema = (float(dt.norm()) / float(ds.norm()), float(dt.abs().max()))
+        del state, model, teacher, opt, s0, t0, ds, dt
+        torch.cuda.empty_cache()
+        return loss, grads[0], ema
+
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    k_loss, k_grad, (ratio, dt_max) = step(preset["teacher_attn_impl"])
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in ws.items()}
+    check_vjepa_launches("V-JEPA step", counts)
+    ws = reset_launches()
+    with plain_kernels():
+        p_loss, p_grad, _ = step(preset["teacher_attn_impl"])
+    if any(w.launches for w in ws.values()):
+        raise AssertionError("the plain path launched a kernel")
+    f_loss, f_grad, _ = step(None, attn_impl="xla", mlp_impl="xla",
+                             dtype="float32")
+    norm = float(f_grad.norm())
+    k_err = float((k_grad - f_grad).norm()) / norm
+    p_err = float((p_grad - f_grad).norm()) / norm
+    rel_loss = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"V-JEPA parity, one step of {VJEPA_PRESET.name} at batch 1 "
+        f"({int(mask.sum())} of {VJ_N} tokens are targets): loss kernels "
+        f"{k_loss:.6f}, plain versions {p_loss:.6f}, f32 {f_loss:.6f}; rel "
+        f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32 "
+        f"over {k_grad.numel()} student parameters: kernels {k_err:.3e}, "
+        f"plain versions {p_err:.3e} (bound {TOL_TRAIN_GRAD_VS_F32} x "
+        f"plain); EMA: ||teacher change|| / ||student update|| {ratio:.4e} "
+        f"(1 - momentum = {1 - momentum:.4e}), max|teacher change| "
+        f"{dt_max:.3e}; kernel step {wall:.1f} s with the first calls; "
+        f"launches {counts}")
+    if not (bool(k_grad.isfinite().all()) and math.isfinite(k_loss)):
+        raise AssertionError("the kernel path's loss or gradient is not "
+                             "finite")
+    if not rel_loss <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"V-JEPA loss rel {rel_loss}")
+    if not k_err <= TOL_TRAIN_GRAD_VS_F32 * p_err:
+        raise AssertionError(f"V-JEPA kernel gradients are {k_err} from "
+                             f"float32, the plain versions' {p_err}")
+    expected = 1.0 - momentum
+    if not expected / TOL_EMA_RATIO <= ratio <= expected * TOL_EMA_RATIO:
+        raise AssertionError(f"EMA: the teacher moved {ratio} of the "
+                             f"student's update, not ~{expected}")
+
+
+def run_leg_d(work: Path, vols: Path, table: dict) -> None:
+    """run_vjepa on the volumes (3 to train, 1 to evaluate) with a copy of
+    configs/vjepa_large_384_tpu.json, accumulation cut to LEG_D_ACCUM and
+    one checkpoint kept (each holds the student, the teacher and the AdamW
+    moments, ~5 GB at ViT-L): 4 steps, a checkpoint every 2, eval; then the
+    same to 6 steps, which resumes at 4. Asserts the logs, the checkpoints,
+    the export and that the V-JEPA kernels launched."""
+    import numpy as np
+    import torch
+
+    from smb_vision_tpu_torch.cli.run_vjepa import main as run_vjepa
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+    from smb_vision_tpu_torch.train.trainer import Trainer
+
+    nii = [{"image": str(p)} for p in sorted(vols.glob("*.nii"))]
+    spec = work / "vjepa_data.json"
+    spec.write_text(json.dumps({"train": nii[:3], "validation": nii[3:]}))
+    out = work / "vjepa_out"
+    preset = json.loads(VJEPA_PRESET.read_text())
+    log(f"leg D: {VJEPA_PRESET.name} with gradient_accumulation_steps cut "
+        f"from {preset['gradient_accumulation_steps']} to {LEG_D_ACCUM} and "
+        f"save_total_limit 1, on {len(nii)} volumes resampled to "
+        f"{preset['image_size']}^2 x {preset['depth']}")
+
+    def run(steps):
+        path = work / f"vjepa_{steps}.json"
+        path.write_text(json.dumps(dict(
+            preset, data_path=str(spec), output_dir=str(out),
+            gradient_accumulation_steps=LEG_D_ACCUM, num_train_steps=steps,
+            save_steps=2, save_total_limit=1, logging_steps=1, do_eval=True,
+            num_workers=2)))
+        t0 = time.perf_counter()
+        res = run_vjepa([str(path)])
+        return res, time.perf_counter() - t0
+
+    ws = reset_launches()
+    res4, wall4 = run(4)
+    counts = {name: w.launches for name, w in ws.items()}
+    ckpts4 = Trainer.checkpoint_steps(out / "checkpoints")
+    res6, wall6 = run(6)
+    log(f"leg D: {res4} in {wall4:.1f} s, resumed {res6} in {wall6:.1f} s "
+        f"(preprocess + train + eval + save); launches of the first run "
+        f"{counts}")
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    for r in train:
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, "
+            f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
+    if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"leg D logged steps "
+                             f"{[r['step'] for r in train]}")
+    for r in train:
+        if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
+            raise AssertionError(f"leg D step record {r}")
+    for res in (res4, res6):
+        if not math.isfinite(res.get("eval_loss", math.nan)):
+            raise AssertionError(f"leg D eval: {res}")
+    ckpts = Trainer.checkpoint_steps(out / "checkpoints")
+    if ckpts4 != [4] or ckpts != [6] or res6["train_steps"] != 6:
+        raise AssertionError(f"leg D checkpoints {ckpts4} then {ckpts}, "
+                             f"result {res6}")
+    blob = torch.load(out / "checkpoints" / "6" / "state.pt",
+                      map_location="cpu", weights_only=True, mmap=True)
+    if not {"model", "teacher", "optimizer"} <= set(blob):
+        raise AssertionError(f"leg D checkpoint holds {sorted(blob)}")
+    del blob
+    export = read_safetensors(out / "model.safetensors")
+    if not (out / "config.json").exists() or not all(
+            np.isfinite(v).all() for v in export.values()):
+        raise AssertionError("leg D: config.json or a finite "
+                             "model.safetensors is missing")
+    files = sorted(f"{p.relative_to(out)} ({p.stat().st_size / 2**20:.0f} "
+                   f"MiB)" for p in out.rglob("*") if p.is_file())
+    log(f"leg D: checkpoints {ckpts4} then {ckpts} (with the EMA "
+        f"teacher), model.safetensors {len(export)} tensors; files "
+        f"{files}")
+    check_vjepa_launches("leg D", counts)
+    table["flash_bwd_i8"]["launches"] = counts["flash_bwd_i8"]
+
+
+def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
+    """V-JEPA steps of the preset at batch 1 and 2 (no accumulation)."""
+    import torch
+
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import vjepa_flops_per_sample
+
+    dev = torch.device("cuda")
+    cfg, preset = vjepa_config()
+    flops = vjepa_flops_per_sample(cfg)
+    for bs in (1, 2):
+        _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev,
+                                                preset["teacher_attn_impl"])
+        state = init_fn(0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pxs = [torch.rand((bs, cfg.frames_per_clip, 1, cfg.crop_size,
+                           cfg.crop_size), generator=gen, device=dev)
+               for _ in range(iters + 1)]
+
+        def step(i):
+            return step_fn(state, {"pixel_values": pxs[i]},
+                           step_generator(0, i))
+
+        time_train_steps("V-JEPA", card, bs, flops, step, iters)
+        del init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
 
@@ -816,11 +1221,14 @@ def main() -> int:
                 ("flash_fwd_i8", "mlp_fwd"), table)
         phase_whole_model(vols, emb_a)
         run_leg_c(work, vols, table)
+        run_leg_d(work, vols, table)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
     phase_train_parity()
     phase_train_throughput(card)
+    phase_vjepa_parity()
+    phase_vjepa_throughput(card)
     log(card)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -133,9 +133,12 @@ def build_config(model_args: ModelArguments):
     return config
 
 
-def _refuse_unported(model_args, data_args, training_args) -> None:
+def _refuse_unported(model_args, data_args, training_args,
+                     cli: str = "run_mim", extra=()) -> None:
+    """Raise for a flag whose module is not ported, naming its ROADMAP.md
+    item; extra: more (hit, flag, item) triples of the calling CLI."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    unported = [
+    unported = [*extra,
         (model_args.pipeline_stages > 1, "--pipeline_stages > 1",
          "queue 1, multi-GPU"),
         (bool(data_args.cache_data_dir), "--cache_data_dir",
@@ -163,7 +166,30 @@ def _refuse_unported(model_args, data_args, training_args) -> None:
         if hit:
             raise NotImplementedError(
                 f"{flag} is not yet ported to smb_vision_tpu_torch "
-                f"(ROADMAP.md {item}); use smb_vision_tpu.cli.run_mim")
+                f"(ROADMAP.md {item}); use smb_vision_tpu.cli.{cli}")
+
+
+def _device_and_accum(training_args):
+    """The torch device of --device (cuda refuses to run without CUDA;
+    there is no fallback to the CPU) and the dtype of
+    --grad_accum_dtype."""
+    import torch
+
+    device = torch.device(training_args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda but CUDA is not available; pass --device cpu to "
+            "run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {training_args.device}: expected cuda "
+                         "or cpu")
+    accum_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+        training_args.grad_accum_dtype)
+    if accum_dt is None:
+        raise ValueError(f"--grad_accum_dtype "
+                         f"{training_args.grad_accum_dtype!r}: expected "
+                         "float32 or bfloat16")
+    return device, accum_dt
 
 
 def _load_checkpoint(model, path: str) -> None:
@@ -207,20 +233,7 @@ def main(argv=None) -> dict:
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     _refuse_unported(model_args, data_args, training_args)
-    device = torch.device(training_args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda but CUDA is not available; pass --device cpu to "
-            "run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device {training_args.device}: expected cuda "
-                         "or cpu")
-    accum_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
-        training_args.grad_accum_dtype)
-    if accum_dt is None:
-        raise ValueError(f"--grad_accum_dtype "
-                         f"{training_args.grad_accum_dtype!r}: expected "
-                         "float32 or bfloat16")
+    device, accum_dt = _device_and_accum(training_args)
     config = build_config(model_args)
     logger.info("MIM config: %s tokens, grid %s, on %s", config.seq_len,
                 config.grid, device)

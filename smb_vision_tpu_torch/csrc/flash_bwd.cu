@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 (K4).
+// Flash-attention backward for Hopper (sm_90a): bf16 (K4) and with int8
+// score recompute (K7, below K4).
 //
 // Replaces
 //   K4  smb_vision_tpu/ops/attention.py:_bwd_dq_kernel and _bwd_dkv_kernel
@@ -432,6 +433,344 @@ cudaError_t launch(const BwdParams& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K7: the int8-score backward.
+//
+// Replaces
+//   K7  smb_vision_tpu/ops/attention.py:_bwd_dq_i8_kernel and
+//       _bwd_dkv_i8_kernel (attn_impl "pallas_i8bwd")
+//
+// K4 with the two recomputed products on int8: from per-(batch, head)
+// symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and their
+// scales, made in plain torch before the launch,
+//   s_ij  = (q8_i . k8_j) * sqk       sqk = sq*sk (log2 units)
+//   dp_ij = (do8_i . v8_j) * sdv      sdv = sdo*sv
+// on mma.sync m16n8k32 s8 with int32 sums (exact), then as K4:
+//   p = exp2(s - lse2), ds = bf16(p (dp - delta)),
+//   dq = scale ds k, dk = scale ds^T q, dv = bf16(p)^T do
+// with k, q, do in bf16 and f32 accumulation. Every int8 product contracts
+// over d, which is contiguous, so plain ldmatrix of the int8 tiles gives
+// the B fragments; the s32 C fragment of m16n8k32 has the thread layout of
+// the f32 C fragment of m16n8k16, so p and ds become the A operands of the
+// bf16 products in registers as in K4. The int8 A operands take half of
+// K4's registers, which pays for the bf16 tile streamed beside the int8
+// ones (k in the dq pass; q and do in the dk/dv pass).
+// Ragged lengths as in K4: streamed int8 and bf16 rows past their length
+// are zero-filled; kv columns past Nk get p = 0 in the dq pass; query
+// columns past Nq have lse2 = +inf and delta = 0 in the dk/dv pass.
+
+struct BwdI8Params {
+  const char* q8;
+  const char* k8;
+  const char* v8;
+  const char* do8;
+  const char* kbf;   // bf16 k (dq pass)
+  const char* qbf;   // bf16 q (dk/dv pass)
+  const char* dobf;  // bf16 do (dk/dv pass)
+  const float* lse;    // (B*H, Nq), log2 units
+  const float* delta;  // (B*H, Nq)
+  const float* sqk;    // (B*H)
+  const float* sdv;    // (B*H)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int H, Nq, Nk;
+  // strides in elements: batch, token, head (the last dim is contiguous)
+  long long q8_sb, q8_sn, q8_sh;
+  long long k8_sb, k8_sn, k8_sh;
+  long long v8_sb, v8_sn, v8_sh;
+  long long o8_sb, o8_sn, o8_sh;  // do8
+  long long kb_sb, kb_sn, kb_sh;
+  long long qb_sb, qb_sn, qb_sh;
+  long long ob_sb, ob_sn, ob_sh;  // bf16 do
+  long long dq_sb, dq_sn, dq_sh;
+  long long dk_sb, dk_sn, dk_sh;
+  long long dv_sb, dv_sn, dv_sh;
+  float scale;
+};
+
+// streamed tile rows as K4's; a stage holds the dq pass's k8, v8 and bf16
+// k, or the dk/dv pass's q8, do8 and bf16 q and do
+template <int D, bool DQ>
+struct TilesI8 {
+  static constexpr int BT = DQ ? 64 : (D <= 64 ? 64 : 32);
+  static constexpr int ROW8 = D + 16;       // padded int8 row, bytes
+  static constexpr int ROW16 = D * 2 + 16;  // padded bf16 row, bytes
+  static constexpr int STAGE =
+      DQ ? BT * (2 * ROW8 + ROW16) : 2 * BT * (ROW8 + ROW16);
+  static constexpr int AUX = DQ ? 0 : 2 * BT * 4;  // lse2 and delta
+  static constexpr int BYTES = 2 * (STAGE + AUX);
+};
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments (m16n8k32 s8) of rows r0 and r0 + 8 of a (rows, D) int8
+// operand, straight from global memory; rows at or past n load as zero
+template <int D>
+__device__ __forceinline__ void load_a8(uint32_t (&a)[D / 32][4],
+                                        const char* base,
+                                        long long row_stride, int r0, int n,
+                                        int t) {
+  const char* p0 = base + (long long)r0 * row_stride;
+  const char* p1 = base + (long long)(r0 + 8) * row_stride;
+  const bool v0 = r0 < n, v1 = r0 + 8 < n;
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    const int c0 = kk * 32 + 4 * t;  // a k-step is 32 bytes
+    a[kk][0] = v0 ? ld32(p0 + c0) : 0u;
+    a[kk][1] = v1 ? ld32(p1 + c0) : 0u;
+    a[kk][2] = v0 ? ld32(p0 + c0 + 16) : 0u;
+    a[kk][3] = v1 ? ld32(p1 + c0 + 16) : 0u;
+  }
+}
+
+// acc[j] = (A (16 x D int8) . T^T) * mul per n8 tile j of a BT-row int8
+// tile T in shared memory: exact int32 sums, converted once. One
+// ldmatrix.x4 brings the B fragments of two k-steps (64 bytes of a row)
+template <int D, int NS, int ROW>
+__device__ __forceinline__ void row_products_s8(float (&acc)[NS][4],
+                                                const uint32_t (&a)[D / 32][4],
+                                                const char* tile, float mul,
+                                                int lane) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    int c[4] = {0, 0, 0, 0};
+    const char* row = tile + (j * 8 + (lane & 7)) * ROW + (lane >> 3) * 16;
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh) {
+      uint32_t bf[4];
+      ldsm_x4(bf, row + hh * 64);
+      mma_s8(c, a[2 * hh], bf[0], bf[1]);
+      mma_s8(c, a[2 * hh + 1], bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = (float)c[i] * mul;
+  }
+}
+
+// stage rows r0 .. r0 + BT of one operand (RB bytes a row, rows sn_bytes
+// apart in global memory) into shared memory rows ROW bytes apart
+template <int RB, int BT, int ROW>
+__device__ __forceinline__ void load_rows(char* dst, const char* src,
+                                          long long sn_bytes, int r0, int n,
+                                          int tid) {
+  constexpr int CH = RB / 16;  // 16-byte chunks per row
+  for (int c = tid; c < BT * CH; c += kThreads) {
+    const int row = c / CH, col = (c % CH) * 16;
+    const bool ok = r0 + row < n;
+    cp_async16(dst + row * ROW + col,
+               ok ? src + (long long)(r0 + row) * sn_bytes + col : src,
+               ok ? 16 : 0);
+  }
+}
+
+// dq pass: a block owns kBR query rows of one (batch, head)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_i8_dq_kernel(const BwdI8Params p) {
+  using T = TilesI8<D, true>;
+  constexpr int BT = T::BT;
+  constexpr int NS = BT / 8;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBR + warp * 16 + g;
+
+  const char* k8b = p.k8 + b * p.k8_sb + h * p.k8_sh;
+  const char* v8b = p.v8 + b * p.v8_sb + h * p.v8_sh;
+  const char* kfb = p.kbf + (b * p.kb_sb + h * p.kb_sh) * 2;
+  auto load_tile = [&](int stage, int kv0) {
+    char* s0 = smem + stage * T::STAGE;
+    load_rows<D, BT, T::ROW8>(s0, k8b, p.k8_sn, kv0, p.Nk, tid);
+    load_rows<D, BT, T::ROW8>(s0 + BT * T::ROW8, v8b, p.v8_sn, kv0, p.Nk,
+                              tid);
+    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8, kfb,
+                                   p.kb_sn * 2, kv0, p.Nk, tid);
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  uint32_t qa[D / 32][4], da[D / 32][4];
+  load_a8<D>(qa, p.q8 + b * p.q8_sb + h * p.q8_sh, p.q8_sn, r0, p.Nq, t);
+  load_a8<D>(da, p.do8 + b * p.o8_sb + h * p.o8_sh, p.o8_sn, r0, p.Nq, t);
+  const float* lb = p.lse + (long long)bh * p.Nq;
+  const float* db = p.delta + (long long)bh * p.Nq;
+  const float lse0 = r0 < p.Nq ? lb[r0] : 0.f;
+  const float lse1 = r0 + 8 < p.Nq ? lb[r0 + 8] : 0.f;
+  const float dl0 = r0 < p.Nq ? db[r0] : 0.f;
+  const float dl1 = r0 + 8 < p.Nq ? db[r0 + 8] : 0.f;
+  const float cqk = p.sqk[bh], cdv = p.sdv[bh];
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int ntiles = (p.Nk + BT - 1) / BT;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * BT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const char* k8s = smem + (it & 1) * T::STAGE;
+    const char* v8s = k8s + BT * T::ROW8;
+    const char* kfs = k8s + 2 * BT * T::ROW8;
+    const int kv0 = it * BT;
+
+    float s[NS][4], dp[NS][4];
+    row_products_s8<D, NS, T::ROW8>(s, qa, k8s, cqk, lane);
+    row_products_s8<D, NS, T::ROW8>(dp, da, v8s, cdv, lane);
+    // ds = p (dp - delta), p = exp2(s - lse2); kv columns past Nk -> 0
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lse = i < 2 ? lse0 : lse1, dl = i < 2 ? dl0 : dl1;
+        float pv = ex2(s[j][i] - lse);
+        if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) pv = 0.f;
+        s[j][i] = pv * (dp[j][i] - dl);
+      }
+    }
+    // dq += ds k (ds rounded to bf16 in col_products)
+    col_products<D, NS, T::ROW16>(acc, s, kfs, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
+                p.Nq, t);
+}
+
+// dk/dv pass: a block owns kBR kv rows of one (batch, head); scores and dp
+// are computed transposed (rows = keys, columns = queries)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_i8_dkv_kernel(const BwdI8Params p) {
+  using T = TilesI8<D, false>;
+  constexpr int BT = T::BT;
+  constexpr int NS = BT / 8;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBR + warp * 16 + g;  // this thread's keys
+
+  const char* q8b = p.q8 + b * p.q8_sb + h * p.q8_sh;
+  const char* o8b = p.do8 + b * p.o8_sb + h * p.o8_sh;
+  const char* qfb = p.qbf + (b * p.qb_sb + h * p.qb_sh) * 2;
+  const char* ofb = p.dobf + (b * p.ob_sb + h * p.ob_sh) * 2;
+  const float* lb = p.lse + (long long)bh * p.Nq;
+  const float* db = p.delta + (long long)bh * p.Nq;
+  float* aux = reinterpret_cast<float*>(smem + 2 * T::STAGE);
+
+  // stage query rows q0 .. q0 + BT: q8, do8, q and do by cp.async; lse2
+  // and delta by plain loads (+inf and 0 past Nq, so those columns give
+  // p = ds = 0)
+  auto load_tile = [&](int stage, int q0) {
+    char* s0 = smem + stage * T::STAGE;
+    load_rows<D, BT, T::ROW8>(s0, q8b, p.q8_sn, q0, p.Nq, tid);
+    load_rows<D, BT, T::ROW8>(s0 + BT * T::ROW8, o8b, p.o8_sn, q0, p.Nq,
+                              tid);
+    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8, qfb, p.qb_sn * 2,
+                                   q0, p.Nq, tid);
+    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8 + BT * T::ROW16,
+                                   ofb, p.ob_sn * 2, q0, p.Nq, tid);
+    if (tid < BT) {
+      const bool ok = q0 + tid < p.Nq;
+      aux[stage * 2 * BT + tid] = ok ? lb[q0 + tid] : INFINITY;
+      aux[stage * 2 * BT + BT + tid] = ok ? db[q0 + tid] : 0.f;
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  uint32_t ka[D / 32][4], va[D / 32][4];
+  load_a8<D>(ka, p.k8 + b * p.k8_sb + h * p.k8_sh, p.k8_sn, r0, p.Nk, t);
+  load_a8<D>(va, p.v8 + b * p.v8_sb + h * p.v8_sh, p.v8_sn, r0, p.Nk, t);
+  const float cqk = p.sqk[bh], cdv = p.sdv[bh];
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+
+  const int ntiles = (p.Nq + BT - 1) / BT;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * BT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const char* q8s = smem + (it & 1) * T::STAGE;
+    const char* o8s = q8s + BT * T::ROW8;
+    const char* qfs = q8s + 2 * BT * T::ROW8;
+    const char* ofs = qfs + BT * T::ROW16;
+    const float* ls = aux + (it & 1) * 2 * BT;
+    const float* ds = ls + BT;
+
+    float st[NS][4], dpt[NS][4];
+    row_products_s8<D, NS, T::ROW8>(st, ka, q8s, cqk, lane);   // s^T
+    row_products_s8<D, NS, T::ROW8>(dpt, va, o8s, cdv, lane);  // dp^T
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int col = j * 8 + 2 * t;
+      const float l0 = ls[col], l1 = ls[col + 1];
+      const float d0 = ds[col], d1 = ds[col + 1];
+      st[j][0] = ex2(st[j][0] - l0);
+      st[j][1] = ex2(st[j][1] - l1);
+      st[j][2] = ex2(st[j][2] - l0);
+      st[j][3] = ex2(st[j][3] - l1);
+      dpt[j][0] = st[j][0] * (dpt[j][0] - d0);
+      dpt[j][1] = st[j][1] * (dpt[j][1] - d1);
+      dpt[j][2] = st[j][2] * (dpt[j][2] - d0);
+      dpt[j][3] = st[j][3] * (dpt[j][3] - d1);
+    }
+    col_products<D, NS, T::ROW16>(dv, st, ofs, lane);   // dv += p^T do
+    col_products<D, NS, T::ROW16>(dk, dpt, qfs, lane);  // dk += ds^T q
+    __syncthreads();  // every warp is done with this stage
+  }
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
+                p.Nk, t);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
+                p.Nk, t);
+}
+
+template <int D>
+cudaError_t launch_i8(const BwdI8Params& p, int BH, cudaStream_t stream) {
+  auto dq = flash_bwd_i8_dq_kernel<D>;
+  auto dkv = flash_bwd_i8_dkv_kernel<D>;
+  const int bq = TilesI8<D, true>::BYTES, bkv = TilesI8<D, false>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq, cudaFuncAttributeMaxDynamicSharedMemorySize, bq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, bkv);
+  if (err != cudaSuccess) return err;
+  dq<<<dim3((p.Nq + kBR - 1) / kBR, BH), kThreads, bq, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv<<<dim3((p.Nk + kBR - 1) / kBR, BH), kThreads, bkv, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D) through strides; strides: 21
@@ -473,5 +812,58 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (D == 64) return (int)launch<64>(p, BH, s);
   if (D == 128) return (int)launch<128>(p, BH, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7. q8, k8, v8, do8: int8 (B, N, H, D); kbf, qbf, dobf: the bf16 k, q and
+// do; dq, dk, dv: bf16 (B, N, H, D); all through strides: 30 int64 in
+// elements, (batch, token, head) for q8, k8, v8, do8, kbf, qbf, dobf, dq,
+// dk, dv. lse2 and delta: f32 (B, H, Nq), contiguous; sqk = sq*sk and
+// sdv = sdo*sv: f32 (B*H). Launches the dq pass and the dk/dv pass on
+// `stream`. Returns a cudaError_t (0 on success).
+extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
+                                const void* v8, const void* do8,
+                                const void* kbf, const void* qbf,
+                                const void* dobf, const void* lse,
+                                const void* delta, const void* sqk,
+                                const void* sdv, void* dq, void* dk, void* dv,
+                                int B, int H, int Nq, int Nk, int D,
+                                const long long* strides, float scale,
+                                void* stream) {
+  BwdI8Params p;
+  p.q8 = static_cast<const char*>(q8);
+  p.k8 = static_cast<const char*>(k8);
+  p.v8 = static_cast<const char*>(v8);
+  p.do8 = static_cast<const char*>(do8);
+  p.kbf = static_cast<const char*>(kbf);
+  p.qbf = static_cast<const char*>(qbf);
+  p.dobf = static_cast<const char*>(dobf);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.sqk = static_cast<const float*>(sqk);
+  p.sdv = static_cast<const float*>(sdv);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.q8_sb = strides[0]; p.q8_sn = strides[1]; p.q8_sh = strides[2];
+  p.k8_sb = strides[3]; p.k8_sn = strides[4]; p.k8_sh = strides[5];
+  p.v8_sb = strides[6]; p.v8_sn = strides[7]; p.v8_sh = strides[8];
+  p.o8_sb = strides[9]; p.o8_sn = strides[10]; p.o8_sh = strides[11];
+  p.kb_sb = strides[12]; p.kb_sn = strides[13]; p.kb_sh = strides[14];
+  p.qb_sb = strides[15]; p.qb_sn = strides[16]; p.qb_sh = strides[17];
+  p.ob_sb = strides[18]; p.ob_sn = strides[19]; p.ob_sh = strides[20];
+  p.dq_sb = strides[21]; p.dq_sn = strides[22]; p.dq_sh = strides[23];
+  p.dk_sb = strides[24]; p.dk_sn = strides[25]; p.dk_sh = strides[26];
+  p.dv_sb = strides[27]; p.dv_sn = strides[28]; p.dv_sh = strides[29];
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64) return (int)launch_i8<64>(p, BH, s);
+  if (D == 128) return (int)launch_i8<128>(p, BH, s);
   return (int)cudaErrorInvalidValue;
 }

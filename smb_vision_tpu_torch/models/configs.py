@@ -2,8 +2,8 @@
 
 Counterpart of `smb_vision_tpu/models/configs.py`. Field names mirror the
 HuggingFace configs, so JSON config files written by the JAX package load
-here unchanged (keys the port has no field for are ignored). The other
-model families' configs come with their models.
+here unchanged (keys the port has no field for are ignored): VideoMAE and
+V-JEPA2. The other model families' configs come with their models.
 """
 
 from __future__ import annotations
@@ -105,3 +105,70 @@ class VideoMAEConfig(BaseConfig):
     @property
     def patch_dim(self) -> int:
         return self.num_channels * self.tubelet_size * self.patch_size ** 2
+
+
+@dataclass
+class VJEPA2Config(BaseConfig):
+    """V-JEPA2 (encoder + predictor) over 3D volumes: depth as frames,
+    and run_vjepa sets in_chans=1 and tubelet_size=patch_size."""
+
+    model_type: str = "vjepa2"
+
+    patch_size: int = 16
+    crop_size: int = 256
+    frames_per_clip: int = 64
+    tubelet_size: int = 2
+    in_chans: int = 3
+
+    hidden_size: int = 1024
+    num_attention_heads: int = 16
+    num_hidden_layers: int = 24
+    drop_path_rate: float = 0.0
+    mlp_ratio: float = 4.0
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = True
+    attention_probs_dropout_prob: float = 0.0  # read by no model
+    hidden_act: str = "gelu"
+    initializer_range: float = 0.02
+    attention_dropout: float = 0.0             # read by no model
+    num_pooler_layers: int = 3                 # the pooler is not ported
+
+    # predictor
+    pred_hidden_size: int = 384
+    pred_num_attention_heads: int = 12
+    pred_num_hidden_layers: int = 12
+    pred_num_mask_tokens: int = 10
+    pred_zero_init_mask_tokens: bool = True
+    pred_mlp_ratio: float = 4.0
+
+    # classification (the classifier is not ported)
+    num_labels: int = 2
+
+    # framework knobs, as VideoMAEConfig's
+    dtype: str = "bfloat16"
+    attn_impl: str = "auto"
+    mlp_impl: str = "auto"
+    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
+    fused_qkv: bool = False         # not ported yet
+    gradient_checkpointing: bool = False
+    sequence_parallel: bool = False  # not ported yet
+    sp_variant: str = "gather"      # read only with sequence_parallel
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(T', H', W') patch grid; token index t*H'*W' + h*W' + w."""
+        g = self.crop_size // self.patch_size
+        return (self.frames_per_clip // self.tubelet_size, g, g)
+
+    @property
+    def seq_len(self) -> int:
+        t, h, w = self.grid
+        return t * h * w
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def pred_head_dim(self) -> int:
+        return self.pred_hidden_size // self.pred_num_attention_heads

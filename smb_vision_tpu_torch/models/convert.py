@@ -1,8 +1,8 @@
 """Checkpoints in and out of the port: the JAX package's safetensors export
 and HF-layout VideoMAE files.
 
-Counterpart of `smb_vision_tpu/models/convert.py` for VideoMAE.
-`params_from_flax` maps the JAX package's flattened parameter names
+Counterpart of `smb_vision_tpu/models/convert.py` for VideoMAE and the
+V-JEPA2 pretraining tree. `params_from_flax` maps the JAX package's flattened parameter names
 (`params.encoder.layer_0.attention.query.kernel`, ...) to this package's
 state_dict (`encoder.layer_0.attention.query.weight`, ...): Dense kernels
 are transposed into Linear weights, LayerNorm `scale` becomes `weight`, and
@@ -40,6 +40,11 @@ _PRETRAINING = re.compile(
     r"^(videomae\.(patch_embed_(kernel|bias)|encoder\.|layernorm\.)"
     r"|encoder_to_decoder\.|mask_token$|decoder\.|decoder_norm\."
     r"|decoder_head\.)")
+# the V-JEPA2 tree (VJEPA2Model; its EMA teacher has the same names)
+_VJEPA = re.compile(
+    r"^(encoder\.(patch_embed_(kernel|bias)$|encoder\.|layernorm\.)"
+    r"|predictor\.(predictor_embeddings\.|mask_tokens$|stack\.|layernorm\."
+    r"|proj\.))")
 
 
 def read_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
@@ -102,17 +107,19 @@ def write_safetensors(path: Union[str, Path],
 
 
 def params_from_flax(flat: Dict[str, np.ndarray], *,
-                     pretraining: bool = False) -> Dict[str, torch.Tensor]:
+                     pretraining: bool = False,
+                     vjepa: bool = False) -> Dict[str, torch.Tensor]:
     """The JAX package's flattened parameters -> this package's state_dict.
     Keys may carry `params.`. By default the backbone for VideoMAEModel:
     a `videomae.` wrapper (a pretraining or classification export) is
     taken off and parameters outside the backbone are left out. With
-    pretraining=True the whole VideoMAEForPreTraining tree, wrapper kept."""
+    pretraining=True the whole VideoMAEForPreTraining tree, wrapper kept;
+    with vjepa=True the VJEPA2Model tree (encoder and predictor)."""
     out: Dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         k = key[len("params."):] if key.startswith("params.") else key
-        if pretraining:
-            if not _PRETRAINING.match(k):
+        if vjepa or pretraining:
+            if not (_VJEPA if vjepa else _PRETRAINING).match(k):
                 continue
         else:
             for w in _WRAPPERS:

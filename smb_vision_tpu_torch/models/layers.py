@@ -7,12 +7,14 @@ LayerNorm `weight`/`bias`. Compute runs in the configured dtype, with
 LayerNorm statistics in float32. Attention and the MLP half-block route to
 the hand-written kernels through `ops.attention` and `ops.mlp`, whose
 autograd Functions carry the kernels' backward; an Encoder with remat
-checkpoints each block, as `nn.remat(Block)` does.
+checkpoints each block, as `nn.remat(Block)` does. Attention takes an
+optional 3D rotary table (V-JEPA2), and DropPath draws its per-sample keep
+masks outside the checkpointed blocks, so the recompute sees the same ones.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +28,7 @@ from smb_vision_tpu_torch.ops.mlp import (
     mlp_block_forward,
     mlp_forward,
 )
+from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
 
 _MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
 
@@ -91,12 +94,18 @@ class Attention(nn.Module):
         self.value = Linear(h, h, bias_mode != "none", dtype)
         self.proj = Linear(h, h, out_bias, dtype)
 
-    def forward(self, x):
+    def forward(self, x, rope: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
+        """rope: optional (cos, sin) tables, (N, D) or (B, N, D), applied to
+        q and k (`ops.rope3d.apply_rope3d`)."""
         b, n, h = x.shape
         shape = (b, n, self.num_heads, h // self.num_heads)
         q = self.query(x).reshape(shape)
         k = self.key(x).reshape(shape)
         v = self.value(x).reshape(shape)
+        if rope is not None:
+            q = apply_rope3d(q, *rope)
+            k = apply_rope3d(k, *rope)
         out = attention(q, k, v, impl=self.attn_impl)
         return self.proj(out.reshape(b, n, h))
 
@@ -132,19 +141,34 @@ class Mlp(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample: the identity at eval and at rate 0,
-    which is all the embedding and MIM paths run (VideoMAEConfig has no
-    drop-path rate). Training with a non-zero rate comes with V-JEPA."""
+    """Stochastic depth per sample (`smb_vision_tpu/models/layers.py`
+    `DropPath`): in training at a non-zero rate, x / keep * mask with mask
+    = floor(keep + U[0, 1)) per sample, keep = 1 - rate; the identity at
+    eval and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise not_ported("DropPath in training (drop_path_rate > 0)",
-                             "queue 1, V-JEPA slice")
-        return x
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def draw(self, batch: int, generator: Optional[torch.Generator] = None,
+             device=None) -> torch.Tensor:
+        """A (batch,) 0/1 keep mask from generator (the default generator
+        of `device` when None), on `device`."""
+        dev = generator.device if generator is not None else device
+        u = torch.rand((batch,), generator=generator, device=dev)
+        return torch.floor((1.0 - self.rate) + u).to(device)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        if not self.active:
+            return x
+        if mask is None:
+            mask = self.draw(x.shape[0], device=x.device)
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        return x / (1.0 - self.rate) * mask.reshape(shape).to(x.dtype)
 
 
 class Block(nn.Module):
@@ -209,11 +233,18 @@ class Block(nn.Module):
     def _scaled(self, lam, h):
         return h if lam is None else h * lam.to(h.dtype)
 
-    def forward(self, x):
-        h = self.attention(self.norm1(x))
-        x = x + self.drop_path(self._scaled(self.layerscale1, h))
+    def forward(self, x, rope=None, dp_masks=None):
+        """rope: optional (cos, sin) tables for the attention; dp_masks:
+        the two DropPath keep masks (attention half, MLP half), drawn here
+        when DropPath is active and none are given."""
+        if self.drop_path.active and dp_masks is None:
+            dp_masks = [self.drop_path.draw(x.shape[0], device=x.device)
+                        for _ in range(2)]
+        m1, m2 = dp_masks if dp_masks is not None else (None, None)
+        h = self.attention(self.norm1(x), rope=rope)
+        x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
 
-        dp_off = not self.training or self.drop_path.rate == 0.0
+        dp_off = not self.drop_path.active
         route = (self.mlp_impl == "pallas"
                  or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16
                      and kernel_maps(x.shape[-1],
@@ -231,7 +262,7 @@ class Block(nn.Module):
                 self.mlp.fc1.bias, w2.to(dt), b2, act=self.act,
                 eps=self.eps, impl=self.mlp_impl)
         h = self.mlp(self.norm2(x))
-        return x + self.drop_path(self._scaled(self.layerscale2, h))
+        return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
 
 
 class Encoder(nn.Module):
@@ -239,7 +270,10 @@ class Encoder(nn.Module):
     drop_path_rate over the depth. remat (gradient checkpointing) keeps
     only each block's input for the backward and runs the block again
     there (`torch.utils.checkpoint`, non-reentrant), as `nn.remat(Block)`
-    does in the JAX package; it applies only while autograd records."""
+    does in the JAX package; it applies only while autograd records.
+    `torch.utils.checkpoint` restores the default generators' state but not
+    an explicit `torch.Generator`'s, so every DropPath keep mask is drawn
+    here, before the checkpointed calls, and passed in."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -264,13 +298,21 @@ class Encoder(nn.Module):
                 mlp_impl=mlp_impl, fused_qkv=fused_qkv, glue_impl=glue_impl,
                 quant8=quant8, sequence_parallel=sequence_parallel))
 
-    def forward(self, x):
+    def forward(self, x, rope=None,
+                generator: Optional[torch.Generator] = None):
+        """rope: optional (cos, sin) tables shared by every layer;
+        generator: draws the DropPath keep masks (two a layer, in layer
+        order; the default generator of x's device when None)."""
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
             block = getattr(self, f"layer_{i}")
+            masks = None
+            if block.drop_path.active:
+                masks = [block.drop_path.draw(x.shape[0], generator,
+                                              x.device) for _ in range(2)]
             if remat:
-                x = torch.utils.checkpoint.checkpoint(block, x,
-                                                      use_reentrant=False)
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, rope, masks, use_reentrant=False)
             else:
-                x = block(x)
+                x = block(x, rope, masks)
         return x

@@ -112,6 +112,9 @@ def lib() -> ctypes.CDLL:
             handle.smb_flash_bwd.argtypes = (
                 [_P] * 9 + [_I] * 5 + [_P, _F, _F, _P])
             handle.smb_flash_bwd.restype = _I
+            handle.smb_flash_bwd_i8.argtypes = (
+                [_P] * 14 + [_I] * 5 + [_P, _F, _P])
+            handle.smb_flash_bwd_i8.restype = _I
             handle.smb_mlp_fwd.argtypes = (
                 [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P])
             handle.smb_mlp_fwd.restype = _I

@@ -10,10 +10,14 @@ stand behind them:
   dk/dv in two passes (replaces `_bwd_dq_kernel` and `_bwd_dkv_kernel`);
 - K3 `flash_attention_int8` (`csrc/flash_fwd.cu`): the forward with `q k^T`
   on int8 with per-(batch, head) symmetric scales (replaces
-  `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package.
+  `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package;
+- K7 `flash_attention_bwd_i8` (`csrc/flash_bwd.cu`): K4 with the score
+  recompute and `do v^T` on int8 (replaces `_bwd_dq_i8_kernel` and
+  `_bwd_dkv_i8_kernel`; attn_impl "pallas_i8bwd").
 
-K1 and K4 form one `torch.autograd.Function`, the counterpart of the JAX
-package's `jax.custom_vjp` around `_flash`/`_flash_lse`. Each wrapper runs
+K1 with K4 or K7 forms one `torch.autograd.Function`, the counterpart of
+the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
+`_flash_lse`. Each wrapper runs
 its plain version for a tensor on the CPU and launches its kernel for a
 CUDA tensor; there is no fallback between the two. `launches` on each
 wrapper counts kernel launches.
@@ -71,20 +75,24 @@ def xla_attention(q, k, v, *, scale: Optional[float] = None, bias=None,
     return out
 
 
-def quantize_qk(q, k, scale: float):
-    """Per-(batch, head) symmetric int8 quantisation of the scores'
-    operands, as the JAX `_fwd_i8` does it: q is pre-scaled by
-    scale*log2(e), so q8 k8^T * sq * sk is a score in log2 units.
-    Returns q8, k8 (int8, the input layout) and sq, sk (f32, (B, H))."""
-    def quant(x, mult):
-        xf = x.float() * mult
-        s = xf.abs().amax(dim=(1, 3)) / 127.0           # (B, H)
-        s = torch.where(s == 0, torch.ones_like(s), s)
-        x8 = torch.clamp(torch.round(xf / s[:, None, :, None]), -127, 127)
-        return x8.to(torch.int8), s
+def quantize_per_head(x, mult: float = 1.0):
+    """Symmetric int8 quantisation of x*mult (B, N, H, D) per (batch,
+    head) over all (N, D), as the JAX `_quant_per_head`: s = max|x|/127
+    (1 where x is all zero), x8 = clip(round(x/s), -127, 127). Returns x8
+    (int8, contiguous, the input layout) and s (f32, (B, H))."""
+    xf = x.float() * mult
+    s = xf.abs().amax(dim=(1, 3)) / 127.0               # (B, H)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    x8 = torch.clamp(torch.round(xf / s[:, None, :, None]), -127, 127)
+    return x8.to(torch.int8), s
 
-    q8, sq = quant(q, scale * LOG2E)
-    k8, sk = quant(k, 1.0)
+
+def quantize_qk(q, k, scale: float):
+    """The scores' operands of K3, as the JAX `_fwd_i8` quantises them: q
+    is pre-scaled by scale*log2(e), so q8 k8^T * sq * sk is a score in
+    log2 units. Returns q8, k8 (int8) and sq, sk (f32, (B, H))."""
+    q8, sq = quantize_per_head(q, scale * LOG2E)
+    k8, sk = quantize_per_head(k)
     return q8, k8, sq, sk
 
 
@@ -141,6 +149,15 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def _delta(do, out, g_lse):
+    """delta = rowsum(do*out) (B, H, Nq) f32, less g_lse*log2(e) when lse2
+    has a cotangent too (`smb_vision_tpu/ops/attention.py::_bwd`)."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float() * LOG2E
+    return delta.contiguous()
+
+
 def attention_bwd_plain(q, k, v, out, lse, do, *, scale: float,
                         g_lse=None):
     """Plain version of K4: the flash backward by its formula, in f32,
@@ -154,9 +171,7 @@ def attention_bwd_plain(q, k, v, out, lse, do, *, scale: float,
     nk = k.shape[1]
     kf = k.float().permute(0, 2, 1, 3)                  # (B, H, Nk, D)
     vf = v.float().permute(0, 2, 1, 3)
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
-    if g_lse is not None:
-        delta = delta - g_lse.float() * LOG2E
+    delta = _delta(do, out, g_lse)
     lse = lse.float()
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -231,10 +246,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
         raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-    if g_lse is not None:
-        delta = delta - g_lse.float() * LOG2E
-    delta = delta.contiguous()
+    delta = _delta(do, out, g_lse)
     lse = lse.float().contiguous()
     dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     dk = torch.empty((b, nk, h, d), dtype=torch.bfloat16, device=q.device)
@@ -255,16 +267,116 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
 flash_attention_bwd.launches = 0
 
 
+def _i8_operands(q, k, v, do, scale: float):
+    """The int8 operands of K7, quantised as the JAX `_bwd` (i8=True)
+    does: q8 of q*scale*log2(e), k8, v8, do8, and the scale products sqk =
+    sq*sk, sdv = sdo*sv (f32, (B, H))."""
+    q8, sq = quantize_per_head(q, scale * LOG2E)
+    k8, sk = quantize_per_head(k)
+    v8, sv = quantize_per_head(v)
+    do8, sdo = quantize_per_head(do)
+    return q8, k8, v8, do8, (sq * sk).contiguous(), (sdo * sv).contiguous()
+
+
+def attention_bwd_i8_plain(q, k, v, out, lse, do, *, scale: float,
+                           g_lse=None):
+    """Plain version of K7, its formula in f32 on the quantised integers
+    (|q8 k8^T| <= 127^2 * 128 < 2^24 is exact in f32), query-chunked like
+    `attention_bwd_plain`:
+      s = q8 k8^T * sqk, p = exp2(s - lse2), dp = do8 v8^T * sdv,
+      ds = bf16(p (dp - delta)), dq = scale ds k, dk = scale ds^T q,
+      dv = bf16(p)^T do,
+    with q, k, do as given (bf16 on the card). Returns dq, dk, dv in the
+    dtypes of q, k, v."""
+    b, nq, h, _ = q.shape
+    nk = k.shape[1]
+    q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale)
+    k8t = k8.float().permute(0, 2, 3, 1)                # (B, H, D, Nk)
+    v8t = v8.float().permute(0, 2, 3, 1)
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, H, Nk, D)
+    delta = _delta(do, out, g_lse)
+    lse = lse.float()
+    sqk, sdv = sqk[..., None, None], sdv[..., None, None]
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(kf)
+    step = _plain_chunk(b, h, nk)
+    dqs = []
+    for s0 in range(0, nq, step):
+        sl = slice(s0, s0 + step)
+        s = torch.matmul(q8[:, sl].float().permute(0, 2, 1, 3), k8t) * sqk
+        p = torch.exp2(s - lse[..., sl, None])
+        dp = torch.matmul(do8[:, sl].float().permute(0, 2, 1, 3), v8t) * sdv
+        ds = (p * (dp - delta[..., sl, None])).to(torch.bfloat16).float()
+        p = p.to(torch.bfloat16).float()
+        qc = q[:, sl].float().permute(0, 2, 1, 3)
+        doc = do[:, sl].float().permute(0, 2, 1, 3)
+        dqs.append(torch.matmul(ds, kf) * scale)
+        dk += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        dv += torch.matmul(p.transpose(-1, -2), doc)
+    dq = torch.cat(dqs, dim=2).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype).contiguous(),
+            dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
+
+
+def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
+                           scale: Optional[float] = None, g_lse=None):
+    """K7: the flash-attention backward with int8 score recompute, the
+    arguments and results of `flash_attention_bwd`. The int8 operands,
+    their scales and delta are made in plain torch beforehand, as the JAX
+    package makes them in XLA. CPU tensors take `attention_bwd_i8_plain`;
+    CUDA tensors launch the kernel or raise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale,
+                                      g_lse=g_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_i8 runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_qkv(q, k, v, torch.bfloat16)
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    do = do.to(torch.bfloat16).contiguous()
+    if do.shape != q.shape or lse.shape != (b, h, nq):
+        raise ValueError(f"flash_attention_bwd_i8: do {tuple(do.shape)} and "
+                         f"lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale)
+    delta = _delta(do, out, g_lse)
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((b, nk, h, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    ts = (q8, k8, v8, do8, k, q, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 30)(*(s for t in ts
+                                         for s in t.stride()[:3]))
+    rc = _build.lib().smb_flash_bwd_i8(
+        q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), do8.data_ptr(),
+        k.data_ptr(), q.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), sqk.data_ptr(), sdv.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, d,
+        ctypes.cast(strides, ctypes.c_void_p), scale,
+        _build.stream_ptr(q.device))
+    _build.check(rc, "flash_bwd_i8")
+    flash_attention_bwd_i8.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_i8.launches = 0
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K4 backward. Differentiable through both outputs: the
-    lse2 cotangent folds into delta (`smb_vision_tpu/ops/attention.py`
-    `_bwd`)."""
+    """K1 forward; K4 backward, or K7 with int8_backward. Differentiable
+    through both outputs: the lse2 cotangent folds into delta
+    (`smb_vision_tpu/ops/attention.py` `_bwd`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, int8_backward):
         out, lse = _flash_fwd(q, k, v, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
+        ctx.int8_backward = int8_backward
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -273,21 +385,23 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if g_out is None:
             g_out = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out,
-                                         scale=ctx.scale, g_lse=g_lse)
-        return dq, dk, dv, None
+        bwd = (flash_attention_bwd_i8 if ctx.int8_backward
+               else flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, out, lse, g_out, scale=ctx.scale,
+                         g_lse=g_lse)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, scale: Optional[float] = None,
-                    with_lse: bool = False):
+                    with_lse: bool = False, int8_backward: bool = False):
     """K1: bf16 flash-attention forward. q (B, Nq, H, D), k, v (B, Nk, H,
     D) -> out (B, Nq, H, D) [, lse2 (B, H, Nq) f32]. Under autograd its
-    backward is K4. CPU tensors take the plain versions; CUDA tensors
-    launch the kernels or raise."""
+    backward is K4, or K7 with int8_backward. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if needs_grad(q, k, v):
-        out, lse = _FlashAttention.apply(q, k, v, scale)
+        out, lse = _FlashAttention.apply(q, k, v, scale, int8_backward)
         return (out, lse) if with_lse else out
     return _flash_fwd(q, k, v, scale, with_lse)
 
@@ -337,22 +451,14 @@ def _auto_impl(q, bias) -> str:
     return "pallas" if maps else "xla"
 
 
-def _refuse_i8bwd_grad(impl: str, q, k, v) -> None:
-    if impl == "pallas_i8bwd" and needs_grad(q, k, v):
-        raise NotImplementedError(
-            "attn_impl='pallas_i8bwd' under autograd is not ported: "
-            "int8-score backward K7, V-JEPA slice (ROADMAP.md queue 1); "
-            "train with attn_impl 'pallas' or 'auto' (backward K4)")
-
-
 def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
               impl: str = "auto"):
     """Multi-head attention, (B, Nq, H, D) x (B, Nk, H, D) -> (B, Nq, H, D).
 
     impl: "auto" (K1 where it maps, see `_auto_impl`, else plain) | "pallas"
-    (K1, backward K4) | "pallas_i8bwd" (K1 forward; its int8-score backward
-    K7 is not ported, so it raises under autograd) | "pallas_int8" (K3,
-    forward only) | "xla" (plain). "pallas_int8pv" is not ported yet.
+    (K1, backward K4) | "pallas_i8bwd" (K1, int8-score backward K7) |
+    "pallas_int8" (K3, forward only) | "xla" (plain). "pallas_int8pv" is
+    not ported yet.
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; valid: "
@@ -361,7 +467,6 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
         raise NotImplementedError(
             "attn_impl='pallas_int8pv' (int8 p@v, kernel K8; ROADMAP.md "
             "queue 1, K8 and K10) is not ported yet; use 'pallas_int8'")
-    _refuse_i8bwd_grad(impl, q, k, v)
     if impl == "auto":
         impl = _auto_impl(q, bias)
     if impl == "xla":
@@ -371,7 +476,8 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
                                   "impl='xla' for masked attention")
     if impl == "pallas_int8":
         return flash_attention_int8(q, k, v, scale=scale)
-    return flash_attention(q, k, v, scale=scale)
+    return flash_attention(q, k, v, scale=scale,
+                           int8_backward=impl == "pallas_i8bwd")
 
 
 def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
@@ -379,14 +485,15 @@ def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
                                                     torch.Tensor]:
     """Attention that also returns lse2 (B, H, Nq): the row logsumexp in
     log2 units of the scores scaled by scale*log2(e), so that the softmax
-    weights are p = exp2(s*scale*log2(e) - lse2). The int8 spellings
-    coerce to K1, as in the JAX package (the int8 kernel exposes no lse);
-    "pallas_i8bwd" raises under autograd, as in `attention`."""
+    weights are p = exp2(s*scale*log2(e) - lse2). The int8-forward
+    spellings coerce to K1, as in the JAX package (the int8 kernel exposes
+    no lse); "pallas_i8bwd" keeps its int8-score backward K7, whose delta
+    takes the lse2 cotangent as K4's does."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
-    _refuse_i8bwd_grad(impl, q, k, v)
     if impl == "auto":
         impl = _auto_impl(q, None)
     if impl == "xla":
         return xla_attention(q, k, v, scale=scale, with_lse=True)
-    return flash_attention(q, k, v, scale=scale, with_lse=True)
+    return flash_attention(q, k, v, scale=scale, with_lse=True,
+                           int8_backward=impl == "pallas_i8bwd")

@@ -1,11 +1,13 @@
-"""The optimizer and learning-rate schedule of the MIM recipe.
+"""The optimizer and learning-rate schedule of the pretraining recipes, and
+the EMA teacher update of V-JEPA.
 
-Counterpart of `smb_vision_tpu/train/optim.py` for what MIM pretraining
-uses: `optax.chain(clip_by_global_norm(c), adamw(schedule, mask=
-decay_mask))` with a linear warmup into a cosine, linear or constant
-decay. The schedule is evaluated at the number of updates already made, as
-optax counts, so warmup starts at lr 0 on the first update. Two-tier
-learning rates and the 8-bit AdamW are not ported yet.
+Counterpart of `smb_vision_tpu/train/optim.py` for what MIM and V-JEPA
+pretraining use: `optax.chain(clip_by_global_norm(c), adamw(schedule,
+mask=decay_mask))` with a linear warmup into a cosine, linear or constant
+decay, and `ema_update`. The schedule is evaluated at the number of
+updates already made, as optax counts, so warmup starts at lr 0 on the
+first update. Two-tier learning rates and the 8-bit AdamW are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -139,3 +141,13 @@ def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
             schedule, min_lr),
         weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
         grad_clip=grad_clip)
+
+
+@torch.no_grad()
+def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
+               momentum: float) -> None:
+    """EMA teacher update, in place: t = t*m + s*(1 - m) for every
+    parameter, in the teacher's dtype (f32), as the JAX `ema_update`
+    computes it. Run once per optimizer step, after the update."""
+    for t, s in zip(teacher.parameters(), student.parameters()):
+        t.copy_(t * momentum + s.to(t.dtype) * (1.0 - momentum))

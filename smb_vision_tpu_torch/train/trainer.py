@@ -3,8 +3,9 @@ with auto-resume, periodic eval and metric logging.
 
 Counterpart of `smb_vision_tpu/train/trainer.py` (`TrainingArguments`,
 `accumulate_gradients`, `Trainer`) for one device. A checkpoint is one
-`torch.save` of the model, the optimizer (moments, update count) and the
-step and epoch, under `output_dir/checkpoints/<step>/state.pt`. Each step
+`torch.save` of the model, the optimizer (moments, update count), the EMA
+teacher where the workload has one (V-JEPA) and the step and epoch, under
+`output_dir/checkpoints/<step>/state.pt`. Each step
 seeds its own mask generator from (seed, step), and a resumed run skips
 the batches its epoch already consumed, so it replays no batch and no
 mask: 2 steps + resume + 2 steps equals 4 steps bitwise.
@@ -119,8 +120,9 @@ def accumulate_gradients(loss_fn: Callable, params: List[torch.Tensor],
 
 class Trainer:
     """Drives step_fn(state, batch, generator) -> metrics over a
-    BatchLoader. state: {"model", "optimizer", "step"}, built by the
-    workload (train/mim.py)."""
+    BatchLoader. state: {"model", "optimizer", "step"} and, for V-JEPA, a
+    "teacher" module, built by the workload (train/mim.py,
+    train/vjepa.py)."""
 
     def __init__(self, *, args: TrainingArguments, state: dict,
                  step_fn: Callable, train_loader, eval_loader=None,
@@ -166,9 +168,12 @@ class Trainer:
         tmp = self.ckpt_dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
-        torch.save({"model": self.state["model"].state_dict(),
-                    "optimizer": self.state["optimizer"].state_dict(),
-                    "step": step, "epoch": epoch}, tmp / "state.pt")
+        blob = {"model": self.state["model"].state_dict(),
+                "optimizer": self.state["optimizer"].state_dict(),
+                "step": step, "epoch": epoch}
+        if "teacher" in self.state:
+            blob["teacher"] = self.state["teacher"].state_dict()
+        torch.save(blob, tmp / "state.pt")
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
         limit = self.args.save_total_limit
@@ -180,6 +185,11 @@ class Trainer:
         blob = torch.load(path, map_location=self.device, weights_only=True)
         self.state["model"].load_state_dict(blob["model"])
         self.state["optimizer"].load_state_dict(blob["optimizer"])
+        if "teacher" in self.state:
+            if "teacher" not in blob:
+                raise ValueError(f"{path} holds no EMA teacher: a checkpoint "
+                                 "of another workload?")
+            self.state["teacher"].load_state_dict(blob["teacher"])
         self.state["step"] = int(blob["step"])
         return self.state["step"]
 

@@ -1,7 +1,7 @@
 """Analytic FLOP counts for MFU accounting.
 
 Counterpart of `smb_vision_tpu/utils/profiling.py` (`transformer_flops`,
-`mim_flops_per_sample`), and the dense bf16 peak of the card the Trainer
+`mim_flops_per_sample`, `vjepa_flops_per_sample`), and the dense bf16 peak of the card the Trainer
 divides by."""
 
 from __future__ import annotations
@@ -42,6 +42,25 @@ def mim_flops_per_sample(config, mask_ratio: float) -> float:
                             config.decoder_intermediate_size)
     embed = 3 * 2 * n * config.patch_dim * config.hidden_size
     return enc + dec + embed
+
+
+def vjepa_flops_per_sample(config) -> float:
+    """Train-step FLOPs per sample of V-JEPA: the student encoder (forward
+    and backward) + the EMA teacher's encoder (forward) + the predictor
+    (forward and backward), all on the whole sequence (the remat
+    recompute is not counted)."""
+    n = config.seq_len
+    inter = int(config.hidden_size * config.mlp_ratio)
+    student = transformer_flops(n, config.hidden_size,
+                                config.num_hidden_layers, inter)
+    teacher = transformer_flops(n, config.hidden_size,
+                                config.num_hidden_layers, inter,
+                                fwd_only=True)
+    pred = transformer_flops(n, config.pred_hidden_size,
+                             config.pred_num_hidden_layers,
+                             int(config.pred_hidden_size
+                                 * config.pred_mlp_ratio))
+    return student + teacher + pred
 
 
 def device_peak_flops(device) -> Optional[float]:

@@ -56,8 +56,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("cli.run_inference", "cli.run_mim", "ops._build",
-                 "ops.masking", "train.mim", "train.optim", "train.trainer",
+    for name in ("cli.run_inference", "cli.run_mim", "cli.run_vjepa",
+                 "models.vjepa", "ops._build", "ops.masking", "ops.rope3d",
+                 "train.mim", "train.optim", "train.trainer", "train.vjepa",
                  "utils.profiling"):
         assert f"smb_vision_tpu_torch.{name}" in seen["names"]
     assert seen["jax"] == [] and seen["jax_package"] == []
@@ -266,13 +267,100 @@ def test_block_backward_runs_through_the_kernels(cuda, mlp_impl):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(256, 64), (100, 64), (130, 128),
+                                 (256, 128)])
+def test_flash_bwd_i8_kernel_matches_plain(cuda, n, d):
+    """K7 against its plain version, with and without an lse2 cotangent,
+    on the lse2 of K1; ragged lengths included."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                    * 0.4).to(torch.bfloat16) for _ in range(4)]
+    g_lse = torch.randn((2, 3, n), generator=gen, device=cuda)
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    scale = 1.0 / math.sqrt(d)
+    for gl in (None, g_lse):
+        before = A.flash_attention_bwd_i8.launches
+        got = A.flash_attention_bwd_i8(q, k, v, out, lse, do, g_lse=gl)
+        assert A.flash_attention_bwd_i8.launches == before + 1
+        want = A.attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale,
+                                        g_lse=gl)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+            assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
 def test_int8_forward_and_i8bwd_refuse_autograd(cuda):
-    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda,
-                    requires_grad=True)
+    """K3 is forward-only and raises under autograd; "pallas_i8bwd" trains
+    through K7, whose gradients are its plain version's; without autograd
+    it runs K1's forward."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, w = [(torch.randn((1, 64, 2, 64), generator=gen, device=cuda)
+                   * 0.4).to(torch.bfloat16) for _ in range(4)]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     with pytest.raises(RuntimeError, match="forward-only"):
-        A.attention(q, q, q, impl="pallas_int8")
-    with pytest.raises(NotImplementedError, match="K7"):
-        A.attention(q, q, q, impl="pallas_i8bwd")
+        A.attention(*leaves, impl="pallas_int8")
+    before = A.flash_attention_bwd_i8.launches
+    (A.attention(*leaves, impl="pallas_i8bwd").float()
+     * w.float()).sum().backward()
+    assert A.flash_attention_bwd_i8.launches == before + 1
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    want = A.attention_bwd_i8_plain(q, k, v, out, lse, w, scale=0.125)
+    for t, ref in zip(leaves, want):
+        assert _rel(t.grad, ref) <= 2e-2
     with torch.no_grad():
-        assert torch.equal(A.attention(q, q, q, impl="pallas_i8bwd"),
-                           A.attention(q, q, q, impl="pallas"))
+        assert torch.equal(A.attention(*leaves, impl="pallas_i8bwd"),
+                           A.attention(*leaves, impl="pallas"))
+
+
+def _rope_block_grads(device):
+    """Gradients of one Block(256, 2 heads of 128, 1024) with a RoPE
+    table, as the V-JEPA preset pins it (bf16, attn "pallas_i8bwd", mlp
+    "pallas_bwd"), of the plain bf16 path and of a float32 Block."""
+    from smb_vision_tpu_torch.models.layers import Block
+    from smb_vision_tpu_torch.ops.rope3d import rope3d_cos_sin
+
+    torch.manual_seed(0)
+    ref_state = Block(256, 2, 1024).state_dict()
+    for p in ref_state.values():
+        p.add_(torch.randn(p.shape) * 0.05)
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn((2, 200, 256), generator=gen, device=device)
+    w = torch.randn((2, 200, 256), generator=gen, device=device)
+    ids = torch.arange(200, device=device)
+
+    def grads(**kw):
+        b = Block(256, 2, 1024, **kw)
+        b.load_state_dict(ref_state)
+        b.to(device)
+        rope = rope3d_cos_sin(ids, 5, 128, dtype=b.dtype)
+        (b(x.to(b.dtype), rope=rope).float() * w).sum().backward()
+        return {n: p.grad for n, p in b.named_parameters()}
+
+    kern = grads(dtype=torch.bfloat16, attn_impl="pallas_i8bwd",
+                 mlp_impl="pallas_bwd")
+    plain = grads(dtype=torch.bfloat16, attn_impl="xla", mlp_impl="xla")
+    f32 = grads(dtype=torch.float32, attn_impl="xla", mlp_impl="xla")
+    return kern, plain, f32
+
+
+@pytest.mark.cuda
+def test_rope_block_trains_through_k7(cuda):
+    """loss.backward() through the V-JEPA preset's Block on the card: K7
+    and K5b launch, and every parameter gets a finite, non-zero gradient,
+    within 5e-2 of max of a float32 Block's (the JAX package's bound for
+    the int8-score backward, tests/test_attention.py), as the plain bf16
+    path's are within 3e-2. The key bias is held to 1e-1: its gradient,
+    sum_j dk_j, would vanish without RoPE (a shift of every key leaves the
+    softmax unchanged), so its max is small against the int8 noise (the
+    plain version of K7 lands 3.9e-2 from float32 on the CPU)."""
+    launches = (A.flash_attention_bwd_i8.launches, M.mlp_bwd_fused.launches)
+    kern, plain, f32 = _rope_block_grads(cuda)
+    assert A.flash_attention_bwd_i8.launches == launches[0] + 1
+    assert M.mlp_bwd_fused.launches == launches[1] + 1
+    for name, g in kern.items():
+        assert g is not None and bool(g.isfinite().all()), name
+        assert float(g.abs().max()) > 0, name
+        assert _rel(plain[name], f32[name]) <= 3e-2, name
+        bound = 1e-1 if name == "attention.key.bias" else 5e-2
+        assert _rel(g, f32[name]) <= bound, name

@@ -197,17 +197,31 @@ def test_recompute_backward_matches_jax(block):
 
 
 def test_int8_and_i8bwd_refuse_autograd():
-    q = torch.from_numpy(_rand(70, (1, 16, 2, 64), 0.4)).to(torch.bfloat16)
-    qg = q.clone().requires_grad_()
+    """K3 is forward-only and raises under autograd. "pallas_i8bwd" trains
+    through K7 (its plain version on the CPU) with the JAX package's
+    int8-score gradients, on `attention` and `attention_with_lse`; without
+    autograd it runs K1's forward."""
+    q, k, v, w = (_rand(70 + i, (1, 64, 2, 64), 0.4) for i in range(4))
+    qg = torch.from_numpy(q).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
-        tattn.attention(qg, q, q, impl="pallas_int8")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tattn.attention(qg, q, q, impl="pallas_i8bwd")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tattn.attention_with_lse(qg, q, q, impl="pallas_i8bwd")
+        tattn.attention(qg, qg, qg, impl="pallas_int8")
+
+    def jloss(q, k, v):
+        out = jattn.attention(q, k, v, impl="pallas_i8bwd", interpret=True,
+                              block_q=64, block_k=64)
+        return jnp.sum(out * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    for route in ("attention", "attention_with_lse"):
+        leaves = _leaves(q, k, v)
+        out = getattr(tattn, route)(*leaves, impl="pallas_i8bwd")
+        out = out[0] if route == "attention_with_lse" else out
+        (out * torch.from_numpy(w)).sum().backward()
+        for t, ref in zip(leaves, want):
+            assert _rel(t.grad, ref) < 1e-2, route
     with torch.no_grad():
-        assert torch.equal(tattn.attention(qg, q, q, impl="pallas_i8bwd"),
-                           tattn.attention(qg, q, q, impl="pallas"))
+        assert torch.equal(tattn.attention(qg, qg, qg, impl="pallas_i8bwd"),
+                           tattn.attention(qg, qg, qg, impl="pallas"))
 
 
 def test_act_and_grad_match_autograd():
