@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding, MIM-pretraining and
-V-JEPA2-pretraining paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's batch-embedding, MIM-pretraining,
+V-JEPA2-pretraining and fine-tuning paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,11 @@ error:
      shapes: the int8-score backward K7 at the encoder's, the predictor's,
      the reference-head encoder's and two ragged shapes (timed beside its
      plain version and K4), K1 and K3 at head width 128, and K5a, K5b and
-     K6 at the ViT-L MLP;
+     K6 at the ViT-L MLP; then the SwiGLU half-block K9 at DINOv2-giant
+     batch 2 and ragged batch 1 and at the DINOv2-base shape (timed beside
+     the cuBLAS chain, gradients through the recompute), and K1/K4 at
+     DINOv2-giant's N 1,961 with 24 heads of 64; each kept time with its
+     bound and, for K1 and K4, the scaled_dot_product_attention call's;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -32,11 +36,23 @@ error:
      (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
      256, 4 steps with checkpoints and eval, then a resume to 6 (K1, K7,
      K5a and K5b in the student, K3 and K6 in the EMA teacher);
+ 10a. leg E: `run_classification` on the VideoMAE route (ViT-Base at
+     224^2 x 160, mlp_impl pallas_bwd), a survival task with one tabular
+     column and the two-tier learning rates: 4 steps, checkpoints, eval
+     with the C-index, then a resume to 6;
+ 10b. leg F, the fine-tuning main path: the same on the DINOv2 route with
+     DINOv2-giant at full width (depth cut to 8 layers), a classification
+     task with accuracy and ROC-AUC (K1, K4, K9);
  11. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2;
  12. V-JEPA parity: one full-width step of the preset at batch 1 through
      the kernels, through their plain versions under the same impl names,
      and in float32; loss, gradient error and the EMA teacher's change;
- 13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2.
+ 13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
+ 14. DINOv2 parity: one full-width DINOv2-giant fine-tune step at batch 2
+     through the kernels, their plain versions and float32; K9 launches
+     40 times a forward;
+ 15. fine-tune throughput: DINOv2-giant step ms, MFU, peak memory at
+     batch 2 and 4, K9's share of a profiled step.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -120,7 +136,13 @@ SOURCES = {
                 "smb_vision_tpu/ops/mlp.py:171"),
     "flash_bwd_i8": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
                      "smb_vision_tpu/ops/attention.py:549"),
+    "swiglu_block_fwd": ("smb_vision_tpu_torch/csrc/swiglu_fwd.cu",
+                         "smb_vision_tpu/ops/mlp.py:256"),
 }
+# the least time of a kernel's work on one H100 SXM at 700 W (NVIDIA's data
+# sheet, dense): operations at the peak of their type, bytes (each input
+# read once, each output written once) at the HBM rate; the larger bounds
+PEAK_BF16, PEAK_INT8, HBM_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -139,6 +161,7 @@ def wrappers():
         mlp_bwd_fused,
         mlp_fused,
         mlp_train_fused,
+        swiglu_block_fused,
     )
 
     return {"flash_fwd": flash_attention,
@@ -146,7 +169,8 @@ def wrappers():
             "mlp_block_fwd": mlp_block_fused, "mlp_fwd": mlp_fused,
             "flash_bwd": flash_attention_bwd,
             "mlp_train_fwd": mlp_train_fused, "mlp_bwd": mlp_bwd_fused,
-            "flash_bwd_i8": flash_attention_bwd_i8}
+            "flash_bwd_i8": flash_attention_bwd_i8,
+            "swiglu_block_fwd": swiglu_block_fused}
 
 
 def reset_launches() -> dict:
@@ -171,6 +195,51 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def set_bound(table: dict, name: str, shape: str, bf16_ops: float,
+              nbytes: float, int8_ops: float = 0.0) -> None:
+    """The kernel's bound at the shape its time was kept at: the larger of
+    its operations over the peak of their type and its bytes over the HBM
+    rate."""
+    ops_ms = (bf16_ops / PEAK_BF16 + int8_ops / PEAK_INT8) * 1e3
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    rec = table[name]
+    rec["bound_ms"] = max(ops_ms, bytes_ms)
+    rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    log(f"bound {name:<16} {shape}: {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']} ({(bf16_ops + int8_ops) / 1e9:.1f} GOP, "
+        f"{nbytes / 1e6:.1f} MB); kernel {rec['ms']:.4f} ms")
+
+
+def mlp_bytes(m: int, k: int, f: int, n_w: int = 2, ln: bool = False,
+              extra_mf: int = 0) -> float:
+    """Bytes of an MLP-family kernel: x read and y written (bf16, M x K),
+    n_w bf16 weights of K x F, f32 biases (and LayerNorm params), and
+    extra_mf more bf16 M x F tensors read or written."""
+    return (2 * m * k * 2 + n_w * k * f * 2 + (n_w - 1) * f * 4 + k * 4
+            + (2 * k * 4 if ln else 0) + extra_mf * m * f * 2)
+
+
+def attn_bytes(b: int, n: int, h: int, d: int, tensors: int) -> float:
+    """Bytes of `tensors` bf16 (B, N, H, D) tensors plus one f32 lse2."""
+    return tensors * b * n * h * d * 2 + b * h * n * 4
+
+
+def sdpa_ms(q, k, v, do=None) -> float:
+    """The library call: F.scaled_dot_product_attention on the same
+    inputs (forward), or its backward alone when do is given."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if do is None:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
 
 
 def errors(out, ref):
@@ -253,7 +322,8 @@ def phase_kernels() -> dict:
     gen.manual_seed(0)
     table = {name: {"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": 0, "max_abs_err": 0.0,
-                    "ms": None, "plain_ms": None}
+                    "ms": None, "plain_ms": None, "bound_ms": None,
+                    "bound_by": None, "library_ms": None}
              for name, (src, rep) in SOURCES.items()}
 
     def check(name, n, out, ref, tol, what="plain"):
@@ -284,6 +354,13 @@ def phase_kernels() -> dict:
             timed("flash_fwd_i8", lambda: A.flash_attention_int8(q, k, v),
                   lambda: A.int8_attention_plain(
                       *A.quantize_qk(q, k, scale), v), 8)
+            table["flash_fwd"]["library_ms"] = sdpa_ms(q, k, v)
+            log(f"time flash_fwd library F.scaled_dot_product_attention "
+                f"N={n}: {table['flash_fwd']['library_ms']:.3f} ms")
+            pv = 2 * n * n * HEAD_DIM * HEADS
+            nb = attn_bytes(1, n, HEADS, HEAD_DIM, 4)
+            set_bound(table, "flash_fwd", f"N={n}", 2 * pv, nb)
+            set_bound(table, "flash_fwd_i8", f"N={n}", pv, nb, int8_ops=pv)
         del q, k, v, out, ref, out8
 
         x, lnw, lnb, w1, b1, w2, b2 = _mlp_inputs(n, gen, dev)
@@ -302,8 +379,14 @@ def phase_kernels() -> dict:
                                            "gelu", eps), 20)
             timed("mlp_fwd", lambda: M.mlp_fused(x, w1, b1, w2, b2),
                   lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20)
+            ops = 4 * n * HIDDEN * FFN
+            set_bound(table, "mlp_block_fwd", f"M={n}", ops,
+                      mlp_bytes(n, HIDDEN, FFN, ln=True))
+            set_bound(table, "mlp_fwd", f"M={n}", ops,
+                      mlp_bytes(n, HIDDEN, FFN))
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
+    phase_dinov2_kernels(table, gen, dev)
     return table
 
 
@@ -365,6 +448,14 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
                   lambda: A.attention_bwd_plain(q, k, v, out, lse, do,
                                                 scale=scale),
                   5, label == "encoder")
+        if label == "encoder":
+            table["flash_bwd"]["library_ms"] = sdpa_ms(q, k, v, do)
+            log(f"time flash_bwd library scaled_dot_product_attention "
+                f"backward N={n} H={h}: "
+                f"{table['flash_bwd']['library_ms']:.3f} ms")
+            set_bound(table, "flash_bwd", f"N={n} H={h}",
+                      10 * n * n * HEAD_DIM * h,
+                      attn_bytes(1, n, h, HEAD_DIM, 8))
         del q, k, v, do, out, lse
 
     for m, kd, f, label in ((ENC_N, HIDDEN, FFN, "encoder"),
@@ -397,6 +488,11 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
             timed("mlp_bwd", f"{label} {what}",
                   lambda: M.mlp_bwd_fused(hh, g, w1, w2),
                   lambda: M._mlp_bwd_plain(hh, g, w1, w2, "gelu"), 20, keep)
+            if keep:
+                set_bound(table, "mlp_train_fwd", what, 4 * m * kd * f,
+                          mlp_bytes(m, kd, f, extra_mf=1))
+                set_bound(table, "mlp_bwd", what, 4 * m * kd * f,
+                          mlp_bytes(m, kd, f, extra_mf=3))
         if label == "V-JEPA":   # the EMA teacher's MLP
             check("mlp_fwd", what, M.mlp_fused(x, w1, b1, w2, b2),
                   M._mlp_xla(x, w1, b1, w2, b2, "gelu"), TOL_MLP)
@@ -452,6 +548,9 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
             if label == "encoder":
                 table["flash_bwd_i8"]["ms"] = ms
                 table["flash_bwd_i8"]["plain_ms"] = plain_ms
+                prod = 2 * n * n * d * h
+                set_bound(table, "flash_bwd_i8", shape, 3 * prod,
+                          attn_bytes(1, n, h, d, 8), int8_ops=2 * prod)
         del q, k, v, do, out, lse
 
     q, k, v = qkv(VJ_N, 8, 128, 3)
@@ -653,9 +752,10 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
     return rates
 
 
-def profile_call(fn, label: str, top: int = 8) -> None:
+def profile_call(fn, label: str, top: int = 8, watch: str = "") -> None:
     """fn() once under torch.profiler: device busy and idle share of the
-    wall time, and the kernels that take the most device time."""
+    wall time, and the kernels that take the most device time; with watch,
+    also the share and launches of the kernels whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -669,6 +769,10 @@ def profile_call(fn, label: str, top: int = 8) -> None:
     rows = []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        # a user annotation (Optimizer.step) spans kernels counted apart
+        if getattr(ev, "is_user_annotation", False) or \
+                ev.key.startswith("Optimizer."):
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
@@ -684,6 +788,11 @@ def profile_call(fn, label: str, top: int = 8) -> None:
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% of busy  x{count:<4} "
             f"{key[:100]}")
+    if watch:
+        hit = [r for r in rows if watch in r[2]]
+        ms = sum(r[0] for r in hit)
+        log(f"  {watch}: {ms:.2f} ms = {100 * ms / busy:.1f}% of busy, "
+            f"{sum(r[1] for r in hit)} launches")
 
 
 def preset_config(cli: str, path: Path, **kw):
@@ -890,7 +999,7 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
 
 
 def time_train_steps(label: str, card: str, bs: int, flops: float, step,
-                     iters: int) -> None:
+                     iters: int, watch: str = "") -> None:
     """step(0) as warm-up, then CUDA events over step(1) .. step(iters):
     ms a step, MFU against the card's dense bf16 peak (analytic FLOPs a
     sample, no remat recompute) and peak memory; then step(0) once under
@@ -918,7 +1027,8 @@ def time_train_steps(label: str, card: str, bs: int, flops: float, step,
         f"steps/s, {bs * 1e3 / ms:.3f} volumes/s, MFU {mfu} "
         f"({flops / 1e12:.2f} TFLOP/sample analytic, no remat "
         f"recompute), peak {mem:.1f} GiB, on {card}")
-    profile_call(lambda: step(0), f"{label} train step batch {bs}", top=10)
+    profile_call(lambda: step(0), f"{label} train step batch {bs}", top=10,
+                 watch=watch)
 
 
 def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
@@ -938,9 +1048,10 @@ def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside the block every kernel the V-JEPA step reaches (K1, K7, K3,
-    K5a, K5b, K6) runs its plain PyTorch version on the card, under the
-    same impl names: the reference of the step parity phase. This swaps
+    """Inside the block every kernel the V-JEPA and DINOv2 steps reach
+    (K1, K4, K7, K3, K5a, K5b, K6, K9) runs its plain PyTorch version on the
+    card, under the same impl names: the reference of the step parity
+    phases. This swaps
     module attributes for the phase only; the package has no such switch
     and never falls back."""
     import torch
@@ -967,6 +1078,11 @@ def plain_kernels():
             M._mlp_train_plain(x2, w1, b1, w2, b2, act),
         (M, "mlp_bwd_fused"): lambda h, g2, w1, w2, *, act="gelu":
             M._mlp_bwd_plain(h, g2, w1, w2, act),
+        (A, "flash_attention_bwd"):
+            lambda q, k, v, out, lse, do, *, scale=None, g_lse=None:
+            A.attention_bwd_plain(q, k, v, out, lse, do,
+                                  scale=scale_of(q, scale), g_lse=g_lse),
+        (M, "_swiglu_block_fwd"): M._swiglu_block_plain,
     }
     saved = {key: getattr(*key) for key in swaps}
     for (mod, name), fn in swaps.items():
@@ -1195,6 +1311,361 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
         del init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
+# DINOv2-giant: the published facebook/dinov2-giant config (ViT-g/14, Oquab
+# et al. 2023: hidden 1536, 40 layers, 24 heads of 64, mlp_ratio 4,
+# use_swiglu_ffn, layerscale 1.0, layer_norm_eps 1e-6, qkv_bias) in the
+# repo's 3D form: Conv3d patch 16 over 1 channel at the dinov2 CT
+# pipeline's 224^2 x 160, a (14, 14, 10) grid of 1,960 patches plus CLS.
+# SwiGLU width (int(1536 * 4 * 2/3) + 7) // 8 * 8 = 4,096. bf16, K9 on
+# mlp_impl "pallas", K1 (K4 under autograd) on attn "auto", remat.
+GIANT = dict(image_size=224, depth=160, patch_size=16, num_channels=1,
+             hidden_size=1536, num_hidden_layers=40, num_attention_heads=24,
+             mlp_ratio=4, use_swiglu_ffn=True, layerscale_value=1.0,
+             layer_norm_eps=1e-6, qkv_bias=True, drop_path_rate=0.0,
+             dtype="bfloat16", attn_impl="auto", mlp_impl="pallas",
+             gradient_checkpointing=True)
+DINO_N = 1961           # 14 * 14 * 10 patches + CLS
+GIANT_HEADS, GIANT_K, GIANT_F = 24, 1536, 4096
+LEG_F_LAYERS = 8        # leg F's depth cut: one checkpoint is ~2.8 GB
+# the fine-tuning recipe's two tiers (SURVEY "fine-tune recipe")
+VISION_LR, MERGER_LR = 1e-5, 3e-4
+
+
+def giant_config(**kw):
+    from smb_vision_tpu_torch.models.configs import Dinov2Config
+
+    return Dinov2Config(**dict(GIANT, **kw))
+
+
+def phase_dinov2_kernels(table: dict, gen, dev) -> None:
+    """K9 against its plain version (the kernel's numerics) and the bf16
+    cuBLAS chain at DINOv2-giant batch 2 (M 3,922), the DINOv2-base shape
+    (M 20,480, K 768, F 2,048) and the ragged batch 1 (M 1,961), timed
+    beside the chain; its gradients through the recompute at batch 2; its
+    register and spill report. Then K1 and K4 at N 1,961, 24 heads of 64,
+    batch 2, against theirs."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import _build
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    text = (_build.build_dir() / "build.log").read_text()
+    for line in text[text.index("== swiglu_fwd.cu"):].splitlines():
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
+            log(f"  K9 ptxas: {line.strip()}")
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    names = ("dx", "dlnw", "dlnb", "dw_in", "db_in", "dw_out", "db_out")
+    for m, k, f, label in ((2 * DINO_N, GIANT_K, GIANT_F, "giant batch 2"),
+                           (MAIN_N, HIDDEN, 2048, "base shape"),
+                           (DINO_N, GIANT_K, GIANT_F, "giant batch 1")):
+        args = (r(m, k).to(torch.bfloat16), 1.0 + r(k, s=0.1), r(k, s=0.1),
+                r(2 * f, k, s=k ** -0.5).to(torch.bfloat16).t(),
+                r(2 * f, s=0.1), r(k, f, s=f ** -0.5).to(torch.bfloat16).t(),
+                r(k, s=0.1))
+        what = f"M={m} K={k} F={f}"
+        y = M.swiglu_block_fused(*args, eps=1e-6)
+        check_kernel(table, "swiglu_block_fwd", what, y,
+                     M._swiglu_block_plain(*args, 1e-6), TOL_MLP)
+        check_kernel(table, "swiglu_block_fwd", what + " vs bf16 chain", y,
+                     M._swiglu_block_xla(*args, 1e-6), TOL_MLP, record=False)
+        if label != "giant batch 1":
+            keep = label == "giant batch 2"
+            time_kernel(table, "swiglu_block_fwd", f"{label} {what}",
+                        lambda: M.swiglu_block_fused(*args, eps=1e-6),
+                        lambda: M._swiglu_block_xla(*args, 1e-6), 10, keep)
+            if keep:
+                set_bound(table, "swiglu_block_fwd", what, 6 * m * k * f,
+                          mlp_bytes(m, k, f, n_w=3, ln=True))
+        if label == "giant batch 2":
+            g = r(m, k)
+
+            def grads(impl):
+                leaves = [t.detach().clone().requires_grad_() for t in args]
+                (M.swiglu_block_forward(*leaves, eps=1e-6, impl=impl).float()
+                 * g).sum().backward()
+                return [t.grad for t in leaves]
+
+            for name, a, b in zip(names, grads("pallas"), grads("xla")):
+                check_kernel(table, "swiglu_block_fwd", f"{what} {name}", a,
+                             b, TOL_MLP_TRAIN, record=False)
+        del args, y
+
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    q, k, v, do = [(torch.randn((2, DINO_N, GIANT_HEADS, HEAD_DIM),
+                                generator=gen, device=dev) * 0.4).to(
+        torch.bfloat16) for _ in range(4)]
+    shape = f"DINOv2-giant B=2 N={DINO_N} H={GIANT_HEADS}"
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    check_kernel(table, "flash_fwd", shape, out, A.xla_attention(q, k, v),
+                 TOL_FLASH)
+    got = A.flash_attention_bwd(q, k, v, out, lse, do)
+    want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        check_kernel(table, "flash_bwd", f"{shape} {what}", a, b,
+                     TOL_FLASH_BWD)
+    time_kernel(table, "flash_fwd", shape, lambda: A.flash_attention(q, k, v),
+                lambda: A.xla_attention(q, k, v), 8, False)
+    time_kernel(table, "flash_bwd", shape,
+                lambda: A.flash_attention_bwd(q, k, v, out, lse, do),
+                lambda: A.attention_bwd_plain(q, k, v, out, lse, do,
+                                              scale=scale), 5, False)
+
+
+def dinov2_batch(bs: int, seed: int, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    px = torch.rand((bs, 1, 224, 224, 160), generator=gen, device=dev)
+    labels = torch.randint(0, 2, (bs,), generator=gen, device=dev)
+    return {"pixel_values": px, "labels": labels.to(torch.int32)}
+
+
+def phase_dinov2_parity() -> None:
+    """One DINOv2-giant fine-tune step (forward and backward, remat, no
+    update) at batch 2, a classification head of 2 labels, from the same
+    seeded weights: through the kernels, through their plain versions
+    under the same impl names (`plain_kernels`), and in float32 with the
+    plain attention and MLP (TF32 off). Holds the loss and the gradient
+    over all parameters, and K9's launches: 40 a forward, so 80 with the
+    remat recompute, and none on the plain path."""
+    import torch
+
+    from smb_vision_tpu_torch.models.dinov2 import (
+        Dinov2ForImageClassification,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    batch = dinov2_batch(2, 6, dev)
+    with torch.device(dev):
+        init = Dinov2ForImageClassification(giant_config()).init_weights(
+            torch.Generator(device=dev).manual_seed(0)).state_dict()
+
+    def step(**kw):
+        with torch.device(dev):
+            model = Dinov2ForImageClassification(giant_config(**kw))
+        model.load_state_dict(init)
+        model.train()
+        loss = model(batch["pixel_values"], labels=batch["labels"])["loss"]
+        loss.backward()
+        # the mask token is used only with bool_masked_pos: no gradient
+        named = [(n, p.grad) for n, p in model.named_parameters()
+                 if n != "dinov2.mask_token"]
+        if any(g is None for _, g in named):
+            raise AssertionError(f"{kw or 'kernel path'}: no gradient for "
+                                 f"{[n for n, g in named if g is None]}")
+        flat = torch.cat([g.float().flatten() for _, g in named])
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, named
+        torch.cuda.empty_cache()
+        return float(loss.detach()), flat, n_params
+
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    k_loss, k_grad, n_params = step()
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in ws.items()}
+    layers = GIANT["num_hidden_layers"]
+    if counts["swiglu_block_fwd"] != 2 * layers or not (
+            counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
+        raise AssertionError(f"DINOv2 step: launches {counts}; K9 must "
+                             f"launch {layers} a forward, twice with remat")
+    ws = reset_launches()
+    with plain_kernels():
+        p_loss, p_grad, _ = step()
+    if any(w.launches for w in ws.values()):
+        raise AssertionError(f"the plain path launched a kernel: "
+                             f"{ {n: w.launches for n, w in ws.items()} }")
+    f_loss, f_grad, _ = step(attn_impl="xla", mlp_impl="xla",
+                             dtype="float32")
+    norm = float(f_grad.norm())
+    k_err = float((k_grad - f_grad).norm()) / norm
+    p_err = float((p_grad - f_grad).norm()) / norm
+    rel_loss = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"DINOv2-giant parity, one fine-tune step at batch 2 ({n_params} "
+        f"parameters, N {DINO_N}): loss kernels {k_loss:.6f}, plain "
+        f"versions {p_loss:.6f}, f32 {f_loss:.6f}; rel {rel_loss:.3e} "
+        f"(bound {TOL_TRAIN_LOSS}); gradient error vs f32: kernels "
+        f"{k_err:.3e}, plain versions {p_err:.3e} (bound "
+        f"{TOL_TRAIN_GRAD_VS_F32} x plain); kernel step {wall:.1f} s with "
+        f"the first calls; launches {counts}")
+    if not (bool(k_grad.isfinite().all()) and math.isfinite(k_loss)):
+        raise AssertionError("the kernel path's loss or gradient is not "
+                             "finite")
+    if not rel_loss <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"DINOv2 loss rel {rel_loss}")
+    if not k_err <= TOL_TRAIN_GRAD_VS_F32 * p_err:
+        raise AssertionError(f"DINOv2 kernel gradients are {k_err} from "
+                             f"float32, the plain versions' {p_err}")
+
+
+def phase_finetune_throughput(card: str, iters: int = 3) -> None:
+    """DINOv2-giant fine-tune steps (two-tier AdamW update included) at
+    batch 2 and 4: ms a step, MFU on the analytic count with SwiGLU's
+    three products, peak memory, and one step under the profiler with
+    K9's share."""
+    import torch
+
+    from smb_vision_tpu_torch.train.classification import (
+        make_classification_workload,
+    )
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import (
+        classification_flops_per_sample,
+    )
+
+    dev = torch.device("cuda")
+    cfg = giant_config(problem_type="single_label_classification")
+    flops = classification_flops_per_sample(cfg)
+    for bs in (2, 4):
+        _, init_fn, step_fn, _ = make_classification_workload(
+            cfg, task_type="classification", device=dev,
+            tx=functools.partial(make_optimizer, learning_rate=1e-4,
+                                 total_steps=100, vision_lr=VISION_LR,
+                                 merger_lr=MERGER_LR))
+        state = init_fn(0)
+        batches = [dinov2_batch(bs, 10 + i, dev) for i in range(iters + 1)]
+
+        def step(i):
+            return step_fn(state, batches[i], step_generator(0, i))
+
+        ws = reset_launches()
+        step(0)
+        log(f"DINOv2-giant batch {bs}: launches of one step "
+            f"{ {n: w.launches for n, w in ws.items() if w.launches} }")
+        time_train_steps("DINOv2-giant fine-tune", card, bs, flops, step,
+                         iters, watch="swiglu")
+        del init_fn, step_fn, state, batches, step
+        torch.cuda.empty_cache()
+
+
+def write_labelled_spec(work: Path, vols: Path) -> Path:
+    """The volumes as a fine-tuning spec: a label, a survival duration and
+    event, and one tabular column (age); every volume in both splits."""
+    items = [{"image": str(p), "label": i % 2, "os": float(3 + 5 * i),
+              "os_event": float(i != 2), "age": 50.0 + 7 * i}
+             for i, p in enumerate(sorted(vols.glob("*.nii")))]
+    spec = work / "cls_data.json"
+    spec.write_text(json.dumps({"train": items, "validation": items}))
+    return spec
+
+
+def run_finetune_leg(work: Path, spec: Path, leg: str, cfg_path: Path,
+                     task: str, extra: dict, kernels: tuple,
+                     metric_keys: tuple) -> dict:
+    """run_classification with the config file cfg_path on the labelled
+    volumes, the two-tier recipe: 4 steps, a checkpoint every 2, eval;
+    then the same to 6 steps, which resumes at 4. Asserts the logs, the
+    checkpoints, the eval metrics, the export and that the kernels
+    launched in the first run; returns that run's launch counts."""
+    import numpy as np
+
+    from smb_vision_tpu_torch.cli.run_classification import main as run_cls
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+    from smb_vision_tpu_torch.train.trainer import Trainer
+
+    out = work / f"leg_{leg}"
+
+    def run(steps):
+        path = work / f"leg_{leg}_{steps}.json"
+        path.write_text(json.dumps(dict(
+            train_data_path=str(spec), val_data_path=str(spec),
+            output_dir=str(out), config_name_or_path=str(cfg_path),
+            task_type=task, learning_rate=1e-4, vision_lr=VISION_LR,
+            merger_lr=MERGER_LR, warmup_ratio=0.1,
+            per_device_train_batch_size=2, per_device_eval_batch_size=3,
+            num_train_steps=steps, save_steps=2, logging_steps=1,
+            do_eval=True, num_workers=2, **extra)))
+        t0 = time.perf_counter()
+        res = run_cls([str(path)])
+        return res, time.perf_counter() - t0
+
+    ws = reset_launches()
+    res4, wall4 = run(4)
+    counts = {name: w.launches for name, w in ws.items()}
+    res6, wall6 = run(6)
+    log(f"leg {leg}: {res4} in {wall4:.1f} s, resumed {res6} in "
+        f"{wall6:.1f} s (preprocess + train + eval + save); launches of the "
+        f"first run {counts}")
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    for r in train:
+        log(f"  step {r['step']}: loss {r['loss']:.6f}, "
+            f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
+    if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"leg {leg} logged steps "
+                             f"{[r['step'] for r in train]}")
+    for r in train:
+        if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
+            raise AssertionError(f"leg {leg} step record {r}")
+    for res in (res4, res6):
+        vals = [res.get(k, math.nan) for k in ("eval_loss", *metric_keys)]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"leg {leg} eval: {res}")
+    ckpts = Trainer.checkpoint_steps(out / "checkpoints")
+    limit = extra.get("save_total_limit")
+    want = [6] if limit == 1 else [2, 4, 6]
+    if ckpts != want or res6["train_steps"] != 6:
+        raise AssertionError(f"leg {leg} checkpoints {ckpts}, result {res6}")
+    export = read_safetensors(out / "model.safetensors")
+    if not (out / "config.json").exists() or not all(
+            np.isfinite(v).all() for v in export.values()):
+        raise AssertionError(f"leg {leg}: config.json or a finite "
+                             "model.safetensors is missing")
+    log(f"leg {leg}: checkpoints {ckpts}, model.safetensors {len(export)} "
+        f"tensors, eval {dict((k, res6[k]) for k in metric_keys)}")
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"leg {leg}: kernel {name} never launched")
+    return counts
+
+
+def run_leg_e(work: Path, spec: Path) -> None:
+    """run_classification on the VideoMAE route: the ViT-Base encoder of
+    configs/mim_base_512.json at 224^2 x 160, mlp_impl pallas_bwd, a
+    survival task with one tabular column (kernels K1, K4, K5a, K5b in
+    training, K6 in eval)."""
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+
+    preset = json.loads(MIM_PRESET.read_text())
+    cfg = VideoMAEConfig(
+        image_size=224, num_frames=160, patch_size=preset["patch_size"],
+        tubelet_size=preset["patch_size"], num_channels=1,
+        **{k: preset[k] for k in ("hidden_size", "num_hidden_layers",
+                                  "num_attention_heads", "intermediate_size",
+                                  "dtype", "mlp_impl",
+                                  "gradient_checkpointing")})
+    path = work / "leg_e_config.json"
+    cfg.save_json(str(path))
+    run_finetune_leg(work, spec, "E", path, "survival",
+                     {"additional_feature_columns": ["age"]},
+                     ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
+                      "mlp_fwd"), ("eval_c_index",))
+
+
+def run_leg_f(work: Path, spec: Path, table: dict) -> None:
+    """run_classification on the DINOv2 route, the slice's main path: the
+    DINOv2-giant config at full width, depth cut to LEG_F_LAYERS, one
+    checkpoint kept, a classification task with accuracy and ROC-AUC
+    (kernels K1, K4 and K9). Its launch counts go into the kernel table."""
+    path = work / "leg_f_dinov2_giant.json"
+    giant_config(num_hidden_layers=LEG_F_LAYERS).save_json(str(path))
+    log(f"leg F: DINOv2-giant at full width, depth cut from "
+        f"{GIANT['num_hidden_layers']} to {LEG_F_LAYERS} layers")
+    counts = run_finetune_leg(
+        work, spec, "F", path, "classification", {"save_total_limit": 1},
+        ("flash_fwd", "flash_bwd", "swiglu_block_fwd"),
+        ("eval_accuracy", "eval_roc_auc"))
+    table["swiglu_block_fwd"]["launches"] = counts["swiglu_block_fwd"]
+
 
 def main() -> int:
     import torch
@@ -1222,6 +1693,9 @@ def main() -> int:
         phase_whole_model(vols, emb_a)
         run_leg_c(work, vols, table)
         run_leg_d(work, vols, table)
+        spec = write_labelled_spec(work, vols)
+        run_leg_e(work, spec)
+        run_leg_f(work, spec, table)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
@@ -1229,6 +1703,8 @@ def main() -> int:
     phase_train_throughput(card)
     phase_vjepa_parity()
     phase_vjepa_throughput(card)
+    phase_dinov2_parity()
+    phase_finetune_throughput(card)
     log(card)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,6 @@ Example:
 from __future__ import annotations
 
 import functools
-import json
 import os
 import random
 from dataclasses import dataclass, field
@@ -122,28 +121,21 @@ def build_config(model_args: ModelArguments):
     if not from_file:
         upd["num_channels"] = 1
     config.update(upd)
-    if model_args.config_overrides:
-        for kv in model_args.config_overrides.split(","):
-            k, v = kv.split("=", 1)
-            try:
-                v = json.loads(v)
-            except json.JSONDecodeError:
-                pass
-            config.update({k.strip(): v})
-    return config
+    return config.apply_overrides(model_args.config_overrides)
 
 
 def _refuse_unported(model_args, data_args, training_args,
                      cli: str = "run_mim", extra=()) -> None:
     """Raise for a flag whose module is not ported, naming its ROADMAP.md
-    item; extra: more (hit, flag, item) triples of the calling CLI."""
+    item; extra: more (hit, flag, item) triples of the calling CLI. A flag
+    the calling CLI does not have counts as unset."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     unported = [*extra,
-        (model_args.pipeline_stages > 1, "--pipeline_stages > 1",
-         "queue 1, multi-GPU"),
+        (getattr(model_args, "pipeline_stages", 1) > 1,
+         "--pipeline_stages > 1", "queue 1, multi-GPU"),
         (bool(data_args.cache_data_dir), "--cache_data_dir",
          "queue 1, native loader and dataset cache"),
-        (data_args.device_cache, "--device_cache",
+        (getattr(data_args, "device_cache", False), "--device_cache",
          "queue 1, native loader and dataset cache"),
         (training_args.input_dtype == "uint8", "--input_dtype uint8",
          "queue 1, uint8 shipping"),
@@ -155,7 +147,8 @@ def _refuse_unported(model_args, data_args, training_args,
         (training_args.sharding_policy not in ("dp", "fsdp"),
          f"--sharding_policy {training_args.sharding_policy}",
          "queue 1, multi-GPU"),
-        (model_args.export_hf, "--export_hf", "queue 1, checkpoints"),
+        (getattr(model_args, "export_hf", False), "--export_hf",
+         "queue 1, checkpoints"),
         (bool(training_args.profile_steps), "--profile_steps",
          "queue 1, MIM training (item 4)"),
         (training_args.report_to not in ("none", ""),

@@ -23,7 +23,6 @@ Example:
 from __future__ import annotations
 
 import functools
-import json
 from dataclasses import dataclass, field
 from dataclasses import fields as dc_fields
 from typing import Optional
@@ -131,15 +130,7 @@ def build_config(model_args: ModelArguments):
     if not from_file:
         upd["in_chans"] = 1
     config.update(upd)
-    if model_args.config_overrides:
-        for kv in model_args.config_overrides.split(","):
-            k, v = kv.split("=", 1)
-            try:
-                v = json.loads(v)
-            except json.JSONDecodeError:
-                pass
-            config.update({k.strip(): v})
-    return config
+    return config.apply_overrides(model_args.config_overrides)
 
 
 def main(argv=None) -> dict:

@@ -2,8 +2,9 @@
 
 Counterpart of `smb_vision_tpu/models/configs.py`. Field names mirror the
 HuggingFace configs, so JSON config files written by the JAX package load
-here unchanged (keys the port has no field for are ignored): VideoMAE and
-V-JEPA2. The other model families' configs come with their models.
+here unchanged (keys the port has no field for are ignored): VideoMAE,
+V-JEPA2 and the 3D DINOv2. The other model families' configs come with
+their models.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -22,6 +23,20 @@ class BaseConfig:
         for k, v in updates.items():
             if k in names:
                 setattr(self, k, v)
+        return self
+
+    def apply_overrides(self, overrides: Optional[str]) -> "BaseConfig":
+        """A CLI's --config_overrides: a comma list of key=value, each value
+        read as JSON where it parses (else kept as a string)."""
+        for kv in (overrides or "").split(","):
+            if not kv:
+                continue
+            k, v = kv.split("=", 1)
+            try:
+                v = json.loads(v)
+            except json.JSONDecodeError:
+                pass
+            self.update({k.strip(): v})
         return self
 
     def to_dict(self) -> dict:
@@ -75,6 +90,11 @@ class VideoMAEConfig(BaseConfig):
     decoder_num_hidden_layers: int = 4
     decoder_intermediate_size: int = 1536
     norm_pix_loss: bool = True
+
+    # classification head
+    num_labels: int = 2
+    problem_type: Optional[str] = None
+    additional_features_size: int = 0
 
     # framework knobs (not in the HF config)
     dtype: str = "bfloat16"         # compute dtype
@@ -131,7 +151,7 @@ class VJEPA2Config(BaseConfig):
     hidden_act: str = "gelu"
     initializer_range: float = 0.02
     attention_dropout: float = 0.0             # read by no model
-    num_pooler_layers: int = 3                 # the pooler is not ported
+    num_pooler_layers: int = 3                 # attentive pooler depth
 
     # predictor
     pred_hidden_size: int = 384
@@ -141,7 +161,7 @@ class VJEPA2Config(BaseConfig):
     pred_zero_init_mask_tokens: bool = True
     pred_mlp_ratio: float = 4.0
 
-    # classification (the classifier is not ported)
+    # classification
     num_labels: int = 2
 
     # framework knobs, as VideoMAEConfig's
@@ -172,3 +192,68 @@ class VJEPA2Config(BaseConfig):
     @property
     def pred_head_dim(self) -> int:
         return self.pred_hidden_size // self.pred_num_attention_heads
+
+
+@dataclass
+class Dinov2Config(BaseConfig):
+    """DINOv2 over 3D volumes: a Conv3d patch embed of (B, C, H, W, D)
+    input, a CLS token, learned 3D position embeddings sized from the
+    grid, LayerScale blocks with an optional SwiGLU FFN."""
+
+    model_type: str = "dinov2"
+
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 1
+    depth: int = 160                # volume depth
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    mlp_ratio: int = 4
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.0           # read by no model
+    attention_probs_dropout_prob: float = 0.0  # read by no model
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = True
+    layerscale_value: float = 1.0
+    drop_path_rate: float = 0.0
+    use_swiglu_ffn: bool = False
+    use_mask_token: bool = True     # the masked-embedding path
+
+    num_labels: int = 2
+    problem_type: Optional[str] = None
+    additional_features_size: int = 0  # the DINOv2 head fuses none
+
+    # framework knobs, as VideoMAEConfig's ("pallas" with use_swiglu_ffn:
+    # the SwiGLU half-block kernel K9)
+    dtype: str = "bfloat16"
+    attn_impl: str = "auto"
+    mlp_impl: str = "auto"
+    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
+    fused_qkv: bool = False         # not ported yet
+    gradient_checkpointing: bool = False
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(H', W', D') patch grid: the token order is h-major with depth
+        FASTEST, token index h*W'*D' + w*D' + d (unlike VideoMAE's)."""
+        return (self.image_size // self.patch_size,
+                self.image_size // self.patch_size,
+                self.depth // self.patch_size)
+
+    @property
+    def seq_len(self) -> int:
+        """Patches; the CLS token comes on top."""
+        h, w, d = self.grid
+        return h * w * d
+
+    @property
+    def intermediate_size(self) -> int:
+        """The FFN width: mlp_ratio x hidden, or for SwiGLU 2/3 of it
+        rounded up to a multiple of 8."""
+        if self.use_swiglu_ffn:
+            return (int(self.hidden_size * self.mlp_ratio * 2 / 3) + 7) \
+                // 8 * 8
+        return self.hidden_size * self.mlp_ratio

@@ -27,6 +27,7 @@ from smb_vision_tpu_torch.ops.mlp import (
     kernel_maps,
     mlp_block_forward,
     mlp_forward,
+    swiglu_block_forward,
 )
 from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
 
@@ -73,13 +74,14 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention. bias_mode: "qkv" (bias on q, k and v),
-    "qv" (on q and v only: the VideoMAE q/v-bias), "none"."""
+    """Multi-head attention. bias_mode: "qkv" (bias on q, k and v), "qv" (on
+    q and v only: the VideoMAE q/v-bias), "none". out_proj=False leaves out
+    the output projection (the V-JEPA2 pooler's cross-attention)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  bias_mode: str = "qkv", out_bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", out_proj: bool = True):
         super().__init__()
         if bias_mode not in ("qkv", "qv", "none"):
             raise ValueError(f"unknown bias_mode {bias_mode!r}")
@@ -92,22 +94,25 @@ class Attention(nn.Module):
         self.query = Linear(h, h, bias_mode != "none", dtype)
         self.key = Linear(h, h, bias_mode == "qkv", dtype)
         self.value = Linear(h, h, bias_mode != "none", dtype)
-        self.proj = Linear(h, h, out_bias, dtype)
+        self.proj = Linear(h, h, out_bias, dtype) if out_proj else None
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor,
-                                              torch.Tensor]] = None):
+                                              torch.Tensor]] = None,
+                kv: Optional[torch.Tensor] = None):
         """rope: optional (cos, sin) tables, (N, D) or (B, N, D), applied to
-        q and k (`ops.rope3d.apply_rope3d`)."""
+        q and k (`ops.rope3d.apply_rope3d`); kv: keys and values come from
+        these tokens instead of x (cross-attention)."""
         b, n, h = x.shape
-        shape = (b, n, self.num_heads, h // self.num_heads)
-        q = self.query(x).reshape(shape)
-        k = self.key(x).reshape(shape)
-        v = self.value(x).reshape(shape)
+        src = x if kv is None else kv
+        d = h // self.num_heads
+        q = self.query(x).reshape(b, n, self.num_heads, d)
+        k = self.key(src).reshape(b, src.shape[1], self.num_heads, d)
+        v = self.value(src).reshape(b, src.shape[1], self.num_heads, d)
         if rope is not None:
             q = apply_rope3d(q, *rope)
             k = apply_rope3d(k, *rope)
-        out = attention(q, k, v, impl=self.attn_impl)
-        return self.proj(out.reshape(b, n, h))
+        out = attention(q, k, v, impl=self.attn_impl).reshape(b, n, h)
+        return out if self.proj is None else self.proj(out)
 
 
 class Mlp(nn.Module):
@@ -138,6 +143,24 @@ class Mlp(nn.Module):
                                self.fc2.bias, act=self.act,
                                impl=self.mlp_impl)
         return self.fc2(act_fn(self.act)(self.fc1(x)))
+
+
+class SwiGLU(nn.Module):
+    """SwiGLU FFN (the DINOv2 use_swiglu_ffn path): weights_in (hidden ->
+    2 x intermediate), silu of the first half times the second half,
+    weights_out (intermediate -> hidden), in the compute dtype."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weights_in = Linear(hidden_size, 2 * intermediate_size, True,
+                                 dtype)
+        self.weights_out = Linear(intermediate_size, hidden_size, True,
+                                  dtype)
+
+    def forward(self, x):
+        h1, h2 = self.weights_in(x).chunk(2, dim=-1)
+        return self.weights_out(F.silu(h1) * h2)
 
 
 class DropPath(nn.Module):
@@ -178,7 +201,9 @@ class Block(nn.Module):
     mlp_impl is "pallas", or "auto" with bf16 compute; LayerScale folds
     into w2/b2. "pallas_bwd" skips that fusion, as in the JAX package, and
     routes LN + Mlp separately (kernels K5a + K5b under autograd, K6
-    otherwise)."""
+    otherwise). With use_swiglu the FFN is `SwiGLU`, and only mlp_impl
+    "pallas" fuses the half-block, through `swiglu_block_forward` (kernel
+    K9), as in the JAX package."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -205,22 +230,22 @@ class Block(nn.Module):
         if sequence_parallel:
             raise not_ported("sequence_parallel (parallel/context.py)",
                              "queue 1, multi-GPU")
-        if use_swiglu:
-            raise not_ported("use_swiglu (SwiGLU block, kernel K9)",
-                             "queue 1, zoo")
         if mlp_impl not in _MLP_IMPLS:
             raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
                              + ", ".join(map(repr, _MLP_IMPLS)))
         self.act = act
         self.dtype = dtype
         self.mlp_impl = mlp_impl
+        self.use_swiglu = use_swiglu
         self.eps = layer_norm_eps
         self.norm1 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.attention = Attention(hidden_size, num_heads, bias_mode,
                                    dtype=dtype, attn_impl=attn_impl)
         self.norm2 = LayerNorm(hidden_size, layer_norm_eps, dtype)
-        self.mlp = Mlp(hidden_size, intermediate_size, act=act, dtype=dtype,
-                       mlp_impl=mlp_impl)
+        self.mlp = (SwiGLU(hidden_size, intermediate_size, dtype)
+                    if use_swiglu else
+                    Mlp(hidden_size, intermediate_size, act=act, dtype=dtype,
+                        mlp_impl=mlp_impl))
         if layerscale_value is not None:
             self.layerscale1 = nn.Parameter(
                 torch.full((hidden_size,), float(layerscale_value)))
@@ -245,6 +270,11 @@ class Block(nn.Module):
         x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
 
         dp_off = not self.drop_path.active
+        if self.use_swiglu:
+            if self.mlp_impl == "pallas" and dp_off:
+                return self._swiglu_fused(x)
+            h = self.mlp(self.norm2(x))
+            return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
         route = (self.mlp_impl == "pallas"
                  or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16
                      and kernel_maps(x.shape[-1],
@@ -263,6 +293,22 @@ class Block(nn.Module):
                 eps=self.eps, impl=self.mlp_impl)
         h = self.mlp(self.norm2(x))
         return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
+
+    def _swiglu_fused(self, x):
+        """The SwiGLU half-block through K9, LayerScale folded into w_out
+        and b_out."""
+        dt = self.dtype
+        # scaled in the Linear layout (K, F), so the kernel's read of it
+        # copies nothing
+        w_out = self.mlp.weights_out.weight
+        b_out = self.mlp.weights_out.bias
+        if self.layerscale2 is not None:
+            w_out = w_out * self.layerscale2[:, None]
+            b_out = b_out * self.layerscale2
+        return swiglu_block_forward(
+            x.to(dt), self.norm2.weight, self.norm2.bias,
+            self.mlp.weights_in.weight.to(dt).t(), self.mlp.weights_in.bias,
+            w_out.to(dt).t(), b_out, eps=self.eps, impl="pallas")
 
 
 class Encoder(nn.Module):

@@ -1,10 +1,13 @@
-"""VideoMAE-3D: the encoder and masked-image-modeling pretraining.
+"""VideoMAE-3D: the encoder, masked-image-modeling pretraining and the
+classification model.
 
 Counterpart of `smb_vision_tpu/models/videomae.py`: `VideoMAEModel` (both
 branches: every token for batch embedding, the visible tokens only for
-MIM) and `VideoMAEForPreTraining` (encoder on the visible tokens, a narrow
+MIM), `VideoMAEForPreTraining` (encoder on the visible tokens, a narrow
 decoder over the whole sequence, MSE on the per-patch-normalised pixels of
-the masked patches). The classification head belongs to a later slice.
+the masked patches), `VideoMAEForVideoClassification` (mean-pool,
+`fc_norm`, tabular features fused at the head) and the fine-tuning losses
+`classification_loss` (cross-entropy, BCE, MSE by problem type).
 """
 
 from __future__ import annotations
@@ -96,7 +99,7 @@ class VideoMAEModel(nn.Module):
         return self
 
     def forward(self, pixel_values, bool_masked_pos=None,
-                num_masked: int = 0):
+                num_masked: int = 0, generator=None):
         cfg, dt = self.config, self.dtype
         order = None
         if bool_masked_pos is not None and num_masked > 0:
@@ -120,7 +123,7 @@ class VideoMAEModel(nn.Module):
             x = patch_embed(pixel_values, self.patch_embed_kernel,
                             self.patch_embed_bias, dtype=dt)
             x = x + self.pos.to(dt)
-        x = self.encoder(x)
+        x = self.encoder(x, generator=generator)
         if self.layernorm is not None:
             x = self.layernorm(x)
         return x, order
@@ -194,6 +197,81 @@ class VideoMAEForPreTraining(nn.Module):
         loss = (sq.mean() if valid is None
                 else row_weighted_mean(sq.mean(dim=(1, 2)), valid))
         return {"loss": loss, "logits": logits}
+
+
+class VideoMAEForVideoClassification(nn.Module):
+    """Mean-pool over the tokens + fc_norm (LayerNorm, eps 1e-5), or the
+    first token without mean pooling; the tabular features concatenated
+    after it; a Linear head in the compute dtype; float32 logits."""
+
+    def __init__(self, config: VideoMAEConfig):
+        super().__init__()
+        cfg = self.config = config
+        dt = self.dtype = compute_dtype(cfg)
+        self.videomae = VideoMAEModel(cfg)
+        self.fc_norm = (LayerNorm(cfg.hidden_size, 1e-5, dt)
+                        if cfg.use_mean_pooling else None)
+        self.classifier = Linear(
+            cfg.hidden_size + cfg.additional_features_size, cfg.num_labels,
+            True, dt)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        _init_(self, self.config.initializer_range, generator)
+        return self
+
+    def forward(self, pixel_values, additional_features=None, labels=None,
+                generator=None) -> dict:
+        cfg = self.config
+        enc, _ = self.videomae(pixel_values, generator=generator)
+        pooled = (self.fc_norm(enc.mean(dim=1)) if self.fc_norm is not None
+                  else enc[:, 0])
+        width = (0 if additional_features is None
+                 else additional_features.shape[-1])
+        if width != cfg.additional_features_size:
+            raise ValueError(f"expected additional_features of size "
+                             f"{cfg.additional_features_size}, got {width}")
+        if additional_features is not None:
+            pooled = torch.cat(
+                [pooled, additional_features.to(pooled.dtype)], dim=-1)
+        logits = self.classifier(pooled).float()
+        out = {"logits": logits}
+        if labels is not None:
+            out["loss"] = classification_loss(logits, labels, cfg.num_labels,
+                                              cfg.problem_type)
+        return out
+
+
+def classification_loss(logits, labels, num_labels: int,
+                        problem_type: Optional[str], valid=None):
+    """Mean loss of the problem type: "regression" (MSE),
+    "single_label_classification" (cross-entropy on integer labels),
+    "multi_label_classification" (BCE with logits); None infers it from
+    num_labels and the labels' dtype. valid: optional (B,) 0/1 row
+    weights; rows of 0 (the Trainer's eval padding) leave the mean."""
+    if problem_type is None:
+        integer = not (labels.dtype.is_floating_point
+                       or labels.dtype == torch.bool)
+        problem_type = ("regression" if num_labels == 1 else
+                        "single_label_classification" if integer
+                        else "multi_label_classification")
+    logits = logits.float()
+    if problem_type == "regression":
+        labels = labels.float()
+        if num_labels == 1:
+            row = (logits.squeeze(-1) - labels.squeeze()) ** 2
+        else:
+            row = ((logits - labels) ** 2).mean(dim=-1)
+    elif problem_type == "single_label_classification":
+        logp = torch.log_softmax(logits, dim=-1)
+        row = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    elif problem_type == "multi_label_classification":
+        labels = labels.float()
+        row = (torch.clamp(logits, min=0) - logits * labels
+               + torch.log1p(torch.exp(-logits.abs()))).mean(dim=-1)
+    else:
+        raise ValueError(f"unknown problem_type {problem_type}")
+    return row_weighted_mean(row, valid)
 
 
 def row_weighted_mean(row: torch.Tensor, valid) -> torch.Tensor:

@@ -12,8 +12,10 @@ per forward and shared by every layer. Parameter names follow the JAX
 tree (`encoder.patch_embed_kernel`, `encoder.encoder.layer_i.*`,
 `encoder.layernorm`, `predictor.predictor_embeddings`,
 `predictor.mask_tokens`, `predictor.stack.layer_i.*`,
-`predictor.layernorm`, `predictor.proj`). The attentive pooler and the
-classifier belong to fine-tuning and are not ported yet.
+`predictor.layernorm`, `predictor.proj`). Fine-tuning adds
+`VJEPA2AttentivePooler` (self-attention layers over the tokens, then one
+cross-attention from a learned query) and `VJEPA2ForVideoClassification`
+(`vjepa2.encoder.*`, `pooler.*`, `classifier`).
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ from torch import nn
 
 from smb_vision_tpu_torch.models.configs import VJEPA2Config
 from smb_vision_tpu_torch.models.layers import (
+    Attention,
     Encoder,
     LayerNorm,
     Linear,
+    Mlp,
     trunc_normal_,
 )
-from smb_vision_tpu_torch.models.videomae import _init_, compute_dtype
+from smb_vision_tpu_torch.models.videomae import (
+    _init_,
+    classification_loss,
+    compute_dtype,
+)
 from smb_vision_tpu_torch.ops.patches import patch_embed
 from smb_vision_tpu_torch.ops.rope3d import rope3d_cos_sin
 
@@ -137,13 +145,15 @@ class VJEPA2Model(nn.Module):
     `target_bool`; on the index-list path (context_mask / target_mask
     lists of (B, L) indices; both None: every token) also
     `masked_hidden_state` and `target_hidden_state`. generator draws the
-    DropPath keep masks in training (encoder first, then predictor)."""
+    DropPath keep masks in training (encoder first, then predictor).
+    predictor=False builds the encoder only (the classification backbone,
+    which always skips the predictor)."""
 
-    def __init__(self, config: VJEPA2Config):
+    def __init__(self, config: VJEPA2Config, predictor: bool = True):
         super().__init__()
         self.config = config
         self.encoder = VJEPA2Encoder(config)
-        self.predictor = VJEPA2Predictor(config)
+        self.predictor = VJEPA2Predictor(config) if predictor else None
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):
@@ -153,7 +163,7 @@ class VJEPA2Model(nn.Module):
         pred_zero_init_mask_tokens."""
         cfg = self.config
         _init_(self, cfg.initializer_range, generator)
-        if not cfg.pred_zero_init_mask_tokens:
+        if self.predictor is not None and not cfg.pred_zero_init_mask_tokens:
             trunc_normal_(self.predictor.mask_tokens, cfg.initializer_range,
                           generator)
         return self
@@ -161,6 +171,9 @@ class VJEPA2Model(nn.Module):
     def forward(self, pixel_values, *, target_bool=None, context_mask=None,
                 target_mask=None, skip_predictor: bool = False,
                 mask_index: int = 1, generator=None) -> dict:
+        if self.predictor is None and not skip_predictor:
+            raise ValueError("this VJEPA2Model has no predictor: pass "
+                             "skip_predictor=True")
         enc = self.encoder(pixel_values, generator=generator)
         out = {"last_hidden_state": enc}
         if target_bool is not None:
@@ -180,6 +193,82 @@ class VJEPA2Model(nn.Module):
             out["predictor_output"] = self.predictor(
                 enc, context_mask=context_mask, target_mask=target_mask,
                 mask_index=mask_index, generator=generator)
+        return out
+
+
+class VJEPA2AttentivePooler(nn.Module):
+    """num_pooler_layers self-attention layers over the tokens (LN ->
+    attention -> residual; LN -> MLP -> residual), then one cross-attention
+    from a learned query: the keys and values are the LayerNormed tokens,
+    the residual is the query, and the cross-attention has no output
+    projection; then LN -> MLP -> residual. Returns (B, hidden)."""
+
+    def __init__(self, config: VJEPA2Config):
+        super().__init__()
+        cfg = self.config = config
+        dt = self.dtype = compute_dtype(cfg)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        inter = int(h * cfg.mlp_ratio)
+
+        def mlp():
+            return Mlp(h, inter, act=cfg.hidden_act, dtype=dt,
+                       mlp_impl=cfg.mlp_impl)
+
+        for i in range(cfg.num_pooler_layers):
+            self.add_module(f"self_layer_{i}_norm1", LayerNorm(h, eps, dt))
+            self.add_module(f"self_layer_{i}_attn", Attention(
+                h, cfg.num_attention_heads, "qkv", dtype=dt,
+                attn_impl=cfg.attn_impl))
+            self.add_module(f"self_layer_{i}_norm2", LayerNorm(h, eps, dt))
+            self.add_module(f"self_layer_{i}_mlp", mlp())
+        self.query_tokens = nn.Parameter(torch.zeros(1, 1, h))
+        self.cross_norm1 = LayerNorm(h, eps, dt)
+        # one query: the plain attention, as in the JAX package
+        self.cross_attn = Attention(h, cfg.num_attention_heads, "qkv",
+                                    dtype=dt, attn_impl="xla",
+                                    out_proj=False)
+        self.cross_norm2 = LayerNorm(h, eps, dt)
+        self.cross_mlp = mlp()
+
+    def forward(self, x):
+        for i in range(self.config.num_pooler_layers):
+            p = f"self_layer_{i}_"
+            x = x + getattr(self, p + "attn")(getattr(self, p + "norm1")(x))
+            x = x + getattr(self, p + "mlp")(getattr(self, p + "norm2")(x))
+        q = self.query_tokens.to(self.dtype).expand(x.shape[0], -1, -1)
+        h = q + self.cross_attn(q, kv=self.cross_norm1(x))
+        h = h + self.cross_mlp(self.cross_norm2(h))
+        return h[:, 0]
+
+
+class VJEPA2ForVideoClassification(nn.Module):
+    """The encoder, the attentive pooler and a float32 Linear head; the
+    loss's problem type follows num_labels and the labels' dtype."""
+
+    def __init__(self, config: VJEPA2Config):
+        super().__init__()
+        self.config = config
+        self.vjepa2 = VJEPA2Model(config, predictor=False)
+        self.pooler = VJEPA2AttentivePooler(config)
+        self.classifier = Linear(config.hidden_size, config.num_labels, True,
+                                 torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None):
+        """As VJEPA2Model's, and a truncated normal query token."""
+        _init_(self, self.config.initializer_range, generator)
+        trunc_normal_(self.pooler.query_tokens, self.config.initializer_range,
+                      generator)
+        return self
+
+    def forward(self, pixel_values, labels=None, generator=None) -> dict:
+        enc = self.vjepa2(pixel_values, skip_predictor=True,
+                          generator=generator)["last_hidden_state"]
+        logits = self.classifier(self.pooler(enc).float())
+        out = {"logits": logits}
+        if labels is not None:
+            out["loss"] = classification_loss(
+                logits, labels, self.config.num_labels, None)
         return out
 
 

@@ -24,7 +24,8 @@ from typing import Optional
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
+           "swiglu_fwd.cu")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,6 +121,8 @@ def lib() -> ctypes.CDLL:
             handle.smb_mlp_fwd.restype = _I
             handle.smb_mlp_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
             handle.smb_mlp_bwd.restype = _I
+            handle.smb_swiglu_fwd.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P]
+            handle.smb_swiglu_fwd.restype = _I
             handle.smb_error_string.argtypes = [_I]
             handle.smb_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -1,7 +1,7 @@
 """Transformer MLP: the plain PyTorch versions and the fused kernels.
 
 Counterpart of `smb_vision_tpu/ops/mlp.py`. Public functions keep the JAX
-package's weight layout, w1 (K, F) and w2 (F, K). Four hand-written CUDA
+package's weight layout, w1 (K, F) and w2 (F, K). Five hand-written CUDA
 kernels stand behind them:
 
 - K6 `mlp_fused` (`csrc/mlp_fwd.cu`): y = act(x w1 + b1) w2 + b2 (replaces
@@ -11,9 +11,12 @@ kernels stand behind them:
 - K5a `mlp_train_fused` (`csrc/mlp_fwd.cu`): K6 that also stores the
   pre-activation h = x w1 + b1 in bf16 (replaces `_mlp_train_kernel`);
 - K5b `mlp_bwd_fused` (`csrc/mlp_bwd.cu`): dx, dh and a = act(h) from h and
-  dL/dy (replaces `_mlp_bwd_kernel`).
+  dL/dy (replaces `_mlp_bwd_kernel`);
+- K9 `swiglu_block_fused` (`csrc/swiglu_fwd.cu`): y = x + (silu(LN(x) w1a +
+  b1a) * (LN(x) w1b + b1b)) w2 + b2, the DINOv2 SwiGLU half-block
+  (replaces `_swiglu_block_kernel`).
 
-K6 and K2 keep the (M, F) intermediate on the SM. Under autograd K6 and K2
+K6, K2 and K9 keep the (M, F) intermediates on the SM. Under autograd they
 take the JAX package's recompute backward (the plain version differentiated
 again), and mlp_impl "pallas_bwd" trains through K5a + K5b, the
 counterpart of `_mlp_fused_tb`. Each wrapper runs the plain version for CPU
@@ -32,6 +35,7 @@ from smb_vision_tpu_torch.ops.attention import needs_grad
 _ACTS = {"gelu": 0, "gelu_new": 1}
 _KERNEL_K = (128, 256, 384, 512, 768, 1024)
 _KERNEL_F_STEP = 32
+_SWIGLU_K = _KERNEL_K + (1536,)   # K9 also takes the DINOv2-giant width
 
 
 def act_fn(name: str):
@@ -397,4 +401,137 @@ def mlp_block_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
                               eps)
     y = mlp_block_fused(x.reshape(-1, x.shape[-1]), ln_scale, ln_bias, w1,
                         b1, w2, b2, act=act, eps=eps)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def _swiglu_block_xla(x, lnw, lnb, w_in, b_in, w_out, b_out, eps: float):
+    """x + SwiGLU(LayerNorm(x)) with the numerics of the JAX package's
+    `_swiglu_block_xla`: LayerNorm statistics (E[x^2] - mean^2), scale and
+    bias in f32; the products, silu and gate in x.dtype. w_in (K, 2F) holds
+    the silu half, then the gate half; w_out (F, K)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    xn = ((xf - mu) * torch.rsqrt(var + eps) * lnw.float()
+          + lnb.float()).to(dt)
+    h1, h2 = (torch.matmul(xn, w_in.to(dt)) + b_in.to(dt)).chunk(2, dim=-1)
+    return x + (torch.matmul(F.silu(h1) * h2, w_out.to(dt)) + b_out.to(dt))
+
+
+def _swiglu_block_plain(x2, lnw, lnb, w_in, b_in, w_out, b_out,
+                        eps: float):
+    """Plain version of K9 with the kernel's numerics: LayerNorm in f32,
+    xn rounded to bf16; h = xn w_in + b_in from bf16 operands in f32; g =
+    silu(h1) * h2 rounded to bf16; the w_out product in f32, plus b_out
+    and the residual in f32, rounded once to bf16."""
+    bf16 = torch.bfloat16
+    xf = x2.to(bf16).float()
+    xn = F.layer_norm(xf, (xf.shape[-1],), lnw.float(), lnb.float(), eps)
+    h = (torch.matmul(xn.to(bf16).float(), w_in.to(bf16).float())
+         + b_in.float())
+    h1, h2 = h.chunk(2, dim=-1)
+    g = (F.silu(h1) * h2).to(bf16).float()
+    y = torch.matmul(g, w_out.to(bf16).float()) + b_out.float() + xf
+    return y.to(bf16)
+
+
+def swiglu_kernel_maps(k: int, f: int) -> bool:
+    """Whether K9 takes this (K, F); rows are free."""
+    return k in _SWIGLU_K and f > 0 and f % _KERNEL_F_STEP == 0
+
+
+def _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps: float):
+    """K9 or its plain version, by the device of x2; no autograd."""
+    if _device_of(x2, "swiglu_block_fused") == "cpu":
+        return _swiglu_block_plain(x2, lnw, lnb, w_in, b_in, w_out, b_out,
+                                   eps)
+    m, k = x2.shape
+    f = w_out.shape[0]
+    if not swiglu_kernel_maps(k, f):
+        raise ValueError(f"swiglu_block_fwd: no kernel for K={k}, F={f} (K "
+                         f"in {_SWIGLU_K}, F a multiple of "
+                         f"{_KERNEL_F_STEP})")
+    if w_in.shape != (k, 2 * f) or w_out.shape != (f, k):
+        raise ValueError(f"swiglu_block_fwd: w_in {tuple(w_in.shape)}, w_out "
+                         f"{tuple(w_out.shape)} do not fit x "
+                         f"{tuple(x2.shape)}")
+    dev = x2.device
+    bf16 = torch.bfloat16
+    # the kernel reads the Linear layouts (2F, K) and (K, F): for transposed
+    # views of a Linear's bf16 weights the conversion below copies nothing
+    x2 = x2.to(bf16).contiguous()
+    w1t = w_in.to(bf16).t().contiguous()
+    w2t = w_out.to(bf16).t().contiguous()
+    b_in, b_out = b_in.float().contiguous(), b_out.float().contiguous()
+    lnw, lnb = lnw.float().contiguous(), lnb.float().contiguous()
+    for t in (w1t, w2t, b_in, b_out, lnw, lnb):
+        if t.device != dev:
+            raise ValueError(f"swiglu_block_fwd: weights on {t.device}, x on "
+                             f"{dev}")
+    out = torch.empty((m, k), dtype=bf16, device=dev)
+    rc = _build.lib().smb_swiglu_fwd(
+        x2.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1t.data_ptr(),
+        b_in.data_ptr(), w2t.data_ptr(), b_out.data_ptr(), out.data_ptr(),
+        m, k, f, float(eps), _build.stream_ptr(dev))
+    _build.check(rc, "swiglu_block_fwd")
+    swiglu_block_fused.launches += 1
+    return out
+
+
+class _SwigluBlockFused(torch.autograd.Function):
+    """K9 forward; the backward recomputes the plain half-block under
+    autograd (`smb_vision_tpu/ops/mlp.py` `_swiglu_block_fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x2, lnw, lnb, w_in, b_in, w_out, b_out, eps):
+        ctx.save_for_backward(x2, lnw, lnb, w_in, b_in, w_out, b_out)
+        ctx.eps = eps
+        return _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        eps = ctx.eps
+        grads = _recompute_grads(
+            lambda x, *w: _swiglu_block_xla(x.to(torch.bfloat16), *w, eps),
+            ctx.saved_tensors, gy)
+        return (*grads, None)
+
+
+def swiglu_block_fused(x2, lnw, lnb, w_in, b_in, w_out, b_out, *,
+                       eps: float = 1e-6):
+    """K9 on (M, K) rows, bf16 result; w_in (K, 2F), w_out (F, K). CPU
+    tensors take `_swiglu_block_plain`; CUDA tensors launch the kernel or
+    raise. Under autograd the backward recomputes the plain half-block
+    `_swiglu_block_xla`, as the JAX package's does."""
+    if needs_grad(x2, lnw, lnb, w_in, b_in, w_out, b_out):
+        return _SwigluBlockFused.apply(x2, lnw, lnb, w_in, b_in, w_out,
+                                       b_out, eps)
+    return _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps)
+
+
+swiglu_block_fused.launches = 0
+
+
+def swiglu_block_forward(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, *,
+                         eps: float = 1e-6, impl: str = "auto"):
+    """SwiGLU half-block y = x + (silu(h1) * h2) w_out + b_out, [h1 | h2] =
+    LN(x) w_in + b_in (the DINOv2 use_swiglu_ffn FFN; LayerScale folds into
+    w_out/b_out at the caller). impl: "pallas" (K9, recompute backward) |
+    "auto" | "xla" (plain). "auto" is plain, as the JAX package resolves
+    it; "pallas" on a shape K9 does not take raises."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown mlp impl {impl!r}; "
+                         "valid: 'auto', 'pallas', 'xla'")
+    if impl != "pallas":
+        return _swiglu_block_xla(x, ln_scale, ln_bias, w_in, b_in, w_out,
+                                 b_out, eps)
+    k, f2 = w_in.shape
+    if f2 % 2 or not swiglu_kernel_maps(x.shape[-1], f2 // 2):
+        raise ValueError(
+            f"swiglu block impl='pallas' cannot map x={tuple(x.shape)}, "
+            f"w_in={tuple(w_in.shape)}: K in {_SWIGLU_K}, F a "
+            f"multiple of {_KERNEL_F_STEP}")
+    y = swiglu_block_fused(x.reshape(-1, x.shape[-1]), ln_scale, ln_bias,
+                           w_in, b_in, w_out, b_out, eps=eps)
     return y.reshape(x.shape).to(x.dtype)

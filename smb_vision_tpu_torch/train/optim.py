@@ -1,23 +1,30 @@
-"""The optimizer and learning-rate schedule of the pretraining recipes, and
+"""The optimizer and learning-rate schedule of the training recipes, and
 the EMA teacher update of V-JEPA.
 
-Counterpart of `smb_vision_tpu/train/optim.py` for what MIM and V-JEPA
-pretraining use: `optax.chain(clip_by_global_norm(c), adamw(schedule,
-mask=decay_mask))` with a linear warmup into a cosine, linear or constant
-decay, and `ema_update`. The schedule is evaluated at the number of
-updates already made, as optax counts, so warmup starts at lr 0 on the
-first update. Two-tier learning rates and the 8-bit AdamW are not ported
-yet.
+Counterpart of `smb_vision_tpu/train/optim.py`: `optax.chain(
+clip_by_global_norm(c), adamw(schedule, mask=decay_mask))` with a linear
+warmup into a cosine, linear or constant decay; the two-tier learning
+rates of fine-tuning (`optax.multi_transform` there: one AdamW and one
+schedule a tier, clipped by the global norm over every tier); and
+`ema_update`. The schedule is evaluated at the number of updates already
+made, as optax counts, so warmup starts at lr 0 on the first update. The
+8-bit AdamW is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
 from smb_vision_tpu_torch.models.layers import not_ported
+
+# two-tier fine-tuning groups, by parameter name (the JAX package's
+# head_regex and backbone_regex defaults)
+_HEAD = re.compile("classifier")
+_BACKBONE = re.compile("videomae|dinov2|vjepa2")
 
 
 def is_decayed(name: str) -> bool:
@@ -61,30 +68,33 @@ def make_schedule(learning_rate: float, total_steps: int,
 class ClippedAdamW:
     """Global-norm gradient clipping, then AdamW (decoupled weight decay on
     the `is_decayed` parameters), then the schedule: one `step()` is one
-    optax update. `state_dict` holds the AdamW moments, the update count
-    and the current lr."""
+    optax update. `tier_of(name)` puts each parameter in one tier of
+    `schedules`, which holds a "default" tier. `state_dict` holds the AdamW
+    moments and the update count."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
-                 schedule: Callable[[int], float], weight_decay: float,
+                 schedules: Dict[str, Callable[[int], float]],
+                 tier_of: Callable[[str], str], weight_decay: float,
                  b1: float, b2: float, eps: float,
                  grad_clip: Optional[float]):
         named = [(n, p) for n, p in named_params if p.requires_grad]
         self.params = [p for _, p in named]
+        self.schedules = schedules
         groups = [
-            {"params": [p for n, p in named if is_decayed(n)],
-             "weight_decay": weight_decay},
-            {"params": [p for n, p in named if not is_decayed(n)],
-             "weight_decay": 0.0}]
-        self.schedule = schedule
+            {"params": [p for n, p in named
+                        if tier_of(n) == tier and is_decayed(n) == decayed],
+             "weight_decay": weight_decay if decayed else 0.0, "tier": tier}
+            for tier in self.schedules for decayed in (True, False)]
         self.grad_clip = grad_clip
         self.updates = 0
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]],
-                                     lr=schedule(0), betas=(b1, b2), eps=eps)
+                                     lr=schedules["default"](0),
+                                     betas=(b1, b2), eps=eps)
 
     @property
     def lr(self) -> float:
-        """The lr the next update takes."""
-        return self.schedule(self.updates)
+        """The lr the next update takes (the default tier's)."""
+        return self.schedules["default"](self.updates)
 
     @torch.no_grad()
     def clip_(self) -> None:
@@ -101,7 +111,7 @@ class ClippedAdamW:
 
     def step(self) -> None:
         for g in self.opt.param_groups:
-            g["lr"] = self.lr
+            g["lr"] = self.schedules[g["tier"]](self.updates)
         self.clip_()
         self.opt.step()
         self.updates += 1
@@ -126,19 +136,43 @@ def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
                    merger_lr: Optional[float] = None,
                    optim: str = "adamw") -> ClippedAdamW:
     """Global-norm clip (default 1.0), then AdamW with eps 1e-8 over the
-    model's named parameters, on `make_schedule`'s learning rate."""
-    if vision_lr is not None or merger_lr is not None:
-        raise not_ported("two-tier learning rates (vision_lr, merger_lr)",
-                         "queue 1, fine-tuning")
+    model's named parameters, on `make_schedule`'s learning rate.
+
+    Two-tier fine-tuning, as the JAX package groups it: with merger_lr set,
+    parameters whose name holds "classifier" train at merger_lr; with
+    vision_lr set, the other parameters of the backbone wrapper
+    (videomae, dinov2, vjepa2) train at vision_lr; everything else (e.g.
+    the fc_norm neck) stays at
+    learning_rate. Either tier may be set alone; each tier runs the same
+    warmup and decay on its own peak, and clipping takes the global norm
+    over every tier."""
     if optim == "adamw8bit":
         raise not_ported("optim='adamw8bit' (train/quantized.py)",
                          "queue 1, 8-bit optimizer state")
     if optim != "adamw":
         raise ValueError(f"unknown optim {optim!r}")
+
+    def sched(lr):
+        return make_schedule(lr, total_steps, warmup_ratio, warmup_steps,
+                             schedule, min_lr)
+
+    tiers = {"default": sched(learning_rate)}
+    if vision_lr is not None:
+        tiers["vision"] = sched(vision_lr)
+    if merger_lr is not None:
+        tiers["head"] = sched(merger_lr)
+
+    def tier_of(name: str) -> str:
+        # a head name never falls into the backbone tier, even with
+        # merger_lr unset
+        if _HEAD.search(name):
+            return "head" if merger_lr is not None else "default"
+        if _BACKBONE.search(name):
+            return "vision" if vision_lr is not None else "default"
+        return "default"
+
     return ClippedAdamW(
-        named_params, schedule=make_schedule(
-            learning_rate, total_steps, warmup_ratio, warmup_steps,
-            schedule, min_lr),
+        named_params, schedules=tiers, tier_of=tier_of,
         weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
         grad_clip=grad_clip)
 

@@ -126,13 +126,15 @@ class Trainer:
 
     def __init__(self, *, args: TrainingArguments, state: dict,
                  step_fn: Callable, train_loader, eval_loader=None,
-                 eval_fn: Optional[Callable] = None):
+                 eval_fn: Optional[Callable] = None,
+                 compute_metrics: Optional[Callable] = None):
         self.args = args
         self.state = state
         self.step_fn = step_fn
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.eval_fn = eval_fn
+        self.compute_metrics = compute_metrics
         self.device = torch.device(args.device)
         if args.input_dtype not in _DTYPES:
             raise ValueError(f"input_dtype {args.input_dtype!r}: expected "
@@ -322,10 +324,14 @@ class Trainer:
     def evaluate(self, step: Optional[int] = None) -> Dict[str, float]:
         """eval_fn over the eval loader. A short final batch is padded to
         the first batch's size by repeating its last row, with a
-        `valid_mask` of 0 on the padding, and weighted by its true count."""
+        `valid_mask` of 0 on the padding, and weighted by its true count.
+        When eval_fn also returns "logits" and "labels" (an array, or a
+        dict of arrays: the survival durations and events), the padded
+        rows are dropped and compute_metrics(logits, labels) over the whole
+        eval set adds `eval_<name>` entries."""
         if self.eval_loader is None or self.eval_fn is None:
             return {}
-        losses, size = [], None
+        losses, preds, labels, size = [], [], [], None
         for raw in self.eval_loader:
             if "valid_mask" in raw:
                 raise ValueError("eval batches must not carry a "
@@ -340,12 +346,35 @@ class Trainer:
                 [np.ones(n, np.float32), np.zeros(size - n, np.float32)])
             out = self.eval_fn(self.state, self.to_device(batch))
             losses.append((float(out["loss"]), n))
+            if "logits" in out:
+                preds.append(_host(out["logits"])[:n])
+            if "labels" in out:
+                lab = out["labels"]
+                labels.append({k: _host(v)[:n] for k, v in lab.items()}
+                              if isinstance(lab, dict) else _host(lab)[:n])
         rec: Dict[str, float] = {}
         if losses:
             tot = sum(w for _, w in losses)
             rec["eval_loss"] = sum(v * w for v, w in losses) / max(tot, 1)
+        if preds and labels and self.compute_metrics is not None:
+            if isinstance(labels[0], dict):
+                lab_all = {k: np.concatenate([d[k] for d in labels])
+                           for k in labels[0]}
+            else:
+                lab_all = np.concatenate(labels)
+            rec.update({f"eval_{k}": v for k, v in self.compute_metrics(
+                np.concatenate(preds), lab_all).items()})
         if step is not None:
             rec["step"] = step
         if rec:
             self.mlog.log(rec)
         return rec
+
+
+def _host(t) -> np.ndarray:
+    """A tensor or array as a numpy array on the host (f32 for a float
+    tensor)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        return (t.float() if t.is_floating_point() else t).cpu().numpy()
+    return np.asarray(t)

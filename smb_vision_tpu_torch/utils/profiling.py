@@ -1,8 +1,9 @@
 """Analytic FLOP counts for MFU accounting.
 
 Counterpart of `smb_vision_tpu/utils/profiling.py` (`transformer_flops`,
-`mim_flops_per_sample`, `vjepa_flops_per_sample`), and the dense bf16 peak of the card the Trainer
-divides by."""
+`mim_flops_per_sample`, `vjepa_flops_per_sample`), the fine-tuning count
+`classification_flops_per_sample`, and the dense bf16 peak of the card the
+Trainer divides by."""
 
 from __future__ import annotations
 
@@ -61,6 +62,37 @@ def vjepa_flops_per_sample(config) -> float:
                              int(config.pred_hidden_size
                                  * config.pred_mlp_ratio))
     return student + teacher + pred
+
+
+def classification_flops_per_sample(config) -> float:
+    """Train-step FLOPs per sample of fine-tuning: the backbone (forward
+    and backward) on its whole sequence (DINOv2: the patches and the CLS
+    token), the patch embedding, and for V-JEPA2 the attentive pooler's
+    self-attention layers (its one-query cross-attention and the heads are
+    not counted, nor is the remat recompute). A SwiGLU FFN counts its three
+    products, 6*N*D*I a layer forward: the JAX package's
+    `encoder_flops_per_sample` sizes SwiGLU's I but counts two products,
+    4*N*D*I."""
+    hidden, layers = config.hidden_size, config.num_hidden_layers
+    if config.model_type == "dinov2":
+        n = config.seq_len + 1
+        inter = config.intermediate_size
+        patch_dim = config.num_channels * config.patch_size ** 3
+    elif config.model_type == "vjepa2":
+        n = config.seq_len
+        inter = int(hidden * config.mlp_ratio)
+        patch_dim = (config.in_chans * config.tubelet_size
+                     * config.patch_size ** 2)
+    else:
+        n, inter, patch_dim = (config.seq_len, config.intermediate_size,
+                               config.patch_dim)
+    total = transformer_flops(n, hidden, layers, inter)
+    if getattr(config, "use_swiglu_ffn", False):
+        total += 3 * 2 * n * hidden * inter * layers   # the gate product
+    if config.model_type == "vjepa2":
+        total += transformer_flops(n, hidden, config.num_pooler_layers,
+                                   inter)
+    return total + 3 * 2 * n * patch_dim * hidden
 
 
 def device_peak_flops(device) -> Optional[float]:

@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("cli.run_inference", "cli.run_mim", "cli.run_vjepa",
-                 "models.vjepa", "ops._build", "ops.masking", "ops.rope3d",
+                 "cli.run_classification", "models.dinov2", "models.vjepa",
+                 "ops._build", "ops.masking", "ops.rope3d",
+                 "train.classification", "train.losses", "train.metrics",
                  "train.mim", "train.optim", "train.trainer", "train.vjepa",
                  "utils.profiling"):
         assert f"smb_vision_tpu_torch.{name}" in seen["names"]
@@ -364,3 +366,115 @@ def test_rope_block_trains_through_k7(cuda):
         assert _rel(plain[name], f32[name]) <= 3e-2, name
         bound = 1e-1 if name == "attention.key.bias" else 5e-2
         assert _rel(g, f32[name]) <= bound, name
+
+
+def _swiglu_inputs(m, k, f, gen, dev):
+    """x, LN params and Linear-layout bf16 weights, passed as the Block
+    passes them: w_in (K, 2F) and w_out (F, K) as transposed views."""
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    x = r(m, k).to(torch.bfloat16)
+    lnw, lnb = 1.0 + r(k, s=0.1), r(k, s=0.1)
+    w_in = r(2 * f, k, s=k ** -0.5).to(torch.bfloat16).t()
+    w_out = r(k, f, s=f ** -0.5).to(torch.bfloat16).t()
+    b_in, b_out = r(2 * f, s=0.1), r(k, s=0.1)
+    return x, lnw, lnb, w_in, b_in, w_out, b_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", [(3922, 1536, 4096), (20480, 768, 2048),
+                                   (1961, 1536, 4096), (100, 128, 256)])
+def test_swiglu_kernel_matches_plain(cuda, m, k, f):
+    """K9 against its plain version (the kernel's numerics), against the
+    JAX package's bf16 chain `_swiglu_block_xla` and against the same math
+    in float32, within 8e-3 of max: DINOv2-giant at batch 2 and at its
+    ragged batch 1, the DINOv2-base shape the JAX package benchmarked, and
+    a small ragged one."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = _swiglu_inputs(m, k, f, gen, cuda)
+    before = M.swiglu_block_fused.launches
+    y = M.swiglu_block_fused(*args, eps=1e-6)
+    assert M.swiglu_block_fused.launches == before + 1
+    assert y.shape == (m, k) and y.dtype == torch.bfloat16
+    assert _rel(y, M._swiglu_block_plain(*args, 1e-6)) <= 8e-3
+    assert _rel(y, M._swiglu_block_xla(*args, 1e-6)) <= 8e-3
+    x, *w = args
+    assert _rel(y, M._swiglu_block_xla(x.float(), *[t.float() for t in w],
+                                       1e-6)) <= 8e-3
+
+
+@pytest.mark.cuda
+def test_swiglu_gradients_and_refusals(cuda):
+    """Under autograd K9 runs the forward and the backward recomputes the
+    plain half-block: all seven gradients within 3e-2 of max of the plain
+    version's. A shape K9 does not take raises instead of falling back."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    args = _swiglu_inputs(300, 768, 512, gen, cuda)
+    g = torch.randn((300, 768), generator=gen, device=cuda)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        (fn(*leaves).float() * g).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = M.swiglu_block_fused.launches
+    got = grads(lambda *a: M.swiglu_block_forward(*a, eps=1e-6,
+                                                  impl="pallas"))
+    assert M.swiglu_block_fused.launches == before + 1
+    want = grads(lambda *a: M.swiglu_block_forward(*a, eps=1e-6, impl="xla"))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 3e-2
+    x, lnw, lnb, w_in, b_in, w_out, b_out = _swiglu_inputs(8, 96, 64, gen,
+                                                           cuda)
+    with pytest.raises(ValueError, match="cannot map"):
+        M.swiglu_block_forward(x, lnw, lnb, w_in, b_in, w_out, b_out,
+                               impl="pallas")
+    with pytest.raises(ValueError, match="no kernel"):
+        M.swiglu_block_fused(x, lnw, lnb, w_in, b_in, w_out, b_out)
+    assert M.swiglu_block_fused.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_swiglu_block_trains_through_k9(cuda):
+    """loss.backward() through one bf16 DINOv2 SwiGLU Block (LayerScale,
+    q, k and v biases, mlp_impl "pallas"): K4 and K9 launch, and every
+    parameter gets a finite, non-zero gradient within 3e-2 of max of a
+    float32 Block's, as the plain bf16 path's are. The key bias's exact
+    gradient is zero (a shift of every key leaves the softmax unchanged),
+    so its bf16 gradient is held to 3e-2 of the query bias's max
+    instead."""
+    from smb_vision_tpu_torch.models.layers import Block
+
+    torch.manual_seed(0)
+    kw = dict(layerscale_value=0.9, use_swiglu=True)
+    ref_state = Block(256, 4, 512, **kw).state_dict()
+    for p in ref_state.values():
+        p.add_(torch.randn(p.shape) * 0.05)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 197, 256), generator=gen, device=cuda)
+    w = torch.randn((2, 197, 256), generator=gen, device=cuda)
+
+    def grads(**impl):
+        b = Block(256, 4, 512, **kw, **impl)
+        b.load_state_dict(ref_state)
+        b.to(cuda)
+        (b(x.to(b.dtype)).float() * w).sum().backward()
+        return {n: p.grad for n, p in b.named_parameters()}
+
+    launches = (A.flash_attention_bwd.launches, M.swiglu_block_fused.launches)
+    kern = grads(dtype=torch.bfloat16, mlp_impl="pallas")
+    assert A.flash_attention_bwd.launches == launches[0] + 1
+    assert M.swiglu_block_fused.launches == launches[1] + 1
+    plain = grads(dtype=torch.bfloat16, attn_impl="xla", mlp_impl="xla")
+    f32 = grads(dtype=torch.float32, attn_impl="xla", mlp_impl="xla")
+    q_max = float(f32["attention.query.bias"].abs().max())
+    for name, g in kern.items():
+        assert g is not None and bool(g.isfinite().all()), name
+        assert float(g.abs().max()) > 0, name
+        if name == "attention.key.bias":
+            for got in (g, plain[name]):
+                assert float((got - f32[name]).abs().max()) <= 3e-2 * q_max
+            continue
+        assert _rel(plain[name], f32[name]) <= 3e-2, name
+        assert _rel(g, f32[name]) <= 3e-2, name

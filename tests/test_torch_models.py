@@ -151,10 +151,16 @@ def test_unported_options_raise():
                              intermediate_size=64, **kw)
         with pytest.raises(NotImplementedError, match=match):
             VideoMAEModel(cfg)
+    from smb_vision_tpu_torch.cli import run_classification
     from smb_vision_tpu_torch.models.layers import Block
 
-    with pytest.raises(NotImplementedError, match="K9"):
-        Block(32, 2, 64, use_swiglu=True)
+    # K9 is ported: the SwiGLU Block builds; fine-tuning's LoRA and 8-bit
+    # AdamW are not
+    assert Block(32, 2, 64, use_swiglu=True).use_swiglu
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        run_classification.main(["--device", "cpu", "--lora_enable", "true"])
+    with pytest.raises(NotImplementedError, match="adamw8bit"):
+        run_classification.main(["--device", "cpu", "--optim", "adamw8bit"])
     # DropPath trains since the V-JEPA slice
     # (tests/test_torch_vjepa.py::test_droppath_trains)
     block = Block(32, 2, 64, drop_path_rate=0.1,

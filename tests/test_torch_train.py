@@ -73,11 +73,25 @@ def test_weight_decay_names():
                  "videomae.encoder.layer_1.norm2.bias",
                  "encoder.layer_0.attention.query.bias"):
         assert not toptim.is_decayed(name)
-    for kw, match in [({"vision_lr": 1e-4}, "two-tier"),
-                      ({"optim": "adamw8bit"}, "adamw8bit")]:
-        with pytest.raises(NotImplementedError, match=match):
-            toptim.make_optimizer([], learning_rate=1e-3, total_steps=3,
-                                  **kw)
+    with pytest.raises(NotImplementedError, match="adamw8bit"):
+        toptim.make_optimizer([], learning_rate=1e-3, total_steps=3,
+                              optim="adamw8bit")
+    # two tiers: the head at merger_lr, the backbone at vision_lr, the
+    # rest (fc_norm) at learning_rate; each split by weight decay
+    names = ("videomae.encoder.layer_0.mlp.fc1.weight", "fc_norm.weight",
+             "classifier.weight", "classifier.bias")
+    params = [(n, torch.nn.Parameter(torch.zeros(2))) for n in names]
+    for _, q in params:
+        q.grad = torch.ones(2)
+    opt = toptim.make_optimizer(
+        params,
+        learning_rate=1e-3, total_steps=3, vision_lr=1e-5, merger_lr=3e-4,
+        schedule="constant")
+    opt.step()
+    got = sorted((g["tier"], g["lr"], g["weight_decay"], len(g["params"]))
+                 for g in opt.opt.param_groups)
+    assert got == [("default", 1e-3, 0.0, 1), ("head", 3e-4, 0.0, 1),
+                   ("head", 3e-4, 0.01, 1), ("vision", 1e-5, 0.01, 1)]
 
 
 def test_mim_trajectory_matches_jax():
