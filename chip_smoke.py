@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch-embedding, MIM-pretraining,
-V-JEPA2-pretraining and fine-tuning paths once on one NVIDIA GPU.
+V-JEPA2-pretraining and fine-tuning paths, and the opt-in int8 p v
+attention and attention-glue paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,20 +19,32 @@ error:
      K6 at the ViT-L MLP; then the SwiGLU half-block K9 at DINOv2-giant
      batch 2 and ragged batch 1 and at the DINOv2-base shape (timed beside
      the cuBLAS chain, gradients through the recompute), and K1/K4 at
-     DINOv2-giant's N 1,961 with 24 heads of 64; each kept time with its
-     bound and, for K1 and K4, the scaled_dot_product_attention call's;
+     DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
+     attention K8 at N 20,480 and ragged N 1,961 (timed beside K3 on the
+     same inputs), and the attention glue K10a/K10b at the embed shape,
+     the MIM encoder's and decoder's and a ragged one (timed beside their
+     library chains); each kept time with its bound and, where one exists,
+     the library call's;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
      mlp_impl "pallas_bwd" (kernels K3 and K6);
-  6. whole model: kernels against the plain path on one volume;
-  7. throughput: encoder volumes/s at batch 4 for both legs;
+  5a. leg G: the same with --attn_impl pallas_int8pv and a config with
+     glue_impl "pallas" (K10a, K8, K10b, then K2 in every block: 24
+     launches each), its embeddings' distance from leg A's beside leg B's;
+  6. whole model: kernels against the plain path on one volume, and leg
+     G's model against the same impl names on their plain versions and
+     against float32;
+  7. throughput: encoder volumes/s at batch 4 for legs A, B and G;
   8. training parity: one MIM step of the configs/mim_base_512.json model
      at full width on one volume, kernels against the plain path in bf16
-     and a float32 plain run;
+     and a float32 plain run; then the same with glue_impl "pallas"
+     against the same impl names on their plain versions (K10a and K10b
+     32 launches each: 16 blocks, forward and remat recompute);
   9. leg C: `run_mim` with a copy of configs/mim_base_512.json on the 4
      volumes, 4 steps with checkpoints, then a resume to 6 (kernels K1, K4,
-     K5a and K5b in training, K6 in eval);
+     K5a and K5b in training, K6 in eval); leg H: the same with
+     --config_overrides glue_impl=pallas (and K10a, K10b);
  10. leg D: `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
      (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
      256, 4 steps with checkpoints and eval, then a resume to 6 (K1, K7,
@@ -43,7 +56,8 @@ error:
  10b. leg F, the fine-tuning main path: the same on the DINOv2 route with
      DINOv2-giant at full width (depth cut to 8 layers), a classification
      task with accuracy and ROC-AUC (K1, K4, K9);
- 11. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2;
+ 11. training throughput: MIM steps/s, MFU and peak memory at batch 1 and 2,
+     as shipped and with glue_impl "pallas";
  12. V-JEPA parity: one full-width step of the preset at batch 1 through
      the kernels, through their plain versions under the same impl names,
      and in float32; loss, gradient error and the EMA teacher's change;
@@ -99,6 +113,11 @@ TOL_MLP_TRAIN = 3e-2
 # plain bf16 path's (the rule of the whole-model forward above)
 TOL_TRAIN_LOSS = 1e-2
 TOL_TRAIN_GRAD_VS_F32 = 1.25
+# K8 against float32 attention: the JAX package's own bound for the int8
+# p v forward (tests/test_attention.py); K10a/K10b against their plain
+# versions, which share their numerics (f32 accumulation, one rounding)
+TOL_INT8PV_F32 = 3e-2
+TOL_GLUE = 1e-2
 
 MAIN_N = 20480          # 512/16 * 512/16 * 320/16 tokens
 RAGGED_N = 1960         # 224/16 * 224/16 * 160/16 tokens
@@ -138,6 +157,12 @@ SOURCES = {
                      "smb_vision_tpu/ops/attention.py:549"),
     "swiglu_block_fwd": ("smb_vision_tpu_torch/csrc/swiglu_fwd.cu",
                          "smb_vision_tpu/ops/mlp.py:256"),
+    "flash_fwd_i8pv": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                       "smb_vision_tpu/ops/attention.py:244"),
+    "qkv_ln_fwd": ("smb_vision_tpu_torch/csrc/attn_glue.cu",
+                   "smb_vision_tpu/ops/attn_glue.py:98"),
+    "out_res_fwd": ("smb_vision_tpu_torch/csrc/attn_glue.cu",
+                    "smb_vision_tpu/ops/attn_glue.py:118"),
 }
 # the least time of a kernel's work on one H100 SXM at 700 W (NVIDIA's data
 # sheet, dense): operations at the peak of their type, bytes (each input
@@ -155,7 +180,9 @@ def wrappers():
         flash_attention_bwd,
         flash_attention_bwd_i8,
         flash_attention_int8,
+        flash_attention_int8pv,
     )
+    from smb_vision_tpu_torch.ops.attn_glue import out_res_fused, qkv_ln_fused
     from smb_vision_tpu_torch.ops.mlp import (
         mlp_block_fused,
         mlp_bwd_fused,
@@ -170,7 +197,9 @@ def wrappers():
             "flash_bwd": flash_attention_bwd,
             "mlp_train_fwd": mlp_train_fused, "mlp_bwd": mlp_bwd_fused,
             "flash_bwd_i8": flash_attention_bwd_i8,
-            "swiglu_block_fwd": swiglu_block_fused}
+            "swiglu_block_fwd": swiglu_block_fused,
+            "flash_fwd_i8pv": flash_attention_int8pv,
+            "qkv_ln_fwd": qkv_ln_fused, "out_res_fwd": out_res_fused}
 
 
 def reset_launches() -> dict:
@@ -277,7 +306,8 @@ def phase_build() -> None:
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {path.parent.name}")
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             log(f"  ptxas: {line.strip()}")
 
 
@@ -387,6 +417,7 @@ def phase_kernels() -> dict:
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
     phase_dinov2_kernels(table, gen, dev)
+    phase_glue_kernels(table, gen, dev)
     return table
 
 
@@ -594,7 +625,8 @@ def write_volumes(root: Path) -> Path:
     return vols
 
 
-def vit_base_config(root: Path, name: str, mlp_impl: str) -> Path:
+def vit_base_config(root: Path, name: str, mlp_impl: str,
+                    glue_impl: str = "auto") -> Path:
     """ViT-Base VideoMAE at 512^2 x 320, bf16 (the bench.py encoder)."""
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
 
@@ -602,7 +634,7 @@ def vit_base_config(root: Path, name: str, mlp_impl: str) -> Path:
                          tubelet_size=16, hidden_size=HIDDEN,
                          num_hidden_layers=12, num_attention_heads=HEADS,
                          intermediate_size=FFN, dtype="bfloat16",
-                         mlp_impl=mlp_impl)
+                         mlp_impl=mlp_impl, glue_impl=glue_impl)
     path = root / f"{name}.json"
     cfg.save_json(str(path))
     return path
@@ -611,7 +643,8 @@ def vit_base_config(root: Path, name: str, mlp_impl: str) -> Path:
 def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
             kernels: tuple, table: dict) -> Path:
     """One run_inference over the volumes; asserts the outputs and that
-    the leg's kernels launched. Returns the output directory."""
+    the leg's kernels launched. Returns the output directory and the
+    launch counts of the run."""
     import numpy as np
 
     from smb_vision_tpu_torch.cli.run_inference import main as run_inference
@@ -643,7 +676,7 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
         if counts[name] <= 0:
             raise AssertionError(f"leg {leg}: kernel {name} never launched")
         table[name]["launches"] = counts[name]
-    return out
+    return out, counts
 
 
 def phase_whole_model(vols: Path, emb_a: Path) -> None:
@@ -673,14 +706,34 @@ def phase_whole_model(vols: Path, emb_a: Path) -> None:
         m = VideoMAEModel(cfg).init_weights(torch.Generator().manual_seed(0))
         return m.to(dev).eval()
 
+    glue = dict(attn_impl="pallas_int8pv", glue_impl="pallas")
     with torch.inference_mode():
         ref = model(attn_impl="xla", mlp_impl="xla")(px)[0].float()
         out = model()(px)[0].float()
         out8 = model(attn_impl="pallas_int8", mlp_impl="pallas_bwd")(
             px)[0].float()
+        ws = reset_launches()
+        outg = model(**glue)(px)[0].float()
+        counts = {n: ws[n].launches for n in LEG_G_KERNELS}
+        with plain_kernels():
+            refg = model(**glue)(px)[0].float()
         # float32 model: how far each bf16 path is from the f32 result
         ref32 = model(dtype="float32")(px)[0]
     torch.cuda.synchronize()
+    if any(c != 12 for c in counts.values()):
+        raise AssertionError(f"whole model with K8 + K10: launches {counts}")
+    errg, relg = errors(outg, refg)
+    plaing32, kerng32 = errors(refg, ref32)[1], errors(outg, ref32)[1]
+    log(f"whole model, K8 + K10a + K10b (+ K2) vs their plain versions under "
+        f"the same impl names: max|d| {errg:.3e} rel {relg:.3e} (bound "
+        f"{TOL_MODEL}); vs float32: kernels rel {kerng32:.3e}, plain "
+        f"versions rel {plaing32:.3e} (bound {TOL_MODEL_VS_F32} x plain); "
+        f"launches {counts}")
+    if not relg <= TOL_MODEL:
+        raise AssertionError(f"whole model K8 + K10 rel {relg} > {TOL_MODEL}")
+    if not kerng32 <= TOL_MODEL_VS_F32 * plaing32:
+        raise AssertionError(f"K8 + K10 are {kerng32} from float32, their "
+                             f"plain versions {plaing32}")
     err, rel = errors(out, ref)
     err8, rel8 = errors(out8, ref)
     plain32, kern32 = errors(ref, ref32)[1], errors(out, ref32)[1]
@@ -703,9 +756,47 @@ def phase_whole_model(vols: Path, emb_a: Path) -> None:
                              f"rel {cli_rel}")
 
 
+LEG_G_KERNELS = ("flash_fwd_i8pv", "qkv_ln_fwd", "out_res_fwd")
+
+
+def run_leg_g(root: Path, vols: Path, emb_a: Path, emb_b: Path,
+              table: dict) -> None:
+    """Leg G, this slice's serving path: run_inference with the glue config
+    (glue_impl "pallas") and --attn_impl pallas_int8pv on the volumes, 2
+    batches of 2. Asserts K8, K10a and K10b launched 24 times each (2
+    batches x 12 layers) and K1 and K3 never; prints how far its embeddings
+    lie from leg A's (bf16), beside leg B's (int8 scores)."""
+    import numpy as np
+
+    out, counts = run_leg(root, vols, "G", vit_base_config(
+        root, "leg_g", "auto", "pallas"), ["--attn_impl", "pallas_int8pv"],
+        LEG_G_KERNELS, table)
+    want = 2 * 12
+    if any(counts[n] != want for n in LEG_G_KERNELS + ("mlp_block_fwd",)) \
+            or counts["flash_fwd"] or counts["flash_fwd_i8"]:
+        raise AssertionError(f"leg G: launches {counts}; want {want} each "
+                             "of K8, K10a, K10b and K2, none of K1 and K3")
+
+    def rel(a_dir, b_dir):
+        """The worst volume's max|a - b| / max|b| and ||a - b|| / ||b||."""
+        worst = [0.0, 0.0]
+        for f in sorted(a_dir.glob("*.npy")):
+            a, b = np.load(f), np.load(b_dir / f.name)
+            d = a - b
+            worst[0] = max(worst[0], float(np.abs(d).max() / np.abs(b).max()))
+            worst[1] = max(worst[1], float(np.linalg.norm(d)
+                                           / np.linalg.norm(b)))
+        return "max rel {:.3e}, norm rel {:.3e}".format(*worst)
+
+    log(f"leg G vs leg A (bf16) embeddings: {rel(out, emb_a)}; leg B (int8 "
+        f"scores) vs leg A: {rel(emb_b, emb_a)} (worst of the {N_VOLUMES} "
+        "volumes)")
+
+
 def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
-    """Encoder-only volumes/s at 512^2 x 320, batch 4, for both legs:
-    CUDA events over `iters` distinct seeded batches after one warm-up."""
+    """Encoder-only volumes/s at 512^2 x 320, batch 4, for the bf16, int8
+    and int8 p v + glue (leg G's) models: CUDA events over `iters` distinct
+    seeded batches after one warm-up."""
     import torch
 
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
@@ -718,7 +809,9 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
                           device=dev).to(torch.bfloat16)
                for _ in range(iters + 1)]
     legs = {"bf16": dict(), "int8": dict(attn_impl="pallas_int8",
-                                         mlp_impl="pallas_bwd")}
+                                         mlp_impl="pallas_bwd"),
+            "int8pv+glue": dict(attn_impl="pallas_int8pv",
+                                glue_impl="pallas")}
     rates = {}
     for leg, impls in legs.items():
         cfg = VideoMAEConfig(image_size=512, num_frames=320,
@@ -821,11 +914,15 @@ def vjepa_config(**kw):
     return preset_config("run_vjepa", VJEPA_PRESET, **kw)
 
 
-def phase_train_parity() -> None:
+def phase_train_parity(glue: bool = False) -> None:
     """One MIM step (forward + backward, no update) on one volume, the
     same seeded weights and mask, through the kernels (attn auto, mlp
     pallas_bwd, remat), through the plain path in bf16 and through the
-    plain path in float32 (TF32 off)."""
+    plain path in float32 (TF32 off). With glue, every block's attention
+    half runs through K10a and K10b (glue_impl "pallas"), which must launch
+    exactly twice a block (16 blocks, forward and remat recompute), and the
+    bf16 reference is the same impl names on their plain versions
+    (`plain_kernels`), which must launch nothing."""
     import torch
 
     from smb_vision_tpu_torch.models.videomae import VideoMAEForPreTraining
@@ -863,22 +960,35 @@ def phase_train_parity() -> None:
         torch.cuda.empty_cache()
         return float(loss.detach()), flat
 
+    kw = dict(glue_impl="pallas") if glue else {}
     ws = reset_launches()
     t0 = time.perf_counter()
-    k_loss, k_grad = step()
+    k_loss, k_grad = step(**kw)
     wall = time.perf_counter() - t0
     counts = {name: w.launches for name, w in ws.items()}
     for name in ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd"):
         if counts[name] <= 0:
             raise AssertionError(f"training step: {name} never launched")
-    p_loss, p_grad = step(attn_impl="xla", mlp_impl="xla")
+    if glue:
+        blocks = cfg0.num_hidden_layers + cfg0.decoder_num_hidden_layers
+        if not counts["qkv_ln_fwd"] == counts["out_res_fwd"] == 2 * blocks:
+            raise AssertionError(f"glue step: launches {counts}; K10a and "
+                                 f"K10b must launch {2 * blocks} times")
+        ws = reset_launches()
+        with plain_kernels():
+            p_loss, p_grad = step(**kw)
+        if any(w.launches for w in ws.values()):
+            raise AssertionError("the plain path launched a kernel")
+    else:
+        p_loss, p_grad = step(attn_impl="xla", mlp_impl="xla")
     f_loss, f_grad = step(attn_impl="xla", mlp_impl="xla", dtype="float32")
     norm = float(f_grad.norm())
     k_err = float((k_grad - f_grad).norm()) / norm
     p_err = float((p_grad - f_grad).norm()) / norm
     rel_loss = abs(k_loss - p_loss) / abs(p_loss)
     finite = bool(k_grad.isfinite().all())
-    log(f"training parity, one MIM step at full width: loss kernels "
+    log(f"training parity{' with the glue (K10a, K10b)' if glue else ''}, "
+        f"one MIM step at full width: loss kernels "
         f"{k_loss:.6f}, plain bf16 {p_loss:.6f}, f32 {f_loss:.6f}; rel "
         f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32: "
         f"kernels {k_err:.3e}, plain bf16 {p_err:.3e} (bound "
@@ -894,11 +1004,14 @@ def phase_train_parity() -> None:
                              f"the plain bf16 path's {p_err}")
 
 
-def run_leg_c(work: Path, vols: Path, table: dict) -> None:
+def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
+              overrides: str = "") -> None:
     """run_mim on the volumes with a copy of configs/mim_base_512.json:
     4 steps, a checkpoint every 2, eval; then the same to 6 steps, which
     resumes at 4. Asserts the logs, the checkpoints, the export and that
-    the training kernels and K6 (eval) launched."""
+    the training kernels and K6 (eval) launched. Leg H passes
+    --config_overrides glue_impl=pallas (overrides), and K10a and K10b
+    must launch too."""
     import numpy as np
 
     from smb_vision_tpu_torch.cli.run_mim import main as run_mim
@@ -907,11 +1020,13 @@ def run_leg_c(work: Path, vols: Path, table: dict) -> None:
     spec = work / "mim_data.json"
     spec.write_text(json.dumps({"train": [
         {"image": str(p)} for p in sorted(vols.glob("*.nii"))]}))
-    out = work / "mim_out"
+    out = work / f"mim_out_{leg}"
     preset = json.loads(MIM_PRESET.read_text())
+    if overrides:
+        preset["config_overrides"] = overrides
 
     def run(steps):
-        path = work / f"mim_{steps}.json"
+        path = work / f"mim_{leg}_{steps}.json"
         path.write_text(json.dumps(dict(
             preset, json_path=str(spec), output_dir=str(out),
             num_train_steps=steps, save_steps=2, logging_steps=1,
@@ -924,9 +1039,9 @@ def run_leg_c(work: Path, vols: Path, table: dict) -> None:
     res4, wall4 = run(4)
     counts = {name: w.launches for name, w in ws.items()}
     res6, wall6 = run(6)
-    log(f"leg C: {res4} in {wall4:.1f} s, resumed {res6} in {wall6:.1f} s "
-        f"(preprocess + train + eval + save); launches of the first run "
-        f"{counts}")
+    log(f"leg {leg}{f' ({overrides})' if overrides else ''}: {res4} in "
+        f"{wall4:.1f} s, resumed {res6} in {wall6:.1f} s (preprocess + "
+        f"train + eval + save); launches of the first run {counts}")
     recs = [json.loads(line) for line in
             (out / "metrics.jsonl").read_text().splitlines()]
     train = [r for r in recs if "loss" in r]
@@ -934,38 +1049,44 @@ def run_leg_c(work: Path, vols: Path, table: dict) -> None:
         log(f"  step {r['step']}: loss {r['loss']:.6f}, "
             f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
     if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
-        raise AssertionError(f"leg C logged steps "
+        raise AssertionError(f"leg {leg} logged steps "
                              f"{[r['step'] for r in train]}")
     for r in train:
         if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
-            raise AssertionError(f"leg C step record {r}")
+            raise AssertionError(f"leg {leg} step record {r}")
     for res in (res4, res6):
         if not math.isfinite(res.get("eval_loss", math.nan)):
-            raise AssertionError(f"leg C eval: {res}")
+            raise AssertionError(f"leg {leg} eval: {res}")
     ckpts = Trainer.checkpoint_steps(out / "checkpoints")
     if ckpts != [2, 4, 6] or res6["train_steps"] != 6:
-        raise AssertionError(f"leg C checkpoints {ckpts}, result {res6}")
+        raise AssertionError(f"leg {leg} checkpoints {ckpts}, result {res6}")
     from smb_vision_tpu_torch.models.convert import read_safetensors
 
     export = read_safetensors(out / "model.safetensors")
     if not (out / "config.json").exists() or not all(
             np.isfinite(v).all() for v in export.values()):
-        raise AssertionError("leg C: config.json or a finite "
+        raise AssertionError(f"leg {leg}: config.json or a finite "
                              "model.safetensors is missing")
-    log(f"leg C: checkpoints {ckpts}, model.safetensors "
-        f"{len(export)} tensors, config.json")
-    for name in ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
-                 "mlp_fwd"):
+    saved = json.loads((out / "config.json").read_text())
+    log(f"leg {leg}: checkpoints {ckpts}, model.safetensors "
+        f"{len(export)} tensors, config.json (glue_impl "
+        f"{saved.get('glue_impl')!r})")
+    kernels = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
+               "mlp_fwd") + (("qkv_ln_fwd", "out_res_fwd") if overrides
+                             else ())
+    for name in kernels:
         if counts[name] <= 0:
-            raise AssertionError(f"leg C: kernel {name} never launched")
-    for name in ("flash_bwd", "mlp_train_fwd", "mlp_bwd"):
-        table[name]["launches"] = counts[name]
+            raise AssertionError(f"leg {leg}: kernel {name} never launched")
+    if not overrides:
+        for name in ("flash_bwd", "mlp_train_fwd", "mlp_bwd"):
+            table[name]["launches"] = counts[name]
 
 
 def phase_train_throughput(card: str, iters: int = 3) -> None:
-    """MIM steps of the preset at batch 1 and 2: CUDA events over `iters`
-    seeded steps after one warm-up, MFU against the card's dense bf16
-    peak, peak memory, and one step under the profiler."""
+    """MIM steps of the preset at batch 1 and 2, as shipped and with
+    glue_impl "pallas" (leg H's model): CUDA events over `iters` seeded
+    steps after one warm-up, MFU against the card's dense bf16 peak, peak
+    memory, and one step under the profiler."""
     import torch
 
     from smb_vision_tpu_torch.train.mim import make_mim_workload
@@ -974,9 +1095,9 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
     from smb_vision_tpu_torch.utils.profiling import mim_flops_per_sample
 
     dev = torch.device("cuda")
-    cfg, preset = mim_config()
-    flops = mim_flops_per_sample(cfg, preset["mask_ratio"])
-    for bs in (1, 2):
+    for glue, bs in ((False, 1), (True, 1), (False, 2), (True, 2)):
+        cfg, preset = mim_config(**({"glue_impl": "pallas"} if glue else {}))
+        flops = mim_flops_per_sample(cfg, preset["mask_ratio"])
         model, init_fn, step_fn, _ = make_mim_workload(
             cfg, mask_patch_size=preset["mask_patch_size"],
             mask_ratio=preset["mask_ratio"], tx=functools.partial(
@@ -993,7 +1114,8 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
             return step_fn(state, {"pixel_values": pxs[i]},
                            step_generator(0, i))
 
-        time_train_steps("MIM", card, bs, flops, step, iters)
+        time_train_steps("MIM" + (" glue" if glue else ""), card, bs, flops,
+                         step, iters, watch="glue_gemm" if glue else "")
         del model, init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
@@ -1048,15 +1170,15 @@ def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside the block every kernel the V-JEPA and DINOv2 steps reach
-    (K1, K4, K7, K3, K5a, K5b, K6, K9) runs its plain PyTorch version on the
-    card, under the same impl names: the reference of the step parity
-    phases. This swaps
-    module attributes for the phase only; the package has no such switch
-    and never falls back."""
+    """Inside the block every kernel the parity phases reach (K1, K4, K7,
+    K3, K8, K2, K5a, K5b, K6, K9, K10a, K10b) runs its plain PyTorch version
+    on the card, under the same impl names: the reference of the step
+    parity phases. This swaps module attributes for the phase only; the
+    package has no such switch and never falls back."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import attn_glue as G
     from smb_vision_tpu_torch.ops import mlp as M
 
     def scale_of(q, scale):
@@ -1083,6 +1205,14 @@ def plain_kernels():
             A.attention_bwd_plain(q, k, v, out, lse, do,
                                   scale=scale_of(q, scale), g_lse=g_lse),
         (M, "_swiglu_block_fwd"): M._swiglu_block_plain,
+        (A, "flash_attention_int8pv"): lambda q, k, v, *, scale=None:
+            A.int8pv_attention_plain(*A.quantize_qk(q, k, scale_of(q, scale)),
+                                     *A.quantize_per_head(v)),
+        (M, "_mlp_block_fwd"): lambda x2, lnw, lnb, w1, b1, w2, b2, act, eps:
+            M._mlp_block_xla(x2.to(torch.bfloat16), lnw, lnb, w1, b1, w2, b2,
+                             act, eps),
+        (G, "_qkv_fwd"): G._qkv_ln_plain,
+        (G, "_out_fwd"): G._out_res_plain,
     }
     saved = {key: getattr(*key) for key in swaps}
     for (mod, name), fn in swaps.items():
@@ -1351,7 +1481,9 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
     from smb_vision_tpu_torch.ops import mlp as M
 
     text = (_build.build_dir() / "build.log").read_text()
-    for line in text[text.index("== swiglu_fwd.cu"):].splitlines():
+    text = text[text.index("== swiglu_fwd.cu"):]
+    end = text.find("\n== ")      # the next source's report
+    for line in text[:end if end >= 0 else None].splitlines():
         if "entry function" in line or "registers" in line or \
                 "spill" in line:
             log(f"  K9 ptxas: {line.strip()}")
@@ -1414,6 +1546,105 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
                 lambda: A.flash_attention_bwd(q, k, v, out, lse, do),
                 lambda: A.attention_bwd_plain(q, k, v, out, lse, do,
                                               scale=scale), 5, False)
+
+
+# the glue kernels' shapes: the embed path, the MIM encoder and decoder,
+# and a ragged one at the ViT-L width
+GLUE_SHAPES = ((MAIN_N, HIDDEN, "embed"), (ENC_N, HIDDEN, "MIM encoder"),
+               (MAIN_N, DEC_HIDDEN, "MIM decoder"),
+               (2 * DINO_N, VJ_HIDDEN, "ragged"))
+K8_RAGGED_N = 1961
+
+
+def phase_glue_kernels(table: dict, gen, dev) -> None:
+    """K8 against its plain version (the same quantised operands and 64-key
+    sub-blocks) and float32 attention at N 20,480, 12 heads of 64, and at
+    ragged N 1,961, timed beside K3 on the same inputs (no library call
+    computes int8 p v). K10a and K10b against their plain versions (the
+    kernels' numerics) at the embed shape, the MIM encoder's and decoder's
+    and a ragged one, timed beside their plain versions and the library
+    chain: F.layer_norm + one F.linear on the stacked (3K, K) weight for
+    K10a, torch.addmm(res, y, Wo) + bo for K10b (two calls each). The table
+    keeps the embed shape's times."""
+    import torch
+    import torch.nn.functional as F
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import attn_glue as G
+
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    for n in (MAIN_N, K8_RAGGED_N):
+        q, k, v = _attn_inputs(n, gen, dev)
+        q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+        v8, sv = A.quantize_per_head(v)
+        out = A.flash_attention_int8pv(q, k, v)
+        check_kernel(table, "flash_fwd_i8pv", f"N={n}", out,
+                     A.int8pv_attention_plain(q8, k8, sq, sk, v8, sv),
+                     TOL_INT8)
+        check_kernel(table, "flash_fwd_i8pv", f"N={n} vs f32 softmax", out,
+                     A.xla_attention(q.float(), k.float(), v.float()),
+                     TOL_INT8PV_F32, record=False)
+        if n == MAIN_N:
+            time_kernel(table, "flash_fwd_i8pv", f"main-path N={n}",
+                        lambda: A.flash_attention_int8pv(q, k, v),
+                        lambda: A.int8pv_attention_plain(
+                            *A.quantize_qk(q, k, scale),
+                            *A.quantize_per_head(v)), 8, True)
+            k3_ms = cuda_ms(lambda: A.flash_attention_int8(q, k, v), iters=8)
+            log(f"time flash_fwd_i8   on K8's inputs N={n}: {k3_ms:.3f} ms "
+                f"(CUDA events)")
+            ops = 2 * n * n * HEAD_DIM * HEADS
+            set_bound(table, "flash_fwd_i8pv", f"N={n}", 0.0,
+                      4 * n * HEADS * HEAD_DIM * 2, int8_ops=2 * ops)
+        del q, k, v, q8, k8, v8, out
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    for m, kd, label in GLUE_SHAPES:
+        x = r(m, kd).to(torch.bfloat16)
+        lnw, lnb = 1.0 + r(kd, s=0.1), r(kd, s=0.1)
+        lin = [r(kd, kd, s=kd ** -0.5).to(torch.bfloat16) for _ in range(4)]
+        ws = [w.t() for w in lin]            # (in, out) views, as the Block
+        bs = [r(kd, s=0.1) for _ in range(4)]
+        qkv_args = (x, lnw, lnb, *ws[:3], *bs[:3])
+        what = f"{label} M={m} K={kd}"
+        got = G.qkv_ln_fused(*qkv_args, eps=1e-6)
+        want = G._qkv_ln_plain(*qkv_args, 1e-6)
+        for name, a, b in zip("qkv", got, want):
+            check_kernel(table, "qkv_ln_fwd", f"{what} {name}", a, b,
+                         TOL_GLUE)
+        y = got[2]
+        o = G.out_res_fused(x, y, ws[3], bs[3])
+        check_kernel(table, "out_res_fwd", what, o,
+                     G._out_res_plain(x, y, ws[3], bs[3]), TOL_GLUE)
+        keep = label == "embed"
+        time_kernel(table, "qkv_ln_fwd", what,
+                    lambda: G.qkv_ln_fused(*qkv_args, eps=1e-6),
+                    lambda: G._qkv_ln_plain(*qkv_args, 1e-6), 20, keep)
+        time_kernel(table, "out_res_fwd", what,
+                    lambda: G.out_res_fused(x, y, ws[3], bs[3]),
+                    lambda: G._out_res_plain(x, y, ws[3], bs[3]), 20, keep)
+        w3 = torch.cat(lin[:3])
+        b3 = torch.cat(bs[:3]).to(torch.bfloat16)
+        lib_qkv = cuda_ms(lambda: F.linear(F.layer_norm(
+            x, (kd,), lnw.to(torch.bfloat16), lnb.to(torch.bfloat16), 1e-6),
+            w3, b3), iters=20)
+        bo16 = bs[3].to(torch.bfloat16)
+        lib_out = cuda_ms(lambda: torch.addmm(x, y, ws[3]).add_(bo16),
+                          iters=20)
+        log(f"time library chains {what}: F.layer_norm + F.linear(3K x K) "
+            f"{lib_qkv:.3f} ms, torch.addmm + bias {lib_out:.3f} ms (two "
+            f"calls each, CUDA events)")
+        if keep:
+            table["qkv_ln_fwd"]["library_ms"] = lib_qkv
+            table["out_res_fwd"]["library_ms"] = lib_out
+            act = m * kd * 2
+            set_bound(table, "qkv_ln_fwd", what, 2 * m * kd * 3 * kd,
+                      4 * act + 3 * kd * kd * 2 + 5 * kd * 4)
+            set_bound(table, "out_res_fwd", what, 2 * m * kd * kd,
+                      3 * act + kd * kd * 2 + kd * 4)
+        del x, y, got, want, o, qkv_args
 
 
 def dinov2_batch(bs: int, seed: int, dev):
@@ -1683,15 +1914,15 @@ def main() -> int:
     work.mkdir()
     try:
         vols = write_volumes(work)
-        emb_a = run_leg(work, vols, "A", vit_base_config(work, "leg_a",
-                                                         "auto"),
-                        [], ("flash_fwd", "mlp_block_fwd"), table)
-        run_leg(work, vols, "B", vit_base_config(work, "leg_b",
-                                                 "pallas_bwd"),
-                ["--attn_impl", "pallas_int8"],
-                ("flash_fwd_i8", "mlp_fwd"), table)
+        emb_a, _ = run_leg(work, vols, "A", vit_base_config(
+            work, "leg_a", "auto"), [], ("flash_fwd", "mlp_block_fwd"), table)
+        emb_b, _ = run_leg(work, vols, "B", vit_base_config(
+            work, "leg_b", "pallas_bwd"), ["--attn_impl", "pallas_int8"],
+            ("flash_fwd_i8", "mlp_fwd"), table)
+        run_leg_g(work, vols, emb_a, emb_b, table)
         phase_whole_model(vols, emb_a)
         run_leg_c(work, vols, table)
+        run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         run_leg_d(work, vols, table)
         spec = write_labelled_spec(work, vols)
         run_leg_e(work, spec)
@@ -1700,6 +1931,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
     phase_train_parity()
+    phase_train_parity(glue=True)
     phase_train_throughput(card)
     phase_vjepa_parity()
     phase_vjepa_throughput(card)

@@ -1,9 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) and int8
-// scores (K3), one templated body.
+// scores (K3), one templated body; int8 scores and int8 p v (K8), a sibling
+// kernel further down with its own note.
 //
 // Replaces
 //   K1  smb_vision_tpu/ops/attention.py:_fwd_kernel      (bf16 flash forward)
 //   K3  smb_vision_tpu/ops/attention.py:_fwd_i8_kernel   (pv=False: int8 q k^T)
+//   K8  smb_vision_tpu/ops/attention.py:_fwd_i8_kernel   (pv=True: int8 p v too)
 //
 // What it computes, per (batch, head) and query row i:
 //   s_ij = (q_i . k_j) * c          c = scale*log2(e)        (K1)
@@ -41,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -73,74 +77,6 @@ struct Tiles {
   static constexpr int STAGE = kBK * (KROW + VROW);
   static constexpr int BYTES = 2 * STAGE;      // two stages
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const char* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const char* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16-byte global->shared copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(char* dst, const char* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 2^x in one MUFU op (subnormal results flush to 0; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D, bool I8>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
@@ -344,6 +280,288 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8: int8 scores AND int8 p v (replaces _fwd_i8_kernel, pv=True).
+//
+// Per query row i and per 64-key tile u (the kv tile of K1/K3, and the JAX
+// kernel's sub-block at block_k 64):
+//   s_ij  = (q8_i . k8_j) * sq*sk             (log2 units, as K3)
+//   sm_u  = max_j in u s_ij
+//   p8_ij = floor(exp2(s_ij - sm_u + log2 127) + .5)   in 0..127
+//   o_i   = sv * sum_u w_u sum_j p8_ij v8_j / sum_u w_u sum_j p8_ij,
+//   w_u   = exp2(sm_u - m_i), m_i the running max (online rescale).
+// Numerator and denominator come from the same integers p8. The TPU kernel
+// fixed the shift c from the first kv block and got the row sum from a
+// [v8 | 127 | pad] column on the MXU; both cancel in o and are not carried
+// over: the row sum is an integer sum of p8 in registers.
+//
+// Layout. The int32 C fragment of the score mma (m16n8k32) gives thread
+// (g, t) keys 2t, 2t+1 of each n8 tile, but the s8 A fragment of the p v
+// mma wants k = 4t..4t+3 and 16+4t..16+4t+3 of a 32-key step. The order of
+// keys inside a step is free, so A's k = 4t+e is taken to be key
+// 2t + (e&1) + 8*(e>>1) (and +16 for the second half): each thread's own
+// p8 values are its A fragment, with no shuffles. v8 comes from the
+// wrapper d-major, (B, H, D, N_pad) with N_pad a multiple of 64 (zeros past
+// N), keys permuted within each 32-key group to that order
+// (ops/attention.py::quantize_v_kernel_layout); so v8's B fragment is one
+// ldmatrix (non-trans: sm_90 has no 8-bit .trans) of 8 d-rows x 16 bytes.
+// Keys past N score -inf, so their p8 is 0, and their v8 bytes are 0.
+//
+// Bound on the H100: int8 operations, 4*B*H*N^2*d at 1,979 TOP/s (0.651 ms
+// at N 20,480, 12 heads of 64, batch 1). Design as K3: 8 warps x 16 query
+// rows, k8 and v8 tiles double-buffered by cp.async, scores, p8 and the
+// o accumulator in registers.
+template <int D>
+struct PvTiles {
+  static constexpr int KROW = D + 16;        // padded k8 row, bytes
+  static constexpr int VROW = kBK + 16;      // padded v8 (d-major) row
+  static constexpr int STAGE = kBK * KROW + D * VROW;
+  static constexpr int BYTES = 2 * STAGE;
+};
+
+struct PvParams {
+  const int8_t* q;
+  const int8_t* k;
+  const int8_t* vt;  // (B*H, D, Npad), keys permuted (see above)
+  const float* sq;
+  const float* sk;
+  const float* sv;
+  __nv_bfloat16* o;  // (B, Nq, H, D) contiguous
+  int H, Nq, Nk, Npad;
+  long long q_sb, q_sn, q_sh;
+  long long k_sb, k_sn, k_sh;
+};
+
+// The conversions below run on the FP32 and integer pipes instead of the
+// quarter-rate conversion unit, which ex2 already keeps busy:
+// floor(x) for x in [0, 2^22) is the low bits of x + 2^23 rounded toward
+// zero (the ulp there is 1)
+__device__ __forceinline__ uint32_t floor_bits(float x) {
+  return __float_as_uint(__fadd_rz(x, 8388608.f));
+}
+
+// the low bytes of a, b, c, d as one word, a in byte 0
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
+                                                   uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// an integer |x| < 2^22 as a float: the bits of 1.5 * 2^23 + x, less
+// 1.5 * 2^23
+__device__ __forceinline__ float small_int_to_float(int x) {
+  return __int_as_float(x + 0x4B400000) - 12582912.f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    flash_fwd_i8pv_kernel(const PvParams p) {
+  using T = PvTiles<D>;
+  constexpr int KQ = D / 32;   // k32 steps of the q k^T product
+  constexpr int ND = D / 8;    // n8 tiles of the o accumulator
+  constexpr int NS = kBK / 8;  // n8 tiles of one score tile
+  constexpr float kLog127 = 6.988684686772166f;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int r0 = blockIdx.x * kBQ + warp * 16 + g;
+  const int r1 = r0 + 8;
+
+  const int8_t* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const int8_t* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const int8_t* vb = p.vt + (long long)bh * D * p.Npad;
+
+  auto load_tile = [&](int stage, int kv0) {
+    char* ks = smem + stage * T::STAGE;
+    char* vs = ks + kBK * T::KROW;
+    constexpr int KCH = D / 16, VCH = kBK / 16;
+    for (int c = tid; c < kBK * KCH; c += kThreads) {
+      const int row = c / KCH, col = (c % KCH) * 16;
+      const bool ok = kv0 + row < p.Nk;
+      cp_async16(ks + row * T::KROW + col,
+                 reinterpret_cast<const char*>(
+                     ok ? kb + (long long)(kv0 + row) * p.k_sn + col : kb),
+                 ok ? 16 : 0);
+    }
+    // v8 rows are d; Npad is a multiple of kBK, so a tile never runs past
+    for (int c = tid; c < D * VCH; c += kThreads) {
+      const int row = c / VCH, col = (c % VCH) * 16;
+      cp_async16(vs + row * T::VROW + col,
+                 reinterpret_cast<const char*>(
+                     vb + (long long)row * p.Npad + kv0 + col),
+                 16);
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  uint32_t qa[KQ][4];
+  {
+    const char* q0 = reinterpret_cast<const char*>(qb + (long long)r0 * p.q_sn);
+    const char* q1 = reinterpret_cast<const char*>(qb + (long long)r1 * p.q_sn);
+    const bool v0 = r0 < p.Nq, v1 = r1 < p.Nq;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int c0 = kk * 32 + 4 * t;
+      qa[kk][0] = v0 ? ld32(q0 + c0) : 0u;
+      qa[kk][1] = v1 ? ld32(q1 + c0) : 0u;
+      qa[kk][2] = v0 ? ld32(q0 + c0 + 16) : 0u;
+      qa[kk][3] = v1 ? ld32(q1 + c0 + 16) : 0u;
+    }
+  }
+  const float c = p.sq[bh] * p.sk[bh];
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  const int ntiles = (p.Nk + kBK - 1) / kBK;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_tile((it + 1) & 1, (it + 1) * kBK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const char* ks = smem + (it & 1) * T::STAGE;
+    const char* vs = ks + kBK * T::KROW;
+    const int kv0 = it * kBK;
+
+    // scores in log2 units: s = q8.k8 * c, f32
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const char* krow = ks + (j * 8 + (lane & 7)) * T::KROW + (lane >> 3) * 16;
+      int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int hh = 0; hh < KQ / 2; ++hh) {
+        uint32_t bf[4];
+        ldsm_x4(bf, krow + hh * 64);
+        mma_s8(acc, qa[2 * hh], bf[0], bf[1]);
+        mma_s8(acc, qa[2 * hh + 1], bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = small_int_to_float(acc[i]) * c;
+    }
+    if (kv0 + kBK > p.Nk) {  // ragged kv tail: p8 = 0 there
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) s[j][i] = -INFINITY;
+    }
+
+    // the tile's row max sm (a tile always holds a key < Nk, so it is
+    // finite), and the running max
+    float sm0 = -INFINITY, sm1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      sm0 = fmaxf(sm0, fmaxf(s[j][0], s[j][1]));
+      sm1 = fmaxf(sm1, fmaxf(s[j][2], s[j][3]));
+    }
+    sm0 = fmaxf(sm0, __shfl_xor_sync(0xffffffffu, sm0, 1));
+    sm0 = fmaxf(sm0, __shfl_xor_sync(0xffffffffu, sm0, 2));
+    sm1 = fmaxf(sm1, __shfl_xor_sync(0xffffffffu, sm1, 1));
+    sm1 = fmaxf(sm1, __shfl_xor_sync(0xffffffffu, sm1, 2));
+    const float mn0 = fmaxf(m0, sm0), mn1 = fmaxf(m1, sm1);
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);  // 2^-inf = 0
+    const float w0 = ex2(sm0 - mn0), w1 = ex2(sm1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p8 in registers, packed straight into the A fragments of p v; the row
+    // sums of p8 by dp4a on the packed bytes
+    uint32_t p8[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p8[j][i] = floor_bits(
+            ex2(s[j][i] - (i < 2 ? sm0 : sm1) + kLog127) + 0.5f);
+    uint32_t pa[kBK / 32][4];
+    int rs0 = 0, rs1 = 0;
+#pragma unroll
+    for (int cs = 0; cs < kBK / 32; ++cs) {
+      const int j = 4 * cs;
+      pa[cs][0] = pack_low_bytes(p8[j][0], p8[j][1], p8[j + 1][0],
+                                 p8[j + 1][1]);
+      pa[cs][1] = pack_low_bytes(p8[j][2], p8[j][3], p8[j + 1][2],
+                                 p8[j + 1][3]);
+      pa[cs][2] = pack_low_bytes(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0],
+                                 p8[j + 3][1]);
+      pa[cs][3] = pack_low_bytes(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2],
+                                 p8[j + 3][3]);
+      rs0 = __dp4a((int)pa[cs][0], 0x01010101, rs0);
+      rs0 = __dp4a((int)pa[cs][2], 0x01010101, rs0);
+      rs1 = __dp4a((int)pa[cs][1], 0x01010101, rs1);
+      rs1 = __dp4a((int)pa[cs][3], 0x01010101, rs1);
+    }
+    l0 = l0 * a0 + w0 * small_int_to_float(rs0);
+    l1 = l1 * a1 + w1 * small_int_to_float(rs1);
+    // one ldmatrix.x4 = the B fragments (k 0-15, 16-31 of a 32-key step)
+    // of two n8 tiles of d: matrices {n, lo}, {n, hi}, {n+1, lo}, {n+1, hi}
+    const char* vrow = vs + ((lane >> 4) * 8 + (lane & 7)) * T::VROW +
+                       ((lane >> 3) & 1) * 16;
+#pragma unroll
+    for (int n = 0; n < ND; n += 2) {
+      int pv[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int cs = 0; cs < kBK / 32; ++cs) {
+        uint32_t bf[4];
+        ldsm_x4(bf, vrow + n * 8 * T::VROW + cs * 32);
+        mma_s8(pv[0], pa[cs], bf[0], bf[1]);
+        mma_s8(pv[1], pa[cs], bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        o[n + u][0] = o[n + u][0] * a0 + w0 * small_int_to_float(pv[u][0]);
+        o[n + u][1] = o[n + u][1] * a0 + w0 * small_int_to_float(pv[u][1]);
+        o[n + u][2] = o[n + u][2] * a1 + w1 * small_int_to_float(pv[u][2]);
+        o[n + u][3] = o[n + u][3] * a1 + w1 * small_int_to_float(pv[u][3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float sv = p.sv[bh];
+  const float inv0 = sv / (l0 == 0.f ? 1.f : l0);
+  const float inv1 = sv / (l1 == 0.f ? 1.f : l1);
+  __nv_bfloat16* ob = p.o + ((long long)b * p.Nq * p.H + h) * D;
+  const long long osn = (long long)p.H * D;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < p.Nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * osn + col) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (r1 < p.Nq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * osn + col) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+template <int D>
+cudaError_t launch_pv(const PvParams& p, int BH, cudaStream_t stream) {
+  auto kernel = flash_fwd_i8pv_kernel<D>;
+  const int bytes = PvTiles<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Nq + kBQ - 1) / kBQ, BH);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D, bool I8>
 cudaError_t launch(const FlashParams& p, int BH, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D, I8>;
@@ -394,6 +612,41 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
     if (D == 64) return (int)launch<64, false>(p, BH, s);
     if (D == 128) return (int)launch<128, false>(p, BH, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8. q8, k8 int8 (B, N, H, D) with strides (6 int64 in elements: batch,
+// token, head for q8 then k8; the last dim contiguous); vt8 int8 (B*H, D,
+// Npad), Npad a multiple of 64, in the key order described above; sq, sk,
+// sv f32 per (b*H + h); o bf16 (B, Nq, H, D) contiguous. Returns a
+// cudaError_t.
+extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
+                                  const void* vt8, const void* sq,
+                                  const void* sk, const void* sv, void* o,
+                                  int B, int H, int Nq, int Nk, int Npad,
+                                  int D, const long long* strides,
+                                  void* stream) {
+  PvParams p;
+  p.q = static_cast<const int8_t*>(q8);
+  p.k = static_cast<const int8_t*>(k8);
+  p.vt = static_cast<const int8_t*>(vt8);
+  p.sq = static_cast<const float*>(sq);
+  p.sk = static_cast<const float*>(sk);
+  p.sv = static_cast<const float*>(sv);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.Npad = Npad;
+  p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || Npad % kBK != 0 ||
+      Npad < Nk || Npad - Nk >= kBK)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64) return (int)launch_pv<64>(p, BH, s);
+  if (D == 128) return (int)launch_pv<128>(p, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,6 +42,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -60,42 +62,6 @@ struct MlpBwdParams {
   int M, F;
   int act;                  // 0: exact gelu, 1: tanh gelu
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-// every thread commits a group per copy step, empty or not, so that
-// wait_group counts stay uniform
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // (act(v), act'(v)) in f32
 __device__ __forceinline__ float2 act_and_grad(float v, int act) {
@@ -189,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       h0 = *reinterpret_cast<const __nv_bfloat162*>(p.h + hr0 * p.F + col);
     if (hr1 < p.M)
       h1 = *reinterpret_cast<const __nv_bfloat162*>(p.h + hr1 * p.F + col);
-    cp_async_wait1();  // w2 chunk c has landed (w1 chunk c may be in flight)
+    cp_async_wait<1>();  // w2 chunk c has landed (w1 chunk c may be in flight)
     __syncthreads();
 
     // phase 1: da tile (rows pm*16.., cols pn*8..) = g w2_chunk^T; then
@@ -233,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // dh written; the w2 buffer is free
     if (c + 1 < nchunks) load_w2(f0 + kBF);
     cp_async_commit();
-    cp_async_wait1();  // w1 chunk c has landed
+    cp_async_wait<1>();  // w1 chunk c has landed
     __syncthreads();
 
     // phase 2: dx[:, warp's K/8 columns] += dh w1_chunk^T

@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -75,42 +77,6 @@ struct MlpParams {
   float eps;
   int act;                   // 0: exact gelu, 1: tanh gelu
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-// every thread commits a group per copy step, empty or not, so that
-// wait_group counts stay uniform
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ float activation(float v, int act) {
   if (act == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -237,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p)
       w2s + (warp * (K / 8) + (lane & 7)) * S::WS + (lane >> 3) * 8;
   for (int c = 0; c < nchunks; ++c) {
     const int f0 = c * kBF;
-    cp_async_wait1();  // w1 chunk c has landed (w2 chunk c may be in flight)
+    cp_async_wait<1>();  // w1 chunk c has landed (w2 chunk c may be in flight)
     __syncthreads();
 
     // phase 1: h tile (rows pm*16.., cols pn*8..) = xn w1_chunk^T + b1, act
@@ -279,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p)
     __syncthreads();  // h written; the w1 buffer is free
     if (c + 1 < nchunks) load_w1(f0 + kBF);
     cp_async_commit();
-    cp_async_wait1();  // w2 chunk c has landed
+    cp_async_wait<1>();  // w2 chunk c has landed
     __syncthreads();
 
     // phase 2: y[:, warp's K/8 columns] += h w2_chunk

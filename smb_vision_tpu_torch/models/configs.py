@@ -98,12 +98,12 @@ class VideoMAEConfig(BaseConfig):
 
     # framework knobs (not in the HF config)
     dtype: str = "bfloat16"         # compute dtype
-    # attention: auto | pallas | pallas_i8bwd | pallas_int8 | xla
-    # ("pallas*" name the hand-written kernels, as in the JAX package)
+    # attention: auto | pallas | pallas_i8bwd | pallas_int8 | pallas_int8pv
+    # | xla ("pallas*" name the hand-written kernels, as in the JAX package)
     attn_impl: str = "auto"
     mlp_impl: str = "auto"          # auto | pallas | pallas_bwd | xla
-    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
-    fused_qkv: bool = False         # not ported yet
+    glue_impl: str = "auto"         # "pallas": glue kernels K10a/K10b
+    fused_qkv: bool = False         # one q/k/v product (plain)
     gradient_checkpointing: bool = False   # remat each block in training
     sequence_parallel: bool = False  # not ported yet
     quant8: bool = False            # not ported yet
@@ -168,8 +168,8 @@ class VJEPA2Config(BaseConfig):
     dtype: str = "bfloat16"
     attn_impl: str = "auto"
     mlp_impl: str = "auto"
-    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
-    fused_qkv: bool = False         # not ported yet
+    glue_impl: str = "auto"         # "pallas": glue kernels K10a/K10b
+    fused_qkv: bool = False         # one q/k/v product (plain)
     gradient_checkpointing: bool = False
     sequence_parallel: bool = False  # not ported yet
     sp_variant: str = "gather"      # read only with sequence_parallel
@@ -231,8 +231,8 @@ class Dinov2Config(BaseConfig):
     dtype: str = "bfloat16"
     attn_impl: str = "auto"
     mlp_impl: str = "auto"
-    glue_impl: str = "auto"         # "pallas" (K10) is not ported yet
-    fused_qkv: bool = False         # not ported yet
+    glue_impl: str = "auto"         # "pallas": glue kernels K10a/K10b
+    fused_qkv: bool = False         # one q/k/v product (plain)
     gradient_checkpointing: bool = False
 
     @property

@@ -4,8 +4,9 @@ Counterpart of `smb_vision_tpu/models/layers.py`. Parameters are float32
 and named after the JAX package's parameter tree (`attention.query`,
 `norm1`, `mlp.fc1`, ...), in PyTorch's layouts: Linear weights (out, in),
 LayerNorm `weight`/`bias`. Compute runs in the configured dtype, with
-LayerNorm statistics in float32. Attention and the MLP half-block route to
-the hand-written kernels through `ops.attention` and `ops.mlp`, whose
+LayerNorm statistics in float32. Attention, the attention glue and the MLP
+half-block route to the hand-written kernels through `ops.attention`,
+`ops.attn_glue` and `ops.mlp`, whose
 autograd Functions carry the kernels' backward; an Encoder with remat
 checkpoints each block, as `nn.remat(Block)` does. Attention takes an
 optional 3D rotary table (V-JEPA2), and DropPath draws its per-sample keep
@@ -22,6 +23,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from smb_vision_tpu_torch.ops.attention import attention
+from smb_vision_tpu_torch.ops.attn_glue import (
+    attn_out_residual,
+    qkv_ln_forward,
+)
 from smb_vision_tpu_torch.ops.mlp import (
     act_fn,
     kernel_maps,
@@ -76,12 +81,17 @@ class LayerNorm(nn.LayerNorm):
 class Attention(nn.Module):
     """Multi-head attention. bias_mode: "qkv" (bias on q, k and v), "qv" (on
     q and v only: the VideoMAE q/v-bias), "none". out_proj=False leaves out
-    the output projection (the V-JEPA2 pooler's cross-attention)."""
+    the output projection (the V-JEPA2 pooler's cross-attention).
+    fused_qkv runs the projections as one product on the concatenated
+    weights (q, k and v for self-attention; k and v for cross-attention), a
+    plain `F.linear`, as the JAX package leaves it to XLA; the parameters
+    stay three Linears."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  bias_mode: str = "qkv", out_bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto", out_proj: bool = True):
+                 attn_impl: str = "auto", out_proj: bool = True,
+                 fused_qkv: bool = False):
         super().__init__()
         if bias_mode not in ("qkv", "qv", "none"):
             raise ValueError(f"unknown bias_mode {bias_mode!r}")
@@ -91,10 +101,24 @@ class Attention(nn.Module):
         h = hidden_size
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.fused_qkv = fused_qkv
+        self.dtype = dtype
         self.query = Linear(h, h, bias_mode != "none", dtype)
         self.key = Linear(h, h, bias_mode == "qkv", dtype)
         self.value = Linear(h, h, bias_mode != "none", dtype)
         self.proj = Linear(h, h, out_bias, dtype) if out_proj else None
+
+    def _fused(self, inp, linears):
+        """One product of inp with the stacked weights of `linears`; biases
+        stacked with zeros for a missing one, added only if any is there."""
+        dt = self.dtype
+        w = torch.cat([lin.weight for lin in linears]).to(dt)
+        b = None
+        if any(lin.bias is not None for lin in linears):
+            b = torch.cat([lin.weight.new_zeros(lin.out_features)
+                           if lin.bias is None else lin.bias
+                           for lin in linears]).to(dt)
+        return F.linear(inp.to(dt), w, b)
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
@@ -105,14 +129,48 @@ class Attention(nn.Module):
         b, n, h = x.shape
         src = x if kv is None else kv
         d = h // self.num_heads
-        q = self.query(x).reshape(b, n, self.num_heads, d)
-        k = self.key(src).reshape(b, src.shape[1], self.num_heads, d)
-        v = self.value(src).reshape(b, src.shape[1], self.num_heads, d)
+        if self.fused_qkv and kv is None:
+            q, k, v = self._fused(x, (self.query, self.key, self.value)) \
+                .split(h, dim=-1)
+        elif self.fused_qkv:
+            q = self._fused(x, (self.query,))
+            k, v = self._fused(src, (self.key, self.value)).split(h, dim=-1)
+        else:
+            q, k, v = self.query(x), self.key(src), self.value(src)
+        q = q.reshape(b, n, self.num_heads, d)
+        k = k.reshape(b, src.shape[1], self.num_heads, d)
+        v = v.reshape(b, src.shape[1], self.num_heads, d)
+        out = self._attend(q, k, v, rope).reshape(b, n, h)
+        return out if self.proj is None else self.proj(out)
+
+    def _attend(self, q, k, v, rope):
         if rope is not None:
             q = apply_rope3d(q, *rope)
             k = apply_rope3d(k, *rope)
-        out = attention(q, k, v, impl=self.attn_impl).reshape(b, n, h)
-        return out if self.proj is None else self.proj(out)
+        return attention(q, k, v, impl=self.attn_impl)
+
+    def glue_forward(self, x, lnw, lnb, eps: float, lam=None, rope=None):
+        """The whole attention half-block through the glue kernels
+        (`smb_vision_tpu/models/layers.py` `Attention` with `glue`):
+        q, k, v = `qkv_ln_forward`(LN(x)) -> RoPE -> attention ->
+        `attn_out_residual`(x + out Wo + bo, LayerScale lam folded in), the
+        residual in the compute dtype. Reads the Linears' weights raw."""
+        b, n, h = x.shape
+        dt = self.dtype
+        xd = x.to(dt)
+        lins = (self.query, self.key, self.value)
+        q, k, v = qkv_ln_forward(
+            xd, lnw, lnb, *(t for lin in lins
+                            for t in (lin.weight.to(dt).t(), lin.bias)),
+            eps=eps, impl="pallas")
+        heads = (b, n, self.num_heads, h // self.num_heads)
+        out = self._attend(q.reshape(heads), k.reshape(heads),
+                           v.reshape(heads), rope).reshape(b, n, h)
+        bo = self.proj.bias
+        if bo is None:
+            bo = torch.zeros(h, dtype=torch.float32, device=x.device)
+        return attn_out_residual(xd, out, self.proj.weight.to(dt).t(), bo,
+                                 layerscale=lam, impl="pallas")
 
 
 class Mlp(nn.Module):
@@ -197,6 +255,11 @@ class DropPath(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block: x += attn(LN(x)); x += mlp(LN(x)).
 
+    With glue_impl "pallas" (and neither fused_qkv nor an active DropPath)
+    the attention half-block runs through `Attention.glue_forward`: kernels
+    K10a and K10b around the attention core, LayerScale folded into the
+    output projection. fused_qkv runs the three projections as one
+    product.
     The MLP half-block goes through `mlp_block_forward` (kernel K2) when
     mlp_impl is "pallas", or "auto" with bf16 compute; LayerScale folds
     into w2/b2. "pallas_bwd" skips that fusion, as in the JAX package, and
@@ -218,12 +281,6 @@ class Block(nn.Module):
         if glue_impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown glue impl {glue_impl!r}; "
                              "valid: 'auto', 'pallas', 'xla'")
-        if glue_impl == "pallas":
-            raise not_ported("glue_impl='pallas' (attention-glue kernels "
-                             "K10a/K10b, ops/attn_glue.py)",
-                             "queue 1, K8 and K10")
-        if fused_qkv:
-            raise not_ported("fused_qkv", "queue 1, K8 and K10")
         if quant8:
             raise not_ported("quant8 (W8A8 projections, ops/quant.py)",
                              "queue 1, W8A8")
@@ -236,11 +293,14 @@ class Block(nn.Module):
         self.act = act
         self.dtype = dtype
         self.mlp_impl = mlp_impl
+        self.glue_impl = glue_impl
+        self.fused_qkv = fused_qkv
         self.use_swiglu = use_swiglu
         self.eps = layer_norm_eps
         self.norm1 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.attention = Attention(hidden_size, num_heads, bias_mode,
-                                   dtype=dtype, attn_impl=attn_impl)
+                                   dtype=dtype, attn_impl=attn_impl,
+                                   fused_qkv=fused_qkv)
         self.norm2 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.mlp = (SwiGLU(hidden_size, intermediate_size, dtype)
                     if use_swiglu else
@@ -266,10 +326,18 @@ class Block(nn.Module):
             dp_masks = [self.drop_path.draw(x.shape[0], device=x.device)
                         for _ in range(2)]
         m1, m2 = dp_masks if dp_masks is not None else (None, None)
-        h = self.attention(self.norm1(x), rope=rope)
-        x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
-
         dp_off = not self.drop_path.active
+        # the attention half-block through the glue kernels K10a/K10b on an
+        # explicit glue_impl "pallas" only, as in the JAX package (whose
+        # "auto" keeps the plain path); LayerScale folds into Wo and bo
+        if self.glue_impl == "pallas" and not self.fused_qkv and dp_off:
+            x = self.attention.glue_forward(
+                x, self.norm1.weight, self.norm1.bias, self.eps,
+                lam=self.layerscale1, rope=rope)
+        else:
+            h = self.attention(self.norm1(x), rope=rope)
+            x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
+
         if self.use_swiglu:
             if self.mlp_impl == "pallas" and dp_off:
                 return self._swiglu_fused(x)

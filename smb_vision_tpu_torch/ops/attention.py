@@ -1,7 +1,7 @@
 """Multi-head attention: the plain PyTorch versions and the flash kernels.
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
-the JAX package's `(B, N, H, D)` layout. Three hand-written CUDA kernels
+the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
 stand behind them:
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
@@ -13,7 +13,10 @@ stand behind them:
   `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package;
 - K7 `flash_attention_bwd_i8` (`csrc/flash_bwd.cu`): K4 with the score
   recompute and `do v^T` on int8 (replaces `_bwd_dq_i8_kernel` and
-  `_bwd_dkv_i8_kernel`; attn_impl "pallas_i8bwd").
+  `_bwd_dkv_i8_kernel`; attn_impl "pallas_i8bwd");
+- K8 `flash_attention_int8pv` (`csrc/flash_fwd.cu`): K3 with `p v` on int8
+  too, p requantised per 64-key tile against the tile's max (replaces
+  `_fwd_i8_kernel`, pv=True; attn_impl "pallas_int8pv"). Forward only.
 
 K1 with K4 or K7 forms one `torch.autograd.Function`, the counterpart of
 the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
@@ -115,6 +118,69 @@ def int8_attention_plain(q8, k8, sq, sk, v):
         o = torch.matmul(p, vh) / p.sum(dim=-1, keepdim=True)
         outs.append(o.to(v.dtype))
     return torch.cat(outs, dim=2).permute(0, 2, 1, 3).contiguous()
+
+
+LOG127 = math.log2(127.0)
+# kv width over which K8 requantises p: the kernel's kv tile (csrc/flash_fwd.cu
+# kBK), and the JAX kernel's sub-block at block_k 64
+PV_SUB = 64
+
+
+def int8pv_attention_plain(q8, k8, sq, sk, v8, sv, sub: int = PV_SUB):
+    """Plain version of K8 on quantised operands (the JAX `_fwd_i8_kernel`
+    with pv=True). q8, k8, v8 int8 (B, N, H, D); sq, sk, sv f32 (B, H).
+    Per kv sub-block u of `sub` keys and per query row: the scores s = q8
+    k8^T * sq * sk (exact integers times the scale), their max sm_u,
+    p8 = floor(exp2(s - sm_u + log2 127) + 0.5) in 0..127 (keys past N
+    count 0), and the integer sums n_u = p8 v8 and l_u = sum p8. Then
+    o = sv * sum_u w_u n_u / sum_u w_u l_u with w_u = exp2(sm_u - max sm):
+    numerator and denominator come from the same integers p8. Returns bf16
+    (B, Nq, H, D)."""
+    b, nq, h, d = q8.shape
+    nk = k8.shape[1]
+    nsub = -(-nk // sub)
+    pad = nsub * sub - nk
+    kt = k8.float().permute(0, 2, 3, 1)                 # (B, H, D, Nk)
+    vh = v8.float().permute(0, 2, 1, 3)                 # (B, H, Nk, D)
+    if pad:
+        vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
+    vh = vh.reshape(b, h, nsub, sub, d)
+    ss = (sq * sk)[:, :, None, None]
+    step = _plain_chunk(b, h, nsub * sub)
+    outs = []
+    for s0 in range(0, nq, step):
+        qc = q8[:, s0:s0 + step].float().permute(0, 2, 1, 3)
+        st = torch.matmul(qc, kt) * ss                  # (B, H, c, Nk)
+        if pad:
+            st = torch.nn.functional.pad(st, (0, pad), value=-math.inf)
+        st = st.reshape(*st.shape[:3], nsub, sub)
+        sm = st.amax(dim=-1, keepdim=True)              # (B, H, c, U, 1)
+        p8 = torch.floor(torch.exp2(st - sm + LOG127) + 0.5)
+        num = torch.einsum("bhcus,bhusd->bhcud", p8, vh)
+        den = p8.sum(dim=-1, keepdim=True)
+        w = torch.exp2(sm - sm.amax(dim=-2, keepdim=True))
+        o = (num * w).sum(-2) / (den * w).sum(-2)
+        outs.append((o * sv[:, :, None, None]).to(torch.bfloat16))
+    return torch.cat(outs, dim=2).permute(0, 2, 1, 3).contiguous()
+
+
+def quantize_v_kernel_layout(v8):
+    """v8 (B, N, H, D) int8 in the layout K8 reads: (B, H, D, N_pad), N
+    padded with zeros to a multiple of the kernel's kv tile (PV_SUB), and
+    within each group of 32 keys the key order the kernel's int8 p
+    fragments take. The kernel's p8 fragment holds keys {2t, 2t+1, 8+2t,
+    9+2t} (and the same + 16) of a 32-key step in the bytes a thread's A
+    operand reads at 4t..4t+3, so key half*16 + hi*8 + 2t + lo is stored at
+    half*16 + 4t + 2*hi + lo: then each thread's B fragment of v8 is one
+    aligned 32-bit word."""
+    b, n, h, d = v8.shape
+    n_pad = -(-n // PV_SUB) * PV_SUB
+    vt = v8.permute(0, 2, 3, 1)                          # (B, H, D, N)
+    if n_pad != n:
+        vt = torch.nn.functional.pad(vt, (0, n_pad - n))
+    vt = vt.reshape(b, h, d, n_pad // 32, 2, 2, 4, 2)   # half, hi, t, lo
+    return vt.permute(0, 1, 2, 3, 4, 6, 5, 7).reshape(b, h, d, n_pad) \
+        .contiguous()
 
 
 def _check_qkv(q, k, v, qk_dtype):
@@ -438,6 +504,46 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
 
 flash_attention_int8.launches = 0
 
+
+def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
+    """K8: flash forward with int8 scores and int8 p v. Quantises q and k
+    as `quantize_qk`, and v per (batch, head) by `quantize_per_head`, in
+    plain torch beforehand, as the JAX `_fwd_i8` does (pv=True); then runs
+    the kernel on CUDA tensors (v8 in `quantize_v_kernel_layout`), or
+    `int8pv_attention_plain` on CPU tensors. Forward only: under autograd
+    it raises rather than return a result with no gradient."""
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention_int8pv (kernel K8, attn_impl='pallas_int8pv') "
+            "is forward-only and has no backward; run it under "
+            "torch.no_grad() or train with attn_impl 'pallas' or 'auto'")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    q8, k8, sq, sk = quantize_qk(q, k, scale)
+    v8, sv = quantize_per_head(v)
+    if q.device.type == "cpu":
+        return int8pv_attention_plain(q8, k8, sq, sk, v8, sv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_qkv(q8, k8, v, torch.int8)
+    vt8 = quantize_v_kernel_layout(v8)
+    sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
+    b, nq, h, d = q.shape
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    strides = (ctypes.c_longlong * 6)(*q8.stride()[:3], *k8.stride()[:3])
+    rc = _build.lib().smb_flash_fwd_i8pv(
+        q8.data_ptr(), k8.data_ptr(), vt8.data_ptr(), sq.data_ptr(),
+        sk.data_ptr(), sv.data_ptr(), out.data_ptr(), b, h, nq, k8.shape[1],
+        vt8.shape[-1], d, ctypes.cast(strides, ctypes.c_void_p),
+        _build.stream_ptr(q.device))
+    _build.check(rc, "flash_fwd_i8pv")
+    flash_attention_int8pv.launches += 1
+    return out
+
+
+flash_attention_int8pv.launches = 0
+
 _IMPLS = ("auto", "xla", "pallas", "pallas_i8bwd", "pallas_int8",
           "pallas_int8pv")
 
@@ -457,16 +563,12 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
 
     impl: "auto" (K1 where it maps, see `_auto_impl`, else plain) | "pallas"
     (K1, backward K4) | "pallas_i8bwd" (K1, int8-score backward K7) |
-    "pallas_int8" (K3, forward only) | "xla" (plain). "pallas_int8pv" is
-    not ported yet.
+    "pallas_int8" (K3, forward only) | "pallas_int8pv" (K8: int8 scores
+    and int8 p v, forward only) | "xla" (plain).
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; valid: "
                          + ", ".join(repr(i) for i in _IMPLS))
-    if impl == "pallas_int8pv":
-        raise NotImplementedError(
-            "attn_impl='pallas_int8pv' (int8 p@v, kernel K8; ROADMAP.md "
-            "queue 1, K8 and K10) is not ported yet; use 'pallas_int8'")
     if impl == "auto":
         impl = _auto_impl(q, bias)
     if impl == "xla":
@@ -476,6 +578,8 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
                                   "impl='xla' for masked attention")
     if impl == "pallas_int8":
         return flash_attention_int8(q, k, v, scale=scale)
+    if impl == "pallas_int8pv":
+        return flash_attention_int8pv(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale,
                            int8_backward=impl == "pallas_i8bwd")
 

@@ -478,3 +478,139 @@ def test_swiglu_block_trains_through_k9(cuda):
             continue
         assert _rel(plain[name], f32[name]) <= 3e-2, name
         assert _rel(g, f32[name]) <= 3e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,d", [(1, 20480, 12, 64), (1, 1961, 12, 64),
+                                     (2, 100, 3, 64), (2, 130, 3, 128)])
+def test_int8pv_kernel_matches_plain(cuda, b, n, h, d):
+    """K8 against its plain version (the same quantised operands and 64-key
+    sub-blocks) within 1e-2 of max, and against float32 attention within
+    3e-2 (the JAX package's bound for this impl): the embed shape, a ragged
+    one and two small ones."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = [(torch.randn((b, n, h, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16) for _ in range(3)]
+    before = A.flash_attention_int8pv.launches
+    out = A.flash_attention_int8pv(q, k, v)
+    assert A.flash_attention_int8pv.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
+    v8, sv = A.quantize_per_head(v)
+    assert _rel(out, A.int8pv_attention_plain(q8, k8, sq, sk, v8, sv)) <= 1e-2
+    assert _rel(out, A.xla_attention(q.float(), k.float(), v.float())) \
+        <= 3e-2
+
+
+@pytest.mark.cuda
+def test_int8pv_refuses_autograd(cuda):
+    """K8 is forward-only, as K3: under autograd it raises."""
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        A.attention(q, q, q, impl="pallas_int8pv")
+
+
+def _glue_inputs(m, k, gen, dev):
+    """x, LN params, Linear-layout bf16 weights passed as (in, out)
+    transposed views, as the Block passes them, and f32 biases."""
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    x = r(m, k).to(torch.bfloat16)
+    ws = [r(k, k, s=k ** -0.5).to(torch.bfloat16).t() for _ in range(4)]
+    bs = [r(k, s=0.1) for _ in range(4)]
+    return x, 1.0 + r(k, s=0.1), r(k, s=0.1), ws, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(20480, 768), (7168, 768), (20480, 384),
+                                 (3922, 1024), (300, 1536)])
+def test_glue_kernels_match_plain(cuda, m, k):
+    """K10a and K10b against their plain versions (the kernels' numerics)
+    within 1e-2 of max, and against the same math in float32: the embed,
+    MIM encoder and MIM decoder shapes, a ragged one, and the DINOv2-giant
+    width (K10a's 32-row tiles)."""
+    from smb_vision_tpu_torch.ops import attn_glue as G
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x, lnw, lnb, (wq, wk, wv, wo), (bq, bk, bv, bo) = _glue_inputs(
+        m, k, gen, cuda)
+    before = (G.qkv_ln_fused.launches, G.out_res_fused.launches)
+    got = G.qkv_ln_fused(x, lnw, lnb, wq, wk, wv, bq, bk, bv, eps=1e-6)
+    want = G._qkv_ln_plain(x, lnw, lnb, wq, wk, wv, bq, bk, bv, 1e-6)
+    f32 = G._qkv_xla(x.float(), lnw, lnb, wq.float(), wk.float(),
+                     wv.float(), bq, bk, bv, 1e-6)
+    for a, b, c in zip(got, want, f32):
+        assert a.shape == (m, k) and a.dtype == torch.bfloat16
+        assert _rel(a, b) <= 1e-2 and _rel(a, c) <= 1e-2
+    y = got[2]
+    o = G.out_res_fused(x, y, wo, bo)
+    assert o.shape == (m, k) and o.dtype == torch.bfloat16
+    assert _rel(o, G._out_res_plain(x, y, wo, bo)) <= 1e-2
+    assert _rel(o, G._out_xla(x.float(), y.float(), wo.float(), bo)) <= 1e-2
+    assert (G.qkv_ln_fused.launches, G.out_res_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_glue_refuses_unmappable_on_cuda(cuda):
+    """A feature dim the glue kernels do not take raises instead of falling
+    back to the plain version: "pallas" refuses K % 128 != 0 ("cannot
+    map"), and the kernels themselves refuse it, and K10a a K past 2,688,
+    with an invalid-value error."""
+    from smb_vision_tpu_torch.ops import attn_glue as G
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x, lnw, lnb, (wq, wk, wv, wo), (bq, bk, bv, bo) = _glue_inputs(
+        64, 96, gen, cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        G.qkv_ln_fused(x, lnw, lnb, wq, wk, wv, bq, bk, bv)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        G.out_res_fused(x, x, wo, bo)
+    with pytest.raises(ValueError, match="cannot map"):
+        G.attn_out_residual(x, x, wo, bo, impl="pallas")
+    x, lnw, lnb, (wq, wk, wv, wo), (bq, bk, bv, bo) = _glue_inputs(
+        64, 2816, gen, cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        G.qkv_ln_forward(x, lnw, lnb, wq, bq, wk, bk, wv, bv, impl="pallas")
+    assert G.out_res_fused(x, x, wo, bo).shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layerscale", [None, 0.9])
+def test_glue_block_trains_through_k10(cuda, layerscale):
+    """loss.backward() through one bf16 Block with glue_impl "pallas"
+    (bias_mode "qv", so a zeros k bias): K10a and K10b launch once each,
+    and every parameter gets a finite, non-zero gradient within 3e-2 of
+    max of a float32 Block's, as the plain bf16 path's are."""
+    from smb_vision_tpu_torch.models.layers import Block
+    from smb_vision_tpu_torch.ops import attn_glue as G
+
+    torch.manual_seed(0)
+    kw = dict(bias_mode="qv", layerscale_value=layerscale)
+    ref_state = Block(256, 4, 512, **kw).state_dict()
+    for p in ref_state.values():
+        p.add_(torch.randn(p.shape) * 0.05)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((2, 200, 256), generator=gen, device=cuda)
+    w = torch.randn((2, 200, 256), generator=gen, device=cuda)
+
+    def grads(**impl):
+        b = Block(256, 4, 512, **kw, **impl)
+        b.load_state_dict(ref_state)
+        b.to(cuda)
+        (b(x.to(b.dtype)).float() * w).sum().backward()
+        return {n: p.grad for n, p in b.named_parameters()}
+
+    before = (G.qkv_ln_fused.launches, G.out_res_fused.launches)
+    kern = grads(dtype=torch.bfloat16, glue_impl="pallas")
+    assert (G.qkv_ln_fused.launches, G.out_res_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = grads(dtype=torch.bfloat16, attn_impl="xla", mlp_impl="xla")
+    f32 = grads(dtype=torch.float32, attn_impl="xla", mlp_impl="xla")
+    for name, g in kern.items():
+        assert g is not None and bool(g.isfinite().all()), name
+        assert float(g.abs().max()) > 0, name
+        assert _rel(plain[name], f32[name]) <= 3e-2, name
+        assert _rel(g, f32[name]) <= 3e-2, name

@@ -142,15 +142,31 @@ def test_read_safetensors_bf16_and_dtypes(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw, match in [({"glue_impl": "pallas"}, "K10"),
-                      ({"fused_qkv": True}, "fused_qkv"),
-                      ({"quant8": True}, "quant8"),
+    for kw, match in [({"quant8": True}, "quant8"),
                       ({"sequence_parallel": True}, "sequence_parallel")]:
         cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
                              num_hidden_layers=1, num_attention_heads=2,
                              intermediate_size=64, **kw)
         with pytest.raises(NotImplementedError, match=match):
             VideoMAEModel(cfg)
+    # the glue kernels (K10a/K10b), fused_qkv and int8 p v (K8) are ported:
+    # those models build and run (tests/test_torch_attn_glue.py holds them
+    # against the JAX package); the glue still refuses a width it cannot map
+    px = torch.rand(1, 32, 1, 32, 32)
+    for kw in ({"glue_impl": "pallas", "hidden_size": 128},
+               {"fused_qkv": True}, {"attn_impl": "pallas_int8pv"}):
+        cfg = VideoMAEConfig(**{**dict(
+            image_size=32, num_frames=32, hidden_size=32,
+            num_hidden_layers=1, num_attention_heads=2,
+            intermediate_size=64, dtype="float32"), **kw})
+        with torch.no_grad():
+            out, _ = VideoMAEModel(cfg).eval()(px)
+        assert out.shape == (1, 8, cfg.hidden_size), kw
+    cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
+                         num_hidden_layers=1, num_attention_heads=2,
+                         intermediate_size=64, glue_impl="pallas")
+    with pytest.raises(ValueError, match="cannot map"):
+        VideoMAEModel(cfg)(px)
     from smb_vision_tpu_torch.cli import run_classification
     from smb_vision_tpu_torch.models.layers import Block
 

@@ -1,5 +1,5 @@
 """The PyTorch port's ops against the JAX package on the CPU: attention and
-MLP (the plain versions that stand beside kernels K1, K2, K3 and K6),
+MLP (the plain versions that stand beside kernels K1, K2, K3, K6 and K8),
 patches and the sincos table. The JAX side runs its Pallas kernels in
 interpret mode, as its own tests do. Inputs come from numpy seeds."""
 
@@ -115,10 +115,51 @@ def test_int8_attention_matches_pallas_int8_kernel(n):
     assert _rel(out.float(), f32) < 2e-2
 
 
+@pytest.mark.parametrize("n", [256, 100])
+def test_int8pv_attention_matches_pallas_int8pv_kernel(n):
+    """K8's plain version (int8 scores and int8 p v, p requantised per
+    64-key sub-block) against the JAX kernel (interpret, block_k 64, so its
+    sub-block is 64 too): within 1e-2 of max, and within 3e-2 of float32
+    attention, the JAX package's own bound for this impl."""
+    q, k, v = (_bf16(x) for x in _qkv(7, n=n))
+    ref = jattn.attention(*map(_from_bf16, (q, k, v)), impl="pallas_int8pv",
+                          interpret=True, block_q=64, block_k=64)
+    before = tattn.flash_attention_int8pv.launches
+    out = tattn.attention(q, k, v, impl="pallas_int8pv")
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert tattn.flash_attention_int8pv.launches == before  # cpu: plain
+    assert _rel(out.float(), ref) < 1e-2
+    f32 = jattn.xla_attention(*(x.float().numpy() for x in (q, k, v)))
+    assert _rel(out.float(), f32) < 3e-2
+
+
+def test_int8pv_kernel_layout_of_v():
+    """The v8 layout K8 reads: (B, H, D, N_pad), zeros past N, and within
+    each 32 keys key half*16 + hi*8 + 2t + lo at half*16 + 4t + 2hi + lo."""
+    n = 100
+    v8 = torch.arange(n, dtype=torch.int64).reshape(1, n, 1, 1) \
+        .expand(1, n, 2, 3) % 127
+    vt = tattn.quantize_v_kernel_layout(v8.to(torch.int8))
+    assert vt.shape == (1, 2, 3, 128) and vt.is_contiguous()
+    for pos in range(128):
+        half, t, hi, lo = pos // 16 % 2, pos % 16 // 4, pos % 4 // 2, pos % 2
+        key = pos // 32 * 32 + half * 16 + hi * 8 + 2 * t + lo
+        want = key % 127 if key < n else 0
+        assert int(vt[0, 1, 2, pos]) == want, pos
+
+
 def test_attention_impl_names():
     q, k, v = (_bf16(x) for x in _qkv(6, n=16))
-    with pytest.raises(NotImplementedError, match="K8"):
-        tattn.attention(q, k, v, impl="pallas_int8pv")
+    # K8 runs (its plain version on the CPU) and, like K3, has no backward
+    out = tattn.attention(q, k, v, impl="pallas_int8pv")
+    assert out.shape == q.shape and bool(out.float().isfinite().all())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tattn.attention(q.requires_grad_(), k, v, impl="pallas_int8pv")
+    q = q.detach()
+    # the int8-forward spellings coerce to K1 where lse2 is wanted
+    a, la = tattn.attention_with_lse(q, k, v, impl="pallas_int8pv")
+    b, lb = tattn.attention_with_lse(q, k, v, impl="pallas")
+    assert torch.equal(a, b) and torch.equal(la, lb)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.attention(q, k, v, impl="pallas_int8_pv")
     with pytest.raises(NotImplementedError, match="bias"):
