@@ -4,15 +4,29 @@ V-JEPA2-pretraining and fine-tuning paths, and the opt-in int8 p v
 attention and attention-glue paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OTHER   # OTHER: e.g. the parent commit
+                                            # unpacked by `git archive`
 
-Phases, each of which fails the run (non-zero exit, no result line) on any
-error:
+With --against, phases 1 and 2 run, then `phase_against`: the other
+checkout's kernel library is built too, the kernels this tree did not
+change are compared with it by SASS and bit for bit, and the flash
+kernels, leg A's model and the MIM step are timed with either library in
+turns, in one process; the last line is the JSON of the mean times.
+
+Phases of the run without arguments, each of which fails the run
+(non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
-  2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`;
+  2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
+     print the ptxas report, and count the wgmma (HGMMA) and TMA (UTMALDG)
+     instructions of K1 and K4 in the SASS (cuobjdump, where the toolkit
+     has it): none of either fails the run;
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
-     plain one; then the training kernels (K4, K5a, K5b) at the MIM
-     encoder's and decoder's shapes and a ragged one; then the V-JEPA
+     plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
+     and factor against SDPA, and K1 with its exp2 floor, which at head
+     width 64 is as long as its tensor floor); then the training kernels
+     (K4, K5a, K5b) at the MIM encoder's and decoder's shapes and a ragged
+     one; then the V-JEPA
      shapes: the int8-score backward K7 at the encoder's, the predictor's,
      the reference-head encoder's and two ragged shapes (timed beside its
      plain version and K4), K1 and K3 at head width 128, and K5a, K5b and
@@ -79,6 +93,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -255,6 +270,29 @@ def attn_bytes(b: int, n: int, h: int, d: int, tensors: int) -> float:
     return tensors * b * n * h * d * 2 + b * h * n * 4
 
 
+def rate_line(table: dict, name: str, shape: str, flops: float) -> None:
+    """The kept time's achieved rate, its share of the bound and its factor
+    against the library call's time."""
+    rec = table[name]
+    log(f"rate {name:<16} {shape}: {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{rec['bound_ms'] / rec['ms']:.1%} of bound, "
+        f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's time")
+
+
+def exp2_floor_ms(n: int, h: int) -> float:
+    """The least time of the N^2*H exp2 of one flash forward or backward
+    pass on the card's multi-function units: 16 a clock on each SM, at the
+    card's highest SM clock."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n * n * h / (16 * sms * mhz * 1e6) * 1e3
+
+
 def sdpa_ms(q, k, v, do=None) -> float:
     """The library call: F.scaled_dot_product_attention on the same
     inputs (forward), or its backward alone when do is given."""
@@ -298,6 +336,51 @@ def phase_device() -> str:
     return card
 
 
+# the wgmma kernels (K1; K4, both passes in one kernel) and the SASS
+# instructions that show they run on Hopper's warpgroup MMA (HGMMA) fed by
+# TMA (UTMALDG)
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
+SM90_SASS = ("HGMMA", "UTMALDG")
+
+
+def sass_listing(lib: Path) -> dict:
+    """{mangled kernel name: its SASS instructions, addresses and encodings
+    dropped} of a built library, by cuobjdump where the toolkit has it
+    (else {})."""
+    from smb_vision_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        log("cuobjdump not in the toolkit: SASS check skipped")
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            funcs[name] = []
+        elif name:
+            ins = line.split("/*")[1].split("*/")[1] if "/*" in line else ""
+            if ins.strip():
+                funcs[name].append(ins.strip())
+    return funcs
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: {instruction: count}} of the SM90_KERNELS in the built
+    library (empty without cuobjdump)."""
+    counts = {}
+    for fn, body in sass_listing(lib).items():
+        name = next((k for k in SM90_KERNELS if k in fn), None)
+        if name:
+            got = counts.setdefault(name, dict.fromkeys(SM90_SASS, 0))
+            for op in SM90_SASS:
+                got[op] += sum(ins.startswith(op) or f" {op}" in ins
+                               for ins in body)
+    return counts
+
+
 def phase_build() -> None:
     from smb_vision_tpu_torch.ops import _build
 
@@ -309,6 +392,14 @@ def phase_build() -> None:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error")):
             log(f"  ptxas: {line.strip()}")
+    counts = sass_counts(path)
+    for name in SM90_KERNELS if counts else ():
+        got = counts.get(name, dict.fromkeys(SM90_SASS, 0))
+        log(f"  sass {name}: " + ", ".join(f"{op} {n}"
+                                            for op, n in got.items()))
+        if not all(got.values()):
+            raise AssertionError(f"{name}: no {SM90_SASS} instructions in "
+                                 "the build; the wgmma path is not what runs")
 
 
 def _attn_inputs(n: int, gen, dev):
@@ -391,6 +482,12 @@ def phase_kernels() -> dict:
             nb = attn_bytes(1, n, HEADS, HEAD_DIM, 4)
             set_bound(table, "flash_fwd", f"N={n}", 2 * pv, nb)
             set_bound(table, "flash_fwd_i8", f"N={n}", pv, nb, int8_ops=pv)
+            rate_line(table, "flash_fwd", f"N={n}", 2 * pv)
+            # at d 64 the exp2 floor is as long as the tensor floor, so K1
+            # reaches the bound only if its exp2 runs under its GEMMs
+            log(f"exp2 floor flash_fwd N={n}: "
+                f"{exp2_floor_ms(n, HEADS):.3f} ms beside the tensor floor "
+                f"{table['flash_fwd']['bound_ms']:.3f} ms")
         del q, k, v, out, ref, out8
 
         x, lnw, lnb, w1, b1, w2, b2 = _mlp_inputs(n, gen, dev)
@@ -487,6 +584,8 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
             set_bound(table, "flash_bwd", f"N={n} H={h}",
                       10 * n * n * HEAD_DIM * h,
                       attn_bytes(1, n, h, HEAD_DIM, 8))
+            rate_line(table, "flash_bwd", f"N={n} H={h}",
+                      10 * n * n * HEAD_DIM * h)
         del q, k, v, do, out, lse
 
     for m, kd, f, label in ((ENC_N, HIDDEN, FFN, "encoder"),
@@ -1898,6 +1997,154 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
     table["swiglu_block_fwd"]["launches"] = counts["swiglu_block_fwd"]
 
 
+# the kernels this PR left alone, by a part of their mangled names: K3
+# (flash_fwd_kernel<D, true>), K8, K7's two passes
+UNCHANGED = {f"{k} d{d}": name.format(d=d)
+             for d in (64, 128)
+             for k, name in (("K3", "flash_fwd_kernelILi{d}ELb1E"),
+                             ("K8", "flash_fwd_i8pv_kernelILi{d}E"),
+                             ("K7 dq", "flash_bwd_i8_dq_kernelILi{d}E"),
+                             ("K7 dk/dv", "flash_bwd_i8_dkv_kernelILi{d}E"))}
+
+
+def build_library(root: Path) -> Path:
+    """Build the kernel library of the checkout at root with its own
+    package, in a process of its own; returns the library's path."""
+    out = subprocess.run(
+        [sys.executable, "-c", "from smb_vision_tpu_torch.ops import _build; "
+         "print(_build.build())"], cwd=root, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(root)},
+        timeout=900, check=True)
+    return Path(out.stdout.strip().splitlines()[-1])
+
+
+def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
+    """This checkout's kernels against another checkout's (the parent
+    commit unpacked by `git archive`), in one process: this package's
+    wrappers call either library. The kernels this PR left alone
+    (UNCHANGED) are compared by SASS and by output, bit for bit; then, in
+    turns (other, this, this, other a round), the flash kernels at their
+    table shapes, leg A's model (bf16 encoder, batch 4) and the MIM step
+    of the preset at batch 1 and 2 are timed. Returns the mean of each
+    time per side."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
+    from smb_vision_tpu_torch.ops import _build
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+
+    paths = {"other": build_library(other), "this": _build.build()}
+    libs = {"other": _build.bind(paths["other"]), "this": _build.lib()}
+    sass = {side: sass_listing(path) for side, path in paths.items()}
+    if all(sass.values()):
+        for label, name in UNCHANGED.items():
+            other, this = (next((b for fn, b in sass[side].items()
+                                 if name in fn), None)
+                           for side in ("other", "this"))
+            log(f"against: SASS {label}: " + (
+                "missing" if other is None or this is None else
+                "identical" if other == this else "differs"))
+    dev = torch.device("cuda")
+
+    def inputs(seed, shape):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [(torch.randn(shape, generator=gen, device=dev) * 0.4).to(
+            torch.bfloat16) for _ in range(4)]
+
+    emb = inputs(0, (1, MAIN_N, HEADS, HEAD_DIM))
+    enc = inputs(1, (1, ENC_N, HEADS, HEAD_DIM))
+    dec = inputs(1, (1, MAIN_N, DEC_HEADS, HEAD_DIM))
+    vj = inputs(2, (1, VJ_N, 8, 128))
+    vj_ref, vj_lse = A.xla_attention(*vj[:3], with_lse=True)
+    fwd_lse = {name: A.flash_attention(*x[:3], with_lse=True)
+               for name, x in (("enc", enc), ("dec", dec))}
+    outs = {}
+    for side, handle in libs.items():
+        _build._lib = handle
+        outs[side] = [A.flash_attention_int8(*emb[:3]),
+                      A.flash_attention_int8pv(*emb[:3]),
+                      A.flash_attention_int8(*vj[:3]),
+                      A.flash_attention_int8pv(*vj[:3]),
+                      *A.flash_attention_bwd_i8(*vj[:3], vj_ref, vj_lse,
+                                                vj[3])]
+    same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+    log(f"against: K3, K8 and K7 outputs at d 64 and 128 bit for bit "
+        f"equal: {same}")
+    del outs
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.rand((4, 320, 1, 512, 512), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(4)]
+    model = VideoMAEModel(VideoMAEConfig(
+        image_size=512, num_frames=320, hidden_size=HIDDEN,
+        num_hidden_layers=12, num_attention_heads=HEADS,
+        intermediate_size=FFN, dtype="bfloat16")).init_weights(
+            torch.Generator().manual_seed(0)).to(dev).eval()
+    cfg, preset = mim_config()
+    mim = {}
+    for bs in (1, 2):
+        _, init_fn, step_fn, _ = make_mim_workload(
+            cfg, mask_patch_size=preset["mask_patch_size"],
+            mask_ratio=preset["mask_ratio"], tx=functools.partial(
+                make_optimizer, learning_rate=preset["learning_rate"],
+                total_steps=100, warmup_ratio=preset["warmup_ratio"],
+                weight_decay=preset["weight_decay"]), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        mim[bs] = (init_fn(0), step_fn, [
+            torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
+                        cfg.image_size), generator=gen, device=dev)
+            for _ in range(4)])
+
+    def encode():
+        with torch.inference_mode():
+            for px in batches[1:]:
+                model(px)
+
+    def mim_steps(bs):
+        state, step_fn, pxs = mim[bs]
+        for i in range(1, 4):
+            step_fn(state, {"pixel_values": pxs[i]}, step_generator(0, i))
+
+    (q, k, v, _), (eq, ek, ev, edo), (dq_, dk_, dv_, ddo) = emb, enc, dec
+    probes = {
+        "K1 embed": lambda: A.flash_attention(q, k, v),
+        "K3 embed": lambda: A.flash_attention_int8(q, k, v),
+        "K3 V-JEPA d 128": lambda: A.flash_attention_int8(*vj[:3]),
+        "K8 embed": lambda: A.flash_attention_int8pv(q, k, v),
+        "K4 MIM encoder": lambda: A.flash_attention_bwd(
+            eq, ek, ev, *fwd_lse["enc"], edo),
+        "K4 MIM decoder": lambda: A.flash_attention_bwd(
+            dq_, dk_, dv_, *fwd_lse["dec"], ddo),
+        "K7 V-JEPA encoder": lambda: A.flash_attention_bwd_i8(
+            *vj[:3], vj_ref, vj_lse, vj[3]),
+    }
+    times = {side: {} for side in libs}
+    for r in range(rounds):
+        for side in ("other", "this", "this", "other"):
+            _build._lib = libs[side]
+            got = times[side]
+            for name, fn in probes.items():
+                got.setdefault(name + " ms", []).append(cuda_ms(fn, iters=10))
+            got.setdefault("leg A vol/s", []).append(
+                4 * 3 * 1e3 / cuda_ms(encode, iters=1, warmup=1))
+            for bs in (1, 2):
+                got.setdefault(f"MIM step batch {bs} ms", []).append(
+                    cuda_ms(lambda: mim_steps(bs), iters=1, warmup=1) / 3)
+    _build._lib = libs["this"]
+    means = {side: {k: sum(v) / len(v) for k, v in got.items()}
+             for side, got in times.items()}
+    for key in means["this"]:
+        log(f"against {key:<26} other {means['other'][key]:9.3f}  this "
+            f"{means['this'][key]:9.3f}  (runs: other "
+            f"{[round(x, 3) for x in times['other'][key]]}, this "
+            f"{[round(x, 3) for x in times['this'][key]]}) on {card}")
+    return means
+
+
 def main() -> int:
     import torch
 
@@ -1908,6 +2155,11 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--against"]:
+        # python3 chip_smoke.py --against OTHER_CHECKOUT: phase_against only
+        print(json.dumps({"against": str(sys.argv[2]), "means": phase_against(
+            Path(sys.argv[2]).resolve(), card)}))
+        return 0
     table = phase_kernels()
     work = ROOT / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)

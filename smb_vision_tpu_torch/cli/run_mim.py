@@ -46,6 +46,12 @@ class DataTrainingArguments:
     max_eval_samples: Optional[int] = None
     cache_data_dir: Optional[str] = field(
         default=None, metadata={"help": "not ported yet"})
+    cache_dtype: str = field(
+        default="float32",
+        metadata={"help": "on-disk dtype for cached volumes; float16 halves "
+                          "disk/IO bytes (~1e-4 rounding on [0,1] values). "
+                          "Read only with --cache_data_dir, which is not "
+                          "ported yet"})
     num_workers: int = 8
     device_cache: bool = field(
         default=False, metadata={"help": "not ported yet"})
@@ -81,6 +87,11 @@ class ModelArguments:
                             metadata={"help": "not ported yet"})
     pipeline_stages: int = field(
         default=1, metadata={"help": "values above 1 are not ported yet"})
+    pipeline_microbatches: int = field(
+        default=0,
+        metadata={"help": "microbatches per step through the pipeline (0 = "
+                          "per_device_train_batch_size). Read only with "
+                          "--pipeline_stages > 1, which is not ported yet"})
 
 
 def build_config(model_args: ModelArguments):

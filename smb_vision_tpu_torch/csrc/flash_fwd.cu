@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) and int8
-// scores (K3), one templated body; int8 scores and int8 p v (K8), a sibling
-// kernel further down with its own note.
+// Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) on wgmma,
+// TMA and warp specialisation; int8 scores (K3) and int8 scores with int8
+// p v (K8) on mma.sync, further down with their own notes.
 //
 // Replaces
 //   K1  smb_vision_tpu/ops/attention.py:_fwd_kernel      (bf16 flash forward)
@@ -17,26 +17,36 @@
 // accumulated o^T against [v | 1 | pad]; both were MXU tiling choices and
 // are not carried over: the denominator is a plain row sum here.
 //
-// Bound on the H100: at N = 20,480, d = 64 the kernel does 4*N^2*d flops per
-// head against O(N*d) bytes of q, k, v, so device memory is never the
-// limit; tensor-core issue, the exp2 work on the f32 scores, and the
-// shared-memory traffic that feeds the tensor cores are. The design:
-//   - one block = 8 warps = 128 query rows of one (batch, head); each warp
-//     owns 16 rows and keeps its q fragments, its 16 x 64 score tile and
-//     its 16 x d o accumulator in registers, in the mma.sync m16n8k16
-//     (bf16) or m16n8k32 (s8) fragment layouts; 128 rows per block halve
-//     the k/v tile traffic per query row against 64;
-//   - the f32 score fragments convert in registers into the A operand of
-//     the p.v product (the C layout of m16n8 equals the A layout of
-//     m16n8k16), so p never touches shared memory;
-//   - k and v stream through shared memory in 64-row tiles, two stages
-//     deep, by cp.async, so the next tile's copy overlaps this tile's math;
-//   - B fragments come by ldmatrix: k (row-major) as is, v (row-major) with
-//     .trans, so v needs no transposing store; rows are padded by 16 bytes
-//     so the 8 row addresses of each ldmatrix hit distinct banks.
-// Ragged lengths: q rows past Nq load as zero and are not stored; k and v
-// rows past Nk are zero-filled by cp.async and their scores masked to -inf.
-// Not yet done (later work): wgmma, TMA, warp specialisation.
+// K1. Bound on the H100: at N = 20,480, d = 64 the kernel does 4*N^2*d
+// flops per head against O(N*d) bytes of q, k, v, so device memory is never
+// the limit: the tensor cores are (1.30 ms at 989 TFLOP/s, 12 heads), and
+// at d = 64 the exp2 work is as long again (N^2*H = 5.0e9 ex2 at 16 a
+// clock on each of 132 SMs is about 1.3 ms), so the two must overlap. The
+// design (after FlashAttention-3, arXiv 2407.08608):
+//   - a block owns 128 query rows of one (batch, head): warpgroup 0 is the
+//     producer, of which one thread issues TMA loads (q once; k and v in
+//     tiles of BN keys through a ring of 4 stages with full and empty
+//     mbarriers; keys past Nk read as zero); warpgroups 1 and 2 are the
+//     consumers, 64 query rows each; setmaxnreg moves registers from the
+//     producer (40) to the consumers (232);
+//   - S = Q K^T is a wgmma with both operands in shared memory (one read of
+//     a k tile serves 64 rows, where mma.sync fed by ldmatrix read it per
+//     16 rows); O += P V takes P from registers (the accumulator of S,
+//     rounded to bf16, is the A fragment) and V as an MN-major operand, so
+//     neither p nor a transposed v touches shared memory;
+//   - inside a warpgroup, tile j+1's S wgmma is issued with tile j's P V
+//     before tile j+1's softmax, which runs while the tensor cores work;
+//     across the two warpgroups, named barriers take turns at issuing
+//     (ping-pong), so one warpgroup's exp2 runs under the other's GEMMs;
+//   - the running max m is kept raw and c is folded into the exp2's FFMA.
+// Ragged lengths: q rows past Nq read as zero and are not stored; keys past
+// Nk read as zero and their scores are masked to -inf.
+//
+// K3 keeps the mma.sync design, the I8 instantiation of flash_fwd_kernel
+// below (its bf16 branches are K1's former body, no longer instantiated):
+// 8 warps x 16 query rows, k and v streamed in 64-row tiles by cp.async,
+// two stages; B fragments by ldmatrix; p in registers as the A operand of
+// p v.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +54,7 @@
 #include <stdint.h>
 
 #include "ptx.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -550,6 +561,250 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 on wgmma (see the note at the top).
+
+template <int D>
+struct FwdTiles {
+  static constexpr int BM = 128;                 // query rows a block owns
+  static constexpr int BN = D == 64 ? 128 : 64;  // keys of a streamed tile
+  static constexpr int STAGES = 4;
+  static constexpr int PANELS = D / 64;          // 64-column panels
+  static constexpr int Q_BYTES = PANELS * BM * 128;
+  static constexpr int KV_BYTES = PANELS * BN * 128;  // k or v of one tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int BARS = (2 * STAGES + 1) * 8;
+  static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE + BARS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(3 * kWG, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const FlashParams p) {
+  using T = FwdTiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
+  extern __shared__ char smem_raw[];
+  char* qs = align1024(smem_raw);
+  char* kv = qs + T::Q_BYTES;  // stage s: k panels, then v panels
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + ST * T::STAGE);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * BM;
+  const int ntiles = (p.Nk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {  // producer warpgroup: one thread issues TMA
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_expect_tx(qbar, T::Q_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < T::PANELS; ++pn)
+        tma_load_4d(qs + pn * BM * 128, &tq, qbar, pn * 64, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE);
+        char* ks = kv + s * T::STAGE;
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          tma_load_4d(ks + pn * BN * 128, &tk, &full[s], pn * 64, h, it * BN,
+                      b);
+          tma_load_4d(ks + T::KV_BYTES + pn * BN * 128, &tv, &full[s],
+                      pn * 64, h, it * BN, b);
+        }
+      }
+    }
+  } else {  // consumer warpgroups cw = 0, 1: 64 query rows each
+    reg_alloc<232>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
+    const float c = p.scale_log2;
+    const uint32_t qa = smem_u32(qs) + cw * 64 * 128;
+    const uint32_t kva = smem_u32(kv);
+
+    // ping-pong: warpgroup cw issues its GEMMs between a sync on barrier
+    // 1 + cw and an arrive on the other's; warpgroup 0 goes first, and
+    // warpgroup 1 skips its last arrive so the counts balance
+    auto turn_begin = [&]() { named_sync(1 + cw, kConsumers); };
+    auto turn_end = [&](bool last) {
+      if (!(last && cw == 1)) named_arrive(2 - cw, kConsumers);
+    };
+    if (cw == 1) named_arrive(1, kConsumers);
+
+    float s[BN / 2], o[D / 2];
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    auto issue_s = [&](int it) {  // s = q k^T over d
+      const uint32_t ka = kva + (it % ST) * T::STAGE;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BN, 0>(
+            s, desc_sw128(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32),
+            desc_sw128(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32), kk > 0);
+    };
+    auto issue_pv = [&](int it) {  // o += p v over the tile's keys
+      const uint32_t va = kva + (it % ST) * T::STAGE + T::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<D, 1>(o, pa[kk], desc_sw128(va + kk * 2048, BN * 128), 1);
+    };
+    // online softmax of tile it: s := p = exp2(s c - m c) (f32); returns
+    // the rescale factors of the old rows in a0, a1 and their new sums
+    auto softmax = [&](int it, float& a0, float& a1, float& rs0,
+                       float& rs1) {
+      const int kv0 = it * BN;
+      if (kv0 + BN > p.Nk) {  // ragged kv tail
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kv0 + j * 8 + 2 * t + (e & 1) >= p.Nk) s[4 * j + e] = -INFINITY;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      a0 = ex2((m0 - mx0) * c);  // 0 on the first tile (m = -inf)
+      a1 = ex2((m1 - mx1) * c);
+      m0 = mx0;
+      m1 = mx1;
+      const float mc0 = m0 * c, mc1 = m1 * c;
+      rs0 = 0.f;
+      rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], c, -mc0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], c, -mc0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], c, -mc1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], c, -mc1));
+        rs0 += s[4 * j] + s[4 * j + 1];
+        rs1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+    };
+
+    mbar_wait(qbar, 0);
+    float a0, a1, rs0, rs1;
+    // tile 0: its scores alone
+    mbar_wait(&full[0], 0);
+    turn_begin();
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0, a0, a1, rs0, rs1);
+    l0 = rs0;
+    l1 = rs1;
+    acc_to_a<BN>(pa, s);
+
+    for (int it = 1; it < ntiles; ++it) {
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      turn_begin();
+      wgmma_fence();
+      issue_s(it);
+      wgmma_commit();
+      issue_pv(it - 1);
+      wgmma_commit();
+      turn_end(false);
+      wgmma_wait<1>();  // s of tile it is in; p v of tile it - 1 runs on
+      fence_regs(s);
+      softmax(it, a0, a1, rs0, rs1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&empty[(it - 1) % ST]);  // k and v of tile it - 1 done
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+      acc_to_a<BN>(pa, s);
+    }
+    turn_begin();
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_commit();
+    turn_end(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float safe0 = l0 == 0.f ? 1.f : l0, safe1 = l1 == 0.f ? 1.f : l1;
+    const float inv0 = 1.f / safe0, inv1 = 1.f / safe1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= inv0;
+      o[4 * j + 1] *= inv0;
+      o[4 * j + 2] *= inv1;
+      o[4 * j + 3] *= inv1;
+    }
+    store_acc<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, o, 1.f, r0, p.Nq, t);
+    if (p.lse != nullptr && t == 0) {
+      float* lb = p.lse + (long long)bh * p.Nq;
+      if (r0 < p.Nq) lb[r0] = m0 * c + log2f(safe0);
+      if (r0 + 8 < p.Nq) lb[r0 + 8] = m1 * c + log2f(safe1);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
+                        cudaStream_t stream) {
+  using T = FwdTiles<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, p.q, B, p.Nq, p.H, D, p.q_sb, p.q_sn,
+                             p.q_sh, T::BM);
+  if (err == cudaSuccess)
+    err = make_map(&tk, p.k, B, p.Nk, p.H, D, p.k_sb, p.k_sn, p.k_sh, T::BN);
+  if (err == cudaSuccess)
+    err = make_map(&tv, p.v, B, p.Nk, p.H, D, p.v_sb, p.v_sn, p.v_sh, T::BN);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Nq + T::BM - 1) / T::BM, BH);
+  kernel<<<grid, 3 * kWG, T::BYTES, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_pv(const PvParams& p, int BH, cudaStream_t stream) {
   auto kernel = flash_fwd_i8pv_kernel<D>;
@@ -578,7 +833,9 @@ cudaError_t launch(const FlashParams& p, int BH, cudaStream_t stream) {
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
 // int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
-// otherwise K1 (q, k bf16, scores scaled by scale_log2). v and o are bf16.
+// otherwise K1 (q, k bf16, scores scaled by scale_log2; q, k and v are read
+// by TMA, so their base pointers and strides must be 16-byte multiples).
+// v and o are bf16.
 // Returns a cudaError_t (0 on success).
 extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
                              const void* sq, const void* sk, void* o,
@@ -609,8 +866,8 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
     if (D == 64) return (int)launch<64, true>(p, BH, s);
     if (D == 128) return (int)launch<128, true>(p, BH, s);
   } else {
-    if (D == 64) return (int)launch<64, false>(p, BH, s);
-    if (D == 128) return (int)launch<128, false>(p, BH, s);
+    if (D == 64) return (int)launch_sm90<64>(p, B, BH, s);
+    if (D == 128) return (int)launch_sm90<128>(p, B, BH, s);
   }
   return (int)cudaErrorInvalidValue;
 }

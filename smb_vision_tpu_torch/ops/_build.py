@@ -3,8 +3,8 @@
 The kernels compile at first use with `nvcc` for `sm_90a` into a plain-C
 shared library, loaded with `ctypes`. The library lives in
 `smb_vision_tpu_torch/_build/<hash>/`, keyed by a hash of the sources, the
-shared header (`csrc/ptx.cuh`) and the flags, so an edited source rebuilds
-and an unchanged one loads in milliseconds. Importing this module builds and loads nothing.
+shared headers (`csrc/ptx.cuh`, `csrc/sm90.cuh`) and the flags, so an
+edited source rebuilds and an unchanged one loads in milliseconds. Importing this module builds and loads nothing.
 
 Every kernel launches on PyTorch's current stream, allocates nothing, and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an error.
@@ -26,7 +26,7 @@ CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
            "swiglu_fwd.cu", "attn_glue.cu")
-HEADERS = ("ptx.cuh",)
+HEADERS = ("ptx.cuh", "sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,34 +107,39 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            handle.smb_flash_fwd.argtypes = (
-                [_P] * 7 + [_I] * 6 + [_P, _F, _P])
-            handle.smb_flash_fwd.restype = _I
-            handle.smb_flash_fwd_i8pv.argtypes = (
-                [_P] * 7 + [_I] * 6 + [_P, _P])
-            handle.smb_flash_fwd_i8pv.restype = _I
-            handle.smb_flash_bwd.argtypes = (
-                [_P] * 9 + [_I] * 5 + [_P, _F, _F, _P])
-            handle.smb_flash_bwd.restype = _I
-            handle.smb_flash_bwd_i8.argtypes = (
-                [_P] * 14 + [_I] * 5 + [_P, _F, _P])
-            handle.smb_flash_bwd_i8.restype = _I
-            handle.smb_mlp_fwd.argtypes = (
-                [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P])
-            handle.smb_mlp_fwd.restype = _I
-            handle.smb_mlp_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
-            handle.smb_mlp_bwd.restype = _I
-            handle.smb_swiglu_fwd.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P]
-            handle.smb_swiglu_fwd.restype = _I
-            handle.smb_qkv_ln_fwd.argtypes = [_P] * 12 + [_I] * 2 + [_F, _P]
-            handle.smb_qkv_ln_fwd.restype = _I
-            handle.smb_out_res_fwd.argtypes = [_P] * 5 + [_I] * 2 + [_P]
-            handle.smb_out_res_fwd.restype = _I
-            handle.smb_error_string.argtypes = [_I]
-            handle.smb_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = bind(build())
         return _lib
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface."""
+    handle = ctypes.CDLL(str(path))
+    handle.smb_flash_fwd.argtypes = (
+        [_P] * 7 + [_I] * 6 + [_P, _F, _P])
+    handle.smb_flash_fwd.restype = _I
+    handle.smb_flash_fwd_i8pv.argtypes = (
+        [_P] * 7 + [_I] * 6 + [_P, _P])
+    handle.smb_flash_fwd_i8pv.restype = _I
+    handle.smb_flash_bwd.argtypes = (
+        [_P] * 9 + [_I] * 5 + [_P, _F, _F, _P])
+    handle.smb_flash_bwd.restype = _I
+    handle.smb_flash_bwd_i8.argtypes = (
+        [_P] * 14 + [_I] * 5 + [_P, _F, _P])
+    handle.smb_flash_bwd_i8.restype = _I
+    handle.smb_mlp_fwd.argtypes = (
+        [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P])
+    handle.smb_mlp_fwd.restype = _I
+    handle.smb_mlp_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    handle.smb_mlp_bwd.restype = _I
+    handle.smb_swiglu_fwd.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P]
+    handle.smb_swiglu_fwd.restype = _I
+    handle.smb_qkv_ln_fwd.argtypes = [_P] * 12 + [_I] * 2 + [_F, _P]
+    handle.smb_qkv_ln_fwd.restype = _I
+    handle.smb_out_res_fwd.argtypes = [_P] * 5 + [_I] * 2 + [_P]
+    handle.smb_out_res_fwd.restype = _I
+    handle.smb_error_string.argtypes = [_I]
+    handle.smb_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def check(rc: int, kernel: str) -> None:

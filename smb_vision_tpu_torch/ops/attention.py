@@ -5,9 +5,11 @@ the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
 stand behind them:
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
-  row logsumexp (replaces `_fwd_kernel`);
+  row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
+  TMA (`_tma_geometry`);
 - K4 `flash_attention_bwd` (`csrc/flash_bwd.cu`): its backward, dq and
-  dk/dv in two passes (replaces `_bwd_dq_kernel` and `_bwd_dkv_kernel`);
+  dk/dv in two passes (replaces `_bwd_dq_kernel` and `_bwd_dkv_kernel`),
+  on wgmma and TMA as K1;
 - K3 `flash_attention_int8` (`csrc/flash_fwd.cu`): the forward with `q k^T`
   on int8 with per-(batch, head) symmetric scales (replaces
   `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package;
@@ -209,6 +211,42 @@ def _check_qkv(q, k, v, qk_dtype):
                              f"{t.stride()}")
 
 
+# the TMA box K1 and K4 load: 64 bf16 columns (the 128-byte swizzle) by up
+# to 256 rows of one (batch, head)
+_TMA_BOX_COLS = 64
+_TMA_MAX_ROWS = 256
+
+
+def _tma_geometry(t, rows: int):
+    """The tensor map K1 and K4 build (`csrc/sm90.cuh::make_map`) for a bf16
+    (B, N, H, D) tensor read by TMA in boxes of `rows` rows: dims (D, H, N,
+    B), byte strides of H, N and B (a dim of size 1 is never stepped, so
+    its stride is 16), box (64, 1, rows, 1). TMA takes a 16-byte-aligned
+    base and stride multiples of 16 below 2^40; anything else raises here,
+    before the launch, instead of failing the descriptor encode."""
+    b, n, h, d = t.shape
+    if t.stride(-1) != 1 or d % _TMA_BOX_COLS:
+        raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
+                         f"{_TMA_BOX_COLS} and contiguous; got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    if not 1 <= rows <= _TMA_MAX_ROWS:
+        raise ValueError(f"TMA box rows {rows} outside 1..{_TMA_MAX_ROWS}")
+    if t.data_ptr() % 16:
+        raise ValueError("TMA needs a 16-byte-aligned base; got "
+                         f"{t.data_ptr() % 16} bytes past it")
+    dims = (d, h, n, b)
+    strides = []
+    for size, st in zip(dims[1:], (t.stride(2), t.stride(1), t.stride(0))):
+        nbytes = 16 if size == 1 else st * t.element_size()
+        if nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40:
+            raise ValueError(f"TMA needs byte strides that are multiples of "
+                             f"16 below 2^40; got strides {t.stride()} of a "
+                             f"{t.dtype} tensor")
+        strides.append(nbytes)
+    return {"dims": dims, "strides": tuple(strides),
+            "box": (_TMA_BOX_COLS, 1, rows, 1)}
+
+
 def needs_grad(*tensors) -> bool:
     """Whether autograd will differentiate a call on these tensors."""
     return torch.is_grad_enabled() and any(
@@ -279,6 +317,8 @@ def _flash_fwd(q, k, v, scale: float, with_lse: bool):
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
     _check_qkv(q, k, v, torch.bfloat16)
+    for t in (q, k, v):
+        _tma_geometry(t, 128)
     b, nq, h, d = q.shape
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
@@ -312,6 +352,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
         raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
+    for t in (q, k, v, do):
+        _tma_geometry(t, 128)
     delta = _delta(do, out, g_lse)
     lse = lse.float().contiguous()
     dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)

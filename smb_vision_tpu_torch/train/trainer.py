@@ -66,6 +66,7 @@ class TrainingArguments:
     resume_from_checkpoint: Optional[str] = None
     overwrite_output_dir: bool = False
     report_to: str = "none"
+    run_name: Optional[str] = None      # written into every metrics record
     vision_lr: Optional[float] = None
     merger_lr: Optional[float] = None
     sharding_policy: str = "dp"
@@ -143,7 +144,7 @@ class Trainer:
         self.out_dir = Path(args.output_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.ckpt_dir = self.out_dir / "checkpoints"
-        self.mlog = MetricLogger(self.out_dir)
+        self.mlog = MetricLogger(self.out_dir, run_name=args.run_name)
 
     # -- batches -----------------------------------------------------------
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,7 @@ import logging
 import sys
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 _FORMAT = "%(asctime)s - %(levelname)s - %(name)s - %(message)s"
 
@@ -29,9 +29,11 @@ def get_logger(name: str, level: int = logging.INFO) -> logging.Logger:
 
 class MetricLogger:
     """Console + `metrics.jsonl` metric sink: one JSON record a line, with
-    the wall time added as `time`."""
+    the wall time added as `time` and, when the run has a name, the name
+    as `run_name`."""
 
-    def __init__(self, out_dir):
+    def __init__(self, out_dir, run_name: Optional[str] = None):
+        self.run_name = run_name
         self.out_dir = Path(out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.out_dir / "metrics.jsonl"
@@ -40,6 +42,8 @@ class MetricLogger:
     def log(self, record: Dict) -> None:
         record = dict(record)
         record.setdefault("time", time.time())
+        if self.run_name:
+            record.setdefault("run_name", self.run_name)
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
         show = {k: (round(v, 5) if isinstance(v, float) else v)

@@ -136,3 +136,61 @@ def test_single_json_args_and_hf_flags(tmp_path):
         assert getattr(t, name) == getattr(j, name), name
     with pytest.raises(SystemExit):
         parse_args_into_dataclasses((InferenceArguments,), ["--fp16"])
+
+
+_CLI_ARG_CLASSES = {
+    "run_inference": ("InferenceArguments",),
+    "run_mim": ("ModelArguments", "DataTrainingArguments"),
+    "run_vjepa": ("ModelArguments", "DataTrainingArguments"),
+    "run_classification": ("ModelArguments", "DataTrainingArguments"),
+}
+# fields the port may have beyond the reference's
+_PORT_ONLY = {"device", "seed", "config_overrides"}
+_NEW_FLAGS = {"cache_dtype": ("float16", "float16"),
+              "run_name": ("r1", "r1"),
+              "pipeline_microbatches": ("4", 4)}
+
+
+@pytest.mark.parametrize("cli", sorted(_CLI_ARG_CLASSES))
+def test_cli_fields_match_reference(cli):
+    """Every dataclass field of the reference CLI's argument classes (and
+    of the trainers' TrainingArguments) is a field of the port's, and the
+    reference's flags of this kind parse in flag mode."""
+    import dataclasses
+    import importlib
+
+    from smb_vision_tpu.train.trainer import TrainingArguments as JTrain
+    from smb_vision_tpu_torch.train.trainer import TrainingArguments
+    from smb_vision_tpu_torch.utils.args import parse_args_into_dataclasses
+
+    jmod = importlib.import_module(f"smb_vision_tpu.cli.{cli}")
+    tmod = importlib.import_module(f"smb_vision_tpu_torch.cli.{cli}")
+    pairs = [(getattr(jmod, n), getattr(tmod, n))
+             for n in _CLI_ARG_CLASSES[cli]]
+    if cli != "run_inference":
+        pairs.append((JTrain, TrainingArguments))
+    for jcls, tcls in pairs:
+        jf = {f.name for f in dataclasses.fields(jcls)}
+        tf = {f.name for f in dataclasses.fields(tcls)}
+        assert jf - tf == set(), (cli, tcls.__name__, jf - tf)
+        assert tf - jf <= _PORT_ONLY, (cli, tcls.__name__, tf - jf)
+    classes = tuple(t for _, t in pairs)
+    names = {f.name for c in classes for f in dataclasses.fields(c)}
+    flags = {k: v for k, v in _NEW_FLAGS.items() if k in names}
+    if cli == "run_mim":
+        assert set(flags) == set(_NEW_FLAGS)
+    argv = [s for k, (text, _) in flags.items() for s in (f"--{k}", text)]
+    parsed = parse_args_into_dataclasses(classes, argv)
+    for k, (_, want) in flags.items():
+        got = [getattr(a, k) for a in parsed if hasattr(a, k)]
+        assert got == [want], (k, got)
+
+
+def test_run_name_is_in_every_metrics_record(tmp_path):
+    from smb_vision_tpu_torch.utils.logging import MetricLogger
+
+    MetricLogger(tmp_path / "a", run_name="r1").log({"step": 1})
+    MetricLogger(tmp_path / "b").log({"step": 1})
+    rec_a = json.loads((tmp_path / "a" / "metrics.jsonl").read_text())
+    rec_b = json.loads((tmp_path / "b" / "metrics.jsonl").read_text())
+    assert rec_a["run_name"] == "r1" and "run_name" not in rec_b

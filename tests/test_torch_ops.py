@@ -148,6 +148,51 @@ def test_int8pv_kernel_layout_of_v():
         assert int(vt[0, 1, 2, pos]) == want, pos
 
 
+def _tma_case(name):
+    """A bf16 (B, N, H, D) tensor as K1 and K4 receive it."""
+    if name == "contiguous":
+        return torch.zeros(2, 100, 3, 64, dtype=torch.bfloat16)
+    if name == "ragged_d128":
+        return torch.zeros(1, 1961, 8, 128, dtype=torch.bfloat16)
+    if name.startswith("fused_"):   # q, k or v of one (B, N, 3, H, D)
+        qkv = torch.zeros(2, 96, 3, 4, 64, dtype=torch.bfloat16)
+        return qkv.unbind(2)["qkv".index(name[-1])]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,rows,dims,strides", [
+    ("contiguous", 128, (64, 3, 100, 2), (128, 384, 38400)),
+    ("ragged_d128", 64, (128, 8, 1961, 1), (256, 2048, 16)),
+    ("fused_q", 128, (64, 4, 96, 2), (128, 1536, 147456)),
+    ("fused_k", 64, (64, 4, 96, 2), (128, 1536, 147456)),
+    ("fused_v", 32, (64, 4, 96, 2), (128, 1536, 147456)),
+])
+def test_tma_geometry(name, rows, dims, strides):
+    """The tensor map K1 and K4 encode: dims (D, H, N, B), the byte strides
+    of H, N and B (16 for a dim of size 1), box (64, 1, rows, 1). The
+    fused-qkv slices keep their strides: no copy is made for TMA."""
+    t = _tma_case(name)
+    geo = tattn._tma_geometry(t, rows)
+    assert geo == {"dims": dims, "strides": strides, "box": (64, 1, rows, 1)}
+    if name.startswith("fused_"):
+        assert not t.is_contiguous()
+
+
+def test_tma_geometry_refuses_misaligned_views():
+    x = torch.zeros(1, 64, 3, 68, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tattn._tma_geometry(x[..., :64], 64)      # 136-byte head stride
+    y = torch.zeros(1, 65, 2, 64, dtype=torch.bfloat16).flatten()
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        tattn._tma_geometry(y[1:1 + 64 * 2 * 64].view(1, 64, 2, 64), 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16),
+                            64)
+    with pytest.raises(ValueError, match="box rows"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16),
+                            512)
+
+
 def test_attention_impl_names():
     q, k, v = (_bf16(x) for x in _qkv(6, n=16))
     # K8 runs (its plain version on the CPU) and, like K3, has no backward
