@@ -9,28 +9,31 @@ attention and attention-glue paths, once on one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too, the kernels this tree did not
-change are compared with it by SASS and bit for bit, and the flash
-kernels, leg A's model and the MIM step are timed with either library in
-turns, in one process; the last line is the JSON of the mean times.
+change (K1, K4, K8, the MLP and glue kernels) are compared with it by SASS
+and bit for bit, and the flash kernels, legs A's and B's models and the
+MIM and V-JEPA steps are timed with either library in turns, in one
+process; the last line is the JSON of the mean times.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
-     print the ptxas report, and count the wgmma (HGMMA) and TMA (UTMALDG)
-     instructions of K1 and K4 in the SASS (cuobjdump, where the toolkit
-     has it): none of either fails the run;
+     print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4 and K7 in the SASS
+     (cuobjdump, where the toolkit has it): none of one that a kernel
+     should have fails the run (K3 and K7 need all three);
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
      and factor against SDPA, and K1 with its exp2 floor, which at head
-     width 64 is as long as its tensor floor); then the training kernels
-     (K4, K5a, K5b) at the MIM encoder's and decoder's shapes and a ragged
-     one; then the V-JEPA
-     shapes: the int8-score backward K7 at the encoder's, the predictor's,
-     the reference-head encoder's and two ragged shapes (timed beside its
-     plain version and K4), K1 and K3 at head width 128, and K5a, K5b and
-     K6 at the ViT-L MLP; then the SwiGLU half-block K9 at DINOv2-giant
+     width 64 is as long as its tensor floor; K3 beside K1 on the same
+     inputs, with that floor and its quantisation's time); then the
+     training kernels (K4, K5a, K5b) at the MIM encoder's and decoder's
+     shapes and a ragged one; then the V-JEPA shapes: the int8-score
+     backward K7 at the encoder's, the predictor's, the reference-head
+     encoder's and two ragged shapes (timed beside its plain version and
+     K4), K1 and K3 at head width 128 (K3 beside K1), and K5a, K5b and K6
+     at the ViT-L MLP; then the SwiGLU half-block K9 at DINOv2-giant
      batch 2 and ragged batch 1 and at the DINOv2-base shape (timed beside
      the cuBLAS chain, gradients through the recompute), and K1/K4 at
      DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
@@ -94,6 +97,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -336,11 +340,22 @@ def phase_device() -> str:
     return card
 
 
-# the wgmma kernels (K1; K4, both passes in one kernel) and the SASS
-# instructions that show they run on Hopper's warpgroup MMA (HGMMA) fed by
-# TMA (UTMALDG)
-SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
-SM90_SASS = ("HGMMA", "UTMALDG")
+# the wgmma kernels by a part of their mangled names (K1 and K3 are the two
+# instantiations of flash_fwd_sm90_kernel<D, I8>; K4 and K7 run both of
+# their passes in one kernel each), and the SASS instructions that show
+# they run on Hopper's warpgroup MMA, bf16 (HGMMA) and int8 (IGMMA), fed
+# by TMA (UTMALDG); a kernel without one of its instructions fails the
+# build phase
+SM90_KERNELS = {
+    f"{k} d{d}": (name.format(d=d), ops) for d in (64, 128)
+    for k, name, ops in (
+        ("K1", "flash_fwd_sm90_kernelILi{d}ELb0E", ("HGMMA", "UTMALDG")),
+        ("K3", "flash_fwd_sm90_kernelILi{d}ELb1E",
+         ("IGMMA", "HGMMA", "UTMALDG")),
+        ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
+        ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
+         ("IGMMA", "HGMMA", "UTMALDG")))}
+SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
 
 
 def sass_listing(lib: Path) -> dict:
@@ -372,12 +387,11 @@ def sass_counts(lib: Path) -> dict:
     library (empty without cuobjdump)."""
     counts = {}
     for fn, body in sass_listing(lib).items():
-        name = next((k for k in SM90_KERNELS if k in fn), None)
-        if name:
-            got = counts.setdefault(name, dict.fromkeys(SM90_SASS, 0))
-            for op in SM90_SASS:
-                got[op] += sum(ins.startswith(op) or f" {op}" in ins
-                               for ins in body)
+        label = next((k for k, (name, _) in SM90_KERNELS.items()
+                      if name in fn), None)
+        if label:
+            counts[label] = {op: sum(ins.startswith(op) or f" {op}" in ins
+                                     for ins in body) for op in SM90_SASS}
     return counts
 
 
@@ -390,16 +404,16 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {path.parent.name}")
     for line in (path.parent / "build.log").read_text().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
-                                   "error")):
+                                   "error", "C75")):
             log(f"  ptxas: {line.strip()}")
     counts = sass_counts(path)
-    for name in SM90_KERNELS if counts else ():
-        got = counts.get(name, dict.fromkeys(SM90_SASS, 0))
-        log(f"  sass {name}: " + ", ".join(f"{op} {n}"
-                                            for op, n in got.items()))
-        if not all(got.values()):
-            raise AssertionError(f"{name}: no {SM90_SASS} instructions in "
-                                 "the build; the wgmma path is not what runs")
+    for label, (_, ops) in SM90_KERNELS.items() if counts else ():
+        got = counts.get(label, dict.fromkeys(SM90_SASS, 0))
+        log(f"  sass {label}: " + ", ".join(f"{op} {n}"
+                                             for op, n in got.items()))
+        if not all(got[op] for op in ops):
+            raise AssertionError(f"{label}: no {ops} instructions in the "
+                                 "build; the wgmma path is not what runs")
 
 
 def _attn_inputs(n: int, gen, dev):
@@ -483,6 +497,7 @@ def phase_kernels() -> dict:
             set_bound(table, "flash_fwd", f"N={n}", 2 * pv, nb)
             set_bound(table, "flash_fwd_i8", f"N={n}", pv, nb, int8_ops=pv)
             rate_line(table, "flash_fwd", f"N={n}", 2 * pv)
+            k3_beside_k1(f"N={n} H={HEADS} d={HEAD_DIM}", q, k, v)
             # at d 64 the exp2 floor is as long as the tensor floor, so K1
             # reaches the bound only if its exp2 runs under its GEMMs
             log(f"exp2 floor flash_fwd N={n}: "
@@ -516,6 +531,21 @@ def phase_kernels() -> dict:
     phase_dinov2_kernels(table, gen, dev)
     phase_glue_kernels(table, gen, dev)
     return table
+
+
+def k3_beside_k1(shape: str, q, k, v) -> None:
+    """K3 beside K1 on the same inputs, with the exp2 floor the two share
+    and the time of the plain-torch quantisation K3's wrapper runs first."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ms3 = cuda_ms(lambda: A.flash_attention_int8(q, k, v), iters=8)
+    ms1 = cuda_ms(lambda: A.flash_attention(q, k, v), iters=8)
+    quant = cuda_ms(lambda: A.quantize_qk(q, k, scale), iters=8)
+    log(f"time flash_fwd_i8   {shape}: kernel {ms3:.3f} ms (of it the "
+        f"plain-torch quantisation {quant:.3f}), K1 on the same inputs "
+        f"{ms1:.3f} ms, exp2 floor {exp2_floor_ms(q.shape[1], q.shape[2]):.3f}"
+        f" ms (CUDA events)")
 
 
 def check_kernel(table: dict, name: str, what: str, out, ref, tol: float,
@@ -672,9 +702,11 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
                 q, k, v, out, lse, do, scale=scale), iters=2)
             k4_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, out, lse,
                                                           do))
-            log(f"time flash_bwd_i8   {label} {shape}: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, K4 on the same inputs "
-                f"{k4_ms:.3f} ms (CUDA events)")
+            quant = cuda_ms(lambda: A._i8_operands(q, k, v, do, scale))
+            log(f"time flash_bwd_i8   {label} {shape}: kernel {ms:.3f} ms "
+                f"(of it the plain-torch quantisation {quant:.3f}), plain "
+                f"{plain_ms:.3f} ms, K4 on the same inputs {k4_ms:.3f} ms "
+                f"(CUDA events)")
             if label == "encoder":
                 table["flash_bwd_i8"]["ms"] = ms
                 table["flash_bwd_i8"]["plain_ms"] = plain_ms
@@ -701,6 +733,7 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
                 lambda: A.flash_attention_int8(q, k, v),
                 lambda: A.int8_attention_plain(*A.quantize_qk(q, k, scale),
                                                v), 8, False)
+    k3_beside_k1(shape, q, k, v)
 
 
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
@@ -1997,14 +2030,94 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
     table["swiglu_block_fwd"]["launches"] = counts["swiglu_block_fwd"]
 
 
-# the kernels this PR left alone, by a part of their mangled names: K3
-# (flash_fwd_kernel<D, true>), K8, K7's two passes
-UNCHANGED = {f"{k} d{d}": name.format(d=d)
+# the kernels that must match the other checkout's, compared by SASS: K1,
+# K4 and K8 by a part of their mangled names (this tree's, the other's:
+# the parent commit names K1 flash_fwd_sm90_kernel<D>, this tree
+# flash_fwd_sm90_kernel<D, false>), and every kernel of the MLP and glue
+# sources (K2, K6, K5a, K5b, K9, K10a, K10b) by its whole name
+UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (64, 128)
-             for k, name in (("K3", "flash_fwd_kernelILi{d}ELb1E"),
-                             ("K8", "flash_fwd_i8pv_kernelILi{d}E"),
-                             ("K7 dq", "flash_bwd_i8_dq_kernelILi{d}E"),
-                             ("K7 dk/dv", "flash_bwd_i8_dkv_kernelILi{d}E"))}
+             for k, this, other in (
+                 ("K1", "flash_fwd_sm90_kernelILi{d}ELb0EE",
+                  "flash_fwd_sm90_kernelILi{d}EE"),
+                 ("K4", "flash_bwd_sm90_kernelILi{d}EE",
+                  "flash_bwd_sm90_kernelILi{d}EE"),
+                 ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
+                  "flash_fwd_i8pv_kernelILi{d}EE"))}
+UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "swiglu_fwd_cu",
+                     "attn_glue_cu")
+
+
+def _anon(name: str) -> str:
+    """A mangled name without the hashes of its anonymous namespace, which
+    differ between two checkouts of the same source."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}",
+                  r"_GLOBAL__N__\1", name)
+
+
+def compare_sass(sass: dict) -> None:
+    """Log whether each UNCHANGED kernel has the same SASS on both sides."""
+    for label, (this, other) in UNCHANGED.items():
+        a, b = (next((body for fn, body in sass[side].items() if name in fn),
+                     None) for side, name in (("this", this),
+                                              ("other", other)))
+        log(f"against: SASS {label}: " + (
+            "missing" if a is None or b is None else
+            "identical" if a == b else "differs"))
+    this = {_anon(fn): body for fn, body in sass["this"].items()
+            if any(src in fn for src in UNCHANGED_SOURCES)}
+    other = {_anon(fn): body for fn, body in sass["other"].items()}
+    same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
+    log(f"against: SASS of the MLP and glue kernels (K2, K6, K5a, K5b, K9, "
+        f"K10a, K10b): {len(same)} of {len(this)} functions identical"
+        + "".join(f"; differs or missing: {fn}"
+                  for fn in sorted(set(this) - set(same))))
+
+
+def unchanged_outputs(dev) -> list:
+    """The outputs of the UNCHANGED kernels on seeded inputs: K1 and K8 at
+    d 64 and 128, K4 at the MIM encoder's shape, and the MLP and glue
+    kernels at the embed shape (K9 at DINOv2-giant's)."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import attn_glue as G
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def r(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    bf = torch.bfloat16
+    outs = []
+    for n, h, d in ((MAIN_N, HEADS, HEAD_DIM), (VJ_N, 8, 128)):
+        q, k, v = (r(1, n, h, d, s=0.4, dtype=bf) for _ in range(3))
+        outs += [*A.flash_attention(q, k, v, with_lse=True),
+                 A.flash_attention_int8pv(q, k, v)]
+    q, k, v, do = (r(1, ENC_N, HEADS, HEAD_DIM, s=0.4, dtype=bf)
+                   for _ in range(4))
+    outs += A.flash_attention_bwd(q, k, v, *A.flash_attention(
+        q, k, v, with_lse=True), do)
+    x = r(MAIN_N, HIDDEN, dtype=bf)
+    lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
+    w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
+    w2 = r(HIDDEN, FFN, s=FFN ** -0.5, dtype=bf).t()
+    b1, b2 = r(FFN, s=0.1), r(HIDDEN, s=0.1)
+    y, hh = M.mlp_train_fused(x, w1, b1, w2, b2)
+    outs += [M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=1e-12),
+             M.mlp_fused(x, w1, b1, w2, b2), y, hh,
+             *M.mlp_bwd_fused(hh, r(MAIN_N, HIDDEN, dtype=bf), w1, w2)]
+    ws = [r(HIDDEN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t() for _ in range(4)]
+    bs = [r(HIDDEN, s=0.1) for _ in range(4)]
+    qkv = G.qkv_ln_fused(x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
+    outs += [*qkv, G.out_res_fused(x, qkv[2], ws[3], bs[3])]
+    m, kd, f = 2 * DINO_N, GIANT_K, GIANT_F
+    outs.append(M.swiglu_block_fused(
+        r(m, kd, dtype=bf), 1.0 + r(kd, s=0.1), r(kd, s=0.1),
+        r(2 * f, kd, s=kd ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
+        r(kd, f, s=f ** -0.5, dtype=bf).t(), r(kd, s=0.1), eps=1e-6))
+    return outs
 
 
 def build_library(root: Path) -> Path:
@@ -2021,12 +2134,14 @@ def build_library(root: Path) -> Path:
 def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
-    wrappers call either library. The kernels this PR left alone
-    (UNCHANGED) are compared by SASS and by output, bit for bit; then, in
-    turns (other, this, this, other a round), the flash kernels at their
-    table shapes, leg A's model (bf16 encoder, batch 4) and the MIM step
-    of the preset at batch 1 and 2 are timed. Returns the mean of each
-    time per side."""
+    wrappers call either library. The kernels that must match the other's
+    (UNCHANGED: K1, K4, K8 and the MLP and glue kernels) are compared by
+    SASS and by output, bit for bit; then, in turns (other, this, this,
+    other a round), the flash kernels at their table shapes (K3 at d 64
+    and 128, K7 at the V-JEPA encoder's and the reference head's), legs A's
+    and B's models (bf16 and int8 encoders, batch 4), the MIM step of the
+    preset at batch 1 and 2 and the V-JEPA step of its preset at batch 1
+    are timed. Returns the mean of each time per side."""
     import torch
 
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
@@ -2041,14 +2156,17 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     libs = {"other": _build.bind(paths["other"]), "this": _build.lib()}
     sass = {side: sass_listing(path) for side, path in paths.items()}
     if all(sass.values()):
-        for label, name in UNCHANGED.items():
-            other, this = (next((b for fn, b in sass[side].items()
-                                 if name in fn), None)
-                           for side in ("other", "this"))
-            log(f"against: SASS {label}: " + (
-                "missing" if other is None or this is None else
-                "identical" if other == this else "differs"))
+        compare_sass(sass)
     dev = torch.device("cuda")
+    outs = {}
+    for side, handle in libs.items():
+        _build._lib = handle
+        outs[side] = unchanged_outputs(dev)
+    same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
+    log(f"against: outputs of K1, K4, K8, K2, K6, K5a, K5b, K9, K10a and "
+        f"K10b bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
+        f"tensors)")
+    del outs
 
     def inputs(seed, shape):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2059,31 +2177,21 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     enc = inputs(1, (1, ENC_N, HEADS, HEAD_DIM))
     dec = inputs(1, (1, MAIN_N, DEC_HEADS, HEAD_DIM))
     vj = inputs(2, (1, VJ_N, 8, 128))
-    vj_ref, vj_lse = A.xla_attention(*vj[:3], with_lse=True)
+    ref = inputs(3, (1, VJ_N, 16, 64))
     fwd_lse = {name: A.flash_attention(*x[:3], with_lse=True)
-               for name, x in (("enc", enc), ("dec", dec))}
-    outs = {}
-    for side, handle in libs.items():
-        _build._lib = handle
-        outs[side] = [A.flash_attention_int8(*emb[:3]),
-                      A.flash_attention_int8pv(*emb[:3]),
-                      A.flash_attention_int8(*vj[:3]),
-                      A.flash_attention_int8pv(*vj[:3]),
-                      *A.flash_attention_bwd_i8(*vj[:3], vj_ref, vj_lse,
-                                                vj[3])]
-    same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-    log(f"against: K3, K8 and K7 outputs at d 64 and 128 bit for bit "
-        f"equal: {same}")
-    del outs
+               for name, x in (("enc", enc), ("dec", dec), ("vj", vj),
+                               ("ref", ref))}
 
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = [torch.rand((4, 320, 1, 512, 512), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(4)]
-    model = VideoMAEModel(VideoMAEConfig(
+    models = {leg: VideoMAEModel(VideoMAEConfig(
         image_size=512, num_frames=320, hidden_size=HIDDEN,
         num_hidden_layers=12, num_attention_heads=HEADS,
-        intermediate_size=FFN, dtype="bfloat16")).init_weights(
+        intermediate_size=FFN, dtype="bfloat16", **impls)).init_weights(
             torch.Generator().manual_seed(0)).to(dev).eval()
+        for leg, impls in (("A", {}), ("B", dict(attn_impl="pallas_int8",
+                                                 mlp_impl="pallas_bwd")))}
     cfg, preset = mim_config()
     mim = {}
     for bs in (1, 2):
@@ -2098,29 +2206,38 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
                         cfg.image_size), generator=gen, device=dev)
             for _ in range(4)])
+    vcfg, vpreset = vjepa_config()
+    _, vinit, vstep, _ = vjepa_workload(vcfg, vpreset, dev,
+                                        vpreset["teacher_attn_impl"])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    vjepa = (vinit(0), vstep, [
+        torch.rand((1, vcfg.frames_per_clip, 1, vcfg.crop_size,
+                    vcfg.crop_size), generator=gen, device=dev)
+        for _ in range(4)])
 
-    def encode():
+    def encode(leg):
         with torch.inference_mode():
             for px in batches[1:]:
-                model(px)
+                models[leg](px)
 
-    def mim_steps(bs):
-        state, step_fn, pxs = mim[bs]
+    def steps(state, step_fn, pxs):
         for i in range(1, 4):
             step_fn(state, {"pixel_values": pxs[i]}, step_generator(0, i))
 
     (q, k, v, _), (eq, ek, ev, edo), (dq_, dk_, dv_, ddo) = emb, enc, dec
     probes = {
         "K1 embed": lambda: A.flash_attention(q, k, v),
-        "K3 embed": lambda: A.flash_attention_int8(q, k, v),
+        "K3 embed d 64": lambda: A.flash_attention_int8(q, k, v),
         "K3 V-JEPA d 128": lambda: A.flash_attention_int8(*vj[:3]),
         "K8 embed": lambda: A.flash_attention_int8pv(q, k, v),
         "K4 MIM encoder": lambda: A.flash_attention_bwd(
             eq, ek, ev, *fwd_lse["enc"], edo),
         "K4 MIM decoder": lambda: A.flash_attention_bwd(
             dq_, dk_, dv_, *fwd_lse["dec"], ddo),
-        "K7 V-JEPA encoder": lambda: A.flash_attention_bwd_i8(
-            *vj[:3], vj_ref, vj_lse, vj[3]),
+        "K7 V-JEPA encoder d 128": lambda: A.flash_attention_bwd_i8(
+            *vj[:3], *fwd_lse["vj"], vj[3]),
+        "K7 reference head d 64": lambda: A.flash_attention_bwd_i8(
+            *ref[:3], *fwd_lse["ref"], ref[3]),
     }
     times = {side: {} for side in libs}
     for r in range(rounds):
@@ -2129,11 +2246,15 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             got = times[side]
             for name, fn in probes.items():
                 got.setdefault(name + " ms", []).append(cuda_ms(fn, iters=10))
-            got.setdefault("leg A vol/s", []).append(
-                4 * 3 * 1e3 / cuda_ms(encode, iters=1, warmup=1))
+            for leg in models:
+                got.setdefault(f"leg {leg} vol/s", []).append(
+                    4 * 3 * 1e3 / cuda_ms(lambda: encode(leg), iters=1,
+                                          warmup=1))
             for bs in (1, 2):
                 got.setdefault(f"MIM step batch {bs} ms", []).append(
-                    cuda_ms(lambda: mim_steps(bs), iters=1, warmup=1) / 3)
+                    cuda_ms(lambda: steps(*mim[bs]), iters=1, warmup=1) / 3)
+            got.setdefault("V-JEPA step batch 1 ms", []).append(
+                cuda_ms(lambda: steps(*vjepa), iters=1, warmup=1) / 3)
     _build._lib = libs["this"]
     means = {side: {k: sum(v) / len(v) for k, v in got.items()}
              for side, got in times.items()}

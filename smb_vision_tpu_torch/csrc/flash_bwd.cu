@@ -1,9 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 (K4) on wgmma, TMA and
-// warp specialisation, and with int8 score recompute (K7, below K4) on
-// mma.sync.
+// Flash-attention backward for Hopper (sm_90a): bf16 (K4) and with int8
+// score recompute (K7), both on wgmma, TMA and warp specialisation.
 //
 // Replaces
 //   K4  smb_vision_tpu/ops/attention.py:_bwd_dq_kernel and _bwd_dkv_kernel
+//   K7  smb_vision_tpu/ops/attention.py:_bwd_dq_i8_kernel and
+//       _bwd_dkv_i8_kernel (attn_impl "pallas_i8bwd")
 //
 // What it computes, per (batch, head), from q, k, v, do (bf16), the forward's
 // row logsumexp lse2 (log2 units) and delta_i = sum_d do_id * o_id (f32, both
@@ -17,8 +18,8 @@
 // in two passes with no atomics, as the TPU kernel has, so the result is
 // deterministic: a dq pass (a block owns 128 query rows and walks every kv
 // tile) and a dk/dv pass (a block owns 128 kv rows and walks every query
-// tile), in one grid (K4) or two (K7). The TPU kernel accumulated dq^T and dk^T transposed and pre-scaled
-// q by c; both were MXU choices and are not carried over.
+// tile), in one grid. The TPU kernel accumulated dq^T and dk^T transposed
+// and pre-scaled q by c; both were MXU choices and are not carried over.
 //
 // K4. Bound on the H100: the least work is 10*N^2*d flops per head (s, dp
 // and the three products dq, dk, dv) against O(N*d) bytes, so the tensor
@@ -48,6 +49,46 @@
 // Ragged lengths: rows past their length read as zero (TMA); in the dq
 // pass kv columns past Nk are masked to p = 0; rows a block owns past its
 // length are computed and not stored.
+//
+// K7 is K4 with the two recomputed products on int8: from per-(batch,
+// head) symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and
+// their scales, made in plain torch before the launch,
+//   s_ij  = (q8_i . k8_j) * sqk       sqk = sq*sk (log2 units)
+//   dp_ij = (do8_i . v8_j) * sdv      sdv = sdo*sv
+// then as K4: p = exp2(s - lse2), ds = bf16(p (dp - delta)),
+// dq = scale ds k, dk = scale ds^T q, dv = bf16(p)^T do, with k, q, do in
+// bf16 and f32 accumulation. Bound on the H100: s and dp on int8 at 1,979
+// TOP/s and dq, dk, dv on bf16 at 989 TFLOP/s, 0.70 ms of least work at
+// the V-JEPA encoder (N 9,216, 8 heads of 128); the two passes recompute
+// s and dp, so 4 of its 7 products run at the int8 rate. K4's design, and:
+//   - s, s^T, dp and dp^T are wgmma m64nNk32 .s32.s8.s8 with both operands
+//     K-major in shared memory (all four contract over d, along which q8,
+//     k8, v8 and do8 are contiguous: no transposed copy); an int8 tile holds
+//     whole rows, with the 64-byte swizzle at d 64 and the 128-byte one at
+//     d 128 (sm90.cuh). An s32 sum becomes a float by one integer add
+//     (i8_exponent), and its scale folds into the FFMA of the exponent and
+//     of dp - delta;
+//   - p and ds are written over the s32 accumulators of s and dp, as K4
+//     writes ds over s, so the consumers hold no third score array;
+//   - the producer streams int8 and bf16 tiles side by side: in the dq
+//     pass k8, v8 and the bf16 k (dq's B operand); in the dk/dv pass q8,
+//     do8 and the bf16 q and do (dk's and dv's). Shared memory at d 128:
+//     the dq pass owns q8 and do8 (2 x 16 KB) and a stage holds k8, v8 (8
+//     KB each) and k (16 KB), 32 KB; the dk/dv pass owns k8 and v8 (2 x 16
+//     KB) and a stage holds q8, do8 (4 KB each), q and do (8 KB each) and
+//     256 bytes of lse2 and delta. A ring of 4 stages, as K4's, is 161 KB
+//     and 130 KB of the 227 KB, so TMA runs up to three tiles ahead of
+//     the consumers; a deeper ring would fit the dk/dv pass only (not
+//     tried);
+//   - in the dk/dv pass the producer warp's lanes read each tile's lse2
+//     and delta into registers two tiles ahead of its stage, and lane 0
+//     issues the stage's TMA loads before the lanes store them: the loads'
+//     latency from L2 no longer holds up a stage. With the int8 products
+//     the consumers finish a tile sooner than K4's, and a producer that
+//     loaded the tile's lse2 only after the ring freed its stage, as K4's
+//     does, set the pace of the pass;
+//   - the bf16 operands k, q and do may be strided views (fused qkv), as
+//     K4's; the int8 ones are contiguous from the quantisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,10 +99,6 @@
 #include "sm90.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBR = 16 * kWarps;  // rows a K7 block owns (queries or keys)
 
 struct BwdParams {
   const char* q;
@@ -504,79 +541,8 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- mma.sync helpers of K7 ------------------------------------------------
-
-// out (16 x D) += P (16 x BT, f32 C fragments, rounded to bf16 here) . T,
-// with T the (BT, D) row-major tile in shared memory: one ldmatrix.x4.trans
-// brings the B fragments of two n8 tiles for one 16-row k-step
-template <int D, int NS, int ROW>
-__device__ __forceinline__ void col_products(float (&out)[D / 8][4],
-                                             const float (&pm)[NS][4],
-                                             const char* tile, int lane) {
-#pragma unroll
-  for (int c = 0; c < NS / 2; ++c) {
-    const uint32_t pa[4] = {pack_bf16(pm[2 * c][0], pm[2 * c][1]),
-                            pack_bf16(pm[2 * c][2], pm[2 * c][3]),
-                            pack_bf16(pm[2 * c + 1][0], pm[2 * c + 1][1]),
-                            pack_bf16(pm[2 * c + 1][2], pm[2 * c + 1][3])};
-    const char* row =
-        tile + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
-        (lane >> 4) * 16;
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, row + n * 16);
-      mma_bf16(out[n], pa, bf[0], bf[1]);
-      mma_bf16(out[n + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// bf16 store of a 16 x D accumulator (rows r0, r0 + 8) times `mul`
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           long long row_stride,
-                                           const float (&acc)[D / 8][4],
-                                           float mul, int r0, int n, int t) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r0 * row_stride +
-                                         col) =
-          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
-    if (r0 + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(
-          base + (long long)(r0 + 8) * row_stride + col) =
-          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K7: the int8-score backward.
-//
-// Replaces
-//   K7  smb_vision_tpu/ops/attention.py:_bwd_dq_i8_kernel and
-//       _bwd_dkv_i8_kernel (attn_impl "pallas_i8bwd")
-//
-// K4 with the two recomputed products on int8: from per-(batch, head)
-// symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and their
-// scales, made in plain torch before the launch,
-//   s_ij  = (q8_i . k8_j) * sqk       sqk = sq*sk (log2 units)
-//   dp_ij = (do8_i . v8_j) * sdv      sdv = sdo*sv
-// on mma.sync m16n8k32 s8 with int32 sums (exact), then as K4:
-//   p = exp2(s - lse2), ds = bf16(p (dp - delta)),
-//   dq = scale ds k, dk = scale ds^T q, dv = bf16(p)^T do
-// with k, q, do in bf16 and f32 accumulation. Every int8 product contracts
-// over d, which is contiguous, so plain ldmatrix of the int8 tiles gives
-// the B fragments; the s32 C fragment of m16n8k32 has the thread layout of
-// the f32 C fragment of m16n8k16, so p and ds become the A operands of the
-// bf16 products in registers as in K4. The int8 A operands take half of
-// K4's registers, which pays for the bf16 tile streamed beside the int8
-// ones (k in the dq pass; q and do in the dk/dv pass).
-// Ragged lengths as in K4: streamed int8 and bf16 rows past their length
-// are zero-filled; kv columns past Nk get p = 0 in the dq pass; query
-// columns past Nq have lse2 = +inf and delta = 0 in the dk/dv pass.
+// K7: the int8-score backward (see the note at the top).
 
 struct BwdI8Params {
   const char* q8;
@@ -608,276 +574,448 @@ struct BwdI8Params {
   float scale;
 };
 
-// streamed tile rows as K4's; a stage holds the dq pass's k8, v8 and bf16
-// k, or the dk/dv pass's q8, do8 and bf16 q and do
-template <int D, bool DQ>
-struct TilesI8 {
-  static constexpr int BT = DQ ? 64 : (D <= 64 ? 64 : 32);
-  static constexpr int ROW8 = D + 16;       // padded int8 row, bytes
-  static constexpr int ROW16 = D * 2 + 16;  // padded bf16 row, bytes
-  static constexpr int STAGE =
-      DQ ? BT * (2 * ROW8 + ROW16) : 2 * BT * (ROW8 + ROW16);
-  static constexpr int AUX = DQ ? 0 : 2 * BT * 4;  // lse2 and delta
-  static constexpr int BYTES = 2 * (STAGE + AUX);
+// shared memory of a K7 pass: its two own int8 operands (ROWS rows of D
+// bytes), a ring of kStages stages of the streamed tiles (two int8 tiles
+// of BT rows and N16 bf16 tiles of BT rows in 64-column panels), AUX
+// bytes of lse2 and delta a stage, and the barriers
+template <int D, int ROWS, int BT, int N16, int AUX>
+struct BwdI8Tiles {
+  static constexpr int OWN = ROWS * D;              // one own operand
+  static constexpr int T8 = BT * D;                 // one int8 tile
+  static constexpr int T16 = (D / 64) * BT * 128;   // one bf16 tile
+  static constexpr int STAGE = 2 * T8 + N16 * T16;
+  static constexpr int BARS = (2 * kStages + 1) * 8;
+  static constexpr int BYTES =
+      1024 + 2 * OWN + kStages * (STAGE + AUX) + BARS;
 };
 
-// A fragments (m16n8k32 s8) of rows r0 and r0 + 8 of a (rows, D) int8
-// operand, straight from global memory; rows at or past n load as zero
+// An s32 sum x of the int8 products (|x| <= 127^2 * 128 < 2^22) read as
+// the float 1.5 * 2^23 + x, exact, by one integer add; x * c - y is then
+// one FFMA against i8_bias(y, c) = y + 1.5 * 2^23 * c. The bias is rounded
+// once a row or column, by half an ulp: under one unit of x while |y| <
+// 2^22 c, else a few ulps of y. So the conversion costs no FADD and no
+// trip through the quarter-rate I2F unit.
+__device__ __forceinline__ float i8_bias(float y, float c) {
+  return fmaf(12582912.f, c, y);
+}
+__device__ __forceinline__ float i8_exponent(uint32_t x, float c,
+                                             float bias) {
+  return fmaf(__int_as_float((int)x + 0x4B400000), c, -bias);
+}
+
+// dq pass: block bx owns 128 query rows (q8, do8); k8, v8 and the bf16 k
+// stream in tiles of 64 keys
 template <int D>
-__device__ __forceinline__ void load_a8(uint32_t (&a)[D / 32][4],
-                                        const char* base,
-                                        long long row_stride, int r0, int n,
-                                        int t) {
-  const char* p0 = base + (long long)r0 * row_stride;
-  const char* p1 = base + (long long)(r0 + 8) * row_stride;
-  const bool v0 = r0 < n, v1 = r0 + 8 < n;
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-    const int c0 = kk * 32 + 4 * t;  // a k-step is 32 bytes
-    a[kk][0] = v0 ? ld32(p0 + c0) : 0u;
-    a[kk][1] = v1 ? ld32(p1 + c0) : 0u;
-    a[kk][2] = v0 ? ld32(p0 + c0 + 16) : 0u;
-    a[kk][3] = v1 ? ld32(p1 + c0 + 16) : 0u;
-  }
-}
+__device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
+                                           const CUtensorMap& tdo8,
+                                           const CUtensorMap& tk8,
+                                           const CUtensorMap& tv8,
+                                           const CUtensorMap& tkb,
+                                           const BwdI8Params& p, int bx,
+                                           char* smem_raw) {
+  constexpr int BM = DqShape<D>::BM, BN = DqShape<D>::BN, ST = kStages;
+  using T = BwdI8Tiles<D, BM, BN, 1, 0>;
+  char* qs = align1024(smem_raw);  // q8, then do8
+  char* ring = qs + 2 * T::OWN;    // stage s: k8, v8, then k's panels
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE);
+  uint64_t* empty = full + ST;
+  uint64_t* own = empty + ST;
 
-// acc[j] = (A (16 x D int8) . T^T) * mul per n8 tile j of a BT-row int8
-// tile T in shared memory: exact int32 sums, converted once. One
-// ldmatrix.x4 brings the B fragments of two k-steps (64 bytes of a row)
-template <int D, int NS, int ROW>
-__device__ __forceinline__ void row_products_s8(float (&acc)[NS][4],
-                                                const uint32_t (&a)[D / 32][4],
-                                                const char* tile, float mul,
-                                                int lane) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    int c[4] = {0, 0, 0, 0};
-    const char* row = tile + (j * 8 + (lane & 7)) * ROW + (lane >> 3) * 16;
-#pragma unroll
-    for (int hh = 0; hh < D / 64; ++hh) {
-      uint32_t bf[4];
-      ldsm_x4(bf, row + hh * 64);
-      mma_s8(c, a[2 * hh], bf[0], bf[1]);
-      mma_s8(c, a[2 * hh + 1], bf[2], bf[3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = (float)c[i] * mul;
-  }
-}
-
-// stage rows r0 .. r0 + BT of one operand (RB bytes a row, rows sn_bytes
-// apart in global memory) into shared memory rows ROW bytes apart
-template <int RB, int BT, int ROW>
-__device__ __forceinline__ void load_rows(char* dst, const char* src,
-                                          long long sn_bytes, int r0, int n,
-                                          int tid) {
-  constexpr int CH = RB / 16;  // 16-byte chunks per row
-  for (int c = tid; c < BT * CH; c += kThreads) {
-    const int row = c / CH, col = (c % CH) * 16;
-    const bool ok = r0 + row < n;
-    cp_async16(dst + row * ROW + col,
-               ok ? src + (long long)(r0 + row) * sn_bytes + col : src,
-               ok ? 16 : 0);
-  }
-}
-
-// dq pass: a block owns kBR query rows of one (batch, head)
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_i8_dq_kernel(const BwdI8Params p) {
-  using T = TilesI8<D, true>;
-  constexpr int BT = T::BT;
-  constexpr int NS = BT / 8;
-  extern __shared__ __align__(16) char smem[];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int r0 = blockIdx.x * kBR + warp * 16 + g;
-
-  const char* k8b = p.k8 + b * p.k8_sb + h * p.k8_sh;
-  const char* v8b = p.v8 + b * p.v8_sb + h * p.v8_sh;
-  const char* kfb = p.kbf + (b * p.kb_sb + h * p.kb_sh) * 2;
-  auto load_tile = [&](int stage, int kv0) {
-    char* s0 = smem + stage * T::STAGE;
-    load_rows<D, BT, T::ROW8>(s0, k8b, p.k8_sn, kv0, p.Nk, tid);
-    load_rows<D, BT, T::ROW8>(s0 + BT * T::ROW8, v8b, p.v8_sn, kv0, p.Nk,
-                              tid);
-    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8, kfb,
-                                   p.kb_sn * 2, kv0, p.Nk, tid);
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  uint32_t qa[D / 32][4], da[D / 32][4];
-  load_a8<D>(qa, p.q8 + b * p.q8_sb + h * p.q8_sh, p.q8_sn, r0, p.Nq, t);
-  load_a8<D>(da, p.do8 + b * p.o8_sb + h * p.o8_sh, p.o8_sn, r0, p.Nq, t);
-  const float* lb = p.lse + (long long)bh * p.Nq;
-  const float* db = p.delta + (long long)bh * p.Nq;
-  const float lse0 = r0 < p.Nq ? lb[r0] : 0.f;
-  const float lse1 = r0 + 8 < p.Nq ? lb[r0 + 8] : 0.f;
-  const float dl0 = r0 < p.Nq ? db[r0] : 0.f;
-  const float dl1 = r0 + 8 < p.Nq ? db[r0 + 8] : 0.f;
-  const float cqk = p.sqk[bh], cdv = p.sdv[bh];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int ntiles = (p.Nk + BT - 1) / BT;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_tile((it + 1) & 1, (it + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int q0 = bx * BM;
+  const int ntiles = (p.Nk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    __syncthreads();
-    const char* k8s = smem + (it & 1) * T::STAGE;
-    const char* v8s = k8s + BT * T::ROW8;
-    const char* kfs = k8s + 2 * BT * T::ROW8;
-    const int kv0 = it * BT;
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[NS][4], dp[NS][4];
-    row_products_s8<D, NS, T::ROW8>(s, qa, k8s, cqk, lane);
-    row_products_s8<D, NS, T::ROW8>(dp, da, v8s, cdv, lane);
-    // ds = p (dp - delta), p = exp2(s - lse2); kv columns past Nk -> 0
+  if (threadIdx.x < kWG) {  // producer warpgroup
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(own, 2 * T::OWN);
+      tma_load_4d(qs, &tq8, own, 0, h, q0, b);
+      tma_load_4d(qs + T::OWN, &tdo8, own, 0, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE);
+        char* ks = ring + s * T::STAGE;
+        tma_load_4d(ks, &tk8, &full[s], 0, h, it * BN, b);
+        tma_load_4d(ks + T::T8, &tv8, &full[s], 0, h, it * BN, b);
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lse = i < 2 ? lse0 : lse1, dl = i < 2 ? dl0 : dl1;
-        float pv = ex2(s[j][i] - lse);
-        if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) pv = 0.f;
-        s[j][i] = pv * (dp[j][i] - dl);
+        for (int pn = 0; pn < D / 64; ++pn)
+          tma_load_4d(ks + 2 * T::T8 + pn * BN * 128, &tkb, &full[s],
+                      pn * 64, h, it * BN, b);
       }
     }
-    // dq += ds k (ds rounded to bf16 in col_products)
-    col_products<D, NS, T::ROW16>(acc, s, kfs, lane);
-    __syncthreads();  // every warp is done with this stage
+  } else {  // consumer warpgroups cw = 0, 1: 64 query rows each
+    reg_alloc<232>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
+    const float* lb = p.lse + (long long)bh * p.Nq;
+    const float* db = p.delta + (long long)bh * p.Nq;
+    const float lse0 = r0 < p.Nq ? lb[r0] : 0.f;
+    const float lse1 = r0 + 8 < p.Nq ? lb[r0 + 8] : 0.f;
+    const float dl0 = r0 < p.Nq ? db[r0] : 0.f;
+    const float dl1 = r0 + 8 < p.Nq ? db[r0 + 8] : 0.f;
+    const float cqk = p.sqk[bh], cdv = p.sdv[bh];
+    const uint32_t qa = smem_u32(qs) + cw * 64 * D, doa = qa + T::OWN;
+    const uint32_t ra = smem_u32(ring);
+
+    // s32 sums of q8 k8^T and do8 v8^T; ds is written over s (f32 bits)
+    uint32_t s[BN / 2], dp[BN / 2];
+    float acc[D / 2];
+    uint32_t dsa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // the scales fold into one FFMA with the bias of the exact int ->
+    // float conversion (i8_exponent)
+    const float bl0 = i8_bias(lse0, cqk), bl1 = i8_bias(lse1, cqk);
+    const float bd0 = i8_bias(dl0, cdv), bd1 = i8_bias(dl1, cdv);
+
+    auto issue_s_dp = [&](int it) {  // s = q8 k8^T, dp = do8 v8^T over d
+      const uint32_t ka = ra + (it % ST) * T::STAGE, va = ka + T::T8;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_i8<BN>(s, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_i8<BN>(dp, desc_i8<D>(doa, kk), desc_i8<D>(va, kk), kk > 0);
+    };
+    auto issue_dq = [&](int it) {  // dq += ds k over the tile's keys
+      const uint32_t kb = ra + (it % ST) * T::STAGE + 2 * T::T8;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<D, 1>(acc, dsa[kk], desc_sw128(kb + kk * 2048, BN * 128), 1);
+    };
+
+    // ds = p (dp sdv - delta), p = exp2(s sqk - lse2); kv columns past
+    // Nk -> 0
+    auto elementwise = [&](int it) {
+      const int kv0 = it * BN;
+      const bool tail = kv0 + BN > p.Nk;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float pv = ex2(i8_exponent(s[i], cqk, e < 2 ? bl0 : bl1));
+          if (tail && kv0 + j * 8 + 2 * t + (e & 1) >= p.Nk) pv = 0.f;
+          s[i] = __float_as_uint(
+              pv * i8_exponent(dp[i], cdv, e < 2 ? bd0 : bd1));
+        }
+      }
+    };
+
+    mbar_wait(own, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_s_dp(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    elementwise(0);
+    acc_to_a<BN>(dsa, s);
+    for (int it = 1; it < ntiles; ++it) {
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      wgmma_fence();
+      issue_s_dp(it);
+      wgmma_commit();
+      issue_dq(it - 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // s and dp of tile it; ds k of tile it - 1 runs on
+      fence_regs(s);
+      fence_regs(dp);
+      elementwise(it);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(it - 1) % ST]);  // tile it - 1 done
+      acc_to_a<BN>(dsa, s);
+    }
+    wgmma_fence();
+    issue_dq(ntiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_acc<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
+                 p.Nq, t);
   }
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
-                p.Nq, t);
 }
 
-// dk/dv pass: a block owns kBR kv rows of one (batch, head); scores and dp
-// are computed transposed (rows = keys, columns = queries)
+// dk/dv pass: a block owns 128 kv rows (k8, v8); q8, do8 and the bf16 q
+// and do stream in tiles of BQ queries; s and dp are computed transposed
+// (rows = keys, columns = queries)
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_i8_dkv_kernel(const BwdI8Params p) {
-  using T = TilesI8<D, false>;
-  constexpr int BT = T::BT;
-  constexpr int NS = BT / 8;
-  extern __shared__ __align__(16) char smem[];
+__device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
+                                            const CUtensorMap& tv8,
+                                            const CUtensorMap& tq8,
+                                            const CUtensorMap& tdo8,
+                                            const CUtensorMap& tqb,
+                                            const CUtensorMap& tdob,
+                                            const BwdI8Params& p, int bx,
+                                            char* smem_raw) {
+  using Sh = DkvShape<D>;
+  constexpr int BN = Sh::BN, BQ = Sh::BQ, ST = kStages;
+  using T = BwdI8Tiles<D, BN, BQ, 2, Sh::AUX>;
+  char* ks = align1024(smem_raw);  // k8, then v8
+  char* ring = ks + 2 * T::OWN;    // stage s: q8, do8, q's, then do's panels
+  float* aux = reinterpret_cast<float*>(ring + ST * T::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(aux + ST * 2 * BQ);
+  uint64_t* empty = full + ST;
+  uint64_t* own = empty + ST;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  const int r0 = blockIdx.x * kBR + warp * 16 + g;  // this thread's keys
-
-  const char* q8b = p.q8 + b * p.q8_sb + h * p.q8_sh;
-  const char* o8b = p.do8 + b * p.o8_sb + h * p.o8_sh;
-  const char* qfb = p.qbf + (b * p.qb_sb + h * p.qb_sh) * 2;
-  const char* ofb = p.dobf + (b * p.ob_sb + h * p.ob_sh) * 2;
-  const float* lb = p.lse + (long long)bh * p.Nq;
-  const float* db = p.delta + (long long)bh * p.Nq;
-  float* aux = reinterpret_cast<float*>(smem + 2 * T::STAGE);
-
-  // stage query rows q0 .. q0 + BT: q8, do8, q and do by cp.async; lse2
-  // and delta by plain loads (+inf and 0 past Nq, so those columns give
-  // p = ds = 0)
-  auto load_tile = [&](int stage, int q0) {
-    char* s0 = smem + stage * T::STAGE;
-    load_rows<D, BT, T::ROW8>(s0, q8b, p.q8_sn, q0, p.Nq, tid);
-    load_rows<D, BT, T::ROW8>(s0 + BT * T::ROW8, o8b, p.o8_sn, q0, p.Nq,
-                              tid);
-    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8, qfb, p.qb_sn * 2,
-                                   q0, p.Nq, tid);
-    load_rows<2 * D, BT, T::ROW16>(s0 + 2 * BT * T::ROW8 + BT * T::ROW16,
-                                   ofb, p.ob_sn * 2, q0, p.Nq, tid);
-    if (tid < BT) {
-      const bool ok = q0 + tid < p.Nq;
-      aux[stage * 2 * BT + tid] = ok ? lb[q0 + tid] : INFINITY;
-      aux[stage * 2 * BT + BT + tid] = ok ? db[q0 + tid] : 0.f;
+  const int k0 = bx * BN;
+  const int ntiles = (p.Nq + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes (lse2, delta)
+      mbar_init(&empty[s], kConsumers);
     }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  uint32_t ka[D / 32][4], va[D / 32][4];
-  load_a8<D>(ka, p.k8 + b * p.k8_sb + h * p.k8_sh, p.k8_sn, r0, p.Nk, t);
-  load_a8<D>(va, p.v8 + b * p.v8_sb + h * p.v8_sh, p.v8_sn, r0, p.Nk, t);
-  const float cqk = p.sqk[bh], cdv = p.sdv[bh];
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+    mbar_init(own, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  const int ntiles = (p.Nq + BT - 1) / BT;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_tile((it + 1) & 1, (it + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const char* q8s = smem + (it & 1) * T::STAGE;
-    const char* o8s = q8s + BT * T::ROW8;
-    const char* qfs = q8s + 2 * BT * T::ROW8;
-    const char* ofs = qfs + BT * T::ROW16;
-    const float* ls = aux + (it & 1) * 2 * BT;
-    const float* ds = ls + BT;
-
-    float st[NS][4], dpt[NS][4];
-    row_products_s8<D, NS, T::ROW8>(st, ka, q8s, cqk, lane);   // s^T
-    row_products_s8<D, NS, T::ROW8>(dpt, va, o8s, cdv, lane);  // dp^T
+  if (threadIdx.x < kWG) {  // producer warpgroup: warp 0 loads
+    reg_dealloc<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float* lb = p.lse + (long long)bh * p.Nq;
+      const float* db = p.delta + (long long)bh * p.Nq;
+      if (lane == 0) {
+        mbar_expect_tx(own, 2 * T::OWN);
+        tma_load_4d(ks, &tk8, own, 0, h, k0, b);
+        tma_load_4d(ks + T::OWN, &tv8, own, 0, h, k0, b);
+      }
+      // each lane stages BQ / 32 of a tile's lse2 and delta; they are read
+      // into registers two tiles ahead, so their latency runs under the
+      // waits on the ring instead of holding up the stage
+      constexpr int PER = BQ / 32;
+      auto fetch = [&](int it, float (&l)[PER], float (&d)[PER]) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int col = j * 8 + 2 * t;
-      const float l0 = ls[col], l1 = ls[col + 1];
-      const float d0 = ds[col], d1 = ds[col + 1];
-      st[j][0] = ex2(st[j][0] - l0);
-      st[j][1] = ex2(st[j][1] - l1);
-      st[j][2] = ex2(st[j][2] - l0);
-      st[j][3] = ex2(st[j][3] - l1);
-      dpt[j][0] = st[j][0] * (dpt[j][0] - d0);
-      dpt[j][1] = st[j][1] * (dpt[j][1] - d1);
-      dpt[j][2] = st[j][2] * (dpt[j][2] - d0);
-      dpt[j][3] = st[j][3] * (dpt[j][3] - d1);
+        for (int u = 0; u < PER; ++u) {
+          const int qi = it * BQ + lane + 32 * u;
+          const bool ok = it < ntiles && qi < p.Nq;
+          l[u] = ok ? lb[qi] : INFINITY;
+          d[u] = ok ? db[qi] : 0.f;
+        }
+      };
+      float l0[PER], d0[PER], l1[PER], d1[PER];
+      fetch(0, l0, d0);
+      fetch(1, l1, d1);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        float l2[PER], d2[PER];
+        fetch(it + 2, l2, d2);
+        if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        if (lane == 0) {  // the TMA loads first, then the lanes' stores
+          mbar_expect(&full[s], T::STAGE);
+          char* qt = ring + s * T::STAGE;
+          tma_load_4d(qt, &tq8, &full[s], 0, h, it * BQ, b);
+          tma_load_4d(qt + T::T8, &tdo8, &full[s], 0, h, it * BQ, b);
+#pragma unroll
+          for (int pn = 0; pn < D / 64; ++pn) {
+            tma_load_4d(qt + 2 * T::T8 + pn * BQ * 128, &tqb, &full[s],
+                        pn * 64, h, it * BQ, b);
+            tma_load_4d(qt + 2 * T::T8 + T::T16 + pn * BQ * 128, &tdob,
+                        &full[s], pn * 64, h, it * BQ, b);
+          }
+        }
+        float* as = aux + s * 2 * BQ;
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+          as[lane + 32 * u] = l0[u];
+          as[BQ + lane + 32 * u] = d0[u];
+          l0[u] = l1[u];
+          d0[u] = d1[u];
+          l1[u] = l2[u];
+          d1[u] = d2[u];
+        }
+        mbar_arrive(&full[s]);  // 32 arrivals: the stores are in
+      }
     }
-    col_products<D, NS, T::ROW16>(dv, st, ofs, lane);   // dv += p^T do
-    col_products<D, NS, T::ROW16>(dk, dpt, qfs, lane);  // dk += ds^T q
-    __syncthreads();  // every warp is done with this stage
+  } else {  // consumer warpgroups cw = 0, 1: 64 kv rows each
+    reg_alloc<232>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = k0 + cw * 64 + warp * 16 + g;  // this thread's keys
+    const float cqk = p.sqk[bh], cdv = p.sdv[bh];
+    const uint32_t ka = smem_u32(ks) + cw * 64 * D, va = ka + T::OWN;
+    const uint32_t ra = smem_u32(ring);
+
+    // s32 sums of k8 q8^T and v8 do8^T; p^T and ds^T are written over
+    // them (f32 bits)
+    uint32_t st[BQ / 2], dpt[BQ / 2];
+    float dk[D / 2], dv[D / 2];
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    auto issue_s_dp = [&](int it) {  // s^T = k8 q8^T, dp^T = v8 do8^T
+      const uint32_t qt = ra + (it % ST) * T::STAGE, dot = qt + T::T8;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_i8<BQ>(st, desc_i8<D>(ka, kk), desc_i8<D>(qt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_i8<BQ>(dpt, desc_i8<D>(va, kk), desc_i8<D>(dot, kk), kk > 0);
+    };
+    // dv += p^T do, dk += ds^T q over the tile's queries
+    auto issue_dkv = [&](int it) {
+      const uint32_t qb = ra + (it % ST) * T::STAGE + 2 * T::T8;
+      const uint32_t dob = qb + T::T16;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<D, 1>(dv, pa[kk], desc_sw128(dob + kk * 2048, BQ * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<D, 1>(dk, da[kk], desc_sw128(qb + kk * 2048, BQ * 128), 1);
+    };
+    // p^T = exp2(s^T sqk - lse2), ds^T = p^T (dp^T sdv - delta)
+    auto elementwise = [&](int it) {
+      const float* ls = aux + (it % ST) * 2 * BQ;
+      const float* dls = ls + BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int col = j * 8 + 2 * t;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float bl = i8_bias(ls[col + u], cqk);
+          const float bd = i8_bias(dls[col + u], cdv);
+#pragma unroll
+          for (int e = u; e < 4; e += 2) {
+            const int i = 4 * j + e;
+            const float pv = ex2(i8_exponent(st[i], cqk, bl));
+            st[i] = __float_as_uint(pv);
+            dpt[i] = __float_as_uint(pv * i8_exponent(dpt[i], cdv, bd));
+          }
+        }
+      }
+    };
+
+    mbar_wait(own, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_s_dp(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    elementwise(0);
+    acc_to_a<BQ>(pa, st);
+    acc_to_a<BQ>(da, dpt);
+    for (int it = 1; it < ntiles; ++it) {
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      wgmma_fence();
+      issue_s_dp(it);
+      wgmma_commit();
+      issue_dkv(it - 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // s^T and dp^T of tile it; tile it - 1's run on
+      fence_regs(st);
+      fence_regs(dpt);
+      elementwise(it);
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      mbar_arrive(&empty[(it - 1) % ST]);  // tile it - 1 done
+      acc_to_a<BQ>(pa, st);
+      acc_to_a<BQ>(da, dpt);
+    }
+    wgmma_fence();
+    issue_dkv(ntiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    store_acc<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
+                 p.Nk, t);
+    store_acc<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
+                 p.Nk, t);
   }
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
-                p.Nk, t);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
-                p.Nk, t);
+}
+
+// both K7 passes in one grid, as K4's
+template <int D>
+__global__ void __launch_bounds__(3 * kWG, 1)
+    flash_bwd_i8_sm90_kernel(const __grid_constant__ CUtensorMap mq8,
+                             const __grid_constant__ CUtensorMap mdo8,
+                             const __grid_constant__ CUtensorMap mk8,
+                             const __grid_constant__ CUtensorMap mv8,
+                             const __grid_constant__ CUtensorMap mkb,
+                             const __grid_constant__ CUtensorMap nk8,
+                             const __grid_constant__ CUtensorMap nv8,
+                             const __grid_constant__ CUtensorMap nq8,
+                             const __grid_constant__ CUtensorMap ndo8,
+                             const __grid_constant__ CUtensorMap nqb,
+                             const __grid_constant__ CUtensorMap ndob,
+                             const BwdI8Params p) {
+  extern __shared__ char smem_raw[];
+  const int gq = (p.Nq + DqShape<D>::BM - 1) / DqShape<D>::BM;
+  if ((int)blockIdx.x < gq)
+    dq_pass_i8<D>(mq8, mdo8, mk8, mv8, mkb, p, blockIdx.x, smem_raw);
+  else
+    dkv_pass_i8<D>(nk8, nv8, nq8, ndo8, nqb, ndob, p, blockIdx.x - gq,
+                   smem_raw);
 }
 
 template <int D>
-cudaError_t launch_i8(const BwdI8Params& p, int BH, cudaStream_t stream) {
-  auto dq = flash_bwd_i8_dq_kernel<D>;
-  auto dkv = flash_bwd_i8_dkv_kernel<D>;
-  const int bq = TilesI8<D, true>::BYTES, bkv = TilesI8<D, false>::BYTES;
+cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
+                      cudaStream_t stream) {
+  using Sq = DqShape<D>;
+  using Sk = DkvShape<D>;
+  using Tq = BwdI8Tiles<D, Sq::BM, Sq::BN, 1, 0>;
+  using Tk = BwdI8Tiles<D, Sk::BN, Sk::BQ, 2, Sk::AUX>;
+  CUtensorMap mq8, mdo8, mk8, mv8, mkb, nk8, nv8, nq8, ndo8, nqb, ndob;
+  const struct {
+    CUtensorMap* map;
+    const char* base;
+    int n, rows;
+    long long sb, sn, sh;
+    bool i8;
+  } maps[11] = {
+      {&mq8, p.q8, p.Nq, Sq::BM, p.q8_sb, p.q8_sn, p.q8_sh, true},
+      {&mdo8, p.do8, p.Nq, Sq::BM, p.o8_sb, p.o8_sn, p.o8_sh, true},
+      {&mk8, p.k8, p.Nk, Sq::BN, p.k8_sb, p.k8_sn, p.k8_sh, true},
+      {&mv8, p.v8, p.Nk, Sq::BN, p.v8_sb, p.v8_sn, p.v8_sh, true},
+      {&mkb, p.kbf, p.Nk, Sq::BN, p.kb_sb, p.kb_sn, p.kb_sh, false},
+      {&nk8, p.k8, p.Nk, Sk::BN, p.k8_sb, p.k8_sn, p.k8_sh, true},
+      {&nv8, p.v8, p.Nk, Sk::BN, p.v8_sb, p.v8_sn, p.v8_sh, true},
+      {&nq8, p.q8, p.Nq, Sk::BQ, p.q8_sb, p.q8_sn, p.q8_sh, true},
+      {&ndo8, p.do8, p.Nq, Sk::BQ, p.o8_sb, p.o8_sn, p.o8_sh, true},
+      {&nqb, p.qbf, p.Nq, Sk::BQ, p.qb_sb, p.qb_sn, p.qb_sh, false},
+      {&ndob, p.dobf, p.Nq, Sk::BQ, p.ob_sb, p.ob_sn, p.ob_sh, false}};
+  for (const auto& m : maps) {
+    cudaError_t err =
+        (m.i8 ? make_map_i8 : make_map)(m.map, m.base, B, m.n, p.H, D, m.sb,
+                                        m.sn, m.sh, m.rows);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = flash_bwd_i8_sm90_kernel<D>;
+  const int bytes = Tq::BYTES > Tk::BYTES ? Tq::BYTES : Tk::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      dq, cudaFuncAttributeMaxDynamicSharedMemorySize, bq);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, bkv);
-  if (err != cudaSuccess) return err;
-  dq<<<dim3((p.Nq + kBR - 1) / kBR, BH), kThreads, bq, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dkv<<<dim3((p.Nk + kBR - 1) / kBR, BH), kThreads, bkv, stream>>>(p);
+  const int gq = (p.Nq + Sq::BM - 1) / Sq::BM;
+  const int gk = (p.Nk + Sk::BN - 1) / Sk::BN;
+  kernel<<<dim3(gq + gk, BH), 3 * kWG, bytes, stream>>>(
+      mq8, mdo8, mk8, mv8, mkb, nk8, nv8, nq8, ndo8, nqb, ndob, p);
   return cudaGetLastError();
 }
 
@@ -930,9 +1068,10 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
 // K7. q8, k8, v8, do8: int8 (B, N, H, D); kbf, qbf, dobf: the bf16 k, q and
 // do; dq, dk, dv: bf16 (B, N, H, D); all through strides: 30 int64 in
 // elements, (batch, token, head) for q8, k8, v8, do8, kbf, qbf, dobf, dq,
-// dk, dv. lse2 and delta: f32 (B, H, Nq), contiguous; sqk = sq*sk and
-// sdv = sdo*sv: f32 (B*H). Launches the dq pass and the dk/dv pass on
-// `stream`. Returns a cudaError_t (0 on success).
+// dk, dv (the seven inputs are read by TMA: base pointers and strides
+// 16-byte multiples). lse2 and delta: f32 (B, H, Nq), contiguous; sqk =
+// sq*sk and sdv = sdo*sv: f32 (B*H). Launches the dq and dk/dv passes, in
+// one grid, on `stream`. Returns a cudaError_t (0 on success).
 extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
                                 const void* v8, const void* do8,
                                 const void* kbf, const void* qbf,
@@ -975,7 +1114,7 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
   const int BH = B * H;
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
-  if (D == 64) return (int)launch_i8<64>(p, BH, s);
-  if (D == 128) return (int)launch_i8<128>(p, BH, s);
+  if (D == 64) return (int)launch_i8<64>(p, B, BH, s);
+  if (D == 128) return (int)launch_i8<128>(p, B, BH, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) on wgmma,
-// TMA and warp specialisation; int8 scores (K3) and int8 scores with int8
-// p v (K8) on mma.sync, further down with their own notes.
+// Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) and int8
+// scores (K3) on wgmma, TMA and warp specialisation, one kernel template;
+// int8 scores with int8 p v (K8) on mma.sync, further down with its own
+// note.
 //
 // Replaces
 //   K1  smb_vision_tpu/ops/attention.py:_fwd_kernel      (bf16 flash forward)
@@ -15,7 +16,8 @@
 // with an ordinary online softmax: m_i is a running max, rescaled per kv
 // tile. The TPU kernels fixed the shift from the first kv block and
 // accumulated o^T against [v | 1 | pad]; both were MXU tiling choices and
-// are not carried over: the denominator is a plain row sum here.
+// are not carried over: the denominator is a plain row sum here (of p as
+// computed in f32 for K1, of p rounded to bf16, as p v takes it, for K3).
 //
 // K1. Bound on the H100: at N = 20,480, d = 64 the kernel does 4*N^2*d
 // flops per head against O(N*d) bytes of q, k, v, so device memory is never
@@ -42,11 +44,29 @@
 // Ragged lengths: q rows past Nq read as zero and are not stored; keys past
 // Nk read as zero and their scores are masked to -inf.
 //
-// K3 keeps the mma.sync design, the I8 instantiation of flash_fwd_kernel
-// below (its bf16 branches are K1's former body, no longer instantiated):
-// 8 warps x 16 query rows, k and v streamed in 64-row tiles by cp.async,
-// two stages; B fragments by ldmatrix; p in registers as the A operand of
-// p v.
+// K3 is K1 with the score product on int8 (the I8 instantiation). Bound
+// on the H100 at N = 20,480, 12 heads of 64: the int8 q8 k8^T at 1,979
+// TOP/s (0.33 ms) and the bf16 p v at 989 TFLOP/s (0.65 ms), 0.98 ms of
+// tensor work against the same 1.2-1.3 ms of exp2 as K1: the exp2 bounds
+// it, so it cannot go far below K1. What changes against K1:
+//   - S = q8 k8^T is wgmma m64nNk32 .s32.s8.s8 from shared memory, both
+//     operands K-major (integer wgmma has no transpose; q8 and k8 are
+//     contiguous along d). A q8 or k8 tile holds whole rows: at d 128 the
+//     bytes of a bf16 panel (128-byte swizzle); at d 64 rows of 64 bytes
+//     with the 64-byte swizzle (sm90.cuh), so q8 and k8 take half of K1's
+//     shared memory and TMA traffic;
+//   - the s32 scores x become the floats 1.5 * 2^23 + x exactly by one
+//     integer add (|q8 . k8| <= 127^2 * 128 < 2^22): their max and their
+//     differences are exact, and c = sq*sk folds into the exp2's FFMA as
+//     K1's scale does. The conversion unit (I2F) runs at a quarter of the
+//     FP32 rate, as slowly as the exp2 it would have to share the issue
+//     slots with;
+//   - no lse2; the row sums of p are taken of p as P V takes it, rounded to
+//     bf16, on the tensor cores: each k16 step of P V also issues a wgmma
+//     m64n8k16 of the same A fragments against 256 bytes of bf16 ones, so
+//     every column of that small accumulator is the row's sum (as the TPU
+//     kernel's [v | 1] column), rescaled with o. That takes K1's FADD per
+//     score off the FP32 pipe and the quad shuffles off the epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +78,7 @@
 
 namespace {
 
+// K8's block: 8 warps of 16 query rows, kv tiles of 64 keys
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = 16 * kWarps;  // query rows per block
@@ -80,221 +101,10 @@ struct FlashParams {
   float scale_log2;
 };
 
-template <int D, bool I8>
-struct Tiles {
-  static constexpr int ES = I8 ? 1 : 2;        // bytes per q/k element
-  static constexpr int KROW = D * ES + 16;     // padded k row, bytes
-  static constexpr int VROW = D * 2 + 16;      // padded v row, bytes
-  static constexpr int STAGE = kBK * (KROW + VROW);
-  static constexpr int BYTES = 2 * STAGE;      // two stages
-};
-
-template <int D, bool I8>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-    flash_fwd_kernel(const FlashParams p) {
-  using T = Tiles<D, I8>;
-  constexpr int ES = T::ES;
-  constexpr int KSTEP = I8 ? 32 : 16;  // mma depth in elements (32 bytes)
-  constexpr int KQ = D / KSTEP;        // k-steps of the q k^T product
-  constexpr int ND = D / 8;            // n8 tiles of the o accumulator
-  constexpr int NS = kBK / 8;          // n8 tiles of one score tile
-  extern __shared__ __align__(16) char smem[];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;  // this thread's rows
-  const int r1 = r0 + 8;
-
-  const char* qb = p.q + (b * p.q_sb + h * p.q_sh) * ES;
-  const char* kb = p.k + (b * p.k_sb + h * p.k_sh) * ES;
-  const char* vb = p.v + (b * p.v_sb + h * p.v_sh) * 2;
-
-  // stage one kv tile (k and v rows kv0 .. kv0 + kBK) into `stage`
-  auto load_tile = [&](int stage, int kv0) {
-    char* ks = smem + stage * T::STAGE;
-    char* vs = ks + kBK * T::KROW;
-    constexpr int KCH = D * ES / 16, VCH = D * 2 / 16;
-    for (int c = tid; c < kBK * KCH; c += kThreads) {
-      const int row = c / KCH, col = (c % KCH) * 16;
-      const bool ok = kv0 + row < p.Nk;
-      cp_async16(ks + row * T::KROW + col,
-                 ok ? kb + (long long)(kv0 + row) * p.k_sn * ES + col : kb,
-                 ok ? 16 : 0);
-    }
-    for (int c = tid; c < kBK * VCH; c += kThreads) {
-      const int row = c / VCH, col = (c % VCH) * 16;
-      const bool ok = kv0 + row < p.Nk;
-      cp_async16(vs + row * T::VROW + col,
-                 ok ? vb + (long long)(kv0 + row) * p.v_sn * 2 + col : vb,
-                 ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  // q fragments (A operand), straight from global memory
-  uint32_t qa[KQ][4];
-  {
-    const char* q0 = qb + (long long)r0 * p.q_sn * ES;
-    const char* q1 = qb + (long long)r1 * p.q_sn * ES;
-    const bool v0 = r0 < p.Nq, v1 = r1 < p.Nq;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      const int c0 = kk * 32 + 4 * t;  // bytes: a k-step is 32 bytes
-      qa[kk][0] = v0 ? ld32(q0 + c0) : 0u;
-      qa[kk][1] = v1 ? ld32(q1 + c0) : 0u;
-      qa[kk][2] = v0 ? ld32(q0 + c0 + 16) : 0u;
-      qa[kk][3] = v1 ? ld32(q1 + c0 + 16) : 0u;
-    }
-  }
-  // scores stay raw (q.k, or the int32 q8.k8); c scales them into log2
-  // units inside the exp2's FFMA, and the running max m is kept raw (c > 0)
-  const float c = I8 ? p.sq[bh] * p.sk[bh] : p.scale_log2;
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const int ntiles = (p.Nk + kBK - 1) / kBK;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_tile((it + 1) & 1, (it + 1) * kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `it` is in shared memory for every warp
-    const char* ks = smem + (it & 1) * T::STAGE;
-    const char* vs = ks + kBK * T::KROW;
-    const int kv0 = it * kBK;
-
-    // scores: 16 rows x kBK columns per warp, in C-fragment layout. One
-    // ldmatrix.x4 brings the B fragments of two k-steps (64 bytes of a
-    // k row) for one n8 tile.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const char* krow = ks + (j * 8 + (lane & 7)) * T::KROW + (lane >> 3) * 16;
-      if constexpr (I8) {
-        int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int hh = 0; hh < KQ / 2; ++hh) {
-          uint32_t bf[4];
-          ldsm_x4(bf, krow + hh * 64);
-          mma_s8(acc, qa[2 * hh], bf[0], bf[1]);
-          mma_s8(acc, qa[2 * hh + 1], bf[2], bf[3]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = (float)acc[i];
-      } else {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int hh = 0; hh < KQ / 2; ++hh) {
-          uint32_t bf[4];
-          ldsm_x4(bf, krow + hh * 64);
-          mma_bf16(acc, qa[2 * hh], bf[0], bf[1]);
-          mma_bf16(acc, qa[2 * hh + 1], bf[2], bf[3]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = acc[i];
-      }
-    }
-    if (kv0 + kBK > p.Nk) {  // ragged kv tail
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) s[j][i] = -INFINITY;
-    }
-
-    // online softmax; the 4 threads of a quad share rows g and g + 8
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = ex2((m0 - mx0) * c), a1 = ex2((m1 - mx1) * c);
-    m0 = mx0;
-    m1 = mx1;
-    const float mc0 = m0 * c, mc1 = m1 * c;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = ex2(fmaf(s[j][0], c, -mc0));
-      s[j][1] = ex2(fmaf(s[j][1], c, -mc0));
-      s[j][2] = ex2(fmaf(s[j][2], c, -mc1));
-      s[j][3] = ex2(fmaf(s[j][3], c, -mc1));
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-
-    // o += p v: p (bf16) from the score registers; one ldmatrix.x4.trans
-    // brings the B fragments of two n8 tiles of v for one 16-row k-step
-#pragma unroll
-    for (int c = 0; c < kBK / 16; ++c) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
-                              pack_bf16(s[2 * c][2], s[2 * c][3]),
-                              pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                              pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-      const char* vrow = vs + (c * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  T::VROW + (lane >> 4) * 16;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vrow + n * 16);
-        mma_bf16(o[n], pa, bf[0], bf[1]);
-        mma_bf16(o[n + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float safe0 = l0 == 0.f ? 1.f : l0, safe1 = l1 == 0.f ? 1.f : l1;
-  const float inv0 = 1.f / safe0, inv1 = 1.f / safe1;
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < p.Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.o_sn + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < p.Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * p.o_sn + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-  }
-  if (p.lse != nullptr && t == 0) {
-    float* lb = p.lse + (long long)bh * p.Nq;
-    if (r0 < p.Nq) lb[r0] = m0 * c + log2f(safe0);
-    if (r1 < p.Nq) lb[r1] = m1 * c + log2f(safe1);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K8: int8 scores AND int8 p v (replaces _fwd_i8_kernel, pv=True).
 //
-// Per query row i and per 64-key tile u (the kv tile of K1/K3, and the JAX
+// Per query row i and per 64-key tile u (the kernel's kv tile, and the JAX
 // kernel's sub-block at block_k 64):
 //   s_ij  = (q8_i . k8_j) * sq*sk             (log2 units, as K3)
 //   sm_u  = max_j in u s_ij
@@ -319,8 +129,9 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 // Keys past N score -inf, so their p8 is 0, and their v8 bytes are 0.
 //
 // Bound on the H100: int8 operations, 4*B*H*N^2*d at 1,979 TOP/s (0.651 ms
-// at N 20,480, 12 heads of 64, batch 1). Design as K3: 8 warps x 16 query
-// rows, k8 and v8 tiles double-buffered by cp.async, scores, p8 and the
+// at N 20,480, 12 heads of 64, batch 1). Design: 8 warps x 16 query rows,
+// q8 fragments straight from global memory, k8 and v8 tiles
+// double-buffered by cp.async, B fragments by ldmatrix, scores, p8 and the
 // o accumulator in registers.
 template <int D>
 struct PvTiles {
@@ -564,31 +375,37 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 // ---------------------------------------------------------------------------
 // K1 on wgmma (see the note at the top).
 
-template <int D>
+template <int D, bool I8>
 struct FwdTiles {
   static constexpr int BM = 128;                 // query rows a block owns
   static constexpr int BN = D == 64 ? 128 : 64;  // keys of a streamed tile
   static constexpr int STAGES = 4;
-  static constexpr int PANELS = D / 64;          // 64-column panels
-  static constexpr int Q_BYTES = PANELS * BM * 128;
-  static constexpr int KV_BYTES = PANELS * BN * 128;  // k or v of one tile
-  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int PANELS = D / 64;          // 64-column bf16 panels
+  // bytes of a q or k row in its tile: a 128-byte bf16 panel (K1), or the
+  // whole int8 row (K3)
+  static constexpr int QK_ROW = I8 ? D : 128;
+  static constexpr int Q_BYTES = I8 ? BM * D : PANELS * BM * 128;
+  static constexpr int K_BYTES = I8 ? BN * D : PANELS * BN * 128;
+  static constexpr int V_BYTES = PANELS * BN * 128;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int ONES = I8 ? 256 : 0;  // K3: bf16 ones (desc_ones)
   static constexpr int BARS = (2 * STAGES + 1) * 8;
-  static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE + BARS;
+  static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE + ONES + BARS;
 };
 
-template <int D>
+template <int D, bool I8>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const FlashParams p) {
-  using T = FwdTiles<D>;
+  using T = FwdTiles<D, I8>;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
   extern __shared__ char smem_raw[];
   char* qs = align1024(smem_raw);
   char* kv = qs + T::Q_BYTES;  // stage s: k panels, then v panels
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv + ST * T::STAGE);
+  char* ones = kv + ST * T::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ones + T::ONES);
   uint64_t* empty = full + ST;
   uint64_t* qbar = empty + ST;
 
@@ -596,6 +413,12 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * BM;
   const int ntiles = (p.Nk + BN - 1) / BN;
+  if constexpr (I8) {
+    if (threadIdx.x < T::ONES / 4) {
+      reinterpret_cast<uint32_t*>(ones)[threadIdx.x] = 0x3F803F80u;
+      fence_proxy_async();
+    }
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
@@ -613,20 +436,32 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       tma_prefetch(&tk);
       tma_prefetch(&tv);
       mbar_expect_tx(qbar, T::Q_BYTES);
+      if constexpr (I8) {
+        tma_load_4d(qs, &tq, qbar, 0, h, q0, b);
+      } else {
 #pragma unroll
-      for (int pn = 0; pn < T::PANELS; ++pn)
-        tma_load_4d(qs + pn * BM * 128, &tq, qbar, pn * 64, h, q0, b);
+        for (int pn = 0; pn < T::PANELS; ++pn)
+          tma_load_4d(qs + pn * BM * 128, &tq, qbar, pn * 64, h, q0, b);
+      }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
         if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
         mbar_expect_tx(&full[s], T::STAGE);
         char* ks = kv + s * T::STAGE;
+        if constexpr (I8) {
+          tma_load_4d(ks, &tk, &full[s], 0, h, it * BN, b);
 #pragma unroll
-        for (int pn = 0; pn < T::PANELS; ++pn) {
-          tma_load_4d(ks + pn * BN * 128, &tk, &full[s], pn * 64, h, it * BN,
-                      b);
-          tma_load_4d(ks + T::KV_BYTES + pn * BN * 128, &tv, &full[s],
-                      pn * 64, h, it * BN, b);
+          for (int pn = 0; pn < T::PANELS; ++pn)
+            tma_load_4d(ks + T::K_BYTES + pn * BN * 128, &tv, &full[s],
+                        pn * 64, h, it * BN, b);
+        } else {
+#pragma unroll
+          for (int pn = 0; pn < T::PANELS; ++pn) {
+            tma_load_4d(ks + pn * BN * 128, &tk, &full[s], pn * 64, h,
+                        it * BN, b);
+            tma_load_4d(ks + T::K_BYTES + pn * BN * 128, &tv, &full[s],
+                        pn * 64, h, it * BN, b);
+          }
         }
       }
     }
@@ -636,8 +471,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
-    const float c = p.scale_log2;
-    const uint32_t qa = smem_u32(qs) + cw * 64 * 128;
+    const float c = I8 ? p.sq[bh] * p.sk[bh] : p.scale_log2;
+    const uint32_t qa = smem_u32(qs) + cw * 64 * T::QK_ROW;
     const uint32_t kva = smem_u32(kv);
 
     // ping-pong: warpgroup cw issues its GEMMs between a sync on barrier
@@ -650,6 +485,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     if (cw == 1) named_arrive(1, kConsumers);
 
     float s[BN / 2], o[D / 2];
+    uint32_t si[I8 ? BN / 2 : 1];  // K3: the s32 scores
+    float ls[4] = {0.f, 0.f, 0.f, 0.f};  // K3: p's row sums, by wgmma
     uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -659,20 +496,45 @@ __global__ void __launch_bounds__(3 * kWG, 1)
 
     auto issue_s = [&](int it) {  // s = q k^T over d
       const uint32_t ka = kva + (it % ST) * T::STAGE;
+      if constexpr (I8) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BN, 0>(
-            s, desc_sw128(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32),
-            desc_sw128(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32), kk > 0);
+        for (int kk = 0; kk < D / 32; ++kk)
+          wgmma_i8<BN>(si, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BN, 0>(
+              s, desc_sw128(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32),
+              desc_sw128(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32), kk > 0);
+      }
     };
-    auto issue_pv = [&](int it) {  // o += p v over the tile's keys
-      const uint32_t va = kva + (it % ST) * T::STAGE + T::KV_BYTES;
+    // after the wait on tile it's scores: K3's s32 scores x into s as the
+    // floats 1.5 * 2^23 + x, exactly (|q8 . k8| <= 127^2 * 128 < 2^22), by
+    // one integer add. Their max and differences are exact; the shift m c
+    // of the exp2 is rounded once a row and tile, by less than c: less
+    // than one unit of the integer scores, shared by the tile's row
+    auto scores_in = [&]() {
+      if constexpr (I8) {
+        fence_regs(si);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = __int_as_float((int)si[i] + 0x4B400000);
+      } else {
+        fence_regs(s);
+      }
+    };
+    // o += p v over the tile's keys; K3 also ls += p 1, the row sums of p
+    // as p v takes it (bf16), on the tensor cores
+    auto issue_pv = [&](int it) {
+      const uint32_t va = kva + (it % ST) * T::STAGE + T::K_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
         wgmma_rs<D, 1>(o, pa[kk], desc_sw128(va + kk * 2048, BN * 128), 1);
+        if constexpr (I8) wgmma_rs_n8(ls, pa[kk], desc_ones(smem_u32(ones)));
+      }
     };
     // online softmax of tile it: s := p = exp2(s c - m c) (f32); returns
-    // the rescale factors of the old rows in a0, a1 and their new sums
+    // the rescale factors of the old rows in a0, a1 and (K1) their new sums
     auto softmax = [&](int it, float& a0, float& a1, float& rs0,
                        float& rs1) {
       const int kv0 = it * BN;
@@ -706,11 +568,12 @@ __global__ void __launch_bounds__(3 * kWG, 1)
         s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], c, -mc0));
         s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], c, -mc1));
         s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], c, -mc1));
-        rs0 += s[4 * j] + s[4 * j + 1];
-        rs1 += s[4 * j + 2] + s[4 * j + 3];
+        if constexpr (!I8) {
+          rs0 += s[4 * j] + s[4 * j + 1];
+          rs1 += s[4 * j + 2] + s[4 * j + 3];
+        }
       }
     };
-
     mbar_wait(qbar, 0);
     float a0, a1, rs0, rs1;
     // tile 0: its scores alone
@@ -721,7 +584,7 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     wgmma_commit();
     turn_end(false);
     wgmma_wait<0>();
-    fence_regs(s);
+    scores_in();
     softmax(0, a0, a1, rs0, rs1);
     l0 = rs0;
     l1 = rs1;
@@ -737,10 +600,11 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       wgmma_commit();
       turn_end(false);
       wgmma_wait<1>();  // s of tile it is in; p v of tile it - 1 runs on
-      fence_regs(s);
+      scores_in();
       softmax(it, a0, a1, rs0, rs1);
       wgmma_wait<0>();
       fence_regs(o);
+      if constexpr (I8) fence_regs(ls);
       mbar_arrive(&empty[(it - 1) % ST]);  // k and v of tile it - 1 done
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -749,8 +613,15 @@ __global__ void __launch_bounds__(3 * kWG, 1)
         o[4 * j + 2] *= a1;
         o[4 * j + 3] *= a1;
       }
-      l0 = l0 * a0 + rs0;
-      l1 = l1 * a1 + rs1;
+      if constexpr (I8) {
+        ls[0] *= a0;
+        ls[1] *= a0;
+        ls[2] *= a1;
+        ls[3] *= a1;
+      } else {
+        l0 = l0 * a0 + rs0;
+        l1 = l1 * a1 + rs1;
+      }
       acc_to_a<BN>(pa, s);
     }
     turn_begin();
@@ -761,10 +632,16 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     wgmma_wait<0>();
     fence_regs(o);
 
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if constexpr (I8) {  // every column of ls is the whole row's sum
+      fence_regs(ls);
+      l0 = ls[0];
+      l1 = ls[2];
+    } else {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    }
     const float safe0 = l0 == 0.f ? 1.f : l0, safe1 = l1 == 0.f ? 1.f : l1;
     const float inv0 = 1.f / safe0, inv1 = 1.f / safe1;
 #pragma unroll
@@ -783,19 +660,20 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   }
 }
 
-template <int D>
+template <int D, bool I8>
 cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                         cudaStream_t stream) {
-  using T = FwdTiles<D>;
+  using T = FwdTiles<D, I8>;
+  auto qk_map = I8 ? make_map_i8 : make_map;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, p.q, B, p.Nq, p.H, D, p.q_sb, p.q_sn,
-                             p.q_sh, T::BM);
+  cudaError_t err = qk_map(&tq, p.q, B, p.Nq, p.H, D, p.q_sb, p.q_sn,
+                           p.q_sh, T::BM);
   if (err == cudaSuccess)
-    err = make_map(&tk, p.k, B, p.Nk, p.H, D, p.k_sb, p.k_sn, p.k_sh, T::BN);
+    err = qk_map(&tk, p.k, B, p.Nk, p.H, D, p.k_sb, p.k_sn, p.k_sh, T::BN);
   if (err == cudaSuccess)
     err = make_map(&tv, p.v, B, p.Nk, p.H, D, p.v_sb, p.v_sn, p.v_sh, T::BN);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_sm90_kernel<D>;
+  auto kernel = flash_fwd_sm90_kernel<D, I8>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::BYTES);
@@ -817,25 +695,13 @@ cudaError_t launch_pv(const PvParams& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool I8>
-cudaError_t launch(const FlashParams& p, int BH, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, I8>;
-  const int bytes = Tiles<D, I8>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.Nq + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
 // int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
-// otherwise K1 (q, k bf16, scores scaled by scale_log2; q, k and v are read
-// by TMA, so their base pointers and strides must be 16-byte multiples).
-// v and o are bf16.
+// otherwise K1 (q, k bf16, scores scaled by scale_log2). q, k and v are
+// read by TMA, so their base pointers and strides must be 16-byte
+// multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
 extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
                              const void* sq, const void* sk, void* o,
@@ -863,11 +729,11 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
   if (int8) {
-    if (D == 64) return (int)launch<64, true>(p, BH, s);
-    if (D == 128) return (int)launch<128, true>(p, BH, s);
+    if (D == 64) return (int)launch_sm90<64, true>(p, B, BH, s);
+    if (D == 128) return (int)launch_sm90<128, true>(p, B, BH, s);
   } else {
-    if (D == 64) return (int)launch_sm90<64>(p, B, BH, s);
-    if (D == 128) return (int)launch_sm90<128>(p, B, BH, s);
+    if (D == 64) return (int)launch_sm90<64, false>(p, B, BH, s);
+    if (D == 128) return (int)launch_sm90<128, false>(p, B, BH, s);
   }
   return (int)cudaErrorInvalidValue;
 }

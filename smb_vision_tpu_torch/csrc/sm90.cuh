@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels (K1, K4):
-// shared-memory matrix descriptors for the 128-byte swizzle, wgmma
-// m64nNk16 bf16 -> f32 with A from shared memory or from registers,
-// mbarriers, 4-D TMA tile loads and the host-side tensor maps they read,
-// setmaxnreg and named barriers.
+// Hopper (sm_90a) building blocks shared by the wgmma kernels (K1, K3, K4,
+// K7): shared-memory matrix descriptors for the 128- and 64-byte swizzles,
+// wgmma m64nNk16 bf16 -> f32 with A from shared memory or from registers,
+// wgmma m64nNk32 s8 -> s32 with both operands in shared memory, mbarriers,
+// 4-D TMA tile loads and the host-side tensor maps they read, setmaxnreg
+// and named barriers.
 //
-// Tile layout. Every tile in shared memory is what a TMA load with
+// Tile layout. Every bf16 tile in shared memory is what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes for a box of 64 bf16 columns (128 bytes)
 // by R rows: row r at r * 128 bytes, its 16-byte chunk c at chunk c ^ (r % 8),
 // the tile 1024-byte aligned. A head of width 128 is two such panels, the
@@ -15,8 +16,16 @@
 //   - MN-major (the contraction runs along the rows, e.g. p v over keys):
 //     8-row groups 1024 bytes apart (SBO), 64-column panels LBO bytes
 //     apart; the k-step kk of 16 rows starts kk * 2048 bytes in.
+// An int8 tile holds whole rows, one box of D columns (D bytes): at D = 128
+// the bf16 panel's bytes exactly (the 128-byte swizzle, a k32 step 32 bytes
+// like a bf16 k16 step); at D = 64 a row is 64 bytes, so TMA writes it with
+// CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at c ^ ((r / 2) % 4)) and the
+// descriptor says the 64-byte swizzle, 8-row groups 512 bytes apart, the
+// k32 step kk at kk * 32 bytes. Integer wgmma takes both operands K-major
+// only; every int8 product of K3 and K7 contracts over d, along which q8,
+// k8, v8 and do8 are contiguous, so none needs a transposed copy.
 // (PTX ISA, "Matrix Descriptor Format" and the canonical layouts of
-// wgmma.mma_async for .bf16.)
+// wgmma.mma_async for .bf16 and .s8.)
 
 #pragma once
 
@@ -54,6 +63,34 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
   return d;
 }
 
+// descriptor of a k16 x 8 bf16 B operand read without swizzle: two 8 x 8
+// core matrices of 128 bytes, 128 bytes apart (LBO and SBO), at `addr`.
+// Over 256 bytes of bf16 ones it is a B of ones whatever the k-step, so
+// one such tile serves every k-step of a row sum by wgmma.
+__device__ __forceinline__ uint64_t desc_ones(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)(128 >> 4) << 16;
+  d |= (uint64_t)(128 >> 4) << 32;
+  return d;
+}
+
+// descriptor of a K-major operand with 64-byte rows and the 64-byte swizzle
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)(512 >> 4) << 32;  // SBO: 8 rows of 64 bytes
+  d |= (uint64_t)2 << 62;           // 64-byte swizzle
+  return d;
+}
+
+// descriptor of k32 step kk of an int8 tile of D-byte rows (see the top),
+// from row 0 of the operand at `addr`
+template <int D>
+__device__ __forceinline__ uint64_t desc_i8(uint32_t addr, int kk) {
+  static_assert(D == 64 || D == 128, "desc_i8: D");
+  if constexpr (D == 64) return desc_sw64(addr + kk * 32);
+  return desc_sw128(addr + kk * 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -71,6 +108,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D (64 x N, f32) (+)= A B, one k16 step. _ss: A and B from shared memory
@@ -179,6 +221,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
 }
+// D (64 x 8, f32) += A B, one k16 step, A from registers and B by a
+// descriptor; with `desc_ones` it gives each row's sum of A in every column
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
@@ -195,6 +250,72 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   static_assert(N == 64 || N == 128, "wgmma_rs: N");
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+
+// D (64 x N, s32) (+)= A B, one k32 step of s8 operands, both K-major in
+// shared memory by descriptors; scale_d = 0 overwrites D. The s32
+// accumulator has the thread layout of the f32 one (see acc_to_a).
+__device__ __forceinline__ void wgmma_i8_n32(uint32_t (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_i8_n64(uint32_t (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_i8_n128(uint32_t (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_i8(uint32_t (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_i8: N");
+  if constexpr (N == 32) wgmma_i8_n32(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_i8_n64(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_i8_n128(d, da, db, scale_d);
 }
 
 // The wgmma accumulator of a 64 x N tile gives thread (warp w, lane 4g + t)
@@ -215,6 +336,24 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
     a[kk][1] = *reinterpret_cast<uint32_t*>(&v1);
     a[kk][2] = *reinterpret_cast<uint32_t*>(&v2);
     a[kk][3] = *reinterpret_cast<uint32_t*>(&v3);
+  }
+}
+
+// the same from f32 values held as their bits (the int8 kernels write
+// them over their s32 accumulators)
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
+                                         const uint32_t (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+    {
+      __nv_bfloat162 v = __floats2bfloat162_rn(
+          __uint_as_float(d[8 * kk + 2 * w]),
+          __uint_as_float(d[8 * kk + 2 * w + 1]));
+      a[kk][w] = *reinterpret_cast<uint32_t*>(&v);
+    }
   }
 }
 
@@ -247,6 +386,10 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                "r"(count)
                : "memory");
 }
+// make this thread's shared-memory writes visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // make the initialised barriers visible to the async (TMA) proxy
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -260,6 +403,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// expect `bytes` more of TMA transactions in the current phase, without
+// an arrival
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
@@ -345,14 +497,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 (B, N, H, D) tensor with element strides sb, sn, sh
-// (the last dim contiguous): dims (D, H, N, B), box (64, 1, rows, 1), the
-// 128-byte swizzle, rows past N read as zero. A dim of size 1 is never
+// Tensor map of a (B, N, H, D) tensor of `esize`-byte elements with element
+// strides sb, sn, sh (the last dim contiguous): dims (D, H, N, B), box
+// (cols, 1, rows, 1), rows past N read as zero. A dim of size 1 is never
 // stepped, so its stride is set to 16 bytes. The same geometry as
 // ops/attention.py::_tma_geometry, which checks it before the launch.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
-                            int H, int D, long long sb, long long sn,
-                            long long sh, int rows) {
+inline cudaError_t make_map_box(CUtensorMap* map, const void* base,
+                                CUtensorMapDataType type, int esize,
+                                int cols, CUtensorMapSwizzle swizzle, int B,
+                                int N, int H, int D, long long sb,
+                                long long sn, long long sh, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
@@ -360,21 +514,42 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
   const long long el[3] = {sh, sn, sb};
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i) {
-    const long long bytes = dims[i + 1] == 1 ? 16 : el[i] * 2;
+    const long long bytes = dims[i + 1] == 1 ? 16 : el[i] * esize;
     if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1LL << 40))
       return cudaErrorInvalidValue;
     strides[i] = (cuuint64_t)bytes;
   }
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || rows < 1 || rows > 256)
     return cudaErrorInvalidValue;
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                  estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16: boxes of 64 columns (one 128-byte panel), the 128-byte swizzle
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
+                            int H, int D, long long sb, long long sn,
+                            long long sh, int rows) {
+  return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
+                      CU_TENSOR_MAP_SWIZZLE_128B, B, N, H, D, sb, sn, sh,
+                      rows);
+}
+
+// int8: a box holds whole rows of D = 64 or 128 bytes, with the swizzle of
+// their width (see the top). CUtensorMapDataType has no signed 8-bit type;
+// UINT8 copies the same bytes.
+inline cudaError_t make_map_i8(CUtensorMap* map, const void* base, int B,
+                               int N, int H, int D, long long sb,
+                               long long sn, long long sh, int rows) {
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D,
+                      D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_128B,
+                      B, N, H, D, sb, sn, sh, rows);
 }
 
 }  // namespace

@@ -12,9 +12,10 @@ stand behind them:
   on wgmma and TMA as K1;
 - K3 `flash_attention_int8` (`csrc/flash_fwd.cu`): the forward with `q k^T`
   on int8 with per-(batch, head) symmetric scales (replaces
-  `_fwd_i8_kernel`, pv=False). Forward only, as in the JAX package;
+  `_fwd_i8_kernel`, pv=False), K1's design on int8 wgmma. Forward only, as
+  in the JAX package;
 - K7 `flash_attention_bwd_i8` (`csrc/flash_bwd.cu`): K4 with the score
-  recompute and `do v^T` on int8 (replaces `_bwd_dq_i8_kernel` and
+  recompute and `do v^T` on int8 wgmma (replaces `_bwd_dq_i8_kernel` and
   `_bwd_dkv_i8_kernel`; attn_impl "pallas_i8bwd");
 - K8 `flash_attention_int8pv` (`csrc/flash_fwd.cu`): K3 with `p v` on int8
   too, p requantised per 64-key tile against the tile's max (replaces
@@ -211,24 +212,39 @@ def _check_qkv(q, k, v, qk_dtype):
                              f"{t.stride()}")
 
 
-# the TMA box K1 and K4 load: 64 bf16 columns (the 128-byte swizzle) by up
-# to 256 rows of one (batch, head)
+# the TMA boxes of the wgmma kernels: bf16 (K1, K4, and the bf16 operands
+# of K3 and K7) in panels of 64 columns, one 128-byte swizzle span; int8
+# (K3, K7) in whole rows of 64 or 128 bytes, swizzled by their width; up to
+# 256 rows of one (batch, head)
 _TMA_BOX_COLS = 64
 _TMA_MAX_ROWS = 256
 
 
 def _tma_geometry(t, rows: int):
-    """The tensor map K1 and K4 build (`csrc/sm90.cuh::make_map`) for a bf16
-    (B, N, H, D) tensor read by TMA in boxes of `rows` rows: dims (D, H, N,
-    B), byte strides of H, N and B (a dim of size 1 is never stepped, so
-    its stride is 16), box (64, 1, rows, 1). TMA takes a 16-byte-aligned
-    base and stride multiples of 16 below 2^40; anything else raises here,
-    before the launch, instead of failing the descriptor encode."""
+    """The tensor map the wgmma kernels build (`csrc/sm90.cuh::make_map`,
+    `make_map_i8`) for a bf16 or int8 (B, N, H, D) tensor read by TMA in
+    boxes of `rows` rows: dims (D, H, N, B), byte strides of H, N and B (a
+    dim of size 1 is never stepped, so its stride is 16), box (cols, 1,
+    rows, 1) and the swizzle in bytes: 64 bf16 columns with the 128-byte
+    swizzle, or a whole int8 row of D = 64 or 128 bytes with the swizzle of
+    its width. TMA takes a 16-byte-aligned base and stride multiples of 16
+    below 2^40; anything else raises here, before the launch, instead of
+    failing the descriptor encode."""
     b, n, h, d = t.shape
-    if t.stride(-1) != 1 or d % _TMA_BOX_COLS:
-        raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
-                         f"{_TMA_BOX_COLS} and contiguous; got shape "
-                         f"{tuple(t.shape)}, strides {t.stride()}")
+    if t.dtype == torch.int8:
+        if t.stride(-1) != 1 or d not in _KERNEL_HEAD_DIMS:
+            raise ValueError(f"TMA reads int8 (B, N, H, D) with D in "
+                             f"{_KERNEL_HEAD_DIMS} and contiguous; got shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+        cols = d
+    elif t.dtype == torch.bfloat16:
+        if t.stride(-1) != 1 or d % _TMA_BOX_COLS:
+            raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
+                             f"{_TMA_BOX_COLS} and contiguous; got shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+        cols = _TMA_BOX_COLS
+    else:
+        raise TypeError(f"TMA maps bfloat16 or int8 tensors, not {t.dtype}")
     if not 1 <= rows <= _TMA_MAX_ROWS:
         raise ValueError(f"TMA box rows {rows} outside 1..{_TMA_MAX_ROWS}")
     if t.data_ptr() % 16:
@@ -244,7 +260,7 @@ def _tma_geometry(t, rows: int):
                              f"{t.dtype} tensor")
         strides.append(nbytes)
     return {"dims": dims, "strides": tuple(strides),
-            "box": (_TMA_BOX_COLS, 1, rows, 1)}
+            "box": (cols, 1, rows, 1), "swizzle": cols * t.element_size()}
 
 
 def needs_grad(*tensors) -> bool:
@@ -451,6 +467,8 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale)
+    for t in (q8, k8, v8, do8, q, k, do):
+        _tma_geometry(t, 128)
     delta = _delta(do, out, g_lse)
     lse = lse.float().contiguous()
     dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
@@ -536,6 +554,8 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, not "
                          f"{q.device}")
     _check_qkv(q8, k8, v, torch.int8)
+    for t in (q8, k8, v):
+        _tma_geometry(t, 128)
     out = torch.empty(v.shape[:1] + q.shape[1:], dtype=torch.bfloat16,
                       device=q.device)
     _launch_flash(q8, k8, v, sq.contiguous(), sk.contiguous(), out, None,

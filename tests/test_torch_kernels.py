@@ -129,8 +129,9 @@ def test_flash_kernels_match_plain(cuda, n, d):
                                      (1, 129, 64), (193, 64, 128),
                                      (65, 1961, 128)])
 def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
-    """Nq != Nk both ways with ragged tails; inputs the kernel does not
-    take raise instead of falling back to the plain version."""
+    """Nq != Nk both ways with ragged tails, K1 and K3; inputs the kernels
+    do not take raise instead of falling back to the plain version, and
+    launch nothing."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = (torch.randn((1, nq, 2, d), generator=gen, device=cuda)
          * 0.4).to(torch.bfloat16)
@@ -138,15 +139,26 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
              * 0.4).to(torch.bfloat16) for _ in range(2)]
     assert _rel(A.flash_attention(q, k, v), A.xla_attention(q, k, v)) \
         <= 1e-2
-    before = A.flash_attention.launches
-    with pytest.raises(ValueError, match="head width"):
-        A.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
+    before8 = A.flash_attention_int8.launches
+    out8 = A.flash_attention_int8(q, k, v)
+    assert A.flash_attention_int8.launches == before8 + 1
+    assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    assert _rel(out8, A.xla_attention(q.float(), k.float(), v.float())) \
+        <= 2e-2
+    before = (A.flash_attention.launches, A.flash_attention_int8.launches)
     wide = torch.zeros((1, nk, 2, d + 4), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        A.flash_attention(q, wide[..., :d], wide[..., :d])
+    for fn in (A.flash_attention, A.flash_attention_int8):
+        with pytest.raises(ValueError, match="head width"):
+            fn(q[..., :32], k[..., :32], v[..., :32])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q, k, wide[..., :d])
     with pytest.raises(TypeError, match="bfloat16"):
         A.flash_attention(q.float(), k.float(), v.float())
-    assert A.flash_attention.launches == before
+    with pytest.raises(TypeError, match="bfloat16"):
+        A.flash_attention_int8(q, k, v.float())
+    assert (A.flash_attention.launches,
+            A.flash_attention_int8.launches) == before
     x = torch.zeros(8, 96, dtype=torch.bfloat16, device=cuda)
     w1, b1 = torch.zeros(96, 64, device=cuda), torch.zeros(64, device=cuda)
     w2, b2 = torch.zeros(64, 96, device=cuda), torch.zeros(96, device=cuda)
@@ -158,18 +170,26 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
 @pytest.mark.parametrize("n,d", [(96, 64), (129, 64), (193, 128)])
 def test_flash_kernel_reads_strided_heads(cuda, n, d):
     """q, k, v as views of one fused (B, N, 3, H, D) projection, read by
-    TMA through their strides, forward and backward."""
+    TMA through their strides: K1 and K4, K3 (v and the fused q, k it
+    quantises) and K7 (its bf16 q and k)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     qkv = (torch.randn((2, n, 3, 4, d), generator=gen, device=cuda)
            * 0.4).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
+    scale = 1.0 / math.sqrt(d)
     out, lse = A.flash_attention(q, k, v, with_lse=True)
     assert _rel(out, A.xla_attention(q, k, v)) <= 1e-2
     do = torch.randn_like(q)
     got = A.flash_attention_bwd(q, k, v, out, lse, do)
-    want = A.attention_bwd_plain(q, k, v, out, lse, do,
-                                 scale=1.0 / math.sqrt(d))
+    want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-2
+    q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+    assert _rel(A.flash_attention_int8(q, k, v),
+                A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    got = A.flash_attention_bwd_i8(q, k, v, out, lse, do)
+    want = A.attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 2e-2
 
@@ -302,15 +322,21 @@ def test_block_backward_runs_through_the_kernels(cuda, mlp_impl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(256, 64), (100, 64), (130, 128),
-                                 (256, 128)])
-def test_flash_bwd_i8_kernel_matches_plain(cuda, n, d):
+@pytest.mark.parametrize("nq,nk,d", [(n, n, d) for n, d in _EDGES] + [
+    (256, 256, 128), (70, 200, 64), (200, 70, 64), (1, 129, 128),
+    (193, 64, 128)])
+def test_flash_bwd_i8_kernel_matches_plain(cuda, nq, nk, d):
     """K7 against its plain version, with and without an lse2 cotangent,
-    on the lse2 of K1; ragged lengths included."""
+    on the lse2 of K1, at the wgmma tile edges and with Nq != Nk both
+    ways."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    q, k, v, do = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
-                    * 0.4).to(torch.bfloat16) for _ in range(4)]
-    g_lse = torch.randn((2, 3, n), generator=gen, device=cuda)
+
+    def r(n):
+        return (torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16)
+
+    q, k, v, do = r(nq), r(nk), r(nk), r(nq)
+    g_lse = torch.randn((2, 3, nq), generator=gen, device=cuda)
     out, lse = A.flash_attention(q, k, v, with_lse=True)
     scale = 1.0 / math.sqrt(d)
     for gl in (None, g_lse):

@@ -149,7 +149,8 @@ def test_int8pv_kernel_layout_of_v():
 
 
 def _tma_case(name):
-    """A bf16 (B, N, H, D) tensor as K1 and K4 receive it."""
+    """A bf16 (B, N, H, D) tensor as K1 and K4 receive it, or an int8 one
+    as K3 and K7 receive their quantised operands."""
     if name == "contiguous":
         return torch.zeros(2, 100, 3, 64, dtype=torch.bfloat16)
     if name == "ragged_d128":
@@ -157,7 +158,19 @@ def _tma_case(name):
     if name.startswith("fused_"):   # q, k or v of one (B, N, 3, H, D)
         qkv = torch.zeros(2, 96, 3, 4, 64, dtype=torch.bfloat16)
         return qkv.unbind(2)["qkv".index(name[-1])]
+    if name == "int8_d64":          # leg B's q8 and k8
+        return torch.zeros(1, 20480, 12, 64, dtype=torch.int8)
+    if name == "int8_d128":         # the V-JEPA encoder's
+        return torch.zeros(1, 9216, 8, 128, dtype=torch.int8)
+    if name == "int8_ragged":
+        return torch.zeros(2, 1961, 3, 64, dtype=torch.int8)
     raise KeyError(name)
+
+
+# the box's columns and swizzle bytes: 64 bf16 columns in the 128-byte
+# swizzle; a whole int8 row of 64 or 128 bytes in the swizzle of its width
+_TMA_BOX = {"int8_d64": (64, 64), "int8_d128": (128, 128),
+            "int8_ragged": (64, 64)}
 
 
 @pytest.mark.parametrize("name,rows,dims,strides", [
@@ -166,14 +179,20 @@ def _tma_case(name):
     ("fused_q", 128, (64, 4, 96, 2), (128, 1536, 147456)),
     ("fused_k", 64, (64, 4, 96, 2), (128, 1536, 147456)),
     ("fused_v", 32, (64, 4, 96, 2), (128, 1536, 147456)),
+    ("int8_d64", 128, (64, 12, 20480, 1), (64, 768, 16)),
+    ("int8_d128", 32, (128, 8, 9216, 1), (128, 1024, 16)),
+    ("int8_ragged", 64, (64, 3, 1961, 2), (64, 192, 376512)),
 ])
 def test_tma_geometry(name, rows, dims, strides):
-    """The tensor map K1 and K4 encode: dims (D, H, N, B), the byte strides
-    of H, N and B (16 for a dim of size 1), box (64, 1, rows, 1). The
-    fused-qkv slices keep their strides: no copy is made for TMA."""
+    """The tensor map the wgmma kernels encode: dims (D, H, N, B), the byte
+    strides of H, N and B (16 for a dim of size 1), box (cols, 1, rows, 1)
+    and the swizzle. The fused-qkv slices keep their strides: no copy is
+    made for TMA."""
     t = _tma_case(name)
+    cols, swizzle = _TMA_BOX.get(name, (64, 128))
     geo = tattn._tma_geometry(t, rows)
-    assert geo == {"dims": dims, "strides": strides, "box": (64, 1, rows, 1)}
+    assert geo == {"dims": dims, "strides": strides,
+                   "box": (cols, 1, rows, 1), "swizzle": swizzle}
     if name.startswith("fused_"):
         assert not t.is_contiguous()
 
@@ -191,6 +210,29 @@ def test_tma_geometry_refuses_misaligned_views():
     with pytest.raises(ValueError, match="box rows"):
         tattn._tma_geometry(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16),
                             512)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_geometry_refuses_misaligned_int8_views(d):
+    """What the int8 maps of K3 and K7 cannot take raises before a launch:
+    a head stride that is no multiple of 16 bytes, a base off 16 bytes, a
+    row of another width than 64 or 128 bytes, more than 256 box rows."""
+    x = torch.zeros(1, 64, 3, d + 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tattn._tma_geometry(x[..., :d], 64)       # (d + 8)-byte head stride
+    y = torch.zeros(1, 65, 2, d, dtype=torch.int8).flatten()
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        tattn._tma_geometry(y[4:4 + 64 * 2 * d].view(1, 64, 2, d), 64)
+    with pytest.raises(ValueError, match="D in"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, d - 32, dtype=torch.int8),
+                            64)
+    with pytest.raises(ValueError, match="D in"):
+        tattn._tma_geometry(torch.zeros(2, 8, 2, 2 * d, 2,
+                                        dtype=torch.int8)[..., 0], 64)
+    with pytest.raises(ValueError, match="box rows"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, d, dtype=torch.int8), 257)
+    with pytest.raises(TypeError, match="bfloat16 or int8"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, d), 64)
 
 
 def test_attention_impl_names():
