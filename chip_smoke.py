@@ -9,19 +9,21 @@ attention and attention-glue paths, once on one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too, the kernels this tree did not
-change (K1, K4, K8, the MLP and glue kernels) are compared with it by SASS
-and bit for bit, and the flash kernels, legs A's and B's models and the
-MIM and V-JEPA steps are timed with either library in turns, in one
-process; the last line is the JSON of the mean times.
+change (the flash kernels, K5b, K9 and the glue kernels) are compared with
+it by SASS and bit for bit, and the flash, MLP, SwiGLU and glue kernels,
+legs A's and B's models and the MIM and V-JEPA steps are timed with either
+library in turns, in one process; the last line is the JSON of the mean
+times.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
-     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4 and K7 in the SASS
-     (cuobjdump, where the toolkit has it): none of one that a kernel
-     should have fails the run (K3 and K7 need all three);
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the four
+     GEMM instantiations of K2, K6 and K5a in the SASS (cuobjdump, where
+     the toolkit has it): none of one that a kernel should have fails the
+     run (K3 and K7 need all three);
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
@@ -32,8 +34,9 @@ Phases of the run without arguments, each of which fails the run
      shapes and a ragged one; then the V-JEPA shapes: the int8-score
      backward K7 at the encoder's, the predictor's, the reference-head
      encoder's and two ragged shapes (timed beside its plain version and
-     K4), K1 and K3 at head width 128 (K3 beside K1), and K5a, K5b and K6
-     at the ViT-L MLP; then the SwiGLU half-block K9 at DINOv2-giant
+     K4), K1 and K3 at head width 128 (K3 beside K1), and K5a, K5b, K6
+     and K2 at the ViT-L MLP (K 1,024); K2, K6 and K5a each also beside
+     its cuBLAS chain (`mlp_chain`, their library_ms); then the SwiGLU half-block K9 at DINOv2-giant
      batch 2 and ragged batch 1 and at the DINOv2-base shape (timed beside
      the cuBLAS chain, gradients through the recompute), and K1/K4 at
      DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
@@ -274,13 +277,53 @@ def attn_bytes(b: int, n: int, h: int, d: int, tensors: int) -> float:
     return tensors * b * n * h * d * 2 + b * h * n * 4
 
 
-def rate_line(table: dict, name: str, shape: str, flops: float) -> None:
+def rate_line(table: dict, name: str, shape: str, flops: float,
+              library: str = "SDPA's") -> None:
     """The kept time's achieved rate, its share of the bound and its factor
     against the library call's time."""
     rec = table[name]
     log(f"rate {name:<16} {shape}: {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
         f"{rec['bound_ms'] / rec['ms']:.1%} of bound, "
-        f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's time")
+        f"{rec['ms'] / rec['library_ms']:.2f}x {library} time")
+
+
+def mlp_chain(x, w1, b1, w2, b2, lnw=None, lnb=None, eps=1e-12,
+              spill=False):
+    """The library yardstick of K2, K6 and K5a: their function as a chain
+    of PyTorch calls in bf16 (cuBLAS addmm with the bias, F.gelu, and for
+    K2 F.layer_norm and the residual add); w1 (K, F), w2 (F, K). Timed
+    beside the kernels; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    a = x if lnw is None else F.layer_norm(
+        x.float(), (x.shape[-1],), lnw, lnb, eps).to(bf)
+    h = torch.addmm(b1.to(bf), a, w1)
+    y = torch.addmm(b2.to(bf), F.gelu(h), w2)
+    if lnw is not None:
+        y = y + x
+    return (y, h) if spill else y
+
+
+def mlp_library(table: dict, name: str, shape: str, chain) -> None:
+    """Time an MLP kernel's cuBLAS chain at the shape the table keeps, as
+    the kernel's library_ms."""
+    table[name]["library_ms"] = ms = cuda_ms(chain, iters=20)
+    log(f"time {name:<14} {shape:<30} library cuBLAS chain {ms:.3f} ms "
+        f"(CUDA events)")
+
+
+def mlp_beside_chain(name: str, shape: str, kernel, plain, chain, m: int,
+                     k: int, f: int, nbytes: float) -> None:
+    """An MLP kernel at a shape the table does not keep: its time beside
+    its plain version's, its cuBLAS chain's and its bound."""
+    ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=2)
+    lib = cuda_ms(chain, iters=20)
+    bound = max(4 * m * k * f / PEAK_BF16, nbytes / HBM_BYTES) * 1e3
+    log(f"time {name:<14} {shape:<30} kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, cuBLAS chain {lib:.3f} ms ({ms / lib:.2f}x), "
+        f"bound {bound:.4f} ms (CUDA events)")
 
 
 def exp2_floor_ms(n: int, h: int) -> float:
@@ -342,10 +385,12 @@ def phase_device() -> str:
 
 # the wgmma kernels by a part of their mangled names (K1 and K3 are the two
 # instantiations of flash_fwd_sm90_kernel<D, I8>; K4 and K7 run both of
-# their passes in one kernel each), and the SASS instructions that show
-# they run on Hopper's warpgroup MMA, bf16 (HGMMA) and int8 (IGMMA), fed
-# by TMA (UTMALDG); a kernel without one of its instructions fails the
-# build phase
+# their passes in one kernel each; K2, K6 and K5a are two products each,
+# mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K: phase
+# 1 with the spill of h for K5a, phase 2 with the residual for K2), and the
+# SASS instructions that show they run on Hopper's warpgroup MMA, bf16
+# (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without one of
+# its instructions fails the build phase
 SM90_KERNELS = {
     f"{k} d{d}": (name.format(d=d), ops) for d in (64, 128)
     for k, name, ops in (
@@ -355,6 +400,12 @@ SM90_KERNELS = {
         ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
          ("IGMMA", "HGMMA", "UTMALDG")))}
+SM90_KERNELS.update({
+    label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
+    for label, phase, extra in (("K2/K6 phase 1", 1, 0),
+                                ("K5a phase 1", 1, 1),
+                                ("K6/K5a phase 2", 2, 0),
+                                ("K2 phase 2", 2, 1))})
 SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
 
 
@@ -521,11 +572,17 @@ def phase_kernels() -> dict:
                                            "gelu", eps), 20)
             timed("mlp_fwd", lambda: M.mlp_fused(x, w1, b1, w2, b2),
                   lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20)
+            mlp_library(table, "mlp_block_fwd", f"main-path N={n}",
+                        lambda: mlp_chain(x, w1, b1, w2, b2, lnw, lnb, eps))
+            mlp_library(table, "mlp_fwd", f"main-path N={n}",
+                        lambda: mlp_chain(x, w1, b1, w2, b2))
             ops = 4 * n * HIDDEN * FFN
             set_bound(table, "mlp_block_fwd", f"M={n}", ops,
                       mlp_bytes(n, HIDDEN, FFN, ln=True))
             set_bound(table, "mlp_fwd", f"M={n}", ops,
                       mlp_bytes(n, HIDDEN, FFN))
+            for name in ("mlp_block_fwd", "mlp_fwd"):
+                rate_line(table, name, f"M={n}", ops, "the chain's")
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
     phase_dinov2_kernels(table, gen, dev)
@@ -641,24 +698,50 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
             check("mlp_bwd", f"{what} {name}", a, b, TOL_MLP_TRAIN)
         if label != "ragged":
             keep = label == "encoder"
-            timed("mlp_train_fwd", f"{label} {what}",
-                  lambda: M.mlp_train_fused(x, w1, b1, w2, b2),
-                  lambda: M._mlp_train_plain(x, w1, b1, w2, b2, "gelu"),
-                  20, keep)
+            train = functools.partial(M.mlp_train_fused, x, w1, b1, w2, b2)
+            plain = functools.partial(M._mlp_train_plain, x, w1, b1, w2, b2,
+                                      "gelu")
+            chain = functools.partial(mlp_chain, x, w1, b1, w2, b2,
+                                      spill=True)
+            if keep:
+                timed("mlp_train_fwd", f"{label} {what}", train, plain, 20,
+                      True)
+                mlp_library(table, "mlp_train_fwd", f"{label} {what}", chain)
+                set_bound(table, "mlp_train_fwd", what, 4 * m * kd * f,
+                          mlp_bytes(m, kd, f, extra_mf=1))
+                rate_line(table, "mlp_train_fwd", what, 4 * m * kd * f,
+                          "the chain's")
+            else:
+                mlp_beside_chain("mlp_train_fwd", f"{label} {what}", train,
+                                 plain, chain, m, kd, f,
+                                 mlp_bytes(m, kd, f, extra_mf=1))
             timed("mlp_bwd", f"{label} {what}",
                   lambda: M.mlp_bwd_fused(hh, g, w1, w2),
                   lambda: M._mlp_bwd_plain(hh, g, w1, w2, "gelu"), 20, keep)
             if keep:
-                set_bound(table, "mlp_train_fwd", what, 4 * m * kd * f,
-                          mlp_bytes(m, kd, f, extra_mf=1))
                 set_bound(table, "mlp_bwd", what, 4 * m * kd * f,
                           mlp_bytes(m, kd, f, extra_mf=3))
-        if label == "V-JEPA":   # the EMA teacher's MLP
+        if label == "V-JEPA":   # the EMA teacher's MLP, and K2 at K 1,024
             check("mlp_fwd", what, M.mlp_fused(x, w1, b1, w2, b2),
                   M._mlp_xla(x, w1, b1, w2, b2, "gelu"), TOL_MLP)
-            timed("mlp_fwd", f"{label} {what}",
-                  lambda: M.mlp_fused(x, w1, b1, w2, b2),
-                  lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"), 20, False)
+            mlp_beside_chain("mlp_fwd", f"{label} {what}",
+                             lambda: M.mlp_fused(x, w1, b1, w2, b2),
+                             lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"),
+                             lambda: mlp_chain(x, w1, b1, w2, b2), m, kd, f,
+                             mlp_bytes(m, kd, f))
+            lnw, lnb = 1.0 + r(kd, s=0.1), r(kd, s=0.1)
+            check("mlp_block_fwd", what,
+                  M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=1e-6),
+                  M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, "gelu",
+                                   1e-6), TOL_MLP)
+            mlp_beside_chain(
+                "mlp_block_fwd", f"{label} {what}",
+                lambda: M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2,
+                                          eps=1e-6),
+                lambda: M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, "gelu",
+                                         1e-6),
+                lambda: mlp_chain(x, w1, b1, w2, b2, lnw, lnb, 1e-6), m, kd,
+                f, mlp_bytes(m, kd, f, ln=True))
 
 
 def phase_vjepa_kernels(table: dict, gen, dev) -> None:
@@ -2031,21 +2114,24 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K4 and K8 by a part of their mangled names (this tree's, the other's:
-# the parent commit names K1 flash_fwd_sm90_kernel<D>, this tree
-# flash_fwd_sm90_kernel<D, false>), and every kernel of the MLP and glue
-# sources (K2, K6, K5a, K5b, K9, K10a, K10b) by its whole name
+# K3, K4, K7 and K8 by a part of their mangled names (this tree's, the
+# other's), and every kernel of the sources this tree leaves alone (K5b,
+# K9, K10a, K10b) by its whole name; the MLP forward (K2, K6, K5a) is the
+# one this tree changes
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (64, 128)
              for k, this, other in (
                  ("K1", "flash_fwd_sm90_kernelILi{d}ELb0EE",
-                  "flash_fwd_sm90_kernelILi{d}EE"),
+                  "flash_fwd_sm90_kernelILi{d}ELb0EE"),
+                 ("K3", "flash_fwd_sm90_kernelILi{d}ELb1EE",
+                  "flash_fwd_sm90_kernelILi{d}ELb1EE"),
                  ("K4", "flash_bwd_sm90_kernelILi{d}EE",
                   "flash_bwd_sm90_kernelILi{d}EE"),
+                 ("K7", "flash_bwd_i8_sm90_kernelILi{d}EE",
+                  "flash_bwd_i8_sm90_kernelILi{d}EE"),
                  ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
                   "flash_fwd_i8pv_kernelILi{d}EE"))}
-UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "swiglu_fwd_cu",
-                     "attn_glue_cu")
+UNCHANGED_SOURCES = ("mlp_bwd_cu", "swiglu_fwd_cu", "attn_glue_cu")
 
 
 def _anon(name: str) -> str:
@@ -2068,16 +2154,17 @@ def compare_sass(sass: dict) -> None:
             if any(src in fn for src in UNCHANGED_SOURCES)}
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
-    log(f"against: SASS of the MLP and glue kernels (K2, K6, K5a, K5b, K9, "
-        f"K10a, K10b): {len(same)} of {len(this)} functions identical"
+    log(f"against: SASS of the MLP backward, SwiGLU and glue kernels (K5b, "
+        f"K9, K10a, K10b): {len(same)} of {len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
 
 def unchanged_outputs(dev) -> list:
-    """The outputs of the UNCHANGED kernels on seeded inputs: K1 and K8 at
-    d 64 and 128, K4 at the MIM encoder's shape, and the MLP and glue
-    kernels at the embed shape (K9 at DINOv2-giant's)."""
+    """The outputs of the UNCHANGED kernels on seeded inputs: K1, K3 and
+    K8 at d 64 and 128, K4 at the MIM encoder's shape, K7 at the V-JEPA
+    encoder's, and K5b and the glue kernels at the embed shape (K5b on the
+    h of K5a's plain version, K9 at DINOv2-giant's)."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -2094,20 +2181,22 @@ def unchanged_outputs(dev) -> list:
     for n, h, d in ((MAIN_N, HEADS, HEAD_DIM), (VJ_N, 8, 128)):
         q, k, v = (r(1, n, h, d, s=0.4, dtype=bf) for _ in range(3))
         outs += [*A.flash_attention(q, k, v, with_lse=True),
+                 A.flash_attention_int8(q, k, v),
                  A.flash_attention_int8pv(q, k, v)]
     q, k, v, do = (r(1, ENC_N, HEADS, HEAD_DIM, s=0.4, dtype=bf)
                    for _ in range(4))
     outs += A.flash_attention_bwd(q, k, v, *A.flash_attention(
+        q, k, v, with_lse=True), do)
+    q, k, v, do = (r(1, VJ_N, 8, 128, s=0.4, dtype=bf) for _ in range(4))
+    outs += A.flash_attention_bwd_i8(q, k, v, *A.flash_attention(
         q, k, v, with_lse=True), do)
     x = r(MAIN_N, HIDDEN, dtype=bf)
     lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
     w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
     w2 = r(HIDDEN, FFN, s=FFN ** -0.5, dtype=bf).t()
     b1, b2 = r(FFN, s=0.1), r(HIDDEN, s=0.1)
-    y, hh = M.mlp_train_fused(x, w1, b1, w2, b2)
-    outs += [M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=1e-12),
-             M.mlp_fused(x, w1, b1, w2, b2), y, hh,
-             *M.mlp_bwd_fused(hh, r(MAIN_N, HIDDEN, dtype=bf), w1, w2)]
+    _, hh = M._mlp_train_plain(x, w1, b1, w2, b2, "gelu")
+    outs += M.mlp_bwd_fused(hh, r(MAIN_N, HIDDEN, dtype=bf), w1, w2)
     ws = [r(HIDDEN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t() for _ in range(4)]
     bs = [r(HIDDEN, s=0.1) for _ in range(4)]
     qkv = G.qkv_ln_fused(x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
@@ -2131,23 +2220,99 @@ def build_library(root: Path) -> Path:
     return Path(out.stdout.strip().splitlines()[-1])
 
 
+def peak_memory_mib() -> dict:
+    """Peak device memory (MiB) of one forward of leg A's model at batch
+    4 and of one MIM step of the preset at batch 1 and 2, each after a
+    warm-up, with the smb_vision_tpu_torch that is first on the path."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
+    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def peak(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2 ** 20
+
+    px = torch.rand((4, 320, 1, 512, 512), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    model = VideoMAEModel(VideoMAEConfig(
+        image_size=512, num_frames=320, hidden_size=HIDDEN,
+        num_hidden_layers=12, num_attention_heads=HEADS,
+        intermediate_size=FFN, dtype="bfloat16")).init_weights(
+            torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.inference_mode():
+        out = {"leg A model batch 4 MiB": peak(lambda: model(px))}
+    del model, px
+    torch.cuda.empty_cache()
+    cfg, preset = mim_config()
+    for bs in (1, 2):
+        _, init_fn, step_fn, _ = make_mim_workload(
+            cfg, mask_patch_size=preset["mask_patch_size"],
+            mask_ratio=preset["mask_ratio"], tx=functools.partial(
+                make_optimizer, learning_rate=preset["learning_rate"],
+                total_steps=100, warmup_ratio=preset["warmup_ratio"],
+                weight_decay=preset["weight_decay"]), device=dev)
+        state = init_fn(0)
+        px = torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
+                         cfg.image_size), generator=gen, device=dev)
+        out[f"MIM step batch {bs} MiB"] = peak(lambda: step_fn(
+            state, {"pixel_values": px}, step_generator(0, 1)))
+        del init_fn, step_fn, state, px
+        torch.cuda.empty_cache()
+    return out
+
+
+def peak_memory_of(root: Path) -> dict:
+    """peak_memory_mib() for the checkout at root, with its own package
+    and kernel library, in a process of its own."""
+    code = ("import importlib.util, json; spec = importlib.util."
+            f"spec_from_file_location('smoke', {str(Path(__file__))!r}); "
+            "smoke = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(smoke); "
+            "print(json.dumps(smoke.peak_memory_mib()))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=900,
+                         env={**os.environ, "PYTHONPATH": str(root)},
+                         check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
     wrappers call either library. The kernels that must match the other's
-    (UNCHANGED: K1, K4, K8 and the MLP and glue kernels) are compared by
-    SASS and by output, bit for bit; then, in turns (other, this, this,
-    other a round), the flash kernels at their table shapes (K3 at d 64
-    and 128, K7 at the V-JEPA encoder's and the reference head's), legs A's
-    and B's models (bf16 and int8 encoders, batch 4), the MIM step of the
-    preset at batch 1 and 2 and the V-JEPA step of its preset at batch 1
-    are timed. Returns the mean of each time per side."""
+    (UNCHANGED: the flash kernels, K5b, K9 and the glue kernels) are
+    compared by SASS and by output, bit for bit; then, in turns (other,
+    this, this, other a round), the flash kernels at their table shapes
+    (K3 at d 64 and 128, K7 at the V-JEPA encoder's and the reference
+    head's), the MLP family (K2 and K6 at the embed shape, K6 at the
+    V-JEPA teacher's K 1,024, K5a and K5b at the MIM encoder's), K9 and the
+    glue kernels, legs A's and B's models (bf16 and int8 encoders, batch
+    4), the MIM step of the preset at batch 1 and 2 and the V-JEPA step of
+    its preset at batch 1 and 2 are timed. The MLP wrappers pass their
+    workspace after the arguments of the parent's `smb_mlp_fwd`, which
+    takes none and runs through them as before. Last, each checkout's
+    peak device memory (`peak_memory_mib`) with its own package, in a
+    process of its own. Returns the mean of each time per side and the
+    peaks."""
     import torch
 
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
     from smb_vision_tpu_torch.models.videomae import VideoMAEModel
     from smb_vision_tpu_torch.ops import _build
     from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import attn_glue as G
+    from smb_vision_tpu_torch.ops import mlp as M
     from smb_vision_tpu_torch.train.mim import make_mim_workload
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import step_generator
@@ -2163,8 +2328,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         _build._lib = handle
         outs[side] = unchanged_outputs(dev)
     same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    log(f"against: outputs of K1, K4, K8, K2, K6, K5a, K5b, K9, K10a and "
-        f"K10b bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
+    log(f"against: outputs of K1, K3, K4, K7, K8, K5b, K9, K10a and K10b "
+        f"bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
         f"tensors)")
     del outs
 
@@ -2181,6 +2346,27 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     fwd_lse = {name: A.flash_attention(*x[:3], with_lse=True)
                for name, x in (("enc", enc), ("dec", dec), ("vj", vj),
                                ("ref", ref))}
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def mlp(m, kd, f):
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+
+        bf = torch.bfloat16
+        return (r(m, kd).to(bf), 1.0 + r(kd, s=0.1), r(kd, s=0.1),
+                r(f, kd, s=kd ** -0.5).to(bf).t(), r(f, s=0.1),
+                r(kd, f, s=f ** -0.5).to(bf).t(), r(kd, s=0.1))
+
+    mx, mlnw, mlnb, mw1, mb1, mw2, mb2 = mlp(MAIN_N, HIDDEN, FFN)
+    vx, _, _, vw1, vb1, vw2, vb2 = mlp(VJ_N, VJ_HIDDEN, VJ_FFN)
+    ex, _, _, ew1, eb1, ew2, eb2 = mlp(ENC_N, HIDDEN, FFN)
+    _, eh = M._mlp_train_plain(ex, ew1, eb1, ew2, eb2, "gelu")
+    gx, glnw, glnb, gw1, gb1, gw2, gb2 = mlp(2 * DINO_N, GIANT_K, 2 * GIANT_F)
+    gw2 = gw2[:GIANT_F]
+    gws = [mw1[:, :HIDDEN].contiguous() for _ in range(4)]
+    gbs = [mb2 for _ in range(4)]
+    qkv = G.qkv_ln_fused(mx, mlnw, mlnb, *gws[:3], *gbs[:3], eps=1e-6)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = [torch.rand((4, 320, 1, 512, 512), generator=gen, device=dev)
@@ -2210,10 +2396,11 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     _, vinit, vstep, _ = vjepa_workload(vcfg, vpreset, dev,
                                         vpreset["teacher_attn_impl"])
     gen = torch.Generator(device=dev).manual_seed(5)
-    vjepa = (vinit(0), vstep, [
-        torch.rand((1, vcfg.frames_per_clip, 1, vcfg.crop_size,
+    vstate = vinit(0)   # one model: its init runs once; both batches train it
+    vjepa = {bs: (vstate, vstep, [
+        torch.rand((bs, vcfg.frames_per_clip, 1, vcfg.crop_size,
                     vcfg.crop_size), generator=gen, device=dev)
-        for _ in range(4)])
+        for _ in range(4)]) for bs in (1, 2)}
 
     def encode(leg):
         with torch.inference_mode():
@@ -2238,6 +2425,18 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             *vj[:3], *fwd_lse["vj"], vj[3]),
         "K7 reference head d 64": lambda: A.flash_attention_bwd_i8(
             *ref[:3], *fwd_lse["ref"], ref[3]),
+        "K2 embed": lambda: M.mlp_block_fused(mx, mlnw, mlnb, mw1, mb1, mw2,
+                                              mb2, eps=1e-12),
+        "K6 embed": lambda: M.mlp_fused(mx, mw1, mb1, mw2, mb2),
+        "K6 V-JEPA teacher K 1024": lambda: M.mlp_fused(vx, vw1, vb1, vw2,
+                                                         vb2),
+        "K5a MIM encoder": lambda: M.mlp_train_fused(ex, ew1, eb1, ew2, eb2),
+        "K5b MIM encoder": lambda: M.mlp_bwd_fused(eh, ex, ew1, ew2),
+        "K9 DINOv2-giant batch 2": lambda: M.swiglu_block_fused(
+            gx, glnw, glnb, gw1, gb1, gw2, gb2, eps=1e-6),
+        "K10a embed": lambda: G.qkv_ln_fused(mx, mlnw, mlnb, *gws[:3],
+                                             *gbs[:3], eps=1e-6),
+        "K10b embed": lambda: G.out_res_fused(mx, qkv[2], gws[3], gbs[3]),
     }
     times = {side: {} for side in libs}
     for r in range(rounds):
@@ -2253,8 +2452,10 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             for bs in (1, 2):
                 got.setdefault(f"MIM step batch {bs} ms", []).append(
                     cuda_ms(lambda: steps(*mim[bs]), iters=1, warmup=1) / 3)
-            got.setdefault("V-JEPA step batch 1 ms", []).append(
-                cuda_ms(lambda: steps(*vjepa), iters=1, warmup=1) / 3)
+            for bs in (1, 2):
+                got.setdefault(f"V-JEPA step batch {bs} ms", []).append(
+                    cuda_ms(lambda: steps(*vjepa[bs]), iters=1, warmup=1)
+                    / 3)
     _build._lib = libs["this"]
     means = {side: {k: sum(v) / len(v) for k, v in got.items()}
              for side, got in times.items()}
@@ -2263,6 +2464,14 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             f"{means['this'][key]:9.3f}  (runs: other "
             f"{[round(x, 3) for x in times['other'][key]]}, this "
             f"{[round(x, 3) for x in times['this'][key]]}) on {card}")
+    del models, mim, vjepa, vstate
+    torch.cuda.empty_cache()
+    peaks = {"other": peak_memory_of(other), "this": peak_memory_of(ROOT)}
+    for key, mib in peaks["this"].items():
+        log(f"against peak {key:<24} other {peaks['other'][key]:9.0f}  this "
+            f"{mib:9.0f} on {card}")
+        means["other"]["peak " + key] = peaks["other"][key]
+        means["this"]["peak " + key] = mib
     return means
 
 

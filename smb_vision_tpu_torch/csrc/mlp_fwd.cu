@@ -1,7 +1,7 @@
 // Fused transformer MLP forward for Hopper (sm_90a): the plain MLP (K6), the
 // training forward that also spills the pre-activation (K5a) and the whole
-// MLP half-block with LayerNorm prologue and residual (K2), one templated
-// body.
+// MLP half-block with LayerNorm prologue and residual (K2), on wgmma and
+// TMA (the GEMM core of gemm_sm90.cuh).
 //
 // Replaces
 //   K6  smb_vision_tpu/ops/mlp.py:_mlp_kernel        y = act(x w1 + b1) w2 + b2
@@ -12,71 +12,60 @@
 // Numerics as the TPU kernels: bf16 operands, f32 accumulation, LayerNorm
 // statistics, bias and activation in f32, the activation rounded to bf16
 // before the second product. GELU is the exact erf form (erff; the TPU
-// kernel needed a rational approximation because Mosaic has no erf).
-// LayerNorm takes two-pass statistics (the TPU kernel: E[x^2] - mean^2).
+// kernel needed a rational approximation because Mosaic has no erf) or the
+// tanh form of gelu_new. LayerNorm takes two-pass statistics (the TPU
+// kernel: E[x^2] - mean^2) and rounds xn to bf16 (its xn scratch is bf16).
+// K2 adds the residual in f32 before its one rounding; K5a's h is x w1 + b1
+// rounded to bf16, and the activation is taken of the f32 h.
 //
 // Bound on the H100: at M = 20,480, K = 768, F = 3,072 the two products are
-// 4*M*K*F flops against 2*K*F weight bytes, which every row block reads
-// again from L2; the (M, F) intermediate, which a plain chain writes to and
-// reads back from device memory, never leaves the SM.
+// 4*M*K*F = 193 GFLOP, 0.195 ms at 989 TFLOP/s; x, y and the weights are
+// 72 MB, 0.022 ms at 3.35 TB/s. The operations bound it.
 //
-// The TPU kernel kept a (bm, K) f32 accumulator and the (bm, K) normalised
-// rows in VMEM with bm in the hundreds. A Hopper block has 227 KB of shared
-// memory and 64K registers, so the design here is a SMALL ROW BLOCK with the
-// accumulator in REGISTERS:
-//   - one block = 8 warps = 32 rows; F streams in chunks of 32 columns;
-//   - the block's normalised rows xn (32 x K bf16) stay in shared memory for
-//     the whole F loop (LN runs once per row block);
-//   - per chunk: h (32 x 32) = xn w1_chunk^T with one m16n8 tile per warp
-//     (mma.sync m16n8k16), + b1, act, rounded to bf16 into shared memory;
-//     then y (32 x K) += h w2_chunk with every warp owning K/8 output
-//     columns, so the f32 accumulator is 2 x K/64 m16n8 tiles per warp
-//     (96 floats a thread at K = 768) and never leaves registers;
-//   - the weight copies overlap the math with one buffer each (there is no
-//     room for two): cp.async brings the next chunk's w1 rows during this
-//     chunk's h w2 product, and the next w2 columns during the next
-//     chunk's xn w1 product;
-//   - the epilogue adds b2 (and the residual x) in f32 and stores bf16;
-//   - K5a (SPILL) also stores each chunk's h = x w1 + b1, rounded to bf16,
-//     from the phase-1 registers: the (M, F) tensor the backward kernel
-//     (mlp_bwd.cu) reads instead of recomputing x w1. The activation is
-//     still taken of the f32 h, as in K6.
-// Weights come in PyTorch's Linear layout, w1 (F, K) and w2 (K, F); every
-// fragment is loaded by ldmatrix, and rows are padded by 16 bytes so the 8
-// row addresses of an ldmatrix hit distinct banks. Ragged M: rows past M
-// load as zero and are not stored. K is a template parameter (128, 256,
-// 384, 512, 768, 1024); F must be a multiple of 32.
-// Not yet done (later work): wgmma, TMA multicast of the weight chunks to a
-// cluster of row blocks, a larger row block.
+// The TPU kernels kept a (bm, K) f32 output accumulator in VMEM with bm in
+// the hundreds and streamed F through it. On Hopper that accumulator would
+// live in registers: 128 rows x 768 columns in f32 is 384 KB, more than an
+// SM's register file (256 KB). A row block small enough to hold whole
+// output rows (32 rows) reads all of w1 and w2 again from L2 for every 32
+// rows (6 GB at the shape above), more bytes than the products take time.
+// So the function is computed as two tiled products instead, each a wgmma
+// GEMM over 128 x 128 output tiles:
+//   1. a = act(A w1^T + b1), A = x (K6, K5a) or xn = LN(x) in bf16 (K2,
+//      written by a row pass before it); A's and w1's tiles come by TMA,
+//      the f32 epilogue adds b1, stores h (K5a), takes the activation and
+//      stores a in bf16 into a workspace (rows, F);
+//   2. y = a w2^T + b2 (+ x for K2), over F; the epilogue adds b2 and the
+//      residual in f32 and stores bf16.
+// Every tile leaves through shared memory by TMA stores (gemm_sm90.cuh).
+// w1 (F, K) and w2 (K, F) are PyTorch's Linear layouts, K-major for wgmma's
+// B operand as they are. A 128-row tile reads each weight panel once, so
+// the weights cross L2 M/128 times instead of M/32. The workspace costs
+// 2*rows*F*2 bytes of device memory traffic (0.075 ms at the shape above);
+// the wrapper sizes it to a chunk of rows and the host walks the chunks
+// (the workspace does not grow with M). Two blocks share an SM, so one
+// block's epilogue (erff over its 128 x 128 tile, the stores) runs under
+// the other's products. Ragged M, F and contraction tails read as zero
+// through TMA and are not stored. K is 128, 256, 384, 512, 768 or 1024 (the
+// LayerNorm pass is compiled for these); F must be a multiple of 32.
+//
+// What holds it at about 45 % of the bound on an H100 (chip_smoke.py: K6
+// 0.44 ms at the shape above; in its profile at 81,920 rows a call, phase
+// 1 0.98 ms and phase 2 0.69 ms): phase 2's products reach about 57 % of
+// the bf16 peak, at a rate of L2-to-SM traffic (32 KB of A and B a k-step
+// of a 128 x 128 tile, 1M multiply-adds) near what L2 delivers (inferred
+// from bytes and time: no counter can be read); phase 1, the same
+// products, takes 43 % longer for its epilogue (erff over every element,
+// the workspace stores), which the second block of an SM hides only in
+// part.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "ptx.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBM = 32;  // rows per block
-constexpr int kBF = 32;  // F columns per chunk
-
-struct MlpParams {
-  const __nv_bfloat16* x;    // (M, K)
-  const float* lnw;          // (K,)   LN only
-  const float* lnb;          // (K,)   LN only
-  const __nv_bfloat16* w1;   // (F, K)
-  const float* b1;           // (F,)
-  const __nv_bfloat16* w2;   // (K, F)
-  const float* b2;           // (K,)
-  __nv_bfloat16* out;        // (M, K)
-  __nv_bfloat16* h;          // (M, F) pre-activation spill, K5a only
-  int M, F;
-  float eps;
-  int act;                   // 0: exact gelu, 1: tanh gelu
-};
 
 __device__ __forceinline__ float activation(float v, int act) {
   if (act == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -84,269 +73,232 @@ __device__ __forceinline__ float activation(float v, int act) {
          (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
 }
 
+// xn = LN(x) rounded to bf16, one warp a row, two-pass f32 statistics
+constexpr int kLnWarps = 8;
+
 template <int K>
-struct Smem {
-  static constexpr int XS = K + 8;     // xn and w1 chunk row stride (elems)
-  static constexpr int WS = kBF + 8;   // w2 chunk and h row stride (elems)
-  static constexpr int XN = 0;
-  static constexpr int W1 = XN + kBM * XS;
-  static constexpr int W2 = W1 + kBF * XS;
-  static constexpr int HS = W2 + K * WS;
-  static constexpr int ELEMS = HS + kBM * WS;
-  static constexpr int BYTES = ELEMS * 2;
-};
-
-template <int K, bool LN, bool SPILL>
-__global__ void __launch_bounds__(kThreads, 1) mlp_fwd_kernel(const MlpParams p) {
-  using S = Smem<K>;
-  constexpr int NT = K / 64;  // n8 output tiles per warp (K/8 columns)
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* xn = smem + S::XN;
-  __nv_bfloat16* w1s = smem + S::W1;
-  __nv_bfloat16* w2s = smem + S::W2;
-  __nv_bfloat16* hs = smem + S::HS;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long m0 = (long long)blockIdx.x * kBM;
-
-  auto load_w1 = [&](int f0) {  // w1 rows f0 .. f0 + kBF
-    for (int c = tid; c < kBF * (K / 8); c += kThreads) {
-      const int r = c / (K / 8), col = (c % (K / 8)) * 8;
-      cp_async16(w1s + r * S::XS + col, p.w1 + (long long)(f0 + r) * K + col);
-    }
-  };
-  auto load_w2 = [&](int f0) {  // w2 columns f0 .. f0 + kBF
-    for (int c = tid; c < K * (kBF / 8); c += kThreads) {
-      const int r = c / (kBF / 8), col = (c % (kBF / 8)) * 8;
-      cp_async16(w2s + r * S::WS + col, p.w2 + (long long)r * p.F + f0 + col);
-    }
-  };
-  load_w1(0);
-  cp_async_commit();
-  load_w2(0);
-  cp_async_commit();
-
-  // prologue: xn = LN(x) (or x) for the block's rows, 4 rows per warp
-  constexpr int CH = (K / 8 + 31) / 32;  // 8-element chunks per lane per row
-  for (int rr = 0; rr < kBM / kWarps; ++rr) {
-    const int r = warp * (kBM / kWarps) + rr;
-    const long long row = m0 + r;
-    float v[CH][8];
+__global__ void __launch_bounds__(kLnWarps * 32)
+    ln_rows_kernel(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                   __nv_bfloat16* xn, int rows, float eps) {
+  constexpr int CH = (K / 8 + 31) / 32;  // 8-element chunks a lane
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  float v[CH][8];
 #pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = lane + 32 * i;
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane + 32 * i;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
-      if (c < K / 8 && row < p.M) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(p.x + row * K + c * 8);
-        const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
+    if (c < K / 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(x + row * K + c * 8);
+      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[i][e] = __bfloat162float(e8[e]);
-      }
-    }
-    float mean = 0.f, rstd = 1.f;
-    if constexpr (LN) {
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < CH; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sum += v[i][e];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      mean = sum / K;
-      float sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < CH; ++i)
-        if (lane + 32 * i < K / 8)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float d = v[i][e] - mean;
-            sq += d * d;
-          }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      rstd = rsqrtf(sq / K + p.eps);
-    }
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int c = lane + 32 * i;
-      if (c < K / 8) {
-        __align__(16) __nv_bfloat16 o8[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float val = v[i][e];
-          if constexpr (LN)
-            val = (val - mean) * rstd * p.lnw[c * 8 + e] + p.lnb[c * 8 + e];
-          o8[e] = __float2bfloat16(val);
-        }
-        *reinterpret_cast<uint4*>(xn + r * S::XS + c * 8) =
-            *reinterpret_cast<const uint4*>(o8);
-      }
+      for (int e = 0; e < 8; ++e) v[i][e] = __bfloat162float(e8[e]);
     }
   }
-
-  float y[2][NT][4];
+  float sum = 0.f;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < CH; ++i)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) y[mt][n][0] = y[mt][n][1] = y[mt][n][2] = y[mt][n][3] = 0.f;
-
-  const int pm = warp / 4, pn = warp % 4;  // phase-1 tile of this warp
-  const int nchunks = p.F / kBF;
-  // ldmatrix row addresses: A fragments (16 x 16) and B fragments (8 x 32)
-  const __nv_bfloat16* a1 = xn + (pm * 16 + (lane & 15)) * S::XS + (lane >> 4) * 8;
-  const __nv_bfloat16* b1p = w1s + (pn * 8 + (lane & 7)) * S::XS + (lane >> 3) * 8;
-  const __nv_bfloat16* b2p =
-      w2s + (warp * (K / 8) + (lane & 7)) * S::WS + (lane >> 3) * 8;
-  for (int c = 0; c < nchunks; ++c) {
-    const int f0 = c * kBF;
-    cp_async_wait<1>();  // w1 chunk c has landed (w2 chunk c may be in flight)
-    __syncthreads();
-
-    // phase 1: h tile (rows pm*16.., cols pn*8..) = xn w1_chunk^T + b1, act
-    {
-      // four independent accumulators: one chain of K/16 dependent mma
-      // would leave the tensor cores waiting on their own latency
-      float part[4][4] = {};
+    for (int e = 0; e < 8; ++e) sum += v[i][e];
 #pragma unroll
-      for (int kk = 0; kk < K / 32; ++kk) {
-        uint32_t b[4], a[4];
-        ldsm_x4(b, b1p + kk * 32);
-        ldsm_x4(a, a1 + kk * 32);
-        mma_bf16(part[(kk & 1) * 2], a, b[0], b[1]);
-        ldsm_x4(a, a1 + kk * 32 + 16);
-        mma_bf16(part[(kk & 1) * 2 + 1], a, b[2], b[3]);
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float mean = sum / K;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+    if (lane + 32 * i < K / 8)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = v[i][e] - mean;
+        sq += d * d;
       }
-      float acc[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i] = (part[0][i] + part[1][i]) + (part[2][i] + part[3][i]);
-      const int col = pn * 8 + 2 * t;
-      const float bb0 = p.b1[f0 + col], bb1 = p.b1[f0 + col + 1];
-      if constexpr (SPILL) {
-        const long long r = m0 + pm * 16 + g;
-        if (r < p.M)
-          *reinterpret_cast<__nv_bfloat162*>(p.h + r * p.F + f0 + col) =
-              __floats2bfloat162_rn(acc[0] + bb0, acc[1] + bb1);
-        if (r + 8 < p.M)
-          *reinterpret_cast<__nv_bfloat162*>(p.h + (r + 8) * p.F + f0 + col) =
-              __floats2bfloat162_rn(acc[2] + bb0, acc[3] + bb1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(hs + (pm * 16 + g) * S::WS + col) =
-          __floats2bfloat162_rn(activation(acc[0] + bb0, p.act),
-                                activation(acc[1] + bb1, p.act));
-      *reinterpret_cast<__nv_bfloat162*>(hs + (pm * 16 + g + 8) * S::WS + col) =
-          __floats2bfloat162_rn(activation(acc[2] + bb0, p.act),
-                                activation(acc[3] + bb1, p.act));
-    }
-    __syncthreads();  // h written; the w1 buffer is free
-    if (c + 1 < nchunks) load_w1(f0 + kBF);
-    cp_async_commit();
-    cp_async_wait<1>();  // w2 chunk c has landed
-    __syncthreads();
-
-    // phase 2: y[:, warp's K/8 columns] += h w2_chunk
-    uint32_t a[2][2][4];
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  const float rstd = rsqrtf(sq / K + eps);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < CH; ++i) {
+    const int c = lane + 32 * i;
+    if (c < K / 8) {
+      __align__(16) __nv_bfloat16 o8[8];
 #pragma unroll
-      for (int kc = 0; kc < 2; ++kc)
-        ldsm_x4(a[mt][kc], hs + (mt * 16 + (lane & 15)) * S::WS + kc * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b[4];
-      ldsm_x4(b, b2p + n * 8 * S::WS);
-      mma_bf16(y[0][n], a[0][0], b[0], b[1]);
-      mma_bf16(y[0][n], a[0][1], b[2], b[3]);
-      mma_bf16(y[1][n], a[1][0], b[0], b[1]);
-      mma_bf16(y[1][n], a[1][1], b[2], b[3]);
-    }
-    __syncthreads();  // h and the w2 buffer are free
-    if (c + 1 < nchunks) load_w2(f0 + kBF);
-    cp_async_commit();
-  }
-
-  // epilogue: + b2 (+ residual), bf16 store
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long row = m0 + mt * 16 + g + 8 * half;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = warp * (K / 8) + n * 8 + 2 * t;
-        float v0 = y[mt][n][2 * half] + p.b2[col];
-        float v1 = y[mt][n][2 * half + 1] + p.b2[col + 1];
-        if constexpr (LN) {
-          const __nv_bfloat162 res =
-              *reinterpret_cast<const __nv_bfloat162*>(p.x + row * K + col);
-          v0 += __bfloat162float(res.x);
-          v1 += __bfloat162float(res.y);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + row * K + col) =
-            __floats2bfloat162_rn(v0, v1);
-      }
+      for (int e = 0; e < 8; ++e)
+        o8[e] = __float2bfloat16((v[i][e] - mean) * rstd * lnw[c * 8 + e] +
+                                 lnb[c * 8 + e]);
+      *reinterpret_cast<uint4*>(xn + row * K + c * 8) =
+          *reinterpret_cast<const uint4*>(o8);
     }
   }
 }
 
-template <int K, bool LN, bool SPILL>
-cudaError_t launch(const MlpParams& p, cudaStream_t stream) {
-  auto kernel = mlp_fwd_kernel<K, LN, SPILL>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<K>::BYTES);
+// the epilogue's operands
+struct Epi {
+  const float* bias;         // (n,)
+  const __nv_bfloat16* res;  // (rows, n): phase 2 of K2, the residual x
+  int rows, n;
+  int act;  // 0: exact gelu, 1: tanh gelu
+};
+
+// PHASE 1: to = act(acc + b1) (and th = acc + b1 if EXTRA);
+// PHASE 2: to = acc + b2 (+ res if EXTRA)
+template <int PHASE, bool EXTRA>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    mlp_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb,
+                    const __grid_constant__ CUtensorMap to,
+                    const __grid_constant__ CUtensorMap th, const int ksteps,
+                    const Epi e) {
+  extern __shared__ char smem_raw[];
+  const GemmSmem s = gemm_smem_init(smem_raw);
+  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) gemm_produce(s, &ta, &tb, m0, n0, ksteps);
+    return;
+  }
+  const int cw = threadIdx.x / kWG;
+  float acc[kGemmAcc];
+  gemm_consume(s, acc, cw, ksteps);
+
+  gemm_release_ring();
+  char* stage_o = s.ring + cw * kGemmHalf;
+  char* stage_h = s.ring + (2 + cw) * kGemmHalf;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kGemmBN / 8; ++j) {
+    const int c = 8 * j + 2 * t, col = n0 + c;  // n is even: col + 1 < n
+    const bool in = col < e.n;
+    const float b0 = in ? e.bias[col] : 0.f;
+    const float b1 = in ? e.bias[col + 1] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = warp * 16 + g + 8 * half;  // of the warpgroup's 64
+      float v0 = acc[4 * j + 2 * half] + b0;
+      float v1 = acc[4 * j + 2 * half + 1] + b1;
+      if constexpr (PHASE == 1) {
+        if constexpr (EXTRA)
+          gemm_stage(stage_h, rr, c, __floats2bfloat162_rn(v0, v1));
+        v0 = activation(v0, e.act);
+        v1 = activation(v1, e.act);
+      } else if constexpr (EXTRA) {
+        const int r = m0 + cw * 64 + rr;
+        if (in && r < e.rows) {
+          const __nv_bfloat162 x2 =
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  e.res + (long long)r * e.n + col);
+          v0 += __bfloat162float(x2.x);
+          v1 += __bfloat162float(x2.y);
+        }
+      }
+      gemm_stage(stage_o, rr, c, __floats2bfloat162_rn(v0, v1));
+    }
+  }
+  fence_proxy_async();
+  named_sync(2 + cw, kWG);
+  if (threadIdx.x % kWG == 0) {
+    gemm_store(&to, stage_o, m0 + cw * 64, n0, e.rows, e.n);
+    if constexpr (PHASE == 1 && EXTRA)
+      gemm_store(&th, stage_h, m0 + cw * 64, n0, e.rows, e.n);
+    gemm_store_wait();
+  }
+}
+
+// to (rows, n) = epilogue(A B^T), A (rows, kdim) and B (n, kdim) bf16
+// row-major
+template <int PHASE, bool EXTRA>
+cudaError_t launch_gemm(const void* a, const void* b, int kdim,
+                        const CUtensorMap& to, const CUtensorMap& th,
+                        const Epi& e, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = make_map_2d(&ta, a, e.rows, kdim, kdim, kGemmBM);
+  if (err == cudaSuccess) err = make_map_2d(&tb, b, e.n, kdim, kdim, kGemmBN);
+  auto kernel = mlp_gemm_kernel<PHASE, EXTRA>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.M + kBM - 1) / kBM;
-  kernel<<<blocks, kThreads, Smem<K>::BYTES, stream>>>(p);
+  const dim3 grid((e.n + kGemmBN - 1) / kGemmBN,
+                  (e.rows + kGemmBM - 1) / kGemmBM);
+  kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(
+      ta, tb, to, th, (kdim + kGemmBK - 1) / kGemmBK, e);
   return cudaGetLastError();
 }
 
-template <bool LN, bool SPILL>
-cudaError_t dispatch(const MlpParams& p, int K, cudaStream_t s) {
+cudaError_t launch_ln(const __nv_bfloat16* x, const float* lnw,
+                      const float* lnb, __nv_bfloat16* xn, int rows, int K,
+                      float eps, cudaStream_t s) {
+  void (*kernel)(const __nv_bfloat16*, const float*, const float*,
+                 __nv_bfloat16*, int, float) = nullptr;
   switch (K) {
-    case 128: return launch<128, LN, SPILL>(p, s);
-    case 256: return launch<256, LN, SPILL>(p, s);
-    case 384: return launch<384, LN, SPILL>(p, s);
-    case 512: return launch<512, LN, SPILL>(p, s);
-    case 768: return launch<768, LN, SPILL>(p, s);
-    case 1024: return launch<1024, LN, SPILL>(p, s);
+    case 128: kernel = ln_rows_kernel<128>; break;
+    case 256: kernel = ln_rows_kernel<256>; break;
+    case 384: kernel = ln_rows_kernel<384>; break;
+    case 512: kernel = ln_rows_kernel<512>; break;
+    case 768: kernel = ln_rows_kernel<768>; break;
+    case 1024: kernel = ln_rows_kernel<1024>; break;
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
+  kernel<<<(rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, s>>>(
+      x, lnw, lnb, xn, rows, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, w1 (F, K), w2 (K, F), out, h (M, F): bf16; lnw, lnb, b1, b2: f32.
-// ln != 0 selects K2 (LayerNorm prologue + residual); otherwise h != null
+// x (M, K), w1 (F, K), w2 (K, F), out (M, K), h (M, F): bf16; lnw, lnb, b1,
+// b2: f32. ln != 0 selects K2 (LayerNorm + residual); otherwise h != null
 // selects K5a (K6 plus the pre-activation spill into h), h == null K6.
+// The rows run in chunks of `chunk` rows through the caller's workspaces:
+// ws (chunk, F) bf16 for the activation, and for K2 xn (chunk, K) bf16.
+// Every matrix but the biases and LayerNorm parameters passes through TMA,
+// so their addresses must be 16-byte aligned. The workspace arguments come
+// last, so a caller that passes them to an older library of this interface
+// (which takes none) still runs.
 // Returns a cudaError_t.
 extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
                            const void* w1, const void* b1, const void* w2,
                            const void* b2, void* out, void* h, int M, int K,
-                           int F, float eps, int ln, int act, void* stream) {
-  if (M <= 0 || F <= 0 || F % kBF != 0 || (act != 0 && act != 1) ||
-      (ln && h != nullptr))
+                           int F, float eps, int ln, int act, void* stream,
+                           void* ws, void* xn, int chunk) {
+  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K > 1024 ||
+      K % 128 != 0 || (act != 0 && act != 1) || (ln && h != nullptr) ||
+      ws == nullptr || (ln && xn == nullptr) || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  MlpParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.lnw = static_cast<const float*>(lnw);
-  p.lnb = static_cast<const float*>(lnb);
-  p.w1 = static_cast<const __nv_bfloat16*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const __nv_bfloat16*>(w2);
-  p.b2 = static_cast<const float*>(b2);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.h = static_cast<__nv_bfloat16*>(h);
-  p.M = M;
-  p.F = F;
-  p.eps = eps;
-  p.act = act;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* outb = static_cast<__nv_bfloat16*>(out);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  auto* wsb = static_cast<__nv_bfloat16*>(ws);
+  auto* xnb = static_cast<__nv_bfloat16*>(xn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ln) return (int)dispatch<true, false>(p, K, s);
-  return (int)(h ? dispatch<false, true>(p, K, s) : dispatch<false, false>(p, K, s));
+  cudaError_t err = cudaSuccess;
+  for (int m = 0; m < M && err == cudaSuccess; m += chunk) {
+    const int rows = M - m < chunk ? M - m : chunk;
+    const __nv_bfloat16* xm = xb + (long long)m * K;
+    if (ln)
+      err = launch_ln(xm, static_cast<const float*>(lnw),
+                      static_cast<const float*>(lnb), xnb, rows, K, eps, s);
+    // the outputs: the workspace (phase 1), the spill, y (phase 2)
+    CUtensorMap tws, th, ty;
+    if (err == cudaSuccess) err = make_map_2d(&tws, wsb, rows, F, F, 64);
+    if (err == cudaSuccess && hb)
+      err = make_map_2d(&th, hb + (long long)m * F, rows, F, F, 64);
+    if (err == cudaSuccess)
+      err = make_map_2d(&ty, outb + (long long)m * K, rows, K, K, 64);
+    if (err != cudaSuccess) break;
+    const Epi e1{static_cast<const float*>(b1), nullptr, rows, F, act};
+    const void* a1 = ln ? static_cast<const void*>(xnb) : xm;
+    err = hb ? launch_gemm<1, true>(a1, w1, K, tws, th, e1, s)
+             : launch_gemm<1, false>(a1, w1, K, tws, tws, e1, s);
+    if (err != cudaSuccess) break;
+    const Epi e2{static_cast<const float*>(b2), ln ? xm : nullptr, rows, K,
+                 act};
+    err = ln ? launch_gemm<2, true>(wsb, w2, F, ty, ty, e2, s)
+             : launch_gemm<2, false>(wsb, w2, F, ty, ty, e2, s);
+  }
+  return (int)err;
 }

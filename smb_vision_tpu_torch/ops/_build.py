@@ -3,10 +3,12 @@
 The kernels compile at first use with `nvcc` for `sm_90a` into a plain-C
 shared library, loaded with `ctypes`. The library lives in
 `smb_vision_tpu_torch/_build/<hash>/`, keyed by a hash of the sources, the
-shared headers (`csrc/ptx.cuh`, `csrc/sm90.cuh`) and the flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds. Importing this module builds and loads nothing.
+shared headers (`csrc/ptx.cuh`, `csrc/sm90.cuh`, `csrc/gemm_sm90.cuh`) and
+the flags, so an edited source rebuilds and an unchanged one loads in
+milliseconds. Importing this module builds and loads nothing.
 
-Every kernel launches on PyTorch's current stream, allocates nothing, and
+Every kernel launches on PyTorch's current stream, allocates nothing (the
+wrappers pass any workspace a kernel needs), and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an error.
 """
 
@@ -26,7 +28,7 @@ CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
            "swiglu_fwd.cu", "attn_glue.cu")
-HEADERS = ("ptx.cuh", "sm90.cuh")
+HEADERS = ("ptx.cuh", "sm90.cuh", "gemm_sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -127,7 +129,7 @@ def bind(path: Path) -> ctypes.CDLL:
         [_P] * 14 + [_I] * 5 + [_P, _F, _P])
     handle.smb_flash_bwd_i8.restype = _I
     handle.smb_mlp_fwd.argtypes = (
-        [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P])
+        [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P, _P, _P, _I])
     handle.smb_mlp_fwd.restype = _I
     handle.smb_mlp_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     handle.smb_mlp_bwd.restype = _I

@@ -16,10 +16,12 @@ kernels stand behind them:
   b1a) * (LN(x) w1b + b1b)) w2 + b2, the DINOv2 SwiGLU half-block
   (replaces `_swiglu_block_kernel`).
 
-K6, K2 and K9 keep the (M, F) intermediates on the SM. Under autograd they
-take the JAX package's recompute backward (the plain version differentiated
-again), and mlp_impl "pallas_bwd" trains through K5a + K5b, the
-counterpart of `_mlp_fused_tb`. Each wrapper runs the plain version for CPU
+K6, K2 and K5a are two wgmma GEMMs whose (M, F) activation passes through
+a workspace of a chunk of rows (`mlp_chunk_rows`); K9 keeps its (M, F)
+intermediates on the SM. Under autograd K6, K2 and K9 take the JAX
+package's recompute backward (the plain version differentiated again), and
+mlp_impl "pallas_bwd" trains through K5a + K5b, the counterpart of
+`_mlp_fused_tb`. Each wrapper runs the plain version for CPU
 tensors and launches its kernel for CUDA tensors; there is no fallback
 between the two. `launches` on each wrapper counts launches.
 """
@@ -36,6 +38,11 @@ _ACTS = {"gelu": 0, "gelu_new": 1}
 _KERNEL_K = (128, 256, 384, 512, 768, 1024)
 _KERNEL_F_STEP = 32
 _SWIGLU_K = _KERNEL_K + (1536,)   # K9 also takes the DINOv2-giant width
+# K2, K6 and K5a run their rows in chunks of at most this many through a
+# bf16 (rows, F) workspace (and, for K2, a (rows, K) one for LN(x)), so the
+# workspace does not grow with M: 201 MB at F 3,072, 268 MB at F 4,096
+_CHUNK_ROWS = 32768
+_TILE_ROWS = 128   # the kernels' row tile
 
 
 def act_fn(name: str):
@@ -133,13 +140,25 @@ def _check_mlp_shape(k: int, f: int, act: str, name: str) -> None:
                          f"{_KERNEL_F_STEP}, act in {tuple(_ACTS)})")
 
 
+def mlp_chunk_rows(m: int) -> int:
+    """Rows of one chunk of K2, K6 and K5a at M = m rows: all of them up
+    to `_CHUNK_ROWS`; past it, the fewest chunks of at most that many
+    rows, of near-equal size and whole row tiles but the last."""
+    if m <= _CHUNK_ROWS:
+        return m
+    chunks = -(-m // _CHUNK_ROWS)
+    per = -(-m // chunks)
+    return min(_CHUNK_ROWS, -(-per // _TILE_ROWS) * _TILE_ROWS)
+
+
 def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
                 spill: bool = False):
     """x2 (M, K) and w1 (K, F), w2 (F, K) in any float dtype; returns bf16
     y, and with spill also the bf16 pre-activation h (M, F) (K5a). The
     kernel wants the Linear layout (F, K) / (K, F) in bf16: for weights
     that are transposed views of a Linear's bf16 weight the conversion
-    below copies nothing."""
+    below copies nothing. The rows run in chunks of `mlp_chunk_rows(M)`
+    through workspaces allocated here."""
     m, k = x2.shape
     f = w1.shape[1]
     _check_mlp_shape(k, f, act, name)
@@ -161,11 +180,16 @@ def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
             raise ValueError(f"{name}: weights on {t.device}, x on {dev}")
     out = torch.empty((m, k), dtype=bf16, device=dev)
     h = torch.empty((m, f), dtype=bf16, device=dev) if spill else None
+    chunk = mlp_chunk_rows(m)
+    ws = torch.empty((chunk, f), dtype=bf16, device=dev)
+    xn = (torch.empty((chunk, k), dtype=bf16, device=dev)
+          if lnw is not None else None)
     rc = _build.lib().smb_mlp_fwd(
         x2.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), w1t.data_ptr(),
         b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
         _build.ptr(h), m, k, f, float(eps), int(lnw is not None),
-        _ACTS[act], _build.stream_ptr(dev))
+        _ACTS[act], _build.stream_ptr(dev), ws.data_ptr(), _build.ptr(xn),
+        chunk)
     _build.check(rc, name)
     return (out, h) if spill else out
 

@@ -194,10 +194,20 @@ def test_flash_kernel_reads_strided_heads(cuda, n, d):
         assert _rel(a, b) <= 2e-2
 
 
+# the MLP forward's edges: every K it takes, M of 1, under a 64-row
+# warpgroup, past a 128-row tile and over two chunks of the workspace
+# (33,792 = 2 x 132 x 128 rows), F a multiple of 32 but not of the 128-column
+# tile or the 64-column contraction step
+_MLP_EDGES = [(100, 128, 512), (256, 768, 3072), (33, 384, 1536),
+              (1, 128, 96), (63, 256, 160), (129, 512, 1056),
+              (1, 768, 3072), (129, 1024, 4096), (33792, 384, 1568)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072),
-                                   (33, 384, 1536)])
+@pytest.mark.parametrize("m,k,f", _MLP_EDGES)
 def test_mlp_kernels_match_plain(cuda, m, k, f):
+    """K2 and K6 against their plain versions, both activations, one
+    launch counted a call."""
     gen = torch.Generator(device=cuda).manual_seed(2)
 
     def r(*shape, s=1.0):
@@ -209,12 +219,16 @@ def test_mlp_kernels_match_plain(cuda, m, k, f):
     w2 = r(f, k, s=f ** -0.5)
     b1, b2 = r(f, s=0.1), r(k, s=0.1)
     for act in ("gelu", "gelu_new"):
+        before = (M.mlp_block_fused.launches, M.mlp_fused.launches)
         yb = M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, act=act,
                                eps=1e-6)
         ref = M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, act, 1e-6)
-        assert _rel(yb, ref) <= 8e-3
+        assert yb.shape == (m, k) and _rel(yb, ref) <= 8e-3
         y = M.mlp_fused(x, w1, b1, w2, b2, act=act)
+        assert y.shape == (m, k)
         assert _rel(y, M._mlp_xla(x, w1, b1, w2, b2, act)) <= 8e-3
+        assert (M.mlp_block_fused.launches, M.mlp_fused.launches) == (
+            before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -252,10 +266,13 @@ def test_flash_bwd_kernel_matches_plain(cuda, nq, nk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072)])
+@pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072),
+                                   (1, 1024, 4096), (129, 1024, 4096),
+                                   (63, 256, 160), (33792, 384, 1568)])
 def test_mlp_train_and_bwd_kernels_match_plain(cuda, m, k, f):
     """K5a (y and the spilled h) and K5b (dx, dh, a) against their plain
-    versions, on the same inputs; bound 3e-2 of max as the JAX package's
+    versions, on the same inputs, at the V-JEPA width K 1,024 and the
+    forward's edges; bound 3e-2 of max as the JAX package's
     tests/test_mlp_bwd.py."""
     gen = torch.Generator(device=cuda).manual_seed(5)
 

@@ -328,6 +328,24 @@ def test_mlp_impl_routing():
     assert not tmlp.kernel_maps(768, 3072, "relu")
 
 
+@pytest.mark.parametrize("m", [1, 63, 129, 20480, 32768, 32769, 33792,
+                               81920, 100000])
+def test_mlp_chunk_rows(m):
+    """The MLP forward's row chunks: one chunk up to the cap; past it the
+    fewest chunks that fit under the cap, all of near-equal size and whole
+    128-row tiles but the last, so the workspace stays bounded."""
+    cap = tmlp._CHUNK_ROWS
+    rows = tmlp.mlp_chunk_rows(m)
+    chunks = -(-m // rows)
+    assert 1 <= rows <= min(m, cap)
+    assert chunks == -(-m // cap)
+    if chunks == 1:
+        assert rows == m
+    else:
+        assert rows % 128 == 0 and m - (chunks - 1) * rows > 0
+        assert rows - (m - (chunks - 1) * rows) < 128 * chunks
+
+
 @pytest.mark.parametrize("channel_major", [True, False])
 def test_extract_patches_exact(channel_major):
     px = _rand(30, (2, 8, 3, 8, 12))
