@@ -9,21 +9,22 @@ attention and attention-glue paths, once on one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too, the kernels this tree did not
-change (the flash kernels, K5b, K9 and the glue kernels) are compared with
-it by SASS and bit for bit, and the flash, MLP, SwiGLU and glue kernels,
-legs A's and B's models and the MIM and V-JEPA steps are timed with either
-library in turns, in one process; the last line is the JSON of the mean
-times.
+change (the flash kernels, the MLP forward K2, K6 and K5a, and the glue
+kernels) are compared with it by SASS and bit for bit, and the flash, MLP,
+SwiGLU and glue kernels, legs A's and B's models and the MIM and V-JEPA
+steps are timed with either library in turns, in one process, and the
+DINOv2-giant step parity runs with either library at three seeds; the
+last line is the JSON of the mean times and the parity readings.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
-     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the four
-     GEMM instantiations of K2, K6 and K5a in the SASS (cuobjdump, where
-     the toolkit has it): none of one that a kernel should have fails the
-     run (K3 and K7 need all three);
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the seven
+     GEMM instantiations of K2, K6, K5a, K9 and K5b in the SASS
+     (cuobjdump, where the toolkit has it): none of one that a kernel
+     should have fails the run (K3 and K7 need all three);
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
@@ -36,10 +37,13 @@ Phases of the run without arguments, each of which fails the run
      encoder's and two ragged shapes (timed beside its plain version and
      K4), K1 and K3 at head width 128 (K3 beside K1), and K5a, K5b, K6
      and K2 at the ViT-L MLP (K 1,024); K2, K6 and K5a each also beside
-     its cuBLAS chain (`mlp_chain`, their library_ms); then the SwiGLU half-block K9 at DINOv2-giant
-     batch 2 and ragged batch 1 and at the DINOv2-base shape (timed beside
-     the cuBLAS chain, gradients through the recompute), and K1/K4 at
-     DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
+     its cuBLAS chain (`mlp_chain`, their library_ms), K5b beside its own
+     (`mlp_bwd_chain`), with its two products' times apart (profiler);
+     then the SwiGLU half-block K9 at DINOv2-giant batch 2 and ragged
+     batch 1 and at the DINOv2-base shape (timed beside its plain version
+     and the bf16 chain `_swiglu_block_xla`, its library_ms, with its
+     three passes' times apart; gradients through the recompute), and
+     K1/K4 at DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
      attention K8 at N 20,480 and ragged N 1,961 (timed beside K3 on the
      same inputs), and the attention glue K10a/K10b at the embed shape,
      the MIM encoder's and decoder's and a ragged one (timed beside their
@@ -177,7 +181,7 @@ SOURCES = {
                 "smb_vision_tpu/ops/mlp.py:171"),
     "flash_bwd_i8": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
                      "smb_vision_tpu/ops/attention.py:549"),
-    "swiglu_block_fwd": ("smb_vision_tpu_torch/csrc/swiglu_fwd.cu",
+    "swiglu_block_fwd": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
                          "smb_vision_tpu/ops/mlp.py:256"),
     "flash_fwd_i8pv": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
                        "smb_vision_tpu/ops/attention.py:244"),
@@ -306,6 +310,22 @@ def mlp_chain(x, w1, b1, w2, b2, lnw=None, lnb=None, eps=1e-12,
     return (y, h) if spill else y
 
 
+def mlp_bwd_chain(h, g, w1, w2, act: str = "gelu"):
+    """The library yardstick of K5b: its function as PyTorch calls in bf16,
+    torch.mm for da = g w2^T and dx = dh w1^T (cuBLAS), F.gelu for a and
+    aten.gelu_backward for dh (approximate "tanh" for gelu_new); w1 (K, F),
+    w2 (F, K). Returns (dx, dh, a). Timed beside the kernel; the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    approximate = "tanh" if act == "gelu_new" else "none"
+    da = torch.mm(g, w2.t())
+    dh = torch.ops.aten.gelu_backward(da, h, approximate=approximate)
+    return (torch.mm(dh, w1.t()), dh,
+            F.gelu(h, approximate=approximate))
+
+
 def mlp_library(table: dict, name: str, shape: str, chain) -> None:
     """Time an MLP kernel's cuBLAS chain at the shape the table keeps, as
     the kernel's library_ms."""
@@ -315,12 +335,14 @@ def mlp_library(table: dict, name: str, shape: str, chain) -> None:
 
 
 def mlp_beside_chain(name: str, shape: str, kernel, plain, chain, m: int,
-                     k: int, f: int, nbytes: float) -> None:
+                     k: int, f: int, nbytes: float, products: int = 2) -> None:
     """An MLP kernel at a shape the table does not keep: its time beside
-    its plain version's, its cuBLAS chain's and its bound."""
+    its plain version's, its cuBLAS chain's and its bound (`products`
+    matrix products of M x K x F)."""
     ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=2)
     lib = cuda_ms(chain, iters=20)
-    bound = max(4 * m * k * f / PEAK_BF16, nbytes / HBM_BYTES) * 1e3
+    bound = max(2 * products * m * k * f / PEAK_BF16,
+                nbytes / HBM_BYTES) * 1e3
     log(f"time {name:<14} {shape:<30} kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, cuBLAS chain {lib:.3f} ms ({ms / lib:.2f}x), "
         f"bound {bound:.4f} ms (CUDA events)")
@@ -385,12 +407,13 @@ def phase_device() -> str:
 
 # the wgmma kernels by a part of their mangled names (K1 and K3 are the two
 # instantiations of flash_fwd_sm90_kernel<D, I8>; K4 and K7 run both of
-# their passes in one kernel each; K2, K6 and K5a are two products each,
-# mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K: phase
-# 1 with the spill of h for K5a, phase 2 with the residual for K2), and the
-# SASS instructions that show they run on Hopper's warpgroup MMA, bf16
-# (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without one of
-# its instructions fails the build phase
+# their passes in one kernel each; K2, K6, K5a and K9 are two products
+# each, mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K:
+# phase 1 with the spill of h for K5a, phase 2 with the residual for K2
+# and K9, phase 3 K9's gated phase 1; K5b is mlp_bwd_gemm_kernel<PHASE>),
+# and the SASS instructions that show they run on Hopper's warpgroup MMA,
+# bf16 (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without
+# one of its instructions fails the build phase
 SM90_KERNELS = {
     f"{k} d{d}": (name.format(d=d), ops) for d in (64, 128)
     for k, name, ops in (
@@ -405,7 +428,11 @@ SM90_KERNELS.update({
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
                                 ("K5a phase 1", 1, 1),
                                 ("K6/K5a phase 2", 2, 0),
-                                ("K2 phase 2", 2, 1))})
+                                ("K2/K9 phase 2", 2, 1),
+                                ("K9 phase 1", 3, 0))})
+SM90_KERNELS.update({
+    f"K5b phase {phase}": (f"mlp_bwd_gemm_kernelILi{phase}E",
+                           ("HGMMA", "UTMALDG")) for phase in (1, 2)})
 SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
 
 
@@ -446,6 +473,23 @@ def sass_counts(lib: Path) -> dict:
     return counts
 
 
+def ptxas_report(name: str, build_dir=None) -> list:
+    """The ptxas lines (registers, spills) of the kernels whose mangled
+    names hold `name`, from the build log in build_dir (default: that of
+    this tree's library)."""
+    from smb_vision_tpu_torch.ops import _build
+
+    lines, keep = [], False
+    log_path = (build_dir or _build.build_dir()) / "build.log"
+    for line in log_path.read_text().splitlines():
+        if "entry function" in line:
+            keep = name in line
+        if keep and any(w in line for w in ("entry function", "registers",
+                                            "spill")):
+            lines.append(line.strip())
+    return lines
+
+
 def phase_build() -> None:
     from smb_vision_tpu_torch.ops import _build
 
@@ -478,7 +522,7 @@ def _attn_inputs(n: int, gen, dev):
         torch.bfloat16) for _ in range(3)]
 
 
-def _mlp_inputs(m: int, gen, dev):
+def _mlp_inputs(m: int, gen, dev, k: int = HIDDEN, f: int = FFN):
     """x and Linear-layout bf16 weights (passed as transposed views, as
     the model passes them)."""
     import torch
@@ -486,11 +530,11 @@ def _mlp_inputs(m: int, gen, dev):
     def r(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device=dev) * s
 
-    x = r(m, HIDDEN).to(torch.bfloat16)
-    lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
-    w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5).to(torch.bfloat16)
-    w2 = r(HIDDEN, FFN, s=FFN ** -0.5).to(torch.bfloat16)
-    b1, b2 = r(FFN, s=0.1), r(HIDDEN, s=0.1)
+    x = r(m, k).to(torch.bfloat16)
+    lnw, lnb = 1.0 + r(k, s=0.1), r(k, s=0.1)
+    w1 = r(f, k, s=k ** -0.5).to(torch.bfloat16)
+    w2 = r(k, f, s=f ** -0.5).to(torch.bfloat16)
+    b1, b2 = r(f, s=0.1), r(k, s=0.1)
     return x, lnw, lnb, w1.t(), b1, w2.t(), b2
 
 
@@ -694,8 +738,12 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
         check("mlp_train_fwd", what + " h", hh, h_ref, TOL_MLP_TRAIN)
         got = M.mlp_bwd_fused(hh, g, w1, w2)
         want = M._mlp_bwd_plain(hh, g, w1, w2, "gelu")
-        for name, a, b in zip(("dx", "dh", "a"), got, want):
+        lib = mlp_bwd_chain(hh, g, w1, w2)
+        for name, a, b, c in zip(("dx", "dh", "a"), got, want, lib):
             check("mlp_bwd", f"{what} {name}", a, b, TOL_MLP_TRAIN)
+            check("mlp_bwd", f"{what} {name} vs chain", a, c, TOL_MLP_TRAIN,
+                  record=False)
+        del got, want, lib
         if label != "ragged":
             keep = label == "encoder"
             train = functools.partial(M.mlp_train_fused, x, w1, b1, w2, b2)
@@ -715,12 +763,22 @@ def phase_train_kernels(table: dict, gen, dev) -> None:
                 mlp_beside_chain("mlp_train_fwd", f"{label} {what}", train,
                                  plain, chain, m, kd, f,
                                  mlp_bytes(m, kd, f, extra_mf=1))
-            timed("mlp_bwd", f"{label} {what}",
-                  lambda: M.mlp_bwd_fused(hh, g, w1, w2),
-                  lambda: M._mlp_bwd_plain(hh, g, w1, w2, "gelu"), 20, keep)
+            bwd = functools.partial(M.mlp_bwd_fused, hh, g, w1, w2)
+            bwd_plain = functools.partial(M._mlp_bwd_plain, hh, g, w1, w2,
+                                          "gelu")
+            bwd_chain = functools.partial(mlp_bwd_chain, hh, g, w1, w2)
             if keep:
+                timed("mlp_bwd", f"{label} {what}", bwd, bwd_plain, 20, True)
+                mlp_library(table, "mlp_bwd", f"{label} {what}", bwd_chain)
                 set_bound(table, "mlp_bwd", what, 4 * m * kd * f,
                           mlp_bytes(m, kd, f, extra_mf=3))
+                rate_line(table, "mlp_bwd", what, 4 * m * kd * f,
+                          "the chain's")
+            else:
+                mlp_beside_chain("mlp_bwd", f"{label} {what}", bwd,
+                                 bwd_plain, bwd_chain, m, kd, f,
+                                 mlp_bytes(m, kd, f, extra_mf=3))
+            kernel_split(f"mlp_bwd {what}", bwd)
         if label == "V-JEPA":   # the EMA teacher's MLP, and K2 at K 1,024
             check("mlp_fwd", what, M.mlp_fused(x, w1, b1, w2, b2),
                   M._mlp_xla(x, w1, b1, w2, b2, "gelu"), TOL_MLP)
@@ -1060,10 +1118,32 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
     return rates
 
 
-def profile_call(fn, label: str, top: int = 8, watch: str = "") -> None:
+def kernel_split(label: str, fn, calls: int = 10) -> None:
+    """The mean device time of each kernel that `calls` calls of fn
+    launch, from the profiler: the passes of a kernel that launches
+    several apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            log(f"split {label}: {ev.key[:72]} x{ev.count // calls} a call, "
+                f"{us / ev.count / 1e3:.4f} ms each (profiler)")
+
+
+def profile_call(fn, label: str, top: int = 8, watch: tuple = ()) -> None:
     """fn() once under torch.profiler: device busy and idle share of the
     wall time, and the kernels that take the most device time; with watch,
-    also the share and launches of the kernels whose name holds it."""
+    also the share and launches of the kernels whose names hold one of its
+    strings."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1097,10 +1177,10 @@ def profile_call(fn, label: str, top: int = 8, watch: str = "") -> None:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% of busy  x{count:<4} "
             f"{key[:100]}")
     if watch:
-        hit = [r for r in rows if watch in r[2]]
+        hit = [r for r in rows if any(w in r[2] for w in watch)]
         ms = sum(r[0] for r in hit)
-        log(f"  {watch}: {ms:.2f} ms = {100 * ms / busy:.1f}% of busy, "
-            f"{sum(r[1] for r in hit)} launches")
+        log(f"  {' + '.join(watch)}: {ms:.2f} ms = {100 * ms / busy:.1f}% "
+            f"of busy, {sum(r[1] for r in hit)} launches")
 
 
 def preset_config(cli: str, path: Path, **kw):
@@ -1330,13 +1410,13 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
                            step_generator(0, i))
 
         time_train_steps("MIM" + (" glue" if glue else ""), card, bs, flops,
-                         step, iters, watch="glue_gemm" if glue else "")
+                         step, iters, watch=("glue_gemm",) if glue else ())
         del model, init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
 
 def time_train_steps(label: str, card: str, bs: int, flops: float, step,
-                     iters: int, watch: str = "") -> None:
+                     iters: int, watch: tuple = ()) -> None:
     """step(0) as warm-up, then CUDA events over step(1) .. step(iters):
     ms a step, MFU against the card's dense bf16 peak (analytic FLOPs a
     sample, no remat recompute) and peak memory; then step(0) once under
@@ -1670,6 +1750,15 @@ GIANT = dict(image_size=224, depth=160, patch_size=16, num_channels=1,
              dtype="bfloat16", attn_impl="auto", mlp_impl="pallas",
              gradient_checkpointing=True)
 DINO_N = 1961           # 14 * 14 * 10 patches + CLS
+# the seeds of the DINOv2-giant step parity that --against runs with
+# either library: the loss gap of one step at random weights varies with
+# the seed, so one seed cannot tell a kernel's bias from chance
+DINO_PARITY_SEEDS = (0, 1, 2)
+# K9's three passes in a profile: the LayerNorm rows at K 1,536, the gated
+# product and the second product (K2's, which the DINOv2 model runs only
+# for K9)
+K9_KERNELS = ("ln_rows_kernel<1536>", "mlp_gemm_kernel<3, false>",
+              "mlp_gemm_kernel<2, true>")
 GIANT_HEADS, GIANT_K, GIANT_F = 24, 1536, 4096
 LEG_F_LAYERS = 8        # leg F's depth cut: one checkpoint is ~2.8 GB
 # the fine-tuning recipe's two tiers (SURVEY "fine-tune recipe")
@@ -1684,24 +1773,19 @@ def giant_config(**kw):
 
 def phase_dinov2_kernels(table: dict, gen, dev) -> None:
     """K9 against its plain version (the kernel's numerics) and the bf16
-    cuBLAS chain at DINOv2-giant batch 2 (M 3,922), the DINOv2-base shape
-    (M 20,480, K 768, F 2,048) and the ragged batch 1 (M 1,961), timed
-    beside the chain; its gradients through the recompute at batch 2; its
-    register and spill report. Then K1 and K4 at N 1,961, 24 heads of 64,
-    batch 2, against theirs."""
+    cuBLAS chain `_swiglu_block_xla` at DINOv2-giant batch 2 (M 3,922),
+    the DINOv2-base shape (M 20,480, K 768, F 2,048) and the ragged batch
+    1 (M 1,961), timed beside both (the chain is its library_ms); its
+    gradients through the recompute at batch 2; the register and spill
+    report of its gated product. Then K1 and K4 at N 1,961, 24 heads of
+    64, batch 2, against theirs."""
     import torch
 
-    from smb_vision_tpu_torch.ops import _build
     from smb_vision_tpu_torch.ops import attention as A
     from smb_vision_tpu_torch.ops import mlp as M
 
-    text = (_build.build_dir() / "build.log").read_text()
-    text = text[text.index("== swiglu_fwd.cu"):]
-    end = text.find("\n== ")      # the next source's report
-    for line in text[:end if end >= 0 else None].splitlines():
-        if "entry function" in line or "registers" in line or \
-                "spill" in line:
-            log(f"  K9 ptxas: {line.strip()}")
+    for line in ptxas_report(SM90_KERNELS["K9 phase 1"][0]):
+        log(f"  K9 ptxas: {line}")
 
     def r(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device=dev) * s
@@ -1720,15 +1804,18 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
                      M._swiglu_block_plain(*args, 1e-6), TOL_MLP)
         check_kernel(table, "swiglu_block_fwd", what + " vs bf16 chain", y,
                      M._swiglu_block_xla(*args, 1e-6), TOL_MLP, record=False)
-        if label != "giant batch 1":
-            keep = label == "giant batch 2"
-            time_kernel(table, "swiglu_block_fwd", f"{label} {what}",
-                        lambda: M.swiglu_block_fused(*args, eps=1e-6),
-                        lambda: M._swiglu_block_xla(*args, 1e-6), 10, keep)
-            if keep:
-                set_bound(table, "swiglu_block_fwd", what, 6 * m * k * f,
-                          mlp_bytes(m, k, f, n_w=3, ln=True))
+        kernel = functools.partial(M.swiglu_block_fused, *args, eps=1e-6)
+        plain = functools.partial(M._swiglu_block_plain, *args, 1e-6)
+        chain = functools.partial(M._swiglu_block_xla, *args, 1e-6)
+        nbytes = mlp_bytes(m, k, f, n_w=3, ln=True)
+        kernel_split(f"swiglu_block_fwd {what}", kernel)
         if label == "giant batch 2":
+            time_kernel(table, "swiglu_block_fwd", f"{label} {what}", kernel,
+                        plain, 10, True)
+            mlp_library(table, "swiglu_block_fwd", f"{label} {what}", chain)
+            set_bound(table, "swiglu_block_fwd", what, 6 * m * k * f, nbytes)
+            rate_line(table, "swiglu_block_fwd", what, 6 * m * k * f,
+                      "the chain's")
             g = r(m, k)
 
             def grads(impl):
@@ -1740,6 +1827,9 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
             for name, a, b in zip(names, grads("pallas"), grads("xla")):
                 check_kernel(table, "swiglu_block_fwd", f"{what} {name}", a,
                              b, TOL_MLP_TRAIN, record=False)
+        else:
+            mlp_beside_chain("swiglu_block_fwd", f"{label} {what}", kernel,
+                             plain, chain, m, k, f, nbytes, products=3)
         del args, y
 
     scale = 1.0 / math.sqrt(HEAD_DIM)
@@ -1871,27 +1961,33 @@ def dinov2_batch(bs: int, seed: int, dev):
     return {"pixel_values": px, "labels": labels.to(torch.int32)}
 
 
-def phase_dinov2_parity() -> None:
+def dinov2_parity(seed: int = 0, libs: dict | None = None) -> dict:
     """One DINOv2-giant fine-tune step (forward and backward, remat, no
     update) at batch 2, a classification head of 2 labels, from the same
-    seeded weights: through the kernels, through their plain versions
-    under the same impl names (`plain_kernels`), and in float32 with the
-    plain attention and MLP (TF32 off). Holds the loss and the gradient
-    over all parameters, and K9's launches: 40 a forward, so 80 with the
-    remat recompute, and none on the plain path."""
+    weights and batch made from seed: through the kernels (with each
+    kernel library of libs in turn, this package's wrappers calling it;
+    with the library built when libs is None), through their plain
+    versions under the same impl names (`plain_kernels`), and in float32
+    with the plain attention and MLP (TF32 off). Checks K9's launches on
+    each path: 40 a forward, so 80 with the remat recompute, and none on
+    the plain path. Returns the plain versions' and float32's losses,
+    the plain versions' gradient error against float32, and for each
+    kernel path its loss, its loss's gap to the plain versions' (relative)
+    and its gradient error against float32."""
     import torch
 
     from smb_vision_tpu_torch.models.dinov2 import (
         Dinov2ForImageClassification,
     )
+    from smb_vision_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    batch = dinov2_batch(2, 6, dev)
+    batch = dinov2_batch(2, 6 + seed, dev)
     with torch.device(dev):
         init = Dinov2ForImageClassification(giant_config()).init_weights(
-            torch.Generator(device=dev).manual_seed(0)).state_dict()
+            torch.Generator(device=dev).manual_seed(seed)).state_dict()
 
     def step(**kw):
         with torch.device(dev):
@@ -1912,16 +2008,25 @@ def phase_dinov2_parity() -> None:
         torch.cuda.empty_cache()
         return float(loss.detach()), flat, n_params
 
-    ws = reset_launches()
-    t0 = time.perf_counter()
-    k_loss, k_grad, n_params = step()
-    wall = time.perf_counter() - t0
-    counts = {name: w.launches for name, w in ws.items()}
     layers = GIANT["num_hidden_layers"]
-    if counts["swiglu_block_fwd"] != 2 * layers or not (
-            counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
-        raise AssertionError(f"DINOv2 step: launches {counts}; K9 must "
-                             f"launch {layers} a forward, twice with remat")
+    kernels = {}
+    built = _build.lib()
+    try:
+        for side, handle in (libs or {"kernels": built}).items():
+            _build._lib = handle
+            ws = reset_launches()
+            t0 = time.perf_counter()
+            loss, grad, n_params = step()
+            kernels[side] = (loss, grad, time.perf_counter() - t0,
+                             {name: w.launches for name, w in ws.items()})
+    finally:
+        _build._lib = built
+    for side, (_, _, _, counts) in kernels.items():
+        if counts["swiglu_block_fwd"] != 2 * layers or not (
+                counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
+            raise AssertionError(f"DINOv2 step ({side}): launches {counts}; "
+                                 f"K9 must launch {layers} a forward, twice "
+                                 f"with remat")
     ws = reset_launches()
     with plain_kernels():
         p_loss, p_grad, _ = step()
@@ -1931,24 +2036,38 @@ def phase_dinov2_parity() -> None:
     f_loss, f_grad, _ = step(attn_impl="xla", mlp_impl="xla",
                              dtype="float32")
     norm = float(f_grad.norm())
-    k_err = float((k_grad - f_grad).norm()) / norm
-    p_err = float((p_grad - f_grad).norm()) / norm
-    rel_loss = abs(k_loss - p_loss) / abs(p_loss)
-    log(f"DINOv2-giant parity, one fine-tune step at batch 2 ({n_params} "
-        f"parameters, N {DINO_N}): loss kernels {k_loss:.6f}, plain "
-        f"versions {p_loss:.6f}, f32 {f_loss:.6f}; rel {rel_loss:.3e} "
-        f"(bound {TOL_TRAIN_LOSS}); gradient error vs f32: kernels "
-        f"{k_err:.3e}, plain versions {p_err:.3e} (bound "
-        f"{TOL_TRAIN_GRAD_VS_F32} x plain); kernel step {wall:.1f} s with "
-        f"the first calls; launches {counts}")
-    if not (bool(k_grad.isfinite().all()) and math.isfinite(k_loss)):
-        raise AssertionError("the kernel path's loss or gradient is not "
-                             "finite")
-    if not rel_loss <= TOL_TRAIN_LOSS:
-        raise AssertionError(f"DINOv2 loss rel {rel_loss}")
-    if not k_err <= TOL_TRAIN_GRAD_VS_F32 * p_err:
-        raise AssertionError(f"DINOv2 kernel gradients are {k_err} from "
-                             f"float32, the plain versions' {p_err}")
+    out = {"plain loss": p_loss, "f32 loss": f_loss,
+           "plain grad err": float((p_grad - f_grad).norm()) / norm}
+    for side, (loss, grad, wall, counts) in kernels.items():
+        if not (bool(grad.isfinite().all()) and math.isfinite(loss)):
+            raise AssertionError(f"the kernel path's ({side}) loss or "
+                                 f"gradient is not finite")
+        out[side] = {"loss": loss,
+                     "rel loss": abs(loss - p_loss) / abs(p_loss),
+                     "grad err": float((grad - f_grad).norm()) / norm}
+        log(f"DINOv2-giant parity, seed {seed}, one fine-tune step at batch "
+            f"2 ({n_params} parameters, N {DINO_N}): loss {side} {loss:.6f}, "
+            f"plain versions {p_loss:.6f}, f32 {f_loss:.6f}; rel "
+            f"{out[side]['rel loss']:.3e} (bound {TOL_TRAIN_LOSS}); "
+            f"gradient error vs f32: {side} {out[side]['grad err']:.3e}, "
+            f"plain versions {out['plain grad err']:.3e} (bound "
+            f"{TOL_TRAIN_GRAD_VS_F32} x plain); kernel step {wall:.1f} s "
+            f"with the first calls; launches {counts}")
+    return out
+
+
+def phase_dinov2_parity() -> None:
+    """`dinov2_parity` at seed 0 through the kernels: the loss within
+    TOL_TRAIN_LOSS of the plain versions', the gradient error against
+    float32 within TOL_TRAIN_GRAD_VS_F32 times the plain versions'."""
+    got = dinov2_parity()
+    k = got["kernels"]
+    if not k["rel loss"] <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"DINOv2 loss rel {k['rel loss']}")
+    if not k["grad err"] <= TOL_TRAIN_GRAD_VS_F32 * got["plain grad err"]:
+        raise AssertionError(f"DINOv2 kernel gradients are {k['grad err']} "
+                             f"from float32, the plain versions' "
+                             f"{got['plain grad err']}")
 
 
 def phase_finetune_throughput(card: str, iters: int = 3) -> None:
@@ -1987,7 +2106,7 @@ def phase_finetune_throughput(card: str, iters: int = 3) -> None:
         log(f"DINOv2-giant batch {bs}: launches of one step "
             f"{ {n: w.launches for n, w in ws.items() if w.launches} }")
         time_train_steps("DINOv2-giant fine-tune", card, bs, flops, step,
-                         iters, watch="swiglu")
+                         iters, watch=K9_KERNELS)
         del init_fn, step_fn, state, batches, step
         torch.cuda.empty_cache()
 
@@ -2115,9 +2234,10 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
 # K3, K4, K7 and K8 by a part of their mangled names (this tree's, the
-# other's), and every kernel of the sources this tree leaves alone (K5b,
-# K9, K10a, K10b) by its whole name; the MLP forward (K2, K6, K5a) is the
-# one this tree changes
+# other's), and every kernel of the MLP forward and glue sources (K2, K6,
+# K5a and their LayerNorm pass, K10a, K10b) by its whole name, but the
+# kernels this tree adds there (K9's gated product and its LayerNorm pass
+# at K 1,536, NEW_KERNELS); K5b and K9 are the ones this tree changes
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (64, 128)
              for k, this, other in (
@@ -2131,7 +2251,8 @@ UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
                   "flash_bwd_i8_sm90_kernelILi{d}EE"),
                  ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
                   "flash_fwd_i8pv_kernelILi{d}EE"))}
-UNCHANGED_SOURCES = ("mlp_bwd_cu", "swiglu_fwd_cu", "attn_glue_cu")
+UNCHANGED_SOURCES = ("mlp_fwd_cu", "attn_glue_cu")
+NEW_KERNELS = ("mlp_gemm_kernelILi3E", "ln_rows_kernelILi1536E")
 
 
 def _anon(name: str) -> str:
@@ -2151,11 +2272,12 @@ def compare_sass(sass: dict) -> None:
             "missing" if a is None or b is None else
             "identical" if a == b else "differs"))
     this = {_anon(fn): body for fn, body in sass["this"].items()
-            if any(src in fn for src in UNCHANGED_SOURCES)}
+            if any(src in fn for src in UNCHANGED_SOURCES)
+            and not any(new in fn for new in NEW_KERNELS)}
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
-    log(f"against: SASS of the MLP backward, SwiGLU and glue kernels (K5b, "
-        f"K9, K10a, K10b): {len(same)} of {len(this)} functions identical"
+    log(f"against: SASS of the MLP forward and glue kernels (K2, K6, K5a, "
+        f"K10a, K10b): {len(same)} of {len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
@@ -2163,8 +2285,7 @@ def compare_sass(sass: dict) -> None:
 def unchanged_outputs(dev) -> list:
     """The outputs of the UNCHANGED kernels on seeded inputs: K1, K3 and
     K8 at d 64 and 128, K4 at the MIM encoder's shape, K7 at the V-JEPA
-    encoder's, and K5b and the glue kernels at the embed shape (K5b on the
-    h of K5a's plain version, K9 at DINOv2-giant's)."""
+    encoder's, and K2, K6, K5a and the glue kernels at the embed shape."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -2195,17 +2316,13 @@ def unchanged_outputs(dev) -> list:
     w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
     w2 = r(HIDDEN, FFN, s=FFN ** -0.5, dtype=bf).t()
     b1, b2 = r(FFN, s=0.1), r(HIDDEN, s=0.1)
-    _, hh = M._mlp_train_plain(x, w1, b1, w2, b2, "gelu")
-    outs += M.mlp_bwd_fused(hh, r(MAIN_N, HIDDEN, dtype=bf), w1, w2)
+    outs += [M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=1e-6),
+             M.mlp_fused(x, w1, b1, w2, b2),
+             *M.mlp_train_fused(x, w1, b1, w2, b2)]
     ws = [r(HIDDEN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t() for _ in range(4)]
     bs = [r(HIDDEN, s=0.1) for _ in range(4)]
     qkv = G.qkv_ln_fused(x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
     outs += [*qkv, G.out_res_fused(x, qkv[2], ws[3], bs[3])]
-    m, kd, f = 2 * DINO_N, GIANT_K, GIANT_F
-    outs.append(M.swiglu_block_fused(
-        r(m, kd, dtype=bf), 1.0 + r(kd, s=0.1), r(kd, s=0.1),
-        r(2 * f, kd, s=kd ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
-        r(kd, f, s=f ** -0.5, dtype=bf).t(), r(kd, s=0.1), eps=1e-6))
     return outs
 
 
@@ -2291,20 +2408,26 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
     wrappers call either library. The kernels that must match the other's
-    (UNCHANGED: the flash kernels, K5b, K9 and the glue kernels) are
-    compared by SASS and by output, bit for bit; then, in turns (other,
-    this, this, other a round), the flash kernels at their table shapes
-    (K3 at d 64 and 128, K7 at the V-JEPA encoder's and the reference
-    head's), the MLP family (K2 and K6 at the embed shape, K6 at the
-    V-JEPA teacher's K 1,024, K5a and K5b at the MIM encoder's), K9 and the
-    glue kernels, legs A's and B's models (bf16 and int8 encoders, batch
-    4), the MIM step of the preset at batch 1 and 2 and the V-JEPA step of
-    its preset at batch 1 and 2 are timed. The MLP wrappers pass their
-    workspace after the arguments of the parent's `smb_mlp_fwd`, which
-    takes none and runs through them as before. Last, each checkout's
-    peak device memory (`peak_memory_mib`) with its own package, in a
-    process of its own. Returns the mean of each time per side and the
-    peaks."""
+    (UNCHANGED: the flash kernels, the MLP forward K2, K6, K5a and the
+    glue kernels) are compared by SASS and by output, bit for bit; then,
+    in turns (other, this, this, other a round), the flash kernels at
+    their table shapes (K3 at d 64 and 128, K7 at the V-JEPA encoder's and
+    the reference head's), the MLP family (K2 and K6 at the embed shape,
+    K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's, K5b at
+    the MIM encoder's and decoder's and the V-JEPA encoder's), K9 at
+    DINOv2-giant batch 2 and 1, the glue kernels, legs A's and B's models
+    (bf16 and int8 encoders, batch 4), the MIM step of the preset at batch
+    1 and 2 and the V-JEPA step of its preset at batch 1 and 2 are timed.
+    K9's wrapper passes its workspace after the arguments of the parent's
+    `smb_swiglu_fwd`, which takes none and runs without it. K5b's C
+    interface now takes the weights in their Linear layouts, so the
+    parent's K5b reads the same bytes in its JAX layouts: the same work,
+    timed and not compared. Then the DINOv2-giant step parity
+    (`dinov2_parity`) with either library at each of DINO_PARITY_SEEDS,
+    recorded and not held to its bound. Last, each checkout's peak device
+    memory (`peak_memory_mib`) with its own package, in a process of its
+    own. Returns the mean of each time per side, the parity readings and
+    the peaks."""
     import torch
 
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
@@ -2328,8 +2451,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         _build._lib = handle
         outs[side] = unchanged_outputs(dev)
     same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    log(f"against: outputs of K1, K3, K4, K7, K8, K5b, K9, K10a and K10b "
-        f"bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
+    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K10a and "
+        f"K10b bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
         f"tensors)")
     del outs
 
@@ -2360,8 +2483,11 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
 
     mx, mlnw, mlnb, mw1, mb1, mw2, mb2 = mlp(MAIN_N, HIDDEN, FFN)
     vx, _, _, vw1, vb1, vw2, vb2 = mlp(VJ_N, VJ_HIDDEN, VJ_FFN)
+    _, vh = M._mlp_train_plain(vx, vw1, vb1, vw2, vb2, "gelu")
     ex, _, _, ew1, eb1, ew2, eb2 = mlp(ENC_N, HIDDEN, FFN)
     _, eh = M._mlp_train_plain(ex, ew1, eb1, ew2, eb2, "gelu")
+    cx, _, _, cw1, cb1, cw2, cb2 = mlp(MAIN_N, DEC_HIDDEN, DEC_FFN)
+    _, ch = M._mlp_train_plain(cx, cw1, cb1, cw2, cb2, "gelu")
     gx, glnw, glnb, gw1, gb1, gw2, gb2 = mlp(2 * DINO_N, GIANT_K, 2 * GIANT_F)
     gw2 = gw2[:GIANT_F]
     gws = [mw1[:, :HIDDEN].contiguous() for _ in range(4)]
@@ -2432,8 +2558,12 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
                                                          vb2),
         "K5a MIM encoder": lambda: M.mlp_train_fused(ex, ew1, eb1, ew2, eb2),
         "K5b MIM encoder": lambda: M.mlp_bwd_fused(eh, ex, ew1, ew2),
+        "K5b MIM decoder": lambda: M.mlp_bwd_fused(ch, cx, cw1, cw2),
+        "K5b V-JEPA encoder": lambda: M.mlp_bwd_fused(vh, vx, vw1, vw2),
         "K9 DINOv2-giant batch 2": lambda: M.swiglu_block_fused(
             gx, glnw, glnb, gw1, gb1, gw2, gb2, eps=1e-6),
+        "K9 DINOv2-giant batch 1": lambda: M.swiglu_block_fused(
+            gx[:DINO_N], glnw, glnb, gw1, gb1, gw2, gb2, eps=1e-6),
         "K10a embed": lambda: G.qkv_ln_fused(mx, mlnw, mlnb, *gws[:3],
                                              *gbs[:3], eps=1e-6),
         "K10b embed": lambda: G.out_res_fused(mx, qkv[2], gws[3], gbs[3]),
@@ -2466,6 +2596,13 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             f"{[round(x, 3) for x in times['this'][key]]}) on {card}")
     del models, mim, vjepa, vstate
     torch.cuda.empty_cache()
+    for seed in DINO_PARITY_SEEDS:
+        got = dinov2_parity(seed, libs)
+        for side in libs:
+            for key in ("rel loss", "grad err"):
+                means[side][f"DINOv2 seed {seed} {key}"] = got[side][key]
+            means[side][f"DINOv2 seed {seed} plain grad err"] = got[
+                "plain grad err"]
     peaks = {"other": peak_memory_of(other), "this": peak_memory_of(ROOT)}
     for key, mib in peaks["this"].items():
         log(f"against peak {key:<24} other {peaks['other'][key]:9.0f}  this "

@@ -1,6 +1,10 @@
 // A warp-specialised bf16 GEMM core for Hopper (sm_90a) on wgmma and TMA,
 // for kernels that own one output tile per block and differ only in their
-// epilogues (mlp_fwd.cu's two MLP products; K9's products can take it too).
+// epilogues: mlp_fwd.cu's two MLP products (K2, K6, K5a) and K9's gated
+// product, whose B stage holds 64 rows of each half of w_in (kBSplit), and
+// mlp_bwd.cu's two backward products (K5b), which read B as the Linear
+// weight B^T stands (kBCols, MN-major) and whose first epilogue reads a
+// tile of h back from shared memory (gemm_unstage).
 //
 // The product of a block: the f32 tile C (kGemmBM x kGemmBN) = A B^T over
 // kdim, with A (rows, kdim) and B (cols, kdim) both K-major bf16 in device
@@ -10,6 +14,10 @@
 // sm90.cuh) through a ring of kGemmStages stages with full and empty
 // mbarriers. Rows and columns past a tensor's edge read as zero, so ragged
 // rows, columns and contraction lengths need no masks in the products.
+// With kBCols, B comes as B^T (kdim, cols), row-major: a stage holds
+// kGemmBK of its rows by kGemmBN columns as two 64-column panels, which
+// wgmma reads MN-major (sm90.cuh: panels kGemmPanel bytes apart, a k16
+// step 2,048 bytes on).
 //
 // The block: two consumer warpgroups (threads 0-255; warpgroup cw owns the
 // tile's rows 64 cw .. 64 cw + 63, a 64 x kGemmBN f32 accumulator of
@@ -74,29 +82,52 @@ __device__ __forceinline__ GemmSmem gemm_smem_init(char* raw) {
   return s;
 }
 
+// how B reaches its stage: kBRows, rows n0 .. n0 + kGemmBN - 1 of B (n,
+// kdim) in one box; kBSplit, rows n0 .. n0 + kGemmBN / 2 - 1 of tb, then
+// the same rows of tb2 (boxes of kGemmBN / 2 rows), so that each half
+// reads as zero past its own edge; kBCols, columns n0 .. n0 + kGemmBN - 1
+// of B^T (kdim, n) as two boxes of kGemmBK rows by 64 columns, a box
+// wholly past column n not loaded (its panel only feeds columns that are
+// never stored)
+enum GemmB { kBRows, kBSplit, kBCols };
+
 // the producer thread: k-steps 0 .. ksteps - 1 of A's rows m0 .. m0 +
-// kGemmBM - 1 and B's rows n0 .. n0 + kGemmBN - 1 (maps from make_map_2d,
-// boxes of kGemmBM and kGemmBN rows)
-__device__ __forceinline__ void gemm_produce(const GemmSmem& s,
-                                             const CUtensorMap* ta,
-                                             const CUtensorMap* tb, int m0,
-                                             int n0, int ksteps) {
+// kGemmBM - 1 and B's columns n0 .. n0 + kGemmBN - 1 of the product (maps
+// from make_map_2d: boxes of kGemmBM rows for A; for B as above)
+template <GemmB BL = kBRows>
+__device__ __forceinline__ void gemm_produce(
+    const GemmSmem& s, const CUtensorMap* ta, const CUtensorMap* tb, int m0,
+    int n0, int ksteps, const CUtensorMap* tb2 = nullptr, int n = 0) {
   tma_prefetch(ta);
   tma_prefetch(tb);
+  if constexpr (BL == kBSplit) tma_prefetch(tb2);
+  const bool second = BL != kBCols || n0 + 64 < n;  // kBCols: panel 1 in
   for (int k = 0; k < ksteps; ++k) {
     const int st = k % kGemmStages;
     if (k >= kGemmStages)
       mbar_wait(&s.empty[st], ((k / kGemmStages) & 1) ^ 1);
     char* dst = s.ring + st * kGemmStage;
-    mbar_expect_tx(&s.full[st], kGemmStage);
+    mbar_expect_tx(&s.full[st],
+                   second ? kGemmStage : kGemmStage - kGemmPanel);
     tma_load_4d(dst, ta, &s.full[st], k * kGemmBK, 0, m0, 0);
-    tma_load_4d(dst + kGemmTileA, tb, &s.full[st], k * kGemmBK, 0, n0, 0);
+    if constexpr (BL == kBCols) {
+      tma_load_4d(dst + kGemmTileA, tb, &s.full[st], n0, 0, k * kGemmBK, 0);
+      if (second)
+        tma_load_4d(dst + kGemmTileA + kGemmPanel, tb, &s.full[st], n0 + 64,
+                    0, k * kGemmBK, 0);
+    } else {
+      tma_load_4d(dst + kGemmTileA, tb, &s.full[st], k * kGemmBK, 0, n0, 0);
+      if constexpr (BL == kBSplit)
+        tma_load_4d(dst + kGemmTileA + kGemmBN / 2 * 128, tb2, &s.full[st],
+                    k * kGemmBK, 0, n0, 0);
+    }
   }
 }
 
-// consumer warpgroup cw: acc = (its 64 rows of A) B^T over all k-steps;
-// lane 0 of each warp frees a stage once the warp's wgmma that read it
-// have completed
+// consumer warpgroup cw: acc = (its 64 rows of A) B^T over all k-steps
+// (BL as the producer's: kBCols reads B's stage MN-major); lane 0 of each
+// warp frees a stage once the warp's wgmma that read it have completed
+template <GemmB BL = kBRows>
 __device__ __forceinline__ void gemm_consume(const GemmSmem& s,
                                              float (&acc)[kGemmAcc], int cw,
                                              int ksteps) {
@@ -111,9 +142,14 @@ __device__ __forceinline__ void gemm_consume(const GemmSmem& s,
     const uint32_t b = ring + st * kGemmStage + kGemmTileA;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk)
-      wgmma_ss<kGemmBN, 0>(acc, desc_sw128(a + kk * 32),
-                           desc_sw128(b + kk * 32), 1);
+    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+      if constexpr (BL == kBCols)
+        wgmma_ss<kGemmBN, 1>(acc, desc_sw128(a + kk * 32),
+                             desc_sw128(b + kk * 2048, kGemmPanel), 1);
+      else
+        wgmma_ss<kGemmBN, 0>(acc, desc_sw128(a + kk * 32),
+                             desc_sw128(b + kk * 32), 1);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the group of step k - 1 is done: free its stage
     if (k > 0 && signals) mbar_arrive(&s.empty[(k - 1) % kGemmStages]);
@@ -134,6 +170,16 @@ __device__ __forceinline__ void gemm_stage(char* stage, int rr, int col,
   char* dst = stage + (col >> 6) * kGemmPanel + rr * 128 +
               ((((col & 63) >> 3) ^ (rr & 7)) << 4) + (col & 7) * 2;
   *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+}
+
+// the value pair that gemm_stage put at row rr and columns col, col + 1
+// of a staged tile (or that a TMA load of 64 x 64 boxes, as gemm_store
+// writes them, brought in)
+__device__ __forceinline__ __nv_bfloat162 gemm_unstage(const char* stage,
+                                                       int rr, int col) {
+  return *reinterpret_cast<const __nv_bfloat162*>(
+      stage + (col >> 6) * kGemmPanel + rr * 128 +
+      ((((col & 63) >> 3) ^ (rr & 7)) << 4) + (col & 7) * 2);
 }
 
 // TMA store of the box at (c0, c1, c2, c3) of `map` from shared memory

@@ -1,13 +1,17 @@
 // Fused transformer MLP forward for Hopper (sm_90a): the plain MLP (K6), the
-// training forward that also spills the pre-activation (K5a) and the whole
-// MLP half-block with LayerNorm prologue and residual (K2), on wgmma and
-// TMA (the GEMM core of gemm_sm90.cuh).
+// training forward that also spills the pre-activation (K5a), the whole
+// MLP half-block with LayerNorm prologue and residual (K2) and the DINOv2
+// SwiGLU half-block (K9), on wgmma and TMA (the GEMM core of
+// gemm_sm90.cuh).
 //
 // Replaces
 //   K6  smb_vision_tpu/ops/mlp.py:_mlp_kernel        y = act(x w1 + b1) w2 + b2
 //   K5a smb_vision_tpu/ops/mlp.py:_mlp_train_kernel  K6, plus h = x w1 + b1
 //                                                    stored in bf16
 //   K2  smb_vision_tpu/ops/mlp.py:_mlp_block_kernel  y = x + act(LN(x) w1 + b1) w2 + b2
+//   K9  smb_vision_tpu/ops/mlp.py:_swiglu_block_kernel
+//       y = x + (silu(xn w1a + b1a) * (xn w1b + b1b)) w2 + b2, xn = LN(x)
+//       (LayerScale folds into w2 and b2 at the caller)
 //
 // Numerics as the TPU kernels: bf16 operands, f32 accumulation, LayerNorm
 // statistics, bias and activation in f32, the activation rounded to bf16
@@ -16,7 +20,9 @@
 // tanh form of gelu_new. LayerNorm takes two-pass statistics (the TPU
 // kernel: E[x^2] - mean^2) and rounds xn to bf16 (its xn scratch is bf16).
 // K2 adds the residual in f32 before its one rounding; K5a's h is x w1 + b1
-// rounded to bf16, and the activation is taken of the f32 h.
+// rounded to bf16, and the activation is taken of the f32 h. K9's gate
+// silu(h1) * h2 is taken in f32 and rounded to bf16 before w2, as the TPU
+// kernel's is.
 //
 // Bound on the H100: at M = 20,480, K = 768, F = 3,072 the two products are
 // 4*M*K*F = 193 GFLOP, 0.195 ms at 989 TFLOP/s; x, y and the weights are
@@ -45,8 +51,26 @@
 // (the workspace does not grow with M). Two blocks share an SM, so one
 // block's epilogue (erff over its 128 x 128 tile, the stores) runs under
 // the other's products. Ragged M, F and contraction tails read as zero
-// through TMA and are not stored. K is 128, 256, 384, 512, 768 or 1024 (the
-// LayerNorm pass is compiled for these); F must be a multiple of 32.
+// through TMA and are not stored. K is 128, 256, 384, 512, 768 or 1024
+// (K9 also 1,536: the LayerNorm pass is compiled for these); F must be a
+// multiple of 32.
+//
+// K9 is K2's three passes with a gated phase 1 (PHASE 3). w_in is the
+// Linear layout (2F, K): rows 0..F-1 are w1a^T, F..2F-1 w1b^T. Two tensor
+// maps over its halves bring 64 rows of each into one 128-row B stage, so
+// one m64n128 wgmma gives h1 in accumulator columns 0-63 and h2 in 64-127
+// of the same 64 gate columns; in the wgmma D layout a thread holds column
+// c and c + 64, so silu(h1 + b1a) * (h2 + b1b) is register-local. Each
+// half reads as zero past its own edge F. The gate crosses device memory
+// once in bf16 through the workspace (the TPU kernel kept it in VMEM):
+// 2*rows*F*2 bytes, 64 MB at DINOv2-giant batch 2 (M 3,922, F 4,096),
+// about 0.02 ms. Its bound there: 6*M*K*F = 148 GFLOP, 0.150 ms at the
+// bf16 peak, against 38 MB of weights and 24 MB of x and y. It runs at
+// about 45 % of it (chip_smoke.py times it beside its bf16 cuBLAS chain;
+// PERF.md has the times), held where K6 is held (below): its products
+// at the rate of L2-to-SM traffic a 128 x 128 tile allows, the gated
+// epilogue (expf over half the accumulator) hidden in part by the second
+// block of an SM.
 //
 // What holds it at about 45 % of the bound on an H100 (chip_smoke.py: K6
 // 0.44 ms at the shape above; in its profile at 81,920 rows a call, phase
@@ -71,6 +95,10 @@ __device__ __forceinline__ float activation(float v, int act) {
   if (act == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
   return 0.5f * v *
          (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+}
+
+__device__ __forceinline__ float silu(float v) {
+  return v / (1.f + expf(-v));
 }
 
 // xn = LN(x) rounded to bf16, one warp a row, two-pass f32 statistics
@@ -141,7 +169,9 @@ struct Epi {
 };
 
 // PHASE 1: to = act(acc + b1) (and th = acc + b1 if EXTRA);
-// PHASE 2: to = acc + b2 (+ res if EXTRA)
+// PHASE 2: to = acc + b2 (+ res if EXTRA);
+// PHASE 3 (K9): B's stage is 64 rows of w1a (tb) over 64 of w1b (th), so
+// to = silu(h1 + b1a) * (h2 + b1b) over the tile's 64 gate columns
 template <int PHASE, bool EXTRA>
 __global__ void __launch_bounds__(kGemmThreads, 2)
     mlp_gemm_kernel(const __grid_constant__ CUtensorMap ta,
@@ -151,9 +181,16 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
                     const Epi e) {
   extern __shared__ char smem_raw[];
   const GemmSmem s = gemm_smem_init(smem_raw);
-  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
+  // PHASE 3 owns 64 gate columns: their h1 and h2 fill the 128-column tile
+  const int n0 = blockIdx.x * (PHASE == 3 ? kGemmBN / 2 : kGemmBN);
+  const int m0 = blockIdx.y * kGemmBM;
   if (threadIdx.x >= kConsumers) {  // the producer warp
-    if (threadIdx.x == kConsumers) gemm_produce(s, &ta, &tb, m0, n0, ksteps);
+    if (threadIdx.x == kConsumers) {
+      if constexpr (PHASE == 3)
+        gemm_produce<kBSplit>(s, &ta, &tb, m0, n0, ksteps, &th);
+      else
+        gemm_produce(s, &ta, &tb, m0, n0, ksteps);
+    }
     return;
   }
   const int cw = threadIdx.x / kWG;
@@ -165,39 +202,65 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   char* stage_h = s.ring + (2 + cw) * kGemmHalf;
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  if constexpr (PHASE == 3) {
+    // accumulator columns c (h1) and c + 64 (h2) are the same gate column
 #pragma unroll
-  for (int j = 0; j < kGemmBN / 8; ++j) {
-    const int c = 8 * j + 2 * t, col = n0 + c;  // n is even: col + 1 < n
-    const bool in = col < e.n;
-    const float b0 = in ? e.bias[col] : 0.f;
-    const float b1 = in ? e.bias[col + 1] : 0.f;
+    for (int j = 0; j < kGemmBN / 16; ++j) {
+      const int c = 8 * j + 2 * t, col = n0 + c;
+      const bool in = col < e.n;
+      const float a0 = in ? e.bias[col] : 0.f;
+      const float a1 = in ? e.bias[col + 1] : 0.f;
+      const float b0 = in ? e.bias[e.n + col] : 0.f;
+      const float b1 = in ? e.bias[e.n + col + 1] : 0.f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = warp * 16 + g + 8 * half;  // of the warpgroup's 64
-      float v0 = acc[4 * j + 2 * half] + b0;
-      float v1 = acc[4 * j + 2 * half + 1] + b1;
-      if constexpr (PHASE == 1) {
-        if constexpr (EXTRA)
-          gemm_stage(stage_h, rr, c, __floats2bfloat162_rn(v0, v1));
-        v0 = activation(v0, e.act);
-        v1 = activation(v1, e.act);
-      } else if constexpr (EXTRA) {
-        const int r = m0 + cw * 64 + rr;
-        if (in && r < e.rows) {
-          const __nv_bfloat162 x2 =
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  e.res + (long long)r * e.n + col);
-          v0 += __bfloat162float(x2.x);
-          v1 += __bfloat162float(x2.y);
-        }
+      for (int half = 0; half < 2; ++half) {
+        const int i1 = 4 * j + 2 * half, i2 = i1 + 4 * (kGemmBN / 16);
+        gemm_stage(stage_o, warp * 16 + g + 8 * half, c,
+                   __floats2bfloat162_rn(
+                       silu(acc[i1] + a0) * (acc[i2] + b0),
+                       silu(acc[i1 + 1] + a1) * (acc[i2 + 1] + b1)));
       }
-      gemm_stage(stage_o, rr, c, __floats2bfloat162_rn(v0, v1));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGemmBN / 8; ++j) {
+      const int c = 8 * j + 2 * t, col = n0 + c;  // n is even: col + 1 < n
+      const bool in = col < e.n;
+      const float b0 = in ? e.bias[col] : 0.f;
+      const float b1 = in ? e.bias[col + 1] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = warp * 16 + g + 8 * half;  // of the warpgroup's 64
+        float v0 = acc[4 * j + 2 * half] + b0;
+        float v1 = acc[4 * j + 2 * half + 1] + b1;
+        if constexpr (PHASE == 1) {
+          if constexpr (EXTRA)
+            gemm_stage(stage_h, rr, c, __floats2bfloat162_rn(v0, v1));
+          v0 = activation(v0, e.act);
+          v1 = activation(v1, e.act);
+        } else if constexpr (EXTRA) {
+          const int r = m0 + cw * 64 + rr;
+          if (in && r < e.rows) {
+            const __nv_bfloat162 x2 =
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    e.res + (long long)r * e.n + col);
+            v0 += __bfloat162float(x2.x);
+            v1 += __bfloat162float(x2.y);
+          }
+        }
+        gemm_stage(stage_o, rr, c, __floats2bfloat162_rn(v0, v1));
+      }
     }
   }
   fence_proxy_async();
   named_sync(2 + cw, kWG);
   if (threadIdx.x % kWG == 0) {
-    gemm_store(&to, stage_o, m0 + cw * 64, n0, e.rows, e.n);
+    if constexpr (PHASE == 3) {  // one 64 x 64 box of the gate
+      if (m0 + cw * 64 < e.rows)
+        tma_store_4d(&to, stage_o, n0, 0, m0 + cw * 64, 0);
+    } else {
+      gemm_store(&to, stage_o, m0 + cw * 64, n0, e.rows, e.n);
+    }
     if constexpr (PHASE == 1 && EXTRA)
       gemm_store(&th, stage_h, m0 + cw * 64, n0, e.rows, e.n);
     gemm_store_wait();
@@ -205,14 +268,19 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
 }
 
 // to (rows, n) = epilogue(A B^T), A (rows, kdim) and B (n, kdim) bf16
-// row-major
+// row-major; PHASE 3: B is w_in (2 n, kdim), its two halves mapped apart
 template <int PHASE, bool EXTRA>
 cudaError_t launch_gemm(const void* a, const void* b, int kdim,
                         const CUtensorMap& to, const CUtensorMap& th,
                         const Epi& e, cudaStream_t stream) {
-  CUtensorMap ta, tb;
+  constexpr int bn = PHASE == 3 ? kGemmBN / 2 : kGemmBN;  // B rows a block
+  CUtensorMap ta, tb, tx = th;
   cudaError_t err = make_map_2d(&ta, a, e.rows, kdim, kdim, kGemmBM);
-  if (err == cudaSuccess) err = make_map_2d(&tb, b, e.n, kdim, kdim, kGemmBN);
+  if (err == cudaSuccess) err = make_map_2d(&tb, b, e.n, kdim, kdim, bn);
+  if (PHASE == 3 && err == cudaSuccess)
+    err = make_map_2d(
+        &tx, static_cast<const __nv_bfloat16*>(b) + (long long)e.n * kdim,
+        e.n, kdim, kdim, bn);
   auto kernel = mlp_gemm_kernel<PHASE, EXTRA>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
@@ -222,10 +290,9 @@ cudaError_t launch_gemm(const void* a, const void* b, int kdim,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((e.n + kGemmBN - 1) / kGemmBN,
-                  (e.rows + kGemmBM - 1) / kGemmBM);
+  const dim3 grid((e.n + bn - 1) / bn, (e.rows + kGemmBM - 1) / kGemmBM);
   kernel<<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      ta, tb, to, th, (kdim + kGemmBK - 1) / kGemmBK, e);
+      ta, tb, to, tx, (kdim + kGemmBK - 1) / kGemmBK, e);
   return cudaGetLastError();
 }
 
@@ -241,11 +308,53 @@ cudaError_t launch_ln(const __nv_bfloat16* x, const float* lnw,
     case 512: kernel = ln_rows_kernel<512>; break;
     case 768: kernel = ln_rows_kernel<768>; break;
     case 1024: kernel = ln_rows_kernel<1024>; break;
+    case 1536: kernel = ln_rows_kernel<1536>; break;
     default: return cudaErrorInvalidValue;
   }
   kernel<<<(rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, s>>>(
       x, lnw, lnb, xn, rows, eps);
   return cudaGetLastError();
+}
+
+// the chunk loop of K2, K6, K5a (gated = 0) and K9 (gated = 1): see
+// smb_mlp_fwd and smb_swiglu_fwd
+cudaError_t run_chunks(const void* x, const void* lnw, const void* lnb,
+                       const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, void* h, int M, int K,
+                       int F, float eps, int ln, int act, int gated,
+                       cudaStream_t s, void* ws, void* xn, int chunk) {
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* outb = static_cast<__nv_bfloat16*>(out);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  auto* wsb = static_cast<__nv_bfloat16*>(ws);
+  auto* xnb = static_cast<__nv_bfloat16*>(xn);
+  cudaError_t err = cudaSuccess;
+  for (int m = 0; m < M && err == cudaSuccess; m += chunk) {
+    const int rows = M - m < chunk ? M - m : chunk;
+    const __nv_bfloat16* xm = xb + (long long)m * K;
+    if (ln)
+      err = launch_ln(xm, static_cast<const float*>(lnw),
+                      static_cast<const float*>(lnb), xnb, rows, K, eps, s);
+    // the outputs: the workspace (phase 1), the spill, y (phase 2)
+    CUtensorMap tws, th, ty;
+    if (err == cudaSuccess) err = make_map_2d(&tws, wsb, rows, F, F, 64);
+    if (err == cudaSuccess && hb)
+      err = make_map_2d(&th, hb + (long long)m * F, rows, F, F, 64);
+    if (err == cudaSuccess)
+      err = make_map_2d(&ty, outb + (long long)m * K, rows, K, K, 64);
+    if (err != cudaSuccess) break;
+    const Epi e1{static_cast<const float*>(b1), nullptr, rows, F, act};
+    const void* a1 = ln ? static_cast<const void*>(xnb) : xm;
+    err = gated ? launch_gemm<3, false>(a1, w1, K, tws, tws, e1, s)
+          : hb  ? launch_gemm<1, true>(a1, w1, K, tws, th, e1, s)
+                : launch_gemm<1, false>(a1, w1, K, tws, tws, e1, s);
+    if (err != cudaSuccess) break;
+    const Epi e2{static_cast<const float*>(b2), ln ? xm : nullptr, rows, K,
+                 act};
+    err = ln ? launch_gemm<2, true>(wsb, w2, F, ty, ty, e2, s)
+             : launch_gemm<2, false>(wsb, w2, F, ty, ty, e2, s);
+  }
+  return err;
 }
 
 }  // namespace
@@ -269,36 +378,28 @@ extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
       K % 128 != 0 || (act != 0 && act != 1) || (ln && h != nullptr) ||
       ws == nullptr || (ln && xn == nullptr) || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* outb = static_cast<__nv_bfloat16*>(out);
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  auto* wsb = static_cast<__nv_bfloat16*>(ws);
-  auto* xnb = static_cast<__nv_bfloat16*>(xn);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-  for (int m = 0; m < M && err == cudaSuccess; m += chunk) {
-    const int rows = M - m < chunk ? M - m : chunk;
-    const __nv_bfloat16* xm = xb + (long long)m * K;
-    if (ln)
-      err = launch_ln(xm, static_cast<const float*>(lnw),
-                      static_cast<const float*>(lnb), xnb, rows, K, eps, s);
-    // the outputs: the workspace (phase 1), the spill, y (phase 2)
-    CUtensorMap tws, th, ty;
-    if (err == cudaSuccess) err = make_map_2d(&tws, wsb, rows, F, F, 64);
-    if (err == cudaSuccess && hb)
-      err = make_map_2d(&th, hb + (long long)m * F, rows, F, F, 64);
-    if (err == cudaSuccess)
-      err = make_map_2d(&ty, outb + (long long)m * K, rows, K, K, 64);
-    if (err != cudaSuccess) break;
-    const Epi e1{static_cast<const float*>(b1), nullptr, rows, F, act};
-    const void* a1 = ln ? static_cast<const void*>(xnb) : xm;
-    err = hb ? launch_gemm<1, true>(a1, w1, K, tws, th, e1, s)
-             : launch_gemm<1, false>(a1, w1, K, tws, tws, e1, s);
-    if (err != cudaSuccess) break;
-    const Epi e2{static_cast<const float*>(b2), ln ? xm : nullptr, rows, K,
-                 act};
-    err = ln ? launch_gemm<2, true>(wsb, w2, F, ty, ty, e2, s)
-             : launch_gemm<2, false>(wsb, w2, F, ty, ty, e2, s);
-  }
-  return (int)err;
+  return (int)run_chunks(x, lnw, lnb, w1, b1, w2, b2, out, h, M, K, F, eps,
+                         ln, act, 0, static_cast<cudaStream_t>(stream), ws,
+                         xn, chunk);
+}
+
+// K9: x (M, K), w1 = w_in (2F, K) (rows 0..F-1 w1a^T, F..2F-1 w1b^T), w2 =
+// w_out (K, F), out (M, K): bf16; lnw, lnb, b1 (2F), b2: f32. K is 128,
+// 256, 384, 512, 768, 1024 or 1536; F a multiple of 32. The rows run in
+// chunks of `chunk` through the caller's workspaces ws (chunk, F) for the
+// gate and xn (chunk, K), both bf16; every matrix must be 16-byte aligned.
+// The workspace arguments come last, as smb_mlp_fwd's do.
+// Returns a cudaError_t.
+extern "C" int smb_swiglu_fwd(const void* x, const void* lnw, const void* lnb,
+                              const void* w1, const void* b1, const void* w2,
+                              const void* b2, void* out, int M, int K, int F,
+                              float eps, void* stream, void* ws, void* xn,
+                              int chunk) {
+  const bool k_ok = K == 1536 || (K > 0 && K <= 1024 && K % 128 == 0);
+  if (M <= 0 || F <= 0 || F % 32 != 0 || !k_ok || ws == nullptr ||
+      xn == nullptr || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)run_chunks(x, lnw, lnb, w1, b1, w2, b2, out, nullptr, M, K, F,
+                         eps, 1, 0, 1, static_cast<cudaStream_t>(stream), ws,
+                         xn, chunk);
 }

@@ -27,7 +27,7 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
-           "swiglu_fwd.cu", "attn_glue.cu")
+           "attn_glue.cu")
 HEADERS = ("ptx.cuh", "sm90.cuh", "gemm_sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -133,7 +133,8 @@ def bind(path: Path) -> ctypes.CDLL:
     handle.smb_mlp_fwd.restype = _I
     handle.smb_mlp_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     handle.smb_mlp_bwd.restype = _I
-    handle.smb_swiglu_fwd.argtypes = [_P] * 8 + [_I] * 3 + [_F, _P]
+    handle.smb_swiglu_fwd.argtypes = (
+        [_P] * 8 + [_I] * 3 + [_F, _P, _P, _P, _I])
     handle.smb_swiglu_fwd.restype = _I
     handle.smb_qkv_ln_fwd.argtypes = [_P] * 12 + [_I] * 2 + [_F, _P]
     handle.smb_qkv_ln_fwd.restype = _I

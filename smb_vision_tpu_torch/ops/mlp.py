@@ -12,18 +12,20 @@ kernels stand behind them:
   pre-activation h = x w1 + b1 in bf16 (replaces `_mlp_train_kernel`);
 - K5b `mlp_bwd_fused` (`csrc/mlp_bwd.cu`): dx, dh and a = act(h) from h and
   dL/dy (replaces `_mlp_bwd_kernel`);
-- K9 `swiglu_block_fused` (`csrc/swiglu_fwd.cu`): y = x + (silu(LN(x) w1a +
+- K9 `swiglu_block_fused` (`csrc/mlp_fwd.cu`): y = x + (silu(LN(x) w1a +
   b1a) * (LN(x) w1b + b1b)) w2 + b2, the DINOv2 SwiGLU half-block
   (replaces `_swiglu_block_kernel`).
 
-K6, K2 and K5a are two wgmma GEMMs whose (M, F) activation passes through
-a workspace of a chunk of rows (`mlp_chunk_rows`); K9 keeps its (M, F)
-intermediates on the SM. Under autograd K6, K2 and K9 take the JAX
-package's recompute backward (the plain version differentiated again), and
-mlp_impl "pallas_bwd" trains through K5a + K5b, the counterpart of
-`_mlp_fused_tb`. Each wrapper runs the plain version for CPU
-tensors and launches its kernel for CUDA tensors; there is no fallback
-between the two. `launches` on each wrapper counts launches.
+All five are two wgmma GEMMs on one core (`csrc/gemm_sm90.cuh`). K6, K2,
+K5a and K9 pass their (M, F) activation (K9: the gate silu(h1) * h2)
+through a bf16 workspace of a chunk of rows (`mlp_chunk_rows`,
+`_mlp_workspace`); K5b's second product reads the dh it emits, so it
+needs none. Under autograd K6, K2 and K9 take the JAX package's recompute
+backward (the plain version differentiated again), and mlp_impl
+"pallas_bwd" trains through K5a + K5b, the counterpart of
+`_mlp_fused_tb`. Each wrapper runs the plain version for CPU tensors and
+launches its kernel for CUDA tensors; there is no fallback between the
+two. `launches` on each wrapper counts calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ _ACTS = {"gelu": 0, "gelu_new": 1}
 _KERNEL_K = (128, 256, 384, 512, 768, 1024)
 _KERNEL_F_STEP = 32
 _SWIGLU_K = _KERNEL_K + (1536,)   # K9 also takes the DINOv2-giant width
-# K2, K6 and K5a run their rows in chunks of at most this many through a
-# bf16 (rows, F) workspace (and, for K2, a (rows, K) one for LN(x)), so the
-# workspace does not grow with M: 201 MB at F 3,072, 268 MB at F 4,096
+# K2, K6, K5a and K9 run their rows in chunks of at most this many through
+# a bf16 (rows, F) workspace (and, for K2 and K9, a (rows, K) one for
+# LN(x)), so the workspace does not grow with M: 201 MB at F 3,072, 268 MB
+# at F 4,096
 _CHUNK_ROWS = 32768
 _TILE_ROWS = 128   # the kernels' row tile
 
@@ -141,14 +144,25 @@ def _check_mlp_shape(k: int, f: int, act: str, name: str) -> None:
 
 
 def mlp_chunk_rows(m: int) -> int:
-    """Rows of one chunk of K2, K6 and K5a at M = m rows: all of them up
-    to `_CHUNK_ROWS`; past it, the fewest chunks of at most that many
+    """Rows of one chunk of K2, K6, K5a and K9 at M = m rows: all of them
+    up to `_CHUNK_ROWS`; past it, the fewest chunks of at most that many
     rows, of near-equal size and whole row tiles but the last."""
     if m <= _CHUNK_ROWS:
         return m
     chunks = -(-m // _CHUNK_ROWS)
     per = -(-m // chunks)
     return min(_CHUNK_ROWS, -(-per // _TILE_ROWS) * _TILE_ROWS)
+
+
+def _mlp_workspace(m: int, k: int, f: int, ln: bool, dev):
+    """(chunk, ws, xn) of a K2, K6, K5a or K9 launch over m rows: the
+    chunk's rows, the bf16 (chunk, f) workspace of the activation and,
+    with ln, the bf16 (chunk, k) one of LN(x); else xn is None."""
+    chunk = mlp_chunk_rows(m)
+    ws = torch.empty((chunk, f), dtype=torch.bfloat16, device=dev)
+    xn = (torch.empty((chunk, k), dtype=torch.bfloat16, device=dev)
+          if ln else None)
+    return chunk, ws, xn
 
 
 def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
@@ -180,10 +194,7 @@ def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
             raise ValueError(f"{name}: weights on {t.device}, x on {dev}")
     out = torch.empty((m, k), dtype=bf16, device=dev)
     h = torch.empty((m, f), dtype=bf16, device=dev) if spill else None
-    chunk = mlp_chunk_rows(m)
-    ws = torch.empty((chunk, f), dtype=bf16, device=dev)
-    xn = (torch.empty((chunk, k), dtype=bf16, device=dev)
-          if lnw is not None else None)
+    chunk, ws, xn = _mlp_workspace(m, k, f, lnw is not None, dev)
     rc = _build.lib().smb_mlp_fwd(
         x2.data_ptr(), _build.ptr(lnw), _build.ptr(lnb), w1t.data_ptr(),
         b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -317,15 +328,16 @@ def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
             raise ValueError(f"mlp_bwd: operands on {t.device}, h on "
                              f"{h.device}")
     bf16 = torch.bfloat16
-    # the kernel reads w1 and w2 in the JAX layouts (K, F) and (F, K); for
-    # a Linear's transposed views this is one copy of each weight
+    # the kernel reads the Linear layouts (F, K) and (K, F): for transposed
+    # views of a Linear's bf16 weights the conversion below copies nothing
     h, g2 = h.to(bf16).contiguous(), g2.to(bf16).contiguous()
-    w1, w2 = w1.to(bf16).contiguous(), w2.to(bf16).contiguous()
+    w1t = w1.to(bf16).t().contiguous()
+    w2t = w2.to(bf16).t().contiguous()
     dx = torch.empty((m, k), dtype=bf16, device=h.device)
     dh = torch.empty((m, f), dtype=bf16, device=h.device)
     a = torch.empty_like(dh)
     rc = _build.lib().smb_mlp_bwd(
-        h.data_ptr(), g2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        h.data_ptr(), g2.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
         dx.data_ptr(), dh.data_ptr(), a.data_ptr(), m, k, f, _ACTS[act],
         _build.stream_ptr(h.device))
     _build.check(rc, "mlp_bwd")
@@ -494,10 +506,12 @@ def _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps: float):
             raise ValueError(f"swiglu_block_fwd: weights on {t.device}, x on "
                              f"{dev}")
     out = torch.empty((m, k), dtype=bf16, device=dev)
+    chunk, ws, xn = _mlp_workspace(m, k, f, True, dev)
     rc = _build.lib().smb_swiglu_fwd(
         x2.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1t.data_ptr(),
         b_in.data_ptr(), w2t.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        m, k, f, float(eps), _build.stream_ptr(dev))
+        m, k, f, float(eps), _build.stream_ptr(dev), ws.data_ptr(),
+        xn.data_ptr(), chunk)
     _build.check(rc, "swiglu_block_fwd")
     swiglu_block_fused.launches += 1
     return out

@@ -268,12 +268,17 @@ def test_flash_bwd_kernel_matches_plain(cuda, nq, nk, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,f", [(100, 128, 512), (256, 768, 3072),
                                    (1, 1024, 4096), (129, 1024, 4096),
-                                   (63, 256, 160), (33792, 384, 1568)])
+                                   (63, 256, 160), (33792, 384, 1568),
+                                   (7168, 768, 3072), (20480, 384, 1536),
+                                   (9216, 1024, 4096), (1, 128, 96),
+                                   (129, 512, 96), (63, 768, 160)])
 def test_mlp_train_and_bwd_kernels_match_plain(cuda, m, k, f):
     """K5a (y and the spilled h) and K5b (dx, dh, a) against their plain
-    versions, on the same inputs, at the V-JEPA width K 1,024 and the
-    forward's edges; bound 3e-2 of max as the JAX package's
-    tests/test_mlp_bwd.py."""
+    versions, on the same inputs, both activations: at the MIM encoder's
+    and decoder's and the V-JEPA encoder's shapes and at the GEMM tiles'
+    edges (M 1, 63, 129 and 33,792; F 96 and 160, not multiples of the
+    64-column step, and 1,568); bound 3e-2 of max as the JAX package's
+    tests/test_mlp_bwd.py. One launch counted a call."""
     gen = torch.Generator(device=cuda).manual_seed(5)
 
     def r(*shape, s=1.0):
@@ -460,13 +465,18 @@ def _swiglu_inputs(m, k, f, gen, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,f", [(3922, 1536, 4096), (20480, 768, 2048),
-                                   (1961, 1536, 4096), (100, 128, 256)])
+                                   (1961, 1536, 4096), (100, 128, 256),
+                                   (1, 1536, 4096), (1, 128, 96),
+                                   (77, 384, 160), (130, 1536, 96),
+                                   (33792, 256, 160)])
 def test_swiglu_kernel_matches_plain(cuda, m, k, f):
     """K9 against its plain version (the kernel's numerics), against the
     JAX package's bf16 chain `_swiglu_block_xla` and against the same math
     in float32, within 8e-3 of max: DINOv2-giant at batch 2 and at its
-    ragged batch 1, the DINOv2-base shape the JAX package benchmarked, and
-    a small ragged one."""
+    ragged batch 1, the DINOv2-base shape the JAX package benchmarked, a
+    small ragged one, and the gated tile's edges (M 1, F 96 and 160, which
+    end each half of w_in inside a 64-row box, and two workspace chunks).
+    One launch counted a call."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     args = _swiglu_inputs(m, k, f, gen, cuda)
     before = M.swiglu_block_fused.launches

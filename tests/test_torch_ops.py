@@ -346,6 +346,24 @@ def test_mlp_chunk_rows(m):
         assert rows - (m - (chunks - 1) * rows) < 128 * chunks
 
 
+@pytest.mark.parametrize("m,k,f,ln", [(3922, 1536, 4096, True),
+                                      (1961, 1536, 4096, True),
+                                      (33792, 256, 160, True),
+                                      (81920, 768, 3072, False)])
+def test_mlp_workspace(m, k, f, ln):
+    """The workspaces the MLP wrappers hand K2, K6, K5a and K9: a bf16
+    (chunk, F) one for the activation (K9: the gate) and, with the
+    LayerNorm prologue, a bf16 (chunk, K) one for LN(x), where chunk is
+    mlp_chunk_rows(M), so neither grows past the cap."""
+    chunk, ws, xn = tmlp._mlp_workspace(m, k, f, ln, "cpu")
+    assert chunk == tmlp.mlp_chunk_rows(m) <= tmlp._CHUNK_ROWS
+    assert ws.shape == (chunk, f) and ws.dtype == torch.bfloat16
+    if ln:
+        assert xn.shape == (chunk, k) and xn.dtype == torch.bfloat16
+    else:
+        assert xn is None
+
+
 @pytest.mark.parametrize("channel_major", [True, False])
 def test_extract_patches_exact(channel_major):
     px = _rand(30, (2, 8, 3, 8, 12))
