@@ -9,22 +9,24 @@ attention and attention-glue paths, once on one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too, the kernels this tree did not
-change (the flash kernels, the MLP forward K2, K6 and K5a, and the glue
-kernels) are compared with it by SASS and bit for bit, and the flash, MLP,
-SwiGLU and glue kernels, legs A's and B's models and the MIM and V-JEPA
-steps are timed with either library in turns, in one process, and the
-DINOv2-giant step parity runs with either library at three seeds; the
-last line is the JSON of the mean times and the parity readings.
+change (the flash kernels and the MLP forward and backward kernels K2,
+K6, K5a, K9 and K5b) are compared with it by SASS and bit for bit, and the
+flash, MLP, SwiGLU and glue kernels, legs A's, B's and G's models and the
+MIM step (as shipped and with the glue) and V-JEPA step are timed with
+either library in turns, in one process, and the DINOv2-giant step parity
+runs with either library at three seeds; the last line is the JSON of the
+mean times and the parity readings.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
-     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the seven
-     GEMM instantiations of K2, K6, K5a, K9 and K5b in the SASS
-     (cuobjdump, where the toolkit has it): none of one that a kernel
-     should have fails the run (K3 and K7 need all three);
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the nine
+     GEMM instantiations of K2, K6, K5a, K9, K5b, K10a and K10b in the
+     SASS (cuobjdump, where the toolkit has it):
+     none of one that a kernel should have fails the run (K3 and K7 need
+     all three);
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
@@ -47,8 +49,10 @@ Phases of the run without arguments, each of which fails the run
      attention K8 at N 20,480 and ragged N 1,961 (timed beside K3 on the
      same inputs), and the attention glue K10a/K10b at the embed shape,
      the MIM encoder's and decoder's and a ragged one (timed beside their
-     library chains); each kept time with its bound and, where one exists,
-     the library call's;
+     library chains, with K10a's LayerNorm pass and GEMM timed apart, and
+     the glue's forward and backward in one block of the MIM step beside
+     the plain path's); each kept time with its bound and, where one
+     exists, the library call's;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -100,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib
 import json
 import math
@@ -410,7 +415,9 @@ def phase_device() -> str:
 # their passes in one kernel each; K2, K6, K5a and K9 are two products
 # each, mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K:
 # phase 1 with the spill of h for K5a, phase 2 with the residual for K2
-# and K9, phase 3 K9's gated phase 1; K5b is mlp_bwd_gemm_kernel<PHASE>),
+# and K9, phase 3 K9's gated phase 1, phase 4 (phase 2 with a TMA-loaded
+# residual) all of K10b; K5b is mlp_bwd_gemm_kernel<PHASE>; K10a's GEMM is
+# qkv_gemm_kernel),
 # and the SASS instructions that show they run on Hopper's warpgroup MMA,
 # bf16 (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without
 # one of its instructions fails the build phase
@@ -429,10 +436,11 @@ SM90_KERNELS.update({
                                 ("K5a phase 1", 1, 1),
                                 ("K6/K5a phase 2", 2, 0),
                                 ("K2/K9 phase 2", 2, 1),
-                                ("K9 phase 1", 3, 0))})
+                                ("K9 phase 1", 3, 0), ("K10b", 4, 1))})
 SM90_KERNELS.update({
     f"K5b phase {phase}": (f"mlp_bwd_gemm_kernelILi{phase}E",
                            ("HGMMA", "UTMALDG")) for phase in (1, 2)})
+SM90_KERNELS["K10a GEMM"] = ("qkv_gemm_kernel", ("HGMMA", "UTMALDG"))
 SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
 
 
@@ -1118,10 +1126,9 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
     return rates
 
 
-def kernel_split(label: str, fn, calls: int = 10) -> None:
-    """The mean device time of each kernel that `calls` calls of fn
-    launch, from the profiler: the passes of a kernel that launches
-    several apart."""
+def device_times(fn, calls: int = 10) -> list:
+    """[(kernel, launches a call, mean device ms a launch)] of the kernels
+    that `calls` calls of fn launch, from the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1131,12 +1138,22 @@ def kernel_split(label: str, fn, calls: int = 10) -> None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    out = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if us > 0:
-            log(f"split {label}: {ev.key[:72]} x{ev.count // calls} a call, "
-                f"{us / ev.count / 1e3:.4f} ms each (profiler)")
+            out.append((ev.key, ev.count // calls, us / ev.count / 1e3))
+    return out
+
+
+def kernel_split(label: str, fn, calls: int = 10) -> None:
+    """The mean device time of each kernel that `calls` calls of fn
+    launch, from the profiler: the passes of a kernel that launches
+    several apart."""
+    for key, count, ms in device_times(fn, calls):
+        log(f"split {label}: {key[:72]} x{count} a call, {ms:.4f} ms each "
+            f"(profiler)")
 
 
 def profile_call(fn, label: str, top: int = 8, watch: tuple = ()) -> None:
@@ -1410,7 +1427,7 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
                            step_generator(0, i))
 
         time_train_steps("MIM" + (" glue" if glue else ""), card, bs, flops,
-                         step, iters, watch=("glue_gemm",) if glue else ())
+                         step, iters, watch=GLUE_KERNELS if glue else ())
         del model, init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
@@ -1859,6 +1876,9 @@ GLUE_SHAPES = ((MAIN_N, HIDDEN, "embed"), (ENC_N, HIDDEN, "MIM encoder"),
                (MAIN_N, DEC_HIDDEN, "MIM decoder"),
                (2 * DINO_N, VJ_HIDDEN, "ragged"))
 K8_RAGGED_N = 1961
+# the glue kernels in a profile: K10a's LayerNorm pass and GEMM, and K10b
+GLUE_KERNELS = ("qkv_ln_rows_kernel", "qkv_gemm_kernel",
+                "mlp_gemm_kernel<4, true>")
 
 
 def phase_glue_kernels(table: dict, gen, dev) -> None:
@@ -1869,8 +1889,12 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
     kernels' numerics) at the embed shape, the MIM encoder's and decoder's
     and a ragged one, timed beside their plain versions and the library
     chain: F.layer_norm + one F.linear on the stacked (3K, K) weight for
-    K10a, torch.addmm(res, y, Wo) + bo for K10b (two calls each). The table
-    keeps the embed shape's times."""
+    K10a, torch.addmm(res, y, Wo) + bo for K10b (two calls each), with
+    each pass's device time (`split` lines: K10a's LayerNorm pass and
+    GEMM apart) and their sum's TFLOP/s and share of bound at each shape.
+    The table keeps the embed shape's times. Then the glue's forward and
+    backward in one block of the MIM step at batch 2 beside the shipped
+    path's (`glue_block_ms`)."""
     import torch
     import torch.nn.functional as F
 
@@ -1903,6 +1927,10 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
                       4 * n * HEADS * HEAD_DIM * 2, int8_ops=2 * ops)
         del q, k, v, q8, k8, v8, out
 
+    for name in (*GLUE_KERNELS[:2], SM90_KERNELS["K10b"][0]):
+        for line in ptxas_report(name):
+            log(f"  glue ptxas: {line}")
+
     def r(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device=dev) * s
 
@@ -1924,11 +1952,11 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
         check_kernel(table, "out_res_fwd", what, o,
                      G._out_res_plain(x, y, ws[3], bs[3]), TOL_GLUE)
         keep = label == "embed"
-        time_kernel(table, "qkv_ln_fwd", what,
-                    lambda: G.qkv_ln_fused(*qkv_args, eps=1e-6),
+        qkv_fn = functools.partial(G.qkv_ln_fused, *qkv_args, eps=1e-6)
+        out_fn = functools.partial(G.out_res_fused, x, y, ws[3], bs[3])
+        time_kernel(table, "qkv_ln_fwd", what, qkv_fn,
                     lambda: G._qkv_ln_plain(*qkv_args, 1e-6), 20, keep)
-        time_kernel(table, "out_res_fwd", what,
-                    lambda: G.out_res_fused(x, y, ws[3], bs[3]),
+        time_kernel(table, "out_res_fwd", what, out_fn,
                     lambda: G._out_res_plain(x, y, ws[3], bs[3]), 20, keep)
         w3 = torch.cat(lin[:3])
         b3 = torch.cat(bs[:3]).to(torch.bfloat16)
@@ -1941,15 +1969,80 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
         log(f"time library chains {what}: F.layer_norm + F.linear(3K x K) "
             f"{lib_qkv:.3f} ms, torch.addmm + bias {lib_out:.3f} ms (two "
             f"calls each, CUDA events)")
-        if keep:
-            table["qkv_ln_fwd"]["library_ms"] = lib_qkv
-            table["out_res_fwd"]["library_ms"] = lib_out
-            act = m * kd * 2
-            set_bound(table, "qkv_ln_fwd", what, 2 * m * kd * 3 * kd,
-                      4 * act + 3 * kd * kd * 2 + 5 * kd * 4)
-            set_bound(table, "out_res_fwd", what, 2 * m * kd * kd,
-                      3 * act + kd * kd * 2 + kd * 4)
-        del x, y, got, want, o, qkv_args
+        act = m * kd * 2
+        work = {"qkv_ln_fwd": (2 * m * kd * 3 * kd,
+                               4 * act + 3 * kd * kd * 2 + 5 * kd * 4),
+                "out_res_fwd": (2 * m * kd * kd,
+                                3 * act + kd * kd * 2 + kd * 4)}
+        for name, fn, lib in (("qkv_ln_fwd", qkv_fn, lib_qkv),
+                              ("out_res_fwd", out_fn, lib_out)):
+            flops, nbytes = work[name]
+            passes = device_times(fn)
+            for key, count, ms in passes:
+                log(f"split {name} {what}: {key[:60]} x{count} a call, "
+                    f"{ms:.4f} ms each (profiler)")
+            ms = sum(count * ms for _, count, ms in passes)
+            bound = max(flops / PEAK_BF16, nbytes / HBM_BYTES) * 1e3
+            log(f"rate {name:<16} {what}: device {ms:.4f} ms, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.2f} "
+                f"TB/s, {bound / ms:.1%} of bound {bound:.4f} ms, "
+                f"{ms / lib:.2f}x the chain's time (profiler)")
+            if keep:
+                table[name]["library_ms"] = lib
+                set_bound(table, name, what, flops, nbytes)
+        del x, y, got, want, o, qkv_args, qkv_fn, out_fn
+    for m, kd, label in ((2 * ENC_N, HIDDEN, "MIM encoder"),
+                         (2 * MAIN_N, DEC_HIDDEN, "MIM decoder")):
+        glue_block_ms(f"{label} batch 2 M={m} K={kd}", m, kd, r)
+
+
+def glue_block_ms(what: str, m: int, kd: int, r) -> None:
+    """The attention glue of one block as the MIM step runs it, around a
+    stand-in y for the attention's output, from f32 Linear weights cast to
+    bf16 each call: through K10a/K10b as `Attention.glue_forward` calls
+    them (whose backward recomputes the plain composition) and through the
+    shipped path's ops (LayerNorm: F.layer_norm in f32; Linear: F.linear
+    in bf16; the residual add). Logs each one's device time (profiler,
+    the sum over its kernels) forward alone and forward + backward; under
+    remat a step runs the forward twice and the backward once, so the
+    glue's device time a block is 2 fwd + bwd."""
+    import torch
+    import torch.nn.functional as F
+
+    from smb_vision_tpu_torch.ops import attn_glue as G
+
+    bf = torch.bfloat16
+    x, y = r(m, kd).to(bf), r(m, kd).to(bf)
+    lnw, lnb = 1.0 + r(kd, s=0.1), r(kd, s=0.1)
+    lins = [r(kd, kd, s=kd ** -0.5) for _ in range(4)]
+    bs = [r(kd, s=0.1) for _ in range(4)]
+    leaves = [x, y, lnw, lnb, *lins, *bs]
+    for t in leaves:
+        t.requires_grad_()
+    gs = [r(m, kd).to(bf) for _ in range(4)]
+
+    def glue():
+        wq, wk, wv, wo = (w.to(bf).t() for w in lins)
+        return (*G.qkv_ln_forward(x, lnw, lnb, wq, bs[0], wk, bs[1], wv,
+                                  bs[2], eps=1e-6, impl="pallas"),
+                G.attn_out_residual(x, y, wo, bs[3], impl="pallas"))
+
+    def shipped():
+        xn = F.layer_norm(x.float(), (kd,), lnw, lnb, 1e-6).to(bf)
+        return (*(F.linear(xn, w.to(bf), b.to(bf))
+                  for w, b in zip(lins[:3], bs[:3])),
+                x + F.linear(y, lins[3].to(bf), bs[3].to(bf)))
+
+    got = {}
+    for name, fn in (("glue", glue), ("shipped", shipped)):
+        fwd = sum(n * ms for _, n, ms in device_times(fn, 5))
+        both = sum(n * ms for _, n, ms in device_times(
+            lambda: torch.autograd.grad(fn(), leaves, gs), 5))
+        got[name] = (fwd, both, 2 * fwd + both - fwd)
+    log(f"glue block {what}: device ms forward {got['glue'][0]:.3f} "
+        f"(shipped {got['shipped'][0]:.3f}), forward + backward "
+        f"{got['glue'][1]:.3f} ({got['shipped'][1]:.3f}), a remat step's "
+        f"{got['glue'][2]:.3f} ({got['shipped'][2]:.3f}) (profiler)")
 
 
 def dinov2_batch(bs: int, seed: int, dev):
@@ -2234,10 +2327,10 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
 # K3, K4, K7 and K8 by a part of their mangled names (this tree's, the
-# other's), and every kernel of the MLP forward and glue sources (K2, K6,
-# K5a and their LayerNorm pass, K10a, K10b) by its whole name, but the
-# kernels this tree adds there (K9's gated product and its LayerNorm pass
-# at K 1,536, NEW_KERNELS); K5b and K9 are the ones this tree changes
+# other's), and every kernel of the MLP forward and backward sources (K2,
+# K6, K5a, K9 and their LayerNorm pass, K5b) by its whole name, but the
+# kernel this tree adds there (K10b, NEW_KERNELS); K10a and K10b are the
+# ones this tree changes
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (64, 128)
              for k, this, other in (
@@ -2251,8 +2344,8 @@ UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
                   "flash_bwd_i8_sm90_kernelILi{d}EE"),
                  ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
                   "flash_fwd_i8pv_kernelILi{d}EE"))}
-UNCHANGED_SOURCES = ("mlp_fwd_cu", "attn_glue_cu")
-NEW_KERNELS = ("mlp_gemm_kernelILi3E", "ln_rows_kernelILi1536E")
+UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu")
+NEW_KERNELS = ("mlp_gemm_kernelILi4E",)
 
 
 def _anon(name: str) -> str:
@@ -2276,8 +2369,8 @@ def compare_sass(sass: dict) -> None:
             and not any(new in fn for new in NEW_KERNELS)}
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
-    log(f"against: SASS of the MLP forward and glue kernels (K2, K6, K5a, "
-        f"K10a, K10b): {len(same)} of {len(this)} functions identical"
+    log(f"against: SASS of the MLP forward and backward kernels (K2, K6, "
+        f"K5a, K9, K5b): {len(same)} of {len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
@@ -2285,11 +2378,11 @@ def compare_sass(sass: dict) -> None:
 def unchanged_outputs(dev) -> list:
     """The outputs of the UNCHANGED kernels on seeded inputs: K1, K3 and
     K8 at d 64 and 128, K4 at the MIM encoder's shape, K7 at the V-JEPA
-    encoder's, and K2, K6, K5a and the glue kernels at the embed shape."""
+    encoder's, K2, K6 and K5a at the embed shape, K5b at the MIM
+    encoder's and K9 at DINOv2-giant batch 1."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
-    from smb_vision_tpu_torch.ops import attn_glue as G
     from smb_vision_tpu_torch.ops import mlp as M
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -2319,10 +2412,13 @@ def unchanged_outputs(dev) -> list:
     outs += [M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=1e-6),
              M.mlp_fused(x, w1, b1, w2, b2),
              *M.mlp_train_fused(x, w1, b1, w2, b2)]
-    ws = [r(HIDDEN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t() for _ in range(4)]
-    bs = [r(HIDDEN, s=0.1) for _ in range(4)]
-    qkv = G.qkv_ln_fused(x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
-    outs += [*qkv, G.out_res_fused(x, qkv[2], ws[3], bs[3])]
+    _, h = M._mlp_train_plain(x[:ENC_N], w1, b1, w2, b2, "gelu")
+    outs += M.mlp_bwd_fused(h, x[:ENC_N], w1, w2)
+    k, f = GIANT_K, GIANT_F
+    outs.append(M.swiglu_block_fused(
+        r(DINO_N, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
+        r(2 * f, k, s=k ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
+        r(k, f, s=f ** -0.5, dtype=bf).t(), r(k, s=0.1), eps=1e-6))
     return outs
 
 
@@ -2408,21 +2504,23 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
     wrappers call either library. The kernels that must match the other's
-    (UNCHANGED: the flash kernels, the MLP forward K2, K6, K5a and the
-    glue kernels) are compared by SASS and by output, bit for bit; then,
-    in turns (other, this, this, other a round), the flash kernels at
-    their table shapes (K3 at d 64 and 128, K7 at the V-JEPA encoder's and
-    the reference head's), the MLP family (K2 and K6 at the embed shape,
-    K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's, K5b at
-    the MIM encoder's and decoder's and the V-JEPA encoder's), K9 at
-    DINOv2-giant batch 2 and 1, the glue kernels, legs A's and B's models
-    (bf16 and int8 encoders, batch 4), the MIM step of the preset at batch
-    1 and 2 and the V-JEPA step of its preset at batch 1 and 2 are timed.
-    K9's wrapper passes its workspace after the arguments of the parent's
-    `smb_swiglu_fwd`, which takes none and runs without it. K5b's C
-    interface now takes the weights in their Linear layouts, so the
-    parent's K5b reads the same bytes in its JAX layouts: the same work,
-    timed and not compared. Then the DINOv2-giant step parity
+    (UNCHANGED: the flash kernels and the MLP forward and backward K2,
+    K6, K5a, K9 and K5b) are compared by SASS and by output, bit for bit;
+    then, in turns (other, this, this, other a round), the flash kernels
+    at their table shapes (K3 at d 64 and 128, K7 at the V-JEPA encoder's
+    and the reference head's), the MLP family (K2 and K6 at the embed
+    shape, K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's,
+    K5b at the MIM encoder's and decoder's and the V-JEPA encoder's), K9
+    at DINOv2-giant batch 2 and 1, the glue kernels K10a and K10b at the
+    embed shape, the MIM encoder's and decoder's, legs A's, B's and G's
+    models (bf16, int8 and int8 p v + glue encoders, batch 4), the MIM
+    step of the preset at batch 1 and 2, as shipped and with glue_impl
+    "pallas", and the V-JEPA step of its preset at batch 1 and 2 are
+    timed; beside any run that a Python garbage collection of more than
+    10 ms interrupted, the log gives the collections' host time. K10a's
+    wrapper passes its workspace after the arguments of the parent's
+    `smb_qkv_ln_fwd`, which takes none and runs without it. Then
+    the DINOv2-giant step parity
     (`dinov2_parity`) with either library at each of DINO_PARITY_SEEDS,
     recorded and not held to its bound. Last, each checkout's peak device
     memory (`peak_memory_mib`) with its own package, in a process of its
@@ -2451,8 +2549,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         _build._lib = handle
         outs[side] = unchanged_outputs(dev)
     same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K10a and "
-        f"K10b bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
+    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K5b and K9 "
+        f"bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
         f"tensors)")
     del outs
 
@@ -2490,9 +2588,20 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     _, ch = M._mlp_train_plain(cx, cw1, cb1, cw2, cb2, "gelu")
     gx, glnw, glnb, gw1, gb1, gw2, gb2 = mlp(2 * DINO_N, GIANT_K, 2 * GIANT_F)
     gw2 = gw2[:GIANT_F]
-    gws = [mw1[:, :HIDDEN].contiguous() for _ in range(4)]
-    gbs = [mb2 for _ in range(4)]
-    qkv = G.qkv_ln_fused(mx, mlnw, mlnb, *gws[:3], *gbs[:3], eps=1e-6)
+
+    def glue(m, kd):
+        """x, y, LN params, (in, out) views of Linear-layout bf16 weights
+        (as the Block passes them) and f32 biases of K10a and K10b."""
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+
+        bf = torch.bfloat16
+        return (r(m, kd).to(bf), r(m, kd).to(bf), 1.0 + r(kd, s=0.1),
+                r(kd, s=0.1), [r(kd, kd, s=kd ** -0.5).to(bf).t()
+                               for _ in range(4)],
+                [r(kd, s=0.1) for _ in range(4)])
+
+    glues = {label: glue(m, kd) for m, kd, label in GLUE_SHAPES[:3]}
 
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = [torch.rand((4, 320, 1, 512, 512), generator=gen, device=dev)
@@ -2503,10 +2612,13 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         intermediate_size=FFN, dtype="bfloat16", **impls)).init_weights(
             torch.Generator().manual_seed(0)).to(dev).eval()
         for leg, impls in (("A", {}), ("B", dict(attn_impl="pallas_int8",
-                                                 mlp_impl="pallas_bwd")))}
-    cfg, preset = mim_config()
+                                                 mlp_impl="pallas_bwd")),
+                           ("G", dict(attn_impl="pallas_int8pv",
+                                      glue_impl="pallas")))}
     mim = {}
-    for bs in (1, 2):
+    for bs, glue_step in ((1, False), (2, False), (1, True), (2, True)):
+        cfg, preset = mim_config(
+            **({"glue_impl": "pallas"} if glue_step else {}))
         _, init_fn, step_fn, _ = make_mim_workload(
             cfg, mask_patch_size=preset["mask_patch_size"],
             mask_ratio=preset["mask_ratio"], tx=functools.partial(
@@ -2514,10 +2626,11 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
                 total_steps=100, warmup_ratio=preset["warmup_ratio"],
                 weight_decay=preset["weight_decay"]), device=dev)
         gen = torch.Generator(device=dev).manual_seed(3)
-        mim[bs] = (init_fn(0), step_fn, [
-            torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
-                        cfg.image_size), generator=gen, device=dev)
-            for _ in range(4)])
+        mim[f"MIM{' glue' if glue_step else ''} step batch {bs}"] = (
+            init_fn(0), step_fn,
+            [torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
+                         cfg.image_size), generator=gen, device=dev)
+             for _ in range(4)])
     vcfg, vpreset = vjepa_config()
     _, vinit, vstep, _ = vjepa_workload(vcfg, vpreset, dev,
                                         vpreset["teacher_attn_impl"])
@@ -2564,36 +2677,54 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             gx, glnw, glnb, gw1, gb1, gw2, gb2, eps=1e-6),
         "K9 DINOv2-giant batch 1": lambda: M.swiglu_block_fused(
             gx[:DINO_N], glnw, glnb, gw1, gb1, gw2, gb2, eps=1e-6),
-        "K10a embed": lambda: G.qkv_ln_fused(mx, mlnw, mlnb, *gws[:3],
-                                             *gbs[:3], eps=1e-6),
-        "K10b embed": lambda: G.out_res_fused(mx, qkv[2], gws[3], gbs[3]),
     }
+    for label, (x, y, lnw, lnb, ws, bs) in glues.items():
+        probes[f"K10a {label}"] = functools.partial(
+            G.qkv_ln_fused, x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
+        probes[f"K10b {label}"] = functools.partial(
+            G.out_res_fused, x, y, ws[3], bs[3])
     times = {side: {} for side in libs}
+    gc_ms = {side: {} for side in libs}
+    pauses = []
+
+    def gc_pause(phase, info):
+        """The host time of each Python garbage collection (its start and
+        end times, the start negated)."""
+        pauses.append(time.perf_counter() * (-1 if phase == "start" else 1))
+
+    def record(side, key, measure):
+        pauses.clear()
+        times[side].setdefault(key, []).append(measure())
+        gc_ms[side].setdefault(key, []).append(sum(pauses) * 1e3)
+
+    gc.callbacks.append(gc_pause)
     for r in range(rounds):
         for side in ("other", "this", "this", "other"):
             _build._lib = libs[side]
-            got = times[side]
             for name, fn in probes.items():
-                got.setdefault(name + " ms", []).append(cuda_ms(fn, iters=10))
+                record(side, name + " ms", lambda: cuda_ms(fn, iters=10))
             for leg in models:
-                got.setdefault(f"leg {leg} vol/s", []).append(
-                    4 * 3 * 1e3 / cuda_ms(lambda: encode(leg), iters=1,
-                                          warmup=1))
+                record(side, f"leg {leg} vol/s", lambda: 4 * 3 * 1e3
+                       / cuda_ms(lambda: encode(leg), iters=1, warmup=1))
+            for name, work in mim.items():
+                record(side, f"{name} ms", lambda: cuda_ms(
+                    lambda: steps(*work), iters=1, warmup=1) / 3)
             for bs in (1, 2):
-                got.setdefault(f"MIM step batch {bs} ms", []).append(
-                    cuda_ms(lambda: steps(*mim[bs]), iters=1, warmup=1) / 3)
-            for bs in (1, 2):
-                got.setdefault(f"V-JEPA step batch {bs} ms", []).append(
-                    cuda_ms(lambda: steps(*vjepa[bs]), iters=1, warmup=1)
-                    / 3)
+                record(side, f"V-JEPA step batch {bs} ms", lambda: cuda_ms(
+                    lambda: steps(*vjepa[bs]), iters=1, warmup=1) / 3)
+    gc.callbacks.remove(gc_pause)
     _build._lib = libs["this"]
     means = {side: {k: sum(v) / len(v) for k, v in got.items()}
              for side, got in times.items()}
     for key in means["this"]:
+        slow = {side: [round(x) for x in gc_ms[side][key]] for side in libs
+                if max(gc_ms[side][key]) > 10}
         log(f"against {key:<26} other {means['other'][key]:9.3f}  this "
             f"{means['this'][key]:9.3f}  (runs: other "
             f"{[round(x, 3) for x in times['other'][key]]}, this "
-            f"{[round(x, 3) for x in times['this'][key]]}) on {card}")
+            f"{[round(x, 3) for x in times['this'][key]]}"
+            + (f"; garbage-collection ms in them: {slow}" if slow else "")
+            + f") on {card}")
     del models, mim, vjepa, vstate
     torch.cuda.empty_cache()
     for seed in DINO_PARITY_SEEDS:

@@ -1,4 +1,5 @@
-// Attention half-block glue for Hopper (sm_90a): kernels K10a and K10b.
+// Attention half-block glue for Hopper (sm_90a): kernels K10a and K10b, on
+// wgmma and TMA (the GEMM core of gemm_sm90.cuh).
 //
 // Replaces
 //   K10a smb_vision_tpu/ops/attn_glue.py:_qkv_ln_kernel
@@ -7,328 +8,270 @@
 //        o = res + y Wo + bo     (LayerScale folded into Wo, bo by the caller)
 //
 // Numerics as the TPU kernels: LayerNorm statistics in f32 with var =
-// E[x^2] - mean^2, xn = (x - mean) * rsqrt(var + eps) * lnw + lnb rounded to
-// bf16; bf16 operands, f32 accumulation, the f32 bias (and for K10b the
-// residual) added in f32, one rounding to bf16.
+// E[x^2] - mean^2 (one pass; mlp_fwd.cu's K2 takes two), xn = (x - mean) *
+// rsqrt(var + eps) * lnw + lnb rounded to bf16; bf16 operands, f32
+// accumulation, the f32 bias (and for K10b the residual) added in f32, one
+// rounding to bf16.
 //
 // Bound on the H100: K10a by operations, 2*M*K*3K (0.073 ms at M 20,480, K
-// 768); K10b by bytes, res, y and o (3*M*K*2) plus Wo (0.029 ms at the same
-// shape). The TPU kernels kept all three (K, K) weights resident in VMEM
-// and streamed rows; a block here cannot (64 x 3K f32 accumulators are far
-// beyond its registers), so both are one tiled GEMM:
-//   - one block = 8 warps computes BM x 128 output tiles (BM 64, or 32 for
-//     K past 1,280); warp (wm, wn) of the 2 x 4 grid owns BM/2 x 32 of a
-//     tile, in mma.sync m16n8k16 (bf16) fragments kept in registers;
-//   - the weights come in PyTorch's Linear layout (out, in), row-major:
-//     exactly the "col" B operand of the mma, so their rows load by
-//     ldmatrix without a transpose, and three separate tensors serve as q,
-//     k, v (K % 128 == 0, so a 128-column tile lies in one of them);
-//   - K10a normalises its BM rows in a prologue (f32 statistics, xn in bf16
-//     in shared memory: BM x K, 96 KB at K 768), then walks the K/128
-//     column tiles of one of q, k, v, so LN runs three times a row; K10b
-//     (no prologue, 83 KB, two blocks an SM) takes one tile a block;
-//   - the weight tiles (and for K10b the y tile) stream in 64-deep K chunks
-//     through a 3-stage cp.async ring that runs on across a block's tiles,
-//     one barrier a chunk;
-//   - epilogue: + bias [+ residual of the same rows] in f32, bf16 store.
-// Rows are padded by 16 bytes in shared memory so the 8 row addresses of an
-// ldmatrix hit distinct banks. Ragged M: rows past M load as zero and are
-// not stored. Not yet done (later work): wgmma, TMA, a persistent grid.
+// 768, at 989 TFLOP/s); K10b by bytes, res, y and o (3*M*K*2) plus Wo
+// (0.029 ms at the same shape, at 3.35 TB/s). What holds them there on an
+// H100 (chip_smoke.py; PERF.md has the times): K10a takes 0.17 ms, its
+// GEMM at about 545 TFLOP/s (the GEMM core's rate) after an LN pass that
+// moves its 63 MB at about 2.7 TB/s; K10b takes 0.06 ms, moving its bytes
+// at about 1.8 TB/s, its 12 k-steps a tile too few to hide the epilogue.
+//
+// The TPU kernels kept all three (K, K) weights resident in VMEM and
+// streamed rows, normalising each row block once. On Hopper a block cannot
+// hold the 3K output columns of its rows (128 x 2,304 f32 at K 768 is 1.2
+// MB), so each kernel is a tiled GEMM over 128 x 128 output tiles, two
+// blocks an SM, so that one block's epilogue runs under the other's
+// products (only K/64 k-steps a tile: 12 at K 768):
+//   K10a = a LayerNorm row pass + one GEMM over N = 3K columns.
+//     1. qkv_ln_rows_kernel writes xn = LN(x) in bf16 to the caller's
+//        workspace, one warp a row, a runtime loop over the row past K
+//        1,024 (so any K that is a multiple of 128 runs), so LN runs once
+//        a row;
+//     2. qkv_gemm_kernel: column tile t of 3K/128 lies in one of Wq, Wk, Wv
+//        (K % 128 == 0); the tile selects its B tensor map, its bias and its
+//        output map (selects of the __grid_constant__ parameters' addresses:
+//        an array of them indexed at run time would be copied to the
+//        stack). A is xn; B is the Linear weight (out, in) as it stands,
+//        K-major, so no weight is copied. The epilogue adds the f32 bias,
+//        rounds once and TMA-stores into q, k or v. Column tiles run
+//        fastest in the grid, so the 3K/128 blocks of a row tile read its
+//        xn from L2.
+//     The host walks the rows in chunks of the workspace's rows (the
+//     wrapper sizes it), so the workspace does not grow with M.
+//   K10b = K2's second product with the residual's tile loaded by TMA
+//     (mlp_fwd.cu, mlp_gemm_kernel<4, true>, through smb_gemm_residual): y
+//     Wo^T over K; once it has issued the last k-step, the producer loads
+//     the block's 128 x 128 tile of the residual into the ring stage the
+//     products free, and the epilogue adds bo and the residual in f32 and
+//     stages the result over it. (Read from global memory in the epilogue,
+//     as K2 reads it, the residual made K10b 1.1-1.5x slower on an H100:
+//     PERF.md.)
+// Ragged M reads as zero through TMA and is not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "ptx.cuh"
+#include "gemm_sm90.cuh"
+
+// mlp_fwd.cu: out = res + a b^T + bias, K2's second product
+cudaError_t smb_gemm_residual(const void* a, const void* b, const float* bias,
+                              const void* res, void* out, int rows, int n,
+                              int kdim, cudaStream_t stream);
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBN = 128;    // output columns per block
-constexpr int kKC = 64;     // K depth per ring stage
-constexpr int kStages = 3;  // ring stages: kStages - 1 copies in flight
-constexpr int kRS = kKC + 8;  // padded row of a ring tile (elements)
+constexpr int kLnWarps = 8;
+constexpr int kLnKeep = 4;  // 8-column chunks a lane keeps: a row to K 1,024
 
-struct GlueParams {
-  const __nv_bfloat16* a;      // x (K10a) or y (K10b), (M, K)
-  const float* lnw;            // (K,) K10a only
-  const float* lnb;
-  const __nv_bfloat16* w[3];   // (K, K) each, (out, in) row-major
-  const float* bias[3];        // (K,) each
-  const __nv_bfloat16* res;    // (M, K), K10b only
-  __nv_bfloat16* out[3];       // (M, K) each
-  int M, K;
-  int tiles_per_block;         // 128-column tiles a block walks
-  float eps;
+__device__ __forceinline__ void ln_sums(const uint4& raw, float& sum,
+                                        float& sq) {
+  const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float v = __bfloat162float(e8[e]);
+    sum += v;
+    sq += v * v;
+  }
+}
+
+// the 8 columns 8c .. 8c + 7 of a row, normalised and rounded to bf16
+// (lnw, lnb 16-byte aligned: two float4 loads each)
+__device__ __forceinline__ uint4 ln_norm(const uint4& raw, int c,
+                                         const float* lnw, const float* lnb,
+                                         float mean, float rstd) {
+  const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  const float4* w4 = reinterpret_cast<const float4*>(lnw) + 2 * c;
+  const float4* b4 = reinterpret_cast<const float4*>(lnb) + 2 * c;
+  const float4 wb[4] = {w4[0], w4[1], b4[0], b4[1]};
+  const float* w = &wb[0].x;
+  __align__(16) __nv_bfloat16 o8[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    o8[e] = __float2bfloat16((__bfloat162float(e8[e]) - mean) * rstd * w[e] +
+                             w[8 + e]);
+  return *reinterpret_cast<const uint4*>(o8);
+}
+
+// xn = LN(x) rounded to bf16, one warp a row, one-pass f32 statistics. A
+// lane keeps its first kLnKeep chunks of 8 columns in registers, so their
+// loads issue together, and reads any further ones twice (the second time
+// from L1), so any K that is a multiple of 8 runs.
+__global__ void __launch_bounds__(kLnWarps * 32)
+    qkv_ln_rows_kernel(const __nv_bfloat16* x, const float* lnw,
+                       const float* lnb, __nv_bfloat16* xn, int rows, int K,
+                       float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  uint4* out = reinterpret_cast<uint4*>(xn + row * K);
+  const int chunks = K / 8;
+  uint4 keep[kLnKeep];
+#pragma unroll
+  for (int i = 0; i < kLnKeep; ++i)
+    if (lane + 32 * i < chunks) keep[i] = xr[lane + 32 * i];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLnKeep; ++i)
+    if (lane + 32 * i < chunks) ln_sums(keep[i], sum, sq);
+  for (int c = lane + 32 * kLnKeep; c < chunks; c += 32)
+    ln_sums(xr[c], sum, sq);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float mean = sum / K;
+  const float rstd = rsqrtf(sq / K - mean * mean + eps);
+#pragma unroll
+  for (int i = 0; i < kLnKeep; ++i) {
+    const int c = lane + 32 * i;
+    if (c < chunks) out[c] = ln_norm(keep[i], c, lnw, lnb, mean, rstd);
+  }
+  for (int c = lane + 32 * kLnKeep; c < chunks; c += 32)
+    out[c] = ln_norm(xr[c], c, lnw, lnb, mean, rstd);
+}
+
+struct QkvEpi {
+  const float* bq;  // (K,) each
+  const float* bk;
+  const float* bv;
+  int rows, K;
 };
 
-template <int BM, bool LN>
-struct GlueSmem {
-  static constexpr int W_ELEMS = kBN * kRS;
-  static constexpr int A_ELEMS = LN ? 0 : BM * kRS;
-  static constexpr int STAGE = W_ELEMS + A_ELEMS;
-  // K10a's xn (BM x (K + 8)) follows the ring
-  static constexpr int RING_BYTES = kStages * STAGE * 2;
-  static int bytes(int K) { return RING_BYTES + (LN ? BM * (K + 8) * 2 : 0); }
-};
+// tile (blockIdx.x, blockIdx.y) of [q | k | v] = xn [Wq | Wk | Wv]^T + b:
+// ta maps xn (rows, K), tq/tk/tv the Linear weights (K, K), oq/ok/ov the
+// outputs (rows, K)
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    qkv_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap oq,
+                    const __grid_constant__ CUtensorMap ok,
+                    const __grid_constant__ CUtensorMap ov, const int ksteps,
+                    const QkvEpi e) {
+  extern __shared__ char smem_raw[];
+  const GemmSmem s = gemm_smem_init(smem_raw);
+  const int tiles = e.K / kGemmBN;  // column tiles of each of q, k, v
+  const int which = blockIdx.x / tiles;
+  const int n0 = (blockIdx.x - which * tiles) * kGemmBN;
+  const int m0 = blockIdx.y * kGemmBM;
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers)
+      gemm_produce(s, &ta, which == 0 ? &tq : which == 1 ? &tk : &tv, m0, n0,
+                   ksteps);
+    return;
+  }
+  const int cw = threadIdx.x / kWG;
+  float acc[kGemmAcc];
+  gemm_consume(s, acc, cw, ksteps);
 
-template <int BM, bool LN>
-__global__ void __launch_bounds__(kThreads, 1)
-    glue_gemm_kernel(const GlueParams p) {
-  using S = GlueSmem<BM, LN>;
-  constexpr int WM = BM / 2;   // rows per warp
-  constexpr int MT = WM / 16;  // m16 tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* xn =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + S::RING_BYTES);
-
-  const int K = p.K;
-  const int XS = K + 8;  // xn row stride (elements)
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  gemm_release_ring();
+  char* stage = s.ring + cw * kGemmHalf;
+  const float* bias = (which == 0 ? e.bq : which == 1 ? e.bk : e.bv) + n0;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  // the block's tiles: tpb consecutive 128-column tiles of one weight
-  const int tpb = p.tiles_per_block;
-  const int ct0 = blockIdx.x * tpb;           // first column tile over nw * K
-  const int which = ct0 * kBN / K;            // q, k or v (K10a)
-  const int col00 = ct0 * kBN - which * K;    // its first column
-  const long long m0 = (long long)blockIdx.y * BM;
-  // selects, not p.w[which]: a dynamic index would copy the parameter
-  // arrays to the stack
-  const __nv_bfloat16* wb = which == 0 ? p.w[0] : which == 1 ? p.w[1] : p.w[2];
-  const int nchunks = K / kKC;
-  const int nitems = tpb * nchunks;           // ring items: (tile, chunk)
-
-  auto issue = [&](int v) {
-    if (v < nitems) {
-      __nv_bfloat16* dst = ring + (v % kStages) * S::STAGE;
-      const int k0 = (v % nchunks) * kKC;
-      const __nv_bfloat16* wt =
-          wb + (long long)(col00 + (v / nchunks) * kBN) * K + k0;
-      for (int e = tid; e < kBN * (kKC / 8); e += kThreads) {
-        const int r = e / (kKC / 8), col = (e % (kKC / 8)) * 8;
-        cp_async16(dst + r * kRS + col, wt + (long long)r * K + col, 16);
-      }
-      if constexpr (!LN) {
-        __nv_bfloat16* ad = dst + S::W_ELEMS;
-        for (int e = tid; e < BM * (kKC / 8); e += kThreads) {
-          const int r = e / (kKC / 8), col = (e % (kKC / 8)) * 8;
-          const bool ok = m0 + r < p.M;
-          cp_async16(ad + r * kRS + col,
-                     ok ? p.a + (m0 + r) * K + k0 + col : p.a, ok ? 16 : 0);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  for (int i = 0; i < kStages - 1; ++i) issue(i);
-
-  if constexpr (LN) {
-    // prologue: xn = LN(x) for the block's rows, BM / 8 rows per warp; the
-    // weight copies above are in flight meanwhile
-    for (int rr = 0; rr < BM / kWarps; ++rr) {
-      const int r = warp * (BM / kWarps) + rr;
-      const long long row = m0 + r;
-      const bool ok = row < p.M;
-      const __nv_bfloat16* xr = p.a + row * K;
-      float sum = 0.f, sq = 0.f;
-      if (ok) {
-        for (int c = lane; c < K / 8; c += 32) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
-          const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float v = __bfloat162float(e8[e]);
-            sum += v;
-            sq += v * v;
-          }
-        }
-      }
+  for (int j = 0; j < kGemmBN / 8; ++j) {
+    const int c = 8 * j + 2 * t;  // K % 128 == 0: every column is in
+    const float b0 = bias[c], b1 = bias[c + 1];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      }
-      const float mean = sum / K;
-      const float rstd = rsqrtf(sq / K - mean * mean + p.eps);
-      for (int c = lane; c < K / 8; c += 32) {
-        __align__(16) __nv_bfloat16 o8[8];
-        if (ok) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
-          const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            o8[e] = __float2bfloat16((__bfloat162float(e8[e]) - mean) * rstd *
-                                         p.lnw[c * 8 + e] +
-                                     p.lnb[c * 8 + e]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o8[e] = __float2bfloat16(0.f);
-        }
-        *reinterpret_cast<uint4*>(xn + r * XS + c * 8) =
-            *reinterpret_cast<const uint4*>(o8);
-      }
-    }
+    for (int half = 0; half < 2; ++half)
+      gemm_stage(stage, warp * 16 + g + 8 * half, c,
+                 __floats2bfloat162_rn(acc[4 * j + 2 * half] + b0,
+                                       acc[4 * j + 2 * half + 1] + b1));
   }
-
-  float acc[MT][4][4];
-  auto zero = [&]() {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-  };
-  zero();
-
-  // ldmatrix row addresses: A (16 x 16, rows lane & 15, k half lane >> 4)
-  // and B (one n8 tile x 32 k: matrix lane >> 3 is k 8i..8i+7)
-  const int arow = wm * WM + (lane & 15), acol = (lane >> 4) * 8;
-  const int boff = (wn * 32 + (lane & 7)) * kRS + (lane >> 3) * 8;
-  const float* bias =
-      which == 0 ? p.bias[0] : which == 1 ? p.bias[1] : p.bias[2];
-  __nv_bfloat16* out = which == 0 ? p.out[0] : which == 1 ? p.out[1] : p.out[2];
-
-  for (int v = 0; v < nitems; ++v) {
-    const int i = v % nchunks;
-    // wait for item v; the barrier also frees the stage of item v - 1,
-    // which the copy of item v + kStages - 1 then refills (and, at v = 0,
-    // publishes xn)
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    issue(v + kStages - 1);
-    const __nv_bfloat16* ws = ring + (v % kStages) * S::STAGE;
-    const __nv_bfloat16* as;
-    int astride;
-    if constexpr (LN) {
-      as = xn + arow * XS + i * kKC + acol;
-      astride = XS;
-    } else {
-      as = ws + S::W_ELEMS + arow * kRS + acol;
-      astride = kRS;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKC / 32; ++kk) {
-      uint32_t a[MT][2][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        ldsm_x4(a[mt][0], as + mt * 16 * astride + kk * 32);
-        ldsm_x4(a[mt][1], as + mt * 16 * astride + kk * 32 + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t b[4];
-        ldsm_x4(b, ws + boff + j * 8 * kRS + kk * 32);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][j], a[mt][0], b[0], b[1]);
-          mma_bf16(acc[mt][j], a[mt][1], b[2], b[3]);
-        }
-      }
-    }
-    if (i != nchunks - 1) continue;
-
-    // the tile is done: + bias [+ residual] in f32, one rounding to bf16
-    const int col0 = col00 + (v / nchunks) * kBN;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long row = m0 + wm * WM + mt * 16 + g + 8 * hh;
-        if (row >= p.M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = col0 + wn * 32 + j * 8 + 2 * t;
-          float v0 = acc[mt][j][2 * hh] + bias[col];
-          float v1 = acc[mt][j][2 * hh + 1] + bias[col + 1];
-          if constexpr (!LN) {
-            const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(
-                p.res + row * K + col);
-            v0 += __bfloat162float(r2.x);
-            v1 += __bfloat162float(r2.y);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(out + row * K + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-    zero();
+  fence_proxy_async();
+  named_sync(2 + cw, kWG);
+  if (threadIdx.x % kWG == 0) {
+    gemm_store(which == 0 ? &oq : which == 1 ? &ok : &ov, stage,
+               m0 + cw * 64, n0, e.rows, e.K);
+    gemm_store_wait();
   }
-  cp_async_wait<0>();  // the groups still open are empty
 }
 
-template <int BM, bool LN>
-cudaError_t launch(const GlueParams& p, int nw, cudaStream_t stream) {
-  auto kernel = glue_gemm_kernel<BM, LN>;
-  const int bytes = GlueSmem<BM, LN>::bytes(p.K);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(nw * p.K / kBN / p.tiles_per_block, (p.M + BM - 1) / BM);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
+bool shape_ok(int M, int K) { return M > 0 && K > 0 && K % 128 == 0; }
 
-// the widest K whose K10a prologue (xn) fits beside the ring at BM rows
-constexpr int kMaxK64 = 1280;
-constexpr int kMaxK32 = 2688;
-
-bool shape_ok(int M, int K) {
-  return M > 0 && K > 0 && K % 128 == 0 && (long long)M * K < (1LL << 40);
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // K10a. x (M, K) bf16; lnw, lnb, bq, bk, bv f32 (K,); wq, wk, wv bf16 (K,
 // K) in the Linear layout (out, in), contiguous; q, k, v bf16 (M, K). K a
-// multiple of 128, at most 2,688. Returns a cudaError_t.
+// multiple of 128. The rows run in chunks of `chunk` rows through the
+// caller's bf16 workspace xn (chunk, K), which holds LN(x). Every bf16
+// matrix passes through TMA and lnw, lnb are read as float4, so their
+// addresses must be 16-byte aligned. The
+// workspace arguments come last, so a caller that passes them to an older
+// library of this interface (which takes none) still runs.
+// Returns a cudaError_t.
 extern "C" int smb_qkv_ln_fwd(const void* x, const void* lnw, const void* lnb,
                               const void* wq, const void* wk, const void* wv,
                               const void* bq, const void* bk, const void* bv,
                               void* q, void* k, void* v, int M, int K,
-                              float eps, void* stream) {
-  if (!shape_ok(M, K) || K > kMaxK32) return (int)cudaErrorInvalidValue;
-  GlueParams p = {};
-  p.a = static_cast<const __nv_bfloat16*>(x);
-  p.lnw = static_cast<const float*>(lnw);
-  p.lnb = static_cast<const float*>(lnb);
-  p.w[0] = static_cast<const __nv_bfloat16*>(wq);
-  p.w[1] = static_cast<const __nv_bfloat16*>(wk);
-  p.w[2] = static_cast<const __nv_bfloat16*>(wv);
-  p.bias[0] = static_cast<const float*>(bq);
-  p.bias[1] = static_cast<const float*>(bk);
-  p.bias[2] = static_cast<const float*>(bv);
-  p.out[0] = static_cast<__nv_bfloat16*>(q);
-  p.out[1] = static_cast<__nv_bfloat16*>(k);
-  p.out[2] = static_cast<__nv_bfloat16*>(v);
-  p.M = M;
-  p.K = K;
-  p.tiles_per_block = K / kBN;  // one block: BM rows of one of q, k, v
-  p.eps = eps;
+                              float eps, void* stream, void* xn, int chunk) {
+  if (!shape_ok(M, K) || xn == nullptr || chunk <= 0 || !aligned16(x) ||
+      !aligned16(lnw) || !aligned16(lnb))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= kMaxK64) return (int)launch<64, true>(p, 3, s);
-  return (int)launch<32, true>(p, 3, s);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* outs[3] = {static_cast<__nv_bfloat16*>(q),
+                            static_cast<__nv_bfloat16*>(k),
+                            static_cast<__nv_bfloat16*>(v)};
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map_2d(&tq, wq, K, K, K, kGemmBN);
+  if (err == cudaSuccess) err = make_map_2d(&tk, wk, K, K, K, kGemmBN);
+  if (err == cudaSuccess) err = make_map_2d(&tv, wv, K, K, K, kGemmBN);
+  auto kernel = qkv_gemm_kernel;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  for (int m = 0; m < M && err == cudaSuccess; m += chunk) {
+    const int rows = M - m < chunk ? M - m : chunk;
+    qkv_ln_rows_kernel<<<(rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
+                         s>>>(xb + (long long)m * K,
+                              static_cast<const float*>(lnw),
+                              static_cast<const float*>(lnb),
+                              static_cast<__nv_bfloat16*>(xn), rows, K, eps);
+    err = cudaGetLastError();
+    CUtensorMap ta, to[3];
+    if (err == cudaSuccess) err = make_map_2d(&ta, xn, rows, K, K, kGemmBM);
+    for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+      err = make_map_2d(&to[i], outs[i] + (long long)m * K, rows, K, K, 64);
+    if (err != cudaSuccess) break;
+    const QkvEpi e{static_cast<const float*>(bq),
+                   static_cast<const float*>(bk),
+                   static_cast<const float*>(bv), rows, K};
+    const dim3 grid(3 * K / kGemmBN, (rows + kGemmBM - 1) / kGemmBM);
+    kernel<<<grid, kGemmThreads, kGemmSmem, s>>>(
+        ta, tq, tk, tv, to[0], to[1], to[2], K / kGemmBK, e);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 // K10b. res, y (M, K) bf16; wo bf16 (K, K) in the Linear layout (out, in),
-// contiguous; bo f32 (K,); out bf16 (M, K). K a multiple of 128. Returns a
-// cudaError_t.
+// contiguous; bo f32 (K,); out bf16 (M, K). K a multiple of 128; every
+// bf16 matrix 16-byte aligned (TMA). Returns a cudaError_t.
 extern "C" int smb_out_res_fwd(const void* res, const void* y, const void* wo,
                                const void* bo, void* out, int M, int K,
                                void* stream) {
   if (!shape_ok(M, K)) return (int)cudaErrorInvalidValue;
-  GlueParams p = {};
-  p.a = static_cast<const __nv_bfloat16*>(y);
-  p.w[0] = static_cast<const __nv_bfloat16*>(wo);
-  p.bias[0] = static_cast<const float*>(bo);
-  p.res = static_cast<const __nv_bfloat16*>(res);
-  p.out[0] = static_cast<__nv_bfloat16*>(out);
-  p.M = M;
-  p.K = K;
-  p.tiles_per_block = 1;
-  return (int)launch<64, false>(p, 1, static_cast<cudaStream_t>(stream));
+  return (int)smb_gemm_residual(y, wo, static_cast<const float*>(bo), res,
+                                out, M, K, K,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,13 @@
 // A warp-specialised bf16 GEMM core for Hopper (sm_90a) on wgmma and TMA,
 // for kernels that own one output tile per block and differ only in their
-// epilogues: mlp_fwd.cu's two MLP products (K2, K6, K5a) and K9's gated
+// epilogues: mlp_fwd.cu's two MLP products (K2, K6, K5a), K9's gated
 // product, whose B stage holds 64 rows of each half of w_in (kBSplit), and
-// mlp_bwd.cu's two backward products (K5b), which read B as the Linear
-// weight B^T stands (kBCols, MN-major) and whose first epilogue reads a
-// tile of h back from shared memory (gemm_unstage).
+// K10b's product, whose epilogue reads a residual tile that the producer
+// loads after the last k-step (gemm_produce_tile); mlp_bwd.cu's two
+// backward products (K5b), which read B as the Linear weight B^T stands
+// (kBCols, MN-major) and whose first epilogue reads a tile of h back from
+// shared memory (gemm_load_tile, gemm_unstage); and attn_glue.cu's q/k/v
+// product (K10a).
 //
 // The product of a block: the f32 tile C (kGemmBM x kGemmBN) = A B^T over
 // kdim, with A (rows, kdim) and B (cols, kdim) both K-major bf16 in device
@@ -122,6 +125,54 @@ __device__ __forceinline__ void gemm_produce(
                     k * kGemmBK, 0, n0, 0);
     }
   }
+}
+
+// one thread: the 128 x 128 bf16 tile of `map` (boxes of 64 x 64, from
+// make_map_2d) at rows m0.. and columns n0.. into buf, as four boxes laid
+// out as gemm_stage lays out the two warpgroups' staged tiles, completing
+// on bar; boxes wholly past the edge (rows, n) are not loaded
+__device__ __forceinline__ void gemm_load_tile(const CUtensorMap* map,
+                                               char* buf, uint64_t* bar,
+                                               int m0, int n0, int rows,
+                                               int n) {
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int cw = 0; cw < 2; ++cw)
+#pragma unroll
+    for (int p = 0; p < kGemmBN / 64; ++p)
+      bytes += (m0 + 64 * cw < rows && n0 + 64 * p < n) ? kGemmPanel : 0;
+  mbar_expect_tx(bar, bytes);
+#pragma unroll
+  for (int cw = 0; cw < 2; ++cw)
+#pragma unroll
+    for (int p = 0; p < kGemmBN / 64; ++p)
+      if (m0 + 64 * cw < rows && n0 + 64 * p < n)
+        tma_load_4d(buf + cw * kGemmHalf + p * kGemmPanel, map, bar,
+                    n0 + 64 * p, 0, m0 + 64 * cw, 0);
+}
+
+// the producer thread, after gemm_produce: an epilogue's input tile (as
+// gemm_load_tile) into the ring stage that k-step ksteps would fill, once
+// the consumers have freed it, completing on that stage's full barrier, so
+// it lands while the last products run; the consumers take it with
+// gemm_wait_tile
+__device__ __forceinline__ void gemm_produce_tile(const GemmSmem& s,
+                                                  const CUtensorMap* map,
+                                                  int m0, int n0, int ksteps,
+                                                  int rows, int n) {
+  const int st = ksteps % kGemmStages;
+  if (ksteps >= kGemmStages)
+    mbar_wait(&s.empty[st], ((ksteps / kGemmStages) & 1) ^ 1);
+  gemm_load_tile(map, s.ring + st * kGemmStage, &s.full[st], m0, n0, rows,
+                 n);
+}
+
+// a consumer: wait for gemm_produce_tile's tile; returns its stage
+__device__ __forceinline__ char* gemm_wait_tile(const GemmSmem& s,
+                                                int ksteps) {
+  const int st = ksteps % kGemmStages;
+  mbar_wait(&s.full[st], (ksteps / kGemmStages) & 1);
+  return s.ring + st * kGemmStage;
 }
 
 // consumer warpgroup cw: acc = (its 64 rows of A) B^T over all k-steps

@@ -88,28 +88,6 @@ struct BwdEpi {
   int act;  // 0: exact gelu, 1: tanh gelu
 };
 
-// the producer's load of the 128 x 128 tile of h at (m0, n0) into buf, as
-// four 64 x 64 boxes laid out as gemm_stage lays out the two warpgroups'
-// tiles; boxes wholly past the edge are not loaded
-__device__ __forceinline__ void load_h(const CUtensorMap* th, char* buf,
-                                       uint64_t* bar, int m0, int n0,
-                                       const BwdEpi& e) {
-  uint32_t bytes = 0;
-#pragma unroll
-  for (int cw = 0; cw < 2; ++cw)
-#pragma unroll
-    for (int p = 0; p < kGemmBN / 64; ++p)
-      bytes += (m0 + 64 * cw < e.rows && n0 + 64 * p < e.n) ? kGemmPanel : 0;
-  mbar_expect_tx(bar, bytes);
-#pragma unroll
-  for (int cw = 0; cw < 2; ++cw)
-#pragma unroll
-    for (int p = 0; p < kGemmBN / 64; ++p)
-      if (m0 + 64 * cw < e.rows && n0 + 64 * p < e.n)
-        tma_load_4d(buf + cw * kGemmHalf + p * kGemmPanel, th, bar,
-                    n0 + 64 * p, 0, m0 + 64 * cw, 0);
-}
-
 // PHASE 1: A = g, B^T = w2^T; to = dh, tact = a, th = h (read).
 // PHASE 2: A = dh, B^T = w1^T; to = dx.
 template <int PHASE>
@@ -133,7 +111,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
       if constexpr (PHASE == 1) {
         if (ksteps >= kGemmStages)  // the consumers have freed stage sh
           mbar_wait(&s.empty[sh], ((ksteps / kGemmStages) & 1) ^ 1);
-        load_h(&th, hbuf, &hbar, m0, n0, e);
+        gemm_load_tile(&th, hbuf, &hbar, m0, n0, e.rows, e.n);
       }
     }
     return;

@@ -12,6 +12,8 @@
 //   K9  smb_vision_tpu/ops/mlp.py:_swiglu_block_kernel
 //       y = x + (silu(xn w1a + b1a) * (xn w1b + b1b)) w2 + b2, xn = LN(x)
 //       (LayerScale folds into w2 and b2 at the caller)
+// and K2's second product with a TMA-loaded residual (PHASE 4) to K10b
+// (attn_glue.cu: o = res + y Wo + bo) through smb_gemm_residual.
 //
 // Numerics as the TPU kernels: bf16 operands, f32 accumulation, LayerNorm
 // statistics, bias and activation in f32, the activation rounded to bf16
@@ -171,7 +173,10 @@ struct Epi {
 // PHASE 1: to = act(acc + b1) (and th = acc + b1 if EXTRA);
 // PHASE 2: to = acc + b2 (+ res if EXTRA);
 // PHASE 3 (K9): B's stage is 64 rows of w1a (tb) over 64 of w1b (th), so
-// to = silu(h1 + b1a) * (h2 + b1b) over the tile's 64 gate columns
+// to = silu(h1 + b1a) * (h2 + b1b) over the tile's 64 gate columns;
+// PHASE 4 (K10b, EXTRA): to = acc + bias + res, the residual's tile loaded
+// from th by the producer after the last k-step into the freed ring stage,
+// where the result is staged over it
 template <int PHASE, bool EXTRA>
 __global__ void __launch_bounds__(kGemmThreads, 2)
     mlp_gemm_kernel(const __grid_constant__ CUtensorMap ta,
@@ -190,6 +195,8 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
         gemm_produce<kBSplit>(s, &ta, &tb, m0, n0, ksteps, &th);
       else
         gemm_produce(s, &ta, &tb, m0, n0, ksteps);
+      if constexpr (PHASE == 4)
+        gemm_produce_tile(s, &th, m0, n0, ksteps, e.rows, e.n);
     }
     return;
   }
@@ -197,8 +204,13 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   float acc[kGemmAcc];
   gemm_consume(s, acc, cw, ksteps);
 
-  gemm_release_ring();
-  char* stage_o = s.ring + cw * kGemmHalf;
+  char* stage_o;
+  if constexpr (PHASE == 4) {  // the residual's tile, staged over in place
+    stage_o = gemm_wait_tile(s, ksteps) + cw * kGemmHalf;
+  } else {
+    gemm_release_ring();
+    stage_o = s.ring + cw * kGemmHalf;
+  }
   char* stage_h = s.ring + (2 + cw) * kGemmHalf;
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -238,6 +250,10 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
             gemm_stage(stage_h, rr, c, __floats2bfloat162_rn(v0, v1));
           v0 = activation(v0, e.act);
           v1 = activation(v1, e.act);
+        } else if constexpr (PHASE == 4) {
+          const __nv_bfloat162 x2 = gemm_unstage(stage_o, rr, c);
+          v0 += __bfloat162float(x2.x);
+          v1 += __bfloat162float(x2.y);
         } else if constexpr (EXTRA) {
           const int r = m0 + cw * 64 + rr;
           if (in && r < e.rows) {
@@ -358,6 +374,21 @@ cudaError_t run_chunks(const void* x, const void* lnw, const void* lnb,
 }
 
 }  // namespace
+
+// K10b (attn_glue.cu): out = res + a b^T + bias, K2's second product with
+// the residual's tile loaded by TMA (PHASE 4); a (rows, kdim), b (n, kdim)
+// (a Linear weight), res and out (rows, n) bf16 and 16-byte aligned, bias
+// f32 (n,); n even.
+cudaError_t smb_gemm_residual(const void* a, const void* b, const float* bias,
+                              const void* res, void* out, int rows, int n,
+                              int kdim, cudaStream_t stream) {
+  CUtensorMap to, tr;
+  cudaError_t err = make_map_2d(&to, out, rows, n, n, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tr, res, rows, n, n, 64);
+  if (err != cudaSuccess) return err;
+  const Epi e{bias, nullptr, rows, n, 0};
+  return launch_gemm<4, true>(a, b, kdim, to, tr, e, stream);
+}
 
 // x (M, K), w1 (F, K), w2 (K, F), out (M, K), h (M, F): bf16; lnw, lnb, b1,
 // b2: f32. ln != 0 selects K2 (LayerNorm + residual); otherwise h != null

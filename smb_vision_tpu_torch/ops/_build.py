@@ -136,7 +136,8 @@ def bind(path: Path) -> ctypes.CDLL:
     handle.smb_swiglu_fwd.argtypes = (
         [_P] * 8 + [_I] * 3 + [_F, _P, _P, _P, _I])
     handle.smb_swiglu_fwd.restype = _I
-    handle.smb_qkv_ln_fwd.argtypes = [_P] * 12 + [_I] * 2 + [_F, _P]
+    handle.smb_qkv_ln_fwd.argtypes = (
+        [_P] * 12 + [_I] * 2 + [_F, _P, _P, _I])
     handle.smb_qkv_ln_fwd.restype = _I
     handle.smb_out_res_fwd.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     handle.smb_out_res_fwd.restype = _I

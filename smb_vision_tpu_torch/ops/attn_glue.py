@@ -4,12 +4,15 @@ plain PyTorch versions and the kernels.
 
 Counterpart of `smb_vision_tpu/ops/attn_glue.py`. Public functions keep the
 JAX package's signatures and weight layout, (in, out). Two hand-written
-CUDA kernels (`csrc/attn_glue.cu`) stand behind them:
+CUDA kernels (`csrc/attn_glue.cu`, wgmma + TMA GEMMs on the core of
+`csrc/gemm_sm90.cuh`) stand behind them:
 
 - K10a `qkv_ln_fused`: q, k, v = LN(x) W{q,k,v} + b{q,k,v} (replaces
-  `_qkv_ln_kernel`);
+  `_qkv_ln_kernel`): a LayerNorm row pass into a bf16 workspace of a chunk
+  of rows (`glue_chunk_rows`), then one GEMM over the 3K columns;
 - K10b `out_res_fused`: o = res + y Wo + bo, LayerScale folded into Wo and
-  bo by the caller (replaces `_out_res_kernel`).
+  bo by the caller (replaces `_out_res_kernel`): K2's second product
+  (`csrc/mlp_fwd.cu`).
 
 Numerics as the kernels': LayerNorm statistics in f32 with var = E[x^2] -
 mean^2, bf16 operands, f32 accumulation and bias, one rounding to bf16.
@@ -33,10 +36,19 @@ import torch
 
 from smb_vision_tpu_torch.ops import _build
 from smb_vision_tpu_torch.ops.attention import needs_grad
-from smb_vision_tpu_torch.ops.mlp import _device_of, _recompute_grads
+from smb_vision_tpu_torch.ops.mlp import (
+    _TILE_ROWS,
+    _device_of,
+    _recompute_grads,
+    mlp_chunk_rows,
+)
 
 _IMPLS = ("auto", "pallas", "xla")
 _K_STEP = 128
+# K10a runs its rows in chunks through a bf16 (chunk, K) workspace for
+# LN(x) of at most this many bytes (but one 128-row tile), so it does not
+# grow with M: one chunk at the embed shape and the MIM decoder's batch 2
+_WS_BYTES = 32 << 20
 
 
 def _ln_xla(x, lnw, lnb, eps: float):
@@ -81,24 +93,47 @@ def _out_res_plain(res2, y2, wo, bo):
 
 
 def glue_maps(k: int) -> bool:
-    """Whether "pallas" maps feature dim k; rows are free. K10a also needs
-    its LayerNorm output on the SM, which bounds k (csrc/attn_glue.cu,
-    2,688); past that the kernel refuses with an invalid-value error."""
+    """Whether "pallas" maps feature dim k (any multiple of 128); rows are
+    free."""
     return k > 0 and k % _K_STEP == 0
 
 
+def glue_chunk_rows(m: int, k: int) -> int:
+    """Rows of one chunk of K10a at M = m rows of feature dim k: all of
+    them while LN(x) in bf16 fits `_WS_BYTES`; past it, the fewest chunks
+    of near-equal size under that many bytes, whole 128-row tiles but the
+    last (`mlp_chunk_rows`)."""
+    cap = max(_TILE_ROWS, _WS_BYTES // (2 * k) // _TILE_ROWS * _TILE_ROWS)
+    return mlp_chunk_rows(m, cap)
+
+
+def _glue_workspace(m: int, k: int, dev):
+    """(chunk, xn) of a K10a launch over m rows: the chunk's rows and the
+    bf16 (chunk, k) workspace of LN(x)."""
+    chunk = glue_chunk_rows(m, k)
+    return chunk, torch.empty((chunk, k), dtype=torch.bfloat16, device=dev)
+
+
 def _linear_layout(w, k: int, name: str, dev):
-    """w (in, out) as the kernels read it: bf16 (out, in), contiguous. For
-    the transposed view of a Linear's bf16 weight this copies nothing."""
+    """w (in, out) as the kernels read it: bf16 (out, in), contiguous and
+    aligned. For the transposed view of a Linear's bf16 weight this copies
+    nothing."""
     if w.shape != (k, k):
         raise ValueError(f"{name}: weight {tuple(w.shape)}, feature dim {k}")
     if w.device != dev:
         raise ValueError(f"{name}: weight on {w.device}, rows on {dev}")
-    return w.to(torch.bfloat16).t().contiguous()
+    return _aligned(w.to(torch.bfloat16).t())
+
+
+def _aligned(t):
+    """t contiguous at a 16-byte aligned address, as TMA and the LayerNorm
+    pass's vector loads read it (a copy only for a misaligned view)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _f32_row(b, k: int, name: str, dev):
-    b = b.reshape(-1).float().contiguous()
+    b = _aligned(b.reshape(-1).float())
     if b.shape != (k,) or b.device != dev:
         raise ValueError(f"{name}: vector {tuple(b.shape)} on {b.device}, "
                          f"feature dim {k} on {dev}")
@@ -106,22 +141,25 @@ def _f32_row(b, k: int, name: str, dev):
 
 
 def _qkv_fwd(x2, lnw, lnb, wq, wk, wv, bq, bk, bv, eps: float):
-    """K10a or its plain version, by the device of x2; no autograd."""
+    """K10a or its plain version, by the device of x2; no autograd. The
+    kernel's rows run in chunks of `glue_chunk_rows` through a workspace
+    allocated here."""
     if _device_of(x2, "qkv_ln_fused") == "cpu":
         return _qkv_ln_plain(x2, lnw, lnb, wq, wk, wv, bq, bk, bv, eps)
     m, k = x2.shape
     dev = x2.device
     bf16 = torch.bfloat16
-    x2 = x2.to(bf16).contiguous()
+    x2 = _aligned(x2.to(bf16))
     ws = [_linear_layout(w, k, "qkv_ln_fwd", dev) for w in (wq, wk, wv)]
     vecs = [_f32_row(b, k, "qkv_ln_fwd", dev)
             for b in (lnw, lnb, bq, bk, bv)]
     outs = [torch.empty((m, k), dtype=bf16, device=dev) for _ in range(3)]
+    chunk, xn = _glue_workspace(m, k, dev)
     rc = _build.lib().smb_qkv_ln_fwd(
         x2.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
         *(w.data_ptr() for w in ws), *(b.data_ptr() for b in vecs[2:]),
         *(o.data_ptr() for o in outs), m, k, float(eps),
-        _build.stream_ptr(dev))
+        _build.stream_ptr(dev), xn.data_ptr(), chunk)
     _build.check(rc, "qkv_ln_fwd")
     qkv_ln_fused.launches += 1
     return tuple(outs)
@@ -137,8 +175,8 @@ def _out_fwd(res2, y2, wo, bo):
     if res2.shape != (m, k) or res2.device != dev:
         raise ValueError(f"out_res_fwd: residual {tuple(res2.shape)} on "
                          f"{res2.device}, y {tuple(y2.shape)} on {dev}")
-    res2 = res2.to(bf16).contiguous()
-    y2 = y2.to(bf16).contiguous()
+    res2 = _aligned(res2.to(bf16))
+    y2 = _aligned(y2.to(bf16))
     w = _linear_layout(wo, k, "out_res_fwd", dev)
     b = _f32_row(bo, k, "out_res_fwd", dev)
     out = torch.empty((m, k), dtype=bf16, device=dev)

@@ -143,15 +143,16 @@ def _check_mlp_shape(k: int, f: int, act: str, name: str) -> None:
                          f"{_KERNEL_F_STEP}, act in {tuple(_ACTS)})")
 
 
-def mlp_chunk_rows(m: int) -> int:
-    """Rows of one chunk of K2, K6, K5a and K9 at M = m rows: all of them
-    up to `_CHUNK_ROWS`; past it, the fewest chunks of at most that many
-    rows, of near-equal size and whole row tiles but the last."""
-    if m <= _CHUNK_ROWS:
+def mlp_chunk_rows(m: int, cap: int = _CHUNK_ROWS) -> int:
+    """Rows of one chunk of K2, K6, K5a and K9 (and, with its own cap, of
+    K10a) at M = m rows: all of them up to `cap` (whole row tiles); past
+    it, the fewest chunks of at most that many rows, of near-equal size
+    and whole row tiles but the last."""
+    if m <= cap:
         return m
-    chunks = -(-m // _CHUNK_ROWS)
+    chunks = -(-m // cap)
     per = -(-m // chunks)
-    return min(_CHUNK_ROWS, -(-per // _TILE_ROWS) * _TILE_ROWS)
+    return min(cap, -(-per // _TILE_ROWS) * _TILE_ROWS)
 
 
 def _mlp_workspace(m: int, k: int, f: int, ln: bool, dev):

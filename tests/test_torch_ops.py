@@ -12,6 +12,7 @@ from smb_vision_tpu.ops import attention as jattn
 from smb_vision_tpu.ops import mlp as jmlp
 from smb_vision_tpu.ops import patches as jpatches
 from smb_vision_tpu_torch.ops import attention as tattn
+from smb_vision_tpu_torch.ops import attn_glue as tglue
 from smb_vision_tpu_torch.ops import mlp as tmlp
 from smb_vision_tpu_torch.ops import patches as tpatches
 
@@ -362,6 +363,22 @@ def test_mlp_workspace(m, k, f, ln):
         assert xn.shape == (chunk, k) and xn.dtype == torch.bfloat16
     else:
         assert xn is None
+
+
+@pytest.mark.parametrize("m,k,chunks", [(20480, 768, 1), (40960, 384, 1),
+                                        (6000, 2816, 2), (81920, 768, 4)])
+def test_glue_workspace(m, k, chunks):
+    """The workspace the glue wrapper hands K10a for LN(x): bf16 (chunk, K)
+    with chunk = glue_chunk_rows(M, K), never past the byte cap: one chunk
+    at the embed shape and the MIM decoder at batch 2, two at K 2,816,
+    four for leg G's batch 4; past one chunk, whole 128-row tiles."""
+    chunk, xn = tglue._glue_workspace(m, k, "cpu")
+    assert chunk == tglue.glue_chunk_rows(m, k)
+    assert xn.shape == (chunk, k) and xn.dtype == torch.bfloat16
+    assert -(-m // chunk) == chunks
+    assert xn.numel() * 2 <= tglue._WS_BYTES
+    if chunks > 1:
+        assert chunk % 128 == 0
 
 
 @pytest.mark.parametrize("channel_major", [True, False])
