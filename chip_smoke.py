@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch-embedding, MIM-pretraining,
-V-JEPA2-pretraining and fine-tuning paths, and the opt-in int8 p v
+V-JEPA2-pretraining (both presets: the TPU-native heads and the reference
+heads, whose predictor has heads of 32) and fine-tuning paths, and the opt-in int8 p v
 attention and attention-glue paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -9,8 +10,9 @@ attention and attention-glue paths, once on one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too, the kernels this tree did not
-change (the flash kernels and the MLP forward and backward kernels K2,
-K6, K5a, K9 and K5b) are compared with it by SASS and bit for bit, and the
+change (the flash kernels at head widths 64 and 128, the MLP forward and
+backward kernels K2, K6, K5a, K9 and K5b and the glue K10a and K10b) are
+compared with it by SASS and bit for bit, and the
 flash, MLP, SwiGLU and glue kernels, legs A's, B's and G's models and the
 MIM step (as shipped and with the glue) and V-JEPA step are timed with
 either library in turns, in one process, and the DINOv2-giant step parity
@@ -22,7 +24,8 @@ Phases of the run without arguments, each of which fails the run
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
-     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 and the nine
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 (each at head
+     width 64 and 128, K1, K4 and K7 also at 32) and the nine
      GEMM instantiations of K2, K6, K5a, K9, K5b, K10a and K10b in the
      SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
@@ -38,7 +41,13 @@ Phases of the run without arguments, each of which fails the run
      backward K7 at the encoder's, the predictor's, the reference-head
      encoder's and two ragged shapes (timed beside its plain version and
      K4), K1 and K3 at head width 128 (K3 beside K1), and K5a, K5b, K6
-     and K2 at the ViT-L MLP (K 1,024); K2, K6 and K5a each also beside
+     and K2 at the ViT-L MLP (K 1,024); then K1, K4 and K7 at head width
+     32: the reference-head predictor's shape (9,216 tokens, 12 heads),
+     ragged N 1,961 and 193, and Nq != Nk both ways for K4 and K7 with and
+     without an lse2 cotangent, timed at the predictor's shape beside
+     their plain versions, SDPA (K1, K4), the d-64 kernel on zero-padded
+     inputs, the exp2 floor and the tensor floor; K2, K6 and K5a each also
+     beside
      its cuBLAS chain (`mlp_chain`, their library_ms), K5b beside its own
      (`mlp_bwd_chain`), with its two products' times apart (profiler);
      then the SwiGLU half-block K9 at DINOv2-giant batch 2 and ragged
@@ -76,7 +85,11 @@ Phases of the run without arguments, each of which fails the run
  10. leg D: `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
      (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
      256, 4 steps with checkpoints and eval, then a resume to 6 (K1, K7,
-     K5a and K5b in the student, K3 and K6 in the EMA teacher);
+     K5a and K5b in the student, K3 and K6 in the EMA teacher); leg I: the
+     same with a copy of configs/vjepa_large_384.json (the reference heads;
+     micro-batch cut from 16 to 1, accumulation from 4 to 2) under
+     attn_impl pallas_i8bwd and teacher_attn_impl pallas_int8: K1 and K7 at
+     head width 32 in every predictor layer, the plain attention never;
  10a. leg E: `run_classification` on the VideoMAE route (ViT-Base at
      224^2 x 160, mlp_impl pallas_bwd), a survival task with one tabular
      column and the two-tier learning rates: 4 steps, checkpoints, eval
@@ -90,6 +103,12 @@ Phases of the run without arguments, each of which fails the run
      the kernels, through their plain versions under the same impl names,
      and in float32; loss, gradient error and the EMA teacher's change;
  13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
+ 13a. the same two phases for configs/vjepa_large_384.json: the parity
+     step under pallas_i8bwd + pallas_int8 (K1 and K7 at d 32 in the
+     predictor); steps under "auto" (K1 + K4 at d 32 and 64) and under
+     those impls at the largest batch up to the preset's 16 that fits,
+     then "auto" at batch 4 beside the parent's routing (the predictor's
+     attention on the plain path);
  14. DINOv2 parity: one full-width DINOv2-giant fine-tune step at batch 2
      through the kernels, their plain versions and float32; K9 launches
      40 times a forward;
@@ -164,6 +183,18 @@ MIM_PRESET = ROOT / "configs" / "mim_base_512.json"
 VJEPA_PRESET = ROOT / "configs" / "vjepa_large_384_tpu.json"
 VJ_N = 9216
 VJ_HIDDEN, VJ_FFN = 1024, 4096
+# configs/vjepa_large_384.json, the reference-head (checkpoint-compatible)
+# preset: the same ViT-L at 16 heads of 64, the predictor 384 wide at 12
+# heads of 32, micro-batch 16 x accumulation 4
+VJEPA_REF_PRESET = ROOT / "configs" / "vjepa_large_384.json"
+PRED_HEADS, PRED_LAYERS = 12, 12
+# leg I: the preset's micro-batch 16 and accumulation 4 cut for a smoke run
+# on 3 training volumes, as leg D's accumulation; the impls its _comment
+# recommends
+LEG_I_CUTS = {"per_device_train_batch_size": 1,
+              "gradient_accumulation_steps": 2}
+LEG_I_IMPLS = {"attn_impl": "pallas_i8bwd",
+               "teacher_attn_impl": "pallas_int8"}
 LEG_D_ACCUM = 2         # the preset's 64 micro-batches, cut for a smoke run
 # the EMA check: the teacher moves by (1 - momentum) times the student's
 # update, up to f32 rounding of t*m + s*(1 - m); held within a factor of 2
@@ -194,7 +225,17 @@ SOURCES = {
                    "smb_vision_tpu/ops/attn_glue.py:98"),
     "out_res_fwd": ("smb_vision_tpu_torch/csrc/attn_glue.cu",
                     "smb_vision_tpu/ops/attn_glue.py:118"),
+    # the head-width-32 instantiations of K1, K4 and K7 (the reference-head
+    # V-JEPA2 predictor); their launches are their wrappers' counts at d 32
+    "flash_fwd d32": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                      "smb_vision_tpu/ops/attention.py:106"),
+    "flash_bwd d32": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                      "smb_vision_tpu/ops/attention.py:436"),
+    "flash_bwd_i8 d32": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                         "smb_vision_tpu/ops/attention.py:549"),
 }
+D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
+            "flash_bwd_i8 d32": "flash_bwd_i8"}
 # the least time of a kernel's work on one H100 SXM at 700 W (NVIDIA's data
 # sheet, dense): operations at the peak of their type, bytes (each input
 # read once, each output written once) at the HBM rate; the larger bounds
@@ -237,7 +278,34 @@ def reset_launches() -> dict:
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
+        if hasattr(w, "launches_by_width"):
+            w.launches_by_width = {}
     return ws
+
+
+def d32_launches(ws: dict) -> dict:
+    """{row of D32_ROWS: its wrapper's launches at head width 32}."""
+    return {row: ws[name].launches_by_width.get(32, 0)
+            for row, name in D32_ROWS.items()}
+
+
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Inside the block, count the calls of the plain attention
+    (`xla_attention`) by head width: yields the {width: calls} dict."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    calls, plain = {}, A.xla_attention
+
+    def counted(q, *args, **kw):
+        calls[q.shape[-1]] = calls.get(q.shape[-1], 0) + 1
+        return plain(q, *args, **kw)
+
+    A.xla_attention = counted
+    try:
+        yield calls
+    finally:
+        A.xla_attention = plain
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
@@ -422,14 +490,15 @@ def phase_device() -> str:
 # bf16 (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without
 # one of its instructions fails the build phase
 SM90_KERNELS = {
-    f"{k} d{d}": (name.format(d=d), ops) for d in (64, 128)
+    f"{k} d{d}": (name.format(d=d), ops) for d in (32, 64, 128)
     for k, name, ops in (
         ("K1", "flash_fwd_sm90_kernelILi{d}ELb0E", ("HGMMA", "UTMALDG")),
         ("K3", "flash_fwd_sm90_kernelILi{d}ELb1E",
          ("IGMMA", "HGMMA", "UTMALDG")),
         ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
-         ("IGMMA", "HGMMA", "UTMALDG")))}
+         ("IGMMA", "HGMMA", "UTMALDG")))
+    if (k, d) != ("K3", 32)}
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -546,6 +615,16 @@ def _mlp_inputs(m: int, gen, dev, k: int = HIDDEN, f: int = FFN):
     return x, lnw, lnb, w1.t(), b1, w2.t(), b2
 
 
+def new_table() -> dict:
+    """{name: record} of the JSON kernel table, one row of SOURCES each,
+    its numbers not yet measured."""
+    return {name: {"name": name, "route": "cuda", "source": src,
+                   "replaces": rep, "launches": 0, "max_abs_err": 0.0,
+                   "ms": None, "plain_ms": None, "bound_ms": None,
+                   "bound_by": None, "library_ms": None}
+            for name, (src, rep) in SOURCES.items()}
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version at the main-path shape and a
     ragged one, and its time beside the plain version's at the main-path
@@ -558,11 +637,7 @@ def phase_kernels() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    table = {name: {"name": name, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": 0, "max_abs_err": 0.0,
-                    "ms": None, "plain_ms": None, "bound_ms": None,
-                    "bound_by": None, "library_ms": None}
-             for name, (src, rep) in SOURCES.items()}
+    table = new_table()
 
     def check(name, n, out, ref, tol, what="plain"):
         check_kernel(table, name, f"N={n} vs {what}", out, ref, tol,
@@ -637,6 +712,7 @@ def phase_kernels() -> dict:
                 rate_line(table, name, f"M={n}", ops, "the chain's")
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
+    phase_d32_kernels(table, gen, dev)
     phase_dinov2_kernels(table, gen, dev)
     phase_glue_kernels(table, gen, dev)
     return table
@@ -885,6 +961,134 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
     k3_beside_k1(shape, q, k, v)
 
 
+def padded_to_64(*ts):
+    """Head width 32 zero-padded to 64: the yardstick that the d-64 kernels
+    give without a d-32 instantiation (twice the tensor work and a copy of
+    each operand). Timed beside the d-32 kernels; the port never runs
+    it."""
+    import torch.nn.functional as F
+
+    return [F.pad(t, (0, 64 - t.shape[-1])) for t in ts]
+
+
+def phase_d32_kernels(table: dict, gen, dev) -> None:
+    """K1, K4 and K7 at head width 32 against their plain versions: the
+    reference-head V-JEPA2 predictor's shape (9,216 tokens, 12 heads of
+    32), ragged N 1,961 and 193, and Nq != Nk both ways for K4 and K7 with
+    and without an lse2 cotangent, at the d-64 bounds. At the predictor's
+    shape each is timed beside its plain version, SDPA at d 32 (K1; K4:
+    its backward), the d-64 kernel on the zero-padded inputs
+    (`padded_to_64`), its exp2 floor and its tensor floor (the bound)."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+
+    h, d = PRED_HEADS, 32
+    scale = 1.0 / math.sqrt(d)
+
+    def r(n):
+        return (torch.randn((1, n, h, d), generator=gen, device=dev)
+                * 0.4).to(torch.bfloat16)
+
+    bwds = (("flash_bwd d32", A.flash_attention_bwd, A.attention_bwd_plain),
+            ("flash_bwd_i8 d32", A.flash_attention_bwd_i8,
+             A.attention_bwd_i8_plain))
+    for nq, nk in ((VJ_N, VJ_N), (1961, 1961), (193, 193), (1961, 193),
+                   (193, 1961)):
+        q, do, k, v = r(nq), r(nq), r(nk), r(nk)
+        shape = f"Nq={nq} Nk={nk} H={h} d={d}"
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
+        check_kernel(table, "flash_fwd d32", shape, out, ref, TOL_FLASH)
+        check_kernel(table, "flash_fwd d32", shape + " lse2", lse, ref_lse,
+                     TOL_FLASH, record=False)
+        cots = (None, torch.randn((1, h, nq), generator=gen, device=dev)) \
+            if nq != nk else (None,)
+        for g_lse in cots:
+            tag = shape + ("" if g_lse is None else " g_lse")
+            for name, kernel, plain in bwds:
+                got = kernel(q, k, v, out, lse, do, g_lse=g_lse)
+                want = plain(q, k, v, out, lse, do, scale=scale, g_lse=g_lse)
+                for what, a, b in zip(("dq", "dk", "dv"), got, want):
+                    check_kernel(table, name, f"{tag} {what}", a, b,
+                                 TOL_FLASH_BWD)
+                del got, want
+        if nq == VJ_N:
+            d32_times(table, q, k, v, do, out, lse)
+        del q, k, v, do, out, lse, ref, ref_lse
+
+
+def d32_times(table: dict, q, k, v, do, out, lse) -> None:
+    """The d-32 rows' times at the predictor's shape (see
+    `phase_d32_kernels`)."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    n, h, d = q.shape[1], q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    shape = f"predictor N={n} H={h} d={d}"
+    qp, kp, vp, dop, outp = padded_to_64(q, k, v, do, out)
+    ref = A.xla_attention(q, k, v)
+    check_kernel(table, "flash_fwd d32", shape + " padded d64 yardstick",
+                 A.flash_attention(qp, kp, vp, scale=scale)[..., :d], ref,
+                 TOL_FLASH, record=False)
+    exp2 = exp2_floor_ms(n, h)
+    prod = 2 * n * n * d * h
+    runs = {
+        "flash_fwd d32": (lambda: A.flash_attention(q, k, v),
+                          lambda: A.xla_attention(q, k, v),
+                          lambda: A.flash_attention(qp, kp, vp, scale=scale),
+                          lambda: A.flash_attention(
+                              *padded_to_64(q, k, v), scale=scale)),
+        "flash_bwd d32": (
+            lambda: A.flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: A.attention_bwd_plain(q, k, v, out, lse, do,
+                                          scale=scale),
+            lambda: A.flash_attention_bwd(qp, kp, vp, outp, lse, dop,
+                                          scale=scale),
+            lambda: A.flash_attention_bwd(
+                *padded_to_64(q, k, v, out), lse, *padded_to_64(do),
+                scale=scale)),
+        "flash_bwd_i8 d32": (
+            lambda: A.flash_attention_bwd_i8(q, k, v, out, lse, do),
+            lambda: A.attention_bwd_i8_plain(q, k, v, out, lse, do,
+                                             scale=scale),
+            lambda: A.flash_attention_bwd_i8(qp, kp, vp, outp, lse, dop,
+                                             scale=scale),
+            lambda: A.flash_attention_bwd_i8(
+                *padded_to_64(q, k, v, out), lse, *padded_to_64(do),
+                scale=scale)),
+    }
+    for name, (kernel, plain, pad, pad_copy) in runs.items():
+        time_kernel(table, name, shape, kernel, plain, 10, True)
+        pad_ms, pad_copy_ms = cuda_ms(pad, iters=10), cuda_ms(pad_copy,
+                                                              iters=10)
+        log(f"time {name:<16} {shape}: d-64 kernel on zero-padded inputs "
+            f"{pad_ms:.3f} ms, with the padding copies {pad_copy_ms:.3f} "
+            f"ms; native d 32 {table[name]['ms']:.3f} ms "
+            f"({pad_ms / table[name]['ms']:.2f}x) (CUDA events)")
+    table["flash_fwd d32"]["library_ms"] = sdpa_ms(q, k, v)
+    table["flash_bwd d32"]["library_ms"] = sdpa_ms(q, k, v, do)
+    nb = attn_bytes(1, n, h, d, 4)
+    set_bound(table, "flash_fwd d32", shape, 2 * prod, nb)
+    set_bound(table, "flash_bwd d32", shape, 5 * prod,
+              attn_bytes(1, n, h, d, 8))
+    set_bound(table, "flash_bwd_i8 d32", shape, 3 * prod,
+              attn_bytes(1, n, h, d, 8), int8_ops=2 * prod)
+    rate_line(table, "flash_fwd d32", shape, 2 * prod)
+    rate_line(table, "flash_bwd d32", shape, 5 * prod)
+    quant = cuda_ms(lambda: A._i8_operands(q, k, v, do, scale))
+    log(f"time flash_bwd_i8 d32 {shape}: of it the plain-torch "
+        f"quantisation {quant:.3f} ms (CUDA events)")
+    # at d 32 a score costs 4 d = 128 flops of the forward's tensor work
+    # against one exp2, so the exp2 floor is about twice the tensor floor;
+    # each backward pass recomputes p, two exp2 floors
+    log(f"exp2 floor d32 {shape}: forward {exp2:.3f} ms beside its tensor "
+        f"floor {table['flash_fwd d32']['bound_ms']:.3f} ms; backward (two "
+        f"passes) {2 * exp2:.3f} ms beside K4's tensor floor "
+        f"{table['flash_bwd d32']['bound_ms']:.3f} ms and K7's "
+        f"{table['flash_bwd_i8 d32']['bound_ms']:.3f} ms")
+
+
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
 VOL_SPACING = (3.0, 3.0, 6.0)  # smb-vision spacing (1.5, 1.5, 3) makes it
 N_VOLUMES = 4                  # exactly 512 x 512 x 320
@@ -1126,25 +1330,34 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
     return rates
 
 
-def device_times(fn, calls: int = 10) -> list:
+def device_times(fn, calls: int = 10, tries: int = 3) -> list:
     """[(kernel, launches a call, mean device ms a launch)] of the kernels
-    that `calls` calls of fn launch, from the profiler."""
+    that `calls` calls of fn launch, from the profiler. The profiler now
+    and then records no device activity for a session; it is then asked
+    again, up to `tries` times in all, and if it still sees none the one
+    row is the whole call's mean time by CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            out.append((ev.key, ev.count // calls, us / ev.count / 1e3))
-    return out
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = []
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                out.append((ev.key, ev.count // calls, us / ev.count / 1e3))
+        if out:
+            return out
+        log(f"device_times: the profiler saw no device time (try "
+            f"{attempt + 1} of {tries})")
+    return [("whole call (CUDA events; the profiler saw no device time)",
+             1, cuda_ms(fn, iters=calls))]
 
 
 def kernel_split(label: str, fn, calls: int = 10) -> None:
@@ -1224,6 +1437,13 @@ def vjepa_config(**kw):
     heads of 128, predictor 384 wide, 12 deep, 3 heads of 128; bf16,
     attn_impl pallas_i8bwd, mlp_impl pallas_bwd, remat."""
     return preset_config("run_vjepa", VJEPA_PRESET, **kw)
+
+
+def vjepa_ref_config(**kw):
+    """configs/vjepa_large_384.json: the same ViT-L at 16 heads of 64, the
+    predictor at 12 heads of 32; bf16, attn_impl "auto" (the preset names
+    none), mlp_impl pallas_bwd, remat."""
+    return preset_config("run_vjepa", VJEPA_REF_PRESET, **kw)
 
 
 def phase_train_parity(glue: bool = False) -> None:
@@ -1548,14 +1768,15 @@ def check_vjepa_launches(what: str, counts: dict) -> None:
         raise AssertionError(f"{what}: launches {counts}")
 
 
-def phase_vjepa_parity() -> None:
+def phase_vjepa_parity(ref: bool = False) -> None:
     """One V-JEPA step of the preset (forward, backward, AdamW update, EMA)
     at batch 1 on one seeded volume and target mask, from the same seeded
     weights: through the kernels, through their plain versions under the
     same impl names (`plain_kernels`), and in float32 with the plain
     attention and MLP (TF32 off). Holds the loss and the gradient over
     all student parameters, and the EMA teacher's change against the
-    student's update."""
+    student's update. ref: the reference-head preset under LEG_I_IMPLS,
+    whose predictor must run K1 and K7 at d 32 in every layer."""
     import torch
 
     from smb_vision_tpu_torch.ops.masking import vjepa_target_mask
@@ -1563,7 +1784,15 @@ def phase_vjepa_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg0, preset = vjepa_config()
+    path = VJEPA_REF_PRESET if ref else VJEPA_PRESET
+    impl = {"attn_impl": LEG_I_IMPLS["attn_impl"]} if ref else {}
+
+    def config(**kw):
+        return (vjepa_ref_config if ref else vjepa_config)(**{**impl, **kw})
+
+    cfg0, preset = config()
+    teacher_impl = LEG_I_IMPLS["teacher_attn_impl"] if ref else preset[
+        "teacher_attn_impl"]
     if cfg0.seq_len != VJ_N:
         raise AssertionError(f"the preset has {cfg0.seq_len} tokens")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1574,7 +1803,7 @@ def phase_vjepa_parity() -> None:
     momentum = preset["ema_momentum"]
 
     def step(teacher_attn_impl, **kw):
-        cfg, _ = vjepa_config(**kw)
+        cfg, _ = config(**kw)
         _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev,
                                                 teacher_attn_impl)
         state = init_fn(0)
@@ -1606,13 +1835,17 @@ def phase_vjepa_parity() -> None:
 
     ws = reset_launches()
     t0 = time.perf_counter()
-    k_loss, k_grad, (ratio, dt_max) = step(preset["teacher_attn_impl"])
+    with plain_attention_calls() as plain:
+        k_loss, k_grad, (ratio, dt_max) = step(teacher_impl)
     wall = time.perf_counter() - t0
     counts = {name: w.launches for name, w in ws.items()}
+    counts.update(d32_launches(ws))
     check_vjepa_launches("V-JEPA step", counts)
+    if ref:
+        check_d32_launches("V-JEPA step, reference heads", counts, plain, 1)
     ws = reset_launches()
     with plain_kernels():
-        p_loss, p_grad, _ = step(preset["teacher_attn_impl"])
+        p_loss, p_grad, _ = step(teacher_impl)
     if any(w.launches for w in ws.values()):
         raise AssertionError("the plain path launched a kernel")
     f_loss, f_grad, _ = step(None, attn_impl="xla", mlp_impl="xla",
@@ -1621,7 +1854,7 @@ def phase_vjepa_parity() -> None:
     k_err = float((k_grad - f_grad).norm()) / norm
     p_err = float((p_grad - f_grad).norm()) / norm
     rel_loss = abs(k_loss - p_loss) / abs(p_loss)
-    log(f"V-JEPA parity, one step of {VJEPA_PRESET.name} at batch 1 "
+    log(f"V-JEPA parity, one step of {path.name} at batch 1 "
         f"({int(mask.sum())} of {VJ_N} tokens are targets): loss kernels "
         f"{k_loss:.6f}, plain versions {p_loss:.6f}, f32 {f_loss:.6f}; rel "
         f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32 "
@@ -1645,13 +1878,15 @@ def phase_vjepa_parity() -> None:
                              f"student's update, not ~{expected}")
 
 
-def run_leg_d(work: Path, vols: Path, table: dict) -> None:
+def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
+                  cuts: dict, impls: dict | None = None) -> dict:
     """run_vjepa on the volumes (3 to train, 1 to evaluate) with a copy of
-    configs/vjepa_large_384_tpu.json, accumulation cut to LEG_D_ACCUM and
-    one checkpoint kept (each holds the student, the teacher and the AdamW
-    moments, ~5 GB at ViT-L): 4 steps, a checkpoint every 2, eval; then the
-    same to 6 steps, which resumes at 4. Asserts the logs, the checkpoints,
-    the export and that the V-JEPA kernels launched."""
+    the preset at preset_path, the keys of `cuts` cut (each logged with the
+    preset's value), `impls` added, and one checkpoint kept (each holds the
+    student, the teacher and the AdamW moments, ~5 GB at ViT-L): 4 steps, a
+    checkpoint every 2, eval; then the same to 6 steps, which resumes at 4.
+    Asserts the logs, the checkpoints and the export. Returns the launch
+    counts of the first run, the d-32 rows' among them (`d32_launches`)."""
     import numpy as np
     import torch
 
@@ -1660,21 +1895,24 @@ def run_leg_d(work: Path, vols: Path, table: dict) -> None:
     from smb_vision_tpu_torch.train.trainer import Trainer
 
     nii = [{"image": str(p)} for p in sorted(vols.glob("*.nii"))]
-    spec = work / "vjepa_data.json"
+    spec = work / f"vjepa_data_{leg}.json"
     spec.write_text(json.dumps({"train": nii[:3], "validation": nii[3:]}))
-    out = work / "vjepa_out"
-    preset = json.loads(VJEPA_PRESET.read_text())
-    log(f"leg D: {VJEPA_PRESET.name} with gradient_accumulation_steps cut "
-        f"from {preset['gradient_accumulation_steps']} to {LEG_D_ACCUM} and "
-        f"save_total_limit 1, on {len(nii)} volumes resampled to "
-        f"{preset['image_size']}^2 x {preset['depth']}")
+    out = work / f"vjepa_out_{leg}"
+    preset = json.loads(preset_path.read_text())
+    log(f"leg {leg}: {preset_path.name} with "
+        + ", ".join(f"{k} cut from {preset[k]} to {v}"
+                    for k, v in cuts.items())
+        + f", save_total_limit 1{', ' if impls else ''}"
+        + ", ".join(f"{k} {v}" for k, v in (impls or {}).items())
+        + f", on {len(nii)} volumes resampled to {preset['image_size']}^2 x "
+        f"{preset['depth']}")
 
     def run(steps):
-        path = work / f"vjepa_{steps}.json"
+        path = work / f"vjepa_{leg}_{steps}.json"
         path.write_text(json.dumps(dict(
-            preset, data_path=str(spec), output_dir=str(out),
-            gradient_accumulation_steps=LEG_D_ACCUM, num_train_steps=steps,
-            save_steps=2, save_total_limit=1, logging_steps=1, do_eval=True,
+            preset, **cuts, **(impls or {}), data_path=str(spec),
+            output_dir=str(out), num_train_steps=steps, save_steps=2,
+            save_total_limit=1, logging_steps=1, do_eval=True,
             num_workers=2)))
         t0 = time.perf_counter()
         res = run_vjepa([str(path)])
@@ -1683,11 +1921,12 @@ def run_leg_d(work: Path, vols: Path, table: dict) -> None:
     ws = reset_launches()
     res4, wall4 = run(4)
     counts = {name: w.launches for name, w in ws.items()}
+    counts.update(d32_launches(ws))
     ckpts4 = Trainer.checkpoint_steps(out / "checkpoints")
     res6, wall6 = run(6)
-    log(f"leg D: {res4} in {wall4:.1f} s, resumed {res6} in {wall6:.1f} s "
-        f"(preprocess + train + eval + save); launches of the first run "
-        f"{counts}")
+    log(f"leg {leg}: {res4} in {wall4:.1f} s, resumed {res6} in "
+        f"{wall6:.1f} s (preprocess + train + eval + save); launches of the "
+        f"first run {counts}")
     recs = [json.loads(line) for line in
             (out / "metrics.jsonl").read_text().splitlines()]
     train = [r for r in recs if "loss" in r]
@@ -1695,35 +1934,80 @@ def run_leg_d(work: Path, vols: Path, table: dict) -> None:
         log(f"  step {r['step']}: loss {r['loss']:.6f}, "
             f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
     if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
-        raise AssertionError(f"leg D logged steps "
+        raise AssertionError(f"leg {leg} logged steps "
                              f"{[r['step'] for r in train]}")
     for r in train:
         if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
-            raise AssertionError(f"leg D step record {r}")
+            raise AssertionError(f"leg {leg} step record {r}")
     for res in (res4, res6):
         if not math.isfinite(res.get("eval_loss", math.nan)):
-            raise AssertionError(f"leg D eval: {res}")
+            raise AssertionError(f"leg {leg} eval: {res}")
     ckpts = Trainer.checkpoint_steps(out / "checkpoints")
     if ckpts4 != [4] or ckpts != [6] or res6["train_steps"] != 6:
-        raise AssertionError(f"leg D checkpoints {ckpts4} then {ckpts}, "
+        raise AssertionError(f"leg {leg} checkpoints {ckpts4} then {ckpts}, "
                              f"result {res6}")
     blob = torch.load(out / "checkpoints" / "6" / "state.pt",
                       map_location="cpu", weights_only=True, mmap=True)
     if not {"model", "teacher", "optimizer"} <= set(blob):
-        raise AssertionError(f"leg D checkpoint holds {sorted(blob)}")
+        raise AssertionError(f"leg {leg} checkpoint holds {sorted(blob)}")
     del blob
     export = read_safetensors(out / "model.safetensors")
     if not (out / "config.json").exists() or not all(
             np.isfinite(v).all() for v in export.values()):
-        raise AssertionError("leg D: config.json or a finite "
+        raise AssertionError(f"leg {leg}: config.json or a finite "
                              "model.safetensors is missing")
     files = sorted(f"{p.relative_to(out)} ({p.stat().st_size / 2**20:.0f} "
                    f"MiB)" for p in out.rglob("*") if p.is_file())
-    log(f"leg D: checkpoints {ckpts4} then {ckpts} (with the EMA "
+    log(f"leg {leg}: checkpoints {ckpts4} then {ckpts} (with the EMA "
         f"teacher), model.safetensors {len(export)} tensors; files "
         f"{files}")
+    shutil.rmtree(out)
+    return counts
+
+
+def run_leg_d(work: Path, vols: Path, table: dict) -> None:
+    """Leg D: `run_vjepa_leg` with configs/vjepa_large_384_tpu.json,
+    accumulation cut to LEG_D_ACCUM; the V-JEPA kernels launch, K4 not."""
+    counts = run_vjepa_leg(work, vols, "D", VJEPA_PRESET,
+                           {"gradient_accumulation_steps": LEG_D_ACCUM})
     check_vjepa_launches("leg D", counts)
     table["flash_bwd_i8"]["launches"] = counts["flash_bwd_i8"]
+
+
+def check_d32_launches(what: str, counts: dict, plain: dict, micro: int,
+                       bwd: str = "flash_bwd_i8 d32") -> None:
+    """The reference-head predictor ran on the d-32 kernels in every
+    layer: over `micro` micro-batches its backward kernel `bwd` (K7, or K4
+    under "auto") launched PRED_LAYERS times each and the other not at all,
+    K1 at d 32 at least twice as often (forward and remat recompute, and
+    any eval) in whole multiples of PRED_LAYERS, and the plain attention
+    never ran at d 32."""
+    other = ({"flash_bwd d32", "flash_bwd_i8 d32"} - {bwd}).pop()
+    fwd = counts["flash_fwd d32"]
+    if (counts[bwd] != PRED_LAYERS * micro or counts[other]
+            or fwd < 2 * counts[bwd] or fwd % PRED_LAYERS
+            or plain.get(32, 0)):
+        raise AssertionError(f"{what}: d-32 launches {counts} over {micro} "
+                             f"micro-batches, plain attention calls by "
+                             f"head width {plain}")
+
+
+def run_leg_i(work: Path, vols: Path, table: dict) -> None:
+    """Leg I: `run_vjepa_leg` with configs/vjepa_large_384.json (the
+    reference heads: the predictor at 12 heads of 32) under the impls its
+    `_comment` recommends (LEG_I_IMPLS), micro-batch and accumulation cut
+    (LEG_I_CUTS). The V-JEPA kernels launch, K1 and K7 at d 32 in every
+    predictor layer, and the plain attention never runs."""
+    with plain_attention_calls() as plain:
+        counts = run_vjepa_leg(work, vols, "I", VJEPA_REF_PRESET, LEG_I_CUTS,
+                               LEG_I_IMPLS)
+    check_vjepa_launches("leg I", counts)
+    check_d32_launches("leg I", counts, plain,
+                       4 * LEG_I_CUTS["gradient_accumulation_steps"])
+    log(f"leg I: plain attention calls {plain}; d-32 launches "
+        f"{d32_launches(wrappers())} over both runs")
+    for row in ("flash_fwd d32", "flash_bwd_i8 d32"):
+        table[row]["launches"] = counts[row]
 
 
 def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
@@ -1752,6 +2036,136 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
         time_train_steps("V-JEPA", card, bs, flops, step, iters)
         del init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def parent_routing():
+    """Inside the block "auto" routes attention as the parent commit did:
+    K1 (and K4) at head widths 64 and 128, the plain attention at 32 (the
+    reference-head predictor). A yardstick of this phase only."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    auto = A._auto_impl
+    A._auto_impl = lambda q, bias: "xla" if q.shape[-1] == 32 else auto(
+        q, bias)
+    try:
+        yield
+    finally:
+        A._auto_impl = auto
+
+
+# the reference-head V-JEPA step: the preset's micro-batch 16 if it fits the
+# card, else the largest of these that does; and the batch at which the
+# parent's routing (the predictor's attention on the plain path, ~6 GB a
+# sample for one block's recompute) is timed beside the kernels
+REF_BATCHES = (16, 8, 4, 2, 1)
+REF_SAME_BATCH = 4
+
+
+def vjepa_params(cfg) -> int:
+    """Parameters of the V-JEPA2 model of cfg (student: encoder and
+    predictor), counted on the meta device."""
+    import torch
+
+    from smb_vision_tpu_torch.models.vjepa import VJEPA2Model
+
+    with torch.device("meta"):
+        return sum(p.numel() for p in VJEPA2Model(cfg).parameters())
+
+
+def phase_vjepa_ref_throughput(card: str, table: dict,
+                               iters: int = 3) -> None:
+    """V-JEPA steps of configs/vjepa_large_384.json (no accumulation): under
+    "auto" (K1 + K4 at d 64 and d 32) and under LEG_I_IMPLS (K1 + K7, the
+    teacher on K3) at the largest batch of REF_BATCHES that fits, then at
+    REF_SAME_BATCH under "auto" and under `parent_routing`; step ms, MFU
+    (`vjepa_flops_per_sample`, which with the parameter count is checked
+    to be the _tpu preset's) and peak memory by `time_train_steps`, and
+    each run's launches a step, which must show its routing (K4 at d 32's
+    under "auto" are its row's launches)."""
+    import torch
+
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import vjepa_flops_per_sample
+
+    dev = torch.device("cuda")
+    ref_cfg, preset = vjepa_ref_config()
+    tpu_cfg, _ = vjepa_config()
+    flops = vjepa_flops_per_sample(ref_cfg)
+    got = {name: (vjepa_flops_per_sample(c), vjepa_params(c))
+           for name, c in (("reference heads", ref_cfg),
+                           ("_tpu preset", tpu_cfg))}
+    log(f"V-JEPA reference heads: (TFLOP a sample, parameters) {got}")
+    if len(set(got.values())) != 1:
+        raise AssertionError(f"the _tpu preset's FLOPs or parameters "
+                             f"differ from the reference heads': {got}")
+    routes = {"auto": ({}, None, contextlib.nullcontext),
+              "preset impls": ({"attn_impl": LEG_I_IMPLS["attn_impl"]},
+                               LEG_I_IMPLS["teacher_attn_impl"],
+                               contextlib.nullcontext),
+              "parent routing": ({}, None, parent_routing)}
+
+    def run(route: str, bs: int) -> bool:
+        """Time `route` at batch bs; False if it does not fit the card."""
+        kw, teacher, routing = routes[route]
+        cfg, _ = vjepa_ref_config(**kw)
+        _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev, teacher)
+        state = init_fn(0)
+
+        def step(i):
+            gen = torch.Generator(device=dev).manual_seed(60 + i)
+            px = torch.rand((bs, cfg.frames_per_clip, 1, cfg.crop_size,
+                             cfg.crop_size), generator=gen, device=dev)
+            return step_fn(state, {"pixel_values": px},
+                           step_generator(0, i))
+
+        ws = reset_launches()
+        fits = True
+        try:
+            with routing(), plain_attention_calls() as plain:
+                time_train_steps(f"V-JEPA reference heads, {route},", card,
+                                 bs, flops, step, iters)
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        del state, init_fn, step_fn, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not fits:
+            log(f"V-JEPA reference heads, {route}: batch {bs} does not fit "
+                f"the card")
+            return False
+        steps = iters + 2   # time_train_steps: warm-up, iters, profiled
+        counts = {name: w.launches // steps for name, w in ws.items()
+                  if w.launches}
+        d32 = {k: v // steps for k, v in d32_launches(ws).items()}
+        plain = {k: v // steps for k, v in plain.items()}
+        log(f"V-JEPA reference heads, {route}, batch {bs}: launches a step "
+            f"{counts}, d 32 {d32}, plain attention calls by head width "
+            f"{plain}")
+        if route == "parent routing":
+            if d32["flash_fwd d32"] or not plain.get(32):
+                raise AssertionError(f"{route}: the predictor did not run "
+                                     f"the plain attention")
+        else:
+            bwd = "flash_bwd d32" if route == "auto" else "flash_bwd_i8 d32"
+            check_d32_launches(f"V-JEPA reference heads, {route}", d32,
+                               plain, 1, bwd)
+            if route == "auto":
+                table["flash_bwd d32"]["launches"] = d32["flash_bwd d32"]
+        return True
+
+    for route in ("auto", "preset impls"):
+        fitted = next(bs for bs in REF_BATCHES if run(route, bs))
+        if fitted != REF_BATCHES[0]:
+            log(f"V-JEPA reference heads, {route}: the preset's micro-batch "
+                f"{REF_BATCHES[0]} does not fit; {fitted} is the largest "
+                f"that does")
+    for route in ("auto", "parent routing"):
+        if not run(route, REF_SAME_BATCH):
+            raise AssertionError(f"{route} at batch {REF_SAME_BATCH} does "
+                                 f"not fit the card")
+
+
 
 # DINOv2-giant: the published facebook/dinov2-giant config (ViT-g/14, Oquab
 # et al. 2023: hidden 1536, 40 layers, 24 heads of 64, mlp_ratio 4,
@@ -2326,11 +2740,12 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K3, K4, K7 and K8 by a part of their mangled names (this tree's, the
-# other's), and every kernel of the MLP forward and backward sources (K2,
-# K6, K5a, K9 and their LayerNorm pass, K5b) by its whole name, but the
-# kernel this tree adds there (K10b, NEW_KERNELS); K10a and K10b are the
-# ones this tree changes
+# K3, K4, K7 and K8 at d 64 and 128 by a part of their mangled names (this
+# tree's, the other's), and every kernel of the MLP forward and backward
+# and the glue sources (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a
+# and its row pass, K10b) by its whole name, but any kernel this tree adds
+# there (NEW_KERNELS); the d-32 instantiations of K1, K4 and K7 are the ones
+# this tree adds
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (64, 128)
              for k, this, other in (
@@ -2344,8 +2759,8 @@ UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
                   "flash_bwd_i8_sm90_kernelILi{d}EE"),
                  ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
                   "flash_fwd_i8pv_kernelILi{d}EE"))}
-UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu")
-NEW_KERNELS = ("mlp_gemm_kernelILi4E",)
+UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
+NEW_KERNELS: tuple = ()
 
 
 def _anon(name: str) -> str:
@@ -2369,20 +2784,24 @@ def compare_sass(sass: dict) -> None:
             and not any(new in fn for new in NEW_KERNELS)}
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
-    log(f"against: SASS of the MLP forward and backward kernels (K2, K6, "
-        f"K5a, K9, K5b): {len(same)} of {len(this)} functions identical"
+    log(f"against: SASS of the MLP forward and backward and the glue "
+        f"kernels (K2, K6, K5a, K9, K5b, K10a, K10b): {len(same)} of "
+        f"{len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
 
 def unchanged_outputs(dev) -> list:
     """The outputs of the UNCHANGED kernels on seeded inputs: K1, K3 and
-    K8 at d 64 and 128, K4 at the MIM encoder's shape, K7 at the V-JEPA
-    encoder's, K2, K6 and K5a at the embed shape, K5b at the MIM
-    encoder's and K9 at DINOv2-giant batch 1."""
+    K8 at d 64 and 128, K4 at the MIM encoder's shape and at the V-JEPA
+    encoder's (d 128), K7 at the V-JEPA encoder's and the reference-head
+    encoder's (d 64), K2, K6 and K5a at the embed shape, K5b at the MIM
+    encoder's, K9 at DINOv2-giant batch 1 and K10a and K10b at the embed
+    shape."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import attn_glue as G
     from smb_vision_tpu_torch.ops import mlp as M
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -2404,6 +2823,11 @@ def unchanged_outputs(dev) -> list:
     q, k, v, do = (r(1, VJ_N, 8, 128, s=0.4, dtype=bf) for _ in range(4))
     outs += A.flash_attention_bwd_i8(q, k, v, *A.flash_attention(
         q, k, v, with_lse=True), do)
+    outs += A.flash_attention_bwd(q, k, v, *A.flash_attention(
+        q, k, v, with_lse=True), do)
+    q, k, v, do = (r(1, VJ_N, 16, 64, s=0.4, dtype=bf) for _ in range(4))
+    outs += A.flash_attention_bwd_i8(q, k, v, *A.flash_attention(
+        q, k, v, with_lse=True), do)
     x = r(MAIN_N, HIDDEN, dtype=bf)
     lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
     w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
@@ -2419,6 +2843,11 @@ def unchanged_outputs(dev) -> list:
         r(DINO_N, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
         r(2 * f, k, s=k ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
         r(k, f, s=f ** -0.5, dtype=bf).t(), r(k, s=0.1), eps=1e-6))
+    lin = [r(HIDDEN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
+           for _ in range(4)]
+    bs = [r(HIDDEN, s=0.1) for _ in range(4)]
+    outs += G.qkv_ln_fused(x, lnw, lnb, *lin[:3], *bs[:3])
+    outs.append(G.out_res_fused(x, outs[-1], lin[3], bs[3]))
     return outs
 
 
@@ -2504,8 +2933,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
     wrappers call either library. The kernels that must match the other's
-    (UNCHANGED: the flash kernels and the MLP forward and backward K2,
-    K6, K5a, K9 and K5b) are compared by SASS and by output, bit for bit;
+    (UNCHANGED: the flash kernels at d 64 and 128, the MLP forward and
+    backward K2, K6, K5a, K9 and K5b, and the glue K10a and K10b) are
+    compared by SASS and by output, bit for bit;
     then, in turns (other, this, this, other a round), the flash kernels
     at their table shapes (K3 at d 64 and 128, K7 at the V-JEPA encoder's
     and the reference head's), the MLP family (K2 and K6 at the embed
@@ -2549,7 +2979,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         _build._lib = handle
         outs[side] = unchanged_outputs(dev)
     same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K5b and K9 "
+    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K5b, K9, "
+        f"K10a and K10b "
         f"bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
         f"tensors)")
     del outs
@@ -2749,7 +3180,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
-    import smb_vision_tpu_torch  # noqa: F401  (fails outside a checkout)
+    try:
+        import smb_vision_tpu_torch  # noqa: F401
+    except ImportError as err:
+        raise SystemExit(f"chip_smoke: no smb_vision_tpu_torch beside the "
+                         f"script ({err}); run it from a checkout of the "
+                         f"repository") from None
 
     card = phase_device()
     phase_build()
@@ -2774,6 +3210,7 @@ def main() -> int:
         run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         run_leg_d(work, vols, table)
+        run_leg_i(work, vols, table)
         spec = write_labelled_spec(work, vols)
         run_leg_e(work, spec)
         run_leg_f(work, spec, table)
@@ -2785,6 +3222,8 @@ def main() -> int:
     phase_train_throughput(card)
     phase_vjepa_parity()
     phase_vjepa_throughput(card)
+    phase_vjepa_parity(ref=True)
+    phase_vjepa_ref_throughput(card, table)
     phase_dinov2_parity()
     phase_finetune_throughput(card)
     log(card)

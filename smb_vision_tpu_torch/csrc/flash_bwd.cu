@@ -28,7 +28,7 @@
 //   - warpgroup 0 is the producer: one thread issues TMA loads of the
 //     block's own rows (q and do in the dq pass, k and v in the dk/dv pass)
 //     once, and of the streamed pair (k, v in tiles of 64 keys; q, do in
-//     tiles of 64 queries at d = 64, 32 at d = 128) through a ring of 4
+//     tiles of 64 queries at d <= 64, 32 at d = 128) through a ring of 4
 //     stages with full and empty mbarriers; in the dk/dv pass its 32 lanes
 //     also stage the tile's lse2 and delta (+inf and 0 past Nq, so those
 //     columns give p = ds = 0). Warpgroups 1 and 2 are the consumers, 64
@@ -49,6 +49,12 @@
 // Ragged lengths: rows past their length read as zero (TMA); in the dq
 // pass kv columns past Nk are masked to p = 0; rows a block owns past its
 // length are computed and not stored.
+// At d = 32 (the V-JEPA2 predictor's heads) every bf16 tile is one panel
+// of 32 columns in the 64-byte swizzle (sm90.cuh): s and dp take two k16
+// steps, dq, dk and dv are N = 32 accumulators whose B operands (k, q, do)
+// are read MN-major from the same tiles, and the tiles are d 64's. With
+// 4*d flops per score against one exp2 per score and pass, the exp2 and
+// elementwise work weigh twice as much against the products as at d 64.
 //
 // K7 is K4 with the two recomputed products on int8: from per-(batch,
 // head) symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and
@@ -68,6 +74,8 @@
 //     d 128 (sm90.cuh). An s32 sum becomes a float by one integer add
 //     (i8_exponent), and its scale folds into the FFMA of the exponent and
 //     of dp - delta;
+//   - at d 32 an int8 row is 32 bytes: one k32 step in the 32-byte swizzle
+//     (sm90.cuh), the bf16 tiles as K4's at d 32;
 //   - p and ds are written over the s32 accumulators of s and dp, as K4
 //     writes ds over s, so the consumers hold no third score array;
 //   - the producer streams int8 and bf16 tiles side by side: in the dq
@@ -126,24 +134,19 @@ constexpr int kStages = 4;
 
 // shared memory of a pass: the block's own two operands (ROWS rows each),
 // a ring of kStages stages of the streamed pair (BT rows each), AUX bytes
-// of lse2 and delta a stage, and the barriers
+// of lse2 and delta a stage, and the barriers; bf16 tiles in the panels of
+// sm90.cuh (64 columns, or one of 32 at d 32)
 template <int D, int ROWS, int BT, int AUX>
 struct BwdTiles {
-  static constexpr int PANELS = D / 64;             // 64-column panels
-  static constexpr int OWN = PANELS * ROWS * 128;   // one own operand
-  static constexpr int TILE = PANELS * BT * 128;    // one streamed operand
+  using P = Panels<D>;
+  static constexpr int PANELS = P::N;
+  static constexpr int OWN = PANELS * ROWS * P::ROW;  // one own operand
+  static constexpr int TILE = PANELS * BT * P::ROW;   // one streamed operand
   static constexpr int STAGE = 2 * TILE;
   static constexpr int BARS = (2 * kStages + 1) * 8;
   static constexpr int BYTES =
       1024 + 2 * OWN + kStages * (STAGE + AUX) + BARS;
 };
-
-// the K-major descriptor of k-step kk (16 columns) of rows row0.. of a
-// tile of `rows` rows at shared address a
-__device__ __forceinline__ uint64_t kmajor(uint32_t a, int rows, int row0,
-                                           int kk) {
-  return desc_sw128(a + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32);
-}
 
 // dq pass: block bx owns 128 query rows of one (batch, head)
 template <int D>
@@ -161,6 +164,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                                         char* smem_raw) {
   constexpr int BM = DqShape<D>::BM, BN = DqShape<D>::BN, ST = kStages;
   using T = BwdTiles<D, BM, BN, 0>;
+  using P = typename T::P;
   char* qs = align1024(smem_raw);       // q, then do
   char* ring = qs + 2 * T::OWN;         // stage s: k panels, then v panels
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE);
@@ -187,9 +191,9 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
       mbar_expect_tx(own, 2 * T::OWN);
 #pragma unroll
       for (int pn = 0; pn < T::PANELS; ++pn) {
-        tma_load_4d(qs + pn * BM * 128, &tq, own, pn * 64, h, q0, b);
-        tma_load_4d(qs + T::OWN + pn * BM * 128, &tdo, own, pn * 64, h, q0,
-                    b);
+        tma_load_4d(qs + pn * BM * P::ROW, &tq, own, pn * P::COLS, h, q0, b);
+        tma_load_4d(qs + T::OWN + pn * BM * P::ROW, &tdo, own, pn * P::COLS,
+                    h, q0, b);
       }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
@@ -198,10 +202,10 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
         char* ks = ring + s * T::STAGE;
 #pragma unroll
         for (int pn = 0; pn < T::PANELS; ++pn) {
-          tma_load_4d(ks + pn * BN * 128, &tk, &full[s], pn * 64, h, it * BN,
-                      b);
-          tma_load_4d(ks + T::TILE + pn * BN * 128, &tv, &full[s], pn * 64, h,
+          tma_load_4d(ks + pn * BN * P::ROW, &tk, &full[s], pn * P::COLS, h,
                       it * BN, b);
+          tma_load_4d(ks + T::TILE + pn * BN * P::ROW, &tv, &full[s],
+                      pn * P::COLS, h, it * BN, b);
         }
       }
     }
@@ -232,18 +236,18 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
       const uint32_t ka = ra + (it % ST) * T::STAGE, va = ka + T::TILE;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BN, 0>(s, kmajor(qa, BM, cw * 64, kk),
-                        kmajor(ka, BN, 0, kk), kk > 0);
+        wgmma_ss<BN, 0>(s, desc_k<D>(qa, BM, cw * 64, kk),
+                        desc_k<D>(ka, BN, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BN, 0>(dp, kmajor(doa, BM, cw * 64, kk),
-                        kmajor(va, BN, 0, kk), kk > 0);
+        wgmma_ss<BN, 0>(dp, desc_k<D>(doa, BM, cw * 64, kk),
+                        desc_k<D>(va, BN, 0, kk), kk > 0);
     };
     auto issue_dq = [&](int it) {  // dq += ds k over the tile's keys
       const uint32_t ka = ra + (it % ST) * T::STAGE;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, dsa[kk], desc_sw128(ka + kk * 2048, BN * 128), 1);
+        wgmma_rs<D, 1>(acc, dsa[kk], desc_mn<D>(ka, BN, kk), 1);
     };
 
     // ds = p (dp - delta), p = exp2(s c - lse2), into s; kv columns past
@@ -304,7 +308,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
 template <int D>
 struct DkvShape {
   static constexpr int BN = 128;                 // kv rows a block owns
-  static constexpr int BQ = D == 64 ? 64 : 32;   // queries of a tile
+  static constexpr int BQ = D <= 64 ? 64 : 32;   // queries of a tile
   static constexpr int AUX = 2 * BQ * 4;         // lse2 and delta
 };
 
@@ -318,6 +322,7 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
   using Sh = DkvShape<D>;
   constexpr int BN = Sh::BN, BQ = Sh::BQ, ST = kStages;
   using T = BwdTiles<D, BN, BQ, Sh::AUX>;
+  using P = typename T::P;
   char* ks = align1024(smem_raw);       // k, then v
   char* ring = ks + 2 * T::OWN;         // stage s: q panels, then do panels
   float* aux = reinterpret_cast<float*>(ring + ST * T::STAGE);
@@ -349,9 +354,10 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
         mbar_expect_tx(own, 2 * T::OWN);
 #pragma unroll
         for (int pn = 0; pn < T::PANELS; ++pn) {
-          tma_load_4d(ks + pn * BN * 128, &tk, own, pn * 64, h, k0, b);
-          tma_load_4d(ks + T::OWN + pn * BN * 128, &tv, own, pn * 64, h, k0,
+          tma_load_4d(ks + pn * BN * P::ROW, &tk, own, pn * P::COLS, h, k0,
                       b);
+          tma_load_4d(ks + T::OWN + pn * BN * P::ROW, &tv, own,
+                      pn * P::COLS, h, k0, b);
         }
       }
       for (int it = 0; it < ntiles; ++it) {
@@ -368,10 +374,10 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
           char* qt = ring + s * T::STAGE;
 #pragma unroll
           for (int pn = 0; pn < T::PANELS; ++pn) {
-            tma_load_4d(qt + pn * BQ * 128, &tq, &full[s], pn * 64, h,
-                        it * BQ, b);
-            tma_load_4d(qt + T::TILE + pn * BQ * 128, &tdo, &full[s], pn * 64,
+            tma_load_4d(qt + pn * BQ * P::ROW, &tq, &full[s], pn * P::COLS,
                         h, it * BQ, b);
+            tma_load_4d(qt + T::TILE + pn * BQ * P::ROW, &tdo, &full[s],
+                        pn * P::COLS, h, it * BQ, b);
           }
         } else {
           mbar_arrive(&full[s]);
@@ -399,22 +405,22 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
       const uint32_t qt = ra + (it % ST) * T::STAGE, dot = qt + T::TILE;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BQ, 0>(st, kmajor(ka, BN, cw * 64, kk),
-                        kmajor(qt, BQ, 0, kk), kk > 0);
+        wgmma_ss<BQ, 0>(st, desc_k<D>(ka, BN, cw * 64, kk),
+                        desc_k<D>(qt, BQ, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BQ, 0>(dpt, kmajor(va, BN, cw * 64, kk),
-                        kmajor(dot, BQ, 0, kk), kk > 0);
+        wgmma_ss<BQ, 0>(dpt, desc_k<D>(va, BN, cw * 64, kk),
+                        desc_k<D>(dot, BQ, 0, kk), kk > 0);
     };
     // dv += p^T do, dk += ds^T q over the tile's queries
     auto issue_dkv = [&](int it) {
       const uint32_t qt = ra + (it % ST) * T::STAGE, dot = qt + T::TILE;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dv, pa[kk], desc_sw128(dot + kk * 2048, BQ * 128), 1);
+        wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(dot, BQ, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dk, da[kk], desc_sw128(qt + kk * 2048, BQ * 128), 1);
+        wgmma_rs<D, 1>(dk, da[kk], desc_mn<D>(qt, BQ, kk), 1);
     };
     // p^T = exp2(s^T c - lse2) into st, ds^T = p^T (dp^T - delta) into dpt
     auto elementwise = [&](int it) {
@@ -525,8 +531,8 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
       {&nq, p.q, p.Nq, Sk::BQ, p.q_sb, p.q_sn, p.q_sh},
       {&ndo, p.dout, p.Nq, Sk::BQ, p.o_sb, p.o_sn, p.o_sh}};
   for (const auto& m : maps) {
-    cudaError_t err = make_map(m.map, m.base, B, m.n, p.H, D, m.sb, m.sn,
-                               m.sh, m.rows);
+    cudaError_t err = make_map_head(m.map, m.base, B, m.n, p.H, D, m.sb,
+                                    m.sn, m.sh, m.rows);
     if (err != cudaSuccess) return err;
   }
   auto kernel = flash_bwd_sm90_kernel<D>;
@@ -576,13 +582,14 @@ struct BwdI8Params {
 
 // shared memory of a K7 pass: its two own int8 operands (ROWS rows of D
 // bytes), a ring of kStages stages of the streamed tiles (two int8 tiles
-// of BT rows and N16 bf16 tiles of BT rows in 64-column panels), AUX
+// of BT rows and N16 bf16 tiles of BT rows in the panels of sm90.cuh), AUX
 // bytes of lse2 and delta a stage, and the barriers
 template <int D, int ROWS, int BT, int N16, int AUX>
 struct BwdI8Tiles {
+  using P = Panels<D>;
   static constexpr int OWN = ROWS * D;              // one own operand
   static constexpr int T8 = BT * D;                 // one int8 tile
-  static constexpr int T16 = (D / 64) * BT * 128;   // one bf16 tile
+  static constexpr int T16 = P::N * BT * P::ROW;    // one bf16 tile
   static constexpr int STAGE = 2 * T8 + N16 * T16;
   static constexpr int BARS = (2 * kStages + 1) * 8;
   static constexpr int BYTES =
@@ -615,6 +622,7 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
                                            char* smem_raw) {
   constexpr int BM = DqShape<D>::BM, BN = DqShape<D>::BN, ST = kStages;
   using T = BwdI8Tiles<D, BM, BN, 1, 0>;
+  using P = typename T::P;
   char* qs = align1024(smem_raw);  // q8, then do8
   char* ring = qs + 2 * T::OWN;    // stage s: k8, v8, then k's panels
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE);
@@ -649,9 +657,9 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
         tma_load_4d(ks, &tk8, &full[s], 0, h, it * BN, b);
         tma_load_4d(ks + T::T8, &tv8, &full[s], 0, h, it * BN, b);
 #pragma unroll
-        for (int pn = 0; pn < D / 64; ++pn)
-          tma_load_4d(ks + 2 * T::T8 + pn * BN * 128, &tkb, &full[s],
-                      pn * 64, h, it * BN, b);
+        for (int pn = 0; pn < P::N; ++pn)
+          tma_load_4d(ks + 2 * T::T8 + pn * BN * P::ROW, &tkb, &full[s],
+                      pn * P::COLS, h, it * BN, b);
       }
     }
   } else {  // consumer warpgroups cw = 0, 1: 64 query rows each
@@ -696,7 +704,7 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
       const uint32_t kb = ra + (it % ST) * T::STAGE + 2 * T::T8;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, dsa[kk], desc_sw128(kb + kk * 2048, BN * 128), 1);
+        wgmma_rs<D, 1>(acc, dsa[kk], desc_mn<D>(kb, BN, kk), 1);
     };
 
     // ds = p (dp sdv - delta), p = exp2(s sqk - lse2); kv columns past
@@ -768,6 +776,7 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
   using Sh = DkvShape<D>;
   constexpr int BN = Sh::BN, BQ = Sh::BQ, ST = kStages;
   using T = BwdI8Tiles<D, BN, BQ, 2, Sh::AUX>;
+  using P = typename T::P;
   char* ks = align1024(smem_raw);  // k8, then v8
   char* ring = ks + 2 * T::OWN;    // stage s: q8, do8, q's, then do's panels
   float* aux = reinterpret_cast<float*>(ring + ST * T::STAGE);
@@ -827,11 +836,11 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
           tma_load_4d(qt, &tq8, &full[s], 0, h, it * BQ, b);
           tma_load_4d(qt + T::T8, &tdo8, &full[s], 0, h, it * BQ, b);
 #pragma unroll
-          for (int pn = 0; pn < D / 64; ++pn) {
-            tma_load_4d(qt + 2 * T::T8 + pn * BQ * 128, &tqb, &full[s],
-                        pn * 64, h, it * BQ, b);
-            tma_load_4d(qt + 2 * T::T8 + T::T16 + pn * BQ * 128, &tdob,
-                        &full[s], pn * 64, h, it * BQ, b);
+          for (int pn = 0; pn < P::N; ++pn) {
+            tma_load_4d(qt + 2 * T::T8 + pn * BQ * P::ROW, &tqb, &full[s],
+                        pn * P::COLS, h, it * BQ, b);
+            tma_load_4d(qt + 2 * T::T8 + T::T16 + pn * BQ * P::ROW, &tdob,
+                        &full[s], pn * P::COLS, h, it * BQ, b);
           }
         }
         float* as = aux + s * 2 * BQ;
@@ -882,10 +891,10 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
       const uint32_t dob = qb + T::T16;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dv, pa[kk], desc_sw128(dob + kk * 2048, BQ * 128), 1);
+        wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(dob, BQ, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dk, da[kk], desc_sw128(qb + kk * 2048, BQ * 128), 1);
+        wgmma_rs<D, 1>(dk, da[kk], desc_mn<D>(qb, BQ, kk), 1);
     };
     // p^T = exp2(s^T sqk - lse2), ds^T = p^T (dp^T sdv - delta)
     auto elementwise = [&](int it) {
@@ -1003,8 +1012,8 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
       {&ndob, p.dobf, p.Nq, Sk::BQ, p.ob_sb, p.ob_sn, p.ob_sh, false}};
   for (const auto& m : maps) {
     cudaError_t err =
-        (m.i8 ? make_map_i8 : make_map)(m.map, m.base, B, m.n, p.H, D, m.sb,
-                                        m.sn, m.sh, m.rows);
+        (m.i8 ? make_map_i8 : make_map_head)(m.map, m.base, B, m.n, p.H, D,
+                                             m.sb, m.sn, m.sh, m.rows);
     if (err != cudaSuccess) return err;
   }
   auto kernel = flash_bwd_i8_sm90_kernel<D>;
@@ -1021,10 +1030,10 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D) through strides; strides: 21
-// int64 in elements, (batch, token, head) for q, k, v, dout, dq, dk, dv
-// (q, k, v and dout are read by TMA: base pointers and strides 16-byte
-// multiples).
+// q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D), D 32, 64 or 128, through
+// strides; strides: 21 int64 in elements, (batch, token, head) for q, k,
+// v, dout, dq, dk, dv (q, k, v and dout are read by TMA: base pointers and
+// strides 16-byte multiples).
 // lse2 and delta: f32 (B, H, Nq), contiguous. scale_log2 = scale*log2(e)
 // as the forward took it. Launches the dq and dk/dv passes, in one grid,
 // on `stream`. Returns a cudaError_t (0 on success).
@@ -1060,13 +1069,15 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
   const int BH = B * H;
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
+  if (D == 32) return (int)launch<32>(p, B, BH, s);
   if (D == 64) return (int)launch<64>(p, B, BH, s);
   if (D == 128) return (int)launch<128>(p, B, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K7. q8, k8, v8, do8: int8 (B, N, H, D); kbf, qbf, dobf: the bf16 k, q and
-// do; dq, dk, dv: bf16 (B, N, H, D); all through strides: 30 int64 in
+// K7. q8, k8, v8, do8: int8 (B, N, H, D), D 32, 64 or 128; kbf, qbf,
+// dobf: the bf16 k, q and do; dq, dk, dv: bf16 (B, N, H, D); all through
+// strides: 30 int64 in
 // elements, (batch, token, head) for q8, k8, v8, do8, kbf, qbf, dobf, dq,
 // dk, dv (the seven inputs are read by TMA: base pointers and strides
 // 16-byte multiples). lse2 and delta: f32 (B, H, Nq), contiguous; sqk =
@@ -1114,6 +1125,7 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
   const int BH = B * H;
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
+  if (D == 32) return (int)launch_i8<32>(p, B, BH, s);
   if (D == 64) return (int)launch_i8<64>(p, B, BH, s);
   if (D == 128) return (int)launch_i8<128>(p, B, BH, s);
   return (int)cudaErrorInvalidValue;

@@ -43,6 +43,13 @@
 //   - the running max m is kept raw and c is folded into the exp2's FFMA.
 // Ragged lengths: q rows past Nq read as zero and are not stored; keys past
 // Nk read as zero and their scores are masked to -inf.
+// At d = 32 (the V-JEPA2 predictor's heads) a bf16 row is 64 bytes: q, k
+// and v are one panel of 32 columns in the 64-byte swizzle (sm90.cuh), S
+// takes two k16 steps and P V an N = 32 accumulator, with d 64's tiles
+// (BN 128). The exp2 work is then twice the tensor work (N 9,216, 12
+// heads: 0.13 ms at 989 TFLOP/s against ~0.27 ms of ex2), so the
+// multi-function units bound it and the ping-pong matters more than at
+// d 64: one warpgroup's exp2 runs under the other's GEMMs.
 //
 // K3 is K1 with the score product on int8 (the I8 instantiation). Bound
 // on the H100 at N = 20,480, 12 heads of 64: the int8 q8 k8^T at 1,979
@@ -377,16 +384,17 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 
 template <int D, bool I8>
 struct FwdTiles {
+  using P = Panels<D>;                           // bf16 panels (sm90.cuh)
   static constexpr int BM = 128;                 // query rows a block owns
-  static constexpr int BN = D == 64 ? 128 : 64;  // keys of a streamed tile
+  static constexpr int BN = D <= 64 ? 128 : 64;  // keys of a streamed tile
   static constexpr int STAGES = 4;
-  static constexpr int PANELS = D / 64;          // 64-column bf16 panels
-  // bytes of a q or k row in its tile: a 128-byte bf16 panel (K1), or the
+  static constexpr int PANELS = P::N;
+  // bytes of a q or k row in its tile: a bf16 panel's row (K1), or the
   // whole int8 row (K3)
-  static constexpr int QK_ROW = I8 ? D : 128;
-  static constexpr int Q_BYTES = I8 ? BM * D : PANELS * BM * 128;
-  static constexpr int K_BYTES = I8 ? BN * D : PANELS * BN * 128;
-  static constexpr int V_BYTES = PANELS * BN * 128;
+  static constexpr int QK_ROW = I8 ? D : P::ROW;
+  static constexpr int Q_BYTES = I8 ? BM * D : PANELS * BM * P::ROW;
+  static constexpr int K_BYTES = I8 ? BN * D : PANELS * BN * P::ROW;
+  static constexpr int V_BYTES = PANELS * BN * P::ROW;
   static constexpr int STAGE = K_BYTES + V_BYTES;
   static constexpr int ONES = I8 ? 256 : 0;  // K3: bf16 ones (desc_ones)
   static constexpr int BARS = (2 * STAGES + 1) * 8;
@@ -400,6 +408,7 @@ __global__ void __launch_bounds__(3 * kWG, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const FlashParams p) {
   using T = FwdTiles<D, I8>;
+  using P = typename T::P;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
   extern __shared__ char smem_raw[];
   char* qs = align1024(smem_raw);
@@ -441,7 +450,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       } else {
 #pragma unroll
         for (int pn = 0; pn < T::PANELS; ++pn)
-          tma_load_4d(qs + pn * BM * 128, &tq, qbar, pn * 64, h, q0, b);
+          tma_load_4d(qs + pn * BM * P::ROW, &tq, qbar, pn * P::COLS, h, q0,
+                      b);
       }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
@@ -452,15 +462,15 @@ __global__ void __launch_bounds__(3 * kWG, 1)
           tma_load_4d(ks, &tk, &full[s], 0, h, it * BN, b);
 #pragma unroll
           for (int pn = 0; pn < T::PANELS; ++pn)
-            tma_load_4d(ks + T::K_BYTES + pn * BN * 128, &tv, &full[s],
-                        pn * 64, h, it * BN, b);
+            tma_load_4d(ks + T::K_BYTES + pn * BN * P::ROW, &tv, &full[s],
+                        pn * P::COLS, h, it * BN, b);
         } else {
 #pragma unroll
           for (int pn = 0; pn < T::PANELS; ++pn) {
-            tma_load_4d(ks + pn * BN * 128, &tk, &full[s], pn * 64, h,
-                        it * BN, b);
-            tma_load_4d(ks + T::K_BYTES + pn * BN * 128, &tv, &full[s],
-                        pn * 64, h, it * BN, b);
+            tma_load_4d(ks + pn * BN * P::ROW, &tk, &full[s], pn * P::COLS,
+                        h, it * BN, b);
+            tma_load_4d(ks + T::K_BYTES + pn * BN * P::ROW, &tv, &full[s],
+                        pn * P::COLS, h, it * BN, b);
           }
         }
       }
@@ -503,9 +513,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<BN, 0>(
-              s, desc_sw128(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32),
-              desc_sw128(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32), kk > 0);
+          wgmma_ss<BN, 0>(s, desc_k<D>(qa, BM, 0, kk),
+                          desc_k<D>(ka, BN, 0, kk), kk > 0);
       }
     };
     // after the wait on tile it's scores: K3's s32 scores x into s as the
@@ -529,7 +538,7 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       const uint32_t va = kva + (it % ST) * T::STAGE + T::K_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        wgmma_rs<D, 1>(o, pa[kk], desc_sw128(va + kk * 2048, BN * 128), 1);
+        wgmma_rs<D, 1>(o, pa[kk], desc_mn<D>(va, BN, kk), 1);
         if constexpr (I8) wgmma_rs_n8(ls, pa[kk], desc_ones(smem_u32(ones)));
       }
     };
@@ -664,14 +673,15 @@ template <int D, bool I8>
 cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                         cudaStream_t stream) {
   using T = FwdTiles<D, I8>;
-  auto qk_map = I8 ? make_map_i8 : make_map;
+  auto qk_map = I8 ? make_map_i8 : make_map_head;
   CUtensorMap tq, tk, tv;
   cudaError_t err = qk_map(&tq, p.q, B, p.Nq, p.H, D, p.q_sb, p.q_sn,
                            p.q_sh, T::BM);
   if (err == cudaSuccess)
     err = qk_map(&tk, p.k, B, p.Nk, p.H, D, p.k_sb, p.k_sn, p.k_sh, T::BN);
   if (err == cudaSuccess)
-    err = make_map(&tv, p.v, B, p.Nk, p.H, D, p.v_sb, p.v_sn, p.v_sh, T::BN);
+    err = make_map_head(&tv, p.v, B, p.Nk, p.H, D, p.v_sb, p.v_sn, p.v_sh,
+                        T::BN);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_sm90_kernel<D, I8>;
   err = cudaFuncSetAttribute(kernel,
@@ -698,8 +708,9 @@ cudaError_t launch_pv(const PvParams& p, int BH, cudaStream_t stream) {
 }  // namespace
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
-// int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
-// otherwise K1 (q, k bf16, scores scaled by scale_log2). q, k and v are
+// int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk; D 64 or
+// 128); otherwise K1 (q, k bf16, scores scaled by scale_log2; D 32, 64 or
+// 128). q, k and v are
 // read by TMA, so their base pointers and strides must be 16-byte
 // multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
@@ -732,6 +743,7 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
     if (D == 64) return (int)launch_sm90<64, true>(p, B, BH, s);
     if (D == 128) return (int)launch_sm90<128, true>(p, B, BH, s);
   } else {
+    if (D == 32) return (int)launch_sm90<32, false>(p, B, BH, s);
     if (D == 64) return (int)launch_sm90<64, false>(p, B, BH, s);
     if (D == 128) return (int)launch_sm90<128, false>(p, B, BH, s);
   }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (K1, K3, K4,
-// K7): shared-memory matrix descriptors for the 128- and 64-byte swizzles,
+// K7): shared-memory matrix descriptors for the 128-, 64- and 32-byte
+// swizzles,
 // wgmma m64nNk16 bf16 -> f32 with A from shared memory or from registers,
 // wgmma m64nNk32 s8 -> s32 with both operands in shared memory, mbarriers,
 // 4-D TMA tile loads and the host-side tensor maps they read, setmaxnreg
@@ -16,12 +17,23 @@
 //   - MN-major (the contraction runs along the rows, e.g. p v over keys):
 //     8-row groups 1024 bytes apart (SBO), 64-column panels LBO bytes
 //     apart; the k-step kk of 16 rows starts kk * 2048 bytes in.
+// A head of width 32 is one panel of 32 columns: rows of 64 bytes, which
+// TMA writes with CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at
+// c ^ ((r / 2) % 4)), the tile 512-byte aligned. The descriptor says the
+// 64-byte swizzle with 8-row groups 512 bytes apart (SBO) both ways: K-major
+// the k-step kk of 16 columns starts kk * 32 bytes in; MN-major the 32
+// columns are exactly one swizzle atom wide, so an N = 32 operand needs no
+// panel stride, and the k-step kk of 16 rows starts kk * 1024 bytes in
+// (`Panels`, `desc_k`, `desc_mn`).
 // An int8 tile holds whole rows, one box of D columns (D bytes): at D = 128
 // the bf16 panel's bytes exactly (the 128-byte swizzle, a k32 step 32 bytes
 // like a bf16 k16 step); at D = 64 a row is 64 bytes, so TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at c ^ ((r / 2) % 4)) and the
 // descriptor says the 64-byte swizzle, 8-row groups 512 bytes apart, the
-// k32 step kk at kk * 32 bytes. Integer wgmma takes both operands K-major
+// k32 step kk at kk * 32 bytes; at D = 32 a row is 32 bytes, one k32 step,
+// written with CU_TENSOR_MAP_SWIZZLE_32B (chunk c of row r at
+// c ^ ((r / 4) % 2)) and read with the 32-byte swizzle, 8-row groups 256
+// bytes apart. Integer wgmma takes both operands K-major
 // only; every int8 product of K3 and K7 contracts over d, along which q8,
 // k8, v8 and do8 are contiguous, so none needs a transposed copy.
 // (PTX ISA, "Matrix Descriptor Format" and the canonical layouts of
@@ -74,11 +86,22 @@ __device__ __forceinline__ uint64_t desc_ones(uint32_t addr) {
   return d;
 }
 
-// descriptor of a K-major operand with 64-byte rows and the 64-byte swizzle
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+// descriptor of an operand with 64-byte rows and the 64-byte swizzle;
+// lbo_bytes as desc_sw128's (an MN-major operand of N = 32 never steps it)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr,
+                                              uint32_t lbo_bytes = 0) {
   uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)(512 >> 4) << 32;  // SBO: 8 rows of 64 bytes
   d |= (uint64_t)2 << 62;           // 64-byte swizzle
+  return d;
+}
+
+// descriptor of a K-major operand with 32-byte rows and the 32-byte swizzle
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)(256 >> 4) << 32;  // SBO: 8 rows of 32 bytes
+  d |= (uint64_t)3 << 62;           // 32-byte swizzle
   return d;
 }
 
@@ -86,9 +109,38 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
 // from row 0 of the operand at `addr`
 template <int D>
 __device__ __forceinline__ uint64_t desc_i8(uint32_t addr, int kk) {
-  static_assert(D == 64 || D == 128, "desc_i8: D");
+  static_assert(D == 32 || D == 64 || D == 128, "desc_i8: D");
+  if constexpr (D == 32) return desc_sw32(addr);
   if constexpr (D == 64) return desc_sw64(addr + kk * 32);
   return desc_sw128(addr + kk * 32);
+}
+
+// A bf16 tile of head width D in shared memory (see the top): N panels of
+// COLS columns, each ROW bytes a row and `rows` rows deep, one after the
+// other; the TMA box of a panel is COLS columns wide
+template <int D>
+struct Panels {
+  static_assert(D == 32 || D % 64 == 0, "Panels: D");
+  static constexpr int COLS = D == 32 ? 32 : 64;
+  static constexpr int ROW = 2 * COLS;
+  static constexpr int N = D / COLS;
+};
+
+// the K-major descriptor of k-step kk (16 columns) of rows row0.. of a bf16
+// tile of `rows` rows at shared address a
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t a, int rows, int row0,
+                                           int kk) {
+  if constexpr (D == 32) return desc_sw64(a + row0 * 64 + kk * 32);
+  return desc_sw128(a + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32);
+}
+
+// the MN-major descriptor of k-step kk (16 rows) of a bf16 tile of `rows`
+// rows at shared address a, read as a B operand of N = D
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t a, int rows, int kk) {
+  if constexpr (D == 32) return desc_sw64(a + kk * 1024, 512);
+  return desc_sw128(a + kk * 2048, rows * 128);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -176,6 +228,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
@@ -247,7 +315,8 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs: N");
+  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
 }
@@ -539,16 +608,28 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
                       rows);
 }
 
-// int8: a box holds whole rows of D = 64 or 128 bytes, with the swizzle of
-// their width (see the top). CUtensorMapDataType has no signed 8-bit type;
-// UINT8 copies the same bytes.
+// bf16 heads of width D (Panels<D>): boxes of 64 columns with the 128-byte
+// swizzle, or at D = 32 whole rows of 64 bytes with the 64-byte swizzle
+inline cudaError_t make_map_head(CUtensorMap* map, const void* base, int B,
+                                 int N, int H, int D, long long sb,
+                                 long long sn, long long sh, int rows) {
+  if (D != 32) return make_map(map, base, B, N, H, D, sb, sn, sh, rows);
+  return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 32,
+                      CU_TENSOR_MAP_SWIZZLE_64B, B, N, H, D, sb, sn, sh,
+                      rows);
+}
+
+// int8: a box holds whole rows of D = 32, 64 or 128 bytes, with the swizzle
+// of their width (see the top). CUtensorMapDataType has no signed 8-bit
+// type; UINT8 copies the same bytes.
 inline cudaError_t make_map_i8(CUtensorMap* map, const void* base, int B,
                                int N, int H, int D, long long sb,
                                long long sn, long long sh, int rows) {
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
   return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D,
-                      D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                              : CU_TENSOR_MAP_SWIZZLE_128B,
+                      D == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_128B,
                       B, N, H, D, sb, sn, sh, rows);
 }
 

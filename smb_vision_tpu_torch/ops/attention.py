@@ -2,7 +2,9 @@
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
 the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
-stand behind them:
+stand behind them. K1, K4 and K7 take head widths 32, 64 and 128; K3 and
+K8 take 64 and 128, and at 32 raise on CUDA (still to port, ROADMAP.md
+queue 2):
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
   row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
@@ -26,7 +28,8 @@ the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
 `_flash_lse`. Each wrapper runs
 its plain version for a tensor on the CPU and launches its kernel for a
 CUDA tensor; there is no fallback between the two. `launches` on each
-wrapper counts kernel launches.
+wrapper counts kernel launches (K1, K4 and K7 also by head width,
+`launches_by_width`).
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ LOG2E = 1.4426950408889634
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
-_KERNEL_HEAD_DIMS = (64, 128)
+# head widths the kernels take: K1, K4 and K7; the int8 forwards K3 and K8
+_FLASH_HEAD_DIMS = (32, 64, 128)
+_INT8_FWD_HEAD_DIMS = (64, 128)
 
 
 def _plain_chunk(b: int, h: int, nk: int) -> int:
@@ -186,7 +191,8 @@ def quantize_v_kernel_layout(v8):
         .contiguous()
 
 
-def _check_qkv(q, k, v, qk_dtype):
+def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7",
+               head_dims=_FLASH_HEAD_DIMS):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Nq, H, D) and k, v (B, Nk, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -195,9 +201,12 @@ def _check_qkv(q, k, v, qk_dtype):
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch, heads or head width")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head width "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
+    if d not in head_dims:
+        todo = (" (head width 32 on the int8 forwards K3 and K8 is still to "
+                "port, ROADMAP.md queue 2; attn_impl 'pallas' and "
+                "'pallas_i8bwd' run it)" if d == 32 else "")
+        raise ValueError(f"flash kernel {kernel} takes head width "
+                         f"{head_dims}, got {d}{todo}")
     if q.dtype != qk_dtype or k.dtype != qk_dtype or v.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes q, k {qk_dtype} and v bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -213,8 +222,9 @@ def _check_qkv(q, k, v, qk_dtype):
 
 
 # the TMA boxes of the wgmma kernels: bf16 (K1, K4, and the bf16 operands
-# of K3 and K7) in panels of 64 columns, one 128-byte swizzle span; int8
-# (K3, K7) in whole rows of 64 or 128 bytes, swizzled by their width; up to
+# of K3 and K7) in panels of 64 columns, one 128-byte swizzle span, or at
+# head width 32 whole rows of 64 bytes in the 64-byte swizzle; int8 (K3,
+# K7) in whole rows of 32, 64 or 128 bytes, swizzled by their width; up to
 # 256 rows of one (batch, head)
 _TMA_BOX_COLS = 64
 _TMA_MAX_ROWS = 256
@@ -226,23 +236,25 @@ def _tma_geometry(t, rows: int):
     boxes of `rows` rows: dims (D, H, N, B), byte strides of H, N and B (a
     dim of size 1 is never stepped, so its stride is 16), box (cols, 1,
     rows, 1) and the swizzle in bytes: 64 bf16 columns with the 128-byte
-    swizzle, or a whole int8 row of D = 64 or 128 bytes with the swizzle of
-    its width. TMA takes a 16-byte-aligned base and stride multiples of 16
+    swizzle (a whole row of 32 at D = 32, with the 64-byte swizzle), or a
+    whole int8 row of D = 32, 64 or 128 bytes with the swizzle of its
+    width. TMA takes a 16-byte-aligned base and stride multiples of 16
     below 2^40; anything else raises here, before the launch, instead of
     failing the descriptor encode."""
     b, n, h, d = t.shape
     if t.dtype == torch.int8:
-        if t.stride(-1) != 1 or d not in _KERNEL_HEAD_DIMS:
+        if t.stride(-1) != 1 or d not in _FLASH_HEAD_DIMS:
             raise ValueError(f"TMA reads int8 (B, N, H, D) with D in "
-                             f"{_KERNEL_HEAD_DIMS} and contiguous; got shape "
+                             f"{_FLASH_HEAD_DIMS} and contiguous; got shape "
                              f"{tuple(t.shape)}, strides {t.stride()}")
         cols = d
     elif t.dtype == torch.bfloat16:
-        if t.stride(-1) != 1 or d % _TMA_BOX_COLS:
-            raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
-                             f"{_TMA_BOX_COLS} and contiguous; got shape "
-                             f"{tuple(t.shape)}, strides {t.stride()}")
-        cols = _TMA_BOX_COLS
+        if t.stride(-1) != 1 or (d != 32 and d % _TMA_BOX_COLS):
+            raise ValueError(f"TMA reads (B, N, H, D) with D 32 or a "
+                             f"multiple of {_TMA_BOX_COLS} and contiguous; "
+                             f"got shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}")
+        cols = min(d, _TMA_BOX_COLS)
     else:
         raise TypeError(f"TMA maps bfloat16 or int8 tensors, not {t.dtype}")
     if not 1 <= rows <= _TMA_MAX_ROWS:
@@ -261,6 +273,13 @@ def _tma_geometry(t, rows: int):
         strides.append(nbytes)
     return {"dims": dims, "strides": tuple(strides),
             "box": (cols, 1, rows, 1), "swizzle": cols * t.element_size()}
+
+
+def _count_launch(wrapper, d: int) -> None:
+    """One launch of the wrapper's kernel at head width d: `launches`
+    counts all of them, `launches_by_width` those of each width."""
+    wrapper.launches += 1
+    wrapper.launches_by_width[d] = wrapper.launches_by_width.get(d, 0) + 1
 
 
 def needs_grad(*tensors) -> bool:
@@ -340,7 +359,7 @@ def _flash_fwd(q, k, v, scale: float, with_lse: bool):
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     _launch_flash(q, k, v, None, None, out, lse, False, scale * LOG2E)
-    flash_attention.launches += 1
+    _count_launch(flash_attention, d)
     return (out, lse) if with_lse else out
 
 
@@ -384,11 +403,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
         dv.data_ptr(), b, h, nq, nk, d, ctypes.cast(strides, ctypes.c_void_p),
         scale, scale * LOG2E, _build.stream_ptr(q.device))
     _build.check(rc, "flash_bwd")
-    flash_attention_bwd.launches += 1
+    _count_launch(flash_attention_bwd, d)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_width = {}
 
 
 def _i8_operands(q, k, v, do, scale: float):
@@ -485,11 +505,12 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
         ctypes.cast(strides, ctypes.c_void_p), scale,
         _build.stream_ptr(q.device))
     _build.check(rc, "flash_bwd_i8")
-    flash_attention_bwd_i8.launches += 1
+    _count_launch(flash_attention_bwd_i8, d)
     return dq, dk, dv
 
 
 flash_attention_bwd_i8.launches = 0
+flash_attention_bwd_i8.launches_by_width = {}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -533,6 +554,7 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_width = {}
 
 
 def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
@@ -553,7 +575,7 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q8, k8, v, torch.int8)
+    _check_qkv(q8, k8, v, torch.int8, "K3", _INT8_FWD_HEAD_DIMS)
     for t in (q8, k8, v):
         _tma_geometry(t, 128)
     out = torch.empty(v.shape[:1] + q.shape[1:], dtype=torch.bfloat16,
@@ -588,7 +610,7 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q8, k8, v, torch.int8)
+    _check_qkv(q8, k8, v, torch.int8, "K8", _INT8_FWD_HEAD_DIMS)
     vt8 = quantize_v_kernel_layout(v8)
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
     b, nq, h, d = q.shape
@@ -615,7 +637,7 @@ def _auto_impl(q, bias) -> str:
     the kernel takes, else the plain version (the kernels compute in bf16,
     so an f32 model must not silently degrade)."""
     maps = (bias is None and q.dtype == torch.bfloat16
-            and q.shape[-1] in _KERNEL_HEAD_DIMS)
+            and q.shape[-1] in _FLASH_HEAD_DIMS)
     return "pallas" if maps else "xla"
 
 

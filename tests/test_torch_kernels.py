@@ -99,10 +99,12 @@ def _rel(out, ref):
 
 
 # the wgmma kernels' tile edges (64-row warpgroups, 64- and 128-key tiles,
-# 128-row blocks) and DINOv2-giant's ragged N 1,961, at both head widths
+# 128-row blocks) and DINOv2-giant's ragged N 1,961, at every head width
+# (K3 and K8 take 64 and 128 only)
 _EDGES = [(256, 64), (100, 64), (130, 128)] + [
     (n, 64) for n in (1, 63, 64, 65, 127, 128, 129, 193, 1961)] + [
-    (n, 128) for n in (1, 63, 65, 127, 129, 193, 1961)]
+    (n, 128) for n in (1, 63, 65, 127, 129, 193, 1961)] + [
+    (n, 32) for n in (1, 63, 65, 127, 129, 193, 1961)]
 
 
 @pytest.mark.cuda
@@ -117,6 +119,8 @@ def test_flash_kernels_match_plain(cuda, n, d):
     ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
     assert _rel(out, ref) <= 1e-2
     assert float((lse - ref_lse).abs().max()) <= 1e-3
+    if d not in A._INT8_FWD_HEAD_DIMS:
+        return
     q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
     out8 = A.flash_attention_int8(q, k, v)
     assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
@@ -127,11 +131,12 @@ def test_flash_kernels_match_plain(cuda, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nk,d", [(70, 200, 64), (200, 70, 64),
                                      (1, 129, 64), (193, 64, 128),
-                                     (65, 1961, 128)])
+                                     (65, 1961, 128), (70, 200, 32),
+                                     (200, 70, 32), (65, 1961, 32)])
 def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
-    """Nq != Nk both ways with ragged tails, K1 and K3; inputs the kernels
-    do not take raise instead of falling back to the plain version, and
-    launch nothing."""
+    """Nq != Nk both ways with ragged tails, K1 and K3 (K1 alone at
+    d 32); inputs the kernels do not take raise instead of falling back to
+    the plain version, and launch nothing."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = (torch.randn((1, nq, 2, d), generator=gen, device=cuda)
          * 0.4).to(torch.bfloat16)
@@ -139,23 +144,28 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
              * 0.4).to(torch.bfloat16) for _ in range(2)]
     assert _rel(A.flash_attention(q, k, v), A.xla_attention(q, k, v)) \
         <= 1e-2
-    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
-    before8 = A.flash_attention_int8.launches
-    out8 = A.flash_attention_int8(q, k, v)
-    assert A.flash_attention_int8.launches == before8 + 1
-    assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
-    assert _rel(out8, A.xla_attention(q.float(), k.float(), v.float())) \
-        <= 2e-2
+    if d in A._INT8_FWD_HEAD_DIMS:
+        q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
+        before8 = A.flash_attention_int8.launches
+        out8 = A.flash_attention_int8(q, k, v)
+        assert A.flash_attention_int8.launches == before8 + 1
+        assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+        assert _rel(out8, A.xla_attention(q.float(), k.float(),
+                                          v.float())) <= 2e-2
     before = (A.flash_attention.launches, A.flash_attention_int8.launches)
     wide = torch.zeros((1, nk, 2, d + 4), dtype=torch.bfloat16, device=cuda)
     for fn in (A.flash_attention, A.flash_attention_int8):
         with pytest.raises(ValueError, match="head width"):
-            fn(q[..., :32], k[..., :32], v[..., :32])
-        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q[..., :16], k[..., :16], v[..., :16])
+        takes = fn is A.flash_attention or d in A._INT8_FWD_HEAD_DIMS
+        with pytest.raises(ValueError,
+                           match="16-byte aligned" if takes else "head width"):
             fn(q, k, wide[..., :d])
     with pytest.raises(TypeError, match="bfloat16"):
         A.flash_attention(q.float(), k.float(), v.float())
-    with pytest.raises(TypeError, match="bfloat16"):
+    err, msg = ((TypeError, "bfloat16") if d in A._INT8_FWD_HEAD_DIMS
+                else (ValueError, "head width"))
+    with pytest.raises(err, match=msg):
         A.flash_attention_int8(q, k, v.float())
     assert (A.flash_attention.launches,
             A.flash_attention_int8.launches) == before
@@ -167,11 +177,12 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(96, 64), (129, 64), (193, 128)])
+@pytest.mark.parametrize("n,d", [(96, 64), (129, 64), (193, 128),
+                                 (129, 32)])
 def test_flash_kernel_reads_strided_heads(cuda, n, d):
     """q, k, v as views of one fused (B, N, 3, H, D) projection, read by
     TMA through their strides: K1 and K4, K3 (v and the fused q, k it
-    quantises) and K7 (its bf16 q and k)."""
+    quantises; not at d 32) and K7 (its bf16 q and k)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     qkv = (torch.randn((2, n, 3, 4, d), generator=gen, device=cuda)
            * 0.4).to(torch.bfloat16)
@@ -185,9 +196,10 @@ def test_flash_kernel_reads_strided_heads(cuda, n, d):
     want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 2e-2
-    q8, k8, sq, sk = A.quantize_qk(q, k, scale)
-    assert _rel(A.flash_attention_int8(q, k, v),
-                A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    if d in A._INT8_FWD_HEAD_DIMS:
+        q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+        assert _rel(A.flash_attention_int8(q, k, v),
+                    A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
     got = A.flash_attention_bwd_i8(q, k, v, out, lse, do)
     want = A.attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale)
     for a, b in zip(got, want):
@@ -233,7 +245,8 @@ def test_mlp_kernels_match_plain(cuda, m, k, f):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nk,d", [(n, n, d) for n, d in _EDGES] + [
-    (70, 200, 64), (200, 70, 64), (1, 129, 128), (193, 64, 128)])
+    (70, 200, 64), (200, 70, 64), (1, 129, 128), (193, 64, 128),
+    (70, 200, 32), (200, 70, 32), (1, 129, 32), (193, 1961, 32)])
 def test_flash_bwd_kernel_matches_plain(cuda, nq, nk, d):
     """K4 against its plain backward, with and without an lse2 cotangent,
     on the lse2 of K1, at the tile edges and with Nq != Nk both ways."""
@@ -346,7 +359,8 @@ def test_block_backward_runs_through_the_kernels(cuda, mlp_impl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nk,d", [(n, n, d) for n, d in _EDGES] + [
     (256, 256, 128), (70, 200, 64), (200, 70, 64), (1, 129, 128),
-    (193, 64, 128)])
+    (193, 64, 128), (70, 200, 32), (200, 70, 32), (1, 129, 32),
+    (1961, 193, 32)])
 def test_flash_bwd_i8_kernel_matches_plain(cuda, nq, nk, d):
     """K7 against its plain version, with and without an lse2 cotangent,
     on the lse2 of K1, at the wgmma tile edges and with Nq != Nk both
@@ -370,6 +384,30 @@ def test_flash_bwd_i8_kernel_matches_plain(cuda, nq, nk, d):
         for a, b in zip(got, want):
             assert a.shape == b.shape and a.dtype == torch.bfloat16
             assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_int8_forwards_refuse_head_width_32(cuda):
+    """K3 and K8 take head widths 64 and 128: at 32 they raise, naming
+    the queue that holds them, and launch nothing, on their wrappers and
+    through `attention`; K1 runs the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = [(torch.randn((1, 129, 2, 32), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16) for _ in range(3)]
+    before = (A.flash_attention_int8.launches,
+              A.flash_attention_int8pv.launches)
+    for fn in (A.flash_attention_int8, A.flash_attention_int8pv):
+        with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+            fn(q, k, v)
+    for impl in ("pallas_int8", "pallas_int8pv"):
+        with pytest.raises(ValueError, match="head width"):
+            A.attention(q, k, v, impl=impl)
+    assert (A.flash_attention_int8.launches,
+            A.flash_attention_int8pv.launches) == before
+    before = A.flash_attention.launches_by_width.get(32, 0)
+    assert _rel(A.attention(q, k, v, impl="pallas"),
+                A.xla_attention(q, k, v)) <= 1e-2
+    assert A.flash_attention.launches_by_width[32] == before + 1
 
 
 @pytest.mark.cuda

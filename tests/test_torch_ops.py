@@ -165,13 +165,21 @@ def _tma_case(name):
         return torch.zeros(1, 9216, 8, 128, dtype=torch.int8)
     if name == "int8_ragged":
         return torch.zeros(2, 1961, 3, 64, dtype=torch.int8)
+    if name == "d32":               # the reference-head predictor's q
+        return torch.zeros(1, 9216, 12, 32, dtype=torch.bfloat16)
+    if name == "d32_fused":
+        return torch.zeros(2, 96, 3, 4, 32, dtype=torch.bfloat16)[:, :, 1]
+    if name == "int8_d32":          # its q8, k8, v8 and do8 in K7
+        return torch.zeros(1, 9216, 12, 32, dtype=torch.int8)
     raise KeyError(name)
 
 
 # the box's columns and swizzle bytes: 64 bf16 columns in the 128-byte
-# swizzle; a whole int8 row of 64 or 128 bytes in the swizzle of its width
+# swizzle (a whole row of 32 in the 64-byte one at d 32); a whole int8 row
+# of 32, 64 or 128 bytes in the swizzle of its width
 _TMA_BOX = {"int8_d64": (64, 64), "int8_d128": (128, 128),
-            "int8_ragged": (64, 64)}
+            "int8_ragged": (64, 64), "d32": (32, 64), "d32_fused": (32, 64),
+            "int8_d32": (32, 32)}
 
 
 @pytest.mark.parametrize("name,rows,dims,strides", [
@@ -183,6 +191,9 @@ _TMA_BOX = {"int8_d64": (64, 64), "int8_d128": (128, 128),
     ("int8_d64", 128, (64, 12, 20480, 1), (64, 768, 16)),
     ("int8_d128", 32, (128, 8, 9216, 1), (128, 1024, 16)),
     ("int8_ragged", 64, (64, 3, 1961, 2), (64, 192, 376512)),
+    ("d32", 128, (32, 12, 9216, 1), (64, 768, 16)),
+    ("d32_fused", 64, (32, 4, 96, 2), (64, 768, 73728)),
+    ("int8_d32", 64, (32, 12, 9216, 1), (32, 384, 16)),
 ])
 def test_tma_geometry(name, rows, dims, strides):
     """The tensor map the wgmma kernels encode: dims (D, H, N, B), the byte
@@ -194,7 +205,7 @@ def test_tma_geometry(name, rows, dims, strides):
     geo = tattn._tma_geometry(t, rows)
     assert geo == {"dims": dims, "strides": strides,
                    "box": (cols, 1, rows, 1), "swizzle": swizzle}
-    if name.startswith("fused_"):
+    if "fused" in name:
         assert not t.is_contiguous()
 
 
@@ -205,19 +216,22 @@ def test_tma_geometry_refuses_misaligned_views():
     y = torch.zeros(1, 65, 2, 64, dtype=torch.bfloat16).flatten()
     with pytest.raises(ValueError, match="16-byte-aligned base"):
         tattn._tma_geometry(y[1:1 + 64 * 2 * 64].view(1, 64, 2, 64), 64)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        tattn._tma_geometry(torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16),
+    with pytest.raises(ValueError, match="D 32 or a multiple of 64"):
+        tattn._tma_geometry(torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16),
                             64)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tattn._tma_geometry(x[..., :32], 64)      # d 32, the same stride
     with pytest.raises(ValueError, match="box rows"):
         tattn._tma_geometry(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16),
                             512)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_tma_geometry_refuses_misaligned_int8_views(d):
     """What the int8 maps of K3 and K7 cannot take raises before a launch:
     a head stride that is no multiple of 16 bytes, a base off 16 bytes, a
-    row of another width than 64 or 128 bytes, more than 256 box rows."""
+    row of another width than 32, 64 or 128 bytes, more than 256 box
+    rows."""
     x = torch.zeros(1, 64, 3, d + 8, dtype=torch.int8)
     with pytest.raises(ValueError, match="multiples of 16"):
         tattn._tma_geometry(x[..., :d], 64)       # (d + 8)-byte head stride
@@ -225,7 +239,7 @@ def test_tma_geometry_refuses_misaligned_int8_views(d):
     with pytest.raises(ValueError, match="16-byte-aligned base"):
         tattn._tma_geometry(y[4:4 + 64 * 2 * d].view(1, 64, 2, d), 64)
     with pytest.raises(ValueError, match="D in"):
-        tattn._tma_geometry(torch.zeros(1, 8, 2, d - 32, dtype=torch.int8),
+        tattn._tma_geometry(torch.zeros(1, 8, 2, d - 16, dtype=torch.int8),
                             64)
     with pytest.raises(ValueError, match="D in"):
         tattn._tma_geometry(torch.zeros(2, 8, 2, 2 * d, 2,
@@ -256,11 +270,13 @@ def test_attention_impl_names():
     a = tattn.attention(q, k, v, impl="pallas_i8bwd")
     b = tattn.attention(q, k, v, impl="auto")
     assert torch.equal(a, b)
-    # auto takes K1 only where it maps: bf16, no bias, head width 64 / 128
+    # auto takes K1 only where it maps: bf16, no bias, head width 32 / 64
+    # / 128
     assert tattn._auto_impl(q, None) == "pallas"
     assert tattn._auto_impl(q, torch.zeros(1, 2, 16, 16)) == "xla"
     assert tattn._auto_impl(q.float(), None) == "xla"
-    assert tattn._auto_impl(q[..., :32], None) == "xla"
+    assert tattn._auto_impl(q[..., :32], None) == "pallas"
+    assert tattn._auto_impl(q[..., :16], None) == "xla"
 
 
 def _mlp_params(k=128, f=512):

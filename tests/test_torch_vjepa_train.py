@@ -73,20 +73,26 @@ def test_ema_update_matches_jax():
                                       np.asarray(want[k]))
 
 
-def test_vjepa_trajectory_and_teacher_match_jax():
+@pytest.mark.parametrize("head,impl", [(16, "xla"), (32, "pallas_i8bwd")],
+                         ids=["pred_d16-xla", "pred_d32-pallas_i8bwd"])
+def test_vjepa_trajectory_and_teacher_match_jax(head, impl):
     """Three optimizer steps of both make_vjepa_workloads from the same
     weights on the same batches, the masks drawn on the JAX side as its
     step draws them: the loss within 1e-3 relative at each step, the
-    student within 1e-4 and the EMA teacher within 1e-5 after 3 updates."""
+    student within 1e-4 and the EMA teacher within 1e-5 after 3 updates.
+    The predictor has 2 heads of `head`; at 32 (the reference heads'
+    width) under "pallas_i8bwd" the JAX side runs its flash kernels in
+    interpret mode and the port the plain versions of K1 and K7."""
+    geometry = dict(TINY, pred_hidden_size=2 * head, attn_impl=impl)
     jtx = joptim.make_optimizer(**OPT)
-    jcfg = JConfig(**TINY)
+    jcfg = JConfig(**geometry)
     _, jinit, jstep, _ = jvjepa.make_vjepa_workload(jcfg, tx=jtx)
     jstate = jinit(jax.random.PRNGKey(0))
     jstep = jax.jit(jstep)
 
     model, init_fn, step_fn, _ = tvjepa.make_vjepa_workload(
-        VJEPA2Config(**TINY), tx=functools.partial(toptim.make_optimizer,
-                                                   **OPT))
+        VJEPA2Config(**geometry), tx=functools.partial(toptim.make_optimizer,
+                                                       **OPT))
     state = init_fn(0)
     model.load_state_dict(convert.params_from_flax(
         flatten_params(jstate["params"]), vjepa=True))
