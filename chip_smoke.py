@@ -9,33 +9,43 @@ attention and attention-glue paths, once on one NVIDIA GPU.
                                             # unpacked by `git archive`
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
-checkout's kernel library is built too, the kernels this tree did not
-change (the flash kernels at head widths 64 and 128, the MLP forward and
-backward kernels K2, K6, K5a, K9 and K5b and the glue K10a and K10b) are
-compared with it by SASS and bit for bit, and the
-flash, MLP, SwiGLU and glue kernels, legs A's, B's and G's models and the
-MIM step (as shipped and with the glue) and V-JEPA step are timed with
-either library in turns, in one process, and the DINOv2-giant step parity
-runs with either library at three seeds; the last line is the JSON of the
-mean times and the parity readings.
+checkout's kernel library is built too and bound by its own `_build`, the
+kernels this tree did not change (K1, K4 and K7 at head widths 32, 64 and
+128, K3 at 64 and 128, the MLP forward and backward kernels K2, K6, K5a,
+K9 and K5b and the glue K10a and K10b) are compared with it by SASS and,
+through their wrappers (K3 and K7 with their quantisation: the kernel on
+this side, the parent's plain pass on the other), bit for bit; K8's
+distance from the other's is logged; the quantisation, flash, MLP, SwiGLU
+and glue kernels, legs A's, B's and G's models and the MIM step (as
+shipped and with the glue) and both V-JEPA steps (the _tpu preset, and the
+reference heads under their recommended impls) are timed with either
+library in turns, in one process, and the DINOv2-giant step parity runs
+with either library at three seeds; the last line is the JSON of the mean
+times and the parity readings.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
   1. device: a CUDA device is present; print its name and power limit;
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
-     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7 (each at head
-     width 64 and 128, K1, K4 and K7 also at 32) and the nine
+     IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
+     head width 64 and 128, K1, K4 and K7 also at 32) and the nine
      GEMM instantiations of K2, K6, K5a, K9, K5b, K10a and K10b in the
      SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
-     all three);
+     all three, K8 IGMMA and UTMALDG), and so does any mma.sync
+     instruction (IMMA, HMMA) anywhere in the library;
   3. kernels: every kernel of the embedding path against its plain PyTorch
      version at the main-path and a ragged shape, with its time beside the
      plain one (K1 and K4 also with their achieved TFLOP/s, share of bound
      and factor against SDPA, and K1 with its exp2 floor, which at head
      width 64 is as long as its tensor floor; K3 beside K1 on the same
-     inputs, with that floor and its quantisation's time); then the
+     inputs, with that floor, through its wrapper and alone, and its
+     quantisation's time); then the int8 quantisation kernel (R6) against
+     `quantize_per_head` bit for bit, in both layouts, at leg B's q (batch
+     4), the V-JEPA encoder's and predictor's shapes, a ragged N, an
+     all-zero head and the strided views of a fused projection, timed at
+     the embed shape beside the plain pass; then the
      training kernels (K4, K5a, K5b) at the MIM encoder's and decoder's
      shapes and a ragged one; then the V-JEPA shapes: the int8-score
      backward K7 at the encoder's, the predictor's, the reference-head
@@ -56,7 +66,8 @@ Phases of the run without arguments, each of which fails the run
      three passes' times apart; gradients through the recompute), and
      K1/K4 at DINOv2-giant's N 1,961 with 24 heads of 64; then the int8 p v
      attention K8 at N 20,480 and ragged N 1,961 (timed beside K3 on the
-     same inputs), and the attention glue K10a/K10b at the embed shape,
+     same inputs, each through its wrapper and alone), and the attention
+     glue K10a/K10b at the embed shape,
      the MIM encoder's and decoder's and a ragged one (timed beside their
      library chains, with K10a's LayerNorm pass and GEMM timed apart, and
      the glue's forward and backward in one block of the MIM step beside
@@ -65,10 +76,12 @@ Phases of the run without arguments, each of which fails the run
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
-     mlp_impl "pallas_bwd" (kernels K3 and K6);
+     mlp_impl "pallas_bwd" (kernels K3 and K6, and the quantisation of q
+     and k before every K3);
   5a. leg G: the same with --attn_impl pallas_int8pv and a config with
      glue_impl "pallas" (K10a, K8, K10b, then K2 in every block: 24
-     launches each), its embeddings' distance from leg A's beside leg B's;
+     launches each; the quantisation 72, q, k and v), its embeddings'
+     distance from leg A's beside leg B's;
   6. whole model: kernels against the plain path on one volume, and leg
      G's model against the same impl names on their plain versions and
      against float32;
@@ -130,6 +143,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -233,6 +247,11 @@ SOURCES = {
                       "smb_vision_tpu/ops/attention.py:436"),
     "flash_bwd_i8 d32": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
                          "smb_vision_tpu/ops/attention.py:549"),
+    # R6, the per-(batch, head) int8 quantisation before K3, K7 and K8: the
+    # JAX package computes it in XLA (`_fwd_i8`, `_quant_per_head`), no
+    # pallas_call; its launches are leg B's (q and k of every layer)
+    "quantize": ("smb_vision_tpu_torch/csrc/quant.cu",
+                 "smb_vision_tpu/ops/attention.py:320"),
 }
 D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
             "flash_bwd_i8 d32": "flash_bwd_i8"}
@@ -240,6 +259,9 @@ D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
 # sheet, dense): operations at the peak of their type, bytes (each input
 # read once, each output written once) at the HBM rate; the larger bounds
 PEAK_BF16, PEAK_INT8, HBM_BYTES = 989e12, 1979e12, 3.35e12
+# readings of a kernel's time by CUDA events whose median is kept (cuda_ms)
+KERNEL_REPEATS = 5
+LOG2E = 1.4426950408889634
 
 
 def log(msg: str) -> None:
@@ -253,6 +275,7 @@ def wrappers():
         flash_attention_bwd_i8,
         flash_attention_int8,
         flash_attention_int8pv,
+        quantize_per_head_kernel,
     )
     from smb_vision_tpu_torch.ops.attn_glue import out_res_fused, qkv_ln_fused
     from smb_vision_tpu_torch.ops.mlp import (
@@ -271,7 +294,16 @@ def wrappers():
             "flash_bwd_i8": flash_attention_bwd_i8,
             "swiglu_block_fwd": swiglu_block_fused,
             "flash_fwd_i8pv": flash_attention_int8pv,
-            "qkv_ln_fwd": qkv_ln_fused, "out_res_fwd": out_res_fused}
+            "qkv_ln_fwd": qkv_ln_fused, "out_res_fwd": out_res_fused,
+            "quantize": quantize_per_head_kernel}
+
+
+def plain_qk(q, k, scale):
+    """q8, k8, sq, sk by the plain quantisation (`quantize_per_head`):
+    the operands of K3's and K8's plain versions on the card."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    return A.quantize_qk(q, k, scale, A.quantize_per_head)
 
 
 def reset_launches() -> dict:
@@ -308,21 +340,46 @@ def plain_attention_calls():
         A.xla_attention = plain
 
 
-def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
-    """Mean time of fn() on the device, by CUDA events, after warm-up."""
+def cuda_ms(fn, iters: int = 5, warmup: int = 2, repeats: int = 1) -> float:
+    """Mean time of fn() over iters calls on the device, by CUDA events,
+    after warm-up; the median of `repeats` such readings. A reading of a
+    few milliseconds takes in whole any host stall inside it (a garbage
+    collection of this large process, a busy shared host): the median of
+    KERNEL_REPEATS keeps one such reading from deciding a kernel's time."""
     import torch
 
     for _ in range(warmup):
         fn()
+    readings = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        readings.append(start.elapsed_time(end) / iters)
+    return statistics.median(readings)
+
+
+def host_ms(fn, calls: int = 5) -> float:
+    """The host's time to issue one call of fn (its launches enqueued,
+    nothing waited for): the median over `calls` calls after a warm-up.
+    Below the call's device time, the device sets the time of a run of
+    calls; above it, the host does."""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(calls):
+        start = time.perf_counter()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+        times.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def set_bound(table: dict, name: str, shape: str, bf16_ops: float,
@@ -402,7 +459,8 @@ def mlp_bwd_chain(h, g, w1, w2, act: str = "gelu"):
 def mlp_library(table: dict, name: str, shape: str, chain) -> None:
     """Time an MLP kernel's cuBLAS chain at the shape the table keeps, as
     the kernel's library_ms."""
-    table[name]["library_ms"] = ms = cuda_ms(chain, iters=20)
+    table[name]["library_ms"] = ms = cuda_ms(chain, iters=20,
+                                             repeats=KERNEL_REPEATS)
     log(f"time {name:<14} {shape:<30} library cuBLAS chain {ms:.3f} ms "
         f"(CUDA events)")
 
@@ -412,8 +470,9 @@ def mlp_beside_chain(name: str, shape: str, kernel, plain, chain, m: int,
     """An MLP kernel at a shape the table does not keep: its time beside
     its plain version's, its cuBLAS chain's and its bound (`products`
     matrix products of M x K x F)."""
-    ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=2)
-    lib = cuda_ms(chain, iters=20)
+    ms = cuda_ms(kernel, iters=20, repeats=KERNEL_REPEATS)
+    plain_ms = cuda_ms(plain, iters=2)
+    lib = cuda_ms(chain, iters=20, repeats=KERNEL_REPEATS)
     bound = max(2 * products * m * k * f / PEAK_BF16,
                 nbytes / HBM_BYTES) * 1e3
     log(f"time {name:<14} {shape:<30} kernel {ms:.3f} ms, plain "
@@ -443,12 +502,14 @@ def sdpa_ms(q, k, v, do=None) -> float:
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if do is None:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                       repeats=KERNEL_REPEATS)
     qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
     out = F.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2).contiguous()
     return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True))
+                                               retain_graph=True),
+                   repeats=KERNEL_REPEATS)
 
 
 def errors(out, ref):
@@ -510,7 +571,13 @@ SM90_KERNELS.update({
     f"K5b phase {phase}": (f"mlp_bwd_gemm_kernelILi{phase}E",
                            ("HGMMA", "UTMALDG")) for phase in (1, 2)})
 SM90_KERNELS["K10a GEMM"] = ("qkv_gemm_kernel", ("HGMMA", "UTMALDG"))
+SM90_KERNELS.update({
+    f"K8 d{d}": (f"flash_fwd_i8pv_sm90_kernelILi{d}E", ("IGMMA", "UTMALDG"))
+    for d in (64, 128)})
 SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
+# the mma.sync tensor-core instructions (int8 and bf16), of which no kernel
+# of the library may hold one: every product is on wgmma
+MMA_SYNC_SASS = ("IMMA", "HMMA")
 
 
 def sass_listing(lib: Path) -> dict:
@@ -537,17 +604,26 @@ def sass_listing(lib: Path) -> dict:
     return funcs
 
 
-def sass_counts(lib: Path) -> dict:
-    """{kernel: {instruction: count}} of the SM90_KERNELS in the built
-    library (empty without cuobjdump)."""
-    counts = {}
+def count_ops(body: list, ops: tuple) -> dict:
+    """{instruction: how many lines of the SASS body hold it}."""
+    return {op: sum(ins.startswith(op) or f" {op}" in ins for ins in body)
+            for op in ops}
+
+
+def sass_counts(lib: Path) -> tuple:
+    """({kernel: {instruction: count}} of the SM90_KERNELS in the built
+    library, {function: count} of every function holding an mma.sync
+    instruction); both empty without cuobjdump."""
+    counts, mma_sync = {}, {}
     for fn, body in sass_listing(lib).items():
         label = next((k for k, (name, _) in SM90_KERNELS.items()
                       if name in fn), None)
         if label:
-            counts[label] = {op: sum(ins.startswith(op) or f" {op}" in ins
-                                     for ins in body) for op in SM90_SASS}
-    return counts
+            counts[label] = count_ops(body, SM90_SASS)
+        old = sum(count_ops(body, MMA_SYNC_SASS).values())
+        if old:
+            mma_sync[fn] = old
+    return counts, mma_sync
 
 
 def ptxas_report(name: str, build_dir=None) -> list:
@@ -578,7 +654,7 @@ def phase_build() -> None:
         if any(w in line for w in ("entry function", "registers", "spill",
                                    "error", "C75")):
             log(f"  ptxas: {line.strip()}")
-    counts = sass_counts(path)
+    counts, mma_sync = sass_counts(path)
     for label, (_, ops) in SM90_KERNELS.items() if counts else ():
         got = counts.get(label, dict.fromkeys(SM90_SASS, 0))
         log(f"  sass {label}: " + ", ".join(f"{op} {n}"
@@ -586,6 +662,11 @@ def phase_build() -> None:
         if not all(got[op] for op in ops):
             raise AssertionError(f"{label}: no {ops} instructions in the "
                                  "build; the wgmma path is not what runs")
+    if counts:
+        log(f"  sass: mma.sync ({', '.join(MMA_SYNC_SASS)}) instructions in "
+            f"the library: {sum(mma_sync.values())}")
+        if mma_sync:
+            raise AssertionError(f"mma.sync instructions left in {mma_sync}")
 
 
 def _attn_inputs(n: int, gen, dev):
@@ -654,7 +735,7 @@ def phase_kernels() -> dict:
         ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
         check("flash_fwd", n, out, ref, TOL_FLASH)
         check("flash_fwd", n, lse, ref_lse, TOL_FLASH, "plain lse2")
-        q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+        q8, k8, sq, sk = plain_qk(q, k, scale)
         out8 = A.flash_attention_int8(q, k, v)
         check("flash_fwd_i8", n, out8,
               A.int8_attention_plain(q8, k8, sq, sk, v), TOL_INT8)
@@ -666,7 +747,7 @@ def phase_kernels() -> dict:
                   lambda: A.xla_attention(q, k, v), 8)
             timed("flash_fwd_i8", lambda: A.flash_attention_int8(q, k, v),
                   lambda: A.int8_attention_plain(
-                      *A.quantize_qk(q, k, scale), v), 8)
+                      *plain_qk(q, k, scale), v), 8)
             table["flash_fwd"]["library_ms"] = sdpa_ms(q, k, v)
             log(f"time flash_fwd library F.scaled_dot_product_attention "
                 f"N={n}: {table['flash_fwd']['library_ms']:.3f} ms")
@@ -710,6 +791,7 @@ def phase_kernels() -> dict:
                       mlp_bytes(n, HIDDEN, FFN))
             for name in ("mlp_block_fwd", "mlp_fwd"):
                 rate_line(table, name, f"M={n}", ops, "the chain's")
+    phase_quant_kernel(table, gen, dev)
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
     phase_d32_kernels(table, gen, dev)
@@ -718,19 +800,87 @@ def phase_kernels() -> dict:
     return table
 
 
+def phase_quant_kernel(table: dict, gen, dev) -> None:
+    """The quantisation kernel (R6) against `quantize_per_head`, bit for
+    bit (the int8 bytes and the f32 scales), in the input's layout and in
+    K8's v layout (`quantize_v_kernel_layout` of the plain bytes): leg B's
+    q at batch 4 (times scale*log2(e)), the V-JEPA encoder's and the
+    reference-head predictor's shapes, a ragged N 1,961, a tensor with one
+    all-zero head, and q, k, v as the strided views of a fused projection.
+    Timed at the embed shape (q of batch 1) beside the plain pass, with its
+    passes' device times by the profiler and its bytes bound (no library
+    call computes it)."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+
+    def r(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.4).to(
+            torch.bfloat16)
+
+    q_mult = LOG2E / math.sqrt(HEAD_DIM)
+    zero = r(2, 193, 4, 64)
+    zero[1, :, 2] = 0
+    fused = r(2, RAGGED_N, 3, HEADS, HEAD_DIM).unbind(2)
+    cases = {"embed batch 4 q": (r(4, MAIN_N, HEADS, HEAD_DIM), q_mult),
+             "V-JEPA encoder": (r(1, VJ_N, 8, 128), 1.0),
+             "predictor d32": (r(1, VJ_N, PRED_HEADS, 32),
+                               LOG2E / math.sqrt(32)),
+             "ragged N 1961": (r(1, 1961, HEADS, HEAD_DIM), 1.0),
+             "one all-zero head": (zero, 1.0),
+             **{f"fused {name}": (t, 1.0) for name, t in zip("qkv", fused)}}
+    for label, (x, mult) in cases.items():
+        want8, want_s = A.quantize_per_head(x, mult)
+        x8, s = A.quantize_per_head_kernel(x, mult)
+        vt, sv = A.quantize_per_head_kernel(x, mult, v_layout=True)
+        same = {"bytes": torch.equal(x8, want8), "scales": torch.equal(
+            s, want_s), "v layout": torch.equal(
+                vt, A.quantize_v_kernel_layout(want8)),
+            "v scales": torch.equal(sv, want_s)}
+        log(f"quantize {label} {tuple(x.shape)} strides {x.stride()}: bit "
+            f"for bit {same}")
+        if not all(same.values()):
+            raise AssertionError(f"quantize {label}: {same}")
+        if label == "one all-zero head" and float(s[1, 2]) != 1.0:
+            raise AssertionError("quantize: an all-zero head's scale is "
+                                 f"{float(s[1, 2])}, not 1")
+    del cases, x, want8, x8, vt, fused, zero
+    q = r(1, MAIN_N, HEADS, HEAD_DIM)
+    shape = f"embed q N={MAIN_N} H={HEADS} d={HEAD_DIM}"
+    time_kernel(table, "quantize", shape,
+                lambda: A.quantize_per_head_kernel(q, q_mult),
+                lambda: A.quantize_per_head(q, q_mult), 20, True)
+    for key, count, t in device_times(
+            lambda: A.quantize_per_head_kernel(q, q_mult)):
+        log(f"split quantize {shape}: {key[:60]} x{count} a call, "
+            f"{t:.4f} ms each (profiler)")
+    # what the function must move: one read of x (bf16), one write of x8
+    # (int8) and of the (B, H) f32 scales; the kernel's second read of x
+    # (its int8 pass) is a cost of its two-pass design, not of the function
+    set_bound(table, "quantize", shape, 0.0,
+              q.numel() * (2 + 1) + 4 * q.shape[0] * q.shape[2])
+
+
 def k3_beside_k1(shape: str, q, k, v) -> None:
-    """K3 beside K1 on the same inputs, with the exp2 floor the two share
-    and the time of the plain-torch quantisation K3's wrapper runs first."""
+    """K3 beside K1 on the same inputs, with the exp2 floor the two share:
+    through its wrapper, and its kernel alone on the operands that the
+    quantisation kernel (R6) gives the wrapper, beside that kernel's time
+    and the plain quantisation's."""
     from smb_vision_tpu_torch.ops import attention as A
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    ms3 = cuda_ms(lambda: A.flash_attention_int8(q, k, v), iters=8)
-    ms1 = cuda_ms(lambda: A.flash_attention(q, k, v), iters=8)
-    quant = cuda_ms(lambda: A.quantize_qk(q, k, scale), iters=8)
-    log(f"time flash_fwd_i8   {shape}: kernel {ms3:.3f} ms (of it the "
-        f"plain-torch quantisation {quant:.3f}), K1 on the same inputs "
-        f"{ms1:.3f} ms, exp2 floor {exp2_floor_ms(q.shape[1], q.shape[2]):.3f}"
-        f" ms (CUDA events)")
+    ops = A.quantize_qk(q, k, scale)
+    ms3, alone, ms1, quant, plain = (cuda_ms(
+        fn, iters=8, repeats=KERNEL_REPEATS) for fn in (
+            lambda: A.flash_attention_int8(q, k, v),
+            lambda: A._launch_int8(*ops, v),
+            lambda: A.flash_attention(q, k, v),
+            lambda: A.quantize_qk(q, k, scale),
+            lambda: plain_qk(q, k, scale)))
+    log(f"time flash_fwd_i8   {shape}: wrapper {ms3:.3f} ms, kernel alone "
+        f"{alone:.3f}; the quantisation of q and k: kernel {quant:.3f}, "
+        f"plain {plain:.3f}; K1 on the same inputs {ms1:.3f} ms, exp2 floor "
+        f"{exp2_floor_ms(q.shape[1], q.shape[2]):.3f} ms (CUDA events)")
 
 
 def check_kernel(table: dict, name: str, what: str, out, ref, tol: float,
@@ -753,7 +903,8 @@ def time_kernel(table: dict, name: str, shape: str, kernel, plain,
                 iters: int, keep: bool) -> None:
     """The kernel's and its plain version's time by CUDA events; keep puts
     them in the table."""
-    ms, plain_ms = cuda_ms(kernel, iters=iters), cuda_ms(plain, iters=2)
+    ms = cuda_ms(kernel, iters=iters, repeats=KERNEL_REPEATS)
+    plain_ms = cuda_ms(plain, iters=2)
     log(f"time {name:<14} {shape:<30} kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms (CUDA events)")
     if keep:
@@ -921,17 +1072,16 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
                          TOL_FLASH_BWD)
         del got, want
         if label != "ragged":
-            ms = cuda_ms(lambda: A.flash_attention_bwd_i8(q, k, v, out, lse,
-                                                          do))
+            ms = cuda_ms(lambda: A.flash_attention_bwd_i8(
+                q, k, v, out, lse, do), repeats=KERNEL_REPEATS)
             plain_ms = cuda_ms(lambda: A.attention_bwd_i8_plain(
                 q, k, v, out, lse, do, scale=scale), iters=2)
-            k4_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, out, lse,
-                                                          do))
-            quant = cuda_ms(lambda: A._i8_operands(q, k, v, do, scale))
-            log(f"time flash_bwd_i8   {label} {shape}: kernel {ms:.3f} ms "
-                f"(of it the plain-torch quantisation {quant:.3f}), plain "
-                f"{plain_ms:.3f} ms, K4 on the same inputs {k4_ms:.3f} ms "
-                f"(CUDA events)")
+            k4_ms = cuda_ms(lambda: A.flash_attention_bwd(
+                q, k, v, out, lse, do), repeats=KERNEL_REPEATS)
+            k7_quant(f"{label} {shape}", q, k, v, do, out, lse, ms)
+            log(f"time flash_bwd_i8   {label} {shape}: wrapper {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, K4 on the same inputs {k4_ms:.3f} "
+                f"ms (CUDA events)")
             if label == "encoder":
                 table["flash_bwd_i8"]["ms"] = ms
                 table["flash_bwd_i8"]["plain_ms"] = plain_ms
@@ -948,7 +1098,7 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
     check_kernel(table, "flash_fwd", shape, out, ref, TOL_FLASH)
     check_kernel(table, "flash_fwd", shape + " lse2", lse, ref_lse,
                  TOL_FLASH, record=False)
-    q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+    q8, k8, sq, sk = plain_qk(q, k, scale)
     check_kernel(table, "flash_fwd_i8", shape, A.flash_attention_int8(q, k, v),
                  A.int8_attention_plain(q8, k8, sq, sk, v), TOL_INT8)
     time_kernel(table, "flash_fwd", shape,
@@ -956,9 +1106,33 @@ def phase_vjepa_kernels(table: dict, gen, dev) -> None:
                 lambda: A.xla_attention(q, k, v), 8, False)
     time_kernel(table, "flash_fwd_i8", shape,
                 lambda: A.flash_attention_int8(q, k, v),
-                lambda: A.int8_attention_plain(*A.quantize_qk(q, k, scale),
-                                               v), 8, False)
+                lambda: A.int8_attention_plain(*plain_qk(q, k, scale), v), 8,
+                False)
     k3_beside_k1(shape, q, k, v)
+
+
+def k7_quant(shape: str, q, k, v, do, out, lse, wrapper_ms: float) -> None:
+    """K7's kernel alone on the operands the quantisation kernel (R6) gives
+    its wrapper, beside the wrapper's time and the quantisation's (kernel
+    and plain) of q, k, v and do; and the wrapper's host issue time beside
+    its device time, which says which of the two sets its time."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ops = A._i8_operands(q, k, v, do, scale)
+    alone, quant, plain = (cuda_ms(fn, repeats=KERNEL_REPEATS) for fn in (
+        lambda: A._launch_bwd_i8(q, k, do, out, lse, ops, scale),
+        lambda: A._i8_operands(q, k, v, do, scale),
+        lambda: A._i8_operands(q, k, v, do, scale, A.quantize_per_head)))
+    log(f"time flash_bwd_i8   {shape}: wrapper {wrapper_ms:.3f} ms, kernel "
+        f"alone {alone:.3f}; the quantisation of q, k, v, do: kernel "
+        f"{quant:.3f}, plain {plain:.3f} (CUDA events)")
+    wrapper = functools.partial(A.flash_attention_bwd_i8, q, k, v, out, lse,
+                                do)
+    device = sum(count * t for _, count, t in device_times(wrapper))
+    log(f"time flash_bwd_i8   {shape}: wrapper's host issue "
+        f"{host_ms(wrapper):.3f} ms a call, its device time {device:.3f} ms "
+        f"a call (profiler)")
 
 
 def padded_to_64(*ts):
@@ -1060,8 +1234,9 @@ def d32_times(table: dict, q, k, v, do, out, lse) -> None:
     }
     for name, (kernel, plain, pad, pad_copy) in runs.items():
         time_kernel(table, name, shape, kernel, plain, 10, True)
-        pad_ms, pad_copy_ms = cuda_ms(pad, iters=10), cuda_ms(pad_copy,
-                                                              iters=10)
+        pad_ms, pad_copy_ms = (cuda_ms(fn, iters=10,
+                                       repeats=KERNEL_REPEATS)
+                               for fn in (pad, pad_copy))
         log(f"time {name:<16} {shape}: d-64 kernel on zero-padded inputs "
             f"{pad_ms:.3f} ms, with the padding copies {pad_copy_ms:.3f} "
             f"ms; native d 32 {table[name]['ms']:.3f} ms "
@@ -1076,9 +1251,8 @@ def d32_times(table: dict, q, k, v, do, out, lse) -> None:
               attn_bytes(1, n, h, d, 8), int8_ops=2 * prod)
     rate_line(table, "flash_fwd d32", shape, 2 * prod)
     rate_line(table, "flash_bwd d32", shape, 5 * prod)
-    quant = cuda_ms(lambda: A._i8_operands(q, k, v, do, scale))
-    log(f"time flash_bwd_i8 d32 {shape}: of it the plain-torch "
-        f"quantisation {quant:.3f} ms (CUDA events)")
+    k7_quant(f"d32 {shape}", q, k, v, do, out, lse,
+             table["flash_bwd_i8 d32"]["ms"])
     # at d 32 a score costs 4 d = 128 flops of the forward's tensor work
     # against one exp2, so the exp2 floor is about twice the tensor floor;
     # each backward pass recomputes p, two exp2 floors
@@ -1200,13 +1374,15 @@ def phase_whole_model(vols: Path, emb_a: Path) -> None:
         ws = reset_launches()
         outg = model(**glue)(px)[0].float()
         counts = {n: ws[n].launches for n in LEG_G_KERNELS}
+        quant = ws["quantize"].launches
         with plain_kernels():
             refg = model(**glue)(px)[0].float()
         # float32 model: how far each bf16 path is from the f32 result
         ref32 = model(dtype="float32")(px)[0]
     torch.cuda.synchronize()
-    if any(c != 12 for c in counts.values()):
-        raise AssertionError(f"whole model with K8 + K10: launches {counts}")
+    if any(c != 12 for c in counts.values()) or quant != 36:
+        raise AssertionError(f"whole model with K8 + K10: launches {counts}, "
+                             f"quantisation {quant}")
     errg, relg = errors(outg, refg)
     plaing32, kerng32 = errors(refg, ref32)[1], errors(outg, ref32)[1]
     log(f"whole model, K8 + K10a + K10b (+ K2) vs their plain versions under "
@@ -1258,9 +1434,11 @@ def run_leg_g(root: Path, vols: Path, emb_a: Path, emb_b: Path,
         LEG_G_KERNELS, table)
     want = 2 * 12
     if any(counts[n] != want for n in LEG_G_KERNELS + ("mlp_block_fwd",)) \
-            or counts["flash_fwd"] or counts["flash_fwd_i8"]:
+            or counts["flash_fwd"] or counts["flash_fwd_i8"] \
+            or counts["quantize"] != 3 * want:
         raise AssertionError(f"leg G: launches {counts}; want {want} each "
-                             "of K8, K10a, K10b and K2, none of K1 and K3")
+                             "of K8, K10a, K10b and K2, none of K1 and K3, "
+                             f"{3 * want} of the quantisation (q, k, v)")
 
     def rel(a_dir, b_dir):
         """The worst volume's max|a - b| / max|b| and ||a - b|| / ||b||."""
@@ -1333,9 +1511,11 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
 def device_times(fn, calls: int = 10, tries: int = 3) -> list:
     """[(kernel, launches a call, mean device ms a launch)] of the kernels
     that `calls` calls of fn launch, from the profiler. The profiler now
-    and then records no device activity for a session; it is then asked
-    again, up to `tries` times in all, and if it still sees none the one
-    row is the whole call's mean time by CUDA events."""
+    and then records no device activity for a session, or loses some of
+    a kernel's launches (a count that is no multiple of `calls`); it is
+    then asked again, up to `tries` times in all, and if it still sees
+    no whole session the one row is the whole call's mean time by CUDA
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1346,16 +1526,20 @@ def device_times(fn, calls: int = 10, tries: int = 3) -> list:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        out = []
+        out, lost = [], []
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
             if us > 0:
                 out.append((ev.key, ev.count // calls, us / ev.count / 1e3))
-        if out:
+                if ev.count % calls:
+                    lost.append(f"{ev.key[:40]} x{ev.count}")
+        if out and not lost:
             return out
-        log(f"device_times: the profiler saw no device time (try "
-            f"{attempt + 1} of {tries})")
+        log(f"device_times: the profiler saw "
+            + (f"launches that are no multiple of {calls} calls ({lost})"
+               if lost else "no device time")
+            + f" (try {attempt + 1} of {tries})")
     return [("whole call (CUDA events; the profiler saw no device time)",
              1, cuda_ms(fn, iters=calls))]
 
@@ -1703,7 +1887,8 @@ def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block every kernel the parity phases reach (K1, K4, K7,
-    K3, K8, K2, K5a, K5b, K6, K9, K10a, K10b) runs its plain PyTorch version
+    K3, K8 with their quantisation, K2, K5a, K5b, K6, K9, K10a, K10b) runs
+    its plain PyTorch version
     on the card, under the same impl names: the reference of the step
     parity phases. This swaps module attributes for the phase only; the
     package has no such switch and never falls back."""
@@ -1724,8 +1909,7 @@ def plain_kernels():
             A.attention_bwd_i8_plain(q, k, v, out, lse, do,
                                      scale=scale_of(q, scale), g_lse=g_lse),
         (A, "flash_attention_int8"): lambda q, k, v, *, scale=None:
-            A.int8_attention_plain(*A.quantize_qk(q, k, scale_of(q, scale)),
-                                   v),
+            A.int8_attention_plain(*plain_qk(q, k, scale_of(q, scale)), v),
         (M, "_mlp_fwd"): lambda x2, w1, b1, w2, b2, act: M._mlp_xla(
             x2.to(torch.bfloat16), w1, b1, w2, b2, act),
         (M, "mlp_train_fused"): lambda x2, w1, b1, w2, b2, *, act="gelu":
@@ -1738,7 +1922,7 @@ def plain_kernels():
                                   scale=scale_of(q, scale), g_lse=g_lse),
         (M, "_swiglu_block_fwd"): M._swiglu_block_plain,
         (A, "flash_attention_int8pv"): lambda q, k, v, *, scale=None:
-            A.int8pv_attention_plain(*A.quantize_qk(q, k, scale_of(q, scale)),
+            A.int8pv_attention_plain(*plain_qk(q, k, scale_of(q, scale)),
                                      *A.quantize_per_head(v)),
         (M, "_mlp_block_fwd"): lambda x2, lnw, lnb, w1, b1, w2, b2, act, eps:
             M._mlp_block_xla(x2.to(torch.bfloat16), lnw, lnb, w1, b1, w2, b2,
@@ -1757,7 +1941,7 @@ def plain_kernels():
 
 
 VJEPA_KERNELS = ("flash_fwd", "flash_bwd_i8", "mlp_train_fwd", "mlp_bwd",
-                 "flash_fwd_i8", "mlp_fwd")
+                 "flash_fwd_i8", "mlp_fwd", "quantize")
 
 
 def check_vjepa_launches(what: str, counts: dict) -> None:
@@ -2060,6 +2244,7 @@ def parent_routing():
 # sample for one block's recompute) is timed beside the kernels
 REF_BATCHES = (16, 8, 4, 2, 1)
 REF_SAME_BATCH = 4
+REF_AGAINST_BATCH = 2   # the reference-head step in `phase_against`
 
 
 def vjepa_params(cfg) -> int:
@@ -2074,13 +2259,14 @@ def vjepa_params(cfg) -> int:
 
 
 def phase_vjepa_ref_throughput(card: str, table: dict,
-                               iters: int = 3) -> None:
+                               iters: int = 2) -> None:
     """V-JEPA steps of configs/vjepa_large_384.json (no accumulation): under
     "auto" (K1 + K4 at d 64 and d 32) and under LEG_I_IMPLS (K1 + K7, the
     teacher on K3) at the largest batch of REF_BATCHES that fits, then at
     REF_SAME_BATCH under "auto" and under `parent_routing`; step ms, MFU
     (`vjepa_flops_per_sample`, which with the parameter count is checked
-    to be the _tpu preset's) and peak memory by `time_train_steps`, and
+    to be the _tpu preset's) and peak memory by `time_train_steps` (two
+    timed steps a run: a step at batch 16 takes over 4 s), and
     each run's launches a step, which must show its routing (K4 at d 32's
     under "auto" are its row's launches)."""
     import torch
@@ -2298,8 +2484,9 @@ GLUE_KERNELS = ("qkv_ln_rows_kernel", "qkv_gemm_kernel",
 def phase_glue_kernels(table: dict, gen, dev) -> None:
     """K8 against its plain version (the same quantised operands and 64-key
     sub-blocks) and float32 attention at N 20,480, 12 heads of 64, and at
-    ragged N 1,961, timed beside K3 on the same inputs (no library call
-    computes int8 p v). K10a and K10b against their plain versions (the
+    ragged N 1,961, timed beside K3 on the same inputs, each through its
+    wrapper and alone (`k8_beside_k3`; no library call computes int8 p
+    v). K10a and K10b against their plain versions (the
     kernels' numerics) at the embed shape, the MIM encoder's and decoder's
     and a ragged one, timed beside their plain versions and the library
     chain: F.layer_norm + one F.linear on the stacked (3K, K) weight for
@@ -2318,7 +2505,7 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
     scale = 1.0 / math.sqrt(HEAD_DIM)
     for n in (MAIN_N, K8_RAGGED_N):
         q, k, v = _attn_inputs(n, gen, dev)
-        q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+        q8, k8, sq, sk = plain_qk(q, k, scale)
         v8, sv = A.quantize_per_head(v)
         out = A.flash_attention_int8pv(q, k, v)
         check_kernel(table, "flash_fwd_i8pv", f"N={n}", out,
@@ -2331,11 +2518,9 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
             time_kernel(table, "flash_fwd_i8pv", f"main-path N={n}",
                         lambda: A.flash_attention_int8pv(q, k, v),
                         lambda: A.int8pv_attention_plain(
-                            *A.quantize_qk(q, k, scale),
+                            *plain_qk(q, k, scale),
                             *A.quantize_per_head(v)), 8, True)
-            k3_ms = cuda_ms(lambda: A.flash_attention_int8(q, k, v), iters=8)
-            log(f"time flash_fwd_i8   on K8's inputs N={n}: {k3_ms:.3f} ms "
-                f"(CUDA events)")
+            k8_beside_k3(f"N={n}", q, k, v)
             ops = 2 * n * n * HEAD_DIM * HEADS
             set_bound(table, "flash_fwd_i8pv", f"N={n}", 0.0,
                       4 * n * HEADS * HEAD_DIM * 2, int8_ops=2 * ops)
@@ -2376,10 +2561,10 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
         b3 = torch.cat(bs[:3]).to(torch.bfloat16)
         lib_qkv = cuda_ms(lambda: F.linear(F.layer_norm(
             x, (kd,), lnw.to(torch.bfloat16), lnb.to(torch.bfloat16), 1e-6),
-            w3, b3), iters=20)
+            w3, b3), iters=20, repeats=KERNEL_REPEATS)
         bo16 = bs[3].to(torch.bfloat16)
         lib_out = cuda_ms(lambda: torch.addmm(x, y, ws[3]).add_(bo16),
-                          iters=20)
+                          iters=20, repeats=KERNEL_REPEATS)
         log(f"time library chains {what}: F.layer_norm + F.linear(3K x K) "
             f"{lib_qkv:.3f} ms, torch.addmm + bias {lib_out:.3f} ms (two "
             f"calls each, CUDA events)")
@@ -2408,6 +2593,35 @@ def phase_glue_kernels(table: dict, gen, dev) -> None:
     for m, kd, label in ((2 * ENC_N, HIDDEN, "MIM encoder"),
                          (2 * MAIN_N, DEC_HIDDEN, "MIM decoder")):
         glue_block_ms(f"{label} batch 2 M={m} K={kd}", m, kd, r)
+
+
+def k8_beside_k3(shape: str, q, k, v) -> None:
+    """K8 beside K3 on the same inputs: each through its wrapper and its
+    kernel alone on the operands the quantisation kernel gives the
+    wrapper, beside the quantisation's time (q, k and v in K8's layout),
+    the exp2 floor the two share, and the device time of K8's kernel by
+    the profiler."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ops = A.quantize_qk(q, k, scale)
+    vt8, sv = A.quantize_per_head_kernel(v, v_layout=True)
+    ms = {"K8 wrapper": lambda: A.flash_attention_int8pv(q, k, v),
+          "K8 kernel alone": lambda: A._launch_int8pv(*ops, vt8, sv),
+          "K3 wrapper": lambda: A.flash_attention_int8(q, k, v),
+          "K3 kernel alone": lambda: A._launch_int8(*ops, v),
+          "quantisation of q, k, v": lambda: (
+              A.quantize_qk(q, k, scale),
+              A.quantize_per_head_kernel(v, v_layout=True))}
+    got = {name: cuda_ms(fn, iters=8, repeats=KERNEL_REPEATS)
+           for name, fn in ms.items()}
+    log(f"time flash_fwd_i8pv {shape}: " + ", ".join(
+        f"{name} {t:.3f} ms" for name, t in got.items())
+        + f"; exp2 floor {exp2_floor_ms(q.shape[1], q.shape[2]):.3f} ms "
+        f"(CUDA events)")
+    for key, count, t in device_times(ms["K8 kernel alone"]):
+        log(f"split flash_fwd_i8pv {shape}: {key[:60]} x{count} a call, "
+            f"{t:.4f} ms each (profiler)")
 
 
 def glue_block_ms(what: str, m: int, kd: int, r) -> None:
@@ -2740,14 +2954,14 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K3, K4, K7 and K8 at d 64 and 128 by a part of their mangled names (this
-# tree's, the other's), and every kernel of the MLP forward and backward
-# and the glue sources (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a
-# and its row pass, K10b) by its whole name, but any kernel this tree adds
-# there (NEW_KERNELS); the d-32 instantiations of K1, K4 and K7 are the ones
-# this tree adds
+# K4 and K7 at d 32, 64 and 128 and K3 at 64 and 128 by a part of their
+# mangled names (this tree's, the other's), and every kernel of the MLP
+# forward and backward and the glue sources (K2, K6, K5a, K9 and their
+# LayerNorm pass, K5b, K10a and its row pass, K10b) by its whole name, but
+# any kernel this tree adds there (NEW_KERNELS); K8 is the kernel this
+# tree redesigns, and the quantisation kernel's source is new
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
-             for d in (64, 128)
+             for d in (32, 64, 128)
              for k, this, other in (
                  ("K1", "flash_fwd_sm90_kernelILi{d}ELb0EE",
                   "flash_fwd_sm90_kernelILi{d}ELb0EE"),
@@ -2756,9 +2970,8 @@ UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
                  ("K4", "flash_bwd_sm90_kernelILi{d}EE",
                   "flash_bwd_sm90_kernelILi{d}EE"),
                  ("K7", "flash_bwd_i8_sm90_kernelILi{d}EE",
-                  "flash_bwd_i8_sm90_kernelILi{d}EE"),
-                 ("K8", "flash_fwd_i8pv_kernelILi{d}EE",
-                  "flash_fwd_i8pv_kernelILi{d}EE"))}
+                  "flash_bwd_i8_sm90_kernelILi{d}EE"))
+             if (k, d) != ("K3", 32)}
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
 NEW_KERNELS: tuple = ()
 
@@ -2791,13 +3004,15 @@ def compare_sass(sass: dict) -> None:
                   for fn in sorted(set(this) - set(same))))
 
 
-def unchanged_outputs(dev) -> list:
-    """The outputs of the UNCHANGED kernels on seeded inputs: K1, K3 and
-    K8 at d 64 and 128, K4 at the MIM encoder's shape and at the V-JEPA
-    encoder's (d 128), K7 at the V-JEPA encoder's and the reference-head
-    encoder's (d 64), K2, K6 and K5a at the embed shape, K5b at the MIM
-    encoder's, K9 at DINOv2-giant batch 1 and K10a and K10b at the embed
-    shape."""
+def unchanged_outputs(dev) -> tuple:
+    """The outputs of the UNCHANGED kernels on seeded inputs, through their
+    wrappers (K3 and K7 with their quantisation): K1 and K3 at d 64 and
+    128, K4 at the MIM encoder's shape and at the V-JEPA encoder's (d 128),
+    K7 at the V-JEPA encoder's and the reference-head encoder's (d 64), K1,
+    K4 and K7 at the reference-head predictor's (d 32), K2, K6 and K5a at
+    the embed shape, K5b at the MIM encoder's, K9 at DINOv2-giant batch 1
+    and K10a and K10b at the embed shape; and apart, K8's at d 64 and
+    128."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -2810,12 +3025,12 @@ def unchanged_outputs(dev) -> list:
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
     bf = torch.bfloat16
-    outs = []
+    outs, k8_outs = [], []
     for n, h, d in ((MAIN_N, HEADS, HEAD_DIM), (VJ_N, 8, 128)):
         q, k, v = (r(1, n, h, d, s=0.4, dtype=bf) for _ in range(3))
         outs += [*A.flash_attention(q, k, v, with_lse=True),
-                 A.flash_attention_int8(q, k, v),
-                 A.flash_attention_int8pv(q, k, v)]
+                 A.flash_attention_int8(q, k, v)]
+        k8_outs.append(A.flash_attention_int8pv(q, k, v))
     q, k, v, do = (r(1, ENC_N, HEADS, HEAD_DIM, s=0.4, dtype=bf)
                    for _ in range(4))
     outs += A.flash_attention_bwd(q, k, v, *A.flash_attention(
@@ -2828,6 +3043,11 @@ def unchanged_outputs(dev) -> list:
     q, k, v, do = (r(1, VJ_N, 16, 64, s=0.4, dtype=bf) for _ in range(4))
     outs += A.flash_attention_bwd_i8(q, k, v, *A.flash_attention(
         q, k, v, with_lse=True), do)
+    q, k, v, do = (r(1, VJ_N, PRED_HEADS, 32, s=0.4, dtype=bf)
+                   for _ in range(4))
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    outs += [out, lse, *A.flash_attention_bwd(q, k, v, out, lse, do),
+             *A.flash_attention_bwd_i8(q, k, v, out, lse, do)]
     x = r(MAIN_N, HIDDEN, dtype=bf)
     lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
     w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
@@ -2848,7 +3068,41 @@ def unchanged_outputs(dev) -> list:
     bs = [r(HIDDEN, s=0.1) for _ in range(4)]
     outs += G.qkv_ln_fused(x, lnw, lnb, *lin[:3], *bs[:3])
     outs.append(G.out_res_fused(x, outs[-1], lin[3], bs[3]))
-    return outs
+    return outs, k8_outs
+
+
+def other_library(other: Path, path: Path):
+    """The other checkout's kernel library at path, bound by that
+    checkout's own `_build.bind` (its C interface, without the functions
+    this tree adds)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "other_build", other / "smb_vision_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bind(path)
+
+
+@contextlib.contextmanager
+def parent_quantisation():
+    """Inside the block the quantisation kernel's wrapper is the plain
+    pass the parent commit ran before K3, K7 and K8 (`quantize_per_head`,
+    and `quantize_v_kernel_layout` for K8's v): the other side of
+    `phase_against`, whose library has no quantisation kernel."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    kernel = A.quantize_per_head_kernel
+
+    def plain(x, mult=1.0, v_layout=False):
+        x8, s = A.quantize_per_head(x, mult)
+        return (A.quantize_v_kernel_layout(x8) if v_layout else x8), s
+
+    A.quantize_per_head_kernel = plain
+    try:
+        yield
+    finally:
+        A.quantize_per_head_kernel = kernel
 
 
 def build_library(root: Path) -> Path:
@@ -2969,20 +3223,32 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     from smb_vision_tpu_torch.train.trainer import step_generator
 
     paths = {"other": build_library(other), "this": _build.build()}
-    libs = {"other": _build.bind(paths["other"]), "this": _build.lib()}
+    libs = {"other": other_library(other, paths["other"]),
+            "this": _build.lib()}
     sass = {side: sass_listing(path) for side, path in paths.items()}
     if all(sass.values()):
         compare_sass(sass)
     dev = torch.device("cuda")
+
+    def use(side):
+        """This package's wrappers on `side`'s library; the other side
+        quantises as the parent did (`parent_quantisation`)."""
+        _build._lib = libs[side]
+        return (parent_quantisation() if side == "other"
+                else contextlib.nullcontext())
+
     outs = {}
-    for side, handle in libs.items():
-        _build._lib = handle
-        outs[side] = unchanged_outputs(dev)
-    same = [torch.equal(a, b) for a, b in zip(outs["other"], outs["this"])]
-    log(f"against: outputs of K1, K3, K4, K7, K8, K2, K6, K5a, K5b, K9, "
-        f"K10a and K10b "
-        f"bit for bit equal: {all(same)} ({sum(same)} of {len(same)} "
-        f"tensors)")
+    for side in libs:
+        with use(side):
+            outs[side] = unchanged_outputs(dev)
+    same = [torch.equal(a, b) for a, b in zip(outs["other"][0],
+                                              outs["this"][0])]
+    log(f"against: outputs of K1, K3, K4, K7 (d 32 too), K2, K6, K5a, K5b, "
+        f"K9, K10a and K10b through their wrappers bit for bit equal: "
+        f"{all(same)} ({sum(same)} of {len(same)} tensors)")
+    for d, a, b in zip((64, 128), outs["other"][1], outs["this"][1]):
+        log(f"against: K8 d {d}, this against the other: max|d| / max|ref| "
+            f"{errors(b, a)[1]:.3e}")
     del outs
 
     def inputs(seed, shape):
@@ -2995,9 +3261,10 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     dec = inputs(1, (1, MAIN_N, DEC_HEADS, HEAD_DIM))
     vj = inputs(2, (1, VJ_N, 8, 128))
     ref = inputs(3, (1, VJ_N, 16, 64))
+    pred = inputs(6, (1, VJ_N, PRED_HEADS, 32))
     fwd_lse = {name: A.flash_attention(*x[:3], with_lse=True)
                for name, x in (("enc", enc), ("dec", dec), ("vj", vj),
-                               ("ref", ref))}
+                               ("ref", ref), ("pred", pred))}
 
     gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -3071,6 +3338,15 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         torch.rand((bs, vcfg.frames_per_clip, 1, vcfg.crop_size,
                     vcfg.crop_size), generator=gen, device=dev)
         for _ in range(4)]) for bs in (1, 2)}
+    # the reference-head preset under the impls its _comment recommends
+    # (K7 with the quantisation in the student, K3 in the teacher)
+    rcfg, rpreset = vjepa_ref_config(attn_impl=LEG_I_IMPLS["attn_impl"])
+    _, rinit, rstep, _ = vjepa_workload(rcfg, rpreset, dev,
+                                        LEG_I_IMPLS["teacher_attn_impl"])
+    vjepa_ref = (rinit(0), rstep, [
+        torch.rand((REF_AGAINST_BATCH, rcfg.frames_per_clip, 1,
+                    rcfg.crop_size, rcfg.crop_size), generator=gen,
+                   device=dev) for _ in range(4)])
 
     def encode(leg):
         with torch.inference_mode():
@@ -3084,6 +3360,7 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     (q, k, v, _), (eq, ek, ev, edo), (dq_, dk_, dv_, ddo) = emb, enc, dec
     probes = {
         "K1 embed": lambda: A.flash_attention(q, k, v),
+        "quantisation q, k embed": lambda: A.quantize_qk(q, k, 0.125),
         "K3 embed d 64": lambda: A.flash_attention_int8(q, k, v),
         "K3 V-JEPA d 128": lambda: A.flash_attention_int8(*vj[:3]),
         "K8 embed": lambda: A.flash_attention_int8pv(q, k, v),
@@ -3095,6 +3372,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             *vj[:3], *fwd_lse["vj"], vj[3]),
         "K7 reference head d 64": lambda: A.flash_attention_bwd_i8(
             *ref[:3], *fwd_lse["ref"], ref[3]),
+        "K7 predictor d 32": lambda: A.flash_attention_bwd_i8(
+            *pred[:3], *fwd_lse["pred"], pred[3]),
         "K2 embed": lambda: M.mlp_block_fused(mx, mlnw, mlnb, mw1, mb1, mw2,
                                               mb2, eps=1e-12),
         "K6 embed": lambda: M.mlp_fused(mx, mw1, mb1, mw2, mb2),
@@ -3131,18 +3410,23 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     gc.callbacks.append(gc_pause)
     for r in range(rounds):
         for side in ("other", "this", "this", "other"):
-            _build._lib = libs[side]
-            for name, fn in probes.items():
-                record(side, name + " ms", lambda: cuda_ms(fn, iters=10))
-            for leg in models:
-                record(side, f"leg {leg} vol/s", lambda: 4 * 3 * 1e3
-                       / cuda_ms(lambda: encode(leg), iters=1, warmup=1))
-            for name, work in mim.items():
-                record(side, f"{name} ms", lambda: cuda_ms(
-                    lambda: steps(*work), iters=1, warmup=1) / 3)
-            for bs in (1, 2):
-                record(side, f"V-JEPA step batch {bs} ms", lambda: cuda_ms(
-                    lambda: steps(*vjepa[bs]), iters=1, warmup=1) / 3)
+            with use(side):
+                for name, fn in probes.items():
+                    record(side, name + " ms", lambda: cuda_ms(fn, iters=10))
+                for leg in models:
+                    record(side, f"leg {leg} vol/s", lambda: 4 * 3 * 1e3
+                           / cuda_ms(lambda: encode(leg), iters=1, warmup=1))
+                for name, work in mim.items():
+                    record(side, f"{name} ms", lambda: cuda_ms(
+                        lambda: steps(*work), iters=1, warmup=1) / 3)
+                for bs in (1, 2):
+                    record(side, f"V-JEPA step batch {bs} ms",
+                           lambda: cuda_ms(lambda: steps(*vjepa[bs]),
+                                           iters=1, warmup=1) / 3)
+                record(side, f"V-JEPA reference heads batch "
+                       f"{REF_AGAINST_BATCH} ms", lambda: cuda_ms(
+                           lambda: steps(*vjepa_ref), iters=1,
+                           warmup=1) / 3)
     gc.callbacks.remove(gc_pause)
     _build._lib = libs["this"]
     means = {side: {k: sum(v) / len(v) for k, v in got.items()}
@@ -3156,7 +3440,7 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             f"{[round(x, 3) for x in times['this'][key]]}"
             + (f"; garbage-collection ms in them: {slow}" if slow else "")
             + f") on {card}")
-    del models, mim, vjepa, vstate
+    del models, mim, vjepa, vstate, vjepa_ref
     torch.cuda.empty_cache()
     for seed in DINO_PARITY_SEEDS:
         got = dinov2_parity(seed, libs)
@@ -3187,6 +3471,12 @@ def main() -> int:
                          f"script ({err}); run it from a checkout of the "
                          f"repository") from None
 
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        """Log the run's wall time at the end of a phase."""
+        log(f"elapsed: {phase} done at {time.perf_counter() - t0:.1f} s")
+
     card = phase_device()
     phase_build()
     if sys.argv[1:2] == ["--against"]:
@@ -3195,6 +3485,7 @@ def main() -> int:
             Path(sys.argv[2]).resolve(), card)}))
         return 0
     table = phase_kernels()
+    done("kernels")
     work = ROOT / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir()
@@ -3202,30 +3493,42 @@ def main() -> int:
         vols = write_volumes(work)
         emb_a, _ = run_leg(work, vols, "A", vit_base_config(
             work, "leg_a", "auto"), [], ("flash_fwd", "mlp_block_fwd"), table)
-        emb_b, _ = run_leg(work, vols, "B", vit_base_config(
+        emb_b, counts = run_leg(work, vols, "B", vit_base_config(
             work, "leg_b", "pallas_bwd"), ["--attn_impl", "pallas_int8"],
-            ("flash_fwd_i8", "mlp_fwd"), table)
+            ("flash_fwd_i8", "mlp_fwd", "quantize"), table)
+        if counts["quantize"] != 2 * counts["flash_fwd_i8"]:
+            raise AssertionError(f"leg B: launches {counts}; the "
+                                 "quantisation kernel must launch for q "
+                                 "and k of every K3 call")
         run_leg_g(work, vols, emb_a, emb_b, table)
         phase_whole_model(vols, emb_a)
+        done("legs A, B, G and the whole model")
         run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
+        done("legs C and H")
         run_leg_d(work, vols, table)
         run_leg_i(work, vols, table)
+        done("legs D and I")
         spec = write_labelled_spec(work, vols)
         run_leg_e(work, spec)
         run_leg_f(work, spec, table)
+        done("legs E and F")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
     phase_train_parity()
     phase_train_parity(glue=True)
     phase_train_throughput(card)
+    done("encode throughput, MIM parity and throughput")
     phase_vjepa_parity()
     phase_vjepa_throughput(card)
     phase_vjepa_parity(ref=True)
+    done("V-JEPA parity and throughput, reference-head parity")
     phase_vjepa_ref_throughput(card, table)
+    done("reference-head throughput")
     phase_dinov2_parity()
     phase_finetune_throughput(card)
+    done("DINOv2 parity and fine-tune throughput")
     log(card)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

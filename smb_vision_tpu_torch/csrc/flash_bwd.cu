@@ -103,7 +103,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "ptx.cuh"
 #include "sm90.cuh"
 
 namespace {

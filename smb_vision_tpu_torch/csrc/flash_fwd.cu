@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 scores (K1) and int8
 // scores (K3) on wgmma, TMA and warp specialisation, one kernel template;
-// int8 scores with int8 p v (K8) on mma.sync, further down with its own
-// note.
+// int8 scores with int8 p v (K8) on the same design, a sibling kernel
+// further down with its own note.
 //
 // Replaces
 //   K1  smb_vision_tpu/ops/attention.py:_fwd_kernel      (bf16 flash forward)
@@ -80,16 +80,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "ptx.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-// K8's block: 8 warps of 16 query rows, kv tiles of 64 keys
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 16 * kWarps;  // query rows per block
-constexpr int kBK = 64;           // kv rows per tile
 
 struct FlashParams {
   const char* q;
@@ -107,277 +100,6 @@ struct FlashParams {
   long long o_sb, o_sn, o_sh;
   float scale_log2;
 };
-
-// ---------------------------------------------------------------------------
-// K8: int8 scores AND int8 p v (replaces _fwd_i8_kernel, pv=True).
-//
-// Per query row i and per 64-key tile u (the kernel's kv tile, and the JAX
-// kernel's sub-block at block_k 64):
-//   s_ij  = (q8_i . k8_j) * sq*sk             (log2 units, as K3)
-//   sm_u  = max_j in u s_ij
-//   p8_ij = floor(exp2(s_ij - sm_u + log2 127) + .5)   in 0..127
-//   o_i   = sv * sum_u w_u sum_j p8_ij v8_j / sum_u w_u sum_j p8_ij,
-//   w_u   = exp2(sm_u - m_i), m_i the running max (online rescale).
-// Numerator and denominator come from the same integers p8. The TPU kernel
-// fixed the shift c from the first kv block and got the row sum from a
-// [v8 | 127 | pad] column on the MXU; both cancel in o and are not carried
-// over: the row sum is an integer sum of p8 in registers.
-//
-// Layout. The int32 C fragment of the score mma (m16n8k32) gives thread
-// (g, t) keys 2t, 2t+1 of each n8 tile, but the s8 A fragment of the p v
-// mma wants k = 4t..4t+3 and 16+4t..16+4t+3 of a 32-key step. The order of
-// keys inside a step is free, so A's k = 4t+e is taken to be key
-// 2t + (e&1) + 8*(e>>1) (and +16 for the second half): each thread's own
-// p8 values are its A fragment, with no shuffles. v8 comes from the
-// wrapper d-major, (B, H, D, N_pad) with N_pad a multiple of 64 (zeros past
-// N), keys permuted within each 32-key group to that order
-// (ops/attention.py::quantize_v_kernel_layout); so v8's B fragment is one
-// ldmatrix (non-trans: sm_90 has no 8-bit .trans) of 8 d-rows x 16 bytes.
-// Keys past N score -inf, so their p8 is 0, and their v8 bytes are 0.
-//
-// Bound on the H100: int8 operations, 4*B*H*N^2*d at 1,979 TOP/s (0.651 ms
-// at N 20,480, 12 heads of 64, batch 1). Design: 8 warps x 16 query rows,
-// q8 fragments straight from global memory, k8 and v8 tiles
-// double-buffered by cp.async, B fragments by ldmatrix, scores, p8 and the
-// o accumulator in registers.
-template <int D>
-struct PvTiles {
-  static constexpr int KROW = D + 16;        // padded k8 row, bytes
-  static constexpr int VROW = kBK + 16;      // padded v8 (d-major) row
-  static constexpr int STAGE = kBK * KROW + D * VROW;
-  static constexpr int BYTES = 2 * STAGE;
-};
-
-struct PvParams {
-  const int8_t* q;
-  const int8_t* k;
-  const int8_t* vt;  // (B*H, D, Npad), keys permuted (see above)
-  const float* sq;
-  const float* sk;
-  const float* sv;
-  __nv_bfloat16* o;  // (B, Nq, H, D) contiguous
-  int H, Nq, Nk, Npad;
-  long long q_sb, q_sn, q_sh;
-  long long k_sb, k_sn, k_sh;
-};
-
-// The conversions below run on the FP32 and integer pipes instead of the
-// quarter-rate conversion unit, which ex2 already keeps busy:
-// floor(x) for x in [0, 2^22) is the low bits of x + 2^23 rounded toward
-// zero (the ulp there is 1)
-__device__ __forceinline__ uint32_t floor_bits(float x) {
-  return __float_as_uint(__fadd_rz(x, 8388608.f));
-}
-
-// the low bytes of a, b, c, d as one word, a in byte 0
-__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
-                                                   uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
-                     0x5410);
-}
-
-// an integer |x| < 2^22 as a float: the bits of 1.5 * 2^23 + x, less
-// 1.5 * 2^23
-__device__ __forceinline__ float small_int_to_float(int x) {
-  return __int_as_float(x + 0x4B400000) - 12582912.f;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-    flash_fwd_i8pv_kernel(const PvParams p) {
-  using T = PvTiles<D>;
-  constexpr int KQ = D / 32;   // k32 steps of the q k^T product
-  constexpr int ND = D / 8;    // n8 tiles of the o accumulator
-  constexpr int NS = kBK / 8;  // n8 tiles of one score tile
-  constexpr float kLog127 = 6.988684686772166f;
-  extern __shared__ __align__(16) char smem[];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-
-  const int8_t* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const int8_t* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const int8_t* vb = p.vt + (long long)bh * D * p.Npad;
-
-  auto load_tile = [&](int stage, int kv0) {
-    char* ks = smem + stage * T::STAGE;
-    char* vs = ks + kBK * T::KROW;
-    constexpr int KCH = D / 16, VCH = kBK / 16;
-    for (int c = tid; c < kBK * KCH; c += kThreads) {
-      const int row = c / KCH, col = (c % KCH) * 16;
-      const bool ok = kv0 + row < p.Nk;
-      cp_async16(ks + row * T::KROW + col,
-                 reinterpret_cast<const char*>(
-                     ok ? kb + (long long)(kv0 + row) * p.k_sn + col : kb),
-                 ok ? 16 : 0);
-    }
-    // v8 rows are d; Npad is a multiple of kBK, so a tile never runs past
-    for (int c = tid; c < D * VCH; c += kThreads) {
-      const int row = c / VCH, col = (c % VCH) * 16;
-      cp_async16(vs + row * T::VROW + col,
-                 reinterpret_cast<const char*>(
-                     vb + (long long)row * p.Npad + kv0 + col),
-                 16);
-    }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  uint32_t qa[KQ][4];
-  {
-    const char* q0 = reinterpret_cast<const char*>(qb + (long long)r0 * p.q_sn);
-    const char* q1 = reinterpret_cast<const char*>(qb + (long long)r1 * p.q_sn);
-    const bool v0 = r0 < p.Nq, v1 = r1 < p.Nq;
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      const int c0 = kk * 32 + 4 * t;
-      qa[kk][0] = v0 ? ld32(q0 + c0) : 0u;
-      qa[kk][1] = v1 ? ld32(q1 + c0) : 0u;
-      qa[kk][2] = v0 ? ld32(q0 + c0 + 16) : 0u;
-      qa[kk][3] = v1 ? ld32(q1 + c0 + 16) : 0u;
-    }
-  }
-  const float c = p.sq[bh] * p.sk[bh];
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const int ntiles = (p.Nk + kBK - 1) / kBK;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_tile((it + 1) & 1, (it + 1) * kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const char* ks = smem + (it & 1) * T::STAGE;
-    const char* vs = ks + kBK * T::KROW;
-    const int kv0 = it * kBK;
-
-    // scores in log2 units: s = q8.k8 * c, f32
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const char* krow = ks + (j * 8 + (lane & 7)) * T::KROW + (lane >> 3) * 16;
-      int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int hh = 0; hh < KQ / 2; ++hh) {
-        uint32_t bf[4];
-        ldsm_x4(bf, krow + hh * 64);
-        mma_s8(acc, qa[2 * hh], bf[0], bf[1]);
-        mma_s8(acc, qa[2 * hh + 1], bf[2], bf[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = small_int_to_float(acc[i]) * c;
-    }
-    if (kv0 + kBK > p.Nk) {  // ragged kv tail: p8 = 0 there
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (kv0 + j * 8 + 2 * t + (i & 1) >= p.Nk) s[j][i] = -INFINITY;
-    }
-
-    // the tile's row max sm (a tile always holds a key < Nk, so it is
-    // finite), and the running max
-    float sm0 = -INFINITY, sm1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      sm0 = fmaxf(sm0, fmaxf(s[j][0], s[j][1]));
-      sm1 = fmaxf(sm1, fmaxf(s[j][2], s[j][3]));
-    }
-    sm0 = fmaxf(sm0, __shfl_xor_sync(0xffffffffu, sm0, 1));
-    sm0 = fmaxf(sm0, __shfl_xor_sync(0xffffffffu, sm0, 2));
-    sm1 = fmaxf(sm1, __shfl_xor_sync(0xffffffffu, sm1, 1));
-    sm1 = fmaxf(sm1, __shfl_xor_sync(0xffffffffu, sm1, 2));
-    const float mn0 = fmaxf(m0, sm0), mn1 = fmaxf(m1, sm1);
-    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);  // 2^-inf = 0
-    const float w0 = ex2(sm0 - mn0), w1 = ex2(sm1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    // p8 in registers, packed straight into the A fragments of p v; the row
-    // sums of p8 by dp4a on the packed bytes
-    uint32_t p8[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p8[j][i] = floor_bits(
-            ex2(s[j][i] - (i < 2 ? sm0 : sm1) + kLog127) + 0.5f);
-    uint32_t pa[kBK / 32][4];
-    int rs0 = 0, rs1 = 0;
-#pragma unroll
-    for (int cs = 0; cs < kBK / 32; ++cs) {
-      const int j = 4 * cs;
-      pa[cs][0] = pack_low_bytes(p8[j][0], p8[j][1], p8[j + 1][0],
-                                 p8[j + 1][1]);
-      pa[cs][1] = pack_low_bytes(p8[j][2], p8[j][3], p8[j + 1][2],
-                                 p8[j + 1][3]);
-      pa[cs][2] = pack_low_bytes(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0],
-                                 p8[j + 3][1]);
-      pa[cs][3] = pack_low_bytes(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2],
-                                 p8[j + 3][3]);
-      rs0 = __dp4a((int)pa[cs][0], 0x01010101, rs0);
-      rs0 = __dp4a((int)pa[cs][2], 0x01010101, rs0);
-      rs1 = __dp4a((int)pa[cs][1], 0x01010101, rs1);
-      rs1 = __dp4a((int)pa[cs][3], 0x01010101, rs1);
-    }
-    l0 = l0 * a0 + w0 * small_int_to_float(rs0);
-    l1 = l1 * a1 + w1 * small_int_to_float(rs1);
-    // one ldmatrix.x4 = the B fragments (k 0-15, 16-31 of a 32-key step)
-    // of two n8 tiles of d: matrices {n, lo}, {n, hi}, {n+1, lo}, {n+1, hi}
-    const char* vrow = vs + ((lane >> 4) * 8 + (lane & 7)) * T::VROW +
-                       ((lane >> 3) & 1) * 16;
-#pragma unroll
-    for (int n = 0; n < ND; n += 2) {
-      int pv[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-      for (int cs = 0; cs < kBK / 32; ++cs) {
-        uint32_t bf[4];
-        ldsm_x4(bf, vrow + n * 8 * T::VROW + cs * 32);
-        mma_s8(pv[0], pa[cs], bf[0], bf[1]);
-        mma_s8(pv[1], pa[cs], bf[2], bf[3]);
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        o[n + u][0] = o[n + u][0] * a0 + w0 * small_int_to_float(pv[u][0]);
-        o[n + u][1] = o[n + u][1] * a0 + w0 * small_int_to_float(pv[u][1]);
-        o[n + u][2] = o[n + u][2] * a1 + w1 * small_int_to_float(pv[u][2]);
-        o[n + u][3] = o[n + u][3] * a1 + w1 * small_int_to_float(pv[u][3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float sv = p.sv[bh];
-  const float inv0 = sv / (l0 == 0.f ? 1.f : l0);
-  const float inv1 = sv / (l1 == 0.f ? 1.f : l1);
-  __nv_bfloat16* ob = p.o + ((long long)b * p.Nq * p.H + h) * D;
-  const long long osn = (long long)p.H * D;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < p.Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * osn + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < p.Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * osn + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K1 on wgmma (see the note at the top).
@@ -693,15 +415,391 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K8: int8 scores AND int8 p v (replaces _fwd_i8_kernel, pv=True), K3's
+// design with the bf16 p v replaced by an int8 one.
+//
+// Per query row i and per sub-block u of 64 keys (the JAX kernel's
+// sub-block at block_k 64, ops/attention.py PV_SUB):
+//   s_ij  = (q8_i . k8_j) * sq*sk             (log2 units, as K3)
+//   sm_u  = max_j in u s_ij
+//   p8_ij = floor(exp2(s_ij - sm_u + log2 127) + .5)   in 0..127
+//           (the kernel rounds to nearest, see below)
+//   o_i   = sv * sum_u w_u n_u / sum_u w_u l_u,   n_u = sum_j p8_ij v8_j,
+//   l_u   = sum_j p8_ij,   w_u = exp2(sm_u - m_i), m_i the running max.
+// Numerator and denominator come from the same integers p8. The TPU kernel
+// fixed the shift from the first kv block and got the row sum from a
+// [v8 | 127 | pad] column on the MXU; both cancel in o and are not carried
+// over.
+//
+// Bound on the H100: int8 operations, 4*B*H*N^2*d at 1,979 TOP/s (0.651 ms
+// at N 20,480, 12 heads of 64, batch 1), and the same N^2*H exp2 as K1 and
+// K3 (~1.2-1.3 ms there), so it cannot go far below K3. Design, K3's:
+//   - a producer warpgroup issues TMA (q8 once; k8 and v8 in tiles of BN
+//     keys through a ring of 4 stages), two consumer warpgroups of 64 query
+//     rows take turns at issuing their wgmma (ping-pong), setmaxnreg;
+//   - S = q8 k8^T is K3's int8 wgmma; its s32 scores x become the floats
+//     1.5 * 2^23 + x exactly, so the sub-block maxima and the differences
+//     s - sm_u are exact, and one FFMA gives the exponent;
+//   - p8 is requantised per sub-block and row in registers: the sub-block's
+//     max by a quad shuffle, y rounded to the nearest integer as the low
+//     bits of y + 2^23 (one FADD; it differs from floor(y + .5) only where y
+//     is exactly k + .5, finer than ex2.approx's own error, and y < 127.5
+//     keeps p8 a positive int8), four p8 packed into a register by byte
+//     permutes;
+//   - n_u = p8 v8 is wgmma m64nDk32 .s32.s8.s8 with p8 as A from registers
+//     and v8 as B from shared memory, into a fresh s32 accumulator for each
+//     sub-block (scale-d 0 on its first k-step); BN = 128 keys hold two
+//     sub-blocks at d 64, BN = 64 one at d 128;
+//   - tile j+1's S is issued with tile j's p v, its requantisation runs
+//     while the tensor cores work, and tile j's n_u fold into the f32 o
+//     after (o = o a + sum_u w_u n_u, a the running max's rescale; n_u
+//     converted by the conversion instruction, which measured faster here
+//     than K3's integer-add trick), one tile behind; l_u is an integer sum
+//     of the packed p8 by dp4a, on the integer pipe, folded the same way
+//     and summed over the quad at the end.
+// Past K3's work a score costs the requantisation (exponent, rounding,
+// packing, row sums) and an element of o the fold, on the FP32 and integer
+// pipes, so K8 takes somewhat longer than K3 (PERF.md has the split;
+// scripts/torch_k8_split.py measures it).
+// Layout. The s32 accumulator of S gives thread (g, t) keys 2t, 2t+1 of
+// each 8-key group (acc_to_a's note in sm90.cuh), but the s8 A fragment of
+// a k32 step wants k = 4t..4t+3 and 16+4t..16+4t+3. The order of keys
+// inside a step is free, so A's k = 4t+e is taken to be key
+// 2t + (e&1) + 8*(e>>1) (and +16 for the second half): each thread's own
+// p8 values are its A fragment, with no shuffles. v8 comes d-major, (B, H,
+// D, N_pad) with N_pad a multiple of 64 (zeros past N), keys permuted
+// within each 32-key group to that order (ops/attention.py
+// quantize_v_kernel_layout; written by the quantisation kernel, quant.cu),
+// so B is K-major as integer wgmma reads it: a tile is D rows of BN bytes,
+// loaded by TMA with the swizzle of BN bytes (desc_i8<BN>).
+// Ragged keys: keys past Nk score -inf, so their p8 is 0, and their v8
+// bytes are 0; a sub-block wholly past Nk gets w_u = 0 and p8 = 0.
+
+// p8 from its float without the conversion unit, which would share the
+// issue slots with ex2 once a score: rint(x) for x in [0, 2^22) is the low
+// bits of x + 2^23 (the ulp there is 1)
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, 8388608.f));
+}
+
+// the low bytes of a, b, c, d as one word, a in byte 0
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
+                                                   uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+constexpr int kPvSub = 64;  // keys of a requantisation sub-block
+
 template <int D>
-cudaError_t launch_pv(const PvParams& p, int BH, cudaStream_t stream) {
-  auto kernel = flash_fwd_i8pv_kernel<D>;
-  const int bytes = PvTiles<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+struct PvTiles {
+  static constexpr int BM = 128;                 // query rows a block owns
+  static constexpr int BN = D <= 64 ? 128 : 64;  // keys of a streamed tile
+  static constexpr int SUBS = BN / kPvSub;       // sub-blocks of a tile
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = BM * D;         // int8 rows, as K3's
+  static constexpr int K_BYTES = BN * D;
+  static constexpr int V_BYTES = D * BN;         // D rows of BN keys
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int BARS = (2 * STAGES + 1) * 8;
+  static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE + BARS;
+};
+
+struct PvParams {
+  const float* sq;  // per (b*H + h) scales
+  const float* sk;
+  const float* sv;
+  __nv_bfloat16* o;  // (B, Nq, H, D) contiguous
+  int H, Nq, Nk;
+};
+
+template <int D>
+__global__ void __launch_bounds__(3 * kWG, 1)
+    flash_fwd_i8pv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const PvParams p) {
+  using T = PvTiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES, SUBS = T::SUBS;
+  constexpr float kLog127 = 6.988684686772166f;
+  extern __shared__ char smem_raw[];
+  char* qs = align1024(smem_raw);
+  char* kv = qs + T::Q_BYTES;  // stage s: a k8 tile, then a v8 tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + ST * T::STAGE);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * BM;
+  const int ntiles = (p.Nk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {  // producer warpgroup: one thread issues TMA
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_expect_tx(qbar, T::Q_BYTES);
+      tma_load_4d(qs, &tq, qbar, 0, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], T::STAGE);
+        char* ks = kv + s * T::STAGE;
+        tma_load_4d(ks, &tk, &full[s], 0, h, it * BN, b);
+        tma_load_4d(ks + T::K_BYTES, &tv, &full[s], it * BN, 0, 0, bh);
+      }
+    }
+  } else {  // consumer warpgroups cw = 0, 1: 64 query rows each
+    reg_alloc<232>();
+    const int cw = threadIdx.x / kWG - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
+    const float c = p.sq[bh] * p.sk[bh];
+    const uint32_t qa = smem_u32(qs) + cw * 64 * D;
+    const uint32_t kva = smem_u32(kv);
+
+    // ping-pong, as K3
+    auto turn_begin = [&]() { named_sync(1 + cw, kConsumers); };
+    auto turn_end = [&](bool last) {
+      if (!(last && cw == 1)) named_arrive(2 - cw, kConsumers);
+    };
+    if (cw == 1) named_arrive(1, kConsumers);
+
+    uint32_t si[BN / 2];          // s32 scores, then their floats, then p8
+    uint32_t n[SUBS][D / 2];      // n_u = p8 v8 of the tile in flight
+    uint32_t pa[BN / 32][4];      // p8 packed: the A fragments of p v
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // what the tile in flight folds in with: its rescale of o and l, its
+    // sub-blocks' weights and this thread's p8 row sums
+    float fa0, fa1, fw[SUBS][2];
+    int frs[SUBS][2];
+
+    auto issue_s = [&](int it) {  // s = q8 k8^T over d
+      const uint32_t ka = kva + (it % ST) * T::STAGE;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_i8<BN>(si, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
+    };
+    // n_u = p8 v8 over the sub-block's two k32 steps, n_u overwritten
+    auto issue_pv = [&](int it) {
+      const uint32_t va = kva + (it % ST) * T::STAGE + T::K_BYTES;
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u)
+#pragma unroll
+        for (int ks = 0; ks < kPvSub / 32; ++ks) {
+          const int kk = u * (kPvSub / 32) + ks;
+          wgmma_i8_rs<D>(n[u], pa[kk], desc_i8<BN>(va, kk), ks > 0);
+        }
+    };
+    // after the wait on tile it's scores: si := p8 of the tile (in the low
+    // byte of each word); a0, a1 the rescale of the rows' earlier sums and
+    // w the sub-blocks' weights, both against the new running max
+    auto requant = [&](int it, float& a0, float& a1, float (&w)[SUBS][2]) {
+      fence_regs(si);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) si[i] += 0x4B400000u;
+      const int kv0 = it * BN;
+      if (kv0 + BN > p.Nk) {  // ragged kv tail
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kv0 + j * 8 + 2 * t + (e & 1) >= p.Nk)
+              si[4 * j + e] = __float_as_uint(-INFINITY);
+      }
+      float sm[SUBS][2];
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) {
+        float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+        for (int j = u * 8; j < u * 8 + 8; ++j) {
+          x0 = fmaxf(x0, fmaxf(__uint_as_float(si[4 * j]),
+                               __uint_as_float(si[4 * j + 1])));
+          x1 = fmaxf(x1, fmaxf(__uint_as_float(si[4 * j + 2]),
+                               __uint_as_float(si[4 * j + 3])));
+        }
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+        sm[u][0] = x0;
+        sm[u][1] = x1;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) {
+        mx0 = fmaxf(mx0, sm[u][0]);
+        mx1 = fmaxf(mx1, sm[u][1]);
+      }
+      a0 = ex2((m0 - mx0) * c);  // 0 on the first tile (m = -inf)
+      a1 = ex2((m1 - mx1) * c);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) {
+        w[u][0] = ex2((sm[u][0] - m0) * c);  // 0 for a sub-block past Nk
+        w[u][1] = ex2((sm[u][1] - m1) * c);
+        // a sub-block past Nk: s - (+inf) = -inf, so p8 = 0 there too
+        if (sm[u][0] == -INFINITY) sm[u][0] = INFINITY;
+        if (sm[u][1] == -INFINITY) sm[u][1] = INFINITY;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = __uint_as_float(si[4 * j + e]);
+          const float y = ex2(fmaf(x - sm[j / 8][e >> 1], c, kLog127));
+          si[4 * j + e] = rint_bits(y);
+        }
+    };
+    // p8 of the tile into pa, and this thread's row sums of it by dp4a
+    auto pack = [&]() {
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) frs[u][0] = frs[u][1] = 0;
+#pragma unroll
+      for (int cs = 0; cs < BN / 32; ++cs) {
+        const uint32_t* q = si + 16 * cs;
+        pa[cs][0] = pack_low_bytes(q[0], q[1], q[4], q[5]);
+        pa[cs][1] = pack_low_bytes(q[2], q[3], q[6], q[7]);
+        pa[cs][2] = pack_low_bytes(q[8], q[9], q[12], q[13]);
+        pa[cs][3] = pack_low_bytes(q[10], q[11], q[14], q[15]);
+        int* rs = frs[cs / (kPvSub / 32)];
+        rs[0] = __dp4a((int)pa[cs][0], 0x01010101, rs[0]);
+        rs[0] = __dp4a((int)pa[cs][2], 0x01010101, rs[0]);
+        rs[1] = __dp4a((int)pa[cs][1], 0x01010101, rs[1]);
+        rs[1] = __dp4a((int)pa[cs][3], 0x01010101, rs[1]);
+      }
+    };
+    // after the wait on tile it's p v: o = o a + sum_u w_u n_u, and l the
+    // same of the row sums
+    auto fold = [&]() {
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) fence_regs(n[u]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float acc = o[i] * (r ? fa1 : fa0);
+#pragma unroll
+        for (int u = 0; u < SUBS; ++u)
+          acc = fmaf(fw[u][r], __int2float_rn((int)n[u][i]), acc);
+        o[i] = acc;
+      }
+      l0 *= fa0;
+      l1 *= fa1;
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) {
+        l0 = fmaf(fw[u][0], __int2float_rn(frs[u][0]), l0);
+        l1 = fmaf(fw[u][1], __int2float_rn(frs[u][1]), l1);
+      }
+    };
+
+    mbar_wait(qbar, 0);
+    // tile 0: its scores alone
+    mbar_wait(&full[0], 0);
+    turn_begin();
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait<0>();
+    requant(0, fa0, fa1, fw);
+    pack();
+
+    for (int it = 1; it < ntiles; ++it) {
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      turn_begin();
+      wgmma_fence();
+      issue_s(it);
+      wgmma_commit();
+      issue_pv(it - 1);
+      wgmma_commit();
+      turn_end(false);
+      wgmma_wait<1>();  // s of tile it is in; p v of tile it - 1 runs on
+      float a0, a1, w[SUBS][2];
+      requant(it, a0, a1, w);
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(it - 1) % ST]);  // k8 and v8 of tile it - 1 done
+      fold();
+      fa0 = a0;
+      fa1 = a1;
+#pragma unroll
+      for (int u = 0; u < SUBS; ++u) {
+        fw[u][0] = w[u][0];
+        fw[u][1] = w[u][1];
+      }
+      pack();
+    }
+    turn_begin();
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_commit();
+    turn_end(true);
+    wgmma_wait<0>();
+    fold();
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float sv = p.sv[bh];
+    const float inv0 = sv / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = sv / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= inv0;
+      o[4 * j + 1] *= inv0;
+      o[4 * j + 2] *= inv1;
+      o[4 * j + 3] *= inv1;
+    }
+    store_acc<D>(p.o + ((long long)b * p.Nq * p.H + h) * D,
+                 (long long)p.H * D, o, 1.f, r0, p.Nq, t);
+  }
+}
+
+// q8, k8 through K3's maps; v8 (B*H, D, Npad) as a map of dims (Npad, 1,
+// D, B*H) whose box is a tile of BN keys by D rows
+template <int D>
+cudaError_t launch_pv(const void* q8, const void* k8, const void* vt8,
+                      const PvParams& p, int B, int Npad,
+                      const long long* strides, cudaStream_t stream) {
+  using T = PvTiles<D>;
+  const int BH = B * p.H;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map_i8(&tq, q8, B, p.Nq, p.H, D, strides[0],
+                                strides[1], strides[2], T::BM);
+  if (err == cudaSuccess)
+    err = make_map_i8(&tk, k8, B, p.Nk, p.H, D, strides[3], strides[4],
+                      strides[5], T::BN);
+  if (err == cudaSuccess)
+    err = make_map_box(&tv, vt8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, T::BN,
+                       T::BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                       BH, D, 1, Npad, (long long)D * Npad, Npad, Npad, D);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.Nq + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  auto kernel = flash_fwd_i8pv_sm90_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Nq + T::BM - 1) / T::BM, BH);
+  kernel<<<grid, 3 * kWG, T::BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -751,9 +849,10 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // K8. q8, k8 int8 (B, N, H, D) with strides (6 int64 in elements: batch,
-// token, head for q8 then k8; the last dim contiguous); vt8 int8 (B*H, D,
-// Npad), Npad a multiple of 64, in the key order described above; sq, sk,
-// sv f32 per (b*H + h); o bf16 (B, Nq, H, D) contiguous. Returns a
+// token, head for q8 then k8; the last dim contiguous; read by TMA, so the
+// bases and strides are 16-byte multiples); vt8 int8 (B*H, D, Npad), Npad a
+// multiple of 64, in the key order described above; sq, sk, sv f32 per
+// (b*H + h); o bf16 (B, Nq, H, D) contiguous. D 64 or 128. Returns a
 // cudaError_t.
 extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
                                   const void* vt8, const void* sq,
@@ -762,9 +861,6 @@ extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
                                   int D, const long long* strides,
                                   void* stream) {
   PvParams p;
-  p.q = static_cast<const int8_t*>(q8);
-  p.k = static_cast<const int8_t*>(k8);
-  p.vt = static_cast<const int8_t*>(vt8);
   p.sq = static_cast<const float*>(sq);
   p.sk = static_cast<const float*>(sk);
   p.sv = static_cast<const float*>(sv);
@@ -772,16 +868,14 @@ extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
   p.H = H;
   p.Nq = Nq;
   p.Nk = Nk;
-  p.Npad = Npad;
-  p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
-  p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || Npad % kBK != 0 ||
-      Npad < Nk || Npad - Nk >= kBK)
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || Npad % kPvSub != 0 ||
+      Npad < Nk || Npad - Nk >= kPvSub)
     return (int)cudaErrorInvalidValue;
-  if (D == 64) return (int)launch_pv<64>(p, BH, s);
-  if (D == 128) return (int)launch_pv<128>(p, BH, s);
+  if (D == 64) return (int)launch_pv<64>(q8, k8, vt8, p, B, Npad, strides, s);
+  if (D == 128)
+    return (int)launch_pv<128>(q8, k8, vt8, p, B, Npad, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,250 @@
+// The per-(batch, head) symmetric int8 quantisation of the operands of the
+// int8 attention kernels K3, K7 and K8 (R6), for Hopper (sm_90a).
+//
+// Replaces the XLA quantisation of the JAX package (no Pallas kernel):
+//   smb_vision_tpu/ops/attention.py:_fwd_i8 (q, k and, for pv, v) and
+//   _quant_per_head (q, k, v, do of the int8 backward),
+// and it is exactly ops/attention.py::quantize_per_head, bit for bit. For x
+// (B, N, H, D) bf16 and a multiplier mult, per (b, h) over all (n, d):
+//   xf  = float(x) * mult                         (f32, rounded once)
+//   s   = max|xf| * f32(1/127), 1 where that is 0 (as XLA compiles the JAX
+//         `max / 127.`: a division by a constant becomes a multiply by its
+//         f32 reciprocal)
+//   x8  = clamp(rint(xf / s), -127, 127)           (IEEE division, ties to
+//         even)
+// Every step is an exact IEEE operation or a max, so the bytes and scales
+// are the plain version's whatever the order of the reduction.
+//
+// Bound on the H100: bytes, one read of x (bf16) and one write of x8 (int8)
+// at 3.35 TB/s: 14 us for one 20,480 x 768 tensor. Design: two launches
+// after a memset of the (B*H) max workspace, so x is read twice: the second
+// read is this design's cost above the bound.
+//   - pass 1: a block takes 256 rows of one (b, h), each thread 16 bytes
+//     (8 values) of a row, 4 rows in flight before it uses one (D/8 threads
+//     a row, so a warp reads 4 to 8 whole rows); the block's max goes to the
+//     workspace by one atomicMax on the f32 bits, which order as integers
+//     for non-negative floats;
+//   - pass 2 reads x again (much of it from L2) and writes x8 either in the
+//     input's layout, (B, N, H, D) contiguous, 8 bytes a thread, or in the
+//     layout K8 reads its v8 in (flash_fwd.cu; ops/attention.py::
+//     quantize_v_kernel_layout): (B, H, D, Npad), keys contiguous, zeros
+//     past N, keys permuted within each 32 so that K8's register fragments
+//     of p8 meet them. A block then takes 64 keys of one (b, h) and
+//     transposes them through shared memory, writing 16-byte runs of keys.
+// The first block of pass 2 for each (b, h) writes s.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 256;        // rows of one (b, h) a block covers
+constexpr int kVKeys = 64;        // keys of one (b, h) a v-layout block covers
+constexpr int kMaxD = 128;
+constexpr int kBatch = 4;         // rows a thread loads before it uses one
+constexpr float kInv127 = 1.f / 127.f;
+
+struct QuantParams {
+  const __nv_bfloat16* x;
+  long long sb, sn, sh;  // element strides of x; the last dim contiguous
+  int N, H, D;
+  float mult;
+  unsigned* amax;  // (B*H) workspace, zeroed before pass 1
+  float* s;        // (B*H) scales
+  int8_t* x8;
+  int npad;        // v layout: keys of a (b, h) row of x8; 0: row layout
+};
+
+// the 8 values of x at (b, n, h, c..c+7), times mult
+__device__ __forceinline__ void load8(const QuantParams& p, int b, int n,
+                                      int h, int c, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(
+      p.x + b * p.sb + n * p.sn + h * p.sh + c);
+  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(x2[i]);
+    v[2 * i] = __fmul_rn(f.x, p.mult);
+    v[2 * i + 1] = __fmul_rn(f.y, p.mult);
+  }
+}
+
+__device__ __forceinline__ float scale_of(const QuantParams& p, int bh) {
+  const float s = __fmul_rn(__uint_as_float(p.amax[bh]), kInv127);
+  return s == 0.f ? 1.f : s;
+}
+
+// clamp(rint(v / s), -127, 127) as a byte
+__device__ __forceinline__ uint32_t quant_byte(float v, float s) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu;
+}
+
+// kBatch rows of this thread's column c, `step` rows apart from n, and
+// whether each is below n1 (zeros past it)
+__device__ __forceinline__ void load_batch(const QuantParams& p, int b,
+                                           int n, int step, int n1, int h,
+                                           int c, float (&v)[kBatch][8],
+                                           bool (&ok)[kBatch]) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    ok[u] = n + u * step < n1;
+    if (ok[u]) {
+      load8(p, b, n + u * step, h, c, v[u]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    quant_absmax_kernel(const QuantParams p) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int cpr = p.D / 8;  // threads a row
+  const int step = kThreads / cpr;
+  const int c = (threadIdx.x % cpr) * 8;
+  const int n1 = min((blockIdx.x + 1) * kRows, p.N);
+  float m = 0.f;
+  for (int n = blockIdx.x * kRows + threadIdx.x / cpr; n < n1;
+       n += kBatch * step) {
+    float v[kBatch][8];
+    bool ok[kBatch];
+    load_batch(p, b, n, step, n1, h, c, v, ok);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(v[u][i]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  __shared__ float wmax[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, wmax[w]);
+    atomicMax(p.amax + b * p.H + h, __float_as_uint(m));
+  }
+}
+
+// x8 in the input's layout, (B, N, H, D) contiguous
+__global__ void __launch_bounds__(kThreads)
+    quant_rows_kernel(const QuantParams p) {
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
+  const int cpr = p.D / 8;
+  const int c = (threadIdx.x % cpr) * 8;
+  const float s = scale_of(p, bh);
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = s;
+  const int step = kThreads / cpr;
+  const int n1 = min((blockIdx.x + 1) * kRows, p.N);
+  for (int n = blockIdx.x * kRows + threadIdx.x / cpr; n < n1;
+       n += kBatch * step) {
+    float v[kBatch][8];
+    bool ok[kBatch];
+    load_batch(p, b, n, step, n1, h, c, v, ok);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (!ok[u]) continue;
+      const float* w = v[u];
+      uint2 out;
+      out.x = quant_byte(w[0], s) | quant_byte(w[1], s) << 8 |
+              quant_byte(w[2], s) << 16 | quant_byte(w[3], s) << 24;
+      out.y = quant_byte(w[4], s) | quant_byte(w[5], s) << 8 |
+              quant_byte(w[6], s) << 16 | quant_byte(w[7], s) << 24;
+      *reinterpret_cast<uint2*>(
+          p.x8 + (((long long)b * p.N + n + u * step) * p.H + h) * p.D +
+          c) = out;
+    }
+  }
+}
+
+// the key that position pos of a 32-key group of K8's v8 holds:
+// pos = half*16 + 4t + 2hi + lo holds key half*16 + hi*8 + 2t + lo
+__device__ __forceinline__ int v_key(int pos) {
+  return (pos & 16) | ((pos >> 1) & 1) << 3 | ((pos >> 2) & 3) << 1 |
+         (pos & 1);
+}
+
+// x8 in K8's v layout, (B, H, D, Npad)
+__global__ void __launch_bounds__(kThreads)
+    quant_v_kernel(const QuantParams p) {
+  __shared__ uint8_t tile[kMaxD][kVKeys + 4];  // [d][key]
+  const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
+  const int n0 = blockIdx.x * kVKeys;
+  const int cpr = p.D / 8;
+  const float s = scale_of(p, bh);
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = s;
+  for (int i = threadIdx.x; i < kVKeys * cpr; i += kThreads) {
+    const int key = i / cpr, c = (i % cpr) * 8;
+    float v[8];
+    if (n0 + key < p.N) {
+      load8(p, b, n0 + key, h, c, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;  // quantises to 0
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tile[c + e][key] = quant_byte(v[e], s);
+  }
+  __syncthreads();
+  // D rows of 64 bytes, 16 bytes a thread
+  for (int i = threadIdx.x; i < p.D * (kVKeys / 16); i += kThreads) {
+    const int d = i / (kVKeys / 16), p0 = (i % (kVKeys / 16)) * 16;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = p0 + 4 * k + e;
+        w[k] |= (uint32_t)tile[d][(pos & ~31) | v_key(pos & 31)] << (8 * e);
+      }
+    }
+    *reinterpret_cast<uint4*>(p.x8 + ((long long)bh * p.D + d) * p.npad + n0 +
+                              p0) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+}  // namespace
+
+// x bf16 (B, N, H, D), strides (3 int64 in elements: batch, token, head;
+// the last dim contiguous, every row 16-byte aligned); D 32, 64 or 128.
+// amax: B*H uint32 of workspace; s: B*H f32 out; x8: int8 out, (B, N, H, D)
+// contiguous when npad is 0, else K8's v layout (B, H, D, npad) with npad a
+// multiple of 64 and at least N. Returns a cudaError_t (0 on success).
+extern "C" int smb_quantize(const void* x, int B, int N, int H, int D,
+                            const long long* strides, float mult, void* amax,
+                            void* s, void* x8, int npad, void* stream) {
+  QuantParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.sb = strides[0];
+  p.sn = strides[1];
+  p.sh = strides[2];
+  p.N = N;
+  p.H = H;
+  p.D = D;
+  p.mult = mult;
+  p.amax = static_cast<unsigned*>(amax);
+  p.s = static_cast<float*>(s);
+  p.x8 = static_cast<int8_t*>(x8);
+  p.npad = npad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 0 || B <= 0 || B > 65535 || H <= 0 || H > 65535 ||
+      (D != 32 && D != 64 && D != 128) || npad < 0 ||
+      (npad > 0 && (npad % kVKeys != 0 || npad < N)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned) * B * H, st);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kRows - 1) / kRows, H, B);
+  quant_absmax_kernel<<<grid, kThreads, 0, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (npad == 0)
+    quant_rows_kernel<<<grid, kThreads, 0, st>>>(p);
+  else
+    quant_v_kernel<<<dim3(npad / kVKeys, H, B), kThreads, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}

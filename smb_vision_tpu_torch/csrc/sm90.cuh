@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (K1, K3, K4,
-// K7): shared-memory matrix descriptors for the 128-, 64- and 32-byte
+// K7, K8): shared-memory matrix descriptors for the 128-, 64- and 32-byte
 // swizzles,
 // wgmma m64nNk16 bf16 -> f32 with A from shared memory or from registers,
-// wgmma m64nNk32 s8 -> s32 with both operands in shared memory, mbarriers,
+// wgmma m64nNk32 s8 -> s32 with both operands in shared memory or A from
+// registers, the exp2 of the softmax, mbarriers,
 // 4-D TMA tile loads and the host-side tensor maps they read, setmaxnreg
 // and named barriers.
 //
@@ -35,7 +36,10 @@
 // c ^ ((r / 4) % 2)) and read with the 32-byte swizzle, 8-row groups 256
 // bytes apart. Integer wgmma takes both operands K-major
 // only; every int8 product of K3 and K7 contracts over d, along which q8,
-// k8, v8 and do8 are contiguous, so none needs a transposed copy.
+// k8, v8 and do8 are contiguous, so none needs a transposed copy. K8's p v
+// contracts over keys: its v8 comes d-major, keys contiguous (the layout
+// the quantisation kernel writes), a tile of D rows of BN bytes read as
+// above with the swizzle of BN.
 // (PTX ISA, "Matrix Descriptor Format" and the canonical layouts of
 // wgmma.mma_async for .bf16 and .s8.)
 
@@ -387,6 +391,62 @@ __device__ __forceinline__ void wgmma_i8(uint32_t (&d)[N / 2], uint64_t da,
   if constexpr (N == 128) wgmma_i8_n128(d, da, db, scale_d);
 }
 
+// D (64 x N, s32) (+)= A B, one k32 step of s8 operands: A from registers,
+// four bytes a register in the m16n8k32 A fragment of each warp's 16 rows
+// (register 0: row g, k 4t..4t+3; 1: row g + 8, the same k; 2 and 3: k + 16);
+// B K-major in shared memory by a descriptor (K8's p8 v8)
+__device__ __forceinline__ void wgmma_i8_rs_n64(uint32_t (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_i8_rs_n128(uint32_t (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_i8_rs(uint32_t (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_i8_rs: N");
+  if constexpr (N == 64) wgmma_i8_rs_n64(d, a, db, scale_d);
+  if constexpr (N == 128) wgmma_i8_rs_n128(d, a, db, scale_d);
+}
+
 // The wgmma accumulator of a 64 x N tile gives thread (warp w, lane 4g + t)
 // d[4j + e], e = 0..3, at row 16w + g + 8 (e >> 1), column 8j + 2t + (e & 1):
 // the m16n8 C fragment of each n8 tile j. Two n8 tiles, rounded to bf16,
@@ -445,6 +505,13 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base,
           base + (long long)(r0 + 8) * row_stride + col) =
           __floats2bfloat162_rn(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
   }
+}
+
+// 2^x in one MUFU op (subnormal results flush to 0; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarriers, TMA, registers, named barriers ----------------------------

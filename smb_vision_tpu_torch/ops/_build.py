@@ -3,7 +3,7 @@
 The kernels compile at first use with `nvcc` for `sm_90a` into a plain-C
 shared library, loaded with `ctypes`. The library lives in
 `smb_vision_tpu_torch/_build/<hash>/`, keyed by a hash of the sources, the
-shared headers (`csrc/ptx.cuh`, `csrc/sm90.cuh`, `csrc/gemm_sm90.cuh`) and
+shared headers (`csrc/sm90.cuh`, `csrc/gemm_sm90.cuh`) and
 the flags, so an edited source rebuilds and an unchanged one loads in
 milliseconds. Importing this module builds and loads nothing.
 
@@ -27,8 +27,8 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
-           "attn_glue.cu")
-HEADERS = ("ptx.cuh", "sm90.cuh", "gemm_sm90.cuh")
+           "attn_glue.cu", "quant.cu")
+HEADERS = ("sm90.cuh", "gemm_sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -141,6 +141,9 @@ def bind(path: Path) -> ctypes.CDLL:
     handle.smb_qkv_ln_fwd.restype = _I
     handle.smb_out_res_fwd.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     handle.smb_out_res_fwd.restype = _I
+    handle.smb_quantize.argtypes = (
+        [_P] + [_I] * 4 + [_P, _F, _P, _P, _P, _I, _P])
+    handle.smb_quantize.restype = _I
     handle.smb_error_string.argtypes = [_I]
     handle.smb_error_string.restype = ctypes.c_char_p
     return handle

@@ -20,8 +20,14 @@ queue 2):
   recompute and `do v^T` on int8 wgmma (replaces `_bwd_dq_i8_kernel` and
   `_bwd_dkv_i8_kernel`; attn_impl "pallas_i8bwd");
 - K8 `flash_attention_int8pv` (`csrc/flash_fwd.cu`): K3 with `p v` on int8
-  too, p requantised per 64-key tile against the tile's max (replaces
-  `_fwd_i8_kernel`, pv=True; attn_impl "pallas_int8pv"). Forward only.
+  too, p requantised per 64-key sub-block against the sub-block's max
+  (replaces `_fwd_i8_kernel`, pv=True; attn_impl "pallas_int8pv"), on
+  int8 wgmma with p from registers. Forward only.
+
+The int8 operands of K3, K7 and K8 come from one more kernel,
+`quantize_per_head_kernel` (`csrc/quant.cu`, R6): the per-(batch, head)
+quantisation `quantize_per_head`, bit for bit, which the JAX package
+leaves to XLA. It also writes v8 straight in the layout K8 reads.
 
 K1 with K4 or K7 forms one `torch.autograd.Function`, the counterpart of
 the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
@@ -29,7 +35,7 @@ the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
 its plain version for a tensor on the CPU and launches its kernel for a
 CUDA tensor; there is no fallback between the two. `launches` on each
 wrapper counts kernel launches (K1, K4 and K7 also by head width,
-`launches_by_width`).
+`launches_by_width`; the quantisation once a tensor).
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ import torch
 from smb_vision_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
+# 1/127 rounded to f32. The JAX package's `max / 127.` runs under jit,
+# where XLA folds a division by a constant into a multiply by its f32
+# reciprocal, and PyTorch on CUDA divides a tensor by a Python scalar the
+# same way: the scales multiply by it on every device
+INV127 = float(torch.tensor(1.0) / 127.0)
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
@@ -88,22 +99,75 @@ def xla_attention(q, k, v, *, scale: Optional[float] = None, bias=None,
 
 def quantize_per_head(x, mult: float = 1.0):
     """Symmetric int8 quantisation of x*mult (B, N, H, D) per (batch,
-    head) over all (N, D), as the JAX `_quant_per_head`: s = max|x|/127
-    (1 where x is all zero), x8 = clip(round(x/s), -127, 127). Returns x8
-    (int8, contiguous, the input layout) and s (f32, (B, H))."""
+    head) over all (N, D), as the JAX `_quant_per_head` (and `_fwd_i8`)
+    compute it under jit: s = max|x| * f32(1/127) (1 where x is all zero),
+    x8 = clip(round(x/s), -127, 127), rounding ties to even. Returns x8
+    (int8, contiguous, the input layout) and s (f32, (B, H)). The plain
+    version; `quantize_per_head_kernel` is its kernel."""
     xf = x.float() * mult
-    s = xf.abs().amax(dim=(1, 3)) / 127.0               # (B, H)
+    s = xf.abs().amax(dim=(1, 3)) * INV127              # (B, H)
     s = torch.where(s == 0, torch.ones_like(s), s)
     x8 = torch.clamp(torch.round(xf / s[:, None, :, None]), -127, 127)
     return x8.to(torch.int8), s
 
 
-def quantize_qk(q, k, scale: float):
-    """The scores' operands of K3, as the JAX `_fwd_i8` quantises them: q
-    is pre-scaled by scale*log2(e), so q8 k8^T * sq * sk is a score in
-    log2 units. Returns q8, k8 (int8) and sq, sk (f32, (B, H))."""
-    q8, sq = quantize_per_head(q, scale * LOG2E)
-    k8, sk = quantize_per_head(k)
+def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False):
+    """R6: `quantize_per_head` of a CUDA bf16 (B, N, H, D) tensor by its
+    kernel (`csrc/quant.cu`), the same int8 bytes and f32 scales bit for
+    bit. The head dim must be contiguous and every row 16-byte aligned (the
+    strided views of a fused projection qualify); D 32, 64 or 128. Returns
+    x8 and s (B, H); x8 in the input's layout, contiguous, or with
+    v_layout in the layout K8 reads (`quantize_v_kernel_layout` of the
+    plain x8). Raises for a tensor that is not on CUDA."""
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_per_head_kernel runs on cuda, not "
+                         f"{x.device}; quantize_per_head is the plain "
+                         "version")
+    if x.dim() != 4 or x.dtype != torch.bfloat16 \
+            or x.shape[-1] not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"quantize_per_head_kernel takes bfloat16 (B, N, "
+                         f"H, D) with D in {_FLASH_HEAD_DIMS}; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
+            (st * 2) % 16 for st in x.stride()[:3]):
+        raise ValueError("quantize_per_head_kernel: the head dim must be "
+                         "contiguous and rows 16-byte aligned; got strides "
+                         f"{x.stride()}")
+    b, n, h, d = x.shape
+    dev = x.device
+    npad = -(-n // PV_SUB) * PV_SUB if v_layout else 0
+    x8 = torch.empty((b, h, d, npad) if v_layout else (b, n, h, d),
+                     dtype=torch.int8, device=dev)
+    s = torch.empty((b, h), dtype=torch.float32, device=dev)
+    amax = torch.empty((b, h), dtype=torch.int32, device=dev)
+    strides = (ctypes.c_longlong * 3)(*x.stride()[:3])
+    rc = _build.lib().smb_quantize(
+        x.data_ptr(), b, n, h, d, ctypes.cast(strides, ctypes.c_void_p),
+        mult, amax.data_ptr(), s.data_ptr(), x8.data_ptr(), npad,
+        _build.stream_ptr(dev))
+    _build.check(rc, "quantize")
+    quantize_per_head_kernel.launches += 1
+    return x8, s
+
+
+quantize_per_head_kernel.launches = 0
+
+
+def _quantize(x, mult: float = 1.0):
+    """`quantize_per_head` of a CPU tensor, its kernel for a CUDA one."""
+    if x.device.type == "cuda":
+        return quantize_per_head_kernel(x, mult)
+    return quantize_per_head(x, mult)
+
+
+def quantize_qk(q, k, scale: float, quant=_quantize):
+    """The scores' operands of K3 and K8, as the JAX `_fwd_i8` quantises
+    them: q is pre-scaled by scale*log2(e), so q8 k8^T * sq * sk is a
+    score in log2 units. Returns q8, k8 (int8) and sq, sk (f32, (B, H)),
+    by the kernel on CUDA tensors (`quant=quantize_per_head` for the plain
+    version there)."""
+    q8, sq = quant(q, scale * LOG2E)
+    k8, sk = quant(k)
     return q8, k8, sq, sk
 
 
@@ -129,8 +193,8 @@ def int8_attention_plain(q8, k8, sq, sk, v):
 
 
 LOG127 = math.log2(127.0)
-# kv width over which K8 requantises p: the kernel's kv tile (csrc/flash_fwd.cu
-# kBK), and the JAX kernel's sub-block at block_k 64
+# kv width over which K8 requantises p: the kernel's sub-block
+# (csrc/flash_fwd.cu kPvSub), and the JAX kernel's sub-block at block_k 64
 PV_SUB = 64
 
 
@@ -173,14 +237,16 @@ def int8pv_attention_plain(q8, k8, sq, sk, v8, sv, sub: int = PV_SUB):
 
 
 def quantize_v_kernel_layout(v8):
-    """v8 (B, N, H, D) int8 in the layout K8 reads: (B, H, D, N_pad), N
-    padded with zeros to a multiple of the kernel's kv tile (PV_SUB), and
+    """v8 (B, N, H, D) int8 in the layout K8 reads: (B, H, D, N_pad), keys
+    contiguous (integer wgmma reads its B operand K-major), N padded with
+    zeros to a multiple of the requantisation sub-block (PV_SUB), and
     within each group of 32 keys the key order the kernel's int8 p
-    fragments take. The kernel's p8 fragment holds keys {2t, 2t+1, 8+2t,
-    9+2t} (and the same + 16) of a 32-key step in the bytes a thread's A
-    operand reads at 4t..4t+3, so key half*16 + hi*8 + 2t + lo is stored at
-    half*16 + 4t + 2*hi + lo: then each thread's B fragment of v8 is one
-    aligned 32-bit word."""
+    fragments take. A thread's p8 (the s32 score accumulator's layout)
+    holds keys {2t, 2t+1, 8+2t, 9+2t} (and the same + 16) of a 32-key step,
+    and its A fragment of the k32 step is the bytes at k 4t..4t+3 (and
+    16+4t..), so key half*16 + hi*8 + 2t + lo is stored at half*16 + 4t +
+    2*hi + lo. The plain version of what `quantize_per_head_kernel` writes
+    with v_layout."""
     b, n, h, d = v8.shape
     n_pad = -(-n // PV_SUB) * PV_SUB
     vt = v8.permute(0, 2, 3, 1)                          # (B, H, D, N)
@@ -411,14 +477,15 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_width = {}
 
 
-def _i8_operands(q, k, v, do, scale: float):
+def _i8_operands(q, k, v, do, scale: float, quant=_quantize):
     """The int8 operands of K7, quantised as the JAX `_bwd` (i8=True)
     does: q8 of q*scale*log2(e), k8, v8, do8, and the scale products sqk =
-    sq*sk, sdv = sdo*sv (f32, (B, H))."""
-    q8, sq = quantize_per_head(q, scale * LOG2E)
-    k8, sk = quantize_per_head(k)
-    v8, sv = quantize_per_head(v)
-    do8, sdo = quantize_per_head(do)
+    sq*sk, sdv = sdo*sv (f32, (B, H)); by the kernel on CUDA tensors
+    (`quant=quantize_per_head` for the plain version)."""
+    q8, sq = quant(q, scale * LOG2E)
+    k8, sk = quant(k)
+    v8, sv = quant(v)
+    do8, sdo = quant(do)
     return q8, k8, v8, do8, (sq * sk).contiguous(), (sdo * sv).contiguous()
 
 
@@ -434,7 +501,8 @@ def attention_bwd_i8_plain(q, k, v, out, lse, do, *, scale: float,
     dtypes of q, k, v."""
     b, nq, h, _ = q.shape
     nk = k.shape[1]
-    q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale)
+    q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale,
+                                             quantize_per_head)
     k8t = k8.float().permute(0, 2, 3, 1)                # (B, H, D, Nk)
     v8t = v8.float().permute(0, 2, 3, 1)
     kf = k.float().permute(0, 2, 1, 3)                  # (B, H, Nk, D)
@@ -466,10 +534,10 @@ def attention_bwd_i8_plain(q, k, v, out, lse, do, *, scale: float,
 def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
                            scale: Optional[float] = None, g_lse=None):
     """K7: the flash-attention backward with int8 score recompute, the
-    arguments and results of `flash_attention_bwd`. The int8 operands,
-    their scales and delta are made in plain torch beforehand, as the JAX
-    package makes them in XLA. CPU tensors take `attention_bwd_i8_plain`;
-    CUDA tensors launch the kernel or raise."""
+    arguments and results of `flash_attention_bwd`. The int8 operands and
+    their scales come from the quantisation kernel beforehand, delta from
+    plain torch, as the JAX package makes them in XLA. CPU tensors take
+    `attention_bwd_i8_plain`; CUDA tensors launch the kernels or raise."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -479,15 +547,25 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
         raise ValueError(f"flash_attention_bwd_i8 runs on cpu or cuda, not "
                          f"{q.device}")
     _check_qkv(q, k, v, torch.bfloat16)
-    b, nq, h, d = q.shape
-    nk = k.shape[1]
+    b, nq, h, _ = q.shape
     do = do.to(torch.bfloat16).contiguous()
     if do.shape != q.shape or lse.shape != (b, h, nq):
         raise ValueError(f"flash_attention_bwd_i8: do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale)
-    for t in (q8, k8, v8, do8, q, k, do):
+    for t in (q, k, do):
+        _tma_geometry(t, 128)
+    ops = _i8_operands(q, k, v, do, scale)
+    return _launch_bwd_i8(q, k, do, out, lse, ops, scale, g_lse)
+
+
+def _launch_bwd_i8(q, k, do, out, lse, ops, scale: float, g_lse=None):
+    """K7's kernel on its quantised operands ops = (q8, k8, v8, do8, sqk,
+    sdv), as `_i8_operands` makes them; returns dq, dk, dv."""
+    q8, k8, v8, do8, sqk, sdv = ops
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    for t in (q8, k8, v8, do8):
         _tma_geometry(t, 128)
     delta = _delta(do, out, g_lse)
     lse = lse.float().contiguous()
@@ -559,9 +637,10 @@ flash_attention.launches_by_width = {}
 
 def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     """K3: flash forward with int8 scores. Quantises q and k per (batch,
-    head) in plain torch (`quantize_qk`), then runs the kernel on CUDA
-    tensors or `int8_attention_plain` on CPU tensors. Forward only: under
-    autograd it raises rather than return a result with no gradient."""
+    head) (`quantize_qk`: the quantisation kernel on CUDA tensors), then
+    runs the kernel on CUDA tensors, or `int8_attention_plain` on the plain
+    quantisation of CPU tensors. Forward only: under autograd it raises
+    rather than return a result with no gradient."""
     if needs_grad(q, k, v):
         raise RuntimeError(
             "flash_attention_int8 (kernel K3, attn_impl='pallas_int8') is "
@@ -569,17 +648,23 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
             "torch.no_grad() or train with attn_impl 'pallas' or 'auto'")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    q8, k8, sq, sk = quantize_qk(q, k, scale)
     if q.device.type == "cpu":
-        return int8_attention_plain(q8, k8, sq, sk, v)
+        return int8_attention_plain(*quantize_qk(q, k, scale), v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q8, k8, v, torch.int8, "K3", _INT8_FWD_HEAD_DIMS)
-    for t in (q8, k8, v):
+    _check_qkv(q, k, v, torch.bfloat16, "K3", _INT8_FWD_HEAD_DIMS)
+    _tma_geometry(v, 128)
+    return _launch_int8(*quantize_qk(q, k, scale), v)
+
+
+def _launch_int8(q8, k8, sq, sk, v):
+    """K3's kernel on its quantised operands, as `quantize_qk` makes
+    them."""
+    for t in (q8, k8):
         _tma_geometry(t, 128)
-    out = torch.empty(v.shape[:1] + q.shape[1:], dtype=torch.bfloat16,
-                      device=q.device)
+    out = torch.empty(v.shape[:1] + q8.shape[1:], dtype=torch.bfloat16,
+                      device=v.device)
     _launch_flash(q8, k8, v, sq.contiguous(), sk.contiguous(), out, None,
                   True, 0.0)
     flash_attention_int8.launches += 1
@@ -591,11 +676,11 @@ flash_attention_int8.launches = 0
 
 def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     """K8: flash forward with int8 scores and int8 p v. Quantises q and k
-    as `quantize_qk`, and v per (batch, head) by `quantize_per_head`, in
-    plain torch beforehand, as the JAX `_fwd_i8` does (pv=True); then runs
-    the kernel on CUDA tensors (v8 in `quantize_v_kernel_layout`), or
-    `int8pv_attention_plain` on CPU tensors. Forward only: under autograd
-    it raises rather than return a result with no gradient."""
+    as `quantize_qk`, and v per (batch, head), as the JAX `_fwd_i8` does
+    (pv=True): on CUDA tensors by the quantisation kernel (v8 straight in
+    the layout K8 reads), then runs K8; on CPU tensors by
+    `quantize_per_head`, then `int8pv_attention_plain`. Forward only: under
+    autograd it raises rather than return a result with no gradient."""
     if needs_grad(q, k, v):
         raise RuntimeError(
             "flash_attention_int8pv (kernel K8, attn_impl='pallas_int8pv') "
@@ -603,24 +688,32 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
             "torch.no_grad() or train with attn_impl 'pallas' or 'auto'")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    q8, k8, sq, sk = quantize_qk(q, k, scale)
-    v8, sv = quantize_per_head(v)
     if q.device.type == "cpu":
-        return int8pv_attention_plain(q8, k8, sq, sk, v8, sv)
+        return int8pv_attention_plain(*quantize_qk(q, k, scale),
+                                      *quantize_per_head(v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q8, k8, v, torch.int8, "K8", _INT8_FWD_HEAD_DIMS)
-    vt8 = quantize_v_kernel_layout(v8)
+    _check_qkv(q, k, v, torch.bfloat16, "K8", _INT8_FWD_HEAD_DIMS)
+    q8, k8, sq, sk = quantize_qk(q, k, scale)
+    vt8, sv = quantize_per_head_kernel(v, v_layout=True)
+    return _launch_int8pv(q8, k8, sq, sk, vt8, sv)
+
+
+def _launch_int8pv(q8, k8, sq, sk, vt8, sv):
+    """K8's kernel on its quantised operands: q8, k8 as `quantize_qk`
+    makes them, vt8 in `quantize_v_kernel_layout`."""
+    for t in (q8, k8):
+        _tma_geometry(t, 128)
+    b, nq, h, d = q8.shape
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q8.device)
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
-    b, nq, h, d = q.shape
-    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     strides = (ctypes.c_longlong * 6)(*q8.stride()[:3], *k8.stride()[:3])
     rc = _build.lib().smb_flash_fwd_i8pv(
         q8.data_ptr(), k8.data_ptr(), vt8.data_ptr(), sq.data_ptr(),
         sk.data_ptr(), sv.data_ptr(), out.data_ptr(), b, h, nq, k8.shape[1],
         vt8.shape[-1], d, ctypes.cast(strides, ctypes.c_void_p),
-        _build.stream_ptr(q.device))
+        _build.stream_ptr(q8.device))
     _build.check(rc, "flash_fwd_i8pv")
     flash_attention_int8pv.launches += 1
     return out

@@ -635,6 +635,130 @@ def test_int8pv_refuses_autograd(cuda):
         A.attention(q, q, q, impl="pallas_int8pv")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,d", [(129, 129, 64), (257, 257, 128),
+                                     (70, 200, 64), (200, 70, 128),
+                                     (1961, 65, 64)])
+def test_int8pv_kernel_masked_sub_block_and_cross_lengths(cuda, nq, nk, d):
+    """K8 where a 64-key sub-block lies wholly past Nk (Nk = 1 mod 64: at
+    d 64 its 128-key tile holds one key) and with Nq != Nk both ways, at
+    the bounds of `test_int8pv_kernel_matches_plain`."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+
+    def r(n):
+        return (torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16)
+
+    q, k, v = r(nq), r(nk), r(nk)
+    out = A.flash_attention_int8pv(q, k, v)
+    assert out.shape == q.shape
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d),
+                                   A.quantize_per_head)
+    v8, sv = A.quantize_per_head(v)
+    assert _rel(out, A.int8pv_attention_plain(q8, k8, sq, sk, v8, sv)) <= 1e-2
+    assert _rel(out, A.xla_attention(q.float(), k.float(), v.float())) \
+        <= 3e-2
+
+
+def _quant_input(case, gen, dev):
+    """(x, mult) of a named quantisation case on the card."""
+    def r(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.4).to(
+            torch.bfloat16)
+
+    scale_q = 0.125 * A.LOG2E
+    if case == "embed":           # leg B's q at batch 4, 12 heads of 64
+        return r(4, 20480, 12, 64), scale_q
+    if case == "vjepa_encoder":   # N 9,216, 8 heads of 128
+        return r(1, 9216, 8, 128), 1.0
+    if case == "predictor":       # the reference-head predictor, 12 x 32
+        return r(1, 9216, 12, 32), 1.0 / math.sqrt(32) * A.LOG2E
+    if case == "ragged":
+        return r(2, 1961, 3, 64), 1.0
+    if case == "one_token":
+        return r(2, 1, 3, 128), 1.0
+    if case == "zero_head":
+        x = r(2, 193, 4, 64)
+        x[1, :, 2] = 0
+        return x, 1.0
+    if case.startswith("fused_"):  # q, k or v of one (B, N, 3, H, D)
+        qkv = r(2, 1961, 3, 12, 64)
+        return qkv.unbind(2)["qkv".index(case[-1])], 1.0
+    raise KeyError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["embed", "vjepa_encoder", "predictor",
+                                  "ragged", "one_token", "zero_head",
+                                  "fused_q", "fused_k", "fused_v"])
+def test_quantize_kernel_matches_plain_bit_for_bit(cuda, case):
+    """The quantisation kernel (R6) gives `quantize_per_head`'s int8 bytes
+    and f32 scales bit for bit, in the input's layout and in K8's v layout
+    (`quantize_v_kernel_layout` of the plain bytes), at the model's shapes,
+    head widths 32 to 128, a ragged N, an all-zero head (s = 1) and the
+    strided views of a fused projection."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x, mult = _quant_input(case, gen, cuda)
+    want8, want_s = A.quantize_per_head(x, mult)
+    before = A.quantize_per_head_kernel.launches
+    x8, s = A.quantize_per_head_kernel(x, mult)
+    assert A.quantize_per_head_kernel.launches == before + 1
+    assert x8.is_contiguous() and x8.shape == x.shape
+    assert torch.equal(s, want_s) and torch.equal(x8, want8)
+    vt, sv = A.quantize_per_head_kernel(x, mult, v_layout=True)
+    assert torch.equal(sv, want_s)
+    assert torch.equal(vt, A.quantize_v_kernel_layout(want8))
+    if case == "zero_head":
+        assert float(s[1, 2]) == 1.0
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_refusals(cuda):
+    """The kernel takes bf16 with a contiguous head dim and head width 32,
+    64 or 128; anything else raises before a launch."""
+    before = A.quantize_per_head_kernel.launches
+    for x in (torch.zeros((1, 8, 2, 64), device=cuda),
+              torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=cuda),
+              torch.zeros((1, 8, 64, 2), dtype=torch.bfloat16,
+                          device=cuda).transpose(2, 3)):
+        with pytest.raises(ValueError):
+            A.quantize_per_head_kernel(x)
+    assert A.quantize_per_head_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk,d", [(20480, 20480, 64), (9216, 9216, 128),
+                                     (1961, 193, 64), (9216, 9216, 32)])
+def test_int8_wrappers_equal_kernels_on_plain_operands(cuda, nq, nk, d):
+    """K3 and K7 through their wrappers (operands from the quantisation
+    kernel) equal their kernels fed with plain-quantised operands, bit for
+    bit: the kernel changes no byte downstream (K3 from d 64)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+
+    def r(n):
+        return (torch.randn((1, n, 4, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16)
+
+    q, k, v, do = r(nq), r(nk), r(nk), r(nq)
+    scale = 1.0 / math.sqrt(d)
+    plain = A.quantize_per_head
+    if d in A._INT8_FWD_HEAD_DIMS:
+        assert torch.equal(A.flash_attention_int8(q, k, v),
+                           A._launch_int8(*A.quantize_qk(q, k, scale, plain),
+                                          v))
+        vt8, sv = plain(v)
+        assert torch.equal(
+            A.flash_attention_int8pv(q, k, v),
+            A._launch_int8pv(*A.quantize_qk(q, k, scale, plain),
+                             A.quantize_v_kernel_layout(vt8), sv))
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    got = A.flash_attention_bwd_i8(q, k, v, out, lse, do)
+    want = A._launch_bwd_i8(q, k, do, out, lse,
+                            A._i8_operands(q, k, v, do, scale, plain), scale)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def _glue_inputs(m, k, gen, dev):
     """x, LN params, Linear-layout bf16 weights passed as (in, out)
     transposed views, as the Block passes them, and f32 biases."""
