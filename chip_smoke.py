@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding, MIM-pretraining,
+"""Drive the PyTorch port's batch-embedding, serving, MIM-pretraining,
 V-JEPA2-pretraining (both presets: the TPU-native heads and the reference
 heads, whose predictor has heads of 32) and fine-tuning paths, and the opt-in int8 p v
 attention and attention-glue paths, once on one NVIDIA GPU.
@@ -82,6 +82,21 @@ Phases of the run without arguments, each of which fails the run
      glue_impl "pallas" (K10a, K8, K10b, then K2 in every block: 24
      launches each; the quantisation 72, q, k and v), its embeddings'
      distance from leg A's beside leg B's;
+  5b. leg S, the serving slice: `cli/serve.make_server` in the process
+     with leg A's config and weights (seed 0), batch 2, a volume cache:
+     /healthz (the card, grid [20, 32, 32], hidden 768); the 4 volumes as
+     one JSON request, mean-pooled, within 1e-5 of leg A's token means
+     (K1 and K2 12 launches a dispatched batch); ct_0's raw NIfTI bytes;
+     the same request again from the cache; 6 concurrent mixed requests
+     against the serial answers, each volume counted once; a second
+     server with --input_dtype uint8 within 3e-2 of the float route; each
+     answer's time split into preprocess, copy, encode and response;
+  5c. leg W: `run_inference --sliding_window` on two 512x512x448 volumes
+     (two 512^2 x 320 windows each, at depth 0 and 128; K1 and K2 24
+     launches), each window within 1e-5 of one forward of its crop of
+     `preprocess_volume_full`; then `run_inference --input_dtype uint8
+     --cache_data_dir --cache_dtype uint8` on the 4 volumes within 3e-2 of
+     leg A, and again with --resume false from the cache alone;
   6. whole model: kernels against the plain path on one volume, and leg
      G's model against the same impl names on their plain versions and
      against float32;
@@ -1454,6 +1469,316 @@ def run_leg_g(root: Path, vols: Path, emb_a: Path, emb_b: Path,
     log(f"leg G vs leg A (bf16) embeddings: {rel(out, emb_a)}; leg B (int8 "
         f"scores) vs leg A: {rel(emb_b, emb_a)} (worst of the {N_VOLUMES} "
         "volumes)")
+
+
+# leg S checks the server's vectors against leg A's token means: the same
+# weights, the same batches of 2, so they differ only by the order of the
+# mean (on the card here, in numpy there) and the float32 cache round trip
+TOL_SERVE = 1e-5
+SERVE_KERNELS = ("flash_fwd", "mlp_block_fwd")
+
+
+@contextlib.contextmanager
+def serving(**kw):
+    """A `smb_vision_tpu_torch.cli.serve` server with leg A's model on the
+    card, on a free local port, answering from a thread; shut down and
+    closed on exit."""
+    import threading
+
+    from smb_vision_tpu_torch.cli.serve import ServeArguments, make_server
+
+    srv = make_server(ServeArguments(host="127.0.0.1", port=0,
+                                     batch_size=2, device="cuda", seed=0,
+                                     **kw))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+
+def http_call(srv, method: str, path: str, body=None, raw: bytes = None):
+    """-> (status, decoded JSON answer, wall seconds, time split) of one
+    request. The split is the server's Server-Timing header (preprocess,
+    copy, encode, serialize) and response_ms, the wall time less the
+    first three: the answer's serialisation, its transfer and its JSON
+    decode here ({} for an answer without the header)."""
+    import http.client
+
+    from smb_vision_tpu_torch.cli.serve import server_timing
+
+    host, port = srv.server_address[:2]
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    t0 = time.perf_counter()
+    if raw is not None:
+        conn.request(method, path, body=raw,
+                     headers={"Content-Type": "application/octet-stream"})
+    else:
+        conn.request(method, path,
+                     body=json.dumps(body) if body is not None else None)
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    wall = time.perf_counter() - t0
+    conn.close()
+    header = resp.getheader("Server-Timing")
+    split = server_timing(header) if header else {}
+    if split:
+        split["response_ms"] = 1e3 * wall - sum(
+            split[k] for k in ("preprocess_ms", "copy_ms", "encode_ms"))
+    return resp.status, out, wall, split
+
+
+def split_line(split: dict) -> str:
+    """An /embed answer's time split (http_call) as one log phrase."""
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+
+
+def run_leg_s(work: Path, vols: Path, cfg: Path, emb_a: Path) -> None:
+    """Leg S, the serving slice: `cli/serve.make_server` with leg A's
+    config and seed (its weights), batch 2, on the card, with a volume
+    cache. /healthz; the 4 volumes as one JSON request (mean-pooled, 2
+    dispatched batches: K1 and K2 12 launches each a batch) against leg A's
+    token means; ct_0's raw NIfTI bytes; the same request from the cache;
+    6 concurrent mixed requests against the serial answers; a second
+    server with --input_dtype uint8 against the float route. Each answer's
+    time split into preprocess, copy, encode and response is logged."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    paths = [str(p) for p in sorted(vols.glob("*.nii"))]
+    cache = work / "serve_cache"
+    with serving(config_path=str(cfg), cache_data_dir=str(cache)) as srv:
+        log(f"leg S: server up (warm-up forward at batch 2 included) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        status, health, _, _ = http_call(srv, "GET", "/healthz")
+        if (status != 200 or health["device"] != torch.cuda.get_device_name(0)
+                or health["grid"] != [20, 32, 32]
+                or health["hidden_size"] != HIDDEN):
+            raise AssertionError(f"leg S /healthz: {status} {health}")
+        ws = reset_launches()
+        status, cold, wall_cold, split_cold = http_call(
+            srv, "POST", "/embed", {"images": paths})
+        counts = {n: ws[n].launches for n in SERVE_KERNELS}
+        if (status != 200 or cold["shape"] != [N_VOLUMES, HIDDEN]
+                or "encode_ms" not in split_cold):
+            raise AssertionError(f"leg S: {status} shape {cold.get('shape')}"
+                                 f", split {split_cold}")
+        batches = N_VOLUMES // 2
+        if any(c != 12 * batches for c in counts.values()):
+            raise AssertionError(f"leg S: launches {counts}; want "
+                                 f"{12 * batches} each ({batches} batches)")
+        vecs = np.asarray(cold["embeddings"], np.float32)
+        worst = 0.0
+        for i, path in enumerate(paths):
+            ref = np.load(emb_a / f"{Path(path).stem}.npy").mean(axis=0)
+            worst = max(worst, float(np.abs(vecs[i] - ref).max()
+                                     / np.abs(ref).max()))
+        log(f"leg S: 4 volumes in {wall_cold * 1e3:.1f} ms (cache miss: "
+            f"{split_line(split_cold)}); vs leg A's token means max rel "
+            f"{worst:.3e} (bound {TOL_SERVE}); launches {counts}")
+        if not worst <= TOL_SERVE:
+            raise AssertionError(f"leg S vectors {worst} from leg A's")
+
+        status, raw, wall_raw, split = http_call(
+            srv, "POST", "/embed?pool=mean", raw=Path(paths[0]).read_bytes())
+        d_raw = float(np.abs(np.asarray(raw["embeddings"][0]) - vecs[0]).max()
+                      / np.abs(vecs[0]).max())
+        log(f"leg S: raw NIfTI bytes of ct_0 in {wall_raw * 1e3:.1f} ms "
+            f"({split_line(split)}); vs the JSON route rel {d_raw:.3e}")
+        if status != 200 or not d_raw <= TOL_SERVE:
+            raise AssertionError(f"leg S raw bytes: {status}, rel {d_raw}")
+
+        status, warm, wall_warm, split = http_call(srv, "POST", "/embed",
+                                                   {"images": paths})
+        d_warm = float(np.abs(np.asarray(warm["embeddings"]) - vecs).max()
+                       / np.abs(vecs).max())
+        n_cached = len(list(cache.glob("*.npy")))
+        log(f"leg S: the same 4 volumes from the cache in "
+            f"{wall_warm * 1e3:.1f} ms ({split_line(split)}) against "
+            f"{wall_cold * 1e3:.1f} ms cold; {n_cached} entries; rel "
+            f"{d_warm:.3e}")
+        if status != 200 or n_cached != N_VOLUMES or not d_warm <= TOL_SERVE:
+            raise AssertionError(f"leg S cache: {status}, {n_cached} "
+                                 f"entries, rel {d_warm}")
+
+        status, one, wall_one, split = http_call(srv, "POST", "/embed",
+                                                 {"image": paths[1]})
+        log(f"leg S: one volume from the cache in {wall_one * 1e3:.1f} ms "
+            f"({split_line(split)})")
+
+        served0 = http_call(srv, "GET", "/healthz")[1]["requests_served"]
+        jobs = []
+        for i in range(6):
+            if i % 3 == 0:
+                jobs.append(("POST", "/embed",
+                             {"images": [paths[1], paths[0], paths[2]]}))
+            elif i % 3 == 1:
+                jobs.append(("POST", "/embed", {"image": paths[i % 2]}))
+            else:
+                jobs.append(("GET", "/healthz", None))
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=6) as ex:
+            results = list(ex.map(lambda j: http_call(srv, *j), jobs))
+        wall_conc = time.perf_counter() - t1
+        n_vols, worst = 0, 0.0
+        for (_, path, body), (status, out, _, _) in zip(jobs, results):
+            if status != 200:
+                raise AssertionError(f"leg S concurrent {path}: {status} "
+                                     f"{out}")
+            if path == "/healthz":
+                continue
+            names = body.get("images") or [body["image"]]
+            n_vols += len(names)
+            for name, got in zip(names, out["embeddings"]):
+                ref = vecs[paths.index(name)]
+                worst = max(worst, float(np.abs(np.asarray(got) - ref).max()
+                                         / np.abs(ref).max()))
+        served = (http_call(srv, "GET", "/healthz")[1]["requests_served"]
+                  - served0)
+        log(f"leg S: 6 concurrent requests ({n_vols} volumes) in "
+            f"{wall_conc * 1e3:.1f} ms; vs the serial answers max rel "
+            f"{worst:.3e}; requests_served +{served}")
+        if not worst <= TOL_SERVE or served != n_vols:
+            raise AssertionError(f"leg S concurrent: rel {worst}, served "
+                                 f"{served} of {n_vols}")
+
+    with serving(config_path=str(cfg), input_dtype="uint8") as srv8:
+        status, out8, wall8, split = http_call(srv8, "POST", "/embed",
+                                               {"images": paths})
+        if status != 200:
+            raise AssertionError(f"leg S uint8: {status} {out8}")
+        d8 = float(np.abs(np.asarray(out8["embeddings"]) - vecs).max()
+                   / np.abs(vecs).max())
+        log(f"leg S: uint8 server, 4 volumes in {wall8 * 1e3:.1f} ms "
+            f"({split_line(split)}); vs the float route max rel {d8:.3e} "
+            f"(bound {TOL_MODEL})")
+        if not d8 <= TOL_MODEL:
+            raise AssertionError(f"leg S uint8 vectors {d8} from float")
+    log(f"leg S: done in {time.perf_counter() - t0:.1f} s")
+
+
+SW_SHAPE = (256, 256, 224)     # int16 HU at (3, 3, 6) mm: 512 x 512 x 448,
+SW_STARTS = ((0, 0, 0), (0, 0, 128))  # two 512^2 x 320 windows at 0.25
+
+
+@contextlib.contextmanager
+def no_nifti_decode():
+    """Inside the block the port's dataset cannot decode a NIfTI file: a
+    volume it needs must come from its cache."""
+    from smb_vision_tpu_torch.data import dataset as D
+
+    def refuse(path):
+        raise AssertionError(f"{path} decoded despite the cache")
+
+    decode, D.load_nifti = D.load_nifti, refuse
+    try:
+        yield
+    finally:
+        D.load_nifti = decode
+
+
+def run_leg_w(work: Path, vols: Path, cfg: Path, emb_a: Path) -> None:
+    """Leg W, sliding window: `run_inference --sliding_window` on two
+    512 x 512 x 448 volumes (two windows each, one batch of 2: K1 and K2
+    24 launches), each window against one forward of the model on its crop
+    of `preprocess_volume_full`; then `run_inference --input_dtype uint8
+    --cache_data_dir ... --cache_dtype uint8` on leg A's volumes against
+    leg A, and again with --resume false from the cache alone."""
+    import numpy as np
+    import torch
+
+    from smb_vision_tpu_torch.cli.run_inference import main as run_inference
+    from smb_vision_tpu_torch.data.nifti import load_nifti, save_nifti
+    from smb_vision_tpu_torch.data.preprocess import (
+        CT_PIPELINES,
+        preprocess_volume_full,
+    )
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
+
+    big = work / "volumes_w"
+    big.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        hu = rng.normal(-200.0, 400.0, SW_SHAPE).clip(-1024, 3000)
+        save_nifti(big / f"cap_{i}.nii", hu.astype(np.int16),
+                   np.diag([*VOL_SPACING, 1.0]))
+    base = ["--config_path", str(cfg), "--batch_size", "2", "--device",
+            "cuda", "--num_workers", "2"]
+    out = work / "emb_w"
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    stats = run_inference(["--data_dir", str(big), "--output_dir", str(out),
+                           "--sliding_window", "--sw_overlap", "0.25",
+                           *base])
+    wall = time.perf_counter() - t0
+    counts = {n: ws[n].launches for n in SERVE_KERNELS}
+    log(f"leg W: {stats} in {wall:.1f} s; launches {counts}")
+    if stats != {"embedded": 2, "failed": 0, "skipped": 0} or any(
+            c != 24 for c in counts.values()):
+        raise AssertionError(f"leg W: {stats}, launches {counts} (want 24)")
+
+    dev = torch.device("cuda")
+    model = VideoMAEModel(VideoMAEConfig.from_json(str(cfg)))
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    model.eval()
+    worst = 0.0
+    for f in sorted(big.glob("*.nii")):
+        emb = np.load(out / f"{f.stem}.npy")
+        if emb.shape != (2, MAIN_N, HIDDEN) or not np.isfinite(emb).all():
+            raise AssertionError(f"leg W {f.name}: shape {emb.shape}")
+        img = load_nifti(f)
+        vol = preprocess_volume_full(img.data, img.affine,
+                                     CT_PIPELINES["smb-vision"], device=dev)
+        if vol.shape != (512, 512, 448):
+            raise AssertionError(f"leg W {f.name}: volume {vol.shape}")
+        vol = torch.from_numpy(vol).to(dev)
+        for k, (_, _, z) in enumerate(SW_STARTS):
+            px = vol[:, :, z:z + 320].permute(2, 0, 1)[None, :, None]
+            with torch.inference_mode():
+                ref = model(px)[0][0].float()
+            got = torch.from_numpy(emb[k]).to(dev)
+            worst = max(worst, errors(got, ref)[1])
+    log(f"leg W: windows vs one forward of their crops max rel {worst:.3e} "
+        f"(bound {TOL_SERVE})")
+    if not worst <= TOL_SERVE:
+        raise AssertionError(f"leg W windows {worst} from their crops")
+
+    cache = work / "cache_u8"
+    u8 = ["--data_dir", str(vols), "--input_dtype", "uint8",
+          "--cache_data_dir", str(cache), "--cache_dtype", "uint8", *base]
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    stats = run_inference(u8 + ["--output_dir", str(work / "emb_u8")])
+    wall_cold = time.perf_counter() - t0
+    counts = {n: ws[n].launches for n in SERVE_KERNELS}
+    with no_nifti_decode():
+        t0 = time.perf_counter()
+        again = run_inference(u8 + ["--output_dir", str(work / "emb_u8b"),
+                                    "--resume", "false"])
+        wall_warm = time.perf_counter() - t0
+    worst, same = 0.0, True
+    for f in sorted(emb_a.glob("*.npy")):
+        a = np.load(work / "emb_u8" / f.name)
+        worst = max(worst, float(np.abs(a - np.load(f)).max()
+                                 / np.abs(np.load(f)).max()))
+        same &= bool(np.array_equal(a, np.load(work / "emb_u8b" / f.name)))
+    n_cached = len(list(cache.iterdir()))
+    log(f"leg W: uint8 + uint8 cache {stats} in {wall_cold:.1f} s, again "
+        f"from the cache {again} in {wall_warm:.1f} s ({n_cached}"
+        f" entries); vs leg A max rel {worst:.3e} (bound {TOL_MODEL}); the "
+        f"two runs equal: {same}; launches {counts}")
+    want = {"embedded": N_VOLUMES, "failed": 0, "skipped": 0}
+    if stats != want or again != want or not same or not worst <= TOL_MODEL \
+            or any(c != 24 for c in counts.values()):
+        raise AssertionError(f"leg W uint8: {stats}, {again}, rel {worst}, "
+                             f"equal {same}, launches {counts}")
 
 
 def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
@@ -3503,6 +3828,9 @@ def main() -> int:
         run_leg_g(work, vols, emb_a, emb_b, table)
         phase_whole_model(vols, emb_a)
         done("legs A, B, G and the whole model")
+        run_leg_s(work, vols, work / "leg_a.json", emb_a)
+        run_leg_w(work, vols, work / "leg_a.json", emb_a)
+        done("legs S and W")
         run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         done("legs C and H")

@@ -2,16 +2,25 @@
 
 Counterpart of `smb_vision_tpu/cli/run_inference.py`, with the same flags
 and the same outputs (one {uid}.npy of (tokens, hidden) per volume plus
-metadata.json, or parquet rows), and two more flags: --device (default
-cuda; the CLI refuses to run if CUDA is absent, and a CPU run must ask for
-it with --device cpu) and --seed (the random initialisation used when no
-checkpoint is given).
+metadata.json, or parquet rows; with --sliding_window one
+(windows, tokens, hidden) array per volume), and two more flags: --device
+(default cuda; the CLI refuses to run if CUDA is absent, and a CPU run
+must ask for it with --device cpu) and --seed (the random initialisation
+used when no checkpoint is given).
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_inference \\
         --data_dir /data/niftis --output_dir out/embeddings \\
         --model_name_or_path out/mim/model.safetensors \\
         --config_path out/mim/config.json --batch_size 2 --format npy
+
+--sliding_window embeds volumes larger than the model's grid: each volume
+is resampled and windowed at its whole extent, and dense windows at the
+grid's size (overlap --sw_overlap) go through the model --batch_size at a
+time. --input_dtype uint8 ships each volume to the device as one byte a
+voxel with its own scale and offset, decoded there to bfloat16.
+--cache_data_dir keeps the preprocessed volumes (in --cache_dtype), so a
+second run skips decode and resample.
 """
 
 from __future__ import annotations
@@ -45,20 +54,24 @@ class InferenceArguments:
     depth: int = 160
     patch_size: int = 16
     sliding_window: bool = field(
-        default=False, metadata={"help": "not ported yet"})
+        default=False,
+        metadata={"help": "use sliding-window embedding for volumes larger "
+                          "than the model grid"})
     sw_overlap: float = 0.25
     resume: bool = True
     cache_data_dir: Optional[str] = field(
-        default=None, metadata={"help": "not ported yet"})
-    cache_dtype: str = "float32"
+        default=None, metadata={"help": "preprocessed-volume cache dir"})
+    cache_dtype: str = field(
+        default="float32", metadata={"help": "float32 | float16 | uint8"})
     num_workers: int = 8
     max_samples: Optional[int] = None
     dtype: str = "bfloat16"
     input_dtype: str = field(
         default="float32",
-        metadata={"help": "dtype pixels are shipped to the device in "
-                          "(float32 | bfloat16 | float16); uint8 is not "
-                          "ported yet"})
+        metadata={"help": "dtype pixels are shipped to the device in: "
+                          "float32 | bfloat16 | float16 | uint8 (per-volume "
+                          "affine codes decoded on the device to bfloat16, "
+                          "max abs err (max-min)/510)"})
     attn_impl: str = "auto"
     quant8: bool = field(default=False, metadata={"help": "not ported yet"})
     num_shards: int = 1
@@ -75,15 +88,9 @@ class InferenceArguments:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.sliding_window, "--sliding_window",
-         "queue 1, sliding window and serve"),
         (args.pipeline_parallel > 1, "--pipeline_parallel > 1",
-         "queue 1, multi-GPU"),
-        (args.quant8, "--quant8", "queue 1, W8A8"),
-        (args.input_dtype == "uint8", "--input_dtype uint8",
-         "queue 1, uint8 shipping"),
-        (bool(args.cache_data_dir), "--cache_data_dir",
-         "queue 1, native loader and dataset cache"),
+         "queue 1 item 9, multi-GPU"),
+        (args.quant8, "--quant8", "queue 1 item 10, W8A8"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -101,28 +108,25 @@ def main(argv=None) -> dict:
         CT_PIPELINES,
         PreprocessConfig,
     )
+    from smb_vision_tpu_torch.data.quantization import dequantize_pixels
     from smb_vision_tpu_torch.inference.embed import (
         EmbeddingWriter,
         build_json_from_nifti_files,
         run_embedding,
     )
+    from smb_vision_tpu_torch.inference.runner import resolve_device
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
     from smb_vision_tpu_torch.models.videomae import VideoMAEModel
 
     (args,) = parse_args_into_dataclasses((InferenceArguments,), argv)
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda but CUDA is not available; pass --device cpu to "
-            "run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device {args.device}: expected cuda or cpu")
+    device = resolve_device(args.device)
     in_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-             "float16": torch.float16}.get(args.input_dtype)
+             "float16": torch.float16, "uint8": torch.uint8}.get(
+                 args.input_dtype)
     if in_dt is None:
         raise ValueError(f"--input_dtype {args.input_dtype!r}: expected "
-                         "float32, bfloat16 or float16")
+                         "float32, bfloat16, float16 or uint8")
 
     if args.config_path:
         config = VideoMAEConfig.from_json(args.config_path)
@@ -146,8 +150,10 @@ def main(argv=None) -> dict:
         target_spacing=CT_PIPELINES["smb-vision"].target_spacing,
         target_size=(config.image_size, config.image_size,
                      config.num_frames))
-    ds = CTDataset(pipeline=pipe, max_samples=args.max_samples,
-                   device=device, **dataset_kwargs)
+    ds = CTDataset(pipeline=pipe, cache_dir=args.cache_data_dir,
+                   cache_dtype=args.cache_dtype, out_dtype=args.input_dtype,
+                   max_samples=args.max_samples, device=device,
+                   **dataset_kwargs)
     if args.num_shards > 1:
         ds.items = ds.items[args.shard_index::args.num_shards]
         logger.info("shard %d/%d", args.shard_index, args.num_shards)
@@ -164,21 +170,81 @@ def main(argv=None) -> dict:
         logger.info("no checkpoint: random weights from seed %d", args.seed)
     model.to(device).eval()
 
-    def embed_fn(pixels: np.ndarray) -> np.ndarray:
-        # cast on the host before the copy: the copy is what a narrower
-        # input dtype saves
-        px = torch.from_numpy(pixels).to(in_dt).to(device)
-        with torch.inference_mode():
-            out, _ = model(px)
-        return out.float().cpu().numpy()
-
     writer = EmbeddingWriter(args.output_dir, fmt=args.format,
                              model_id=args.model_id)
-    stats = run_embedding(ds, embed_fn, writer, batch_size=args.batch_size,
-                          resume=args.resume, num_workers=args.num_workers)
+
+    if args.sliding_window:
+        stats = _embed_sliding_window(args, ds, model, pipe, writer, device)
+    else:
+        def embed_fn(pixels, scale=None, offset=None) -> np.ndarray:
+            # the cast (or the uint8 codes) on the host before the copy:
+            # the copy is what a narrower input dtype saves
+            px = torch.as_tensor(pixels)
+            if scale is None:
+                px = px.to(in_dt).to(device)
+            else:
+                px = dequantize_pixels(px.to(device), torch.from_numpy(scale),
+                                       torch.from_numpy(offset),
+                                       torch.bfloat16)
+            with torch.inference_mode():
+                out, _ = model(px)
+            return out.float().cpu().numpy()
+
+        stats = run_embedding(ds, embed_fn, writer,
+                              batch_size=args.batch_size, resume=args.resume,
+                              num_workers=args.num_workers)
     logger.info("done: %s", stats)
     print(json.dumps(stats))
     return stats
+
+
+def _embed_sliding_window(args, ds, model, pipe, writer, device) -> dict:
+    """One volume at a time: resample and window at its whole extent
+    (`preprocess_volume_full`), then dense windows at the model's grid
+    through the model, args.batch_size windows a call. Writes emb[0],
+    (n_win, L, D), per uid."""
+    import torch
+
+    from smb_vision_tpu_torch.data.nifti import load_nifti
+    from smb_vision_tpu_torch.data.preprocess import preprocess_volume_full
+    from smb_vision_tpu_torch.inference.sliding_window import (
+        sliding_window_embed,
+    )
+
+    config = model.config
+    roi = (config.image_size, config.image_size, config.num_frames)
+
+    def window_embedder(wins):
+        # (N, C, h, w, d) -> the model's (N, d, C, h, w) -> (N, L, D)
+        out, _ = model(wins.permute(0, 4, 1, 2, 3))
+        return out.float()
+
+    def embed_one(item):
+        img = load_nifti(item[ds.image_key])
+        vol = preprocess_volume_full(img.data, img.affine, pipe,
+                                     device=device)
+        v = torch.from_numpy(vol)[None, None].to(device)   # (1, 1, H, W, D)
+        with torch.inference_mode():
+            emb, _ = sliding_window_embed(
+                v, roi, window_embedder, overlap=args.sw_overlap,
+                sw_batch_size=args.batch_size)
+        return emb[0].cpu().numpy()
+
+    done = writer.existing_uids() if args.resume else set()
+    errors, n_ok, n_skip = [], 0, 0
+    for item in ds.items:
+        if writer.uid_of(item) in done:
+            n_skip += 1
+            continue
+        try:
+            writer.write(item, embed_one(item))
+            n_ok += 1
+        except Exception as e:  # noqa: BLE001 -- recorded, the run goes on
+            logger.error("sliding-window embedding of %s failed: %s",
+                         item.get(ds.image_key), e)
+            errors.append({"item": item, "error": str(e)})
+    writer.finalize(errors)
+    return {"embedded": n_ok, "failed": len(errors), "skipped": n_skip}
 
 
 if __name__ == "__main__":

@@ -1,18 +1,22 @@
 """Map-style dataset of preprocessed CT volumes, and the training batch
 loader.
 
-Counterpart of `smb_vision_tpu/data/dataset.py` (`CTDataset`, the python
-backend: NIfTI decode and RAS reorientation on the host, resample and
-window on `device`; `BatchLoader` and `default_collate`). The native C++
-loader and the on-disk volume cache are not ported yet (ROADMAP.md queue
-1, native loader and dataset cache).
+Counterpart of `smb_vision_tpu/data/dataset.py` (`CTDataset` with the
+python backend: NIfTI decode and RAS reorientation on the host, resample
+and window on `device`; the versioned on-disk volume cache; `BatchLoader`
+and `default_collate`). The native C++ loader is not ported yet (ROADMAP.md
+queue 1 item 2).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import queue
+import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -22,33 +26,58 @@ from smb_vision_tpu_torch.data.load import load_data
 from smb_vision_tpu_torch.data.nifti import load_nifti
 from smb_vision_tpu_torch.data.preprocess import (
     CT_PIPELINES,
+    PREPROCESS_VERSION,
     PreprocessConfig,
     preprocess_volume,
 )
+from smb_vision_tpu_torch.data.quantization import (
+    OFFSET_KEY,
+    SCALE_KEY,
+    dequantize_volume,
+    quantize_volume,
+)
+
+CACHE_DTYPES = ("float32", "float16", "uint8")
+# numpy has no bfloat16: a bfloat16 volume is returned as a CPU tensor
+OUT_DTYPES = ("float32", "float16", "bfloat16", "uint8")
 
 
 class CTDataset:
     """Preprocessed CT volumes plus the items' other keys, passed through.
 
     Items come from `items` or from a dataset spec (`data_path`, `split`).
-    Each example is {"image": float32 (D, 1, H, W) array, ...item keys...,
-    "_item": item}."""
+    Each example is {"image": (D, 1, H, W) volume, ...item keys...,
+    "_item": item}; with out_dtype "uint8" also "image_scale" and
+    "image_offset", the volume's affine (data/quantization.py).
+
+    cache_dir: preprocessed volumes are kept there, one file per image
+    path, keyed by the md5 of the path and of the pipeline, this package's
+    PREPROCESS_VERSION and the cache dtype; written atomically (a temp file
+    in the same directory, then a rename), recomputed when unreadable.
+    cache_dtype: "float32", "float16" (half the bytes, ~1e-4 rounding of
+    the [0, 1] values) or "uint8" (an npz of codes q, scale and offset; at
+    most (max - min) / 510 off). out_dtype: the dtype of the returned
+    volume, "float32", "float16", "bfloat16" or "uint8" (codes and their
+    affine; a float cache is quantised at each load). Values returned when
+    an entry is computed equal those read back from the cache later."""
 
     def __init__(self, data_path=None, split: Optional[str] = "train",
                  pipeline="smb-vision", cache_dir: Optional[str] = None,
                  items: Optional[List[Dict]] = None,
                  image_key: str = "image", max_samples: Optional[int] = None,
-                 backend: str = "python",
+                 backend: str = "python", cache_dtype: str = "float32",
+                 out_dtype: str = "float32",
                  device: Optional[torch.device] = None):
         if backend != "python":
             raise NotImplementedError(
                 f"backend={backend!r}: the native CT loader is not ported "
-                "yet (ROADMAP.md queue 1, native loader and dataset cache); "
-                "use 'python'")
-        if cache_dir:
-            raise NotImplementedError(
-                "the preprocessed-volume cache (cache_dir) is not ported yet "
-                "(ROADMAP.md queue 1, native loader and dataset cache)")
+                "yet (ROADMAP.md queue 1 item 2); use 'python'")
+        if cache_dtype not in CACHE_DTYPES:
+            raise ValueError(f"cache_dtype {cache_dtype!r}: expected one of "
+                             f"{CACHE_DTYPES}")
+        if out_dtype not in OUT_DTYPES:
+            raise ValueError(f"out_dtype {out_dtype!r}: expected one of "
+                             f"{OUT_DTYPES}")
         if items is None:
             items = load_data(data_path, split=split)
         if max_samples:
@@ -58,23 +87,127 @@ class CTDataset:
         self.pipeline: PreprocessConfig = (
             CT_PIPELINES[pipeline] if isinstance(pipeline, str) else pipeline)
         self.device = device or torch.device("cpu")
+        self.cache_dir = Path(cache_dir) if cache_dir else None
+        if self.cache_dir:
+            self.cache_dir.mkdir(parents=True, exist_ok=True)
+        self.cache_dtype = np.dtype(cache_dtype)
+        self.out_dtype = out_dtype
+        dt_tag = "" if cache_dtype == "float32" else cache_dtype
+        self._pipe_hash = hashlib.md5(
+            (repr(self.pipeline) + PREPROCESS_VERSION + dt_tag).encode()
+        ).hexdigest()[:12]
 
     def __len__(self) -> int:
         return len(self.items)
 
-    def load_volume(self, item: Dict) -> np.ndarray:
+    def _cache_path(self, item: Dict) -> Optional[Path]:
+        if self.cache_dir is None:
+            return None
+        # keyed on the image path alone (plus the pipeline hash): the
+        # pixels do not depend on the item's other keys
+        key = hashlib.md5(
+            (str(item[self.image_key]) + self._pipe_hash).encode()
+        ).hexdigest()
+        return self.cache_dir / f"{key}.npy"
+
+    def _compute(self, item: Dict) -> np.ndarray:
         img = load_nifti(item[self.image_key])
         return preprocess_volume(img.data, img.affine, self.pipeline,
                                  device=self.device)
 
+    def _load_entry(self, item: Dict):
+        """-> (codes, scale, offset) from a uint8 cache, else (float volume
+        in cache_dtype, None, None); computed and written on a miss."""
+        cache = self._cache_path(item)
+        if cache is not None and cache.is_file():
+            try:
+                loaded = np.load(cache)
+                if isinstance(loaded, np.lib.npyio.NpzFile):
+                    with loaded:
+                        return (loaded["q"], np.float32(loaded["scale"]),
+                                np.float32(loaded["offset"]))
+                return loaded, None, None
+            except (ValueError, EOFError, OSError, KeyError):
+                # unreadable entry: drop it and compute the volume again
+                try:
+                    cache.unlink()
+                except OSError:
+                    pass
+        vol = self._compute(item)
+        q = s = o = None
+        if self.cache_dtype == np.uint8:
+            q, s, o = quantize_volume(vol)
+        if cache is not None:
+            fd, tmp = tempfile.mkstemp(dir=self.cache_dir, suffix=".tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    if q is not None:
+                        np.savez(f, q=q, scale=s, offset=o)
+                    else:
+                        np.save(f, vol.astype(self.cache_dtype, copy=False))
+                os.replace(tmp, cache)
+            except OSError:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+        if q is not None:
+            return q, s, o
+        # the values a later read of the cache gives
+        return vol.astype(self.cache_dtype, copy=False), None, None
+
+    def _example_pixels(self, item: Dict):
+        """-> (image, scale, offset): codes and their affine when out_dtype
+        is "uint8", else the float volume and None, None."""
+        if self.out_dtype == "uint8":
+            arr, s, o = self._load_entry(item)
+            if s is None:
+                arr, s, o = quantize_volume(arr)
+            return arr, s, o
+        return self.load_volume(item), None, None
+
+    def load_volume(self, item: Dict):
+        """The float volume: out_dtype (float32 when out_dtype is
+        "uint8"), a bfloat16 CPU tensor for "bfloat16"."""
+        arr, s, o = self._load_entry(item)
+        if s is not None:
+            arr = dequantize_volume(arr, s, o)
+        if self.out_dtype == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32, copy=False)).to(
+                torch.bfloat16)
+        dt = np.float32 if self.out_dtype == "uint8" else self.out_dtype
+        return arr.astype(dt, copy=False)
+
     def __getitem__(self, idx: int) -> Dict:
         item = dict(self.items[idx])
-        out = {"image": self.load_volume(item)}
+        vol, s, o = self._example_pixels(item)
+        out = {"image": vol}
+        if s is not None:
+            out["image_scale"] = s
+            out["image_offset"] = o
         for k, v in item.items():
             if k != self.image_key:
                 out[k] = v
         out["_item"] = item
         return out
+
+
+def stack_pixels(volumes: List):
+    """Stack numpy volumes, or bfloat16 CPU tensors, along a new axis 0."""
+    if isinstance(volumes[0], torch.Tensor):
+        return torch.stack(volumes)
+    return np.stack(volumes)
+
+
+def pad_to_batch(pixels, batch_size: int):
+    """Repeat the last volume of a stacked batch (numpy or tensor) until it
+    holds batch_size volumes."""
+    rep = [pixels[-1:]] * (batch_size - pixels.shape[0])
+    if not rep:
+        return pixels
+    if isinstance(pixels, torch.Tensor):
+        return torch.cat([pixels, *rep])
+    return np.concatenate([pixels, *rep])
 
 
 class BatchLoader:
@@ -153,4 +286,12 @@ class BatchLoader:
 
 
 def default_collate(examples: List[Dict]) -> Dict[str, np.ndarray]:
-    return {"pixel_values": np.stack([e["image"] for e in examples])}
+    """{"pixel_values": the stacked volumes}, with the per-sample affine
+    of uint8 volumes as SCALE_KEY / OFFSET_KEY float32 arrays."""
+    out = {"pixel_values": stack_pixels([e["image"] for e in examples])}
+    if "image_scale" in examples[0]:
+        out[SCALE_KEY] = np.asarray([e["image_scale"] for e in examples],
+                                    np.float32)
+        out[OFFSET_KEY] = np.asarray([e["image_offset"] for e in examples],
+                                     np.float32)
+    return out

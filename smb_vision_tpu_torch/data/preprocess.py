@@ -18,6 +18,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+# Tag of this package's preprocessing numerics, part of the volume cache's
+# key (data/dataset.py). It differs from the JAX package's
+# PREPROCESS_VERSION: the two preprocessors agree to 1e-5, not bit for bit,
+# so a cache written by one package is never read by the other. Bump it
+# when these numerics change.
+PREPROCESS_VERSION = "torch-1"
+
+
 def io_orientation(affine: np.ndarray) -> list:
     """For each world axis (R, A, S) the dominant voxel axis and its sign:
     [(axis, flip), ...] such that transposing to `axis` order and flipping
@@ -109,29 +117,74 @@ def _trilinear_resize(vol: torch.Tensor, out_shape, scales) -> torch.Tensor:
     return vol
 
 
-def _resample_window_fit(vol: torch.Tensor, out_shape, scales, hu, rng,
-                         clip, target) -> torch.Tensor:
-    """(H, W, D) float -> resample -> window -> symmetric pad (extra voxel
-    at the end) and centre crop to `target`."""
+def _resample_window(vol: torch.Tensor, out_shape, scales, hu, rng,
+                     clip) -> torch.Tensor:
+    """(H, W, D) float -> resample to out_shape -> HU window, keeping the
+    resampled extent."""
     vol = _trilinear_resize(vol.float(), out_shape, scales)
     a_min, a_max = hu
     b_min, b_max = rng
     vol = (vol - a_min) / (a_max - a_min) * (b_max - b_min) + b_min
     if clip:
         vol = torch.clamp(vol, min(b_min, b_max), max(b_min, b_max))
+    return vol
+
+
+def _resample_window_fit(vol: torch.Tensor, out_shape, scales, hu, rng,
+                         clip, target) -> torch.Tensor:
+    """(H, W, D) float -> resample -> window -> symmetric pad (extra voxel
+    at the end) and centre crop to `target`."""
+    vol = _resample_window(vol, out_shape, scales, hu, rng, clip)
+    b_min = rng[0]
     pads = []
     for cur, tgt in zip(vol.shape, target):
         extra = max(tgt - cur, 0)
         pads.append((extra // 2, extra - extra // 2))
     if any(p for pair in pads for p in pair):
-        # F.pad lists the last dim first
-        flat = [p for pair in reversed(pads) for p in pair]
-        vol = torch.nn.functional.pad(vol, flat, value=b_min)
+        vol = torch.nn.functional.pad(vol, _pad_spec(pads), value=b_min)
     slices = []
     for cur, tgt in zip(vol.shape, target):
         start = max(cur // 2 - tgt // 2, 0)
         slices.append(slice(start, start + tgt))
     return vol[tuple(slices)]
+
+
+def _pad_spec(pads) -> list:
+    """[(before, after)] per axis -> F.pad's list, last axis first."""
+    return [p for pair in reversed(pads) for p in pair]
+
+
+def _ras_geometry(data: np.ndarray, affine: np.ndarray, cfg):
+    """RAS-reoriented volume, its resampled shape and the per-axis scales
+    (out spacing / in spacing)."""
+    if data.ndim == 4:  # drop a trailing singleton (time) dim
+        data = data[..., 0]
+    data, affine = to_ras(data, affine)
+    spacing = tuple(float(np.linalg.norm(affine[:3, i])) for i in range(3))
+    out_shape = resampled_shape(data.shape, spacing, cfg.target_spacing)
+    scales = tuple(so / si for si, so in zip(spacing, cfg.target_spacing))
+    return data, out_shape, scales
+
+
+def preprocess_volume_full(data: np.ndarray, affine: np.ndarray, pipeline,
+                           pad_multiple: int = 32,
+                           device: Optional[torch.device] = None
+                           ) -> np.ndarray:
+    """RAS + resample + window on `device` (default cpu), keeping the
+    volume's whole extent, then each axis padded at its end up to a
+    multiple of `pad_multiple` with the window's low value (after the
+    resample: padding before it would change the spacing). Returns the
+    (H, W, D) float32 volume, the input of sliding-window embedding."""
+    cfg = CT_PIPELINES[pipeline] if isinstance(pipeline, str) else pipeline
+    data, out_shape, scales = _ras_geometry(data, affine, cfg)
+    vol = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+    vol = _resample_window(vol.to(device or torch.device("cpu")), out_shape,
+                           scales, cfg.hu_window, cfg.out_range, cfg.clip)
+    pads = [(0, (-s) % pad_multiple) for s in vol.shape]
+    if any(p[1] for p in pads):
+        vol = torch.nn.functional.pad(vol, _pad_spec(pads),
+                                      value=cfg.out_range[0])
+    return vol.cpu().numpy()
 
 
 def preprocess_volume(data: np.ndarray, affine: np.ndarray,
@@ -145,12 +198,7 @@ def preprocess_volume(data: np.ndarray, affine: np.ndarray,
       layout "CHWD": (1, H, W, D)
     """
     cfg = CT_PIPELINES[pipeline] if isinstance(pipeline, str) else pipeline
-    if data.ndim == 4:  # drop a trailing singleton (time) dim
-        data = data[..., 0]
-    data, affine = to_ras(data, affine)
-    spacing = tuple(float(np.linalg.norm(affine[:3, i])) for i in range(3))
-    out_shape = resampled_shape(data.shape, spacing, cfg.target_spacing)
-    scales = tuple(so / si for si, so in zip(spacing, cfg.target_spacing))
+    data, out_shape, scales = _ras_geometry(data, affine, cfg)
     vol = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
     vol = vol.to(device or torch.device("cpu"))
     out = _resample_window_fit(vol, out_shape, scales, cfg.hu_window,

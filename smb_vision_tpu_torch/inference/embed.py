@@ -16,6 +16,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from smb_vision_tpu_torch.data.dataset import stack_pixels
 from smb_vision_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -130,7 +131,8 @@ def run_embedding(dataset, embed_fn: Callable[[np.ndarray], np.ndarray],
     per embed_fn call, loading ahead on `num_workers` threads. A volume that
     fails to load or a batch that fails to embed is recorded in
     error_files.json and counted in `failed`; the run carries on.
-    embed_fn: (N, ...) pixels -> (N, L, D) embeddings."""
+    embed_fn: (N, ...) pixels [, scale (N,), offset (N,) for uint8
+    pixels] -> (N, L, D) embeddings."""
     from concurrent.futures import ThreadPoolExecutor
 
     done = writer.existing_uids() if resume else set()
@@ -155,7 +157,10 @@ def run_embedding(dataset, embed_fn: Callable[[np.ndarray], np.ndarray],
             if err is not None:
                 errors.append(err)
                 continue
-            batch.append((dataset.items[i], ex["image"]))
+            # a uint8 dataset (out_dtype "uint8") gives each volume's
+            # affine: embed_fn then takes (pixels, scale, offset)
+            batch.append((dataset.items[i], ex["image"],
+                          ex.get("image_scale"), ex.get("image_offset")))
             if len(batch) == batch_size:
                 n_ok += _flush(batch, embed_fn, writer, errors)
                 batch = []
@@ -169,9 +174,13 @@ def run_embedding(dataset, embed_fn: Callable[[np.ndarray], np.ndarray],
 
 def _flush(batch, embed_fn, writer, errors) -> int:
     items = [b[0] for b in batch]
-    pixels = np.stack([b[1] for b in batch])
+    pixels = stack_pixels([b[1] for b in batch])
+    args = ()
+    if batch[0][2] is not None:
+        args = (np.asarray([b[2] for b in batch], np.float32),
+                np.asarray([b[3] for b in batch], np.float32))
     try:
-        emb = np.asarray(embed_fn(pixels))
+        emb = np.asarray(embed_fn(pixels, *args))
     except Exception as e:  # noqa: BLE001 — recorded, the run carries on
         logger.error("embedding a batch of %d failed: %s", len(items), e)
         errors.extend({"item": it, "error": str(e),

@@ -96,16 +96,135 @@ def test_cuda_device_without_cuda_raises(workdir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--sliding_window"], "sliding window"),
-    (["--pipeline_parallel", "2"], "multi-GPU"),
-    (["--quant8"], "W8A8"),
-    (["--input_dtype", "uint8"], "uint8"),
-    (["--cache_data_dir", "cache"], "dataset cache"),
+    (["--pipeline_parallel", "2"], "item 9, multi-GPU"),
+    (["--quant8"], "item 10, W8A8"),
 ])
 def test_unported_flags_raise(workdir, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_inference(_common(workdir) + ["--device", "cpu", "--output_dir",
                                           str(tmp_path), *flags])
+
+
+def _run_both(root, tmp_path, flags, jax_flags=()):
+    """The JAX CLI and the port's on the same flags; -> (jax dir, port dir,
+    the port's stats)."""
+    from smb_vision_tpu.cli.run_inference import main as jax_run_inference
+
+    jax_run_inference(_common(root) + ["--attn_impl", "xla", "--output_dir",
+                                       str(tmp_path / "j"), *flags,
+                                       *jax_flags])
+    stats = run_inference(_common(root) + [
+        "--device", "cpu", "--output_dir", str(tmp_path / "t"), *flags])
+    return tmp_path / "j", tmp_path / "t", stats
+
+
+def test_sliding_window_matches_jax_cli(workdir, tmp_path):
+    """Volumes past the 32^3 grid: 40 x 32 x 24 voxels at the pipeline's
+    spacing, padded to 64 x 32 x 32, give 3 windows each (starts 0, 24 and
+    32 along H), in chunks of 2: a ragged last chunk."""
+    vols = tmp_path / "big"
+    vols.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        save_nifti(vols / f"big_{i}.nii.gz",
+                   rng.normal(0, 300, (40, 32, 24)).astype(np.int16),
+                   np.diag([1.5, 1.5, 3.0, 1.0]))
+    flags = ["--data_dir", str(vols), "--sliding_window", "--sw_overlap",
+             "0.25"]
+    jdir, tdir, stats = _run_both(workdir, tmp_path, flags)
+    assert stats == {"embedded": 2, "failed": 0, "skipped": 0}
+    for i in range(2):
+        ref = np.load(jdir / f"big_{i}.npy")
+        out = np.load(tdir / f"big_{i}.npy")
+        assert out.shape == ref.shape == (3, 8, 32)
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+    again = run_inference(_common(workdir) + flags + [
+        "--device", "cpu", "--output_dir", str(tdir)])
+    assert again == {"embedded": 0, "failed": 0, "skipped": 2}
+
+
+# The two packages' preprocessors agree to 1e-5, not bit for bit, and the
+# window of int16 HU lands many voxels on a rounding tie of the uint8 codes:
+# there a one-ulp difference moves the code by one step (1/255 of the
+# volume's range). The uint8 routes are therefore compared at 5e-3 of the
+# largest value, after checking that the codes differ by at most one step
+# in under 1 % of the voxels; the decode itself is held bit for bit in
+# tests/test_torch_quantization.py.
+TOL_UINT8_VS_JAX = 5e-3
+
+
+def _codes_one_step_apart(root):
+    from smb_vision_tpu.data.dataset import CTDataset as JDataset
+    from smb_vision_tpu.data.preprocess import PreprocessConfig as JPipe
+    from smb_vision_tpu_torch.data.dataset import CTDataset
+    from smb_vision_tpu_torch.data.preprocess import PreprocessConfig
+
+    items = [{"image": str(root / "vols" / f"case_{i}.nii.gz")}
+             for i in range(2)]
+    geo = ((1.5, 1.5, 3.0), (32, 32, 32))
+    for i in range(2):
+        a = JDataset(items=items, pipeline=JPipe(*geo), out_dtype="uint8",
+                     backend="python")[i]["image"].astype(int)
+        b = CTDataset(items=items, pipeline=PreprocessConfig(*geo),
+                      out_dtype="uint8")[i]["image"].astype(int)
+        assert np.abs(a - b).max() <= 1 and (a != b).mean() < 1e-2
+
+
+def _assert_close_to_jax(out, ref, uint8):
+    if uint8:
+        assert np.abs(out - ref).max() / np.abs(ref).max() < TOL_UINT8_VS_JAX
+    else:
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_uint8_input_matches_jax_cli(workdir, tmp_path):
+    """--input_dtype uint8: codes from either package, decoded to bfloat16
+    alike, then the float32 model; and within the quantisation's reach of
+    the float32 route."""
+    _codes_one_step_apart(workdir)
+    jdir, tdir, stats = _run_both(workdir, tmp_path,
+                                  ["--input_dtype", "uint8"])
+    assert stats == {"embedded": 2, "failed": 0, "skipped": 0}
+    run_inference(_common(workdir) + ["--device", "cpu", "--output_dir",
+                                      str(tmp_path / "f")])
+    for i in range(2):
+        out = np.load(tdir / f"case_{i}.npy")
+        _assert_close_to_jax(out, np.load(jdir / f"case_{i}.npy"), True)
+        ref = np.load(tmp_path / "f" / f"case_{i}.npy")
+        assert np.abs(out - ref).max() / np.abs(ref).max() < 0.05
+
+
+@pytest.mark.parametrize("cache_dtype,input_dtype", [
+    ("float16", "float32"), ("uint8", "uint8")])
+def test_cache_matches_jax_cli_and_is_read_back(workdir, tmp_path,
+                                                monkeypatch, cache_dtype,
+                                                input_dtype):
+    """--cache_data_dir: the embeddings match the JAX CLI's with its own
+    cache; a second run with --resume false reads every volume from the
+    port's cache and writes the same embeddings."""
+    flags = ["--cache_dtype", cache_dtype, "--input_dtype", input_dtype]
+    jdir, tdir, _ = _run_both(
+        workdir, tmp_path, flags + ["--cache_data_dir", str(tmp_path / "c")],
+        ["--cache_data_dir", str(tmp_path / "jc")])
+    for i in range(2):
+        _assert_close_to_jax(np.load(tdir / f"case_{i}.npy"),
+                             np.load(jdir / f"case_{i}.npy"),
+                             input_dtype == "uint8")
+    assert len(list((tmp_path / "c").iterdir())) == 2
+    import smb_vision_tpu_torch.data.dataset as D
+
+    def no_decode(path):
+        raise AssertionError(f"decoded {path} despite the cache")
+
+    monkeypatch.setattr(D, "load_nifti", no_decode)
+    again = run_inference(_common(workdir) + flags + [
+        "--cache_data_dir", str(tmp_path / "c"), "--resume", "false",
+        "--device", "cpu", "--output_dir", str(tmp_path / "t2")])
+    assert again == {"embedded": 2, "failed": 0, "skipped": 0}
+    for i in range(2):
+        np.testing.assert_array_equal(np.load(tmp_path / "t2" /
+                                              f"case_{i}.npy"),
+                                      np.load(tdir / f"case_{i}.npy"))
 
 
 def test_single_json_args_and_hf_flags(tmp_path):
@@ -140,6 +259,7 @@ def test_single_json_args_and_hf_flags(tmp_path):
 
 _CLI_ARG_CLASSES = {
     "run_inference": ("InferenceArguments",),
+    "serve": ("ServeArguments",),
     "run_mim": ("ModelArguments", "DataTrainingArguments"),
     "run_vjepa": ("ModelArguments", "DataTrainingArguments"),
     "run_classification": ("ModelArguments", "DataTrainingArguments"),
@@ -167,7 +287,7 @@ def test_cli_fields_match_reference(cli):
     tmod = importlib.import_module(f"smb_vision_tpu_torch.cli.{cli}")
     pairs = [(getattr(jmod, n), getattr(tmod, n))
              for n in _CLI_ARG_CLASSES[cli]]
-    if cli != "run_inference":
+    if cli not in ("run_inference", "serve"):
         pairs.append((JTrain, TrainingArguments))
     for jcls, tcls in pairs:
         jf = {f.name for f in dataclasses.fields(jcls)}

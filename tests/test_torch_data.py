@@ -113,7 +113,145 @@ def test_ctdataset_python_backend(tmp_path):
     ex = ds[1]
     assert ex["image"].shape == (16, 1, 32, 32) and ex["label"] == 1
     assert 0.0 <= ex["image"].min() and ex["image"].max() <= 1.0
-    with pytest.raises(NotImplementedError, match="native"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         CTDataset(items=items, backend="native")
-    with pytest.raises(NotImplementedError, match="cache"):
-        CTDataset(items=items, cache_dir=str(tmp_path / "cache"))
+
+
+def _cache_items(tmp_path, n, shape, seed, lo=-800, hi=900):
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        save_nifti(tmp_path / f"v{i}.nii.gz",
+                   rng.uniform(lo, hi, shape).astype(np.float32))
+    return [{"image": str(tmp_path / f"v{i}.nii.gz")} for i in range(n)]
+
+
+def test_ctdataset_uint8_cache_and_shipping(tmp_path):
+    """cache_dtype 'uint8' stores codes and affine (npz) once; out_dtype
+    'uint8' ships them with per-item scale keys; the first load equals the
+    reload; a float reader decodes the same cache; an unreadable entry is
+    recomputed; the collate carries the affine. The codes are the JAX
+    package's quantisation of the port's preprocessed volume."""
+    from smb_vision_tpu.data.quantization import quantize_volume as jquant
+    from smb_vision_tpu_torch.data.dataset import BatchLoader
+    from smb_vision_tpu_torch.data.quantization import (
+        OFFSET_KEY,
+        SCALE_KEY,
+        dequantize_volume,
+    )
+
+    items = _cache_items(tmp_path, 2, (12, 12, 8), 2)
+    pipe = tprep.PreprocessConfig((1., 1., 1.), (12, 12, 8))
+    ds = CTDataset(items=items, pipeline=pipe, cache_dir=str(tmp_path / "c"),
+                   cache_dtype="uint8", out_dtype="uint8")
+    ex_first = ds[0]                      # computes and writes the entry
+    assert ex_first["image"].dtype == np.uint8
+    assert "image_scale" in ex_first and "image_offset" in ex_first
+    assert sorted(p.suffix for p in (tmp_path / "c").iterdir()) == [".npy"]
+    ex_again = ds[0]                      # reads it
+    np.testing.assert_array_equal(ex_first["image"], ex_again["image"])
+    assert ex_first["image_scale"] == ex_again["image_scale"]
+    q, s, o = jquant(CTDataset(items=items, pipeline=pipe)[0]["image"])
+    np.testing.assert_array_equal(ex_first["image"], q)
+    assert (ex_first["image_scale"], ex_first["image_offset"]) == (s, o)
+
+    ds_f = CTDataset(items=items, pipeline=pipe,
+                     cache_dir=str(tmp_path / "c"),
+                     cache_dtype="uint8", out_dtype="float32")
+    exf = ds_f[0]
+    assert exf["image"].dtype == np.float32 and "image_scale" not in exf
+    np.testing.assert_array_equal(
+        exf["image"], dequantize_volume(ex_first["image"],
+                                        ex_first["image_scale"],
+                                        ex_first["image_offset"]))
+    assert ds.load_volume(items[0]).dtype == np.float32
+
+    ds._cache_path(items[0]).write_bytes(b"garbage")
+    np.testing.assert_array_equal(ds[0]["image"], ex_first["image"])
+
+    batch = next(iter(BatchLoader(ds, batch_size=2, drop_last=False,
+                                  num_workers=1)))
+    assert batch["pixel_values"].dtype == np.uint8
+    assert batch[SCALE_KEY].shape == (2,)
+    assert batch[OFFSET_KEY].dtype == np.float32
+
+
+def test_ctdataset_float_cache_uint8_out(tmp_path):
+    """out_dtype 'uint8' over a float16 cache quantises at each load."""
+    from smb_vision_tpu_torch.data.quantization import dequantize_volume
+
+    items = _cache_items(tmp_path, 1, (10, 10, 6), 3, -500, 500)
+    pipe = tprep.PreprocessConfig((1., 1., 1.), (10, 10, 6))
+    kw = dict(items=items, pipeline=pipe, cache_dir=str(tmp_path / "c"),
+              cache_dtype="float16")
+    ref = CTDataset(out_dtype="float32", **kw)[0]["image"]
+    ex = CTDataset(out_dtype="uint8", **kw)[0]
+    assert ex["image"].dtype == np.uint8
+    back = dequantize_volume(ex["image"], ex["image_scale"],
+                             ex["image_offset"])
+    assert np.abs(back - ref).max() <= float(ex["image_scale"]) / 2 + 2e-3
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "float16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "float16", "bfloat16"])
+def test_ctdataset_float_cache(tmp_path, cache_dtype, out_dtype):
+    """A float cache gives the first load's values on every later load, in
+    out_dtype (bfloat16 as a CPU tensor); nothing is left beside the
+    entries."""
+    items = _cache_items(tmp_path, 2, (12, 10, 8), 4)
+    pipe = tprep.PreprocessConfig((1.5, 1.5, 3.0), (16, 16, 8))
+    plain = CTDataset(items=items, pipeline=pipe)[1]["image"]
+    kw = dict(items=items, pipeline=pipe, cache_dir=str(tmp_path / "c"),
+              cache_dtype=cache_dtype, out_dtype=out_dtype)
+    first = CTDataset(**kw)[1]["image"]
+    again = CTDataset(**kw)[1]["image"]
+    files = sorted((tmp_path / "c").iterdir())
+    assert len(files) == 1 and files[0].suffix == ".npy"
+    want = plain.astype(cache_dtype)              # what the entry holds
+    if out_dtype == "bfloat16":
+        assert isinstance(first, torch.Tensor)
+        assert first.dtype == torch.bfloat16 and first.shape == plain.shape
+        first, again = first.float().numpy(), again.float().numpy()
+        want = torch.from_numpy(want.astype(np.float32)).bfloat16().float()
+        want = want.numpy()
+    else:
+        assert first.dtype == np.dtype(out_dtype)
+        want = want.astype(out_dtype)
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_array_equal(first, want)
+
+
+def test_ctdataset_cache_is_not_shared_with_jax(tmp_path):
+    """The two packages' preprocessors agree to 1e-5, not bit for bit: an
+    entry the JAX package wrote for the same path and pipeline is never
+    read by the port, which writes its own."""
+    from smb_vision_tpu.data.dataset import CTDataset as JDataset
+
+    items = _cache_items(tmp_path, 1, (12, 12, 8), 5)
+    jpipe = jprep.PreprocessConfig((1.5, 1.5, 3.0), (12, 12, 8))
+    pipe = tprep.PreprocessConfig(**jpipe.__dict__)
+    cache = tmp_path / "c"
+    jds = JDataset(items=items, pipeline=jpipe, cache_dir=str(cache),
+                   backend="python")
+    jds[0]
+    jpath = jds._cache_path(items[0])
+    np.save(jpath, np.full(np.load(jpath).shape, 7.0, np.float32))
+    ds = CTDataset(items=items, pipeline=pipe, cache_dir=str(cache))
+    assert ds._cache_path(items[0]) != jpath
+    out = ds[0]["image"]
+    np.testing.assert_array_equal(
+        out, CTDataset(items=items, pipeline=pipe)[0]["image"])
+    assert len(list(cache.iterdir())) == 2
+    np.testing.assert_allclose(out, jprep.preprocess_volume(
+        *_nifti(items[0]["image"]), jpipe), atol=1e-5)
+
+
+def _nifti(path):
+    img = load_nifti(path)
+    return img.data, img.affine
+
+
+def test_ctdataset_rejects_unknown_dtypes(tmp_path):
+    with pytest.raises(ValueError, match="cache_dtype"):
+        CTDataset(items=[], cache_dtype="int8")
+    with pytest.raises(ValueError, match="out_dtype"):
+        CTDataset(items=[], out_dtype="int16")
