@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch-embedding, serving, MIM-pretraining,
 V-JEPA2-pretraining (both presets: the TPU-native heads and the reference
-heads, whose predictor has heads of 32) and fine-tuning paths, and the opt-in int8 p v
+heads, whose predictor has heads of 32) and fine-tuning paths, the
+training data path (the native CT loader, the device cache, uint8
+shipping) with the HF checkpoint round trip, and the opt-in int8 p v
 attention and attention-glue paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -97,6 +99,10 @@ Phases of the run without arguments, each of which fails the run
      `preprocess_volume_full`; then `run_inference --input_dtype uint8
      --cache_data_dir --cache_dtype uint8` on the 4 volumes within 3e-2 of
      leg A, and again with --resume false from the cache alone;
+  5d. the native CT loader (the C++ library built at first use from
+     csrc/ctloader.cpp; host code, on this machine's CPU): the 4 volumes
+     at 1 and 8 threads, timed beside the python backend (resample on the
+     card), within 1e-4 of it;
   6. whole model: kernels against the plain path on one volume, and leg
      G's model against the same impl names on their plain versions and
      against float32;
@@ -110,10 +116,23 @@ Phases of the run without arguments, each of which fails the run
      volumes, 4 steps with checkpoints, then a resume to 6 (kernels K1, K4,
      K5a and K5b in training, K6 in eval); leg H: the same with
      --config_overrides glue_impl=pallas (and K10a, K10b);
+  9a. leg J, the training data path: `run_mim` with the same preset on
+     all 4 volumes, 8 steps (two epochs) with --input_dtype uint8
+     --device_cache --cache_data_dir (uint8) --export_hf --profile_steps
+     6-7, asking for the native backend ("auto" takes the python one on
+     the card): the native backend, no host load in epoch 1 and 4 volumes of
+     uint8 codes on the card, every batch decoded there to bfloat16 in the
+     step, K1, K4, K5a and K5b, the trace and the HF export; then
+     `run_inference` (K1 and K6) from model.safetensors and from
+     hf_model.safetensors, the embeddings equal bit for bit;
  10. leg D: `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
      (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
-     256, 4 steps with checkpoints and eval, then a resume to 6 (K1, K7,
-     K5a and K5b in the student, K3 and K6 in the EMA teacher); leg I: the
+     256, 2 steps with checkpoints and eval, then a resume to 4 (K1, K7,
+     K5a and K5b in the student, K3 and K6 in the EMA teacher), with
+     --export_hf; leg K: `run_vjepa` with leg D's config continued from
+     leg D's hf_model.safetensors, --input_dtype uint8 --device_cache, 2
+     steps: every student tensor loaded, the EMA teacher equal to the
+     student at the start, K7, K3 and the quantisation kernel; leg I: the
      same with a copy of configs/vjepa_large_384.json (the reference heads;
      micro-batch cut from 16 to 1, accumulation from 4 to 2) under
      attn_impl pallas_i8bwd and teacher_attn_impl pallas_int8: K1 and K7 at
@@ -138,8 +157,11 @@ Phases of the run without arguments, each of which fails the run
      then "auto" at batch 4 beside the parent's routing (the predictor's
      attention on the plain path);
  14. DINOv2 parity: one full-width DINOv2-giant fine-tune step at batch 2
-     through the kernels, their plain versions and float32; K9 launches
-     40 times a forward;
+     through the kernels, their plain versions and float32, at seeds 0, 1
+     and 2; K9 launches 40 times a forward; at each seed the gradient rule
+     holds, and over the seeds the mean loss gap to the plain versions is
+     within 1e-2 and the kernels' mean loss distance from float32 within
+     1.25 times theirs;
  15. fine-tune throughput: DINOv2-giant step ms, MFU, peak memory at
      batch 2 and 4, K9's share of a profiled step.
 The line before the last is the kernel table as JSON; the last line is
@@ -165,6 +187,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+SCRIPT_START = time.time()
 
 # parity bounds: max|kernel - plain| / max|plain|, from the JAX package's own
 # kernel tests (tests/test_attention.py, tests/test_mlp.py)
@@ -225,6 +248,9 @@ LEG_I_CUTS = {"per_device_train_batch_size": 1,
 LEG_I_IMPLS = {"attn_impl": "pallas_i8bwd",
                "teacher_attn_impl": "pallas_int8"}
 LEG_D_ACCUM = 2         # the preset's 64 micro-batches, cut for a smoke run
+# legs D and I: the steps of the first run (a checkpoint every 2), then of
+# the resumed one
+LEG_V_STEPS = (2, 4)
 # the EMA check: the teacher moves by (1 - momentum) times the student's
 # update, up to f32 rounding of t*m + s*(1 - m); held within a factor of 2
 TOL_EMA_RATIO = 2.0
@@ -659,8 +685,13 @@ def ptxas_report(name: str, build_dir=None) -> list:
 
 
 def phase_build() -> None:
+    from smb_vision_tpu_torch.data import build_native
     from smb_vision_tpu_torch.ops import _build
 
+    # leg J holds the native loader to a build of this run, from the
+    # checkout's source: an earlier run's or the tests' build goes first
+    for old in build_native.BUILD_DIR.glob("ctloader-*"):
+        shutil.rmtree(old)
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
@@ -1351,6 +1382,87 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
             raise AssertionError(f"leg {leg}: kernel {name} never launched")
         table[name]["launches"] = counts[name]
     return out, counts
+
+
+def phase_native_loader(vols: Path) -> None:
+    """The preprocessing of the 4 volumes to 512^2 x 320, no cache on
+    either side: the native C++ loader (`native_load_batch`, on this
+    machine's CPU; its library built first, untimed) at 1 and 8 threads,
+    against the python backend (decode on the host, resample and window
+    on the card, the volume copied back), one volume after another as a
+    loader without workers takes them. The two agree within 1e-4 (the JAX
+    package's tolerance between its two backends). Then leg J's host load
+    of one volume in its parts: the native decode (a transposed view),
+    its uint8 codes, their npz (the volume cache's write, here to
+    memory), and the copy to the card with the layout made there, equal
+    to the host's layout bit for bit."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from smb_vision_tpu_torch.data import native as native_mod
+    from smb_vision_tpu_torch.data.dataset import CTDataset
+    from smb_vision_tpu_torch.data.preprocess import (
+        CT_PIPELINES,
+        PreprocessConfig,
+    )
+    from smb_vision_tpu_torch.data.quantization import quantize_volume
+
+    t0 = time.perf_counter()
+    native_mod._load_lib()
+    log(f"native loader: library loaded (built if absent) in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"(g++, from csrc/ctloader.cpp)")
+    paths = [str(p) for p in sorted(vols.glob("*.nii"))]
+    pipe = PreprocessConfig(CT_PIPELINES["smb-vision"].target_spacing,
+                            (512, 512, 320))
+    native = {}
+    for threads in (1, 8):
+        t0 = time.perf_counter()
+        out, status = native_mod.native_load_batch(
+            paths, target_size=pipe.target_size,
+            target_spacing=pipe.target_spacing, num_threads=threads)
+        native[threads] = time.perf_counter() - t0
+        if status != [0] * len(paths):
+            raise AssertionError(f"native loader statuses {status}")
+    ds = CTDataset(items=[{"image": p} for p in paths], pipeline=pipe,
+                   backend="python", device=torch.device("cuda"))
+    ds[0]                                           # warm-up, not timed
+    t0 = time.perf_counter()
+    python = [ds[i]["image"] for i in range(len(paths))]
+    torch.cuda.synchronize()
+    py_s = time.perf_counter() - t0
+    err = max(float(np.abs(n.transpose(2, 0, 1) - p[:, 0]).max())
+              for n, p in zip(out, python))
+    log(f"preprocessing, {len(paths)} volumes of 256x256x160 int16 to "
+        f"512x512x320: native loader {native[1] * 1e3:.1f} ms at 1 thread, "
+        f"{native[8] * 1e3:.1f} ms at 8 threads; python backend (resample on "
+        f"the card) {py_s * 1e3:.1f} ms; max |native - python| {err:.3e} "
+        f"(bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"native and python preprocessing differ by "
+                             f"{err}")
+    ms = {}
+    t0 = time.perf_counter()
+    view = native_mod.native_preprocess_volume(paths[0], pipe)
+    ms["native decode, 1 thread"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q, scale, offset = quantize_volume(view)
+    ms["uint8 codes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.savez(io.BytesIO(), q=q, scale=scale, offset=offset)
+    ms["npz of the codes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = torch.as_tensor(q)[None].to("cuda").contiguous()
+    torch.cuda.synchronize()
+    ms["copy and layout on the card"] = time.perf_counter() - t0
+    if not torch.equal(card[0].cpu(), torch.from_numpy(
+            np.ascontiguousarray(q))):
+        raise AssertionError("the layout made on the card differs from the "
+                             "host's")
+    log("leg J's host load of one volume, in its parts: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in ms.items()))
 
 
 def phase_whole_model(vols: Path, emb_a: Path) -> None:
@@ -2123,6 +2235,188 @@ def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
             table[name]["launches"] = counts[name]
 
 
+LEG_J_STEPS = 8         # two epochs of the 4 volumes at batch 1
+LEG_J_PROFILE = "6-7"   # two steps of epoch 1, from the device cache
+LEG_J_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd")
+VOXELS = 512 * 512 * 320
+
+
+@contextlib.contextmanager
+def native_backend():
+    """Inside the block, a CTDataset given the "auto" backend (the CLIs
+    give no other) takes the native one, where "auto" would take the
+    python backend on a CUDA device."""
+    from smb_vision_tpu_torch.data import dataset
+
+    init = dataset.CTDataset.__init__
+
+    def native_init(self, *args, backend="auto", **kw):
+        init(self, *args, backend="native" if backend == "auto" else backend,
+             **kw)
+
+    dataset.CTDataset.__init__ = native_init
+    try:
+        yield
+    finally:
+        dataset.CTDataset.__init__ = init
+
+
+@contextlib.contextmanager
+def watch_data_path():
+    """Inside the block, keep each DeviceCachedBatchLoader made and, for
+    each uint8 decode of the Trainer's step, (the codes' dtype, their
+    device, the decoded dtype). Yields (loaders, decodes)."""
+    from smb_vision_tpu_torch.data import dataset, quantization
+
+    loaders, decodes = [], []
+    init = dataset.DeviceCachedBatchLoader.__init__
+    decode = quantization.dequantize_batch
+
+    def kept_init(self, *args, **kw):
+        init(self, *args, **kw)
+        loaders.append(self)
+
+    def watched_decode(batch, *args, **kw):
+        px = batch["pixel_values"]
+        out = decode(batch, *args, **kw)
+        decodes.append((px.dtype, px.device.type,
+                        out["pixel_values"].dtype))
+        return out
+
+    dataset.DeviceCachedBatchLoader.__init__ = kept_init
+    quantization.dequantize_batch = watched_decode
+    try:
+        yield loaders, decodes
+    finally:
+        dataset.DeviceCachedBatchLoader.__init__ = init
+        quantization.dequantize_batch = decode
+
+
+def run_leg_j(work: Path, vols: Path, table: dict) -> None:
+    """Leg J, the MIM data path and the HF round trip at full width:
+    run_mim with a copy of configs/mim_base_512.json on the 4 volumes
+    (all 4 to train), LEG_J_STEPS steps at batch 1 with --input_dtype
+    uint8 --device_cache --cache_data_dir (a uint8 cache) --export_hf
+    --profile_steps LEG_J_PROFILE, the datasets asked for the native
+    backend (`native_backend`: "auto" takes the python one on the card).
+    Asserts: the dataset took the native backend (the C++ loader, on this
+    machine's CPU), its library built in this run from the checkout's
+    source (`phase_build` removed any earlier build); epoch 1 made no host load and
+    the cache on the card holds 4 volumes of uint8 codes; every batch
+    reached the step as uint8 codes on the card, decoded there to
+    bfloat16; K1, K4, K5a and K5b launched; finite losses; the trace and
+    hf_model.safetensors were written. Then run_inference on the 4 volumes
+    with the saved config, from model.safetensors and from
+    hf_model.safetensors (K1 and K6): the embeddings equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from smb_vision_tpu_torch.cli.run_inference import main as run_inference
+    from smb_vision_tpu_torch.cli.run_mim import main as run_mim
+    from smb_vision_tpu_torch.data import build_native
+
+    spec = work / "mim_data.json"
+    spec.write_text(json.dumps({"train": [
+        {"image": str(p)} for p in sorted(vols.glob("*.nii"))]}))
+    out, cache = work / "mim_out_J", work / "cache_j"
+    preset = json.loads(MIM_PRESET.read_text())
+    path = work / "mim_J.json"
+    path.write_text(json.dumps(dict(
+        preset, json_path=str(spec), output_dir=str(out),
+        num_train_steps=LEG_J_STEPS, save_steps=LEG_J_STEPS,
+        logging_steps=1, train_val_split=0.0, input_dtype="uint8",
+        device_cache=True, cache_data_dir=str(cache), cache_dtype="uint8",
+        export_hf=True, profile_steps=LEG_J_PROFILE)))
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    with native_backend(), watch_data_path() as (loaders, decodes):
+        res = run_mim([str(path)])
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in ws.items()}
+    log(f"leg J: {res} in {wall:.1f} s (native decode + uint8 cache + "
+        f"train from the device cache + trace + both exports); launches "
+        f"{counts}")
+    (loader,) = loaders
+    lib = build_native.library_path()
+    if loader.ds.backend != "native" or not (
+            lib.is_file() and lib.stat().st_mtime >= SCRIPT_START):
+        raise AssertionError(f"leg J: backend {loader.ds.backend!r}, "
+                             f"library {lib} built in this run: "
+                             f"{lib.is_file()}")
+    log(f"leg J: CTDataset backend native (the C++ loader on this "
+        f"machine's CPU), library {lib.relative_to(ROOT)} built in this run "
+        f"from csrc/ctloader.cpp")
+    if loader.host_loads != {0: N_VOLUMES, 1: 0}:
+        raise AssertionError(f"leg J: host loads by epoch "
+                             f"{loader.host_loads}")
+    cached = list(loader._dev.values())
+    held = sum(e[0].numel() * e[0].element_size() for e in cached)
+    if len(cached) != N_VOLUMES or held != N_VOLUMES * VOXELS or any(
+            e[0].dtype != torch.uint8 or e[0].device.type != "cuda"
+            for e in cached):
+        raise AssertionError(f"leg J: device cache {len(cached)} volumes, "
+                             f"{held} bytes")
+    log(f"leg J: host loads by epoch {loader.host_loads}; the cache on the "
+        f"card holds {len(cached)} volumes of uint8 codes, {held} bytes "
+        f"({held / 1e6:.1f} MB)")
+    if len(decodes) != LEG_J_STEPS or set(decodes) != {
+            (torch.uint8, "cuda", torch.bfloat16)}:
+        raise AssertionError(f"leg J: step decodes {decodes}")
+    for name in LEG_J_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"leg J: kernel {name} never launched")
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    if [r["step"] for r in train] != list(range(1, LEG_J_STEPS + 1)) or \
+            not all(math.isfinite(r["loss"]) for r in train):
+        raise AssertionError(f"leg J: step records {train}")
+    times = [r["step_time_ms"] for r in train]
+    half = LEG_J_STEPS // 2
+    log(f"leg J: step ms {[round(t, 1) for t in times]}; epoch 0 (host "
+        f"loads) mean {statistics.mean(times[:half]):.1f}, epoch 1 (device "
+        f"cache; steps {LEG_J_PROFILE} under the profiler) mean "
+        f"{statistics.mean(times[half:]):.1f}, its unprofiled steps "
+        f"{times[half]:.1f} and {times[-1]:.1f}; losses "
+        f"{[round(r['loss'], 6) for r in train]}")
+    traces = list((out / "profile").glob("trace_*.json"))
+    if not traces or not (out / "hf_model.safetensors").is_file():
+        raise AssertionError(f"leg J: traces {traces}, hf_model.safetensors "
+                             f"{(out / 'hf_model.safetensors').is_file()}")
+    sizes = {f.name: f.stat().st_size for f in
+             [*traces, out / "model.safetensors",
+              out / "hf_model.safetensors"]}
+    log(f"leg J: bytes written {sizes}")
+    embs = {}
+    for name in ("model.safetensors", "hf_model.safetensors"):
+        emb = work / f"emb_J_{name.split('.')[0]}"
+        ws = reset_launches()
+        t0 = time.perf_counter()
+        stats = run_inference([
+            "--data_dir", str(vols), "--output_dir", str(emb),
+            "--config_path", str(out / "config.json"),
+            "--model_name_or_path", str(out / name), "--batch_size", "2",
+            "--device", "cuda", "--num_workers", "2",
+            "--cache_data_dir", str(cache), "--cache_dtype", "uint8"])
+        counts = {n: w.launches for n, w in ws.items()}
+        log(f"leg J: run_inference from {name}: {stats} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+        if stats["embedded"] != N_VOLUMES or not (
+                counts["flash_fwd"] > 0 and counts["mlp_fwd"] > 0):
+            raise AssertionError(f"leg J inference from {name}: {stats}, "
+                                 f"{counts}")
+        embs[name] = {f.name: np.load(f) for f in sorted(emb.glob("*.npy"))}
+    a, b = embs.values()
+    if a.keys() != b.keys() or len(a) != N_VOLUMES or not all(
+            np.array_equal(a[k], b[k]) and np.isfinite(a[k]).all()
+            for k in a):
+        raise AssertionError("leg J: the embeddings from model.safetensors "
+                             "and hf_model.safetensors differ")
+    log(f"leg J: the {len(a)} embeddings from model.safetensors and "
+        f"hf_model.safetensors are equal bit for bit")
+    shutil.rmtree(out)
+
+
 def phase_train_throughput(card: str, iters: int = 3) -> None:
     """MIM steps of the preset at batch 1 and 2, as shipped and with
     glue_impl "pallas" (leg H's model): CUDA events over `iters` seeded
@@ -2388,13 +2682,17 @@ def phase_vjepa_parity(ref: bool = False) -> None:
 
 
 def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
-                  cuts: dict, impls: dict | None = None) -> dict:
+                  cuts: dict, impls: dict | None = None,
+                  export_hf: bool = False) -> dict:
     """run_vjepa on the volumes (3 to train, 1 to evaluate) with a copy of
     the preset at preset_path, the keys of `cuts` cut (each logged with the
     preset's value), `impls` added, and one checkpoint kept (each holds the
-    student, the teacher and the AdamW moments, ~5 GB at ViT-L): 4 steps, a
-    checkpoint every 2, eval; then the same to 6 steps, which resumes at 4.
-    Asserts the logs, the checkpoints and the export. Returns the launch
+    student, the teacher and the AdamW moments, ~5 GB at ViT-L): 2 steps, a
+    checkpoint every 2, eval; then the same to 4 steps, which resumes at 2
+    (LEG_V_STEPS).
+    Asserts the logs, the checkpoints and the export (with export_hf also
+    the HF layout's, `hf_model.safetensors`, which is kept with
+    config.json; the rest of the output is deleted). Returns the launch
     counts of the first run, the d-32 rows' among them (`d32_launches`)."""
     import numpy as np
     import torch
@@ -2422,19 +2720,20 @@ def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
             preset, **cuts, **(impls or {}), data_path=str(spec),
             output_dir=str(out), num_train_steps=steps, save_steps=2,
             save_total_limit=1, logging_steps=1, do_eval=True,
-            num_workers=2)))
+            num_workers=2, export_hf=export_hf)))
         t0 = time.perf_counter()
         res = run_vjepa([str(path)])
         return res, time.perf_counter() - t0
 
+    first, last = LEG_V_STEPS
     ws = reset_launches()
-    res4, wall4 = run(4)
+    res1, wall1 = run(first)
     counts = {name: w.launches for name, w in ws.items()}
     counts.update(d32_launches(ws))
-    ckpts4 = Trainer.checkpoint_steps(out / "checkpoints")
-    res6, wall6 = run(6)
-    log(f"leg {leg}: {res4} in {wall4:.1f} s, resumed {res6} in "
-        f"{wall6:.1f} s (preprocess + train + eval + save); launches of the "
+    ckpts1 = Trainer.checkpoint_steps(out / "checkpoints")
+    res2, wall2 = run(last)
+    log(f"leg {leg}: {res1} in {wall1:.1f} s, resumed {res2} in "
+        f"{wall2:.1f} s (preprocess + train + eval + save); launches of the "
         f"first run {counts}")
     recs = [json.loads(line) for line in
             (out / "metrics.jsonl").read_text().splitlines()]
@@ -2442,20 +2741,20 @@ def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
     for r in train:
         log(f"  step {r['step']}: loss {r['loss']:.6f}, "
             f"{r['step_time_ms']:.1f} ms, mfu {r.get('mfu')}")
-    if [r["step"] for r in train] != [1, 2, 3, 4, 5, 6]:
+    if [r["step"] for r in train] != list(range(1, last + 1)):
         raise AssertionError(f"leg {leg} logged steps "
                              f"{[r['step'] for r in train]}")
     for r in train:
         if not (math.isfinite(r["loss"]) and r.get("mfu", 0) > 0):
             raise AssertionError(f"leg {leg} step record {r}")
-    for res in (res4, res6):
+    for res in (res1, res2):
         if not math.isfinite(res.get("eval_loss", math.nan)):
             raise AssertionError(f"leg {leg} eval: {res}")
     ckpts = Trainer.checkpoint_steps(out / "checkpoints")
-    if ckpts4 != [4] or ckpts != [6] or res6["train_steps"] != 6:
-        raise AssertionError(f"leg {leg} checkpoints {ckpts4} then {ckpts}, "
-                             f"result {res6}")
-    blob = torch.load(out / "checkpoints" / "6" / "state.pt",
+    if ckpts1 != [first] or ckpts != [last] or res2["train_steps"] != last:
+        raise AssertionError(f"leg {leg} checkpoints {ckpts1} then {ckpts}, "
+                             f"result {res2}")
+    blob = torch.load(out / "checkpoints" / str(last) / "state.pt",
                       map_location="cpu", weights_only=True, mmap=True)
     if not {"model", "teacher", "optimizer"} <= set(blob):
         raise AssertionError(f"leg {leg} checkpoint holds {sorted(blob)}")
@@ -2467,20 +2766,114 @@ def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
                              "model.safetensors is missing")
     files = sorted(f"{p.relative_to(out)} ({p.stat().st_size / 2**20:.0f} "
                    f"MiB)" for p in out.rglob("*") if p.is_file())
-    log(f"leg {leg}: checkpoints {ckpts4} then {ckpts} (with the EMA "
+    log(f"leg {leg}: checkpoints {ckpts1} then {ckpts} (with the EMA "
         f"teacher), model.safetensors {len(export)} tensors; files "
         f"{files}")
-    shutil.rmtree(out)
+    if export_hf:
+        hf = read_safetensors(out / "hf_model.safetensors")
+        if not (any(k.startswith("predictor.layer.") for k in hf)
+                and all(np.isfinite(v).all() for v in hf.values())):
+            raise AssertionError(f"leg {leg}: hf_model.safetensors holds "
+                                 f"{len(hf)} tensors, or a non-finite one")
+        for f in out.iterdir():
+            if f.name not in ("hf_model.safetensors", "config.json"):
+                shutil.rmtree(f) if f.is_dir() else f.unlink()
+    else:
+        shutil.rmtree(out)
     return counts
 
 
 def run_leg_d(work: Path, vols: Path, table: dict) -> None:
     """Leg D: `run_vjepa_leg` with configs/vjepa_large_384_tpu.json,
-    accumulation cut to LEG_D_ACCUM; the V-JEPA kernels launch, K4 not."""
+    accumulation cut to LEG_D_ACCUM, and --export_hf (leg K starts from
+    that export); the V-JEPA kernels launch, K4 not."""
     counts = run_vjepa_leg(work, vols, "D", VJEPA_PRESET,
-                           {"gradient_accumulation_steps": LEG_D_ACCUM})
+                           {"gradient_accumulation_steps": LEG_D_ACCUM},
+                           export_hf=True)
     check_vjepa_launches("leg D", counts)
     table["flash_bwd_i8"]["launches"] = counts["flash_bwd_i8"]
+
+
+def run_leg_k(work: Path, vols: Path, table: dict) -> None:
+    """Leg K, continued V-JEPA pretraining from an HF-layout export:
+    run_vjepa with leg D's config (accumulation LEG_D_ACCUM),
+    --model_name_or_path leg D's hf_model.safetensors, --input_dtype
+    uint8 --device_cache, 2 steps. Asserts: every student tensor loaded
+    and none of the student skipped; the EMA teacher starts equal to the
+    loaded student; K7, K3 and the quantisation kernel launched; finite
+    losses."""
+    import torch
+
+    from smb_vision_tpu_torch.cli.run_vjepa import main as run_vjepa
+    from smb_vision_tpu_torch.models import convert
+    from smb_vision_tpu_torch.train import trainer as trainer_mod
+
+    hf = work / "vjepa_out_D" / "hf_model.safetensors"
+    nii = [{"image": str(p)} for p in sorted(vols.glob("*.nii"))]
+    spec = work / "vjepa_data_K.json"
+    spec.write_text(json.dumps({"train": nii[:3], "validation": nii[3:]}))
+    out = work / "vjepa_out_K"
+    path = work / "vjepa_K.json"
+    path.write_text(json.dumps(dict(
+        json.loads(VJEPA_PRESET.read_text()),
+        gradient_accumulation_steps=LEG_D_ACCUM, data_path=str(spec),
+        output_dir=str(out), num_train_steps=2, save_steps=2,
+        save_total_limit=1, logging_steps=1, num_workers=2,
+        model_name_or_path=str(hf), input_dtype="uint8",
+        device_cache=True)))
+    grafts, starts = [], []
+    graft, init = convert.load_params_into, trainer_mod.Trainer.__init__
+
+    def watched_graft(model, src, **kw):
+        loaded, skipped = graft(model, src, **kw)
+        grafts.append((set(model.state_dict()), set(loaded), skipped))
+        return loaded, skipped
+
+    def watched_init(self, *args, **kw):
+        init(self, *args, **kw)
+        student = self.state["model"].state_dict()
+        teacher = self.state["teacher"].state_dict()
+        starts.append(student.keys() == teacher.keys() and all(
+            torch.equal(v, teacher[k]) for k, v in student.items()))
+
+    ws = reset_launches()
+    convert.load_params_into = watched_graft
+    trainer_mod.Trainer.__init__ = watched_init
+    t0 = time.perf_counter()
+    try:
+        res = run_vjepa([str(path)])
+    finally:
+        convert.load_params_into = graft
+        trainer_mod.Trainer.__init__ = init
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in ws.items()}
+    log(f"leg K: {res} in {wall:.1f} s (load the HF export + decode "
+        f"and resample on the card + 2 steps from the device cache + checkpoint); launches "
+        f"{counts}")
+    (student, loaded, skipped), = grafts
+    if loaded != student or skipped:
+        raise AssertionError(f"leg K: loaded {len(loaded)} of the "
+                             f"student's {len(student)} tensors; missing "
+                             f"{sorted(student - loaded)[:5]}; checkpoint "
+                             f"tensors unused {skipped[:5]}")
+    if starts != [True]:
+        raise AssertionError("leg K: the EMA teacher does not start equal "
+                             "to the loaded student")
+    log(f"leg K: {len(loaded)} of {len(student)} student tensors loaded "
+        f"from {hf.name}, none skipped, none of the checkpoint unused; the "
+        f"teacher starts equal to the student")
+    for name in ("flash_bwd_i8", "flash_fwd_i8", "quantize"):
+        if counts[name] <= 0:
+            raise AssertionError(f"leg K: kernel {name} never launched")
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    if [r["step"] for r in train] != [1, 2] or not all(
+            math.isfinite(r["loss"]) for r in train):
+        raise AssertionError(f"leg K: step records {train}")
+    log(f"leg K: losses {[r['loss'] for r in train]}, step ms "
+        f"{[round(r['step_time_ms'], 1) for r in train]}")
+    shutil.rmtree(out)
 
 
 def check_d32_launches(what: str, counts: dict, plain: dict, micro: int,
@@ -2511,8 +2904,8 @@ def run_leg_i(work: Path, vols: Path, table: dict) -> None:
         counts = run_vjepa_leg(work, vols, "I", VJEPA_REF_PRESET, LEG_I_CUTS,
                                LEG_I_IMPLS)
     check_vjepa_launches("leg I", counts)
-    check_d32_launches("leg I", counts, plain,
-                       4 * LEG_I_CUTS["gradient_accumulation_steps"])
+    check_d32_launches("leg I", counts, plain, LEG_V_STEPS[0]
+                       * LEG_I_CUTS["gradient_accumulation_steps"])
     log(f"leg I: plain attention calls {plain}; d-32 launches "
         f"{d32_launches(wrappers())} over both runs")
     for row in ("flash_fwd d32", "flash_bwd_i8 d32"):
@@ -3103,17 +3496,44 @@ def dinov2_parity(seed: int = 0, libs: dict | None = None) -> dict:
 
 
 def phase_dinov2_parity() -> None:
-    """`dinov2_parity` at seed 0 through the kernels: the loss within
-    TOL_TRAIN_LOSS of the plain versions', the gradient error against
-    float32 within TOL_TRAIN_GRAD_VS_F32 times the plain versions'."""
-    got = dinov2_parity()
-    k = got["kernels"]
-    if not k["rel loss"] <= TOL_TRAIN_LOSS:
-        raise AssertionError(f"DINOv2 loss rel {k['rel loss']}")
-    if not k["grad err"] <= TOL_TRAIN_GRAD_VS_F32 * got["plain grad err"]:
-        raise AssertionError(f"DINOv2 kernel gradients are {k['grad err']} "
-                             f"from float32, the plain versions' "
-                             f"{got['plain grad err']}")
+    """`dinov2_parity` through the kernels at every seed of
+    DINO_PARITY_SEEDS, decided across the seeds. At each seed the
+    gradient error against float32 is within TOL_TRAIN_GRAD_VS_F32 times
+    the plain versions'. Over the seeds, the mean loss gap to the plain
+    versions is within TOL_TRAIN_LOSS, and the kernels' mean loss distance
+    from float32 within TOL_TRAIN_GRAD_VS_F32 times the plain versions'.
+    One bf16 step at random weights is chaotic: at one seed either bf16
+    path may land near float32 or 2e-2 from it by chance (the plain path
+    is 3.9e-4 from it at seed 0, 1.7e-2 and 2.2e-2 at seeds 1 and 2), so
+    one seed's gap can cross TOL_TRAIN_LOSS without a fault; a fault
+    moves the kernels off float32 at every seed, and so their mean."""
+    gaps, k_dist, p_dist, grads_ok = [], [], [], True
+    for seed in DINO_PARITY_SEEDS:
+        got = dinov2_parity(seed)
+        k = got["kernels"]
+        f32 = abs(got["f32 loss"])
+        gaps.append(k["rel loss"])
+        k_dist.append(abs(k["loss"] - got["f32 loss"]) / f32)
+        p_dist.append(abs(got["plain loss"] - got["f32 loss"]) / f32)
+        grad_ok = k["grad err"] <= (TOL_TRAIN_GRAD_VS_F32
+                                    * got["plain grad err"])
+        grads_ok &= grad_ok
+        log(f"DINOv2-giant parity, seed {seed}: loss gap to the plain "
+            f"versions {gaps[-1]:.3e}; loss distance from float32: kernels "
+            f"{k_dist[-1]:.3e}, plain versions {p_dist[-1]:.3e}; gradient "
+            f"error {k['grad err']:.3e}, plain {got['plain grad err']:.3e} "
+            f"(bound {TOL_TRAIN_GRAD_VS_F32} x plain): "
+            f"{'pass' if grad_ok else 'FAIL'}")
+    n = len(DINO_PARITY_SEEDS)
+    gap, kd, pd = sum(gaps) / n, sum(k_dist) / n, sum(p_dist) / n
+    loss_ok = gap <= TOL_TRAIN_LOSS and kd <= TOL_TRAIN_GRAD_VS_F32 * pd
+    log(f"DINOv2-giant parity verdict over seeds {DINO_PARITY_SEEDS}: mean "
+        f"loss gap to the plain versions {gap:.3e} (bound {TOL_TRAIN_LOSS}); "
+        f"mean loss distance from float32: kernels {kd:.3e}, plain versions "
+        f"{pd:.3e} (bound {TOL_TRAIN_GRAD_VS_F32} x plain); gradient rule at "
+        f"every seed: {grads_ok}: {'pass' if loss_ok and grads_ok else 'FAIL'}")
+    if not (loss_ok and grads_ok):
+        raise AssertionError("DINOv2 parity fails over the seeds")
 
 
 def phase_finetune_throughput(card: str, iters: int = 3) -> None:
@@ -3831,12 +4251,19 @@ def main() -> int:
         run_leg_s(work, vols, work / "leg_a.json", emb_a)
         run_leg_w(work, vols, work / "leg_a.json", emb_a)
         done("legs S and W")
+        phase_native_loader(vols)
+        done("native loader")
         run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         done("legs C and H")
+        run_leg_j(work, vols, table)
+        done("leg J")
         run_leg_d(work, vols, table)
+        done("leg D")
+        run_leg_k(work, vols, table)
+        done("leg K")
         run_leg_i(work, vols, table)
-        done("legs D and I")
+        done("legs D, K and I")
         spec = write_labelled_spec(work, vols)
         run_leg_e(work, spec)
         run_leg_f(work, spec, table)

@@ -50,7 +50,7 @@ class DataTrainingArguments:
     max_train_samples: Optional[int] = None
     max_eval_samples: Optional[int] = None
     cache_data_dir: Optional[str] = field(
-        default=None, metadata={"help": "not ported yet"})
+        default=None, metadata={"help": "preprocessed-volume cache dir"})
     cache_dtype: str = "float32"
     num_workers: int = 8
 
@@ -216,10 +216,9 @@ def main(argv=None) -> dict:
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     _refuse_unported(model_args, data_args, training_args,
                      cli="run_classification", extra=[
-        (model_args.lora_enable, "--lora_enable (train/lora.py)",
-         "queue 1, LoRA"),
+        (model_args.lora_enable, "--lora_enable (train/lora.py)", "lora"),
         (training_args.optim == "adamw8bit", "--optim adamw8bit",
-         "queue 1, 8-bit optimizer state")])
+         "adamw8bit")])
     device, accum_dt = _device_and_accum(training_args)
     if data_args.additional_feature_columns == [""]:
         data_args.additional_feature_columns = []
@@ -244,16 +243,21 @@ def main(argv=None) -> dict:
         target_size=(size, size, depth),
         layout=CT_PIPELINES[pipeline_key].layout)
 
+    # out_dtype = input_dtype: a half-precision or uint8 cache goes to the
+    # device without a float32 round trip on the host
+    ds_kw = dict(pipeline=pipe, device=device,
+                 cache_dir=data_args.cache_data_dir,
+                 cache_dtype=data_args.cache_dtype,
+                 out_dtype=training_args.input_dtype)
     train_ds = None
     if training_args.do_train:
         if not data_args.train_data_path:
             raise SystemExit("--train_data_path is required with --do_train")
         train_ds = CTDataset(data_args.train_data_path, split="train",
-                             pipeline=pipe, device=device,
-                             max_samples=data_args.max_train_samples)
+                             max_samples=data_args.max_train_samples,
+                             **ds_kw)
     eval_ds = (CTDataset(data_args.val_data_path, split="validation",
-                         pipeline=pipe, device=device,
-                         max_samples=data_args.max_eval_samples)
+                         max_samples=data_args.max_eval_samples, **ds_kw)
                if data_args.val_data_path else None)
     if train_ds is None and not (eval_ds and len(eval_ds)):
         raise SystemExit("nothing to do: need --train_data_path with "

@@ -87,16 +87,16 @@ class InferenceArguments:
 
 
 def _refuse_unported(args) -> None:
+    from smb_vision_tpu_torch.utils.args import not_ported
+
     unported = [
         (args.pipeline_parallel > 1, "--pipeline_parallel > 1",
-         "queue 1 item 9, multi-GPU"),
-        (args.quant8, "--quant8", "queue 1 item 10, W8A8"),
+         "multi-gpu"),
+        (args.quant8, "--quant8", "w8a8"),
     ]
     for hit, flag, item in unported:
         if hit:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to smb_vision_tpu_torch "
-                f"(ROADMAP.md {item}); use smb_vision_tpu.cli.run_inference")
+            raise not_ported(flag, item, "smb_vision_tpu.cli.run_inference")
 
 
 def main(argv=None) -> dict:

@@ -3,10 +3,16 @@
 Counterpart of `smb_vision_tpu/cli/run_mim.py`, with the same flags, the
 same single-JSON mode (`run_mim config.json`) and the same outputs
 (`metrics.jsonl`, `checkpoints/<step>/`, `model.safetensors` in the JAX
-package's names, `config.json`). `--device` (default cuda) picks the
-device; the CLI refuses to run if CUDA is absent, and a CPU run must ask
-for it with --device cpu. Training runs on one device: sharding_policy
-"dp" or "fsdp" on one device is plain single-device training.
+package's names, `config.json`, and with --export_hf
+`hf_model.safetensors` in the HF VideoMAEForPreTraining layout).
+`--device` (default cuda) picks the device; the CLI refuses to run if CUDA
+is absent, and a CPU run must ask for it with --device cpu. Training runs
+on one device: sharding_policy "dp" or "fsdp" on one device is plain
+single-device training. The volumes go through the native CT loader when
+its library builds (else decode on the host and resample on the device),
+--cache_data_dir keeps them preprocessed on disk, --device_cache keeps
+them on the device after their first load, and --input_dtype uint8 ships
+them as one byte a voxel, decoded on the device in the step.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_mim \\
@@ -45,24 +51,27 @@ class DataTrainingArguments:
     max_train_samples: Optional[int] = None
     max_eval_samples: Optional[int] = None
     cache_data_dir: Optional[str] = field(
-        default=None, metadata={"help": "not ported yet"})
+        default=None, metadata={"help": "preprocessed-volume cache dir"})
     cache_dtype: str = field(
         default="float32",
         metadata={"help": "on-disk dtype for cached volumes; float16 halves "
-                          "disk/IO bytes (~1e-4 rounding on [0,1] values). "
-                          "Read only with --cache_data_dir, which is not "
-                          "ported yet"})
+                          "disk/IO bytes (~1e-4 rounding on [0,1] values)"})
     num_workers: int = 8
     device_cache: bool = field(
-        default=False, metadata={"help": "not ported yet"})
+        default=False,
+        metadata={"help": "keep volumes in DEVICE memory after their first "
+                          "load; later epochs put batches together on the "
+                          "device (no host pixel bytes a step). For "
+                          "datasets that fit beside the model state"})
 
 
 @dataclass
 class ModelArguments:
     model_name_or_path: Optional[str] = field(
         default=None,
-        metadata={"help": "safetensors checkpoint to initialise from (the "
-                          "JAX package's or this CLI's export)"})
+        metadata={"help": "checkpoint to initialise from: the JAX "
+                          "package's or this CLI's export, an HF VideoMAE "
+                          "file or directory, or a hub id"})
     config_name_or_path: Optional[str] = None
     config_overrides: Optional[str] = field(
         default=None,
@@ -83,8 +92,10 @@ class ModelArguments:
                           "('pallas_bwd': kernels K5a + K5b in training)"})
     gradient_checkpointing: bool = False
     sequence_parallel: bool = False
-    export_hf: bool = field(default=False,
-                            metadata={"help": "not ported yet"})
+    export_hf: bool = field(
+        default=False,
+        metadata={"help": "also write hf_model.safetensors, the HF "
+                          "VideoMAEForPreTraining layout"})
     pipeline_stages: int = field(
         default=1, metadata={"help": "values above 1 are not ported yet"})
     pipeline_microbatches: int = field(
@@ -137,40 +148,67 @@ def build_config(model_args: ModelArguments):
 
 def _refuse_unported(model_args, data_args, training_args,
                      cli: str = "run_mim", extra=()) -> None:
-    """Raise for a flag whose module is not ported, naming its ROADMAP.md
-    item; extra: more (hit, flag, item) triples of the calling CLI. A flag
-    the calling CLI does not have counts as unset."""
+    """Raise for a flag whose module is not ported (`not_ported`, which
+    names its item of the roadmap); extra: more (hit, flag, item key)
+    triples of the calling CLI. A flag the calling CLI does not have
+    counts as unset."""
+    from smb_vision_tpu_torch.utils.args import not_ported
+
     world = int(os.environ.get("WORLD_SIZE", "1"))
     unported = [*extra,
         (getattr(model_args, "pipeline_stages", 1) > 1,
-         "--pipeline_stages > 1", "queue 1, multi-GPU"),
-        (bool(data_args.cache_data_dir), "--cache_data_dir",
-         "queue 1, native loader and dataset cache"),
-        (getattr(data_args, "device_cache", False), "--device_cache",
-         "queue 1, native loader and dataset cache"),
-        (training_args.input_dtype == "uint8", "--input_dtype uint8",
-         "queue 1, uint8 shipping"),
-        (bool(training_args.multihost), "--multihost", "queue 1, multi-GPU"),
+         "--pipeline_stages > 1", "multi-gpu"),
+        (bool(training_args.multihost), "--multihost", "multi-gpu"),
         (training_args.model_parallel > 1, "--model_parallel > 1",
-         "queue 1, multi-GPU"),
+         "multi-gpu"),
         (training_args.dcn_slices > 1 or world > 1,
-         "training on more than one device", "queue 1, multi-GPU"),
+         "training on more than one device", "multi-gpu"),
         (training_args.sharding_policy not in ("dp", "fsdp"),
-         f"--sharding_policy {training_args.sharding_policy}",
-         "queue 1, multi-GPU"),
-        (getattr(model_args, "export_hf", False), "--export_hf",
-         "queue 1, checkpoints"),
-        (bool(training_args.profile_steps), "--profile_steps",
-         "queue 1, MIM training (item 4)"),
-        (training_args.report_to not in ("none", ""),
-         f"--report_to {training_args.report_to}",
-         "queue 1, MIM training (item 4)"),
+         f"--sharding_policy {training_args.sharding_policy}", "multi-gpu"),
     ]
     for hit, flag, item in unported:
         if hit:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to smb_vision_tpu_torch "
-                f"(ROADMAP.md {item}); use smb_vision_tpu.cli.{cli}")
+            raise not_ported(flag, item, f"smb_vision_tpu.cli.{cli}")
+
+
+def make_datasets(data_args, training_args, pipe, device, data_path,
+                  train_split, validation_split, max_eval_samples=None):
+    """(train, eval or None) CTDatasets of a spec, with the cache flags
+    and out_dtype = input_dtype, so a half-precision or uint8 cache goes
+    to the device without a float32 round trip on the host."""
+    from smb_vision_tpu_torch.data.dataset import CTDataset
+
+    kw = dict(pipeline=pipe, device=device,
+              cache_dir=data_args.cache_data_dir,
+              cache_dtype=data_args.cache_dtype,
+              out_dtype=training_args.input_dtype)
+    train_ds = CTDataset(data_path, split=train_split,
+                         max_samples=data_args.max_train_samples, **kw)
+    try:
+        eval_ds = CTDataset(data_path, split=validation_split,
+                            max_samples=max_eval_samples, **kw)
+    except (ValueError, FileNotFoundError):
+        eval_ds = None
+    return train_ds, eval_ds, kw
+
+
+def make_train_loader(train_ds, data_args, training_args):
+    """The host BatchLoader, or with --device_cache the
+    DeviceCachedBatchLoader (which the Trainer attaches to its device)."""
+    from smb_vision_tpu_torch.data.dataset import (
+        BatchLoader,
+        DeviceCachedBatchLoader,
+    )
+
+    batch = (training_args.per_device_train_batch_size
+             * training_args.gradient_accumulation_steps)
+    if data_args.device_cache:
+        return DeviceCachedBatchLoader(
+            train_ds, batch, shuffle=True, seed=training_args.seed,
+            input_dtype=training_args.input_dtype)
+    return BatchLoader(train_ds, batch, shuffle=True,
+                       seed=training_args.seed,
+                       num_workers=data_args.num_workers)
 
 
 def _device_and_accum(training_args):
@@ -196,38 +234,16 @@ def _device_and_accum(training_args):
     return device, accum_dt
 
 
-def _load_checkpoint(model, path: str) -> None:
-    """Graft every tensor of a safetensors export (the JAX package's names)
-    whose name and shape match the model; none matching is an error."""
-    import torch
-
-    from smb_vision_tpu_torch.models.convert import (
-        params_from_flax,
-        read_safetensors,
-    )
-
-    src = params_from_flax(read_safetensors(path), pretraining=True)
-    target = model.state_dict()
-    hits = {k: v for k, v in src.items()
-            if k in target and tuple(v.shape) == tuple(target[k].shape)}
-    if not hits:
-        raise ValueError(f"no tensor in {path} matches the MIM parameter "
-                         "tree (names and shapes): wrong checkpoint for this "
-                         "architecture?")
-    with torch.no_grad():
-        for k, v in hits.items():
-            target[k].copy_(v)
-    logger.info("initialised %d tensors from %s (%d checkpoint tensors "
-                "unused)", len(hits), path, len(src) - len(hits))
-
-
 def main(argv=None) -> dict:
-    import torch
-
     from smb_vision_tpu_torch.data.dataset import BatchLoader, CTDataset
     from smb_vision_tpu_torch.data.preprocess import (
         CT_PIPELINES,
         PreprocessConfig,
+    )
+    from smb_vision_tpu_torch.models.convert import (
+        export_hf_videomae,
+        load_params_into,
+        write_safetensors,
     )
     from smb_vision_tpu_torch.train.mim import make_mim_workload
     from smb_vision_tpu_torch.train.optim import make_optimizer
@@ -246,16 +262,10 @@ def main(argv=None) -> dict:
         target_spacing=CT_PIPELINES["mim"].target_spacing,
         target_size=(config.image_size, config.image_size,
                      config.num_frames))
-    train_ds = CTDataset(data_args.json_path, split=data_args.train_split,
-                         pipeline=pipe, device=device,
-                         max_samples=data_args.max_train_samples)
-    try:
-        eval_ds = CTDataset(data_args.json_path,
-                            split=data_args.validation_split, pipeline=pipe,
-                            device=device,
-                            max_samples=data_args.max_eval_samples)
-    except (ValueError, FileNotFoundError):
-        eval_ds = None
+    train_ds, eval_ds, ds_kw = make_datasets(
+        data_args, training_args, pipe, device, data_args.json_path,
+        data_args.train_split, data_args.validation_split,
+        data_args.max_eval_samples)
     if eval_ds is None and data_args.train_val_split and len(train_ds) > 1:
         # no validation split in the spec: split train, seeded
         items = list(train_ds.items)
@@ -265,16 +275,13 @@ def main(argv=None) -> dict:
         val_items = items[:n_val]
         if data_args.max_eval_samples:
             val_items = val_items[:data_args.max_eval_samples]
-        eval_ds = CTDataset(items=val_items, pipeline=pipe, device=device)
+        eval_ds = CTDataset(items=val_items, **ds_kw)
         train_ds.items = items[n_val:]
         logger.info("no '%s' split: auto-split %d/%d train/val "
                     "(train_val_split=%.2f)", data_args.validation_split,
                     len(train_ds), len(eval_ds), data_args.train_val_split)
 
-    train_loader = BatchLoader(
-        train_ds, training_args.per_device_train_batch_size
-        * training_args.gradient_accumulation_steps, shuffle=True,
-        seed=training_args.seed, num_workers=data_args.num_workers)
+    train_loader = make_train_loader(train_ds, data_args, training_args)
     eval_loader = (BatchLoader(eval_ds,
                                training_args.per_device_eval_batch_size,
                                shuffle=False,
@@ -304,7 +311,10 @@ def main(argv=None) -> dict:
 
     state = init_fn(training_args.seed)
     if model_args.model_name_or_path:
-        _load_checkpoint(model, model_args.model_name_or_path)
+        # graft what matches (name and shape) into the fresh init: a
+        # checkpoint of another architecture fails here, not at a step
+        load_params_into(model, model_args.model_name_or_path,
+                         tree="pretraining")
 
     trainer = Trainer(args=training_args, state=state, step_fn=step_fn,
                       train_loader=train_loader, eval_loader=eval_loader,
@@ -314,6 +324,14 @@ def main(argv=None) -> dict:
         result.update(trainer.train())
         trainer.save_model()
         config.save_json(str(trainer.out_dir / "config.json"))
+        if model_args.export_hf:
+            hf = export_hf_videomae(
+                trainer.state["model"].state_dict(),
+                num_layers=config.num_hidden_layers,
+                decoder_layers=config.decoder_num_hidden_layers)
+            write_safetensors(trainer.out_dir / "hf_model.safetensors", hf)
+            logger.info("HF export: %d tensors -> hf_model.safetensors",
+                        len(hf))
         logger.info("train complete: %s", result)
     if training_args.do_eval:
         metrics = trainer.evaluate()

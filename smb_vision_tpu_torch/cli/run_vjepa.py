@@ -5,11 +5,17 @@ same single-JSON mode (`run_vjepa config.json`, e.g. a copy of
 `configs/vjepa_large_384_tpu.json` with `data_path` and `output_dir` set),
 the same only-if-explicit config-file guard with `--config_overrides`, and
 the same outputs (`metrics.jsonl`, `checkpoints/<step>/` with the EMA
-teacher, `model.safetensors` in the JAX package's names, `config.json`).
+teacher, `model.safetensors` in the JAX package's names, `config.json`,
+and with --export_hf `hf_model.safetensors` in the HF VJEPA2Model layout).
 The volumes take the V-JEPA pipeline (spacing (1.0, 1.0, 1.5) mm, cropped
-to image_size^2 x depth). `--device` (default cuda) picks the device; the
-CLI refuses to run if CUDA is absent, and a CPU run must ask for it with
---device cpu. Training runs on one device.
+to image_size^2 x depth), with the data flags of run_mim
+(--cache_data_dir, --device_cache, --input_dtype uint8).
+--model_name_or_path continues pretraining from a checkpoint (this CLI's
+or the JAX package's export, an HF V-JEPA2 file or a hub id): what
+matches is grafted into the student and the EMA teacher starts as its
+copy. `--device` (default cuda) picks the device; the CLI refuses to run
+if CUDA is absent, and a CPU run must ask for it with --device cpu.
+Training runs on one device.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_vjepa \\
@@ -40,12 +46,13 @@ class DataTrainingArguments:
     train_split: str = "train"
     validation_split: str = "validation"
     max_train_samples: Optional[int] = None
-    cache_data_dir: Optional[str] = field(
-        default=None, metadata={"help": "not ported yet"})
+    cache_data_dir: Optional[str] = None
     cache_dtype: str = "float32"
     num_workers: int = 8
     device_cache: bool = field(
-        default=False, metadata={"help": "not ported yet"})
+        default=False,
+        metadata={"help": "keep volumes in device memory after their first "
+                          "load (see run_mim)"})
     num_mask_blocks: int = 3
     inv_block: bool = False
 
@@ -53,7 +60,10 @@ class DataTrainingArguments:
 @dataclass
 class ModelArguments:
     model_name_or_path: Optional[str] = field(
-        default=None, metadata={"help": "not ported yet"})
+        default=None,
+        metadata={"help": "continued pretraining: graft this checkpoint "
+                          "into the student; the EMA teacher starts as "
+                          "its copy"})
     config_name_or_path: Optional[str] = None
     config_overrides: Optional[str] = field(
         default=None,
@@ -84,10 +94,11 @@ class ModelArguments:
         metadata={"help": "MLP kernel: auto|pallas|pallas_bwd|xla "
                           "('pallas_bwd': kernels K5a + K5b in training)"})
     gradient_checkpointing: bool = False
-    sequence_parallel: bool = field(
-        default=False, metadata={"help": "not ported yet"})
-    export_hf: bool = field(default=False,
-                            metadata={"help": "not ported yet"})
+    sequence_parallel: bool = False
+    export_hf: bool = field(
+        default=False,
+        metadata={"help": "also write hf_model.safetensors, the HF "
+                          "VJEPA2Model layout"})
     pipeline_stages: int = field(
         default=1, metadata={"help": "values above 1 are not ported yet"})
     pipeline_microbatches: int = 0
@@ -137,11 +148,18 @@ def main(argv=None) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
         _device_and_accum,
         _refuse_unported,
+        make_datasets,
+        make_train_loader,
     )
-    from smb_vision_tpu_torch.data.dataset import BatchLoader, CTDataset
+    from smb_vision_tpu_torch.data.dataset import BatchLoader
     from smb_vision_tpu_torch.data.preprocess import (
         CT_PIPELINES,
         PreprocessConfig,
+    )
+    from smb_vision_tpu_torch.models.convert import (
+        export_hf_vjepa2,
+        load_params_into,
+        write_safetensors,
     )
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import Trainer, TrainingArguments
@@ -152,12 +170,9 @@ def main(argv=None) -> dict:
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     _refuse_unported(model_args, data_args, training_args, cli="run_vjepa",
                      extra=[
-        (model_args.sequence_parallel, "--sequence_parallel",
-         "queue 1, multi-GPU"),
+        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu"),
         (training_args.optim == "adamw8bit", "--optim adamw8bit",
-         "queue 1, 8-bit optimizer state"),
-        (bool(model_args.model_name_or_path), "--model_name_or_path",
-         "queue 1, checkpoints")])
+         "adamw8bit")])
     device, accum_dt = _device_and_accum(training_args)
     config = build_config(model_args)
     logger.info("V-JEPA config: %s tokens, grid %s, on %s", config.seq_len,
@@ -167,20 +182,10 @@ def main(argv=None) -> dict:
         target_spacing=CT_PIPELINES["vjepa"].target_spacing,
         target_size=(config.crop_size, config.crop_size,
                      config.frames_per_clip))
-    train_ds = CTDataset(data_args.data_path, split=data_args.train_split,
-                         pipeline=pipe, device=device,
-                         max_samples=data_args.max_train_samples)
-    try:
-        eval_ds = CTDataset(data_args.data_path,
-                            split=data_args.validation_split, pipeline=pipe,
-                            device=device)
-    except (ValueError, FileNotFoundError):
-        eval_ds = None
-
-    train_loader = BatchLoader(
-        train_ds, training_args.per_device_train_batch_size
-        * training_args.gradient_accumulation_steps, shuffle=True,
-        seed=training_args.seed, num_workers=data_args.num_workers)
+    train_ds, eval_ds, _ = make_datasets(
+        data_args, training_args, pipe, device, data_args.data_path,
+        data_args.train_split, data_args.validation_split)
+    train_loader = make_train_loader(train_ds, data_args, training_args)
     eval_loader = (BatchLoader(eval_ds,
                                training_args.per_device_eval_batch_size,
                                shuffle=False,
@@ -199,7 +204,7 @@ def main(argv=None) -> dict:
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm,
         vision_lr=training_args.vision_lr,
         merger_lr=training_args.merger_lr, optim=training_args.optim)
-    _, init_fn, step_fn, eval_fn = make_vjepa_workload(
+    model, init_fn, step_fn, eval_fn = make_vjepa_workload(
         config, tx=tx, grad_accum=training_args.gradient_accumulation_steps,
         accum_dtype=accum_dt, ema_momentum=model_args.ema_momentum,
         teacher_attn_impl=model_args.teacher_attn_impl,
@@ -208,7 +213,15 @@ def main(argv=None) -> dict:
     if training_args.model_flops_per_sample is None:
         training_args.model_flops_per_sample = vjepa_flops_per_sample(config)
 
-    trainer = Trainer(args=training_args, state=init_fn(training_args.seed),
+    state = init_fn(training_args.seed)
+    if model_args.model_name_or_path:
+        # continued pretraining: graft what matches (the whole V-JEPA
+        # tree, or an encoder-only export) into the fresh student; the
+        # EMA teacher restarts as a copy of the loaded student
+        load_params_into(state["model"], model_args.model_name_or_path,
+                         tree="vjepa")
+        state["teacher"].load_state_dict(state["model"].state_dict())
+    trainer = Trainer(args=training_args, state=state,
                       step_fn=step_fn, train_loader=train_loader,
                       eval_loader=eval_loader, eval_fn=eval_fn)
     result = {}
@@ -216,6 +229,14 @@ def main(argv=None) -> dict:
         result.update(trainer.train())
         trainer.save_model()
         config.save_json(str(trainer.out_dir / "config.json"))
+        if model_args.export_hf:
+            hf = export_hf_vjepa2(
+                trainer.state["model"].state_dict(),
+                num_layers=config.num_hidden_layers,
+                pred_layers=config.pred_num_hidden_layers)
+            write_safetensors(trainer.out_dir / "hf_model.safetensors", hf)
+            logger.info("HF export: %d tensors -> hf_model.safetensors",
+                        len(hf))
         logger.info("train complete: %s", result)
     if training_args.do_eval:
         metrics = trainer.evaluate()

@@ -94,10 +94,10 @@ class EmbeddingService:
     def __init__(self, args: ServeArguments):
         self.args = args
         if args.encoder == "merlin":
-            raise NotImplementedError(
-                "--encoder merlin is not yet ported to smb_vision_tpu_torch "
-                "(ROADMAP.md queue 1 item 8, zoo); use "
-                "smb_vision_tpu.cli.serve")
+            from smb_vision_tpu_torch.utils.args import not_ported
+
+            raise not_ported("--encoder merlin", "zoo",
+                             "smb_vision_tpu.cli.serve")
         if args.encoder != "smb-vision":
             raise ValueError(f"unknown encoder {args.encoder!r}; "
                              "valid: 'smb-vision', 'merlin'")

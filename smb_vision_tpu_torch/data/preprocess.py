@@ -188,15 +188,19 @@ def preprocess_volume_full(data: np.ndarray, affine: np.ndarray, pipeline,
 
 
 def preprocess_volume(data: np.ndarray, affine: np.ndarray,
-                      pipeline, device: Optional[torch.device] = None
-                      ) -> np.ndarray:
+                      pipeline, device: Optional[torch.device] = None,
+                      bucket: Optional[int] = None) -> np.ndarray:
     """Full chain for one volume: RAS reorientation on the host, then
     resample/window/pad/crop on `device` (default cpu). Returns the
     model-input array, float32:
 
       layout "DCHW": (D, 1, H, W)  (depth as frames)
       layout "CHWD": (1, H, W, D)
-    """
+
+    bucket: accepted for the JAX package's signature and ignored. There
+    it pads the input to bound jit compiles, with the exact path's result;
+    eager PyTorch compiles nothing, so the exact path runs."""
+    del bucket
     cfg = CT_PIPELINES[pipeline] if isinstance(pipeline, str) else pipeline
     data, out_shape, scales = _ras_geometry(data, affine, cfg)
     vol = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))

@@ -7,9 +7,9 @@ voxel (a quarter of float32) at an absolute error of at most scale / 2 =
 (max - min) / 510 per voxel. The host side (`quantize_volume`,
 `dequantize_volume`) is numpy and gives the JAX package's codes bit for
 bit; the decode (`dequantize_pixels`) runs on torch tensors on the device
-that holds them. The batch helpers of the training side
-(`quantize_batch`, `dequantize_batch`) are not ported yet (ROADMAP.md
-queue 1 item 3).
+that holds them. On the training side, `quantize_batch` is the host
+fallback for a loader that yields float pixels, and `dequantize_batch`
+decodes a batch on the device inside the Trainer's step.
 
 In bfloat16 the decode rounds twice, after the product and after the sum,
 as eager PyTorch computes `q * s + o` in that dtype; the JAX package's
@@ -19,7 +19,7 @@ decode compiled by XLA on the CPU rounds the same way
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +37,14 @@ def quantize_volume(vol: np.ndarray) -> Tuple[np.ndarray, np.float32,
     """(float volume) -> (uint8 codes, scale, offset) with
     vol ~= codes * scale + offset and |err| <= scale / 2 per voxel. A
     constant (or non-finite) volume gives all-zero codes, scale 1 and its
-    value as the offset."""
+    value as the offset. A transposed view (the native loader's volumes)
+    is quantised in its memory order, and its codes are the same view of
+    a contiguous array."""
+    if not vol.flags.c_contiguous:
+        order = np.argsort(vol.strides, kind="stable")[::-1]
+        if vol.transpose(order).flags.c_contiguous:
+            q, scale, lo = quantize_volume(vol.transpose(order))
+            return q.transpose(np.argsort(order)), scale, lo
     lo = float(vol.min())
     hi = float(vol.max())
     scale = (hi - lo) / 255.0
@@ -84,3 +91,41 @@ def dequantize_pixels(q: torch.Tensor, scale: torch.Tensor,
     s = scale.reshape(shape).to(q.device, dtype)
     o = offset.reshape(shape).to(q.device, dtype)
     return q.to(dtype) * s + o
+
+
+def quantize_batch(batch: Dict) -> Dict:
+    """Host fallback when a loader yields float pixels and the run ships
+    uint8 (the free path is CTDataset(out_dtype="uint8"), which quantises
+    once, when the cache is written): each volume quantised on its own,
+    its affine under SCALE_KEY / OFFSET_KEY. A uint8 batch passes."""
+    px = batch["pixel_values"]
+    if isinstance(px, torch.Tensor):
+        px = px.float().numpy() if px.is_floating_point() else px.numpy()
+    px = np.asarray(px)
+    if px.dtype == np.uint8:
+        return batch
+    qs, ss, os_ = zip(*(quantize_volume(v) for v in px))
+    out = dict(batch)
+    out["pixel_values"] = np.stack(qs)
+    out[SCALE_KEY] = np.asarray(ss, np.float32)
+    out[OFFSET_KEY] = np.asarray(os_, np.float32)
+    return out
+
+
+def dequantize_batch(batch: Dict,
+                     dtype: torch.dtype = torch.float32) -> Dict:
+    """Decode a uint8 batch on the device that holds it, dropping the
+    affine keys; a float batch passes unchanged."""
+    px = batch.get("pixel_values")
+    if px is None or px.dtype != torch.uint8:
+        return batch
+    if SCALE_KEY not in batch:
+        raise ValueError(
+            "uint8 pixel_values without pixel_scale/pixel_offset: "
+            "quantised batches must come from CTDataset(out_dtype='uint8') "
+            "or quantize_batch()")
+    out = {k: v for k, v in batch.items() if k not in (SCALE_KEY,
+                                                       OFFSET_KEY)}
+    out["pixel_values"] = dequantize_pixels(px, batch[SCALE_KEY],
+                                            batch[OFFSET_KEY], dtype)
+    return out

@@ -5,7 +5,7 @@ Counterpart of `smb_vision_tpu/inference/runner.py`: `BaseEncoder`
 `SmbVisionEncoder` (the first-party VideoMAE encoder, encoder-only
 forward), which the embedding server drives. The zoo's other encoders
 (SigLIP, Merlin) and `BaseEncoderRunner`, the manifest runner they share,
-are not ported yet (ROADMAP.md queue 1 item 8).
+are not ported yet (ROADMAP.md queue 1 item 8, Zoo).
 """
 
 from __future__ import annotations

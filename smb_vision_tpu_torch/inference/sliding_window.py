@@ -9,7 +9,7 @@ here in a plain loop on the volume's device. It returns the per-window
 token embeddings (B, n_win, L, D), or their weighted means (B, n_win, D)
 with pool=True, and the window starts. The voxel-space blend
 (`sliding_window_inference`) is not ported yet: nothing in the port calls
-it (ROADMAP.md queue 1).
+it (ROADMAP.md queue 1 item 5, Sliding window and serving).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Checkpoints in and out of the port: the JAX package's safetensors export
-and HF-layout VideoMAE and DINOv2 files.
+and the HF layouts of VideoMAE, V-JEPA2 and DINOv2.
 
 Counterpart of `smb_vision_tpu/models/convert.py` for VideoMAE, DINOv2, the
 V-JEPA2 pretraining tree and the three classification models.
@@ -8,8 +8,14 @@ V-JEPA2 pretraining tree and the three classification models.
 state_dict (`encoder.layer_0.attention.query.weight`, ...): Dense kernels
 are transposed into Linear weights, LayerNorm `scale` becomes `weight`, and
 the Conv3d layout of `patch_embed_kernel` is kept; `params_to_flax` is its
-inverse, which `Trainer.save_model` writes. `convert_hf_dinov2` and
-`export_hf_dinov2` map the HF DINOv2 layout. The safetensors reader and
+inverse, which `Trainer.save_model` writes. `convert_hf_videomae`,
+`convert_hf_vjepa2` and `convert_hf_dinov2` map an HF-layout state dict to
+the JAX package's flat names, `convert_hf_auto` picks the family from the
+key schema, and `export_hf_*` map a state_dict back to the HF layout
+(transformers' VideoMAE and VJEPA2 models load them). `load_backbone`,
+`load_backbone_into` and `load_params_into` (the grafts of fine-tuning and
+of continued pretraining) take either layout, a directory of shards or an
+'org/name' hub id (`resolve_checkpoint_source`). The safetensors reader and
 writer are small numpy ones (the format: an 8-byte little-endian header
 length, a JSON header, raw little-endian tensor bytes), so no `safetensors`
 package is needed.
@@ -18,9 +24,10 @@ package is needed.
 from __future__ import annotations
 
 import json
+import os
 import re
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -179,46 +186,295 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _hf_videomae_to_flax(hf: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Backbone part of the JAX `convert_hf_videomae`: HF VideoMAE names
-    (`[videomae.]encoder.layer.{i}.attention.attention.query.weight`, ...)
-    -> flattened JAX names."""
+def _linear(hf: str, ours: str) -> tuple:
+    """(HF name, JAX name) of a Linear's weight (a Dense kernel: ".kernel")
+    and its bias."""
+    return ((f"{hf}.weight", f"{ours}.kernel"), (f"{hf}.bias", f"{ours}.bias"))
+
+
+def _norm(hf: str, ours: str) -> tuple:
+    """(HF name, JAX name) of a LayerNorm's weight (`scale`) and bias."""
+    return ((f"{hf}.weight", f"{ours}.scale"), (f"{hf}.bias", f"{ours}.bias"))
+
+
+# one transformer block, HF name -> the JAX package's name within the
+# layer; a Dense kernel (".kernel") is the transposed Linear weight
+_HF_BLOCKS = {
+    "videomae": (
+        ("attention.attention.query.weight", "attention.query.kernel"),
+        ("attention.attention.key.weight", "attention.key.kernel"),
+        ("attention.attention.value.weight", "attention.value.kernel"),
+        ("attention.attention.q_bias", "attention.query.bias"),
+        ("attention.attention.v_bias", "attention.value.bias"),
+        ("attention.output.dense.weight", "attention.proj.kernel"),
+        ("attention.output.dense.bias", "attention.proj.bias"),
+        ("intermediate.dense.weight", "mlp.fc1.kernel"),
+        ("intermediate.dense.bias", "mlp.fc1.bias"),
+        ("output.dense.weight", "mlp.fc2.kernel"),
+        ("output.dense.bias", "mlp.fc2.bias"),
+        ("layernorm_before.weight", "norm1.scale"),
+        ("layernorm_before.bias", "norm1.bias"),
+        ("layernorm_after.weight", "norm2.scale"),
+        ("layernorm_after.bias", "norm2.bias"),
+    ),
+    "vjepa": sum((_linear(m, m) for m in (
+        "attention.query", "attention.key", "attention.value",
+        "attention.proj", "mlp.fc1", "mlp.fc2")), ())
+    + _norm("norm1", "norm1") + _norm("norm2", "norm2"),
+}
+
+
+def _put(src: Dict[str, np.ndarray], out: Dict[str, np.ndarray],
+         pairs) -> None:
+    """out[dst] = src[name] (transposed where either is a Dense kernel)
+    for each (name, dst) pair whose name is in src."""
+    for name, dst in pairs:
+        if name in src:
+            kern = name.endswith(".kernel") or dst.endswith(".kernel")
+            arr = np.asarray(src[name])
+            out[dst] = np.ascontiguousarray(arr.T) if kern else arr
+
+
+def _block_map(hf: Dict[str, np.ndarray], hf_prefix: str, layer: int,
+               out: Dict[str, np.ndarray], our_prefix: str,
+               style: str) -> None:
+    """One HF block (`{hf_prefix}.{layer}.*`) -> the JAX package's names
+    (`{our_prefix}.layer_{layer}.*`)."""
+    p, o = f"{hf_prefix}.{layer}.", f"{our_prefix}.layer_{layer}."
+    _put(hf, out, [(p + a, o + b) for a, b in _HF_BLOCKS[style]])
+
+
+def _invert_block(flat: Dict[str, np.ndarray], our_prefix: str, layer: int,
+                  out: Dict[str, np.ndarray], hf_prefix: str,
+                  style: str) -> None:
+    """Inverse of `_block_map`."""
+    o, p = f"{our_prefix}.layer_{layer}.", f"{hf_prefix}.{layer}."
+    _put(flat, out, [(o + b, p + a) for a, b in _HF_BLOCKS[style]])
+
+
+def convert_hf_videomae(hf: Dict[str, np.ndarray],
+                        num_layers: Optional[int] = None,
+                        decoder_layers: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
+    """An HF VideoMAE state dict (VideoMAEModel, ...ForPreTraining or
+    ...ForVideoClassification) -> the JAX package's flat names under
+    `params.videomae.` and the heads (`convert_hf_videomae` there). Layer
+    counts are read from the keys when None."""
     base = "videomae." if any(k.startswith("videomae.") for k in hf) else ""
-    pairs = [
-        ("attention.attention.query.weight", "attention.query.kernel", True),
-        ("attention.attention.key.weight", "attention.key.kernel", True),
-        ("attention.attention.value.weight", "attention.value.kernel", True),
-        ("attention.attention.q_bias", "attention.query.bias", False),
-        ("attention.attention.v_bias", "attention.value.bias", False),
-        ("attention.output.dense.weight", "attention.proj.kernel", True),
-        ("attention.output.dense.bias", "attention.proj.bias", False),
-        ("intermediate.dense.weight", "mlp.fc1.kernel", True),
-        ("intermediate.dense.bias", "mlp.fc1.bias", False),
-        ("output.dense.weight", "mlp.fc2.kernel", True),
-        ("output.dense.bias", "mlp.fc2.bias", False),
-        ("layernorm_before.weight", "norm1.scale", False),
-        ("layernorm_before.bias", "norm1.bias", False),
-        ("layernorm_after.weight", "norm2.scale", False),
-        ("layernorm_after.bias", "norm2.bias", False),
-    ]
+    if num_layers is None:
+        num_layers = _layer_count(hf, r"^(?:videomae\.)?encoder\.layer\."
+                                      r"(\d+)\.")
+    if decoder_layers is None:
+        decoder_layers = _layer_count(hf, r"decoder\.decoder_layers\."
+                                          r"(\d+)\.")
     out: Dict[str, np.ndarray] = {}
-    rx = re.compile(re.escape(base) + r"encoder\.layer\.(\d+)\.(.+)$")
-    for k, v in hf.items():
-        m = rx.match(k)
-        if m:
-            for src, dst, transpose in pairs:
-                if m.group(2) == src:
-                    out[f"params.encoder.layer_{m.group(1)}.{dst}"] = (
-                        np.asarray(v).T if transpose else np.asarray(v))
-    top = {"embeddings.patch_embeddings.projection.weight":
-           "params.patch_embed_kernel",
-           "embeddings.patch_embeddings.projection.bias":
-           "params.patch_embed_bias",
-           "layernorm.weight": "params.layernorm.scale",
-           "layernorm.bias": "params.layernorm.bias"}
-    for src, dst in top.items():
-        if base + src in hf:
-            out[dst] = np.asarray(hf[base + src])
+    v = "params.videomae."
+    _put(hf, out, (
+        (base + "embeddings.patch_embeddings.projection.weight",
+         v + "patch_embed_kernel"),
+        (base + "embeddings.patch_embeddings.projection.bias",
+         v + "patch_embed_bias")))
+    for i in range(num_layers):
+        _block_map(hf, base + "encoder.layer", i, out, v + "encoder",
+                   "videomae")
+    _put(hf, out, (
+        (base + "layernorm.weight", v + "layernorm.scale"),
+        (base + "layernorm.bias", v + "layernorm.bias"),
+        ("encoder_to_decoder.weight", "params.encoder_to_decoder.kernel"),
+        ("mask_token", "params.mask_token")))
+    for i in range(decoder_layers):
+        _block_map(hf, "decoder.decoder_layers", i, out, "params.decoder",
+                   "videomae")
+    _put(hf, out, _VIDEOMAE_HEADS)
+    return out
+
+
+# the pretraining decoder's norm and head, and the classification head
+_VIDEOMAE_HEADS = (
+    ("decoder.norm.weight", "params.decoder_norm.scale"),
+    ("decoder.norm.bias", "params.decoder_norm.bias"),
+    ("decoder.head.weight", "params.decoder_head.kernel"),
+    ("decoder.head.bias", "params.decoder_head.bias"),
+    ("fc_norm.weight", "params.fc_norm.scale"),
+    ("fc_norm.bias", "params.fc_norm.bias"),
+    ("classifier.weight", "params.classifier.kernel"),
+    ("classifier.bias", "params.classifier.bias"),
+)
+
+
+def export_hf_videomae(state: Dict[str, torch.Tensor],
+                       num_layers: Optional[int] = None,
+                       decoder_layers: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """A VideoMAEModel, VideoMAEForPreTraining or
+    VideoMAEForVideoClassification state_dict -> HF VideoMAE arrays (the
+    JAX package's `export_hf_videomae`): a wrapped tree with a head keeps
+    the `videomae.` prefix, a bare encoder (or a wrapped one without a
+    head) has none. Layer counts are read from the keys when None."""
+    flat = params_to_flax(state)
+    if any(k.startswith("params.videomae.") for k in flat):
+        enc = "params.videomae"
+        base = "videomae." if any(
+            k.startswith(("params.encoder_to_decoder", "params.fc_norm",
+                          "params.classifier")) for k in flat) else ""
+    else:
+        enc, base = "params", ""
+    if num_layers is None:
+        num_layers = _layer_count(flat, re.escape(enc) + r"\.encoder\."
+                                        r"layer_(\d+)\.")
+    if decoder_layers is None:
+        decoder_layers = _layer_count(flat, r"^params\.decoder\.layer_"
+                                            r"(\d+)\.")
+    out: Dict[str, np.ndarray] = {}
+    _put(flat, out, (
+        (enc + ".patch_embed_kernel",
+         base + "embeddings.patch_embeddings.projection.weight"),
+        (enc + ".patch_embed_bias",
+         base + "embeddings.patch_embeddings.projection.bias")))
+    for i in range(num_layers):
+        _invert_block(flat, enc + ".encoder", i, out, base + "encoder.layer",
+                      "videomae")
+    _put(flat, out, (
+        (enc + ".layernorm.scale", base + "layernorm.weight"),
+        (enc + ".layernorm.bias", base + "layernorm.bias"),
+        ("params.encoder_to_decoder.kernel", "encoder_to_decoder.weight"),
+        ("params.mask_token", "mask_token")))
+    for i in range(decoder_layers):
+        _invert_block(flat, "params.decoder", i, out,
+                      "decoder.decoder_layers", "videomae")
+    _put(flat, out, [(b, a) for a, b in _VIDEOMAE_HEADS])
+    return out
+
+
+# the V-JEPA2 attentive pooler's cross-attention layer, HF -> the JAX
+# package's names under `pooler.cross_attention_layer.` / `params.pooler.`
+_VJEPA_CROSS = (
+    _norm("layer_norm1", "cross_norm1") + _norm("layer_norm2", "cross_norm2")
+    + _linear("cross_attn.q_proj", "cross_attn.query")
+    + _linear("cross_attn.k_proj", "cross_attn.key")
+    + _linear("cross_attn.v_proj", "cross_attn.value")
+    + _linear("mlp.fc1", "cross_mlp.fc1")
+    + _linear("mlp.fc2", "cross_mlp.fc2"))
+# one pooler self-attention layer, under `self_attention_layers.{i}.` /
+# `self_layer_{i}_`
+_VJEPA_POOL_SELF = (
+    _norm("layer_norm1", "norm1") + _norm("layer_norm2", "norm2")
+    + _linear("self_attn.q_proj", "attn.query")
+    + _linear("self_attn.k_proj", "attn.key")
+    + _linear("self_attn.v_proj", "attn.value")
+    + _linear("self_attn.out_proj", "attn.proj")
+    + _linear("mlp.fc1", "mlp.fc1") + _linear("mlp.fc2", "mlp.fc2"))
+
+
+def _vjepa_top(base: str, conv: str):
+    """(HF name, JAX name) of V-JEPA2's non-block tensors."""
+    e, p = base + "encoder.", base + "predictor."
+    return (
+        (e + f"embeddings.patch_embeddings.{conv}.weight",
+         "params.encoder.patch_embed_kernel"),
+        (e + f"embeddings.patch_embeddings.{conv}.bias",
+         "params.encoder.patch_embed_bias"),
+        (e + "layernorm.weight", "params.encoder.layernorm.scale"),
+        (e + "layernorm.bias", "params.encoder.layernorm.bias"),
+        (p + "embeddings.predictor_embeddings.weight",
+         "params.predictor.predictor_embeddings.kernel"),
+        (p + "embeddings.predictor_embeddings.bias",
+         "params.predictor.predictor_embeddings.bias"),
+        (p + "embeddings.mask_tokens", "params.predictor.mask_tokens"),
+        (p + "layernorm.weight", "params.predictor.layernorm.scale"),
+        (p + "layernorm.bias", "params.predictor.layernorm.bias"),
+        (p + "proj.weight", "params.predictor.proj.kernel"),
+        (p + "proj.bias", "params.predictor.proj.bias"),
+        ("classifier.weight", "params.classifier.kernel"),
+        ("classifier.bias", "params.classifier.bias"),
+    )
+
+
+def convert_hf_vjepa2(hf: Dict[str, np.ndarray],
+                      num_layers: Optional[int] = None,
+                      pred_layers: Optional[int] = None
+                      ) -> Dict[str, np.ndarray]:
+    """An HF V-JEPA2 state dict (VJEPA2Model, or with the `vjepa2.` prefix
+    and the attentive pooler VJEPA2ForVideoClassification) -> the JAX
+    package's flat names (`params.encoder.*`, `params.predictor.*`,
+    `params.pooler.*`, `params.classifier.*`), as its `convert_hf_vjepa2`
+    builds them. The patch-embed conv may be named `proj` (upstream
+    transformers) or `proj_3d`. Layer counts are read from the keys when
+    None."""
+    base = "vjepa2." if any(k.startswith("vjepa2.") for k in hf) else ""
+    if num_layers is None:
+        num_layers = _layer_count(hf, r"encoder\.layer\.(\d+)\.")
+    if pred_layers is None:
+        pred_layers = _layer_count(hf, r"predictor\.layer\.(\d+)\.")
+    out: Dict[str, np.ndarray] = {}
+    for conv in ("proj_3d", "proj"):
+        _put(hf, out, _vjepa_top(base, conv))
+    for i in range(num_layers):
+        _block_map(hf, base + "encoder.layer", i, out,
+                   "params.encoder.encoder", "vjepa")
+    for i in range(pred_layers):
+        _block_map(hf, base + "predictor.layer", i, out,
+                   "params.predictor.stack", "vjepa")
+    if any(k.startswith("pooler.") for k in hf):
+        _put(hf, out, [("pooler.query_tokens", "params.pooler.query_tokens")]
+             + [("pooler.cross_attention_layer." + a, "params.pooler." + b)
+                for a, b in _VJEPA_CROSS])
+        i = 0
+        while any(k.startswith(f"pooler.self_attention_layers.{i}.")
+                  for k in hf):
+            _put(hf, out, [(f"pooler.self_attention_layers.{i}.{a}",
+                            f"params.pooler.self_layer_{i}_{b}")
+                           for a, b in _VJEPA_POOL_SELF])
+            i += 1
+    return out
+
+
+def export_hf_vjepa2(state: Dict[str, torch.Tensor],
+                     num_layers: Optional[int] = None,
+                     pred_layers: Optional[int] = None,
+                     pooler_self_layers: Optional[int] = None, *,
+                     wrap: bool = False, conv_name: str = "proj"
+                     ) -> Dict[str, np.ndarray]:
+    """A VJEPA2Model state_dict (encoder, predictor; with a pooler and a
+    classifier at the top level, as `convert_hf_vjepa2` builds them) ->
+    HF V-JEPA2 arrays, its inverse (the JAX package's `export_hf_vjepa2`):
+    wrap=True prefixes the backbone's keys with
+    `vjepa2.` (the classification layout); conv_name names the patch-embed
+    conv, `proj` (upstream transformers) or `proj_3d`. Layer counts are
+    read from the keys when None."""
+    flat = params_to_flax(state)
+    if not any(k.startswith("params.encoder.") for k in flat):
+        raise ValueError("the state does not look like a V-JEPA2 model "
+                         "(no encoder.* tensors)")
+    if num_layers is None:
+        num_layers = _layer_count(flat, r"^params\.encoder\.encoder\."
+                                        r"layer_(\d+)\.")
+    if pred_layers is None:
+        pred_layers = _layer_count(flat, r"^params\.predictor\.stack\."
+                                         r"layer_(\d+)\.")
+    if pooler_self_layers is None:
+        pooler_self_layers = _layer_count(flat, r"^params\.pooler\."
+                                                r"self_layer_(\d+)_")
+    base = "vjepa2." if wrap else ""
+    out: Dict[str, np.ndarray] = {}
+    _put(flat, out, [(b, a) for a, b in _vjepa_top(base, conv_name)
+                     if not a.startswith("classifier.")])
+    for i in range(num_layers):
+        _invert_block(flat, "params.encoder.encoder", i, out,
+                      base + "encoder.layer", "vjepa")
+    for i in range(pred_layers):
+        _invert_block(flat, "params.predictor.stack", i, out,
+                      base + "predictor.layer", "vjepa")
+    if any(k.startswith("params.pooler.") for k in flat):
+        _put(flat, out, [("params.pooler.query_tokens", "pooler.query_tokens")]
+             + [("params.pooler." + b, "pooler.cross_attention_layer." + a)
+                for a, b in _VJEPA_CROSS])
+        for i in range(pooler_self_layers):
+            _put(flat, out, [(f"params.pooler.self_layer_{i}_{b}",
+                              f"pooler.self_attention_layers.{i}.{a}")
+                             for a, b in _VJEPA_POOL_SELF])
+    _put(flat, out, (("params.classifier.kernel", "classifier.weight"),
+                     ("params.classifier.bias", "classifier.bias")))
     return out
 
 
@@ -349,36 +605,155 @@ def export_hf_dinov2(state: Dict[str, torch.Tensor]
     return out
 
 
+def resolve_checkpoint_source(name_or_path: str) -> str:
+    """A local path passes through; an 'org/name' HuggingFace hub id is
+    downloaded (safetensors, bin and json files) by
+    `huggingface_hub.snapshot_download` and resolves to the snapshot
+    directory. Without huggingface_hub the error says what to do, and a
+    missing path with a checkpoint file's suffix is never taken for a hub
+    id."""
+    name_or_path = str(name_or_path)
+    if os.path.exists(name_or_path):
+        return name_or_path
+    looks_like_file = name_or_path.endswith(
+        (".safetensors", ".bin", ".pt", ".pth", ".json"))
+    if (not looks_like_file
+            and re.fullmatch(r"[\w.\-]+/[\w.\-]+", name_or_path)):
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as e:
+            raise ImportError(
+                f"'{name_or_path}' is not a local path; to pull it as a "
+                "HuggingFace hub repo id install huggingface_hub "
+                "(pip install huggingface_hub), or pass a local "
+                "checkpoint path") from e
+        logger.info("downloading hub checkpoint %s", name_or_path)
+        try:
+            return snapshot_download(
+                name_or_path,
+                allow_patterns=["*.safetensors", "*.bin", "*.json"])
+        except Exception as e:
+            raise FileNotFoundError(
+                f"{name_or_path}: no such local path, and resolving it "
+                f"as a hub repo id failed ({type(e).__name__}: {e})"
+            ) from e
+    raise FileNotFoundError(
+        f"{name_or_path}: not a local path and not an 'org/name' hub "
+        "repo id")
+
+
+def load_hf_checkpoint_numpy(path: Union[str, Path]
+                             ) -> Dict[str, np.ndarray]:
+    """One checkpoint file, or every shard of a directory (its
+    *.safetensors, else its *.bin), as one flat numpy dict; a torch .bin
+    is read with torch.load(weights_only=True)."""
+    path = Path(path)
+    files = [path]
+    if path.is_dir():
+        files = sorted(path.glob("*.safetensors")) or sorted(
+            path.glob("*.bin"))
+        if not files:
+            raise FileNotFoundError(f"no checkpoint files in {path}")
+    elif not path.is_file():
+        raise FileNotFoundError(f"checkpoint {path} does not exist")
+    out: Dict[str, np.ndarray] = {}
+    for f in files:
+        if f.suffix == ".safetensors":
+            out.update(read_safetensors(f))
+        else:
+            state = torch.load(str(f), map_location="cpu",
+                               weights_only=True)
+            out.update({k: v.float().numpy() if v.dtype == torch.bfloat16
+                        else v.numpy() for k, v in state.items()})
+    return out
+
+
+def convert_hf_auto(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Pick the family of an HF-layout state dict from its key schema and
+    convert it (layer counts from the keys): V-JEPA2 (a predictor, or the
+    `proj`/`proj_3d` patch conv), DINOv2 (a CLS token; 3D checkpoints),
+    VideoMAE (the `projection` patch conv). A SigLIP schema waits for the
+    zoo; anything else is an error."""
+    keys = flat.keys()
+
+    def has(frag):
+        return any(frag in k for k in keys)
+
+    if (has("predictor.") or has("patch_embeddings.proj.")
+            or has("patch_embeddings.proj_3d.")):
+        return convert_hf_vjepa2(flat)
+    if has("vision_model.") or has("embeddings.patch_embedding.weight"):
+        from smb_vision_tpu_torch.utils.args import not_ported
+
+        raise not_ported("SigLIP checkpoint conversion", "zoo")
+    if has("embeddings.cls_token"):
+        proj = next((k for k in keys
+                     if k.endswith("patch_embeddings.projection.weight")),
+                    None)
+        if proj is not None and np.ndim(flat[proj]) == 4:
+            raise ValueError(
+                "2D DINOv2 checkpoint: depth inflation needs the target "
+                "geometry; call convert_hf_dinov2(flat, depth_patch=..., "
+                "depth_grid=...) directly")
+        return convert_hf_dinov2(flat)
+    if has("embeddings.patch_embeddings.projection.weight"):
+        return convert_hf_videomae(flat)
+    raise ValueError(
+        "unrecognised HF checkpoint schema (no VideoMAE/VJEPA2/DINOv2/"
+        f"SigLIP markers; first keys: {list(keys)[:3]})")
+
+
+def _read_flat(path: Union[str, Path]) -> Dict[str, np.ndarray]:
+    """A checkpoint (file, shard directory or hub id) in the JAX package's
+    flat names: its own export as is, an HF layout through
+    `convert_hf_auto`."""
+    flat = load_hf_checkpoint_numpy(resolve_checkpoint_source(path))
+    if any(k.startswith("params.") for k in flat):
+        return flat
+    return convert_hf_auto(flat)
+
+
 def load_backbone(path: Union[str, Path],
                   family: str = "videomae") -> Dict[str, torch.Tensor]:
     """Read a backbone checkpoint of `family` (videomae | dinov2 | vjepa2)
     into this package's state_dict layout: the JAX package's export
-    (`params.*` keys; a head model's or a pretraining export) or an
-    HF-layout VideoMAE or DINOv2 file; a directory reads every
-    *.safetensors shard in it."""
-    p = Path(path)
-    if p.is_dir():
-        files = sorted(p.glob("*.safetensors"))
-        if not files:
-            raise FileNotFoundError(f"no *.safetensors files in {p}")
-    elif p.is_file():
-        files = [p]
-    else:
-        raise FileNotFoundError(f"checkpoint {p} does not exist")
-    flat: Dict[str, np.ndarray] = {}
-    for f in files:
-        flat.update(read_safetensors(f))
-    if not any(k.startswith("params.") for k in flat):
-        if family == "videomae":
-            flat = _hf_videomae_to_flax(flat)
-        elif family == "dinov2":
-            flat = convert_hf_dinov2(flat)
-        else:
-            raise ValueError(f"{path}: not the JAX package's export (no "
-                             "'params.' keys); HF-layout V-JEPA2 checkpoints "
-                             "are not ported yet (ROADMAP.md queue 1, "
-                             "checkpoints)")
-    return params_from_flax(flat, backbone=family)
+    (`params.*` keys; a head model's or a pretraining export) or an HF
+    layout; a file, a directory of *.safetensors shards or a hub id."""
+    return params_from_flax(_read_flat(path), backbone=family)
+
+
+def load_params_into(model: torch.nn.Module, path: Union[str, Path], *,
+                     tree: str) -> Tuple[List[str], List[str]]:
+    """Graft a checkpoint into `model` (the JAX package's
+    `load_params_into` of continued pretraining): every tensor whose name
+    and shape match a tensor of the model is copied into it, the rest of
+    the model keeps its initialisation. tree: "pretraining" (a
+    VideoMAEForPreTraining) or "vjepa" (a VJEPA2Model). The checkpoint is
+    the JAX package's export or an HF layout. Returns (the model's names
+    that were loaded, the checkpoint's names that were not); nothing
+    matching is an error."""
+    if tree not in ("pretraining", "vjepa"):
+        raise ValueError(f"tree {tree!r}: expected pretraining or vjepa")
+    flat = _read_flat(path)
+    src = params_from_flax(flat, **{tree: True})
+    target = model.state_dict()
+    hits = [k for k, v in src.items()
+            if k in target and tuple(v.shape) == tuple(target[k].shape)]
+    if not hits:
+        raise ValueError(f"no tensor in {path} matches the {tree} "
+                         "parameter tree (names and shapes): wrong "
+                         "checkpoint for this architecture?")
+    with torch.no_grad():
+        for k in hits:
+            target[k].copy_(src[k])
+    rx = _VJEPA if tree == "vjepa" else _PRETRAINING
+    skipped = sorted(set(src) - set(hits)) + sorted(
+        k for k in flat if not rx.match(k[len("params."):]
+                                        if k.startswith("params.") else k))
+    logger.info("initialised %d of %d tensors from %s (%d checkpoint "
+                "tensors unused)", len(hits), len(target), path,
+                len(skipped))
+    return sorted(hits), skipped
 
 
 def load_backbone_into(model: torch.nn.Module, path: Union[str, Path]):

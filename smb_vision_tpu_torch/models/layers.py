@@ -35,14 +35,9 @@ from smb_vision_tpu_torch.ops.mlp import (
     swiglu_block_forward,
 )
 from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
+from smb_vision_tpu_torch.utils.args import not_ported
 
 _MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
-
-
-def not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to smb_vision_tpu_torch yet ({where} in "
-        "ROADMAP.md); use the JAX package for it")
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator=None):
@@ -283,10 +278,10 @@ class Block(nn.Module):
                              "valid: 'auto', 'pallas', 'xla'")
         if quant8:
             raise not_ported("quant8 (W8A8 projections, ops/quant.py)",
-                             "queue 1, W8A8")
+                             "w8a8")
         if sequence_parallel:
             raise not_ported("sequence_parallel (parallel/context.py)",
-                             "queue 1, multi-GPU")
+                             "multi-gpu")
         if mlp_impl not in _MLP_IMPLS:
             raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
                              + ", ".join(map(repr, _MLP_IMPLS)))

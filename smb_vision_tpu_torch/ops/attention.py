@@ -4,7 +4,7 @@ Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
 the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
 stand behind them. K1, K4 and K7 take head widths 32, 64 and 128; K3 and
 K8 take 64 and 128, and at 32 raise on CUDA (still to port, ROADMAP.md
-queue 2):
+queue 2 item 1, G1: head width 32 in K3 and K8):
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
   row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from smb_vision_tpu_torch.ops import _build
+from smb_vision_tpu_torch.utils.args import roadmap_ref
 
 LOG2E = 1.4426950408889634
 # 1/127 rounded to f32. The JAX package's `max / 127.` runs under jit,
@@ -269,7 +270,7 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7",
                          "in batch, heads or head width")
     if d not in head_dims:
         todo = (" (head width 32 on the int8 forwards K3 and K8 is still to "
-                "port, ROADMAP.md queue 2; attn_impl 'pallas' and "
+                f"port, {roadmap_ref('g1')}; attn_impl 'pallas' and "
                 "'pallas_i8bwd' run it)" if d == 32 else "")
         raise ValueError(f"flash kernel {kernel} takes head width "
                          f"{head_dims}, got {d}{todo}")

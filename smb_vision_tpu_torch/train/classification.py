@@ -55,10 +55,13 @@ def collate_classification(examples: List[Dict], *, task_type: str,
                            label_columns: List[str],
                            additional_feature_columns: Optional[List[str]]
                            ) -> Dict[str, np.ndarray]:
-    """A batch dict of numpy arrays: pixel_values, the labels of the task
-    type (labels, or duration and event for survival) and, with feature
-    columns, additional_features (B, n_columns) float32."""
-    out = {"pixel_values": np.stack([e["image"] for e in examples])}
+    """A batch dict of numpy arrays: pixel_values (with the per-sample
+    affine of uint8 volumes under SCALE_KEY / OFFSET_KEY), the labels of
+    the task type (labels, or duration and event for survival) and, with
+    feature columns, additional_features (B, n_columns) float32."""
+    from smb_vision_tpu_torch.data.dataset import default_collate
+
+    out = default_collate(examples)
     if additional_feature_columns:
         out["additional_features"] = np.asarray(
             [[float(e[c]) for c in additional_feature_columns]

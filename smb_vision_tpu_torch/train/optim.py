@@ -19,7 +19,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from smb_vision_tpu_torch.models.layers import not_ported
+from smb_vision_tpu_torch.utils.args import not_ported
 
 # two-tier fine-tuning groups, by parameter name (the JAX package's
 # head_regex and backbone_regex defaults)
@@ -148,7 +148,7 @@ def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
     over every tier."""
     if optim == "adamw8bit":
         raise not_ported("optim='adamw8bit' (train/quantized.py)",
-                         "queue 1, 8-bit optimizer state")
+                         "adamw8bit")
     if optim != "adamw":
         raise ValueError(f"unknown optim {optim!r}")
 

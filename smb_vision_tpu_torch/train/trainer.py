@@ -2,7 +2,13 @@
 with auto-resume, periodic eval and metric logging.
 
 Counterpart of `smb_vision_tpu/train/trainer.py` (`TrainingArguments`,
-`accumulate_gradients`, `Trainer`) for one device. A checkpoint is one
+`accumulate_gradients`, `Trainer`) for one device. Host batches reach the
+device through pinned buffers on a side stream (`prefetch_to_device`);
+a `DeviceCachedBatchLoader`'s batches are on the device already. With
+input_dtype "uint8" the pixels travel as codes with a per-volume affine
+and are decoded to bfloat16 on the device, in the step. profile_steps
+"A-B" writes a `torch.profiler` trace of global steps A to B under
+`output_dir/profile`. A checkpoint is one
 `torch.save` of the model, the optimizer (moments, update count), the EMA
 teacher where the workload has one (V-JEPA) and the step and epoch, under
 `output_dir/checkpoints/<step>/state.pt`. Each step
@@ -13,6 +19,7 @@ mask: 2 steps + resume + 2 steps equals 4 steps bitwise.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import shutil
 import signal
@@ -24,14 +31,19 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from smb_vision_tpu_torch.data import quantization
+from smb_vision_tpu_torch.data.dataset import prefetch_to_device, to_tensor
 from smb_vision_tpu_torch.utils.logging import MetricLogger, get_logger
-from smb_vision_tpu_torch.utils.profiling import device_peak_flops
+from smb_vision_tpu_torch.utils.profiling import device_peak_flops, trace
 
 logger = get_logger(__name__)
 
-_PIXEL_KEYS = ("pixel_values",)
+# only these columns are cast to input_dtype: labels, survival durations
+# and tabular features keep their dtype (bf16 spacing at a duration of
+# ~2048 days is 16: a cast would tie distinct survival times)
+_PIXEL_KEYS = ("pixel_values", "pixel_values_videos")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "uint8": torch.uint8}
 
 
 @dataclass
@@ -49,7 +61,10 @@ class TrainingArguments:
     per_device_eval_batch_size: int = 1
     gradient_accumulation_steps: int = 1
     grad_accum_dtype: str = "float32"   # float32 | bfloat16 accumulator
-    input_dtype: str = "float32"        # dtype pixels are shipped in
+    # dtype pixels are shipped in: float32 | bfloat16 | float16 | uint8
+    # (per-volume affine codes, decoded to bfloat16 on the device in the
+    # step; max abs err (max - min) / 510 a voxel)
+    input_dtype: str = "float32"
     learning_rate: float = 5e-5
     weight_decay: float = 0.01
     warmup_ratio: float = 0.0
@@ -74,8 +89,25 @@ class TrainingArguments:
     dcn_slices: int = 1
     multihost: Optional[bool] = None
     model_flops_per_sample: Optional[float] = None
-    profile_steps: Optional[str] = None  # not ported yet
+    # "A-B" (or "A"): a torch.profiler trace of global steps A..B
+    # inclusive under output_dir/profile
+    profile_steps: Optional[str] = None
     device: str = "cuda"                # cuda | cuda:N | cpu
+
+
+def profile_range(spec: Optional[str]):
+    """(first, last) global step of a profile_steps "A-B" or "A"; None."""
+    if not spec:
+        return None
+    a, _, b = str(spec).partition("-")
+    try:
+        lo, hi = int(a), int(b or a)
+    except ValueError:
+        raise ValueError(f"profile_steps {spec!r}: expected 'A-B' or "
+                         "'A'") from None
+    if not 1 <= lo <= hi:
+        raise ValueError(f"profile_steps {spec!r}: expected 1 <= A <= B")
+    return lo, hi
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -141,22 +173,50 @@ class Trainer:
             raise ValueError(f"input_dtype {args.input_dtype!r}: expected "
                              f"one of {sorted(_DTYPES)}")
         self.in_dtype = _DTYPES[args.input_dtype]
+        self.profile_range = profile_range(args.profile_steps)
         self.out_dir = Path(args.output_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.ckpt_dir = self.out_dir / "checkpoints"
-        self.mlog = MetricLogger(self.out_dir, run_name=args.run_name)
+        self.mlog = MetricLogger(self.out_dir, report_to=args.report_to,
+                                 run_name=args.run_name)
+        if args.input_dtype == "uint8":
+            # decode on the device, in the step, to bfloat16; the eval_fn
+            # (host code for the classification metrics) gets decoded
+            # tensors the same way
+            inner_step, inner_eval = self.step_fn, self.eval_fn
+            self.step_fn = lambda state, batch, gen: inner_step(
+                state, quantization.dequantize_batch(batch, torch.bfloat16),
+                gen)
+            if inner_eval is not None:
+                self.eval_fn = lambda state, batch: inner_eval(
+                    state, quantization.dequantize_batch(batch,
+                                                         torch.bfloat16))
+        self.device_cached = hasattr(train_loader, "attach_device")
+        if self.device_cached:
+            train_loader.attach_device(self.device)
 
     # -- batches -----------------------------------------------------------
-    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """numpy batch -> tensors on the device; pixels cast to input_dtype
-        on the host first, so the copy moves the narrower type."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v))
-            if k in _PIXEL_KEYS and t.is_floating_point():
-                t = t.to(self.in_dtype)
-            out[k] = t.to(self.device, non_blocking=True)
+    def host_cast(self, batch: Dict) -> Dict:
+        """The host-side cast before the copy, so the copy moves the
+        narrower type: only the pixel columns are cast; uint8 quantises a
+        float batch (`quantize_batch`; a uint8 one passes); float32 passes
+        everything."""
+        if self.args.input_dtype == "float32":
+            return batch
+        if self.args.input_dtype == "uint8":
+            return quantization.quantize_batch(batch)
+        out = dict(batch)
+        for k in _PIXEL_KEYS:
+            if k in out:
+                t = to_tensor(out[k])
+                if t.is_floating_point() and t.dtype != self.in_dtype:
+                    out[k] = t.to(self.in_dtype)
         return out
+
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A host batch -> tensors on the device, after `host_cast`."""
+        return {k: to_tensor(v).to(self.device)
+                for k, v in self.host_cast(batch).items()}
 
     # -- checkpoints -------------------------------------------------------
     @staticmethod
@@ -274,20 +334,35 @@ class Trainer:
                     start, total, samples_per_step, self.device)
         step = start
         window: List[torch.Tensor] = []
+        prof_range = self.profile_range
+        profiling = contextlib.ExitStack()
+        profiled = False
         t_last = time.perf_counter()
         try:
             while step < total and not stop["flag"]:
                 loader.set_epoch(epoch)
-                batches = iter(loader)
+                source = iter(loader)
+                batches = source
                 if skip:
                     batches = itertools.islice(batches, skip, None)
                     skip = 0
-                for raw in batches:
+                if not self.device_cached:
+                    batches = prefetch_to_device(
+                        map(self.host_cast, batches), self.device)
+                for batch in batches:
                     if step >= total:
                         break
-                    metrics = self.step_fn(self.state, self.to_device(raw),
+                    if (prof_range and not profiled
+                            and prof_range[0] <= step + 1 <= prof_range[1]):
+                        profiling.enter_context(
+                            trace(self.out_dir / "profile"))
+                        profiled = True
+                    metrics = self.step_fn(self.state, batch,
                                            step_generator(args.seed, step))
                     step += 1
+                    if prof_range and step == prof_range[1]:
+                        profiling.close()
+                        prof_range = None
                     window.append(metrics["loss"].detach())
                     if step % args.logging_steps == 0:
                         losses = [float(x) for x in window]   # synchronises
@@ -311,7 +386,10 @@ class Trainer:
                         break
                 else:
                     epoch += 1
+                if hasattr(source, "close"):
+                    source.close()          # stops a loader's producer
         finally:
+            profiling.close()               # a window past the last step
             for sig, handler in prev.items():
                 signal.signal(sig, handler)
         steps = self.checkpoint_steps(self.ckpt_dir)

@@ -1,8 +1,10 @@
-"""Dataclass-driven CLI argument parsing (HfArgumentParser-equivalent).
+"""Dataclass-driven CLI argument parsing (HfArgumentParser-equivalent),
+and the refusal of what the port does not have yet.
 
 Counterpart of `smb_vision_tpu/utils/args.py`: dataclass fields become
 --flags, and passing a single .json path as argv parses all dataclasses
-from that file."""
+from that file. `not_ported` builds the error of every refusal, naming
+its ROADMAP.md item by number and heading (`ROADMAP_ITEMS`)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,33 @@ import sys
 import typing
 from pathlib import Path
 from typing import List, Optional, Sequence, Type, Union, get_args, get_origin
+
+
+# the ROADMAP.md items a refusal names: (queue, item number, the item's
+# bold heading as ROADMAP.md writes it, without a closing full stop)
+ROADMAP_ITEMS = {
+    "lora": (1, 6, "LoRA"),
+    "adamw8bit": (1, 7, "8-bit optimizer state"),
+    "zoo": (1, 8, "Zoo"),
+    "multi-gpu": (1, 9, "Multi-GPU"),
+    "w8a8": (1, 10, "W8A8"),
+    "g1": (2, 1, "G1: head width 32 in K3 and K8"),
+}
+
+
+def roadmap_ref(item: str) -> str:
+    """`ROADMAP.md queue Q item N, Heading` for a key of ROADMAP_ITEMS."""
+    queue, n, heading = ROADMAP_ITEMS[item]
+    return f"ROADMAP.md queue {queue} item {n}, {heading}"
+
+
+def not_ported(what: str, item: str,
+               use: str = "the JAX package") -> NotImplementedError:
+    """The error for `what`, which the port does not have yet: it names
+    the ROADMAP.md item that brings it and what to use meanwhile."""
+    return NotImplementedError(
+        f"{what} is not ported to smb_vision_tpu_torch yet "
+        f"({roadmap_ref(item)}); use {use}")
 
 
 def _add_field(parser: argparse.ArgumentParser, f: dataclasses.Field,

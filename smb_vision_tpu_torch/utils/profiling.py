@@ -1,18 +1,48 @@
-"""Analytic FLOP counts for MFU accounting.
+"""Trace capture and analytic FLOP counts for MFU accounting.
 
-Counterpart of `smb_vision_tpu/utils/profiling.py` (`transformer_flops`,
-`mim_flops_per_sample`, `vjepa_flops_per_sample`), the fine-tuning count
+Counterpart of `smb_vision_tpu/utils/profiling.py` (`trace` on
+`torch.profiler`, `transformer_flops`, `mim_flops_per_sample`,
+`vjepa_flops_per_sample`), the fine-tuning count
 `classification_flops_per_sample`, and the dense bf16 peak of the card the
 Trainer divides by."""
 
 from __future__ import annotations
 
+import contextlib
+import os
+from pathlib import Path
 from typing import Optional
 
 # dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), matched
 # on the lower-cased device name in order: the PCIe and NVL parts of the
 # H100 are slower than the SXM part ("NVIDIA H100 80GB HBM3")
 _PEAK_BF16 = (("h100 pcie", 756e12), ("h100 nvl", 835e12), ("h100", 989e12))
+
+
+@contextlib.contextmanager
+def trace(log_dir, enabled: bool = True):
+    """Capture a `torch.profiler` trace of the block (the host, and the
+    CUDA devices when present) and write it as a Chrome trace,
+    `log_dir/trace_<pid>.json` (chrome://tracing, Perfetto, TensorBoard).
+    CUDA work is waited for before the trace stops."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(str(log_dir / f"trace_{os.getpid()}.json"))
 
 
 def transformer_flops(seq_len: int, hidden: int, layers: int,

@@ -96,7 +96,7 @@ def test_cuda_device_without_cuda_raises(workdir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline_parallel", "2"], "item 9, multi-GPU"),
+    (["--pipeline_parallel", "2"], "item 9, Multi-GPU"),
     (["--quant8"], "item 10, W8A8"),
 ])
 def test_unported_flags_raise(workdir, tmp_path, flags, item):
@@ -314,3 +314,81 @@ def test_run_name_is_in_every_metrics_record(tmp_path):
     rec_a = json.loads((tmp_path / "a" / "metrics.jsonl").read_text())
     rec_b = json.loads((tmp_path / "b" / "metrics.jsonl").read_text())
     assert rec_a["run_name"] == "r1" and "run_name" not in rec_b
+
+
+def _roadmap_headings():
+    """{(queue, item number): the item's bold heading} of ROADMAP.md."""
+    import re
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    out = {}
+    for part in re.split(r"^### Queue ", text, flags=re.M)[1:]:
+        queue = int(part.split(":", 1)[0])
+        for m in re.finditer(r"^(\d+)\. \*\*(.+?)\*\*", part, re.M):
+            out.setdefault((queue, int(m.group(1))), m.group(2))
+    return out
+
+
+def test_refusals_cite_roadmap_items():
+    """Every refusal of the port's CLIs and modules names an item of
+    ROADMAP.md by queue, number and the item's heading, in the heading's
+    words; so does every other citation of ROADMAP.md in the package."""
+    import re
+    from pathlib import Path
+
+    from smb_vision_tpu_torch.cli import run_classification, run_mim
+    from smb_vision_tpu_torch.cli import run_inference as tinfer
+    from smb_vision_tpu_torch.cli import run_vjepa
+    from smb_vision_tpu_torch.cli.serve import ServeArguments, make_server
+    from smb_vision_tpu_torch.models import convert
+    from smb_vision_tpu_torch.models.layers import Block
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.utils.args import ROADMAP_ITEMS
+
+    headings = _roadmap_headings()
+    for queue, n, heading in ROADMAP_ITEMS.values():
+        assert headings.get((queue, n), "").rstrip(".") == heading, (
+            queue, n, heading)
+    cite = re.compile(r"ROADMAP\.md queue (\d+) item (\d+), ([^)]+)\)")
+    refusals = [
+        lambda: run_mim.main(["--device", "cpu", "--pipeline_stages", "2"]),
+        lambda: run_mim.main(["--device", "cpu", "--multihost", "true"]),
+        lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
+                                "true"]),
+        lambda: run_vjepa.main(["--device", "cpu", "--optim", "adamw8bit"]),
+        lambda: run_classification.main(["--device", "cpu", "--lora_enable",
+                                         "true"]),
+        lambda: tinfer.main(["--device", "cpu", "--quant8"]),
+        lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2"]),
+        lambda: make_server(ServeArguments(encoder="merlin", port=0,
+                                           device="cpu")),
+        lambda: convert.convert_hf_auto({"vision_model.x": np.ones(1)}),
+        lambda: Block(8, 2, 16, quant8=True),
+        lambda: Block(8, 2, 16, sequence_parallel=True),
+        lambda: make_optimizer([], learning_rate=1e-3, total_steps=1,
+                               optim="adamw8bit"),
+    ]
+    seen = set()
+    for refuse in refusals:
+        with pytest.raises(NotImplementedError) as err:
+            refuse()
+        m = cite.search(str(err.value))
+        assert m, str(err.value)
+        key = (int(m.group(1)), int(m.group(2)))
+        assert headings[key].rstrip(".") == m.group(3), str(err.value)
+        seen.add(key)
+    assert seen == {(q, n) for q, n, h in ROADMAP_ITEMS.values()} - {(2, 1)}
+    # the citations in the package's sources and docstrings
+    root = Path(run_mim.__file__).resolve().parents[1]
+    for path in sorted(root.rglob("*.py")):
+        text = re.sub(r"\s*\n\s*(#\s*)?", " ", path.read_text())
+        for at in re.finditer(r"ROADMAP\.md", text):
+            rest = text[at.start():at.start() + 160]
+            if path.name == "args.py":
+                continue                 # roadmap_ref's own f-string
+            m = cite.match(rest)
+            assert m, (path.name, rest[:80])
+            key = (int(m.group(1)), int(m.group(2)))
+            assert headings[key].rstrip(".") == m.group(3), (path.name,
+                                                              rest[:80])

@@ -113,8 +113,18 @@ def test_ctdataset_python_backend(tmp_path):
     ex = ds[1]
     assert ex["image"].shape == (16, 1, 32, 32) and ex["label"] == 1
     assert 0.0 <= ex["image"].min() and ex["image"].max() <= 1.0
-    with pytest.raises(NotImplementedError, match="item 2"):
-        CTDataset(items=items, backend="native")
+    # the python backend asked for by name, beside the native one (the C++
+    # loader's float arithmetic: within 1e-4, the JAX package's tolerance)
+    py = CTDataset(spec, split="train", backend="python",
+                   pipeline=tprep.PreprocessConfig((1.5, 1.5, 3.0),
+                                                   (32, 32, 16)))
+    nat = CTDataset(items=items, backend="native",
+                    pipeline=tprep.PreprocessConfig((1.5, 1.5, 3.0),
+                                                    (32, 32, 16)))
+    assert (py.backend, nat.backend) == ("python", "native")
+    np.testing.assert_allclose(nat[1]["image"], py[1]["image"], atol=1e-4)
+    with pytest.raises(ValueError, match="backend"):
+        CTDataset(items=items, backend="cpp")
 
 
 def _cache_items(tmp_path, n, shape, seed, lo=-800, hi=900):

@@ -383,15 +383,47 @@ def test_run_classification_trains_resumes_and_evaluates(survival_data,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--lora_enable", "true"], "LoRA"),
-    (["--optim", "adamw8bit"], "8-bit"),
-    (["--cache_data_dir", "/nonexistent"], "cache"),
-    (["--input_dtype", "uint8"], "uint8"),
-    (["--multihost", "true"], "multi-GPU"),
+    (["--lora_enable", "true"], "item 6, LoRA"),
+    (["--optim", "adamw8bit"], "item 7, 8-bit optimizer state"),
+    (["--multihost", "true"], "item 9, Multi-GPU"),
 ])
 def test_run_classification_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_classification.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cache_data_dir", "CACHE", "--cache_dtype", "float16"],
+    ["--input_dtype", "uint8"]], ids=["cache", "uint8"])
+def test_run_classification_ported_flags_run(survival_data, tmp_path, flags):
+    """--cache_data_dir fills the cache with the volumes read, and
+    --input_dtype uint8 trains and evaluates (the C-index) on codes
+    decoded on the device, the labels and tabular column untouched."""
+    from smb_vision_tpu_torch.data import quantization
+
+    flags = [str(tmp_path / "cache") if f == "CACHE" else f for f in flags]
+    seen = []
+    real = quantization.dequantize_batch
+
+    def decode(batch, dtype=torch.float32):
+        seen.append((batch["pixel_values"].dtype, batch["duration"].dtype,
+                     batch["additional_features"].dtype))
+        return real(batch, dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(quantization, "dequantize_batch", decode)
+        res = run_classification.main(_cls_args(
+            survival_data, tmp_path / "out", "videomae", 2, tmp_path)
+            + flags)
+    assert res["train_steps"] == 2 and np.isfinite(res["eval_loss"])
+    assert 0.0 <= res["eval_c_index"] <= 1.0
+    if "--input_dtype" in flags:
+        assert seen and all(s == (torch.uint8, torch.float32, torch.float32)
+                            for s in seen)
+    else:
+        # the 3 evaluation volumes and the 2 that both training batches
+        # drew (batch 2 of 3 volumes, drop_last, the seeded shuffle)
+        assert len(list((tmp_path / "cache").glob("*.npy"))) == 5
 
 
 def test_run_classification_cuda_without_cuda_raises(monkeypatch):

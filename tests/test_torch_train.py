@@ -328,19 +328,65 @@ def test_run_mim_trains_resumes_and_exports_for_jax(volumes, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline_stages", "2"], "multi-GPU"),
-    (["--cache_data_dir", "/nonexistent"], "cache"),
-    (["--device_cache", "true"], "cache"),
-    (["--input_dtype", "uint8"], "uint8"),
-    (["--model_parallel", "2"], "multi-GPU"),
-    (["--sharding_policy", "tp"], "multi-GPU"),
-    (["--export_hf", "true"], "checkpoints"),
-    (["--profile_steps", "2-3"], "MIM training"),
-    (["--report_to", "wandb"], "MIM training"),
+    (["--pipeline_stages", "2"], "item 9, Multi-GPU"),
+    (["--model_parallel", "2"], "item 9, Multi-GPU"),
+    (["--sharding_policy", "tp"], "item 9, Multi-GPU"),
 ])
 def test_run_mim_unported_flags_raise(volumes, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_mim.main(_cli_args(volumes, tmp_path / "o", 1) + flags)
+
+
+@pytest.mark.parametrize("flag", ["cache_data_dir", "device_cache",
+                                  "input_dtype", "export_hf",
+                                  "profile_steps", "report_to"])
+def test_run_mim_ported_flags_run(volumes, tmp_path, flag):
+    """The flags the port once refused run a short training and leave
+    what they promise: a filled cache, a device cache read once, uint8
+    batches decoded to bfloat16 in the step, the HF export, a trace, and
+    metrics.jsonl under report_to wandb without the package."""
+    from smb_vision_tpu_torch.data import dataset, quantization
+
+    out, cache = tmp_path / "o", tmp_path / "cache"
+    value = {"cache_data_dir": str(cache), "device_cache": "true",
+             "input_dtype": "uint8", "export_hf": "true",
+             "profile_steps": "1-2", "report_to": "wandb"}[flag]
+    args = _cli_args(volumes, out, 4) + [f"--{flag}", value]
+    seen = []
+    loaders = []
+    real_decode = quantization.dequantize_batch
+    real_init = dataset.DeviceCachedBatchLoader.__init__
+
+    def decode(batch, dtype=torch.float32):
+        seen.append((batch["pixel_values"].dtype, dtype))
+        return real_decode(batch, dtype)
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        loaders.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(quantization, "dequantize_batch", decode)
+        mp.setattr(dataset.DeviceCachedBatchLoader, "__init__", init)
+        assert run_mim.main(args)["train_steps"] == 4
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs if "loss" in r] == [1, 2, 3, 4]
+    if flag == "cache_data_dir":
+        assert len(list(cache.glob("*.npy"))) == 4
+    elif flag == "device_cache":
+        # 3 training volumes (the 4th is the auto-split's eval): one host
+        # load each, all in epoch 0
+        assert loaders and loaders[0].host_loads == {0: 3, 1: 0}
+    elif flag == "input_dtype":
+        assert seen and all(s == (torch.uint8, torch.bfloat16)
+                            for s in seen)
+    elif flag == "export_hf":
+        hf = convert.read_safetensors(out / "hf_model.safetensors")
+        assert "videomae.encoder.layer.0.attention.attention.q_bias" in hf
+        assert "decoder.decoder_layers.0.output.dense.weight" in hf
+    elif flag == "profile_steps":
+        assert list((out / "profile").glob("trace_*.json"))
 
 
 def test_run_mim_cuda_without_cuda_raises(volumes, tmp_path, monkeypatch):

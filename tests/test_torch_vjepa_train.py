@@ -268,17 +268,63 @@ def test_run_vjepa_trains_resumes_and_exports_for_jax(volumes, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline_stages", "2"], "multi-GPU"),
-    (["--sequence_parallel", "true"], "multi-GPU"),
-    (["--cache_data_dir", "/nonexistent"], "cache"),
-    (["--device_cache", "true"], "cache"),
-    (["--optim", "adamw8bit"], "8-bit"),
-    (["--export_hf", "true"], "checkpoints"),
-    (["--model_name_or_path", "model.safetensors"], "checkpoints"),
+    (["--pipeline_stages", "2"], "item 9, Multi-GPU"),
+    (["--sequence_parallel", "true"], "item 9, Multi-GPU"),
+    (["--optim", "adamw8bit"], "item 7, 8-bit optimizer state"),
 ])
 def test_run_vjepa_unported_flags_raise(volumes, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_vjepa.main(_cli_args(volumes, tmp_path / "o", 1) + flags)
+
+
+@pytest.mark.parametrize("flag", ["cache_data_dir", "device_cache",
+                                  "export_hf", "model_name_or_path"])
+def test_run_vjepa_ported_flags_run(volumes, tmp_path, flag):
+    """The flags the port once refused: a filled cache, a device cache
+    read once, the HF export, and continued pretraining from an HF-layout
+    export, the whole student loaded and the EMA teacher its copy."""
+    from smb_vision_tpu_torch.models.configs import VJEPA2Config
+    from smb_vision_tpu_torch.models.vjepa import VJEPA2Model
+
+    out = tmp_path / "o"
+    args = _cli_args(volumes, out, 2)
+    starts = []
+    if flag == "model_name_or_path":
+        cfg = VJEPA2Config(**TINY)
+        src = VJEPA2Model(cfg).init_weights(
+            torch.Generator().manual_seed(5))
+        hf = convert.export_hf_vjepa2(src.state_dict())
+        convert.write_safetensors(tmp_path / "hf.safetensors", hf)
+        args += ["--model_name_or_path", str(tmp_path / "hf.safetensors")]
+        real = Trainer.__init__
+
+        def init(self, *a, **kw):
+            real(self, *a, **kw)
+            starts.append({k: (v.clone(), self.state["teacher"]
+                               .state_dict()[k].clone())
+                           for k, v in self.state["model"]
+                           .state_dict().items()})
+    else:
+        value = {"cache_data_dir": str(tmp_path / "cache"),
+                 "device_cache": "true", "export_hf": "true"}[flag]
+        args += [f"--{flag}", value]
+    with pytest.MonkeyPatch.context() as mp:
+        if flag == "model_name_or_path":
+            mp.setattr(Trainer, "__init__", init)
+        assert run_vjepa.main(args)["train_steps"] == 2
+    if flag == "cache_data_dir":
+        assert len(list((tmp_path / "cache").glob("*.npy"))) == 4
+    elif flag == "export_hf":
+        hf = convert.read_safetensors(out / "hf_model.safetensors")
+        assert "encoder.layer.0.attention.query.weight" in hf
+        assert "predictor.layer.0.mlp.fc2.weight" in hf
+    elif flag == "model_name_or_path":
+        (start,) = starts
+        want = src.state_dict()
+        assert set(start) == set(want)
+        for k, (student, teacher) in start.items():
+            assert torch.equal(student, want[k]), k
+            assert torch.equal(teacher, student), k
 
 
 def test_run_vjepa_cuda_without_cuda_raises(volumes, tmp_path, monkeypatch):
