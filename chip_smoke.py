@@ -3,8 +3,10 @@
 V-JEPA2-pretraining (both presets: the TPU-native heads and the reference
 heads, whose predictor has heads of 32) and fine-tuning paths, the
 training data path (the native CT loader, the device cache, uint8
-shipping) with the HF checkpoint round trip, and the opt-in int8 p v
-attention and attention-glue paths, once on one NVIDIA GPU.
+shipping) with the HF checkpoint round trip, the opt-in int8 p v
+attention and attention-glue paths, LoRA fine-tuning, the 8-bit AdamW and
+the encoder zoo (SigLIP, Merlin's I3D ResNet-152), once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER   # OTHER: e.g. the parent commit
@@ -152,7 +154,8 @@ Phases of the run without arguments, each of which fails the run
  13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
  13a. the same two phases for configs/vjepa_large_384.json: the parity
      step under pallas_i8bwd + pallas_int8 (K1 and K7 at d 32 in the
-     predictor); steps under "auto" (K1 + K4 at d 32 and 64) and under
+     predictor); steps (the encoder's depth cut from 24 to 12 layers,
+     REF_LAYERS) under "auto" (K1 + K4 at d 32 and 64) and under
      those impls at the largest batch up to the preset's 16 that fits,
      then "auto" at batch 4 beside the parent's routing (the predictor's
      attention on the plain path);
@@ -163,7 +166,39 @@ Phases of the run without arguments, each of which fails the run
      within 1e-2 and the kernels' mean loss distance from float32 within
      1.25 times theirs;
  15. fine-tune throughput: DINOv2-giant step ms, MFU, peak memory at
-     batch 2 and 4, K9's share of a profiled step.
+     batch 2 and 4, K9's share of a profiled step;
+ 10c. leg L: `run_classification --lora_enable --lora_rank 8 --optim
+     adamw8bit` on leg E's config and spec, 4 steps, checkpoints, eval,
+     resume to 6 (K1, K4, K5a, K5b in training, K6 in eval), beside a
+     straight 6-step run: the three files, the frozen base unchanged, the
+     resumed checkpoint equal to the straight one byte for byte (int8
+     codes and scales), `run_inference` from model_merged.safetensors;
+ 10d. leg O: `run_vjepa` with configs/vjepa_large_384_tpu.json plus the
+     two keys its _comment names ("optim": "adamw8bit",
+     "grad_accum_dtype": "bfloat16"), accumulation cut to 2: a 4-step run
+     stopped by a SIGTERM after step 2, resumed to 4, beside a straight
+     4-step run (the V-JEPA kernels; finite losses; the checkpoints equal
+     byte for byte);
+ 10e. leg Z, the encoder zoo: `run_encoders --encoder siglip` on a seeded
+     SigLIP-base-patch16-384 over 64 seeded PNGs at batch 32 (K1 and K2
+     12 launches a batch; within 3e-2 of the plain path), images/s at
+     batch 32; `run_encoders --encoder merlin` with a seeded I3D
+     ResNet-152 on the 4 volumes (the "merlin" pipeline, 224^2 x 160,
+     batch 2), uint8 pixels within 3e-2 of float, volumes/s at batch 2
+     and peak memory; `serve --encoder merlin`, a 2-volume request within
+     1e-5 of run_encoders' token means;
+ 13b. the V-JEPA step at batch 2 also under the 8-bit AdamW; at batch 2
+     the moments' bytes and the optimizer update's time and share of the
+     step under either;
+ 16. LoRA parity: the first DINOv2-giant step of a LoRA run (rank 8,
+     B = 0) at seeds 0, 1 and 2, and a step with B drawn at seeds 0 to 8,
+     through the kernels, their plain versions and float32 (C1's rule:
+     the mean loss gap within 1e-2; the adapters' gradient error within
+     1.25 times the plain path's at each seed at B = 0, on the mean of the
+     ratios with B drawn);
+ 17. LoRA throughput: DINOv2-giant, rank 8, 8-bit AdamW, batch 2 and 4
+     (and AdamW at batch 2): step ms, peak memory and the adapter count
+     beside the full fine-tune's.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1648,6 +1683,52 @@ def split_line(split: dict) -> str:
     return ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
 
 
+def leg_s_diagnosis(srv, paths: list, cfg: Path, emb_a: Path) -> str:
+    """Where leg S's vectors left leg A's: each volume's pixels from the
+    server's preprocessing against run_inference's dataset, and the
+    server's model on those pixels, in this thread and in a new one,
+    against leg A's tokens (max|d| / max|ref|; 0 means bit for bit)."""
+    import threading
+
+    import numpy as np
+
+    from smb_vision_tpu_torch.data.dataset import CTDataset
+    from smb_vision_tpu_torch.data.preprocess import (
+        CT_PIPELINES,
+        PreprocessConfig,
+    )
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+
+    svc = srv.service
+    mcfg = VideoMAEConfig.from_json(str(cfg))
+    pipe = PreprocessConfig(
+        target_spacing=CT_PIPELINES["smb-vision"].target_spacing,
+        target_size=(mcfg.image_size, mcfg.image_size, mcfg.num_frames))
+    ds = CTDataset(items=[{"image": p} for p in paths], pipeline=pipe,
+                   device=svc.encoder.device)
+    lines = [f"backends: server {svc.encoder.create_dataset([]).backend}, "
+             f"run_inference {ds.backend}"]
+    for i in range(0, len(paths), 2):
+        px = svc._preprocess(paths[i:i + 2], cache=False)[0]
+        ref_px = np.stack([ds[j]["image"] for j in range(i, i + 2)])
+        toks = {}
+
+        def fwd(key, px=px):
+            toks[key] = svc.encoder.generate_embedding(px)
+        fwd("this thread")
+        th = threading.Thread(target=fwd, args=("a new thread",))
+        th.start()
+        th.join()
+        for j in range(2):
+            ref = np.load(emb_a / f"{Path(paths[i + j]).stem}.npy")
+            d_px = float(np.abs(px[j] - ref_px[j]).max())
+            d_tok = {k: float(np.abs(t[j] - ref).max() / np.abs(ref).max())
+                     for k, t in toks.items()}
+            lines.append(f"{Path(paths[i + j]).name}: pixels max|d| "
+                         f"{d_px:.3e}, tokens vs leg A {d_tok}")
+    return "; ".join(lines)
+
+
 def run_leg_s(work: Path, vols: Path, cfg: Path, emb_a: Path) -> None:
     """Leg S, the serving slice: `cli/serve.make_server` with leg A's
     config and seed (its weights), batch 2, on the card, with a volume
@@ -1695,7 +1776,8 @@ def run_leg_s(work: Path, vols: Path, cfg: Path, emb_a: Path) -> None:
             f"{split_line(split_cold)}); vs leg A's token means max rel "
             f"{worst:.3e} (bound {TOL_SERVE}); launches {counts}")
         if not worst <= TOL_SERVE:
-            raise AssertionError(f"leg S vectors {worst} from leg A's")
+            raise AssertionError(f"leg S vectors {worst} from leg A's; "
+                                 f"{leg_s_diagnosis(srv, paths, cfg, emb_a)}")
 
         status, raw, wall_raw, split = http_call(
             srv, "POST", "/embed?pool=mean", raw=Path(paths[0]).read_bytes())
@@ -1992,9 +2074,9 @@ def kernel_split(label: str, fn, calls: int = 10) -> None:
 
 def profile_call(fn, label: str, top: int = 8, watch: tuple = ()) -> None:
     """fn() once under torch.profiler: device busy and idle share of the
-    wall time, and the kernels that take the most device time; with watch,
-    also the share and launches of the kernels whose names hold one of its
-    strings."""
+    wall time, the kernels that take the most device time and the
+    optimizer step's range on the device; with watch, also the share and
+    launches of the kernels whose names hold one of its strings."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2005,13 +2087,17 @@ def profile_call(fn, label: str, top: int = 8, watch: tuple = ()) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, optim = [], []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        # a user annotation (Optimizer.step) spans kernels counted apart
+        # a user annotation (Optimizer.step) spans kernels counted apart;
+        # the optimizer's range on the device is read from it
         if getattr(ev, "is_user_annotation", False) or \
                 ev.key.startswith("Optimizer."):
+            if ev.key.startswith("Optimizer.step"):
+                optim.append((getattr(ev, "device_time_total", getattr(
+                    ev, "cuda_time_total", 0)) / 1e3, ev.key))
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
@@ -2027,6 +2113,9 @@ def profile_call(fn, label: str, top: int = 8, watch: tuple = ()) -> None:
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% of busy  x{count:<4} "
             f"{key[:100]}")
+    for ms, key in optim:
+        log(f"  {key}: its range on the device {ms:.2f} ms = "
+            f"{100 * ms / wall:.1f}% of the wall")
     if watch:
         hit = [r for r in rows if any(w in r[2] for w in watch)]
         ms = sum(r[0] for r in hit)
@@ -2456,11 +2545,11 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
 
 
 def time_train_steps(label: str, card: str, bs: int, flops: float, step,
-                     iters: int, watch: tuple = ()) -> None:
+                     iters: int, watch: tuple = ()) -> tuple:
     """step(0) as warm-up, then CUDA events over step(1) .. step(iters):
     ms a step, MFU against the card's dense bf16 peak (analytic FLOPs a
     sample, no remat recompute) and peak memory; then step(0) once under
-    the profiler."""
+    the profiler. Returns (ms a step, peak GiB)."""
     import torch
 
     from smb_vision_tpu_torch.utils.profiling import device_peak_flops
@@ -2486,11 +2575,13 @@ def time_train_steps(label: str, card: str, bs: int, flops: float, step,
         f"recompute), peak {mem:.1f} GiB, on {card}")
     profile_call(lambda: step(0), f"{label} train step batch {bs}", top=10,
                  watch=watch)
+    return ms, mem
 
 
-def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
+def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl,
+                   optim: str = "adamw"):
     """make_vjepa_workload with the preset's optimizer (no warm-up, so the
-    first update moves the weights) and EMA momentum."""
+    first update moves the weights; AdamW or `optim`) and EMA momentum."""
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.vjepa import make_vjepa_workload
 
@@ -2498,7 +2589,8 @@ def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl):
         cfg, tx=functools.partial(
             make_optimizer, learning_rate=preset["learning_rate"],
             total_steps=100, weight_decay=preset["weight_decay"],
-            schedule=preset["lr_scheduler_type"], min_lr=preset["min_lr"]),
+            schedule=preset["lr_scheduler_type"], min_lr=preset["min_lr"],
+            optim=optim),
         ema_momentum=preset["ema_momentum"],
         teacher_attn_impl=teacher_attn_impl, device=dev)
 
@@ -2913,7 +3005,11 @@ def run_leg_i(work: Path, vols: Path, table: dict) -> None:
 
 
 def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
-    """V-JEPA steps of the preset at batch 1 and 2 (no accumulation)."""
+    """V-JEPA steps of the preset at batch 1 and 2 (no accumulation), and
+    at batch 2 under the 8-bit AdamW: at batch 2 also the moments' bytes
+    and the optimizer update's own time (CUDA events over its step() on
+    the last step's gradients, and the host's time to issue it) and share
+    of the step."""
     import torch
 
     from smb_vision_tpu_torch.train.trainer import step_generator
@@ -2922,9 +3018,9 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
     dev = torch.device("cuda")
     cfg, preset = vjepa_config()
     flops = vjepa_flops_per_sample(cfg)
-    for bs in (1, 2):
-        _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev,
-                                                preset["teacher_attn_impl"])
+    for bs, optim in ((1, "adamw"), (2, "adamw"), (2, "adamw8bit")):
+        _, init_fn, step_fn, _ = vjepa_workload(
+            cfg, preset, dev, preset["teacher_attn_impl"], optim=optim)
         state = init_fn(0)
         gen = torch.Generator(device=dev).manual_seed(5)
         pxs = [torch.rand((bs, cfg.frames_per_clip, 1, cfg.crop_size,
@@ -2935,7 +3031,21 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
             return step_fn(state, {"pixel_values": pxs[i]},
                            step_generator(0, i))
 
-        time_train_steps("V-JEPA", card, bs, flops, step, iters)
+        ms, mem = time_train_steps(f"V-JEPA {optim}", card, bs, flops, step,
+                                   iters)
+        if bs == 2:
+            opt = state["optimizer"].opt
+            opt_ms = cuda_ms(opt.step, iters=3, warmup=1)
+            host = host_ms(opt.step, calls=3)
+            moments = sum(t.numel() * t.element_size()
+                          for s in opt.state.values()
+                          for k, t in s.items() if k != "step")
+            log(f"V-JEPA {optim} batch {bs}: step {ms:.1f} ms, peak "
+                f"{mem:.2f} GiB; the moments {moments / 2**30:.3f} GiB; the "
+                f"optimizer update {opt_ms:.1f} ms on the device's clock "
+                f"({host:.1f} ms to issue) = {100 * opt_ms / ms:.1f}% of the "
+                f"step, on {card}")
+            del opt
         del init_fn, step_fn, state, pxs, step
         torch.cuda.empty_cache()
 
@@ -2963,6 +3073,9 @@ def parent_routing():
 REF_BATCHES = (16, 8, 4, 2, 1)
 REF_SAME_BATCH = 4
 REF_AGAINST_BATCH = 2   # the reference-head step in `phase_against`
+REF_LAYERS = 12         # the reference-head throughput phase's encoder
+#                         depth cut (24 in the preset; the predictor keeps
+#                         its 12), to keep the script inside its time limit
 
 
 def vjepa_params(cfg) -> int:
@@ -2978,7 +3091,8 @@ def vjepa_params(cfg) -> int:
 
 def phase_vjepa_ref_throughput(card: str, table: dict,
                                iters: int = 2) -> None:
-    """V-JEPA steps of configs/vjepa_large_384.json (no accumulation): under
+    """V-JEPA steps of configs/vjepa_large_384.json (no accumulation; the
+    encoder cut to REF_LAYERS layers): under
     "auto" (K1 + K4 at d 64 and d 32) and under LEG_I_IMPLS (K1 + K7, the
     teacher on K3) at the largest batch of REF_BATCHES that fits, then at
     REF_SAME_BATCH under "auto" and under `parent_routing`; step ms, MFU
@@ -2993,8 +3107,11 @@ def phase_vjepa_ref_throughput(card: str, table: dict,
     from smb_vision_tpu_torch.utils.profiling import vjepa_flops_per_sample
 
     dev = torch.device("cuda")
-    ref_cfg, preset = vjepa_ref_config()
-    tpu_cfg, _ = vjepa_config()
+    ref_cfg, preset = vjepa_ref_config(num_hidden_layers=REF_LAYERS)
+    tpu_cfg, _ = vjepa_config(num_hidden_layers=REF_LAYERS)
+    log(f"V-JEPA reference heads, throughput: the encoder's depth cut from "
+        f"{vjepa_ref_config()[0].num_hidden_layers} to {REF_LAYERS} layers "
+        f"(the predictor keeps {ref_cfg.pred_num_hidden_layers})")
     flops = vjepa_flops_per_sample(ref_cfg)
     got = {name: (vjepa_flops_per_sample(c), vjepa_params(c))
            for name, c in (("reference heads", ref_cfg),
@@ -3012,7 +3129,7 @@ def phase_vjepa_ref_throughput(card: str, table: dict,
     def run(route: str, bs: int) -> bool:
         """Time `route` at batch bs; False if it does not fit the card."""
         kw, teacher, routing = routes[route]
-        cfg, _ = vjepa_ref_config(**kw)
+        cfg, _ = vjepa_ref_config(num_hidden_layers=REF_LAYERS, **kw)
         _, init_fn, step_fn, _ = vjepa_workload(cfg, preset, dev, teacher)
         state = init_fn(0)
 
@@ -3536,11 +3653,11 @@ def phase_dinov2_parity() -> None:
         raise AssertionError("DINOv2 parity fails over the seeds")
 
 
-def phase_finetune_throughput(card: str, iters: int = 3) -> None:
+def phase_finetune_throughput(card: str, iters: int = 3) -> dict:
     """DINOv2-giant fine-tune steps (two-tier AdamW update included) at
     batch 2 and 4: ms a step, MFU on the analytic count with SwiGLU's
     three products, peak memory, and one step under the profiler with
-    K9's share."""
+    K9's share. Returns {batch: (ms, peak GiB)}."""
     import torch
 
     from smb_vision_tpu_torch.train.classification import (
@@ -3555,6 +3672,7 @@ def phase_finetune_throughput(card: str, iters: int = 3) -> None:
     dev = torch.device("cuda")
     cfg = giant_config(problem_type="single_label_classification")
     flops = classification_flops_per_sample(cfg)
+    rows = {}
     for bs in (2, 4):
         _, init_fn, step_fn, _ = make_classification_workload(
             cfg, task_type="classification", device=dev,
@@ -3571,10 +3689,11 @@ def phase_finetune_throughput(card: str, iters: int = 3) -> None:
         step(0)
         log(f"DINOv2-giant batch {bs}: launches of one step "
             f"{ {n: w.launches for n, w in ws.items() if w.launches} }")
-        time_train_steps("DINOv2-giant fine-tune", card, bs, flops, step,
-                         iters, watch=K9_KERNELS)
+        rows[bs] = time_train_steps("DINOv2-giant fine-tune", card, bs,
+                                    flops, step, iters, watch=K9_KERNELS)
         del init_fn, step_fn, state, batches, step
         torch.cuda.empty_cache()
+    return rows
 
 
 def write_labelled_spec(work: Path, vols: Path) -> Path:
@@ -3590,12 +3709,13 @@ def write_labelled_spec(work: Path, vols: Path) -> Path:
 
 def run_finetune_leg(work: Path, spec: Path, leg: str, cfg_path: Path,
                      task: str, extra: dict, kernels: tuple,
-                     metric_keys: tuple) -> dict:
+                     metric_keys: tuple, after_first=None) -> dict:
     """run_classification with the config file cfg_path on the labelled
     volumes, the two-tier recipe: 4 steps, a checkpoint every 2, eval;
-    then the same to 6 steps, which resumes at 4. Asserts the logs, the
-    checkpoints, the eval metrics, the export and that the kernels
-    launched in the first run; returns that run's launch counts."""
+    then the same to 6 steps, which resumes at 4 (after_first() runs
+    between the two). Asserts the logs, the checkpoints, the eval metrics,
+    the export and that the kernels launched in the first run; returns
+    that run's launch counts."""
     import numpy as np
 
     from smb_vision_tpu_torch.cli.run_classification import main as run_cls
@@ -3621,6 +3741,8 @@ def run_finetune_leg(work: Path, spec: Path, leg: str, cfg_path: Path,
     ws = reset_launches()
     res4, wall4 = run(4)
     counts = {name: w.launches for name, w in ws.items()}
+    if after_first is not None:
+        after_first()
     res6, wall6 = run(6)
     log(f"leg {leg}: {res4} in {wall4:.1f} s, resumed {res6} in "
         f"{wall6:.1f} s (preprocess + train + eval + save); launches of the "
@@ -3696,6 +3818,662 @@ def run_leg_f(work: Path, spec: Path, table: dict) -> None:
         ("flash_fwd", "flash_bwd", "swiglu_block_fwd"),
         ("eval_accuracy", "eval_roc_auc"))
     table["swiglu_block_fwd"]["launches"] = counts["swiglu_block_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# LoRA, the 8-bit AdamW and the encoder zoo (PR 15's slice)
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8
+LORA_B_STD = 2e-3       # B's draw in the LoRA parity's second step
+# the seeds of the LoRA parity's step with B drawn: over seeds 0-2 alone
+# its mean ratio read 1.342 (1.08, 1.64, 1.31), over 0-8 1.08, the
+# kernels nearer float32 than the plain path at most of seeds 3-8
+# (PERF.md §6, PR 15): one bf16 step's chaos needs more seeds to average
+LORA_DRAWN_SEEDS = tuple(range(9))
+LEG_L_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
+                 "mlp_fwd")
+SIGLIP_BATCH = 32
+SIGLIP_IMAGES = 64      # two batches of 32 through run_encoders
+SIGLIP_N = 576          # 384/16 squared
+MERLIN_STAGES = (3, 8, 36, 3)     # ResNet-152
+MERLIN_BATCH = 2
+ZOO_KERNELS = ("flash_fwd", "mlp_block_fwd")
+
+
+def ckpt_state(path: Path) -> dict:
+    """A checkpoint's state.pt, its tensors memory-mapped."""
+    import torch
+
+    return torch.load(path / "state.pt", map_location="cpu",
+                      weights_only=True, mmap=True)
+
+
+def equal_checkpoints(what: str, a: dict, b: dict,
+                      parts=("model", "teacher")) -> int:
+    """Assert two checkpoints hold the same model (and teacher) tensors
+    and the same optimizer moments, byte for byte; returns the number of
+    tensors compared."""
+    import torch
+
+    n = 0
+    for part in parts:
+        if part not in a:
+            continue
+        if a[part].keys() != b[part].keys():
+            raise AssertionError(f"{what}: {part} names differ")
+        for k in a[part]:
+            if not torch.equal(a[part][k], b[part][k]):
+                raise AssertionError(f"{what}: {part} tensor {k} differs")
+            n += 1
+    sa, sb = a["optimizer"]["adamw"]["state"], b["optimizer"]["adamw"]["state"]
+    if sa.keys() != sb.keys() or not sa:
+        raise AssertionError(f"{what}: optimizer states differ in keys")
+    for i in sa:
+        for k in sa[i]:
+            if not torch.equal(sa[i][k], sb[i][k]):
+                raise AssertionError(f"{what}: optimizer {i}.{k} differs")
+            n += 1
+    return n
+
+
+@contextlib.contextmanager
+def sigterm_at(step: int):
+    """Inside the block the Trainer gets a SIGTERM as global step `step`
+    (0-based) starts: it finishes that step, checkpoints it and stops."""
+    import signal
+
+    from smb_vision_tpu_torch.train import trainer as T
+
+    inner = T.step_generator
+    sent = []
+
+    def gen(seed, s):
+        if s == step and not sent:
+            sent.append(s)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return inner(seed, s)
+
+    T.step_generator = gen
+    try:
+        yield sent
+    finally:
+        T.step_generator = inner
+
+
+def run_leg_l(work: Path, vols: Path, spec: Path) -> None:
+    """Leg L, LoRA fine-tuning on the VideoMAE route: leg E's config and
+    spec with --lora_enable --lora_rank 8 --optim adamw8bit (a constant
+    rate after the warm-up step, so a run's length leaves its schedule
+    alone): 4 steps, a checkpoint every 2, eval, then a resume to 6
+    (`run_finetune_leg`: K1, K4, K5a and K5b in training, K6 in eval);
+    beside it a straight 6-step run. Asserts the three files, the frozen
+    base (model.safetensors the same bytes after 4 and 6 steps; only
+    adapted kernels and the head differ in model_merged.safetensors), the
+    resumed checkpoint equal to the straight one byte for byte (the int8
+    codes and scales), and run_inference from model_merged.safetensors."""
+    import numpy as np
+
+    from smb_vision_tpu_torch.cli.run_classification import main as run_cls
+    from smb_vision_tpu_torch.cli.run_inference import main as run_inference
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+
+    cfg_path = work / "leg_e_config.json"
+    extra = {"additional_feature_columns": ["age"], "lora_enable": True,
+             "lora_rank": LORA_RANK, "optim": "adamw8bit",
+             "lr_scheduler_type": "constant"}
+    out = work / "leg_L"
+    # the base after 4 steps, read before the resume rewrites the file
+    base4 = {}
+
+    def keep_base():
+        base4.update(read_safetensors(out / "model.safetensors"))
+
+    run_finetune_leg(work, spec, "L", cfg_path, "survival", extra,
+                     LEG_L_KERNELS, ("eval_c_index",), after_first=keep_base)
+    for name in ("lora.safetensors", "model_merged.safetensors"):
+        if not (out / name).exists():
+            raise AssertionError(f"leg L: no {name}")
+    base = read_safetensors(out / "model.safetensors")
+    merged = read_safetensors(out / "model_merged.safetensors")
+    lora = read_safetensors(out / "lora.safetensors")
+    if base.keys() != base4.keys() or any(
+            not np.array_equal(base[k], base4[k]) for k in base):
+        raise AssertionError("leg L: the frozen base changed between the "
+                             "4-step and the 6-step run")
+    moved = sorted(k for k in base if not np.array_equal(base[k], merged[k]))
+    adapted = {k[len("adapters."):-len(".a")].replace("/", ".")
+               for k in lora if k.startswith("adapters.") and k.endswith(".a")}
+    if not moved or any(k not in adapted and "classifier" not in k
+                        and "fc_norm" not in k for k in moved):
+        raise AssertionError(f"leg L: tensors moved outside the adapters "
+                             f"and the head: {moved[:8]}")
+    n_adapter = sum(lora[k].size for k in lora if k.startswith("adapters."))
+    straight = work / "leg_L_straight"
+    path = work / "leg_L_straight.json"
+    path.write_text(json.dumps(dict(
+        train_data_path=str(spec), val_data_path=str(spec),
+        output_dir=str(straight), config_name_or_path=str(cfg_path),
+        task_type="survival", learning_rate=1e-4, vision_lr=VISION_LR,
+        merger_lr=MERGER_LR, warmup_ratio=0.1,
+        per_device_train_batch_size=2, per_device_eval_batch_size=3,
+        num_train_steps=6, save_steps=2, logging_steps=1, do_eval=False,
+        num_workers=2, **extra)))
+    t0 = time.perf_counter()
+    run_cls([str(path)])
+    wall = time.perf_counter() - t0
+    n = equal_checkpoints("leg L resume", ckpt_state(out / "checkpoints/6"),
+                          ckpt_state(straight / "checkpoints/6"))
+    shutil.rmtree(straight)
+    emb = work / "emb_L"
+    ws = reset_launches()
+    stats = run_inference([
+        "--data_dir", str(vols), "--output_dir",
+        str(emb), "--config_path", str(cfg_path), "--model_name_or_path",
+        str(out / "model_merged.safetensors"), "--batch_size", "2",
+        "--device", "cuda", "--num_workers", "2"])
+    icounts = {k: w.launches for k, w in ws.items() if w.launches}
+    embs = [np.load(f) for f in sorted(emb.glob("*.npy"))]
+    if stats != {"embedded": N_VOLUMES, "failed": 0, "skipped": 0} or \
+            not all(np.isfinite(e).all() for e in embs):
+        raise AssertionError(f"leg L: run_inference from the merged "
+                             f"export: {stats}")
+    log(f"leg L: LoRA rank {LORA_RANK}, {n_adapter} adapter parameters; "
+        f"model.safetensors (the frozen base) equal after 4 and 6 steps; "
+        f"{len(moved)} tensors merged or trained in model_merged."
+        f"safetensors; the resumed checkpoint equals a straight 6-step "
+        f"run's byte for byte ({n} tensors, int8 codes and scales "
+        f"included; the straight run {wall:.1f} s); run_inference from "
+        f"model_merged.safetensors {stats}, launches {icounts}")
+    shutil.rmtree(out)
+    shutil.rmtree(emb)
+
+
+def lora_parity(seed: int, zero: bool = True) -> dict:
+    """LoRA steps on DINOv2-giant (forward and backward, remat, no
+    update) at batch 2, rank 8 on the default targets, the same weights,
+    adapters and batch through the kernels, through their plain versions
+    under the same impl names and in float32: with `zero`, the first step
+    of a run (the adapters as `init_lora` makes them, A drawn from the
+    seed, B = 0); then, on the same model, B drawn from N(0, LORA_B_STD)
+    (the same draw on every path), so that the merge changes every
+    adapted weight and A gets a gradient. K9 launches 40 times a forward
+    (80 with remat) and the plain path launches none; at B = 0 every A
+    gets a zero gradient and every B a finite one. Returns the losses and
+    the adapters' gradients' errors against float32 of each step ("B =
+    0": B's; "B drawn": A's and B's)."""
+    import torch
+
+    from smb_vision_tpu_torch.models.dinov2 import (
+        Dinov2ForImageClassification,
+    )
+    from smb_vision_tpu_torch.train import lora
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    batch = dinov2_batch(2, 6 + seed, dev)
+    with torch.device(dev):
+        init = Dinov2ForImageClassification(giant_config()).init_weights(
+            torch.Generator(device=dev).manual_seed(seed)).state_dict()
+
+    def step(**kw):
+        with torch.device(dev):
+            model = Dinov2ForImageClassification(giant_config(**kw))
+        model.load_state_dict(init)
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        lora.init_lora(model, gen, rank=LORA_RANK)
+        n_adapters = lora.lora_size(model)
+        model.train()
+        deltas = [d for _, (_, d) in sorted(lora.adapted(model).items())]
+        first = None
+        if zero:
+            loss = model(batch["pixel_values"],
+                         labels=batch["labels"])["loss"]
+            loss.backward()
+            if any(bool(d.a.grad.any()) for d in deltas):
+                raise AssertionError(f"LoRA step {kw}: an A got a gradient "
+                                     f"with B = 0")
+            first = (float(loss.detach()), torch.cat(
+                [d.b.grad.float().flatten() for d in deltas]))
+            model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for d in deltas:
+                d.b.normal_(0.0, LORA_B_STD, generator=gen)
+        drawn = model(batch["pixel_values"], labels=batch["labels"])["loss"]
+        drawn.backward()
+        flat_ab = torch.cat([t.grad.float().flatten() for d in deltas
+                             for t in (d.a, d.b)])
+        # a parametrized module sits in reference cycles: collect it, so
+        # the next path's memory starts clean
+        del model, deltas
+        gc.collect()
+        torch.cuda.empty_cache()
+        return first, (float(drawn.detach()), flat_ab), n_adapters
+
+    ws = reset_launches()
+    k_zero, drawn, n_adapters = step()
+    counts = {name: w.launches for name, w in ws.items()}
+    layers = GIANT["num_hidden_layers"]
+    if counts["swiglu_block_fwd"] != (4 if zero else 2) * layers or not (
+            counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
+        raise AssertionError(f"LoRA steps: launches {counts}")
+    ws = reset_launches()
+    with plain_kernels():
+        p_zero, p_drawn, _ = step()
+    if any(w.launches for w in ws.values()):
+        raise AssertionError("the plain LoRA path launched a kernel")
+    f_zero, f_drawn, _ = step(attn_impl="xla", mlp_impl="xla",
+                              dtype="float32")
+    out = {}
+    for what, (loss, grad), (p_loss, p_grad), (f_loss, f_grad) in (
+            (("B = 0", k_zero, p_zero, f_zero),) if zero else ()) + (
+            ("B drawn", drawn, p_drawn, f_drawn),):
+        if not (bool(grad.isfinite().all()) and math.isfinite(loss)):
+            raise AssertionError(f"the LoRA kernel path's loss or gradient "
+                                 f"is not finite ({what})")
+        norm = float(f_grad.norm())
+        got = out[what] = {
+            "loss": loss, "plain loss": p_loss, "f32 loss": f_loss,
+            "rel loss": abs(loss - p_loss) / abs(p_loss),
+            "grad err": float((grad - f_grad).norm()) / norm,
+            "plain grad err": float((p_grad - f_grad).norm()) / norm}
+        log(f"LoRA parity, seed {seed}, {what}: DINOv2-giant, rank "
+            f"{LORA_RANK}, {n_adapters} adapter parameters, batch 2 (N "
+            f"{DINO_N}): loss kernels {loss:.6f}, plain {p_loss:.6f}, f32 "
+            f"{f_loss:.6f} (rel {got['rel loss']:.3e}); the adapters' "
+            f"gradient error vs f32: kernels {got['grad err']:.3e}, plain "
+            f"{got['plain grad err']:.3e} (ratio "
+            f"{got['grad err'] / got['plain grad err']:.3f})")
+    log(f"LoRA parity, seed {seed}: launches {counts}")
+    return out
+
+
+def phase_lora_parity() -> None:
+    """`lora_parity` under C1's rule. At B = 0, the state every LoRA run
+    starts from, at seeds 0, 1 and 2: the mean loss gap to the plain
+    versions within TOL_TRAIN_LOSS, and at each seed B's gradient error
+    against float32 within TOL_TRAIN_GRAD_VS_F32 times the plain
+    versions'. With B drawn, at LORA_DRAWN_SEEDS: the mean loss gap
+    within TOL_TRAIN_LOSS, and the mean over the seeds of the gradient
+    errors' ratio (kernels to plain) within TOL_TRAIN_GRAD_VS_F32: one
+    bf16 step at random weights is chaotic (C1), more so with every
+    adapted weight changed, so the gradient rule is decided on the mean,
+    as C1 decides the loss."""
+    seeds = sorted(set(DINO_PARITY_SEEDS) | set(LORA_DRAWN_SEEDS))
+    got = [lora_parity(seed, zero=seed in DINO_PARITY_SEEDS)
+           for seed in seeds]
+    ok = True
+    for what in ("B = 0", "B drawn"):
+        rows = [g[what] for g in got if what in g]
+        seeds = DINO_PARITY_SEEDS if what == "B = 0" else LORA_DRAWN_SEEDS
+        gap = sum(r["rel loss"] for r in rows) / len(rows)
+        ratios = [r["grad err"] / r["plain grad err"] for r in rows]
+        if what == "B = 0":
+            grads_ok = max(ratios) <= TOL_TRAIN_GRAD_VS_F32
+            rule = "at every seed"
+        else:
+            grads_ok = sum(ratios) / len(ratios) <= TOL_TRAIN_GRAD_VS_F32
+            rule = f"on the mean {sum(ratios) / len(ratios):.3f}"
+        ok &= gap <= TOL_TRAIN_LOSS and grads_ok
+        log(f"LoRA parity verdict, {what}, over seeds {seeds}: "
+            f"mean loss gap {gap:.3e} (bound {TOL_TRAIN_LOSS}); gradient "
+            f"error ratios {[round(r, 3) for r in ratios]}, the rule "
+            f"(bound {TOL_TRAIN_GRAD_VS_F32}) {rule}: {grads_ok}")
+    log(f"LoRA parity: {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("LoRA parity fails over the seeds")
+
+
+def phase_lora_throughput(card: str, full: dict, iters: int = 3) -> None:
+    """DINOv2-giant fine-tune steps with LoRA rank 8 on the default
+    targets and the 8-bit AdamW (two tiers) at batch 2 and 4, and with
+    AdamW at batch 2 (the 8-bit update's cost apart), beside the full
+    fine-tune rows of `phase_finetune_throughput` (`full`: {batch: (ms,
+    peak GiB)}): ms a step, peak memory and the adapter count."""
+    import torch
+
+    from smb_vision_tpu_torch.train.lora import (
+        lora_size,
+        make_lora_classification_workload,
+    )
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import (
+        classification_flops_per_sample,
+    )
+
+    dev = torch.device("cuda")
+    cfg = giant_config(problem_type="single_label_classification")
+    flops = classification_flops_per_sample(cfg)
+    for bs, optim in ((2, "adamw8bit"), (4, "adamw8bit"), (2, "adamw")):
+        # the models before this one (parametrized: in reference cycles)
+        # leave the card before the peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, init_fn, step_fn, eval_fn = make_lora_classification_workload(
+            cfg, task_type="classification", device=dev, rank=LORA_RANK,
+            tx=functools.partial(make_optimizer, learning_rate=1e-4,
+                                 total_steps=100, vision_lr=VISION_LR,
+                                 merger_lr=MERGER_LR, optim=optim))
+        state = init_fn(0)
+        batches = [dinov2_batch(bs, 10 + i, dev) for i in range(iters + 1)]
+
+        def step(i):
+            return step_fn(state, batches[i], step_generator(0, i))
+
+        ms, mem = time_train_steps(
+            f"DINOv2-giant LoRA r{LORA_RANK} {optim}", card, bs, flops,
+            step, iters, watch=K9_KERNELS)
+        fms, fmem = full[bs]
+        log(f"DINOv2-giant batch {bs}: LoRA {optim} ({lora_size(model)} "
+            f"adapter parameters) {ms:.1f} ms, peak {mem:.2f} GiB; full "
+            f"fine-tune {fms:.1f} ms, peak {fmem:.2f} GiB: "
+            f"{fmem - mem:.2f} GiB less "
+            f"(the gradients and AdamW moments of 1.1 B float32 "
+            f"parameters are ~13 GiB)")
+        del model, init_fn, step_fn, eval_fn, state, batches, step
+        torch.cuda.empty_cache()
+
+
+def run_leg_o(work: Path, vols: Path) -> None:
+    """Leg O, the 8-bit optimizer on the V-JEPA preset's single-chip
+    recipe: run_vjepa with configs/vjepa_large_384_tpu.json and the two
+    keys its _comment names ("optim": "adamw8bit", "grad_accum_dtype":
+    "bfloat16"), accumulation cut to LEG_D_ACCUM. A 4-step run stopped by
+    a SIGTERM after step 2 (`sigterm_at`), then resumed to 4, beside a
+    straight 4-step run: the V-JEPA kernels launch (check_vjepa_launches),
+    the losses are finite and the resumed checkpoint (student, EMA
+    teacher, int8 moments) equals the straight one byte for byte."""
+    from smb_vision_tpu_torch.cli.run_vjepa import main as run_vjepa
+
+    nii = [{"image": str(p)} for p in sorted(vols.glob("*.nii"))]
+    spec = work / "vjepa_data_O.json"
+    spec.write_text(json.dumps({"train": nii[:3], "validation": nii[3:]}))
+    preset = json.loads(VJEPA_PRESET.read_text())
+    keys = {"optim": "adamw8bit", "grad_accum_dtype": "bfloat16"}
+    log(f"leg O: {VJEPA_PRESET.name} with {keys} (its _comment's single-"
+        f"chip recipe), gradient_accumulation_steps cut from "
+        f"{preset['gradient_accumulation_steps']} to {LEG_D_ACCUM}")
+
+    def run(out, steps=4):
+        path = work / f"vjepa_O_{out.name}.json"
+        path.write_text(json.dumps(dict(
+            preset, **keys, gradient_accumulation_steps=LEG_D_ACCUM,
+            data_path=str(spec), output_dir=str(out), num_train_steps=steps,
+            save_steps=2, save_total_limit=1, logging_steps=1,
+            do_eval=False, num_workers=2)))
+        t0 = time.perf_counter()
+        res = run_vjepa([str(path)])
+        return res, time.perf_counter() - t0
+
+    out, straight = work / "leg_O", work / "leg_O_straight"
+    ws = reset_launches()
+    with sigterm_at(1) as sent:
+        res1, wall1 = run(out)
+    counts = {name: w.launches for name, w in ws.items()}
+    if not sent or res1["train_steps"] != 2:
+        raise AssertionError(f"leg O: the SIGTERM run stopped at {res1}")
+    check_vjepa_launches("leg O", counts)
+    res2, wall2 = run(out)
+    res3, wall3 = run(straight)
+    recs = [json.loads(line) for line in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"leg O losses {losses}")
+    a, b = ckpt_state(out / "checkpoints/4"), ckpt_state(
+        straight / "checkpoints/4")
+    codes = [s["mu"] for s in a["optimizer"]["adamw"]["state"].values()]
+    n = equal_checkpoints("leg O resume", a, b)
+    int8_bytes = sum(c.numel() for c in codes) * 2
+    log(f"leg O: stopped by SIGTERM at {res1['train_steps']} in {wall1:.1f} "
+        f"s, resumed to {res2['train_steps']} in {wall2:.1f} s, straight "
+        f"{res3['train_steps']} in {wall3:.1f} s; losses {losses}; the "
+        f"resumed checkpoint equals the straight one byte for byte ({n} "
+        f"tensors: student, teacher, int8 codes and scales); moments "
+        f"{int8_bytes / 2**30:.3f} GiB of int8 codes; launches {counts}")
+    for r in recs:
+        if "loss" in r:
+            log(f"  step {r['step']}: loss {r['loss']:.6f}, "
+                f"{r['step_time_ms']:.1f} ms")
+    del a, b
+    shutil.rmtree(out)
+    shutil.rmtree(straight)
+
+
+def siglip_base(root: Path, seed: int = 0) -> Path:
+    """A seeded SigLIP-base-patch16-384 (the config's defaults) written as
+    an HF checkpoint directory: config.json and model.safetensors
+    (`export_hf_siglip`, `vision_model.*`)."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import SiglipVisionConfig
+    from smb_vision_tpu_torch.models.convert import (
+        export_hf_siglip,
+        write_safetensors,
+    )
+    from smb_vision_tpu_torch.models.siglip import SiglipVisionModel
+
+    cfg = SiglipVisionConfig()
+    model = SiglipVisionModel(cfg).init_weights(
+        torch.Generator().manual_seed(seed))
+    ckpt = root / "siglip_base"
+    ckpt.mkdir()
+    write_safetensors(ckpt / "model.safetensors",
+                      export_hf_siglip(model.state_dict()))
+    (ckpt / "config.json").write_text(json.dumps(
+        {k: v for k, v in cfg.to_dict().items()
+         if k not in ("dtype", "attn_impl", "mlp_impl", "glue_impl",
+                      "gradient_checkpointing")}))
+    return ckpt
+
+
+def merlin_resnet152(root: Path, seed: int = 0) -> Path:
+    """A seeded Merlin image tower, I3D ResNet-152 (stage sizes 3, 8, 36,
+    3), as a torchvision-schema state dict under Merlin's
+    `encode_image.i3_resnet.` (`export_torch_resnet3d`): lecun-normal
+    convolutions, the BN statistics at identity and each bottleneck's last
+    BN scaled to 0.2, which keeps 50 residual blocks of random weights in
+    range."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import ResNet3DConfig
+    from smb_vision_tpu_torch.models.convert import (
+        export_torch_resnet3d,
+        write_safetensors,
+    )
+    from smb_vision_tpu_torch.models.resnet3d import ResNet3D
+
+    cfg = ResNet3DConfig(stage_sizes=MERLIN_STAGES)
+    model = ResNet3D(cfg).init_weights(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("cb3.bn.weight"):
+                buf.fill_(0.2)
+    sd = export_torch_resnet3d(model.state_dict(), cfg)
+    path = root / "merlin_resnet152.safetensors"
+    write_safetensors(path, {"encode_image.i3_resnet." + k: v
+                             for k, v in sd.items()})
+    return path
+
+
+def encode_rate(label: str, card: str, encode, px, n_items: int,
+                iters: int = 3) -> tuple:
+    """encode(px[i]) over `iters` seeded batches after a warm-up, CUDA
+    events: (ms a batch, items/s, peak GiB)."""
+    import torch
+
+    encode(px[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, iters + 1):
+        encode(px[i])
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label}: {ms:.1f} ms a batch of {n_items} = "
+        f"{n_items * 1e3 / ms:.2f} items/s, peak {mem:.2f} GiB, on {card}")
+    return ms, n_items * 1e3 / ms, mem
+
+
+def run_leg_z(work: Path, vols: Path, card: str) -> None:
+    """Leg Z, the encoder zoo on the card.
+    1. SigLIP: `run_encoders --encoder siglip` on a seeded export of
+       SigLIP-base-patch16-384 over SIGLIP_IMAGES seeded PNGs at batch 32:
+       K1 and K2 launch 12 times a batch; every vector within TOL_MODEL
+       of max of the same model on its plain path (`plain_kernels`); then
+       images/s at batch 32 (`encode_rate`).
+    2. Merlin: `run_encoders --encoder merlin` with a seeded I3D
+       ResNet-152 on the 4 volumes through the "merlin" pipeline
+       (224 x 224 x 160) at batch 2; the same volumes as uint8 codes
+       decoded on the card within TOL_MODEL of the float vectors;
+       volumes/s at batch 2 and the peak memory.
+    3. Merlin serving: `serve --encoder merlin` in the process at batch 2,
+       one 2-volume request, within TOL_SERVE of max of run_encoders'
+       vectors (their token means)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from PIL import Image
+
+    from smb_vision_tpu_torch.cli.run_encoders import main as run_encoders
+    from smb_vision_tpu_torch.data.image2d import Image2DDataset
+    from smb_vision_tpu_torch.inference.encoders import (
+        MerlinEncoder,
+        SiglipEncoder,
+    )
+
+    dev = torch.device("cuda")
+    # 1. SigLIP
+    ckpt = siglip_base(work)
+    rng = np.random.default_rng(7)
+    items = []
+    imgs = work / "xrays"
+    imgs.mkdir()
+    for i in range(SIGLIP_IMAGES):
+        p = imgs / f"xr_{i:03d}.png"
+        Image.fromarray(rng.integers(0, 255, (512, 448, 3), np.uint8)).save(p)
+        items.append({"uid": f"xr_{i:03d}", "image_path": str(p)})
+    manifest = work / "xrays.json"
+    manifest.write_text(json.dumps({"images": items}))
+    out = work / "emb_siglip"
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    stats = run_encoders(["--encoder", "siglip", "--checkpoint", str(ckpt),
+                          "--input_json", str(manifest), "--output_dir",
+                          str(out), "--batch_size", str(SIGLIP_BATCH),
+                          "--num_workers", "4"])
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in ws.items() if w.launches}
+    batches = SIGLIP_IMAGES // SIGLIP_BATCH
+    if stats != {"embedded": SIGLIP_IMAGES, "failed": 0, "skipped": 0} or \
+            any(counts.get(k, 0) != 12 * batches for k in ZOO_KERNELS):
+        raise AssertionError(f"leg Z SigLIP: {stats}, launches {counts}")
+    got = np.stack([np.asarray(pd.read_parquet(
+        out / "model_id=siglip" / f"{it['uid']}.parquet").iloc[0][
+        "embedding"]) for it in items])
+    enc = SiglipEncoder(str(ckpt), device="cuda")
+    enc.setup_model()
+    ds = Image2DDataset(items, image_size=enc.image_size)
+    px = np.stack([ds[i]["image"] for i in range(SIGLIP_IMAGES)])
+    ws = reset_launches()
+    with plain_kernels():
+        ref = np.concatenate([
+            enc.generate_embedding(px[i:i + SIGLIP_BATCH])
+            for i in range(0, SIGLIP_IMAGES, SIGLIP_BATCH)])
+    if any(w.launches for w in ws.values()):
+        raise AssertionError("leg Z: the plain SigLIP path launched a "
+                             "kernel")
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"leg Z SigLIP-base-patch16-384 ({enc.model.config.seq_len} "
+        f"tokens, 12 x 64 heads, MLP 3,072): run_encoders {stats} in "
+        f"{wall:.1f} s (PNG decode + resize + encode + parquet); launches "
+        f"{counts}; vectors vs the plain path max|d|/max|ref| {err:.3e} "
+        f"(bound {TOL_MODEL})")
+    if not (err <= TOL_MODEL and np.isfinite(got).all()):
+        raise AssertionError(f"leg Z SigLIP: {err}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pxs = [torch.randn((SIGLIP_BATCH, 3, 384, 384), generator=gen,
+                       device=dev) for _ in range(4)]
+    encode_rate(f"SigLIP-base batch {SIGLIP_BATCH}", card, enc.encode, pxs,
+                SIGLIP_BATCH)
+    del enc, pxs
+    torch.cuda.empty_cache()
+
+    # 2. Merlin
+    mckpt = merlin_resnet152(work)
+    vitems = [{"uid": p.stem, "image_path": str(p)}
+              for p in sorted(vols.glob("*.nii"))]
+    vman = work / "ct.json"
+    vman.write_text(json.dumps({"images": vitems}))
+    mout = work / "emb_merlin"
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    stats = run_encoders(["--encoder", "merlin", "--checkpoint", str(mckpt),
+                          "--input_json", str(vman), "--output_dir",
+                          str(mout), "--batch_size", str(MERLIN_BATCH),
+                          "--num_workers", "2"])
+    wall = time.perf_counter() - t0
+    if stats != {"embedded": N_VOLUMES, "failed": 0, "skipped": 0}:
+        raise AssertionError(f"leg Z Merlin: {stats}")
+    rows = [pd.read_parquet(mout / "model_id=merlin"
+                            / f"{it['uid']}.parquet").iloc[0]
+            for it in vitems]
+    shape = tuple(int(s) for s in rows[0]["embedding_shape"])
+    toks = np.stack([np.asarray(r["embedding"]).reshape(shape)
+                     for r in rows])
+    enc = MerlinEncoder(checkpoint=str(mckpt), device="cuda")
+    enc.setup_model()
+    ds8 = enc.create_dataset(vitems, out_dtype="uint8")
+    exs = [ds8[i] for i in range(N_VOLUMES)]
+    q = np.stack([np.asarray(e["image"]) for e in exs])
+    sc = np.asarray([e["image_scale"] for e in exs], np.float32)
+    of = np.asarray([e["image_offset"] for e in exs], np.float32)
+    tok8 = np.concatenate([
+        enc.generate_embedding(q[i:i + MERLIN_BATCH],
+                               scale=sc[i:i + MERLIN_BATCH],
+                               offset=of[i:i + MERLIN_BATCH])
+        for i in range(0, N_VOLUMES, MERLIN_BATCH)])
+    err8 = float(np.abs(tok8 - toks).max() / np.abs(toks).max())
+    log(f"leg Z Merlin I3D ResNet-152 (stages {MERLIN_STAGES}, hidden "
+        f"{enc.config.hidden_size}): run_encoders {stats} in {wall:.1f} s; "
+        f"tokens {shape} a volume, finite {bool(np.isfinite(toks).all())}, "
+        f"max |x| {float(np.abs(toks).max()):.3e}; uint8 pixels vs float "
+        f"max|d|/max|ref| {err8:.3e} (bound {TOL_MODEL})")
+    if not (np.isfinite(toks).all() and err8 <= TOL_MODEL):
+        raise AssertionError(f"leg Z Merlin: uint8 {err8}")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    size = enc.pipeline().target_size
+    pxs = [torch.rand((MERLIN_BATCH, 1, *size), generator=gen, device=dev)
+           for _ in range(4)]
+    encode_rate(f"Merlin ResNet-152 batch {MERLIN_BATCH}", card, enc.encode,
+                pxs, MERLIN_BATCH)
+    del enc, pxs
+    torch.cuda.empty_cache()
+
+    # 3. Merlin serving
+    with serving(encoder="merlin", model_name_or_path=str(mckpt)) as srv:
+        status, health, _, _ = http_call(srv, "GET", "/healthz")
+        status2, ans, wall, split = http_call(srv, "POST", "/embed", {
+            "images": [it["image_path"] for it in vitems[:2]]})
+    want = toks[:2].mean(axis=1)
+    got = np.asarray(ans["embeddings"])
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"leg Z serve --encoder merlin: /healthz {health}; a 2-volume "
+        f"request {1e3 * wall:.1f} ms ({split_line(split)}); answer vs "
+        f"run_encoders' token means max|d|/max|ref| {err:.3e} (bound "
+        f"{TOL_SERVE})")
+    if status != 200 or status2 != 200 or err > TOL_SERVE or \
+            health.get("pixel_shape") != [1, *size]:
+        raise AssertionError(f"leg Z serving: {status}, {status2}, {err}")
+    shutil.rmtree(imgs)
+    shutil.rmtree(out)
+    shutil.rmtree(mout)
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
@@ -4268,6 +5046,12 @@ def main() -> int:
         run_leg_e(work, spec)
         run_leg_f(work, spec, table)
         done("legs E and F")
+        run_leg_l(work, vols, spec)
+        done("leg L")
+        run_leg_o(work, vols)
+        done("leg O")
+        run_leg_z(work, vols, card)
+        done("leg Z")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_throughput(card)
@@ -4282,8 +5066,11 @@ def main() -> int:
     phase_vjepa_ref_throughput(card, table)
     done("reference-head throughput")
     phase_dinov2_parity()
-    phase_finetune_throughput(card)
+    full = phase_finetune_throughput(card)
     done("DINOv2 parity and fine-tune throughput")
+    phase_lora_parity()
+    phase_lora_throughput(card, full)
+    done("LoRA parity and throughput")
     log(card)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

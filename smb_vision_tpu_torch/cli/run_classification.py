@@ -11,9 +11,13 @@ dispatch (--model_type, else a config file's model_type, else 'dino' or
 impls, dtype and remat stand unless a flag is given a value other than
 its default. Outputs: `metrics.jsonl` (with the eval metrics),
 `checkpoints/<step>/`, `model.safetensors` in the JAX package's names and
-`config.json`. `--device` (default cuda) picks the device; the CLI
-refuses to run if CUDA is absent, and a CPU run must ask for it with
---device cpu. Training runs on one device.
+`config.json`; with --lora_enable only LoRA adapters (--lora_rank,
+--lora_alpha) and the head train, and the run also writes
+`lora.safetensors` and `model_merged.safetensors` (train/lora.py).
+--optim adamw8bit keeps the AdamW moments in int8 blocks. `--device`
+(default cuda) picks the device; the CLI refuses to run if CUDA is
+absent, and a CPU run must ask for it with --device cpu. Training runs on
+one device.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_classification \\
@@ -84,8 +88,9 @@ class ModelArguments:
         metadata={"help": "MLP kernel: auto|pallas|pallas_bwd|xla ('pallas' "
                           "with a SwiGLU DINOv2: kernel K9)"})
     gradient_checkpointing: bool = False
-    lora_enable: bool = field(default=False,
-                              metadata={"help": "not ported yet"})
+    lora_enable: bool = field(
+        default=False, metadata={"help": "train LoRA adapters and the head "
+                                         "only (train/lora.py)"})
     lora_rank: int = 8
     lora_alpha: float = 16.0
 
@@ -215,10 +220,7 @@ def main(argv=None) -> dict:
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     _refuse_unported(model_args, data_args, training_args,
-                     cli="run_classification", extra=[
-        (model_args.lora_enable, "--lora_enable (train/lora.py)", "lora"),
-        (training_args.optim == "adamw8bit", "--optim adamw8bit",
-         "adamw8bit")])
+                     cli="run_classification")
     device, accum_dt = _device_and_accum(training_args)
     if data_args.additional_feature_columns == [""]:
         data_args.additional_feature_columns = []
@@ -289,16 +291,35 @@ def main(argv=None) -> dict:
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm,
         vision_lr=training_args.vision_lr,
         merger_lr=training_args.merger_lr, optim=training_args.optim)
-    model, init_fn, step_fn, eval_fn = make_classification_workload(
-        config, task_type=data_args.task_type, tx=tx,
-        grad_accum=training_args.gradient_accumulation_steps,
-        accum_dtype=accum_dt, device=device)
     if training_args.model_flops_per_sample is None:
         training_args.model_flops_per_sample = \
             classification_flops_per_sample(config)
-    state = init_fn(training_args.seed)
+    if model_args.lora_enable:
+        # the backbone is loaded into the base before the adapters are
+        # registered; only the adapters and the head train
+        from smb_vision_tpu_torch.train.lora import (
+            lora_size,
+            make_lora_classification_workload,
+        )
+
+        model, init_fn, step_fn, eval_fn = make_lora_classification_workload(
+            config, task_type=data_args.task_type, tx=tx,
+            rank=model_args.lora_rank, alpha=model_args.lora_alpha,
+            grad_accum=training_args.gradient_accumulation_steps,
+            accum_dtype=accum_dt, device=device)
+        state = init_fn(training_args.seed,
+                        backbone=model_args.model_name_or_path)
+        logger.info("LoRA rank %d: %d adapter params trainable",
+                    model_args.lora_rank, lora_size(model))
+    else:
+        model, init_fn, step_fn, eval_fn = make_classification_workload(
+            config, task_type=data_args.task_type, tx=tx,
+            grad_accum=training_args.gradient_accumulation_steps,
+            accum_dtype=accum_dt, device=device)
+        state = init_fn(training_args.seed)
+        if model_args.model_name_or_path:
+            load_backbone_into(model, model_args.model_name_or_path)
     if model_args.model_name_or_path:
-        load_backbone_into(model, model_args.model_name_or_path)
         logger.info("backbone initialised from %s",
                     model_args.model_name_or_path)
 

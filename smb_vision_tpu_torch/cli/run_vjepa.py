@@ -170,9 +170,7 @@ def main(argv=None) -> dict:
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
     _refuse_unported(model_args, data_args, training_args, cli="run_vjepa",
                      extra=[
-        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu"),
-        (training_args.optim == "adamw8bit", "--optim adamw8bit",
-         "adamw8bit")])
+        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu")])
     device, accum_dt = _device_and_accum(training_args)
     config = build_config(model_args)
     logger.info("V-JEPA config: %s tokens, grid %s, on %s", config.seq_len,

@@ -1,10 +1,12 @@
 """Embedding server on PyTorch / CUDA: the online surface of the encoder.
 
 Counterpart of `smb_vision_tpu/cli/serve.py`, with the same flags, routes
-and answers, and two more flags: --device (default cuda; the server
-refuses to start if CUDA is absent, and a CPU run must ask for it with
---device cpu) and --seed (the random initialisation used when no
-checkpoint is given). Standard library HTTP only:
+and answers (--encoder smb-vision, or merlin: the inflated-3D ResNet from
+a torch state dict, on the "merlin" CT pipeline), and two more flags:
+--device (default cuda; the server refuses to start if CUDA is absent,
+and a CPU run must ask for it with --device cpu) and --seed (the random
+initialisation used when no checkpoint is given). Standard library HTTP
+only:
 
     python -m smb_vision_tpu_torch.cli.serve \\
         --model_name_or_path out/mim/model.safetensors \\
@@ -52,14 +54,17 @@ class ServeArguments:
     port: int = 8000
     encoder: str = field(
         default="smb-vision",
-        metadata={"help": "smb-vision (ViT); merlin is not ported yet"})
+        metadata={"help": "smb-vision (ViT) | merlin (I3D ResNet; "
+                          "--model_name_or_path is its torch state dict)"})
     model_name_or_path: Optional[str] = field(
         default=None, metadata={"help": "safetensors checkpoint (the JAX "
                                         "package's export or HF layout)"})
     config_path: Optional[str] = field(
         default=None, metadata={"help": "model config json"})
     target_size: Optional[str] = field(
-        default=None, metadata={"help": "merlin only (not ported yet)"})
+        default=None, metadata={"help": "merlin only: override the "
+                                        "resample grid, 3 comma-separated "
+                                        "ints (default 224,224,160)"})
     model_id: str = "smb-vision-tpu-base"
     pipeline: str = "smb-vision"
     dtype: str = "bfloat16"
@@ -94,20 +99,38 @@ class EmbeddingService:
     def __init__(self, args: ServeArguments):
         self.args = args
         if args.encoder == "merlin":
-            from smb_vision_tpu_torch.utils.args import not_ported
+            from smb_vision_tpu_torch.cli.run_encoders import (
+                parse_target_size,
+            )
+            from smb_vision_tpu_torch.inference.encoders import MerlinEncoder
 
-            raise not_ported("--encoder merlin", "zoo",
-                             "smb_vision_tpu.cli.serve")
-        if args.encoder != "smb-vision":
+            if not args.model_name_or_path:
+                raise ValueError(
+                    "--model_name_or_path is required for --encoder "
+                    "merlin: the local Merlin image-tower torch state "
+                    "dict (.pt/.safetensors)")
+            try:
+                target_size = parse_target_size(args.target_size)
+            except SystemExit as e:
+                raise ValueError(str(e)) from None
+            self.encoder = MerlinEncoder(
+                model_id=args.model_id if args.model_id !=
+                "smb-vision-tpu-base" else "merlin",
+                checkpoint=args.model_name_or_path, dtype=args.dtype,
+                target_size=target_size, device=args.device)
+        elif args.encoder == "smb-vision":
+            from smb_vision_tpu_torch.inference.runner import (
+                SmbVisionEncoder,
+            )
+
+            self.encoder = SmbVisionEncoder(
+                checkpoint=args.model_name_or_path,
+                config_path=args.config_path, model_id=args.model_id,
+                pipeline=args.pipeline, dtype=args.dtype,
+                attn_impl=args.attn_impl, device=args.device, seed=args.seed)
+        else:
             raise ValueError(f"unknown encoder {args.encoder!r}; "
                              "valid: 'smb-vision', 'merlin'")
-        from smb_vision_tpu_torch.inference.runner import SmbVisionEncoder
-
-        self.encoder = SmbVisionEncoder(
-            checkpoint=args.model_name_or_path,
-            config_path=args.config_path, model_id=args.model_id,
-            pipeline=args.pipeline, dtype=args.dtype,
-            attn_impl=args.attn_impl, device=args.device, seed=args.seed)
         self.encoder.setup_model()
         self._lock = threading.Lock()      # serialises the device's work
         self.requests = 0
@@ -128,7 +151,10 @@ class EmbeddingService:
                         args.batch_size, args.input_dtype)
 
     def _pixel_shape(self):
-        """One volume's pixel shape, (D, C, H, W)."""
+        """One volume's pixel shape: (D, C, H, W), or Merlin's (C, a0, a1,
+        a2)."""
+        if self.args.encoder == "merlin":
+            return (1, *self.encoder.pipeline().target_size)
         cfg = self.encoder._config()
         return (cfg.num_frames, 1, cfg.image_size, cfg.image_size)
 
@@ -202,16 +228,22 @@ class EmbeddingService:
         import torch
 
         dev = self.encoder.device
-        cfg = self.encoder._config()
-        return {"status": "ok", "encoder": self.args.encoder,
-                "model_id": self.encoder.model_id,
-                "checkpoint": self.args.model_name_or_path,
-                "batch_size": self.args.batch_size,
-                "input_dtype": self.args.input_dtype,
-                "device": (torch.cuda.get_device_name(dev)
-                           if dev.type == "cuda" else "cpu"),
-                "requests_served": self.requests,
-                "grid": list(cfg.grid), "hidden_size": cfg.hidden_size}
+        rec = {"status": "ok", "encoder": self.args.encoder,
+               "model_id": self.encoder.model_id,
+               "checkpoint": self.args.model_name_or_path,
+               "batch_size": self.args.batch_size,
+               "input_dtype": self.args.input_dtype,
+               "device": (torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else "cpu"),
+               "requests_served": self.requests}
+        if self.args.encoder == "merlin":
+            rec["pixel_shape"] = list(self._pixel_shape())
+            rec["hidden_size"] = self.encoder.config.hidden_size
+        else:
+            cfg = self.encoder._config()
+            rec["grid"] = list(cfg.grid)
+            rec["hidden_size"] = cfg.hidden_size
+        return rec
 
 
 def server_timing(header: str) -> dict:

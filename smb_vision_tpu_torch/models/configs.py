@@ -3,8 +3,8 @@
 Counterpart of `smb_vision_tpu/models/configs.py`. Field names mirror the
 HuggingFace configs, so JSON config files written by the JAX package load
 here unchanged (keys the port has no field for are ignored): VideoMAE,
-V-JEPA2 and the 3D DINOv2. The other model families' configs come with
-their models.
+V-JEPA2, the 3D DINOv2, the SigLIP vision tower and Merlin's inflated-3D
+ResNet.
 """
 
 from __future__ import annotations
@@ -257,3 +257,83 @@ class Dinov2Config(BaseConfig):
             return (int(self.hidden_size * self.mlp_ratio * 2 / 3) + 7) \
                 // 8 * 8
         return self.hidden_size * self.mlp_ratio
+
+
+@dataclass
+class SiglipVisionConfig(BaseConfig):
+    """The SigLIP vision tower (2D X-ray embeddings). Field names mirror
+    transformers.SiglipVisionConfig, so an HF config.json (or its nested
+    vision_config) loads as is; defaults are SigLIP-base-patch16-384."""
+
+    model_type: str = "siglip_vision_model"
+
+    image_size: int = 384
+    patch_size: int = 16
+    num_channels: int = 3
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu_pytorch_tanh"
+    layer_norm_eps: float = 1e-6
+    attention_dropout: float = 0.0
+    # the MAP pooling head (a probe's cross-attention and an MLP)
+    vision_use_head: bool = True
+
+    dtype: str = "bfloat16"
+    attn_impl: str = "auto"
+    mlp_impl: str = "auto"
+    glue_impl: str = "auto"
+    gradient_checkpointing: bool = False
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        g = self.image_size // self.patch_size
+        return (g, g)
+
+    @property
+    def seq_len(self) -> int:
+        h, w = self.grid
+        return h * w
+
+
+@dataclass
+class ResNet3DConfig(BaseConfig):
+    """The inflated-3D (I3D) ResNet of Merlin's image tower (ResNet-152 by
+    default). The three volume axes are (a0, a1, a2) in checkpoint order,
+    (H, W, D) = (224, 224, 160) for the "merlin" CT pipeline. Axis-0
+    kernel sizes are read from a checkpoint's shapes
+    (`convert.resnet3d_config_from_state_dict`); axis-0 strides cannot be,
+    so they are fields with the I3D defaults: the stem and pool follow the
+    spatial stride, and a stage's downsampling stride applies to axis 0
+    with temporal_downsample."""
+
+    model_type: str = "resnet3d"
+
+    num_channels: int = 1
+    # bottleneck blocks per stage; (3, 8, 36, 3) is ResNet-152
+    stage_sizes: Tuple[int, ...] = (3, 8, 36, 3)
+    base_width: int = 64            # stem channels; stage i has base * 2^i
+    expansion: int = 4              # a bottleneck's out = width * expansion
+
+    # stem: conv (stem_kernel_t, 7, 7) stride (stem_stride_t, 2, 2), k//2
+    # padding, then max-pool (pool_kernel_t, 3, 3) stride
+    # (pool_stride_t, 2, 2) padding (pool_kernel_t//2, 1, 1)
+    stem_kernel_t: int = 7
+    stem_stride_t: int = 2
+    pool_kernel_t: int = 3
+    pool_stride_t: int = 2
+    conv2_kernel_t: int = 3
+    temporal_downsample: bool = True
+
+    bn_eps: float = 1e-5
+
+    num_labels: int = 0             # 0: no classifier head (an encoder)
+
+    dtype: str = "bfloat16"
+
+    @property
+    def hidden_size(self) -> int:
+        return self.base_width * (2 ** (len(self.stage_sizes) - 1)) \
+            * self.expansion

@@ -2,7 +2,10 @@
 and the HF layouts of VideoMAE, V-JEPA2 and DINOv2.
 
 Counterpart of `smb_vision_tpu/models/convert.py` for VideoMAE, DINOv2, the
-V-JEPA2 pretraining tree and the three classification models.
+V-JEPA2 pretraining tree, the three classification models, the SigLIP
+vision tower (`convert_hf_siglip`, `export_hf_siglip`) and Merlin's
+inflated-3D ResNet (`resnet3d_config_from_state_dict`,
+`convert_torch_resnet3d`, `inflate_resnet2d`, `export_torch_resnet3d`).
 `params_from_flax` maps the JAX package's flattened parameter names
 (`params.encoder.layer_0.attention.query.kernel`, ...) to this package's
 state_dict (`encoder.layer_0.attention.query.weight`, ...): Dense kernels
@@ -130,7 +133,7 @@ def write_safetensors(path: Union[str, Path],
 
 def params_from_flax(flat: Dict[str, np.ndarray], *,
                      pretraining: bool = False, vjepa: bool = False,
-                     classification: bool = False,
+                     classification: bool = False, whole: bool = False,
                      backbone: str = "videomae") -> Dict[str, torch.Tensor]:
     """The JAX package's flattened parameters -> this package's state_dict.
     Keys may carry `params.`. By default the backbone of `backbone`'s
@@ -140,13 +143,17 @@ def params_from_flax(flat: Dict[str, np.ndarray], *,
     backbone are left out. With pretraining=True the whole
     VideoMAEForPreTraining tree, wrapper kept; with vjepa=True the
     VJEPA2Model tree (encoder and predictor); with classification=True a
-    whole classification model (wrapper, neck, pooler and head)."""
+    whole classification model (wrapper, neck, pooler and head); with
+    whole=True every tensor (the SigLIP tower, the ResNet3D tower, whose
+    5-D conv kernels (k0, k1, k2, I, O) become Conv3d weights)."""
     if backbone not in FAMILIES:
         raise ValueError(f"unknown backbone family {backbone!r}")
     out: Dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         k = key[len("params."):] if key.startswith("params.") else key
-        if vjepa or pretraining or classification:
+        if whole:
+            pass
+        elif vjepa or pretraining or classification:
             rx = (_VJEPA if vjepa else _PRETRAINING if pretraining
                   else _CLASSIFICATION)
             if not rx.match(k):
@@ -158,9 +165,10 @@ def params_from_flax(flat: Dict[str, np.ndarray], *,
                 continue
         arr = np.array(val, dtype=np.float32)   # a writable copy
         if k.endswith(".kernel"):
-            if arr.ndim != 2:
+            if arr.ndim not in (2, 5):
                 raise ValueError(f"{key}: Dense kernel of shape {arr.shape}")
-            k, arr = k[:-len(".kernel")] + ".weight", arr.T
+            k = k[:-len(".kernel")] + ".weight"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(4, 3, 0, 1, 2)
         elif k.endswith(".scale"):
             k = k[:-len(".scale")] + ".weight"
         out[k] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -170,7 +178,8 @@ def params_from_flax(flat: Dict[str, np.ndarray], *,
 def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Inverse of `params_from_flax`: a state_dict -> the JAX package's flat
     names under `params.` (float32): 2-D `.weight`s become transposed
-    `.kernel`s, 1-D ones (LayerNorm) `.scale`s."""
+    `.kernel`s, 5-D ones (Conv3d) `.kernel`s in the (k0, k1, k2, I, O)
+    layout, 1-D ones (LayerNorm, frozen BatchNorm) `.scale`s."""
     out: Dict[str, np.ndarray] = {}
     for k, t in state.items():
         arr = t.detach().float().cpu().numpy()
@@ -178,6 +187,8 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             base = k[:-len(".weight")]
             if arr.ndim == 2:
                 k, arr = base + ".kernel", arr.T
+            elif arr.ndim == 5:
+                k, arr = base + ".kernel", arr.transpose(2, 3, 4, 1, 0)
             elif arr.ndim == 1:
                 k = base + ".scale"
             else:
@@ -217,6 +228,13 @@ _HF_BLOCKS = {
         ("layernorm_after.weight", "norm2.scale"),
         ("layernorm_after.bias", "norm2.bias"),
     ),
+    "siglip": sum((_linear(a, b) for a, b in (
+        ("self_attn.q_proj", "attention.query"),
+        ("self_attn.k_proj", "attention.key"),
+        ("self_attn.v_proj", "attention.value"),
+        ("self_attn.out_proj", "attention.proj"),
+        ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2"))), ())
+    + _norm("layer_norm1", "norm1") + _norm("layer_norm2", "norm2"),
     "vjepa": sum((_linear(m, m) for m in (
         "attention.query", "attention.key", "attention.value",
         "attention.proj", "mlp.fc1", "mlp.fc2")), ())
@@ -671,9 +689,9 @@ def load_hf_checkpoint_numpy(path: Union[str, Path]
 def convert_hf_auto(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Pick the family of an HF-layout state dict from its key schema and
     convert it (layer counts from the keys): V-JEPA2 (a predictor, or the
-    `proj`/`proj_3d` patch conv), DINOv2 (a CLS token; 3D checkpoints),
-    VideoMAE (the `projection` patch conv). A SigLIP schema waits for the
-    zoo; anything else is an error."""
+    `proj`/`proj_3d` patch conv), SigLIP (`vision_model.*` or a
+    `patch_embedding` conv), DINOv2 (a CLS token; 3D checkpoints),
+    VideoMAE (the `projection` patch conv); anything else is an error."""
     keys = flat.keys()
 
     def has(frag):
@@ -683,9 +701,7 @@ def convert_hf_auto(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             or has("patch_embeddings.proj_3d.")):
         return convert_hf_vjepa2(flat)
     if has("vision_model.") or has("embeddings.patch_embedding.weight"):
-        from smb_vision_tpu_torch.utils.args import not_ported
-
-        raise not_ported("SigLIP checkpoint conversion", "zoo")
+        return convert_hf_siglip(flat)
     if has("embeddings.cls_token"):
         proj = next((k for k in keys
                      if k.endswith("patch_embeddings.projection.weight")),
@@ -783,3 +799,238 @@ def load_backbone_into(model: torch.nn.Module, path: Union[str, Path]):
     logger.info("loaded %d tensors from %s (%d unused)", len(target), path,
                 len(unused))
     return model
+
+
+def convert_hf_siglip(hf: Dict[str, np.ndarray],
+                      num_layers: Optional[int] = None
+                      ) -> Dict[str, np.ndarray]:
+    """An HF SiglipVisionModel (or whole SiglipModel: `vision_model.*`)
+    state dict -> the JAX package's flat names of the SigLIP tower. The MAP
+    head's nn.MultiheadAttention packs q, k and v into in_proj_weight /
+    in_proj_bias, (3D, D) / (3D,): split row-wise into three Dense
+    kernels. The layer count is read from the keys when None."""
+    v = "vision_model." if any(k.startswith("vision_model.") for k in hf) \
+        else ""
+    if num_layers is None:
+        num_layers = _layer_count(hf, re.escape(v) + r"encoder\.layers\."
+                                      r"(\d+)\.")
+    out: Dict[str, np.ndarray] = {}
+    _put(hf, out, (
+        (v + "embeddings.patch_embedding.weight", "params.patch_embedding"),
+        (v + "embeddings.patch_embedding.bias", "params.patch_bias"),
+        (v + "embeddings.position_embedding.weight",
+         "params.position_embedding"),
+        (v + "post_layernorm.weight", "params.post_layernorm.scale"),
+        (v + "post_layernorm.bias", "params.post_layernorm.bias")))
+    for i in range(num_layers):
+        _block_map(hf, v + "encoder.layers", i, out, "params.encoder",
+                   "siglip")
+    h, o = v + "head.", "params.head."
+    if h + "attention.in_proj_weight" in hf:
+        w3 = np.asarray(hf[h + "attention.in_proj_weight"])
+        b3 = np.asarray(hf[h + "attention.in_proj_bias"])
+        d = w3.shape[0] // 3
+        for j, name in enumerate(("query", "key", "value")):
+            out[o + f"attention.{name}.kernel"] = np.ascontiguousarray(
+                w3[j * d:(j + 1) * d].T)
+            out[o + f"attention.{name}.bias"] = b3[j * d:(j + 1) * d]
+    _put(hf, out, ((h + "probe", o + "probe"),)
+         + _linear(h + "attention.out_proj", o + "attention.proj")
+         + _norm(h + "layernorm", o + "layernorm")
+         + _linear(h + "mlp.fc1", o + "mlp.fc1")
+         + _linear(h + "mlp.fc2", o + "mlp.fc2"))
+    return out
+
+
+def export_hf_siglip(state: Dict[str, torch.Tensor],
+                     num_layers: Optional[int] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Inverse of `convert_hf_siglip` from a SiglipVisionModel state_dict:
+    the HF `vision_model.*` names, q, k and v packed again into the head's
+    in_proj_weight / in_proj_bias (transformers' SiglipVisionModel loads
+    it)."""
+    flat = params_to_flax(state)
+    if num_layers is None:
+        num_layers = _layer_count(flat, r"^params\.encoder\.layer_(\d+)\.")
+    v = "vision_model."
+    out: Dict[str, np.ndarray] = {}
+    _put(flat, out, (
+        ("params.patch_embedding", v + "embeddings.patch_embedding.weight"),
+        ("params.patch_bias", v + "embeddings.patch_embedding.bias"),
+        ("params.position_embedding",
+         v + "embeddings.position_embedding.weight"),
+        ("params.post_layernorm.scale", v + "post_layernorm.weight"),
+        ("params.post_layernorm.bias", v + "post_layernorm.bias")))
+    for i in range(num_layers):
+        _invert_block(flat, "params.encoder", i, out, v + "encoder.layers",
+                      "siglip")
+    o, h = "params.head.", v + "head."
+    if o + "attention.query.kernel" in flat:
+        names = ("query", "key", "value")
+        out[h + "attention.in_proj_weight"] = np.concatenate(
+            [flat[o + f"attention.{n}.kernel"].T for n in names])
+        out[h + "attention.in_proj_bias"] = np.concatenate(
+            [flat[o + f"attention.{n}.bias"] for n in names])
+    pairs = (((h + "probe", o + "probe"),)
+             + _linear(h + "attention.out_proj", o + "attention.proj")
+             + _norm(h + "layernorm", o + "layernorm")
+             + _linear(h + "mlp.fc1", o + "mlp.fc1")
+             + _linear(h + "mlp.fc2", o + "mlp.fc2"))
+    _put(flat, out, [(b, a) for a, b in pairs])
+    return out
+
+
+# the module prefixes a Merlin checkpoint nests its I3D ResNet under (a
+# bare torchvision-style state dict has none)
+_RESNET3D_PREFIXES = ("", "module.", "model.", "i3_resnet.",
+                      "encode_image.i3_resnet.",
+                      "model.encode_image.i3_resnet.",
+                      "image_encoder.i3_resnet.")
+
+
+def _resnet3d_prefix(flat: Dict[str, np.ndarray]) -> str:
+    """The prefix whose `conv1.weight` is a 5-D conv kernel, longest
+    first, so a nested tower wins over a same-named outer key."""
+    for p in sorted(_RESNET3D_PREFIXES, key=len, reverse=True):
+        w = flat.get(p + "conv1.weight")
+        if w is not None and np.ndim(w) == 5:
+            return p
+    raise ValueError(
+        "no inflated-3D resnet found: no '<prefix>conv1.weight' 5D kernel "
+        f"under any of {_RESNET3D_PREFIXES}")
+
+
+def resnet3d_config_from_state_dict(flat: Dict[str, np.ndarray],
+                                    **overrides):
+    """A ResNet3DConfig from a torch state dict's shapes: channels, stage
+    depths and the axis-0 kernel sizes; axis-0 strides stay at the I3D
+    defaults unless `overrides` set them."""
+    from smb_vision_tpu_torch.models.configs import ResNet3DConfig
+
+    p = _resnet3d_prefix(flat)
+    conv1 = np.asarray(flat[p + "conv1.weight"])
+    stage_sizes = []
+    for i in range(1, 100):
+        n = _layer_count(flat, re.escape(p) + rf"layer{i}\.(\d+)\.conv1\."
+                                              r"weight")
+        if n == 0:
+            break
+        stage_sizes.append(n)
+    if not stage_sizes:
+        raise ValueError(f"no layer1.*.conv1.weight under prefix {p!r}")
+    c3 = np.asarray(flat[p + "layer1.0.conv3.weight"])
+    conv2_ts = {np.asarray(flat[k]).shape[2] for k in flat
+                if k.startswith(p) and ".conv2.weight" in k}
+    if len(conv2_ts) != 1:
+        raise ValueError(
+            f"non-uniform bottleneck conv2 axis-0 kernels {conv2_ts}: "
+            "this tower family inflates uniformly; pass an explicit "
+            "config for exotic checkpoints")
+    fc = flat.get(p + "fc.weight")
+    cfg = ResNet3DConfig(
+        num_channels=int(conv1.shape[1]), base_width=int(conv1.shape[0]),
+        stage_sizes=tuple(stage_sizes),
+        expansion=int(c3.shape[0]) // int(c3.shape[1]),
+        stem_kernel_t=int(conv1.shape[2]),
+        conv2_kernel_t=int(conv2_ts.pop()),
+        num_labels=int(np.asarray(fc).shape[0]) if fc is not None else 0)
+    cfg.update(overrides)
+    return cfg
+
+
+def _resnet3d_pairs(config):
+    """(torch name, JAX flat name) of every tensor of the tower: convs
+    (`.weight` -> `.kernel`), frozen BNs (weight, bias, running_mean,
+    running_var -> scale, bias, mean, var) and the head."""
+    def conv(src, dst):
+        return ((f"{src}.weight", f"params.{dst}.kernel"),)
+
+    def bn(src, dst):
+        return tuple((f"{src}.{a}", f"params.{dst}.{b}") for a, b in (
+            ("weight", "scale"), ("bias", "bias"),
+            ("running_mean", "mean"), ("running_var", "var")))
+
+    pairs = conv("conv1", "stem.conv") + bn("bn1", "stem.bn")
+    for i, n in enumerate(config.stage_sizes):
+        for j in range(n):
+            src, dst = f"layer{i + 1}.{j}", f"layer{i + 1}_{j}"
+            for c in (1, 2, 3):
+                pairs += conv(f"{src}.conv{c}", f"{dst}.cb{c}.conv")
+                pairs += bn(f"{src}.bn{c}", f"{dst}.cb{c}.bn")
+            if j == 0:
+                pairs += conv(f"{src}.downsample.0", f"{dst}.downsample.conv")
+                pairs += bn(f"{src}.downsample.1", f"{dst}.downsample.bn")
+    if config.num_labels > 0:
+        pairs += (("fc.weight", "params.head.kernel"),
+                  ("fc.bias", "params.head.bias"))
+    return pairs
+
+
+def convert_torch_resnet3d(flat: Dict[str, np.ndarray], config=None
+                           ) -> Dict[str, np.ndarray]:
+    """A torch-schema inflated-3D ResNet state dict (torchvision names,
+    under any of the Merlin prefixes) -> the JAX package's flat names of
+    the tower. Every expected tensor must be there: a partial tower would
+    embed garbage."""
+    if config is None:
+        config = resnet3d_config_from_state_dict(flat)
+    p = _resnet3d_prefix(flat)
+    out: Dict[str, np.ndarray] = {}
+    for src, dst in _resnet3d_pairs(config):
+        if p + src not in flat:
+            raise KeyError(f"missing {p + src}")
+        arr = np.asarray(flat[p + src], dtype=np.float32)
+        if dst.endswith(".kernel"):
+            arr = np.ascontiguousarray(arr.T if arr.ndim == 2
+                                       else arr.transpose(2, 3, 4, 1, 0))
+        out[dst] = arr
+    return out
+
+
+def export_torch_resnet3d(state: Dict[str, torch.Tensor], config
+                          ) -> Dict[str, np.ndarray]:
+    """Inverse of `convert_torch_resnet3d` from a ResNet3D state_dict: a
+    bare torchvision-schema 3D state dict (no prefix), which
+    `convert_torch_resnet3d` reads back."""
+    flat = params_to_flax(state)
+    out: Dict[str, np.ndarray] = {}
+    for src, dst in _resnet3d_pairs(config):
+        arr = flat[dst]
+        if dst.endswith(".kernel"):
+            arr = np.ascontiguousarray(arr.T if arr.ndim == 2
+                                       else arr.transpose(4, 3, 0, 1, 2))
+        out[src] = arr
+    return out
+
+
+def inflate_resnet2d(flat2d: Dict[str, np.ndarray], *,
+                     stem_kernel_t: int = 7, conv2_kernel_t: int = 3,
+                     mode: str = "center") -> Dict[str, np.ndarray]:
+    """I3D inflation of a torchvision-schema 2D ResNet state dict into the
+    3D one `convert_torch_resnet3d` reads: the stem conv to stem_kernel_t
+    on axis 0, bottleneck conv2 to conv2_kernel_t, 1x1 convs to size 1.
+    mode "center" puts the 2D weight in the centre slice (a fresh 3D net
+    computes the 2D response of each slice); "average" replicates it
+    divided by k_t (the I3D paper's init, equal to 2D on axis-0-constant
+    inputs away from the zero-padded borders)."""
+    if mode not in ("center", "average"):
+        raise ValueError(f"unknown inflation mode {mode!r}")
+    out: Dict[str, np.ndarray] = {}
+    for k, v in flat2d.items():
+        v = np.asarray(v)
+        if k.endswith(".weight") and v.ndim == 4:
+            if k.endswith("conv1.weight") and "layer" not in k:
+                kt = stem_kernel_t
+            elif ".conv2.weight" in k:
+                kt = conv2_kernel_t
+            else:
+                kt = 1
+            w3 = np.zeros(v.shape[:2] + (kt,) + v.shape[2:], v.dtype)
+            if mode == "center":
+                w3[:, :, kt // 2] = v
+            else:
+                w3[:] = v[:, :, None] / kt
+            out[k] = w3
+        else:
+            out[k] = v
+    return out

@@ -1,8 +1,9 @@
 """Patch embedding as a reshape plus one matrix product.
 
 Counterpart of `smb_vision_tpu/ops/patches.py`. With stride equal to the
-kernel size a Conv3d is an exact reshape/transpose/matmul; the weight keeps
-the Conv3d layout (out, in, kt, kh, kw), so HF checkpoints drop in.
+kernel size a Conv3d (or SigLIP's Conv2d) is an exact
+reshape/transpose/matmul; the weight keeps the Conv3d layout (out, in, kt,
+kh, kw), or Conv2d's, so HF checkpoints drop in.
 """
 
 from __future__ import annotations
@@ -39,6 +40,25 @@ def patch_embed(pixel_values: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return out.to(dtype)
+
+
+def patch_embed_2d(pixel_values: torch.Tensor, kernel: torch.Tensor,
+                   bias, *, dtype=torch.bfloat16) -> torch.Tensor:
+    """The SigLIP patch projection (B, C, H, W) x (hidden, C, ps, ps) ->
+    (B, N, hidden), the weight in the HF Conv2d layout, the sequence
+    row-major. A size that ps does not divide (so400m-patch14-384: 384 %
+    14 == 6) drops the trailing rows and columns, as a stride-ps Conv2d
+    with valid padding never reads them. `patch_embed` with a unit time
+    axis."""
+    hidden, c, ps, _ = kernel.shape
+    b, c_in, h, w = pixel_values.shape
+    if c_in != c:
+        raise ValueError(f"input has {c_in} channels, kernel expects {c}")
+    gh, gw = h // ps, w // ps
+    if (gh * ps, gw * ps) != (h, w):
+        pixel_values = pixel_values[:, :, :gh * ps, :gw * ps]
+    return patch_embed(pixel_values[:, None], kernel[:, :, None], bias,
+                       dtype=dtype)
 
 
 def sincos_position_table(n_position: int, d_hid: int) -> torch.Tensor:

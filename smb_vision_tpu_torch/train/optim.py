@@ -7,8 +7,9 @@ warmup into a cosine, linear or constant decay; the two-tier learning
 rates of fine-tuning (`optax.multi_transform` there: one AdamW and one
 schedule a tier, clipped by the global norm over every tier); and
 `ema_update`. The schedule is evaluated at the number of updates already
-made, as optax counts, so warmup starts at lr 0 on the first update. The
-8-bit AdamW is not ported yet.
+made, as optax counts, so warmup starts at lr 0 on the first update.
+optim "adamw8bit" keeps the moments as int8 blocks (`train/quantized.py`)
+behind the same clip, tiers and schedule.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from smb_vision_tpu_torch.utils.args import not_ported
+from smb_vision_tpu_torch.train.quantized import AdamW8bit
 
 # two-tier fine-tuning groups, by parameter name (the JAX package's
 # head_regex and backbone_regex defaults)
@@ -27,12 +28,18 @@ _HEAD = re.compile("classifier")
 _BACKBONE = re.compile("videomae|dinov2|vjepa2")
 
 
+OPTIMIZERS = {"adamw": torch.optim.AdamW, "adamw8bit": AdamW8bit}
+
+
 def is_decayed(name: str) -> bool:
     """Weight decay applies to every parameter but biases and norms (HF
     Trainer's rule, as the JAX package's `decay_mask`): the mask token and
-    the patch kernel are decayed."""
+    the patch kernel are decayed. A frozen BatchNorm's statistics and
+    affine (`bn.` in a ResNet3D name, `/bn/` in the JAX package's path)
+    are not, whether they are buffers or parameters."""
     name = name.lower()
-    return not ("bias" in name or "norm" in name)
+    return not ("bias" in name or "norm" in name or ".bn." in name
+                or "/bn/" in name)
 
 
 def make_schedule(learning_rate: float, total_steps: int,
@@ -67,16 +74,17 @@ def make_schedule(learning_rate: float, total_steps: int,
 
 class ClippedAdamW:
     """Global-norm gradient clipping, then AdamW (decoupled weight decay on
-    the `is_decayed` parameters), then the schedule: one `step()` is one
+    the `is_decayed` parameters; `optim` "adamw" or "adamw8bit", the moments
+    in float32 or in int8 blocks), then the schedule: one `step()` is one
     optax update. `tier_of(name)` puts each parameter in one tier of
-    `schedules`, which holds a "default" tier. `state_dict` holds the AdamW
+    `schedules`, which holds a "default" tier. `state_dict` holds the
     moments and the update count."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
                  schedules: Dict[str, Callable[[int], float]],
                  tier_of: Callable[[str], str], weight_decay: float,
                  b1: float, b2: float, eps: float,
-                 grad_clip: Optional[float]):
+                 grad_clip: Optional[float], optim: str = "adamw"):
         named = [(n, p) for n, p in named_params if p.requires_grad]
         self.params = [p for _, p in named]
         self.schedules = schedules
@@ -87,7 +95,7 @@ class ClippedAdamW:
             for tier in self.schedules for decayed in (True, False)]
         self.grad_clip = grad_clip
         self.updates = 0
-        self.opt = torch.optim.AdamW([g for g in groups if g["params"]],
+        self.opt = OPTIMIZERS[optim]([g for g in groups if g["params"]],
                                      lr=schedules["default"](0),
                                      betas=(b1, b2), eps=eps)
 
@@ -145,11 +153,10 @@ def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
     the fc_norm neck) stays at
     learning_rate. Either tier may be set alone; each tier runs the same
     warmup and decay on its own peak, and clipping takes the global norm
-    over every tier."""
-    if optim == "adamw8bit":
-        raise not_ported("optim='adamw8bit' (train/quantized.py)",
-                         "adamw8bit")
-    if optim != "adamw":
+    over every tier. optim "adamw8bit" stores the moments as int8 blocks
+    (`AdamW8bit`), clipped before it as the JAX package's `clipped` chain
+    does."""
+    if optim not in OPTIMIZERS:
         raise ValueError(f"unknown optim {optim!r}")
 
     def sched(lr):
@@ -174,7 +181,7 @@ def make_optimizer(named_params, *, learning_rate: float, total_steps: int,
     return ClippedAdamW(
         named_params, schedules=tiers, tier_of=tier_of,
         weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
-        grad_clip=grad_clip)
+        grad_clip=grad_clip, optim=optim)
 
 
 @torch.no_grad()

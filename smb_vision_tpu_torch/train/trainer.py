@@ -10,7 +10,8 @@ and are decoded to bfloat16 on the device, in the step. profile_steps
 "A-B" writes a `torch.profiler` trace of global steps A to B under
 `output_dir/profile`. A checkpoint is one
 `torch.save` of the model, the optimizer (moments, update count), the EMA
-teacher where the workload has one (V-JEPA) and the step and epoch, under
+teacher where the workload has one (V-JEPA), a LoRA run's merge
+hyperparameters and initial head, and the step and epoch, under
 `output_dir/checkpoints/<step>/state.pt`. Each step
 seeds its own mask generator from (seed, step), and a resumed run skips
 the batches its epoch already consumed, so it replays no batch and no
@@ -42,6 +43,9 @@ logger = get_logger(__name__)
 # and tabular features keep their dtype (bf16 spacing at a duration of
 # ~2048 days is 16: a cast would tie distinct survival times)
 _PIXEL_KEYS = ("pixel_values", "pixel_values_videos")
+# state entries beside the model and the optimizer that a checkpoint
+# carries: the LoRA merge hyperparameters and the head as initialised
+_STATE_EXTRAS = ("lora_meta", "base_head")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "uint8": torch.uint8}
 
@@ -234,6 +238,9 @@ class Trainer:
         blob = {"model": self.state["model"].state_dict(),
                 "optimizer": self.state["optimizer"].state_dict(),
                 "step": step, "epoch": epoch}
+        for key in _STATE_EXTRAS:
+            if key in self.state:
+                blob[key] = self.state[key]
         if "teacher" in self.state:
             blob["teacher"] = self.state["teacher"].state_dict()
         torch.save(blob, tmp / "state.pt")
@@ -253,6 +260,9 @@ class Trainer:
                 raise ValueError(f"{path} holds no EMA teacher: a checkpoint "
                                  "of another workload?")
             self.state["teacher"].load_state_dict(blob["teacher"])
+        for key in _STATE_EXTRAS:
+            if key in self.state:
+                self.state[key] = blob[key]
         self.state["step"] = int(blob["step"])
         return self.state["step"]
 
@@ -283,14 +293,33 @@ class Trainer:
 
     def save_model(self) -> None:
         """Final weights as one flat safetensors file in the JAX package's
-        names (`params.videomae.encoder.layer_0...kernel`)."""
+        names (`params.videomae.encoder.layer_0...kernel`). A LoRA run
+        writes three, as the JAX package does: model.safetensors (the
+        frozen base, its head as initialised), lora.safetensors (adapters,
+        head, meta) and model_merged.safetensors (adapters merged, the
+        trained head)."""
         from smb_vision_tpu_torch.models.convert import (
             params_to_flax,
             write_safetensors,
         )
 
+        model = self.state["model"]
+        if "lora_meta" not in self.state:
+            write_safetensors(self.out_dir / "model.safetensors",
+                              params_to_flax(model.state_dict()))
+            return
+        from smb_vision_tpu_torch.train import lora
+
+        head0 = self.state["base_head"]
+        base = {k: head0.get(lora.jax_path(k, v.ndim), v)
+                for k, v in lora.base_state_dict(model).items()}
         write_safetensors(self.out_dir / "model.safetensors",
-                          params_to_flax(self.state["model"].state_dict()))
+                          params_to_flax(base))
+        write_safetensors(self.out_dir / "lora.safetensors",
+                          lora.lora_tensors(model, self.state["lora_meta"]))
+        write_safetensors(self.out_dir / "model_merged.safetensors",
+                          params_to_flax(lora.base_state_dict(model,
+                                                              merged=True)))
 
     # -- loops -------------------------------------------------------------
     def train(self) -> Dict[str, int]:

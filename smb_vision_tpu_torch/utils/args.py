@@ -20,9 +20,6 @@ from typing import List, Optional, Sequence, Type, Union, get_args, get_origin
 # the ROADMAP.md items a refusal names: (queue, item number, the item's
 # bold heading as ROADMAP.md writes it, without a closing full stop)
 ROADMAP_ITEMS = {
-    "lora": (1, 6, "LoRA"),
-    "adamw8bit": (1, 7, "8-bit optimizer state"),
-    "zoo": (1, 8, "Zoo"),
     "multi-gpu": (1, 9, "Multi-GPU"),
     "w8a8": (1, 10, "W8A8"),
     "g1": (2, 1, "G1: head width 32 in K3 and K8"),

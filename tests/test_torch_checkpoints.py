@@ -241,9 +241,9 @@ def test_convert_hf_auto_detects_families():
         (4, 1, 8, 8), np.float32)
     with pytest.raises(ValueError, match="2D DINOv2"):
         convert.convert_hf_auto(dino)
-    with pytest.raises(NotImplementedError, match="item 8, Zoo"):
-        convert.convert_hf_auto({"vision_model.post_layernorm.weight":
-                                 np.ones((4,), np.float32)})
+    siglip = {"vision_model.post_layernorm.weight": np.ones((4,), np.float32)}
+    assert set(convert.convert_hf_auto(siglip)) == set(flatten_params(
+        jconvert.convert_hf_auto(siglip))) == {"params.post_layernorm.scale"}
     with pytest.raises(ValueError, match="unrecognised"):
         convert.convert_hf_auto({"foo.bar": np.zeros((1,), np.float32)})
 

@@ -383,8 +383,8 @@ def test_run_classification_trains_resumes_and_evaluates(survival_data,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--lora_enable", "true"], "item 6, LoRA"),
-    (["--optim", "adamw8bit"], "item 7, 8-bit optimizer state"),
+    (["--model_parallel", "2"], "item 9, Multi-GPU"),
+    (["--sharding_policy", "tp"], "item 9, Multi-GPU"),
     (["--multihost", "true"], "item 9, Multi-GPU"),
 ])
 def test_run_classification_unported_flags_raise(flags, item):

@@ -70,7 +70,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
                  "ops._build", "ops.masking", "ops.rope3d",
                  "train.classification", "train.losses", "train.metrics",
                  "train.mim", "train.optim", "train.trainer", "train.vjepa",
-                 "utils.profiling"):
+                 "utils.profiling", "train.lora", "train.quantized",
+                 "models.siglip", "models.resnet3d", "data.image2d",
+                 "inference.encoders", "cli.run_encoders"):
         assert f"smb_vision_tpu_torch.{name}" in seen["names"]
     assert seen["jax"] == [] and seen["jax_package"] == []
     assert not seen["lib_loaded"]

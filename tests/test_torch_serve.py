@@ -292,7 +292,8 @@ def test_embed_matches_jax_service(root):
 
 
 def test_serve_refusals(root, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # --encoder merlin is ported: it needs its checkpoint
+    with pytest.raises(ValueError, match="model_name_or_path"):
         make_server(ServeArguments(encoder="merlin", port=0, device="cpu"))
     with pytest.raises(ValueError, match="unknown encoder"):
         make_server(ServeArguments(encoder="clip", port=0, device="cpu"))

@@ -73,9 +73,19 @@ def test_weight_decay_names():
                  "videomae.encoder.layer_1.norm2.bias",
                  "encoder.layer_0.attention.query.bias"):
         assert not toptim.is_decayed(name)
-    with pytest.raises(NotImplementedError, match="adamw8bit"):
-        toptim.make_optimizer([], learning_rate=1e-3, total_steps=3,
-                              optim="adamw8bit")
+    # a frozen BatchNorm's tensors (ResNet3D) are not decayed either
+    assert not toptim.is_decayed("layer1_0.cb1.bn.weight")
+    assert not toptim.is_decayed("params/stem/bn/mean")
+    # optim "adamw8bit" keeps the moments in int8 blocks
+    from smb_vision_tpu_torch.train.quantized import AdamW8bit
+
+    w = torch.nn.Parameter(torch.ones(3))
+    assert isinstance(toptim.make_optimizer(
+        [("w", w)], learning_rate=1e-3, total_steps=3,
+        optim="adamw8bit").opt, AdamW8bit)
+    with pytest.raises(ValueError, match="unknown optim"):
+        toptim.make_optimizer([("w", w)], learning_rate=1e-3,
+                              total_steps=3, optim="sgd")
     # two tiers: the head at merger_lr, the backbone at vision_lr, the
     # rest (fc_norm) at learning_rate; each split by weight decay
     names = ("videomae.encoder.layer_0.mlp.fc1.weight", "fc_norm.weight",

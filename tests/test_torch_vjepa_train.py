@@ -270,7 +270,7 @@ def test_run_vjepa_trains_resumes_and_exports_for_jax(volumes, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--pipeline_stages", "2"], "item 9, Multi-GPU"),
     (["--sequence_parallel", "true"], "item 9, Multi-GPU"),
-    (["--optim", "adamw8bit"], "item 7, 8-bit optimizer state"),
+    (["--model_parallel", "2"], "item 9, Multi-GPU"),
 ])
 def test_run_vjepa_unported_flags_raise(volumes, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
