@@ -154,7 +154,7 @@ Phases of the run without arguments, each of which fails the run
  13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
  13a. the same two phases for configs/vjepa_large_384.json: the parity
      step under pallas_i8bwd + pallas_int8 (K1 and K7 at d 32 in the
-     predictor); steps (the encoder's depth cut from 24 to 12 layers,
+     predictor); steps (the encoder's depth cut from 24 to 6 layers,
      REF_LAYERS) under "auto" (K1 + K4 at d 32 and 64) and under
      those impls at the largest batch up to the preset's 16 that fits,
      then "auto" at batch 4 beside the parent's routing (the predictor's
@@ -175,10 +175,10 @@ Phases of the run without arguments, each of which fails the run
      codes and scales), `run_inference` from model_merged.safetensors;
  10d. leg O: `run_vjepa` with configs/vjepa_large_384_tpu.json plus the
      two keys its _comment names ("optim": "adamw8bit",
-     "grad_accum_dtype": "bfloat16"), accumulation cut to 2: a 4-step run
-     stopped by a SIGTERM after step 2, resumed to 4, beside a straight
-     4-step run (the V-JEPA kernels; finite losses; the checkpoints equal
-     byte for byte);
+     "grad_accum_dtype": "bfloat16"), accumulation cut to 2 and the
+     encoder to 12 of 24 layers (LEG_O_LAYERS): a 4-step run stopped by a
+     SIGTERM after step 2, resumed to 4, beside a straight 4-step run (the
+     V-JEPA kernels; finite losses; the checkpoints equal byte for byte);
  10e. leg Z, the encoder zoo: `run_encoders --encoder siglip` on a seeded
      SigLIP-base-patch16-384 over 64 seeded PNGs at batch 32 (K1 and K2
      12 launches a batch; within 3e-2 of the plain path), images/s at
@@ -215,6 +215,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -283,6 +284,9 @@ LEG_I_CUTS = {"per_device_train_batch_size": 1,
 LEG_I_IMPLS = {"attn_impl": "pallas_i8bwd",
                "teacher_attn_impl": "pallas_int8"}
 LEG_D_ACCUM = 2         # the preset's 64 micro-batches, cut for a smoke run
+LEG_O_LAYERS = 12       # leg O's encoder depth cut (24 in the preset; the
+#                         predictor keeps its 12), to keep the script
+#                         inside its time limit
 # legs D and I: the steps of the first run (a checkpoint every 2), then of
 # the resumed one
 LEG_V_STEPS = (2, 4)
@@ -2280,6 +2284,10 @@ def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
     ws = reset_launches()
     res4, wall4 = run(4)
     counts = {name: w.launches for name, w in ws.items()}
+    # leg P's reference: the 4-step run's export and step records
+    shutil.copy(out / "model.safetensors", work / f"leg_{leg}_model_4.st")
+    first = [json.loads(line) for line in
+             (out / "metrics.jsonl").read_text().splitlines()]
     res6, wall6 = run(6)
     log(f"leg {leg}{f' ({overrides})' if overrides else ''}: {res4} in "
         f"{wall4:.1f} s, resumed {res6} in {wall6:.1f} s (preprocess + "
@@ -2322,6 +2330,311 @@ def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
     if not overrides:
         for name in ("flash_bwd", "mlp_train_fwd", "mlp_bwd"):
             table[name]["launches"] = counts[name]
+    return {"records": [r for r in first if "loss" in r], "wall": wall4,
+            "export": work / f"leg_{leg}_model_4.st"}
+
+
+# leg P: the launcher path at world 1 (NCCL), under fsdp, against leg C
+LEG_P_POLICY = "fsdp"
+TOL_LEG_P = 1e-3        # the repo's learning-equivalence bound, relative
+
+
+def torchrun_cmd(module: str, *argv: str, nproc: int = 1) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), "-m", module, *argv]
+
+
+def child_pids(pid: int) -> list:
+    """The direct children of a process (Linux /proc)."""
+    out = []
+    for task in Path(f"/proc/{pid}/task").glob("*"):
+        try:
+            out += [int(c) for c in (task / "children").read_text().split()]
+        except OSError:
+            pass
+    return out
+
+
+def launch(cmd: list, log_path: Path, env=None) -> subprocess.Popen:
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=open(log_path, "w"),
+                            stderr=subprocess.STDOUT)
+
+
+def finish(proc: subprocess.Popen, log_path: Path, what: str,
+           timeout: float = 600) -> None:
+    """Wait for a started command; on a failure or a timeout stop it and
+    raise with the end of its log."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        raise AssertionError(f"{what}: exit {rc}\n"
+                             + log_path.read_text()[-6000:])
+
+
+def same_checkpoint(a: Path, b: Path) -> tuple:
+    """(equal, files compared) of two sharded checkpoints: every shard
+    file byte for byte and meta.pt's values; `.metadata` (which names the
+    directory it was written to) left out."""
+    import torch
+
+    names = sorted(p.name for p in a.iterdir()
+                   if p.name not in (".metadata", "meta.pt"))
+    if names != sorted(p.name for p in b.iterdir()
+                       if p.name not in (".metadata", "meta.pt")):
+        return False, 0
+    same = all((a / n).read_bytes() == (b / n).read_bytes() for n in names)
+    meta = [torch.load(d / "meta.pt", weights_only=True) for d in (a, b)]
+    return same and meta[0] == meta[1], len(names)
+
+
+def run_leg_p(work: Path, leg_c: dict) -> dict:
+    """Leg P, the launcher path: `python -m torch.distributed.run
+    --standalone --nproc_per_node 1 -m smb_vision_tpu_torch.cli.run_mim`
+    with leg C's preset, volumes, seed and flags under --sharding_policy
+    fsdp (NCCL, FSDP2 over a data axis of 1): 4 straight steps, and in a
+    second directory 4 steps stopped by a SIGTERM to the rank after step
+    2 and resumed. The straight run's losses against leg C's (1e-3
+    relative), its export against leg C's 4-step export (1e-3 of each
+    tensor's max); the resumed run's checkpoint and export byte for byte
+    the straight run's. Returns the step records and walls."""
+    import numpy as np
+
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+
+    preset = json.loads(MIM_PRESET.read_text())
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def config(name):
+        path = work / f"leg_p_{name}.json"
+        path.write_text(json.dumps(dict(
+            preset, json_path=str(work / "mim_data.json"),
+            output_dir=str(work / f"leg_p_{name}"), num_train_steps=4,
+            save_steps=2, logging_steps=1, do_eval=True,
+            sharding_policy=LEG_P_POLICY)))
+        return path
+
+    cmd = functools.partial(torchrun_cmd, "smb_vision_tpu_torch.cli.run_mim")
+    walls = {}
+    t0 = time.perf_counter()
+    proc = launch(cmd(str(config("a"))), work / "leg_p_a.log", env)
+    finish(proc, work / "leg_p_a.log", "leg P, the straight run")
+    walls["straight"] = time.perf_counter() - t0
+    # the stopped run: SIGTERM to the rank once step 2 is logged
+    b = work / "leg_p_b"
+    t0 = time.perf_counter()
+    proc = launch(cmd(str(config("b"))), work / "leg_p_b1.log", env)
+    sent = None
+    while proc.poll() is None and sent is None:
+        time.sleep(0.2)
+        recs = (b / "metrics.jsonl").read_text().splitlines() \
+            if (b / "metrics.jsonl").exists() else []
+        if any(json.loads(r).get("step", 0) >= 2 for r in recs):
+            ranks = child_pids(proc.pid)
+            for pid in ranks:
+                os.kill(pid, signal.SIGTERM)
+            sent = ranks
+    finish(proc, work / "leg_p_b1.log", "leg P, the stopped run")
+    from smb_vision_tpu_torch.train.trainer import Trainer
+
+    stopped = Trainer.checkpoint_steps(b / "checkpoints")
+    if not sent or not stopped or stopped[-1] >= 4:
+        raise AssertionError(f"leg P: SIGTERM to {sent}, checkpoints "
+                             f"{stopped}: the run did not stop early")
+    proc = launch(cmd(str(config("b"))), work / "leg_p_b2.log", env)
+    finish(proc, work / "leg_p_b2.log", "leg P, the resumed run")
+    walls["stopped + resumed"] = time.perf_counter() - t0
+    a = work / "leg_p_a"
+    recs = [json.loads(x) for x in
+            (a / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "loss" in r]
+    ref = {r["step"]: r for r in leg_c["records"]}
+    worst = 0.0
+    for r in train:
+        c = ref[r["step"]]
+        rel = abs(r["loss"] - c["loss"]) / abs(c["loss"])
+        worst = max(worst, rel)
+        log(f"leg P step {r['step']}: loss {r['loss']:.6f} (leg C "
+            f"{c['loss']:.6f}, rel {rel:.3e}), {r['step_time_ms']:.1f} ms "
+            f"(leg C {c['step_time_ms']:.1f}), peak "
+            f"{r.get('peak_memory_mib', math.nan):.0f} MiB (leg C "
+            f"{c.get('peak_memory_mib', math.nan):.0f})")
+    if [r["step"] for r in train] != [1, 2, 3, 4] or not worst <= TOL_LEG_P:
+        raise AssertionError(f"leg P: steps {[r['step'] for r in train]}, "
+                             f"worst loss rel {worst} (bound {TOL_LEG_P})")
+    ours = read_safetensors(a / "model.safetensors")
+    theirs = read_safetensors(leg_c["export"])
+    if set(ours) != set(theirs):
+        raise AssertionError("leg P: the export's names differ from leg C's")
+    export_rel = max(float(np.abs(ours[k] - theirs[k]).max())
+                     / max(float(np.abs(theirs[k]).max()), 1e-30)
+                     for k in theirs)
+    if not export_rel <= TOL_LEG_P:
+        raise AssertionError(f"leg P: export rel {export_rel} from leg C's")
+    same, n_files = same_checkpoint(a / "checkpoints" / "4",
+                                    b / "checkpoints" / "4")
+    same_export = ((a / "model.safetensors").read_bytes()
+                   == (b / "model.safetensors").read_bytes())
+    if not (same and same_export and n_files):
+        raise AssertionError(f"leg P: the resumed run's checkpoint equal "
+                             f"{same} ({n_files} shard files), export "
+                             f"equal {same_export}")
+    log(f"leg P ({LEG_P_POLICY}, world 1, NCCL, through "
+        f"torch.distributed.run): worst step loss rel {worst:.3e} to leg C, "
+        f"export rel {export_rel:.3e}; stopped by SIGTERM at step "
+        f"{stopped[-1]}, resumed: checkpoint ({n_files} shard files) and "
+        f"export byte for byte the straight run's; wall {walls['straight']:.1f} s "
+        f"straight, {walls['stopped + resumed']:.1f} s stopped + resumed "
+        f"(each with torch.distributed.run's start, preprocessing, eval and "
+        f"saves); leg C's 4 steps {leg_c['wall']:.1f} s in process")
+    return {"records": train, "walls": walls}
+
+
+# two ranks on the one card: the Trainer API on a gloo group the script
+# makes (NCCL refuses two ranks of one device), CUDA tensors, the
+# full-width MIM step of configs/mim_base_512.json at 2 volumes a step
+TWO_RANK_POLICIES = (("dp", 1), ("fsdp", 1), ("tp", 2))
+TWO_RANK_STEPS = 2
+TWO_RANK_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd")
+TOL_TWO_RANKS = 1e-3    # relative, a step's loss against one rank
+
+
+def two_rank_steps(policy: str, model_parallel: int) -> dict:
+    """TWO_RANK_STEPS MIM steps of the configs/mim_base_512.json model
+    placed by the Trainer under `policy` (one device without a process
+    group), this rank on its rows of the same seeded global batches (2
+    volumes) and masks. Returns the losses, step times, launches and the
+    peak memory."""
+    import torch
+
+    from smb_vision_tpu_torch.ops.masking import mim_mask
+    from smb_vision_tpu_torch.parallel.collectives import share_rows
+    from smb_vision_tpu_torch.parallel.mesh import use_mesh
+    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import (
+        Trainer,
+        TrainingArguments,
+    )
+
+    dev = torch.device("cuda", 0)
+    cfg, preset = mim_config()
+    geo = dict(input_size=cfg.image_size, depth=cfg.num_frames,
+               mask_patch_size=preset["mask_patch_size"],
+               model_patch_size=cfg.patch_size,
+               mask_ratio=preset["mask_ratio"])
+    tx = functools.partial(make_optimizer,
+                           learning_rate=preset.get("learning_rate", 5e-5),
+                           total_steps=TWO_RANK_STEPS)
+    _, init_fn, step_fn, _ = make_mim_workload(
+        cfg, mask_patch_size=geo["mask_patch_size"],
+        mask_ratio=geo["mask_ratio"], tx=tx, device=dev)
+    state = init_fn(0)
+    trainer = Trainer(args=TrainingArguments(
+        output_dir=str(ROOT / "chip_smoke_work" / "two_ranks" / policy),
+        device="cuda", sharding_policy=policy,
+        model_parallel=model_parallel), state=state, step_fn=step_fn,
+        train_loader=None)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ws = reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with use_mesh(trainer.mesh):
+        for step in range(TWO_RANK_STEPS):
+            px = torch.rand((2, cfg.num_frames, 1, cfg.image_size,
+                             cfg.image_size), generator=gen, device=dev)
+            mask = mim_mask(torch.Generator().manual_seed(100 + step), 2,
+                            **geo)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(state, {"pixel_values": share_rows(px)},
+                        mask=share_rows(mask).to(dev))
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            del px
+    out = {"losses": losses, "step_ms": times,
+           "launches": {k: ws[k].launches for k in TWO_RANK_KERNELS},
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    del state, trainer, step_fn, init_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_rank_worker(rank: int, world: int, init: str, out: Path) -> None:
+    """One rank of the 2-rank phase: a gloo group through a file://
+    rendezvous, then `two_rank_steps` under each policy in turn."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        for policy, mp in TWO_RANK_POLICIES:
+            res = two_rank_steps(policy, mp)
+            (out / f"{policy}_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(work: Path, card: str) -> dict:
+    """The full-width MIM step on 2 ranks of the one card under dp, fsdp
+    and tp (model_parallel 2), against this process fed the global batch
+    on one device: each step's loss within 1e-3 relative, each kernel's
+    launches equal on both ranks and to the one process's. The ranks
+    share one card, so their step times are no speed."""
+    out = work / "two_ranks"
+    out.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    ref = two_rank_steps("dp", 1)
+    log(f"2 ranks, one process on the global batch (2 volumes): losses "
+        f"{ref['losses']}, step ms {[round(t, 1) for t in ref['step_ms']]}, "
+        f"peak {ref['peak_mib']:.0f} MiB, launches {ref['launches']}")
+    procs = []
+    try:
+        for r in range(2):
+            lp = out / f"rank_{r}.log"
+            procs.append((launch(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--two-ranks-worker", str(r), "2", str(out / "rdv"),
+                 str(out)], lp, env), lp))
+        for proc, lp in procs:
+            finish(proc, lp, "2-rank phase", timeout=900)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    summary = {"ref": ref}
+    for policy, _ in TWO_RANK_POLICIES:
+        res = [json.loads((out / f"{policy}_{r}.json").read_text())
+               for r in range(2)]
+        rel = max(abs(a - b) / abs(b) for r in res
+                  for a, b in zip(r["losses"], ref["losses"]))
+        same = all(r["launches"] == ref["launches"] for r in res)
+        per_step = {k: v / TWO_RANK_STEPS
+                    for k, v in res[0]["launches"].items()}
+        log(f"2 ranks on one card, {policy}: losses {res[0]['losses']} "
+            f"(worst rel {rel:.3e} to one process, bound {TOL_TWO_RANKS}); "
+            f"launches a step per rank {per_step} equal on both ranks and "
+            f"to one process: {same}; peak per rank "
+            f"{[round(r['peak_mib']) for r in res]} MiB; step ms per rank "
+            f"{[[round(t, 1) for t in r['step_ms']] for r in res]} (two "
+            f"ranks share the card: no speed)")
+        if not rel <= TOL_TWO_RANKS or not same:
+            raise AssertionError(f"2-rank {policy}: rel {rel}, launches "
+                                 f"{[r['launches'] for r in res]} against "
+                                 f"{ref['launches']}")
+        summary[policy] = res
+    log(f"2-rank phase: {time.perf_counter() - t0:.1f} s on {card}")
+    return summary
 
 
 LEG_J_STEPS = 8         # two epochs of the 4 volumes at batch 1
@@ -3073,7 +3386,7 @@ def parent_routing():
 REF_BATCHES = (16, 8, 4, 2, 1)
 REF_SAME_BATCH = 4
 REF_AGAINST_BATCH = 2   # the reference-head step in `phase_against`
-REF_LAYERS = 12         # the reference-head throughput phase's encoder
+REF_LAYERS = 6          # the reference-head throughput phase's encoder
 #                         depth cut (24 in the preset; the predictor keeps
 #                         its 12), to keep the script inside its time limit
 
@@ -4194,12 +4507,18 @@ def run_leg_o(work: Path, vols: Path) -> None:
     keys = {"optim": "adamw8bit", "grad_accum_dtype": "bfloat16"}
     log(f"leg O: {VJEPA_PRESET.name} with {keys} (its _comment's single-"
         f"chip recipe), gradient_accumulation_steps cut from "
-        f"{preset['gradient_accumulation_steps']} to {LEG_D_ACCUM}")
+        f"{preset['gradient_accumulation_steps']} to {LEG_D_ACCUM}, the "
+        f"encoder from {preset['num_hidden_layers']} to {LEG_O_LAYERS} "
+        f"layers")
+    overrides = ",".join(filter(None, (
+        preset.get("config_overrides"),
+        f"num_hidden_layers={LEG_O_LAYERS}")))
 
     def run(out, steps=4):
         path = work / f"vjepa_O_{out.name}.json"
         path.write_text(json.dumps(dict(
             preset, **keys, gradient_accumulation_steps=LEG_D_ACCUM,
+            config_overrides=overrides,
             data_path=str(spec), output_dir=str(out), num_train_steps=steps,
             save_steps=2, save_total_limit=1, logging_steps=1,
             do_eval=False, num_workers=2)))
@@ -4994,6 +5313,11 @@ def main() -> int:
                          f"script ({err}); run it from a checkout of the "
                          f"repository") from None
 
+    if sys.argv[1:2] == ["--two-ranks-worker"]:
+        # one rank of phase_two_ranks (the kernels are built)
+        rank, world, init, out = sys.argv[2:6]
+        two_rank_worker(int(rank), int(world), init, Path(out))
+        return 0
     t0 = time.perf_counter()
 
     def done(phase: str) -> None:
@@ -5031,9 +5355,13 @@ def main() -> int:
         done("legs S and W")
         phase_native_loader(vols)
         done("native loader")
-        run_leg_c(work, vols, table)
+        leg_c = run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         done("legs C and H")
+        run_leg_p(work, leg_c)
+        done("leg P")
+        phase_two_ranks(work, card)
+        done("2 ranks on one card")
         run_leg_j(work, vols, table)
         done("leg J")
         run_leg_d(work, vols, table)

@@ -16,8 +16,10 @@ its default. Outputs: `metrics.jsonl` (with the eval metrics),
 `lora.safetensors` and `model_merged.safetensors` (train/lora.py).
 --optim adamw8bit keeps the AdamW moments in int8 blocks. `--device`
 (default cuda) picks the device; the CLI refuses to run if CUDA is
-absent, and a CPU run must ask for it with --device cpu. Training runs on
-one device.
+absent, and a CPU run must ask for it with --device cpu. Under
+`python -m torch.distributed.run` it trains on N ranks as run_mim does:
+the Cox risk sets and the eval metrics are the global batch's. LoRA
+(--lora_enable) trains under sharding_policy dp only.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_classification \\
@@ -197,9 +199,31 @@ def _route_config(model_args: ModelArguments, data_args):
 
 def main(argv=None) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
-        _device_and_accum,
         _refuse_unported,
+        start_distributed,
+        stop_distributed,
     )
+    from smb_vision_tpu_torch.train.trainer import TrainingArguments
+
+    model_args, data_args, training_args = parse_args_into_dataclasses(
+        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
+    _refuse_unported(model_args, data_args, training_args,
+                     cli="run_classification")
+    if model_args.lora_enable and training_args.sharding_policy != "dp":
+        raise ValueError(
+            f"--lora_enable trains under --sharding_policy dp only, not "
+            f"{training_args.sharding_policy}")
+    device, accum_dt, mesh, made = start_distributed(training_args)
+    try:
+        return _main(model_args, data_args, training_args, device, accum_dt,
+                     mesh)
+    finally:
+        stop_distributed(made)
+
+
+def _main(model_args, data_args, training_args, device, accum_dt,
+          mesh) -> dict:
+    from smb_vision_tpu_torch.cli.run_mim import data_partition
     from smb_vision_tpu_torch.data.dataset import BatchLoader, CTDataset
     from smb_vision_tpu_torch.data.preprocess import (
         CT_PIPELINES,
@@ -211,17 +235,13 @@ def main(argv=None) -> dict:
         make_classification_workload,
     )
     from smb_vision_tpu_torch.train.metrics import compute_metrics
+    from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
     from smb_vision_tpu_torch.train.optim import make_optimizer
-    from smb_vision_tpu_torch.train.trainer import Trainer, TrainingArguments
+    from smb_vision_tpu_torch.train.trainer import Trainer
     from smb_vision_tpu_torch.utils.profiling import (
         classification_flops_per_sample,
     )
 
-    model_args, data_args, training_args = parse_args_into_dataclasses(
-        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args,
-                     cli="run_classification")
-    device, accum_dt = _device_and_accum(training_args)
     if data_args.additional_feature_columns == [""]:
         data_args.additional_feature_columns = []
     config, pipeline_key = build_config(model_args, data_args)
@@ -268,13 +288,17 @@ def main(argv=None) -> dict:
         collate_classification, task_type=data_args.task_type,
         label_columns=data_args.label_columns,
         additional_feature_columns=data_args.additional_feature_columns)
+    if train_ds is not None:
+        data_partition(train_ds, mesh)
     train_loader = BatchLoader(
         train_ds, training_args.per_device_train_batch_size
         * training_args.gradient_accumulation_steps, shuffle=True,
         seed=training_args.seed, num_workers=data_args.num_workers,
         collate=collate) if train_ds is not None else None
+    # every rank reads the global eval batch; the Trainer splits it
     eval_loader = (BatchLoader(eval_ds,
-                               training_args.per_device_eval_batch_size,
+                               training_args.per_device_eval_batch_size
+                               * axis_size(mesh, DATA_AXIS),
                                num_workers=data_args.num_workers,
                                drop_last=False, collate=collate)
                    if eval_ds and len(eval_ds) else None)
@@ -327,12 +351,13 @@ def main(argv=None) -> dict:
         args=training_args, state=state, step_fn=step_fn,
         train_loader=train_loader, eval_loader=eval_loader, eval_fn=eval_fn,
         compute_metrics=functools.partial(compute_metrics,
-                                          data_args.task_type))
+                                          data_args.task_type), mesh=mesh)
     result = {}
     if training_args.do_train:
         result.update(trainer.train())
         trainer.save_model()
-        config.save_json(str(trainer.out_dir / "config.json"))
+        if trainer.main:
+            config.save_json(str(trainer.out_dir / "config.json"))
         logger.info("train complete: %s", result)
     if training_args.do_eval:
         metrics = trainer.evaluate()

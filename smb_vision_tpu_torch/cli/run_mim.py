@@ -6,9 +6,14 @@ same single-JSON mode (`run_mim config.json`) and the same outputs
 package's names, `config.json`, and with --export_hf
 `hf_model.safetensors` in the HF VideoMAEForPreTraining layout).
 `--device` (default cuda) picks the device; the CLI refuses to run if CUDA
-is absent, and a CPU run must ask for it with --device cpu. Training runs
-on one device: sharding_policy "dp" or "fsdp" on one device is plain
-single-device training. The volumes go through the native CT loader when
+is absent, and a CPU run must ask for it with --device cpu. Under
+`python -m torch.distributed.run --nproc_per_node N` it trains on N ranks
+(NCCL on CUDA, gloo with --device cpu): --sharding_policy dp | fsdp | tp |
+fsdp+tp over a (data, model) mesh of --model_parallel model ranks
+(`parallel/`), each data rank reading its share of the items
+(`partition_items`) and feeding its share of the global batch of
+per_device_train_batch_size x data ranks x accumulation. The volumes go
+through the native CT loader when
 its library builds (else decode on the host and resample on the device),
 --cache_data_dir keeps them preprocessed on disk, --device_cache keeps
 them on the device after their first load, and --input_dtype uint8 ships
@@ -25,7 +30,6 @@ Example:
 from __future__ import annotations
 
 import functools
-import os
 import random
 from dataclasses import dataclass, field
 from dataclasses import fields as dc_fields
@@ -154,21 +158,59 @@ def _refuse_unported(model_args, data_args, training_args,
     counts as unset."""
     from smb_vision_tpu_torch.utils.args import not_ported
 
-    world = int(os.environ.get("WORLD_SIZE", "1"))
     unported = [*extra,
         (getattr(model_args, "pipeline_stages", 1) > 1,
          "--pipeline_stages > 1", "multi-gpu"),
-        (bool(training_args.multihost), "--multihost", "multi-gpu"),
-        (training_args.model_parallel > 1, "--model_parallel > 1",
-         "multi-gpu"),
-        (training_args.dcn_slices > 1 or world > 1,
-         "training on more than one device", "multi-gpu"),
-        (training_args.sharding_policy not in ("dp", "fsdp"),
-         f"--sharding_policy {training_args.sharding_policy}", "multi-gpu"),
     ]
     for hit, flag, item in unported:
         if hit:
             raise not_ported(flag, item, f"smb_vision_tpu.cli.{cli}")
+
+
+def start_distributed(training_args):
+    """Bring up torch.distributed when a launcher started this process
+    (or --multihost true), then the device and the (data, model) mesh of
+    --model_parallel and --dcn_slices. Returns (device, accumulation
+    dtype, mesh or None, whether this call made the process group)."""
+    import torch.distributed as dist
+
+    from smb_vision_tpu_torch.parallel.mesh import (
+        create_mesh,
+        maybe_initialize_distributed,
+    )
+
+    before = dist.is_initialized()
+    maybe_initialize_distributed(training_args.multihost,
+                                 device=training_args.device)
+    made = dist.is_initialized() and not before
+    device, accum_dt = _device_and_accum(training_args)
+    mesh = create_mesh(model=training_args.model_parallel,
+                       dcn=training_args.dcn_slices,
+                       device_type=device.type)
+    return device, accum_dt, mesh, made
+
+
+def stop_distributed(made: bool) -> None:
+    import torch.distributed as dist
+
+    if made and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def data_partition(train_ds, mesh) -> None:
+    """Each data rank keeps its share of the training items, in place
+    (the ranks of one model group read the same ones)."""
+    from smb_vision_tpu_torch.data.dataset import partition_items
+    from smb_vision_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        axis_rank,
+        axis_size,
+    )
+
+    n = axis_size(mesh, DATA_AXIS)
+    if n > 1:
+        train_ds.items = partition_items(train_ds.items, n,
+                                         axis_rank(mesh, DATA_AXIS))
 
 
 def make_datasets(data_args, training_args, pipe, device, data_path,
@@ -213,8 +255,8 @@ def make_train_loader(train_ds, data_args, training_args):
 
 def _device_and_accum(training_args):
     """The torch device of --device (cuda refuses to run without CUDA;
-    there is no fallback to the CPU) and the dtype of
-    --grad_accum_dtype."""
+    there is no fallback to the CPU; under a process group "cuda" is this
+    rank's card) and the dtype of --grad_accum_dtype."""
     import torch
 
     device = torch.device(training_args.device)
@@ -222,6 +264,8 @@ def _device_and_accum(training_args):
         raise RuntimeError(
             "--device cuda but CUDA is not available; pass --device cpu to "
             "run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"--device {training_args.device}: expected cuda "
                          "or cpu")
@@ -235,6 +279,21 @@ def _device_and_accum(training_args):
 
 
 def main(argv=None) -> dict:
+    from smb_vision_tpu_torch.train.trainer import TrainingArguments
+
+    model_args, data_args, training_args = parse_args_into_dataclasses(
+        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
+    _refuse_unported(model_args, data_args, training_args)
+    device, accum_dt, mesh, made = start_distributed(training_args)
+    try:
+        return _main(model_args, data_args, training_args, device, accum_dt,
+                     mesh)
+    finally:
+        stop_distributed(made)
+
+
+def _main(model_args, data_args, training_args, device, accum_dt,
+          mesh) -> dict:
     from smb_vision_tpu_torch.data.dataset import BatchLoader, CTDataset
     from smb_vision_tpu_torch.data.preprocess import (
         CT_PIPELINES,
@@ -245,15 +304,12 @@ def main(argv=None) -> dict:
         load_params_into,
         write_safetensors,
     )
+    from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
     from smb_vision_tpu_torch.train.mim import make_mim_workload
     from smb_vision_tpu_torch.train.optim import make_optimizer
-    from smb_vision_tpu_torch.train.trainer import Trainer, TrainingArguments
+    from smb_vision_tpu_torch.train.trainer import Trainer
     from smb_vision_tpu_torch.utils.profiling import mim_flops_per_sample
 
-    model_args, data_args, training_args = parse_args_into_dataclasses(
-        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args)
-    device, accum_dt = _device_and_accum(training_args)
     config = build_config(model_args)
     logger.info("MIM config: %s tokens, grid %s, on %s", config.seq_len,
                 config.grid, device)
@@ -281,10 +337,13 @@ def main(argv=None) -> dict:
                     "(train_val_split=%.2f)", data_args.validation_split,
                     len(train_ds), len(eval_ds), data_args.train_val_split)
 
+    data_partition(train_ds, mesh)
     train_loader = make_train_loader(train_ds, data_args, training_args)
+    # every rank reads the global eval batch; the Trainer splits it
+    n_data = axis_size(mesh, DATA_AXIS)
     eval_loader = (BatchLoader(eval_ds,
-                               training_args.per_device_eval_batch_size,
-                               shuffle=False,
+                               training_args.per_device_eval_batch_size
+                               * n_data, shuffle=False,
                                num_workers=data_args.num_workers,
                                drop_last=False)
                    if eval_ds and len(eval_ds) else None)
@@ -318,16 +377,18 @@ def main(argv=None) -> dict:
 
     trainer = Trainer(args=training_args, state=state, step_fn=step_fn,
                       train_loader=train_loader, eval_loader=eval_loader,
-                      eval_fn=eval_fn)
+                      eval_fn=eval_fn, mesh=mesh)
     result = {}
     if training_args.do_train:
         result.update(trainer.train())
         trainer.save_model()
-        config.save_json(str(trainer.out_dir / "config.json"))
         if model_args.export_hf:
+            full = trainer.full_model_state()
+        if trainer.main:
+            config.save_json(str(trainer.out_dir / "config.json"))
+        if model_args.export_hf and trainer.main:
             hf = export_hf_videomae(
-                trainer.state["model"].state_dict(),
-                num_layers=config.num_hidden_layers,
+                full, num_layers=config.num_hidden_layers,
                 decoder_layers=config.decoder_num_hidden_layers)
             write_safetensors(trainer.out_dir / "hf_model.safetensors", hf)
             logger.info("HF export: %d tensors -> hf_model.safetensors",

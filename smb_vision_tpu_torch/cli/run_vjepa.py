@@ -14,8 +14,9 @@ to image_size^2 x depth), with the data flags of run_mim
 or the JAX package's export, an HF V-JEPA2 file or a hub id): what
 matches is grafted into the student and the EMA teacher starts as its
 copy. `--device` (default cuda) picks the device; the CLI refuses to run
-if CUDA is absent, and a CPU run must ask for it with --device cpu.
-Training runs on one device.
+if CUDA is absent, and a CPU run must ask for it with --device cpu. Under
+`python -m torch.distributed.run` it trains on N ranks as run_mim does;
+the EMA teacher is placed like the student.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_vjepa \\
@@ -146,8 +147,29 @@ def build_config(model_args: ModelArguments):
 
 def main(argv=None) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
-        _device_and_accum,
         _refuse_unported,
+        start_distributed,
+        stop_distributed,
+    )
+    from smb_vision_tpu_torch.train.trainer import TrainingArguments
+
+    model_args, data_args, training_args = parse_args_into_dataclasses(
+        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
+    _refuse_unported(model_args, data_args, training_args, cli="run_vjepa",
+                     extra=[
+        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu")])
+    device, accum_dt, mesh, made = start_distributed(training_args)
+    try:
+        return _main(model_args, data_args, training_args, device, accum_dt,
+                     mesh)
+    finally:
+        stop_distributed(made)
+
+
+def _main(model_args, data_args, training_args, device, accum_dt,
+          mesh) -> dict:
+    from smb_vision_tpu_torch.cli.run_mim import (
+        data_partition,
         make_datasets,
         make_train_loader,
     )
@@ -161,17 +183,12 @@ def main(argv=None) -> dict:
         load_params_into,
         write_safetensors,
     )
+    from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
     from smb_vision_tpu_torch.train.optim import make_optimizer
-    from smb_vision_tpu_torch.train.trainer import Trainer, TrainingArguments
+    from smb_vision_tpu_torch.train.trainer import Trainer
     from smb_vision_tpu_torch.train.vjepa import make_vjepa_workload
     from smb_vision_tpu_torch.utils.profiling import vjepa_flops_per_sample
 
-    model_args, data_args, training_args = parse_args_into_dataclasses(
-        (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args, cli="run_vjepa",
-                     extra=[
-        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu")])
-    device, accum_dt = _device_and_accum(training_args)
     config = build_config(model_args)
     logger.info("V-JEPA config: %s tokens, grid %s, on %s", config.seq_len,
                 config.grid, device)
@@ -183,10 +200,12 @@ def main(argv=None) -> dict:
     train_ds, eval_ds, _ = make_datasets(
         data_args, training_args, pipe, device, data_args.data_path,
         data_args.train_split, data_args.validation_split)
+    data_partition(train_ds, mesh)
     train_loader = make_train_loader(train_ds, data_args, training_args)
+    # every rank reads the global eval batch; the Trainer splits it
     eval_loader = (BatchLoader(eval_ds,
-                               training_args.per_device_eval_batch_size,
-                               shuffle=False,
+                               training_args.per_device_eval_batch_size
+                               * axis_size(mesh, DATA_AXIS), shuffle=False,
                                num_workers=data_args.num_workers,
                                drop_last=False)
                    if eval_ds and len(eval_ds) else None)
@@ -221,16 +240,18 @@ def main(argv=None) -> dict:
         state["teacher"].load_state_dict(state["model"].state_dict())
     trainer = Trainer(args=training_args, state=state,
                       step_fn=step_fn, train_loader=train_loader,
-                      eval_loader=eval_loader, eval_fn=eval_fn)
+                      eval_loader=eval_loader, eval_fn=eval_fn, mesh=mesh)
     result = {}
     if training_args.do_train:
         result.update(trainer.train())
         trainer.save_model()
-        config.save_json(str(trainer.out_dir / "config.json"))
         if model_args.export_hf:
+            full = trainer.full_model_state()
+        if trainer.main:
+            config.save_json(str(trainer.out_dir / "config.json"))
+        if model_args.export_hf and trainer.main:
             hf = export_hf_vjepa2(
-                trainer.state["model"].state_dict(),
-                num_layers=config.num_hidden_layers,
+                full, num_layers=config.num_hidden_layers,
                 pred_layers=config.pred_num_hidden_layers)
             write_safetensors(trainer.out_dir / "hf_model.safetensors", hf)
             logger.info("HF export: %d tensors -> hf_model.safetensors",

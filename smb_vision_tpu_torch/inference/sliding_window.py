@@ -7,9 +7,12 @@ of each axis moved inside the volume), constant or gaussian importance
 weights, and windows run through the model in chunks of `sw_batch_size`,
 here in a plain loop on the volume's device. It returns the per-window
 token embeddings (B, n_win, L, D), or their weighted means (B, n_win, D)
-with pool=True, and the window starts. The voxel-space blend
-(`sliding_window_inference`) is not ported yet: nothing in the port calls
-it (ROADMAP.md queue 1 item 5, Sliding window and serving).
+with pool=True, and the window starts. `sliding_window_inference` is the
+voxel-space blend of a predictor's dense outputs: each window's output
+weighted by the importance map, summed where windows overlap, divided by
+the summed weights and cropped back to the input. The JAX package's
+`state=` argument and its cache of jitted runners have no counterpart: a
+PyTorch predictor holds its parameters and runs eagerly.
 """
 
 from __future__ import annotations
@@ -165,3 +168,42 @@ def sliding_window_embed(volume: torch.Tensor, roi_size: Sequence[int],
     if pool:
         return torch.einsum("bwld,l->bwd", emb, w / w.sum()), starts
     return emb * (w / w.mean())[None, None, :, None], starts
+
+
+def sliding_window_inference(volume: torch.Tensor, roi_size: Sequence[int],
+                             predictor: Callable[[torch.Tensor],
+                                                 torch.Tensor],
+                             *, overlap: float = 0.25,
+                             sw_batch_size: int = 1,
+                             mode: str = "constant",
+                             sigma_scale: float = 0.125,
+                             cval: float = 0.0) -> torch.Tensor:
+    """Dense voxel-space sliding window: predictor maps (N, C, *roi) ->
+    (N, C', *roi); the windows' outputs, weighted by the importance map,
+    are summed where they overlap and divided by the summed weights (+1e-8),
+    in float32, then cropped back to the input's spatial size. volume:
+    (B, C, H, W, D); returns (B, C', H, W, D) on the volume's device."""
+    b = volume.shape[0]
+    orig = volume.shape[2:]
+    padded = tuple(max(s, r) for s, r in zip(orig, roi_size))
+    starts = dense_window_starts(padded, roi_size,
+                                 scan_interval(padded, roi_size, overlap))
+    vol = _pad_to_min(volume, roi_size, cval)
+    imap = importance_map(roi_size, mode, sigma_scale).to(vol.device)
+    out = cnt = None
+    r0, r1, r2 = roi_size
+    for i in range(0, len(starts), sw_batch_size):
+        chunk = starts[i:i + sw_batch_size]
+        pred = predictor(_windows(vol, chunk, roi_size)).float()
+        pred = pred.reshape(len(chunk), b, *pred.shape[1:]) * imap
+        if out is None:
+            out = pred.new_zeros((b, pred.shape[2], *vol.shape[2:]))
+            cnt = pred.new_zeros((1, 1, *vol.shape[2:]))
+        # windows of one chunk may overlap: one addition each, in order
+        for (s0, s1, s2), p in zip(chunk.tolist(), pred):
+            out[:, :, s0:s0 + r0, s1:s1 + r1, s2:s2 + r2] += p
+            cnt[:, :, s0:s0 + r0, s1:s1 + r1, s2:s2 + r2] += imap
+    out = out / (cnt + 1e-8)
+    crops = [slice((cur - o) // 2, (cur - o) // 2 + o)
+             for cur, o in zip(vol.shape[2:], orig)]
+    return out[(slice(None), slice(None), *crops)]

@@ -35,6 +35,11 @@ from smb_vision_tpu_torch.ops.mlp import (
     swiglu_block_forward,
 )
 from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
+from smb_vision_tpu_torch.parallel.collectives import (
+    gather_shards,
+    global_rows,
+    share_rows,
+)
 from smb_vision_tpu_torch.utils.args import not_ported
 
 _MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
@@ -46,18 +51,40 @@ def trunc_normal_(t: torch.Tensor, std: float, generator=None):
                                  generator=generator)
 
 
+def _full(t):
+    """A parameter stored split over the model axis (a DTensor) as the
+    whole plain tensor, gathered at use; the gradient goes back as this
+    rank's piece (every rank of a model group computes the same
+    gradient). Any other tensor as it is."""
+    if t is None or not hasattr(t, "full_tensor"):
+        return t
+    return gather_shards(t)
+
+
 class Linear(nn.Linear):
-    """nn.Linear that computes in a given dtype from float32 parameters."""
+    """nn.Linear that computes in a given dtype from float32 parameters.
+    With `gather_at_use` (tensor parallelism on a kernel route,
+    `parallel/sharding.py`), weight and bias are stored split over the
+    model axis and `weight_full` / `bias_full` gather them whole, so the
+    kernels see whole weights, as under GSPMD in the JAX package."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  dtype: torch.dtype):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.gather_at_use = False
+
+    def weight_full(self):
+        return _full(self.weight) if self.gather_at_use else self.weight
+
+    def bias_full(self):
+        return _full(self.bias) if self.gather_at_use else self.bias
 
     def forward(self, x):
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        b = self.bias_full()
+        b = None if b is None else b.to(dt)
+        return F.linear(x.to(dt), self.weight_full().to(dt), b)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -107,11 +134,11 @@ class Attention(nn.Module):
         """One product of inp with the stacked weights of `linears`; biases
         stacked with zeros for a missing one, added only if any is there."""
         dt = self.dtype
-        w = torch.cat([lin.weight for lin in linears]).to(dt)
+        w = torch.cat([lin.weight_full() for lin in linears]).to(dt)
         b = None
         if any(lin.bias is not None for lin in linears):
-            b = torch.cat([lin.weight.new_zeros(lin.out_features)
-                           if lin.bias is None else lin.bias
+            b = torch.cat([w.new_zeros(lin.out_features, dtype=torch.float32)
+                           if lin.bias is None else lin.bias_full()
                            for lin in linears]).to(dt)
         return F.linear(inp.to(dt), w, b)
 
@@ -132,10 +159,13 @@ class Attention(nn.Module):
             k, v = self._fused(src, (self.key, self.value)).split(h, dim=-1)
         else:
             q, k, v = self.query(x), self.key(src), self.value(src)
-        q = q.reshape(b, n, self.num_heads, d)
-        k = k.reshape(b, src.shape[1], self.num_heads, d)
-        v = v.reshape(b, src.shape[1], self.num_heads, d)
-        out = self._attend(q, k, v, rope).reshape(b, n, h)
+        # the heads this rank holds: all of them, or a share under the
+        # Megatron split of tensor parallelism (q, k, v split by columns)
+        heads = q.shape[-1] // d
+        q = q.reshape(b, n, heads, d)
+        k = k.reshape(b, src.shape[1], heads, d)
+        v = v.reshape(b, src.shape[1], heads, d)
+        out = self._attend(q, k, v, rope).reshape(b, n, heads * d)
         return out if self.proj is None else self.proj(out)
 
     def _attend(self, q, k, v, rope):
@@ -156,15 +186,17 @@ class Attention(nn.Module):
         lins = (self.query, self.key, self.value)
         q, k, v = qkv_ln_forward(
             xd, lnw, lnb, *(t for lin in lins
-                            for t in (lin.weight.to(dt).t(), lin.bias)),
+                            for t in (lin.weight_full().to(dt).t(),
+                                      lin.bias_full())),
             eps=eps, impl="pallas")
         heads = (b, n, self.num_heads, h // self.num_heads)
         out = self._attend(q.reshape(heads), k.reshape(heads),
                            v.reshape(heads), rope).reshape(b, n, h)
-        bo = self.proj.bias
+        bo = self.proj.bias_full()
         if bo is None:
             bo = torch.zeros(h, dtype=torch.float32, device=x.device)
-        return attn_out_residual(xd, out, self.proj.weight.to(dt).t(), bo,
+        return attn_out_residual(xd, out,
+                                 self.proj.weight_full().to(dt).t(), bo,
                                  layerscale=lam, impl="pallas")
 
 
@@ -191,9 +223,10 @@ class Mlp(nn.Module):
                      and self.dtype == torch.bfloat16))
         if route and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
-            return mlp_forward(x.to(dt), self.fc1.weight.to(dt).t(),
-                               self.fc1.bias, self.fc2.weight.to(dt).t(),
-                               self.fc2.bias, act=self.act,
+            return mlp_forward(x.to(dt), self.fc1.weight_full().to(dt).t(),
+                               self.fc1.bias_full(),
+                               self.fc2.weight_full().to(dt).t(),
+                               self.fc2.bias_full(), act=self.act,
                                impl=self.mlp_impl)
         return self.fc2(act_fn(self.act)(self.fc1(x)))
 
@@ -235,7 +268,10 @@ class DropPath(nn.Module):
         """A (batch,) 0/1 keep mask from generator (the default generator
         of `device` when None), on `device`."""
         dev = generator.device if generator is not None else device
-        u = torch.rand((batch,), generator=generator, device=dev)
+        # drawn for the global batch, this rank's rows kept (the identity
+        # on one device)
+        u = share_rows(torch.rand((global_rows(batch),),
+                                  generator=generator, device=dev))
         return torch.floor((1.0 - self.rate) + u).to(device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
@@ -344,15 +380,15 @@ class Block(nn.Module):
                                      self.mlp.fc1.out_features, self.act)))
         if route and dp_off and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
-            w1 = self.mlp.fc1.weight.to(dt).t()
-            w2 = self.mlp.fc2.weight.t()
-            b2 = self.mlp.fc2.bias
+            w1 = self.mlp.fc1.weight_full().to(dt).t()
+            w2 = self.mlp.fc2.weight_full().t()
+            b2 = self.mlp.fc2.bias_full()
             if self.layerscale2 is not None:
                 w2 = w2 * self.layerscale2[None, :]
                 b2 = b2 * self.layerscale2
             return mlp_block_forward(
                 x.to(dt), self.norm2.weight, self.norm2.bias, w1,
-                self.mlp.fc1.bias, w2.to(dt), b2, act=self.act,
+                self.mlp.fc1.bias_full(), w2.to(dt), b2, act=self.act,
                 eps=self.eps, impl=self.mlp_impl)
         h = self.mlp(self.norm2(x))
         return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
@@ -363,14 +399,15 @@ class Block(nn.Module):
         dt = self.dtype
         # scaled in the Linear layout (K, F), so the kernel's read of it
         # copies nothing
-        w_out = self.mlp.weights_out.weight
-        b_out = self.mlp.weights_out.bias
+        w_out = self.mlp.weights_out.weight_full()
+        b_out = self.mlp.weights_out.bias_full()
         if self.layerscale2 is not None:
             w_out = w_out * self.layerscale2[:, None]
             b_out = b_out * self.layerscale2
         return swiglu_block_forward(
             x.to(dt), self.norm2.weight, self.norm2.bias,
-            self.mlp.weights_in.weight.to(dt).t(), self.mlp.weights_in.bias,
+            self.mlp.weights_in.weight_full().to(dt).t(),
+            self.mlp.weights_in.bias_full(),
             w_out.to(dt).t(), b_out, eps=self.eps, impl="pallas")
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from smb_vision_tpu_torch.parallel.collectives import data_mean
 from smb_vision_tpu_torch.models.configs import VideoMAEConfig
 from smb_vision_tpu_torch.models.layers import (
     Encoder,
@@ -194,7 +195,8 @@ class VideoMAEForPreTraining(nn.Module):
             labels = (normalize_pixel_targets(labels) if cfg.norm_pix_loss
                       else labels.float())
         sq = (logits.float() - labels) ** 2
-        loss = (sq.mean() if valid is None
+        loss = (data_mean(sq.sum(), sq.new_tensor(float(sq.numel())),
+                          local=sq.mean()) if valid is None
                 else row_weighted_mean(sq.mean(dim=(1, 2)), valid))
         return {"loss": loss, "logits": logits}
 
@@ -275,8 +277,11 @@ def classification_loss(logits, labels, num_labels: int,
 
 
 def row_weighted_mean(row: torch.Tensor, valid) -> torch.Tensor:
-    """Mean of per-row losses over the valid rows (valid=None: all)."""
+    """Mean of per-row losses over the valid rows (valid=None: all), over
+    the global batch on a mesh (`parallel.collectives.data_mean`)."""
     if valid is None:
-        return row.mean()
+        return data_mean(row.sum(), row.new_tensor(float(row.numel())),
+                         local=row.mean())
     v = valid.to(torch.float32)
-    return (row * v).sum() / torch.clamp(v.sum(), min=1.0)
+    return data_mean((row * v).sum(), v.sum(),
+                     local=(row * v).sum() / torch.clamp(v.sum(), min=1.0))

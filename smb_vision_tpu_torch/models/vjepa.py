@@ -25,6 +25,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from smb_vision_tpu_torch.parallel.collectives import data_mean
 from smb_vision_tpu_torch.models.configs import VJEPA2Config
 from smb_vision_tpu_torch.models.layers import (
     Attention,
@@ -274,7 +275,8 @@ class VJEPA2ForVideoClassification(nn.Module):
 
 def vjepa_loss(predictor_dense: torch.Tensor, teacher_enc: torch.Tensor,
                target_bool: torch.Tensor, valid=None) -> torch.Tensor:
-    """Masked L1: mean |pred - teacher| over the target positions, in f32.
+    """Masked L1: mean |pred - teacher| over the target positions, in f32,
+    over the global batch on a mesh (`parallel.collectives.data_mean`).
     valid: optional (B,) 0/1 row weights; rows of 0 (the Trainer's eval
     padding) leave both the sum and the target count."""
     diff = (predictor_dense.float() - teacher_enc.float()).abs()
@@ -282,5 +284,6 @@ def vjepa_loss(predictor_dense: torch.Tensor, teacher_enc: torch.Tensor,
     if valid is not None:
         w = w * valid.to(torch.float32)[:, None]
     w = w[..., None]
-    denom = torch.clamp(w.sum() * diff.shape[-1], min=1.0)
-    return (diff * w).sum() / denom
+    num = (diff * w).sum()
+    den = w.sum() * diff.shape[-1]
+    return data_mean(num, den, local=num / torch.clamp(den, min=1.0))

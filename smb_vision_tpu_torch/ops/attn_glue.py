@@ -144,7 +144,7 @@ def _qkv_fwd(x2, lnw, lnb, wq, wk, wv, bq, bk, bv, eps: float):
     """K10a or its plain version, by the device of x2; no autograd. The
     kernel's rows run in chunks of `glue_chunk_rows` through a workspace
     allocated here."""
-    if _device_of(x2, "qkv_ln_fused") == "cpu":
+    if _device_of(x2, "qkv_ln_fused", wq, wk, wv, bq, bk, bv) == "cpu":
         return _qkv_ln_plain(x2, lnw, lnb, wq, wk, wv, bq, bk, bv, eps)
     m, k = x2.shape
     dev = x2.device
@@ -167,7 +167,7 @@ def _qkv_fwd(x2, lnw, lnb, wq, wk, wv, bq, bk, bv, eps: float):
 
 def _out_fwd(res2, y2, wo, bo):
     """K10b or its plain version, by the device of y2; no autograd."""
-    if _device_of(y2, "out_res_fused") == "cpu":
+    if _device_of(y2, "out_res_fused", wo, bo) == "cpu":
         return _out_res_plain(res2, y2, wo, bo)
     m, k = y2.shape
     dev = y2.device

@@ -206,15 +206,21 @@ def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
     return (out, h) if spill else out
 
 
-def _device_of(x2, name: str) -> str:
+def _device_of(x2, name: str, *operands) -> str:
+    """The device type the wrapper runs on. A DTensor operand (a weight
+    still split over the mesh) raises: the kernels take whole plain
+    tensors, gathered before the call, never a copy made here."""
     if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {x2.device}")
+    if any(hasattr(t, "placements") for t in (x2, *operands)):
+        raise TypeError(f"{name}: a DTensor operand; the kernels take the "
+                        "whole weights (gathered at use), as plain tensors")
     return x2.device.type
 
 
 def _mlp_fwd(x2, w1, b1, w2, b2, act: str):
     """K6 or its plain version, by the device of x2; no autograd."""
-    if _device_of(x2, "mlp_fused") == "cpu":
+    if _device_of(x2, "mlp_fused", w1, b1, w2, b2) == "cpu":
         return _mlp_xla(x2.to(torch.bfloat16), w1, b1, w2, b2, act)
     out = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0, "mlp_fwd")
     mlp_fused.launches += 1
@@ -223,7 +229,7 @@ def _mlp_fwd(x2, w1, b1, w2, b2, act: str):
 
 def _mlp_block_fwd(x2, lnw, lnb, w1, b1, w2, b2, act: str, eps: float):
     """K2 or its plain version, by the device of x2; no autograd."""
-    if _device_of(x2, "mlp_block_fused") == "cpu":
+    if _device_of(x2, "mlp_block_fused", w1, b1, w2, b2) == "cpu":
         return _mlp_block_xla(x2.to(torch.bfloat16), lnw, lnb, w1, b1, w2,
                               b2, act, eps)
     out = _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps,
@@ -299,7 +305,7 @@ def mlp_train_fused(x2, w1, b1, w2, b2, *, act: str = "gelu"):
     """K5a on (M, K) rows: (y (M, K), h (M, F)), both bf16, h = x w1 + b1
     the pre-activation the backward reads. CPU tensors take
     `_mlp_train_plain`; CUDA tensors launch the kernel or raise."""
-    if _device_of(x2, "mlp_train_fused") == "cpu":
+    if _device_of(x2, "mlp_train_fused", w1, b1, w2, b2) == "cpu":
         return _mlp_train_plain(x2, w1, b1, w2, b2, act)
     y, h = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0,
                        "mlp_train_fwd", spill=True)
@@ -315,7 +321,7 @@ def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
     (M, K), dh and a = act(h) (M, F), all bf16; w1 (K, F), w2 (F, K).
     CPU tensors take `_mlp_bwd_plain`; CUDA tensors launch the kernel or
     raise."""
-    if _device_of(h, "mlp_bwd_fused") == "cpu":
+    if _device_of(h, "mlp_bwd_fused", w1, w2) == "cpu":
         return _mlp_bwd_plain(h, g2, w1, w2, act)
     m, f = h.shape
     k = g2.shape[1]
@@ -480,7 +486,8 @@ def swiglu_kernel_maps(k: int, f: int) -> bool:
 
 def _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps: float):
     """K9 or its plain version, by the device of x2; no autograd."""
-    if _device_of(x2, "swiglu_block_fused") == "cpu":
+    if _device_of(x2, "swiglu_block_fused", w_in, b_in,
+                  w_out, b_out) == "cpu":
         return _swiglu_block_plain(x2, lnw, lnb, w_in, b_in, w_out, b_out,
                                    eps)
     m, k = x2.shape

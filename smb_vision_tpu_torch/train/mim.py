@@ -16,6 +16,7 @@ import torch
 from smb_vision_tpu_torch.models.configs import VideoMAEConfig
 from smb_vision_tpu_torch.models.videomae import VideoMAEForPreTraining
 from smb_vision_tpu_torch.ops.masking import mim_mask, num_masked_tokens
+from smb_vision_tpu_torch.parallel.collectives import global_rows, share_rows
 from smb_vision_tpu_torch.train.trainer import accumulate_gradients
 
 
@@ -64,7 +65,9 @@ def make_mim_workload(config: VideoMAEConfig, *, mask_patch_size: int,
         opt = state["optimizer"]
         px = batch["pixel_values"]
         if mask is None:
-            mask = gen_mask(generator, px.shape[0])
+            # drawn for the global batch, this rank's rows kept
+            mask = share_rows(gen_mask(generator, global_rows(px.shape[0])),
+                              grad_accum)
         if not isinstance(mask, torch.Tensor):
             mask = torch.from_numpy(np.array(mask, dtype=bool))
         mask = mask.to(px.device)
@@ -81,7 +84,8 @@ def make_mim_workload(config: VideoMAEConfig, *, mask_patch_size: int,
     @torch.no_grad()
     def eval_fn(state, batch) -> dict:
         px = batch["pixel_values"]
-        mask = gen_mask(torch.Generator().manual_seed(0), px.shape[0])
+        mask = share_rows(gen_mask(torch.Generator().manual_seed(0),
+                                   global_rows(px.shape[0])))
         model.eval()
         return {"loss": loss_fn({**batch, "mask": mask.to(px.device)})}
 

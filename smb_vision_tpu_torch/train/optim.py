@@ -19,6 +19,7 @@ import re
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from smb_vision_tpu_torch.train.quantized import AdamW8bit
 
@@ -78,26 +79,64 @@ class ClippedAdamW:
     in float32 or in int8 blocks), then the schedule: one `step()` is one
     optax update. `tier_of(name)` puts each parameter in one tier of
     `schedules`, which holds a "default" tier. `state_dict` holds the
-    moments and the update count."""
+    moments and the update count.
+
+    On a mesh (`place`, after `parallel.sharding.apply_policy`) a step
+    first averages over the data axis the gradients FSDP2 does not reduce,
+    and the clip takes the norm of the whole gradient: each rank's squared
+    norms of its pieces, weighted by how many ranks hold the same piece,
+    summed over the world in one all-reduce."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
                  schedules: Dict[str, Callable[[int], float]],
                  tier_of: Callable[[str], str], weight_decay: float,
                  b1: float, b2: float, eps: float,
                  grad_clip: Optional[float], optim: str = "adamw"):
-        named = [(n, p) for n, p in named_params if p.requires_grad]
-        self.params = [p for _, p in named]
         self.schedules = schedules
-        groups = [
-            {"params": [p for n, p in named
-                        if tier_of(n) == tier and is_decayed(n) == decayed],
-             "weight_decay": weight_decay if decayed else 0.0, "tier": tier}
-            for tier in self.schedules for decayed in (True, False)]
+        self.tier_of = tier_of
+        self.weight_decay = weight_decay
+        self.hyper = dict(betas=(b1, b2), eps=eps)
+        self.optim = optim
         self.grad_clip = grad_clip
         self.updates = 0
-        self.opt = OPTIMIZERS[optim]([g for g in groups if g["params"]],
-                                     lr=schedules["default"](0),
-                                     betas=(b1, b2), eps=eps)
+        self.mesh, self.fsdp_ids = None, set()
+        self._build(named_params)
+
+    def _build(self, named_params) -> None:
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        self.params = [p for _, p in named]
+        # a DTensor and a plain tensor never share a group, nor do
+        # DTensors of different placements: each group's foreach update
+        # runs over like tensors
+        def kind(p):
+            return (str(getattr(p, "placements", "")),
+                    str(getattr(p, "device_mesh", "")))
+
+        groups = []
+        for tier in self.schedules:
+            for decayed in (True, False):
+                members = [(n, p) for n, p in named
+                           if self.tier_of(n) == tier
+                           and is_decayed(n) == decayed]
+                for k in dict.fromkeys(kind(p) for _, p in members):
+                    groups.append({
+                        "params": [p for _, p in members if kind(p) == k],
+                        "weight_decay": self.weight_decay if decayed
+                        else 0.0, "tier": tier})
+        self.opt = OPTIMIZERS[self.optim](
+            [g for g in groups if g["params"]],
+            lr=self.schedules["default"](0), **self.hyper)
+
+    def place(self, mesh, fsdp_ids, named_params=None) -> None:
+        """Take the mesh for the gradient sync and the clip, before the
+        first update; with named_params, rebuild over those placed
+        parameters (FSDP2 and DTensor TP replace the parameter
+        objects)."""
+        if self.updates:
+            raise ValueError("place the optimizer before its first update")
+        self.mesh, self.fsdp_ids = mesh, set(fsdp_ids)
+        if named_params is not None:
+            self._build(named_params)
 
     @property
     def lr(self) -> float:
@@ -111,13 +150,33 @@ class ClippedAdamW:
         if not self.grad_clip:
             return
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        if self.mesh is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
+        else:
+            from smb_vision_tpu_torch.parallel.sharding import (
+                local,
+                replication,
+            )
+
+            world = dist.get_world_size()
+            norms = torch.stack(torch._foreach_norm(
+                [local(g).float() for g in grads]))
+            weights = torch.tensor([1.0 / replication(g, world)
+                                    for g in grads], device=norms.device)
+            sq = (norms * norms * weights).sum()
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM)
+            norm = sq.sqrt()
+            grads = [local(g) for g in grads]
         scale = torch.where(norm < self.grad_clip, 1.0,
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
 
     def step(self) -> None:
+        if self.mesh is not None:
+            from smb_vision_tpu_torch.parallel.sharding import sync_gradients
+
+            sync_gradients(self.params, self.mesh, self.fsdp_ids)
         for g in self.opt.param_groups:
             g["lr"] = self.schedules[g["tier"]](self.updates)
         self.clip_()
@@ -190,5 +249,17 @@ def ema_update(teacher: torch.nn.Module, student: torch.nn.Module,
     """EMA teacher update, in place: t = t*m + s*(1 - m) for every
     parameter, in the teacher's dtype (f32), as the JAX `ema_update`
     computes it. Run once per optimizer step, after the update."""
+    for m in (teacher, student):
+        # FSDP2 leaves a root that ran forward only (the teacher) whole:
+        # back to its shards, so both hold the same pieces
+        if hasattr(m, "reshard"):
+            m.reshard()
     for t, s in zip(teacher.parameters(), student.parameters()):
+        # sharded teacher and student hold the same pieces: the update is
+        # local
+        t, s = _local(t), _local(s)
         t.copy_(t * momentum + s.to(t.dtype) * (1.0 - momentum))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t

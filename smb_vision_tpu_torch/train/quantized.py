@@ -19,6 +19,27 @@ with the decay mask). The moments take ~0.26 of float32 AdamW's bytes.
 PyTorch has no cube root: `sign(x) * |x| ** (1/3)` can sit one ulp from
 `jnp.cbrt`, so a code on a rounding tie may differ from the JAX package's
 by one step (tests/test_torch_adamw8bit.py counts them).
+
+Sharded parameters (`parallel/sharding.py`; DTensors). The blocks are
+always those of the whole flattened parameter, so the moments are the
+single-process moments, and their block axis is split over the mesh axes
+the parameter is split over, where the block count divides, as the JAX
+package's `quantized_spec` places them; otherwise every rank keeps them
+whole. Three layouts:
+- "local": the local piece is a contiguous run of whole blocks (a dim-0
+  split into multiples of 256 elements: FSDP2's, a column split under
+  tensor parallelism); the rank's blocks are its piece's, and a step
+  needs no communication;
+- "rows": the block count divides over the pieces but a piece is not its
+  blocks (a row split, a 2-D split, a piece of a partial block); the rank
+  gathers the gradient and the parameter, updates its rows of blocks and
+  gathers the update;
+- "full": the block count does not divide; every rank updates all the
+  blocks from the gathered gradient and keeps its piece of the update.
+`state_dict` gives the "local" and "rows" moments as DTensors split on
+the block axis, of the single-process shape, so a checkpoint's gathered
+state is the single-process state byte for byte and resumes at any world
+size.
 """
 
 from __future__ import annotations
@@ -28,6 +49,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from smb_vision_tpu_torch.parallel.sharding import is_split
+from smb_vision_tpu_torch.parallel.sharding import local as _local
 
 BLOCK = 256
 # the update runs over a group's moments in chunks of at most this many
@@ -105,7 +129,7 @@ class AdamW8bit(torch.optim.Optimizer):
     def _pack(self, params) -> dict:
         """The flat buffers of `params`, from their state (zeros where
         they have none), and their per-parameter views as the state."""
-        rows = [-(-p.numel() // BLOCK) for p in params]
+        rows = [_layout(p)[1] for p in params]
         states = [self.state.get(p) for p in params]
         counts = {int(s["step"]) if s else 0 for s in states}
         if len(counts) > 1:
@@ -113,7 +137,7 @@ class AdamW8bit(torch.optim.Optimizer):
                              f"gradient update together, but their counts "
                              f"differ ({sorted(counts)}): a parameter had "
                              f"no gradient at some update")
-        dev = params[0].device
+        dev = _local(params[0]).device
 
         def flat(key, dtype, width):
             return torch.cat([
@@ -149,8 +173,29 @@ class AdamW8bit(torch.optim.Optimizer):
                 st = saved[i]
                 self.state[p] = {
                     "step": torch.tensor(int(st["step"]), dtype=torch.int32),
-                    **{k: st[k].to(p.device, KEYS[k][0]) for k in KEYS}}
+                    **{k: _local(st[k]).to(_local(p).device, KEYS[k][0])
+                       for k in KEYS}}
         self._packs = {}
+
+    def state_dict(self):
+        """torch.optim.Optimizer's; the "local" and "rows" blocks as
+        DTensors split on the block axis, of the single-process shape."""
+        out = super().state_dict()
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, st in out["state"].items():
+            p = params[i]
+            mode, _, nb = _layout(p)
+            if mode not in ("local", "rows"):
+                continue
+            from torch.distributed.tensor import DTensor
+
+            out["state"][i] = {**st, **{
+                k: DTensor.from_local(
+                    st[k], p.device_mesh, _block_placements(p),
+                    run_check=False, shape=(nb, st[k].shape[1]),
+                    stride=st[k].stride())
+                for k in KEYS}}
+        return out
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -174,7 +219,7 @@ class AdamW8bit(torch.optim.Optimizer):
             for lo, hi, r0, r1 in pack["chunks"]:
                 ps, rows = params[lo:hi], pack["rows"][lo:hi]
                 mu, mu_s, nu, nu_s = (pack[k][r0:r1] for k in KEYS)
-                g = _rows([p.grad for p in ps], rows)
+                g = _rows([_work(p.grad, p) for p in ps], rows)
                 m = _dequantize_rows(mu, mu_s)
                 m = b1 * m + (1 - b1) * g
                 v = _dequantize_rows(nu, nu_s)
@@ -186,13 +231,97 @@ class AdamW8bit(torch.optim.Optimizer):
                     codes.copy_(c)
                     scales.copy_(s)
                 if wd:
-                    upd = upd + wd * _rows(ps, rows)
-                upd = (upd * -lr).reshape(-1)
+                    upd = upd + wd * _rows([_work(p, p) for p in ps], rows)
+                upd = upd * -lr
                 cast, views, off = {}, [], 0
                 for p, nb in zip(ps, rows):
                     if p.dtype not in cast:
                         cast[p.dtype] = upd.to(p.dtype)
-                    views.append(cast[p.dtype][off:off + p.numel()]
-                                 .view(p.shape))
-                    off += nb * BLOCK
-                torch._foreach_add_(ps, views)
+                    views.append(_own_update(cast[p.dtype][off:off + nb], p))
+                    off += nb
+                torch._foreach_add_([_local(p) for p in ps], views)
+
+
+def _split_dims(p):
+    """The mesh dims a DTensor is split over."""
+    return [i for i, pl in enumerate(getattr(p, "placements", ()))
+            if is_split(pl)]
+
+
+def _pieces(p) -> int:
+    """The number of distinct pieces a DTensor is split into."""
+    return math.prod(p.device_mesh.size(i) for i in _split_dims(p))
+
+
+def _layout(p):
+    """(mode, this rank's block rows, the parameter's block count): mode
+    "plain" (not a DTensor), "local", "rows" or "full" (module
+    docstring)."""
+    nb = -(-p.numel() // BLOCK)
+    if not hasattr(p, "placements"):
+        return "plain", nb, nb
+    n = _pieces(p)
+    if n == 1:
+        return "local", nb, nb
+    dims = _split_dims(p)
+    pl = p.placements[dims[0]]
+    if (len(dims) == 1 and type(pl).__name__ == "Shard" and pl.dim == 0
+            and p.shape[0] % n == 0 and _local(p).numel() % BLOCK == 0):
+        return "local", nb // n, nb
+    if nb % n == 0:
+        return "rows", nb // n, nb
+    return "full", nb, nb
+
+
+def _block_index(p) -> int:
+    """This rank's index among the pieces of p, the first split mesh dim
+    major (the order of DTensor's Shard(0) over those dims)."""
+    coord = p.device_mesh.get_coordinate()
+    r = 0
+    for i in _split_dims(p):
+        r = r * p.device_mesh.size(i) + coord[i]
+    return r
+
+
+def _block_placements(p):
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = set(_split_dims(p))
+    return [Shard(0) if i in dims else Replicate()
+            for i in range(p.device_mesh.ndim)]
+
+
+def _work(t: torch.Tensor, p) -> torch.Tensor:
+    """The tensor (gradient or parameter) this rank forms its blocks
+    over, flattened: its local piece ("plain", "local"), its rows of the
+    whole tensor's blocks ("rows"), or the whole tensor ("full")."""
+    mode, rows, nb = _layout(p)
+    if mode in ("plain", "local"):
+        return _local(t).reshape(-1)
+    flat = t.full_tensor().reshape(-1)
+    if mode == "full":
+        return flat
+    flat = torch.nn.functional.pad(flat, (0, nb * BLOCK - flat.numel()))
+    r = _block_index(p)
+    return flat[r * rows * BLOCK:(r + 1) * rows * BLOCK]
+
+
+def _own_update(upd_rows: torch.Tensor, p) -> torch.Tensor:
+    """This rank's piece of the update of p, from its update rows (rows,
+    BLOCK): the rows themselves ("plain", "local"), else the whole update
+    (gathered over the pieces in "rows" mode) cut to its piece."""
+    mode, rows, nb = _layout(p)
+    if mode in ("plain", "local"):
+        local = _local(p)
+        return upd_rows.reshape(-1)[:local.numel()].view(local.shape)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = p.device_mesh
+    if mode == "rows":
+        upd_rows = DTensor.from_local(
+            upd_rows, mesh, _block_placements(p), run_check=False,
+            shape=(nb, BLOCK), stride=upd_rows.stride()).full_tensor()
+    full = upd_rows.reshape(-1)[:p.numel()].view(p.shape)
+    return DTensor.from_local(
+        full, mesh, [Replicate()] * mesh.ndim, run_check=False
+    ).redistribute(mesh, p.placements).to_local()

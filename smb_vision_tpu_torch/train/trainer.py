@@ -16,6 +16,20 @@ hyperparameters and initial head, and the step and epoch, under
 seeds its own mask generator from (seed, step), and a resumed run skips
 the batches its epoch already consumed, so it replays no batch and no
 mask: 2 steps + resume + 2 steps equals 4 steps bitwise.
+
+On N ranks (`python -m torch.distributed.run`, `parallel/mesh.py`) the
+Trainer takes a (data, model) mesh and a sharding policy ("dp", "fsdp",
+"tp", "fsdp+tp"; `parallel/sharding.py`), places the model, the EMA
+teacher and the optimizer state, and runs every step inside the mesh
+(`use_mesh`): the masks and the DropPath draws are drawn for the global
+batch and sliced by rank, and the losses are the global batch's
+(`parallel/collectives.py`). Each rank's train loader yields its share of
+the global batch, laid out (accumulation, data rank, micro-batch rows).
+Rank 0 writes the metrics and the exports; a stop request on any rank
+stops every rank after the same step; checkpoints go through
+`torch.distributed.checkpoint` (a directory of shards and `meta.pt`
+under `checkpoints/<step>/`), which reshards on load, so a run resumes at
+another world size, or as one process.
 """
 
 from __future__ import annotations
@@ -32,8 +46,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from smb_vision_tpu_torch.data import quantization
 from smb_vision_tpu_torch.data.dataset import prefetch_to_device, to_tensor
+from smb_vision_tpu_torch.parallel import mesh as pmesh
+from smb_vision_tpu_torch.parallel.collectives import gather_rows
+from smb_vision_tpu_torch.parallel.sharding import apply_policy, check_policy
 from smb_vision_tpu_torch.utils.logging import MetricLogger, get_logger
 from smb_vision_tpu_torch.utils.profiling import device_peak_flops, trace
 
@@ -46,6 +65,9 @@ _PIXEL_KEYS = ("pixel_values", "pixel_values_videos")
 # state entries beside the model and the optimizer that a checkpoint
 # carries: the LoRA merge hyperparameters and the head as initialised
 _STATE_EXTRAS = ("lora_meta", "base_head")
+# threads that write each rank's file of a sharded checkpoint (a ViT-Base
+# MIM state with its AdamW moments is ~1.3 GB)
+_SAVE_THREADS = 4
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "uint8": torch.uint8}
 
@@ -164,7 +186,12 @@ class Trainer:
     def __init__(self, *, args: TrainingArguments, state: dict,
                  step_fn: Callable, train_loader, eval_loader=None,
                  eval_fn: Optional[Callable] = None,
-                 compute_metrics: Optional[Callable] = None):
+                 compute_metrics: Optional[Callable] = None,
+                 mesh=None, min_fsdp_size: int = 2 ** 16):
+        """mesh: the (data, model) DeviceMesh; by default
+        `create_mesh(model=args.model_parallel, dcn=args.dcn_slices)`,
+        None without a process group (one device). The model (and the
+        teacher) must be on this rank's device."""
         self.args = args
         self.state = state
         self.step_fn = step_fn
@@ -173,6 +200,36 @@ class Trainer:
         self.eval_fn = eval_fn
         self.compute_metrics = compute_metrics
         self.device = torch.device(args.device)
+        if self.device.type == "cuda" and self.device.index is None \
+                and torch.cuda.is_available():
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        check_policy(args.sharding_policy)
+        self.mesh = mesh if mesh is not None else pmesh.create_mesh(
+            model=args.model_parallel, dcn=args.dcn_slices,
+            device_type=self.device.type)
+        self.n_data = pmesh.axis_size(self.mesh, pmesh.DATA_AXIS)
+        self.main = pmesh.is_main_process()
+        # host-side agreement (stop requests, checkpoint discovery) on a
+        # CPU group, so it never waits on the device
+        self._ctl = None
+        if self.mesh is not None and dist.get_world_size() > 1:
+            self._ctl = (dist.new_group(backend="gloo")
+                         if dist.get_backend() != "gloo" else
+                         dist.group.WORLD)
+        if self.mesh is not None:
+            placed = args.sharding_policy != "dp"
+            if placed and "lora_meta" in state:
+                raise NotImplementedError(
+                    "a LoRA run trains under sharding_policy dp only")
+            fsdp_ids = apply_policy(state["model"], self.mesh,
+                                    args.sharding_policy, min_fsdp_size)
+            if "teacher" in state:
+                apply_policy(state["teacher"], self.mesh,
+                             args.sharding_policy, min_fsdp_size)
+            # "dp" keeps the parameters; the other policies replace them
+            state["optimizer"].place(
+                self.mesh, fsdp_ids,
+                state["model"].named_parameters() if placed else None)
         if args.input_dtype not in _DTYPES:
             raise ValueError(f"input_dtype {args.input_dtype!r}: expected "
                              f"one of {sorted(_DTYPES)}")
@@ -182,7 +239,7 @@ class Trainer:
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.ckpt_dir = self.out_dir / "checkpoints"
         self.mlog = MetricLogger(self.out_dir, report_to=args.report_to,
-                                 run_name=args.run_name)
+                                 run_name=args.run_name, enabled=self.main)
         if args.input_dtype == "uint8":
             # decode on the device, in the step, to bfloat16; the eval_fn
             # (host code for the classification metrics) gets decoded
@@ -222,36 +279,135 @@ class Trainer:
         return {k: to_tensor(v).to(self.device)
                 for k, v in self.host_cast(batch).items()}
 
+    # -- ranks -------------------------------------------------------------
+    def _agree(self, value):
+        """Rank 0's value of a host object, on every rank."""
+        if self._ctl is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self._ctl)
+        return box[0]
+
+    def _any(self, flag: bool) -> bool:
+        """True on every rank when flag is True on any."""
+        if self._ctl is None:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._ctl)
+        return bool(t.item())
+
+    def _barrier(self) -> None:
+        if self._ctl is not None:
+            dist.barrier(group=self._ctl)
+
     # -- checkpoints -------------------------------------------------------
     @staticmethod
     def checkpoint_steps(ckpt_dir: Path) -> List[int]:
+        """The complete checkpoints under ckpt_dir: `state.pt` (one
+        process) or a sharded one (`meta.pt`, written last)."""
         if not ckpt_dir.is_dir():
             return []
         return sorted(int(d.name) for d in ckpt_dir.iterdir()
-                      if d.name.isdigit() and (d / "state.pt").exists())
+                      if d.name.isdigit() and ((d / "state.pt").exists()
+                                               or (d / "meta.pt").exists()))
+
+    def _meta(self, step: int, epoch: int) -> dict:
+        meta = {"step": step, "epoch": epoch,
+                "updates": self.state["optimizer"].updates}
+        for key in _STATE_EXTRAS:
+            if key in self.state:
+                meta[key] = self.state[key]
+        return meta
+
+    def _sharded_state(self) -> dict:
+        """The model, optimizer and teacher state, keyed by parameter
+        name, in `torch.distributed.checkpoint`'s form (DTensors where
+        sharded)."""
+        from torch.distributed.checkpoint.state_dict import (
+            get_model_state_dict,
+            get_state_dict,
+        )
+
+        msd, osd = get_state_dict(self.state["model"],
+                                  self.state["optimizer"].opt)
+        out = {"model": msd, "optimizer": osd}
+        if "teacher" in self.state:
+            out["teacher"] = get_model_state_dict(self.state["teacher"])
+        return out
 
     def save_checkpoint(self, step: int, epoch: int) -> None:
         final = self.ckpt_dir / str(step)
         tmp = self.ckpt_dir / f".{step}.tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir(parents=True)
-        blob = {"model": self.state["model"].state_dict(),
-                "optimizer": self.state["optimizer"].state_dict(),
-                "step": step, "epoch": epoch}
-        for key in _STATE_EXTRAS:
-            if key in self.state:
-                blob[key] = self.state[key]
-        if "teacher" in self.state:
-            blob["teacher"] = self.state["teacher"].state_dict()
-        torch.save(blob, tmp / "state.pt")
-        shutil.rmtree(final, ignore_errors=True)
-        tmp.rename(final)
-        limit = self.args.save_total_limit
-        if limit:
-            for old in self.checkpoint_steps(self.ckpt_dir)[:-limit]:
-                shutil.rmtree(self.ckpt_dir / str(old), ignore_errors=True)
+        if self.main:
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True)
+        if self.mesh is None:
+            blob = {"model": self.state["model"].state_dict(),
+                    "optimizer": self.state["optimizer"].state_dict(),
+                    "step": step, "epoch": epoch}
+            for key in _STATE_EXTRAS:
+                if key in self.state:
+                    blob[key] = self.state[key]
+            if "teacher" in self.state:
+                blob["teacher"] = self.state["teacher"].state_dict()
+            torch.save(blob, tmp / "state.pt")
+        else:
+            import torch.distributed.checkpoint as dcp
+
+            self._barrier()
+            dcp.save(self._sharded_state(),
+                     storage_writer=dcp.FileSystemWriter(
+                         str(tmp), thread_count=_SAVE_THREADS))
+            if self.main:
+                torch.save(self._meta(step, epoch), tmp / "meta.pt")
+        if self.main:
+            shutil.rmtree(final, ignore_errors=True)
+            tmp.rename(final)
+            limit = self.args.save_total_limit
+            if limit:
+                for old in self.checkpoint_steps(self.ckpt_dir)[:-limit]:
+                    shutil.rmtree(self.ckpt_dir / str(old),
+                                  ignore_errors=True)
+        self._barrier()
 
     def _restore(self, path: Path) -> int:
+        """Restore from a checkpoint directory: `state.pt`, or a sharded
+        one, which loads at any world size (or as one process)."""
+        if not (path / "meta.pt").exists():
+            if self.mesh is not None:
+                raise ValueError(
+                    f"{path} holds a one-process checkpoint (state.pt); a "
+                    "sharded run resumes from a sharded one (meta.pt)")
+            return self._restore_blob(path / "state.pt")
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.state_dict import (
+            set_model_state_dict,
+            set_state_dict,
+        )
+
+        meta = torch.load(path / "meta.pt", weights_only=True)
+        sd = self._sharded_state()
+        dcp.load(sd, checkpoint_id=str(path))
+        opt = self.state["optimizer"].opt
+        # the groups are this run's (another world size groups the
+        # parameters otherwise); the state is matched by parameter name
+        groups = [{k: v for k, v in g.items() if k != "params"}
+                  for g in opt.param_groups]
+        set_state_dict(self.state["model"], opt,
+                       model_state_dict=sd["model"],
+                       optim_state_dict=sd["optimizer"])
+        for g, own in zip(opt.param_groups, groups):
+            g.update(own)
+        if "teacher" in self.state:
+            set_model_state_dict(self.state["teacher"], sd["teacher"])
+        self.state["optimizer"].updates = int(meta["updates"])
+        for key in _STATE_EXTRAS:
+            if key in self.state:
+                self.state[key] = meta[key]
+        self.state["step"] = int(meta["step"])
+        return self.state["step"]
+
+    def _restore_blob(self, path: Path) -> int:
         blob = torch.load(path, map_location=self.device, weights_only=True)
         self.state["model"].load_state_dict(blob["model"])
         self.state["optimizer"].load_state_dict(blob["optimizer"])
@@ -272,24 +428,43 @@ class Trainer:
         in output_dir, unless overwrite_output_dir deletes them."""
         if self.args.resume_from_checkpoint:
             path = Path(self.args.resume_from_checkpoint)
-            if not (path / "state.pt").exists():
-                steps = self.checkpoint_steps(path)
+            if not ((path / "state.pt").exists()
+                    or (path / "meta.pt").exists()):
+                steps = self._agree(self.checkpoint_steps(path))
                 if not steps:
                     raise FileNotFoundError(f"no checkpoint under {path}")
                 path = path / str(steps[-1])
-            return self._restore(path / "state.pt")
-        steps = self.checkpoint_steps(self.ckpt_dir)
+            return self._restore(path)
+        steps = self._agree(self.checkpoint_steps(self.ckpt_dir))
         if self.args.overwrite_output_dir:
             if steps:
                 logger.info("overwrite_output_dir: deleting checkpoints up "
                             "to step %d, training from scratch", steps[-1])
-            shutil.rmtree(self.ckpt_dir, ignore_errors=True)
+            self._barrier()
+            if self.main:
+                shutil.rmtree(self.ckpt_dir, ignore_errors=True)
+            self._barrier()
             return 0
         if steps:
             logger.info("checkpoint detected, resuming at step %d",
                         steps[-1])
-            return self._restore(self.ckpt_dir / str(steps[-1]) / "state.pt")
+            return self._restore(self.ckpt_dir / str(steps[-1]))
         return 0
+
+    def full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The whole state_dict of the model, gathered from its shards; on
+        a mesh every rank must call it, and ranks other than 0 get an
+        empty dict."""
+        module = self.state["model"]
+        if not any(hasattr(p, "placements") for p in module.parameters()):
+            return module.state_dict() if self.main else {}
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+        )
+
+        return get_model_state_dict(module, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=True))
 
     def save_model(self) -> None:
         """Final weights as one flat safetensors file in the JAX package's
@@ -305,8 +480,17 @@ class Trainer:
 
         model = self.state["model"]
         if "lora_meta" not in self.state:
-            write_safetensors(self.out_dir / "model.safetensors",
-                              params_to_flax(model.state_dict()))
+            full = self.full_model_state()
+            if self.main:
+                write_safetensors(self.out_dir / "model.safetensors",
+                                  params_to_flax(full))
+            self._barrier()
+            return
+        if any(hasattr(p, "placements") for p in model.parameters()):
+            raise NotImplementedError(
+                "a LoRA run trains under sharding_policy dp only")
+        if not self.main:
+            self._barrier()
             return
         from smb_vision_tpu_torch.train import lora
 
@@ -320,9 +504,14 @@ class Trainer:
         write_safetensors(self.out_dir / "model_merged.safetensors",
                           params_to_flax(lora.base_state_dict(model,
                                                               merged=True)))
+        self._barrier()
 
     # -- loops -------------------------------------------------------------
     def train(self) -> Dict[str, int]:
+        with pmesh.use_mesh(self.mesh):
+            return self._train()
+
+    def _train(self) -> Dict[str, int]:
         args = self.args
         loader = self.train_loader
         steps_per_epoch = len(loader)
@@ -351,17 +540,24 @@ class Trainer:
             except ValueError:   # not the main thread
                 pass
 
-        samples_per_step = (args.per_device_train_batch_size
+        samples_per_step = (args.per_device_train_batch_size * self.n_data
                             * args.gradient_accumulation_steps)
         flops = args.model_flops_per_sample
         peak = device_peak_flops(self.device)
+        if peak:
+            peak *= pmesh.world_size()
         epoch, skip = divmod(start, steps_per_epoch)
         if skip:
             logger.info("resume: skipping %d consumed batches of epoch %d",
                         skip, epoch)
-        logger.info("training: %d -> %d steps, %d samples/step on %s",
-                    start, total, samples_per_step, self.device)
+        logger.info("training: %d -> %d steps, %d samples/step on %s%s",
+                    start, total, samples_per_step, self.device,
+                    "" if self.mesh is None else
+                    f", mesh {tuple(self.mesh.shape)} "
+                    f"{args.sharding_policy}")
         step = start
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
         window: List[torch.Tensor] = []
         prof_range = self.profile_range
         profiling = contextlib.ExitStack()
@@ -394,7 +590,7 @@ class Trainer:
                         prof_range = None
                     window.append(metrics["loss"].detach())
                     if step % args.logging_steps == 0:
-                        losses = [float(x) for x in window]   # synchronises
+                        losses = self._mean_over_ranks(window)  # syncs
                         dt = time.perf_counter() - t_last
                         sps = len(losses) * samples_per_step / dt
                         rec = {"step": step,
@@ -403,6 +599,10 @@ class Trainer:
                                "step_time_ms": dt / len(losses) * 1e3}
                         if flops and peak:
                             rec["mfu"] = flops * sps / peak
+                        if self.device.type == "cuda":
+                            rec["peak_memory_mib"] = \
+                                torch.cuda.max_memory_allocated(
+                                    self.device) / 2 ** 20
                         self.mlog.log(rec)
                         window.clear()
                         t_last = time.perf_counter()
@@ -411,6 +611,8 @@ class Trainer:
                     if (args.eval_steps and self.eval_loader is not None
                             and step % args.eval_steps == 0):
                         self.evaluate(step=step)
+                    # a stop asked of any rank stops all after this step
+                    stop["flag"] = self._any(stop["flag"])
                     if stop["flag"]:
                         break
                 else:
@@ -421,13 +623,23 @@ class Trainer:
             profiling.close()               # a window past the last step
             for sig, handler in prev.items():
                 signal.signal(sig, handler)
-        steps = self.checkpoint_steps(self.ckpt_dir)
+        steps = self._agree(self.checkpoint_steps(self.ckpt_dir))
         if not steps or steps[-1] != step:
             self.save_checkpoint(step, epoch)
         if stop["flag"]:
             logger.warning("stopped early at step %d (checkpoint saved); "
                            "run again to resume", step)
         return {"train_steps": step}
+
+    def _mean_over_ranks(self, values: List[torch.Tensor]) -> List[float]:
+        """Each logged value's mean over the ranks (the losses are the
+        global batch's on every rank already: the mean keeps them)."""
+        t = torch.stack([v.float().reshape(()) for v in values])
+        if self.mesh is not None and dist.get_world_size() > 1:
+            t = t.cpu()
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._ctl)
+            t = t / dist.get_world_size()
+        return [float(x) for x in t.cpu()]
 
     def evaluate(self, step: Optional[int] = None) -> Dict[str, float]:
         """eval_fn over the eval loader. A short final batch is padded to
@@ -439,27 +651,40 @@ class Trainer:
         eval set adds `eval_<name>` entries."""
         if self.eval_loader is None or self.eval_fn is None:
             return {}
+        with pmesh.use_mesh(self.mesh):
+            return self._evaluate(step)
+
+    def _evaluate(self, step: Optional[int]) -> Dict[str, float]:
         losses, preds, labels, size = [], [], [], None
+        m, r = pmesh.data_share()
         for raw in self.eval_loader:
             if "valid_mask" in raw:
                 raise ValueError("eval batches must not carry a "
                                  "'valid_mask' column: the Trainer injects "
                                  "its own padding mask under that name")
             n = len(raw["pixel_values"])
-            size = size or n
+            # every rank reads the global eval batch, padded to a multiple
+            # of the data axis as the JAX Trainer pads it, and evaluates
+            # its rows; the loss is the global batch's, the logits and
+            # labels are gathered back in row order
+            size = size or -(-n // m) * m
             batch = {k: np.concatenate([np.asarray(v)]
                                        + [np.asarray(v)[-1:]] * (size - n))
                      for k, v in raw.items()}
             batch["valid_mask"] = np.concatenate(
                 [np.ones(n, np.float32), np.zeros(size - n, np.float32)])
+            per = size // m
+            batch = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
             out = self.eval_fn(self.state, self.to_device(batch))
             losses.append((float(out["loss"]), n))
             if "logits" in out:
-                preds.append(_host(out["logits"])[:n])
+                preds.append(_host(gather_rows(out["logits"]))[:n])
             if "labels" in out:
                 lab = out["labels"]
-                labels.append({k: _host(v)[:n] for k, v in lab.items()}
-                              if isinstance(lab, dict) else _host(lab)[:n])
+                labels.append({k: _host(gather_rows(v))[:n]
+                               for k, v in lab.items()}
+                              if isinstance(lab, dict)
+                              else _host(gather_rows(lab))[:n])
         rec: Dict[str, float] = {}
         if losses:
             tot = sum(w for _, w in losses)

@@ -22,6 +22,7 @@ import torch
 from smb_vision_tpu_torch.models.configs import VJEPA2Config
 from smb_vision_tpu_torch.models.vjepa import VJEPA2Model, vjepa_loss
 from smb_vision_tpu_torch.ops.masking import vjepa_target_mask
+from smb_vision_tpu_torch.parallel.collectives import global_rows, share_rows
 from smb_vision_tpu_torch.train.optim import ema_update
 from smb_vision_tpu_torch.train.trainer import accumulate_gradients
 
@@ -77,7 +78,9 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
         opt = state["optimizer"]
         px = batch["pixel_values"]
         if mask is None:
-            mask = gen_mask(generator, px.shape[0])
+            # drawn for the global batch, this rank's rows kept
+            mask = share_rows(gen_mask(generator, global_rows(px.shape[0])),
+                              grad_accum)
         if not isinstance(mask, torch.Tensor):
             mask = torch.from_numpy(np.array(mask, dtype=bool))
         mask = mask.to(px.device)
@@ -96,7 +99,8 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
     @torch.no_grad()
     def eval_fn(state, batch) -> dict:
         px = batch["pixel_values"]
-        mask = gen_mask(torch.Generator().manual_seed(0), px.shape[0])
+        mask = share_rows(gen_mask(torch.Generator().manual_seed(0),
+                                   global_rows(px.shape[0])))
         model.eval()
         return {"loss": loss_for(px, mask.to(px.device),
                                  valid=batch.get("valid_mask"))}

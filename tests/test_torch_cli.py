@@ -364,7 +364,8 @@ def test_refusals_cite_roadmap_items():
     cite = re.compile(r"ROADMAP\.md queue (\d+) item (\d+), ([^)]+)\)")
     refusals = [
         lambda: run_mim.main(["--device", "cpu", "--pipeline_stages", "2"]),
-        lambda: run_mim.main(["--device", "cpu", "--multihost", "true"]),
+        lambda: run_vjepa.main(["--device", "cpu", "--pipeline_stages",
+                                "2"]),
         lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
                                 "true"]),
         lambda: tinfer.main(["--device", "cpu", "--quant8"]),

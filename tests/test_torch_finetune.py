@@ -388,8 +388,20 @@ def test_run_classification_trains_resumes_and_evaluates(survival_data,
     (["--multihost", "true"], "item 9, Multi-GPU"),
 ])
 def test_run_classification_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_classification.main(["--device", "cpu"] + flags)
+    """The multi-GPU flags are ported: --model_parallel 2 on one process
+    raises the mesh's own error, --sharding_policy tp runs past the
+    flags (and stops for want of data), and --multihost true without a
+    launcher's rendezvous variables raises instead of training alone."""
+    args = ["--device", "cpu"] + flags
+    if flags[0] == "--model_parallel":
+        with pytest.raises(ValueError, match="not divisible by model=2"):
+            run_classification.main(args)
+    elif flags[0] == "--sharding_policy":
+        with pytest.raises(SystemExit, match="train_data_path is required"):
+            run_classification.main(args)
+    else:
+        with pytest.raises(RuntimeError, match="MASTER_ADDR"):
+            run_classification.main(args)
 
 
 @pytest.mark.parametrize("flags", [

@@ -149,3 +149,33 @@ def test_preprocess_volume_full_matches_jax(spacing, shape, flip):
     assert out.shape == ref.shape and out.dtype == np.float32
     assert all(s % 32 == 0 for s in out.shape)
     np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def _window_predictor(xp):
+    """A predictor whose output at a voxel depends on its window (through
+    the window's mean), with two output channels per input channel."""
+    def predict(w):
+        m = w.mean(axis=(2, 3, 4), keepdims=True) if xp is jnp else \
+            w.mean(dim=(2, 3, 4), keepdim=True)
+        cat = jnp.concatenate if xp is jnp else torch.cat
+        return cat([w - m, w * m + 0.5], 1)
+    return predict
+
+
+@pytest.mark.parametrize("mode", ["constant", "gaussian"])
+@pytest.mark.parametrize("shape,roi,overlap,sw", [
+    ((2, 1, 40, 36, 48), (16, 16, 16), 0.25, 1),
+    ((1, 2, 20, 24, 16), (16, 16, 16), 0.5, 3),
+    ((1, 1, 10, 12, 14), (16, 16, 16), 0.25, 2),    # smaller than the roi
+])
+def test_sliding_window_inference_matches_jax(mode, shape, roi, overlap, sw):
+    vol = np.random.default_rng(3).normal(size=shape).astype(np.float32)
+    want = jsw.sliding_window_inference(
+        jnp.asarray(vol), roi, _window_predictor(jnp), overlap=overlap,
+        sw_batch_size=sw, mode=mode, cval=0.25)
+    got = tsw.sliding_window_inference(
+        torch.from_numpy(vol), roi, _window_predictor(torch),
+        overlap=overlap, sw_batch_size=sw, mode=mode, cval=0.25)
+    assert got.shape == want.shape == (shape[0], 2 * shape[1], *shape[2:])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
