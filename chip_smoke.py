@@ -929,6 +929,15 @@ def phase_quant_kernel(table: dict, gen, dev) -> None:
         if label == "one all-zero head" and float(s[1, 2]) != 1.0:
             raise AssertionError("quantize: an all-zero head's scale is "
                                  f"{float(s[1, 2])}, not 1")
+    # zero_scale (K7's do): the all-zero head reports 0, the rest as before
+    want8, want_s = A.quantize_per_head(zero, 1.0, zero_scale=True)
+    x8, s = A.quantize_per_head_kernel(zero, zero_scale=True)
+    same = torch.equal(x8, want8) and torch.equal(s, want_s)
+    log(f"quantize one all-zero head, zero_scale: bit for bit {same}, the "
+        f"head's scale {float(s[1, 2])}")
+    if not same or float(s[1, 2]) != 0.0:
+        raise AssertionError(f"quantize zero_scale: bit for bit {same}, the "
+                             f"all-zero head's scale {float(s[1, 2])}")
     del cases, x, want8, x8, vt, fused, zero
     q = r(1, MAIN_N, HEADS, HEAD_DIM)
     shape = f"embed q N={MAIN_N} H={HEADS} d={HEAD_DIM}"
@@ -2495,50 +2504,202 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
 
 # two ranks on the one card: the Trainer API on a gloo group the script
 # makes (NCCL refuses two ranks of one device), CUDA tensors, the
-# full-width MIM step of configs/mim_base_512.json at 2 volumes a step
-TWO_RANK_POLICIES = (("dp", 1), ("fsdp", 1), ("tp", 2))
+# full-width MIM step of configs/mim_base_512.json at 2 volumes a step,
+# under the data-axis and tensor-parallel policies, sequence parallelism
+# (both variants) and the pipeline; and the V-JEPA preset
+# configs/vjepa_large_384_tpu.json (ViT-L, 9,216 tokens) under the ring
+# and the pipeline. Each mode: (name, workload, policy, model axis,
+# sp_variant or None, pipeline stages)
+TWO_RANK_MODES = (("dp", "mim", "dp", 1, None, 1),
+                  ("fsdp", "mim", "fsdp", 1, None, 1),
+                  ("tp", "mim", "tp", 2, None, 1),
+                  ("gather", "mim", "dp", 2, "gather", 1),
+                  ("ring", "mim", "dp", 2, "ring", 1),
+                  ("pipeline", "mim", "pipeline", 2, None, 2),
+                  ("vjepa ring", "vjepa", "dp", 2, "ring", 1),
+                  ("vjepa pipeline", "vjepa", "pipeline", 2, None, 2))
 TWO_RANK_STEPS = 2
-TWO_RANK_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd")
+TWO_RANK_BATCH = 2      # volumes a step (the pipeline's 2 microbatches)
+TWO_RANK_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
+                    "flash_bwd_i8", "flash_fwd_i8", "mlp_fwd", "quantize")
 TOL_TWO_RANKS = 1e-3    # relative, a step's loss against one rank
+# a parameter's gradient norm a step against one process (`grad_gap`), set
+# from sound runs on the H100, where the worst gaps read 4.7e-4 under MIM's
+# modes, 8.1e-3 under V-JEPA's pipeline and 5.7e-2 under its ring (the
+# ring's teacher runs K1 where one process runs K3, so its targets differ);
+# a gradient wrong by a factor of 2 reads 0.5 or more above the floor
+TOL_TWO_RANK_GRADS = {"mim": 1e-2, "vjepa": 0.2}
+GRAD_FLOOR = 1e-5       # of the whole gradient's norm, `grad_gap`
 
 
-def two_rank_steps(policy: str, model_parallel: int) -> dict:
-    """TWO_RANK_STEPS MIM steps of the configs/mim_base_512.json model
-    placed by the Trainer under `policy` (one device without a process
-    group), this rank on its rows of the same seeded global batches (2
-    volumes) and masks. Returns the losses, step times, launches and the
-    peak memory."""
+def grad_shares(opt, names: dict) -> dict:
+    """Each parameter's squared gradient norm as the clip reads it (after
+    the step's gradient sync), as this rank's share: the norm of its local
+    piece, weighted as `ClippedAdamW.clip_` weighs it, so that the shares
+    of all ranks sum to the whole gradient's."""
+    import torch.distributed as dist
+
+    from smb_vision_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
+    from smb_vision_tpu_torch.parallel.sharding import local, replication
+
+    world = dist.get_world_size() if opt.mesh is not None else 1
+    stages = axis_size(opt.mesh, MODEL_AXIS) if opt.mesh is not None else 1
+    return {names[id(p)]: float(local(p.grad).float().norm()) ** 2
+            * (stages if id(p) in opt.stage_ids else 1)
+            / replication(p.grad, world)
+            for p in opt.params if p.grad is not None}
+
+
+def grad_norms(shares: list) -> list:
+    """Each step's per-parameter gradient norms from the ranks' shares
+    (`grad_shares`: one list of steps a rank)."""
+    steps = []
+    for per_rank in zip(*shares):
+        total: dict = {}
+        for share in per_rank:
+            for name, sq in share.items():
+                total[name] = total.get(name, 0.0) + sq
+        steps.append({name: math.sqrt(sq) for name, sq in total.items()})
+    return steps
+
+
+def grad_gap(got: list, want: list) -> tuple:
+    """The worst gap of a parameter's gradient norm over the steps, and
+    that parameter: |got - want| over want plus GRAD_FLOOR of the whole
+    gradient's norm. The floor keeps the attention key biases, whose exact
+    gradient is 0 (softmax ignores a common shift of a row's scores) and
+    whose norm is rounding at about 3e-8 of the whole, from reading as
+    gaps of their own noise. Raises when the two hold other names."""
+    worst, where = 0.0, None
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            raise AssertionError(f"gradients of {sorted(set(g) ^ set(w))} "
+                                 "on one side only")
+        floor = GRAD_FLOOR * math.sqrt(sum(x * x for x in w.values()))
+        for name, ref in w.items():
+            gap = abs(g[name] - ref) / (ref + floor)
+            if gap > worst:
+                worst, where = gap, name
+    return worst, where
+
+
+def expected_launches(mode: tuple, cfg) -> dict:
+    """Each kernel's launches a step on each rank, from the code: every
+    block of a stack runs its attention (K1) and its MLP (K5a) forward
+    twice under remat (the forward and the recompute) and their backward
+    (K4 or K7, K5b) once; a ring attention runs its kernel on 2 blocks of
+    keys, and the backward's kernels on the same 2; a pipeline stage runs
+    its L/S layers on each of T = M + S - 1 ticks (the bubble's included)
+    forward, again in the recompute, and backward. V-JEPA's forward-only
+    teacher runs K3 (its q and k quantised by R6) and K6 a layer, K1 on
+    each block in the ring (`attention_with_lse` takes K1 for the int8
+    spelling); each K7 quantises its q, k, v and do (4 R6 launches)."""
+    name, family, _, _, variant, stages = mode
+    blocks = 2 if variant == "ring" else 1
+    ticks = TWO_RANK_BATCH + stages - 1 if stages > 1 else 1
+    if family == "mim":
+        layers = cfg.num_hidden_layers + cfg.decoder_num_hidden_layers
+        per = ticks * layers // stages
+        return {"flash_fwd": 2 * blocks * per, "flash_bwd": blocks * per,
+                "mlp_train_fwd": 2 * per, "mlp_bwd": per, "flash_bwd_i8": 0,
+                "flash_fwd_i8": 0, "mlp_fwd": 0, "quantize": 0}
+    student = ticks * (cfg.num_hidden_layers
+                       + cfg.pred_num_hidden_layers) // stages
+    teacher = ticks * cfg.num_hidden_layers // stages
+    k3 = 0 if variant == "ring" else teacher
+    k7 = blocks * student
+    return {"flash_fwd": 2 * blocks * student
+            + (blocks * teacher if variant == "ring" else 0),
+            "flash_bwd": 0, "mlp_train_fwd": 2 * student, "mlp_bwd": student,
+            "flash_bwd_i8": k7, "flash_fwd_i8": k3, "mlp_fwd": teacher,
+            "quantize": 2 * k3 + 4 * k7}
+
+
+def two_rank_steps(mode: tuple) -> dict:
+    """TWO_RANK_STEPS steps of `mode`'s workload at full width, placed by
+    the Trainer under its policy (one device without a process group),
+    this rank on its rows of the same seeded global batches
+    (TWO_RANK_BATCH volumes) and masks (and DropPath generator). Returns
+    the losses, step times, launches a step, the peak memory and each
+    step's `grad_shares`."""
     import torch
 
-    from smb_vision_tpu_torch.ops.masking import mim_mask
+    from smb_vision_tpu_torch.ops.masking import mim_mask, vjepa_target_mask
     from smb_vision_tpu_torch.parallel.collectives import share_rows
-    from smb_vision_tpu_torch.parallel.mesh import use_mesh
-    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.parallel.mesh import create_mesh, use_mesh
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import (
         Trainer,
         TrainingArguments,
     )
 
+    name, family, policy, model_parallel, variant, stages = mode
     dev = torch.device("cuda", 0)
-    cfg, preset = mim_config()
-    geo = dict(input_size=cfg.image_size, depth=cfg.num_frames,
-               mask_patch_size=preset["mask_patch_size"],
-               model_patch_size=cfg.patch_size,
-               mask_ratio=preset["mask_ratio"])
+    sp = {} if variant is None else {"sequence_parallel": True,
+                                     "sp_variant": variant}
+    cfg, preset = (mim_config if family == "mim" else vjepa_config)(**sp)
     tx = functools.partial(make_optimizer,
                            learning_rate=preset.get("learning_rate", 5e-5),
                            total_steps=TWO_RANK_STEPS)
-    _, init_fn, step_fn, _ = make_mim_workload(
-        cfg, mask_patch_size=geo["mask_patch_size"],
-        mask_ratio=geo["mask_ratio"], tx=tx, device=dev)
+    mesh = create_mesh(model=model_parallel, device_type="cuda")
+    if family == "mim":
+        from smb_vision_tpu_torch.train.mim import (
+            make_mim_workload,
+            make_pipelined_mim_workload,
+        )
+
+        kw = dict(mask_patch_size=preset["mask_patch_size"],
+                  mask_ratio=preset["mask_ratio"], tx=tx, device=dev)
+        geo = dict(input_size=cfg.image_size, depth=cfg.num_frames,
+                   mask_patch_size=preset["mask_patch_size"],
+                   model_patch_size=cfg.patch_size,
+                   mask_ratio=preset["mask_ratio"])
+        _, init_fn, step_fn, _ = (
+            make_pipelined_mim_workload(cfg, mesh=mesh,
+                                        num_microbatches=TWO_RANK_BATCH,
+                                        **kw)
+            if stages > 1 else make_mim_workload(cfg, **kw))
+
+        def draw(step):
+            return mim_mask(torch.Generator().manual_seed(100 + step),
+                            TWO_RANK_BATCH, **geo)
+        frames, size = cfg.num_frames, cfg.image_size
+    else:
+        from smb_vision_tpu_torch.train.vjepa import (
+            make_pipelined_vjepa_workload,
+            make_vjepa_workload,
+        )
+
+        kw = dict(tx=tx, teacher_attn_impl=preset["teacher_attn_impl"],
+                  ema_momentum=preset["ema_momentum"], device=dev)
+        _, init_fn, step_fn, _ = (
+            make_pipelined_vjepa_workload(cfg, mesh=mesh,
+                                          num_microbatches=TWO_RANK_BATCH,
+                                          **kw)
+            if stages > 1 else make_vjepa_workload(cfg, **kw))
+
+        def draw(step):
+            return vjepa_target_mask(
+                torch.Generator().manual_seed(100 + step), TWO_RANK_BATCH,
+                grid=cfg.grid)
+        frames, size = cfg.frames_per_clip, cfg.crop_size
     state = init_fn(0)
     trainer = Trainer(args=TrainingArguments(
-        output_dir=str(ROOT / "chip_smoke_work" / "two_ranks" / policy),
+        output_dir=str(ROOT / "chip_smoke_work" / "two_ranks"
+                       / name.replace(" ", "_")),
         device="cuda", sharding_policy=policy,
         model_parallel=model_parallel), state=state, step_fn=step_fn,
-        train_loader=None)
+        train_loader=None, mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(7)
+    opt = state["optimizer"]
+    names = {id(p): n for n, p in state["model"].named_parameters()}
+    shares, clip = [], opt.clip_
+
+    def recording_clip():
+        shares.append(grad_shares(opt, names))
+        clip()
+
+    opt.clip_ = recording_clip
     ws = reset_launches()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2546,21 +2707,23 @@ def two_rank_steps(policy: str, model_parallel: int) -> dict:
     losses, times = [], []
     with use_mesh(trainer.mesh):
         for step in range(TWO_RANK_STEPS):
-            px = torch.rand((2, cfg.num_frames, 1, cfg.image_size,
-                             cfg.image_size), generator=gen, device=dev)
-            mask = mim_mask(torch.Generator().manual_seed(100 + step), 2,
-                            **geo)
+            px = torch.rand((TWO_RANK_BATCH, frames, 1, size, size),
+                            generator=gen, device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = step_fn(state, {"pixel_values": share_rows(px)},
-                        mask=share_rows(mask).to(dev))
+                        torch.Generator().manual_seed(200 + step),
+                        mask=share_rows(draw(step)).to(dev))
             losses.append(float(m["loss"]))
             times.append((time.perf_counter() - t0) * 1e3)
             del px
     out = {"losses": losses, "step_ms": times,
-           "launches": {k: ws[k].launches for k in TWO_RANK_KERNELS},
-           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
-    del state, trainer, step_fn, init_fn
+           "launches": {k: ws[k].launches // TWO_RANK_STEPS
+                        for k in TWO_RANK_KERNELS},
+           "expected": expected_launches(mode, cfg),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "grad_shares": shares}
+    del state, trainer, step_fn, init_fn, opt, names, clip, recording_clip
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2568,7 +2731,7 @@ def two_rank_steps(policy: str, model_parallel: int) -> dict:
 
 def two_rank_worker(rank: int, world: int, init: str, out: Path) -> None:
     """One rank of the 2-rank phase: a gloo group through a file://
-    rendezvous, then `two_rank_steps` under each policy in turn."""
+    rendezvous, then `two_rank_steps` of each mode in turn."""
     import torch
     import torch.distributed as dist
 
@@ -2576,27 +2739,71 @@ def two_rank_worker(rank: int, world: int, init: str, out: Path) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init}",
                             rank=rank, world_size=world)
     try:
-        for policy, mp in TWO_RANK_POLICIES:
-            res = two_rank_steps(policy, mp)
-            (out / f"{policy}_{rank}.json").write_text(json.dumps(res))
+        for mode in TWO_RANK_MODES:
+            t0 = time.perf_counter()
+            res = two_rank_steps(mode)
+            res["seconds"] = time.perf_counter() - t0
+            (out / f"{mode[0].replace(' ', '_')}_{rank}.json").write_text(
+                json.dumps(res))
     finally:
         dist.destroy_process_group()
 
 
+def check_zero_cotangent() -> None:
+    """K4 and K7 on an all-zero cotangent (a pipeline's bubble ticks and
+    the masked outputs of its other stages) return exact zeros, at the
+    V-JEPA encoder's head layout on one row."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 9216, 8, 128), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    zero = torch.zeros_like(out)
+    for name, fn in (("K4", A.flash_attention_bwd),
+                     ("K7", A.flash_attention_bwd_i8)):
+        worst = max(float(t.abs().max()) for t in fn(q, k, v, out, lse,
+                                                      zero))
+        if worst != 0.0:
+            raise AssertionError(f"{name} on an all-zero cotangent: "
+                                 f"max |grad| {worst}, not 0")
+    log("K4 and K7 on an all-zero cotangent: exact zeros")
+
+
 def phase_two_ranks(work: Path, card: str) -> dict:
     """The full-width MIM step on 2 ranks of the one card under dp, fsdp
-    and tp (model_parallel 2), against this process fed the global batch
-    on one device: each step's loss within 1e-3 relative, each kernel's
-    launches equal on both ranks and to the one process's. The ranks
-    share one card, so their step times are no speed."""
+    and tp (model_parallel 2), sequence parallel ("gather" and "ring",
+    the tokens over a model axis of 2) and pipelined (2 stages x 2
+    microbatches), and the V-JEPA preset's step under the ring and the
+    pipeline, each against this process fed the global batch on one
+    device: each step's loss within 1e-3 relative; each parameter's
+    gradient norm a step (the clip's, after the sync) within
+    TOL_TWO_RANK_GRADS (`grad_gap`), which a gradient wrong by a factor (a
+    missing or doubled model-axis sum, a stage's broadcast counted twice)
+    misses, where AdamW's update would hide it; each kernel's launches
+    a step equal on both ranks and to `expected_launches` (dp, fsdp, tp
+    and gather: the one process's); the peak memory per rank logged
+    beside dp's (V-JEPA: beside the one process's). The ranks share one
+    card, so their step times are no speed."""
     out = work / "two_ranks"
     out.mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
-    ref = two_rank_steps("dp", 1)
-    log(f"2 ranks, one process on the global batch (2 volumes): losses "
-        f"{ref['losses']}, step ms {[round(t, 1) for t in ref['step_ms']]}, "
-        f"peak {ref['peak_mib']:.0f} MiB, launches {ref['launches']}")
+    check_zero_cotangent()
+    refs = {}
+    for family in ("mim", "vjepa"):
+        mode = (f"{family} one process", family, "dp", 1, None, 1)
+        ref = refs[family] = two_rank_steps(mode)
+        if ref["launches"] != ref["expected"]:
+            raise AssertionError(f"{mode[0]}: launches {ref['launches']}, "
+                                 f"expected {ref['expected']}")
+        log(f"2 ranks, {family} in one process on the global batch "
+            f"({TWO_RANK_BATCH} volumes): losses {ref['losses']}, step ms "
+            f"{[round(t, 1) for t in ref['step_ms']]}, peak "
+            f"{ref['peak_mib']:.0f} MiB, launches a step {ref['launches']}")
     procs = []
     try:
         for r in range(2):
@@ -2612,27 +2819,40 @@ def phase_two_ranks(work: Path, card: str) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    summary = {"ref": ref}
-    for policy, _ in TWO_RANK_POLICIES:
-        res = [json.loads((out / f"{policy}_{r}.json").read_text())
-               for r in range(2)]
+    summary = {"refs": refs}
+    for mode in TWO_RANK_MODES:
+        name, family = mode[0], mode[1]
+        ref = refs[family]
+        res = [json.loads((out / f"{name.replace(' ', '_')}_{r}.json")
+                          .read_text()) for r in range(2)]
         rel = max(abs(a - b) / abs(b) for r in res
                   for a, b in zip(r["losses"], ref["losses"]))
-        same = all(r["launches"] == ref["launches"] for r in res)
-        per_step = {k: v / TWO_RANK_STEPS
-                    for k, v in res[0]["launches"].items()}
-        log(f"2 ranks on one card, {policy}: losses {res[0]['losses']} "
-            f"(worst rel {rel:.3e} to one process, bound {TOL_TWO_RANKS}); "
-            f"launches a step per rank {per_step} equal on both ranks and "
-            f"to one process: {same}; peak per rank "
-            f"{[round(r['peak_mib']) for r in res]} MiB; step ms per rank "
+        gap, where = grad_gap(grad_norms([r["grad_shares"] for r in res]),
+                              grad_norms([ref["grad_shares"]]))
+        want = res[0]["expected"]
+        same = all(r["launches"] == want for r in res)
+        if name == "dp":
+            dp_peak = res[0]["peak_mib"]
+        beside = dp_peak if family == "mim" else ref["peak_mib"]
+        log(f"2 ranks on one card, {family} {name}: losses "
+            f"{res[0]['losses']} (worst rel {rel:.3e} to one process, bound "
+            f"{TOL_TWO_RANKS}); gradient norms a parameter, worst gap "
+            f"{gap:.3e} ({where}, bound {TOL_TWO_RANK_GRADS[family]}); "
+            f"launches a step per rank {res[0]['launches']}"
+            f" equal on both ranks and to the count from the code {want}: "
+            f"{same}; peak per rank {[round(r['peak_mib']) for r in res]} "
+            f"MiB ({'dp' if family == 'mim' else 'one process'} "
+            f"{beside:.0f}); step ms per rank "
             f"{[[round(t, 1) for t in r['step_ms']] for r in res]} (two "
-            f"ranks share the card: no speed)")
-        if not rel <= TOL_TWO_RANKS or not same:
-            raise AssertionError(f"2-rank {policy}: rel {rel}, launches "
+            f"ranks share the card: no speed); {res[0]['seconds']:.1f} s "
+            f"the mode")
+        if not (rel <= TOL_TWO_RANKS and gap <= TOL_TWO_RANK_GRADS[family]
+                and same):
+            raise AssertionError(f"2-rank {name}: rel {rel}, gradient norm "
+                                 f"gap {gap} ({where}), launches "
                                  f"{[r['launches'] for r in res]} against "
-                                 f"{ref['launches']}")
-        summary[policy] = res
+                                 f"{want}")
+        summary[name] = res
     log(f"2-rank phase: {time.perf_counter() - t0:.1f} s on {card}")
     return summary
 

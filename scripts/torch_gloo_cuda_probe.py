@@ -19,7 +19,12 @@ import tempfile
 CASES = ("all_reduce", "all_gather", "all_gather_into_tensor",
          "reduce_scatter", "reduce_scatter_tensor", "broadcast",
          "all_to_all_single", "dtensor_full_tensor",
-         "dtensor_redistribute_replicate")
+         "dtensor_redistribute_replicate",
+         # point to point and the one-split all_to_all_single of the ring
+         # shift (parallel/collectives.py), each way: rank 0 -> 1 and 1 -> 0
+         "send_recv_up", "send_recv_down", "isend_irecv_up",
+         "isend_irecv_down", "batch_isend_irecv", "all_to_all_one_split",
+         "all_to_all_one_split_uneven_bf16")
 
 
 def run_case(case: str, rank: int, init: str) -> None:
@@ -45,6 +50,40 @@ def run_case(case: str, rank: int, init: str) -> None:
         dist.broadcast(x, 0)
     elif case == "all_to_all_single":
         dist.all_to_all_single(torch.empty_like(x), x)
+    elif case.startswith(("send_recv", "isend_irecv")):
+        src = 0 if case.endswith("_up") else 1
+        if rank == src:
+            op = dist.isend if case.startswith("i") else dist.send
+            work = op(x, 1 - rank)
+        else:
+            op = dist.irecv if case.startswith("i") else dist.recv
+            work = op(x, 1 - rank)
+        if case.startswith("i"):
+            work.wait()
+        if rank != src and float(x[0]) != float(src + 1):
+            raise AssertionError(f"received {x.tolist()}")
+    elif case == "batch_isend_irecv":
+        got = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, 1 - rank),
+               dist.P2POp(dist.irecv, got, 1 - rank)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if float(got[0]) != float(2 - rank):
+            raise AssertionError(f"received {got.tolist()}")
+    elif case.startswith("all_to_all_one_split"):
+        # what ring_shift does: all of x to the other rank, nothing to
+        # itself; the uneven case sends 8 + rank bf16 values
+        dt = torch.bfloat16 if case.endswith("bf16") else x.dtype
+        n_me = 8 + rank if case.endswith("bf16") else 8
+        n_other = 8 + (1 - rank) if case.endswith("bf16") else 8
+        send = torch.full((n_me,), float(rank + 1), device=dev, dtype=dt)
+        got = torch.empty(n_other, device=dev, dtype=dt)
+        ins, outs = [0, 0], [0, 0]
+        ins[1 - rank], outs[1 - rank] = n_me, n_other
+        dist.all_to_all_single(got, send, output_split_sizes=outs,
+                               input_split_sizes=ins)
+        if float(got[0]) != float(2 - rank):
+            raise AssertionError(f"received {got.tolist()}")
     else:
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.tensor import (

@@ -199,7 +199,7 @@ def _route_config(model_args: ModelArguments, data_args):
 
 def main(argv=None) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
-        _refuse_unported,
+        check_parallel_flags,
         start_distributed,
         stop_distributed,
     )
@@ -207,8 +207,8 @@ def main(argv=None) -> dict:
 
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args,
-                     cli="run_classification")
+    check_parallel_flags(model_args, training_args,
+                         cli="run_classification")
     if model_args.lora_enable and training_args.sharding_policy != "dp":
         raise ValueError(
             f"--lora_enable trains under --sharding_policy dp only, not "

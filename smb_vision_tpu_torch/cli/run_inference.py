@@ -20,7 +20,11 @@ grid's size (overlap --sw_overlap) go through the model --batch_size at a
 time. --input_dtype uint8 ships each volume to the device as one byte a
 voxel with its own scale and offset, decoded there to bfloat16.
 --cache_data_dir keeps the preprocessed volumes (in --cache_dtype), so a
-second run skips decode and resample.
+second run skips decode and resample. Under `python -m
+torch.distributed.run --nproc_per_node N`, --pipeline_parallel S splits
+the encoder's layers over S stages (each rank builds only its own) and
+streams --pipeline_microbatches through them; the N / S data ranks take
+their rows of each batch, and rank 0 writes the embeddings.
 """
 
 from __future__ import annotations
@@ -77,8 +81,15 @@ class InferenceArguments:
     num_shards: int = 1
     shard_index: int = 0
     pipeline_parallel: int = field(
-        default=1, metadata={"help": "values above 1 are not ported yet"})
-    pipeline_microbatches: int = 0
+        default=1,
+        metadata={"help": "split the encoder's layer stack over this many "
+                          "pipeline stages (ranks of "
+                          "torch.distributed.run); the other ranks form the "
+                          "data axis. num_hidden_layers must divide by it"})
+    pipeline_microbatches: int = field(
+        default=0,
+        metadata={"help": "microbatches a batch streams through the "
+                          "pipeline in (0 = batch_size / data ranks)"})
     device: str = field(
         default="cuda", metadata={"help": "cuda | cuda:N | cpu"})
     seed: int = field(
@@ -90,13 +101,40 @@ def _refuse_unported(args) -> None:
     from smb_vision_tpu_torch.utils.args import not_ported
 
     unported = [
-        (args.pipeline_parallel > 1, "--pipeline_parallel > 1",
-         "multi-gpu"),
+        (args.pipeline_parallel > 1 and args.sliding_window,
+         "--pipeline_parallel with --sliding_window", "multi-gpu"),
         (args.quant8, "--quant8", "w8a8"),
     ]
     for hit, flag, item in unported:
         if hit:
             raise not_ported(flag, item, "smb_vision_tpu.cli.run_inference")
+
+
+def pipeline_mesh(args, device, num_layers: int):
+    """The (data, stages) mesh of --pipeline_parallel over the launcher's
+    ranks (the process group brought up here); raises as the JAX CLI
+    does when the ranks or the layers do not divide into the stages, and
+    when the data ranks do not divide the batch."""
+    from smb_vision_tpu_torch.parallel.mesh import (
+        create_mesh,
+        maybe_initialize_distributed,
+        world_size,
+    )
+
+    s = args.pipeline_parallel
+    maybe_initialize_distributed(None, device=device.type)
+    n = world_size()
+    if n % s:
+        raise SystemExit(f"{n} devices do not divide into {s} pipeline "
+                         "stages")
+    if num_layers % s:
+        raise SystemExit(f"{num_layers} layers do not divide into {s} "
+                         "pipeline stages")
+    n_data = n // s
+    if args.batch_size % n_data:
+        raise SystemExit(f"--batch_size {args.batch_size} does not divide "
+                         f"over the {n_data} data ranks")
+    return create_mesh(model=s, device_type=device.type)
 
 
 def main(argv=None) -> dict:
@@ -121,6 +159,7 @@ def main(argv=None) -> dict:
     (args,) = parse_args_into_dataclasses((InferenceArguments,), argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    mesh = None
     in_dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
              "float16": torch.float16, "uint8": torch.uint8}.get(
                  args.input_dtype)
@@ -139,6 +178,26 @@ def main(argv=None) -> dict:
             tubelet_size=args.patch_size, dtype=args.dtype,
             attn_impl=args.attn_impl, quant8=args.quant8)
 
+    stages = None
+    made = not torch.distributed.is_initialized()
+    if args.pipeline_parallel > 1:
+        from smb_vision_tpu_torch.parallel.mesh import (
+            MODEL_AXIS,
+            axis_rank,
+            axis_size,
+        )
+        from smb_vision_tpu_torch.parallel.pipeline import PipeStages
+
+        mesh = pipeline_mesh(args, device, config.num_hidden_layers)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        n_data = axis_size(mesh, "data")
+        m = args.pipeline_microbatches or max(args.batch_size // n_data, 1)
+        stages = PipeStages(axis_size(mesh, MODEL_AXIS),
+                            axis_rank(mesh, MODEL_AXIS), m)
+        logger.info("pipeline: %d stages x data %d, %d microbatches "
+                    "(bubble %.0f%%)", stages.stages, n_data, m,
+                    100 * (stages.stages - 1) / (m + stages.stages - 1))
     if args.data_json:
         dataset_kwargs = dict(data_path=args.data_json, split=None)
     elif args.data_dir:
@@ -159,14 +218,20 @@ def main(argv=None) -> dict:
         logger.info("shard %d/%d", args.shard_index, args.num_shards)
     logger.info("%d volumes to embed on %s", len(ds), device)
 
-    model = VideoMAEModel(config)
+    model = VideoMAEModel(config, stages)
     if args.model_name_or_path:
         from smb_vision_tpu_torch.models.convert import load_backbone_into
 
         load_backbone_into(model, args.model_name_or_path)
     else:
         gen = torch.Generator().manual_seed(args.seed)
-        model.init_weights(gen)
+        if stages is None:
+            model.init_weights(gen)
+        else:
+            from smb_vision_tpu_torch.models.pipelined import stage_state
+
+            dense = VideoMAEModel(config).init_weights(gen)
+            model.load_state_dict(stage_state(model, dense.state_dict()))
         logger.info("no checkpoint: random weights from seed %d", args.seed)
     model.to(device).eval()
 
@@ -186,16 +251,67 @@ def main(argv=None) -> dict:
                 px = dequantize_pixels(px.to(device), torch.from_numpy(scale),
                                        torch.from_numpy(offset),
                                        torch.bfloat16)
+            if mesh is not None:
+                return _embed_pipelined(model, px, mesh, args.batch_size)
             with torch.inference_mode():
                 out, _ = model(px)
             return out.float().cpu().numpy()
 
-        stats = run_embedding(ds, embed_fn, writer,
+        stats = run_embedding(ds, embed_fn, writer if mesh is None
+                              else _MainWriter(writer),
                               batch_size=args.batch_size, resume=args.resume,
-                              num_workers=args.num_workers)
+                              num_workers=args.num_workers,
+                              fatal=mesh is not None)
     logger.info("done: %s", stats)
     print(json.dumps(stats))
+    if mesh is not None and made:
+        torch.distributed.destroy_process_group()
     return stats
+
+
+def _embed_pipelined(model, px, mesh, batch_size: int):
+    """One batch through the pipelined model: padded to batch_size rows
+    (a short last batch repeats its last row), this data rank's rows
+    through the stages, every data rank's rows gathered back; the padding
+    is cut off."""
+    import numpy as np
+    import torch
+
+    from smb_vision_tpu_torch.parallel.collectives import (
+        gather_rows,
+        share_rows,
+    )
+    from smb_vision_tpu_torch.parallel.mesh import use_mesh
+
+    n = px.shape[0]
+    if n < batch_size:
+        px = torch.cat([px, px[-1:].expand(batch_size - n,
+                                           *px.shape[1:])])
+    with torch.inference_mode(), use_mesh(mesh):
+        out, _ = model(share_rows(px))
+        out = gather_rows(out.float())
+    return np.ascontiguousarray(out[:n].cpu().numpy())
+
+
+class _MainWriter:
+    """An EmbeddingWriter that every rank reads (the uids already done)
+    and only rank 0 writes through."""
+
+    def __init__(self, writer):
+        from smb_vision_tpu_torch.parallel.mesh import is_main_process
+
+        self.inner, self.main = writer, is_main_process()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def write(self, item, emb) -> None:
+        if self.main:
+            self.inner.write(item, emb)
+
+    def finalize(self, errors) -> None:
+        if self.main:
+            self.inner.finalize(errors)
 
 
 def _embed_sliding_window(args, ds, model, pipe, writer, device) -> dict:

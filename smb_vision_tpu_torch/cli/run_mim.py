@@ -12,7 +12,11 @@ is absent, and a CPU run must ask for it with --device cpu. Under
 fsdp+tp over a (data, model) mesh of --model_parallel model ranks
 (`parallel/`), each data rank reading its share of the items
 (`partition_items`) and feeding its share of the global batch of
-per_device_train_batch_size x data ranks x accumulation. The volumes go
+per_device_train_batch_size x data ranks x accumulation.
+--sequence_parallel splits the tokens over the model ranks (dp, fsdp;
+`sp_variant` "gather" or "ring" through --config_overrides), and
+--pipeline_stages S streams --pipeline_microbatches through S stages of
+both stacks on the model axis (policy "pipeline" or "pipeline+fsdp"). The volumes go
 through the native CT loader when
 its library builds (else decode on the host and resample on the device),
 --cache_data_dir keeps them preprocessed on disk, --device_cache keeps
@@ -101,12 +105,17 @@ class ModelArguments:
         metadata={"help": "also write hf_model.safetensors, the HF "
                           "VideoMAEForPreTraining layout"})
     pipeline_stages: int = field(
-        default=1, metadata={"help": "values above 1 are not ported yet"})
+        default=1,
+        metadata={"help": "GPipe-pipeline the encoder and decoder stacks "
+                          "over this many stages (the mesh's model axis): "
+                          "each rank holds layers/S of both stacks. Both "
+                          "layer counts must divide by it; microbatching "
+                          "replaces gradient accumulation"})
     pipeline_microbatches: int = field(
         default=0,
         metadata={"help": "microbatches per step through the pipeline (0 = "
-                          "per_device_train_batch_size). Read only with "
-                          "--pipeline_stages > 1, which is not ported yet"})
+                          "per_device_train_batch_size). Bubble is "
+                          "(stages-1)/(microbatches+stages-1)"})
 
 
 def build_config(model_args: ModelArguments):
@@ -150,21 +159,52 @@ def build_config(model_args: ModelArguments):
     return config.apply_overrides(model_args.config_overrides)
 
 
-def _refuse_unported(model_args, data_args, training_args,
-                     cli: str = "run_mim", extra=()) -> None:
-    """Raise for a flag whose module is not ported (`not_ported`, which
-    names its item of the roadmap); extra: more (hit, flag, item key)
-    triples of the calling CLI. A flag the calling CLI does not have
-    counts as unset."""
+def check_parallel_flags(model_args, training_args,
+                         cli: str = "run_mim") -> bool:
+    """The model-parallel flags, before any process group: sequence
+    parallelism refuses the "tp" policies (`not_ported`, which names its
+    item of the roadmap); --pipeline_stages S > 1 refuses gradient
+    accumulation and sequence parallelism, as the JAX CLI does, and puts
+    the stages on the model axis under the "pipeline" policy (a
+    "pipeline+..." policy stands). Returns whether the run is pipelined.
+    A flag the calling CLI does not have counts as unset."""
     from smb_vision_tpu_torch.utils.args import not_ported
 
-    unported = [*extra,
-        (getattr(model_args, "pipeline_stages", 1) > 1,
-         "--pipeline_stages > 1", "multi-gpu"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise not_ported(flag, item, f"smb_vision_tpu.cli.{cli}")
+    sp = getattr(model_args, "sequence_parallel", False)
+    if sp and "tp" in training_args.sharding_policy:
+        raise not_ported(f"--sequence_parallel under --sharding_policy "
+                         f"{training_args.sharding_policy}", "multi-gpu",
+                         f"smb_vision_tpu.cli.{cli}, or --sharding_policy "
+                         "dp or fsdp")
+    stages = getattr(model_args, "pipeline_stages", 1)
+    if stages <= 1:
+        return False
+    if training_args.gradient_accumulation_steps > 1:
+        raise SystemExit(
+            "--pipeline_stages replaces gradient accumulation with "
+            "microbatching (--pipeline_microbatches); set "
+            "--gradient_accumulation_steps 1")
+    if sp:
+        raise ValueError("pipeline parallelism composes with the data "
+                         "axis, not sequence parallelism; drop "
+                         "--sequence_parallel")
+    training_args.model_parallel = stages
+    if "pipeline" not in training_args.sharding_policy:
+        logger.info("pipeline_stages=%d: sharding_policy -> 'pipeline'",
+                    stages)
+        training_args.sharding_policy = "pipeline"
+    return True
+
+
+def pipeline_microbatches(model_args, training_args):
+    """(train, eval) microbatches of a pipelined run: --pipeline_
+    microbatches or the per-device batch, and its gcd with the eval
+    batch."""
+    import math
+
+    m = (model_args.pipeline_microbatches
+         or training_args.per_device_train_batch_size)
+    return m, math.gcd(m, training_args.per_device_eval_batch_size)
 
 
 def start_distributed(training_args):
@@ -283,17 +323,17 @@ def main(argv=None) -> dict:
 
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args)
+    pipelined = check_parallel_flags(model_args, training_args)
     device, accum_dt, mesh, made = start_distributed(training_args)
     try:
         return _main(model_args, data_args, training_args, device, accum_dt,
-                     mesh)
+                     mesh, pipelined)
     finally:
         stop_distributed(made)
 
 
 def _main(model_args, data_args, training_args, device, accum_dt,
-          mesh) -> dict:
+          mesh, pipelined: bool = False) -> dict:
     from smb_vision_tpu_torch.data.dataset import BatchLoader, CTDataset
     from smb_vision_tpu_torch.data.preprocess import (
         CT_PIPELINES,
@@ -305,7 +345,10 @@ def _main(model_args, data_args, training_args, device, accum_dt,
         write_safetensors,
     )
     from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
-    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.mim import (
+        make_mim_workload,
+        make_pipelined_mim_workload,
+    )
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import Trainer
     from smb_vision_tpu_torch.utils.profiling import mim_flops_per_sample
@@ -359,11 +402,24 @@ def _main(model_args, data_args, training_args, device, accum_dt,
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm,
         vision_lr=training_args.vision_lr,
         merger_lr=training_args.merger_lr, optim=training_args.optim)
-    model, init_fn, step_fn, eval_fn = make_mim_workload(
-        config, mask_patch_size=data_args.mask_patch_size,
-        mask_ratio=data_args.mask_ratio, tx=tx,
-        grad_accum=training_args.gradient_accumulation_steps,
-        accum_dtype=accum_dt, device=device)
+    eval_mb = 1
+    if pipelined:
+        n_mb, eval_mb = pipeline_microbatches(model_args, training_args)
+        model, init_fn, step_fn, eval_fn = make_pipelined_mim_workload(
+            config, mask_patch_size=data_args.mask_patch_size,
+            mask_ratio=data_args.mask_ratio, tx=tx, mesh=mesh,
+            num_microbatches=n_mb, eval_microbatches=eval_mb,
+            device=device)
+        stages = model_args.pipeline_stages
+        logger.info("pipelined pretraining: %d stages x %d microbatches "
+                    "(bubble %.0f%%)", stages, n_mb,
+                    100 * (stages - 1) / (n_mb + stages - 1))
+    else:
+        model, init_fn, step_fn, eval_fn = make_mim_workload(
+            config, mask_patch_size=data_args.mask_patch_size,
+            mask_ratio=data_args.mask_ratio, tx=tx,
+            grad_accum=training_args.gradient_accumulation_steps,
+            accum_dtype=accum_dt, device=device)
     if training_args.model_flops_per_sample is None:
         training_args.model_flops_per_sample = mim_flops_per_sample(
             config, data_args.mask_ratio)
@@ -377,7 +433,8 @@ def _main(model_args, data_args, training_args, device, accum_dt,
 
     trainer = Trainer(args=training_args, state=state, step_fn=step_fn,
                       train_loader=train_loader, eval_loader=eval_loader,
-                      eval_fn=eval_fn, mesh=mesh)
+                      eval_fn=eval_fn, mesh=mesh,
+                      eval_batch_multiple=eval_mb)
     result = {}
     if training_args.do_train:
         result.update(trainer.train())

@@ -15,8 +15,9 @@ or the JAX package's export, an HF V-JEPA2 file or a hub id): what
 matches is grafted into the student and the EMA teacher starts as its
 copy. `--device` (default cuda) picks the device; the CLI refuses to run
 if CUDA is absent, and a CPU run must ask for it with --device cpu. Under
-`python -m torch.distributed.run` it trains on N ranks as run_mim does;
-the EMA teacher is placed like the student.
+`python -m torch.distributed.run` it trains on N ranks as run_mim does
+(--sequence_parallel and --pipeline_stages included); the EMA teacher is
+placed, split and pipelined like the student.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_vjepa \\
@@ -101,8 +102,15 @@ class ModelArguments:
         metadata={"help": "also write hf_model.safetensors, the HF "
                           "VJEPA2Model layout"})
     pipeline_stages: int = field(
-        default=1, metadata={"help": "values above 1 are not ported yet"})
-    pipeline_microbatches: int = 0
+        default=1,
+        metadata={"help": "GPipe-pipeline the student's, the teacher's and "
+                          "the predictor's stacks over this many stages "
+                          "(the mesh's model axis); the encoder's and the "
+                          "predictor's layer counts must divide by it"})
+    pipeline_microbatches: int = field(
+        default=0,
+        metadata={"help": "microbatches per step through the pipeline (0 = "
+                          "per_device_train_batch_size)"})
 
 
 def build_config(model_args: ModelArguments):
@@ -147,7 +155,7 @@ def build_config(model_args: ModelArguments):
 
 def main(argv=None) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
-        _refuse_unported,
+        check_parallel_flags,
         start_distributed,
         stop_distributed,
     )
@@ -155,23 +163,23 @@ def main(argv=None) -> dict:
 
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    _refuse_unported(model_args, data_args, training_args, cli="run_vjepa",
-                     extra=[
-        (model_args.sequence_parallel, "--sequence_parallel", "multi-gpu")])
+    pipelined = check_parallel_flags(model_args, training_args,
+                                     cli="run_vjepa")
     device, accum_dt, mesh, made = start_distributed(training_args)
     try:
         return _main(model_args, data_args, training_args, device, accum_dt,
-                     mesh)
+                     mesh, pipelined)
     finally:
         stop_distributed(made)
 
 
 def _main(model_args, data_args, training_args, device, accum_dt,
-          mesh) -> dict:
+          mesh, pipelined: bool = False) -> dict:
     from smb_vision_tpu_torch.cli.run_mim import (
         data_partition,
         make_datasets,
         make_train_loader,
+        pipeline_microbatches,
     )
     from smb_vision_tpu_torch.data.dataset import BatchLoader
     from smb_vision_tpu_torch.data.preprocess import (
@@ -186,7 +194,10 @@ def _main(model_args, data_args, training_args, device, accum_dt,
     from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.trainer import Trainer
-    from smb_vision_tpu_torch.train.vjepa import make_vjepa_workload
+    from smb_vision_tpu_torch.train.vjepa import (
+        make_pipelined_vjepa_workload,
+        make_vjepa_workload,
+    )
     from smb_vision_tpu_torch.utils.profiling import vjepa_flops_per_sample
 
     config = build_config(model_args)
@@ -221,12 +232,23 @@ def _main(model_args, data_args, training_args, device, accum_dt,
         min_lr=training_args.min_lr, grad_clip=training_args.max_grad_norm,
         vision_lr=training_args.vision_lr,
         merger_lr=training_args.merger_lr, optim=training_args.optim)
-    model, init_fn, step_fn, eval_fn = make_vjepa_workload(
-        config, tx=tx, grad_accum=training_args.gradient_accumulation_steps,
-        accum_dtype=accum_dt, ema_momentum=model_args.ema_momentum,
-        teacher_attn_impl=model_args.teacher_attn_impl,
-        num_blocks=data_args.num_mask_blocks,
-        inv_block=data_args.inv_block, device=device)
+    kw = dict(ema_momentum=model_args.ema_momentum,
+              teacher_attn_impl=model_args.teacher_attn_impl,
+              num_blocks=data_args.num_mask_blocks,
+              inv_block=data_args.inv_block, device=device)
+    eval_mb = 1
+    if pipelined:
+        n_mb, eval_mb = pipeline_microbatches(model_args, training_args)
+        model, init_fn, step_fn, eval_fn = make_pipelined_vjepa_workload(
+            config, tx=tx, mesh=mesh, num_microbatches=n_mb,
+            eval_microbatches=eval_mb, **kw)
+        logger.info("pipelined pretraining: %d stages x %d microbatches",
+                    model_args.pipeline_stages, n_mb)
+    else:
+        model, init_fn, step_fn, eval_fn = make_vjepa_workload(
+            config, tx=tx,
+            grad_accum=training_args.gradient_accumulation_steps,
+            accum_dtype=accum_dt, **kw)
     if training_args.model_flops_per_sample is None:
         training_args.model_flops_per_sample = vjepa_flops_per_sample(config)
 
@@ -240,7 +262,8 @@ def _main(model_args, data_args, training_args, device, accum_dt,
         state["teacher"].load_state_dict(state["model"].state_dict())
     trainer = Trainer(args=training_args, state=state,
                       step_fn=step_fn, train_loader=train_loader,
-                      eval_loader=eval_loader, eval_fn=eval_fn, mesh=mesh)
+                      eval_loader=eval_loader, eval_fn=eval_fn, mesh=mesh,
+                      eval_batch_multiple=eval_mb)
     result = {}
     if training_args.do_train:
         result.update(trainer.train())

@@ -12,6 +12,9 @@
 //         f32 reciprocal)
 //   x8  = clamp(rint(xf / s), -127, 127)           (IEEE division, ties to
 //         even)
+// With zero_scale, an all-zero (b, h) reports the scale 0 instead of the
+// guard's 1 (its bytes are 0 either way): K7 takes do's scale so, since its
+// one-FFMA conversion of dp rounds at half a unit of the scale.
 // Every step is an exact IEEE operation or a max, so the bytes and scales
 // are the plain version's whatever the order of the reduction.
 //
@@ -55,6 +58,7 @@ struct QuantParams {
   float* s;        // (B*H) scales
   int8_t* x8;
   int npad;        // v layout: keys of a (b, h) row of x8; 0: row layout
+  int zero_scale;  // write 0, not 1, as the scale of an all-zero (b, h)
 };
 
 // the 8 values of x at (b, n, h, c..c+7), times mult
@@ -74,6 +78,12 @@ __device__ __forceinline__ void load8(const QuantParams& p, int b, int n,
 __device__ __forceinline__ float scale_of(const QuantParams& p, int bh) {
   const float s = __fmul_rn(__uint_as_float(p.amax[bh]), kInv127);
   return s == 0.f ? 1.f : s;
+}
+
+// the scale written out for (b, h), whose quantisation divides by s
+__device__ __forceinline__ float out_scale(const QuantParams& p, int bh,
+                                           float s) {
+  return p.zero_scale && p.amax[bh] == 0u ? 0.f : s;
 }
 
 // clamp(rint(v / s), -127, 127) as a byte
@@ -137,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   const int cpr = p.D / 8;
   const int c = (threadIdx.x % cpr) * 8;
   const float s = scale_of(p, bh);
-  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = s;
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = out_scale(p, bh, s);
   const int step = kThreads / cpr;
   const int n1 = min((blockIdx.x + 1) * kRows, p.N);
   for (int n = blockIdx.x * kRows + threadIdx.x / cpr; n < n1;
@@ -176,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.x * kVKeys;
   const int cpr = p.D / 8;
   const float s = scale_of(p, bh);
-  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = s;
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = out_scale(p, bh, s);
   for (int i = threadIdx.x; i < kVKeys * cpr; i += kThreads) {
     const int key = i / cpr, c = (i % cpr) * 8;
     float v[8];
@@ -214,10 +224,12 @@ __global__ void __launch_bounds__(kThreads)
 // the last dim contiguous, every row 16-byte aligned); D 32, 64 or 128.
 // amax: B*H uint32 of workspace; s: B*H f32 out; x8: int8 out, (B, N, H, D)
 // contiguous when npad is 0, else K8's v layout (B, H, D, npad) with npad a
-// multiple of 64 and at least N. Returns a cudaError_t (0 on success).
+// multiple of 64 and at least N; zero_scale: 0, not 1, as the scale of an
+// all-zero (b, h). Returns a cudaError_t (0 on success).
 extern "C" int smb_quantize(const void* x, int B, int N, int H, int D,
                             const long long* strides, float mult, void* amax,
-                            void* s, void* x8, int npad, void* stream) {
+                            void* s, void* x8, int npad, int zero_scale,
+                            void* stream) {
   QuantParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.sb = strides[0];
@@ -231,6 +243,7 @@ extern "C" int smb_quantize(const void* x, int B, int N, int H, int D,
   p.s = static_cast<float*>(s);
   p.x8 = static_cast<int8_t*>(x8);
   p.npad = npad;
+  p.zero_scale = zero_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N <= 0 || B <= 0 || B > 65535 || H <= 0 || H > 65535 ||
       (D != 32 && D != 64 && D != 128) || npad < 0 ||

@@ -126,11 +126,14 @@ class EmbeddingWriter:
 
 def run_embedding(dataset, embed_fn: Callable[[np.ndarray], np.ndarray],
                   writer: EmbeddingWriter, *, batch_size: int = 1,
-                  resume: bool = True, num_workers: int = 8) -> Dict:
+                  resume: bool = True, num_workers: int = 8,
+                  fatal: bool = False) -> Dict:
     """Embed every item of `dataset` not yet written, `batch_size` volumes
     per embed_fn call, loading ahead on `num_workers` threads. A volume that
     fails to load or a batch that fails to embed is recorded in
-    error_files.json and counted in `failed`; the run carries on.
+    error_files.json and counted in `failed`; the run carries on. fatal: a
+    batch that fails to embed raises instead (ranks that embed together
+    must not part ways).
     embed_fn: (N, ...) pixels [, scale (N,), offset (N,) for uint8
     pixels] -> (N, L, D) embeddings."""
     from concurrent.futures import ThreadPoolExecutor
@@ -162,17 +165,17 @@ def run_embedding(dataset, embed_fn: Callable[[np.ndarray], np.ndarray],
             batch.append((dataset.items[i], ex["image"],
                           ex.get("image_scale"), ex.get("image_offset")))
             if len(batch) == batch_size:
-                n_ok += _flush(batch, embed_fn, writer, errors)
+                n_ok += _flush(batch, embed_fn, writer, errors, fatal)
                 batch = []
         if batch:
-            n_ok += _flush(batch, embed_fn, writer, errors)
+            n_ok += _flush(batch, embed_fn, writer, errors, fatal)
 
     writer.finalize(errors)
     return {"embedded": n_ok, "failed": len(errors),
             "skipped": len(done)}
 
 
-def _flush(batch, embed_fn, writer, errors) -> int:
+def _flush(batch, embed_fn, writer, errors, fatal: bool = False) -> int:
     items = [b[0] for b in batch]
     pixels = stack_pixels([b[1] for b in batch])
     args = ()
@@ -182,6 +185,8 @@ def _flush(batch, embed_fn, writer, errors) -> int:
     try:
         emb = np.asarray(embed_fn(pixels, *args))
     except Exception as e:  # noqa: BLE001 — recorded, the run carries on
+        if fatal:
+            raise
         logger.error("embedding a batch of %d failed: %s", len(items), e)
         errors.extend({"item": it, "error": str(e),
                        "trace": traceback.format_exc(limit=3)}

@@ -105,7 +105,9 @@ class VideoMAEConfig(BaseConfig):
     glue_impl: str = "auto"         # "pallas": glue kernels K10a/K10b
     fused_qkv: bool = False         # one q/k/v product (plain)
     gradient_checkpointing: bool = False   # remat each block in training
-    sequence_parallel: bool = False  # not ported yet
+    # tokens split over the mesh's model axis (parallel/context.py)
+    sequence_parallel: bool = False
+    sp_variant: str = "gather"      # gather (all-gather kv) | ring
     quant8: bool = False            # not ported yet
 
     @property
@@ -171,8 +173,9 @@ class VJEPA2Config(BaseConfig):
     glue_impl: str = "auto"         # "pallas": glue kernels K10a/K10b
     fused_qkv: bool = False         # one q/k/v product (plain)
     gradient_checkpointing: bool = False
-    sequence_parallel: bool = False  # not ported yet
-    sp_variant: str = "gather"      # read only with sequence_parallel
+    # tokens split over the mesh's model axis (parallel/context.py)
+    sequence_parallel: bool = False
+    sp_variant: str = "gather"      # gather (all-gather kv) | ring
 
     @property
     def grid(self) -> Tuple[int, int, int]:

@@ -328,7 +328,9 @@ def export_hf_videomae(state: Dict[str, torch.Tensor],
     VideoMAEForVideoClassification state_dict -> HF VideoMAE arrays (the
     JAX package's `export_hf_videomae`): a wrapped tree with a head keeps
     the `videomae.` prefix, a bare encoder (or a wrapped one without a
-    head) has none. Layer counts are read from the keys when None."""
+    head) has none. Layer counts are read from the keys when None. A
+    pipelined model's state is its stages' merged
+    (`Trainer.full_model_state`): the dense names, the dense export."""
     flat = params_to_flax(state)
     if any(k.startswith("params.videomae.") for k in flat):
         enc = "params.videomae"
@@ -777,7 +779,9 @@ def load_backbone_into(model: torch.nn.Module, path: Union[str, Path]):
     VideoMAEModel, Dinov2Model or VJEPA2Model) or the one a head model
     holds under `videomae.`, `dinov2.` or `vjepa2.`. Every parameter of
     the backbone must be in the checkpoint with the same shape, else the
-    error names it. Returns `model`."""
+    error names it; a model built with `pipe` (one pipeline stage,
+    `models/pipelined.py`) holds its layers under their dense names and
+    loads them from a dense checkpoint. Returns `model`."""
     for family in FAMILIES:
         sub = getattr(model, family, None)
         if isinstance(sub, torch.nn.Module):

@@ -31,6 +31,7 @@ from smb_vision_tpu_torch.models.videomae import (
     classification_loss,
     compute_dtype,
 )
+from smb_vision_tpu_torch.parallel.pipeline import PipeStages
 
 
 def _patchify_chw(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
@@ -81,9 +82,11 @@ def resize_position_embeddings_3d(pos: torch.Tensor,
 class Dinov2Model(nn.Module):
     """Patch embed (+ mask token) + CLS + learned 3D positions + the
     transformer stack + the final LayerNorm: pixels (B, C, H, W, D) ->
-    (B, 1 + seq_len, hidden) in the compute dtype."""
+    (B, 1 + seq_len, hidden) in the compute dtype. pipe: the stack holds
+    one pipeline stage's layers (`models/pipelined.py`)."""
 
-    def __init__(self, config: Dinov2Config):
+    def __init__(self, config: Dinov2Config,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = compute_dtype(cfg)
@@ -108,7 +111,7 @@ class Dinov2Model(nn.Module):
             use_swiglu=cfg.use_swiglu_ffn, dtype=self.dtype,
             attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
             glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
-            remat=cfg.gradient_checkpointing)
+            remat=cfg.gradient_checkpointing, pipe=pipe)
         self.layernorm = LayerNorm(h, cfg.layer_norm_eps, self.dtype)
 
     def forward(self, pixel_values, bool_masked_pos=None, generator=None):

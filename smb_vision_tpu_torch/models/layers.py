@@ -11,10 +11,19 @@ autograd Functions carry the kernels' backward; an Encoder with remat
 checkpoints each block, as `nn.remat(Block)` does. Attention takes an
 optional 3D rotary table (V-JEPA2), and DropPath draws its per-sample keep
 masks outside the checkpointed blocks, so the recompute sees the same ones.
+
+Sequence parallelism (`sequence_parallel`): an Encoder cuts its input and
+its RoPE tables into token shards over the mesh's "model" axis, runs its
+blocks on the rank's shard, whose self-attention gathers k and v
+(`sp_variant` "gather") or rotates them ("ring", `parallel/context.py`),
+and gathers the shards back where the stack ends. Pipeline parallelism
+(`pipe`): an Encoder holds one stage's layers under their dense names and
+streams microbatches through the stages (`parallel/pipeline.py`).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -35,14 +44,52 @@ from smb_vision_tpu_torch.ops.mlp import (
     swiglu_block_forward,
 )
 from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
+from smb_vision_tpu_torch.parallel import context
 from smb_vision_tpu_torch.parallel.collectives import (
+    Replay,
+    axis_group,
     gather_shards,
+    gather_tokens,
     global_rows,
     share_rows,
+    split_tokens,
+    token_split_sizes,
 )
+from smb_vision_tpu_torch.parallel.pipeline import PipeStages, pipeline_apply
 from smb_vision_tpu_torch.utils.args import not_ported
 
 _MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
+SP_VARIANTS = ("gather", "ring")
+
+
+class TokenShards:
+    """A sequence-parallel stack's split of N tokens over the model axis
+    of the ambient mesh: `sizes` (`token_split_sizes`), this rank's
+    `rank` and first token `lo`, the attention's `variant`, and the
+    `Replay` of one checkpointed block call (`with_replay`)."""
+
+    def __init__(self, n: int, variant: str):
+        g = axis_group()
+        parts, self.rank = (1, 0) if g is None else g[1:]
+        self.sizes = token_split_sizes(n, parts)
+        self.lo = sum(self.sizes[:self.rank])
+        self.variant = variant
+        self.replay: Optional[Replay] = None
+
+    def with_replay(self) -> "TokenShards":
+        out = copy.copy(self)
+        out.replay = Replay()
+        return out
+
+    def cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's tokens of a table every rank holds (no gradient)."""
+        return t.narrow(dim, self.lo, self.sizes[self.rank])
+
+    def attend(self, q, k, v, impl: str):
+        fn = (context.ring_attention if self.variant == "ring"
+              else context.context_parallel_attention)
+        return fn(q, k, v, impl=impl, token_sizes=self.sizes,
+                  replay=self.replay)
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator=None):
@@ -144,10 +191,13 @@ class Attention(nn.Module):
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                kv: Optional[torch.Tensor] = None):
+                kv: Optional[torch.Tensor] = None,
+                sp: Optional[TokenShards] = None):
         """rope: optional (cos, sin) tables, (N, D) or (B, N, D), applied to
         q and k (`ops.rope3d.apply_rope3d`); kv: keys and values come from
-        these tokens instead of x (cross-attention)."""
+        these tokens instead of x (cross-attention, never sequence
+        parallel); sp: x is this rank's token shard of a
+        sequence-parallel stack."""
         b, n, h = x.shape
         src = x if kv is None else kv
         d = h // self.num_heads
@@ -165,16 +215,20 @@ class Attention(nn.Module):
         q = q.reshape(b, n, heads, d)
         k = k.reshape(b, src.shape[1], heads, d)
         v = v.reshape(b, src.shape[1], heads, d)
-        out = self._attend(q, k, v, rope).reshape(b, n, heads * d)
+        out = self._attend(q, k, v, rope, None if kv is not None else sp)
+        out = out.reshape(b, n, heads * d)
         return out if self.proj is None else self.proj(out)
 
-    def _attend(self, q, k, v, rope):
+    def _attend(self, q, k, v, rope, sp: Optional[TokenShards] = None):
         if rope is not None:
             q = apply_rope3d(q, *rope)
             k = apply_rope3d(k, *rope)
+        if sp is not None:
+            return sp.attend(q, k, v, self.attn_impl)
         return attention(q, k, v, impl=self.attn_impl)
 
-    def glue_forward(self, x, lnw, lnb, eps: float, lam=None, rope=None):
+    def glue_forward(self, x, lnw, lnb, eps: float, lam=None, rope=None,
+                     sp: Optional[TokenShards] = None):
         """The whole attention half-block through the glue kernels
         (`smb_vision_tpu/models/layers.py` `Attention` with `glue`):
         q, k, v = `qkv_ln_forward`(LN(x)) -> RoPE -> attention ->
@@ -191,7 +245,7 @@ class Attention(nn.Module):
             eps=eps, impl="pallas")
         heads = (b, n, self.num_heads, h // self.num_heads)
         out = self._attend(q.reshape(heads), k.reshape(heads),
-                           v.reshape(heads), rope).reshape(b, n, h)
+                           v.reshape(heads), rope, sp).reshape(b, n, h)
         bo = self.proj.bias_full()
         if bo is None:
             bo = torch.zeros(h, dtype=torch.float32, device=x.device)
@@ -307,7 +361,7 @@ class Block(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", mlp_impl: str = "auto",
                  fused_qkv: bool = False, glue_impl: str = "auto",
-                 quant8: bool = False, sequence_parallel: bool = False):
+                 quant8: bool = False):
         super().__init__()
         if glue_impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown glue impl {glue_impl!r}; "
@@ -315,9 +369,6 @@ class Block(nn.Module):
         if quant8:
             raise not_ported("quant8 (W8A8 projections, ops/quant.py)",
                              "w8a8")
-        if sequence_parallel:
-            raise not_ported("sequence_parallel (parallel/context.py)",
-                             "multi-gpu")
         if mlp_impl not in _MLP_IMPLS:
             raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
                              + ", ".join(map(repr, _MLP_IMPLS)))
@@ -349,10 +400,13 @@ class Block(nn.Module):
     def _scaled(self, lam, h):
         return h if lam is None else h * lam.to(h.dtype)
 
-    def forward(self, x, rope=None, dp_masks=None):
+    def forward(self, x, rope=None, dp_masks=None,
+                sp: Optional[TokenShards] = None):
         """rope: optional (cos, sin) tables for the attention; dp_masks:
         the two DropPath keep masks (attention half, MLP half), drawn here
-        when DropPath is active and none are given."""
+        when DropPath is active and none are given; sp: x is this rank's
+        token shard of a sequence-parallel stack (its self-attention
+        spans every shard)."""
         if self.drop_path.active and dp_masks is None:
             dp_masks = [self.drop_path.draw(x.shape[0], device=x.device)
                         for _ in range(2)]
@@ -364,9 +418,9 @@ class Block(nn.Module):
         if self.glue_impl == "pallas" and not self.fused_qkv and dp_off:
             x = self.attention.glue_forward(
                 x, self.norm1.weight, self.norm1.bias, self.eps,
-                lam=self.layerscale1, rope=rope)
+                lam=self.layerscale1, rope=rope, sp=sp)
         else:
-            h = self.attention(self.norm1(x), rope=rope)
+            h = self.attention(self.norm1(x), rope=rope, sp=sp)
             x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
 
         if self.use_swiglu:
@@ -419,7 +473,24 @@ class Encoder(nn.Module):
     does in the JAX package; it applies only while autograd records.
     `torch.utils.checkpoint` restores the default generators' state but not
     an explicit `torch.Generator`'s, so every DropPath keep mask is drawn
-    here, before the checkpointed calls, and passed in."""
+    here, before the checkpointed calls, and passed in.
+
+    sequence_parallel: the blocks run on this rank's token shard of the
+    ambient mesh's model axis (`TokenShards`): the input and the RoPE
+    tables are cut on entry (the cut's backward all-gathers the shards'
+    cotangents) and the shards gathered back on exit (its backward keeps
+    this rank's slice), so the code before and after the stack is that of
+    one device; inside a checkpointed block the attention's collectives
+    are replayed in the recompute, never run again. Each rank's gradient
+    of a block parameter is then the sum over its tokens only: the
+    optimizer sums it over the model axis (`parallel/sharding.py`).
+
+    pipe: this Encoder holds the layers of one pipeline stage
+    (`PipeStages.layers`), under their dense names, and its forward is
+    `pipeline_apply` over them; the DropPath masks of all num_layers
+    layers are drawn for the whole batch in layer order, as the dense
+    stack draws them, and each stage keeps its layers' rows of a
+    microbatch."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -430,35 +501,116 @@ class Encoder(nn.Module):
                  attn_impl: str = "auto", mlp_impl: str = "auto",
                  remat: bool = False, fused_qkv: bool = False,
                  glue_impl: str = "auto", quant8: bool = False,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, sp_variant: str = "gather",
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
+        if sp_variant not in SP_VARIANTS:
+            raise ValueError(f"sp_variant {sp_variant!r}: expected one of "
+                             + ", ".join(SP_VARIANTS))
+        if sequence_parallel and pipe is not None:
+            raise ValueError("a pipelined stack composes with the data "
+                             "axis, not sequence parallelism; unset "
+                             "sequence_parallel")
         self.num_layers = num_layers
         self.remat = remat
-        for i in range(num_layers):
-            rate = drop_path_rate * i / max(num_layers - 1, 1)
-            self.add_module(f"layer_{i}", Block(
+        self.drop_path_rate = drop_path_rate
+        self.sequence_parallel = sequence_parallel
+        self.sp_variant = sp_variant
+        self.pipe = pipe
+        self.microbatches = 1 if pipe is None else pipe.microbatches
+        self.layer_ids = (range(num_layers) if pipe is None
+                          else pipe.layers(num_layers))
+        for i in self.layer_ids:
+            block = Block(
                 hidden_size, num_heads, intermediate_size, act=act,
                 bias_mode=bias_mode, layer_norm_eps=layer_norm_eps,
-                layerscale_value=layerscale_value, drop_path_rate=rate,
+                layerscale_value=layerscale_value, drop_path_rate=self.rate(i),
                 use_swiglu=use_swiglu, dtype=dtype, attn_impl=attn_impl,
                 mlp_impl=mlp_impl, fused_qkv=fused_qkv, glue_impl=glue_impl,
-                quant8=quant8, sequence_parallel=sequence_parallel))
+                quant8=quant8)
+            block.index = i
+            self.add_module(f"layer_{i}", block)
+
+    def rate(self, i: int) -> float:
+        """Layer i's DropPath rate."""
+        return self.drop_path_rate * i / max(self.num_layers - 1, 1)
+
+    def blocks(self):
+        return [getattr(self, f"layer_{i}") for i in self.layer_ids]
+
+    def draw_masks(self, batch: int, generator, device) -> dict:
+        """{layer index: its two DropPath keep masks} for the layers this
+        Encoder holds, drawn in training for all num_layers layers in
+        order (two a layer whose DropPath is active), as the dense stack
+        draws them."""
+        masks = {}
+        if not self.training:
+            return masks
+        for i in range(self.num_layers):
+            if self.rate(i) > 0.0:
+                drawn = [DropPath(self.rate(i)).draw(batch, generator,
+                                                     device)
+                         for _ in range(2)]
+                if i in self.layer_ids:
+                    masks[i] = drawn
+        return masks
 
     def forward(self, x, rope=None,
                 generator: Optional[torch.Generator] = None):
         """rope: optional (cos, sin) tables shared by every layer;
         generator: draws the DropPath keep masks (two a layer, in layer
         order; the default generator of x's device when None)."""
+        if self.pipe is not None:
+            return self.pipelined(x, rope=rope, generator=generator)
+        sp = None
+        if self.sequence_parallel:
+            sp = TokenShards(x.shape[1], self.sp_variant)
+            x = split_tokens(x, sp.sizes)
+            if rope is not None:
+                rope = tuple(sp.cut(t, t.dim() - 2) for t in rope)
         remat = self.remat and torch.is_grad_enabled()
-        for i in range(self.num_layers):
+        masks = self.draw_masks(x.shape[0], generator, x.device)
+        for i in self.layer_ids:
             block = getattr(self, f"layer_{i}")
-            masks = None
-            if block.drop_path.active:
-                masks = [block.drop_path.draw(x.shape[0], generator,
-                                              x.device) for _ in range(2)]
             if remat:
+                bsp = sp.with_replay() if sp is not None else None
                 x = torch.utils.checkpoint.checkpoint(
-                    block, x, rope, masks, use_reentrant=False)
+                    block, x, rope, masks.get(i), bsp, use_reentrant=False)
+                if bsp is not None:
+                    bsp.replay.rewind()
             else:
-                x = block(x, rope, masks)
+                x = block(x, rope, masks.get(i), sp)
+        if sp is not None:
+            x = gather_tokens(x, sp.sizes)
         return x
+
+    def pipelined(self, x, *, rope=None, generator=None,
+                  num_microbatches: Optional[int] = None,
+                  remat: Optional[bool] = None):
+        """This stage's layers over x through `pipeline_apply` on the
+        ambient mesh's model axis (whose size must be pipe.stages)."""
+        pipe = self.pipe or PipeStages(1, 0)
+        n_stages = 1 if axis_group() is None else axis_group()[1]
+        if n_stages != pipe.stages:
+            raise ValueError(f"an Encoder built for {pipe.stages} pipe "
+                             f"stages on a model axis of {n_stages}")
+        m = num_microbatches or self.microbatches
+        masks = self.draw_masks(x.shape[0], generator, x.device)
+        rows = x.shape[0] // m if x.shape[0] % m == 0 else 0
+
+        def rows_of(t, mb):
+            mb = min(max(mb, 0), m - 1)
+            return t[mb * rows:(mb + 1) * rows]
+
+        def layer_fn(block, h, rp, mb):
+            mk = masks.get(block.index)
+            if mk is not None:
+                mk = [rows_of(t, mb) for t in mk]
+            if rp is not None and rp[0].dim() == 3:
+                rp = tuple(rows_of(t, mb) for t in rp)
+            return block(h, rp, mk)
+
+        return pipeline_apply(
+            layer_fn, self.blocks(), x, num_microbatches=m,
+            remat=self.remat if remat is None else remat, extra=rope,
+            with_mb_index=True)

@@ -25,6 +25,7 @@ from smb_vision_tpu_torch.models.layers import (
     Linear,
     trunc_normal_,
 )
+from smb_vision_tpu_torch.parallel.pipeline import PipeStages
 from smb_vision_tpu_torch.ops.patches import (
     extract_patches,
     normalize_pixel_targets,
@@ -65,9 +66,12 @@ class VideoMAEModel(nn.Module):
     compute dtype and None. With bool_masked_pos (B, seq_len) and
     num_masked, the exact masked count per sample: only the visible tokens
     are encoded, (B, seq_len - num_masked, hidden), and the token order
-    (B, seq_len), visible tokens first, is returned for the decoder."""
+    (B, seq_len), visible tokens first, is returned for the decoder. pipe:
+    the encoder holds one pipeline stage's layers (`parallel/pipeline.py`,
+    `models/pipelined.py`)."""
 
-    def __init__(self, config: VideoMAEConfig):
+    def __init__(self, config: VideoMAEConfig,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         cfg = self.config = config
         dt = self.dtype = compute_dtype(cfg)
@@ -87,7 +91,8 @@ class VideoMAEModel(nn.Module):
             attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
             glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing, quant8=cfg.quant8,
-            sequence_parallel=cfg.sequence_parallel)
+            sequence_parallel=cfg.sequence_parallel,
+            sp_variant=cfg.sp_variant, pipe=pipe)
         self.layernorm = (None if cfg.use_mean_pooling
                           else LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          dt))
@@ -137,14 +142,16 @@ class VideoMAEForPreTraining(nn.Module):
     sequence, project the masked tokens to pixels and take the MSE against
     the per-patch-normalised pixels of the masked patches. Parameter names
     follow the JAX model's tree (`videomae.*`, `encoder_to_decoder`,
-    `mask_token`, `decoder.layer_i.*`, `decoder_norm`, `decoder_head`)."""
+    `mask_token`, `decoder.layer_i.*`, `decoder_norm`, `decoder_head`).
+    pipe: both stacks hold one pipeline stage's layers."""
 
-    def __init__(self, config: VideoMAEConfig):
+    def __init__(self, config: VideoMAEConfig,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         cfg = self.config = config
         dt = self.dtype = compute_dtype(cfg)
         dh = cfg.decoder_hidden_size
-        self.videomae = VideoMAEModel(cfg)
+        self.videomae = VideoMAEModel(cfg, pipe)
         self.encoder_to_decoder = Linear(cfg.hidden_size, dh, False, dt)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dh))
         self.register_buffer("pos_dec", sincos_position_table(
@@ -158,7 +165,8 @@ class VideoMAEForPreTraining(nn.Module):
             attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
             glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
             remat=cfg.gradient_checkpointing, quant8=cfg.quant8,
-            sequence_parallel=cfg.sequence_parallel)
+            sequence_parallel=cfg.sequence_parallel,
+            sp_variant=cfg.sp_variant, pipe=pipe)
         self.decoder_norm = LayerNorm(dh, cfg.layer_norm_eps, dt)
         self.decoder_head = Linear(dh, cfg.patch_dim, True, dt)
 

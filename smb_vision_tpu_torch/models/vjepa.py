@@ -41,6 +41,7 @@ from smb_vision_tpu_torch.models.videomae import (
     compute_dtype,
 )
 from smb_vision_tpu_torch.ops.patches import patch_embed
+from smb_vision_tpu_torch.parallel.pipeline import PipeStages
 from smb_vision_tpu_torch.ops.rope3d import rope3d_cos_sin
 
 
@@ -52,7 +53,7 @@ def apply_masks(x: torch.Tensor, masks: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _stack(cfg: VJEPA2Config, dt, hidden: int, heads: int, layers: int,
-           ratio: float) -> Encoder:
+           ratio: float, pipe: Optional[PipeStages] = None) -> Encoder:
     return Encoder(
         num_layers=layers, hidden_size=hidden, num_heads=heads,
         intermediate_size=int(hidden * ratio), act=cfg.hidden_act,
@@ -62,14 +63,17 @@ def _stack(cfg: VJEPA2Config, dt, hidden: int, heads: int, layers: int,
         attn_impl=cfg.attn_impl, mlp_impl=cfg.mlp_impl,
         glue_impl=cfg.glue_impl, fused_qkv=cfg.fused_qkv,
         remat=cfg.gradient_checkpointing,
-        sequence_parallel=cfg.sequence_parallel)
+        sequence_parallel=cfg.sequence_parallel, sp_variant=cfg.sp_variant,
+        pipe=pipe)
 
 
 class VJEPA2Encoder(nn.Module):
     """Tubelet embed + RoPE transformer stack + final LayerNorm: pixels
-    (B, T, C, H, W) -> (B, N, hidden) in the compute dtype."""
+    (B, T, C, H, W) -> (B, N, hidden) in the compute dtype. pipe: the
+    stack holds one pipeline stage's layers."""
 
-    def __init__(self, config: VJEPA2Config):
+    def __init__(self, config: VJEPA2Config,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         cfg = self.config = config
         dt = self.dtype = compute_dtype(cfg)
@@ -79,7 +83,7 @@ class VJEPA2Encoder(nn.Module):
         self.patch_embed_bias = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.encoder = _stack(cfg, dt, cfg.hidden_size,
                               cfg.num_attention_heads, cfg.num_hidden_layers,
-                              cfg.mlp_ratio)
+                              cfg.mlp_ratio, pipe)
         self.layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dt)
 
     def forward(self, pixel_values, generator=None):
@@ -95,9 +99,10 @@ class VJEPA2Encoder(nn.Module):
 
 class VJEPA2Predictor(nn.Module):
     """Narrow transformer that predicts the target tokens' encodings from
-    the context's."""
+    the context's. pipe: the stack holds one pipeline stage's layers."""
 
-    def __init__(self, config: VJEPA2Config):
+    def __init__(self, config: VJEPA2Config,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         cfg = self.config = config
         dt = self.dtype = compute_dtype(cfg)
@@ -106,7 +111,8 @@ class VJEPA2Predictor(nn.Module):
         self.mask_tokens = nn.Parameter(
             torch.zeros(cfg.pred_num_mask_tokens, 1, 1, ph))
         self.stack = _stack(cfg, dt, ph, cfg.pred_num_attention_heads,
-                            cfg.pred_num_hidden_layers, cfg.pred_mlp_ratio)
+                            cfg.pred_num_hidden_layers, cfg.pred_mlp_ratio,
+                            pipe)
         self.layernorm = LayerNorm(ph, cfg.layer_norm_eps, dt)
         self.proj = Linear(ph, cfg.hidden_size, True, dt)
 
@@ -148,13 +154,16 @@ class VJEPA2Model(nn.Module):
     `masked_hidden_state` and `target_hidden_state`. generator draws the
     DropPath keep masks in training (encoder first, then predictor).
     predictor=False builds the encoder only (the classification backbone,
-    which always skips the predictor)."""
+    which always skips the predictor). pipe: the encoder's and the
+    predictor's stacks hold one pipeline stage's layers."""
 
-    def __init__(self, config: VJEPA2Config, predictor: bool = True):
+    def __init__(self, config: VJEPA2Config, predictor: bool = True,
+                 pipe: Optional[PipeStages] = None):
         super().__init__()
         self.config = config
-        self.encoder = VJEPA2Encoder(config)
-        self.predictor = VJEPA2Predictor(config) if predictor else None
+        self.encoder = VJEPA2Encoder(config, pipe)
+        self.predictor = (VJEPA2Predictor(config, pipe) if predictor
+                          else None)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):

@@ -98,28 +98,35 @@ def xla_attention(q, k, v, *, scale: Optional[float] = None, bias=None,
     return out
 
 
-def quantize_per_head(x, mult: float = 1.0):
+def quantize_per_head(x, mult: float = 1.0, zero_scale: bool = False):
     """Symmetric int8 quantisation of x*mult (B, N, H, D) per (batch,
     head) over all (N, D), as the JAX `_quant_per_head` (and `_fwd_i8`)
     compute it under jit: s = max|x| * f32(1/127) (1 where x is all zero),
     x8 = clip(round(x/s), -127, 127), rounding ties to even. Returns x8
-    (int8, contiguous, the input layout) and s (f32, (B, H)). The plain
-    version; `quantize_per_head_kernel` is its kernel."""
+    (int8, contiguous, the input layout) and s (f32, (B, H)); with
+    zero_scale an all-zero head reports the scale 0 (its bytes are 0
+    either way). The plain version; `quantize_per_head_kernel` is its
+    kernel."""
     xf = x.float() * mult
     s = xf.abs().amax(dim=(1, 3)) * INV127              # (B, H)
-    s = torch.where(s == 0, torch.ones_like(s), s)
+    zero = s == 0
+    s = torch.where(zero, torch.ones_like(s), s)
     x8 = torch.clamp(torch.round(xf / s[:, None, :, None]), -127, 127)
+    if zero_scale:
+        s = torch.where(zero, torch.zeros_like(s), s)
     return x8.to(torch.int8), s
 
 
-def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False):
+def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False,
+                             zero_scale: bool = False):
     """R6: `quantize_per_head` of a CUDA bf16 (B, N, H, D) tensor by its
     kernel (`csrc/quant.cu`), the same int8 bytes and f32 scales bit for
     bit. The head dim must be contiguous and every row 16-byte aligned (the
     strided views of a fused projection qualify); D 32, 64 or 128. Returns
     x8 and s (B, H); x8 in the input's layout, contiguous, or with
     v_layout in the layout K8 reads (`quantize_v_kernel_layout` of the
-    plain x8). Raises for a tensor that is not on CUDA."""
+    plain x8); zero_scale as `quantize_per_head` takes it. Raises for a
+    tensor that is not on CUDA."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize_per_head_kernel runs on cuda, not "
                          f"{x.device}; quantize_per_head is the plain "
@@ -145,7 +152,7 @@ def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False):
     rc = _build.lib().smb_quantize(
         x.data_ptr(), b, n, h, d, ctypes.cast(strides, ctypes.c_void_p),
         mult, amax.data_ptr(), s.data_ptr(), x8.data_ptr(), npad,
-        _build.stream_ptr(dev))
+        int(zero_scale), _build.stream_ptr(dev))
     _build.check(rc, "quantize")
     quantize_per_head_kernel.launches += 1
     return x8, s
@@ -154,11 +161,11 @@ def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False):
 quantize_per_head_kernel.launches = 0
 
 
-def _quantize(x, mult: float = 1.0):
+def _quantize(x, mult: float = 1.0, zero_scale: bool = False):
     """`quantize_per_head` of a CPU tensor, its kernel for a CUDA one."""
     if x.device.type == "cuda":
-        return quantize_per_head_kernel(x, mult)
-    return quantize_per_head(x, mult)
+        return quantize_per_head_kernel(x, mult, zero_scale=zero_scale)
+    return quantize_per_head(x, mult, zero_scale)
 
 
 def quantize_qk(q, k, scale: float, quant=_quantize):
@@ -486,7 +493,11 @@ def _i8_operands(q, k, v, do, scale: float, quant=_quantize):
     q8, sq = quant(q, scale * LOG2E)
     k8, sk = quant(k)
     v8, sv = quant(v)
-    do8, sdo = quant(do)
+    # a head whose cotangent is all zero (a pipeline's bubble tick, a
+    # stage's masked outputs) takes the scale 0, not the guard's 1: the
+    # kernel reads dp * sdv - delta in one FFMA whose bias rounds by half a
+    # unit of sdv, noise against an exact zero there
+    do8, sdo = quant(do, zero_scale=True)
     return q8, k8, v8, do8, (sq * sk).contiguous(), (sdo * sv).contiguous()
 
 

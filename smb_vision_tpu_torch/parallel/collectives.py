@@ -19,16 +19,38 @@ gradient of the global loss:
 
 Without an ambient mesh, or with one data rank, each is the identity of
 the single-process code, so a one-device run computes exactly what it did.
+
+Over the model axis, for sequence parallelism and the pipeline
+(`parallel/context.py`, `parallel/pipeline.py`), through the process
+group's own collectives (DTensor's functional ones crash under gloo on
+CUDA tensors, and gloo's send and recv fail on them:
+`scripts/torch_gloo_cuda_probe.py`), so one code path serves gloo on the
+CPU, gloo on CUDA and NCCL:
+
+- `ring_shift(t)`: t to rank + 1, one `all_to_all_single` with one
+  non-empty split; its backward shifts the cotangent back;
+- `gather_tokens(x, sizes)`: the token shards (uneven allowed) of every
+  rank; its backward keeps this rank's slice, summed over the ranks first
+  for the k and v that every rank's queries read;
+- `split_tokens(x, sizes)`: this rank's shard of a tensor held whole; its
+  backward gathers the shards' cotangents.
+
+Inside a checkpointed block a `Replay` keeps the forward's outputs of
+these, so the recompute reads them instead of communicating again.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
-from smb_vision_tpu_torch.parallel.mesh import DATA_AXIS, current_mesh
+from smb_vision_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    current_mesh,
+)
 
 
 def data_group():
@@ -154,3 +176,186 @@ def gather_shards(t: torch.Tensor) -> torch.Tensor:
             t.to_local(), group, mesh.size(i),
             mesh.get_coordinate()[i], t.placements[i].dim)
     return t.full_tensor(grad_placements=[Replicate()] * t.device_mesh.ndim)
+
+
+# -- the model axis: token shards (sequence parallelism) and the stage ring
+# (the pipeline) ------------------------------------------------------------
+
+def axis_group(mesh=None, axis: str = MODEL_AXIS):
+    """(process group, size, rank) of `axis` of `mesh` (the ambient mesh
+    when None), or None when the axis has one rank."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or mesh[axis].size() == 1:
+        return None
+    sub = mesh[axis]
+    return sub.get_group(), sub.size(), sub.get_local_rank()
+
+
+def token_split_sizes(n: int, parts: int) -> List[int]:
+    """The lengths of `parts` token shards of n tokens, as
+    `torch.tensor_split` cuts them (the first n % parts one longer).
+    Refuses a split that leaves a rank no token: its attention would have
+    no key (lse2 = -inf)."""
+    if n < parts:
+        raise ValueError(f"{n} tokens do not split over {parts} ranks of "
+                         "the model axis: a rank would hold no token")
+    return [n // parts + (i < n % parts) for i in range(parts)]
+
+
+class Replay:
+    """The outputs of the collectives of one checkpointed call, in call
+    order. The call's recompute in the backward (`torch.utils.checkpoint`)
+    reads them back instead of communicating again, so a collective never
+    runs inside a recompute, where ranks could reach it in different
+    orders."""
+
+    def __init__(self):
+        self.outs: List[torch.Tensor] = []
+        self.at: Optional[int] = None
+
+    def rewind(self) -> None:
+        """The forward is over: the next calls replay."""
+        self.at = 0
+
+    def run(self, fn, *args):
+        if self.at is None:
+            out = fn(*args)
+            self.outs.append(out)
+            return out
+        out = self.outs[self.at]
+        self.at += 1
+        return out
+
+
+def _replayed(replay: Optional[Replay], fn, *args):
+    return fn(*args) if replay is None else replay.run(fn, *args)
+
+
+def _shift(t: torch.Tensor, group, n: int, r: int, shift: int,
+           recv_shape) -> torch.Tensor:
+    """Send t to rank r + shift of the group and receive from rank
+    r - shift a tensor of recv_shape: one all_to_all_single with one
+    non-empty split each way, which gloo (CPU and CUDA tensors) and NCCL
+    both run."""
+    send = t.contiguous().reshape(-1)
+    out = t.new_empty(tuple(recv_shape))
+    ins, outs = [0] * n, [0] * n
+    ins[(r + shift) % n] = send.numel()
+    outs[(r - shift) % n] = out.numel()
+    dist.all_to_all_single(out.view(-1), send, output_split_sizes=outs,
+                           input_split_sizes=ins, group=group)
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """ppermute to rank + shift; the backward shifts the cotangent back."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, r, shift, recv_shape):
+        ctx.group, ctx.n, ctx.r, ctx.shift = group, n, r, shift
+        ctx.shape = tuple(t.shape)
+        return _shift(t, group, n, r, shift, recv_shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_shift(g, ctx.group, ctx.n, ctx.r, -ctx.shift, ctx.shape),
+                None, None, None, None, None)
+
+
+def ring_shift(t: torch.Tensor, shift: int = 1, recv_shape=None, *,
+               mesh=None, axis: str = MODEL_AXIS,
+               replay: Optional[Replay] = None) -> torch.Tensor:
+    """t sent to rank + shift of the model axis, differentiably; returns
+    what rank - shift sent, of recv_shape (default t's: even shards). The
+    identity with one model rank."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return t
+    shape = tuple(t.shape) if recv_shape is None else tuple(recv_shape)
+    return _replayed(replay, _RingShift.apply, t, *g, shift, shape)
+
+
+def _gather_uneven(x: torch.Tensor, group, n: int, sizes: List[int],
+                   dim: int) -> torch.Tensor:
+    """The shards of every rank, of `sizes` along dim, concatenated in
+    rank order: one all_gather_into_tensor of the shards padded to the
+    longest (the padding is cut off before any use)."""
+    x = x.movedim(dim, 0)
+    top = max(sizes)
+    if x.shape[0] < top:
+        x = torch.cat([x, x.new_zeros((top - x.shape[0],) + x.shape[1:])])
+    x = x.contiguous()
+    out = x.new_empty((n * top,) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=group)
+    parts = [out[i * top:i * top + s] for i, s in enumerate(sizes)]
+    return torch.cat(parts).movedim(0, dim)
+
+
+class _GatherTokens(torch.autograd.Function):
+    """all_gather of uneven token shards. backward: this rank's slice of
+    the cotangent; with sum_grad, of the cotangent summed over the ranks
+    first (in float32), the transpose of the gather when each rank's
+    cotangent is its own (the k and v of its queries)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, r, sizes, dim, sum_grad):
+        ctx.group, ctx.dim, ctx.sum_grad = group, dim, sum_grad
+        ctx.lo, ctx.size = sum(sizes[:r]), sizes[r]
+        return _gather_uneven(x, group, n, sizes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            dt = g.dtype
+            g = g.float().contiguous()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+            g = g.to(dt)
+        return (g.narrow(ctx.dim, ctx.lo, ctx.size).contiguous(),
+                None, None, None, None, None, None)
+
+
+def gather_tokens(x: torch.Tensor, sizes: List[int], dim: int = 1, *,
+                  sum_grad: bool = False, mesh=None,
+                  axis: str = MODEL_AXIS,
+                  replay: Optional[Replay] = None) -> torch.Tensor:
+    """Every model rank's token shard of x (lengths `sizes` along dim,
+    uneven allowed) in rank order, differentiably. The backward gives this
+    rank its slice of the cotangent: as it is, where every rank computed
+    the same thing from the whole (a stack's output), or summed over the
+    ranks with sum_grad (the k and v that each rank's queries read)."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    group, n, r = g
+    if x.shape[dim] != sizes[r]:
+        raise ValueError(f"rank {r} holds {x.shape[dim]} tokens, the split "
+                         f"{sizes} gives it {sizes[r]}")
+    return _replayed(replay, _GatherTokens.apply, x, group, n, r,
+                     list(sizes), dim, sum_grad)
+
+
+class _SplitTokens(torch.autograd.Function):
+    """This rank's token shard of a tensor every rank holds whole; the
+    backward all-gathers the shards' cotangents, so the whole cotangent
+    reaches every rank's copy."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, r, sizes, dim):
+        ctx.group, ctx.n, ctx.sizes, ctx.dim = group, n, sizes, dim
+        return x.narrow(dim, sum(sizes[:r]), sizes[r]).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather_uneven(g, ctx.group, ctx.n, ctx.sizes, ctx.dim),
+                None, None, None, None, None)
+
+
+def split_tokens(x: torch.Tensor, sizes: List[int], dim: int = 1, *,
+                 mesh=None, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """This model rank's shard (lengths `sizes` along dim) of x, which
+    every rank of the model axis holds whole (differentiable)."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    group, n, r = g
+    return _SplitTokens.apply(x, group, n, r, list(sizes), dim)

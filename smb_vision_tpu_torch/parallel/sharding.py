@@ -30,6 +30,21 @@ here each policy is explicit work on a (data, model) `DeviceMesh`:
 - "fsdp+tp": both, tensor parallelism over "model" and FSDP2 over "data"
   on the 2-D mesh.
 
+- "pipeline": a model built with `pipe` (`models/pipelined.py`) holds one
+  stage's layers a rank of the model axis; nothing is moved (each stage
+  built only its own layers), and the gradients are averaged over the
+  data axis, whose ranks hold the same stage. "pipeline+fsdp": and FSDP2
+  over "data" on the root for the parameters outside the stacks (the
+  stacks' stay whole on their stage), as the JAX package shards only the
+  non-stack tables over "data" then.
+
+Sequence parallelism (a model whose stacks are `sequence_parallel`) runs
+under "dp" and "fsdp" with the tokens on the model axis: each rank's
+gradient of a stack parameter covers its tokens only, so `sync_gradients`
+sums those over the model axis too (`model_sum_ids`); every other
+parameter's gradient is already whole on every rank of a model group. It
+refuses "tp" (ROADMAP.md queue 1 item 9, Multi-GPU).
+
 `param_placements` gives each parameter's class as the JAX
 `param_shardings` would, by its flat name, so a test holds the two
 together. Optimizer state follows the parameters: torch AdamW's moments
@@ -52,7 +67,7 @@ from smb_vision_tpu_torch.parallel.mesh import (
     axis_size,
 )
 
-POLICIES = ("dp", "fsdp", "tp", "fsdp+tp")
+POLICIES = ("dp", "fsdp", "tp", "fsdp+tp", "pipeline", "pipeline+fsdp")
 
 # the JAX package's Megatron rules, on its flat paths
 # (`params/videomae/encoder/layer_0/attention/query/kernel`):
@@ -68,10 +83,12 @@ _TP_COL_BIAS = re.compile(
 
 class Placement(NamedTuple):
     """A parameter's class: tp "col" (split on its output features),
-    "row" (on its input features) or None; data: sharded over "data"."""
+    "row" (on its input features) or None; data: sharded over "data";
+    stage: held by one pipeline stage of the model axis."""
 
     tp: Optional[str]
     data: bool
+    stage: bool = False
 
 
 def jax_path(name: str, ndim: int) -> str:
@@ -135,15 +152,50 @@ def param_placements(model: nn.Module, mesh, policy: str = "dp",
     n_data, n_model = _mesh_shape(mesh)
     use_tp = "tp" in policy and n_model > 1
     use_fsdp = "fsdp" in policy and n_data > 1
+    staged = _stage_names(model) if "pipeline" in policy else set()
     out = {}
     for name, p in model.named_parameters():
         js = jax_shape(p)
         tp = _tp_class(jax_path(name, p.dim()), js, n_model) \
             if use_tp else None
-        data = (use_fsdp and p.numel() >= min_fsdp_size
+        stage = name in staged
+        data = (use_fsdp and not stage and p.numel() >= min_fsdp_size
                 and _fsdp_dim(js, tp, n_data) is not None)
-        out[name] = Placement(tp, bool(data))
+        out[name] = Placement(tp, bool(data), stage)
     return out
+
+
+def _stacks(model: nn.Module, which: str) -> Dict[str, nn.Module]:
+    """The Encoders of model that are pipelined over more than one stage
+    ("pipe") or sequence parallel ("sp"), by name."""
+    from smb_vision_tpu_torch.models.layers import Encoder
+
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, Encoder) and (
+                (m.pipe is not None and m.pipe.stages > 1) if which == "pipe"
+                else m.sequence_parallel)}
+
+
+def _stage_names(model: nn.Module) -> Set[str]:
+    return {f"{n}.{pn}" if n else pn
+            for n, m in _stacks(model, "pipe").items()
+            for pn, _ in m.named_parameters()}
+
+
+def stage_param_ids(model: nn.Module) -> Set[int]:
+    """The parameters one pipeline stage holds (its stacks' layers)."""
+    return {id(p) for m in _stacks(model, "pipe").values()
+            for p in m.parameters()}
+
+
+def model_sum_ids(model: nn.Module, mesh) -> Set[int]:
+    """The parameters whose gradients `sync_gradients` sums over the model
+    axis: those of the sequence-parallel stacks, when the axis has more
+    than one rank."""
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return set()
+    return {id(p) for m in _stacks(model, "sp").values()
+            for p in m.parameters()}
 
 
 def check_policy(policy: str) -> None:
@@ -234,6 +286,17 @@ def apply_policy(model: nn.Module, mesh, policy: str = "dp",
     if mesh is None:
         return set()
     n_data, n_model = _mesh_shape(mesh)
+    if "tp" in policy and n_model > 1 and _stacks(model, "sp"):
+        from smb_vision_tpu_torch.utils.args import not_ported
+
+        raise not_ported(f"sequence parallelism under sharding_policy "
+                         f"{policy!r}", "multi-gpu",
+                         "sharding_policy dp or fsdp")
+    staged = _stacks(model, "pipe")
+    if staged and "pipeline" not in policy:
+        raise ValueError(f"a model pipelined over the model axis trains "
+                         f"under sharding_policy pipeline or "
+                         f"pipeline+fsdp, not {policy!r}")
     classes = param_placements(model, mesh, policy, min_fsdp_size)
     if "tp" in policy and n_model > 1:
         _apply_tp(model, mesh[MODEL_AXIS], classes, n_model)
@@ -244,12 +307,13 @@ def apply_policy(model: nn.Module, mesh, policy: str = "dp",
     replicated = set()
     for name, p in model.named_parameters():
         tp = classes[name].tp
-        if (p.numel() < min_fsdp_size
+        if (classes[name].stage or p.numel() < min_fsdp_size
                 or _fsdp_dim(jax_shape(p), tp, n_data) is None):
             replicated.add(p)
     dm = mesh[DATA_AXIS]
-    for block in _block_of(model).values():
-        fully_shard(block, mesh=dm, ignored_params=replicated)
+    if "pipeline" not in policy:
+        for block in _block_of(model).values():
+            fully_shard(block, mesh=dm, ignored_params=replicated)
     fully_shard(model, mesh=dm, ignored_params=replicated)
     return {id(p) for p in model.parameters() if p not in replicated}
 
@@ -260,16 +324,26 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def sync_gradients(params, mesh, fsdp_ids: Set[int]) -> None:
+def sync_gradients(params, mesh, fsdp_ids: Set[int],
+                   model_sums: Set[int] = frozenset()) -> None:
     """Average over the data axis the gradients that FSDP2 does not
-    reduce (every gradient under "dp" and "tp"): one all-reduce a dtype,
-    over the flattened local gradients."""
+    reduce (every gradient under "dp" and "tp"), then sum over the model
+    axis those of `model_sums` (the sequence-parallel stacks'): one
+    all-reduce a dtype and axis, over the flattened local gradients."""
     n = axis_size(mesh, DATA_AXIS)
-    if n == 1:
-        return
-    group = mesh[DATA_AXIS].get_group()
-    grads = [local(p.grad) for p in params
-             if p.grad is not None and id(p) not in fsdp_ids]
+    if n > 1:
+        _all_reduce([local(p.grad) for p in params
+                     if p.grad is not None and id(p) not in fsdp_ids],
+                    mesh[DATA_AXIS].get_group(), n)
+    if model_sums and axis_size(mesh, MODEL_AXIS) > 1:
+        _all_reduce([local(p.grad) for p in params
+                     if p.grad is not None and id(p) in model_sums],
+                    mesh[MODEL_AXIS].get_group(), 1)
+
+
+def _all_reduce(grads, group, divide: int) -> None:
+    """Each gradient summed over group and divided by `divide`, in place:
+    one all-reduce a dtype."""
     by_dtype: Dict[torch.dtype, list] = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
@@ -277,7 +351,8 @@ def sync_gradients(params, mesh, fsdp_ids: Set[int]) -> None:
         flat = torch.cat([g.reshape(-1) for g in gs])
         # gloo has no AVG: sum, then divide
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(n)
+        if divide != 1:
+            flat.div_(divide)
         off = 0
         for g in gs:
             g.copy_(flat[off:off + g.numel()].view_as(g))

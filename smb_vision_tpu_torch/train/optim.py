@@ -82,10 +82,12 @@ class ClippedAdamW:
     moments and the update count.
 
     On a mesh (`place`, after `parallel.sharding.apply_policy`) a step
-    first averages over the data axis the gradients FSDP2 does not reduce,
-    and the clip takes the norm of the whole gradient: each rank's squared
-    norms of its pieces, weighted by how many ranks hold the same piece,
-    summed over the world in one all-reduce."""
+    first averages over the data axis the gradients FSDP2 does not reduce
+    (and sums a sequence-parallel stack's over the model axis), and the
+    clip takes the norm of the whole gradient: each rank's squared norms
+    of its pieces, weighted by how many ranks hold the same piece (a
+    pipeline stage's layers: the data axis's), summed over the world in
+    one all-reduce."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], *,
                  schedules: Dict[str, Callable[[int], float]],
@@ -100,6 +102,7 @@ class ClippedAdamW:
         self.grad_clip = grad_clip
         self.updates = 0
         self.mesh, self.fsdp_ids = None, set()
+        self.model_sums, self.stage_ids = set(), set()
         self._build(named_params)
 
     def _build(self, named_params) -> None:
@@ -127,14 +130,18 @@ class ClippedAdamW:
             [g for g in groups if g["params"]],
             lr=self.schedules["default"](0), **self.hyper)
 
-    def place(self, mesh, fsdp_ids, named_params=None) -> None:
+    def place(self, mesh, fsdp_ids, named_params=None, model_sums=(),
+              stage_ids=()) -> None:
         """Take the mesh for the gradient sync and the clip, before the
         first update; with named_params, rebuild over those placed
-        parameters (FSDP2 and DTensor TP replace the parameter
-        objects)."""
+        parameters (FSDP2 and DTensor TP replace the parameter objects).
+        model_sums: the ids whose gradients are summed over the model axis
+        (`sharding.model_sum_ids`); stage_ids: those one pipeline stage
+        holds (`sharding.stage_param_ids`)."""
         if self.updates:
             raise ValueError("place the optimizer before its first update")
         self.mesh, self.fsdp_ids = mesh, set(fsdp_ids)
+        self.model_sums, self.stage_ids = set(model_sums), set(stage_ids)
         if named_params is not None:
             self._build(named_params)
 
@@ -154,16 +161,24 @@ class ClippedAdamW:
             norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g.float()) for g in grads]))
         else:
+            from smb_vision_tpu_torch.parallel.mesh import (
+                MODEL_AXIS,
+                axis_size,
+            )
             from smb_vision_tpu_torch.parallel.sharding import (
                 local,
                 replication,
             )
 
             world = dist.get_world_size()
+            stages = axis_size(self.mesh, MODEL_AXIS)
+            staged = [id(p) in self.stage_ids for p in self.params
+                      if p.grad is not None]
             norms = torch.stack(torch._foreach_norm(
                 [local(g).float() for g in grads]))
-            weights = torch.tensor([1.0 / replication(g, world)
-                                    for g in grads], device=norms.device)
+            weights = torch.tensor(
+                [(stages if s else 1) / replication(g, world)
+                 for g, s in zip(grads, staged)], device=norms.device)
             sq = (norms * norms * weights).sum()
             dist.all_reduce(sq, op=dist.ReduceOp.SUM)
             norm = sq.sqrt()
@@ -176,7 +191,8 @@ class ClippedAdamW:
         if self.mesh is not None:
             from smb_vision_tpu_torch.parallel.sharding import sync_gradients
 
-            sync_gradients(self.params, self.mesh, self.fsdp_ids)
+            sync_gradients(self.params, self.mesh, self.fsdp_ids,
+                           self.model_sums)
         for g in self.opt.param_groups:
             g["lr"] = self.schedules[g["tier"]](self.updates)
         self.clip_()

@@ -52,7 +52,12 @@ from smb_vision_tpu_torch.data import quantization
 from smb_vision_tpu_torch.data.dataset import prefetch_to_device, to_tensor
 from smb_vision_tpu_torch.parallel import mesh as pmesh
 from smb_vision_tpu_torch.parallel.collectives import gather_rows
-from smb_vision_tpu_torch.parallel.sharding import apply_policy, check_policy
+from smb_vision_tpu_torch.parallel.sharding import (
+    apply_policy,
+    check_policy,
+    model_sum_ids,
+    stage_param_ids,
+)
 from smb_vision_tpu_torch.utils.logging import MetricLogger, get_logger
 from smb_vision_tpu_torch.utils.profiling import device_peak_flops, trace
 
@@ -187,11 +192,15 @@ class Trainer:
                  step_fn: Callable, train_loader, eval_loader=None,
                  eval_fn: Optional[Callable] = None,
                  compute_metrics: Optional[Callable] = None,
-                 mesh=None, min_fsdp_size: int = 2 ** 16):
+                 mesh=None, min_fsdp_size: int = 2 ** 16,
+                 eval_batch_multiple: int = 1):
         """mesh: the (data, model) DeviceMesh; by default
         `create_mesh(model=args.model_parallel, dcn=args.dcn_slices)`,
         None without a process group (one device). The model (and the
-        teacher) must be on this rank's device."""
+        teacher) must be on this rank's device. eval_batch_multiple: an
+        eval batch is padded to a multiple of it times the data axis (a
+        pipelined eval_fn splits each rank's rows into that many
+        microbatches)."""
         self.args = args
         self.state = state
         self.step_fn = step_fn
@@ -199,6 +208,7 @@ class Trainer:
         self.eval_loader = eval_loader
         self.eval_fn = eval_fn
         self.compute_metrics = compute_metrics
+        self.eval_batch_multiple = max(int(eval_batch_multiple), 1)
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and self.device.index is None \
                 and torch.cuda.is_available():
@@ -229,7 +239,12 @@ class Trainer:
             # "dp" keeps the parameters; the other policies replace them
             state["optimizer"].place(
                 self.mesh, fsdp_ids,
-                state["model"].named_parameters() if placed else None)
+                state["model"].named_parameters() if placed else None,
+                model_sums=model_sum_ids(state["model"], self.mesh),
+                stage_ids=stage_param_ids(state["model"]))
+        # a pipelined model's ranks hold different layers: its checkpoint
+        # keys the optimizer state by parameter name, entry by entry
+        self.staged = bool(stage_param_ids(state["model"]))
         if args.input_dtype not in _DTYPES:
             raise ValueError(f"input_dtype {args.input_dtype!r}: expected "
                              f"one of {sorted(_DTYPES)}")
@@ -313,23 +328,27 @@ class Trainer:
 
     def _meta(self, step: int, epoch: int) -> dict:
         meta = {"step": step, "epoch": epoch,
-                "updates": self.state["optimizer"].updates}
+                "updates": self.state["optimizer"].updates,
+                "flat_optimizer": self.staged}
         for key in _STATE_EXTRAS:
             if key in self.state:
                 meta[key] = self.state[key]
         return meta
 
-    def _sharded_state(self) -> dict:
+    def _sharded_state(self, flat: bool = False) -> dict:
         """The model, optimizer and teacher state, keyed by parameter
         name, in `torch.distributed.checkpoint`'s form (DTensors where
-        sharded)."""
+        sharded); flat: the optimizer's entries one a key (a pipeline's
+        stages hold different parameters)."""
         from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
             get_model_state_dict,
             get_state_dict,
         )
 
-        msd, osd = get_state_dict(self.state["model"],
-                                  self.state["optimizer"].opt)
+        msd, osd = get_state_dict(
+            self.state["model"], self.state["optimizer"].opt,
+            options=StateDictOptions(flatten_optimizer_state_dict=flat))
         out = {"model": msd, "optimizer": osd}
         if "teacher" in self.state:
             out["teacher"] = get_model_state_dict(self.state["teacher"])
@@ -355,7 +374,7 @@ class Trainer:
             import torch.distributed.checkpoint as dcp
 
             self._barrier()
-            dcp.save(self._sharded_state(),
+            dcp.save(self._sharded_state(self.staged),
                      storage_writer=dcp.FileSystemWriter(
                          str(tmp), thread_count=_SAVE_THREADS))
             if self.main:
@@ -381,12 +400,14 @@ class Trainer:
             return self._restore_blob(path / "state.pt")
         import torch.distributed.checkpoint as dcp
         from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
             set_model_state_dict,
             set_state_dict,
         )
 
         meta = torch.load(path / "meta.pt", weights_only=True)
-        sd = self._sharded_state()
+        flat = bool(meta.get("flat_optimizer", False))
+        sd = self._sharded_state(flat)
         dcp.load(sd, checkpoint_id=str(path))
         opt = self.state["optimizer"].opt
         # the groups are this run's (another world size groups the
@@ -395,7 +416,9 @@ class Trainer:
                   for g in opt.param_groups]
         set_state_dict(self.state["model"], opt,
                        model_state_dict=sd["model"],
-                       optim_state_dict=sd["optimizer"])
+                       optim_state_dict=sd["optimizer"],
+                       options=StateDictOptions(
+                           flatten_optimizer_state_dict=flat))
         for g, own in zip(opt.param_groups, groups):
             g.update(own)
         if "teacher" in self.state:
@@ -452,10 +475,23 @@ class Trainer:
         return 0
 
     def full_model_state(self) -> Dict[str, torch.Tensor]:
-        """The whole state_dict of the model, gathered from its shards; on
-        a mesh every rank must call it, and ranks other than 0 get an
-        empty dict."""
+        """The whole state_dict of the model, gathered from its shards
+        (and, pipelined, from every stage: dense names, the dense model's
+        state); on a mesh every rank must call it, and ranks other than 0
+        get an empty dict."""
         module = self.state["model"]
+        if self.staged:
+            from smb_vision_tpu_torch.parallel.pipeline import (
+                stage_ranks_state,
+            )
+
+            # the tables FSDP2 shards under "pipeline+fsdp" whole on every
+            # rank (the same keys in the same order on each), then the
+            # stages' layers merged on rank 0
+            full = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                    for k, v in module.state_dict().items()}
+            data_rank = pmesh.axis_rank(self.mesh, pmesh.DATA_AXIS)
+            return stage_ranks_state(full, self._ctl, data_rank == 0)
         if not any(hasattr(p, "placements") for p in module.parameters()):
             return module.state_dict() if self.main else {}
         from torch.distributed.checkpoint.state_dict import (
@@ -667,7 +703,8 @@ class Trainer:
             # of the data axis as the JAX Trainer pads it, and evaluates
             # its rows; the loss is the global batch's, the logits and
             # labels are gathered back in row order
-            size = size or -(-n // m) * m
+            mult = m * self.eval_batch_multiple
+            size = size or -(-n // mult) * mult
             batch = {k: np.concatenate([np.asarray(v)]
                                        + [np.asarray(v)[-1:]] * (size - n))
                      for k, v in raw.items()}

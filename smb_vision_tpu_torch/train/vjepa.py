@@ -9,6 +9,10 @@ mask. The teacher starts as a copy of the whole student, runs forward-only
 under no_grad (with its own attn_impl if teacher_attn_impl is given, e.g.
 "pallas_int8": kernel K3, and the MLP's K6 through the pallas_bwd primal
 rule), and takes the EMA update once per optimizer step, after the update.
+`make_pipelined_vjepa_workload` pipelines the student's and the teacher's
+stacks over the mesh's model axis (`models/pipelined.py`); each rank's
+teacher holds its stage's layers, and its EMA reads the student's layers
+of the same stage.
 """
 
 from __future__ import annotations
@@ -23,6 +27,12 @@ from smb_vision_tpu_torch.models.configs import VJEPA2Config
 from smb_vision_tpu_torch.models.vjepa import VJEPA2Model, vjepa_loss
 from smb_vision_tpu_torch.ops.masking import vjepa_target_mask
 from smb_vision_tpu_torch.parallel.collectives import global_rows, share_rows
+from smb_vision_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    axis_rank,
+    axis_size,
+)
+from smb_vision_tpu_torch.parallel.pipeline import PipeStages
 from smb_vision_tpu_torch.train.optim import ema_update
 from smb_vision_tpu_torch.train.trainer import accumulate_gradients
 
@@ -36,7 +46,8 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
                         pred_mask_scale=(0.2, 0.8), aspect_ratio=(0.3, 3.0),
                         num_blocks: int = 3, inv_block: bool = False,
                         teacher_attn_impl: Optional[str] = None,
-                        device="cpu"):
+                        device="cpu", pipe: Optional[PipeStages] = None,
+                        eval_microbatches: int = 0):
     """Returns (model, init_fn, step_fn, eval_fn).
 
     tx(named_parameters) -> optimizer (train/optim.py `make_optimizer`
@@ -46,12 +57,15 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
     batch["pixel_values"], with the given (B, N) bool target mask or one
     drawn from generator; eval_fn(state, batch) -> {"loss"}: eval mode (no
     DropPath) under a fixed target mask (seed 0), honouring
-    batch["valid_mask"]."""
+    batch["valid_mask"]. pipe: the student and the teacher hold this
+    pipeline stage's layers (`make_pipelined_vjepa_workload`), initialised
+    as the dense model's of the same seed; eval_microbatches: the eval
+    step's count (default the train step's)."""
     device = torch.device(device)
-    model = VJEPA2Model(config)
+    model = VJEPA2Model(config, pipe=pipe)
     tconfig = (dataclasses.replace(config, attn_impl=teacher_attn_impl)
                if teacher_attn_impl else config)
-    teacher = VJEPA2Model(tconfig).requires_grad_(False)
+    teacher = VJEPA2Model(tconfig, pipe=pipe).requires_grad_(False)
 
     def gen_mask(generator: torch.Generator, batch: int) -> torch.Tensor:
         return vjepa_target_mask(generator, batch, grid=config.grid,
@@ -60,7 +74,16 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
                                  num_blocks=num_blocks, inv_block=inv_block)
 
     def init_fn(seed: int) -> dict:
-        model.init_weights(torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        if pipe is None:
+            model.init_weights(gen)
+        else:
+            # the stage's share of the dense model's initialisation
+            from smb_vision_tpu_torch.models.pipelined import stage_state
+
+            dense = VJEPA2Model(config).init_weights(gen)
+            model.load_state_dict(stage_state(model, dense.state_dict()))
+            del dense
         model.to(device)
         teacher.load_state_dict(model.state_dict())
         teacher.to(device).eval()
@@ -102,7 +125,44 @@ def make_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
         mask = share_rows(gen_mask(torch.Generator().manual_seed(0),
                                    global_rows(px.shape[0])))
         model.eval()
-        return {"loss": loss_for(px, mask.to(px.device),
-                                 valid=batch.get("valid_mask"))}
+        if pipe is not None:
+            from smb_vision_tpu_torch.models.pipelined import set_microbatches
+
+            for m in (model, teacher):
+                set_microbatches(m, eval_microbatches or pipe.microbatches)
+        try:
+            return {"loss": loss_for(px, mask.to(px.device),
+                                     valid=batch.get("valid_mask"))}
+        finally:
+            if pipe is not None:
+                for m in (model, teacher):
+                    set_microbatches(m, pipe.microbatches)
 
     return model, init_fn, step_fn, eval_fn
+
+
+def make_pipelined_vjepa_workload(config: VJEPA2Config, *, tx: Callable,
+                                  mesh, num_microbatches: int,
+                                  eval_microbatches: int = 0,
+                                  remat: bool = True, **kw):
+    """V-JEPA2 pretraining with the student's encoder and predictor and
+    the EMA teacher's encoder GPipe-pipelined over the mesh's model axis
+    (`models/pipelined.vjepa2_pipeline_pretrain`'s computation): each rank
+    holds layers/S of every stack, under the dense names (sharding policy
+    "pipeline" or "pipeline+fsdp"). Microbatching replaces gradient
+    accumulation; remat checkpoints each layer of the stages. kw: as
+    make_vjepa_workload's. Returns (model, init_fn, step_fn, eval_fn)."""
+    if config.sequence_parallel:
+        raise ValueError("pipeline parallelism composes with the data "
+                         "axis, not sequence parallelism; unset "
+                         "config.sequence_parallel")
+    if kw.get("grad_accum", 1) != 1:
+        raise ValueError("the pipeline's microbatches replace gradient "
+                         "accumulation; pass grad_accum 1")
+    pipe = PipeStages(axis_size(mesh, MODEL_AXIS),
+                      axis_rank(mesh, MODEL_AXIS), num_microbatches)
+    for n in (config.num_hidden_layers, config.pred_num_hidden_layers):
+        pipe.layers(n)
+    config = dataclasses.replace(config, gradient_checkpointing=remat)
+    return make_vjepa_workload(config, tx=tx, pipe=pipe,
+                               eval_microbatches=eval_microbatches, **kw)

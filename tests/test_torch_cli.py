@@ -96,10 +96,13 @@ def test_cuda_device_without_cuda_raises(workdir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline_parallel", "2"], "item 9, Multi-GPU"),
+    (["--pipeline_parallel", "2", "--sliding_window", "true"],
+     "item 9, Multi-GPU"),
     (["--quant8"], "item 10, W8A8"),
 ])
 def test_unported_flags_raise(workdir, tmp_path, flags, item):
+    """--pipeline_parallel runs (tests/test_torch_pipelined_models.py); its
+    composition with --sliding_window stays refused, as in the JAX CLI."""
     with pytest.raises(NotImplementedError, match=item):
         run_inference(_common(workdir) + ["--device", "cpu", "--output_dir",
                                           str(tmp_path), *flags])
@@ -362,16 +365,18 @@ def test_refusals_cite_roadmap_items():
         assert headings.get((queue, n), "").rstrip(".") == heading, (
             queue, n, heading)
     cite = re.compile(r"ROADMAP\.md queue (\d+) item (\d+), ([^)]+)\)")
+    # context and pipeline parallelism are ported (step 2 of queue 1 item
+    # 9): what stays refused is sequence parallelism under the "tp"
+    # policies and the pipeline with the sliding window
     refusals = [
-        lambda: run_mim.main(["--device", "cpu", "--pipeline_stages", "2"]),
-        lambda: run_vjepa.main(["--device", "cpu", "--pipeline_stages",
-                                "2"]),
+        lambda: run_mim.main(["--device", "cpu", "--sequence_parallel",
+                              "true", "--sharding_policy", "tp"]),
         lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
-                                "true"]),
+                                "true", "--sharding_policy", "fsdp+tp"]),
         lambda: tinfer.main(["--device", "cpu", "--quant8"]),
-        lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2"]),
+        lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
+                             "--sliding_window", "true"]),
         lambda: Block(8, 2, 16, quant8=True),
-        lambda: Block(8, 2, 16, sequence_parallel=True),
     ]
     # LoRA, the 8-bit optimizer and the zoo (queue 1 items 6 to 8) are
     # ported: their calls run past the refusals (the CLIs stop only for
@@ -413,3 +418,188 @@ def test_refusals_cite_roadmap_items():
             key = (int(m.group(1)), int(m.group(2)))
             assert headings[key].rstrip(".") == m.group(3), (path.name,
                                                               rest[:80])
+
+
+# -- context and pipeline parallelism through the CLIs (2 gloo ranks) --------
+
+TRAIN_COMMON = ["--image_size", "32", "--depth", "32", "--patch_size", "16",
+                "--hidden_size", "32", "--num_hidden_layers", "2",
+                "--num_attention_heads", "2", "--dtype", "float32",
+                "--attn_impl", "xla", "--mlp_impl", "xla",
+                "--logging_steps", "1", "--device", "cpu",
+                "--num_workers", "1", "--per_device_train_batch_size", "2",
+                "--per_device_eval_batch_size", "2", "--seed", "3",
+                "--save_steps", "2", "--lr_scheduler_type", "constant",
+                "--learning_rate", "1e-3"]
+TRAIN_CLIS = {
+    "run_mim": lambda spec: [
+        "--json_path", str(spec), "--mask_patch_size", "16",
+        "--mask_ratio", "0.5", "--intermediate_size", "64",
+        "--config_overrides",
+        "decoder_hidden_size=32,decoder_num_hidden_layers=2,"
+        "decoder_intermediate_size=64,decoder_num_attention_heads=2"],
+    "run_vjepa": lambda spec: [
+        "--data_path", str(spec), "--pred_hidden_size", "16",
+        "--pred_num_hidden_layers", "2", "--pred_num_attention_heads", "2",
+        "--teacher_attn_impl", "xla", "--num_mask_blocks", "2"],
+}
+
+
+@pytest.fixture(scope="module")
+def train_spec(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_vols")
+    rng = np.random.default_rng(2)
+    items = []
+    for i in range(6):
+        path = root / f"ct_{i}.nii"
+        save_nifti(path, rng.normal(-200, 400, (16, 16, 16)).clip(
+            -1024, 3000).astype(np.int16), np.diag([6.0, 6.0, 6.0, 1.0]))
+        items.append({"image": str(path)})
+    spec = root / "data.json"
+    spec.write_text(json.dumps({"train": items[:4],
+                                "validation": items[4:]}))
+    return spec
+
+
+def _losses(out):
+    return {r["step"]: r["loss"] for r in map(
+        json.loads, (out / "metrics.jsonl").read_text().splitlines())
+        if "loss" in r}
+
+
+@pytest.fixture(scope="module")
+def dense_runs(train_spec, tmp_path_factory):
+    """Each training CLI in this process, one device, 4 steps: the
+    reference of the sequence-parallel and pipelined runs (same seed,
+    data order and masks)."""
+    from smb_vision_tpu_torch.cli import run_mim, run_vjepa
+
+    out = {}
+    for cli, main in (("run_mim", run_mim.main),
+                      ("run_vjepa", run_vjepa.main)):
+        d = tmp_path_factory.mktemp(f"dense_{cli}")
+        main(TRAIN_COMMON + TRAIN_CLIS[cli](train_spec)
+             + ["--num_train_steps", "4", "--output_dir", str(d)])
+        out[cli] = d
+    return out
+
+
+def _same_losses(got, want, steps):
+    for s in steps:
+        assert abs(got[s] - want[s]) <= 1e-5 * abs(want[s]), (s, got, want)
+
+
+@pytest.mark.parametrize("cli", sorted(TRAIN_CLIS))
+def test_pipelined_cli_trains_evals_exports_and_resumes(
+        train_spec, dense_runs, tmp_path, cli):
+    """--pipeline_stages 2 on 2 gloo ranks (torch.distributed.run): each
+    step's loss that of the one-device run (the stages' initialisation is
+    the dense model's, the draws the same), the eval logged, a sharded
+    checkpoint, and a dense-layout export (no stacked name) that the JAX
+    package's model takes whole; then one process without the pipeline (a
+    stage count of 1) resumes the pipelined checkpoint to 4 steps on the
+    one-device run's losses."""
+    from test_torch_parallel import _torchrun
+
+    from smb_vision_tpu.models.configs import VideoMAEConfig as JV
+    from smb_vision_tpu.models.configs import VJEPA2Config as JJ
+    from smb_vision_tpu.utils.serialization import load_params_into
+    from smb_vision_tpu.models.videomae import VideoMAEForPreTraining as JM
+    from smb_vision_tpu.models.vjepa import VJEPA2Model as JVJ
+    from smb_vision_tpu_torch.cli import run_mim, run_vjepa
+    from smb_vision_tpu_torch.models import convert
+
+    out = tmp_path / "pipe"
+    args = TRAIN_COMMON + TRAIN_CLIS[cli](train_spec)
+    extra = ["--export_hf", "true"] if cli == "run_mim" else []
+    _torchrun(["-m", f"smb_vision_tpu_torch.cli.{cli}", *args, *extra,
+               "--pipeline_stages", "2", "--num_train_steps", "2",
+               "--do_eval", "true", "--output_dir", str(out)], tmp_path,
+              nproc=2)
+    want = _losses(dense_runs[cli])
+    _same_losses(_losses(out), want, (1, 2))
+    recs = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    assert any(np.isfinite(r.get("eval_loss", np.nan)) for r in recs)
+    assert (out / "checkpoints" / "2" / "meta.pt").exists()
+    export = convert.read_safetensors(out / "model.safetensors")
+    dense = convert.read_safetensors(dense_runs[cli] / "model.safetensors")
+    assert set(export) == set(dense)
+    assert not any("stacked" in k for k in export)
+    if cli == "run_mim":
+        cfg = JV.from_json(str(out / "config.json"))
+        jparams = jax.eval_shape(lambda k, x, m: JM(cfg).init(k, x, m, 4),
+                                 jax.random.PRNGKey(0),
+                                 np.zeros((1, 32, 1, 32, 32), np.float32),
+                                 np.zeros((1, 8), bool))
+        hf = convert.read_safetensors(out / "hf_model.safetensors")
+        assert not any("stacked" in k for k in hf)
+    else:
+        cfg = JJ.from_json(str(out / "config.json"))
+        jparams = jax.eval_shape(lambda k, x: JVJ(cfg).init(
+            k, x, target_bool=np.zeros((1, 8), bool)),
+            jax.random.PRNGKey(0), np.zeros((1, 32, 1, 32, 32), np.float32))
+    _, loaded, skipped = load_params_into(jparams, out / "model.safetensors")
+    assert skipped == [] and len(loaded) == len(export)
+    main = run_mim.main if cli == "run_mim" else run_vjepa.main
+    main(args + ["--num_train_steps", "4", "--output_dir", str(out)])
+    _same_losses(_losses(out), want, (1, 2, 3, 4))
+
+
+@pytest.mark.parametrize("cli,variant", [("run_mim", "gather"),
+                                         ("run_vjepa", "ring")])
+def test_sequence_parallel_cli_matches_one_device(
+        train_spec, dense_runs, tmp_path, cli, variant):
+    """--sequence_parallel over a model axis of 2 gloo ranks, each
+    sp_variant: the tokens split, every step's loss that of the one-device
+    run."""
+    from test_torch_parallel import _torchrun
+
+    out = tmp_path / "sp"
+    args = TRAIN_COMMON + TRAIN_CLIS[cli](train_spec)
+    i = args.index("--config_overrides") if "--config_overrides" in args \
+        else None
+    if i is None:
+        args += ["--config_overrides", f"sp_variant={variant}"]
+    else:
+        args[i + 1] += f",sp_variant={variant}"
+    _torchrun(["-m", f"smb_vision_tpu_torch.cli.{cli}", *args,
+               "--sequence_parallel", "true", "--model_parallel", "2",
+               "--num_train_steps", "2", "--output_dir", str(out)],
+              tmp_path, nproc=2)
+    _same_losses(_losses(out), _losses(dense_runs[cli]), (1, 2))
+
+
+def test_run_inference_pipeline_parallel_matches_jax_cli(workdir, tmp_path):
+    """run_inference --pipeline_parallel 2 on 2 gloo ranks (each builds its
+    layer of the 2-layer encoder, rank 0 writes) against the JAX CLI on
+    the same export."""
+    from test_torch_parallel import _torchrun
+
+    from smb_vision_tpu.cli.run_inference import main as jax_run_inference
+
+    jax_run_inference(_common(workdir) + ["--attn_impl", "xla",
+                                          "--output_dir", str(tmp_path / "j")])
+    log = _torchrun(["-m", "smb_vision_tpu_torch.cli.run_inference",
+                     *_common(workdir), "--device", "cpu",
+                     "--pipeline_parallel", "2", "--output_dir",
+                     str(tmp_path / "t")], tmp_path, nproc=2)
+    assert '"embedded": 2' in log
+    for i in range(2):
+        ref = np.load(tmp_path / "j" / f"case_{i}.npy")
+        out = np.load(tmp_path / "t" / f"case_{i}.npy")
+        assert out.shape == ref.shape == (8, 32)
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_pipeline_flags_refuse_as_the_jax_cli(train_spec, tmp_path):
+    """The JAX CLI's refusals: gradient accumulation with stages (the
+    microbatches replace it), the pipeline with sequence parallelism."""
+    from smb_vision_tpu_torch.cli import run_mim
+
+    args = TRAIN_COMMON + TRAIN_CLIS["run_mim"](train_spec) + [
+        "--output_dir", str(tmp_path), "--pipeline_stages", "2"]
+    with pytest.raises(SystemExit, match="gradient accumulation"):
+        run_mim.main(args + ["--gradient_accumulation_steps", "2"])
+    with pytest.raises(ValueError, match="sequence parallelism"):
+        run_mim.main(args + ["--sequence_parallel", "true"])

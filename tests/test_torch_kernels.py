@@ -707,8 +707,8 @@ def test_quantize_kernel_matches_plain_bit_for_bit(cuda, case):
     """The quantisation kernel (R6) gives `quantize_per_head`'s int8 bytes
     and f32 scales bit for bit, in the input's layout and in K8's v layout
     (`quantize_v_kernel_layout` of the plain bytes), at the model's shapes,
-    head widths 32 to 128, a ragged N, an all-zero head (s = 1) and the
-    strided views of a fused projection."""
+    head widths 32 to 128, a ragged N, an all-zero head (s = 1, or 0 with
+    zero_scale) and the strided views of a fused projection."""
     gen = torch.Generator(device=cuda).manual_seed(19)
     x, mult = _quant_input(case, gen, cuda)
     want8, want_s = A.quantize_per_head(x, mult)
@@ -722,6 +722,11 @@ def test_quantize_kernel_matches_plain_bit_for_bit(cuda, case):
     assert torch.equal(vt, A.quantize_v_kernel_layout(want8))
     if case == "zero_head":
         assert float(s[1, 2]) == 1.0
+    # zero_scale, as K7 quantises do: an all-zero head reports 0
+    want8, want_s = A.quantize_per_head(x, mult, zero_scale=True)
+    x8, s = A.quantize_per_head_kernel(x, mult, zero_scale=True)
+    assert torch.equal(s, want_s) and torch.equal(x8, want8)
+    assert (case == "zero_head") == bool((s == 0).any())
 
 
 @pytest.mark.cuda

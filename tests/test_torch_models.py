@@ -142,13 +142,27 @@ def test_read_safetensors_bf16_and_dtypes(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw, match in [({"quant8": True}, "quant8"),
-                      ({"sequence_parallel": True}, "sequence_parallel")]:
-        cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
-                             num_hidden_layers=1, num_attention_heads=2,
-                             intermediate_size=64, **kw)
-        with pytest.raises(NotImplementedError, match=match):
-            VideoMAEModel(cfg)
+    cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
+                         num_hidden_layers=1, num_attention_heads=2,
+                         intermediate_size=64, quant8=True)
+    with pytest.raises(NotImplementedError, match="quant8"):
+        VideoMAEModel(cfg)
+    # sequence parallelism is ported: without a mesh (one model rank) the
+    # model is the dense one, both variants
+    # (tests/test_torch_sequence_parallel.py splits the tokens over ranks)
+    dense_px = torch.rand(1, 32, 1, 32, 32)
+    base = dict(image_size=32, num_frames=32, hidden_size=32,
+                num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=64, dtype="float32", attn_impl="xla")
+    dense = VideoMAEModel(VideoMAEConfig(**base)).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    for variant in ("gather", "ring"):
+        sp = VideoMAEModel(VideoMAEConfig(
+            **base, sequence_parallel=True, sp_variant=variant)).eval()
+        sp.load_state_dict(dense.state_dict())
+        with torch.no_grad():
+            torch.testing.assert_close(sp(dense_px)[0], dense(dense_px)[0],
+                                       rtol=0, atol=0)
     # the glue kernels (K10a/K10b), fused_qkv and int8 p v (K8) are ported:
     # those models build and run (tests/test_torch_attn_glue.py holds them
     # against the JAX package); the glue still refuses a width it cannot map

@@ -4,8 +4,8 @@ Cox loss and the eval metrics over 2 gloo ranks against one process, the
 sharded checkpoints (a SIGTERM on one rank and the resume byte for byte, a
 world-2 checkpoint resumed by one process, the 2-rank export against a
 1-rank one), the three training CLIs under `torch.distributed.run` on 2
-gloo ranks, and the refusals that stay: step 2 of ROADMAP queue 1 item 9
-and --device cuda without CUDA."""
+gloo ranks, and the refusals that stay: the parts of step 2 of ROADMAP
+queue 1 item 9 still refused and --device cuda without CUDA."""
 
 import json
 import os
@@ -373,14 +373,19 @@ def test_cli_trains_on_two_gloo_ranks(volumes, tmp_path, cli):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: run_mim.main(["--device", "cpu", "--pipeline_stages", "2"]),
+    lambda: run_mim.main(["--device", "cpu", "--sequence_parallel", "true",
+                          "--sharding_policy", "tp"]),
     lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
-                            "true"]),
-    lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2"]),
+                            "true", "--sharding_policy", "fsdp+tp"]),
+    lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
+                         "--sliding_window", "true"]),
 ])
 def test_step_two_flags_still_raise(call):
-    """Context and pipeline parallelism (step 2 of the item) stay refused,
-    naming ROADMAP queue 1 item 9."""
+    """Context and pipeline parallelism (step 2 of the item) run
+    (tests/test_torch_sequence_parallel.py, test_torch_pipeline.py); what
+    of them stays refused names ROADMAP queue 1 item 9: sequence
+    parallelism under the "tp" policies and the pipeline with the sliding
+    window."""
     with pytest.raises(NotImplementedError, match="item 9, Multi-GPU"):
         call()
 

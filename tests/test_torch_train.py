@@ -343,15 +343,12 @@ def test_run_mim_trains_resumes_and_exports_for_jax(volumes, tmp_path):
     (["--sharding_policy", "tp"], "item 9, Multi-GPU"),
 ])
 def test_run_mim_unported_flags_raise(volumes, tmp_path, flags, item):
-    """--pipeline_stages 2 (step 2 of item 9) still raises naming the item;
-    the mesh and the policies are ported: --model_parallel 2 on one
-    process raises the mesh's own error, as `create_mesh` does in the JAX
+    """The mesh, the policies and the pipeline are ported: --pipeline_stages
+    2 and --model_parallel 2 on one process raise the mesh's own error
+    (the stages ride the model axis), as `create_mesh` does in the JAX
     package, and --sharding_policy tp trains (the model axis is 1)."""
     args = _cli_args(volumes, tmp_path / "o", 1) + flags
-    if flags[0] == "--pipeline_stages":
-        with pytest.raises(NotImplementedError, match=item):
-            run_mim.main(args)
-    elif flags[0] == "--model_parallel":
+    if flags[0] in ("--pipeline_stages", "--model_parallel"):
         with pytest.raises(ValueError, match="not divisible by model=2"):
             run_mim.main(args)
     else:

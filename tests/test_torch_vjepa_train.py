@@ -273,16 +273,15 @@ def test_run_vjepa_trains_resumes_and_exports_for_jax(volumes, tmp_path):
     (["--model_parallel", "2"], "item 9, Multi-GPU"),
 ])
 def test_run_vjepa_unported_flags_raise(volumes, tmp_path, flags, item):
-    """Step 2 of item 9 (--pipeline_stages, --sequence_parallel) still
-    raises naming the item; --model_parallel 2 on one process raises the
-    mesh's own error."""
+    """Step 2 of item 9 is ported: --pipeline_stages 2 and --model_parallel
+    2 on one process raise the mesh's own error (the stages ride the model
+    axis), and --sequence_parallel trains (over a model axis of 1)."""
     args = _cli_args(volumes, tmp_path / "o", 1) + flags
-    if flags[0] == "--model_parallel":
+    if flags[0] in ("--pipeline_stages", "--model_parallel"):
         with pytest.raises(ValueError, match="not divisible by model=2"):
             run_vjepa.main(args)
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            run_vjepa.main(args)
+        assert run_vjepa.main(args)["train_steps"] == 1
 
 
 @pytest.mark.parametrize("flag", ["cache_data_dir", "device_cache",
