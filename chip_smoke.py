@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding, serving, MIM-pretraining,
-V-JEPA2-pretraining (both presets: the TPU-native heads and the reference
-heads, whose predictor has heads of 32) and fine-tuning paths, the
-training data path (the native CT loader, the device cache, uint8
-shipping) with the HF checkpoint round trip, the opt-in int8 p v
-attention and attention-glue paths, LoRA fine-tuning, the 8-bit AdamW and
-the encoder zoo (SigLIP, Merlin's I3D ResNet-152), once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's batch-embedding (also W8A8, --quant8),
+serving, MIM-pretraining, V-JEPA2-pretraining (both presets: the
+TPU-native heads and the reference heads, whose predictor has heads of
+32) and fine-tuning paths, the training data path (the native CT loader,
+the device cache, uint8 shipping) with the HF checkpoint round trip, the
+opt-in int8 p v attention and attention-glue paths, LoRA fine-tuning, the
+8-bit AdamW and the encoder zoo (SigLIP, Merlin's I3D ResNet-152), once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER   # OTHER: e.g. the parent commit
@@ -15,11 +15,10 @@ GPU.
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too and bound by its own `_build`, the
 kernels this tree did not change (K1, K4 and K7 at head widths 32, 64 and
-128, K3 at 64 and 128, the MLP forward and backward kernels K2, K6, K5a,
-K9 and K5b and the glue K10a and K10b) are compared with it by SASS and,
-through their wrappers (K3 and K7 with their quantisation: the kernel on
-this side, the parent's plain pass on the other), bit for bit; K8's
-distance from the other's is logged; the quantisation, flash, MLP, SwiGLU
+128, K3 and K8 at 64 and 128, the MLP forward and backward kernels K2,
+K6, K5a, K9 and K5b and the glue K10a and K10b) are compared with it by
+SASS and, through their wrappers (K3, K7 and K8 with each side's
+quantisation kernel), bit for bit; the quantisation, flash, MLP, SwiGLU
 and glue kernels, legs A's, B's and G's models and the MIM step (as
 shipped and with the glue) and both V-JEPA steps (the _tpu preset, and the
 reference heads under their recommended impls) are timed with either
@@ -33,9 +32,9 @@ Phases of the run without arguments, each of which fails the run
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
      IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
-     head width 64 and 128, K1, K4 and K7 also at 32) and the nine
-     GEMM instantiations of K2, K6, K5a, K9, K5b, K10a and K10b in the
-     SASS (cuobjdump, where the toolkit has it):
+     head width 32, 64 and 128), the nine GEMM instantiations of K2, K6,
+     K5a, K9, K5b, K10a and K10b and the W8A8 product (bf16 and f32 out) in
+     the SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
      all three, K8 IGMMA and UTMALDG), and so does any mma.sync
      instruction (IMMA, HMMA) anywhere in the library;
@@ -49,7 +48,13 @@ Phases of the run without arguments, each of which fails the run
      `quantize_per_head` bit for bit, in both layouts, at leg B's q (batch
      4), the V-JEPA encoder's and predictor's shapes, a ragged N, an
      all-zero head and the strided views of a fused projection, timed at
-     the embed shape beside the plain pass; then the
+     the embed shape beside the plain pass; then W8A8's two kernels bit
+     for bit against their plain versions: the row quantisation of x (K
+     768), h (K 3,072), an f32 weight and ragged rows, the product at
+     ViT-Base's fc1, fc2, q/k/v stacked and o on the embed rows and two
+     ragged shapes (bf16 and f32 out), timed at x and fc1 beside their
+     plain versions, `torch._int_mm` with the dequantisation (library_ms)
+     and the bf16 `F.linear`; then the
      training kernels (K4, K5a, K5b) at the MIM encoder's and decoder's
      shapes and a ragged one; then the V-JEPA shapes: the int8-score
      backward K7 at the encoder's, the predictor's, the reference-head
@@ -60,7 +65,8 @@ Phases of the run without arguments, each of which fails the run
      ragged N 1,961 and 193, and Nq != Nk both ways for K4 and K7 with and
      without an lse2 cotangent, timed at the predictor's shape beside
      their plain versions, SDPA (K1, K4), the d-64 kernel on zero-padded
-     inputs, the exp2 floor and the tensor floor; K2, K6 and K5a each also
+     inputs, the exp2 floor and the tensor floor, and K3 and K8 at d 32
+     at the same three N, timed beside K1 d32; K2, K6 and K5a each also
      beside
      its cuBLAS chain (`mlp_chain`, their library_ms), K5b beside its own
      (`mlp_bwd_chain`), with its two products' times apart (profiler);
@@ -86,6 +92,9 @@ Phases of the run without arguments, each of which fails the run
      glue_impl "pallas" (K10a, K8, K10b, then K2 in every block: 24
      launches each; the quantisation 72, q, k and v), its embeddings'
      distance from leg A's beside leg B's;
+  5q. leg Q: `run_inference --quant8` with leg A's config (W8A8: the row
+     quantisation 144 launches, the product 96, K1 24; no fused MLP
+     kernel), within 5e-2 of max of leg A's embeddings;
   5b. leg S, the serving slice: `cli/serve.make_server` in the process
      with leg A's config and weights (seed 0), batch 2, a volume cache:
      /healthz (the card, grid [20, 32, 32], hidden 768); the 4 volumes as
@@ -106,9 +115,13 @@ Phases of the run without arguments, each of which fails the run
      at 1 and 8 threads, timed beside the python backend (resample on the
      card), within 1e-4 of it;
   6. whole model: kernels against the plain path on one volume, and leg
-     G's model against the same impl names on their plain versions and
-     against float32;
-  7. throughput: encoder volumes/s at batch 4 for legs A, B and G;
+     G's model and the quant8 models (with K1, with K3) against the same
+     impl names on their plain versions and against float32; then the
+     reference-head V-JEPA2 model's forward (no masks) under pallas_int8
+     and pallas_int8pv: K3 and K8 at d 32 in the predictor, 12 launches
+     each, against their plain versions;
+  7. throughput: encoder volumes/s at batch 4 for legs A, Q (quant8 with
+     K1), B, quant8 with K3, and G, with the W8A8 kernels' share;
   8. training parity: one MIM step of the configs/mim_base_512.json model
      at full width on one volume, kernels against the plain path in bf16
      and a float32 plain run; then the same with glue_impl "pallas"
@@ -154,7 +167,7 @@ Phases of the run without arguments, each of which fails the run
  13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
  13a. the same two phases for configs/vjepa_large_384.json: the parity
      step under pallas_i8bwd + pallas_int8 (K1 and K7 at d 32 in the
-     predictor); steps (the encoder's depth cut from 24 to 6 layers,
+     predictor); steps (the encoder's depth cut from 24 to 4 layers,
      REF_LAYERS) under "auto" (K1 + K4 at d 32 and 64) and under
      those impls at the largest batch up to the preset's 16 that fits,
      then "auto" at batch 4 beside the parent's routing (the predictor's
@@ -176,7 +189,7 @@ Phases of the run without arguments, each of which fails the run
  10d. leg O: `run_vjepa` with configs/vjepa_large_384_tpu.json plus the
      two keys its _comment names ("optim": "adamw8bit",
      "grad_accum_dtype": "bfloat16"), accumulation cut to 2 and the
-     encoder to 12 of 24 layers (LEG_O_LAYERS): a 4-step run stopped by a
+     encoder to 6 of 24 layers (LEG_O_LAYERS): a 4-step run stopped by a
      SIGTERM after step 2, resumed to 4, beside a straight 4-step run (the
      V-JEPA kernels; finite losses; the checkpoints equal byte for byte);
  10e. leg Z, the encoder zoo: `run_encoders --encoder siglip` on a seeded
@@ -284,9 +297,10 @@ LEG_I_CUTS = {"per_device_train_batch_size": 1,
 LEG_I_IMPLS = {"attn_impl": "pallas_i8bwd",
                "teacher_attn_impl": "pallas_int8"}
 LEG_D_ACCUM = 2         # the preset's 64 micro-batches, cut for a smoke run
-LEG_O_LAYERS = 12       # leg O's encoder depth cut (24 in the preset; the
+LEG_O_LAYERS = 6        # leg O's encoder depth cut (24 in the preset; the
 #                         predictor keeps its 12), to keep the script
-#                         inside its time limit
+#                         inside its time limit (12 until the W8A8 phases
+#                         came)
 # legs D and I: the steps of the first run (a checkpoint every 2), then of
 # the resumed one
 LEG_V_STEPS = (2, 4)
@@ -332,9 +346,24 @@ SOURCES = {
     # pallas_call; its launches are leg B's (q and k of every layer)
     "quantize": ("smb_vision_tpu_torch/csrc/quant.cu",
                  "smb_vision_tpu/ops/attention.py:320"),
+    # W8A8 (quant8): the per-row quantisation and the s8 x s8 -> s32
+    # product with its dequantisation, which the JAX package leaves to XLA
+    # (`w8a8_dot`, no pallas_call); their launches are leg Q's
+    "quantize_rows": ("smb_vision_tpu_torch/csrc/quant.cu",
+                      "smb_vision_tpu/ops/quant.py:47"),
+    "w8a8_gemm": ("smb_vision_tpu_torch/csrc/w8a8.cu",
+                  "smb_vision_tpu/ops/quant.py:56"),
+    # K3 and K8 at head width 32; their launches are the reference-head
+    # predictor's in `phase_d32_int8_path`
+    "flash_fwd_i8 d32": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                         "smb_vision_tpu/ops/attention.py:244"),
+    "flash_fwd_i8pv d32": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                           "smb_vision_tpu/ops/attention.py:244"),
 }
 D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
-            "flash_bwd_i8 d32": "flash_bwd_i8"}
+            "flash_bwd_i8 d32": "flash_bwd_i8",
+            "flash_fwd_i8 d32": "flash_fwd_i8",
+            "flash_fwd_i8pv d32": "flash_fwd_i8pv"}
 # the least time of a kernel's work on one H100 SXM at 700 W (NVIDIA's data
 # sheet, dense): operations at the peak of their type, bytes (each input
 # read once, each output written once) at the HBM rate; the larger bounds
@@ -365,6 +394,10 @@ def wrappers():
         mlp_train_fused,
         swiglu_block_fused,
     )
+    from smb_vision_tpu_torch.ops.quant import (
+        quantize_rows_kernel,
+        w8a8_gemm_kernel,
+    )
 
     return {"flash_fwd": flash_attention,
             "flash_fwd_i8": flash_attention_int8,
@@ -375,7 +408,9 @@ def wrappers():
             "swiglu_block_fwd": swiglu_block_fused,
             "flash_fwd_i8pv": flash_attention_int8pv,
             "qkv_ln_fwd": qkv_ln_fused, "out_res_fwd": out_res_fused,
-            "quantize": quantize_per_head_kernel}
+            "quantize": quantize_per_head_kernel,
+            "quantize_rows": quantize_rows_kernel,
+            "w8a8_gemm": w8a8_gemm_kernel}
 
 
 def plain_qk(q, k, scale):
@@ -638,8 +673,7 @@ SM90_KERNELS = {
          ("IGMMA", "HGMMA", "UTMALDG")),
         ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
-         ("IGMMA", "HGMMA", "UTMALDG")))
-    if (k, d) != ("K3", 32)}
+         ("IGMMA", "HGMMA", "UTMALDG")))}
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -653,7 +687,11 @@ SM90_KERNELS.update({
 SM90_KERNELS["K10a GEMM"] = ("qkv_gemm_kernel", ("HGMMA", "UTMALDG"))
 SM90_KERNELS.update({
     f"K8 d{d}": (f"flash_fwd_i8pv_sm90_kernelILi{d}E", ("IGMMA", "UTMALDG"))
-    for d in (64, 128)})
+    for d in (32, 64, 128)})
+# the W8A8 product, w8a8_gemm_kernel<F32> (bf16 and f32 output)
+SM90_KERNELS.update({
+    f"W8A8 GEMM {out}": (f"w8a8_gemm_kernelILb{f32}E", ("IGMMA", "UTMALDG"))
+    for out, f32 in (("bf16", 0), ("f32", 1))})
 SM90_SASS = ("IGMMA", "HGMMA", "UTMALDG")
 # the mma.sync tensor-core instructions (int8 and bf16), of which no kernel
 # of the library may hold one: every product is on wgmma
@@ -877,6 +915,7 @@ def phase_kernels() -> dict:
             for name in ("mlp_block_fwd", "mlp_fwd"):
                 rate_line(table, name, f"M={n}", ops, "the chain's")
     phase_quant_kernel(table, gen, dev)
+    phase_w8a8_kernels(table, gen, dev)
     phase_train_kernels(table, gen, dev)
     phase_vjepa_kernels(table, gen, dev)
     phase_d32_kernels(table, gen, dev)
@@ -953,6 +992,130 @@ def phase_quant_kernel(table: dict, gen, dev) -> None:
     # (its int8 pass) is a cost of its two-pass design, not of the function
     set_bound(table, "quantize", shape, 0.0,
               q.numel() * (2 + 1) + 4 * q.shape[0] * q.shape[2])
+
+
+# W8A8 at ViT-Base's shapes on the embed rows (M 20,480): the row
+# quantisation of x (LN(x), the attention's output: K 768) and of h (the
+# GELU output: K 3,072); the products fc1, fc2, q/k/v stacked, o; and
+# ragged ones (rows past a tile, K no multiple of 16, N no multiple of 8)
+W8A8_GEMMS = {"fc1": (MAIN_N, HIDDEN, FFN), "fc2": (MAIN_N, FFN, HIDDEN),
+              "qkv": (MAIN_N, HIDDEN, 3 * HIDDEN), "o": (MAIN_N, HIDDEN,
+                                                         HIDDEN),
+              "ragged": (1961, HIDDEN, HIDDEN), "ragged K": (193, 100, 44)}
+
+
+def w8a8_library(x8, sx, w8, sw, bias):
+    """The same function by one library product: `torch._int_mm` (cuBLASLt
+    s8 x s8 -> s32) of x8 and w8 (K, N), then the dequantisation and the
+    bias in plain torch (`w8a8_linear_plain`'s epilogue): the yardstick of
+    `library_ms`."""
+    import torch
+
+    acc = torch._int_mm(x8, w8)
+    y = (acc.float() * (sx[:, None] * sw[None, :])).to(torch.bfloat16)
+    return y + bias.to(torch.bfloat16)
+
+
+def phase_w8a8_kernels(table: dict, gen, dev) -> None:
+    """The W8A8 kernels against their plain versions, bit for bit: the row
+    quantisation of bf16 x (K 768) and h (K 3,072), of the f32 weights and
+    of ragged rows (each with an all-zero row and a row of exact ties);
+    the product at every shape of W8A8_GEMMS with a bias,
+    on the codes the plain quantisation gives (bf16 out; f32 out at the
+    ragged shapes). Timed at fc1 (the GEMM row) and x (the quantisation
+    row) beside their plain versions, the product also beside
+    `torch._int_mm` with the dequantisation (`w8a8_library`, its
+    library_ms) and the bf16 `F.linear` at the same shape, and the other
+    shapes logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from smb_vision_tpu_torch.ops import quant as Q
+
+    def r(*shape, s=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+
+    bf = torch.bfloat16
+    for label, x in (("x", r(MAIN_N, HIDDEN, dtype=bf)),
+                     ("h", r(MAIN_N, FFN, s=0.2, dtype=bf)),
+                     ("w fc1 f32", r(FFN, HIDDEN, s=HIDDEN ** -0.5)),
+                     ("ragged 1961 x 100", r(1961, 100, dtype=bf)),
+                     ("ragged 193 x 13 f32", r(193, 13))):
+        x[min(5, x.shape[0] - 1)] = 0
+        # a row of scale 1 whose 0.5, 1.5 and -2.5 are exact ties
+        x[min(7, x.shape[0] - 1)] = 0
+        x[min(7, x.shape[0] - 1), :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])
+        got8, got_s = Q.quantize_rows_kernel(x)
+        want8, want_s = Q.quantize_rows_plain(x, Q.padded_k(x.shape[1]))
+        same = torch.equal(got8, want8) and torch.equal(got_s, want_s)
+        log(f"quantize_rows {label} {tuple(x.shape)} {x.dtype}: bit for bit "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"quantize_rows {label}: not bit for bit")
+        if label in ("x", "h"):
+            shape = f"{label} M={MAIN_N} K={x.shape[1]}"
+            time_kernel(table, "quantize_rows", shape,
+                        lambda: Q.quantize_rows_kernel(x),
+                        lambda: Q.quantize_rows_plain(x), 20, label == "x")
+            if label == "x":
+                # one read of x (bf16), one write of the codes and scales
+                set_bound(table, "quantize_rows", shape, 0.0,
+                          x.numel() * 3 + 4 * x.shape[0])
+    for label, (m, k, n) in W8A8_GEMMS.items():
+        x = r(m, k, dtype=bf)
+        w = r(n, k, s=k ** -0.5)
+        bias = r(n, s=0.1)
+        x8, sx = Q.quantize_rows_plain(x, Q.padded_k(k))
+        w8, sw = Q.quantize_rows_plain(w, Q.padded_k(k))
+        outs = [torch.bfloat16] + ([torch.float32] if "ragged" in label
+                                   else [])
+        for dt in outs:
+            got = Q.w8a8_gemm_kernel(x8, sx, w8, sw, bias, dt)
+            want = Q.w8a8_linear_plain(x8, sx, w8, sw, bias, dt)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            log(f"w8a8_gemm {label} M={m} K={k} N={n} {dt}: bit for bit "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"w8a8_gemm {label} {dt}: "
+                                     f"{errors(got, want)}")
+        if "ragged" in label:
+            continue
+        shape = f"{label} M={m} K={k} N={n}"
+        keep = label == "fc1"
+        time_kernel(table, "w8a8_gemm", shape,
+                    lambda: Q.w8a8_gemm_kernel(x8, sx, w8, sw, bias),
+                    lambda: Q.w8a8_linear_plain(x8, sx, w8, sw, bias), 20,
+                    keep)
+        # cuBLASLt takes w8^T as the transposed view or, failing that, a
+        # copy made here, outside the timing
+        wt = w8.t()
+        try:
+            torch._int_mm(x8, wt)
+        except RuntimeError as err:
+            log(f"torch._int_mm refuses the transposed view ({err}); it "
+                "gets a contiguous copy")
+            wt = wt.contiguous()
+        lib = cuda_ms(lambda: w8a8_library(x8, sx, wt, sw, bias), iters=10,
+                      repeats=KERNEL_REPEATS)
+        wb, bb = w.to(bf), bias.to(bf)
+        lin = cuda_ms(lambda: F.linear(x, wb, bb), iters=10,
+                      repeats=KERNEL_REPEATS)
+        same = torch.equal(w8a8_library(x8, sx, wt, sw, bias),
+                           Q.w8a8_linear_plain(x8, sx, w8, sw, bias))
+        nbytes = m * k + n * k + 2 * m * n + 4 * (m + 2 * n)
+        log(f"time w8a8_gemm library {shape}: torch._int_mm + dequant "
+            f"{lib:.4f} ms (its result bit for bit the plain one: {same}); "
+            f"bf16 F.linear {lin:.4f} ms; bound "
+            f"{max(2 * m * k * n / PEAK_INT8, nbytes / HBM_BYTES) * 1e3:.4f} "
+            f"ms (CUDA events)")
+        if keep:
+            table["w8a8_gemm"]["library_ms"] = lib
+            set_bound(table, "w8a8_gemm", shape, 0.0, nbytes,
+                      int8_ops=2 * m * k * n)
+            kernel_split(f"w8a8_gemm {shape}",
+                         lambda: Q.w8a8_gemm_kernel(x8, sx, w8, sw, bias))
+        del x, w, x8, w8, got, want
 
 
 def k3_beside_k1(shape: str, q, k, v) -> None:
@@ -1240,13 +1403,15 @@ def padded_to_64(*ts):
 
 
 def phase_d32_kernels(table: dict, gen, dev) -> None:
-    """K1, K4 and K7 at head width 32 against their plain versions: the
-    reference-head V-JEPA2 predictor's shape (9,216 tokens, 12 heads of
-    32), ragged N 1,961 and 193, and Nq != Nk both ways for K4 and K7 with
-    and without an lse2 cotangent, at the d-64 bounds. At the predictor's
-    shape each is timed beside its plain version, SDPA at d 32 (K1; K4:
-    its backward), the d-64 kernel on the zero-padded inputs
-    (`padded_to_64`), its exp2 floor and its tensor floor (the bound)."""
+    """K1, K4, K7, K3 and K8 at head width 32 against their plain versions:
+    the reference-head V-JEPA2 predictor's shape (9,216 tokens, 12 heads
+    of 32), ragged N 1,961 and 193, and Nq != Nk both ways (K4 and K7 with
+    and without an lse2 cotangent), at the d-64 bounds (K3 and K8 also
+    against float32 attention). At the predictor's shape each is timed
+    beside its plain version, K1, K4 and K7 also beside SDPA at d 32 (K1;
+    K4: its backward), the d-64 kernel on the zero-padded inputs
+    (`padded_to_64`), its exp2 floor and its tensor floor (the bound); K3
+    and K8 beside K1 d32 and the exp2 floor."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -1281,6 +1446,23 @@ def phase_d32_kernels(table: dict, gen, dev) -> None:
                     check_kernel(table, name, f"{tag} {what}", a, b,
                                  TOL_FLASH_BWD)
                 del got, want
+        # K3 and K8 at d 32 against their plain versions on the plain
+        # quantisation, and against float32 attention
+        q8, k8, sq, sk = plain_qk(q, k, scale)
+        v8, sv = A.quantize_per_head(v)
+        ref32 = A.xla_attention(q.float(), k.float(), v.float())
+        for name, fn, plain, f32_tol in (
+                ("flash_fwd_i8 d32", A.flash_attention_int8,
+                 lambda: A.int8_attention_plain(q8, k8, sq, sk, v),
+                 TOL_INT8_F32),
+                ("flash_fwd_i8pv d32", A.flash_attention_int8pv,
+                 lambda: A.int8pv_attention_plain(q8, k8, sq, sk, v8, sv),
+                 TOL_INT8PV_F32)):
+            out8 = fn(q, k, v)
+            check_kernel(table, name, shape, out8, plain(), TOL_INT8)
+            check_kernel(table, name, shape + " vs f32", out8, ref32,
+                         f32_tol, record=False)
+        del q8, k8, v8, out8, ref32
         if nq == VJ_N:
             d32_times(table, q, k, v, do, out, lse)
         del q, k, v, do, out, lse, ref, ref_lse
@@ -1347,6 +1529,21 @@ def d32_times(table: dict, q, k, v, do, out, lse) -> None:
     rate_line(table, "flash_bwd d32", shape, 5 * prod)
     k7_quant(f"d32 {shape}", q, k, v, do, out, lse,
              table["flash_bwd_i8 d32"]["ms"])
+    # K3 and K8 at d 32 (through their wrappers, the quantisation kernel
+    # included) beside K1 d32: the exp2 floor bounds all three
+    for name, kernel, plain in (
+            ("flash_fwd_i8 d32", lambda: A.flash_attention_int8(q, k, v),
+             lambda: A.int8_attention_plain(*plain_qk(q, k, scale), v)),
+            ("flash_fwd_i8pv d32", lambda: A.flash_attention_int8pv(q, k, v),
+             lambda: A.int8pv_attention_plain(*plain_qk(q, k, scale),
+                                              *A.quantize_per_head(v)))):
+        time_kernel(table, name, shape, kernel, plain, 10, True)
+        log(f"time {name} {shape}: {table[name]['ms']:.3f} ms beside K1 "
+            f"d32 {table['flash_fwd d32']['ms']:.3f} ms and the exp2 floor "
+            f"{exp2:.3f} ms")
+    set_bound(table, "flash_fwd_i8 d32", shape, prod, nb, int8_ops=prod)
+    set_bound(table, "flash_fwd_i8pv d32", shape, 0.0, nb,
+              int8_ops=2 * prod)
     # at d 32 a score costs 4 d = 128 flops of the forward's tensor work
     # against one exp2, so the exp2 floor is about twice the tensor floor;
     # each backward pass recomputes p, two exp2 floors
@@ -1355,6 +1552,57 @@ def d32_times(table: dict, q, k, v, do, out, lse) -> None:
         f"passes) {2 * exp2:.3f} ms beside K4's tensor floor "
         f"{table['flash_bwd d32']['bound_ms']:.3f} ms and K7's "
         f"{table['flash_bwd_i8 d32']['bound_ms']:.3f} ms")
+
+
+def phase_d32_int8_path(table: dict) -> None:
+    """K3 and K8 at head width 32 on a model's path: the reference-head
+    V-JEPA2 model (configs/vjepa_large_384.json at full width: the ViT-L
+    encoder at 16 heads of 64, cut to REF_LAYERS of its 24 layers, and the
+    predictor, 12 layers of 12 heads of 32), its forward under inference
+    on one seeded clip at 384^2 x 256 as a user calls it
+    (`VJEPA2Model.forward` without masks: the predictor over every token),
+    with attn_impl "pallas_int8" (K3) and then "pallas_int8pv" (K8), the
+    counts set to 0 before each: the kernel must launch 12 times at d 32
+    (the predictor's layers) and REF_LAYERS times at d 64 (the
+    encoder's), the plain attention never; each predictor output within
+    TOL_MODEL of the same model on the plain versions (`plain_kernels`).
+    The d-32 rows' launches are these runs'."""
+    import torch
+
+    from smb_vision_tpu_torch.models.vjepa import VJEPA2Model
+
+    dev = torch.device("cuda")
+    cfg, _ = vjepa_ref_config(num_hidden_layers=REF_LAYERS)
+    model = VJEPA2Model(cfg).init_weights(
+        torch.Generator().manual_seed(0)).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    px = torch.rand((1, cfg.frames_per_clip, 1, cfg.crop_size,
+                     cfg.crop_size), generator=gen, device=dev)
+    for impl, name in (("pallas_int8", "flash_fwd_i8"),
+                       ("pallas_int8pv", "flash_fwd_i8pv")):
+        for mod in model.modules():
+            if hasattr(mod, "attn_impl"):
+                mod.attn_impl = impl
+        ws = reset_launches()
+        with torch.inference_mode(), plain_attention_calls() as calls:
+            out = model(px)["predictor_output"].float()
+        torch.cuda.synchronize()
+        by_width = dict(ws[name].launches_by_width)
+        with torch.inference_mode(), plain_kernels():
+            ref = model(px)["predictor_output"].float()
+        err, rel = errors(out, ref)
+        log(f"reference-head V-JEPA2 forward, {impl}: {name} launches by "
+            f"head width {by_width}, plain attention calls {calls}; "
+            f"predictor output {tuple(out.shape)} vs the plain versions: "
+            f"max|d| {err:.3e} rel {rel:.3e} (bound {TOL_MODEL})")
+        if by_width != {32: cfg.pred_num_hidden_layers,
+                        64: cfg.num_hidden_layers} or calls:
+            raise AssertionError(f"{impl}: launches {by_width}, plain "
+                                 f"attention {calls}")
+        if not bool(out.isfinite().all()) or not rel <= TOL_MODEL:
+            raise AssertionError(f"{impl}: predictor output rel {rel}")
+        table[f"{name} d32"]["launches"] = by_width[32]
+    del model
 
 
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
@@ -1513,16 +1761,41 @@ def phase_native_loader(vols: Path) -> None:
         f"{k} {v * 1e3:.1f} ms" for k, v in ms.items()))
 
 
+def seeded_vit_base(dev, state: dict, **kw):
+    """ViT-Base VideoMAE at 512^2 x 320 (kw: config keys; bf16 unless
+    given) on dev, in eval mode, with the weights of seed 0: initialised
+    into `state` at the first call and loaded from it after, so the
+    variants of a phase hold the same weights without initialising them
+    again (the initialisation runs on the host's CPU, seconds a model)."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
+
+    kw.setdefault("dtype", "bfloat16")
+    m = VideoMAEModel(VideoMAEConfig(
+        image_size=512, num_frames=320, hidden_size=HIDDEN,
+        num_hidden_layers=12, num_attention_heads=HEADS,
+        intermediate_size=FFN, **kw))
+    if state:
+        m.load_state_dict(state)
+    else:
+        state.update(m.init_weights(
+            torch.Generator().manual_seed(0)).state_dict())
+    return m.to(dev).eval()
+
+
 def phase_whole_model(vols: Path, emb_a: Path) -> None:
     """One volume through the model with the kernels and with the plain
-    path (attn_impl = mlp_impl = "xla"), same weights."""
+    path (attn_impl = mlp_impl = "xla"), same weights; leg G's model and
+    the quant8 models (with K1, with K3) against their kernels' plain
+    versions under the same impl names (`plain_kernels`), each also held
+    against float32 (PERF.md section 2's forward rule)."""
     import numpy as np
     import torch
 
     from smb_vision_tpu_torch.data.dataset import CTDataset
     from smb_vision_tpu_torch.data.preprocess import CT_PIPELINES
-    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
-    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
 
     dev = torch.device("cuda")
     pipe = CT_PIPELINES["smb-vision"]
@@ -1531,19 +1804,26 @@ def phase_whole_model(vols: Path, emb_a: Path) -> None:
                    pipeline=pipe, device=dev)
     px = torch.from_numpy(ds[0]["image"][None]).to(dev)
 
+    state = {}
+
     def model(**kw):
-        kw.setdefault("dtype", "bfloat16")
-        cfg = VideoMAEConfig(image_size=512, num_frames=320,
-                             hidden_size=HIDDEN, num_hidden_layers=12,
-                             num_attention_heads=HEADS,
-                             intermediate_size=FFN, **kw)
-        m = VideoMAEModel(cfg).init_weights(torch.Generator().manual_seed(0))
-        return m.to(dev).eval()
+        return seeded_vit_base(dev, state, **kw)
 
     glue = dict(attn_impl="pallas_int8pv", glue_impl="pallas")
     with torch.inference_mode():
         ref = model(attn_impl="xla", mlp_impl="xla")(px)[0].float()
         out = model()(px)[0].float()
+        # quant8 (W8A8) with K1 and with K3: kernels against their plain
+        # versions under the same impl names, one fresh model each
+        q8_runs = {}
+        for label, impl in (("K1", "auto"), ("K3", "pallas_int8")):
+            ws = reset_launches()
+            q8 = model(quant8=True, attn_impl=impl)(px)[0].float()
+            q8_runs[label] = (q8, {n: ws[n].launches for n in (
+                "quantize_rows", "w8a8_gemm", "flash_fwd", "flash_fwd_i8")})
+            with plain_kernels():
+                q8_runs[label] += (model(quant8=True, attn_impl=impl)(
+                    px)[0].float(),)
         out8 = model(attn_impl="pallas_int8", mlp_impl="pallas_bwd")(
             px)[0].float()
         ws = reset_launches()
@@ -1590,6 +1870,23 @@ def phase_whole_model(vols: Path, emb_a: Path) -> None:
     if not cli_rel <= TOL_MODEL:
         raise AssertionError(f"CLI embedding differs from the model's: "
                              f"rel {cli_rel}")
+    for label, (q8, counts, q8_plain) in q8_runs.items():
+        attn = "flash_fwd" if label == "K1" else "flash_fwd_i8"
+        want = {**w8a8_launches(12, 1), attn: 12}
+        errq, relq = errors(q8, q8_plain)
+        kern32, plain32 = errors(q8, ref32)[1], errors(q8_plain, ref32)[1]
+        log(f"whole model, quant8 + {label} (W8A8 kernels) vs their plain "
+            f"versions under the same impl names: max|d| {errq:.3e} rel "
+            f"{relq:.3e} (bound {TOL_MODEL}); vs float32 (unquantised): "
+            f"kernels rel {kern32:.3e}, plain versions rel {plain32:.3e} "
+            f"(bound {TOL_MODEL_VS_F32} x plain); vs the bf16 kernels "
+            f"(unquantised) rel {errors(q8, out)[1]:.3e}; launches {counts}")
+        if any(counts[n] != c for n, c in want.items()):
+            raise AssertionError(f"quant8 + {label}: launches {counts}, "
+                                 f"want {want}")
+        if not relq <= TOL_MODEL or not kern32 <= TOL_MODEL_VS_F32 * plain32:
+            raise AssertionError(f"quant8 + {label}: rel {relq}, vs float32 "
+                                 f"{kern32} against the plain {plain32}")
 
 
 LEG_G_KERNELS = ("flash_fwd_i8pv", "qkv_ln_fwd", "out_res_fwd")
@@ -1629,6 +1926,47 @@ def run_leg_g(root: Path, vols: Path, emb_a: Path, emb_b: Path,
     log(f"leg G vs leg A (bf16) embeddings: {rel(out, emb_a)}; leg B (int8 "
         f"scores) vs leg A: {rel(emb_b, emb_a)} (worst of the {N_VOLUMES} "
         "volumes)")
+
+
+LEG_Q_KERNELS = ("flash_fwd", "quantize_rows", "w8a8_gemm")
+# leg Q against leg A: the JAX CLI's own bound between --quant8 and the
+# float route on the same checkpoint (tests/test_cli_integration.py)
+TOL_LEG_Q = 5e-2
+
+
+def w8a8_launches(layers: int, forwards: int) -> dict:
+    """The W8A8 kernels' launches in `forwards` forwards of a fresh quant8
+    ViT of `layers` layers, from the code (models/layers.py): each layer
+    and forward, 4 row quantisations (LN1(x) for q, k and v together, the
+    attention's output, LN2(x), the GELU's output) and 4 products (q, k, v
+    on their stacked codes, o, fc1, fc2); once a layer, at the first
+    forward, the 4 weights' codes (`WeightCodes`, kept after)."""
+    return {"quantize_rows": 4 * layers * (forwards + 1),
+            "w8a8_gemm": 4 * layers * forwards}
+
+
+def run_leg_q(root: Path, vols: Path, emb_a: Path, table: dict) -> None:
+    """Leg Q, W8A8 inference: run_inference --quant8 with leg A's config
+    on the volumes, 2 batches of 2: K1 24 launches, the W8A8 kernels
+    `w8a8_launches(12, 2)`, the fused MLP kernels none (quant8 fuses no
+    half-block); each volume's embeddings within TOL_LEG_Q of max of leg
+    A's."""
+    import numpy as np
+
+    out, counts = run_leg(root, vols, "Q", root / "leg_a.json",
+                          ["--quant8"], LEG_Q_KERNELS, table)
+    want = {**w8a8_launches(12, N_VOLUMES // 2), "flash_fwd": 24,
+            "mlp_block_fwd": 0, "mlp_fwd": 0}
+    if any(counts[n] != c for n, c in want.items()):
+        raise AssertionError(f"leg Q: launches {counts}; want {want}")
+    worst = 0.0
+    for f in sorted(out.glob("*.npy")):
+        q, a = np.load(f), np.load(emb_a / f.name)
+        worst = max(worst, float(np.abs(q - a).max() / np.abs(a).max()))
+    log(f"leg Q (--quant8) vs leg A (bf16) embeddings: max rel {worst:.3e} "
+        f"(bound {TOL_LEG_Q}, worst of the {N_VOLUMES} volumes)")
+    if not worst <= TOL_LEG_Q:
+        raise AssertionError(f"leg Q: {worst} from leg A")
 
 
 # leg S checks the server's vectors against leg A's token means: the same
@@ -1989,13 +2327,13 @@ def run_leg_w(work: Path, vols: Path, cfg: Path, emb_a: Path) -> None:
 
 
 def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
-    """Encoder-only volumes/s at 512^2 x 320, batch 4, for the bf16, int8
-    and int8 p v + glue (leg G's) models: CUDA events over `iters` distinct
-    seeded batches after one warm-up."""
+    """Encoder-only volumes/s at 512^2 x 320, batch 4, for the bf16,
+    quant8 (W8A8 with K1), int8, quant8 + int8 (W8A8 with K3) and int8 p v
+    + glue (leg G's) models, in that order: CUDA events over `iters`
+    distinct seeded batches after one warm-up (which quantises the quant8
+    models' weights), then one profiled forward each (the W8A8 kernels'
+    share of the quant8 ones)."""
     import torch
-
-    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
-    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -2003,19 +2341,14 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
     batches = [torch.rand((batch, 320, 1, 512, 512), generator=gen,
                           device=dev).to(torch.bfloat16)
                for _ in range(iters + 1)]
-    legs = {"bf16": dict(), "int8": dict(attn_impl="pallas_int8",
-                                         mlp_impl="pallas_bwd"),
+    legs = {"bf16": dict(), "quant8": dict(quant8=True),
+            "int8": dict(attn_impl="pallas_int8", mlp_impl="pallas_bwd"),
+            "quant8+int8": dict(quant8=True, attn_impl="pallas_int8"),
             "int8pv+glue": dict(attn_impl="pallas_int8pv",
                                 glue_impl="pallas")}
-    rates = {}
+    rates, state = {}, {}
     for leg, impls in legs.items():
-        cfg = VideoMAEConfig(image_size=512, num_frames=320,
-                             hidden_size=HIDDEN, num_hidden_layers=12,
-                             num_attention_heads=HEADS,
-                             intermediate_size=FFN, dtype="bfloat16",
-                             **impls)
-        m = VideoMAEModel(cfg).init_weights(
-            torch.Generator().manual_seed(0)).to(dev).eval()
+        m = seeded_vit_base(dev, state, **impls)
         with torch.inference_mode():
             m(batches[0])
             torch.cuda.synchronize()
@@ -2035,7 +2368,8 @@ def phase_throughput(card: str, batch: int = 4, iters: int = 3) -> dict:
             f"on {card}")
         with torch.inference_mode():
             profile_call(lambda: m(batches[0]),
-                         f"{leg}: one batch-{batch} forward")
+                         f"{leg}: one batch-{batch} forward",
+                         watch=("w8a8",) if "quant8" in leg else ())
         del m
     return rates
 
@@ -3131,8 +3465,8 @@ def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl,
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block every kernel the parity phases reach (K1, K4, K7,
-    K3, K8 with their quantisation, K2, K5a, K5b, K6, K9, K10a, K10b) runs
-    its plain PyTorch version
+    K3, K8 with their quantisation, K2, K5a, K5b, K6, K9, K10a, K10b, the
+    two W8A8 kernels) runs its plain PyTorch version
     on the card, under the same impl names: the reference of the step
     parity phases. This swaps module attributes for the phase only; the
     package has no such switch and never falls back."""
@@ -3141,6 +3475,7 @@ def plain_kernels():
     from smb_vision_tpu_torch.ops import attention as A
     from smb_vision_tpu_torch.ops import attn_glue as G
     from smb_vision_tpu_torch.ops import mlp as M
+    from smb_vision_tpu_torch.ops import quant as Q
 
     def scale_of(q, scale):
         return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
@@ -3173,6 +3508,8 @@ def plain_kernels():
                              act, eps),
         (G, "_qkv_fwd"): G._qkv_ln_plain,
         (G, "_out_fwd"): G._out_res_plain,
+        (Q, "quantize_rows_kernel"): Q.quantize_rows_plain,
+        (Q, "w8a8_gemm_kernel"): Q.w8a8_linear_plain,
     }
     saved = {key: getattr(*key) for key in swaps}
     for (mod, name), fn in swaps.items():
@@ -3606,9 +3943,11 @@ def parent_routing():
 REF_BATCHES = (16, 8, 4, 2, 1)
 REF_SAME_BATCH = 4
 REF_AGAINST_BATCH = 2   # the reference-head step in `phase_against`
-REF_LAYERS = 6          # the reference-head throughput phase's encoder
-#                         depth cut (24 in the preset; the predictor keeps
-#                         its 12), to keep the script inside its time limit
+REF_LAYERS = 4          # the encoder depth cut of the reference-head
+#                         throughput phase and of `phase_d32_int8_path`
+#                         (24 in the preset; the predictor keeps its 12),
+#                         to keep the script inside its time limit (6
+#                         until the W8A8 phases came)
 
 
 def vjepa_params(cfg) -> int:
@@ -5016,12 +5355,13 @@ def run_leg_z(work: Path, vols: Path, card: str) -> None:
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K4 and K7 at d 32, 64 and 128 and K3 at 64 and 128 by a part of their
-# mangled names (this tree's, the other's), and every kernel of the MLP
-# forward and backward and the glue sources (K2, K6, K5a, K9 and their
-# LayerNorm pass, K5b, K10a and its row pass, K10b) by its whole name, but
-# any kernel this tree adds there (NEW_KERNELS); K8 is the kernel this
-# tree redesigns, and the quantisation kernel's source is new
+# K4 and K7 at d 32, 64 and 128, K3 and K8 at 64 and 128 (their d-32
+# instantiations are new) by a part of their mangled names (this tree's,
+# the other's), and every kernel of the MLP forward and backward and the
+# glue sources (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a and its
+# row pass, K10b) by its whole name, but any kernel this tree adds there
+# (NEW_KERNELS); the quantisation source gains W8A8's row kernel, and the
+# W8A8 product's source is new
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (32, 64, 128)
              for k, this, other in (
@@ -5032,8 +5372,10 @@ UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
                  ("K4", "flash_bwd_sm90_kernelILi{d}EE",
                   "flash_bwd_sm90_kernelILi{d}EE"),
                  ("K7", "flash_bwd_i8_sm90_kernelILi{d}EE",
-                  "flash_bwd_i8_sm90_kernelILi{d}EE"))
-             if (k, d) != ("K3", 32)}
+                  "flash_bwd_i8_sm90_kernelILi{d}EE"),
+                 ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}EE",
+                  "flash_fwd_i8pv_sm90_kernelILi{d}EE"))
+             if d != 32 or k not in ("K3", "K8")}
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
 NEW_KERNELS: tuple = ()
 
@@ -5068,13 +5410,12 @@ def compare_sass(sass: dict) -> None:
 
 def unchanged_outputs(dev) -> tuple:
     """The outputs of the UNCHANGED kernels on seeded inputs, through their
-    wrappers (K3 and K7 with their quantisation): K1 and K3 at d 64 and
-    128, K4 at the MIM encoder's shape and at the V-JEPA encoder's (d 128),
-    K7 at the V-JEPA encoder's and the reference-head encoder's (d 64), K1,
-    K4 and K7 at the reference-head predictor's (d 32), K2, K6 and K5a at
-    the embed shape, K5b at the MIM encoder's, K9 at DINOv2-giant batch 1
-    and K10a and K10b at the embed shape; and apart, K8's at d 64 and
-    128."""
+    wrappers (K3, K7 and K8 with their quantisation): K1, K3 and K8 at d
+    64 and 128, K4 at the MIM encoder's shape and at the V-JEPA encoder's
+    (d 128), K7 at the V-JEPA encoder's and the reference-head encoder's (d
+    64), K1, K4 and K7 at the reference-head predictor's (d 32), K2, K6 and
+    K5a at the embed shape, K5b at the MIM encoder's, K9 at DINOv2-giant
+    batch 1 and K10a and K10b at the embed shape."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -5087,12 +5428,12 @@ def unchanged_outputs(dev) -> tuple:
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
     bf = torch.bfloat16
-    outs, k8_outs = [], []
+    outs = []
     for n, h, d in ((MAIN_N, HEADS, HEAD_DIM), (VJ_N, 8, 128)):
         q, k, v = (r(1, n, h, d, s=0.4, dtype=bf) for _ in range(3))
         outs += [*A.flash_attention(q, k, v, with_lse=True),
-                 A.flash_attention_int8(q, k, v)]
-        k8_outs.append(A.flash_attention_int8pv(q, k, v))
+                 A.flash_attention_int8(q, k, v),
+                 A.flash_attention_int8pv(q, k, v)]
     q, k, v, do = (r(1, ENC_N, HEADS, HEAD_DIM, s=0.4, dtype=bf)
                    for _ in range(4))
     outs += A.flash_attention_bwd(q, k, v, *A.flash_attention(
@@ -5130,7 +5471,7 @@ def unchanged_outputs(dev) -> tuple:
     bs = [r(HIDDEN, s=0.1) for _ in range(4)]
     outs += G.qkv_ln_fused(x, lnw, lnb, *lin[:3], *bs[:3])
     outs.append(G.out_res_fused(x, outs[-1], lin[3], bs[3]))
-    return outs, k8_outs
+    return outs
 
 
 def other_library(other: Path, path: Path):
@@ -5144,27 +5485,6 @@ def other_library(other: Path, path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.bind(path)
-
-
-@contextlib.contextmanager
-def parent_quantisation():
-    """Inside the block the quantisation kernel's wrapper is the plain
-    pass the parent commit ran before K3, K7 and K8 (`quantize_per_head`,
-    and `quantize_v_kernel_layout` for K8's v): the other side of
-    `phase_against`, whose library has no quantisation kernel."""
-    from smb_vision_tpu_torch.ops import attention as A
-
-    kernel = A.quantize_per_head_kernel
-
-    def plain(x, mult=1.0, v_layout=False):
-        x8, s = A.quantize_per_head(x, mult)
-        return (A.quantize_v_kernel_layout(x8) if v_layout else x8), s
-
-    A.quantize_per_head_kernel = plain
-    try:
-        yield
-    finally:
-        A.quantize_per_head_kernel = kernel
 
 
 def build_library(root: Path) -> Path:
@@ -5293,24 +5613,20 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     dev = torch.device("cuda")
 
     def use(side):
-        """This package's wrappers on `side`'s library; the other side
-        quantises as the parent did (`parent_quantisation`)."""
+        """This package's wrappers on `side`'s library (the parent's has
+        the quantisation kernel too, with the same C interface)."""
         _build._lib = libs[side]
-        return (parent_quantisation() if side == "other"
-                else contextlib.nullcontext())
+        return contextlib.nullcontext()
 
     outs = {}
     for side in libs:
         with use(side):
             outs[side] = unchanged_outputs(dev)
-    same = [torch.equal(a, b) for a, b in zip(outs["other"][0],
-                                              outs["this"][0])]
-    log(f"against: outputs of K1, K3, K4, K7 (d 32 too), K2, K6, K5a, K5b, "
-        f"K9, K10a and K10b through their wrappers bit for bit equal: "
+    same = [torch.equal(a, b) for a, b in zip(outs["other"],
+                                              outs["this"])]
+    log(f"against: outputs of K1, K3, K8, K4, K7 (d 32 too), K2, K6, K5a, "
+        f"K5b, K9, K10a and K10b through their wrappers bit for bit equal: "
         f"{all(same)} ({sum(same)} of {len(same)} tensors)")
-    for d, a, b in zip((64, 128), outs["other"][1], outs["this"][1]):
-        log(f"against: K8 d {d}, this against the other: max|d| / max|ref| "
-            f"{errors(b, a)[1]:.3e}")
     del outs
 
     def inputs(seed, shape):
@@ -5568,8 +5884,10 @@ def main() -> int:
                                  "quantisation kernel must launch for q "
                                  "and k of every K3 call")
         run_leg_g(work, vols, emb_a, emb_b, table)
+        run_leg_q(work, vols, emb_a, table)
         phase_whole_model(vols, emb_a)
-        done("legs A, B, G and the whole model")
+        phase_d32_int8_path(table)
+        done("legs A, B, G, Q, the whole model and the d-32 int8 path")
         run_leg_s(work, vols, work / "leg_a.json", emb_a)
         run_leg_w(work, vols, work / "leg_a.json", emb_a)
         done("legs S and W")

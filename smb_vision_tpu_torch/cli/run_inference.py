@@ -77,7 +77,13 @@ class InferenceArguments:
                           "affine codes decoded on the device to bfloat16, "
                           "max abs err (max-min)/510)"})
     attn_impl: str = "auto"
-    quant8: bool = field(default=False, metadata={"help": "not ported yet"})
+    quant8: bool = field(
+        default=False,
+        metadata={"help": "run transformer projections as W8A8 on the "
+                          "int8 tensor cores (per-token activation scales, "
+                          "per-channel weight scales; two hand-written "
+                          "kernels, ops/quant.py; inference only). Whether "
+                          "it gains on the card: PERF.md"})
     num_shards: int = 1
     shard_index: int = 0
     pipeline_parallel: int = field(
@@ -103,7 +109,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.pipeline_parallel > 1 and args.sliding_window,
          "--pipeline_parallel with --sliding_window", "multi-gpu"),
-        (args.quant8, "--quant8", "w8a8"),
     ]
     for hit, flag, item in unported:
         if hit:

@@ -74,6 +74,13 @@
 //     every column of that small accumulator is the row's sum (as the TPU
 //     kernel's [v | 1] column), rescaled with o. That takes K1's FADD per
 //     score off the FP32 pipe and the quad shuffles off the epilogue.
+// At d = 32 (the V-JEPA2 predictor's heads) K3's q8 and k8 rows are 32
+// bytes, one k32 step with the 32-byte swizzle (sm90.cuh), and its P V is
+// K1's d-32 bf16 product. A score then costs 64 int8 and 64 bf16 tensor
+// operations against one exp2, so the exp2 floor bounds it (0.244 ms at N
+// 9,216, 12 heads, beside 0.10 ms of tensor work) and it cannot run much
+// below K1 at d 32; K8 at d 32 likewise (its p v an N = 32 int8 wgmma with
+// p8 from registers, v8 a tile of 32 rows of BN = 128 keys).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -451,7 +458,7 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
 //   - n_u = p8 v8 is wgmma m64nDk32 .s32.s8.s8 with p8 as A from registers
 //     and v8 as B from shared memory, into a fresh s32 accumulator for each
 //     sub-block (scale-d 0 on its first k-step); BN = 128 keys hold two
-//     sub-blocks at d 64, BN = 64 one at d 128;
+//     sub-blocks at d 32 and 64, BN = 64 one at d 128;
 //   - tile j+1's S is issued with tile j's p v, its requantisation runs
 //     while the tensor cores work, and tile j's n_u fold into the f32 o
 //     after (o = o a + sum_u w_u n_u, a the running max's rescale; n_u
@@ -806,9 +813,9 @@ cudaError_t launch_pv(const void* q8, const void* k8, const void* vt8,
 }  // namespace
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
-// int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk; D 64 or
-// 128); otherwise K1 (q, k bf16, scores scaled by scale_log2; D 32, 64 or
-// 128). q, k and v are
+// int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
+// otherwise K1 (q, k bf16, scores scaled by scale_log2); D 32, 64 or 128
+// either way. q, k and v are
 // read by TMA, so their base pointers and strides must be 16-byte
 // multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
@@ -838,6 +845,7 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
   if (int8) {
+    if (D == 32) return (int)launch_sm90<32, true>(p, B, BH, s);
     if (D == 64) return (int)launch_sm90<64, true>(p, B, BH, s);
     if (D == 128) return (int)launch_sm90<128, true>(p, B, BH, s);
   } else {
@@ -852,7 +860,7 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
 // token, head for q8 then k8; the last dim contiguous; read by TMA, so the
 // bases and strides are 16-byte multiples); vt8 int8 (B*H, D, Npad), Npad a
 // multiple of 64, in the key order described above; sq, sk, sv f32 per
-// (b*H + h); o bf16 (B, Nq, H, D) contiguous. D 64 or 128. Returns a
+// (b*H + h); o bf16 (B, Nq, H, D) contiguous. D 32, 64 or 128. Returns a
 // cudaError_t.
 extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
                                   const void* vt8, const void* sq,
@@ -873,6 +881,7 @@ extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || Npad % kPvSub != 0 ||
       Npad < Nk || Npad - Nk >= kPvSub)
     return (int)cudaErrorInvalidValue;
+  if (D == 32) return (int)launch_pv<32>(q8, k8, vt8, p, B, Npad, strides, s);
   if (D == 64) return (int)launch_pv<64>(q8, k8, vt8, p, B, Npad, strides, s);
   if (D == 128)
     return (int)launch_pv<128>(q8, k8, vt8, p, B, Npad, strides, s);

@@ -395,6 +395,20 @@ __device__ __forceinline__ void wgmma_i8(uint32_t (&d)[N / 2], uint64_t da,
 // four bytes a register in the m16n8k32 A fragment of each warp's 16 rows
 // (register 0: row g, k 4t..4t+3; 1: row g + 8, the same k; 2 and 3: k + 16);
 // B K-major in shared memory by a descriptor (K8's p8 v8)
+__device__ __forceinline__ void wgmma_i8_rs_n32(uint32_t (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_i8_rs_n64(uint32_t (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db, int scale_d) {
@@ -442,7 +456,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_i8_rs(uint32_t (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_i8_rs: N");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_i8_rs: N");
+  if constexpr (N == 32) wgmma_i8_rs_n32(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_i8_rs_n64(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_i8_rs_n128(d, a, db, scale_d);
 }

@@ -108,7 +108,9 @@ class VideoMAEConfig(BaseConfig):
     # tokens split over the mesh's model axis (parallel/context.py)
     sequence_parallel: bool = False
     sp_variant: str = "gather"      # gather (all-gather kv) | ring
-    quant8: bool = False            # not ported yet
+    # W8A8 transformer projections (ops/quant.py; inference only: the
+    # quantisation round is not differentiable)
+    quant8: bool = False
 
     @property
     def grid(self) -> Tuple[int, int, int]:

@@ -7,8 +7,10 @@ LayerNorm `weight`/`bias`. Compute runs in the configured dtype, with
 LayerNorm statistics in float32. Attention, the attention glue and the MLP
 half-block route to the hand-written kernels through `ops.attention`,
 `ops.attn_glue` and `ops.mlp`, whose
-autograd Functions carry the kernels' backward; an Encoder with remat
-checkpoints each block, as `nn.remat(Block)` does. Attention takes an
+autograd Functions carry the kernels' backward; with quant8 (inference
+only) the projections run on W8A8 (`QuantLinear`, `ops.quant`); an
+Encoder with remat checkpoints each block, as `nn.remat(Block)` does.
+Attention takes an
 optional 3D rotary table (V-JEPA2), and DropPath draws its per-sample keep
 masks outside the checkpointed blocks, so the recompute sees the same ones.
 
@@ -43,6 +45,11 @@ from smb_vision_tpu_torch.ops.mlp import (
     mlp_forward,
     swiglu_block_forward,
 )
+from smb_vision_tpu_torch.ops.quant import (
+    WeightCodes,
+    refuse_autograd,
+    w8a8_linear,
+)
 from smb_vision_tpu_torch.ops.rope3d import apply_rope3d
 from smb_vision_tpu_torch.parallel import context
 from smb_vision_tpu_torch.parallel.collectives import (
@@ -56,7 +63,6 @@ from smb_vision_tpu_torch.parallel.collectives import (
     token_split_sizes,
 )
 from smb_vision_tpu_torch.parallel.pipeline import PipeStages, pipeline_apply
-from smb_vision_tpu_torch.utils.args import not_ported
 
 _MLP_IMPLS = ("auto", "pallas", "pallas_bwd", "xla")
 SP_VARIANTS = ("gather", "ring")
@@ -134,6 +140,39 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight_full().to(dt), b)
 
 
+class QuantLinear(Linear):
+    """`Linear` on W8A8 (the JAX package's `QuantDense`, `ops/quant.py`):
+    x cast to the compute dtype and quantised per row, the weight per
+    output channel (its codes kept in `codes` until the weight changes),
+    the int8 product dequantised to the compute dtype, then + bias in the
+    compute dtype. The parameters and their names are Linear's, so every
+    checkpoint loads unchanged. Inference only: under autograd it
+    raises."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype: torch.dtype):
+        super().__init__(in_features, out_features, bias, dtype)
+        self.codes = WeightCodes()
+
+    def forward(self, x):
+        refuse_autograd("QuantLinear", x, self.weight, self.bias)
+        return w8a8_linear(x.to(self.compute_dtype),
+                           self.codes.get((self.weight_full(),)),
+                           self.bias_full())
+
+
+def _stacked_bias(linears):
+    """The biases of `linears` stacked (float32), zeros for a missing one;
+    None when none has one."""
+    biases = [lin.bias_full() for lin in linears]
+    if all(b is None for b in biases):
+        return None
+    dev = next(b for b in biases if b is not None).device
+    return torch.cat([
+        torch.zeros(lin.out_features, dtype=torch.float32, device=dev)
+        if b is None else b.float() for lin, b in zip(linears, biases)])
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with float32 statistics, scale and bias; output in the
     compute dtype."""
@@ -154,13 +193,18 @@ class Attention(nn.Module):
     fused_qkv runs the projections as one product on the concatenated
     weights (q, k and v for self-attention; k and v for cross-attention), a
     plain `F.linear`, as the JAX package leaves it to XLA; the parameters
-    stay three Linears."""
+    stay three Linears. quant8 makes the four projections `QuantLinear`s
+    (W8A8, inference only; fused_qkv is then ignored, as in the JAX
+    package); a self-attention's q, k and v share one quantisation of x and
+    one product on their stacked codes, which is bit for bit the three
+    apart (a row's scale depends only on x, a channel's only on its own
+    weight row; a missing bias adds zeros)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  bias_mode: str = "qkv", out_bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
                  attn_impl: str = "auto", out_proj: bool = True,
-                 fused_qkv: bool = False):
+                 fused_qkv: bool = False, quant8: bool = False):
         super().__init__()
         if bias_mode not in ("qkv", "qv", "none"):
             raise ValueError(f"unknown bias_mode {bias_mode!r}")
@@ -171,23 +215,32 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.fused_qkv = fused_qkv
+        self.quant8 = quant8
         self.dtype = dtype
-        self.query = Linear(h, h, bias_mode != "none", dtype)
-        self.key = Linear(h, h, bias_mode == "qkv", dtype)
-        self.value = Linear(h, h, bias_mode != "none", dtype)
-        self.proj = Linear(h, h, out_bias, dtype) if out_proj else None
+        lin = QuantLinear if quant8 else Linear
+        self.query = lin(h, h, bias_mode != "none", dtype)
+        self.key = lin(h, h, bias_mode == "qkv", dtype)
+        self.value = lin(h, h, bias_mode != "none", dtype)
+        self.proj = lin(h, h, out_bias, dtype) if out_proj else None
+        self.qkv_codes = WeightCodes() if quant8 else None
 
     def _fused(self, inp, linears):
         """One product of inp with the stacked weights of `linears`; biases
         stacked with zeros for a missing one, added only if any is there."""
         dt = self.dtype
         w = torch.cat([lin.weight_full() for lin in linears]).to(dt)
-        b = None
-        if any(lin.bias is not None for lin in linears):
-            b = torch.cat([w.new_zeros(lin.out_features, dtype=torch.float32)
-                           if lin.bias is None else lin.bias_full()
-                           for lin in linears]).to(dt)
-        return F.linear(inp.to(dt), w, b)
+        b = _stacked_bias(linears)
+        return F.linear(inp.to(dt), w, None if b is None else b.to(dt))
+
+    def _quant_qkv(self, x):
+        """q, k, v of a quant8 self-attention: one row quantisation of x
+        and one W8A8 product on the stacked codes of the three weights."""
+        lins = (self.query, self.key, self.value)
+        refuse_autograd("quant8 attention", x,
+                        *(p for lin in lins for p in lin.parameters()))
+        codes = self.qkv_codes.get([lin.weight_full() for lin in lins])
+        return w8a8_linear(x.to(self.dtype), codes, _stacked_bias(lins)) \
+            .split(x.shape[-1], dim=-1)
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
@@ -201,7 +254,11 @@ class Attention(nn.Module):
         b, n, h = x.shape
         src = x if kv is None else kv
         d = h // self.num_heads
-        if self.fused_qkv and kv is None:
+        if self.quant8 and kv is None:
+            q, k, v = self._quant_qkv(x)
+        elif self.quant8:
+            q, k, v = self.query(x), self.key(src), self.value(src)
+        elif self.fused_qkv and kv is None:
             q, k, v = self._fused(x, (self.query, self.key, self.value)) \
                 .split(h, dim=-1)
         elif self.fused_qkv:
@@ -256,11 +313,13 @@ class Attention(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> act -> fc2. gelu-family MLPs route through `mlp_forward`
-    (kernel K6) for "pallas"/"pallas_bwd", and for "auto" in bf16."""
+    (kernel K6) for "pallas"/"pallas_bwd", and for "auto" in bf16. quant8
+    takes the unfused route whatever mlp_impl says, with fc1 and fc2
+    `QuantLinear`s (W8A8), as the JAX package does."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  act: str = "gelu", dtype: torch.dtype = torch.bfloat16,
-                 mlp_impl: str = "auto"):
+                 mlp_impl: str = "auto", quant8: bool = False):
         super().__init__()
         if mlp_impl not in _MLP_IMPLS:
             raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
@@ -268,13 +327,15 @@ class Mlp(nn.Module):
         self.act = act
         self.dtype = dtype
         self.mlp_impl = mlp_impl
-        self.fc1 = Linear(hidden_size, intermediate_size, True, dtype)
-        self.fc2 = Linear(intermediate_size, hidden_size, True, dtype)
+        self.quant8 = quant8
+        lin = QuantLinear if quant8 else Linear
+        self.fc1 = lin(hidden_size, intermediate_size, True, dtype)
+        self.fc2 = lin(intermediate_size, hidden_size, True, dtype)
 
     def forward(self, x):
-        route = (self.mlp_impl in ("pallas", "pallas_bwd")
-                 or (self.mlp_impl == "auto"
-                     and self.dtype == torch.bfloat16))
+        route = not self.quant8 and (
+            self.mlp_impl in ("pallas", "pallas_bwd")
+            or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16))
         if route and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
             return mlp_forward(x.to(dt), self.fc1.weight_full().to(dt).t(),
@@ -351,7 +412,10 @@ class Block(nn.Module):
     routes LN + Mlp separately (kernels K5a + K5b under autograd, K6
     otherwise). With use_swiglu the FFN is `SwiGLU`, and only mlp_impl
     "pallas" fuses the half-block, through `swiglu_block_forward` (kernel
-    K9), as in the JAX package."""
+    K9), as in the JAX package. quant8 (inference only) runs the
+    attention's and the MLP's projections on W8A8 (`QuantLinear`) and
+    fuses neither half-block, as in the JAX package; a SwiGLU FFN stays
+    unquantised there."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, act: str = "gelu",
@@ -366,9 +430,6 @@ class Block(nn.Module):
         if glue_impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown glue impl {glue_impl!r}; "
                              "valid: 'auto', 'pallas', 'xla'")
-        if quant8:
-            raise not_ported("quant8 (W8A8 projections, ops/quant.py)",
-                             "w8a8")
         if mlp_impl not in _MLP_IMPLS:
             raise ValueError(f"unknown mlp impl {mlp_impl!r}; valid: "
                              + ", ".join(map(repr, _MLP_IMPLS)))
@@ -378,16 +439,17 @@ class Block(nn.Module):
         self.glue_impl = glue_impl
         self.fused_qkv = fused_qkv
         self.use_swiglu = use_swiglu
+        self.quant8 = quant8
         self.eps = layer_norm_eps
         self.norm1 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.attention = Attention(hidden_size, num_heads, bias_mode,
                                    dtype=dtype, attn_impl=attn_impl,
-                                   fused_qkv=fused_qkv)
+                                   fused_qkv=fused_qkv, quant8=quant8)
         self.norm2 = LayerNorm(hidden_size, layer_norm_eps, dtype)
         self.mlp = (SwiGLU(hidden_size, intermediate_size, dtype)
                     if use_swiglu else
                     Mlp(hidden_size, intermediate_size, act=act, dtype=dtype,
-                        mlp_impl=mlp_impl))
+                        mlp_impl=mlp_impl, quant8=quant8))
         if layerscale_value is not None:
             self.layerscale1 = nn.Parameter(
                 torch.full((hidden_size,), float(layerscale_value)))
@@ -411,11 +473,12 @@ class Block(nn.Module):
             dp_masks = [self.drop_path.draw(x.shape[0], device=x.device)
                         for _ in range(2)]
         m1, m2 = dp_masks if dp_masks is not None else (None, None)
-        dp_off = not self.drop_path.active
+        # an active DropPath, or quant8, fuses neither half-block
+        fusable = not self.drop_path.active and not self.quant8
         # the attention half-block through the glue kernels K10a/K10b on an
         # explicit glue_impl "pallas" only, as in the JAX package (whose
         # "auto" keeps the plain path); LayerScale folds into Wo and bo
-        if self.glue_impl == "pallas" and not self.fused_qkv and dp_off:
+        if self.glue_impl == "pallas" and not self.fused_qkv and fusable:
             x = self.attention.glue_forward(
                 x, self.norm1.weight, self.norm1.bias, self.eps,
                 lam=self.layerscale1, rope=rope, sp=sp)
@@ -424,7 +487,7 @@ class Block(nn.Module):
             x = x + self.drop_path(self._scaled(self.layerscale1, h), m1)
 
         if self.use_swiglu:
-            if self.mlp_impl == "pallas" and dp_off:
+            if self.mlp_impl == "pallas" and fusable:
                 return self._swiglu_fused(x)
             h = self.mlp(self.norm2(x))
             return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
@@ -432,7 +495,7 @@ class Block(nn.Module):
                  or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16
                      and kernel_maps(x.shape[-1],
                                      self.mlp.fc1.out_features, self.act)))
-        if route and dp_off and self.act in ("gelu", "gelu_new"):
+        if route and fusable and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
             w1 = self.mlp.fc1.weight_full().to(dt).t()
             w2 = self.mlp.fc2.weight_full().t()

@@ -27,7 +27,7 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
-           "attn_glue.cu", "quant.cu")
+           "attn_glue.cu", "quant.cu", "w8a8.cu")
 HEADERS = ("sm90.cuh", "gemm_sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -144,6 +144,12 @@ def bind(path: Path) -> ctypes.CDLL:
     handle.smb_quantize.argtypes = (
         [_P] + [_I] * 4 + [_P, _F, _P, _P, _P, _I, _I, _P])
     handle.smb_quantize.restype = _I
+    handle.smb_quantize_rows.argtypes = (
+        [_P] + [_I] * 2 + [ctypes.c_longlong] + [_I] * 2 + [_P] * 3)
+    handle.smb_quantize_rows.restype = _I
+    handle.smb_w8a8_gemm.argtypes = (
+        [_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _I, _P])
+    handle.smb_w8a8_gemm.restype = _I
     handle.smb_error_string.argtypes = [_I]
     handle.smb_error_string.restype = ctypes.c_char_p
     return handle

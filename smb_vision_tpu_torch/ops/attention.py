@@ -2,9 +2,7 @@
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
 the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
-stand behind them. K1, K4 and K7 take head widths 32, 64 and 128; K3 and
-K8 take 64 and 128, and at 32 raise on CUDA (still to port, ROADMAP.md
-queue 2 item 1, G1: head width 32 in K3 and K8):
+stand behind them, each at head widths 32, 64 and 128:
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
   row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
@@ -34,8 +32,8 @@ the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
 `_flash_lse`. Each wrapper runs
 its plain version for a tensor on the CPU and launches its kernel for a
 CUDA tensor; there is no fallback between the two. `launches` on each
-wrapper counts kernel launches (K1, K4 and K7 also by head width,
-`launches_by_width`; the quantisation once a tensor).
+wrapper counts kernel launches (the five flash kernels also by head
+width, `launches_by_width`; the quantisation once a tensor).
 """
 
 from __future__ import annotations
@@ -47,7 +45,6 @@ from typing import Optional, Tuple
 import torch
 
 from smb_vision_tpu_torch.ops import _build
-from smb_vision_tpu_torch.utils.args import roadmap_ref
 
 LOG2E = 1.4426950408889634
 # 1/127 rounded to f32. The JAX package's `max / 127.` runs under jit,
@@ -58,9 +55,8 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
-# head widths the kernels take: K1, K4 and K7; the int8 forwards K3 and K8
+# head widths the kernels take (all five)
 _FLASH_HEAD_DIMS = (32, 64, 128)
-_INT8_FWD_HEAD_DIMS = (64, 128)
 
 
 def _plain_chunk(b: int, h: int, nk: int) -> int:
@@ -265,8 +261,7 @@ def quantize_v_kernel_layout(v8):
         .contiguous()
 
 
-def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7",
-               head_dims=_FLASH_HEAD_DIMS):
+def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7"):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Nq, H, D) and k, v (B, Nk, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -275,12 +270,9 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7",
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch, heads or head width")
-    if d not in head_dims:
-        todo = (" (head width 32 on the int8 forwards K3 and K8 is still to "
-                f"port, {roadmap_ref('g1')}; attn_impl 'pallas' and "
-                "'pallas_i8bwd' run it)" if d == 32 else "")
+    if d not in _FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel {kernel} takes head width "
-                         f"{head_dims}, got {d}{todo}")
+                         f"{_FLASH_HEAD_DIMS}, got {d}")
     if q.dtype != qk_dtype or k.dtype != qk_dtype or v.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes q, k {qk_dtype} and v bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -665,7 +657,7 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16, "K3", _INT8_FWD_HEAD_DIMS)
+    _check_qkv(q, k, v, torch.bfloat16, "K3")
     _tma_geometry(v, 128)
     return _launch_int8(*quantize_qk(q, k, scale), v)
 
@@ -679,11 +671,12 @@ def _launch_int8(q8, k8, sq, sk, v):
                       device=v.device)
     _launch_flash(q8, k8, v, sq.contiguous(), sk.contiguous(), out, None,
                   True, 0.0)
-    flash_attention_int8.launches += 1
+    _count_launch(flash_attention_int8, q8.shape[-1])
     return out
 
 
 flash_attention_int8.launches = 0
+flash_attention_int8.launches_by_width = {}
 
 
 def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
@@ -706,7 +699,7 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16, "K8", _INT8_FWD_HEAD_DIMS)
+    _check_qkv(q, k, v, torch.bfloat16, "K8")
     q8, k8, sq, sk = quantize_qk(q, k, scale)
     vt8, sv = quantize_per_head_kernel(v, v_layout=True)
     return _launch_int8pv(q8, k8, sq, sk, vt8, sv)
@@ -727,11 +720,12 @@ def _launch_int8pv(q8, k8, sq, sk, vt8, sv):
         vt8.shape[-1], d, ctypes.cast(strides, ctypes.c_void_p),
         _build.stream_ptr(q8.device))
     _build.check(rc, "flash_fwd_i8pv")
-    flash_attention_int8pv.launches += 1
+    _count_launch(flash_attention_int8pv, d)
     return out
 
 
 flash_attention_int8pv.launches = 0
+flash_attention_int8pv.launches_by_width = {}
 
 _IMPLS = ("auto", "xla", "pallas", "pallas_i8bwd", "pallas_int8",
           "pallas_int8pv")

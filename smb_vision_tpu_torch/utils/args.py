@@ -21,8 +21,6 @@ from typing import List, Optional, Sequence, Type, Union, get_args, get_origin
 # bold heading as ROADMAP.md writes it, without a closing full stop)
 ROADMAP_ITEMS = {
     "multi-gpu": (1, 9, "Multi-GPU"),
-    "w8a8": (1, 10, "W8A8"),
-    "g1": (2, 1, "G1: head width 32 in K3 and K8"),
 }
 
 

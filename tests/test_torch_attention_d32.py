@@ -2,8 +2,10 @@
 in the port's flash attention against the JAX package on the CPU: K1's
 plain version (out, lse2 and the gradients of its autograd Function, the
 plain version of K4) and the "pallas_i8bwd" route (the plain version of
-K7) against the JAX flash kernels in interpret mode at block 32, and the
-routing of "auto" at d 32. Inputs come from numpy seeds."""
+K7) against the JAX flash kernels in interpret mode at block 32, the int8
+forwards' plain versions (K3, K8) against the JAX `_fwd_i8` in interpret
+mode at block_k 64, and the routing of "auto" at d 32. Inputs come from
+numpy seeds."""
 
 import jax
 import jax.numpy as jnp
@@ -107,3 +109,37 @@ def test_auto_routes_head_width_32(dtype, bias, want):
     q = torch.zeros(1, 16, 2, D, dtype=dtype)
     b = torch.zeros(1, 2, 16, 16) if bias else None
     assert tattn._auto_impl(q, b) == want
+
+
+def _bf16(seed, n):
+    """q, k, v (1, n, 2, 32) ~ N(0, 0.4^2) rounded to bf16: (jax f32 of the
+    bf16 values, torch bf16)."""
+    out = []
+    for a in _qkvw(seed, n)[:3]:
+        t = torch.from_numpy(a).to(torch.bfloat16)
+        out.append((jnp.asarray(t.float().numpy()), t))
+    return out
+
+
+@pytest.mark.parametrize("impl,f32_bound", [("pallas_int8", 2e-2),
+                                            ("pallas_int8pv", 3e-2)])
+@pytest.mark.parametrize("n", [100, 129])
+def test_int8_forwards_d32_match_jax_pallas(impl, f32_bound, n):
+    """K3's and K8's plain versions at d 32 (their quantisation, exact
+    integer scores; K8's p requantised per 64-key sub-block) against the
+    JAX `_fwd_i8` (pv False / True) in interpret mode at block_k 64, so
+    its sub-block is K8's: within 1e-2 of max, the d-64 tests' bound
+    (tests/test_torch_ops.py), and within the JAX package's bounds of
+    float32 attention. Nothing launches on the CPU."""
+    (jq, q), (jk, k), (jv, v) = _bf16(70 + n, n)
+    ref = jattn.attention(jq, jk, jv, impl=impl, interpret=True,
+                          block_q=64, block_k=64)
+    before = (tattn.flash_attention_int8.launches,
+              tattn.flash_attention_int8pv.launches)
+    out = tattn.attention(q, k, v, impl=impl)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, n, 2, D)
+    assert _rel(out, ref) < 1e-2
+    f32 = jattn.xla_attention(jq, jk, jv)
+    assert _rel(out, f32) < f32_bound
+    assert (tattn.flash_attention_int8.launches,
+            tattn.flash_attention_int8pv.launches) == before

@@ -98,14 +98,64 @@ def test_cuda_device_without_cuda_raises(workdir, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,item", [
     (["--pipeline_parallel", "2", "--sliding_window", "true"],
      "item 9, Multi-GPU"),
-    (["--quant8"], "item 10, W8A8"),
 ])
 def test_unported_flags_raise(workdir, tmp_path, flags, item):
     """--pipeline_parallel runs (tests/test_torch_pipelined_models.py); its
-    composition with --sliding_window stays refused, as in the JAX CLI."""
+    composition with --sliding_window stays refused, as in the JAX CLI.
+    --quant8 runs (test_quant8_matches_jax_cli)."""
     with pytest.raises(NotImplementedError, match=item):
         run_inference(_common(workdir) + ["--device", "cpu", "--output_dir",
                                           str(tmp_path), *flags])
+
+
+def _big_volumes(root):
+    """2 NIfTI volumes past the 32^3 grid: 40 x 32 x 24 voxels at the
+    pipeline's spacing, padded to 64 x 32 x 32, give 3 windows each."""
+    vols = root / "big"
+    vols.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        save_nifti(vols / f"big_{i}.nii.gz",
+                   rng.normal(0, 300, (40, 32, 24)).astype(np.int16),
+                   np.diag([1.5, 1.5, 3.0, 1.0]))
+    return vols
+
+
+@pytest.mark.parametrize("extra,port_only,tol", [
+    ([], [], 1e-4),
+    (["--input_dtype", "uint8"], [], 5e-3),
+    (["--sliding_window"], [], 1e-4),
+    ([], ["--attn_impl", "pallas_int8"], 2e-2),
+], ids=["float32", "uint8", "sliding_window", "pallas_int8"])
+def test_quant8_matches_jax_cli(workdir, tmp_path, extra, port_only, tol):
+    """run_inference --quant8 --device cpu (the W8A8 plain versions)
+    against the JAX CLI's --quant8 on the same export, alone and with
+    --input_dtype uint8 (the uint8 routes' bound, TOL_UINT8_VS_JAX),
+    --sliding_window (3 windows a volume) and, on the port, --attn_impl
+    pallas_int8 (the plain version of K3; the JAX CLI's int8 kernel does
+    not run on the CPU, so its quant8 run on the plain attention is the
+    reference, at the int8 scores' bound against float32 attention):
+    within tol of max. --quant8 composes with --pipeline_parallel in
+    test_run_inference_pipeline_parallel_quant8_matches_jax_cli."""
+    from smb_vision_tpu.cli.run_inference import main as jax_run_inference
+
+    flags = ["--quant8", *extra]
+    names = [f"case_{i}" for i in range(2)]
+    if "--sliding_window" in extra:
+        flags += ["--data_dir", str(_big_volumes(tmp_path))]
+        names = [f"big_{i}" for i in range(2)]
+    jax_run_inference(_common(workdir) + ["--attn_impl", "xla",
+                                          "--output_dir", str(tmp_path / "j"),
+                                          *flags])
+    stats = run_inference(_common(workdir) + [
+        "--device", "cpu", "--output_dir", str(tmp_path / "t"), *flags,
+        *port_only])
+    assert stats == {"embedded": 2, "failed": 0, "skipped": 0}
+    for name in names:
+        ref = np.load(tmp_path / "j" / f"{name}.npy")
+        out = np.load(tmp_path / "t" / f"{name}.npy")
+        assert out.shape == ref.shape
+        assert np.abs(out - ref).max() / np.abs(ref).max() <= tol
 
 
 def _run_both(root, tmp_path, flags, jax_flags=()):
@@ -356,7 +406,7 @@ def test_refusals_cite_roadmap_items():
     from smb_vision_tpu_torch.cli import run_vjepa
     from smb_vision_tpu_torch.cli.serve import ServeArguments, make_server
     from smb_vision_tpu_torch.models import convert
-    from smb_vision_tpu_torch.models.layers import Block
+    from smb_vision_tpu_torch.models.layers import Block, QuantLinear
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.utils.args import ROADMAP_ITEMS
 
@@ -373,11 +423,18 @@ def test_refusals_cite_roadmap_items():
                               "true", "--sharding_policy", "tp"]),
         lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
                                 "true", "--sharding_policy", "fsdp+tp"]),
-        lambda: tinfer.main(["--device", "cpu", "--quant8"]),
         lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
                              "--sliding_window", "true"]),
-        lambda: Block(8, 2, 16, quant8=True),
     ]
+    # W8A8 (queue 1 item 10) and head width 32 in K3 and K8 (queue 2 item
+    # 1) are ported: --quant8 runs past the refusals (the CLI stops only
+    # for want of data), quant8 Blocks build and K3 and K8 take d 32 (on
+    # the card; test_torch_kernels.py)
+    with pytest.raises(SystemExit, match="--data_dir"):
+        tinfer.main(["--device", "cpu", "--quant8"])
+    block = Block(8, 2, 16, quant8=True)
+    assert isinstance(block.mlp.fc1, QuantLinear)
+    assert isinstance(block.attention.proj, QuantLinear)
     # LoRA, the 8-bit optimizer and the zoo (queue 1 items 6 to 8) are
     # ported: their calls run past the refusals (the CLIs stop only for
     # want of data) or convert
@@ -404,7 +461,7 @@ def test_refusals_cite_roadmap_items():
         key = (int(m.group(1)), int(m.group(2)))
         assert headings[key].rstrip(".") == m.group(3), str(err.value)
         seen.add(key)
-    assert seen == {(q, n) for q, n, h in ROADMAP_ITEMS.values()} - {(2, 1)}
+    assert seen == {(q, n) for q, n, h in ROADMAP_ITEMS.values()}
     # the citations in the package's sources and docstrings
     root = Path(run_mim.__file__).resolve().parents[1]
     for path in sorted(root.rglob("*.py")):
@@ -590,6 +647,29 @@ def test_run_inference_pipeline_parallel_matches_jax_cli(workdir, tmp_path):
         out = np.load(tmp_path / "t" / f"case_{i}.npy")
         assert out.shape == ref.shape == (8, 32)
         np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_run_inference_pipeline_parallel_quant8_matches_jax_cli(workdir,
+                                                                tmp_path):
+    """run_inference --quant8 --pipeline_parallel 2 on 2 gloo ranks (each
+    stage's layer on W8A8) against the JAX CLI's --quant8 on the same
+    export, within 1e-4 of max (as the one-device quant8 run)."""
+    from test_torch_parallel import _torchrun
+
+    from smb_vision_tpu.cli.run_inference import main as jax_run_inference
+
+    jax_run_inference(_common(workdir) + ["--attn_impl", "xla", "--quant8",
+                                          "--output_dir", str(tmp_path / "j")])
+    log = _torchrun(["-m", "smb_vision_tpu_torch.cli.run_inference",
+                     *_common(workdir), "--device", "cpu", "--quant8",
+                     "--pipeline_parallel", "2", "--output_dir",
+                     str(tmp_path / "t")], tmp_path, nproc=2)
+    assert '"embedded": 2' in log
+    for i in range(2):
+        ref = np.load(tmp_path / "j" / f"case_{i}.npy")
+        out = np.load(tmp_path / "t" / f"case_{i}.npy")
+        assert out.shape == ref.shape == (8, 32)
+        assert np.abs(out - ref).max() / np.abs(ref).max() <= 1e-4
 
 
 def test_pipeline_flags_refuse_as_the_jax_cli(train_spec, tmp_path):

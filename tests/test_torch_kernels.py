@@ -19,6 +19,7 @@ import torch
 from smb_vision_tpu_torch.ops import _build
 from smb_vision_tpu_torch.ops import attention as A
 from smb_vision_tpu_torch.ops import mlp as M
+from smb_vision_tpu_torch.ops import quant as Q
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -72,7 +73,7 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_builds():
                  "train.mim", "train.optim", "train.trainer", "train.vjepa",
                  "utils.profiling", "train.lora", "train.quantized",
                  "models.siglip", "models.resnet3d", "data.image2d",
-                 "inference.encoders", "cli.run_encoders"):
+                 "inference.encoders", "cli.run_encoders", "ops.quant"):
         assert f"smb_vision_tpu_torch.{name}" in seen["names"]
     assert seen["jax"] == [] and seen["jax_package"] == []
     assert not seen["lib_loaded"]
@@ -112,7 +113,6 @@ def _rel(out, ref):
 
 # the wgmma kernels' tile edges (64-row warpgroups, 64- and 128-key tiles,
 # 128-row blocks) and DINOv2-giant's ragged N 1,961, at every head width
-# (K3 and K8 take 64 and 128 only)
 _EDGES = [(256, 64), (100, 64), (130, 128)] + [
     (n, 64) for n in (1, 63, 64, 65, 127, 128, 129, 193, 1961)] + [
     (n, 128) for n in (1, 63, 65, 127, 129, 193, 1961)] + [
@@ -131,8 +131,6 @@ def test_flash_kernels_match_plain(cuda, n, d):
     ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
     assert _rel(out, ref) <= 1e-2
     assert float((lse - ref_lse).abs().max()) <= 1e-3
-    if d not in A._INT8_FWD_HEAD_DIMS:
-        return
     q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
     out8 = A.flash_attention_int8(q, k, v)
     assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
@@ -146,9 +144,9 @@ def test_flash_kernels_match_plain(cuda, n, d):
                                      (65, 1961, 128), (70, 200, 32),
                                      (200, 70, 32), (65, 1961, 32)])
 def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
-    """Nq != Nk both ways with ragged tails, K1 and K3 (K1 alone at
-    d 32); inputs the kernels do not take raise instead of falling back to
-    the plain version, and launch nothing."""
+    """Nq != Nk both ways with ragged tails, K1 and K3; inputs the
+    kernels do not take raise instead of falling back to the plain version,
+    and launch nothing."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = (torch.randn((1, nq, 2, d), generator=gen, device=cuda)
          * 0.4).to(torch.bfloat16)
@@ -156,28 +154,23 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
              * 0.4).to(torch.bfloat16) for _ in range(2)]
     assert _rel(A.flash_attention(q, k, v), A.xla_attention(q, k, v)) \
         <= 1e-2
-    if d in A._INT8_FWD_HEAD_DIMS:
-        q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
-        before8 = A.flash_attention_int8.launches
-        out8 = A.flash_attention_int8(q, k, v)
-        assert A.flash_attention_int8.launches == before8 + 1
-        assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
-        assert _rel(out8, A.xla_attention(q.float(), k.float(),
-                                          v.float())) <= 2e-2
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(d))
+    before8 = A.flash_attention_int8.launches
+    out8 = A.flash_attention_int8(q, k, v)
+    assert A.flash_attention_int8.launches == before8 + 1
+    assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    assert _rel(out8, A.xla_attention(q.float(), k.float(),
+                                      v.float())) <= 2e-2
     before = (A.flash_attention.launches, A.flash_attention_int8.launches)
     wide = torch.zeros((1, nk, 2, d + 4), dtype=torch.bfloat16, device=cuda)
     for fn in (A.flash_attention, A.flash_attention_int8):
         with pytest.raises(ValueError, match="head width"):
             fn(q[..., :16], k[..., :16], v[..., :16])
-        takes = fn is A.flash_attention or d in A._INT8_FWD_HEAD_DIMS
-        with pytest.raises(ValueError,
-                           match="16-byte aligned" if takes else "head width"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
             fn(q, k, wide[..., :d])
     with pytest.raises(TypeError, match="bfloat16"):
         A.flash_attention(q.float(), k.float(), v.float())
-    err, msg = ((TypeError, "bfloat16") if d in A._INT8_FWD_HEAD_DIMS
-                else (ValueError, "head width"))
-    with pytest.raises(err, match=msg):
+    with pytest.raises(TypeError, match="bfloat16"):
         A.flash_attention_int8(q, k, v.float())
     assert (A.flash_attention.launches,
             A.flash_attention_int8.launches) == before
@@ -194,7 +187,7 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
 def test_flash_kernel_reads_strided_heads(cuda, n, d):
     """q, k, v as views of one fused (B, N, 3, H, D) projection, read by
     TMA through their strides: K1 and K4, K3 (v and the fused q, k it
-    quantises; not at d 32) and K7 (its bf16 q and k)."""
+    quantises) and K7 (its bf16 q and k)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     qkv = (torch.randn((2, n, 3, 4, d), generator=gen, device=cuda)
            * 0.4).to(torch.bfloat16)
@@ -208,10 +201,9 @@ def test_flash_kernel_reads_strided_heads(cuda, n, d):
     want = A.attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 2e-2
-    if d in A._INT8_FWD_HEAD_DIMS:
-        q8, k8, sq, sk = A.quantize_qk(q, k, scale)
-        assert _rel(A.flash_attention_int8(q, k, v),
-                    A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    q8, k8, sq, sk = A.quantize_qk(q, k, scale)
+    assert _rel(A.flash_attention_int8(q, k, v),
+                A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
     got = A.flash_attention_bwd_i8(q, k, v, out, lse, do)
     want = A.attention_bwd_i8_plain(q, k, v, out, lse, do, scale=scale)
     for a, b in zip(got, want):
@@ -399,27 +391,38 @@ def test_flash_bwd_i8_kernel_matches_plain(cuda, nq, nk, d):
 
 
 @pytest.mark.cuda
-def test_int8_forwards_refuse_head_width_32(cuda):
-    """K3 and K8 take head widths 64 and 128: at 32 they raise, naming
-    the queue that holds them, and launch nothing, on their wrappers and
-    through `attention`; K1 runs the same inputs."""
+@pytest.mark.parametrize("nq,nk", [(9216, 9216), (1961, 1961), (193, 193),
+                                   (129, 1), (70, 200), (200, 70),
+                                   (1961, 65)])
+def test_int8_forwards_run_head_width_32(cuda, nq, nk):
+    """K3 and K8 at head width 32 (the reference-head V-JEPA2 predictor,
+    12 heads of 32): one launch each, on their wrappers and through
+    `attention`, within their d-64 bounds of their plain versions (1e-2
+    of max) and of float32 attention (2e-2, 3e-2): the predictor's shape,
+    ragged N, Nq != Nk both ways and a 64-key sub-block wholly past Nk."""
     gen = torch.Generator(device=cuda).manual_seed(13)
-    q, k, v = [(torch.randn((1, 129, 2, 32), generator=gen, device=cuda)
-                * 0.4).to(torch.bfloat16) for _ in range(3)]
-    before = (A.flash_attention_int8.launches,
-              A.flash_attention_int8pv.launches)
-    for fn in (A.flash_attention_int8, A.flash_attention_int8pv):
-        with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-            fn(q, k, v)
-    for impl in ("pallas_int8", "pallas_int8pv"):
-        with pytest.raises(ValueError, match="head width"):
-            A.attention(q, k, v, impl=impl)
-    assert (A.flash_attention_int8.launches,
-            A.flash_attention_int8pv.launches) == before
-    before = A.flash_attention.launches_by_width.get(32, 0)
-    assert _rel(A.attention(q, k, v, impl="pallas"),
-                A.xla_attention(q, k, v)) <= 1e-2
-    assert A.flash_attention.launches_by_width[32] == before + 1
+
+    def r(n):
+        return (torch.randn((1, n, 12, 32), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16)
+
+    q, k, v = r(nq), r(nk), r(nk)
+    q8, k8, sq, sk = A.quantize_qk(q, k, 1.0 / math.sqrt(32),
+                                   A.quantize_per_head)
+    v8, sv = A.quantize_per_head(v)
+    f32 = A.xla_attention(q.float(), k.float(), v.float())
+    for impl, fn, plain, bound in (
+            ("pallas_int8", A.flash_attention_int8,
+             A.int8_attention_plain(q8, k8, sq, sk, v), 2e-2),
+            ("pallas_int8pv", A.flash_attention_int8pv,
+             A.int8pv_attention_plain(q8, k8, sq, sk, v8, sv), 3e-2)):
+        before = fn.launches
+        out = fn(q, k, v)
+        assert fn.launches == before + 1
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert _rel(out, plain) <= 1e-2 and _rel(out, f32) <= bound
+        assert torch.equal(A.attention(q, k, v, impl=impl), out)
+        assert fn.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -749,7 +752,7 @@ def test_quantize_kernel_refusals(cuda):
 def test_int8_wrappers_equal_kernels_on_plain_operands(cuda, nq, nk, d):
     """K3 and K7 through their wrappers (operands from the quantisation
     kernel) equal their kernels fed with plain-quantised operands, bit for
-    bit: the kernel changes no byte downstream (K3 from d 64)."""
+    bit: the kernel changes no byte downstream."""
     gen = torch.Generator(device=cuda).manual_seed(23)
 
     def r(n):
@@ -759,15 +762,13 @@ def test_int8_wrappers_equal_kernels_on_plain_operands(cuda, nq, nk, d):
     q, k, v, do = r(nq), r(nk), r(nk), r(nq)
     scale = 1.0 / math.sqrt(d)
     plain = A.quantize_per_head
-    if d in A._INT8_FWD_HEAD_DIMS:
-        assert torch.equal(A.flash_attention_int8(q, k, v),
-                           A._launch_int8(*A.quantize_qk(q, k, scale, plain),
-                                          v))
-        vt8, sv = plain(v)
-        assert torch.equal(
-            A.flash_attention_int8pv(q, k, v),
-            A._launch_int8pv(*A.quantize_qk(q, k, scale, plain),
-                             A.quantize_v_kernel_layout(vt8), sv))
+    assert torch.equal(A.flash_attention_int8(q, k, v),
+                       A._launch_int8(*A.quantize_qk(q, k, scale, plain), v))
+    vt8, sv = plain(v)
+    assert torch.equal(
+        A.flash_attention_int8pv(q, k, v),
+        A._launch_int8pv(*A.quantize_qk(q, k, scale, plain),
+                         A.quantize_v_kernel_layout(vt8), sv))
     out, lse = A.flash_attention(q, k, v, with_lse=True)
     got = A.flash_attention_bwd_i8(q, k, v, out, lse, do)
     want = A._launch_bwd_i8(q, k, do, out, lse,
@@ -908,3 +909,93 @@ def test_glue_block_trains_through_k10(cuda, layerscale):
         assert float(g.abs().max()) > 0, name
         assert _rel(plain[name], f32[name]) <= 3e-2, name
         assert _rel(g, f32[name]) <= 3e-2, name
+
+
+# W8A8 at ViT-Base's projections on the embed rows (fc1, fc2, q/k/v
+# stacked, o) and ragged ones: rows under a 64-row warpgroup and past a
+# 128-row tile, K under one 128-column k-step and no multiple of 16 (the
+# codes zero-padded), N no multiple of 8 (a bf16 result in a wider
+# allocation)
+_W8A8_SHAPES = [(20480, 768, 3072), (20480, 3072, 768), (20480, 768, 2304),
+                (1961, 768, 768), (129, 96, 40), (1, 100, 33), (300, 13, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", _W8A8_SHAPES)
+def test_w8a8_kernels_match_plain_bit_for_bit(cuda, m, k, n, dtype):
+    """The row quantisation gives `quantize_rows_plain`'s codes (zeros past
+    K) and scales bit for bit, for the activations (bf16 or f32, an
+    all-zero row, a row of exact ties) and the f32 weight; the GEMM on
+    those codes gives `w8a8_linear_plain`'s result bit for bit, with and
+    without a bias, in bf16 and f32. One launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    x[min(3, m - 1)] = 0
+    if m > 7 and k >= 4:   # a row of scale 1: 0.5, 1.5, -2.5 exact ties
+        x[7] = 0
+        x[7, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])
+    w = torch.randn((n, k), generator=gen, device=cuda) * k ** -0.5
+    b = torch.randn((n,), generator=gen, device=cuda) * 0.1
+    kp = Q.padded_k(k)
+    for t in (x, w):
+        before = Q.quantize_rows_kernel.launches
+        got8, got_s = Q.quantize_rows_kernel(t)
+        assert Q.quantize_rows_kernel.launches == before + 1
+        want8, want_s = Q.quantize_rows_plain(t, kp)
+        assert got8.shape == (t.shape[0], kp)
+        assert torch.equal(got8, want8) and torch.equal(got_s, want_s)
+    x8, sx = Q.quantize_rows_plain(x, kp)
+    w8, sw = Q.quantize_rows_plain(w, kp)
+    for bias in (None, b):
+        before = Q.w8a8_gemm_kernel.launches
+        got = Q.w8a8_gemm_kernel(x8, sx, w8, sw, bias, dtype)
+        assert Q.w8a8_gemm_kernel.launches == before + 1
+        want = Q.w8a8_linear_plain(x8, sx, w8, sw, bias, dtype)
+        assert got.shape == (m, n) and got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_w8a8_quantisation_reads_any_rows(cuda):
+    """Rows the kernel cannot read 16 bytes at a time (a view 2 bytes past
+    an aligned start, an odd row stride) and a (B, N, K) input, bit for
+    bit; `w8a8_dot` on the card equals the plain versions' result."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    big = torch.randn((257, 801), generator=gen, device=cuda)
+    for x in (big.to(torch.bfloat16)[:, 1:769], big[:, :797],
+              big.to(torch.bfloat16)[:256].reshape(2, 128, 801)):
+        got8, got_s = Q.quantize_rows_kernel(x)
+        want8, want_s = Q.quantize_rows_plain(x, Q.padded_k(x.shape[-1]))
+        assert torch.equal(got8, want8) and torch.equal(got_s, want_s)
+    x = big[:, :768].to(torch.bfloat16)
+    w = torch.randn((300, 768), generator=gen, device=cuda) * 0.03
+    x8, sx = Q.quantize_rows_plain(x)
+    w8, sw = Q.quantize_rows_plain(w)
+    assert torch.equal(Q.w8a8_dot(x, w),
+                       Q.w8a8_linear_plain(x8, sx, w8, sw))
+
+
+@pytest.mark.cuda
+def test_w8a8_refusals(cuda):
+    """The kernels refuse what they do not take before a launch, and every
+    W8A8 route refuses autograd."""
+    before = (Q.quantize_rows_kernel.launches, Q.w8a8_gemm_kernel.launches)
+    x8 = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError):
+        Q.quantize_rows_kernel(torch.zeros((4, 8), dtype=torch.float16,
+                                           device=cuda))
+    with pytest.raises(ValueError):
+        Q.quantize_rows_kernel(torch.zeros((4, 8), device=cuda), kpad=8)
+    with pytest.raises(ValueError):
+        Q.w8a8_gemm_kernel(x8[:, :24], s, x8[:, :24], s)     # K 24
+    with pytest.raises(ValueError):
+        Q.w8a8_gemm_kernel(x8.float(), s, x8, s)
+    with pytest.raises(ValueError):
+        Q.w8a8_gemm_kernel(x8, s, x8, s, dtype=torch.float16)
+    assert (Q.quantize_rows_kernel.launches,
+            Q.w8a8_gemm_kernel.launches) == before
+    w = torch.zeros((8, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        Q.w8a8_dot(torch.zeros((4, 32), device=cuda), w)

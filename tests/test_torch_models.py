@@ -142,11 +142,23 @@ def test_read_safetensors_bf16_and_dtypes(tmp_path):
 
 
 def test_unported_options_raise():
-    cfg = VideoMAEConfig(image_size=32, num_frames=32, hidden_size=32,
-                         num_hidden_layers=1, num_attention_heads=2,
-                         intermediate_size=64, quant8=True)
-    with pytest.raises(NotImplementedError, match="quant8"):
-        VideoMAEModel(cfg)
+    # quant8 is ported (tests/test_torch_w8a8.py): the model builds with
+    # W8A8 projections, runs under no_grad within the JAX package's 5e-2
+    # of the unquantised model on the same weights, and raises under
+    # autograd (inference only)
+    quant = dict(image_size=32, num_frames=32, hidden_size=32,
+                 num_hidden_layers=1, num_attention_heads=2,
+                 intermediate_size=64, dtype="float32", attn_impl="xla")
+    px = torch.rand(1, 32, 1, 32, 32)
+    plain = VideoMAEModel(VideoMAEConfig(**quant)).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    q8 = VideoMAEModel(VideoMAEConfig(**quant, quant8=True)).eval()
+    q8.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        out, ref = q8(px)[0], plain(px)[0]
+    assert 0 < float((out - ref).abs().max() / ref.abs().max()) < 5e-2
+    with pytest.raises(RuntimeError, match="inference-only"):
+        q8(px)
     # sequence parallelism is ported: without a mesh (one model rank) the
     # model is the dense one, both variants
     # (tests/test_torch_sequence_parallel.py splits the tokens over ranks)
