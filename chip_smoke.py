@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch-embedding (also W8A8, --quant8),
-serving, MIM-pretraining, V-JEPA2-pretraining (both presets: the
-TPU-native heads and the reference heads, whose predictor has heads of
-32) and fine-tuning paths, the training data path (the native CT loader,
-the device cache, uint8 shipping) with the HF checkpoint round trip, the
-opt-in int8 p v attention and attention-glue paths, LoRA fine-tuning, the
-8-bit AdamW and the encoder zoo (SigLIP, Merlin's I3D ResNet-152), once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's batch-embedding (also W8A8, --quant8, and a
+VideoMAE at ViT-H widths, heads of 80), serving, MIM-pretraining,
+V-JEPA2-pretraining (both presets: the TPU-native heads and the
+reference heads, whose predictor has heads of 32) and fine-tuning paths,
+the training data path (the native CT loader, the device cache, uint8
+shipping) with the HF checkpoint round trip, the opt-in int8 p v
+attention and attention-glue paths, LoRA fine-tuning, the 8-bit AdamW and
+the encoder zoo (SigLIP-base and so400m, whose heads are 72 wide,
+Merlin's I3D ResNet-152), once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER   # OTHER: e.g. the parent commit
@@ -14,8 +15,8 @@ one NVIDIA GPU.
 
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too and bound by its own `_build`, the
-kernels this tree did not change (K1, K4 and K7 at head widths 32, 64 and
-128, K3 and K8 at 64 and 128, the MLP forward and backward kernels K2,
+kernels this tree did not change (K1, K3, K4, K7 and K8 at head widths
+32, 64 and 128, the MLP forward and backward kernels K2,
 K6, K5a, K9 and K5b and the glue K10a and K10b) are compared with it by
 SASS and, through their wrappers (K3, K7 and K8 with each side's
 quantisation kernel), bit for bit; the quantisation, flash, MLP, SwiGLU
@@ -32,7 +33,8 @@ Phases of the run without arguments, each of which fails the run
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
      IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
-     head width 32, 64 and 128), the nine GEMM instantiations of K2, K6,
+     head width 32, 64 and 128; K1, K3 and K8 also in their instantiations
+     that store a narrower head), the nine GEMM instantiations of K2, K6,
      K5a, K9, K5b, K10a and K10b and the W8A8 product (bf16 and f32 out) in
      the SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
@@ -81,8 +83,14 @@ Phases of the run without arguments, each of which fails the run
      the MIM encoder's and decoder's and a ragged one (timed beside their
      library chains, with K10a's LayerNorm pass and GEMM timed apart, and
      the glue's forward and backward in one block of the MIM step beside
-     the plain path's); each kept time with its bound and, where one
-     exists, the library call's;
+     the plain path's); then the forward family past the instantiations'
+     widths: K1, K3 and K8 at head width 72 (SigLIP so400m: batch 32, 729
+     tokens, 16 heads) and 80 (ViT-H: 20,480 tokens, 16 heads) against
+     their plain versions and timed beside them (K1 beside SDPA and the
+     exp2 floor), R6 writing the codes of heads of 80 at width 128 bit for
+     bit, K2 and K6 at K 1,280 (F 5,120) beside their cuBLAS chain, and K9
+     at K 2,048 beside its chain (a row that no path launches); each kept
+     time with its bound and, where one exists, the library call's;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -95,6 +103,15 @@ Phases of the run without arguments, each of which fails the run
   5q. leg Q: `run_inference --quant8` with leg A's config (W8A8: the row
      quantisation 144 launches, the product 96, K1 24; no fused MLP
      kernel), within 5e-2 of max of leg A's embeddings;
+  5n. legs N, T and U: `run_inference` on the 4 volumes with a VideoMAE
+     at ViT-H widths (hidden 1,280, 32 layers of 16 heads of 80, MLP
+     5,120) under "auto" (K1 at d 80, K2 at K 1,280), --attn_impl
+     pallas_int8 with mlp_impl pallas_bwd (K3 at d 80 on R6's codes of
+     width 128, K6) and --attn_impl pallas_int8pv (K8, K2): each kernel
+     once a layer and batch, the plain attention never; then the model's
+     parity at 12 of its 32 layers in the three configurations, against
+     the same model on their plain versions and against float32 (section
+     2's forward rule), and its volumes/s at all 32 layers, batch 2;
   5b. leg S, the serving slice: `cli/serve.make_server` in the process
      with leg A's config and weights (seed 0), batch 2, a volume cache:
      /healthz (the card, grid [20, 32, 32], hidden 768); the 4 volumes as
@@ -141,7 +158,8 @@ Phases of the run without arguments, each of which fails the run
      `run_inference` (K1 and K6) from model.safetensors and from
      hf_model.safetensors, the embeddings equal bit for bit;
  10. leg D: `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
-     (gradient accumulation cut from 64 to 2) on the 4 volumes at 384^2 x
+     (gradient accumulation cut from 64 to 2, the encoder from 24 layers
+     to LEG_V_LAYERS, as in legs K and I) on the 4 volumes at 384^2 x
      256, 2 steps with checkpoints and eval, then a resume to 4 (K1, K7,
      K5a and K5b in the student, K3 and K6 in the EMA teacher), with
      --export_hf; leg K: `run_vjepa` with leg D's config continued from
@@ -199,7 +217,12 @@ Phases of the run without arguments, each of which fails the run
      ResNet-152 on the 4 volumes (the "merlin" pipeline, 224^2 x 160,
      batch 2), uint8 pixels within 3e-2 of float, volumes/s at batch 2
      and peak memory; `serve --encoder merlin`, a 2-volume request within
-     1e-5 of run_encoders' token means;
+     1e-5 of run_encoders' token means; leg M, `run_encoders --encoder
+     siglip` on a seeded SigLIP so400m-patch14-384 over the same PNGs at
+     batch 32: K1 at d 72 27 launches a batch, the MLP (F 4,304) and the
+     MAP head plain, within 3e-2 of the plain path; the same tower under
+     pallas_int8 and pallas_int8pv (K3, K8 at d 72, 27 launches each);
+     images/s at batch 32;
  13b. the V-JEPA step at batch 2 also under the 8-bit AdamW; at batch 2
      the moments' bytes and the optimizer update's time and share of the
      step under either;
@@ -292,7 +315,12 @@ PRED_HEADS, PRED_LAYERS = 12, 12
 # leg I: the preset's micro-batch 16 and accumulation 4 cut for a smoke run
 # on 3 training volumes, as leg D's accumulation; the impls its _comment
 # recommends
-LEG_I_CUTS = {"per_device_train_batch_size": 1,
+# legs D, K and I: the encoder's depth cut from the presets' 24 layers (the
+# predictors keep theirs), to keep the script inside its time limit once
+# the ViT-H and SigLIP so400m paths came (24 until then)
+LEG_V_LAYERS = 6
+LEG_I_CUTS = {"num_hidden_layers": LEG_V_LAYERS,
+              "per_device_train_batch_size": 1,
               "gradient_accumulation_steps": 2}
 LEG_I_IMPLS = {"attn_impl": "pallas_i8bwd",
                "teacher_attn_impl": "pallas_int8"}
@@ -301,6 +329,15 @@ LEG_O_LAYERS = 6        # leg O's encoder depth cut (24 in the preset; the
 #                         predictor keeps its 12), to keep the script
 #                         inside its time limit (12 until the W8A8 phases
 #                         came)
+# the depth cuts that keep the script inside its time limit once the ViT-H
+# and SigLIP so400m paths came (full depth until then): the 2-rank phase's
+# encoders (MIM 12 -> 4, the decoder keeps its 4; V-JEPA 24 -> 6, the
+# predictor keeps its 12); the V-JEPA step parity's encoder (24 -> 12, the
+# depth PERF.md section 2's rule is set at); the LoRA parity's DINOv2-giant
+# (40 -> 8, leg F's cut). The throughput phases keep full depth.
+TWO_RANK_LAYERS = {"mim": 4, "vjepa": LEG_V_LAYERS}
+VJEPA_PARITY_LAYERS = 12
+LORA_PARITY_LAYERS = 8
 # legs D and I: the steps of the first run (a checkpoint every 2), then of
 # the resumed one
 LEG_V_STEPS = (2, 4)
@@ -359,6 +396,34 @@ SOURCES = {
                          "smb_vision_tpu/ops/attention.py:244"),
     "flash_fwd_i8pv d32": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
                            "smb_vision_tpu/ops/attention.py:244"),
+    # the forward family past the instantiations' widths: K1, K3 and K8 at
+    # head widths 72 (SigLIP so400m, leg M) and 80 (the ViT-H VideoMAE,
+    # legs N, T and U) on the d-128 instantiation, R6 writing q8 and k8 at
+    # width 128 for heads of 80, and K2 and K6 at K 1,280 (ViT-H); their
+    # launches are those legs' (`WIDTH_ROWS`)
+    "flash_fwd d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                      "smb_vision_tpu/ops/attention.py:106"),
+    "flash_fwd d80": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                      "smb_vision_tpu/ops/attention.py:106"),
+    "flash_fwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                         "smb_vision_tpu/ops/attention.py:244"),
+    "flash_fwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                         "smb_vision_tpu/ops/attention.py:244"),
+    "flash_fwd_i8pv d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                           "smb_vision_tpu/ops/attention.py:244"),
+    "flash_fwd_i8pv d80": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+                           "smb_vision_tpu/ops/attention.py:244"),
+    "quantize d80": ("smb_vision_tpu_torch/csrc/quant.cu",
+                     "smb_vision_tpu/ops/attention.py:320"),
+    "mlp_block_fwd K1280": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                            "smb_vision_tpu/ops/mlp.py:214"),
+    "mlp_fwd K1280": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                      "smb_vision_tpu/ops/mlp.py:109"),
+    # K9 at a K past 1,536 (K 2,048, at DINOv2-giant batch 2's rows): no
+    # model of the repo has a SwiGLU MLP that wide, so no path launches it
+    # and its launches stay 0; the row keeps its time, bound and chain
+    "swiglu_block_fwd K2048": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                               "smb_vision_tpu/ops/mlp.py:256"),
 }
 D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
             "flash_bwd_i8 d32": "flash_bwd_i8",
@@ -370,11 +435,35 @@ D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
 PEAK_BF16, PEAK_INT8, HBM_BYTES = 989e12, 1979e12, 3.35e12
 # readings of a kernel's time by CUDA events whose median is kept (cuda_ms)
 KERNEL_REPEATS = 5
+# SigLIP so400m-patch14-384 (google/siglip-so400m-patch14-384's config):
+# 27 layers of 16 heads of 72, MLP 4,304, 384^2 at patch 14 = 729 tokens
+SO400M = dict(image_size=384, patch_size=14, hidden_size=1152,
+              num_hidden_layers=27, num_attention_heads=16,
+              intermediate_size=4304)
+SO400M_N = 729
+# a VideoMAE at ViT-Huge widths (MCG-NJU/videomae-huge config.json: hidden
+# 1,280, 32 layers, 16 heads of 80, MLP 5,120) on the CT geometry, 512^2 x
+# 320 at 16^3 patches (MAIN_N tokens), 0.63 B parameters
+VIT_H = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
+             intermediate_size=5120)
+VIT_H_HEADS, VIT_H_D, VIT_H_K, VIT_H_F = 16, 80, 1280, 5120
+# the parity runs VIT_H_PARITY_LAYERS of the 32 layers (PERF.md section
+# 2's forward rule is set at the ViT-Base model's 12); the run_inference
+# legs and the rate run all 32
+VIT_H_PARITY_LAYERS = 12
+# the three configurations of the ViT-H path: (leg, config mlp_impl, the
+# CLI's --attn_impl, the attention kernel's wrapper, the MLP kernel's)
+VIT_H_LEGS = (("N", "auto", "auto", "flash_fwd", "mlp_block_fwd"),
+              ("T", "pallas_bwd", "pallas_int8", "flash_fwd_i8", "mlp_fwd"),
+              ("U", "auto", "pallas_int8pv", "flash_fwd_i8pv",
+               "mlp_block_fwd"))
 LOG2E = 1.4426950408889634
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a line: leg P logs from a thread beside the 2-rank phase
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def wrappers():
@@ -654,8 +743,10 @@ def phase_device() -> str:
     return card
 
 
-# the wgmma kernels by a part of their mangled names (K1 and K3 are the two
-# instantiations of flash_fwd_sm90_kernel<D, I8>; K4 and K7 run both of
+# the wgmma kernels by a part of their mangled names (K1 and K3 are the
+# instantiations of flash_fwd_sm90_kernel<D, I8, NARROW>, "narrow" those
+# that store a head narrower than D, as K8's of
+# flash_fwd_i8pv_sm90_kernel<D, NARROW>; K4 and K7 run both of
 # their passes in one kernel each; K2, K6, K5a and K9 are two products
 # each, mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K:
 # phase 1 with the spill of h for K5a, phase 2 with the residual for K2
@@ -666,14 +757,21 @@ def phase_device() -> str:
 # bf16 (HGMMA) and int8 (IGMMA), fed by TMA (UTMALDG); a kernel without
 # one of its instructions fails the build phase
 SM90_KERNELS = {
+    f"{k} d{d}{tag}": (name.format(d=d, n=n), ops) for d in (32, 64, 128)
+    for n, tag in ((0, ""), (1, " narrow"))
+    for k, name, ops in (
+        ("K1", "flash_fwd_sm90_kernelILi{d}ELb0ELb{n}E",
+         ("HGMMA", "UTMALDG")),
+        ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb{n}E",
+         ("IGMMA", "HGMMA", "UTMALDG")),
+        ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb{n}E",
+         ("IGMMA", "UTMALDG")))}
+SM90_KERNELS.update({
     f"{k} d{d}": (name.format(d=d), ops) for d in (32, 64, 128)
     for k, name, ops in (
-        ("K1", "flash_fwd_sm90_kernelILi{d}ELb0E", ("HGMMA", "UTMALDG")),
-        ("K3", "flash_fwd_sm90_kernelILi{d}ELb1E",
-         ("IGMMA", "HGMMA", "UTMALDG")),
         ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
-         ("IGMMA", "HGMMA", "UTMALDG")))}
+         ("IGMMA", "HGMMA", "UTMALDG")))})
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -685,9 +783,6 @@ SM90_KERNELS.update({
     f"K5b phase {phase}": (f"mlp_bwd_gemm_kernelILi{phase}E",
                            ("HGMMA", "UTMALDG")) for phase in (1, 2)})
 SM90_KERNELS["K10a GEMM"] = ("qkv_gemm_kernel", ("HGMMA", "UTMALDG"))
-SM90_KERNELS.update({
-    f"K8 d{d}": (f"flash_fwd_i8pv_sm90_kernelILi{d}E", ("IGMMA", "UTMALDG"))
-    for d in (32, 64, 128)})
 # the W8A8 product, w8a8_gemm_kernel<F32> (bf16 and f32 output)
 SM90_KERNELS.update({
     f"W8A8 GEMM {out}": (f"w8a8_gemm_kernelILb{f32}E", ("IGMMA", "UTMALDG"))
@@ -921,6 +1016,7 @@ def phase_kernels() -> dict:
     phase_d32_kernels(table, gen, dev)
     phase_dinov2_kernels(table, gen, dev)
     phase_glue_kernels(table, gen, dev)
+    phase_width_kernels(table, gen, dev)
     return table
 
 
@@ -1605,6 +1701,137 @@ def phase_d32_int8_path(table: dict) -> None:
     del model
 
 
+def phase_width_kernels(table: dict, gen, dev) -> None:
+    """The forward family past the instantiations' widths. K1 (out and
+    lse2), K3 and K8 at head width 72 at SigLIP so400m's shape (batch 32,
+    729 tokens, 16 heads) and at head width 80 at the ViT-H VideoMAE's
+    (MAIN_N tokens, 16 heads), each against its plain version on the same
+    inputs and codes (K3 and K8 also against float32 attention) and timed
+    beside it, K1 also beside SDPA and the exp2 floor; R6 writing q's
+    codes at width 128 for heads of 80, bit for bit the plain padded codes
+    in both layouts, timed beside the plain pass; K2 and K6 at M MAIN_N, K
+    1,280, F 5,120 against their plain versions, timed beside them and the
+    cuBLAS chain `mlp_chain`. The rows keep these times and bounds; their
+    launches are the legs'."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    for b, n, d in ((SIGLIP_BATCH, SO400M_N, 72), (1, MAIN_N, VIT_H_D)):
+        h = VIT_H_HEADS
+        q, k, v = [(torch.randn((b, n, h, d), generator=gen, device=dev)
+                    * 0.4).to(torch.bfloat16) for _ in range(3)]
+        shape = f"B={b} N={n} H={h} d={d}"
+        scale = 1.0 / math.sqrt(d)
+        r1, r3, r8 = (f"{name} d{d}" for name in (
+            "flash_fwd", "flash_fwd_i8", "flash_fwd_i8pv"))
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
+        check_kernel(table, r1, shape, out, ref, TOL_FLASH)
+        check_kernel(table, r1, shape + " lse2", lse, ref_lse, TOL_FLASH,
+                     record=False)
+        del out, lse, ref_lse
+        q8, k8, sq, sk = plain_qk(q, k, scale)
+        v8, sv = A.quantize_per_head(v)
+        ref32 = A.xla_attention(q.float(), k.float(), v.float())
+        plain3 = functools.partial(A.int8_attention_plain, q8, k8, sq, sk, v)
+        plain8 = functools.partial(A.int8pv_attention_plain, q8, k8, sq, sk,
+                                   v8, sv)
+        for name, fn, plain, f32_tol in (
+                (r3, A.flash_attention_int8, plain3, TOL_INT8_F32),
+                (r8, A.flash_attention_int8pv, plain8, TOL_INT8PV_F32)):
+            got = fn(q, k, v)
+            check_kernel(table, name, shape, got, plain(), TOL_INT8)
+            check_kernel(table, name, shape + " vs f32", got, ref32,
+                         f32_tol, record=False)
+            del got
+        del ref32
+        time_kernel(table, r1, shape, lambda: A.flash_attention(q, k, v),
+                    lambda: A.xla_attention(q, k, v), 8, True)
+        time_kernel(table, r3, shape, lambda: A.flash_attention_int8(q, k, v),
+                    lambda: A.int8_attention_plain(*plain_qk(q, k, scale), v),
+                    8, True)
+        time_kernel(table, r8, shape,
+                    lambda: A.flash_attention_int8pv(q, k, v),
+                    lambda: A.int8pv_attention_plain(
+                        *plain_qk(q, k, scale), *A.quantize_per_head(v)),
+                    8, True)
+        table[r1]["library_ms"] = sdpa_ms(q, k, v)
+        log(f"time {r1} library F.scaled_dot_product_attention {shape}: "
+            f"{table[r1]['library_ms']:.3f} ms")
+        pv = 2 * b * h * n * n * d
+        nb = attn_bytes(b, n, h, d, 4)
+        set_bound(table, r1, shape, 2 * pv, nb)
+        set_bound(table, r3, shape, pv, nb - b * h * n * 4, int8_ops=pv)
+        set_bound(table, r8, shape, 0.0, nb - b * h * n * 4,
+                  int8_ops=2 * pv)
+        rate_line(table, r1, shape, 2 * pv)
+        log(f"exp2 floor {r1} {shape}: {exp2_floor_ms(n, b * h):.3f} ms "
+            f"beside the tensor floor {table[r1]['bound_ms']:.3f} ms; the "
+            f"instantiation's tiles do {A._tile_width(d) / d:.2f}x the "
+            f"tensor work of width {d}")
+        if d == VIT_H_D:
+            quant_padded(table, q, scale * LOG2E)
+        del q, k, v, q8, k8, v8
+    torch.cuda.empty_cache()
+
+    m, kd, f = MAIN_N, VIT_H_K, VIT_H_F
+    x, lnw, lnb, w1, b1, w2, b2 = _mlp_inputs(m, gen, dev, k=kd, f=f)
+    shape, eps = f"M={m} K={kd} F={f}", 1e-12
+    kernels = {
+        "mlp_block_fwd K1280": (
+            lambda: M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, eps=eps),
+            lambda: M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, "gelu",
+                                     eps),
+            lambda: mlp_chain(x, w1, b1, w2, b2, lnw, lnb, eps), True),
+        "mlp_fwd K1280": (
+            lambda: M.mlp_fused(x, w1, b1, w2, b2),
+            lambda: M._mlp_xla(x, w1, b1, w2, b2, "gelu"),
+            lambda: mlp_chain(x, w1, b1, w2, b2), False)}
+    for name, (kernel, plain, chain, ln) in kernels.items():
+        check_kernel(table, name, shape, kernel(), plain(), TOL_MLP)
+        time_kernel(table, name, shape, kernel, plain, 20, True)
+        mlp_library(table, name, shape, chain)
+        set_bound(table, name, shape, 4 * m * kd * f,
+                  mlp_bytes(m, kd, f, ln=ln))
+        rate_line(table, name, shape, 4 * m * kd * f, "the chain's")
+    del x, w1, w2
+
+
+def quant_padded(table: dict, q, mult: float) -> None:
+    """R6 at a head width below its instantiation's (the "quantize d80"
+    row): q's codes at the instantiation's width, zeros past d, bit for bit
+    the plain padded codes (`quantize_per_head` with width) in the input's
+    layout and in K8's (`quantize_v_kernel_layout`), timed beside the
+    plain pass; its bound, one read of q and one write of the padded
+    codes."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+
+    b, n, h, d = q.shape
+    w = A._tile_width(d)
+    name, shape = "quantize d80", f"B={b} N={n} H={h} d={d} -> {w}"
+    want8, want_s = A.quantize_per_head(q, mult, width=w)
+    x8, s = A.quantize_per_head_kernel(q, mult, width=w)
+    vt, sv = A.quantize_per_head_kernel(q, mult, v_layout=True, width=w)
+    torch.cuda.synchronize()
+    same = (torch.equal(x8, want8) and torch.equal(s, want_s)
+            and torch.equal(sv, want_s)
+            and torch.equal(vt, A.quantize_v_kernel_layout(want8)))
+    log(f"{name:<14} {shape}: codes and scales bit for bit the plain "
+        f"padded pass in both layouts: {same}; zeros past d: "
+        f"{not bool(x8[..., d:].any())}")
+    if not same or bool(x8[..., d:].any()):
+        raise AssertionError(f"{name}: the padded codes differ from the "
+                             "plain pass")
+    time_kernel(table, name, shape,
+                lambda: A.quantize_per_head_kernel(q, mult, width=w),
+                lambda: A.quantize_per_head(q, mult, width=w), 20, True)
+    set_bound(table, name, shape, 0.0, b * n * h * (2 * d + w) + b * h * 4)
+
+
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
 VOL_SPACING = (3.0, 3.0, 6.0)  # smb-vision spacing (1.5, 1.5, 3) makes it
 N_VOLUMES = 4                  # exactly 512 x 512 x 320
@@ -1642,10 +1869,10 @@ def vit_base_config(root: Path, name: str, mlp_impl: str,
 
 
 def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
-            kernels: tuple, table: dict) -> Path:
-    """One run_inference over the volumes; asserts the outputs and that
-    the leg's kernels launched. Returns the output directory and the
-    launch counts of the run."""
+            kernels: tuple, table: dict, hidden: int = HIDDEN) -> Path:
+    """One run_inference over the volumes; asserts the outputs (MAIN_N
+    tokens of `hidden` a volume) and that the leg's kernels launched.
+    Returns the output directory and the launch counts of the run."""
     import numpy as np
 
     from smb_vision_tpu_torch.cli.run_inference import main as run_inference
@@ -1670,7 +1897,7 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
                              f"{(out / 'metadata.json').exists()}")
     for f in npys:
         emb = np.load(f)
-        if emb.shape != (MAIN_N, HIDDEN) or not np.isfinite(emb).all():
+        if emb.shape != (MAIN_N, hidden) or not np.isfinite(emb).all():
             raise AssertionError(f"{f.name}: shape {emb.shape}, finite "
                                  f"{bool(np.isfinite(emb).all())}")
     for name in kernels:
@@ -1678,6 +1905,176 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
             raise AssertionError(f"leg {leg}: kernel {name} never launched")
         table[name]["launches"] = counts[name]
     return out, counts
+
+
+def vit_h_config(root: Path, name: str, mlp_impl: str) -> Path:
+    """The VideoMAE at ViT-H widths (VIT_H) at 512^2 x 320, bf16, as
+    `vit_base_config` writes ViT-Base."""
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+
+    cfg = VideoMAEConfig(image_size=512, num_frames=320, patch_size=16,
+                         tubelet_size=16, dtype="bfloat16",
+                         mlp_impl=mlp_impl, **VIT_H)
+    path = root / f"{name}.json"
+    cfg.save_json(str(path))
+    return path
+
+
+def width_launches(ws: dict, name: str, d: int) -> int:
+    """The launches of wrapper `name` at head width d."""
+    return ws[name].launches_by_width.get(d, 0)
+
+
+def run_vit_h_legs(work: Path, vols: Path, table: dict) -> None:
+    """Legs N, T and U: run_inference on the 4 volumes with the VideoMAE
+    at ViT-H widths (VIT_H; the CLI initialises the weights from --seed 0
+    on the host's CPU), batch 2, in
+    the three configurations of VIT_H_LEGS: N "auto" (K1 at d 80, K2 at K
+    1,280), T --attn_impl pallas_int8 with mlp_impl pallas_bwd (K3 at d 80
+    on R6's codes at width 128, K6 at K 1,280), U --attn_impl
+    pallas_int8pv (K8 at d 80, K2). Each kernel launches once a layer and
+    batch (R6 twice, for q and k, under K3, three times under K8), the
+    plain attention never; the rows of WIDTH_ROWS take these launches."""
+    layers = VIT_H["num_hidden_layers"]
+    want = layers * N_VOLUMES // 2
+    for leg, mlp_impl, attn, fn, mlp in VIT_H_LEGS:
+        cfg = vit_h_config(work, f"leg_{leg.lower()}", mlp_impl)
+        # no kernels named to run_leg: the ViT-Base rows keep legs A's, B's
+        # and G's launches; the d-80 and K-1280 rows take these below
+        with plain_attention_calls() as plain:
+            out, counts = run_leg(work, vols, leg, cfg,
+                                  ["--attn_impl", attn], (), table,
+                                  VIT_H["hidden_size"])
+        ws = wrappers()
+        at80 = width_launches(ws, fn, VIT_H_D)
+        quant = {"flash_fwd": 0, "flash_fwd_i8": 2, "flash_fwd_i8pv": 3}[fn]
+        others = [n for n in ("flash_fwd", "flash_fwd_i8", "flash_fwd_i8pv",
+                              "mlp_block_fwd", "mlp_fwd")
+                  if n not in (fn, mlp) and counts[n]]
+        log(f"leg {leg}: ViT-H widths, {layers} layers, attn "
+            f"{attn}, mlp {mlp_impl}: {fn} at d {VIT_H_D} {at80}, {mlp} "
+            f"{counts[mlp]}, quantisation {counts['quantize']} (want {want}, "
+            f"{want}, {quant * want}); plain attention calls {plain}")
+        if at80 != want or counts[mlp] != want or others or plain \
+                or counts["quantize"] != quant * want:
+            raise AssertionError(f"leg {leg}: launches {counts}, d 80 "
+                                 f"{at80}, plain attention {plain}")
+        table[f"{fn} d{VIT_H_D}"]["launches"] = at80
+        table[f"{mlp} K{VIT_H_K}"]["launches"] = max(
+            table[f"{mlp} K{VIT_H_K}"]["launches"], counts[mlp])
+        if fn == "flash_fwd_i8":
+            table["quantize d80"]["launches"] = counts["quantize"]
+        shutil.rmtree(out)
+
+
+def seeded_vit_h(dev, layers: int, **kw):
+    """The VideoMAE at ViT-H widths on dev, bf16 unless kw says otherwise,
+    in eval mode, with weights of seed 0 initialised on the card (a CPU
+    initialisation of 0.63 B parameters takes most of a minute); the same
+    seed gives the same weights at any depth's first layers."""
+    import torch
+
+    from smb_vision_tpu_torch.models.configs import VideoMAEConfig
+    from smb_vision_tpu_torch.models.videomae import VideoMAEModel
+
+    kw.setdefault("dtype", "bfloat16")
+    cfg = VideoMAEConfig(image_size=512, num_frames=320, patch_size=16,
+                         tubelet_size=16,
+                         **{**VIT_H, "num_hidden_layers": layers}, **kw)
+    with torch.device(dev):
+        model = VideoMAEModel(cfg).to(dev)
+    return model.init_weights(torch.Generator(device=dev).manual_seed(0)
+                              ).eval()
+
+
+def set_impls(model, attn_impl: str, mlp_impl: str) -> None:
+    """Switch a built model's attention and MLP routes in place."""
+    for mod in model.modules():
+        if hasattr(mod, "attn_impl"):
+            mod.attn_impl = attn_impl
+        if hasattr(mod, "mlp_impl"):
+            mod.mlp_impl = mlp_impl
+
+
+def phase_vit_h(vols: Path, card: str) -> None:
+    """The VideoMAE at ViT-H widths. Parity: one volume (ct_0,
+    preprocessed as run_inference does) through VIT_H_PARITY_LAYERS layers
+    in each configuration of VIT_H_LEGS, the kernels against the same
+    model on their plain versions under the same impl names
+    (`plain_kernels`), and against float32 (attn and mlp "xla"): PERF.md
+    section 2's forward rule, TOL_MODEL of max and TOL_MODEL_VS_F32 times
+    the plain path's distance from float32; each kernel launches once a
+    layer. Then volumes/s at full depth (32 layers), batch 2, in each
+    configuration: CUDA events over 3 seeded batches after one warm-up."""
+    import torch
+
+    from smb_vision_tpu_torch.data.dataset import CTDataset
+    from smb_vision_tpu_torch.data.preprocess import CT_PIPELINES
+
+    dev = torch.device("cuda")
+    pipe = CT_PIPELINES["smb-vision"]
+    pipe = type(pipe)(pipe.target_spacing, (512, 512, 320))
+    ds = CTDataset(items=[{"image": str(sorted(vols.glob("*.nii"))[0])}],
+                   pipeline=pipe, device=dev)
+    px = torch.from_numpy(ds[0]["image"][None]).to(dev)
+    layers = VIT_H_PARITY_LAYERS
+    with torch.inference_mode():
+        ref32 = seeded_vit_h(dev, layers, dtype="float32", attn_impl="xla",
+                             mlp_impl="xla")(px)[0]
+        model = seeded_vit_h(dev, layers)
+        for leg, mlp_impl, attn, fn, mlp in VIT_H_LEGS:
+            set_impls(model, attn, mlp_impl)
+            ws = reset_launches()
+            out = model(px)[0].float()
+            torch.cuda.synchronize()
+            counts = {n: ws[n].launches for n in (fn, mlp)}
+            counts[f"{fn} d{VIT_H_D}"] = width_launches(ws, fn, VIT_H_D)
+            with plain_kernels():
+                ref = model(px)[0].float()
+            _, rel = errors(out, ref)
+            kern32, plain32 = errors(out, ref32)[1], errors(ref, ref32)[1]
+            log(f"ViT-H widths, {layers} of 32 layers, attn {attn}, mlp "
+                f"{mlp_impl} (leg {leg}'s): kernels vs their plain versions "
+                f"rel {rel:.3e} (bound {TOL_MODEL}); vs float32: kernels "
+                f"{kern32:.3e}, plain versions {plain32:.3e} (bound "
+                f"{TOL_MODEL_VS_F32} x plain); launches {counts}")
+            if any(c != layers for c in counts.values()):
+                raise AssertionError(f"ViT-H {attn}: launches {counts}")
+            if not rel <= TOL_MODEL or not kern32 <= TOL_MODEL_VS_F32 \
+                    * plain32:
+                raise AssertionError(f"ViT-H {attn}: rel {rel}, vs float32 "
+                                     f"{kern32} against {plain32}")
+            del out, ref
+    del model, ref32, ds, px
+    torch.cuda.empty_cache()
+
+    batch, iters = 2, 3
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.rand((batch, 320, 1, 512, 512), generator=gen,
+                          device=dev).to(torch.bfloat16)
+               for _ in range(iters + 1)]
+    model = seeded_vit_h(dev, VIT_H["num_hidden_layers"])
+    for leg, mlp_impl, attn, fn, mlp in VIT_H_LEGS:
+        set_impls(model, attn, mlp_impl)
+        with torch.inference_mode():
+            model(batches[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for x in batches[1:]:
+                model(x)
+            end.record()
+            end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        log(f"throughput ViT-H {attn} + {mlp_impl} (leg {leg}'s): "
+            f"{batch * 1e3 / ms:.3f} volumes/s ({ms:.1f} ms a batch of "
+            f"{batch}, 512x512x320, 32 layers of 16 x 80, encoder only, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) on "
+            f"{card}")
+    del model, batches
+    torch.cuda.empty_cache()
 
 
 def phase_native_loader(vols: Path) -> None:
@@ -2682,6 +3079,31 @@ LEG_P_POLICY = "fsdp"
 TOL_LEG_P = 1e-3        # the repo's learning-equivalence bound, relative
 
 
+def in_background(fn, *args):
+    """Start fn(*args) on a thread; returns a join() that waits for it,
+    raises what it raised and returns what it returned."""
+    import threading
+
+    box = {}
+
+    def body():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as err:  # re-raised by join()
+            box["err"] = err
+
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+
+    return join
+
+
 def torchrun_cmd(module: str, *argv: str, nproc: int = 1) -> list:
     return [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m", module, *argv]
@@ -2703,6 +3125,17 @@ def launch(cmd: list, log_path: Path, env=None) -> subprocess.Popen:
                             stderr=subprocess.STDOUT)
 
 
+def stop(proc: subprocess.Popen) -> None:
+    """Kill a started command that still runs, and its children (a
+    launcher's ranks)."""
+    if proc.poll() is None:
+        for pid in child_pids(proc.pid):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        proc.kill()
+        proc.wait()
+
+
 def finish(proc: subprocess.Popen, log_path: Path, what: str,
            timeout: float = 600) -> None:
     """Wait for a started command; on a failure or a timeout stop it and
@@ -2710,8 +3143,7 @@ def finish(proc: subprocess.Popen, log_path: Path, what: str,
     try:
         rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        stop(proc)
         rc = "timeout"
     if rc != 0:
         raise AssertionError(f"{what}: exit {rc}\n"
@@ -2738,12 +3170,14 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
     """Leg P, the launcher path: `python -m torch.distributed.run
     --standalone --nproc_per_node 1 -m smb_vision_tpu_torch.cli.run_mim`
     with leg C's preset, volumes, seed and flags under --sharding_policy
-    fsdp (NCCL, FSDP2 over a data axis of 1): 4 straight steps, and in a
-    second directory 4 steps stopped by a SIGTERM to the rank after step
-    2 and resumed. The straight run's losses against leg C's (1e-3
-    relative), its export against leg C's 4-step export (1e-3 of each
-    tensor's max); the resumed run's checkpoint and export byte for byte
-    the straight run's. Returns the step records and walls."""
+    fsdp (NCCL, FSDP2 over a data axis of 1): 4 straight steps, and at
+    the same time, in a second directory, 4 steps stopped by a SIGTERM to
+    the rank after step 2 and resumed. The straight run's losses against
+    leg C's (1e-3 relative), its export against leg C's 4-step export
+    (1e-3 of each tensor's max); the resumed run's checkpoint and export
+    byte for byte the straight run's. The runs share the card with each
+    other (and `main` runs the 2-rank phase beside them), so their step
+    times are no speed. Returns the step records and the wall."""
     import numpy as np
 
     from smb_vision_tpu_torch.models.convert import read_safetensors
@@ -2761,35 +3195,50 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
         return path
 
     cmd = functools.partial(torchrun_cmd, "smb_vision_tpu_torch.cli.run_mim")
-    walls = {}
-    t0 = time.perf_counter()
-    proc = launch(cmd(str(config("a"))), work / "leg_p_a.log", env)
-    finish(proc, work / "leg_p_a.log", "leg P, the straight run")
-    walls["straight"] = time.perf_counter() - t0
-    # the stopped run: SIGTERM to the rank once step 2 is logged
-    b = work / "leg_p_b"
-    t0 = time.perf_counter()
-    proc = launch(cmd(str(config("b"))), work / "leg_p_b1.log", env)
-    sent = None
-    while proc.poll() is None and sent is None:
-        time.sleep(0.2)
-        recs = (b / "metrics.jsonl").read_text().splitlines() \
-            if (b / "metrics.jsonl").exists() else []
-        if any(json.loads(r).get("step", 0) >= 2 for r in recs):
-            ranks = child_pids(proc.pid)
-            for pid in ranks:
-                os.kill(pid, signal.SIGTERM)
-            sent = ranks
-    finish(proc, work / "leg_p_b1.log", "leg P, the stopped run")
     from smb_vision_tpu_torch.train.trainer import Trainer
 
-    stopped = Trainer.checkpoint_steps(b / "checkpoints")
-    if not sent or not stopped or stopped[-1] >= 4:
-        raise AssertionError(f"leg P: SIGTERM to {sent}, checkpoints "
-                             f"{stopped}: the run did not stop early")
-    proc = launch(cmd(str(config("b"))), work / "leg_p_b2.log", env)
-    finish(proc, work / "leg_p_b2.log", "leg P, the resumed run")
-    walls["stopped + resumed"] = time.perf_counter() - t0
+    b = work / "leg_p_b"
+
+    def logged_step() -> int:
+        """The last step in the stopped run's metrics.jsonl (a line
+        still being written is skipped)."""
+        steps = [0]
+        with contextlib.suppress(OSError):
+            for line in (b / "metrics.jsonl").read_text().splitlines():
+                with contextlib.suppress(ValueError):
+                    steps.append(json.loads(line).get("step", 0))
+        return max(steps)
+
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        # the straight run and the stopped one at once: SIGTERM to the
+        # stopped run's rank once its step 2 is logged
+        straight = launch(cmd(str(config("a"))), work / "leg_p_a.log", env)
+        procs.append(straight)
+        proc = launch(cmd(str(config("b"))), work / "leg_p_b1.log", env)
+        procs.append(proc)
+        sent = None
+        while proc.poll() is None and sent is None:
+            time.sleep(0.2)
+            if logged_step() >= 2:
+                ranks = child_pids(proc.pid)
+                for pid in ranks:
+                    os.kill(pid, signal.SIGTERM)
+                sent = ranks
+        finish(proc, work / "leg_p_b1.log", "leg P, the stopped run")
+        stopped = Trainer.checkpoint_steps(b / "checkpoints")
+        if not sent or not stopped or stopped[-1] >= 4:
+            raise AssertionError(f"leg P: SIGTERM to {sent}, checkpoints "
+                                 f"{stopped}: the run did not stop early")
+        proc = launch(cmd(str(config("b"))), work / "leg_p_b2.log", env)
+        procs.append(proc)
+        finish(proc, work / "leg_p_b2.log", "leg P, the resumed run")
+        finish(straight, work / "leg_p_a.log", "leg P, the straight run")
+    finally:
+        for proc in procs:
+            stop(proc)
+    wall = time.perf_counter() - t0
     a = work / "leg_p_a"
     recs = [json.loads(x) for x in
             (a / "metrics.jsonl").read_text().splitlines()]
@@ -2802,7 +3251,7 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
         worst = max(worst, rel)
         log(f"leg P step {r['step']}: loss {r['loss']:.6f} (leg C "
             f"{c['loss']:.6f}, rel {rel:.3e}), {r['step_time_ms']:.1f} ms "
-            f"(leg C {c['step_time_ms']:.1f}), peak "
+            f"beside the other runs (leg C {c['step_time_ms']:.1f}), peak "
             f"{r.get('peak_memory_mib', math.nan):.0f} MiB (leg C "
             f"{c.get('peak_memory_mib', math.nan):.0f})")
     if [r["step"] for r in train] != [1, 2, 3, 4] or not worst <= TOL_LEG_P:
@@ -2829,11 +3278,11 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
         f"torch.distributed.run): worst step loss rel {worst:.3e} to leg C, "
         f"export rel {export_rel:.3e}; stopped by SIGTERM at step "
         f"{stopped[-1]}, resumed: checkpoint ({n_files} shard files) and "
-        f"export byte for byte the straight run's; wall {walls['straight']:.1f} s "
-        f"straight, {walls['stopped + resumed']:.1f} s stopped + resumed "
-        f"(each with torch.distributed.run's start, preprocessing, eval and "
-        f"saves); leg C's 4 steps {leg_c['wall']:.1f} s in process")
-    return {"records": train, "walls": walls}
+        f"export byte for byte the straight run's; wall {wall:.1f} s for "
+        f"the straight run beside the stopped and resumed ones (each with "
+        f"torch.distributed.run's start, preprocessing, eval and saves); "
+        f"leg C's 4 steps {leg_c['wall']:.1f} s in process")
+    return {"records": train, "wall": wall}
 
 
 # two ranks on the one card: the Trainer API on a gloo group the script
@@ -2950,7 +3399,8 @@ def expected_launches(mode: tuple, cfg) -> dict:
 
 
 def two_rank_steps(mode: tuple) -> dict:
-    """TWO_RANK_STEPS steps of `mode`'s workload at full width, placed by
+    """TWO_RANK_STEPS steps of `mode`'s workload at full width (the
+    encoder's depth TWO_RANK_LAYERS), placed by
     the Trainer under its policy (one device without a process group),
     this rank on its rows of the same seeded global batches
     (TWO_RANK_BATCH volumes) and masks (and DropPath generator). Returns
@@ -2971,7 +3421,8 @@ def two_rank_steps(mode: tuple) -> dict:
     dev = torch.device("cuda", 0)
     sp = {} if variant is None else {"sequence_parallel": True,
                                      "sp_variant": variant}
-    cfg, preset = (mim_config if family == "mim" else vjepa_config)(**sp)
+    cfg, preset = (mim_config if family == "mim" else vjepa_config)(
+        num_hidden_layers=TWO_RANK_LAYERS[family], **sp)
     tx = functools.partial(make_optimizer,
                            learning_rate=preset.get("learning_rate", 5e-5),
                            total_steps=TWO_RANK_STEPS)
@@ -3108,12 +3559,14 @@ def check_zero_cotangent() -> None:
 
 
 def phase_two_ranks(work: Path, card: str) -> dict:
-    """The full-width MIM step on 2 ranks of the one card under dp, fsdp
-    and tp (model_parallel 2), sequence parallel ("gather" and "ring",
-    the tokens over a model axis of 2) and pipelined (2 stages x 2
-    microbatches), and the V-JEPA preset's step under the ring and the
-    pipeline, each against this process fed the global batch on one
-    device: each step's loss within 1e-3 relative; each parameter's
+    """The full-width MIM step (the encoder cut to TWO_RANK_LAYERS["mim"]
+    layers) on 2 ranks of the one card under dp, fsdp and tp
+    (model_parallel 2), sequence parallel ("gather" and "ring", the
+    tokens over a model axis of 2) and pipelined (2 stages x 2
+    microbatches), and the V-JEPA preset's step (its encoder cut to
+    TWO_RANK_LAYERS["vjepa"]) under the ring and the pipeline, each
+    against this process fed the global batch on one device: each step's
+    loss within 1e-3 relative; each parameter's
     gradient norm a step (the clip's, after the sync) within
     TOL_TWO_RANK_GRADS (`grad_gap`), which a gradient wrong by a factor (a
     missing or doubled model-axis sum, a stage's broadcast counted twice)
@@ -3135,7 +3588,8 @@ def phase_two_ranks(work: Path, card: str) -> dict:
             raise AssertionError(f"{mode[0]}: launches {ref['launches']}, "
                                  f"expected {ref['expected']}")
         log(f"2 ranks, {family} in one process on the global batch "
-            f"({TWO_RANK_BATCH} volumes): losses {ref['losses']}, step ms "
+            f"({TWO_RANK_BATCH} volumes; the encoder "
+            f"{TWO_RANK_LAYERS[family]} layers deep): losses {ref['losses']}, step ms "
             f"{[round(t, 1) for t in ref['step_ms']]}, peak "
             f"{ref['peak_mib']:.0f} MiB, launches a step {ref['launches']}")
     procs = []
@@ -3534,7 +3988,8 @@ def check_vjepa_launches(what: str, counts: dict) -> None:
 
 
 def phase_vjepa_parity(ref: bool = False) -> None:
-    """One V-JEPA step of the preset (forward, backward, AdamW update, EMA)
+    """One V-JEPA step of the preset (forward, backward, AdamW update, EMA;
+    the encoder cut to VJEPA_PARITY_LAYERS layers, the predictor whole)
     at batch 1 on one seeded volume and target mask, from the same seeded
     weights: through the kernels, through their plain versions under the
     same impl names (`plain_kernels`), and in float32 with the plain
@@ -3553,7 +4008,8 @@ def phase_vjepa_parity(ref: bool = False) -> None:
     impl = {"attn_impl": LEG_I_IMPLS["attn_impl"]} if ref else {}
 
     def config(**kw):
-        return (vjepa_ref_config if ref else vjepa_config)(**{**impl, **kw})
+        return (vjepa_ref_config if ref else vjepa_config)(**{
+            **impl, "num_hidden_layers": VJEPA_PARITY_LAYERS, **kw})
 
     cfg0, preset = config()
     teacher_impl = LEG_I_IMPLS["teacher_attn_impl"] if ref else preset[
@@ -3619,7 +4075,8 @@ def phase_vjepa_parity(ref: bool = False) -> None:
     k_err = float((k_grad - f_grad).norm()) / norm
     p_err = float((p_grad - f_grad).norm()) / norm
     rel_loss = abs(k_loss - p_loss) / abs(p_loss)
-    log(f"V-JEPA parity, one step of {path.name} at batch 1 "
+    log(f"V-JEPA parity, one step of {path.name} (the encoder "
+        f"{cfg0.num_hidden_layers} layers deep) at batch 1 "
         f"({int(mask.sum())} of {VJ_N} tokens are targets): loss kernels "
         f"{k_loss:.6f}, plain versions {p_loss:.6f}, f32 {f_loss:.6f}; rel "
         f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32 "
@@ -3747,10 +4204,12 @@ def run_vjepa_leg(work: Path, vols: Path, leg: str, preset_path: Path,
 
 def run_leg_d(work: Path, vols: Path, table: dict) -> None:
     """Leg D: `run_vjepa_leg` with configs/vjepa_large_384_tpu.json,
-    accumulation cut to LEG_D_ACCUM, and --export_hf (leg K starts from
+    accumulation cut to LEG_D_ACCUM and the encoder to LEG_V_LAYERS
+    layers, and --export_hf (leg K starts from
     that export); the V-JEPA kernels launch, K4 not."""
     counts = run_vjepa_leg(work, vols, "D", VJEPA_PRESET,
-                           {"gradient_accumulation_steps": LEG_D_ACCUM},
+                           {"num_hidden_layers": LEG_V_LAYERS,
+                            "gradient_accumulation_steps": LEG_D_ACCUM},
                            export_hf=True)
     check_vjepa_launches("leg D", counts)
     table["flash_bwd_i8"]["launches"] = counts["flash_bwd_i8"]
@@ -3758,7 +4217,8 @@ def run_leg_d(work: Path, vols: Path, table: dict) -> None:
 
 def run_leg_k(work: Path, vols: Path, table: dict) -> None:
     """Leg K, continued V-JEPA pretraining from an HF-layout export:
-    run_vjepa with leg D's config (accumulation LEG_D_ACCUM),
+    run_vjepa with leg D's config (accumulation LEG_D_ACCUM, the encoder
+    at LEG_V_LAYERS layers),
     --model_name_or_path leg D's hf_model.safetensors, --input_dtype
     uint8 --device_cache, 2 steps. Asserts: every student tensor loaded
     and none of the student skipped; the EMA teacher starts equal to the
@@ -3778,6 +4238,7 @@ def run_leg_k(work: Path, vols: Path, table: dict) -> None:
     path = work / "vjepa_K.json"
     path.write_text(json.dumps(dict(
         json.loads(VJEPA_PRESET.read_text()),
+        num_hidden_layers=LEG_V_LAYERS,
         gradient_accumulation_steps=LEG_D_ACCUM, data_path=str(spec),
         output_dir=str(out), num_train_steps=2, save_steps=2,
         save_total_limit=1, logging_steps=1, num_workers=2,
@@ -3928,8 +4389,8 @@ def parent_routing():
     from smb_vision_tpu_torch.ops import attention as A
 
     auto = A._auto_impl
-    A._auto_impl = lambda q, bias: "xla" if q.shape[-1] == 32 else auto(
-        q, bias)
+    A._auto_impl = lambda q, bias, grad=False: (
+        "xla" if q.shape[-1] == 32 else auto(q, bias, grad))
     try:
         yield
     finally:
@@ -4078,10 +4539,9 @@ DINO_N = 1961           # 14 * 14 * 10 patches + CLS
 # either library: the loss gap of one step at random weights varies with
 # the seed, so one seed cannot tell a kernel's bias from chance
 DINO_PARITY_SEEDS = (0, 1, 2)
-# K9's three passes in a profile: the LayerNorm rows at K 1,536, the gated
-# product and the second product (K2's, which the DINOv2 model runs only
-# for K9)
-K9_KERNELS = ("ln_rows_kernel<1536>", "mlp_gemm_kernel<3, false>",
+# K9's three passes in a profile: the LayerNorm rows, the gated product and
+# the second product (K2's, which the DINOv2 model runs only for K9)
+K9_KERNELS = ("ln_rows_any_kernel", "mlp_gemm_kernel<3, false>",
               "mlp_gemm_kernel<2, true>")
 GIANT_HEADS, GIANT_K, GIANT_F = 24, 1536, 4096
 LEG_F_LAYERS = 8        # leg F's depth cut: one checkpoint is ~2.8 GB
@@ -4098,8 +4558,9 @@ def giant_config(**kw):
 def phase_dinov2_kernels(table: dict, gen, dev) -> None:
     """K9 against its plain version (the kernel's numerics) and the bf16
     cuBLAS chain `_swiglu_block_xla` at DINOv2-giant batch 2 (M 3,922),
-    the DINOv2-base shape (M 20,480, K 768, F 2,048) and the ragged batch
-    1 (M 1,961), timed beside both (the chain is its library_ms); its
+    the DINOv2-base shape (M 20,480, K 768, F 2,048), the ragged batch 1
+    (M 1,961) and K 2,048 (F 5,504, batch 2's rows: the row "swiglu_block_fwd
+    K2048"), timed beside both (the chain is its library_ms); its
     gradients through the recompute at batch 2; the register and spill
     report of its gated product. Then K1 and K4 at N 1,961, 24 heads of
     64, batch 2, against theirs."""
@@ -4115,31 +4576,35 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
         return torch.randn(shape, generator=gen, device=dev) * s
 
     names = ("dx", "dlnw", "dlnb", "dw_in", "db_in", "dw_out", "db_out")
+    # and one K past the DINOv2-giant width (K9 takes any multiple of 128
+    # since the runtime-K LayerNorm pass), at giant batch 2's rows
     for m, k, f, label in ((2 * DINO_N, GIANT_K, GIANT_F, "giant batch 2"),
                            (MAIN_N, HIDDEN, 2048, "base shape"),
-                           (DINO_N, GIANT_K, GIANT_F, "giant batch 1")):
+                           (DINO_N, GIANT_K, GIANT_F, "giant batch 1"),
+                           (2 * DINO_N, 2048, 5504, "K past 1,536")):
         args = (r(m, k).to(torch.bfloat16), 1.0 + r(k, s=0.1), r(k, s=0.1),
                 r(2 * f, k, s=k ** -0.5).to(torch.bfloat16).t(),
                 r(2 * f, s=0.1), r(k, f, s=f ** -0.5).to(torch.bfloat16).t(),
                 r(k, s=0.1))
         what = f"M={m} K={k} F={f}"
+        row = f"swiglu_block_fwd K{k}" if k > GIANT_K else "swiglu_block_fwd"
         y = M.swiglu_block_fused(*args, eps=1e-6)
-        check_kernel(table, "swiglu_block_fwd", what, y,
+        check_kernel(table, row, what, y,
                      M._swiglu_block_plain(*args, 1e-6), TOL_MLP)
-        check_kernel(table, "swiglu_block_fwd", what + " vs bf16 chain", y,
+        check_kernel(table, row, what + " vs bf16 chain", y,
                      M._swiglu_block_xla(*args, 1e-6), TOL_MLP, record=False)
         kernel = functools.partial(M.swiglu_block_fused, *args, eps=1e-6)
         plain = functools.partial(M._swiglu_block_plain, *args, 1e-6)
         chain = functools.partial(M._swiglu_block_xla, *args, 1e-6)
         nbytes = mlp_bytes(m, k, f, n_w=3, ln=True)
         kernel_split(f"swiglu_block_fwd {what}", kernel)
+        if label in ("giant batch 2", "K past 1,536"):
+            time_kernel(table, row, f"{label} {what}", kernel, plain, 10,
+                        True)
+            mlp_library(table, row, f"{label} {what}", chain)
+            set_bound(table, row, what, 6 * m * k * f, nbytes)
+            rate_line(table, row, what, 6 * m * k * f, "the chain's")
         if label == "giant batch 2":
-            time_kernel(table, "swiglu_block_fwd", f"{label} {what}", kernel,
-                        plain, 10, True)
-            mlp_library(table, "swiglu_block_fwd", f"{label} {what}", chain)
-            set_bound(table, "swiglu_block_fwd", what, 6 * m * k * f, nbytes)
-            rate_line(table, "swiglu_block_fwd", what, 6 * m * k * f,
-                      "the chain's")
             g = r(m, k)
 
             def grads(impl):
@@ -4151,7 +4616,7 @@ def phase_dinov2_kernels(table: dict, gen, dev) -> None:
             for name, a, b in zip(names, grads("pallas"), grads("xla")):
                 check_kernel(table, "swiglu_block_fwd", f"{what} {name}", a,
                              b, TOL_MLP_TRAIN, record=False)
-        else:
+        elif label != "K past 1,536":
             mlp_beside_chain("swiglu_block_fwd", f"{label} {what}", kernel,
                              plain, chain, m, k, f, nbytes, products=3)
         del args, y
@@ -4862,15 +5327,16 @@ def run_leg_l(work: Path, vols: Path, spec: Path) -> None:
 
 
 def lora_parity(seed: int, zero: bool = True) -> dict:
-    """LoRA steps on DINOv2-giant (forward and backward, remat, no
-    update) at batch 2, rank 8 on the default targets, the same weights,
+    """LoRA steps on DINOv2-giant (its depth cut to LORA_PARITY_LAYERS;
+    forward and backward, remat, no update) at batch 2, rank 8 on the
+    default targets, the same weights,
     adapters and batch through the kernels, through their plain versions
     under the same impl names and in float32: with `zero`, the first step
     of a run (the adapters as `init_lora` makes them, A drawn from the
     seed, B = 0); then, on the same model, B drawn from N(0, LORA_B_STD)
     (the same draw on every path), so that the merge changes every
-    adapted weight and A gets a gradient. K9 launches 40 times a forward
-    (80 with remat) and the plain path launches none; at B = 0 every A
+    adapted weight and A gets a gradient. K9 launches once a layer a
+    forward (twice with remat) and the plain path launches none; at B = 0 every A
     gets a zero gradient and every B a finite one. Returns the losses and
     the adapters' gradients' errors against float32 of each step ("B =
     0": B's; "B drawn": A's and B's)."""
@@ -4886,12 +5352,14 @@ def lora_parity(seed: int, zero: bool = True) -> dict:
     dev = torch.device("cuda")
     batch = dinov2_batch(2, 6 + seed, dev)
     with torch.device(dev):
-        init = Dinov2ForImageClassification(giant_config()).init_weights(
+        init = Dinov2ForImageClassification(giant_config(
+            num_hidden_layers=LORA_PARITY_LAYERS)).init_weights(
             torch.Generator(device=dev).manual_seed(seed)).state_dict()
 
     def step(**kw):
         with torch.device(dev):
-            model = Dinov2ForImageClassification(giant_config(**kw))
+            model = Dinov2ForImageClassification(giant_config(
+                num_hidden_layers=LORA_PARITY_LAYERS, **kw))
         model.load_state_dict(init)
         gen = torch.Generator(device=dev).manual_seed(100 + seed)
         lora.init_lora(model, gen, rank=LORA_RANK)
@@ -4926,7 +5394,7 @@ def lora_parity(seed: int, zero: bool = True) -> dict:
     ws = reset_launches()
     k_zero, drawn, n_adapters = step()
     counts = {name: w.launches for name, w in ws.items()}
-    layers = GIANT["num_hidden_layers"]
+    layers = LORA_PARITY_LAYERS
     if counts["swiglu_block_fwd"] != (4 if zero else 2) * layers or not (
             counts["flash_fwd"] > 0 and counts["flash_bwd"] > 0):
         raise AssertionError(f"LoRA steps: launches {counts}")
@@ -4950,7 +5418,8 @@ def lora_parity(seed: int, zero: bool = True) -> dict:
             "rel loss": abs(loss - p_loss) / abs(p_loss),
             "grad err": float((grad - f_grad).norm()) / norm,
             "plain grad err": float((p_grad - f_grad).norm()) / norm}
-        log(f"LoRA parity, seed {seed}, {what}: DINOv2-giant, rank "
+        log(f"LoRA parity, seed {seed}, {what}: DINOv2-giant at "
+            f"{LORA_PARITY_LAYERS} layers, rank "
             f"{LORA_RANK}, {n_adapters} adapter parameters, batch 2 (N "
             f"{DINO_N}): loss kernels {loss:.6f}, plain {p_loss:.6f}, f32 "
             f"{f_loss:.6f} (rel {got['rel loss']:.3e}); the adapters' "
@@ -5120,10 +5589,14 @@ def run_leg_o(work: Path, vols: Path) -> None:
     shutil.rmtree(straight)
 
 
-def siglip_base(root: Path, seed: int = 0) -> Path:
-    """A seeded SigLIP-base-patch16-384 (the config's defaults) written as
-    an HF checkpoint directory: config.json and model.safetensors
-    (`export_hf_siglip`, `vision_model.*`)."""
+def siglip_base(root: Path, seed: int = 0, name: str = "siglip_base",
+                dev: str = "cpu", **widths) -> Path:
+    """A seeded SigLIP-base-patch16-384 (the config's defaults; `widths`
+    set others, as SO400M does) written as an HF checkpoint directory
+    under `name`: config.json and model.safetensors (`export_hf_siglip`,
+    `vision_model.*`); the weights initialised on `dev` (the card takes
+    so400m's 0.43 B parameters in a moment, the host's CPU in tens of
+    seconds)."""
     import torch
 
     from smb_vision_tpu_torch.models.configs import SiglipVisionConfig
@@ -5133,10 +5606,11 @@ def siglip_base(root: Path, seed: int = 0) -> Path:
     )
     from smb_vision_tpu_torch.models.siglip import SiglipVisionModel
 
-    cfg = SiglipVisionConfig()
-    model = SiglipVisionModel(cfg).init_weights(
-        torch.Generator().manual_seed(seed))
-    ckpt = root / "siglip_base"
+    cfg = SiglipVisionConfig(**widths)
+    with torch.device(dev):
+        model = SiglipVisionModel(cfg).to(dev).init_weights(
+            torch.Generator(device=dev).manual_seed(seed)).cpu()
+    ckpt = root / name
     ckpt.mkdir()
     write_safetensors(ckpt / "model.safetensors",
                       export_hf_siglip(model.state_dict()))
@@ -5199,7 +5673,7 @@ def encode_rate(label: str, card: str, encode, px, n_items: int,
     return ms, n_items * 1e3 / ms, mem
 
 
-def run_leg_z(work: Path, vols: Path, card: str) -> None:
+def run_leg_z(work: Path, vols: Path, card: str, table: dict) -> None:
     """Leg Z, the encoder zoo on the card.
     1. SigLIP: `run_encoders --encoder siglip` on a seeded export of
        SigLIP-base-patch16-384 over SIGLIP_IMAGES seeded PNGs at batch 32:
@@ -5282,6 +5756,7 @@ def run_leg_z(work: Path, vols: Path, card: str) -> None:
                 SIGLIP_BATCH)
     del enc, pxs
     torch.cuda.empty_cache()
+    run_leg_m(work, items, manifest, card, table)
 
     # 2. Merlin
     mckpt = merlin_resnet152(work)
@@ -5354,30 +5829,130 @@ def run_leg_z(work: Path, vols: Path, card: str) -> None:
     shutil.rmtree(mout)
 
 
+def run_leg_m(work: Path, items: list, manifest: Path, card: str,
+              table: dict) -> None:
+    """Leg M, SigLIP so400m-patch14-384 (SO400M: 27 layers of 16 heads of
+    72, MLP 4,304, 729 tokens), seeded and exported as `siglip_base`
+    exports SigLIP-base: `run_encoders --encoder siglip` over leg Z's
+    SIGLIP_IMAGES PNGs at batch 32. K1 launches at d 72 27 times a batch;
+    the MLP (F 4,304, no multiple of 32) and the MAP head run plain, as in
+    the JAX package, so K2 and K6 never launch and the plain attention
+    runs only in the head. Every vector within TOL_MODEL of max of the
+    same model on `plain_kernels`. Then the same tower under "pallas_int8"
+    (K3) and "pallas_int8pv" (K8) on one batch: 27 launches each at d 72,
+    within TOL_MODEL of their plain versions. Then images/s at batch 32."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from smb_vision_tpu_torch.cli.run_encoders import main as run_encoders
+    from smb_vision_tpu_torch.data.image2d import Image2DDataset
+    from smb_vision_tpu_torch.inference.encoders import SiglipEncoder
+
+    dev = torch.device("cuda")
+    layers, d = SO400M["num_hidden_layers"], 72
+    ckpt = siglip_base(work, name="siglip_so400m", dev="cuda", **SO400M)
+    out = work / "emb_so400m"
+    ws = reset_launches()
+    t0 = time.perf_counter()
+    with plain_attention_calls() as plain:
+        stats = run_encoders(["--encoder", "siglip", "--checkpoint",
+                              str(ckpt), "--input_json", str(manifest),
+                              "--output_dir", str(out), "--batch_size",
+                              str(SIGLIP_BATCH), "--num_workers", "4"])
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in ws.items() if w.launches}
+    at72 = width_launches(ws, "flash_fwd", d)
+    batches = SIGLIP_IMAGES // SIGLIP_BATCH
+    log(f"leg M SigLIP so400m-patch14-384 ({SO400M_N} tokens, {layers} x 16 "
+        f"heads of {d}, MLP 4,304): run_encoders {stats} in {wall:.1f} s; "
+        f"launches {counts}, K1 at d {d} {at72}; plain attention calls by "
+        f"head width {plain}")
+    if stats != {"embedded": SIGLIP_IMAGES, "failed": 0, "skipped": 0} or \
+            at72 != layers * batches or counts != {"flash_fwd": at72} or \
+            plain.get(d, 0) != batches:
+        raise AssertionError(f"leg M: {stats}, launches {counts}, plain "
+                             f"attention {plain} (the MAP head's one a "
+                             "batch)")
+    table["flash_fwd d72"]["launches"] = at72
+    got = np.stack([np.asarray(pd.read_parquet(
+        out / "model_id=siglip" / f"{it['uid']}.parquet").iloc[0][
+        "embedding"]) for it in items])
+    enc = SiglipEncoder(str(ckpt), device="cuda")
+    enc.setup_model()
+    ds = Image2DDataset(items, image_size=enc.image_size)
+    px = np.stack([ds[i]["image"] for i in range(SIGLIP_IMAGES)])
+    with plain_kernels():
+        ref = np.concatenate([
+            enc.generate_embedding(px[i:i + SIGLIP_BATCH])
+            for i in range(0, SIGLIP_IMAGES, SIGLIP_BATCH)])
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"leg M: vectors vs the plain path max|d|/max|ref| {err:.3e} (bound "
+        f"{TOL_MODEL})")
+    if not (err <= TOL_MODEL and np.isfinite(got).all()):
+        raise AssertionError(f"leg M: {err}")
+    batch = torch.from_numpy(px[:SIGLIP_BATCH]).to(dev)
+    tower = enc.model
+    for impl, name in (("pallas_int8", "flash_fwd_i8"),
+                       ("pallas_int8pv", "flash_fwd_i8pv")):
+        for mod in tower.encoder.modules():
+            if hasattr(mod, "attn_impl"):
+                mod.attn_impl = impl
+        ws = reset_launches()
+        with torch.inference_mode():
+            vec = tower(batch)[1].float()
+            torch.cuda.synchronize()
+            n8 = width_launches(ws, name, d)
+            with plain_kernels():
+                vref = tower(batch)[1].float()
+        _, rel = errors(vec, vref)
+        log(f"leg M, the so400m tower under {impl}: {name} at d {d} {n8}; "
+            f"pooled vectors vs the plain versions rel {rel:.3e} (bound "
+            f"{TOL_MODEL})")
+        if n8 != layers or not rel <= TOL_MODEL:
+            raise AssertionError(f"leg M {impl}: launches {n8}, rel {rel}")
+        table[f"{name} d{d}"]["launches"] = n8
+    for mod in tower.encoder.modules():
+        if hasattr(mod, "attn_impl"):
+            mod.attn_impl = "auto"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pxs = [torch.randn((SIGLIP_BATCH, 3, 384, 384), generator=gen,
+                       device=dev) for _ in range(4)]
+    encode_rate(f"SigLIP so400m batch {SIGLIP_BATCH}", card, enc.encode, pxs,
+                SIGLIP_BATCH)
+    del enc, tower, pxs, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+    shutil.rmtree(ckpt)
+
+
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K4 and K7 at d 32, 64 and 128, K3 and K8 at 64 and 128 (their d-32
-# instantiations are new) by a part of their mangled names (this tree's,
-# the other's), and every kernel of the MLP forward and backward and the
-# glue sources (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a and its
-# row pass, K10b) by its whole name, but any kernel this tree adds there
-# (NEW_KERNELS); the quantisation source gains W8A8's row kernel, and the
-# W8A8 product's source is new
+# K3, K4, K7 and K8 at d 32, 64 and 128 by a part of their mangled names
+# (this tree's, the other's: K1, K3 and K8 gained the NARROW template
+# parameter, whose false instantiation is the parent's kernel), and every
+# kernel of the MLP forward and backward and the glue sources (K2, K6,
+# K5a, K9 and their LayerNorm pass, K5b, K10a and its row pass, K10b) by
+# its whole name, but any kernel this tree adds there (NEW_KERNELS: the
+# LayerNorm pass of K2 and K9, which reads K at run time where the
+# parent's was compiled per K); R6 writes its codes at a run-time width.
+# The SASS of these two changes: their outputs are compared bit for bit
+# and their times in turns (the LayerNorm pass's device time from the
+# profiler)
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (32, 64, 128)
              for k, this, other in (
-                 ("K1", "flash_fwd_sm90_kernelILi{d}ELb0EE",
+                 ("K1", "flash_fwd_sm90_kernelILi{d}ELb0ELb0EE",
                   "flash_fwd_sm90_kernelILi{d}ELb0EE"),
-                 ("K3", "flash_fwd_sm90_kernelILi{d}ELb1EE",
+                 ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb0EE",
                   "flash_fwd_sm90_kernelILi{d}ELb1EE"),
                  ("K4", "flash_bwd_sm90_kernelILi{d}EE",
                   "flash_bwd_sm90_kernelILi{d}EE"),
                  ("K7", "flash_bwd_i8_sm90_kernelILi{d}EE",
                   "flash_bwd_i8_sm90_kernelILi{d}EE"),
-                 ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}EE",
-                  "flash_fwd_i8pv_sm90_kernelILi{d}EE"))
-             if d != 32 or k not in ("K3", "K8")}
+                 ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb0EE",
+                  "flash_fwd_i8pv_sm90_kernelILi{d}EE"))}
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
-NEW_KERNELS: tuple = ()
+NEW_KERNELS: tuple = ("ln_rows_any_kernel",)
 
 
 def _anon(name: str) -> str:
@@ -5402,20 +5977,25 @@ def compare_sass(sass: dict) -> None:
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
     log(f"against: SASS of the MLP forward and backward and the glue "
-        f"kernels (K2, K6, K5a, K9, K5b, K10a, K10b): {len(same)} of "
+        f"kernels (K2, K6, K5a, K9, K5b, K10a, K10b; not the LayerNorm "
+        f"pass of K2 and K9, {', '.join(NEW_KERNELS)}): {len(same)} of "
         f"{len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
 
 def unchanged_outputs(dev) -> tuple:
-    """The outputs of the UNCHANGED kernels on seeded inputs, through their
-    wrappers (K3, K7 and K8 with their quantisation): K1, K3 and K8 at d
-    64 and 128, K4 at the MIM encoder's shape and at the V-JEPA encoder's
-    (d 128), K7 at the V-JEPA encoder's and the reference-head encoder's (d
-    64), K1, K4 and K7 at the reference-head predictor's (d 32), K2, K6 and
-    K5a at the embed shape, K5b at the MIM encoder's, K9 at DINOv2-giant
-    batch 1 and K10a and K10b at the embed shape."""
+    """The outputs of the kernels at the widths they took before the
+    runtime widths, on seeded inputs, through their wrappers (K3, K7 and
+    K8 with their quantisation): K1, K3 and K8 at d 64 and 128, K4 at the
+    MIM encoder's shape and at the V-JEPA encoder's (d 128), K7 at the
+    V-JEPA encoder's and the reference-head encoder's (d 64), K1, K4, K7,
+    K3 and K8 at the reference-head predictor's (d 32), K2, K6 and K5a at
+    the embed shape, K5b at the MIM encoder's, K2 and K6 at K 1,024 (the
+    V-JEPA encoder's MLP), K9 at DINOv2-giant batch 1 (K 1,536), K10a
+    and K10b at the embed shape, and, for the LayerNorm pass at each K
+    the parent compiled it for, K2 at K 128, 256, 384 and 512 and K9 at
+    K 768 and 1,024."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -5450,7 +6030,9 @@ def unchanged_outputs(dev) -> tuple:
                    for _ in range(4))
     out, lse = A.flash_attention(q, k, v, with_lse=True)
     outs += [out, lse, *A.flash_attention_bwd(q, k, v, out, lse, do),
-             *A.flash_attention_bwd_i8(q, k, v, out, lse, do)]
+             *A.flash_attention_bwd_i8(q, k, v, out, lse, do),
+             A.flash_attention_int8(q, k, v), A.flash_attention_int8pv(
+                 q, k, v)]
     x = r(MAIN_N, HIDDEN, dtype=bf)
     lnw, lnb = 1.0 + r(HIDDEN, s=0.1), r(HIDDEN, s=0.1)
     w1 = r(FFN, HIDDEN, s=HIDDEN ** -0.5, dtype=bf).t()
@@ -5461,6 +6043,14 @@ def unchanged_outputs(dev) -> tuple:
              *M.mlp_train_fused(x, w1, b1, w2, b2)]
     _, h = M._mlp_train_plain(x[:ENC_N], w1, b1, w2, b2, "gelu")
     outs += M.mlp_bwd_fused(h, x[:ENC_N], w1, w2)
+    kv, fv = VJ_HIDDEN, VJ_FFN
+    xv = r(VJ_N, kv, dtype=bf)
+    lnv = (1.0 + r(kv, s=0.1), r(kv, s=0.1))
+    wv1 = r(fv, kv, s=kv ** -0.5, dtype=bf).t()
+    wv2 = r(kv, fv, s=fv ** -0.5, dtype=bf).t()
+    bv1, bv2 = r(fv, s=0.1), r(kv, s=0.1)
+    outs += [M.mlp_block_fused(xv, *lnv, wv1, bv1, wv2, bv2, eps=1e-6),
+             M.mlp_fused(xv, wv1, bv1, wv2, bv2)]
     k, f = GIANT_K, GIANT_F
     outs.append(M.swiglu_block_fused(
         r(DINO_N, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
@@ -5471,6 +6061,17 @@ def unchanged_outputs(dev) -> tuple:
     bs = [r(HIDDEN, s=0.1) for _ in range(4)]
     outs += G.qkv_ln_fused(x, lnw, lnb, *lin[:3], *bs[:3])
     outs.append(G.out_res_fused(x, outs[-1], lin[3], bs[3]))
+    for m, k, f in ((4096, 128, 512), (4096, 256, 1024), (4096, 384, 1536),
+                    (4096, 512, 2048)):
+        outs.append(M.mlp_block_fused(
+            r(m, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
+            r(f, k, s=k ** -0.5, dtype=bf).t(), r(f, s=0.1),
+            r(k, f, s=f ** -0.5, dtype=bf).t(), r(k, s=0.1), eps=1e-6))
+    for m, k, f in ((MAIN_N, HIDDEN, 2048), (VJ_N, VJ_HIDDEN, 2816)):
+        outs.append(M.swiglu_block_fused(
+            r(m, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
+            r(2 * f, k, s=k ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
+            r(k, f, s=f ** -0.5, dtype=bf).t(), r(k, s=0.1), eps=1e-6))
     return outs
 
 
@@ -5569,7 +6170,7 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     """This checkout's kernels against another checkout's (the parent
     commit unpacked by `git archive`), in one process: this package's
     wrappers call either library. The kernels that must match the other's
-    (UNCHANGED: the flash kernels at d 64 and 128, the MLP forward and
+    (UNCHANGED: the flash kernels at d 32, 64 and 128, the MLP forward and
     backward K2, K6, K5a, K9 and K5b, and the glue K10a and K10b) are
     compared by SASS and by output, bit for bit;
     then, in turns (other, this, this, other a round), the flash kernels
@@ -5578,7 +6179,11 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     shape, K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's,
     K5b at the MIM encoder's and decoder's and the V-JEPA encoder's), K9
     at DINOv2-giant batch 2 and 1, the glue kernels K10a and K10b at the
-    embed shape, the MIM encoder's and decoder's, legs A's, B's and G's
+    embed shape, the MIM encoder's and decoder's, R6 on q and k at d 64,
+    128 and 32, the device time of K2's and K9's LayerNorm pass at K 768,
+    1,024 and 1,536, of R6's passes at d 64, 128 and 32 and of K10a and
+    K10b at the MIM encoder's shape (from the profiler), legs A's, B's
+    and G's
     models (bf16, int8 and int8 p v + glue encoders, batch 4), the MIM
     step of the preset at batch 1 and 2, as shipped and with glue_impl
     "pallas", and the V-JEPA step of its preset at batch 1 and 2 are
@@ -5624,8 +6229,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             outs[side] = unchanged_outputs(dev)
     same = [torch.equal(a, b) for a, b in zip(outs["other"],
                                               outs["this"])]
-    log(f"against: outputs of K1, K3, K8, K4, K7 (d 32 too), K2, K6, K5a, "
-        f"K5b, K9, K10a and K10b through their wrappers bit for bit equal: "
+    log(f"against: outputs of K1, K3, K8, K4, K7 (d 32 too), K2 (K 128 "
+        f"to 1,024), K6 (K 768 and 1,024), K5a, K5b, K9 (K 768, 1,024 and "
+        f"1,536), K10a and K10b through their wrappers bit for bit equal: "
         f"{all(same)} ({sum(same)} of {len(same)} tensors)")
     del outs
 
@@ -5656,7 +6262,7 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
                 r(kd, f, s=f ** -0.5).to(bf).t(), r(kd, s=0.1))
 
     mx, mlnw, mlnb, mw1, mb1, mw2, mb2 = mlp(MAIN_N, HIDDEN, FFN)
-    vx, _, _, vw1, vb1, vw2, vb2 = mlp(VJ_N, VJ_HIDDEN, VJ_FFN)
+    vx, vlnw, vlnb, vw1, vb1, vw2, vb2 = mlp(VJ_N, VJ_HIDDEN, VJ_FFN)
     _, vh = M._mlp_train_plain(vx, vw1, vb1, vw2, vb2, "gelu")
     ex, _, _, ew1, eb1, ew2, eb2 = mlp(ENC_N, HIDDEN, FFN)
     _, eh = M._mlp_train_plain(ex, ew1, eb1, ew2, eb2, "gelu")
@@ -5738,7 +6344,16 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     (q, k, v, _), (eq, ek, ev, edo), (dq_, dk_, dv_, ddo) = emb, enc, dec
     probes = {
         "K1 embed": lambda: A.flash_attention(q, k, v),
+        "K1 V-JEPA d 128": lambda: A.flash_attention(*vj[:3]),
+        "K1 predictor d 32": lambda: A.flash_attention(*pred[:3]),
+        "K3 predictor d 32": lambda: A.flash_attention_int8(*pred[:3]),
+        "K8 predictor d 32": lambda: A.flash_attention_int8pv(*pred[:3]),
+        "K8 V-JEPA d 128": lambda: A.flash_attention_int8pv(*vj[:3]),
         "quantisation q, k embed": lambda: A.quantize_qk(q, k, 0.125),
+        "quantisation q, k V-JEPA d 128": lambda: A.quantize_qk(
+            *vj[:2], 128 ** -0.5),
+        "quantisation q, k predictor d 32": lambda: A.quantize_qk(
+            *pred[:2], 32 ** -0.5),
         "K3 embed d 64": lambda: A.flash_attention_int8(q, k, v),
         "K3 V-JEPA d 128": lambda: A.flash_attention_int8(*vj[:3]),
         "K8 embed": lambda: A.flash_attention_int8pv(q, k, v),
@@ -5757,6 +6372,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         "K6 embed": lambda: M.mlp_fused(mx, mw1, mb1, mw2, mb2),
         "K6 V-JEPA teacher K 1024": lambda: M.mlp_fused(vx, vw1, vb1, vw2,
                                                          vb2),
+        "K2 V-JEPA K 1024": lambda: M.mlp_block_fused(
+            vx, vlnw, vlnb, vw1, vb1, vw2, vb2, eps=1e-12),
         "K5a MIM encoder": lambda: M.mlp_train_fused(ex, ew1, eb1, ew2, eb2),
         "K5b MIM encoder": lambda: M.mlp_bwd_fused(eh, ex, ew1, ew2),
         "K5b MIM decoder": lambda: M.mlp_bwd_fused(ch, cx, cw1, cw2),
@@ -5771,6 +6388,41 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             G.qkv_ln_fused, x, lnw, lnb, *ws[:3], *bs[:3], eps=1e-6)
         probes[f"K10b {label}"] = functools.partial(
             G.out_res_fused, x, y, ws[3], bs[3])
+    # device time from the profiler: the LayerNorm pass of K2 and K9 at the
+    # K the parent compiled it for, R6's passes on q and k, and the whole
+    # of K10a and K10b at the MIM encoder's shape; R6's, K10a's and K10b's
+    # CUDA-event times above are set by the host's issue rate as much as
+    # by the device
+    passes = {(name, "ln_rows", "LN pass"): probes[name] for name in (
+        "K2 embed", "K2 V-JEPA K 1024", "K9 DINOv2-giant batch 1")}
+    passes.update({(name, "quant_", "R6 passes"): probes[name]
+                   for name in ("quantisation q, k embed",
+                                "quantisation q, k V-JEPA d 128",
+                                "quantisation q, k predictor d 32")})
+    passes.update({(name, "", "device"): probes[name] for name in (
+        "K10a MIM encoder", "K10b MIM encoder")})
+
+    def pass_ms(fn, part, calls=20):
+        """A call's device time in the kernels whose names hold part, from
+        the profiler: each one's mean time a launch times its launches a
+        call, rounded (a session now and then loses its first launch,
+        which moves no mean)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0 and part in ev.key:
+                total += round(ev.count / calls) * us / ev.count / 1e3
+        return total
+
     times = {side: {} for side in libs}
     gc_ms = {side: {} for side in libs}
     pauses = []
@@ -5791,6 +6443,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             with use(side):
                 for name, fn in probes.items():
                     record(side, name + " ms", lambda: cuda_ms(fn, iters=10))
+                for (name, part, what), fn in passes.items():
+                    record(side, f"{name} {what} ms (profiler)",
+                           lambda: pass_ms(fn, part))
                 for leg in models:
                     record(side, f"leg {leg} vol/s", lambda: 4 * 3 * 1e3
                            / cuda_ms(lambda: encode(leg), iters=1, warmup=1))
@@ -5888,6 +6543,9 @@ def main() -> int:
         phase_whole_model(vols, emb_a)
         phase_d32_int8_path(table)
         done("legs A, B, G, Q, the whole model and the d-32 int8 path")
+        run_vit_h_legs(work, vols, table)
+        phase_vit_h(vols, card)
+        done("legs N, T and U, the ViT-H parity and rate")
         run_leg_s(work, vols, work / "leg_a.json", emb_a)
         run_leg_w(work, vols, work / "leg_a.json", emb_a)
         done("legs S and W")
@@ -5896,10 +6554,14 @@ def main() -> int:
         leg_c = run_leg_c(work, vols, table)
         run_leg_c(work, vols, table, leg="H", overrides="glue_impl=pallas")
         done("legs C and H")
-        run_leg_p(work, leg_c)
-        done("leg P")
-        phase_two_ranks(work, card)
-        done("2 ranks on one card")
+        # leg P's launches wait mostly on the host: they run beside the
+        # 2-rank phase, whose step times are no speed either
+        leg_p = in_background(run_leg_p, work, leg_c)
+        try:
+            phase_two_ranks(work, card)
+        finally:
+            leg_p()
+        done("leg P and 2 ranks on one card")
         run_leg_j(work, vols, table)
         done("leg J")
         run_leg_d(work, vols, table)
@@ -5916,7 +6578,7 @@ def main() -> int:
         done("leg L")
         run_leg_o(work, vols)
         done("leg O")
-        run_leg_z(work, vols, card)
+        run_leg_z(work, vols, card, table)
         done("leg Z")
     finally:
         shutil.rmtree(work, ignore_errors=True)

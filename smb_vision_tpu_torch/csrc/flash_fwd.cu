@@ -51,6 +51,23 @@
 // multi-function units bound it and the ping-pong matters more than at
 // d 64: one warpgroup's exp2 runs under the other's GEMMs.
 //
+// Head widths past the instantiations. A head of width D (a multiple of 8
+// up to 128; the wrapper pads any other by a copy, as the JAX `attention`
+// does) runs on the instantiation of the next of 32, 64 and 128 up (the
+// template's D; the real width is p.D), unchanged but for three things:
+// the tensor maps of the bf16 operands (K1's q, k, v; K3's v) declare the
+// real D as their global width while their boxes keep the instantiation's
+// panels, so TMA reads the columns past D as zeros, as it reads the keys
+// past Nk; the int8 codes of K3 and K8 (q8, k8, K8's v8) come from the
+// quantisation kernel at the instantiation's width with zeros past D (a
+// row of 72 or 80 bytes has no TMA stride and no int8 swizzle); and only D
+// columns of o are stored. The zero columns add nothing to any score or
+// output column that is kept, so the kernel computes the function at D,
+// with the tensor work of the instantiation: at D 72 and 80 on the
+// 128-wide tiles, 1.6 to 1.8 times what D needs. The store of the real
+// width is an instantiation of its own (NARROW), so a head as wide as its
+// instantiation runs the code it ran before the narrower widths came.
+//
 // K3 is K1 with the score product on int8 (the I8 instantiation). Bound
 // on the H100 at N = 20,480, 12 heads of 64: the int8 q8 k8^T at 1,979
 // TOP/s (0.33 ms) and the bf16 p v at 989 TFLOP/s (0.65 ms), 0.98 ms of
@@ -106,6 +123,7 @@ struct FlashParams {
   long long v_sb, v_sn, v_sh;
   long long o_sb, o_sn, o_sh;
   float scale_log2;
+  int D;  // the real head width: D of the instantiation, or less (NARROW)
 };
 
 // ---------------------------------------------------------------------------
@@ -130,7 +148,7 @@ struct FwdTiles {
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE + ONES + BARS;
 };
 
-template <int D, bool I8>
+template <int D, bool I8, bool NARROW>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -389,7 +407,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       o[4 * j + 2] *= inv1;
       o[4 * j + 3] *= inv1;
     }
-    store_acc<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, o, 1.f, r0, p.Nq, t);
+    store_acc<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, o, 1.f, r0, p.Nq, t,
+                 NARROW ? p.D : D);
     if (p.lse != nullptr && t == 0) {
       float* lb = p.lse + (long long)bh * p.Nq;
       if (r0 < p.Nq) lb[r0] = m0 * c + log2f(safe0);
@@ -398,21 +417,25 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   }
 }
 
-template <int D, bool I8>
+// q, k (bf16 at the real width p.D, or int8 codes at D's) and v (bf16 at
+// p.D) through their maps, as the note at the top says
+template <int D, bool I8, bool NARROW>
 cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                         cudaStream_t stream) {
   using T = FwdTiles<D, I8>;
   auto qk_map = I8 ? make_map_i8 : make_map_head;
+  const int qk_d = I8 ? D : p.D;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = qk_map(&tq, p.q, B, p.Nq, p.H, D, p.q_sb, p.q_sn,
+  cudaError_t err = qk_map(&tq, p.q, B, p.Nq, p.H, qk_d, p.q_sb, p.q_sn,
                            p.q_sh, T::BM);
   if (err == cudaSuccess)
-    err = qk_map(&tk, p.k, B, p.Nk, p.H, D, p.k_sb, p.k_sn, p.k_sh, T::BN);
+    err = qk_map(&tk, p.k, B, p.Nk, p.H, qk_d, p.k_sb, p.k_sn, p.k_sh,
+                 T::BN);
   if (err == cudaSuccess)
-    err = make_map_head(&tv, p.v, B, p.Nk, p.H, D, p.v_sb, p.v_sn, p.v_sh,
+    err = make_map_head(&tv, p.v, B, p.Nk, p.H, p.D, p.v_sb, p.v_sn, p.v_sh,
                         T::BN);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_sm90_kernel<D, I8>;
+  auto kernel = flash_fwd_sm90_kernel<D, I8, NARROW>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::BYTES);
@@ -420,6 +443,14 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
   dim3 grid((p.Nq + T::BM - 1) / T::BM, BH);
   kernel<<<grid, 3 * kWG, T::BYTES, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
+}
+
+// the instantiation of width D for a head of width p.D <= D
+template <int D, bool I8>
+cudaError_t launch_width(const FlashParams& p, int B, int BH,
+                         cudaStream_t stream) {
+  return p.D == D ? launch_sm90<D, I8, false>(p, B, BH, stream)
+                  : launch_sm90<D, I8, true>(p, B, BH, stream);
 }
 
 
@@ -518,11 +549,12 @@ struct PvParams {
   const float* sq;  // per (b*H + h) scales
   const float* sk;
   const float* sv;
-  __nv_bfloat16* o;  // (B, Nq, H, D) contiguous
+  __nv_bfloat16* o;  // (B, Nq, H, p.D) contiguous
   int H, Nq, Nk;
+  int D;  // the real head width: D of the instantiation, or less
 };
 
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_fwd_i8pv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -775,14 +807,15 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       o[4 * j + 2] *= inv1;
       o[4 * j + 3] *= inv1;
     }
-    store_acc<D>(p.o + ((long long)b * p.Nq * p.H + h) * D,
-                 (long long)p.H * D, o, 1.f, r0, p.Nq, t);
+    const int dw = NARROW ? p.D : D;  // the head's width
+    store_acc<D>(p.o + ((long long)b * p.Nq * p.H + h) * dw,
+                 (long long)p.H * dw, o, 1.f, r0, p.Nq, t, dw);
   }
 }
 
 // q8, k8 through K3's maps; v8 (B*H, D, Npad) as a map of dims (Npad, 1,
 // D, B*H) whose box is a tile of BN keys by D rows
-template <int D>
+template <int D, bool NARROW>
 cudaError_t launch_pv(const void* q8, const void* k8, const void* vt8,
                       const PvParams& p, int B, int Npad,
                       const long long* strides, cudaStream_t stream) {
@@ -800,7 +833,7 @@ cudaError_t launch_pv(const void* q8, const void* k8, const void* vt8,
                                     : CU_TENSOR_MAP_SWIZZLE_64B,
                        BH, D, 1, Npad, (long long)D * Npad, Npad, Npad, D);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_i8pv_sm90_kernel<D>;
+  auto kernel = flash_fwd_i8pv_sm90_kernel<D, NARROW>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::BYTES);
@@ -810,12 +843,24 @@ cudaError_t launch_pv(const void* q8, const void* k8, const void* vt8,
   return cudaGetLastError();
 }
 
+// K8's instantiation of width D for a head of width p.D <= D
+template <int D>
+cudaError_t launch_pv_width(const void* q8, const void* k8, const void* vt8,
+                            const PvParams& p, int B, int Npad,
+                            const long long* strides, cudaStream_t stream) {
+  return p.D == D
+             ? launch_pv<D, false>(q8, k8, vt8, p, B, Npad, strides, stream)
+             : launch_pv<D, true>(q8, k8, vt8, p, B, Npad, strides, stream);
+}
+
 }  // namespace
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
 // int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
-// otherwise K1 (q, k bf16, scores scaled by scale_log2); D 32, 64 or 128
-// either way. q, k and v are
+// otherwise K1 (q, k bf16, scores scaled by scale_log2). D, the head width
+// of v and o (and of K1's q and k), is a multiple of 8 up to 128; it runs
+// on the instantiation of the next of 32, 64 and 128 up, whose width K3's
+// int8 rows hold (zeros past D). q, k and v are
 // read by TMA, so their base pointers and strides must be 16-byte
 // multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
@@ -840,27 +885,30 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
   p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_sh = strides[11];
   p.scale_log2 = scale_log2;
+  p.D = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || D <= 0 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (int8) {
-    if (D == 32) return (int)launch_sm90<32, true>(p, B, BH, s);
-    if (D == 64) return (int)launch_sm90<64, true>(p, B, BH, s);
-    if (D == 128) return (int)launch_sm90<128, true>(p, B, BH, s);
+    if (D <= 32) return (int)launch_width<32, true>(p, B, BH, s);
+    if (D <= 64) return (int)launch_width<64, true>(p, B, BH, s);
+    if (D <= 128) return (int)launch_width<128, true>(p, B, BH, s);
   } else {
-    if (D == 32) return (int)launch_sm90<32, false>(p, B, BH, s);
-    if (D == 64) return (int)launch_sm90<64, false>(p, B, BH, s);
-    if (D == 128) return (int)launch_sm90<128, false>(p, B, BH, s);
+    if (D <= 32) return (int)launch_width<32, false>(p, B, BH, s);
+    if (D <= 64) return (int)launch_width<64, false>(p, B, BH, s);
+    if (D <= 128) return (int)launch_width<128, false>(p, B, BH, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K8. q8, k8 int8 (B, N, H, D) with strides (6 int64 in elements: batch,
-// token, head for q8 then k8; the last dim contiguous; read by TMA, so the
-// bases and strides are 16-byte multiples); vt8 int8 (B*H, D, Npad), Npad a
-// multiple of 64, in the key order described above; sq, sk, sv f32 per
-// (b*H + h); o bf16 (B, Nq, H, D) contiguous. D 32, 64 or 128. Returns a
+// K8. D, the head width, a multiple of 8 up to 128, runs on the
+// instantiation of width DI, the next of 32, 64 and 128 up. q8, k8 int8
+// (B, N, H, DI) with strides (6 int64 in elements: batch, token, head for
+// q8 then k8; the last dim contiguous; read by TMA, so the bases and
+// strides are 16-byte multiples); vt8 int8 (B*H, DI, Npad), Npad a multiple
+// of 64, in the key order described above; codes past D zero; sq, sk, sv
+// f32 per (b*H + h); o bf16 (B, Nq, H, D) contiguous. Returns a
 // cudaError_t.
 extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
                                   const void* vt8, const void* sq,
@@ -876,15 +924,18 @@ extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
   p.H = H;
   p.Nq = Nq;
   p.Nk = Nk;
+  p.D = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
   if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || Npad % kPvSub != 0 ||
-      Npad < Nk || Npad - Nk >= kPvSub)
+      Npad < Nk || Npad - Nk >= kPvSub || D <= 0 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  if (D == 32) return (int)launch_pv<32>(q8, k8, vt8, p, B, Npad, strides, s);
-  if (D == 64) return (int)launch_pv<64>(q8, k8, vt8, p, B, Npad, strides, s);
-  if (D == 128)
-    return (int)launch_pv<128>(q8, k8, vt8, p, B, Npad, strides, s);
+  if (D <= 32)
+    return (int)launch_pv_width<32>(q8, k8, vt8, p, B, Npad, strides, s);
+  if (D <= 64)
+    return (int)launch_pv_width<64>(q8, k8, vt8, p, B, Npad, strides, s);
+  if (D <= 128)
+    return (int)launch_pv_width<128>(q8, k8, vt8, p, B, Npad, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -53,8 +53,9 @@
 // (the workspace does not grow with M). Two blocks share an SM, so one
 // block's epilogue (erff over its 128 x 128 tile, the stores) runs under
 // the other's products. Ragged M, F and contraction tails read as zero
-// through TMA and are not stored. K is 128, 256, 384, 512, 768 or 1024
-// (K9 also 1,536: the LayerNorm pass is compiled for these); F must be a
+// through TMA and are not stored. K is any multiple of 128 (the JAX
+// kernels' rule): the LayerNorm pass reads K at run time, and the GEMM
+// core takes K as a count of k-steps or of output columns. F must be a
 // multiple of 32.
 //
 // K9 is K2's three passes with a gated phase 1 (PHASE 3). w_in is the
@@ -103,63 +104,87 @@ __device__ __forceinline__ float silu(float v) {
   return v / (1.f + expf(-v));
 }
 
-// xn = LN(x) rounded to bf16, one warp a row, two-pass f32 statistics
+// xn = LN(x) rounded to bf16, one warp a row, two-pass f32 statistics,
+// for a K read at run time (a multiple of 8): a lane keeps its first KEEP
+// chunks of 8 columns in registers and reads any further ones again for
+// each pass (from L1), so a row of any width runs. KEEP is compiled
+// (launch_ln picks the least of 1, 2, 3, 4, 6 and 8 that holds it): the
+// registers a lane holds set how many warps an SM runs, and this
+// memory-bound pass needs them (on an H100 at M 20,480, K 768: 8 kept
+// chunks took 98 registers and the pass 0.045 ms, 3 took 48 and 0.041)
 constexpr int kLnWarps = 8;
+constexpr int kLnKeepMax = 8;  // a row to K 2,048 from registers
 
-template <int K>
+__device__ __forceinline__ void bf16x8(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(e8[e]);
+}
+
+// f(v, c) for each 8-column chunk c of this lane's share of a row: the
+// kept chunks from registers, the others read (again) from x
+template <int KEEP, typename Fn>
+__device__ __forceinline__ void ln_chunks(const uint4 (&keep)[KEEP],
+                                          const uint4* xr, int chunks,
+                                          int lane, Fn f) {
+#pragma unroll
+  for (int i = 0; i < KEEP; ++i) {
+    const int c = lane + 32 * i;
+    if (c < chunks) {
+      float v[8];
+      bf16x8(keep[i], v);
+      f(v, c);
+    }
+  }
+  for (int c = lane + 32 * KEEP; c < chunks; c += 32) {
+    float v[8];
+    bf16x8(xr[c], v);
+    f(v, c);
+  }
+}
+
+template <int KEEP>
 __global__ void __launch_bounds__(kLnWarps * 32)
-    ln_rows_kernel(const __nv_bfloat16* x, const float* lnw, const float* lnb,
-                   __nv_bfloat16* xn, int rows, float eps) {
-  constexpr int CH = (K / 8 + 31) / 32;  // 8-element chunks a lane
+    ln_rows_any_kernel(const __nv_bfloat16* x, const float* lnw,
+                       const float* lnb, __nv_bfloat16* xn, int rows, int K,
+                       float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kLnWarps + threadIdx.x / 32;
   if (row >= rows) return;
-  float v[CH][8];
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  uint4* out = reinterpret_cast<uint4*>(xn + row * K);
+  const int chunks = K / 8;
+  uint4 keep[KEEP];
 #pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const int c = lane + 32 * i;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
-    if (c < K / 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + row * K + c * 8);
-      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[i][e] = __bfloat162float(e8[e]);
-    }
-  }
+  for (int i = 0; i < KEEP; ++i)
+    if (lane + 32 * i < chunks) keep[i] = xr[lane + 32 * i];
   float sum = 0.f;
+  ln_chunks(keep, xr, chunks, lane, [&](const float (&v)[8], int) {
 #pragma unroll
-  for (int i = 0; i < CH; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sum += v[i][e];
+    for (int e = 0; e < 8; ++e) sum += v[e];
+  });
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
   const float mean = sum / K;
   float sq = 0.f;
+  ln_chunks(keep, xr, chunks, lane, [&](const float (&v)[8], int) {
 #pragma unroll
-  for (int i = 0; i < CH; ++i)
-    if (lane + 32 * i < K / 8)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = v[i][e] - mean;
-        sq += d * d;
-      }
+    for (int e = 0; e < 8; ++e) {
+      const float d = v[e] - mean;
+      sq += d * d;
+    }
+  });
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
   const float rstd = rsqrtf(sq / K + eps);
+  ln_chunks(keep, xr, chunks, lane, [&](const float (&v)[8], int c) {
+    __align__(16) __nv_bfloat16 o8[8];
 #pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const int c = lane + 32 * i;
-    if (c < K / 8) {
-      __align__(16) __nv_bfloat16 o8[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        o8[e] = __float2bfloat16((v[i][e] - mean) * rstd * lnw[c * 8 + e] +
-                                 lnb[c * 8 + e]);
-      *reinterpret_cast<uint4*>(xn + row * K + c * 8) =
-          *reinterpret_cast<const uint4*>(o8);
-    }
-  }
+    for (int e = 0; e < 8; ++e)
+      o8[e] = __float2bfloat16((v[e] - mean) * rstd * lnw[c * 8 + e] +
+                               lnb[c * 8 + e]);
+    out[c] = *reinterpret_cast<const uint4*>(o8);
+  });
 }
 
 // the epilogue's operands
@@ -315,20 +340,18 @@ cudaError_t launch_gemm(const void* a, const void* b, int kdim,
 cudaError_t launch_ln(const __nv_bfloat16* x, const float* lnw,
                       const float* lnb, __nv_bfloat16* xn, int rows, int K,
                       float eps, cudaStream_t s) {
+  if (K <= 0 || K % 8 != 0) return cudaErrorInvalidValue;
+  const int per_lane = (K / 8 + 31) / 32;  // chunks of 8 columns a lane
   void (*kernel)(const __nv_bfloat16*, const float*, const float*,
-                 __nv_bfloat16*, int, float) = nullptr;
-  switch (K) {
-    case 128: kernel = ln_rows_kernel<128>; break;
-    case 256: kernel = ln_rows_kernel<256>; break;
-    case 384: kernel = ln_rows_kernel<384>; break;
-    case 512: kernel = ln_rows_kernel<512>; break;
-    case 768: kernel = ln_rows_kernel<768>; break;
-    case 1024: kernel = ln_rows_kernel<1024>; break;
-    case 1536: kernel = ln_rows_kernel<1536>; break;
-    default: return cudaErrorInvalidValue;
-  }
+                 __nv_bfloat16*, int, int, float) =
+      per_lane <= 1   ? ln_rows_any_kernel<1>
+      : per_lane <= 2 ? ln_rows_any_kernel<2>
+      : per_lane <= 3 ? ln_rows_any_kernel<3>
+      : per_lane <= 4 ? ln_rows_any_kernel<4>
+      : per_lane <= 6 ? ln_rows_any_kernel<6>
+                      : ln_rows_any_kernel<kLnKeepMax>;
   kernel<<<(rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, s>>>(
-      x, lnw, lnb, xn, rows, eps);
+      x, lnw, lnb, xn, rows, K, eps);
   return cudaGetLastError();
 }
 
@@ -391,8 +414,9 @@ cudaError_t smb_gemm_residual(const void* a, const void* b, const float* bias,
 }
 
 // x (M, K), w1 (F, K), w2 (K, F), out (M, K), h (M, F): bf16; lnw, lnb, b1,
-// b2: f32. ln != 0 selects K2 (LayerNorm + residual); otherwise h != null
-// selects K5a (K6 plus the pre-activation spill into h), h == null K6.
+// b2: f32. K a multiple of 128, F of 32. ln != 0 selects K2 (LayerNorm +
+// residual); otherwise h != null selects K5a (K6 plus the pre-activation
+// spill into h), h == null K6.
 // The rows run in chunks of `chunk` rows through the caller's workspaces:
 // ws (chunk, F) bf16 for the activation, and for K2 xn (chunk, K) bf16.
 // Every matrix but the biases and LayerNorm parameters passes through TMA,
@@ -405,8 +429,8 @@ extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
                            const void* b2, void* out, void* h, int M, int K,
                            int F, float eps, int ln, int act, void* stream,
                            void* ws, void* xn, int chunk) {
-  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K > 1024 ||
-      K % 128 != 0 || (act != 0 && act != 1) || (ln && h != nullptr) ||
+  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K % 128 != 0 ||
+      (act != 0 && act != 1) || (ln && h != nullptr) ||
       ws == nullptr || (ln && xn == nullptr) || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   return (int)run_chunks(x, lnw, lnb, w1, b1, w2, b2, out, h, M, K, F, eps,
@@ -415,8 +439,8 @@ extern "C" int smb_mlp_fwd(const void* x, const void* lnw, const void* lnb,
 }
 
 // K9: x (M, K), w1 = w_in (2F, K) (rows 0..F-1 w1a^T, F..2F-1 w1b^T), w2 =
-// w_out (K, F), out (M, K): bf16; lnw, lnb, b1 (2F), b2: f32. K is 128,
-// 256, 384, 512, 768, 1024 or 1536; F a multiple of 32. The rows run in
+// w_out (K, F), out (M, K): bf16; lnw, lnb, b1 (2F), b2: f32. K is a
+// multiple of 128, F of 32. The rows run in
 // chunks of `chunk` through the caller's workspaces ws (chunk, F) for the
 // gate and xn (chunk, K), both bf16; every matrix must be 16-byte aligned.
 // The workspace arguments come last, as smb_mlp_fwd's do.
@@ -426,8 +450,8 @@ extern "C" int smb_swiglu_fwd(const void* x, const void* lnw, const void* lnb,
                               const void* b2, void* out, int M, int K, int F,
                               float eps, void* stream, void* ws, void* xn,
                               int chunk) {
-  const bool k_ok = K == 1536 || (K > 0 && K <= 1024 && K % 128 == 0);
-  if (M <= 0 || F <= 0 || F % 32 != 0 || !k_ok || ws == nullptr ||
+  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K % 128 != 0 ||
+      ws == nullptr ||
       xn == nullptr || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   return (int)run_chunks(x, lnw, lnb, w1, b1, w2, b2, out, nullptr, M, K, F,

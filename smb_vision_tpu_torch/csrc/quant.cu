@@ -16,6 +16,11 @@
 // With zero_scale, an all-zero (b, h) reports the scale 0 instead of the
 // guard's 1 (its bytes are 0 either way): K7 takes do's scale so, since its
 // one-FFMA conversion of dp rounds at half a unit of the scale.
+// D is any multiple of 8 up to 128. The codes' rows may be wider than D
+// (W, a multiple of 8 up to 128): K3 and K8 read a head of width D < W on
+// their instantiation of width W (32, 64 or 128), whose int8 tiles hold
+// whole rows of W bytes, so the columns D .. W-1 are written as zeros.
+// Zeros leave the absmax, and so every code and scale, as at width D.
 // Every step is an exact IEEE operation or a max, so the bytes and scales
 // are the plain version's whatever the order of the reduction.
 //
@@ -25,14 +30,16 @@
 // read is this design's cost above the bound.
 //   - pass 1: a block takes 256 rows of one (b, h), each thread 16 bytes
 //     (8 values) of a row, 4 rows in flight before it uses one (D/8 threads
-//     a row, so a warp reads 4 to 8 whole rows); the block's max goes to the
+//     a row, so a warp reads 2 to 32 whole rows; where D/8 does not divide
+//     the block's 256 threads, the last few idle); the block's max goes to the
 //     workspace by one atomicMax on the f32 bits, which order as integers
 //     for non-negative floats;
 //   - pass 2 reads x again (much of it from L2) and writes x8 either in the
-//     input's layout, (B, N, H, D) contiguous, 8 bytes a thread, or in the
+//     input's layout, (B, N, H, W) contiguous, 8 bytes a thread (W/8
+//     threads a row, those past D writing zeros), or in the
 //     layout K8 reads its v8 in (flash_fwd.cu; ops/attention.py::
-//     quantize_v_kernel_layout): (B, H, D, Npad), keys contiguous, zeros
-//     past N, keys permuted within each 32 so that K8's register fragments
+//     quantize_v_kernel_layout): (B, H, W, Npad), keys contiguous, zeros
+//     past N and in the rows past D, keys permuted within each 32 so that K8's register fragments
 //     of p8 meet them. A block then takes 64 keys of one (b, h) and
 //     transposes them through shared memory, writing 16-byte runs of keys.
 // The first block of pass 2 for each (b, h) writes s.
@@ -54,6 +61,7 @@ struct QuantParams {
   const __nv_bfloat16* x;
   long long sb, sn, sh;  // element strides of x; the last dim contiguous
   int N, H, D;
+  int W;           // codes a row of x8 (or rows of a v-layout block): D to 128
   float mult;
   unsigned* amax;  // (B*H) workspace, zeroed before pass 1
   float* s;        // (B*H) scales
@@ -118,9 +126,10 @@ __global__ void __launch_bounds__(kThreads)
   const int step = kThreads / cpr;
   const int c = (threadIdx.x % cpr) * 8;
   const int n1 = min((blockIdx.x + 1) * kRows, p.N);
+  // the threads past step whole rows idle (D/8 need not divide kThreads)
+  const int first = threadIdx.x < step * cpr ? threadIdx.x / cpr : kRows;
   float m = 0.f;
-  for (int n = blockIdx.x * kRows + threadIdx.x / cpr; n < n1;
-       n += kBatch * step) {
+  for (int n = blockIdx.x * kRows + first; n < n1; n += kBatch * step) {
     float v[kBatch][8];
     bool ok[kBatch];
     load_batch(p, b, n, step, n1, h, c, v, ok);
@@ -141,24 +150,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// x8 in the input's layout, (B, N, H, D) contiguous
+// x8 in the input's layout at W codes a row, (B, N, H, W) contiguous
 __global__ void __launch_bounds__(kThreads)
     quant_rows_kernel(const QuantParams p) {
   const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
-  const int cpr = p.D / 8;
+  const int cpr = p.W / 8;
   const int c = (threadIdx.x % cpr) * 8;
   const float s = scale_of(p, bh);
   if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = out_scale(p, bh, s);
   const int step = kThreads / cpr;
   const int n1 = min((blockIdx.x + 1) * kRows, p.N);
-  for (int n = blockIdx.x * kRows + threadIdx.x / cpr; n < n1;
-       n += kBatch * step) {
+  const int first = threadIdx.x < step * cpr ? threadIdx.x / cpr : kRows;
+  for (int n = blockIdx.x * kRows + first; n < n1; n += kBatch * step) {
     float v[kBatch][8];
     bool ok[kBatch];
-    load_batch(p, b, n, step, n1, h, c, v, ok);
+    // a thread past D loads nothing: its 8 values are 0, their codes 0
+    load_batch(p, b, n, step, c < p.D ? n1 : n, h, c, v, ok);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      if (!ok[u]) continue;
+      if (n + u * step >= n1) continue;
       const float* w = v[u];
       uint2 out;
       out.x = quant_byte(w[0], s) | quant_byte(w[1], s) << 8 |
@@ -166,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
       out.y = quant_byte(w[4], s) | quant_byte(w[5], s) << 8 |
               quant_byte(w[6], s) << 16 | quant_byte(w[7], s) << 24;
       *reinterpret_cast<uint2*>(
-          p.x8 + (((long long)b * p.N + n + u * step) * p.H + h) * p.D +
+          p.x8 + (((long long)b * p.N + n + u * step) * p.H + h) * p.W +
           c) = out;
     }
   }
@@ -179,30 +189,30 @@ __device__ __forceinline__ int v_key(int pos) {
          (pos & 1);
 }
 
-// x8 in K8's v layout, (B, H, D, Npad)
+// x8 in K8's v layout, (B, H, W, Npad)
 __global__ void __launch_bounds__(kThreads)
     quant_v_kernel(const QuantParams p) {
   __shared__ uint8_t tile[kMaxD][kVKeys + 4];  // [d][key]
   const int h = blockIdx.y, b = blockIdx.z, bh = b * p.H + h;
   const int n0 = blockIdx.x * kVKeys;
-  const int cpr = p.D / 8;
+  const int cpr = p.W / 8;
   const float s = scale_of(p, bh);
   if (blockIdx.x == 0 && threadIdx.x == 0) p.s[bh] = out_scale(p, bh, s);
   for (int i = threadIdx.x; i < kVKeys * cpr; i += kThreads) {
     const int key = i / cpr, c = (i % cpr) * 8;
     float v[8];
-    if (n0 + key < p.N) {
+    if (n0 + key < p.N && c < p.D) {
       load8(p, b, n0 + key, h, c, v);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;  // quantises to 0
-    }
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;  // quantises to 0 (keys past
+    }                                          // N, rows past D)
 #pragma unroll
     for (int e = 0; e < 8; ++e) tile[c + e][key] = quant_byte(v[e], s);
   }
   __syncthreads();
-  // D rows of 64 bytes, 16 bytes a thread
-  for (int i = threadIdx.x; i < p.D * (kVKeys / 16); i += kThreads) {
+  // W rows of 64 bytes, 16 bytes a thread
+  for (int i = threadIdx.x; i < p.W * (kVKeys / 16); i += kThreads) {
     const int d = i / (kVKeys / 16), p0 = (i % (kVKeys / 16)) * 16;
     uint32_t w[4];
 #pragma unroll
@@ -214,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
         w[k] |= (uint32_t)tile[d][(pos & ~31) | v_key(pos & 31)] << (8 * e);
       }
     }
-    *reinterpret_cast<uint4*>(p.x8 + ((long long)bh * p.D + d) * p.npad + n0 +
+    *reinterpret_cast<uint4*>(p.x8 + ((long long)bh * p.W + d) * p.npad + n0 +
                               p0) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
@@ -222,15 +232,18 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // x bf16 (B, N, H, D), strides (3 int64 in elements: batch, token, head;
-// the last dim contiguous, every row 16-byte aligned); D 32, 64 or 128.
-// amax: B*H uint32 of workspace; s: B*H f32 out; x8: int8 out, (B, N, H, D)
-// contiguous when npad is 0, else K8's v layout (B, H, D, npad) with npad a
-// multiple of 64 and at least N; zero_scale: 0, not 1, as the scale of an
-// all-zero (b, h). Returns a cudaError_t (0 on success).
+// the last dim contiguous, every row 16-byte aligned); D a multiple of 8 up
+// to 128. amax: B*H uint32 of workspace; s: B*H f32 out; x8: int8 out,
+// (B, N, H, W) contiguous when npad is 0, else K8's v layout (B, H, W, npad)
+// with npad a multiple of 64 and at least N, W = width (a multiple of 8
+// from D to 128; 0 for D) and zeros past D; zero_scale: 0, not 1, as the
+// scale of an all-zero (b, h). width comes last, so a caller that passes it
+// to an older library of this interface (which takes none, at W = D) still
+// runs. Returns a cudaError_t (0 on success).
 extern "C" int smb_quantize(const void* x, int B, int N, int H, int D,
                             const long long* strides, float mult, void* amax,
                             void* s, void* x8, int npad, int zero_scale,
-                            void* stream) {
+                            void* stream, int width) {
   QuantParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.sb = strides[0];
@@ -243,11 +256,12 @@ extern "C" int smb_quantize(const void* x, int B, int N, int H, int D,
   p.amax = static_cast<unsigned*>(amax);
   p.s = static_cast<float*>(s);
   p.x8 = static_cast<int8_t*>(x8);
+  p.W = width == 0 ? D : width;
   p.npad = npad;
   p.zero_scale = zero_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || B <= 0 || B > 65535 || H <= 0 || H > 65535 ||
-      (D != 32 && D != 64 && D != 128) || npad < 0 ||
+  if (N <= 0 || B <= 0 || B > 65535 || H <= 0 || H > 65535 || D <= 0 ||
+      D % 8 != 0 || p.W < D || p.W > kMaxD || p.W % 8 != 0 || npad < 0 ||
       (npad > 0 && (npad % kVKeys != 0 || npad < N)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned) * B * H, st);

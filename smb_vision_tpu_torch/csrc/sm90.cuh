@@ -502,15 +502,18 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
 }
 
 // bf16 store of a 64 x N accumulator times `mul` into rows row0 + (the
-// thread's rows) of a row-major base; rows at or past n are skipped
+// thread's rows) of a row-major base; rows at or past n are skipped, and
+// columns at or past cols (even; N by default)
 template <int N>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* base,
                                           long long row_stride,
                                           const float (&d)[N / 2], float mul,
-                                          int r0, int n, int t) {
+                                          int r0, int n, int t,
+                                          int cols = N) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const int col = j * 8 + 2 * t;
+    if (col >= cols) continue;
     if (r0 < n)
       *reinterpret_cast<__nv_bfloat162*>(base + (long long)r0 * row_stride +
                                          col) =
@@ -690,12 +693,14 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
                       rows);
 }
 
-// bf16 heads of width D (Panels<D>): boxes of 64 columns with the 128-byte
-// swizzle, or at D = 32 whole rows of 64 bytes with the 64-byte swizzle
+// bf16 heads of width D, read into the tiles of the instantiation of the
+// next of 32, 64 and 128 up (Panels): boxes of 64 columns with the 128-byte
+// swizzle, or for D up to 32 boxes of 32 columns (64 bytes) with the
+// 64-byte swizzle; the box columns past D read as zero
 inline cudaError_t make_map_head(CUtensorMap* map, const void* base, int B,
                                  int N, int H, int D, long long sb,
                                  long long sn, long long sh, int rows) {
-  if (D != 32) return make_map(map, base, B, N, H, D, sb, sn, sh, rows);
+  if (D > 32) return make_map(map, base, B, N, H, D, sb, sn, sh, rows);
   return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 32,
                       CU_TENSOR_MAP_SWIZZLE_64B, B, N, H, D, sb, sn, sh,
                       rows);

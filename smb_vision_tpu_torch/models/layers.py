@@ -33,14 +33,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from smb_vision_tpu_torch.ops.attention import attention
+from smb_vision_tpu_torch.ops.attention import attention, needs_grad
 from smb_vision_tpu_torch.ops.attn_glue import (
     attn_out_residual,
     qkv_ln_forward,
 )
 from smb_vision_tpu_torch.ops.mlp import (
     act_fn,
-    kernel_maps,
+    auto_routes,
     mlp_block_forward,
     mlp_forward,
     swiglu_block_forward,
@@ -492,9 +492,10 @@ class Block(nn.Module):
             h = self.mlp(self.norm2(x))
             return x + self.drop_path(self._scaled(self.layerscale2, h), m2)
         route = (self.mlp_impl == "pallas"
-                 or (self.mlp_impl == "auto" and self.dtype == torch.bfloat16
-                     and kernel_maps(x.shape[-1],
-                                     self.mlp.fc1.out_features, self.act)))
+                 or (self.mlp_impl == "auto" and auto_routes(
+                     x.shape[-1], self.mlp.fc1.out_features, self.act,
+                     self.dtype, needs_grad(x, *self.mlp.parameters(),
+                                            *self.norm2.parameters()))))
         if route and fusable and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
             w1 = self.mlp.fc1.weight_full().to(dt).t()

@@ -142,7 +142,7 @@ def bind(path: Path) -> ctypes.CDLL:
     handle.smb_out_res_fwd.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     handle.smb_out_res_fwd.restype = _I
     handle.smb_quantize.argtypes = (
-        [_P] + [_I] * 4 + [_P, _F, _P, _P, _P, _I, _I, _P])
+        [_P] + [_I] * 4 + [_P, _F, _P, _P, _P, _I, _I, _P, _I])
     handle.smb_quantize.restype = _I
     handle.smb_quantize_rows.argtypes = (
         [_P] + [_I] * 2 + [ctypes.c_longlong] + [_I] * 2 + [_P] * 3)

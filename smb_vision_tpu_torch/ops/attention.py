@@ -2,7 +2,8 @@
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
 the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
-stand behind them, each at head widths 32, 64 and 128:
+stand behind them, the forward ones (K1, K3, K8) at every head width up
+to 128 and the backward ones (K4, K7) at 32, 64 and 128:
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
   row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
@@ -26,6 +27,17 @@ The int8 operands of K3, K7 and K8 come from one more kernel,
 `quantize_per_head_kernel` (`csrc/quant.cu`, R6): the per-(batch, head)
 quantisation `quantize_per_head`, bit for bit, which the JAX package
 leaves to XLA. It also writes v8 straight in the layout K8 reads.
+
+Head widths. The forward kernels run a head of width d on the
+instantiation of the next of 32, 64 and 128 up (`_tile_width`): bf16
+operands are read in place by TMA maps whose global width is d (the
+columns past d read as zero), int8 codes are written by R6 at the
+instantiation's width with zero columns past d, and only d columns are
+stored. A d that is not a multiple of 8 is padded with zeros by a copy
+first, as the JAX `attention` pads it, and the output is cut back. Under
+autograd the backward kernels take 32, 64 and 128 only: "auto" runs the
+plain attention at another width, and a forced kernel impl refuses it
+(`_refuse_grad_width`).
 
 K1 with K4 or K7 forms one `torch.autograd.Function`, the counterpart of
 the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
@@ -55,8 +67,43 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
-# head widths the kernels take (all five)
+# head widths the backward kernels (K4, K7) take, and the widths of the
+# instantiations of all five: the forward kernels (K1, K3, K8) and R6 run
+# any width up to _FLASH_MAX_D on the next of these up (`_tile_width`)
 _FLASH_HEAD_DIMS = (32, 64, 128)
+_FLASH_MAX_D = 128
+
+
+def _tile_width(d: int) -> int:
+    """The head width of the kernel instantiation that runs heads of
+    width d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS up."""
+    return next(w for w in _FLASH_HEAD_DIMS if d <= w)
+
+
+def _refuse_grad_width(d: int, impl: str) -> None:
+    """Raise for autograd through a forced kernel impl at a head width
+    that K1 takes and the backward kernels do not. Past _FLASH_MAX_D the
+    kernel wrappers refuse the width themselves on the card."""
+    if d <= _FLASH_MAX_D and d not in _FLASH_HEAD_DIMS:
+        from smb_vision_tpu_torch.utils.args import not_ported
+
+        raise not_ported(
+            f"autograd through attn_impl {impl!r} at head width {d} (the "
+            f"backward kernels K4 and K7 take {_FLASH_HEAD_DIMS})",
+            "train-widths", "attn_impl 'auto' or 'xla', whose plain "
+            "attention trains at any width")
+
+
+def _pad8(*ts):
+    """The tensors with their head dim zero-padded to a multiple of 8 by a
+    copy (the JAX `attention`'s `_pad_lanes`), or as they are where it is
+    one already; zeros change no score and add output columns that are
+    cut off."""
+    d = ts[0].shape[-1]
+    if d % 8 == 0:
+        return ts
+    pad = -d % 8
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
 
 
 def _plain_chunk(b: int, h: int, nk: int) -> int:
@@ -94,15 +141,17 @@ def xla_attention(q, k, v, *, scale: Optional[float] = None, bias=None,
     return out
 
 
-def quantize_per_head(x, mult: float = 1.0, zero_scale: bool = False):
+def quantize_per_head(x, mult: float = 1.0, zero_scale: bool = False,
+                      width: Optional[int] = None):
     """Symmetric int8 quantisation of x*mult (B, N, H, D) per (batch,
     head) over all (N, D), as the JAX `_quant_per_head` (and `_fwd_i8`)
     compute it under jit: s = max|x| * f32(1/127) (1 where x is all zero),
     x8 = clip(round(x/s), -127, 127), rounding ties to even. Returns x8
-    (int8, contiguous, the input layout) and s (f32, (B, H)); with
-    zero_scale an all-zero head reports the scale 0 (its bytes are 0
-    either way). The plain version; `quantize_per_head_kernel` is its
-    kernel."""
+    (int8, contiguous, the input layout; with width, rows of `width` >= D
+    codes, zeros past D, the layout the int8 kernels read at a head width
+    below their instantiation's) and s (f32, (B, H)); with zero_scale an
+    all-zero head reports the scale 0 (its bytes are 0 either way). The
+    plain version; `quantize_per_head_kernel` is its kernel."""
     xf = x.float() * mult
     s = xf.abs().amax(dim=(1, 3)) * INV127              # (B, H)
     zero = s == 0
@@ -110,28 +159,38 @@ def quantize_per_head(x, mult: float = 1.0, zero_scale: bool = False):
     x8 = torch.clamp(torch.round(xf / s[:, None, :, None]), -127, 127)
     if zero_scale:
         s = torch.where(zero, torch.zeros_like(s), s)
-    return x8.to(torch.int8), s
+    x8 = x8.to(torch.int8)
+    if width is not None and width != x.shape[-1]:
+        x8 = torch.nn.functional.pad(x8, (0, width - x.shape[-1]))
+    return x8, s
 
 
 def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False,
-                             zero_scale: bool = False):
+                             zero_scale: bool = False,
+                             width: Optional[int] = None):
     """R6: `quantize_per_head` of a CUDA bf16 (B, N, H, D) tensor by its
     kernel (`csrc/quant.cu`), the same int8 bytes and f32 scales bit for
     bit. The head dim must be contiguous and every row 16-byte aligned (the
-    strided views of a fused projection qualify); D 32, 64 or 128. Returns
-    x8 and s (B, H); x8 in the input's layout, contiguous, or with
-    v_layout in the layout K8 reads (`quantize_v_kernel_layout` of the
-    plain x8); zero_scale as `quantize_per_head` takes it. Raises for a
-    tensor that is not on CUDA."""
+    strided views of a fused projection qualify); D a multiple of 8 up to
+    128. Returns x8 and s (B, H); x8 in the input's layout, contiguous, or
+    with v_layout in the layout K8 reads (`quantize_v_kernel_layout` of
+    the plain x8); with width (a multiple of 8, D to 128) the rows hold
+    `width` codes, zeros past D, as `quantize_per_head` pads them;
+    zero_scale as `quantize_per_head` takes it. Raises for a tensor that
+    is not on CUDA."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize_per_head_kernel runs on cuda, not "
                          f"{x.device}; quantize_per_head is the plain "
                          "version")
-    if x.dim() != 4 or x.dtype != torch.bfloat16 \
-            or x.shape[-1] not in _FLASH_HEAD_DIMS:
+    d = x.shape[-1]
+    width = d if width is None else width
+    if x.dim() != 4 or x.dtype != torch.bfloat16 or d % 8 \
+            or not d <= width <= _FLASH_MAX_D or width % 8:
         raise ValueError(f"quantize_per_head_kernel takes bfloat16 (B, N, "
-                         f"H, D) with D in {_FLASH_HEAD_DIMS}; got "
-                         f"{x.dtype} {tuple(x.shape)}")
+                         f"H, D) with D a multiple of 8 up to "
+                         f"{_FLASH_MAX_D}, and a width from D to "
+                         f"{_FLASH_MAX_D} that is one too; got {x.dtype} "
+                         f"{tuple(x.shape)}, width {width}")
     if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
             (st * 2) % 16 for st in x.stride()[:3]):
         raise ValueError("quantize_per_head_kernel: the head dim must be "
@@ -140,7 +199,7 @@ def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False,
     b, n, h, d = x.shape
     dev = x.device
     npad = -(-n // PV_SUB) * PV_SUB if v_layout else 0
-    x8 = torch.empty((b, h, d, npad) if v_layout else (b, n, h, d),
+    x8 = torch.empty((b, h, width, npad) if v_layout else (b, n, h, width),
                      dtype=torch.int8, device=dev)
     s = torch.empty((b, h), dtype=torch.float32, device=dev)
     amax = torch.empty((b, h), dtype=torch.int32, device=dev)
@@ -148,7 +207,7 @@ def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False,
     rc = _build.lib().smb_quantize(
         x.data_ptr(), b, n, h, d, ctypes.cast(strides, ctypes.c_void_p),
         mult, amax.data_ptr(), s.data_ptr(), x8.data_ptr(), npad,
-        int(zero_scale), _build.stream_ptr(dev))
+        int(zero_scale), _build.stream_ptr(dev), width)
     _build.check(rc, "quantize")
     quantize_per_head_kernel.launches += 1
     return x8, s
@@ -157,21 +216,27 @@ def quantize_per_head_kernel(x, mult: float = 1.0, v_layout: bool = False,
 quantize_per_head_kernel.launches = 0
 
 
-def _quantize(x, mult: float = 1.0, zero_scale: bool = False):
+def _quantize(x, mult: float = 1.0, zero_scale: bool = False,
+              width: Optional[int] = None):
     """`quantize_per_head` of a CPU tensor, its kernel for a CUDA one."""
     if x.device.type == "cuda":
-        return quantize_per_head_kernel(x, mult, zero_scale=zero_scale)
-    return quantize_per_head(x, mult, zero_scale)
+        return quantize_per_head_kernel(x, mult, zero_scale=zero_scale,
+                                        width=width)
+    return quantize_per_head(x, mult, zero_scale, width)
 
 
 def quantize_qk(q, k, scale: float, quant=_quantize):
     """The scores' operands of K3 and K8, as the JAX `_fwd_i8` quantises
     them: q is pre-scaled by scale*log2(e), so q8 k8^T * sq * sk is a
-    score in log2 units. Returns q8, k8 (int8) and sq, sk (f32, (B, H)),
-    by the kernel on CUDA tensors (`quant=quantize_per_head` for the plain
-    version there)."""
-    q8, sq = quant(q, scale * LOG2E)
-    k8, sk = quant(k)
+    score in log2 units. Returns q8, k8 (int8, rows of the codes' width
+    K3 and K8 read: their instantiation's, `_tile_width(D)`, zeros past D;
+    D past the kernels' widths, where only the plain versions run) and sq,
+    sk (f32, (B, H)), by the kernel on CUDA tensors
+    (`quant=quantize_per_head` for the plain version there)."""
+    d = q.shape[-1]
+    w = _tile_width(d) if d <= _FLASH_MAX_D else d
+    q8, sq = quant(q, scale * LOG2E, width=w)
+    k8, sk = quant(k, width=w)
     return q8, k8, sq, sk
 
 
@@ -212,8 +277,8 @@ def int8pv_attention_plain(q8, k8, sq, sk, v8, sv, sub: int = PV_SUB):
     o = sv * sum_u w_u n_u / sum_u w_u l_u with w_u = exp2(sm_u - max sm):
     numerator and denominator come from the same integers p8. Returns bf16
     (B, Nq, H, D)."""
-    b, nq, h, d = q8.shape
-    nk = k8.shape[1]
+    b, nq, h, _ = q8.shape
+    nk, d = k8.shape[1], v8.shape[-1]
     nsub = -(-nk // sub)
     pad = nsub * sub - nk
     kt = k8.float().permute(0, 2, 3, 1)                 # (B, H, D, Nk)
@@ -240,8 +305,9 @@ def int8pv_attention_plain(q8, k8, sq, sk, v8, sv, sub: int = PV_SUB):
     return torch.cat(outs, dim=2).permute(0, 2, 1, 3).contiguous()
 
 
-def quantize_v_kernel_layout(v8):
-    """v8 (B, N, H, D) int8 in the layout K8 reads: (B, H, D, N_pad), keys
+def quantize_v_kernel_layout(v8, width: Optional[int] = None):
+    """v8 (B, N, H, D) int8 in the layout K8 reads: (B, H, W, N_pad), W the
+    row count `width` (D by default; zero rows past D), keys
     contiguous (integer wgmma reads its B operand K-major), N padded with
     zeros to a multiple of the requantisation sub-block (PV_SUB), and
     within each group of 32 keys the key order the kernel's int8 p
@@ -251,6 +317,8 @@ def quantize_v_kernel_layout(v8):
     16+4t..), so key half*16 + hi*8 + 2t + lo is stored at half*16 + 4t +
     2*hi + lo. The plain version of what `quantize_per_head_kernel` writes
     with v_layout."""
+    if width is not None and width != v8.shape[-1]:
+        v8 = torch.nn.functional.pad(v8, (0, width - v8.shape[-1]))
     b, n, h, d = v8.shape
     n_pad = -(-n // PV_SUB) * PV_SUB
     vt = v8.permute(0, 2, 3, 1)                          # (B, H, D, N)
@@ -261,7 +329,12 @@ def quantize_v_kernel_layout(v8):
         .contiguous()
 
 
-def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7"):
+def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1",
+               backward: bool = False):
+    """Raise for operands a flash kernel does not take: the forward ones
+    take a head width that is a multiple of 8 up to _FLASH_MAX_D (the
+    wrappers pad any other up to one), the backward ones (backward) 32, 64
+    or 128."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Nq, H, D) and k, v (B, Nk, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -270,9 +343,12 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7"):
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch, heads or head width")
-    if d not in _FLASH_HEAD_DIMS:
+    if backward and d not in _FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel {kernel} takes head width "
                          f"{_FLASH_HEAD_DIMS}, got {d}")
+    if not backward and (d % 8 or d > _FLASH_MAX_D):
+        raise ValueError(f"flash kernel {kernel} takes a head width that is "
+                         f"a multiple of 8 up to {_FLASH_MAX_D}, got {d}")
     if q.dtype != qk_dtype or k.dtype != qk_dtype or v.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes q, k {qk_dtype} and v bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -288,25 +364,29 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1/K4/K7"):
 
 
 # the TMA boxes of the wgmma kernels: bf16 (K1, K4, and the bf16 operands
-# of K3 and K7) in panels of 64 columns, one 128-byte swizzle span, or at
-# head width 32 whole rows of 64 bytes in the 64-byte swizzle; int8 (K3,
-# K7) in whole rows of 32, 64 or 128 bytes, swizzled by their width; up to
-# 256 rows of one (batch, head)
+# of K3 and K7) in panels of 64 columns, one 128-byte swizzle span, or on
+# the instantiation of head width 32 rows of 32 columns (64 bytes) in the
+# 64-byte swizzle; the map's global width is the head's, so the columns of
+# the boxes past it read as zero; int8 (K3, K7, K8) in whole rows of 32,
+# 64 or 128 bytes, swizzled by their width; up to 256 rows of one (batch,
+# head)
 _TMA_BOX_COLS = 64
 _TMA_MAX_ROWS = 256
 
 
 def _tma_geometry(t, rows: int):
     """The tensor map the wgmma kernels build (`csrc/sm90.cuh::make_map`,
-    `make_map_i8`) for a bf16 or int8 (B, N, H, D) tensor read by TMA in
-    boxes of `rows` rows: dims (D, H, N, B), byte strides of H, N and B (a
-    dim of size 1 is never stepped, so its stride is 16), box (cols, 1,
-    rows, 1) and the swizzle in bytes: 64 bf16 columns with the 128-byte
-    swizzle (a whole row of 32 at D = 32, with the 64-byte swizzle), or a
-    whole int8 row of D = 32, 64 or 128 bytes with the swizzle of its
-    width. TMA takes a 16-byte-aligned base and stride multiples of 16
-    below 2^40; anything else raises here, before the launch, instead of
-    failing the descriptor encode."""
+    `make_map_head`, `make_map_i8`) for a bf16 or int8 (B, N, H, D) tensor
+    read by TMA in boxes of `rows` rows: dims (D, H, N, B), byte strides of
+    H, N and B (a dim of size 1 is never stepped, so its stride is 16), box
+    (cols, 1, rows, 1) and the swizzle in bytes: 64 bf16 columns with the
+    128-byte swizzle (32 columns with the 64-byte swizzle for D up to 32,
+    the instantiation of width 32), or a whole int8 row of D = 32, 64 or
+    128 bytes with the swizzle of its width. A bf16 D is a multiple of 8
+    up to 128; the box columns past D read as zero. TMA takes a
+    16-byte-aligned base and stride multiples of 16 below 2^40; anything
+    else raises here, before the launch, instead of failing the descriptor
+    encode."""
     b, n, h, d = t.shape
     if t.dtype == torch.int8:
         if t.stride(-1) != 1 or d not in _FLASH_HEAD_DIMS:
@@ -315,12 +395,12 @@ def _tma_geometry(t, rows: int):
                              f"{tuple(t.shape)}, strides {t.stride()}")
         cols = d
     elif t.dtype == torch.bfloat16:
-        if t.stride(-1) != 1 or (d != 32 and d % _TMA_BOX_COLS):
-            raise ValueError(f"TMA reads (B, N, H, D) with D 32 or a "
-                             f"multiple of {_TMA_BOX_COLS} and contiguous; "
-                             f"got shape {tuple(t.shape)}, strides "
+        if t.stride(-1) != 1 or d % 8 or not 0 < d <= _FLASH_MAX_D:
+            raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
+                             f"8 up to {_FLASH_MAX_D} and contiguous; got "
+                             f"shape {tuple(t.shape)}, strides "
                              f"{t.stride()}")
-        cols = min(d, _TMA_BOX_COLS)
+        cols = 32 if d <= 32 else _TMA_BOX_COLS
     else:
         raise TypeError(f"TMA maps bfloat16 or int8 tensors, not {t.dtype}")
     if not 1 <= rows <= _TMA_MAX_ROWS:
@@ -399,7 +479,10 @@ def attention_bwd_plain(q, k, v, out, lse, do, *, scale: float,
 
 
 def _launch_flash(q, k, v, sq, sk, out, lse, int8: bool, scale_log2: float):
-    b, nq, h, d = q.shape
+    """K1 (K3 with int8) on operands the wrapper checked; D is v's head
+    width (q8 and k8 rows hold its instantiation's)."""
+    b, nq, h, _ = q.shape
+    d = v.shape[-1]
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     rc = _build.lib().smb_flash_fwd(
@@ -410,6 +493,12 @@ def _launch_flash(q, k, v, sq, sk, out, lse, int8: bool, scale_log2: float):
     _build.check(rc, "flash_fwd_i8" if int8 else "flash_fwd")
 
 
+def _cut(out, d: int):
+    """out (B, N, H, D') cut back to the head width d (a copy where D' is
+    the padded width)."""
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
+
+
 def _flash_fwd(q, k, v, scale: float, with_lse: bool):
     """K1 or its plain version, by the device of q; no autograd."""
     if q.device.type == "cpu":
@@ -417,6 +506,8 @@ def _flash_fwd(q, k, v, scale: float, with_lse: bool):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    d0 = q.shape[-1]
+    q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16)
     for t in (q, k, v):
         _tma_geometry(t, 128)
@@ -426,7 +517,7 @@ def _flash_fwd(q, k, v, scale: float, with_lse: bool):
            if with_lse else None)
     _launch_flash(q, k, v, None, None, out, lse, False, scale * LOG2E)
     _count_launch(flash_attention, d)
-    return (out, lse) if with_lse else out
+    return (_cut(out, d0), lse) if with_lse else _cut(out, d0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *,
@@ -445,7 +536,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16)
+    _check_qkv(q, k, v, torch.bfloat16, "K4", backward=True)
     b, nq, h, d = q.shape
     nk = k.shape[1]
     do = do.to(torch.bfloat16).contiguous()
@@ -550,7 +641,7 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_i8 runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16)
+    _check_qkv(q, k, v, torch.bfloat16, "K7", backward=True)
     b, nq, h, _ = q.shape
     do = do.to(torch.bfloat16).contiguous()
     if do.shape != q.shape or lse.shape != (b, h, nq):
@@ -630,6 +721,8 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if needs_grad(q, k, v):
+        _refuse_grad_width(q.shape[-1], "pallas_i8bwd" if int8_backward
+                           else "pallas")
         out, lse = _FlashAttention.apply(q, k, v, scale, int8_backward)
         return (out, lse) if with_lse else out
     return _flash_fwd(q, k, v, scale, with_lse)
@@ -657,21 +750,28 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, not "
                          f"{q.device}")
+    d0 = q.shape[-1]
+    q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16, "K3")
     _tma_geometry(v, 128)
-    return _launch_int8(*quantize_qk(q, k, scale), v)
+    return _cut(_launch_int8(*quantize_qk(q, k, scale), v), d0)
 
 
 def _launch_int8(q8, k8, sq, sk, v):
-    """K3's kernel on its quantised operands, as `quantize_qk` makes
-    them."""
+    """K3's kernel on its quantised operands, as `quantize_qk` makes them
+    (rows of the instantiation's width for v's head width, a multiple of
+    8)."""
+    d = v.shape[-1]
+    if q8.shape[-1] != _tile_width(d):
+        raise ValueError(f"K3: codes of width {q8.shape[-1]} for heads of "
+                         f"{d}; quantize_qk writes {_tile_width(d)}")
     for t in (q8, k8):
         _tma_geometry(t, 128)
-    out = torch.empty(v.shape[:1] + q8.shape[1:], dtype=torch.bfloat16,
+    out = torch.empty(q8.shape[:3] + (d,), dtype=torch.bfloat16,
                       device=v.device)
     _launch_flash(q8, k8, v, sq.contiguous(), sk.contiguous(), out, None,
                   True, 0.0)
-    _count_launch(flash_attention_int8, q8.shape[-1])
+    _count_launch(flash_attention_int8, d)
     return out
 
 
@@ -699,18 +799,28 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
                          f"{q.device}")
+    d0 = q.shape[-1]
+    q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16, "K8")
     q8, k8, sq, sk = quantize_qk(q, k, scale)
-    vt8, sv = quantize_per_head_kernel(v, v_layout=True)
-    return _launch_int8pv(q8, k8, sq, sk, vt8, sv)
+    vt8, sv = quantize_per_head_kernel(v, v_layout=True,
+                                       width=q8.shape[-1])
+    return _cut(_launch_int8pv(q8, k8, sq, sk, vt8, sv, v.shape[-1]), d0)
 
 
-def _launch_int8pv(q8, k8, sq, sk, vt8, sv):
+def _launch_int8pv(q8, k8, sq, sk, vt8, sv, d: Optional[int] = None):
     """K8's kernel on its quantised operands: q8, k8 as `quantize_qk`
-    makes them, vt8 in `quantize_v_kernel_layout`."""
+    makes them, vt8 in `quantize_v_kernel_layout` at the codes' width;
+    d, the head width (a multiple of 8; the codes' width by default),
+    is the output's."""
     for t in (q8, k8):
         _tma_geometry(t, 128)
-    b, nq, h, d = q8.shape
+    b, nq, h, w = q8.shape
+    d = w if d is None else d
+    if w != _tile_width(d) or vt8.shape[2] != w:
+        raise ValueError(f"K8: codes of width {w} and v8 rows "
+                         f"{vt8.shape[2]} for heads of {d}; R6 writes "
+                         f"{_tile_width(d)}")
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q8.device)
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
     strides = (ctypes.c_longlong * 6)(*q8.stride()[:3], *k8.stride()[:3])
@@ -731,12 +841,14 @@ _IMPLS = ("auto", "xla", "pallas", "pallas_i8bwd", "pallas_int8",
           "pallas_int8pv")
 
 
-def _auto_impl(q, bias) -> str:
+def _auto_impl(q, bias, grad: bool = False) -> str:
     """What "auto" runs: K1 for bf16 inputs without bias whose head width
-    the kernel takes, else the plain version (the kernels compute in bf16,
-    so an f32 model must not silently degrade)."""
+    the kernels take (under autograd, grad, the backward kernels' widths;
+    otherwise any up to _FLASH_MAX_D), else the plain version (the kernels
+    compute in bf16, so an f32 model must not silently degrade)."""
+    d = q.shape[-1]
     maps = (bias is None and q.dtype == torch.bfloat16
-            and q.shape[-1] in _FLASH_HEAD_DIMS)
+            and (d in _FLASH_HEAD_DIMS or (not grad and d <= _FLASH_MAX_D)))
     return "pallas" if maps else "xla"
 
 
@@ -753,7 +865,7 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
         raise ValueError(f"unknown attention impl {impl!r}; valid: "
                          + ", ".join(repr(i) for i in _IMPLS))
     if impl == "auto":
-        impl = _auto_impl(q, bias)
+        impl = _auto_impl(q, bias, needs_grad(q, k, v))
     if impl == "xla":
         return xla_attention(q, k, v, scale=scale, bias=bias)
     if bias is not None:
@@ -779,7 +891,7 @@ def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
-        impl = _auto_impl(q, None)
+        impl = _auto_impl(q, None, needs_grad(q, k, v))
     if impl == "xla":
         return xla_attention(q, k, v, scale=scale, with_lse=True)
     return flash_attention(q, k, v, scale=scale, with_lse=True,

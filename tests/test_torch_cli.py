@@ -407,6 +407,8 @@ def test_refusals_cite_roadmap_items():
     from smb_vision_tpu_torch.cli.serve import ServeArguments, make_server
     from smb_vision_tpu_torch.models import convert
     from smb_vision_tpu_torch.models.layers import Block, QuantLinear
+    from smb_vision_tpu_torch.ops.attention import attention
+    from smb_vision_tpu_torch.ops.mlp import mlp_forward
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.utils.args import ROADMAP_ITEMS
 
@@ -425,6 +427,16 @@ def test_refusals_cite_roadmap_items():
                                 "true", "--sharding_policy", "fsdp+tp"]),
         lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
                              "--sliding_window", "true"]),
+        # the forward kernels take head widths up to 128 and MLP widths
+        # past 1,024 (queue 2 items 2 and 3); their training half (item
+        # 5) is refused under autograd through a forced kernel impl
+        lambda: attention(torch.zeros(1, 8, 2, 72, requires_grad=True),
+                          torch.zeros(1, 8, 2, 72), torch.zeros(1, 8, 2, 72),
+                          impl="pallas"),
+        lambda: mlp_forward(torch.zeros(2, 1280, requires_grad=True),
+                            torch.zeros(1280, 64), torch.zeros(64),
+                            torch.zeros(64, 1280), torch.zeros(1280),
+                            impl="pallas_bwd"),
     ]
     # W8A8 (queue 1 item 10) and head width 32 in K3 and K8 (queue 2 item
     # 1) are ported: --quant8 runs past the refusals (the CLI stops only

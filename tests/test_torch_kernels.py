@@ -138,6 +138,104 @@ def test_flash_kernels_match_plain(cuda, n, d):
         <= 2e-2
 
 
+# head widths past the instantiations of 32, 64 and 128: d 72 and 80
+# (SigLIP so400m, a VideoMAE at ViT-H widths) and others under and between
+# them, at ragged N; 100 and 20 are no multiple of 8 (padded by a copy)
+_WIDTHS = [(65, 8), (193, 16), (65, 20), (129, 40), (193, 72), (729, 72),
+           (65, 80), (1961, 80), (129, 100), (65, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", _WIDTHS)
+def test_forward_kernels_take_every_head_width(cuda, n, d):
+    """K1 (out and lse2), K3 and K8 at a head width past 32 / 64 / 128
+    against their plain versions, one launch each, the output of width d;
+    R6 writes the codes at the instantiation's width, bit for bit
+    `quantize_per_head`'s on the first d columns and zeros past them, in
+    both layouts; under autograd "auto" runs the plain attention and a
+    forced kernel impl refuses."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q, k, v = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                * 0.4).to(torch.bfloat16) for _ in range(3)]
+    scale = 1.0 / math.sqrt(d)
+    before = (A.flash_attention.launches, A.flash_attention_int8.launches,
+              A.flash_attention_int8pv.launches)
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    ref, ref_lse = A.xla_attention(q, k, v, with_lse=True)
+    assert out.shape == q.shape and _rel(out, ref) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    q8, k8, sq, sk = A.quantize_qk(q, k, scale, A.quantize_per_head)
+    out8 = A.flash_attention_int8(q, k, v)
+    assert out8.shape == q.shape
+    assert _rel(out8, A.int8_attention_plain(q8, k8, sq, sk, v)) <= 1e-2
+    v8, sv = A.quantize_per_head(v)
+    outpv = A.flash_attention_int8pv(q, k, v)
+    assert outpv.shape == q.shape
+    assert _rel(outpv, A.int8pv_attention_plain(q8, k8, sq, sk, v8,
+                                                sv)) <= 1e-2
+    assert (A.flash_attention.launches, A.flash_attention_int8.launches,
+            A.flash_attention_int8pv.launches) == tuple(
+                c + 1 for c in before)
+    if d % 8 == 0:
+        w = A._tile_width(d)
+        want8, want_s = A.quantize_per_head(q, scale * A.LOG2E, width=w)
+        x8, s = A.quantize_per_head_kernel(q, scale * A.LOG2E, width=w)
+        assert x8.shape == (2, n, 3, w) and not bool(x8[..., d:].any())
+        assert torch.equal(s, want_s) and torch.equal(x8, want8)
+        vt, s = A.quantize_per_head_kernel(v, v_layout=True, width=w)
+        assert torch.equal(s, sv)
+        assert torch.equal(vt, A.quantize_v_kernel_layout(v8, w))
+    leaf = q.detach().requires_grad_()
+    got = A.attention(leaf, k, v, impl="auto")
+    assert torch.equal(got, A.xla_attention(q, k, v))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        A.attention(leaf, k, v, impl="pallas")
+
+
+# K past 1,024 in the MLP forward kernels (ViT-H's 1,280, 2,048, SigLIP
+# so400m's 1,152 and 640, which the earlier list skipped), ragged M and F
+_MLP_WIDE = [(129, 1280, 5120), (100, 2048, 1024), (33, 1152, 4608),
+             (65, 640, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", _MLP_WIDE)
+def test_mlp_kernels_take_wide_k(cuda, m, k, f):
+    """K2, K6 and K9 at a K outside the earlier list (the runtime-K
+    LayerNorm pass for K2 and K9) against their plain versions, one launch
+    each; a training path refuses those K: K5a, and autograd through
+    mlp_impl "pallas_bwd"."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * s
+
+    x = r(m, k).to(torch.bfloat16)
+    lnw, lnb = 1.0 + r(k, s=0.1), r(k, s=0.1)
+    w1, w2 = r(k, f, s=k ** -0.5), r(f, k, s=f ** -0.5)
+    b1, b2 = r(f, s=0.1), r(k, s=0.1)
+    before = (M.mlp_block_fused.launches, M.mlp_fused.launches,
+              M.swiglu_block_fused.launches)
+    yb = M.mlp_block_fused(x, lnw, lnb, w1, b1, w2, b2, act="gelu",
+                           eps=1e-6)
+    ref = M._mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, "gelu", 1e-6)
+    assert yb.shape == (m, k) and _rel(yb, ref) <= 8e-3
+    y = M.mlp_fused(x, w1, b1, w2, b2, act="gelu_new")
+    assert _rel(y, M._mlp_xla(x, w1, b1, w2, b2, "gelu_new")) <= 8e-3
+    w_in, b_in = r(k, 2 * f, s=k ** -0.5), r(2 * f, s=0.1)
+    ys = M.swiglu_block_fused(x, lnw, lnb, w_in, b_in, w2, b2, eps=1e-6)
+    want = M._swiglu_block_plain(x, lnw, lnb, w_in, b_in, w2, b2, 1e-6)
+    assert _rel(ys, want) <= 8e-3
+    assert (M.mlp_block_fused.launches, M.mlp_fused.launches,
+            M.swiglu_block_fused.launches) == tuple(c + 1 for c in before)
+    if k not in M._TRAIN_K:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+            M.mlp_train_fused(x, w1, b1, w2, b2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+            M.mlp_forward(x.detach().float().requires_grad_(), w1, b1, w2,
+                          b2, impl="pallas_bwd")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nk,d", [(70, 200, 64), (200, 70, 64),
                                      (1, 129, 64), (193, 64, 128),
@@ -163,9 +261,11 @@ def test_flash_kernels_cross_lengths_and_refusals(cuda, nq, nk, d):
                                       v.float())) <= 2e-2
     before = (A.flash_attention.launches, A.flash_attention_int8.launches)
     wide = torch.zeros((1, nk, 2, d + 4), dtype=torch.bfloat16, device=cuda)
+    # a head width past 128 (ROADMAP G4): no kernel takes it
+    past = torch.zeros((1, nk, 2, 136), dtype=torch.bfloat16, device=cuda)
     for fn in (A.flash_attention, A.flash_attention_int8):
         with pytest.raises(ValueError, match="head width"):
-            fn(q[..., :16], k[..., :16], v[..., :16])
+            fn(past, past, past)
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(q, k, wide[..., :d])
     with pytest.raises(TypeError, match="bfloat16"):
@@ -734,11 +834,13 @@ def test_quantize_kernel_matches_plain_bit_for_bit(cuda, case):
 
 @pytest.mark.cuda
 def test_quantize_kernel_refusals(cuda):
-    """The kernel takes bf16 with a contiguous head dim and head width 32,
-    64 or 128; anything else raises before a launch."""
+    """The kernel takes bf16 with a contiguous head dim and a head width
+    that is a multiple of 8 up to 128 (the wrappers pad any other);
+    anything else raises before a launch."""
     before = A.quantize_per_head_kernel.launches
     for x in (torch.zeros((1, 8, 2, 64), device=cuda),
-              torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=cuda),
+              torch.zeros((1, 8, 2, 44), dtype=torch.bfloat16, device=cuda),
+              torch.zeros((1, 8, 2, 136), dtype=torch.bfloat16, device=cuda),
               torch.zeros((1, 8, 64, 2), dtype=torch.bfloat16,
                           device=cuda).transpose(2, 3)):
         with pytest.raises(ValueError):

@@ -216,9 +216,12 @@ def test_tma_geometry_refuses_misaligned_views():
     y = torch.zeros(1, 65, 2, 64, dtype=torch.bfloat16).flatten()
     with pytest.raises(ValueError, match="16-byte-aligned base"):
         tattn._tma_geometry(y[1:1 + 64 * 2 * 64].view(1, 64, 2, 64), 64)
-    with pytest.raises(ValueError, match="D 32 or a multiple of 64"):
-        tattn._tma_geometry(torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16),
-                            64)
+    # a bf16 head width K1 does not read in place: no multiple of 8 (the
+    # wrappers pad it first), or past 128
+    for d in (100, 136):
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            tattn._tma_geometry(torch.zeros(1, 8, 2, d,
+                                            dtype=torch.bfloat16), 64)
     with pytest.raises(ValueError, match="multiples of 16"):
         tattn._tma_geometry(x[..., :32], 64)      # d 32, the same stride
     with pytest.raises(ValueError, match="box rows"):
@@ -270,13 +273,15 @@ def test_attention_impl_names():
     a = tattn.attention(q, k, v, impl="pallas_i8bwd")
     b = tattn.attention(q, k, v, impl="auto")
     assert torch.equal(a, b)
-    # auto takes K1 only where it maps: bf16, no bias, head width 32 / 64
-    # / 128
+    # auto takes K1 only where it maps: bf16, no bias, any head width up
+    # to 128 without autograd, 32 / 64 / 128 (the backward kernels') with it
     assert tattn._auto_impl(q, None) == "pallas"
     assert tattn._auto_impl(q, torch.zeros(1, 2, 16, 16)) == "xla"
     assert tattn._auto_impl(q.float(), None) == "xla"
     assert tattn._auto_impl(q[..., :32], None) == "pallas"
-    assert tattn._auto_impl(q[..., :16], None) == "xla"
+    assert tattn._auto_impl(q[..., :16], None) == "pallas"
+    assert tattn._auto_impl(q[..., :16], None, grad=True) == "xla"
+    assert tattn._auto_impl(q[..., :32], None, grad=True) == "pallas"
 
 
 def _mlp_params(k=128, f=512):
