@@ -2,7 +2,8 @@
 """Drive the PyTorch port's batch-embedding (also W8A8, --quant8, and a
 VideoMAE at ViT-H widths, heads of 80), serving, MIM-pretraining,
 V-JEPA2-pretraining (both presets: the TPU-native heads and the
-reference heads, whose predictor has heads of 32) and fine-tuning paths,
+reference heads, whose predictor has heads of 32; both pretrainings also
+with the encoder at ViT-H widths) and fine-tuning paths,
 the training data path (the native CT loader, the device cache, uint8
 shipping) with the HF checkpoint round trip, the opt-in int8 p v
 attention and attention-glue paths, LoRA fine-tuning, the 8-bit AdamW and
@@ -16,7 +17,8 @@ Merlin's I3D ResNet-152), once on one NVIDIA GPU.
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too and bound by its own `_build`, the
 kernels this tree did not change (K1, K3, K4, K7 and K8 at head widths
-32, 64 and 128, the MLP forward and backward kernels K2,
+32, 64 and 128 (K4 and K7 beside their NARROW instantiations, which store
+a narrower head), the MLP forward and backward kernels K2,
 K6, K5a, K9 and K5b and the glue K10a and K10b) are compared with it by
 SASS and, through their wrappers (K3, K7 and K8 with each side's
 quantisation kernel), bit for bit; the quantisation, flash, MLP, SwiGLU
@@ -33,8 +35,8 @@ Phases of the run without arguments, each of which fails the run
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
      IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
-     head width 32, 64 and 128; K1, K3 and K8 also in their instantiations
-     that store a narrower head), the nine GEMM instantiations of K2, K6,
+     head width 32, 64 and 128, and in their instantiations that store a
+     narrower head), the nine GEMM instantiations of K2, K6,
      K5a, K9, K5b, K10a and K10b and the W8A8 product (bf16 and f32 out) in
      the SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
@@ -89,8 +91,16 @@ Phases of the run without arguments, each of which fails the run
      their plain versions and timed beside them (K1 beside SDPA and the
      exp2 floor), R6 writing the codes of heads of 80 at width 128 bit for
      bit, K2 and K6 at K 1,280 (F 5,120) beside their cuBLAS chain, and K9
-     at K 2,048 beside its chain (a row that no path launches); each kept
-     time with its bound and, where one exists, the library call's;
+     at K 2,048 beside its chain (a row that no path launches); then the
+     training family past those widths: K4 and K7 at head width 72
+     (batch 32, 729 tokens, 16 heads), 80 (K4 at the ViT-H MIM encoder's
+     7,168 tokens, K7 at the V-JEPA2 ViT-H encoder's 9,216, 16 heads) and
+     100 (padded to 104; a ragged shape with an lse2 cotangent) against
+     their plain versions, K4 beside SDPA's backward, K7 beside K4 and its
+     quantisation, and K5a and K5b at K 1,280 (M 7,168, F 5,120) and 1,408
+     (M 9,216, F 6,144; ViT-g's widths, rows that no path launches)
+     beside their plain versions and cuBLAS chains; each kept time with
+     its bound and, where one exists, the library call's;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -104,14 +114,23 @@ Phases of the run without arguments, each of which fails the run
      quantisation 144 launches, the product 96, K1 24; no fused MLP
      kernel), within 5e-2 of max of leg A's embeddings;
   5n. legs N, T and U: `run_inference` on the 4 volumes with a VideoMAE
-     at ViT-H widths (hidden 1,280, 32 layers of 16 heads of 80, MLP
-     5,120) under "auto" (K1 at d 80, K2 at K 1,280), --attn_impl
+     at ViT-H widths (hidden 1,280, 16 heads of 80, MLP 5,120; 8 of its
+     32 layers, VIT_H_LEG_LAYERS) under "auto" (K1 at d 80, K2 at K
+     1,280), --attn_impl
      pallas_int8 with mlp_impl pallas_bwd (K3 at d 80 on R6's codes of
      width 128, K6) and --attn_impl pallas_int8pv (K8, K2): each kernel
      once a layer and batch, the plain attention never; then the model's
      parity at 12 of its 32 layers in the three configurations, against
      the same model on their plain versions and against float32 (section
      2's forward rule), and its volumes/s at all 32 layers, batch 2;
+  5x. legs X and Y: `run_mim` with a copy of configs/mim_base_512.json
+     and `run_vjepa` with a copy of configs/vjepa_large_384_tpu.json
+     (accumulation cut to 1), each with the encoder at ViT-H widths
+     (1,280, 16 heads of 80, MLP 5,120) cut to VIT_H_LEG_LAYERS of 32
+     layers, 2 steps on the volumes: K1 and K4 (X) or K7 and the
+     teacher's K3 (Y) at d 80 and K5a and K5b at K 1,280 on every encoder
+     layer, each kernel's launches as `expected_launches` gives them a
+     step, the plain attention never;
   5b. leg S, the serving slice: `cli/serve.make_server` in the process
      with leg A's config and weights (seed 0), batch 2, a volume cache:
      /healthz (the card, grid [20, 32, 32], hidden 768); the 4 volumes as
@@ -183,6 +202,14 @@ Phases of the run without arguments, each of which fails the run
      the kernels, through their plain versions under the same impl names,
      and in float32; loss, gradient error and the EMA teacher's change;
  13. V-JEPA throughput: step ms, MFU and peak memory at batch 1 and 2;
+ 13c. training at ViT-H widths: one MIM step of the preset with the
+     encoder at ViT-H widths and one V-JEPA2 step of the _tpu preset with
+     facebook/vjepa2-vith-fpc64-256's encoder, each at 12 of 32 layers,
+     through the kernels (K1 and K4 or K7 at d 80, K5a and K5b at K
+     1,280, V-JEPA's teacher on K3 at d 80) against their plain versions
+     and float32 (section 2's training rule), launches as the config
+     gives them; then the steps at all 32 layers (MIM batch 1 and 2,
+     V-JEPA batch 1): ms, MFU, peak memory, one profiled step each;
  13a. the same two phases for configs/vjepa_large_384.json: the parity
      step under pallas_i8bwd + pallas_int8 (K1 and K7 at d 32 in the
      predictor); steps (the encoder's depth cut from 24 to 4 layers,
@@ -424,6 +451,30 @@ SOURCES = {
     # and its launches stay 0; the row keeps its time, bound and chain
     "swiglu_block_fwd K2048": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
                                "smb_vision_tpu/ops/mlp.py:256"),
+    # the training family past the instantiations' widths: K4 and K7 at
+    # head widths 72 (SigLIP so400m's shape; no path trains it) and 80 (K4
+    # at the ViT-H MIM encoder, leg X; K7 at the V-JEPA2 ViT-H encoder, leg
+    # Y) on the d-128 instantiation, K4 at d 100 (padded to 104, a shape of
+    # no model), and K5a and K5b at K 1,280 (ViT-H, legs X and Y) and 1,408
+    # (ViT-g's widths, which no model of the repo has: 0 launches)
+    "flash_bwd d72": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                      "smb_vision_tpu/ops/attention.py:436"),
+    "flash_bwd d80": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                      "smb_vision_tpu/ops/attention.py:436"),
+    "flash_bwd d100": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                       "smb_vision_tpu/ops/attention.py:436"),
+    "flash_bwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                         "smb_vision_tpu/ops/attention.py:549"),
+    "flash_bwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+                         "smb_vision_tpu/ops/attention.py:549"),
+    "mlp_train_fwd K1280": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                            "smb_vision_tpu/ops/mlp.py:137"),
+    "mlp_bwd K1280": ("smb_vision_tpu_torch/csrc/mlp_bwd.cu",
+                      "smb_vision_tpu/ops/mlp.py:171"),
+    "mlp_train_fwd K1408": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
+                            "smb_vision_tpu/ops/mlp.py:137"),
+    "mlp_bwd K1408": ("smb_vision_tpu_torch/csrc/mlp_bwd.cu",
+                      "smb_vision_tpu/ops/mlp.py:171"),
 }
 D32_ROWS = {"flash_fwd d32": "flash_fwd", "flash_bwd d32": "flash_bwd",
             "flash_bwd_i8 d32": "flash_bwd_i8",
@@ -448,15 +499,29 @@ VIT_H = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
              intermediate_size=5120)
 VIT_H_HEADS, VIT_H_D, VIT_H_K, VIT_H_F = 16, 80, 1280, 5120
 # the parity runs VIT_H_PARITY_LAYERS of the 32 layers (PERF.md section
-# 2's forward rule is set at the ViT-Base model's 12); the run_inference
-# legs and the rate run all 32
+# 2's forward rule is set at the ViT-Base model's 12); the rate runs all
+# 32; the CLI legs (N, T, U through run_inference, X and Y through run_mim
+# and run_vjepa) cut the encoder to VIT_H_LEG_LAYERS, as legs D, O and F
+# cut theirs, for the script's time limit: the CLI's CPU initialisation
+# of 0.63 B parameters takes most of a 32-layer leg's time
 VIT_H_PARITY_LAYERS = 12
+VIT_H_LEG_LAYERS = 8
 # the three configurations of the ViT-H path: (leg, config mlp_impl, the
 # CLI's --attn_impl, the attention kernel's wrapper, the MLP kernel's)
 VIT_H_LEGS = (("N", "auto", "auto", "flash_fwd", "mlp_block_fwd"),
               ("T", "pallas_bwd", "pallas_int8", "flash_fwd_i8", "mlp_fwd"),
               ("U", "auto", "pallas_int8pv", "flash_fwd_i8pv",
                "mlp_block_fwd"))
+# training at ViT-H widths: the MIM preset (configs/mim_base_512.json) with
+# the encoder at MCG-NJU/videomae-huge's widths and the V-JEPA2 _tpu preset
+# (configs/vjepa_large_384_tpu.json) with facebook/vjepa2-vith-fpc64-256's
+# encoder (mlp_ratio 4: MLP 5,120); the decoder and the predictor as the
+# presets have them. The parities run VIT_H_PARITY_LAYERS of the 32
+# layers, the step times all 32, legs X (run_mim) and Y (run_vjepa)
+# VIT_H_LEG_LAYERS
+VIT_H_MIM = dict(hidden_size=1280, num_attention_heads=16,
+                 intermediate_size=5120)
+VIT_H_VJEPA = dict(hidden_size=1280, num_attention_heads=16)
 LOG2E = 1.4426950408889634
 
 
@@ -746,9 +811,11 @@ def phase_device() -> str:
 # the wgmma kernels by a part of their mangled names (K1 and K3 are the
 # instantiations of flash_fwd_sm90_kernel<D, I8, NARROW>, "narrow" those
 # that store a head narrower than D, as K8's of
-# flash_fwd_i8pv_sm90_kernel<D, NARROW>; K4 and K7 run both of
-# their passes in one kernel each; K2, K6, K5a and K9 are two products
-# each, mlp_gemm_kernel<PHASE, EXTRA>, whose instantiations serve every K:
+# flash_fwd_i8pv_sm90_kernel<D, NARROW> and K4's and K7's of
+# flash_bwd_sm90_kernel<D, NARROW> and flash_bwd_i8_sm90_kernel<D, NARROW>,
+# which run both of their passes in one kernel each; K2, K6, K5a and K9
+# are two products each, mlp_gemm_kernel<PHASE, EXTRA>, whose
+# instantiations serve every K:
 # phase 1 with the spill of h for K5a, phase 2 with the residual for K2
 # and K9, phase 3 K9's gated phase 1, phase 4 (phase 2 with a TMA-loaded
 # residual) all of K10b; K5b is mlp_bwd_gemm_kernel<PHASE>; K10a's GEMM is
@@ -765,13 +832,10 @@ SM90_KERNELS = {
         ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb{n}E",
          ("IGMMA", "HGMMA", "UTMALDG")),
         ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb{n}E",
-         ("IGMMA", "UTMALDG")))}
-SM90_KERNELS.update({
-    f"{k} d{d}": (name.format(d=d), ops) for d in (32, 64, 128)
-    for k, name, ops in (
-        ("K4", "flash_bwd_sm90_kernelILi{d}E", ("HGMMA", "UTMALDG")),
-        ("K7", "flash_bwd_i8_sm90_kernelILi{d}E",
-         ("IGMMA", "HGMMA", "UTMALDG")))})
+         ("IGMMA", "UTMALDG")),
+        ("K4", "flash_bwd_sm90_kernelILi{d}ELb{n}E", ("HGMMA", "UTMALDG")),
+        ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb{n}E",
+         ("IGMMA", "HGMMA", "UTMALDG")))}
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -1017,6 +1081,7 @@ def phase_kernels() -> dict:
     phase_dinov2_kernels(table, gen, dev)
     phase_glue_kernels(table, gen, dev)
     phase_width_kernels(table, gen, dev)
+    phase_train_width_kernels(table, gen, dev)
     return table
 
 
@@ -1472,11 +1537,13 @@ def k7_quant(shape: str, q, k, v, do, out, lse, wrapper_ms: float) -> None:
     from smb_vision_tpu_torch.ops import attention as A
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    ops = A._i8_operands(q, k, v, do, scale)
+    w = A._tile_width(q.shape[-1])
+    ops = A._i8_operands(q, k, v, do, scale, width=w)
     alone, quant, plain = (cuda_ms(fn, repeats=KERNEL_REPEATS) for fn in (
         lambda: A._launch_bwd_i8(q, k, do, out, lse, ops, scale),
-        lambda: A._i8_operands(q, k, v, do, scale),
-        lambda: A._i8_operands(q, k, v, do, scale, A.quantize_per_head)))
+        lambda: A._i8_operands(q, k, v, do, scale, width=w),
+        lambda: A._i8_operands(q, k, v, do, scale, A.quantize_per_head,
+                               width=w)))
     log(f"time flash_bwd_i8   {shape}: wrapper {wrapper_ms:.3f} ms, kernel "
         f"alone {alone:.3f}; the quantisation of q, k, v, do: kernel "
         f"{quant:.3f}, plain {plain:.3f} (CUDA events)")
@@ -1832,6 +1899,125 @@ def quant_padded(table: dict, q, mult: float) -> None:
     set_bound(table, name, shape, 0.0, b * n * h * (2 * d + w) + b * h * 4)
 
 
+# K5a and K5b past K 1,024: (K, M, F) at ViT-H's MIM encoder and at the
+# V-JEPA2 encoder's rows with ViT-g's widths
+TRAIN_WIDTH_MLPS = ((VIT_H_K, ENC_N, VIT_H_F), (1408, VJ_N, 6144))
+
+
+def phase_train_width_kernels(table: dict, gen, dev) -> None:
+    """The training family past the instantiations' widths. K4 and K7 at
+    head width 72 (SigLIP so400m's shape: batch 32, 729 tokens, 16 heads),
+    80 (K4 at the ViT-H MIM encoder's 7,168 tokens, K7 at the V-JEPA2
+    ViT-H encoder's 9,216, 16 heads) and 100 (padded to 104 by the
+    wrapper; batch 2, ragged N 1,960, 4 heads, with an lse2 cotangent)
+    against their plain versions (TOL_FLASH_BWD, their existing card
+    check's), timed beside them, K4 beside SDPA's backward and K7 beside
+    K4 on the same inputs with its quantisation's time; K5a (y and h) and
+    K5b (dx, dh, a) at K 1,280 (M 7,168, F 5,120) and 1,408 (M 9,216, F
+    6,144) against their plain versions (TOL_MLP_TRAIN), timed beside them
+    and their cuBLAS chains. The rows keep these times and bounds; their
+    launches are legs X's and Y's."""
+    import torch
+
+    from smb_vision_tpu_torch.ops import attention as A
+    from smb_vision_tpu_torch.ops import mlp as M
+
+    # (row, batch, N, heads, d), each K4 / K7 row at its shape; K7 d100 is
+    # held at the d-100 shape without a row of its own
+    rows = (("flash_bwd d72", SIGLIP_BATCH, SO400M_N, 16, 72),
+            ("flash_bwd_i8 d72", SIGLIP_BATCH, SO400M_N, 16, 72),
+            ("flash_bwd d80", 1, ENC_N, VIT_H_HEADS, VIT_H_D),
+            ("flash_bwd_i8 d80", 1, VJ_N, VIT_H_HEADS, VIT_H_D),
+            ("flash_bwd d100", 2, RAGGED_N, 4, 100))
+    for row, b, n, h, d in rows:
+        q, k, v, do = [(torch.randn((b, n, h, d), generator=gen, device=dev)
+                        * 0.4).to(torch.bfloat16) for _ in range(4)]
+        g_lse = (torch.randn((b, h, n), generator=gen, device=dev) * 0.1
+                 if d == 100 else None)
+        scale = 1.0 / math.sqrt(d)
+        shape = f"B={b} N={n} H={h} d={d}" + (" g_lse" if d == 100 else "")
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        pairs = ((A.flash_attention_bwd, A.attention_bwd_plain, row),)
+        if d == 100:
+            pairs += ((A.flash_attention_bwd_i8, A.attention_bwd_i8_plain,
+                       "flash_bwd_i8 d100"),)
+        elif "_i8" in row:
+            pairs = ((A.flash_attention_bwd_i8, A.attention_bwd_i8_plain,
+                      row),)
+        for kernel, plain, name in pairs:
+            got = kernel(q, k, v, out, lse, do, g_lse=g_lse)
+            want = plain(q, k, v, out, lse, do, scale=scale, g_lse=g_lse)
+            for what, a, c in zip(("dq", "dk", "dv"), got, want):
+                if a.shape != q.shape:
+                    raise AssertionError(f"{name}: {what} {tuple(a.shape)}")
+                check_kernel(table, row, f"{name} {shape} {what}", a, c,
+                             TOL_FLASH_BWD, record=name == row)
+            del got, want
+        kernel, plain, _ = pairs[0]
+        time_kernel(table, row, shape,
+                    lambda: kernel(q, k, v, out, lse, do),
+                    lambda: plain(q, k, v, out, lse, do, scale=scale), 5,
+                    True)
+        prod = 2 * b * n * n * d * h
+        nbytes = attn_bytes(b, n, h, d, 8)
+        if kernel is A.flash_attention_bwd:
+            table[row]["library_ms"] = sdpa_ms(q, k, v, do)
+            log(f"time {row} library scaled_dot_product_attention "
+                f"backward {shape}: {table[row]['library_ms']:.3f} ms")
+            set_bound(table, row, shape, 5 * prod, nbytes)
+            rate_line(table, row, shape, 5 * prod)
+        else:
+            k4_ms = cuda_ms(lambda: A.flash_attention_bwd(q, k, v, out, lse,
+                                                          do),
+                            repeats=KERNEL_REPEATS)
+            log(f"time {row} {shape}: K4 on the same inputs {k4_ms:.3f} ms "
+                f"(CUDA events)")
+            k7_quant(shape, q, k, v, do, out, lse, table[row]["ms"])
+            set_bound(table, row, shape, 3 * prod, nbytes,
+                      int8_ops=2 * prod)
+        log(f"rate {row} {shape}: the instantiation's tiles do "
+            f"{A._tile_width(d) / d:.2f}x the tensor work of width {d}")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+    for kd, m, f in TRAIN_WIDTH_MLPS:
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+
+        x, g = r(m, kd).to(torch.bfloat16), r(m, kd).to(torch.bfloat16)
+        w1 = r(f, kd, s=kd ** -0.5).to(torch.bfloat16).t()
+        w2 = r(kd, f, s=f ** -0.5).to(torch.bfloat16).t()
+        b1, b2 = r(f, s=0.1), r(kd, s=0.1)
+        shape = f"M={m} K={kd} F={f}"
+        fwd, bwd = f"mlp_train_fwd K{kd}", f"mlp_bwd K{kd}"
+        y, hh = M.mlp_train_fused(x, w1, b1, w2, b2)
+        y_ref, h_ref = M._mlp_train_plain(x, w1, b1, w2, b2, "gelu")
+        check_kernel(table, fwd, shape + " y", y, y_ref, TOL_MLP_TRAIN)
+        check_kernel(table, fwd, shape + " h", hh, h_ref, TOL_MLP_TRAIN)
+        got = M.mlp_bwd_fused(hh, g, w1, w2)
+        want = M._mlp_bwd_plain(hh, g, w1, w2, "gelu")
+        for what, a, c in zip(("dx", "dh", "a"), got, want):
+            check_kernel(table, bwd, f"{shape} {what}", a, c, TOL_MLP_TRAIN)
+        del y, y_ref, h_ref, got, want
+        for name, kernel, plain, chain, extra in (
+                (fwd, functools.partial(M.mlp_train_fused, x, w1, b1, w2,
+                                        b2),
+                 functools.partial(M._mlp_train_plain, x, w1, b1, w2, b2,
+                                   "gelu"),
+                 functools.partial(mlp_chain, x, w1, b1, w2, b2,
+                                   spill=True), 1),
+                (bwd, functools.partial(M.mlp_bwd_fused, hh, g, w1, w2),
+                 functools.partial(M._mlp_bwd_plain, hh, g, w1, w2, "gelu"),
+                 functools.partial(mlp_bwd_chain, hh, g, w1, w2), 3)):
+            time_kernel(table, name, shape, kernel, plain, 20, True)
+            mlp_library(table, name, shape, chain)
+            set_bound(table, name, shape, 4 * m * kd * f,
+                      mlp_bytes(m, kd, f, extra_mf=extra))
+            rate_line(table, name, shape, 4 * m * kd * f, "the chain's")
+        del x, g, w1, w2, hh
+        torch.cuda.empty_cache()
+
+
 VOL_SHAPE = (256, 256, 160)    # int16 HU at spacing (3, 3, 6) mm: the
 VOL_SPACING = (3.0, 3.0, 6.0)  # smb-vision spacing (1.5, 1.5, 3) makes it
 N_VOLUMES = 4                  # exactly 512 x 512 x 320
@@ -1909,12 +2095,14 @@ def run_leg(root: Path, vols: Path, leg: str, cfg: Path, extra: list,
 
 def vit_h_config(root: Path, name: str, mlp_impl: str) -> Path:
     """The VideoMAE at ViT-H widths (VIT_H) at 512^2 x 320, bf16, as
-    `vit_base_config` writes ViT-Base."""
+    `vit_base_config` writes ViT-Base, the encoder cut to
+    VIT_H_LEG_LAYERS."""
     from smb_vision_tpu_torch.models.configs import VideoMAEConfig
 
     cfg = VideoMAEConfig(image_size=512, num_frames=320, patch_size=16,
                          tubelet_size=16, dtype="bfloat16",
-                         mlp_impl=mlp_impl, **VIT_H)
+                         mlp_impl=mlp_impl, **{
+                             **VIT_H, "num_hidden_layers": VIT_H_LEG_LAYERS})
     path = root / f"{name}.json"
     cfg.save_json(str(path))
     return path
@@ -1935,7 +2123,7 @@ def run_vit_h_legs(work: Path, vols: Path, table: dict) -> None:
     pallas_int8pv (K8 at d 80, K2). Each kernel launches once a layer and
     batch (R6 twice, for q and k, under K3, three times under K8), the
     plain attention never; the rows of WIDTH_ROWS take these launches."""
-    layers = VIT_H["num_hidden_layers"]
+    layers = VIT_H_LEG_LAYERS
     want = layers * N_VOLUMES // 2
     for leg, mlp_impl, attn, fn, mlp in VIT_H_LEGS:
         cfg = vit_h_config(work, f"leg_{leg.lower()}", mlp_impl)
@@ -2900,7 +3088,7 @@ def vjepa_ref_config(**kw):
     return preset_config("run_vjepa", VJEPA_REF_PRESET, **kw)
 
 
-def phase_train_parity(glue: bool = False) -> None:
+def phase_train_parity(glue: bool = False, vit_h: bool = False) -> None:
     """One MIM step (forward + backward, no update) on one volume, the
     same seeded weights and mask, through the kernels (attn auto, mlp
     pallas_bwd, remat), through the plain path in bf16 and through the
@@ -2908,7 +3096,12 @@ def phase_train_parity(glue: bool = False) -> None:
     half runs through K10a and K10b (glue_impl "pallas"), which must launch
     exactly twice a block (16 blocks, forward and remat recompute), and the
     bf16 reference is the same impl names on their plain versions
-    (`plain_kernels`), which must launch nothing."""
+    (`plain_kernels`), which must launch nothing. With vit_h, the encoder
+    at ViT-H widths (VIT_H_MIM), VIT_H_PARITY_LAYERS of its 32 layers: K1
+    and K4 at d 80 and K5a and K5b at K 1,280, each kernel's launches as
+    `expected_launches` gives them, and the plain attention never on the
+    kernel path. The weights are drawn on the card from a CUDA generator
+    of seed 0."""
     import torch
 
     from smb_vision_tpu_torch.models.videomae import VideoMAEForPreTraining
@@ -2917,7 +3110,9 @@ def phase_train_parity(glue: bool = False) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg0, preset = mim_config()
+    base = (dict(VIT_H_MIM, num_hidden_layers=VIT_H_PARITY_LAYERS)
+            if vit_h else {})
+    cfg0, preset = mim_config(**base)
     geo = dict(input_size=cfg0.image_size, depth=cfg0.num_frames,
                mask_patch_size=preset["mask_patch_size"],
                model_patch_size=cfg0.patch_size,
@@ -2932,9 +3127,11 @@ def phase_train_parity(glue: bool = False) -> None:
     mask = mim_mask(torch.Generator().manual_seed(0), 1, **geo).to(dev)
 
     def step(**kw):
-        cfg, _ = mim_config(**kw)
-        model = VideoMAEForPreTraining(cfg).init_weights(
-            torch.Generator().manual_seed(0)).to(dev).train()
+        cfg, _ = mim_config(**base, **kw)
+        with torch.device(dev):     # built and initialised on the card
+            model = VideoMAEForPreTraining(cfg).to(dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(0))
+        model.train()
         loss = model(px, mask, nm)["loss"]
         loss.backward()
         grads = [p.grad for p in model.parameters()]
@@ -2949,12 +3146,17 @@ def phase_train_parity(glue: bool = False) -> None:
     kw = dict(glue_impl="pallas") if glue else {}
     ws = reset_launches()
     t0 = time.perf_counter()
-    k_loss, k_grad = step(**kw)
+    with plain_attention_calls() as plain:
+        k_loss, k_grad = step(**kw)
     wall = time.perf_counter() - t0
     counts = {name: w.launches for name, w in ws.items()}
     for name in ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd"):
         if counts[name] <= 0:
             raise AssertionError(f"training step: {name} never launched")
+    if vit_h:
+        check_vit_h_launches("ViT-H MIM step", ws, expected_launches(
+            ONE_STEP["mim"], cfg0), cfg0.num_hidden_layers, "flash_bwd",
+            plain)
     if glue:
         blocks = cfg0.num_hidden_layers + cfg0.decoder_num_hidden_layers
         if not counts["qkv_ln_fwd"] == counts["out_res_fwd"] == 2 * blocks:
@@ -2973,8 +3175,10 @@ def phase_train_parity(glue: bool = False) -> None:
     p_err = float((p_grad - f_grad).norm()) / norm
     rel_loss = abs(k_loss - p_loss) / abs(p_loss)
     finite = bool(k_grad.isfinite().all())
-    log(f"training parity{' with the glue (K10a, K10b)' if glue else ''}, "
-        f"one MIM step at full width: loss kernels "
+    what = (" with the glue (K10a, K10b)" if glue else
+            f" at ViT-H widths ({cfg0.num_hidden_layers} of 32 layers)"
+            if vit_h else "")
+    log(f"training parity{what}, one MIM step at full width: loss kernels "
         f"{k_loss:.6f}, plain bf16 {p_loss:.6f}, f32 {f_loss:.6f}; rel "
         f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32: "
         f"kernels {k_err:.3e}, plain bf16 {p_err:.3e} (bound "
@@ -3831,7 +4035,8 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
     """MIM steps of the preset at batch 1 and 2, as shipped and with
     glue_impl "pallas" (leg H's model): CUDA events over `iters` seeded
     steps after one warm-up, MFU against the card's dense bf16 peak, peak
-    memory, and one step under the profiler."""
+    memory, and one step under the profiler; the workloads built and
+    initialised on the card (`on_card_init`)."""
     import torch
 
     from smb_vision_tpu_torch.train.mim import make_mim_workload
@@ -3843,12 +4048,13 @@ def phase_train_throughput(card: str, iters: int = 3) -> None:
     for glue, bs in ((False, 1), (True, 1), (False, 2), (True, 2)):
         cfg, preset = mim_config(**({"glue_impl": "pallas"} if glue else {}))
         flops = mim_flops_per_sample(cfg, preset["mask_ratio"])
-        model, init_fn, step_fn, _ = make_mim_workload(
-            cfg, mask_patch_size=preset["mask_patch_size"],
+        model, init_fn, step_fn, _ = on_card_init(functools.partial(
+            make_mim_workload, cfg,
+            mask_patch_size=preset["mask_patch_size"],
             mask_ratio=preset["mask_ratio"], tx=functools.partial(
                 make_optimizer, learning_rate=preset["learning_rate"],
                 total_steps=100, warmup_ratio=preset["warmup_ratio"],
-                weight_decay=preset["weight_decay"]), device=dev)
+                weight_decay=preset["weight_decay"]), device=dev), dev)
         state = init_fn(0)
         gen = torch.Generator(device=dev).manual_seed(3)
         pxs = [torch.rand((bs, cfg.num_frames, 1, cfg.image_size,
@@ -3902,18 +4108,77 @@ def time_train_steps(label: str, card: str, bs: int, flops: float, step,
 def vjepa_workload(cfg, preset: dict, dev, teacher_attn_impl,
                    optim: str = "adamw"):
     """make_vjepa_workload with the preset's optimizer (no warm-up, so the
-    first update moves the weights; AdamW or `optim`) and EMA momentum."""
+    first update moves the weights; AdamW or `optim`) and EMA momentum,
+    built and initialised on the card (`on_card_init`)."""
     from smb_vision_tpu_torch.train.optim import make_optimizer
     from smb_vision_tpu_torch.train.vjepa import make_vjepa_workload
 
-    return make_vjepa_workload(
-        cfg, tx=functools.partial(
+    make = functools.partial(
+        make_vjepa_workload, cfg, tx=functools.partial(
             make_optimizer, learning_rate=preset["learning_rate"],
             total_steps=100, weight_decay=preset["weight_decay"],
             schedule=preset["lr_scheduler_type"], min_lr=preset["min_lr"],
             optim=optim),
         ema_momentum=preset["ema_momentum"],
         teacher_attn_impl=teacher_attn_impl, device=dev)
+    return on_card_init(make, dev)
+
+
+def on_card_init(make, dev):
+    """make() (a make_*_workload bound to its arguments) with the model
+    built on the card and init_fn's weights drawn there, from a CUDA
+    generator of init_fn's seed (other weights than a CPU generator's):
+    a CPU initialisation of ViT-H's 0.63 B parameters takes most of a
+    minute. Returns the workload, its init_fn wrapped."""
+    import torch
+
+    with torch.device(dev):
+        model, init_fn, *rest = make()
+
+    def init(seed: int) -> dict:
+        # only for the call: a model holding a closure over itself is a
+        # reference cycle, freed by a garbage collection inside some
+        # later timed step instead of when the phase drops it
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model.init_weights = lambda _: type(model).init_weights(model, gen)
+        try:
+            return init_fn(seed)
+        finally:
+            del model.init_weights
+
+    return (model, init, *rest)
+
+
+# one step of one process, by family (`expected_launches`' mode: no
+# split, no ring, no pipeline)
+ONE_STEP = {family: ("one step", family, "dp", 1, None, 1)
+            for family in ("mim", "vjepa")}
+
+
+def check_vit_h_launches(what: str, ws: dict, want: dict, layers: int,
+                         bwd: str, plain: dict, steps: int = 1) -> dict:
+    """A path at ViT-H widths launched each kernel as `expected_launches`
+    (want, a step) gives, over `steps` steps: K1 at d 80 twice an encoder
+    layer (forward and remat recompute), its backward `bwd` (K4 or K7) at
+    d 80 and K5a and K5b at K 1,280 once (K5a twice) an encoder layer and
+    step, V-JEPA's teacher K3 at d 80 once; the plain attention never
+    (plain, `plain_attention_calls`). Returns the launches by width."""
+    got = {name: ws[name].launches for name in want}
+    want = {name: n * steps for name, n in want.items()}
+    by_width = {f"flash_fwd d{VIT_H_D}": 2, f"{bwd} d{VIT_H_D}": 1,
+                f"mlp_train_fwd K{VIT_H_K}": 2, f"mlp_bwd K{VIT_H_K}": 1}
+    if bwd == "flash_bwd_i8":
+        by_width[f"flash_fwd_i8 d{VIT_H_D}"] = 1
+    for row, per in by_width.items():
+        name, width = row.split()
+        got[row] = ws[name].launches_by_width.get(int(width[1:]), 0)
+        want[row] = per * layers * steps
+    log(f"{what}: launches {got} (want {want}); plain attention calls "
+        f"{plain}")
+    if got != want or plain:
+        raise AssertionError(f"{what}: launches {got}, want {want}; plain "
+                             f"attention calls {plain}")
+    return got
 
 
 @contextlib.contextmanager
@@ -3987,7 +4252,7 @@ def check_vjepa_launches(what: str, counts: dict) -> None:
         raise AssertionError(f"{what}: launches {counts}")
 
 
-def phase_vjepa_parity(ref: bool = False) -> None:
+def phase_vjepa_parity(ref: bool = False, vit_h: bool = False) -> None:
     """One V-JEPA step of the preset (forward, backward, AdamW update, EMA;
     the encoder cut to VJEPA_PARITY_LAYERS layers, the predictor whole)
     at batch 1 on one seeded volume and target mask, from the same seeded
@@ -3996,7 +4261,12 @@ def phase_vjepa_parity(ref: bool = False) -> None:
     attention and MLP (TF32 off). Holds the loss and the gradient over
     all student parameters, and the EMA teacher's change against the
     student's update. ref: the reference-head preset under LEG_I_IMPLS,
-    whose predictor must run K1 and K7 at d 32 in every layer."""
+    whose predictor must run K1 and K7 at d 32 in every layer. vit_h: the
+    _tpu preset's encoder at ViT-H widths (VIT_H_VJEPA): K1, K7 and K3 at
+    d 80, K5a and K5b at K 1,280, each kernel's launches as
+    `expected_launches` gives them, the plain attention never on the
+    kernel path. The workloads are built and initialised on the card
+    (`on_card_init`)."""
     import torch
 
     from smb_vision_tpu_torch.ops.masking import vjepa_target_mask
@@ -4009,7 +4279,8 @@ def phase_vjepa_parity(ref: bool = False) -> None:
 
     def config(**kw):
         return (vjepa_ref_config if ref else vjepa_config)(**{
-            **impl, "num_hidden_layers": VJEPA_PARITY_LAYERS, **kw})
+            **impl, **(VIT_H_VJEPA if vit_h else {}),
+            "num_hidden_layers": VJEPA_PARITY_LAYERS, **kw})
 
     cfg0, preset = config()
     teacher_impl = LEG_I_IMPLS["teacher_attn_impl"] if ref else preset[
@@ -4064,6 +4335,10 @@ def phase_vjepa_parity(ref: bool = False) -> None:
     check_vjepa_launches("V-JEPA step", counts)
     if ref:
         check_d32_launches("V-JEPA step, reference heads", counts, plain, 1)
+    if vit_h:
+        check_vit_h_launches("ViT-H V-JEPA step", ws, expected_launches(
+            ONE_STEP["vjepa"], cfg0), cfg0.num_hidden_layers,
+            "flash_bwd_i8", plain)
     ws = reset_launches()
     with plain_kernels():
         p_loss, p_grad, _ = step(teacher_impl)
@@ -4076,7 +4351,8 @@ def phase_vjepa_parity(ref: bool = False) -> None:
     p_err = float((p_grad - f_grad).norm()) / norm
     rel_loss = abs(k_loss - p_loss) / abs(p_loss)
     log(f"V-JEPA parity, one step of {path.name} (the encoder "
-        f"{cfg0.num_hidden_layers} layers deep) at batch 1 "
+        f"{cfg0.num_hidden_layers} layers deep"
+        f"{', at ViT-H widths' if vit_h else ''}) at batch 1 "
         f"({int(mask.sum())} of {VJ_N} tokens are targets): loss kernels "
         f"{k_loss:.6f}, plain versions {p_loss:.6f}, f32 {f_loss:.6f}; rel "
         f"{rel_loss:.3e} (bound {TOL_TRAIN_LOSS}); gradient error vs f32 "
@@ -4340,7 +4616,8 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
     at batch 2 under the 8-bit AdamW: at batch 2 also the moments' bytes
     and the optimizer update's own time (CUDA events over its step() on
     the last step's gradients, and the host's time to issue it) and share
-    of the step."""
+    of the step; the workloads built and initialised on the card
+    (`on_card_init`)."""
     import torch
 
     from smb_vision_tpu_torch.train.trainer import step_generator
@@ -4381,6 +4658,139 @@ def phase_vjepa_throughput(card: str, iters: int = 3) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_vit_h_train_steps(card: str, iters: int = 3) -> None:
+    """The training steps at ViT-H widths, all 32 layers: the MIM preset's
+    (VIT_H_MIM) at batch 1 and 2 and the V-JEPA2 _tpu preset's
+    (VIT_H_VJEPA, no accumulation) at batch 1, through the kernels of the
+    parity phases, the workloads built and initialised on the card
+    (`on_card_init`): ms, MFU against the analytic FLOPs and peak memory,
+    one step under the profiler (`time_train_steps`); the plain attention
+    never runs."""
+    import torch
+
+    from smb_vision_tpu_torch.train.mim import make_mim_workload
+    from smb_vision_tpu_torch.train.optim import make_optimizer
+    from smb_vision_tpu_torch.train.trainer import step_generator
+    from smb_vision_tpu_torch.utils.profiling import (
+        mim_flops_per_sample,
+        vjepa_flops_per_sample,
+    )
+
+    dev = torch.device("cuda")
+    layers = VIT_H["num_hidden_layers"]
+    cfg, preset = mim_config(**VIT_H_MIM, num_hidden_layers=layers)
+    vcfg, vpreset = vjepa_config(**VIT_H_VJEPA, num_hidden_layers=layers)
+    runs = (("ViT-H MIM", cfg, mim_flops_per_sample(
+        cfg, preset["mask_ratio"]), (1, 2), lambda: on_card_init(
+            functools.partial(
+                make_mim_workload, cfg,
+                mask_patch_size=preset["mask_patch_size"],
+                mask_ratio=preset["mask_ratio"], tx=functools.partial(
+                    make_optimizer, learning_rate=preset["learning_rate"],
+                    total_steps=100, warmup_ratio=preset["warmup_ratio"],
+                    weight_decay=preset["weight_decay"]), device=dev),
+            dev)),
+            ("ViT-H V-JEPA", vcfg, vjepa_flops_per_sample(vcfg), (1,),
+             lambda: vjepa_workload(vcfg, vpreset, dev,
+                                    vpreset["teacher_attn_impl"])))
+    for label, c, flops, batches, make in runs:
+        _, init_fn, step_fn, _ = make()
+        state = init_fn(0)
+        for bs in batches:
+            gen = torch.Generator(device=dev).manual_seed(7)
+            shape = ((c.num_frames, 1, c.image_size, c.image_size)
+                     if label.endswith("MIM") else
+                     (c.frames_per_clip, 1, c.crop_size, c.crop_size))
+            pxs = [torch.rand((bs, *shape), generator=gen, device=dev)
+                   for _ in range(iters + 1)]
+
+            def step(i):
+                return step_fn(state, {"pixel_values": pxs[i]},
+                               step_generator(0, i))
+
+            with plain_attention_calls() as plain:
+                time_train_steps(f"{label} ({layers} layers)", card, bs,
+                                 flops, step, iters)
+            if plain:
+                raise AssertionError(f"{label}: plain attention calls "
+                                     f"{plain}")
+            del pxs, step
+        del init_fn, step_fn, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+LEG_XY_STEPS = 2
+
+
+def run_vit_h_train_legs(work: Path, vols: Path, table: dict) -> None:
+    """Legs X and Y: run_mim with a copy of configs/mim_base_512.json at
+    ViT-H widths (VIT_H_MIM) on the 4 volumes, and run_vjepa with a copy
+    of configs/vjepa_large_384_tpu.json at ViT-H widths (VIT_H_VJEPA;
+    accumulation cut to 1) on 3 of them, the encoders cut to
+    VIT_H_LEG_LAYERS, LEG_XY_STEPS steps each, no eval: the step records'
+    losses finite, the checkpoint and the export written; each kernel's
+    launches those of `expected_launches` a step times the steps (leg X:
+    K1 and K4 at d 80 and K5a and K5b at K 1,280 on every encoder layer;
+    leg Y: K1, K7 and the teacher's K3 at d 80, K5a and K5b at K 1,280);
+    the plain attention never. The d-80 and K-1280 rows of K4, K7, K5a
+    and K5b take these launches."""
+    import numpy as np
+
+    from smb_vision_tpu_torch.cli.run_mim import main as run_mim
+    from smb_vision_tpu_torch.cli.run_vjepa import main as run_vjepa
+    from smb_vision_tpu_torch.models.convert import read_safetensors
+
+    nii = [{"image": str(p)} for p in sorted(vols.glob("*.nii"))]
+    cut = dict(num_hidden_layers=VIT_H_LEG_LAYERS)
+    legs = (("X", run_mim, MIM_PRESET, VIT_H_MIM, {"train": nii}, "json_path",
+             {}, "flash_bwd", mim_config(**VIT_H_MIM, **cut)[0]),
+            ("Y", run_vjepa, VJEPA_PRESET, VIT_H_VJEPA,
+             {"train": nii[:3], "validation": nii[3:]}, "data_path",
+             {"gradient_accumulation_steps": 1}, "flash_bwd_i8",
+             vjepa_config(**VIT_H_VJEPA, **cut)[0]))
+    for leg, cli, preset_path, widths, data, key, cuts, bwd, cfg in legs:
+        spec = work / f"vit_h_data_{leg}.json"
+        spec.write_text(json.dumps(data))
+        out = work / f"vit_h_out_{leg}"
+        path = work / f"vit_h_{leg}.json"
+        path.write_text(json.dumps(dict(
+            json.loads(preset_path.read_text()), **widths, **cut, **cuts,
+            **{key: str(spec)}, output_dir=str(out),
+            num_train_steps=LEG_XY_STEPS, save_steps=LEG_XY_STEPS,
+            save_total_limit=1, logging_steps=1, do_eval=False,
+            num_workers=2)))
+        ws = reset_launches()
+        t0 = time.perf_counter()
+        with plain_attention_calls() as plain:
+            res = cli([str(path)])
+        wall = time.perf_counter() - t0
+        family = "mim" if cli is run_mim else "vjepa"
+        got = check_vit_h_launches(
+            f"leg {leg}", ws, expected_launches(ONE_STEP[family], cfg),
+            VIT_H_LEG_LAYERS, bwd, plain, LEG_XY_STEPS)
+        train = [json.loads(line) for line in
+                 (out / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in train if "loss" in r]
+        log(f"leg {leg}: {cli.__module__.split('.')[-1]} at ViT-H widths, "
+            f"encoder {VIT_H_LEG_LAYERS} of 32 layers: {res} in {wall:.1f} s "
+            f"(preprocess + CPU init + train + save); losses "
+            f"{[r['loss'] for r in train]}, step ms "
+            f"{[round(r['step_time_ms'], 1) for r in train]}")
+        if [r["step"] for r in train] != list(range(1, LEG_XY_STEPS + 1)) \
+                or not all(math.isfinite(r["loss"]) for r in train):
+            raise AssertionError(f"leg {leg}: step records {train}")
+        export = read_safetensors(out / "model.safetensors")
+        if not (out / "checkpoints" / str(LEG_XY_STEPS)).is_dir() or not all(
+                np.isfinite(v).all() for v in export.values()):
+            raise AssertionError(f"leg {leg}: no checkpoint at step "
+                                 f"{LEG_XY_STEPS} or a non-finite export")
+        for row in (f"{bwd} d{VIT_H_D}", f"mlp_train_fwd K{VIT_H_K}",
+                    f"mlp_bwd K{VIT_H_K}"):
+            table[row]["launches"] = max(table[row]["launches"], got[row])
+        shutil.rmtree(out)
+
+
 @contextlib.contextmanager
 def parent_routing():
     """Inside the block "auto" routes attention as the parent commit did:
@@ -4389,8 +4799,8 @@ def parent_routing():
     from smb_vision_tpu_torch.ops import attention as A
 
     auto = A._auto_impl
-    A._auto_impl = lambda q, bias, grad=False: (
-        "xla" if q.shape[-1] == 32 else auto(q, bias, grad))
+    A._auto_impl = lambda q, bias: (
+        "xla" if q.shape[-1] == 32 else auto(q, bias))
     try:
         yield
     finally:
@@ -4433,7 +4843,8 @@ def phase_vjepa_ref_throughput(card: str, table: dict,
     to be the _tpu preset's) and peak memory by `time_train_steps` (two
     timed steps a run: a step at batch 16 takes over 4 s), and
     each run's launches a step, which must show its routing (K4 at d 32's
-    under "auto" are its row's launches)."""
+    under "auto" are its row's launches); the workloads built and
+    initialised on the card (`on_card_init`)."""
     import torch
 
     from smb_vision_tpu_torch.train.trainer import step_generator
@@ -5928,31 +6339,28 @@ def run_leg_m(work: Path, items: list, manifest: Path, card: str,
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
 # K3, K4, K7 and K8 at d 32, 64 and 128 by a part of their mangled names
-# (this tree's, the other's: K1, K3 and K8 gained the NARROW template
+# (this tree's, the other's: K4 and K7 gained the NARROW template
 # parameter, whose false instantiation is the parent's kernel), and every
 # kernel of the MLP forward and backward and the glue sources (K2, K6,
 # K5a, K9 and their LayerNorm pass, K5b, K10a and its row pass, K10b) by
-# its whole name, but any kernel this tree adds there (NEW_KERNELS: the
-# LayerNorm pass of K2 and K9, which reads K at run time where the
-# parent's was compiled per K); R6 writes its codes at a run-time width.
-# The SASS of these two changes: their outputs are compared bit for bit
-# and their times in turns (the LayerNorm pass's device time from the
-# profiler)
+# its whole name, but any kernel this tree adds there (NEW_KERNELS; none:
+# K5b's wider K is its host code's, `smb_mlp_bwd`); the outputs are
+# compared bit for bit and the times in turns
 UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
              for d in (32, 64, 128)
              for k, this, other in (
                  ("K1", "flash_fwd_sm90_kernelILi{d}ELb0ELb0EE",
-                  "flash_fwd_sm90_kernelILi{d}ELb0EE"),
+                  "flash_fwd_sm90_kernelILi{d}ELb0ELb0EE"),
                  ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb0EE",
-                  "flash_fwd_sm90_kernelILi{d}ELb1EE"),
-                 ("K4", "flash_bwd_sm90_kernelILi{d}EE",
+                  "flash_fwd_sm90_kernelILi{d}ELb1ELb0EE"),
+                 ("K4", "flash_bwd_sm90_kernelILi{d}ELb0EE",
                   "flash_bwd_sm90_kernelILi{d}EE"),
-                 ("K7", "flash_bwd_i8_sm90_kernelILi{d}EE",
+                 ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb0EE",
                   "flash_bwd_i8_sm90_kernelILi{d}EE"),
                  ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb0EE",
-                  "flash_fwd_i8pv_sm90_kernelILi{d}EE"))}
+                  "flash_fwd_i8pv_sm90_kernelILi{d}ELb0EE"))}
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
-NEW_KERNELS: tuple = ("ln_rows_any_kernel",)
+NEW_KERNELS: tuple = ()
 
 
 def _anon(name: str) -> str:
@@ -5977,9 +6385,9 @@ def compare_sass(sass: dict) -> None:
     other = {_anon(fn): body for fn, body in sass["other"].items()}
     same = sorted(fn for fn, body in this.items() if other.get(fn) == body)
     log(f"against: SASS of the MLP forward and backward and the glue "
-        f"kernels (K2, K6, K5a, K9, K5b, K10a, K10b; not the LayerNorm "
-        f"pass of K2 and K9, {', '.join(NEW_KERNELS)}): {len(same)} of "
-        f"{len(this)} functions identical"
+        f"kernels (K2, K6, K5a, K9, K5b, K10a, K10b"
+        + "".join(f"; not {new}" for new in NEW_KERNELS)
+        + f"): {len(same)} of {len(this)} functions identical"
         + "".join(f"; differs or missing: {fn}"
                   for fn in sorted(set(this) - set(same))))
 
@@ -6546,6 +6954,8 @@ def main() -> int:
         run_vit_h_legs(work, vols, table)
         phase_vit_h(vols, card)
         done("legs N, T and U, the ViT-H parity and rate")
+        run_vit_h_train_legs(work, vols, table)
+        done("legs X and Y")
         run_leg_s(work, vols, work / "leg_a.json", emb_a)
         run_leg_w(work, vols, work / "leg_a.json", emb_a)
         done("legs S and W")
@@ -6591,6 +7001,10 @@ def main() -> int:
     phase_vjepa_throughput(card)
     phase_vjepa_parity(ref=True)
     done("V-JEPA parity and throughput, reference-head parity")
+    phase_train_parity(vit_h=True)
+    phase_vjepa_parity(vit_h=True)
+    phase_vit_h_train_steps(card)
+    done("ViT-H MIM and V-JEPA parities and steps")
     phase_vjepa_ref_throughput(card, table)
     done("reference-head throughput")
     phase_dinov2_parity()

@@ -56,6 +56,27 @@
 // 4*d flops per score against one exp2 per score and pass, the exp2 and
 // elementwise work weigh twice as much against the products as at d 64.
 //
+// Head widths past the instantiations, K4 and K7 alike. A head of width D
+// (a multiple of 8 up to 128; the wrapper pads any other by a copy and cuts
+// dq, dk and dv back, as the JAX `attention` pads it) runs on the
+// instantiation of the next of 32, 64 and 128 up (the template's D; the
+// real width is p.D), as K1 does (flash_fwd.cu): the bf16 operands (q, k,
+// v and do; K7's k, q and do) are read in place by tensor maps whose
+// global width is the real D while their boxes keep the instantiation's
+// panels, so TMA reads the columns past D as zeros; K7's int8 codes come
+// from the quantisation kernel at the instantiation's width with zero
+// columns past D (a row of 72 or 80 bytes has no TMA stride and no int8
+// swizzle). The zero columns add nothing to s or dp, and the columns of
+// dq, dk and dv past D come out zero and are not stored: only D columns
+// are, by an instantiation of its own (NARROW), so a head as wide as its
+// instantiation runs the code it ran before the narrower widths came.
+// K7's NARROW instantiations are compiled in a translation unit of their
+// own (flash_bwd_i8_narrow.cu includes this file): beside them here, nvcc
+// compiled K7's d-32 and d-64 kernels for full-width heads to other SASS
+// (the producer warp's registers renamed, an add merged). At
+// D 72 and 80 the 128-wide tiles do 1.6 to 1.8 times the tensor work the
+// width needs; delta and the lse2 cotangent are the wrapper's, unchanged.
+//
 // K7 is K4 with the two recomputed products on int8: from per-(batch,
 // head) symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and
 // their scales, made in plain torch before the launch,
@@ -127,6 +148,7 @@ struct BwdParams {
   long long dk_sb, dk_sn, dk_sh;
   long long dv_sb, dv_sn, dv_sh;
   float scale, scale_log2;
+  int D;  // the real head width: D of the instantiation, or less (NARROW)
 };
 
 constexpr int kStages = 4;
@@ -154,7 +176,7 @@ struct DqShape {
   static constexpr int BN = 64;   // keys of a tile
 };
 
-template <int D>
+template <int D, bool NARROW>
 __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                                         const CUtensorMap& tdo,
                                         const CUtensorMap& tk,
@@ -298,7 +320,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
     wgmma_wait<0>();
     fence_regs(acc);
     store_acc<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
-                 p.Nq, t);
+                 p.Nq, t, NARROW ? p.D : D);
   }
 }
 
@@ -311,7 +333,7 @@ struct DkvShape {
   static constexpr int AUX = 2 * BQ * 4;         // lse2 and delta
 };
 
-template <int D>
+template <int D, bool NARROW>
 __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
                                          const CUtensorMap& tv,
                                          const CUtensorMap& tq,
@@ -477,9 +499,9 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
     fence_regs(dk);
     fence_regs(dv);
     store_acc<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
-                 p.Nk, t);
+                 p.Nk, t, NARROW ? p.D : D);
     store_acc<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
-                 p.Nk, t);
+                 p.Nk, t, NARROW ? p.D : D);
   }
 }
 
@@ -487,7 +509,7 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
 // (batch, head) row the dq pass, the rest the dk/dv pass. They share no
 // data, and one grid of both keeps the card full where each pass alone
 // would end on a part-filled wave.
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mdo,
@@ -501,12 +523,14 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   extern __shared__ char smem_raw[];
   const int gq = (p.Nq + DqShape<D>::BM - 1) / DqShape<D>::BM;
   if ((int)blockIdx.x < gq)
-    dq_pass<D>(mq, mdo, mk, mv, p, blockIdx.x, smem_raw);
+    dq_pass<D, NARROW>(mq, mdo, mk, mv, p, blockIdx.x, smem_raw);
   else
-    dkv_pass<D>(nk, nv, nq, ndo, p, blockIdx.x - gq, smem_raw);
+    dkv_pass<D, NARROW>(nk, nv, nq, ndo, p, blockIdx.x - gq, smem_raw);
 }
 
-template <int D>
+// q, k, v and do at the real width p.D through their maps (the note at
+// the top)
+template <int D, bool NARROW>
 cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
   using Sq = DqShape<D>;
   using Sk = DkvShape<D>;
@@ -530,11 +554,11 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
       {&nq, p.q, p.Nq, Sk::BQ, p.q_sb, p.q_sn, p.q_sh},
       {&ndo, p.dout, p.Nq, Sk::BQ, p.o_sb, p.o_sn, p.o_sh}};
   for (const auto& m : maps) {
-    cudaError_t err = make_map_head(m.map, m.base, B, m.n, p.H, D, m.sb,
+    cudaError_t err = make_map_head(m.map, m.base, B, m.n, p.H, p.D, m.sb,
                                     m.sn, m.sh, m.rows);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = flash_bwd_sm90_kernel<D>;
+  auto kernel = flash_bwd_sm90_kernel<D, NARROW>;
   const int bytes = Tq::BYTES > Tk::BYTES ? Tq::BYTES : Tk::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -544,6 +568,14 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
   kernel<<<dim3(gq + gk, BH), 3 * kWG, bytes, stream>>>(mq, mdo, mk, mv, nk,
                                                          nv, nq, ndo, p);
   return cudaGetLastError();
+}
+
+// the instantiation of width D for a head of width p.D <= D
+template <int D>
+cudaError_t launch_width(const BwdParams& p, int B, int BH,
+                         cudaStream_t stream) {
+  return p.D == D ? launch<D, false>(p, B, BH, stream)
+                  : launch<D, true>(p, B, BH, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,6 +609,7 @@ struct BwdI8Params {
   long long dk_sb, dk_sn, dk_sh;
   long long dv_sb, dv_sn, dv_sh;
   float scale;
+  int D;  // the real head width: D of the instantiation, or less (NARROW)
 };
 
 // shared memory of a K7 pass: its two own int8 operands (ROWS rows of D
@@ -611,7 +644,7 @@ __device__ __forceinline__ float i8_exponent(uint32_t x, float c,
 
 // dq pass: block bx owns 128 query rows (q8, do8); k8, v8 and the bf16 k
 // stream in tiles of 64 keys
-template <int D>
+template <int D, bool NARROW>
 __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
                                            const CUtensorMap& tdo8,
                                            const CUtensorMap& tk8,
@@ -756,14 +789,14 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
     wgmma_wait<0>();
     fence_regs(acc);
     store_acc<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
-                 p.Nq, t);
+                 p.Nq, t, NARROW ? p.D : D);
   }
 }
 
 // dk/dv pass: a block owns 128 kv rows (k8, v8); q8, do8 and the bf16 q
 // and do stream in tiles of BQ queries; s and dp are computed transposed
 // (rows = keys, columns = queries)
-template <int D>
+template <int D, bool NARROW>
 __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
                                             const CUtensorMap& tv8,
                                             const CUtensorMap& tq8,
@@ -953,14 +986,14 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
     fence_regs(dk);
     fence_regs(dv);
     store_acc<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, r0,
-                 p.Nk, t);
+                 p.Nk, t, NARROW ? p.D : D);
     store_acc<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, r0,
-                 p.Nk, t);
+                 p.Nk, t, NARROW ? p.D : D);
   }
 }
 
 // both K7 passes in one grid, as K4's
-template <int D>
+template <int D, bool NARROW>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_bwd_i8_sm90_kernel(const __grid_constant__ CUtensorMap mq8,
                              const __grid_constant__ CUtensorMap mdo8,
@@ -977,13 +1010,15 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   extern __shared__ char smem_raw[];
   const int gq = (p.Nq + DqShape<D>::BM - 1) / DqShape<D>::BM;
   if ((int)blockIdx.x < gq)
-    dq_pass_i8<D>(mq8, mdo8, mk8, mv8, mkb, p, blockIdx.x, smem_raw);
+    dq_pass_i8<D, NARROW>(mq8, mdo8, mk8, mv8, mkb, p, blockIdx.x, smem_raw);
   else
-    dkv_pass_i8<D>(nk8, nv8, nq8, ndo8, nqb, ndob, p, blockIdx.x - gq,
-                   smem_raw);
+    dkv_pass_i8<D, NARROW>(nk8, nv8, nq8, ndo8, nqb, ndob, p,
+                           blockIdx.x - gq, smem_raw);
 }
 
-template <int D>
+// the int8 codes at the instantiation's width D, the bf16 k, q and do at
+// the real width p.D (the note at the top)
+template <int D, bool NARROW>
 cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
                       cudaStream_t stream) {
   using Sq = DqShape<D>;
@@ -1011,11 +1046,13 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
       {&ndob, p.dobf, p.Nq, Sk::BQ, p.ob_sb, p.ob_sn, p.ob_sh, false}};
   for (const auto& m : maps) {
     cudaError_t err =
-        (m.i8 ? make_map_i8 : make_map_head)(m.map, m.base, B, m.n, p.H, D,
-                                             m.sb, m.sn, m.sh, m.rows);
+        m.i8 ? make_map_i8(m.map, m.base, B, m.n, p.H, D, m.sb, m.sn, m.sh,
+                           m.rows)
+             : make_map_head(m.map, m.base, B, m.n, p.H, p.D, m.sb, m.sn,
+                             m.sh, m.rows);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = flash_bwd_i8_sm90_kernel<D>;
+  auto kernel = flash_bwd_i8_sm90_kernel<D, NARROW>;
   const int bytes = Tq::BYTES > Tk::BYTES ? Tq::BYTES : Tk::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1029,7 +1066,10 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D), D 32, 64 or 128, through
+#ifndef SMB_FLASH_BWD_I8_NARROW
+
+// q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D), D a multiple of 8 up to
+// 128 (run on the instantiation of the next of 32, 64 and 128 up), through
 // strides; strides: 21 int64 in elements, (batch, token, head) for q, k,
 // v, dout, dq, dk, dv (q, k, v and dout are read by TMA: base pointers and
 // strides 16-byte multiples).
@@ -1064,19 +1104,26 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
   p.dv_sb = strides[18]; p.dv_sn = strides[19]; p.dv_sh = strides[20];
   p.scale = scale;
   p.scale_log2 = scale_log2;  // as the forward's, so p matches its lse2
+  p.D = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || D <= 0 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  if (D == 32) return (int)launch<32>(p, B, BH, s);
-  if (D == 64) return (int)launch<64>(p, B, BH, s);
-  if (D == 128) return (int)launch<128>(p, B, BH, s);
+  if (D <= 32) return (int)launch_width<32>(p, B, BH, s);
+  if (D <= 64) return (int)launch_width<64>(p, B, BH, s);
+  if (D <= 128) return (int)launch_width<128>(p, B, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K7. q8, k8, v8, do8: int8 (B, N, H, D), D 32, 64 or 128; kbf, qbf,
-// dobf: the bf16 k, q and do; dq, dk, dv: bf16 (B, N, H, D); all through
-// strides: 30 int64 in
+// K7's instantiations for heads narrower than their width, compiled apart
+// in flash_bwd_i8_narrow.cu (below, under SMB_FLASH_BWD_I8_NARROW)
+extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
+                                       void* stream);
+
+// K7. D, the head width, a multiple of 8 up to 128, runs on the
+// instantiation of width DI, the next of 32, 64 and 128 up. q8, k8, v8,
+// do8: int8 (B, N, H, DI), codes past D zero; kbf, qbf, dobf: the bf16 k,
+// q and do; dq, dk, dv: bf16 (B, N, H, D); all through strides: 30 int64 in
 // elements, (batch, token, head) for q8, k8, v8, do8, kbf, qbf, dobf, dq,
 // dk, dv (the seven inputs are read by TMA: base pointers and strides
 // 16-byte multiples). lse2 and delta: f32 (B, H, Nq), contiguous; sqk =
@@ -1120,12 +1167,30 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
   p.dk_sb = strides[24]; p.dk_sn = strides[25]; p.dk_sh = strides[26];
   p.dv_sb = strides[27]; p.dv_sn = strides[28]; p.dv_sh = strides[29];
   p.scale = scale;
+  p.D = D;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535)
+  if (Nq <= 0 || Nk <= 0 || BH <= 0 || BH > 65535 || D <= 0 || D % 8 != 0 ||
+      D > 128)
     return (int)cudaErrorInvalidValue;
-  if (D == 32) return (int)launch_i8<32>(p, B, BH, s);
-  if (D == 64) return (int)launch_i8<64>(p, B, BH, s);
-  if (D == 128) return (int)launch_i8<128>(p, B, BH, s);
-  return (int)cudaErrorInvalidValue;
+  if (D == 32) return (int)launch_i8<32, false>(p, B, BH, s);
+  if (D == 64) return (int)launch_i8<64, false>(p, B, BH, s);
+  if (D == 128) return (int)launch_i8<128, false>(p, B, BH, s);
+  return smb_flash_bwd_i8_narrow(&p, B, BH, stream);
 }
+
+#else  // flash_bwd_i8_narrow.cu
+
+// K7 for a head narrower than its instantiation (NARROW); params: the
+// BwdI8Params that smb_flash_bwd_i8 filled, D a multiple of 8 below 128
+// but 32 and 64
+extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
+                                       void* stream) {
+  const BwdI8Params& p = *static_cast<const BwdI8Params*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.D < 32) return (int)launch_i8<32, true>(p, B, BH, s);
+  if (p.D < 64) return (int)launch_i8<64, true>(p, B, BH, s);
+  return (int)launch_i8<128, true>(p, B, BH, s);
+}
+
+#endif

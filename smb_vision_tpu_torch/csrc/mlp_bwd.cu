@@ -48,8 +48,10 @@
 // of each weight a call (the model holds them as nn.Linear weights).
 // Ragged M, F and contraction tails read as zero through TMA and are not
 // stored (a weight panel wholly past F is not loaded: it feeds only
-// columns that are not stored). K is 128, 256, 384, 512, 768 or 1024; F
-// must be a multiple of 32.
+// columns that are not stored). K is any multiple of 128 (the JAX kernels'
+// rule) and F a multiple of 32: phase 1 takes K as its count of k-steps
+// (K / 64, the ring reused round by round), phase 2 as its count of output
+// columns (K / 128 tiles), and neither holds anything of K's size.
 //
 // What holds it at about a third of the bound on an H100 (chip_smoke.py
 // times it beside its cuBLAS chain; PERF.md has the times): phase 1 moves
@@ -199,8 +201,8 @@ cudaError_t launch_bwd(const CUtensorMap& ta, const CUtensorMap& tb,
 extern "C" int smb_mlp_bwd(const void* h, const void* g, const void* w1t,
                            const void* w2t, void* dx, void* dh, void* a,
                            int M, int K, int F, int act, void* stream) {
-  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K > 1024 ||
-      K % 128 != 0 || (act != 0 && act != 1))
+  if (M <= 0 || F <= 0 || F % 32 != 0 || K <= 0 || K % 128 != 0 ||
+      (act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // phase 1: da = g w2^T, then a and dh

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from smb_vision_tpu_torch.ops.attention import attention, needs_grad
+from smb_vision_tpu_torch.ops.attention import attention
 from smb_vision_tpu_torch.ops.attn_glue import (
     attn_out_residual,
     qkv_ln_forward,
@@ -494,8 +494,7 @@ class Block(nn.Module):
         route = (self.mlp_impl == "pallas"
                  or (self.mlp_impl == "auto" and auto_routes(
                      x.shape[-1], self.mlp.fc1.out_features, self.act,
-                     self.dtype, needs_grad(x, *self.mlp.parameters(),
-                                            *self.norm2.parameters()))))
+                     self.dtype)))
         if route and fusable and self.act in ("gelu", "gelu_new"):
             dt = self.dtype
             w1 = self.mlp.fc1.weight_full().to(dt).t()

@@ -2,8 +2,7 @@
 
 Counterpart of `smb_vision_tpu/ops/attention.py`. The public functions keep
 the JAX package's `(B, N, H, D)` layout. Five hand-written CUDA kernels
-stand behind them, the forward ones (K1, K3, K8) at every head width up
-to 128 and the backward ones (K4, K7) at 32, 64 and 128:
+stand behind them, at every head width up to 128:
 
 - K1 `flash_attention` (`csrc/flash_fwd.cu`): bf16 flash forward with the
   row logsumexp (replaces `_fwd_kernel`), on wgmma with q, k, v read by
@@ -28,16 +27,15 @@ The int8 operands of K3, K7 and K8 come from one more kernel,
 quantisation `quantize_per_head`, bit for bit, which the JAX package
 leaves to XLA. It also writes v8 straight in the layout K8 reads.
 
-Head widths. The forward kernels run a head of width d on the
-instantiation of the next of 32, 64 and 128 up (`_tile_width`): bf16
-operands are read in place by TMA maps whose global width is d (the
-columns past d read as zero), int8 codes are written by R6 at the
-instantiation's width with zero columns past d, and only d columns are
-stored. A d that is not a multiple of 8 is padded with zeros by a copy
-first, as the JAX `attention` pads it, and the output is cut back. Under
-autograd the backward kernels take 32, 64 and 128 only: "auto" runs the
-plain attention at another width, and a forced kernel impl refuses it
-(`_refuse_grad_width`).
+Head widths. The kernels run a head of width d on the instantiation of
+the next of 32, 64 and 128 up (`_tile_width`): bf16 operands are read in
+place by TMA maps whose global width is d (the columns past d read as
+zero), int8 codes are written by R6 at the instantiation's width with
+zero columns past d, and only d columns are stored. A d that is not a
+multiple of 8 is padded with zeros by a copy first, as the JAX
+`attention` pads it, and the outputs are cut back (the backward's: do
+padded, dq, dk and dv cut). Past 128 no kernel runs: "auto" takes the
+plain attention, and a forced kernel impl raises on the card.
 
 K1 with K4 or K7 forms one `torch.autograd.Function`, the counterpart of
 the JAX package's `jax.custom_vjp` around `_flash`/`_flash_i8b`/
@@ -67,9 +65,8 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
-# head widths the backward kernels (K4, K7) take, and the widths of the
-# instantiations of all five: the forward kernels (K1, K3, K8) and R6 run
-# any width up to _FLASH_MAX_D on the next of these up (`_tile_width`)
+# the widths of the instantiations of the five flash kernels: they and R6
+# run any width up to _FLASH_MAX_D on the next of these up (`_tile_width`)
 _FLASH_HEAD_DIMS = (32, 64, 128)
 _FLASH_MAX_D = 128
 
@@ -78,20 +75,6 @@ def _tile_width(d: int) -> int:
     """The head width of the kernel instantiation that runs heads of
     width d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS up."""
     return next(w for w in _FLASH_HEAD_DIMS if d <= w)
-
-
-def _refuse_grad_width(d: int, impl: str) -> None:
-    """Raise for autograd through a forced kernel impl at a head width
-    that K1 takes and the backward kernels do not. Past _FLASH_MAX_D the
-    kernel wrappers refuse the width themselves on the card."""
-    if d <= _FLASH_MAX_D and d not in _FLASH_HEAD_DIMS:
-        from smb_vision_tpu_torch.utils.args import not_ported
-
-        raise not_ported(
-            f"autograd through attn_impl {impl!r} at head width {d} (the "
-            f"backward kernels K4 and K7 take {_FLASH_HEAD_DIMS})",
-            "train-widths", "attn_impl 'auto' or 'xla', whose plain "
-            "attention trains at any width")
 
 
 def _pad8(*ts):
@@ -329,12 +312,10 @@ def quantize_v_kernel_layout(v8, width: Optional[int] = None):
         .contiguous()
 
 
-def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1",
-               backward: bool = False):
-    """Raise for operands a flash kernel does not take: the forward ones
-    take a head width that is a multiple of 8 up to _FLASH_MAX_D (the
-    wrappers pad any other up to one), the backward ones (backward) 32, 64
-    or 128."""
+def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1"):
+    """Raise for operands a flash kernel does not take: a head width that
+    is a multiple of 8 up to _FLASH_MAX_D (the wrappers pad any other up
+    to one), q and k of qk_dtype, v bf16, rows 16-byte aligned."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Nq, H, D) and k, v (B, Nk, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -343,10 +324,7 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1",
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch, heads or head width")
-    if backward and d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash kernel {kernel} takes head width "
-                         f"{_FLASH_HEAD_DIMS}, got {d}")
-    if not backward and (d % 8 or d > _FLASH_MAX_D):
+    if d % 8 or d > _FLASH_MAX_D:
         raise ValueError(f"flash kernel {kernel} takes a head width that is "
                          f"a multiple of 8 up to {_FLASH_MAX_D}, got {d}")
     if q.dtype != qk_dtype or k.dtype != qk_dtype or v.dtype != torch.bfloat16:
@@ -422,8 +400,9 @@ def _tma_geometry(t, rows: int):
 
 
 def _count_launch(wrapper, d: int) -> None:
-    """One launch of the wrapper's kernel at head width d: `launches`
-    counts all of them, `launches_by_width` those of each width."""
+    """One launch of the wrapper's kernel at width d (a head's; K5a's and
+    K5b's K): `launches` counts all of them, `launches_by_width` those of
+    each width."""
     wrapper.launches += 1
     wrapper.launches_by_width[d] = wrapper.launches_by_width.get(d, 0) + 1
 
@@ -527,7 +506,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
     optional cotangent of lse2, folded into delta as the JAX package does.
     Returns dq, dk, dv. delta = rowsum(do*out) is taken in plain torch
     beforehand, as the JAX package takes it in XLA. CPU tensors take
-    `attention_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    `attention_bwd_plain`; CUDA tensors launch the kernel or raise (a D
+    that is no multiple of 8 padded by a copy, dq, dk and dv cut back)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -536,10 +516,13 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16, "K4", backward=True)
+    d0 = q.shape[-1]
+    do = do.to(torch.bfloat16)
+    q, k, v, out, do = _pad8(q, k, v, out, do)
+    _check_qkv(q, k, v, torch.bfloat16, "K4")
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    do = do.to(torch.bfloat16).contiguous()
+    do = do.contiguous()
     if do.shape != q.shape or lse.shape != (b, h, nq):
         raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} do not fit q "
@@ -561,26 +544,29 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
         scale, scale * LOG2E, _build.stream_ptr(q.device))
     _build.check(rc, "flash_bwd")
     _count_launch(flash_attention_bwd, d)
-    return dq, dk, dv
+    return _cut(dq, d0), _cut(dk, d0), _cut(dv, d0)
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_width = {}
 
 
-def _i8_operands(q, k, v, do, scale: float, quant=_quantize):
+def _i8_operands(q, k, v, do, scale: float, quant=_quantize,
+                 width: Optional[int] = None):
     """The int8 operands of K7, quantised as the JAX `_bwd` (i8=True)
     does: q8 of q*scale*log2(e), k8, v8, do8, and the scale products sqk =
     sq*sk, sdv = sdo*sv (f32, (B, H)); by the kernel on CUDA tensors
-    (`quant=quantize_per_head` for the plain version)."""
-    q8, sq = quant(q, scale * LOG2E)
-    k8, sk = quant(k)
-    v8, sv = quant(v)
+    (`quant=quantize_per_head` for the plain version); with width, the
+    codes' rows hold `width` bytes, zeros past D (K7's instantiation's,
+    `_tile_width(D)`)."""
+    q8, sq = quant(q, scale * LOG2E, width=width)
+    k8, sk = quant(k, width=width)
+    v8, sv = quant(v, width=width)
     # a head whose cotangent is all zero (a pipeline's bubble tick, a
     # stage's masked outputs) takes the scale 0, not the guard's 1: the
     # kernel reads dp * sdv - delta in one FFMA whose bias rounds by half a
     # unit of sdv, noise against an exact zero there
-    do8, sdo = quant(do, zero_scale=True)
+    do8, sdo = quant(do, zero_scale=True, width=width)
     return q8, k8, v8, do8, (sq * sk).contiguous(), (sdo * sv).contiguous()
 
 
@@ -630,9 +616,12 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
                            scale: Optional[float] = None, g_lse=None):
     """K7: the flash-attention backward with int8 score recompute, the
     arguments and results of `flash_attention_bwd`. The int8 operands and
-    their scales come from the quantisation kernel beforehand, delta from
-    plain torch, as the JAX package makes them in XLA. CPU tensors take
-    `attention_bwd_i8_plain`; CUDA tensors launch the kernels or raise."""
+    their scales come from the quantisation kernel beforehand (rows of the
+    instantiation's width, zeros past D), delta from plain torch, as the
+    JAX package makes them in XLA. CPU tensors take
+    `attention_bwd_i8_plain`; CUDA tensors launch the kernels or raise (a
+    D that is no multiple of 8 padded by a copy, dq, dk and dv cut
+    back)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -641,25 +630,34 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_i8 runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_qkv(q, k, v, torch.bfloat16, "K7", backward=True)
-    b, nq, h, _ = q.shape
-    do = do.to(torch.bfloat16).contiguous()
+    d0 = q.shape[-1]
+    do = do.to(torch.bfloat16)
+    q, k, v, out, do = _pad8(q, k, v, out, do)
+    _check_qkv(q, k, v, torch.bfloat16, "K7")
+    b, nq, h, d = q.shape
+    do = do.contiguous()
     if do.shape != q.shape or lse.shape != (b, h, nq):
         raise ValueError(f"flash_attention_bwd_i8: do {tuple(do.shape)} and "
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     for t in (q, k, do):
         _tma_geometry(t, 128)
-    ops = _i8_operands(q, k, v, do, scale)
-    return _launch_bwd_i8(q, k, do, out, lse, ops, scale, g_lse)
+    ops = _i8_operands(q, k, v, do, scale, width=_tile_width(d))
+    dq, dk, dv = _launch_bwd_i8(q, k, do, out, lse, ops, scale, g_lse)
+    return _cut(dq, d0), _cut(dk, d0), _cut(dv, d0)
 
 
 def _launch_bwd_i8(q, k, do, out, lse, ops, scale: float, g_lse=None):
     """K7's kernel on its quantised operands ops = (q8, k8, v8, do8, sqk,
-    sdv), as `_i8_operands` makes them; returns dq, dk, dv."""
+    sdv), as `_i8_operands` makes them (rows of `_tile_width(D)` codes for
+    q's head width D, a multiple of 8); returns dq, dk, dv."""
     q8, k8, v8, do8, sqk, sdv = ops
     b, nq, h, d = q.shape
     nk = k.shape[1]
+    if q8.shape[-1] != _tile_width(d):
+        raise ValueError(f"K7: codes of width {q8.shape[-1]} for heads of "
+                         f"{d}; _i8_operands writes {_tile_width(d)} with "
+                         "its width")
     for t in (q8, k8, v8, do8):
         _tma_geometry(t, 128)
     delta = _delta(do, out, g_lse)
@@ -721,8 +719,6 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if needs_grad(q, k, v):
-        _refuse_grad_width(q.shape[-1], "pallas_i8bwd" if int8_backward
-                           else "pallas")
         out, lse = _FlashAttention.apply(q, k, v, scale, int8_backward)
         return (out, lse) if with_lse else out
     return _flash_fwd(q, k, v, scale, with_lse)
@@ -841,14 +837,13 @@ _IMPLS = ("auto", "xla", "pallas", "pallas_i8bwd", "pallas_int8",
           "pallas_int8pv")
 
 
-def _auto_impl(q, bias, grad: bool = False) -> str:
-    """What "auto" runs: K1 for bf16 inputs without bias whose head width
-    the kernels take (under autograd, grad, the backward kernels' widths;
-    otherwise any up to _FLASH_MAX_D), else the plain version (the kernels
-    compute in bf16, so an f32 model must not silently degrade)."""
-    d = q.shape[-1]
+def _auto_impl(q, bias) -> str:
+    """What "auto" runs: K1 (and K4 under autograd) for bf16 inputs
+    without bias whose head width the kernels take, any up to
+    _FLASH_MAX_D, else the plain version (the kernels compute in bf16, so
+    an f32 model must not silently degrade)."""
     maps = (bias is None and q.dtype == torch.bfloat16
-            and (d in _FLASH_HEAD_DIMS or (not grad and d <= _FLASH_MAX_D)))
+            and q.shape[-1] <= _FLASH_MAX_D)
     return "pallas" if maps else "xla"
 
 
@@ -865,7 +860,7 @@ def attention(q, k, v, *, scale: Optional[float] = None, bias=None,
         raise ValueError(f"unknown attention impl {impl!r}; valid: "
                          + ", ".join(repr(i) for i in _IMPLS))
     if impl == "auto":
-        impl = _auto_impl(q, bias, needs_grad(q, k, v))
+        impl = _auto_impl(q, bias)
     if impl == "xla":
         return xla_attention(q, k, v, scale=scale, bias=bias)
     if bias is not None:
@@ -891,7 +886,7 @@ def attention_with_lse(q, k, v, *, scale: Optional[float] = None,
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
-        impl = _auto_impl(q, None, needs_grad(q, k, v))
+        impl = _auto_impl(q, None)
     if impl == "xla":
         return xla_attention(q, k, v, scale=scale, with_lse=True)
     return flash_attention(q, k, v, scale=scale, with_lse=True,

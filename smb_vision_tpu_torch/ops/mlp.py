@@ -25,14 +25,11 @@ backward (the plain version differentiated again), and mlp_impl
 "pallas_bwd" trains through K5a + K5b, the counterpart of
 `_mlp_fused_tb`. Each wrapper runs the plain version for CPU tensors and
 launches its kernel for CUDA tensors; there is no fallback between the
-two. `launches` on each wrapper counts calls that launched the kernel.
+two. `launches` on each wrapper counts calls that launched the kernel
+(K5a's and K5b's also by K, `launches_by_width`).
 
-Widths. The forward kernels (K2, K6, K9) take every K that is a multiple
-of 128, the JAX kernels' rule, and F a multiple of 32. On a training path
-(under autograd, and K5a and K5b always) K stays in `_TRAIN_K` (K9 also
-1,536): the backward kernel K5b stops at 1,024, and "auto" runs the plain
-MLP at a wider K while a forced kernel impl refuses it
-(`_refuse_train_width`).
+Widths. All five take every K that is a multiple of 128, the JAX
+kernels' rule, and F a multiple of 32, under autograd too.
 """
 
 from __future__ import annotations
@@ -41,14 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from smb_vision_tpu_torch.ops import _build
-from smb_vision_tpu_torch.ops.attention import needs_grad
+from smb_vision_tpu_torch.ops.attention import _count_launch, needs_grad
 
 _ACTS = {"gelu": 0, "gelu_new": 1}
 _KERNEL_K_STEP = 128
 _KERNEL_F_STEP = 32
-# the K a training path takes (K5a and K5b; K2, K6 and K9 under autograd)
-_TRAIN_K = (128, 256, 384, 512, 768, 1024)
-_SWIGLU_TRAIN_K = _TRAIN_K + (1536,)   # K9 also at the DINOv2-giant width
 # K2, K6, K5a and K9 run their rows in chunks of at most this many through
 # a bf16 (rows, F) workspace (and, for K2 and K9, a (rows, K) one for
 # LN(x)), so the workspace does not grow with M: 201 MB at F 3,072, 268 MB
@@ -140,24 +134,11 @@ def _mlp_block_xla(x, lnw, lnb, w1, b1, w2, b2, act: str, eps: float):
     return x + _mlp_xla(xn.to(x.dtype), w1, b1, w2, b2, act)
 
 
-def kernel_maps(k: int, f: int, act: str, train: bool = False) -> bool:
-    """Whether the fused kernels take this (K, F, act); rows are free.
-    With train, whether a training path takes it (K in _TRAIN_K)."""
-    k_ok = k in _TRAIN_K if train else (k > 0 and k % _KERNEL_K_STEP == 0)
-    return k_ok and f > 0 and f % _KERNEL_F_STEP == 0 and act in _ACTS
-
-
-def _refuse_train_width(k: int, ks: tuple, what: str) -> None:
-    """Raise for a training path (autograd through a forced kernel impl,
-    or K5a / K5b) at a K outside ks, the K the backward kernel K5b (or
-    the recompute's rule for K9) takes."""
-    if k not in ks:
-        from smb_vision_tpu_torch.utils.args import not_ported
-
-        raise not_ported(
-            f"{what} at K {k} on a training path (the MLP kernels train at "
-            f"K in {ks})", "train-widths",
-            "mlp_impl 'auto' or 'xla', whose plain MLP trains at any width")
+def kernel_maps(k: int, f: int, act: str) -> bool:
+    """Whether the fused kernels take this (K, F, act), forward and
+    training alike; rows are free."""
+    return (k > 0 and k % _KERNEL_K_STEP == 0 and f > 0
+            and f % _KERNEL_F_STEP == 0 and act in _ACTS)
 
 
 def _check_mlp_shape(k: int, f: int, act: str, name: str) -> None:
@@ -201,8 +182,6 @@ def _launch_mlp(x2, lnw, lnb, w1, b1, w2, b2, act, eps, name,
     m, k = x2.shape
     f = w1.shape[1]
     _check_mlp_shape(k, f, act, name)
-    if spill:
-        _refuse_train_width(k, _TRAIN_K, "K5a")
     if w1.shape != (k, f) or w2.shape != (f, k):
         raise ValueError(f"{name}: w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)} do not fit x {tuple(x2.shape)}")
@@ -335,11 +314,12 @@ def mlp_train_fused(x2, w1, b1, w2, b2, *, act: str = "gelu"):
         return _mlp_train_plain(x2, w1, b1, w2, b2, act)
     y, h = _launch_mlp(x2, None, None, w1, b1, w2, b2, act, 0.0,
                        "mlp_train_fwd", spill=True)
-    mlp_train_fused.launches += 1
+    _count_launch(mlp_train_fused, x2.shape[1])
     return y, h
 
 
 mlp_train_fused.launches = 0
+mlp_train_fused.launches_by_width = {}
 
 
 def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
@@ -352,7 +332,6 @@ def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
     m, f = h.shape
     k = g2.shape[1]
     _check_mlp_shape(k, f, act, "mlp_bwd")
-    _refuse_train_width(k, _TRAIN_K, "K5b")
     if g2.shape != (m, k) or w1.shape != (k, f) or w2.shape != (f, k):
         raise ValueError(f"mlp_bwd: h {tuple(h.shape)}, g {tuple(g2.shape)}"
                          f", w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} do "
@@ -375,11 +354,12 @@ def mlp_bwd_fused(h, g2, w1, w2, *, act: str = "gelu"):
         dx.data_ptr(), dh.data_ptr(), a.data_ptr(), m, k, f, _ACTS[act],
         _build.stream_ptr(h.device))
     _build.check(rc, "mlp_bwd")
-    mlp_bwd_fused.launches += 1
+    _count_launch(mlp_bwd_fused, k)
     return dx, dh, a
 
 
 mlp_bwd_fused.launches = 0
+mlp_bwd_fused.launches_by_width = {}
 
 
 class _MlpTrain(torch.autograd.Function):
@@ -422,24 +402,21 @@ def mlp_pallas_bwd(x2, w1, b1, w2, b2, *, act: str = "gelu"):
     return mlp_fused(x2, w1, b1, w2, b2, act=act)
 
 
-def auto_routes(k: int, f: int, act: str, dtype, train: bool) -> bool:
+def auto_routes(k: int, f: int, act: str, dtype) -> bool:
     """Whether mlp impl 'auto' sends an MLP of (K, F, act) in dtype to a
     fused kernel: only in bf16 (the kernels compute in bf16, so an f32
-    model must not silently degrade), at a shape that maps, and under
-    autograd (train) at a K a training path takes."""
-    return dtype == torch.bfloat16 and kernel_maps(k, f, act, train=train)
+    model must not silently degrade) and at a shape that maps."""
+    return dtype == torch.bfloat16 and kernel_maps(k, f, act)
 
 
-def _route(impl: str, x, w1, b1, b2, act: str, kernel_impls,
-           train: bool = False) -> bool:
+def _route(impl: str, x, w1, b1, b2, act: str, kernel_impls) -> bool:
     """True when the call goes to a fused kernel: under 'auto' as
     `auto_routes` decides, with both biases; a forced kernel impl that
-    cannot map raises, and under autograd (train) one at a K no training
-    path takes."""
+    cannot map raises."""
     k, f = x.shape[-1], w1.shape[1]
     maps = b1 is not None and b2 is not None and kernel_maps(k, f, act)
     if impl == "auto":
-        return maps and auto_routes(k, f, act, x.dtype, train)
+        return maps and auto_routes(k, f, act, x.dtype)
     if impl in kernel_impls:
         if not maps:
             raise ValueError(
@@ -447,8 +424,6 @@ def _route(impl: str, x, w1, b1, b2, act: str, kernel_impls,
                 f"w1={tuple(w1.shape)}, act={act!r}: K a multiple of "
                 f"{_KERNEL_K_STEP}, F a multiple of {_KERNEL_F_STEP}, "
                 "biases present")
-        if train:
-            _refuse_train_width(k, _TRAIN_K, f"mlp impl={impl!r}")
         return True
     return False
 
@@ -462,8 +437,7 @@ def mlp_forward(x, w1, b1, w2, b2, *, act: str = "gelu", impl: str = "auto"):
     if impl not in ("auto", "pallas", "pallas_bwd", "xla"):
         raise ValueError(f"unknown mlp impl {impl!r}; "
                          "valid: 'auto', 'pallas', 'pallas_bwd', 'xla'")
-    if not _route(impl, x, w1, b1, b2, act, ("pallas", "pallas_bwd"),
-                  needs_grad(x, w1, b1, w2, b2)):
+    if not _route(impl, x, w1, b1, b2, act, ("pallas", "pallas_bwd")):
         return _mlp_xla(x, w1, b1, w2, b2, act)
     fused = mlp_pallas_bwd if impl == "pallas_bwd" else mlp_fused
     y = fused(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, act=act)
@@ -479,8 +453,7 @@ def mlp_block_forward(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown mlp impl {impl!r}; "
                          "valid: 'auto', 'pallas', 'xla'")
-    if not _route(impl, x, w1, b1, b2, act, ("pallas",),
-                  needs_grad(x, ln_scale, ln_bias, w1, b1, w2, b2)):
+    if not _route(impl, x, w1, b1, b2, act, ("pallas",)):
         return _mlp_block_xla(x, ln_scale, ln_bias, w1, b1, w2, b2, act,
                               eps)
     y = mlp_block_fused(x.reshape(-1, x.shape[-1]), ln_scale, ln_bias, w1,
@@ -520,12 +493,11 @@ def _swiglu_block_plain(x2, lnw, lnb, w_in, b_in, w_out, b_out,
     return y.to(bf16)
 
 
-def swiglu_kernel_maps(k: int, f: int, train: bool = False) -> bool:
-    """Whether K9 takes this (K, F); rows are free. With train, whether it
-    takes it under autograd (K in _SWIGLU_TRAIN_K)."""
-    k_ok = (k in _SWIGLU_TRAIN_K if train
-            else k > 0 and k % _KERNEL_K_STEP == 0)
-    return k_ok and f > 0 and f % _KERNEL_F_STEP == 0
+def swiglu_kernel_maps(k: int, f: int) -> bool:
+    """Whether K9 takes this (K, F), forward and under autograd alike; rows
+    are free."""
+    return (k > 0 and k % _KERNEL_K_STEP == 0 and f > 0
+            and f % _KERNEL_F_STEP == 0)
 
 
 def _swiglu_block_fwd(x2, lnw, lnb, w_in, b_in, w_out, b_out, eps: float):
@@ -622,9 +594,6 @@ def swiglu_block_forward(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, *,
             f"swiglu block impl='pallas' cannot map x={tuple(x.shape)}, "
             f"w_in={tuple(w_in.shape)}: K a multiple of {_KERNEL_K_STEP}, "
             f"F a multiple of {_KERNEL_F_STEP}")
-    if needs_grad(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out):
-        _refuse_train_width(x.shape[-1], _SWIGLU_TRAIN_K,
-                            "swiglu block impl='pallas'")
     y = swiglu_block_fused(x.reshape(-1, x.shape[-1]), ln_scale, ln_bias,
                            w_in, b_in, w_out, b_out, eps=eps)
     return y.reshape(x.shape).to(x.dtype)

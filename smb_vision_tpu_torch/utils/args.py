@@ -21,7 +21,6 @@ from typing import List, Optional, Sequence, Type, Union, get_args, get_origin
 # bold heading as ROADMAP.md writes it, without a closing full stop)
 ROADMAP_ITEMS = {
     "multi-gpu": (1, 9, "Multi-GPU"),
-    "train-widths": (2, 5, "G5: the training half of G2 and G3"),
 }
 
 

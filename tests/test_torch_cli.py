@@ -427,17 +427,18 @@ def test_refusals_cite_roadmap_items():
                                 "true", "--sharding_policy", "fsdp+tp"]),
         lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
                              "--sliding_window", "true"]),
-        # the forward kernels take head widths up to 128 and MLP widths
-        # past 1,024 (queue 2 items 2 and 3); their training half (item
-        # 5) is refused under autograd through a forced kernel impl
-        lambda: attention(torch.zeros(1, 8, 2, 72, requires_grad=True),
-                          torch.zeros(1, 8, 2, 72), torch.zeros(1, 8, 2, 72),
-                          impl="pallas"),
-        lambda: mlp_forward(torch.zeros(2, 1280, requires_grad=True),
-                            torch.zeros(1280, 64), torch.zeros(64),
-                            torch.zeros(64, 1280), torch.zeros(1280),
-                            impl="pallas_bwd"),
     ]
+    # the kernels take head widths up to 128 and MLP widths past 1,024
+    # (queue 2 items 2 and 3), under autograd too (item 5): a forced kernel
+    # impl trains there (its plain versions on the CPU)
+    q = torch.zeros(1, 8, 2, 72, requires_grad=True)
+    attention(q, torch.zeros(1, 8, 2, 72), torch.zeros(1, 8, 2, 72),
+              impl="pallas").sum().backward()
+    x = torch.zeros(2, 1280, requires_grad=True)
+    mlp_forward(x, torch.zeros(1280, 64), torch.zeros(64),
+                torch.zeros(64, 1280), torch.zeros(1280),
+                impl="pallas_bwd").sum().backward()
+    assert q.grad is not None and x.grad is not None
     # W8A8 (queue 1 item 10) and head width 32 in K3 and K8 (queue 2 item
     # 1) are ported: --quant8 runs past the refusals (the CLI stops only
     # for want of data), quant8 Blocks build and K3 and K8 take d 32 (on

@@ -152,8 +152,7 @@ def test_forward_kernels_take_every_head_width(cuda, n, d):
     against their plain versions, one launch each, the output of width d;
     R6 writes the codes at the instantiation's width, bit for bit
     `quantize_per_head`'s on the first d columns and zeros past them, in
-    both layouts; under autograd "auto" runs the plain attention and a
-    forced kernel impl refuses."""
+    both layouts; under autograd "auto" runs K1 and K4 at the width."""
     gen = torch.Generator(device=cuda).manual_seed(29)
     q, k, v = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
                 * 0.4).to(torch.bfloat16) for _ in range(3)]
@@ -186,10 +185,40 @@ def test_forward_kernels_take_every_head_width(cuda, n, d):
         assert torch.equal(s, sv)
         assert torch.equal(vt, A.quantize_v_kernel_layout(v8, w))
     leaf = q.detach().requires_grad_()
+    before = (A.flash_attention.launches, A.flash_attention_bwd.launches)
     got = A.attention(leaf, k, v, impl="auto")
-    assert torch.equal(got, A.xla_attention(q, k, v))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        A.attention(leaf, k, v, impl="pallas")
+    assert torch.equal(got, out)
+    got.float().sum().backward()
+    assert (A.flash_attention.launches,
+            A.flash_attention_bwd.launches) == tuple(c + 1 for c in before)
+    assert leaf.grad.shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", _WIDTHS)
+def test_backward_kernels_take_every_head_width(cuda, n, d):
+    """K4 and K7 at a head width past 32 / 64 / 128 (on the next
+    instantiation up; 20 and 100 padded by a copy) against their plain
+    versions, with an lse2 cotangent, one launch each at the instantiation
+    of the padded width, dq, dk and dv of width d; K7 on R6's codes at the
+    instantiation's width."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    q, k, v, do = [(torch.randn((2, n, 3, d), generator=gen, device=cuda)
+                    * 0.4).to(torch.bfloat16) for _ in range(4)]
+    g_lse = torch.randn((2, 3, n), generator=gen, device=cuda) * 0.1
+    scale = 1.0 / math.sqrt(d)
+    out, lse = A.flash_attention(q, k, v, with_lse=True)
+    d8 = d + (-d % 8)
+    for kernel, plain in ((A.flash_attention_bwd, A.attention_bwd_plain),
+                          (A.flash_attention_bwd_i8,
+                           A.attention_bwd_i8_plain)):
+        before = kernel.launches_by_width.get(d8, 0)
+        got = kernel(q, k, v, out, lse, do, g_lse=g_lse)
+        assert kernel.launches_by_width[d8] == before + 1
+        want = plain(q, k, v, out, lse, do, scale=scale, g_lse=g_lse)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape == q.shape
+            assert _rel(a, b) <= 2e-2
 
 
 # K past 1,024 in the MLP forward kernels (ViT-H's 1,280, 2,048, SigLIP
@@ -203,8 +232,8 @@ _MLP_WIDE = [(129, 1280, 5120), (100, 2048, 1024), (33, 1152, 4608),
 def test_mlp_kernels_take_wide_k(cuda, m, k, f):
     """K2, K6 and K9 at a K outside the earlier list (the runtime-K
     LayerNorm pass for K2 and K9) against their plain versions, one launch
-    each; a training path refuses those K: K5a, and autograd through
-    mlp_impl "pallas_bwd"."""
+    each; a training path takes those K too: autograd through mlp_impl
+    "pallas_bwd" launches K5a and K5b."""
     gen = torch.Generator(device=cuda).manual_seed(31)
 
     def r(*shape, s=1.0):
@@ -228,12 +257,41 @@ def test_mlp_kernels_take_wide_k(cuda, m, k, f):
     assert _rel(ys, want) <= 8e-3
     assert (M.mlp_block_fused.launches, M.mlp_fused.launches,
             M.swiglu_block_fused.launches) == tuple(c + 1 for c in before)
-    if k not in M._TRAIN_K:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            M.mlp_train_fused(x, w1, b1, w2, b2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            M.mlp_forward(x.detach().float().requires_grad_(), w1, b1, w2,
-                          b2, impl="pallas_bwd")
+    before = (M.mlp_train_fused.launches, M.mlp_bwd_fused.launches)
+    xg = x.detach().float().requires_grad_()
+    M.mlp_forward(xg, w1, b1, w2, b2, impl="pallas_bwd").sum().backward()
+    assert (M.mlp_train_fused.launches,
+            M.mlp_bwd_fused.launches) == tuple(c + 1 for c in before)
+    assert xg.grad.shape == x.shape and bool(xg.grad.isfinite().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,f", _MLP_WIDE)
+@pytest.mark.parametrize("act", ["gelu", "gelu_new"])
+def test_mlp_train_kernels_take_wide_k(cuda, m, k, f, act):
+    """K5a (y and the spilled h) and K5b (dx, dh, a) at K past 1,024 and
+    between the earlier list's widths against their plain versions, within
+    3e-2 of max (the JAX package's bound for its pair), one launch
+    each."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * s
+
+    x, g = r(m, k).to(torch.bfloat16), r(m, k).to(torch.bfloat16)
+    w1 = r(f, k, s=k ** -0.5).to(torch.bfloat16).t()
+    w2 = r(k, f, s=f ** -0.5).to(torch.bfloat16).t()
+    b1, b2 = r(f, s=0.1), r(k, s=0.1)
+    before = (M.mlp_train_fused.launches, M.mlp_bwd_fused.launches)
+    y, h = M.mlp_train_fused(x, w1, b1, w2, b2, act=act)
+    y_ref, h_ref = M._mlp_train_plain(x, w1, b1, w2, b2, act)
+    assert _rel(y, y_ref) <= 3e-2 and _rel(h, h_ref) <= 3e-2
+    got = M.mlp_bwd_fused(h, g, w1, w2, act=act)
+    want = M._mlp_bwd_plain(h, g, w1, w2, act)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 3e-2
+    assert (M.mlp_train_fused.launches,
+            M.mlp_bwd_fused.launches) == tuple(c + 1 for c in before)
 
 
 @pytest.mark.cuda

@@ -273,15 +273,15 @@ def test_attention_impl_names():
     a = tattn.attention(q, k, v, impl="pallas_i8bwd")
     b = tattn.attention(q, k, v, impl="auto")
     assert torch.equal(a, b)
-    # auto takes K1 only where it maps: bf16, no bias, any head width up
-    # to 128 without autograd, 32 / 64 / 128 (the backward kernels') with it
+    # auto takes K1 (and K4 under autograd) only where it maps: bf16, no
+    # bias, any head width up to 128
     assert tattn._auto_impl(q, None) == "pallas"
     assert tattn._auto_impl(q, torch.zeros(1, 2, 16, 16)) == "xla"
     assert tattn._auto_impl(q.float(), None) == "xla"
     assert tattn._auto_impl(q[..., :32], None) == "pallas"
     assert tattn._auto_impl(q[..., :16], None) == "pallas"
-    assert tattn._auto_impl(q[..., :16], None, grad=True) == "xla"
-    assert tattn._auto_impl(q[..., :32], None, grad=True) == "pallas"
+    wide = torch.zeros(1, 16, 2, 136, dtype=torch.bfloat16)
+    assert tattn._auto_impl(wide, None) == "xla"
 
 
 def _mlp_params(k=128, f=512):

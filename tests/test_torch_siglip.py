@@ -291,17 +291,15 @@ def test_run_encoders_siglip_cli_matches_jax(tmp_path, pair):
 def test_so400m_shapes_take_the_plain_path():
     """SigLIP so400m-patch14-384 (hidden 1,152, 16 heads of 72, MLP
     4,304; ROADMAP.md queue 2, G3): "auto" runs the attention on K1 at d
-    72 (the plain attention under autograd, where the backward kernels do
-    not take d 72) and the MLP on the plain path, as the JAX package does
-    (its `_plan_with` refuses F 4,304, no multiple of 128; here no
-    multiple of 32), and a forced kernel impl refuses the MLP. K 1,152
-    itself maps."""
+    72 (with K4 under autograd) and the MLP on the plain path, as the JAX
+    package does (its `_plan_with` refuses F 4,304, no multiple of 128;
+    here no multiple of 32), and a forced kernel impl refuses the MLP. K
+    1,152 itself maps."""
     from smb_vision_tpu_torch.ops import attention as A
     from smb_vision_tpu_torch.ops import mlp as M
 
     q = torch.zeros(1, 729, 16, 72, dtype=torch.bfloat16)
     assert A._auto_impl(q, None) == "pallas"
-    assert A._auto_impl(q, None, grad=True) == "xla"
     assert A._auto_impl(q.float(), None) == "xla"
     assert not M.kernel_maps(1152, 4304, "gelu_new")
     assert M.kernel_maps(1152, 4608, "gelu_new")

@@ -182,43 +182,63 @@ def test_mlp_widths_match_jax_pallas(k, f):
 
 
 def test_routing_of_the_new_widths(monkeypatch):
-    """"auto" takes K1 at d 72 without a gradient and the plain attention
-    under autograd; a forced kernel impl under autograd raises, naming the
-    ROADMAP item of the training half; the same for the MLP at K 1,280;
-    `kernel_maps` and the TMA maps of d 72 and 80 (bf16 read in place,
-    the box past d reading zeros) and of the padded int8 codes."""
+    """"auto" takes K1 at d 72, 80 and 100 with and without a gradient
+    (K4's route under autograd) and the plain attention past 128; a forced
+    kernel impl trains at those widths (K4's or K7's route); the MLP
+    kernels take K 1,280 under autograd too ("pallas", "pallas_bwd", K9's
+    "pallas"); `kernel_maps` and the TMA maps of d 72 and 80 (bf16 read in
+    place, the box past d reading zeros) and of the padded int8 codes."""
     calls = []
-    flash, plain = tattn._flash_fwd, tattn.xla_attention
-    monkeypatch.setattr(tattn, "_flash_fwd", lambda *a, **kw: (
-        calls.append("K1"), flash(*a, **kw))[1])
-    monkeypatch.setattr(tattn, "xla_attention", lambda *a, **kw: (
-        calls.append("plain"), plain(*a, **kw))[1])
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    for name, label in (("_flash_fwd", "K1"), ("xla_attention", "plain"),
+                        ("attention_bwd_plain", "K4"),
+                        ("attention_bwd_i8_plain", "K7")):
+        monkeypatch.setattr(tattn, name, counted(label,
+                                                 getattr(tattn, name)))
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv(1, 16, 72))
     tattn.attention(q, k, v)
     assert calls == ["K1", "plain"]      # K1's plain version on the CPU
+    for d in (72, 80, 100):
+        assert tattn._auto_impl(torch.zeros(1, 16, 2, d,
+                                            dtype=torch.bfloat16),
+                                None) == "pallas"
+        calls.clear()
+        leaf = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16,
+                           requires_grad=True)
+        kv = torch.zeros(1, 16, 2, d, dtype=torch.bfloat16)
+        tattn.attention(leaf, kv, kv).float().sum().backward()
+        assert calls == ["K1", "plain", "K4"] and leaf.grad is not None
+    wide = torch.zeros(1, 16, 2, 136, dtype=torch.bfloat16,
+                       requires_grad=True)
+    assert tattn._auto_impl(wide, None) == "xla"
     calls.clear()
+    tattn.attention(wide, wide.detach(), wide.detach()).float().sum() \
+        .backward()
+    assert calls == ["plain"]
     leaf = q.clone().requires_grad_()
-    tattn.attention(leaf, k, v).float().sum().backward()
-    assert calls == ["plain"] and leaf.grad is not None
-    cite = r"ROADMAP\.md queue 2 item 5, G5: the training half of G2 and G3"
-    for impl in ("pallas", "pallas_i8bwd"):
-        with pytest.raises(NotImplementedError, match=cite):
-            tattn.attention(leaf, k, v, impl=impl)
-        with pytest.raises(NotImplementedError, match=cite):
-            tattn.attention_with_lse(leaf, k, v, impl=impl)
-    # widths the backward kernels take keep K1 (and K4) under autograd
-    assert tattn._auto_impl(leaf[..., :64], None, grad=True) == "pallas"
-    assert tattn._auto_impl(leaf, None, grad=False) == "pallas"
-    assert tattn._auto_impl(torch.zeros(1, 16, 2, 136, dtype=torch.bfloat16),
-                            None) == "xla"
+    for impl, bwd in (("pallas", "K4"), ("pallas_i8bwd", "K7")):
+        for fn in (tattn.attention, tattn.attention_with_lse):
+            calls.clear()
+            leaf.grad = None
+            out = fn(leaf, k, v, impl=impl)
+            (out[0] if isinstance(out, tuple) else out).float().sum() \
+                .backward()
+            assert calls == ["K1", "plain", bwd] and leaf.grad is not None
 
     assert tmlp.kernel_maps(1280, 5120, "gelu")
-    assert not tmlp.kernel_maps(1280, 5120, "gelu", train=True)
+    assert tmlp.auto_routes(1280, 5120, "gelu", torch.bfloat16)
+    assert not tmlp.auto_routes(1280, 5120, "gelu", torch.float32)
     assert not tmlp.kernel_maps(1152, 4304, "gelu_new")
     assert not tmlp.kernel_maps(1216, 5120, "gelu")
     assert tmlp.swiglu_kernel_maps(1280, 1024)
-    assert not tmlp.swiglu_kernel_maps(1280, 1024, train=True)
+    assert tmlp.swiglu_kernel_maps(2048, 5504)
     x = torch.zeros(4, 1280, dtype=torch.bfloat16)
     w1, w2 = torch.zeros(1280, 64), torch.zeros(64, 1280)
     b1, b2 = torch.zeros(64), torch.zeros(1280)
@@ -226,8 +246,14 @@ def test_routing_of_the_new_widths(monkeypatch):
     y = tmlp.mlp_forward(xg, w1, b1, w2, b2)       # "auto": plain in f32
     assert torch.equal(y, tmlp._mlp_xla(xg, w1, b1, w2, b2, "gelu"))
     for impl in ("pallas", "pallas_bwd"):
-        with pytest.raises(NotImplementedError, match=cite):
-            tmlp.mlp_forward(xg, w1, b1, w2, b2, impl=impl)
+        xg.grad = None
+        tmlp.mlp_forward(xg, w1, b1, w2, b2, impl=impl).sum().backward()
+        assert xg.grad is not None and xg.grad.shape == xg.shape
+    xg.grad = None
+    tmlp.swiglu_block_forward(xg, torch.ones(1280), torch.zeros(1280),
+                              torch.zeros(1280, 128), torch.zeros(128),
+                              w2, b2, impl="pallas").sum().backward()
+    assert xg.grad is not None
 
     for d, cols, swz in ((72, 64, 128), (80, 64, 128), (16, 32, 64)):
         t = torch.zeros(1, 729, 16, d, dtype=torch.bfloat16)
