@@ -17,12 +17,14 @@ Merlin's I3D ResNet-152), once on one NVIDIA GPU.
 With --against, phases 1 and 2 run, then `phase_against`: the other
 checkout's kernel library is built too and bound by its own `_build`, the
 kernels this tree did not change (K1, K3, K4, K7 and K8 at head widths
-32, 64 and 128 (K4 and K7 beside their NARROW instantiations, which store
-a narrower head), the MLP forward and backward kernels K2,
+32, 64 and 128 and their NARROW instantiations, which store a narrower
+head, the MLP forward and backward kernels K2,
 K6, K5a, K9 and K5b and the glue K10a and K10b) are compared with it by
 SASS and, through their wrappers (K3, K7 and K8 with each side's
 quantisation kernel), bit for bit; the quantisation, flash, MLP, SwiGLU
-and glue kernels, legs A's, B's and G's models and the MIM step (as
+and glue kernels (K1 and K4 at heads of 80 and 72 too: this tree's d-80
+tiles against the other's d-128 ones), legs A's, B's and G's models and
+the MIM step (as
 shipped and with the glue) and both V-JEPA steps (the _tpu preset, and the
 reference heads under their recommended impls) are timed with either
 library in turns, in one process, and the DINOv2-giant step parity runs
@@ -35,8 +37,9 @@ Phases of the run without arguments, each of which fails the run
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
      IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
-     head width 32, 64 and 128, and in their instantiations that store a
-     narrower head), the nine GEMM instantiations of K2, K6,
+     head width 32, 64 and 128, K1 and K4 also on their tiles of 80
+     columns, and in their instantiations that store a narrower head),
+     the nine GEMM instantiations of K2, K6,
      K5a, K9, K5b, K10a and K10b and the W8A8 product (bf16 and f32 out) in
      the SASS (cuobjdump, where the toolkit has it):
      none of one that a kernel should have fails the run (K3 and K7 need
@@ -86,13 +89,15 @@ Phases of the run without arguments, each of which fails the run
      library chains, with K10a's LayerNorm pass and GEMM timed apart, and
      the glue's forward and backward in one block of the MIM step beside
      the plain path's); then the forward family past the instantiations'
-     widths: K1, K3 and K8 at head width 72 (SigLIP so400m: batch 32, 729
+     widths: K1 (on its tiles of 80 columns), K3 and K8 (on the d-128
+     ones) at head width 72 (SigLIP so400m: batch 32, 729
      tokens, 16 heads) and 80 (ViT-H: 20,480 tokens, 16 heads) against
      their plain versions and timed beside them (K1 beside SDPA and the
      exp2 floor), R6 writing the codes of heads of 80 at width 128 bit for
      bit, K2 and K6 at K 1,280 (F 5,120) beside their cuBLAS chain, and K9
      at K 2,048 beside its chain (a row that no path launches); then the
-     training family past those widths: K4 and K7 at head width 72
+     training family past those widths: K4 (on its tiles of 80 columns)
+     and K7 (on the d-128 ones) at head width 72
      (batch 32, 729 tokens, 16 heads), 80 (K4 at the ViT-H MIM encoder's
      7,168 tokens, K7 at the V-JEPA2 ViT-H encoder's 9,216, 16 heads) and
      100 (padded to 104; a ragged shape with an lse2 cotangent) against
@@ -101,6 +106,10 @@ Phases of the run without arguments, each of which fails the run
      (M 9,216, F 6,144; ViT-g's widths, rows that no path launches)
      beside their plain versions and cuBLAS chains; each kept time with
      its bound and, where one exists, the library call's;
+  3a. card tests: `CARD_TESTS` (tests/test_torch_d80.py: K1 and K4 on the
+     d-80 tiles against their plain versions at the tiles' edges, the
+     instantiation each width launches, the launches by width) under
+     pytest in a process of its own;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
      attention and MLP impls at "auto" (kernels K1 and K2);
   5. leg B: the same with --attn_impl pallas_int8 and a config that pins
@@ -423,14 +432,15 @@ SOURCES = {
                          "smb_vision_tpu/ops/attention.py:244"),
     "flash_fwd_i8pv d32": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
                            "smb_vision_tpu/ops/attention.py:244"),
-    # the forward family past the instantiations' widths: K1, K3 and K8 at
-    # head widths 72 (SigLIP so400m, leg M) and 80 (the ViT-H VideoMAE,
-    # legs N, T and U) on the d-128 instantiation, R6 writing q8 and k8 at
-    # width 128 for heads of 80, and K2 and K6 at K 1,280 (ViT-H); their
-    # launches are those legs' (`WIDTH_ROWS`)
-    "flash_fwd d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+    # the forward family past the instantiations' widths: K1 at head
+    # widths 72 (SigLIP so400m, leg M) and 80 (the ViT-H VideoMAE, legs N,
+    # T and U) on its tiles of 80 columns (the template of flash_fwd.cu
+    # compiled in flash_fwd_d80.cu), K3 and K8 there on the d-128
+    # instantiation, R6 writing q8 and k8 at width 128 for heads of 80,
+    # and K2 and K6 at K 1,280 (ViT-H); their launches are those legs'
+    "flash_fwd d72": ("smb_vision_tpu_torch/csrc/flash_fwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:106"),
-    "flash_fwd d80": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd d80": ("smb_vision_tpu_torch/csrc/flash_fwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:106"),
     "flash_fwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
                          "smb_vision_tpu/ops/attention.py:244"),
@@ -454,12 +464,14 @@ SOURCES = {
     # the training family past the instantiations' widths: K4 and K7 at
     # head widths 72 (SigLIP so400m's shape; no path trains it) and 80 (K4
     # at the ViT-H MIM encoder, leg X; K7 at the V-JEPA2 ViT-H encoder, leg
-    # Y) on the d-128 instantiation, K4 at d 100 (padded to 104, a shape of
-    # no model), and K5a and K5b at K 1,280 (ViT-H, legs X and Y) and 1,408
-    # (ViT-g's widths, which no model of the repo has: 0 launches)
-    "flash_bwd d72": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+    # Y), K4 on its tiles of 80 columns (flash_bwd.cu's template compiled
+    # in flash_bwd_d80.cu), K7 on the d-128 instantiation; K4 at d 100
+    # (padded to 104, the d-128 tiles; a shape of no model), and K5a and
+    # K5b at K 1,280 (ViT-H, legs X and Y) and 1,408 (ViT-g's widths,
+    # which no model of the repo has: 0 launches)
+    "flash_bwd d72": ("smb_vision_tpu_torch/csrc/flash_bwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:436"),
-    "flash_bwd d80": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd d80": ("smb_vision_tpu_torch/csrc/flash_bwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:436"),
     "flash_bwd d100": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
                        "smb_vision_tpu/ops/attention.py:436"),
@@ -651,6 +663,16 @@ def host_ms(fn, calls: int = 5) -> float:
     return statistics.median(times)
 
 
+def tile_work(d: int, kernel: str) -> str:
+    """The tensor work `kernel`'s instantiation does at head width d (a
+    multiple of 8), as a multiple of the work of width d, and the tiles'
+    width: the columns past d are zeros that the products still take."""
+    from smb_vision_tpu_torch.ops import attention as A
+
+    w = A._tile_width(d, kernel)
+    return f"{w / d:.2f}x (d-{w} tiles)"
+
+
 def set_bound(table: dict, name: str, shape: str, bf16_ops: float,
               nbytes: float, int8_ops: float = 0.0) -> None:
     """The kernel's bound at the shape its time was kept at: the larger of
@@ -836,6 +858,12 @@ SM90_KERNELS = {
         ("K4", "flash_bwd_sm90_kernelILi{d}ELb{n}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb{n}E",
          ("IGMMA", "HGMMA", "UTMALDG")))}
+# K1's and K4's tiles of 80 columns (heads of 72 and 80)
+SM90_KERNELS.update({
+    f"{k} d80{tag}": (name.format(n=n), ("HGMMA", "UTMALDG"))
+    for n, tag in ((0, ""), (1, " narrow"))
+    for k, name in (("K1", "flash_fwd_sm90_kernelILi80ELb0ELb{n}E"),
+                    ("K4", "flash_bwd_sm90_kernelILi80ELb{n}E"))})
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -949,6 +977,31 @@ def phase_build() -> None:
             f"the library: {sum(mma_sync.values())}")
         if mma_sync:
             raise AssertionError(f"mma.sync instructions left in {mma_sync}")
+
+
+# the card tests the run holds the kernels to besides its own phases: the
+# d-80 tiles of K1 and K4 against their plain versions at their edges,
+# the instantiation each head width launches (by the profiler's kernel
+# names) and the launches by width
+CARD_TESTS = ("tests/test_torch_d80.py",)
+
+
+def phase_card_tests() -> None:
+    """CARD_TESTS under pytest in a process of its own (`-m cuda`, no
+    conftest: tests/conftest.py imports JAX, which this machine need not
+    have); a failure fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+         "-p", "no:cacheprovider", *CARD_TESTS], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    tail = proc.stdout.strip().splitlines()[-1:]
+    log(f"card tests {' '.join(CARD_TESTS)}: {' '.join(tail)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        raise AssertionError(f"card tests failed:\n{proc.stdout[-4000:]}"
+                             f"{proc.stderr[-2000:]}")
 
 
 def _attn_inputs(n: int, gen, dev):
@@ -1537,7 +1590,7 @@ def k7_quant(shape: str, q, k, v, do, out, lse, wrapper_ms: float) -> None:
     from smb_vision_tpu_torch.ops import attention as A
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    w = A._tile_width(q.shape[-1])
+    w = A._tile_width(q.shape[-1], "K7")
     ops = A._i8_operands(q, k, v, do, scale, width=w)
     alone, quant, plain = (cuda_ms(fn, repeats=KERNEL_REPEATS) for fn in (
         lambda: A._launch_bwd_i8(q, k, do, out, lse, ops, scale),
@@ -1836,8 +1889,8 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
         rate_line(table, r1, shape, 2 * pv)
         log(f"exp2 floor {r1} {shape}: {exp2_floor_ms(n, b * h):.3f} ms "
             f"beside the tensor floor {table[r1]['bound_ms']:.3f} ms; the "
-            f"instantiation's tiles do {A._tile_width(d) / d:.2f}x the "
-            f"tensor work of width {d}")
+            f"instantiations' tiles do {tile_work(d, 'K1')} (K1), "
+            f"{tile_work(d, 'K3')} (K3, K8) the tensor work of width {d}")
         if d == VIT_H_D:
             quant_padded(table, q, scale * LOG2E)
         del q, k, v, q8, k8, v8
@@ -1878,7 +1931,7 @@ def quant_padded(table: dict, q, mult: float) -> None:
     from smb_vision_tpu_torch.ops import attention as A
 
     b, n, h, d = q.shape
-    w = A._tile_width(d)
+    w = A._tile_width(d, "R6")
     name, shape = "quantize d80", f"B={b} N={n} H={h} d={d} -> {w}"
     want8, want_s = A.quantize_per_head(q, mult, width=w)
     x8, s = A.quantize_per_head_kernel(q, mult, width=w)
@@ -1976,7 +2029,8 @@ def phase_train_width_kernels(table: dict, gen, dev) -> None:
             set_bound(table, row, shape, 3 * prod, nbytes,
                       int8_ops=2 * prod)
         log(f"rate {row} {shape}: the instantiation's tiles do "
-            f"{A._tile_width(d) / d:.2f}x the tensor work of width {d}")
+            f"{tile_work(d, 'K7' if '_i8' in row else 'K4')} the tensor "
+            f"work of width {d}")
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
 
@@ -6338,27 +6392,24 @@ def run_leg_m(work: Path, items: list, manifest: Path, card: str,
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K3, K4, K7 and K8 at d 32, 64 and 128 by a part of their mangled names
-# (this tree's, the other's: K4 and K7 gained the NARROW template
-# parameter, whose false instantiation is the parent's kernel), and every
-# kernel of the MLP forward and backward and the glue sources (K2, K6,
-# K5a, K9 and their LayerNorm pass, K5b, K10a and its row pass, K10b) by
-# its whole name, but any kernel this tree adds there (NEW_KERNELS; none:
-# K5b's wider K is its host code's, `smb_mlp_bwd`); the outputs are
-# compared bit for bit and the times in turns
-UNCHANGED = {f"{k} d{d}": (this.format(d=d), other.format(d=d))
+# K3, K4, K7 and K8 at d 32, 64 and 128 and their NARROW instantiations
+# (which store a narrower head) by a part of their mangled names (this
+# tree's, the other's: the same since K1's and K4's kernels took the tail
+# maps of the d-80 tiles as a last parameter, which the part leaves out),
+# and every kernel of the MLP forward and backward and the glue sources
+# (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a and its row pass,
+# K10b) by its whole name, but any kernel this tree adds there
+# (NEW_KERNELS; none); the outputs are compared bit for bit and the times
+# in turns
+UNCHANGED = {f"{k} d{d}{tag}": (name.format(d=d, n=n),) * 2
              for d in (32, 64, 128)
-             for k, this, other in (
-                 ("K1", "flash_fwd_sm90_kernelILi{d}ELb0ELb0EE",
-                  "flash_fwd_sm90_kernelILi{d}ELb0ELb0EE"),
-                 ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb0EE",
-                  "flash_fwd_sm90_kernelILi{d}ELb1ELb0EE"),
-                 ("K4", "flash_bwd_sm90_kernelILi{d}ELb0EE",
-                  "flash_bwd_sm90_kernelILi{d}EE"),
-                 ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb0EE",
-                  "flash_bwd_i8_sm90_kernelILi{d}EE"),
-                 ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb0EE",
-                  "flash_fwd_i8pv_sm90_kernelILi{d}ELb0EE"))}
+             for n, tag in ((0, ""), (1, " narrow"))
+             for k, name in (
+                 ("K1", "flash_fwd_sm90_kernelILi{d}ELb0ELb{n}EE"),
+                 ("K3", "flash_fwd_sm90_kernelILi{d}ELb1ELb{n}EE"),
+                 ("K4", "flash_bwd_sm90_kernelILi{d}ELb{n}EE"),
+                 ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb{n}EE"),
+                 ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb{n}EE"))}
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
 NEW_KERNELS: tuple = ()
 
@@ -6582,8 +6633,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     backward K2, K6, K5a, K9 and K5b, and the glue K10a and K10b) are
     compared by SASS and by output, bit for bit;
     then, in turns (other, this, this, other a round), the flash kernels
-    at their table shapes (K3 at d 64 and 128, K7 at the V-JEPA encoder's
-    and the reference head's), the MLP family (K2 and K6 at the embed
+    at their table shapes (K1 and K4 at heads of 80 and 72, this tree's
+    d-80 tiles against the other's d-128 ones; K3 at d 64 and 128, K7
+    at the V-JEPA encoder's and the reference head's), the MLP family (K2 and K6 at the embed
     shape, K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's,
     K5b at the MIM encoder's and decoder's and the V-JEPA encoder's), K9
     at DINOv2-giant batch 2 and 1, the glue kernels K10a and K10b at the
@@ -6750,7 +6802,22 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             step_fn(state, {"pixel_values": pxs[i]}, step_generator(0, i))
 
     (q, k, v, _), (eq, ek, ev, edo), (dq_, dk_, dv_, ddo) = emb, enc, dec
+    # K1 and K4 at heads of 80 and 72: this tree's d-80 tiles against the
+    # other's d-128 ones (the C interface is the same; the dispatch by
+    # width is the library's)
+    vith = inputs(7, (1, MAIN_N, VIT_H_HEADS, VIT_H_D))
+    vith_enc = inputs(8, (1, ENC_N, VIT_H_HEADS, VIT_H_D))
+    so400m = inputs(9, (SIGLIP_BATCH, SO400M_N, 16, 72))
+    fwd_lse.update({name: A.flash_attention(*x[:3], with_lse=True)
+                    for name, x in (("vith_enc", vith_enc),
+                                    ("so400m", so400m))})
     probes = {
+        "K1 ViT-H d 80": lambda: A.flash_attention(*vith[:3]),
+        "K1 so400m d 72": lambda: A.flash_attention(*so400m[:3]),
+        "K4 ViT-H MIM encoder d 80": lambda: A.flash_attention_bwd(
+            *vith_enc[:3], *fwd_lse["vith_enc"], vith_enc[3]),
+        "K4 so400m d 72": lambda: A.flash_attention_bwd(
+            *so400m[:3], *fwd_lse["so400m"], so400m[3]),
         "K1 embed": lambda: A.flash_attention(q, k, v),
         "K1 V-JEPA d 128": lambda: A.flash_attention(*vj[:3]),
         "K1 predictor d 32": lambda: A.flash_attention(*pred[:3]),
@@ -6931,7 +6998,8 @@ def main() -> int:
             Path(sys.argv[2]).resolve(), card)}))
         return 0
     table = phase_kernels()
-    done("kernels")
+    phase_card_tests()
+    done("kernels and card tests")
     work = ROOT / "chip_smoke_work"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir()

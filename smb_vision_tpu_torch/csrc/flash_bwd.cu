@@ -28,7 +28,7 @@
 //   - warpgroup 0 is the producer: one thread issues TMA loads of the
 //     block's own rows (q and do in the dq pass, k and v in the dk/dv pass)
 //     once, and of the streamed pair (k, v in tiles of 64 keys; q, do in
-//     tiles of 64 queries at d <= 64, 32 at d = 128) through a ring of 4
+//     tiles of 64 queries at d <= 80, 32 at d = 128) through a ring of 4
 //     stages with full and empty mbarriers; in the dk/dv pass its 32 lanes
 //     also stage the tile's lse2 and delta (+inf and 0 past Nq, so those
 //     columns give p = ds = 0). Warpgroups 1 and 2 are the consumers, 64
@@ -59,8 +59,9 @@
 // Head widths past the instantiations, K4 and K7 alike. A head of width D
 // (a multiple of 8 up to 128; the wrapper pads any other by a copy and cuts
 // dq, dk and dv back, as the JAX `attention` pads it) runs on the
-// instantiation of the next of 32, 64 and 128 up (the template's D; the
-// real width is p.D), as K1 does (flash_fwd.cu): the bf16 operands (q, k,
+// instantiation of the next of its widths up (the template's D; the real
+// width is p.D; K4's are 32, 64, 80 and 128, K7's 32, 64 and 128), as K1
+// does (flash_fwd.cu): the bf16 operands (q, k,
 // v and do; K7's k, q and do) are read in place by tensor maps whose
 // global width is the real D while their boxes keep the instantiation's
 // panels, so TMA reads the columns past D as zeros; K7's int8 codes come
@@ -73,9 +74,25 @@
 // K7's NARROW instantiations are compiled in a translation unit of their
 // own (flash_bwd_i8_narrow.cu includes this file): beside them here, nvcc
 // compiled K7's d-32 and d-64 kernels for full-width heads to other SASS
-// (the producer warp's registers renamed, an add merged). At
-// D 72 and 80 the 128-wide tiles do 1.6 to 1.8 times the tensor work the
+// (the producer warp's registers renamed, an add merged). K7 at D 72 and
+// 80 on the 128-wide tiles does 1.6 to 1.8 times the tensor work the
 // width needs; delta and the lse2 cotangent are the wrapper's, unchanged.
+//
+// K4 on tiles of 80 columns (heads of 72 and 80), K1's layout
+// (flash_fwd.cu; Panels<80> and TailMaps, sm90.cuh): each bf16 operand a
+// 64-column panel in the 128-byte swizzle and a 16-column tail panel in
+// the 32-byte one, by two tensor maps, so 16 maps a launch. s, dp, s^T and
+// dp^T contract over d in 5 k16 steps in place of 8; dq += ds k, dk +=
+// ds^T q and dv += p^T do, whose N is the head, are each an n64 wgmma on
+// the 64-column panel and an n16 one on the tail, from the same A
+// fragments, in place of one n128. The tiles: the dq pass keeps d 128's
+// (own q and do 40 KB, 4 stages of 64 keys of k and v, 20 KB a stage: 124
+// KB), with dq in 40 floats a consumer thread; the dk/dv pass streams
+// d 64's 64 queries a tile where d 128's took 32 (own k and v 40 KB, 4
+// stages of q and do, 20 KB, and 512 bytes of lse2 and delta: 125 KB),
+// with dk and dv in 40 floats each beside s^T and dp^T in 32 each: 176
+// accumulator and fragment registers of the 232, as at d 128. The d-80
+// instantiations compile in flash_bwd_d80.cu, beside no other kernel.
 //
 // K7 is K4 with the two recomputed products on int8: from per-(batch,
 // head) symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and
@@ -156,13 +173,14 @@ constexpr int kStages = 4;
 // shared memory of a pass: the block's own two operands (ROWS rows each),
 // a ring of kStages stages of the streamed pair (BT rows each), AUX bytes
 // of lse2 and delta a stage, and the barriers; bf16 tiles in the panels of
-// sm90.cuh (64 columns, or one of 32 at d 32)
+// sm90.cuh (64 columns, or one of 32 at d 32, or 64 and a tail of 16 at
+// d 80)
 template <int D, int ROWS, int BT, int AUX>
 struct BwdTiles {
   using P = Panels<D>;
   static constexpr int PANELS = P::N;
-  static constexpr int OWN = PANELS * ROWS * P::ROW;  // one own operand
-  static constexpr int TILE = PANELS * BT * P::ROW;   // one streamed operand
+  static constexpr int OWN = ROWS * P::BYTES_ROW;  // one own operand
+  static constexpr int TILE = BT * P::BYTES_ROW;   // one streamed operand
   static constexpr int STAGE = 2 * TILE;
   static constexpr int BARS = (2 * kStages + 1) * 8;
   static constexpr int BYTES =
@@ -176,11 +194,14 @@ struct DqShape {
   static constexpr int BN = 64;   // keys of a tile
 };
 
+// (tails: at d 80 the tail panels' maps of q, do, k, v, then of the
+// dk/dv pass's k, v, q, do)
 template <int D, bool NARROW>
 __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                                         const CUtensorMap& tdo,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
+                                        const TailMaps<D, 8>& tails,
                                         const BwdParams& p, int bx,
                                         char* smem_raw) {
   constexpr int BM = DqShape<D>::BM, BN = DqShape<D>::BN, ST = kStages;
@@ -216,6 +237,11 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
         tma_load_4d(qs + T::OWN + pn * BM * P::ROW, &tdo, own, pn * P::COLS,
                     h, q0, b);
       }
+      if constexpr (P::TAIL) {  // the last 16 columns of q and do
+        tma_load_4d(qs + BM * P::ROW, &tails.m[0], own, P::COLS, h, q0, b);
+        tma_load_4d(qs + T::OWN + BM * P::ROW, &tails.m[1], own, P::COLS, h,
+                    q0, b);
+      }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
         if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
@@ -227,6 +253,12 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                       it * BN, b);
           tma_load_4d(ks + T::TILE + pn * BN * P::ROW, &tv, &full[s],
                       pn * P::COLS, h, it * BN, b);
+        }
+        if constexpr (P::TAIL) {
+          tma_load_4d(ks + BN * P::ROW, &tails.m[2], &full[s], P::COLS, h,
+                      it * BN, b);
+          tma_load_4d(ks + T::TILE + BN * P::ROW, &tails.m[3], &full[s],
+                      P::COLS, h, it * BN, b);
         }
       }
     }
@@ -268,7 +300,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
       const uint32_t ka = ra + (it % ST) * T::STAGE;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, dsa[kk], desc_mn<D>(ka, BN, kk), 1);
+        wgmma_rs_mn<D>(acc, dsa[kk], ka, BN, kk);
     };
 
     // ds = p (dp - delta), p = exp2(s c - lse2), into s; kv columns past
@@ -329,7 +361,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
 template <int D>
 struct DkvShape {
   static constexpr int BN = 128;                 // kv rows a block owns
-  static constexpr int BQ = D <= 64 ? 64 : 32;   // queries of a tile
+  static constexpr int BQ = D <= 80 ? 64 : 32;   // queries of a tile
   static constexpr int AUX = 2 * BQ * 4;         // lse2 and delta
 };
 
@@ -338,6 +370,7 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
                                          const CUtensorMap& tv,
                                          const CUtensorMap& tq,
                                          const CUtensorMap& tdo,
+                                         const TailMaps<D, 8>& tails,
                                          const BwdParams& p, int bx,
                                          char* smem_raw) {
   using Sh = DkvShape<D>;
@@ -380,6 +413,11 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
           tma_load_4d(ks + T::OWN + pn * BN * P::ROW, &tv, own,
                       pn * P::COLS, h, k0, b);
         }
+        if constexpr (P::TAIL) {  // the last 16 columns of k and v
+          tma_load_4d(ks + BN * P::ROW, &tails.m[4], own, P::COLS, h, k0, b);
+          tma_load_4d(ks + T::OWN + BN * P::ROW, &tails.m[5], own, P::COLS,
+                      h, k0, b);
+        }
       }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
@@ -399,6 +437,12 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
                         h, it * BQ, b);
             tma_load_4d(qt + T::TILE + pn * BQ * P::ROW, &tdo, &full[s],
                         pn * P::COLS, h, it * BQ, b);
+          }
+          if constexpr (P::TAIL) {
+            tma_load_4d(qt + BQ * P::ROW, &tails.m[6], &full[s], P::COLS, h,
+                        it * BQ, b);
+            tma_load_4d(qt + T::TILE + BQ * P::ROW, &tails.m[7], &full[s],
+                        P::COLS, h, it * BQ, b);
           }
         } else {
           mbar_arrive(&full[s]);
@@ -438,10 +482,10 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tk,
       const uint32_t qt = ra + (it % ST) * T::STAGE, dot = qt + T::TILE;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(dot, BQ, kk), 1);
+        wgmma_rs_mn<D>(dv, pa[kk], dot, BQ, kk);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dk, da[kk], desc_mn<D>(qt, BQ, kk), 1);
+        wgmma_rs_mn<D>(dk, da[kk], qt, BQ, kk);
     };
     // p^T = exp2(s^T c - lse2) into st, ds^T = p^T (dp^T - delta) into dpt
     auto elementwise = [&](int it) {
@@ -519,13 +563,15 @@ __global__ void __launch_bounds__(3 * kWG, 1)
                           const __grid_constant__ CUtensorMap nv,
                           const __grid_constant__ CUtensorMap nq,
                           const __grid_constant__ CUtensorMap ndo,
-                          const BwdParams p) {
+                          const BwdParams p,
+                          const __grid_constant__ TailMaps<D, 8> tails) {
   extern __shared__ char smem_raw[];
   const int gq = (p.Nq + DqShape<D>::BM - 1) / DqShape<D>::BM;
   if ((int)blockIdx.x < gq)
-    dq_pass<D, NARROW>(mq, mdo, mk, mv, p, blockIdx.x, smem_raw);
+    dq_pass<D, NARROW>(mq, mdo, mk, mv, tails, p, blockIdx.x, smem_raw);
   else
-    dkv_pass<D, NARROW>(nk, nv, nq, ndo, p, blockIdx.x - gq, smem_raw);
+    dkv_pass<D, NARROW>(nk, nv, nq, ndo, tails, p, blockIdx.x - gq,
+                        smem_raw);
 }
 
 // q, k, v and do at the real width p.D through their maps (the note at
@@ -558,6 +604,15 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
                                     m.sn, m.sh, m.rows);
     if (err != cudaSuccess) return err;
   }
+  TailMaps<D, 8> tails;  // at d 80: the same eight for the last 16 columns
+  if constexpr (Tq::P::TAIL) {
+    for (int i = 0; i < 8; ++i) {
+      const auto& m = maps[i];
+      cudaError_t err = make_map_tail(&tails.m[i], m.base, B, m.n, p.H, p.D,
+                                      m.sb, m.sn, m.sh, m.rows);
+      if (err != cudaSuccess) return err;
+    }
+  }
   auto kernel = flash_bwd_sm90_kernel<D, NARROW>;
   const int bytes = Tq::BYTES > Tk::BYTES ? Tq::BYTES : Tk::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -566,7 +621,8 @@ cudaError_t launch(const BwdParams& p, int B, int BH, cudaStream_t stream) {
   const int gq = (p.Nq + Sq::BM - 1) / Sq::BM;
   const int gk = (p.Nk + Sk::BN - 1) / Sk::BN;
   kernel<<<dim3(gq + gk, BH), 3 * kWG, bytes, stream>>>(mq, mdo, mk, mv, nk,
-                                                         nv, nq, ndo, p);
+                                                         nv, nq, ndo, p,
+                                                         tails);
   return cudaGetLastError();
 }
 
@@ -1066,13 +1122,18 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
 
 }  // namespace
 
-#ifndef SMB_FLASH_BWD_I8_NARROW
+#if !defined(SMB_FLASH_BWD_I8_NARROW) && !defined(SMB_FLASH_BWD_D80)
+
+// K4's d-80 tiles, compiled apart in flash_bwd_d80.cu (below, under
+// SMB_FLASH_BWD_D80)
+extern "C" int smb_flash_bwd_d80(const void* params, int B, int BH,
+                                 void* stream);
 
 // q, k, v, dout, dq, dk, dv: bf16 (B, N, H, D), D a multiple of 8 up to
-// 128 (run on the instantiation of the next of 32, 64 and 128 up), through
-// strides; strides: 21 int64 in elements, (batch, token, head) for q, k,
-// v, dout, dq, dk, dv (q, k, v and dout are read by TMA: base pointers and
-// strides 16-byte multiples).
+// 128 (run on the instantiation of the next of 32, 64, 80 and 128 up),
+// through strides; strides: 21 int64 in elements, (batch, token, head) for
+// q, k, v, dout, dq, dk, dv (q, k, v and dout are read by TMA: base
+// pointers and strides 16-byte multiples).
 // lse2 and delta: f32 (B, H, Nq), contiguous. scale_log2 = scale*log2(e)
 // as the forward took it. Launches the dq and dk/dv passes, in one grid,
 // on `stream`. Returns a cudaError_t (0 on success).
@@ -1111,6 +1172,7 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (D <= 32) return (int)launch_width<32>(p, B, BH, s);
   if (D <= 64) return (int)launch_width<64>(p, B, BH, s);
+  if (D <= 80) return smb_flash_bwd_d80(&p, B, BH, stream);
   if (D <= 128) return (int)launch_width<128>(p, B, BH, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1179,7 +1241,7 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
   return smb_flash_bwd_i8_narrow(&p, B, BH, stream);
 }
 
-#else  // flash_bwd_i8_narrow.cu
+#elif defined(SMB_FLASH_BWD_I8_NARROW)  // flash_bwd_i8_narrow.cu
 
 // K7 for a head narrower than its instantiation (NARROW); params: the
 // BwdI8Params that smb_flash_bwd_i8 filled, D a multiple of 8 below 128
@@ -1191,6 +1253,16 @@ extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
   if (p.D < 32) return (int)launch_i8<32, true>(p, B, BH, s);
   if (p.D < 64) return (int)launch_i8<64, true>(p, B, BH, s);
   return (int)launch_i8<128, true>(p, B, BH, s);
+}
+
+#else  // flash_bwd_d80.cu
+
+// K4 on the d-80 tiles; params: the BwdParams that smb_flash_bwd filled,
+// D 72 or 80 (the NARROW instantiation stores 72 columns)
+extern "C" int smb_flash_bwd_d80(const void* params, int B, int BH,
+                                 void* stream) {
+  const BwdParams& p = *static_cast<const BwdParams*>(params);
+  return (int)launch_width<80>(p, B, BH, static_cast<cudaStream_t>(stream));
 }
 
 #endif

@@ -53,8 +53,9 @@
 //
 // Head widths past the instantiations. A head of width D (a multiple of 8
 // up to 128; the wrapper pads any other by a copy, as the JAX `attention`
-// does) runs on the instantiation of the next of 32, 64 and 128 up (the
-// template's D; the real width is p.D), unchanged but for three things:
+// does) runs on the instantiation of the next of its widths up (the
+// template's D; the real width is p.D): K1's are 32, 64, 80 and 128, K3's
+// and K8's 32, 64 and 128. It runs unchanged but for three things:
 // the tensor maps of the bf16 operands (K1's q, k, v; K3's v) declare the
 // real D as their global width while their boxes keep the instantiation's
 // panels, so TMA reads the columns past D as zeros, as it reads the keys
@@ -63,10 +64,33 @@
 // row of 72 or 80 bytes has no TMA stride and no int8 swizzle); and only D
 // columns of o are stored. The zero columns add nothing to any score or
 // output column that is kept, so the kernel computes the function at D,
-// with the tensor work of the instantiation: at D 72 and 80 on the
-// 128-wide tiles, 1.6 to 1.8 times what D needs. The store of the real
-// width is an instantiation of its own (NARROW), so a head as wide as its
-// instantiation runs the code it ran before the narrower widths came.
+// with the tensor work of the instantiation: K3 and K8 at D 72 and 80 on
+// the 128-wide tiles do 1.6 to 1.8 times what D needs. The store of the
+// real width is an instantiation of its own (NARROW), so a head as wide as
+// its instantiation runs the code it ran before the narrower widths came.
+//
+// K1 on tiles of 80 columns (heads of 72 and 80: SigLIP so400m, ViT-H).
+// On the d-128 tiles these heads did 1.6 to 1.8 times the tensor work and
+// took d 128's key tile, BN 64, so each barrier and each exp2 pass of a
+// warpgroup covered half the keys it covers at d 64. The d-80 tiles
+// (Panels<80>, sm90.cuh):
+//   - a bf16 row of q, k or v is a 64-column panel in the 128-byte swizzle
+//     and a 16-column tail panel (32-byte rows) in the 32-byte swizzle,
+//     each loaded by a tensor map of its own (TailMaps: the tails' maps,
+//     boxes of 16 columns at column 64; a head of 72 reads zeros past 72);
+//   - s = q k^T takes 5 k16 steps, the fifth from the tail panels, in
+//     place of 8; o += p v, whose N is the head, is an n64 wgmma on v's
+//     64-column panel and an n16 one on its tail from the same A fragments
+//     (an MN-major operand has no one descriptor across two swizzles), in
+//     place of one n128;
+//   - the key tile is d 64's, BN 128: q (20 KB) and 4 stages of k and v
+//     (40 KB a stage) are 181 KB of the 227; a consumer thread holds o in
+//     40 floats and s in 64 (d 64: 32 and 64).
+// The bound is then d 64's in kind: the tensor work of 4*N^2*80 flops and
+// the N^2*H exp2 stand in the ratio they have at d 64 times 1.25, so the
+// two still overlap under the ping-pong. The d-80 instantiations compile
+// in flash_fwd_d80.cu, beside no other kernel, so the kernels of the other
+// widths keep their SASS.
 //
 // K3 is K1 with the score product on int8 (the I8 instantiation). Bound
 // on the H100 at N = 20,480, 12 heads of 64: the int8 q8 k8^T at 1,979
@@ -133,15 +157,15 @@ template <int D, bool I8>
 struct FwdTiles {
   using P = Panels<D>;                           // bf16 panels (sm90.cuh)
   static constexpr int BM = 128;                 // query rows a block owns
-  static constexpr int BN = D <= 64 ? 128 : 64;  // keys of a streamed tile
+  static constexpr int BN = D <= 80 ? 128 : 64;  // keys of a streamed tile
   static constexpr int STAGES = 4;
   static constexpr int PANELS = P::N;
   // bytes of a q or k row in its tile: a bf16 panel's row (K1), or the
   // whole int8 row (K3)
   static constexpr int QK_ROW = I8 ? D : P::ROW;
-  static constexpr int Q_BYTES = I8 ? BM * D : PANELS * BM * P::ROW;
-  static constexpr int K_BYTES = I8 ? BN * D : PANELS * BN * P::ROW;
-  static constexpr int V_BYTES = PANELS * BN * P::ROW;
+  static constexpr int Q_BYTES = I8 ? BM * D : BM * P::BYTES_ROW;
+  static constexpr int K_BYTES = I8 ? BN * D : BN * P::BYTES_ROW;
+  static constexpr int V_BYTES = BN * P::BYTES_ROW;
   static constexpr int STAGE = K_BYTES + V_BYTES;
   static constexpr int ONES = I8 ? 256 : 0;  // K3: bf16 ones (desc_ones)
   static constexpr int BARS = (2 * STAGES + 1) * 8;
@@ -153,7 +177,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const FlashParams p) {
+                          const FlashParams p,
+                          const __grid_constant__ TailMaps<D, 3> tails) {
   using T = FwdTiles<D, I8>;
   using P = typename T::P;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
@@ -200,6 +225,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
           tma_load_4d(qs + pn * BM * P::ROW, &tq, qbar, pn * P::COLS, h, q0,
                       b);
       }
+      if constexpr (P::TAIL)  // q's last 16 columns (k's, v's by stage)
+        tma_load_4d(qs + BM * P::ROW, &tails.m[0], qbar, P::COLS, h, q0, b);
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
         if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
@@ -219,6 +246,12 @@ __global__ void __launch_bounds__(3 * kWG, 1)
             tma_load_4d(ks + T::K_BYTES + pn * BN * P::ROW, &tv, &full[s],
                         pn * P::COLS, h, it * BN, b);
           }
+          if constexpr (P::TAIL) {
+            tma_load_4d(ks + BN * P::ROW, &tails.m[1], &full[s], P::COLS, h,
+                        it * BN, b);
+            tma_load_4d(ks + T::K_BYTES + BN * P::ROW, &tails.m[2],
+                        &full[s], P::COLS, h, it * BN, b);
+          }
         }
       }
     }
@@ -229,7 +262,10 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     const int g = lane >> 2, t = lane & 3;
     const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
     const float c = I8 ? p.sq[bh] * p.sk[bh] : p.scale_log2;
-    const uint32_t qa = smem_u32(qs) + cw * 64 * T::QK_ROW;
+    // this warpgroup's q rows: from qa, or at d 80, whose tail panel lies
+    // past the 64-column panel's BM rows, rows qrow.. of the tile at qa
+    const uint32_t qa = smem_u32(qs) + (P::TAIL ? 0 : cw * 64 * T::QK_ROW);
+    const int qrow = P::TAIL ? cw * 64 : 0;
     const uint32_t kva = smem_u32(kv);
 
     // ping-pong: warpgroup cw issues its GEMMs between a sync on barrier
@@ -260,7 +296,7 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<BN, 0>(s, desc_k<D>(qa, BM, 0, kk),
+          wgmma_ss<BN, 0>(s, desc_k<D>(qa, BM, qrow, kk),
                           desc_k<D>(ka, BN, 0, kk), kk > 0);
       }
     };
@@ -285,7 +321,7 @@ __global__ void __launch_bounds__(3 * kWG, 1)
       const uint32_t va = kva + (it % ST) * T::STAGE + T::K_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        wgmma_rs<D, 1>(o, pa[kk], desc_mn<D>(va, BN, kk), 1);
+        wgmma_rs_mn<D>(o, pa[kk], va, BN, kk);
         if constexpr (I8) wgmma_rs_n8(ls, pa[kk], desc_ones(smem_u32(ones)));
       }
     };
@@ -434,6 +470,18 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
   if (err == cudaSuccess)
     err = make_map_head(&tv, p.v, B, p.Nk, p.H, p.D, p.v_sb, p.v_sn, p.v_sh,
                         T::BN);
+  TailMaps<D, 3> tails;
+  if constexpr (T::P::TAIL) {  // the last 16 columns of q, k and v
+    if (err == cudaSuccess)
+      err = make_map_tail(&tails.m[0], p.q, B, p.Nq, p.H, p.D, p.q_sb,
+                          p.q_sn, p.q_sh, T::BM);
+    if (err == cudaSuccess)
+      err = make_map_tail(&tails.m[1], p.k, B, p.Nk, p.H, p.D, p.k_sb,
+                          p.k_sn, p.k_sh, T::BN);
+    if (err == cudaSuccess)
+      err = make_map_tail(&tails.m[2], p.v, B, p.Nk, p.H, p.D, p.v_sb,
+                          p.v_sn, p.v_sh, T::BN);
+  }
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_sm90_kernel<D, I8, NARROW>;
   err = cudaFuncSetAttribute(kernel,
@@ -441,7 +489,7 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                              T::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((p.Nq + T::BM - 1) / T::BM, BH);
-  kernel<<<grid, 3 * kWG, T::BYTES, stream>>>(tq, tk, tv, p);
+  kernel<<<grid, 3 * kWG, T::BYTES, stream>>>(tq, tk, tv, p, tails);
   return cudaGetLastError();
 }
 
@@ -855,12 +903,20 @@ cudaError_t launch_pv_width(const void* q8, const void* k8, const void* vt8,
 
 }  // namespace
 
+#ifndef SMB_FLASH_FWD_D80
+
+// K1's d-80 tiles, compiled apart in flash_fwd_d80.cu (below, under
+// SMB_FLASH_FWD_D80)
+extern "C" int smb_flash_fwd_d80(const void* params, int B, int BH,
+                                 void* stream);
+
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
 // int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
 // otherwise K1 (q, k bf16, scores scaled by scale_log2). D, the head width
-// of v and o (and of K1's q and k), is a multiple of 8 up to 128; it runs
-// on the instantiation of the next of 32, 64 and 128 up, whose width K3's
-// int8 rows hold (zeros past D). q, k and v are
+// of v and o (and of K1's q and k), is a multiple of 8 up to 128; K3 runs
+// it on the instantiation of the next of 32, 64 and 128 up, whose width
+// its int8 rows hold (zeros past D), K1 on the next of 32, 64, 80 and 128
+// up. q, k and v are
 // read by TMA, so their base pointers and strides must be 16-byte
 // multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
@@ -897,6 +953,7 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
   } else {
     if (D <= 32) return (int)launch_width<32, false>(p, B, BH, s);
     if (D <= 64) return (int)launch_width<64, false>(p, B, BH, s);
+    if (D <= 80) return smb_flash_fwd_d80(&p, B, BH, stream);
     if (D <= 128) return (int)launch_width<128, false>(p, B, BH, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -942,3 +999,16 @@ extern "C" int smb_flash_fwd_i8pv(const void* q8, const void* k8,
 extern "C" const char* smb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#else  // flash_fwd_d80.cu
+
+// K1 on the d-80 tiles; params: the FlashParams that smb_flash_fwd filled,
+// D 72 or 80 (the NARROW instantiation stores 72 columns)
+extern "C" int smb_flash_fwd_d80(const void* params, int B, int BH,
+                                 void* stream) {
+  const FlashParams& p = *static_cast<const FlashParams*>(params);
+  return (int)launch_width<80, false>(p, B, BH,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+#endif

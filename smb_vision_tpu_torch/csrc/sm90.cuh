@@ -40,6 +40,17 @@
 // contracts over keys: its v8 comes d-major, keys contiguous (the layout
 // the quantisation kernel writes), a tile of D rows of BN bytes read as
 // above with the swizzle of BN.
+// A head of width 80 (the d-80 tiles of K1 and K4) is one 64-column panel
+// in the 128-byte swizzle and, after it, one panel of the last 16 columns:
+// rows of 32 bytes, which TMA writes with CU_TENSOR_MAP_SWIZZLE_32B (chunk c
+// of row r at c ^ ((r / 4) % 2)), the panel 256-byte aligned (Panels<80>::
+// TAIL). K-major, k-steps 0-3 come from the 64-column panel as at d 128
+// and k-step 4 is the whole tail panel (the 32-byte swizzle, 8-row groups
+// 256 bytes apart); MN-major, an N = 80 operand has no one descriptor
+// across two swizzles, so a product with the head as its N is an n64
+// wgmma on the 64-column panel and an n16 one on the tail into the last
+// 8 floats of the accumulator (`wgmma_rs_mn`), the tail's k-step kk of 16
+// rows kk * 512 bytes in.
 // (PTX ISA, "Matrix Descriptor Format" and the canonical layouts of
 // wgmma.mma_async for .bf16 and .s8.)
 
@@ -101,7 +112,9 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr,
   return d;
 }
 
-// descriptor of a K-major operand with 32-byte rows and the 32-byte swizzle
+// descriptor of an operand with 32-byte rows and the 32-byte swizzle, read
+// K-major or, one swizzle atom of 16 bf16 columns wide, MN-major (the
+// d-80 tiles' tail panel)
 __device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
   uint64_t d = (addr & 0x3FFFF) >> 4;
   d |= (uint64_t)(256 >> 4) << 32;  // SBO: 8 rows of 32 bytes
@@ -121,13 +134,17 @@ __device__ __forceinline__ uint64_t desc_i8(uint32_t addr, int kk) {
 
 // A bf16 tile of head width D in shared memory (see the top): N panels of
 // COLS columns, each ROW bytes a row and `rows` rows deep, one after the
-// other; the TMA box of a panel is COLS columns wide
+// other, the TMA box of a panel COLS columns wide; at D = 80 (TAIL) one
+// such panel and then the tail panel of the last 16 columns, 32 bytes a
+// row, its box 16 columns wide. A tile holds BYTES_ROW bytes a row.
 template <int D>
 struct Panels {
-  static_assert(D == 32 || D % 64 == 0, "Panels: D");
+  static_assert(D == 32 || D == 80 || D % 64 == 0, "Panels: D");
   static constexpr int COLS = D == 32 ? 32 : 64;
   static constexpr int ROW = 2 * COLS;
   static constexpr int N = D / COLS;
+  static constexpr bool TAIL = D == 80;
+  static constexpr int BYTES_ROW = 2 * D;
 };
 
 // the K-major descriptor of k-step kk (16 columns) of rows row0.. of a bf16
@@ -136,11 +153,15 @@ template <int D>
 __device__ __forceinline__ uint64_t desc_k(uint32_t a, int rows, int row0,
                                            int kk) {
   if constexpr (D == 32) return desc_sw64(a + row0 * 64 + kk * 32);
+  if constexpr (D == 80) {
+    if (kk == 4) return desc_sw32(a + rows * 128 + row0 * 32);
+  }
   return desc_sw128(a + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32);
 }
 
 // the MN-major descriptor of k-step kk (16 rows) of a bf16 tile of `rows`
-// rows at shared address a, read as a B operand of N = D
+// rows at shared address a, read as a B operand of N = D (at D = 80, of
+// the 64-column panel alone: `wgmma_rs_mn`)
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t a, int rows, int kk) {
   if constexpr (D == 32) return desc_sw64(a + kk * 1024, 512);
@@ -229,6 +250,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
 }
 
 template <int TB>
@@ -323,6 +359,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+
+// D (64 x N, f32) += A B over k-step kk (16 rows) of a bf16 tile of `rows`
+// rows at shared address a in the panels of head width N, read MN-major
+// (p v, ds k, p^T do, ds^T q): one wgmma, or at N = 80 an n64 wgmma on the
+// 64-column panel into d[0..31] (columns 0-63) and an n16 one on the tail
+// panel into d[32..39] (columns 64-79), the accumulator's layout at N = 80
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint32_t tile, int rows, int kk) {
+  if constexpr (N == 80) {
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(d), a,
+                    desc_mn<N>(tile, rows, kk), 1);
+    wgmma_rs_n16<1>(*reinterpret_cast<float(*)[8]>(d + 32), a,
+                    desc_sw32(tile + rows * 128 + kk * 512), 1);
+  } else {
+    wgmma_rs<N, 1>(d, a, desc_mn<N>(tile, rows, kk), 1);
+  }
 }
 
 // D (64 x N, s32) (+)= A B, one k32 step of s8 operands, both K-major in
@@ -705,6 +760,26 @@ inline cudaError_t make_map_head(CUtensorMap* map, const void* base, int B,
                       CU_TENSOR_MAP_SWIZZLE_64B, B, N, H, D, sb, sn, sh,
                       rows);
 }
+
+// the tail panel of a bf16 head read into the d-80 tiles (Panels<80>):
+// boxes of 16 columns (32 bytes) with the 32-byte swizzle, loaded at column
+// 64; for a head of 72 the box columns past it read as zero
+inline cudaError_t make_map_tail(CUtensorMap* map, const void* base, int B,
+                                 int N, int H, int D, long long sb,
+                                 long long sn, long long sh, int rows) {
+  return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 16,
+                      CU_TENSOR_MAP_SWIZZLE_32B, B, N, H, D, sb, sn, sh,
+                      rows);
+}
+
+// the tail panels' maps of NM operands of a kernel instantiated at width D:
+// only the d-80 tiles have tail panels; empty at every other width
+template <int D, int NM>
+struct TailMaps {};
+template <int NM>
+struct TailMaps<80, NM> {
+  CUtensorMap m[NM];
+};
 
 // int8: a box holds whole rows of D = 32, 64 or 128 bytes, with the swizzle
 // of their width (see the top). CUtensorMapDataType has no signed 8-bit

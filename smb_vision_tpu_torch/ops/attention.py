@@ -28,10 +28,13 @@ quantisation `quantize_per_head`, bit for bit, which the JAX package
 leaves to XLA. It also writes v8 straight in the layout K8 reads.
 
 Head widths. The kernels run a head of width d on the instantiation of
-the next of 32, 64 and 128 up (`_tile_width`): bf16 operands are read in
+the next of their widths up (`_tile_width`): 32, 64, 80 and 128 for K1
+and K4, 32, 64 and 128 for K3, K8, K7 and R6. bf16 operands are read in
 place by TMA maps whose global width is d (the columns past d read as
-zero), int8 codes are written by R6 at the instantiation's width with
-zero columns past d, and only d columns are stored. A d that is not a
+zero; K1's and K4's tiles of 80 columns are a 64-column panel and a
+16-column one, `_tma_geometry`), int8 codes are written by R6 at the
+instantiation's width with zero columns past d, and only d columns are
+stored. A d that is not a
 multiple of 8 is padded with zeros by a copy first, as the JAX
 `attention` pads it, and the outputs are cut back (the backward's: do
 padded, dq, dk and dv cut). Past 128 no kernel runs: "auto" takes the
@@ -65,16 +68,21 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 # query rows per chunk of the plain version: bounds its (B, H, rows, Nk)
 # f32 score block at ~1 GiB (12 heads x 1024 x 20,480 at batch 1)
 _PLAIN_SCORE_ELEMS = 1 << 28
-# the widths of the instantiations of the five flash kernels: they and R6
-# run any width up to _FLASH_MAX_D on the next of these up (`_tile_width`)
-_FLASH_HEAD_DIMS = (32, 64, 128)
+# the widths of the flash kernels' instantiations, by kernel: each runs any
+# head width up to _FLASH_MAX_D on the next of its widths up
+# (`_tile_width`). K1 and K4 have tiles of 80 columns (heads of 66 to 80);
+# K3, K8, K7 and R6, whose codes the three int8 kernels read, do not
+_FLASH_HEAD_DIMS = {"K1": (32, 64, 80, 128), "K4": (32, 64, 80, 128),
+                    "K3": (32, 64, 128), "K8": (32, 64, 128),
+                    "K7": (32, 64, 128), "R6": (32, 64, 128)}
 _FLASH_MAX_D = 128
 
 
-def _tile_width(d: int) -> int:
-    """The head width of the kernel instantiation that runs heads of
-    width d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS up."""
-    return next(w for w in _FLASH_HEAD_DIMS if d <= w)
+def _tile_width(d: int, kernel: str = "R6") -> int:
+    """The head width of `kernel`'s instantiation that runs heads of width
+    d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS[kernel] up. The
+    default, R6, gives the width of the int8 codes of K3, K8 and K7."""
+    return next(w for w in _FLASH_HEAD_DIMS[kernel] if d <= w)
 
 
 def _pad8(*ts):
@@ -344,33 +352,38 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1"):
 # the TMA boxes of the wgmma kernels: bf16 (K1, K4, and the bf16 operands
 # of K3 and K7) in panels of 64 columns, one 128-byte swizzle span, or on
 # the instantiation of head width 32 rows of 32 columns (64 bytes) in the
-# 64-byte swizzle; the map's global width is the head's, so the columns of
-# the boxes past it read as zero; int8 (K3, K7, K8) in whole rows of 32,
-# 64 or 128 bytes, swizzled by their width; up to 256 rows of one (batch,
-# head)
+# 64-byte swizzle, and on K1's and K4's tiles of 80 columns a second map of
+# the last 16 (32 bytes) in the 32-byte swizzle; the map's global width is
+# the head's, so the columns of the boxes past it read as zero; int8 (K3,
+# K7, K8) in whole rows of 32, 64 or 128 bytes, swizzled by their width;
+# up to 256 rows of one (batch, head)
 _TMA_BOX_COLS = 64
+_TMA_TAIL_COLS = 16
 _TMA_MAX_ROWS = 256
 
 
-def _tma_geometry(t, rows: int):
-    """The tensor map the wgmma kernels build (`csrc/sm90.cuh::make_map`,
+def _tma_geometry(t, rows: int, kernel: str = "R6"):
+    """The tensor map `kernel`'s launch builds (`csrc/sm90.cuh::make_map`,
     `make_map_head`, `make_map_i8`) for a bf16 or int8 (B, N, H, D) tensor
     read by TMA in boxes of `rows` rows: dims (D, H, N, B), byte strides of
     H, N and B (a dim of size 1 is never stepped, so its stride is 16), box
     (cols, 1, rows, 1) and the swizzle in bytes: 64 bf16 columns with the
     128-byte swizzle (32 columns with the 64-byte swizzle for D up to 32,
     the instantiation of width 32), or a whole int8 row of D = 32, 64 or
-    128 bytes with the swizzle of its width. A bf16 D is a multiple of 8
-    up to 128; the box columns past D read as zero. TMA takes a
-    16-byte-aligned base and stride multiples of 16 below 2^40; anything
-    else raises here, before the launch, instead of failing the descriptor
-    encode."""
+    128 bytes with the swizzle of its width. On K1's and K4's tiles of 80
+    columns a bf16 tensor has a second map (`make_map_tail`), "tail": the
+    same dims and strides, boxes of 16 columns at column 64 with the
+    32-byte swizzle. A bf16 D is a multiple of 8 up to 128; the box
+    columns past D read as zero. TMA takes a 16-byte-aligned base and
+    stride multiples of 16 below 2^40; anything else raises here, before
+    the launch, instead of failing the descriptor encode."""
     b, n, h, d = t.shape
     if t.dtype == torch.int8:
-        if t.stride(-1) != 1 or d not in _FLASH_HEAD_DIMS:
+        if t.stride(-1) != 1 or d not in _FLASH_HEAD_DIMS["R6"]:
             raise ValueError(f"TMA reads int8 (B, N, H, D) with D in "
-                             f"{_FLASH_HEAD_DIMS} and contiguous; got shape "
-                             f"{tuple(t.shape)}, strides {t.stride()}")
+                             f"{_FLASH_HEAD_DIMS['R6']} and contiguous; got "
+                             f"shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}")
         cols = d
     elif t.dtype == torch.bfloat16:
         if t.stride(-1) != 1 or d % 8 or not 0 < d <= _FLASH_MAX_D:
@@ -395,8 +408,14 @@ def _tma_geometry(t, rows: int):
                              f"16 below 2^40; got strides {t.stride()} of a "
                              f"{t.dtype} tensor")
         strides.append(nbytes)
-    return {"dims": dims, "strides": tuple(strides),
-            "box": (cols, 1, rows, 1), "swizzle": cols * t.element_size()}
+    geometry = {"dims": dims, "strides": tuple(strides),
+                "box": (cols, 1, rows, 1),
+                "swizzle": cols * t.element_size()}
+    if t.dtype == torch.bfloat16 and _tile_width(d, kernel) == 80:
+        geometry["tail"] = {"col": _TMA_BOX_COLS,
+                            "box": (_TMA_TAIL_COLS, 1, rows, 1),
+                            "swizzle": _TMA_TAIL_COLS * 2}
+    return geometry
 
 
 def _count_launch(wrapper, d: int) -> None:
@@ -489,7 +508,7 @@ def _flash_fwd(q, k, v, scale: float, with_lse: bool):
     q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16)
     for t in (q, k, v):
-        _tma_geometry(t, 128)
+        _tma_geometry(t, 128, "K1")
     b, nq, h, d = q.shape
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
@@ -528,7 +547,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *,
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     for t in (q, k, v, do):
-        _tma_geometry(t, 128)
+        _tma_geometry(t, 128, "K4")
     delta = _delta(do, out, g_lse)
     lse = lse.float().contiguous()
     dq = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
@@ -558,7 +577,7 @@ def _i8_operands(q, k, v, do, scale: float, quant=_quantize,
     sq*sk, sdv = sdo*sv (f32, (B, H)); by the kernel on CUDA tensors
     (`quant=quantize_per_head` for the plain version); with width, the
     codes' rows hold `width` bytes, zeros past D (K7's instantiation's,
-    `_tile_width(D)`)."""
+    `_tile_width(D, "K7")`)."""
     q8, sq = quant(q, scale * LOG2E, width=width)
     k8, sk = quant(k, width=width)
     v8, sv = quant(v, width=width)
@@ -642,22 +661,22 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
                          f"{tuple(q.shape)}")
     for t in (q, k, do):
         _tma_geometry(t, 128)
-    ops = _i8_operands(q, k, v, do, scale, width=_tile_width(d))
+    ops = _i8_operands(q, k, v, do, scale, width=_tile_width(d, "K7"))
     dq, dk, dv = _launch_bwd_i8(q, k, do, out, lse, ops, scale, g_lse)
     return _cut(dq, d0), _cut(dk, d0), _cut(dv, d0)
 
 
 def _launch_bwd_i8(q, k, do, out, lse, ops, scale: float, g_lse=None):
     """K7's kernel on its quantised operands ops = (q8, k8, v8, do8, sqk,
-    sdv), as `_i8_operands` makes them (rows of `_tile_width(D)` codes for
-    q's head width D, a multiple of 8); returns dq, dk, dv."""
+    sdv), as `_i8_operands` makes them (rows of `_tile_width(D, "K7")`
+    codes for q's head width D, a multiple of 8); returns dq, dk, dv."""
     q8, k8, v8, do8, sqk, sdv = ops
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    if q8.shape[-1] != _tile_width(d):
+    w = _tile_width(d, "K7")
+    if q8.shape[-1] != w:
         raise ValueError(f"K7: codes of width {q8.shape[-1]} for heads of "
-                         f"{d}; _i8_operands writes {_tile_width(d)} with "
-                         "its width")
+                         f"{d}; _i8_operands writes {w} with its width")
     for t in (q8, k8, v8, do8):
         _tma_geometry(t, 128)
     delta = _delta(do, out, g_lse)
@@ -758,9 +777,9 @@ def _launch_int8(q8, k8, sq, sk, v):
     (rows of the instantiation's width for v's head width, a multiple of
     8)."""
     d = v.shape[-1]
-    if q8.shape[-1] != _tile_width(d):
+    if q8.shape[-1] != _tile_width(d, "K3"):
         raise ValueError(f"K3: codes of width {q8.shape[-1]} for heads of "
-                         f"{d}; quantize_qk writes {_tile_width(d)}")
+                         f"{d}; quantize_qk writes {_tile_width(d, 'K3')}")
     for t in (q8, k8):
         _tma_geometry(t, 128)
     out = torch.empty(q8.shape[:3] + (d,), dtype=torch.bfloat16,
@@ -813,10 +832,10 @@ def _launch_int8pv(q8, k8, sq, sk, vt8, sv, d: Optional[int] = None):
         _tma_geometry(t, 128)
     b, nq, h, w = q8.shape
     d = w if d is None else d
-    if w != _tile_width(d) or vt8.shape[2] != w:
+    if w != _tile_width(d, "K8") or vt8.shape[2] != w:
         raise ValueError(f"K8: codes of width {w} and v8 rows "
                          f"{vt8.shape[2]} for heads of {d}; R6 writes "
-                         f"{_tile_width(d)}")
+                         f"{_tile_width(d, 'K8')}")
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q8.device)
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
     strides = (ctypes.c_longlong * 6)(*q8.stride()[:3], *k8.stride()[:3])

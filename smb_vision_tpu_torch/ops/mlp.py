@@ -362,12 +362,24 @@ mlp_bwd_fused.launches = 0
 mlp_bwd_fused.launches_by_width = {}
 
 
+def _weight_grad(a, b):
+    """a^T b of two bf16 (M, .) tensors with a float32 result, as the JAX
+    `_mlp_fused_tb_bwd` takes dw1 and dw2 (`preferred_element_type=
+    jnp.float32`): on CUDA one bf16 GEMM with f32 accumulation and an f32
+    output (cuBLAS, on the tensor cores); on the CPU, whose `mm` has no
+    bf16 -> f32 kernel, the f32 product of the same operands."""
+    if a.device.type == "cuda":
+        return torch.mm(a.t(), b, out_dtype=torch.float32)
+    return torch.matmul(a.t().float(), b.float())
+
+
 class _MlpTrain(torch.autograd.Function):
     """mlp_impl "pallas_bwd" under autograd: K5a forward, K5b backward, and
     the weight gradients as plain products outside the kernel
     (`smb_vision_tpu/ops/mlp.py` `_mlp_fused_tb`). dw1 = x^T dh and dw2 =
-    a^T g are bf16 products rounded to bf16, as the plain bf16 path's are
-    (the JAX package keeps their f32 product); db1 and db2 are f32 sums."""
+    a^T g are products of the bf16 operands kept in f32 (`_weight_grad`),
+    as the JAX package keeps them, then cast to the weights' dtype; db1
+    and db2 are f32 sums."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, act):
@@ -385,9 +397,9 @@ class _MlpTrain(torch.autograd.Function):
         g2 = gy.to(torch.bfloat16).contiguous()
         dx, dh, a = mlp_bwd_fused(h, g2, w1, w2, act=ctx.act)
         need = ctx.needs_input_grad
-        dw1 = torch.matmul(xb.t(), dh).to(w1.dtype) if need[1] else None
+        dw1 = _weight_grad(xb, dh).to(w1.dtype) if need[1] else None
         db1 = dh.float().sum(0).to(b1_dt) if need[2] else None
-        dw2 = torch.matmul(a.t(), g2).to(w2.dtype) if need[3] else None
+        dw2 = _weight_grad(a, g2).to(w2.dtype) if need[3] else None
         db2 = g2.float().sum(0).to(b2_dt) if need[4] else None
         return dx.to(x_dt), dw1, db1, dw2, db2, None
 

@@ -478,6 +478,21 @@ def test_mlp_train_and_bwd_kernels_match_plain(cuda, m, k, f):
 
 
 @pytest.mark.cuda
+def test_pallas_bwd_weight_grads_are_f32_on_the_card(cuda):
+    """The "pallas_bwd" route's weight-gradient product on the card: bf16
+    operands, an f32 result equal to the f32 product of the same bf16
+    values up to the order of the f32 sums (1e-5 of max), where a bf16
+    result reads ~2e-3 (tests/test_torch_mlp_wgrad.py holds the route
+    against the JAX package on the CPU)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, b = (torch.randn((7168, n), generator=gen, device=cuda).to(
+        torch.bfloat16) for n in (1280, 640))
+    got = M._weight_grad(a, b)
+    assert got.dtype == torch.float32 and got.shape == (1280, 640)
+    assert _rel(got, a.double().t() @ b.double()) <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mlp_impl", ["auto", "pallas_bwd"])
 def test_block_backward_runs_through_the_kernels(cuda, mlp_impl):
     """loss.backward() through one bf16 Block on the kernels: every

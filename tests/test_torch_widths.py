@@ -260,6 +260,16 @@ def test_routing_of_the_new_widths(monkeypatch):
         assert tattn._tma_geometry(t, 128) == {
             "dims": (d, 16, 729, 1), "strides": (2 * d, 32 * d, 16),
             "box": (cols, 1, 128, 1), "swizzle": swz}
+        # K1 and K4 read heads of 72 and 80 into their tiles of 80
+        # columns: a second map of the last 16, in the 32-byte swizzle
+        for kernel in ("K1", "K4"):
+            tail = {"tail": {"col": 64, "box": (16, 1, 128, 1),
+                             "swizzle": 32}} if d > 64 else {}
+            assert tattn._tma_geometry(t, 128, kernel) == {
+                "dims": (d, 16, 729, 1), "strides": (2 * d, 32 * d, 16),
+                "box": (cols, 1, 128, 1), "swizzle": swz, **tail}
+            assert tattn._tile_width(d, kernel) == (80 if d > 64 else 32)
+        assert tattn._tile_width(d, "K7") == (128 if d > 64 else 32)
     q8, k8, _, _ = tattn.quantize_qk(torch.zeros(2, 65, 3, 80),
                                      torch.zeros(2, 65, 3, 80), 0.1)
     assert tattn._tma_geometry(q8, 64) == {
