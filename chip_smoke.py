@@ -172,7 +172,8 @@ Phases of the run without arguments, each of which fails the run
      and a float32 plain run; then the same with glue_impl "pallas"
      against the same impl names on their plain versions (K10a and K10b
      32 launches each: 16 blocks, forward and remat recompute);
-  9. leg C: `run_mim` with a copy of configs/mim_base_512.json on the 4
+  9. leg C: `run_mim` with a copy of configs/mim_base_512.json (the
+     encoder cut to LEG_C_LAYERS) on the 4
      volumes, 4 steps with checkpoints, then a resume to 6 (kernels K1, K4,
      K5a and K5b in training, K6 in eval); leg H: the same with
      --config_overrides glue_impl=pallas (and K10a, K10b);
@@ -370,10 +371,17 @@ LEG_O_LAYERS = 6        # leg O's encoder depth cut (24 in the preset; the
 # encoders (MIM 12 -> 4, the decoder keeps its 4; V-JEPA 24 -> 6, the
 # predictor keeps its 12); the V-JEPA step parity's encoder (24 -> 12, the
 # depth PERF.md section 2's rule is set at); the LoRA parity's DINOv2-giant
-# (40 -> 8, leg F's cut). The throughput phases keep full depth.
-TWO_RANK_LAYERS = {"mim": 4, "vjepa": LEG_V_LAYERS}
-VJEPA_PARITY_LAYERS = 12
+# (40 -> 8, leg F's cut), which the 2-rank phase's LoRA modes share. The
+# throughput phases keep full depth.
 LORA_PARITY_LAYERS = 8
+TWO_RANK_LAYERS = {"mim": 4, "vjepa": LEG_V_LAYERS,
+                   "lora": LORA_PARITY_LAYERS}
+# legs C, H and P (leg P's reference is leg C): the MIM preset's encoder
+# cut 12 -> 4 (the decoder keeps its 4), leg P's three launches and the CLI
+# legs first in line to keep the script inside its time limit once the
+# 2-rank phase held the PR 22 modes (12 until then)
+LEG_C_LAYERS = 4
+VJEPA_PARITY_LAYERS = 12
 # legs D and I: the steps of the first run (a checkpoint every 2), then of
 # the resumed one
 LEG_V_STEPS = (2, 4)
@@ -3250,10 +3258,11 @@ def phase_train_parity(glue: bool = False, vit_h: bool = False) -> None:
 
 def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
               overrides: str = "") -> None:
-    """run_mim on the volumes with a copy of configs/mim_base_512.json:
-    4 steps, a checkpoint every 2, eval; then the same to 6 steps, which
-    resumes at 4. Asserts the logs, the checkpoints, the export and that
-    the training kernels and K6 (eval) launched. Leg H passes
+    """run_mim on the volumes with a copy of configs/mim_base_512.json
+    (the encoder cut to LEG_C_LAYERS): 4 steps, a checkpoint every 2,
+    eval; then the same to 6 steps, which resumes at 4. Asserts the logs,
+    the checkpoints, the export and that the training kernels and K6
+    (eval) launched. Leg H passes
     --config_overrides glue_impl=pallas (overrides), and K10a and K10b
     must launch too."""
     import numpy as np
@@ -3273,8 +3282,8 @@ def run_leg_c(work: Path, vols: Path, table: dict, leg: str = "C",
         path = work / f"mim_{leg}_{steps}.json"
         path.write_text(json.dumps(dict(
             preset, json_path=str(spec), output_dir=str(out),
-            num_train_steps=steps, save_steps=2, logging_steps=1,
-            do_eval=True)))
+            num_hidden_layers=LEG_C_LAYERS, num_train_steps=steps,
+            save_steps=2, logging_steps=1, do_eval=True)))
         t0 = time.perf_counter()
         res = run_mim([str(path)])
         return res, time.perf_counter() - t0
@@ -3427,8 +3436,9 @@ def same_checkpoint(a: Path, b: Path) -> tuple:
 def run_leg_p(work: Path, leg_c: dict) -> dict:
     """Leg P, the launcher path: `python -m torch.distributed.run
     --standalone --nproc_per_node 1 -m smb_vision_tpu_torch.cli.run_mim`
-    with leg C's preset, volumes, seed and flags under --sharding_policy
-    fsdp (NCCL, FSDP2 over a data axis of 1): 4 straight steps, and at
+    with leg C's preset (its encoder at LEG_C_LAYERS), volumes, seed and
+    flags under --sharding_policy fsdp (NCCL, FSDP2 over a data axis of
+    1): 4 straight steps, and at
     the same time, in a second directory, 4 steps stopped by a SIGTERM to
     the rank after step 2 and resumed. The straight run's losses against
     leg C's (1e-3 relative), its export against leg C's 4-step export
@@ -3447,7 +3457,8 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
         path = work / f"leg_p_{name}.json"
         path.write_text(json.dumps(dict(
             preset, json_path=str(work / "mim_data.json"),
-            output_dir=str(work / f"leg_p_{name}"), num_train_steps=4,
+            output_dir=str(work / f"leg_p_{name}"),
+            num_hidden_layers=LEG_C_LAYERS, num_train_steps=4,
             save_steps=2, logging_steps=1, do_eval=True,
             sharding_policy=LEG_P_POLICY)))
         return path
@@ -3547,29 +3558,40 @@ def run_leg_p(work: Path, leg_c: dict) -> dict:
 # makes (NCCL refuses two ranks of one device), CUDA tensors, the
 # full-width MIM step of configs/mim_base_512.json at 2 volumes a step,
 # under the data-axis and tensor-parallel policies, sequence parallelism
-# (both variants) and the pipeline; and the V-JEPA preset
-# configs/vjepa_large_384_tpu.json (ViT-L, 9,216 tokens) under the ring
-# and the pipeline. Each mode: (name, workload, policy, model axis,
+# (both variants; under "tp" and "fsdp+tp" too, the tokens and the split
+# weights on one model axis) and the pipeline; the V-JEPA preset
+# configs/vjepa_large_384_tpu.json (ViT-L, 9,216 tokens) under the ring,
+# the pipeline and "gather" under "fsdp+tp"; and the LoRA fine-tune step
+# of DINOv2-giant (rank 8, the default targets, the two-tier AdamW) under
+# "fsdp" and "fsdp+tp". Each mode: (name, workload, policy, model axis,
 # sp_variant or None, pipeline stages)
 TWO_RANK_MODES = (("dp", "mim", "dp", 1, None, 1),
                   ("fsdp", "mim", "fsdp", 1, None, 1),
                   ("tp", "mim", "tp", 2, None, 1),
                   ("gather", "mim", "dp", 2, "gather", 1),
                   ("ring", "mim", "dp", 2, "ring", 1),
+                  ("tp gather", "mim", "tp", 2, "gather", 1),
+                  ("fsdp+tp ring", "mim", "fsdp+tp", 2, "ring", 1),
                   ("pipeline", "mim", "pipeline", 2, None, 2),
                   ("vjepa ring", "vjepa", "dp", 2, "ring", 1),
-                  ("vjepa pipeline", "vjepa", "pipeline", 2, None, 2))
+                  ("vjepa pipeline", "vjepa", "pipeline", 2, None, 2),
+                  ("vjepa fsdp+tp gather", "vjepa", "fsdp+tp", 2, "gather",
+                   1),
+                  ("lora fsdp", "lora", "fsdp", 1, None, 1),
+                  ("lora fsdp+tp", "lora", "fsdp+tp", 2, None, 1))
 TWO_RANK_STEPS = 2
 TWO_RANK_BATCH = 2      # volumes a step (the pipeline's 2 microbatches)
 TWO_RANK_KERNELS = ("flash_fwd", "flash_bwd", "mlp_train_fwd", "mlp_bwd",
-                    "flash_bwd_i8", "flash_fwd_i8", "mlp_fwd", "quantize")
+                    "flash_bwd_i8", "flash_fwd_i8", "mlp_fwd", "quantize",
+                    "swiglu_block_fwd")
 TOL_TWO_RANKS = 1e-3    # relative, a step's loss against one rank
 # a parameter's gradient norm a step against one process (`grad_gap`), set
 # from sound runs on the H100, where the worst gaps read 4.7e-4 under MIM's
 # modes, 8.1e-3 under V-JEPA's pipeline and 5.7e-2 under its ring (the
 # ring's teacher runs K1 where one process runs K3, so its targets differ);
-# a gradient wrong by a factor of 2 reads 0.5 or more above the floor
-TOL_TWO_RANK_GRADS = {"mim": 1e-2, "vjepa": 0.2}
+# a gradient wrong by a factor of 2 reads 0.5 or more above the floor.
+# LoRA takes MIM's bound: its adapters see the same bf16 chain
+TOL_TWO_RANK_GRADS = {"mim": 1e-2, "vjepa": 0.2, "lora": 1e-2}
 GRAD_FLOOR = 1e-5       # of the whole gradient's norm, `grad_gap`
 
 
@@ -3634,26 +3656,35 @@ def expected_launches(mode: tuple, cfg) -> dict:
     forward, again in the recompute, and backward. V-JEPA's forward-only
     teacher runs K3 (its q and k quantised by R6) and K6 a layer, K1 on
     each block in the ring (`attention_with_lse` takes K1 for the int8
-    spelling); each K7 quantises its q, k, v and do (4 R6 launches)."""
+    spelling); each K7 quantises its q, k, v and do (4 R6 launches). The
+    LoRA step of DINOv2-giant runs K1 and its SwiGLU half-block (K9) twice
+    a layer under remat and K4 once; K9's backward is its plain
+    version's. The policy changes none of these: every rank gathers the
+    split weights whole for the kernels."""
     name, family, _, _, variant, stages = mode
     blocks = 2 if variant == "ring" else 1
     ticks = TWO_RANK_BATCH + stages - 1 if stages > 1 else 1
+    zero = dict.fromkeys(TWO_RANK_KERNELS, 0)
+    if family == "lora":
+        layers = cfg.num_hidden_layers
+        return dict(zero, flash_fwd=2 * layers, flash_bwd=layers,
+                    swiglu_block_fwd=2 * layers)
     if family == "mim":
         layers = cfg.num_hidden_layers + cfg.decoder_num_hidden_layers
         per = ticks * layers // stages
-        return {"flash_fwd": 2 * blocks * per, "flash_bwd": blocks * per,
-                "mlp_train_fwd": 2 * per, "mlp_bwd": per, "flash_bwd_i8": 0,
-                "flash_fwd_i8": 0, "mlp_fwd": 0, "quantize": 0}
+        return dict(zero, flash_fwd=2 * blocks * per,
+                    flash_bwd=blocks * per, mlp_train_fwd=2 * per,
+                    mlp_bwd=per)
     student = ticks * (cfg.num_hidden_layers
                        + cfg.pred_num_hidden_layers) // stages
     teacher = ticks * cfg.num_hidden_layers // stages
     k3 = 0 if variant == "ring" else teacher
     k7 = blocks * student
-    return {"flash_fwd": 2 * blocks * student
-            + (blocks * teacher if variant == "ring" else 0),
-            "flash_bwd": 0, "mlp_train_fwd": 2 * student, "mlp_bwd": student,
-            "flash_bwd_i8": k7, "flash_fwd_i8": k3, "mlp_fwd": teacher,
-            "quantize": 2 * k3 + 4 * k7}
+    return dict(zero, flash_fwd=2 * blocks * student
+                + (blocks * teacher if variant == "ring" else 0),
+                mlp_train_fwd=2 * student, mlp_bwd=student,
+                flash_bwd_i8=k7, flash_fwd_i8=k3, mlp_fwd=teacher,
+                quantize=2 * k3 + 4 * k7)
 
 
 def two_rank_steps(mode: tuple) -> dict:
@@ -3661,9 +3692,10 @@ def two_rank_steps(mode: tuple) -> dict:
     encoder's depth TWO_RANK_LAYERS), placed by
     the Trainer under its policy (one device without a process group),
     this rank on its rows of the same seeded global batches
-    (TWO_RANK_BATCH volumes) and masks (and DropPath generator). Returns
-    the losses, step times, launches a step, the peak memory and each
-    step's `grad_shares`."""
+    (TWO_RANK_BATCH volumes) and masks (and DropPath generator); the LoRA
+    family on `dinov2_batch`es, its model, adapters and head from
+    `init_fn(0)`. Returns the losses, step times, launches a step, the
+    peak memory and each step's `grad_shares`."""
     import torch
 
     from smb_vision_tpu_torch.ops.masking import mim_mask, vjepa_target_mask
@@ -3679,12 +3711,26 @@ def two_rank_steps(mode: tuple) -> dict:
     dev = torch.device("cuda", 0)
     sp = {} if variant is None else {"sequence_parallel": True,
                                      "sp_variant": variant}
-    cfg, preset = (mim_config if family == "mim" else vjepa_config)(
-        num_hidden_layers=TWO_RANK_LAYERS[family], **sp)
-    tx = functools.partial(make_optimizer,
-                           learning_rate=preset.get("learning_rate", 5e-5),
-                           total_steps=TWO_RANK_STEPS)
     mesh = create_mesh(model=model_parallel, device_type="cuda")
+    if family == "lora":
+        from smb_vision_tpu_torch.train.lora import (
+            make_lora_classification_workload,
+        )
+
+        cfg = giant_config(num_hidden_layers=TWO_RANK_LAYERS[family],
+                           problem_type="single_label_classification")
+        _, init_fn, step_fn, _ = make_lora_classification_workload(
+            cfg, task_type="classification", device=dev, rank=LORA_RANK,
+            tx=functools.partial(make_optimizer, learning_rate=1e-4,
+                                 total_steps=TWO_RANK_STEPS,
+                                 vision_lr=VISION_LR, merger_lr=MERGER_LR))
+        draw = None
+    else:
+        cfg, preset = (mim_config if family == "mim" else vjepa_config)(
+            num_hidden_layers=TWO_RANK_LAYERS[family], **sp)
+        tx = functools.partial(
+            make_optimizer, learning_rate=preset.get("learning_rate", 5e-5),
+            total_steps=TWO_RANK_STEPS)
     if family == "mim":
         from smb_vision_tpu_torch.train.mim import (
             make_mim_workload,
@@ -3707,7 +3753,7 @@ def two_rank_steps(mode: tuple) -> dict:
             return mim_mask(torch.Generator().manual_seed(100 + step),
                             TWO_RANK_BATCH, **geo)
         frames, size = cfg.num_frames, cfg.image_size
-    else:
+    elif family == "vjepa":
         from smb_vision_tpu_torch.train.vjepa import (
             make_pipelined_vjepa_workload,
             make_vjepa_workload,
@@ -3750,16 +3796,22 @@ def two_rank_steps(mode: tuple) -> dict:
     losses, times = [], []
     with use_mesh(trainer.mesh):
         for step in range(TWO_RANK_STEPS):
-            px = torch.rand((TWO_RANK_BATCH, frames, 1, size, size),
-                            generator=gen, device=dev)
+            if draw is None:
+                batch = {k: share_rows(v) for k, v in dinov2_batch(
+                    TWO_RANK_BATCH, 300 + step, dev).items()}
+                kw = {}
+            else:
+                batch = {"pixel_values": share_rows(torch.rand(
+                    (TWO_RANK_BATCH, frames, 1, size, size), generator=gen,
+                    device=dev))}
+                kw = {"mask": share_rows(draw(step)).to(dev)}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m = step_fn(state, {"pixel_values": share_rows(px)},
-                        torch.Generator().manual_seed(200 + step),
-                        mask=share_rows(draw(step)).to(dev))
+            m = step_fn(state, batch,
+                        torch.Generator().manual_seed(200 + step), **kw)
             losses.append(float(m["loss"]))
             times.append((time.perf_counter() - t0) * 1e3)
-            del px
+            del batch
     out = {"losses": losses, "step_ms": times,
            "launches": {k: ws[k].launches // TWO_RANK_STEPS
                         for k in TWO_RANK_KERNELS},
@@ -3772,9 +3824,17 @@ def two_rank_steps(mode: tuple) -> dict:
     return out
 
 
-def two_rank_worker(rank: int, world: int, init: str, out: Path) -> None:
+def two_rank_part(mode: tuple) -> int:
+    """The pair of worker processes that runs a mode of the 2-rank phase:
+    MIM's modes on one, V-JEPA's and LoRA's on the other, both at once."""
+    return 0 if mode[1] == "mim" else 1
+
+
+def two_rank_worker(rank: int, world: int, init: str, out: Path,
+                    part: int) -> None:
     """One rank of the 2-rank phase: a gloo group through a file://
-    rendezvous, then `two_rank_steps` of each mode in turn."""
+    rendezvous, then `two_rank_steps` of each mode of its part
+    (`two_rank_part`) in turn."""
     import torch
     import torch.distributed as dist
 
@@ -3783,6 +3843,8 @@ def two_rank_worker(rank: int, world: int, init: str, out: Path) -> None:
                             rank=rank, world_size=world)
     try:
         for mode in TWO_RANK_MODES:
+            if two_rank_part(mode) != part:
+                continue
             t0 = time.perf_counter()
             res = two_rank_steps(mode)
             res["seconds"] = time.perf_counter() - t0
@@ -3820,10 +3882,16 @@ def phase_two_ranks(work: Path, card: str) -> dict:
     """The full-width MIM step (the encoder cut to TWO_RANK_LAYERS["mim"]
     layers) on 2 ranks of the one card under dp, fsdp and tp
     (model_parallel 2), sequence parallel ("gather" and "ring", the
-    tokens over a model axis of 2) and pipelined (2 stages x 2
-    microbatches), and the V-JEPA preset's step (its encoder cut to
-    TWO_RANK_LAYERS["vjepa"]) under the ring and the pipeline, each
-    against this process fed the global batch on one device: each step's
+    tokens over a model axis of 2; "gather" under tp and "ring" under
+    fsdp+tp, the split weights on the same axis) and pipelined (2 stages
+    x 2 microbatches), the V-JEPA preset's step (its encoder cut to
+    TWO_RANK_LAYERS["vjepa"]) under the ring, the pipeline and "gather"
+    under fsdp+tp, and the LoRA step of DINOv2-giant (cut to
+    TWO_RANK_LAYERS["lora"]) under fsdp (2 data ranks) and fsdp+tp (2
+    model ranks), each
+    against this process fed the global batch on one device (the two
+    pairs of ranks, `two_rank_part`, and this process's references run
+    at once: no step time here is a speed): each step's
     loss within 1e-3 relative; each parameter's
     gradient norm a step (the clip's, after the sync) within
     TOL_TWO_RANK_GRADS (`grad_gap`), which a gradient wrong by a factor (a
@@ -3837,27 +3905,32 @@ def phase_two_ranks(work: Path, card: str) -> dict:
     out.mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
-    check_zero_cotangent()
-    refs = {}
-    for family in ("mim", "vjepa"):
-        mode = (f"{family} one process", family, "dp", 1, None, 1)
-        ref = refs[family] = two_rank_steps(mode)
-        if ref["launches"] != ref["expected"]:
-            raise AssertionError(f"{mode[0]}: launches {ref['launches']}, "
-                                 f"expected {ref['expected']}")
-        log(f"2 ranks, {family} in one process on the global batch "
-            f"({TWO_RANK_BATCH} volumes; the encoder "
-            f"{TWO_RANK_LAYERS[family]} layers deep): losses {ref['losses']}, step ms "
-            f"{[round(t, 1) for t in ref['step_ms']]}, peak "
-            f"{ref['peak_mib']:.0f} MiB, launches a step {ref['launches']}")
     procs = []
     try:
-        for r in range(2):
-            lp = out / f"rank_{r}.log"
-            procs.append((launch(
-                [sys.executable, str(ROOT / "chip_smoke.py"),
-                 "--two-ranks-worker", str(r), "2", str(out / "rdv"),
-                 str(out)], lp, env), lp))
+        for part in sorted({two_rank_part(m) for m in TWO_RANK_MODES}):
+            for r in range(2):
+                lp = out / f"rank_{part}_{r}.log"
+                procs.append((launch(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--two-ranks-worker", str(r), "2",
+                     str(out / f"rdv_{part}"), str(out), str(part)], lp,
+                    env), lp))
+        check_zero_cotangent()
+        refs = {}
+        for family in ("mim", "vjepa", "lora"):
+            mode = (f"{family} one process", family, "dp", 1, None, 1)
+            ref = refs[family] = two_rank_steps(mode)
+            if ref["launches"] != ref["expected"]:
+                raise AssertionError(f"{mode[0]}: launches "
+                                     f"{ref['launches']}, expected "
+                                     f"{ref['expected']}")
+            log(f"2 ranks, {family} in one process on the global batch "
+                f"({TWO_RANK_BATCH} volumes; the encoder "
+                f"{TWO_RANK_LAYERS[family]} layers deep): losses "
+                f"{ref['losses']}, step ms "
+                f"{[round(t, 1) for t in ref['step_ms']]}, peak "
+                f"{ref['peak_mib']:.0f} MiB, launches a step "
+                f"{ref['launches']}")
         for proc, lp in procs:
             finish(proc, lp, "2-rank phase", timeout=900)
     finally:
@@ -6981,8 +7054,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--two-ranks-worker"]:
         # one rank of phase_two_ranks (the kernels are built)
-        rank, world, init, out = sys.argv[2:6]
-        two_rank_worker(int(rank), int(world), init, Path(out))
+        rank, world, init, out, part = sys.argv[2:7]
+        two_rank_worker(int(rank), int(world), init, Path(out), int(part))
         return 0
     t0 = time.perf_counter()
 

@@ -19,7 +19,8 @@ its default. Outputs: `metrics.jsonl` (with the eval metrics),
 absent, and a CPU run must ask for it with --device cpu. Under
 `python -m torch.distributed.run` it trains on N ranks as run_mim does:
 the Cox risk sets and the eval metrics are the global batch's. LoRA
-(--lora_enable) trains under sharding_policy dp only.
+(--lora_enable) trains under every sharding policy: the frozen base is
+placed by it, the adapters and the head stay replicated.
 
 Example:
     python -m smb_vision_tpu_torch.cli.run_classification \\
@@ -207,12 +208,7 @@ def main(argv=None) -> dict:
 
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    check_parallel_flags(model_args, training_args,
-                         cli="run_classification")
-    if model_args.lora_enable and training_args.sharding_policy != "dp":
-        raise ValueError(
-            f"--lora_enable trains under --sharding_policy dp only, not "
-            f"{training_args.sharding_policy}")
+    check_parallel_flags(model_args, training_args)
     device, accum_dt, mesh, made = start_distributed(training_args)
     try:
         return _main(model_args, data_args, training_args, device, accum_dt,

@@ -13,8 +13,10 @@ fsdp+tp over a (data, model) mesh of --model_parallel model ranks
 (`parallel/`), each data rank reading its share of the items
 (`partition_items`) and feeding its share of the global batch of
 per_device_train_batch_size x data ranks x accumulation.
---sequence_parallel splits the tokens over the model ranks (dp, fsdp;
-`sp_variant` "gather" or "ring" through --config_overrides), and
+--sequence_parallel splits the tokens over the model ranks (under every
+policy but the pipeline's: with tp or fsdp+tp the stacks' split weights
+share the model axis with the tokens; `sp_variant` "gather" or "ring"
+through --config_overrides), and
 --pipeline_stages S streams --pipeline_microbatches through S stages of
 both stacks on the model axis (policy "pipeline" or "pipeline+fsdp"). The volumes go
 through the native CT loader when
@@ -159,23 +161,16 @@ def build_config(model_args: ModelArguments):
     return config.apply_overrides(model_args.config_overrides)
 
 
-def check_parallel_flags(model_args, training_args,
-                         cli: str = "run_mim") -> bool:
+def check_parallel_flags(model_args, training_args) -> bool:
     """The model-parallel flags, before any process group: sequence
-    parallelism refuses the "tp" policies (`not_ported`, which names its
-    item of the roadmap); --pipeline_stages S > 1 refuses gradient
+    parallelism runs under every policy but the pipeline's ("tp" and
+    "fsdp+tp" store the stacks' split weights over the model axis, which
+    also holds the tokens); --pipeline_stages S > 1 refuses gradient
     accumulation and sequence parallelism, as the JAX CLI does, and puts
     the stages on the model axis under the "pipeline" policy (a
     "pipeline+..." policy stands). Returns whether the run is pipelined.
     A flag the calling CLI does not have counts as unset."""
-    from smb_vision_tpu_torch.utils.args import not_ported
-
     sp = getattr(model_args, "sequence_parallel", False)
-    if sp and "tp" in training_args.sharding_policy:
-        raise not_ported(f"--sequence_parallel under --sharding_policy "
-                         f"{training_args.sharding_policy}", "multi-gpu",
-                         f"smb_vision_tpu.cli.{cli}, or --sharding_policy "
-                         "dp or fsdp")
     stages = getattr(model_args, "pipeline_stages", 1)
     if stages <= 1:
         return False

@@ -163,8 +163,7 @@ def main(argv=None) -> dict:
 
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataTrainingArguments, TrainingArguments), argv)
-    pipelined = check_parallel_flags(model_args, training_args,
-                                     cli="run_vjepa")
+    pipelined = check_parallel_flags(model_args, training_args)
     device, accum_dt, mesh, made = start_distributed(training_args)
     try:
         return _main(model_args, data_args, training_args, device, accum_dt,

@@ -104,34 +104,41 @@ def trunc_normal_(t: torch.Tensor, std: float, generator=None):
                                  generator=generator)
 
 
-def _full(t):
+def _full(t, sum_grad: bool = False):
     """A parameter stored split over the model axis (a DTensor) as the
     whole plain tensor, gathered at use; the gradient goes back as this
-    rank's piece (every rank of a model group computes the same
-    gradient). Any other tensor as it is."""
+    rank's piece: as it is where every rank of a model group computes the
+    same gradient, summed over the group first with sum_grad (each rank's
+    covers its own tokens). Any other tensor as it is."""
     if t is None or not hasattr(t, "full_tensor"):
         return t
-    return gather_shards(t)
+    return gather_shards(t, sum_grad)
 
 
 class Linear(nn.Linear):
     """nn.Linear that computes in a given dtype from float32 parameters.
-    With `gather_at_use` (tensor parallelism on a kernel route,
-    `parallel/sharding.py`), weight and bias are stored split over the
-    model axis and `weight_full` / `bias_full` gather them whole, so the
-    kernels see whole weights, as under GSPMD in the JAX package."""
+    With `gather_at_use` (tensor parallelism on a kernel route, or in a
+    sequence-parallel stack, `parallel/sharding.py`), weight and bias are
+    stored split over the model axis and `weight_full` / `bias_full`
+    gather them whole, so the kernels see whole weights, as under GSPMD in
+    the JAX package; `sum_grad` (set in a sequence-parallel stack, whose
+    ranks hold different tokens) sums the gathered weight's gradient over
+    the model axis before each rank keeps its piece."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  dtype: torch.dtype):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.gather_at_use = False
+        self.sum_grad = False
 
     def weight_full(self):
-        return _full(self.weight) if self.gather_at_use else self.weight
+        return (_full(self.weight, self.sum_grad) if self.gather_at_use
+                else self.weight)
 
     def bias_full(self):
-        return _full(self.bias) if self.gather_at_use else self.bias
+        return (_full(self.bias, self.sum_grad) if self.gather_at_use
+                else self.bias)
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -141,11 +141,16 @@ def global_rows(local_rows: int) -> int:
 
 class _GatherShards(torch.autograd.Function):
     """The whole tensor from equal pieces split on `dim` over `group`
-    (one all_gather_into_tensor); the backward keeps this rank's piece of
-    the cotangent, which every rank of the group computed alike."""
+    (one all_gather_into_tensor). The backward keeps this rank's piece of
+    the cotangent: as it is, where every rank of the group computed the
+    same cotangent (the same tokens), or with sum_grad summed over the
+    group first (each rank's cotangent covers its own token shard of a
+    sequence-parallel stack): an all-reduce and a slice, the
+    reduce-scatter that every backend has."""
 
     @staticmethod
-    def forward(ctx, x, group, n, r, dim):
+    def forward(ctx, x, group, n, r, dim, sum_grad):
+        ctx.group, ctx.sum_grad = group, sum_grad
         ctx.r, ctx.dim, ctx.size = r, dim, x.shape[dim]
         x = x.contiguous()
         out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
@@ -154,16 +159,20 @@ class _GatherShards(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.sum_grad:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return (g.narrow(ctx.dim, ctx.r * ctx.size, ctx.size).contiguous(),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
-def gather_shards(t: torch.Tensor) -> torch.Tensor:
+def gather_shards(t: torch.Tensor, sum_grad: bool = False) -> torch.Tensor:
     """A parameter stored split over one mesh axis (a DTensor, Shard(d))
     as the whole plain tensor, differentiably, through the process
     group's own all_gather_into_tensor (DTensor's functional collectives
     crash under gloo on CUDA tensors); the gradient goes back as this
-    rank's piece. Any other DTensor through full_tensor."""
+    rank's piece, summed over the axis first with sum_grad (a weight used
+    on each rank's own tokens). Any other DTensor through full_tensor."""
     from torch.distributed.tensor import Replicate
 
     split = [i for i, pl in enumerate(t.placements)
@@ -174,7 +183,7 @@ def gather_shards(t: torch.Tensor) -> torch.Tensor:
         group = mesh.get_group(i)
         return _GatherShards.apply(
             t.to_local(), group, mesh.size(i),
-            mesh.get_coordinate()[i], t.placements[i].dim)
+            mesh.get_coordinate()[i], t.placements[i].dim, sum_grad)
     return t.full_tensor(grad_placements=[Replicate()] * t.device_mesh.ndim)
 
 

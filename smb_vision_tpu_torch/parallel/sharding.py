@@ -39,11 +39,28 @@ here each policy is explicit work on a (data, model) `DeviceMesh`:
   non-stack tables over "data" then.
 
 Sequence parallelism (a model whose stacks are `sequence_parallel`) runs
-under "dp" and "fsdp" with the tokens on the model axis: each rank's
-gradient of a stack parameter covers its tokens only, so `sync_gradients`
-sums those over the model axis too (`model_sum_ids`); every other
-parameter's gradient is already whole on every rank of a model group. It
-refuses "tp" (ROADMAP.md queue 1 item 9, Multi-GPU).
+under every policy but the pipeline's, with the tokens on the model axis:
+each rank's gradient of a stack parameter covers its tokens only. Under
+"dp" and "fsdp" `sync_gradients` sums those over the model axis
+(`model_sum_ids`); every other parameter's gradient is already whole on
+every rank of a model group. Under "tp" and "fsdp+tp" every Linear of a
+sequence-parallel stack that the rules split is stored split and gathered
+whole at use, whatever its route (the Megatron pair would need the
+activations whole over the model axis), with `sum_grad`: the gather's
+backward sums the whole weight's gradient over the model axis and keeps
+this rank's piece (a reduce-scatter), so the split parameters leave
+`model_sum_ids` and the others (LayerNorms, LayerScale, a row layer's
+bias) stay in it. The kernels see the whole weights and the rank's token
+shard, as under "dp".
+
+LoRA (a model whose adapted weights are `torch.nn.utils.parametrize`d,
+`train/lora.py`): the frozen base is placed by the policy's classes, under
+the base weight's name; every trainable parameter (the adapters, the head)
+stays replicated, outside FSDP2, and `sync_gradients` averages its
+gradient over the data axis, as the JAX Trainer replicates its `lora`
+tree. An adapted Linear always gathers its base at use (the merge,
+`LoraDelta`, adds the adapters' delta to the whole weight): never the
+Megatron pair.
 
 `param_placements` gives each parameter's class as the JAX
 `param_shardings` would, by its flat name, so a test holds the two
@@ -66,6 +83,9 @@ from smb_vision_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     axis_size,
 )
+
+# the state_dict path of a parametrized weight's base tensor (LoRA)
+_ORIGINAL = ".parametrizations.weight.original"
 
 POLICIES = ("dp", "fsdp", "tp", "fsdp+tp", "pipeline", "pipeline+fsdp")
 
@@ -93,7 +113,10 @@ class Placement(NamedTuple):
 
 def jax_path(name: str, ndim: int) -> str:
     """A parameter's name here -> its flat path in the JAX package's tree
-    (`models/convert.params_to_flax`'s renaming, joined by '/')."""
+    (`models/convert.params_to_flax`'s renaming, joined by '/'); a
+    parametrized weight's base tensor goes by the weight's name."""
+    if name.endswith(_ORIGINAL):
+        name = name[:-len(_ORIGINAL)] + ".weight"
     if name.endswith(".weight"):
         base = name[:-len(".weight")]
         if ndim in (2, 5):
@@ -143,18 +166,34 @@ def _fsdp_dim(jshape, tp: Optional[str], n_data: int) -> Optional[int]:
     return None
 
 
+def lora_trainable(model: nn.Module) -> Set[str]:
+    """The names of the parameters a LoRA run trains (every trainable one
+    of a model with a parametrized weight), which every policy keeps
+    replicated; none for any other model."""
+    from torch.nn.utils import parametrize
+
+    if not any(parametrize.is_parametrized(m) for m in model.modules()):
+        return set()
+    return {n for n, p in model.named_parameters() if p.requires_grad}
+
+
 def param_placements(model: nn.Module, mesh, policy: str = "dp",
                      min_fsdp_size: int = 2 ** 16) -> Dict[str, Placement]:
     """{name: Placement} of every parameter, by the JAX package's rules
-    on its flat path and shape. mesh: a DeviceMesh, None (one device) or
-    a (data, model) shape."""
+    on its flat path and shape; a LoRA run's trainable parameters are
+    replicated (`lora_trainable`). mesh: a DeviceMesh, None (one device)
+    or a (data, model) shape."""
     check_policy(policy)
     n_data, n_model = _mesh_shape(mesh)
     use_tp = "tp" in policy and n_model > 1
     use_fsdp = "fsdp" in policy and n_data > 1
     staged = _stage_names(model) if "pipeline" in policy else set()
+    trained = lora_trainable(model)
     out = {}
     for name, p in model.named_parameters():
+        if name in trained:
+            out[name] = Placement(None, False)
+            continue
         js = jax_shape(p)
         tp = _tp_class(jax_path(name, p.dim()), js, n_model) \
             if use_tp else None
@@ -188,14 +227,24 @@ def stage_param_ids(model: nn.Module) -> Set[int]:
             for p in m.parameters()}
 
 
+def _model_split(p: torch.Tensor) -> bool:
+    """A DTensor split over the mesh's model axis (tensor parallelism)."""
+    if not hasattr(p, "placements"):
+        return False
+    names = p.device_mesh.mesh_dim_names or ()
+    return any(n == MODEL_AXIS and is_split(pl)
+               for n, pl in zip(names, p.placements))
+
+
 def model_sum_ids(model: nn.Module, mesh) -> Set[int]:
     """The parameters whose gradients `sync_gradients` sums over the model
     axis: those of the sequence-parallel stacks, when the axis has more
-    than one rank."""
+    than one rank, but the ones split over it (their gather's backward
+    sums them: `collectives.gather_shards`)."""
     if axis_size(mesh, MODEL_AXIS) == 1:
         return set()
     return {id(p) for m in _stacks(model, "sp").values()
-            for p in m.parameters()}
+            for p in m.parameters() if not _model_split(p)}
 
 
 def check_policy(policy: str) -> None:
@@ -217,28 +266,45 @@ def _block_of(model: nn.Module) -> Dict[str, nn.Module]:
     return {n: m for n, m in model.named_modules() if isinstance(m, Block)}
 
 
+def _split(t: torch.Tensor, tp_mesh, dim: int) -> nn.Parameter:
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    return nn.Parameter(distribute_tensor(t.detach(), tp_mesh, [Shard(dim)]),
+                        requires_grad=t.requires_grad)
+
+
 def _apply_tp(model: nn.Module, tp_mesh, classes: Dict[str, Placement],
               n_model: int) -> None:
-    from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,
         parallelize_module,
     )
+    from torch.nn.utils import parametrize
 
     from smb_vision_tpu_torch.models.layers import Attention, Linear, Mlp
 
     blocks = _block_of(model)
     glue = {f"{n}.attention" for n, b in blocks.items()
             if b.glue_impl == "pallas"}
+    # the modules of the sequence-parallel stacks: their ranks hold
+    # different tokens, so every split weight is gathered at use there and
+    # its gradient summed over the model axis
+    sp = {".".join(x for x in (n, sub) if x)
+          for n, m in _stacks(model, "sp").items()
+          for sub, _ in m.named_modules()}
+    lora = bool(lora_trainable(model))
     done: Set[str] = set()
 
     def cls(lin_name: str) -> Optional[str]:
-        p = classes.get(lin_name + ".weight")
+        p = classes.get(lin_name + ".weight") or classes.get(
+            lin_name + _ORIGINAL)
         return p.tp if p else None
 
     for name, mod in model.named_modules():
         pre = f"{name}." if name else ""
+        if name in sp or lora:
+            continue
         if isinstance(mod, Attention) and _attention_plain(mod) \
                 and name not in glue:
             pair = {"query": "col", "key": "col", "value": "col",
@@ -258,23 +324,25 @@ def _apply_tp(model: nn.Module, tp_mesh, classes: Dict[str, Placement],
             for c, want in pair.items()})
         done.update(pre + c for c in pair)
 
-    # every other split parameter: stored split, gathered at use
+    # every other split parameter: stored split, gathered at use (an
+    # adapted weight's base: the merge gathers it, `train/lora.LoraDelta`)
     for name, mod in model.named_modules():
         if not isinstance(mod, Linear) or name in done:
             continue
         tp = cls(name)
         if tp is None:
             continue
-        mod.weight = nn.Parameter(
-            distribute_tensor(mod.weight.detach(), tp_mesh,
-                              [Shard(0 if tp == "col" else 1)]),
-            requires_grad=mod.weight.requires_grad)
+        dim = 0 if tp == "col" else 1
+        if parametrize.is_parametrized(mod, "weight"):
+            plist = mod.parametrizations.weight
+            plist.original = _split(plist.original, tp_mesh, dim)
+        else:
+            mod.weight = _split(mod.weight, tp_mesh, dim)
         b = classes.get(name + ".bias")
         if mod.bias is not None and b is not None and b.tp == "col":
-            mod.bias = nn.Parameter(
-                distribute_tensor(mod.bias.detach(), tp_mesh, [Shard(0)]),
-                requires_grad=mod.bias.requires_grad)
+            mod.bias = _split(mod.bias, tp_mesh, 0)
         mod.gather_at_use = True
+        mod.sum_grad = name in sp
 
 
 def apply_policy(model: nn.Module, mesh, policy: str = "dp",
@@ -286,12 +354,6 @@ def apply_policy(model: nn.Module, mesh, policy: str = "dp",
     if mesh is None:
         return set()
     n_data, n_model = _mesh_shape(mesh)
-    if "tp" in policy and n_model > 1 and _stacks(model, "sp"):
-        from smb_vision_tpu_torch.utils.args import not_ported
-
-        raise not_ported(f"sequence parallelism under sharding_policy "
-                         f"{policy!r}", "multi-gpu",
-                         "sharding_policy dp or fsdp")
     staged = _stacks(model, "pipe")
     if staged and "pipeline" not in policy:
         raise ValueError(f"a model pipelined over the model axis trains "
@@ -305,9 +367,11 @@ def apply_policy(model: nn.Module, mesh, policy: str = "dp",
     from torch.distributed.fsdp import fully_shard
 
     replicated = set()
+    trained = lora_trainable(model)
     for name, p in model.named_parameters():
         tp = classes[name].tp
-        if (classes[name].stage or p.numel() < min_fsdp_size
+        if (classes[name].stage or name in trained
+                or p.numel() < min_fsdp_size
                 or _fsdp_dim(jax_shape(p), tp, n_data) is None):
             replicated.add(p)
     dm = mesh[DATA_AXIS]

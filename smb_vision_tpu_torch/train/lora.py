@@ -38,6 +38,7 @@ from smb_vision_tpu_torch.models.convert import (
     load_backbone_into,
     read_safetensors,
 )
+from smb_vision_tpu_torch.parallel.collectives import gather_shards
 from smb_vision_tpu_torch.train.classification import (
     make_classification_workload,
 )
@@ -60,7 +61,10 @@ def jax_path(name: str, ndim: int) -> str:
 
 class LoraDelta(nn.Module):
     """The parametrization of one adapted Linear weight W (out, in):
-    W + ((a @ b) * scale)^T, a (in, r), b (r, out)."""
+    W + ((a @ b) * scale)^T, a (in, r), b (r, out). A base stored split
+    over the model axis (tensor parallelism, `parallel/sharding.py`) is
+    gathered whole first, so the merge, its recompute under remat and
+    every route that reads the weight see the whole merged tensor."""
 
     def __init__(self, fan_in: int, fan_out: int, rank: int, scale: float,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -71,6 +75,8 @@ class LoraDelta(nn.Module):
         self.scale = scale
 
     def forward(self, w: torch.Tensor) -> torch.Tensor:
+        if hasattr(w, "full_tensor"):
+            w = gather_shards(w)
         return w + ((self.a @ self.b) * self.scale).t().to(w.dtype)
 
 
@@ -143,13 +149,16 @@ def lora_size(model: nn.Module) -> int:
                for _, d in adapted(model).values())
 
 
-def base_state_dict(model: nn.Module, merged: bool = False
+def base_state_dict(model: nn.Module, merged: bool = False,
+                    state: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """The model's state_dict under its own names, without the adapters:
+    """The model's state_dict (or `state`, a whole one of the same names:
+    a sharded run's, gathered) under its own names, without the adapters:
     each adapted weight is the frozen base's, or with merged=True the
-    merged W + delta."""
+    merged W + delta, computed by the model's own `LoraDelta` on the
+    adapters' device."""
     out = {}
-    for k, v in model.state_dict().items():
+    for k, v in (model.state_dict() if state is None else state).items():
         if _PARAMETRIZED not in k:
             out[k] = v
         elif k.endswith(_PARAMETRIZED + "original"):
@@ -158,7 +167,10 @@ def base_state_dict(model: nn.Module, merged: bool = False
         with torch.no_grad():
             for name, mod in model.named_modules():
                 if parametrize.is_parametrized(mod, "weight"):
-                    out[name + ".weight"] = mod.weight.detach()
+                    delta = mod.parametrizations.weight[0]
+                    w = out[name + ".weight"]
+                    out[name + ".weight"] = delta(
+                        w.to(delta.a.device)).to(w.device)
     return out
 
 

@@ -227,16 +227,16 @@ class Trainer:
                          if dist.get_backend() != "gloo" else
                          dist.group.WORLD)
         if self.mesh is not None:
-            placed = args.sharding_policy != "dp"
-            if placed and "lora_meta" in state:
-                raise NotImplementedError(
-                    "a LoRA run trains under sharding_policy dp only")
+            # "dp" keeps the parameters; the other policies replace them,
+            # but a LoRA run's trainable ones, which stay replicated
+            # (`sharding.lora_trainable`)
+            placed = (args.sharding_policy != "dp"
+                      and "lora_meta" not in state)
             fsdp_ids = apply_policy(state["model"], self.mesh,
                                     args.sharding_policy, min_fsdp_size)
             if "teacher" in state:
                 apply_policy(state["teacher"], self.mesh,
                              args.sharding_policy, min_fsdp_size)
-            # "dp" keeps the parameters; the other policies replace them
             state["optimizer"].place(
                 self.mesh, fsdp_ids,
                 state["model"].named_parameters() if placed else None,
@@ -515,31 +515,29 @@ class Trainer:
         )
 
         model = self.state["model"]
-        if "lora_meta" not in self.state:
-            full = self.full_model_state()
-            if self.main:
-                write_safetensors(self.out_dir / "model.safetensors",
-                                  params_to_flax(full))
+        # gathered whole from its shards on a mesh (every rank calls it)
+        full = self.full_model_state()
+        if not self.main:
             self._barrier()
             return
-        if any(hasattr(p, "placements") for p in model.parameters()):
-            raise NotImplementedError(
-                "a LoRA run trains under sharding_policy dp only")
-        if not self.main:
+        if "lora_meta" not in self.state:
+            write_safetensors(self.out_dir / "model.safetensors",
+                              params_to_flax(full))
             self._barrier()
             return
         from smb_vision_tpu_torch.train import lora
 
+        # the adapters and the head are replicated: this rank's are whole
         head0 = self.state["base_head"]
         base = {k: head0.get(lora.jax_path(k, v.ndim), v)
-                for k, v in lora.base_state_dict(model).items()}
+                for k, v in lora.base_state_dict(model, state=full).items()}
         write_safetensors(self.out_dir / "model.safetensors",
                           params_to_flax(base))
         write_safetensors(self.out_dir / "lora.safetensors",
                           lora.lora_tensors(model, self.state["lora_meta"]))
         write_safetensors(self.out_dir / "model_merged.safetensors",
-                          params_to_flax(lora.base_state_dict(model,
-                                                              merged=True)))
+                          params_to_flax(lora.base_state_dict(
+                              model, merged=True, state=full)))
         self._barrier()
 
     # -- loops -------------------------------------------------------------

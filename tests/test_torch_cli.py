@@ -417,17 +417,21 @@ def test_refusals_cite_roadmap_items():
         assert headings.get((queue, n), "").rstrip(".") == heading, (
             queue, n, heading)
     cite = re.compile(r"ROADMAP\.md queue (\d+) item (\d+), ([^)]+)\)")
-    # context and pipeline parallelism are ported (step 2 of queue 1 item
-    # 9): what stays refused is sequence parallelism under the "tp"
-    # policies and the pipeline with the sliding window
+    # context, sequence and pipeline parallelism are ported (steps 2 and 3
+    # of queue 1 item 9): what stays refused is the pipeline with the
+    # sliding window
     refusals = [
-        lambda: run_mim.main(["--device", "cpu", "--sequence_parallel",
-                              "true", "--sharding_policy", "tp"]),
-        lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
-                                "true", "--sharding_policy", "fsdp+tp"]),
         lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
                              "--sliding_window", "true"]),
     ]
+    # sequence parallelism under the "tp" policies runs past the refusals
+    # (the CLIs stop only for want of data)
+    for main, policy, data in ((run_mim.main, "tp", "--json_path"),
+                               (run_vjepa.main, "fsdp+tp", "--data_path")):
+        with pytest.raises(FileNotFoundError, match="spec does not exist"):
+            main(["--device", "cpu", "--sequence_parallel", "true",
+                  "--sharding_policy", policy, data,
+                  "/nonexistent/spec.json"])
     # the kernels take head widths up to 128 and MLP widths past 1,024
     # (queue 2 items 2 and 3), under autograd too (item 5): a forced kernel
     # impl trains there (its plain versions on the CPU)
@@ -457,6 +461,10 @@ def test_refusals_cite_roadmap_items():
     with pytest.raises(SystemExit, match="train_data_path"):
         run_classification.main(["--device", "cpu", "--lora_enable",
                                  "true"])
+    # and under every sharding policy (step 3 of queue 1 item 9)
+    with pytest.raises(SystemExit, match="train_data_path"):
+        run_classification.main(["--device", "cpu", "--lora_enable",
+                                 "true", "--sharding_policy", "fsdp+tp"])
     with pytest.raises(ValueError, match="model_name_or_path"):
         make_server(ServeArguments(encoder="merlin", port=0, device="cpu"))
     assert set(convert.convert_hf_auto(

@@ -4,8 +4,9 @@ Cox loss and the eval metrics over 2 gloo ranks against one process, the
 sharded checkpoints (a SIGTERM on one rank and the resume byte for byte, a
 world-2 checkpoint resumed by one process, the 2-rank export against a
 1-rank one), the three training CLIs under `torch.distributed.run` on 2
-gloo ranks, and the refusals that stay: the parts of step 2 of ROADMAP
-queue 1 item 9 still refused and --device cuda without CUDA."""
+gloo ranks (also sequence parallelism under the "tp" policies and LoRA
+under "fsdp"), and the refusals that stay: the pipeline with the sliding
+window (ROADMAP queue 1 item 9) and --device cuda without CUDA."""
 
 import json
 import os
@@ -326,37 +327,60 @@ COMMON = ["--image_size", "32", "--depth", "32", "--patch_size", "16",
           "--attn_impl", "xla", "--mlp_impl", "xla", "--num_train_steps", "3",
           "--save_steps", "2", "--logging_steps", "1", "--do_eval", "true",
           "--device", "cpu", "--num_workers", "1"]
+def _mim(spec):
+    return ["--json_path", str(spec), "--mask_patch_size", "16",
+            "--mask_ratio", "0.5", "--intermediate_size", "128",
+            "--gradient_checkpointing", "true", "--config_overrides",
+            "decoder_hidden_size=64,decoder_num_hidden_layers=1,"
+            "decoder_intermediate_size=128,decoder_num_attention_heads=2"]
+
+
+def _vjepa(spec):
+    return ["--data_path", str(spec), "--pred_hidden_size", "32",
+            "--pred_num_hidden_layers", "1", "--pred_num_attention_heads",
+            "2", "--teacher_attn_impl", "xla", "--num_mask_blocks", "2"]
+
+
+def _classification(spec):
+    return ["--train_data_path", str(spec), "--val_data_path", str(spec),
+            "--task_type", "survival", "--additional_feature_columns", "age",
+            "--intermediate_size", "128", "--model_type", "videomae",
+            "--per_device_eval_batch_size", "2"]
+
+
+SP = ["--sequence_parallel", "true", "--model_parallel", "2"]
+# case: (CLI, its flags)
 CLIS = {
-    "run_mim": lambda spec: [
-        "--json_path", str(spec), "--mask_patch_size", "16",
-        "--mask_ratio", "0.5", "--intermediate_size", "128",
-        "--gradient_checkpointing", "true", "--config_overrides",
-        "decoder_hidden_size=64,decoder_num_hidden_layers=1,"
-        "decoder_intermediate_size=128,decoder_num_attention_heads=2",
-        "--sharding_policy", "fsdp"],
-    "run_vjepa": lambda spec: [
-        "--data_path", str(spec), "--pred_hidden_size", "32",
-        "--pred_num_hidden_layers", "1", "--pred_num_attention_heads", "2",
-        "--teacher_attn_impl", "xla", "--num_mask_blocks", "2",
-        "--sharding_policy", "tp", "--model_parallel", "2"],
-    "run_classification": lambda spec: [
-        "--train_data_path", str(spec), "--val_data_path", str(spec),
-        "--task_type", "survival", "--additional_feature_columns", "age",
-        "--intermediate_size", "128", "--model_type", "videomae",
-        "--per_device_eval_batch_size", "2", "--sharding_policy", "dp"],
+    "run_mim": ("run_mim", lambda spec: [
+        *_mim(spec), "--sharding_policy", "fsdp"]),
+    "run_vjepa": ("run_vjepa", lambda spec: [
+        *_vjepa(spec), "--sharding_policy", "tp", "--model_parallel", "2"]),
+    "run_classification": ("run_classification", lambda spec: [
+        *_classification(spec), "--sharding_policy", "dp"]),
+    "run_mim sp fsdp+tp": ("run_mim", lambda spec: [
+        *_mim(spec), *SP, "--sharding_policy", "fsdp+tp"]),
+    "run_vjepa sp tp": ("run_vjepa", lambda spec: [
+        *_vjepa(spec), *SP, "--sharding_policy", "tp"]),
+    "run_classification lora fsdp": ("run_classification", lambda spec: [
+        *_classification(spec), "--lora_enable", "true", "--lora_rank",
+        "4", "--sharding_policy", "fsdp"]),
 }
 
 
-@pytest.mark.parametrize("cli", sorted(CLIS))
-def test_cli_trains_on_two_gloo_ranks(volumes, tmp_path, cli):
+@pytest.mark.parametrize("case", sorted(CLIS))
+def test_cli_trains_on_two_gloo_ranks(volumes, tmp_path, case):
     """Each training CLI under torch.distributed.run on 2 gloo ranks
     (run_mim fsdp, run_vjepa tp over a model axis of 2, run_classification
-    dp): rank 0 logs every step and the eval, the checkpoints are sharded
-    (`meta.pt`), and model.safetensors and config.json are written once,
-    finite."""
+    dp; run_mim sequence parallel under fsdp+tp and run_vjepa under tp,
+    the tokens and the split weights on a model axis of 2;
+    run_classification with LoRA under fsdp): rank 0 logs every step and
+    the eval, the checkpoints are sharded (`meta.pt`), and
+    model.safetensors and config.json are written once, finite (a LoRA
+    run's lora.safetensors and model_merged.safetensors too)."""
+    cli, flags = CLIS[case]
     out = tmp_path / "out"
     _torchrun(["-m", f"smb_vision_tpu_torch.cli.{cli}", *COMMON,
-               *CLIS[cli](volumes), "--output_dir", str(out)], tmp_path,
+               *flags(volumes), "--output_dir", str(out)], tmp_path,
               nproc=2)
     recs = [json.loads(x) for x in
             (out / "metrics.jsonl").read_text().splitlines()]
@@ -367,25 +391,24 @@ def test_cli_trains_on_two_gloo_ranks(volumes, tmp_path, cli):
         assert any("eval_c_index" in r for r in recs)
     for step in (2, 3):
         assert (out / "checkpoints" / str(step) / "meta.pt").exists()
-    export = convert.read_safetensors(out / "model.safetensors")
-    assert export and all(np.isfinite(v).all() for v in export.values())
+    files = ["model"] + (["lora", "model_merged"] if "lora" in case
+                         else [])
+    for f in files:
+        export = convert.read_safetensors(out / f"{f}.safetensors")
+        assert export and all(np.isfinite(v).all()
+                              for v in export.values()), f
     assert (out / "config.json").exists()
 
 
 @pytest.mark.parametrize("call", [
-    lambda: run_mim.main(["--device", "cpu", "--sequence_parallel", "true",
-                          "--sharding_policy", "tp"]),
-    lambda: run_vjepa.main(["--device", "cpu", "--sequence_parallel",
-                            "true", "--sharding_policy", "fsdp+tp"]),
     lambda: tinfer.main(["--device", "cpu", "--pipeline_parallel", "2",
                          "--sliding_window", "true"]),
 ])
 def test_step_two_flags_still_raise(call):
-    """Context and pipeline parallelism (step 2 of the item) run
+    """Context, sequence and pipeline parallelism run
     (tests/test_torch_sequence_parallel.py, test_torch_pipeline.py); what
-    of them stays refused names ROADMAP queue 1 item 9: sequence
-    parallelism under the "tp" policies and the pipeline with the sliding
-    window."""
+    of them stays refused names ROADMAP queue 1 item 9: the pipeline with
+    the sliding window."""
     with pytest.raises(NotImplementedError, match="item 9, Multi-GPU"):
         call()
 

@@ -6,8 +6,11 @@ against the JAX package: the loss and every parameter's gradient against
 the dense JAX model on the same weights and inputs (the cases of
 tests/test_sequence_parallel.py, and token counts the axis does not
 divide), the routed attention calls, and two whole Trainer steps under
-"dp" and "fsdp" on a 2 x 2 (data, model) mesh against the JAX package's
-sequence-parallel steps on its CPU mesh."""
+"dp", "fsdp", "tp" and "fsdp+tp" on a 2 x 2 (data, model) mesh (MIM with
+both variants, V-JEPA with "gather") against the JAX package's
+sequence-parallel steps on its CPU mesh, whose parameters are placed by
+the same policy; and a split weight's gradient under "tp" against the
+dense JAX gradient (a missing model-axis sum reads half of it)."""
 
 import jax
 import numpy as np
@@ -22,10 +25,17 @@ from smb_vision_tpu.models.vjepa import VJEPA2Model as JVJ
 from smb_vision_tpu.models.vjepa import vjepa_loss as jvjepa_loss
 from smb_vision_tpu.ops.masking import mim_mask as jmim_mask
 from smb_vision_tpu.ops.masking import num_masked_tokens
+from smb_vision_tpu.ops.masking import vjepa_target_mask as jtarget_mask
 from smb_vision_tpu.parallel.mesh import batch_sharding
 from smb_vision_tpu.parallel.mesh import create_mesh as jcreate_mesh
+from smb_vision_tpu.parallel.sharding import (
+    opt_state_shardings,
+    param_shardings,
+    shard_params,
+)
 from smb_vision_tpu.train import mim as jmim
 from smb_vision_tpu.train import optim as joptim
+from smb_vision_tpu.train import vjepa as jvjepa
 from smb_vision_tpu.utils.serialization import flatten_params
 from smb_vision_tpu.utils.serialization import unflatten_params
 from smb_vision_tpu_torch.models import convert
@@ -130,12 +140,34 @@ JOBS = {
 }
 
 
-def _jax_sp_steps(devices):
-    """Two steps of the JAX package's sequence-parallel MIM workload on a
-    2 x 2 (data, model) CPU mesh, its parameters replicated ("dp")."""
-    cfg = JVConfig(**MIM, sequence_parallel=True)
-    _, jinit, jstep, _ = jmim.make_mim_workload(
-        cfg, tx=joptim.make_optimizer(**OPT), **MASK)
+# the tiny models shard at this size under "fsdp" (every (64, 64) matrix)
+MIN_FSDP = W.MIN_FSDP
+# the Trainer steps: {job: (kind, sp_variant, the JAX package's placement,
+# the port's policies)}, each on a 2 x 2 (data, model) mesh
+STEP_JOBS = {
+    "mim_sp": ("mim", "gather", "dp", ["dp", "fsdp"]),
+    "mim_sp_tp": ("mim", "gather", "fsdp+tp", ["tp", "fsdp+tp"]),
+    "mim_ring_tp": ("mim", "ring", "fsdp+tp", ["tp", "fsdp+tp"]),
+    "vjepa_sp_tp": ("vjepa", "gather", "fsdp+tp", ["tp", "fsdp+tp"]),
+}
+
+
+def _jax_sp_steps(devices, kind="mim", variant="gather", policy="dp"):
+    """Two steps of the JAX package's sequence-parallel workload of `kind`
+    (`variant`) on a 2 x 2 (data, model) CPU mesh, its parameters (and
+    V-JEPA's teacher) and the optimizer state placed by `policy` as
+    __graft_entry__.py places them ("dp": replicated), and the port's job
+    of the same weights, batches and masks."""
+    tx = joptim.make_optimizer(**OPT)
+    sp = dict(sequence_parallel=True, sp_variant=variant)
+    if kind == "mim":
+        cfg = dict(MIM, **sp)
+        _, jinit, jstep, _ = jmim.make_mim_workload(JVConfig(**cfg), tx=tx,
+                                                    **MASK)
+    else:
+        cfg = dict(VJ, **sp)
+        _, jinit, jstep, _ = jvjepa.make_vjepa_workload(JJConfig(**cfg),
+                                                        tx=tx)
     mesh = jcreate_mesh(model=2, devices=devices[:4])
     rng = np.random.default_rng(3)
     batches = [{"pixel_values": rng.uniform(0, 1, (4, 16, 1, 32, 32))
@@ -144,22 +176,46 @@ def _jax_sp_steps(devices):
     with jax.set_mesh(mesh):
         st = jinit(KEY)
         w0 = convert.params_from_flax(flatten_params(st["params"]),
-                                      pretraining=True)
+                                      pretraining=kind == "mim",
+                                      vjepa=kind == "vjepa")
+        if policy != "dp":
+            p_sh = param_shardings(st["params"], mesh, policy,
+                                   min_fsdp_size=MIN_FSDP)
+            params = st["params"]
+            st = dict(st, params=shard_params(params, p_sh))
+            if "teacher" in st:
+                st["teacher"] = shard_params(st["teacher"], param_shardings(
+                    st["teacher"], mesh, policy, min_fsdp_size=MIN_FSDP))
+            st["opt_state"] = jax.device_put(
+                st["opt_state"], opt_state_shardings(
+                    st["opt_state"], p_sh, mesh, params=params))
         losses = []
         step = jax.jit(jstep)
         for b, k in zip(batches, keys):
             st, m = step(st, jax.device_put(b, batch_sharding(mesh)), k)
             losses.append(float(m["loss"]))
-    masks = [np.asarray(jmim_mask(k, 4, input_size=32, depth=16,
-                                  model_patch_size=8, **MASK))
-             for k in keys]
-    job = dict(kind="mim", config=dict(MIM, sequence_parallel=True),
-               opt=OPT, batches=batches, masks=masks,
-               weights={k: v.numpy() for k, v in w0.items()},
-               runs=[("dp", 2), ("fsdp", 2)])
+    if kind == "mim":
+        masks = [np.asarray(jmim_mask(k, 4, input_size=32, depth=16,
+                                      model_patch_size=8, **MASK))
+                 for k in keys]
+    else:
+        grid = JJConfig(**cfg).grid
+        masks = [np.asarray(jtarget_mask(jax.random.split(k)[0], 4,
+                                         grid=grid)) for k in keys]
+    job = dict(kind=kind, config=cfg, opt=OPT, batches=batches,
+               masks=masks, weights={k: v.numpy() for k, v in w0.items()})
     want = {"losses": losses, "params": {
         k: np.asarray(v) for k, v in flatten_params(st["params"]).items()}}
     return job, want
+
+
+def _jax_split_grad():
+    """The dense JAX MIM model's gradient of one weight the "tp" rules
+    split (the first encoder layer's fc1), on the port's initialisation,
+    with the job that gives the port the same loss under sequence
+    parallelism on a 2 x 2 mesh."""
+    job, _, grads = _mim_case(MIM, b=2)
+    return job, grads["params.videomae.encoder.layer_0.mlp.fc1.kernel"]
 
 
 @pytest.fixture(scope="module")
@@ -173,11 +229,20 @@ def runs(eight_devices, tmp_path_factory):
         job, loss, grads = built[key]
         jobs[name] = dict(job, variant=variant, model=model)
         want[name] = (loss, grads)
-    steps_job, steps_want = _jax_sp_steps(eight_devices)
-    # the model tests and the Trainer steps in one spawn of 4 ranks
+    steps, steps_want = {}, {}
+    for name, (kind, variant, jpolicy, policies) in STEP_JOBS.items():
+        job, steps_want[name] = _jax_sp_steps(eight_devices, kind, variant,
+                                              jpolicy)
+        steps[name] = dict(job, runs=[(p, 2) for p in policies])
+    split_job, split_want = _jax_split_grad()
+    want["split"] = split_want
+    # the model tests, the Trainer steps and the split weight's gradient
+    # in one spawn of 4 ranks
     got = W.run_ranks("many", 4, {"cases": {
         "models": ("sp_models", {"jobs": jobs}),
-        "steps": ("steps", {"jobs": {"mim_sp": steps_job}})}},
+        "steps": ("steps", {"jobs": steps}),
+        "split": ("sp_split_grad", dict(split_job, variant="gather",
+                                        model=2))}},
         tmp_path_factory.mktemp("sp"))
     return got, want, steps_want
 
@@ -203,13 +268,11 @@ def test_sequence_parallel_step_matches_dense(runs):
     _check(runs, "gather", 2e-5)
 
 
-def test_sequence_parallel_train_step(runs):
-    """Two Trainer steps (the clip active) under dp and fsdp on a 2 x 2
-    (data, model) mesh against the JAX package's sequence-parallel steps:
-    each loss within 1e-3, every parameter within 1e-4 after the steps."""
-    got, _, want = runs
-    for policy in ("dp", "fsdp"):
-        r = got["steps"][("mim_sp", policy, 2)]
+def _check_steps(runs, name):
+    got, _, wants = runs
+    want = wants[name]
+    for policy in STEP_JOBS[name][3]:
+        r = got["steps"][(name, policy, 2)]
         for a, b in zip(r["losses"], want["losses"]):
             assert abs(a - b) <= 1e-3 * abs(b), policy
         flat = convert.params_to_flax({k: torch.from_numpy(v)
@@ -219,6 +282,39 @@ def test_sequence_parallel_train_step(runs):
                   for k, v in want["params"].items())
         assert err < 1e-4, (policy, err)
     assert want["losses"][1] < want["losses"][0]
+
+
+def test_sequence_parallel_train_step(runs):
+    """Two Trainer steps (the clip active) under dp and fsdp on a 2 x 2
+    (data, model) mesh against the JAX package's sequence-parallel steps:
+    each loss within 1e-3, every parameter within 1e-4 after the steps."""
+    _check_steps(runs, "mim_sp")
+
+
+@pytest.mark.parametrize("name", ["mim_sp_tp", "mim_ring_tp",
+                                  "vjepa_sp_tp"])
+def test_sequence_parallel_train_step_under_tp(runs, name):
+    """Two Trainer steps under "tp" and "fsdp+tp" with the tokens and the
+    split weights on the same model axis of a 2 x 2 mesh (MIM with both
+    variants, V-JEPA with "gather": its encoder, predictor and EMA teacher)
+    against the JAX package's steps with its parameters placed by
+    "fsdp+tp": each loss within 1e-3, every parameter (the teacher's too,
+    through the EMA of the student's) within 1e-4."""
+    _check_steps(runs, name)
+
+
+def test_split_weight_gradient_is_summed_over_the_model_axis(runs):
+    """Under "tp" with the tokens on the model axis, the gradient of a
+    split weight (fc1 of the first encoder layer) gathered from both
+    model ranks' pieces is the dense JAX model's within 1e-4 relative:
+    each rank's own tokens give it part of the gradient, so the gather's
+    backward sums it over the axis before keeping the rank's piece."""
+    got, want, _ = runs
+    g = got["split"]
+    ref = np.asarray(want["split"])
+    assert g.shape == ref.shape
+    np.testing.assert_allclose(g, ref, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(ref).max()))
 
 
 def test_sequence_parallel_uses_flash_wrapper(runs):

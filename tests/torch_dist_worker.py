@@ -298,11 +298,98 @@ class GlobalBatches:
                    for k, v in b.items()}
 
 
+def lora_state(spec) -> tuple:
+    """(model, state, step_fn) of the port's LoRA classification workload
+    of spec["family"] ("videomae" or "dinov2", config spec["config"],
+    rank 4, optimizer spec["opt"]), its frozen base spec["base"] (the
+    port's names of the model without adapters) and its adapters
+    spec["adapters"] ({JAX path: {"a", "b"}}) loaded."""
+    from torch.nn.utils import parametrize
+
+    from smb_vision_tpu_torch.models.configs import (
+        Dinov2Config,
+        VideoMAEConfig,
+    )
+    from smb_vision_tpu_torch.train import lora
+    from smb_vision_tpu_torch.train import optim as toptim
+
+    cfg = (Dinov2Config if spec["family"] == "dinov2"
+           else VideoMAEConfig)(**spec["config"])
+    model, init_fn, step_fn, _ = lora.make_lora_classification_workload(
+        cfg, task_type="classification", rank=4,
+        tx=functools.partial(toptim.make_optimizer, **spec["opt"]))
+    state = init_fn(0)
+    base = {}
+    for k, v in spec["base"].items():
+        mod = k.rsplit(".", 1)[0]
+        if k.endswith(".weight") and parametrize.is_parametrized(
+                model.get_submodule(mod), "weight"):
+            k = mod + ".parametrizations.weight.original"
+        base[k] = torch.from_numpy(np.asarray(v))
+    missing, unexpected = model.load_state_dict(base, strict=False)
+    assert not unexpected and all(".parametrizations.weight.0." in k
+                                  for k in missing), (missing, unexpected)
+    with torch.no_grad():
+        for path, (_, d) in lora.adapted(model).items():
+            for ab in "ab":
+                getattr(d, ab).copy_(torch.from_numpy(
+                    np.array(spec["adapters"][path][ab])))
+    state["base_head"] = {k: p.detach().clone() for k, p
+                          in lora.head_parameters(model).items()}
+    return model, state, step_fn
+
+
+def case_lora_steps(spec):
+    """Each job of spec["jobs"] ({name: a `lora_state` spec with its
+    "policy", "model" (axis size), "batches" and "min_fsdp"}) on a (world
+    / model, model) mesh: Trainer placement, then one step a global batch
+    (this rank on its rows). Returns, by name, each step's loss and
+    `lora.safetensors` tensors (adapters and head, the JAX names), every
+    parameter's placement ("plain" or its DTensor mesh axes and
+    placements, by name) and
+    how many tensors the optimizer keeps state for."""
+    from smb_vision_tpu_torch.parallel.collectives import share_rows
+    from smb_vision_tpu_torch.parallel.mesh import create_mesh, use_mesh
+    from smb_vision_tpu_torch.train import lora
+    from smb_vision_tpu_torch.train.trainer import (
+        Trainer,
+        TrainingArguments,
+    )
+
+    res = {}
+    for name, job in spec["jobs"].items():
+        model, state, step_fn = lora_state(job)
+        mesh = create_mesh(model=job["model"], device_type="cpu")
+        args = TrainingArguments(
+            output_dir=str(Path(spec["work"]) / f"lora_{name}"),
+            device="cpu", sharding_policy=job["policy"],
+            model_parallel=job["model"])
+        Trainer(args=args, state=state, step_fn=step_fn, train_loader=None,
+                min_fsdp_size=job["min_fsdp"], mesh=mesh)
+        steps = []
+        with use_mesh(mesh):
+            for batch in job["batches"]:
+                local = {k: share_rows(torch.from_numpy(np.asarray(v)))
+                         for k, v in batch.items()}
+                loss = float(step_fn(state, local)["loss"])
+                steps.append((loss, {k: v.copy() for k, v in
+                                     lora.lora_tensors(
+                                         model, state["lora_meta"]).items()}))
+        opt = state["optimizer"].opt
+        res[name] = {"steps": steps, "placed": {
+            n: (f"{p.device_mesh.mesh_dim_names} {p.placements}"
+                if hasattr(p, "placements") else "plain")
+            for n, p in model.named_parameters()},
+            "opt_state": len(opt.state)}
+    return res
+
+
 def train_run(spec, out_dir, steps: int, stop_after=None) -> dict:
-    """Trainer.train() of the tiny MIM on spec["batches"] to `steps`,
-    saving every 2, then save_model; with stop_after, rank 1 (or the one
-    process) sends itself SIGTERM after that step. Returns the logged
-    losses and the parameters, whole."""
+    """Trainer.train() of the tiny MIM (or, with spec["family"], the LoRA
+    workload of `lora_state`) on spec["batches"] to `steps`, saving every
+    2, then save_model; with stop_after, rank 1 (or the one process) sends
+    itself SIGTERM after that step. Returns the logged losses and the
+    parameters, whole."""
     import signal
 
     from smb_vision_tpu_torch.parallel.mesh import (
@@ -318,21 +405,26 @@ def train_run(spec, out_dir, steps: int, stop_after=None) -> dict:
         TrainingArguments,
     )
 
-    model, init_fn, step_fn, _ = make_workload(
-        "mim", spec["config"], spec["opt"], spec.get("accum", 1))
-    state = init_fn(0)
-    model.load_state_dict({k: torch.from_numpy(v)
-                           for k, v in spec["weights"].items()})
-    mesh = create_mesh(device_type="cpu")
+    if "family" in spec:
+        model, state, step_fn = lora_state(spec)
+    else:
+        model, init_fn, step_fn, _ = make_workload(
+            "mim", spec["config"], spec["opt"], spec.get("accum", 1))
+        state = init_fn(0)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in spec["weights"].items()})
+    model_parallel = spec.get("model", 1) if world_size() > 1 else 1
+    mesh = create_mesh(model=model_parallel, device_type="cpu")
     loader = GlobalBatches(spec["batches"], axis_size(mesh, DATA_AXIS),
                            axis_rank(mesh, DATA_AXIS))
     args = TrainingArguments(
         output_dir=str(out_dir), num_train_steps=steps, save_steps=2,
         logging_steps=1, save_total_limit=None, device="cpu",
-        sharding_policy=spec["policy"], seed=3)
+        sharding_policy=spec["policy"], model_parallel=model_parallel,
+        seed=3)
     trainer = Trainer(args=args, state=state, step_fn=step_fn,
                       train_loader=loader, mesh=mesh,
-                      min_fsdp_size=MIN_FSDP)
+                      min_fsdp_size=spec.get("min_fsdp", MIN_FSDP))
     if stop_after is not None:
         inner = trainer.step_fn
 
@@ -627,6 +719,36 @@ def case_sp_models(spec):
     return res
 
 
+def case_sp_split_grad(spec):
+    """The sequence-parallel MIM model of spec (its "variant", a model
+    axis of spec["model"]) placed under "tp": the loss of spec["batch"]
+    on this rank's rows, backward, `sync_gradients` as the Trainer runs
+    it, and the first encoder layer's fc1 weight gradient gathered whole
+    from the model ranks' pieces, in the JAX layout (in, out)."""
+    from smb_vision_tpu_torch.parallel.collectives import share_rows
+    from smb_vision_tpu_torch.parallel.mesh import create_mesh, use_mesh
+    from smb_vision_tpu_torch.parallel.sharding import (
+        apply_policy,
+        model_sum_ids,
+        sync_gradients,
+    )
+
+    mesh = create_mesh(model=spec["model"], device_type="cpu")
+    model = sp_model("mim", spec["config"], spec["variant"])
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in spec["weights"].items()})
+    fsdp_ids = apply_policy(model, mesh, "tp")
+    with use_mesh(mesh):
+        batch = {k: share_rows(torch.from_numpy(np.asarray(v))).numpy()
+                 if k != "num_masked" else v
+                 for k, v in spec["batch"].items()}
+        sp_loss("mim", model, batch).backward()
+    sync_gradients(list(model.parameters()), mesh, fsdp_ids,
+                   model_sum_ids(model, mesh))
+    w = model.videomae.encoder.layer_0.mlp.fc1.weight
+    return _full(w.grad).T.copy()
+
+
 def _pipe_mesh(model: int):
     """A (world / model, model) mesh and this rank's PipeStages."""
     from smb_vision_tpu_torch.parallel.mesh import (
@@ -864,7 +986,8 @@ CASES = {"steps": case_steps, "eight_bit": case_eight_bit,
          "suffix": case_suffix,
          "ckpt": case_ckpt, "ckpt_losses": case_ckpt_losses,
          "basics": case_basics, "context": case_context,
-         "sp_models": case_sp_models, "many": case_many,
+         "sp_models": case_sp_models, "sp_split_grad": case_sp_split_grad,
+         "lora_steps": case_lora_steps, "many": case_many,
          "pipeline": case_pipeline, "pipe_train": case_pipe_train}
 
 
