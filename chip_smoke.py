@@ -22,14 +22,16 @@ head, the MLP forward and backward kernels K2,
 K6, K5a, K9 and K5b and the glue K10a and K10b) are compared with it by
 SASS and, through their wrappers (K3, K7 and K8 with each side's
 quantisation kernel), bit for bit; the quantisation, flash, MLP, SwiGLU
-and glue kernels (K1 and K4 at heads of 80 and 72 too: this tree's d-80
-tiles against the other's d-128 ones), legs A's, B's and G's models and
+and glue kernels (K1, K4, K3 and K7 at heads of 80 and 72 too: this
+tree's d-80 tiles against the other's d-128 ones, K3 and K7 on the codes
+each side's tiles read), legs A's, B's and G's models and
 the MIM step (as
 shipped and with the glue) and both V-JEPA steps (the _tpu preset, and the
 reference heads under their recommended impls) are timed with either
-library in turns, in one process, and the DINOv2-giant step parity runs
-with either library at three seeds; the last line is the JSON of the mean
-times and the parity readings.
+library in turns, in one process, then the int8 ViT-H encode (leg T's
+model, 32 layers) and the ViT-H V-JEPA step (32 layers), and the
+DINOv2-giant step parity runs with either library at three seeds; the
+last line is the JSON of the mean times and the parity readings.
 
 Phases of the run without arguments, each of which fails the run
 (non-zero exit, no result line) on any error:
@@ -37,8 +39,8 @@ Phases of the run without arguments, each of which fails the run
   2. build: compile the hand-written kernels from `smb_vision_tpu_torch/csrc`,
      print the ptxas report, and count the bf16 and int8 wgmma (HGMMA,
      IGMMA) and TMA (UTMALDG) instructions of K1, K3, K4, K7, K8 (each at
-     head width 32, 64 and 128, K1 and K4 also on their tiles of 80
-     columns, and in their instantiations that store a narrower head),
+     head width 32, 64 and 128, K1, K4, K3 and K7 also on their tiles of
+     80 columns, and in their instantiations that store a narrower head),
      the nine GEMM instantiations of K2, K6,
      K5a, K9, K5b, K10a and K10b and the W8A8 product (bf16 and f32 out) in
      the SASS (cuobjdump, where the toolkit has it):
@@ -89,15 +91,17 @@ Phases of the run without arguments, each of which fails the run
      library chains, with K10a's LayerNorm pass and GEMM timed apart, and
      the glue's forward and backward in one block of the MIM step beside
      the plain path's); then the forward family past the instantiations'
-     widths: K1 (on its tiles of 80 columns), K3 and K8 (on the d-128
-     ones) at head width 72 (SigLIP so400m: batch 32, 729
+     widths: K1 and K3 (on their tiles of 80 columns, K3 on codes of 96
+     bytes) and K8 (on the d-128 ones) at head width 72 (SigLIP so400m:
+     batch 32, 729
      tokens, 16 heads) and 80 (ViT-H: 20,480 tokens, 16 heads) against
      their plain versions and timed beside them (K1 beside SDPA and the
-     exp2 floor), R6 writing the codes of heads of 80 at width 128 bit for
-     bit, K2 and K6 at K 1,280 (F 5,120) beside their cuBLAS chain, and K9
+     exp2 floor), R6 writing the codes of heads of 80 at width 96 (K3's)
+     and 128 (K8's) bit for bit, K2 and K6 at K 1,280 (F 5,120) beside
+     their cuBLAS chain, and K9
      at K 2,048 beside its chain (a row that no path launches); then the
-     training family past those widths: K4 (on its tiles of 80 columns)
-     and K7 (on the d-128 ones) at head width 72
+     training family past those widths: K4 and K7 (on their tiles of 80
+     columns, K7 on codes of 96 bytes) at head width 72
      (batch 32, 729 tokens, 16 heads), 80 (K4 at the ViT-H MIM encoder's
      7,168 tokens, K7 at the V-JEPA2 ViT-H encoder's 9,216, 16 heads) and
      100 (padded to 104; a ragged shape with an lse2 cotangent) against
@@ -106,8 +110,9 @@ Phases of the run without arguments, each of which fails the run
      (M 9,216, F 6,144; ViT-g's widths, rows that no path launches)
      beside their plain versions and cuBLAS chains; each kept time with
      its bound and, where one exists, the library call's;
-  3a. card tests: `CARD_TESTS` (tests/test_torch_d80.py: K1 and K4 on the
-     d-80 tiles against their plain versions at the tiles' edges, the
+  3a. card tests: `CARD_TESTS` (tests/test_torch_d80.py: K1, K4, K3 and
+     K7 on the d-80 tiles against their plain versions at the tiles'
+     edges, the
      instantiation each width launches, the launches by width) under
      pytest in a process of its own;
   4. leg A: `run_inference` on 4 synthetic 512x512x320 CT volumes, bf16,
@@ -127,7 +132,7 @@ Phases of the run without arguments, each of which fails the run
      32 layers, VIT_H_LEG_LAYERS) under "auto" (K1 at d 80, K2 at K
      1,280), --attn_impl
      pallas_int8 with mlp_impl pallas_bwd (K3 at d 80 on R6's codes of
-     width 128, K6) and --attn_impl pallas_int8pv (K8, K2): each kernel
+     width 96, K6) and --attn_impl pallas_int8pv (K8, K2): each kernel
      once a layer and batch, the plain attention never; then the model's
      parity at 12 of its 32 layers in the three configurations, against
      the same model on their plain versions and against float32 (section
@@ -443,16 +448,17 @@ SOURCES = {
     # the forward family past the instantiations' widths: K1 at head
     # widths 72 (SigLIP so400m, leg M) and 80 (the ViT-H VideoMAE, legs N,
     # T and U) on its tiles of 80 columns (the template of flash_fwd.cu
-    # compiled in flash_fwd_d80.cu), K3 and K8 there on the d-128
-    # instantiation, R6 writing q8 and k8 at width 128 for heads of 80,
+    # compiled in flash_fwd_d80.cu), K3 there on the same tiles (compiled
+    # in flash_fwd_i8_d80.cu, codes of 96 bytes), K8 on the d-128
+    # instantiation, R6 writing q8 and k8 at width 96 for K3's heads of 80,
     # and K2 and K6 at K 1,280 (ViT-H); their launches are those legs'
     "flash_fwd d72": ("smb_vision_tpu_torch/csrc/flash_fwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:106"),
     "flash_fwd d80": ("smb_vision_tpu_torch/csrc/flash_fwd_d80.cu",
                       "smb_vision_tpu/ops/attention.py:106"),
-    "flash_fwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_fwd_i8_d80.cu",
                          "smb_vision_tpu/ops/attention.py:244"),
-    "flash_fwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
+    "flash_fwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_fwd_i8_d80.cu",
                          "smb_vision_tpu/ops/attention.py:244"),
     "flash_fwd_i8pv d72": ("smb_vision_tpu_torch/csrc/flash_fwd.cu",
                            "smb_vision_tpu/ops/attention.py:244"),
@@ -473,7 +479,8 @@ SOURCES = {
     # head widths 72 (SigLIP so400m's shape; no path trains it) and 80 (K4
     # at the ViT-H MIM encoder, leg X; K7 at the V-JEPA2 ViT-H encoder, leg
     # Y), K4 on its tiles of 80 columns (flash_bwd.cu's template compiled
-    # in flash_bwd_d80.cu), K7 on the d-128 instantiation; K4 at d 100
+    # in flash_bwd_d80.cu), K7 on the same tiles (compiled in
+    # flash_bwd_i8_d80.cu, codes of 96 bytes); K4 at d 100
     # (padded to 104, the d-128 tiles; a shape of no model), and K5a and
     # K5b at K 1,280 (ViT-H, legs X and Y) and 1,408 (ViT-g's widths,
     # which no model of the repo has: 0 launches)
@@ -483,9 +490,9 @@ SOURCES = {
                       "smb_vision_tpu/ops/attention.py:436"),
     "flash_bwd d100": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
                        "smb_vision_tpu/ops/attention.py:436"),
-    "flash_bwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_i8 d72": ("smb_vision_tpu_torch/csrc/flash_bwd_i8_d80.cu",
                          "smb_vision_tpu/ops/attention.py:549"),
-    "flash_bwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_i8 d80": ("smb_vision_tpu_torch/csrc/flash_bwd_i8_d80.cu",
                          "smb_vision_tpu/ops/attention.py:549"),
     "mlp_train_fwd K1280": ("smb_vision_tpu_torch/csrc/mlp_fwd.cu",
                             "smb_vision_tpu/ops/mlp.py:137"),
@@ -587,12 +594,13 @@ def wrappers():
             "w8a8_gemm": w8a8_gemm_kernel}
 
 
-def plain_qk(q, k, scale):
+def plain_qk(q, k, scale, kernel: str = "K3"):
     """q8, k8, sq, sk by the plain quantisation (`quantize_per_head`):
-    the operands of K3's and K8's plain versions on the card."""
+    the operands of K3's (or, kernel "K8", K8's) plain version on the
+    card, at the code width that kernel reads."""
     from smb_vision_tpu_torch.ops import attention as A
 
-    return A.quantize_qk(q, k, scale, A.quantize_per_head)
+    return A.quantize_qk(q, k, scale, A.quantize_per_head, kernel)
 
 
 def reset_launches() -> dict:
@@ -866,12 +874,18 @@ SM90_KERNELS = {
         ("K4", "flash_bwd_sm90_kernelILi{d}ELb{n}E", ("HGMMA", "UTMALDG")),
         ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb{n}E",
          ("IGMMA", "HGMMA", "UTMALDG")))}
-# K1's and K4's tiles of 80 columns (heads of 72 and 80)
+# the tiles of 80 columns (heads of 72 and 80) of K1 and K4 and, on int8
+# codes of 96 bytes, of K3 and K7
 SM90_KERNELS.update({
-    f"{k} d80{tag}": (name.format(n=n), ("HGMMA", "UTMALDG"))
+    f"{k} d80{tag}": (name.format(n=n), ops)
     for n, tag in ((0, ""), (1, " narrow"))
-    for k, name in (("K1", "flash_fwd_sm90_kernelILi80ELb0ELb{n}E"),
-                    ("K4", "flash_bwd_sm90_kernelILi80ELb{n}E"))})
+    for k, name, ops in (
+        ("K1", "flash_fwd_sm90_kernelILi80ELb0ELb{n}E", ("HGMMA", "UTMALDG")),
+        ("K4", "flash_bwd_sm90_kernelILi80ELb{n}E", ("HGMMA", "UTMALDG")),
+        ("K3", "flash_fwd_sm90_kernelILi80ELb1ELb{n}E",
+         ("IGMMA", "HGMMA", "UTMALDG")),
+        ("K7", "flash_bwd_i8_sm90_kernelILi80ELb{n}E",
+         ("IGMMA", "HGMMA", "UTMALDG")))})
 SM90_KERNELS.update({
     label: (f"mlp_gemm_kernelILi{phase}ELb{extra}E", ("HGMMA", "UTMALDG"))
     for label, phase, extra in (("K2/K6 phase 1", 1, 0),
@@ -988,9 +1002,9 @@ def phase_build() -> None:
 
 
 # the card tests the run holds the kernels to besides its own phases: the
-# d-80 tiles of K1 and K4 against their plain versions at their edges,
-# the instantiation each head width launches (by the profiler's kernel
-# names) and the launches by width
+# d-80 tiles of K1, K4, K3 and K7 against their plain versions at their
+# edges, the instantiation each head width launches (by the profiler's
+# kernel names) and the launches by width
 CARD_TESTS = ("tests/test_torch_d80.py",)
 
 
@@ -1598,7 +1612,7 @@ def k7_quant(shape: str, q, k, v, do, out, lse, wrapper_ms: float) -> None:
     from smb_vision_tpu_torch.ops import attention as A
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    w = A._tile_width(q.shape[-1], "K7")
+    w = A._code_width(q.shape[-1], "K7")
     ops = A._i8_operands(q, k, v, do, scale, width=w)
     alone, quant, plain = (cuda_ms(fn, repeats=KERNEL_REPEATS) for fn in (
         lambda: A._launch_bwd_i8(q, k, do, out, lse, ops, scale),
@@ -1835,9 +1849,10 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
     729 tokens, 16 heads) and at head width 80 at the ViT-H VideoMAE's
     (MAIN_N tokens, 16 heads), each against its plain version on the same
     inputs and codes (K3 and K8 also against float32 attention) and timed
-    beside it, K1 also beside SDPA and the exp2 floor; R6 writing q's
-    codes at width 128 for heads of 80, bit for bit the plain padded codes
-    in both layouts, timed beside the plain pass; K2 and K6 at M MAIN_N, K
+    beside it, K1 also beside SDPA and the exp2 floor, K3 also alone and
+    beside K1 and its quantisation (`k3_beside_k1`); R6 writing q's codes
+    at width 96 (K3's) and 128 (K8's) for heads of 80, bit for bit the
+    plain padded codes, timed beside the plain pass; K2 and K6 at M MAIN_N, K
     1,280, F 5,120 against their plain versions, timed beside them and the
     cuBLAS chain `mlp_chain`. The rows keep these times and bounds; their
     launches are the legs'."""
@@ -1860,12 +1875,12 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
         check_kernel(table, r1, shape + " lse2", lse, ref_lse, TOL_FLASH,
                      record=False)
         del out, lse, ref_lse
-        q8, k8, sq, sk = plain_qk(q, k, scale)
         v8, sv = A.quantize_per_head(v)
         ref32 = A.xla_attention(q.float(), k.float(), v.float())
-        plain3 = functools.partial(A.int8_attention_plain, q8, k8, sq, sk, v)
-        plain8 = functools.partial(A.int8pv_attention_plain, q8, k8, sq, sk,
-                                   v8, sv)
+        plain3 = functools.partial(A.int8_attention_plain,
+                                   *plain_qk(q, k, scale), v)
+        plain8 = functools.partial(A.int8pv_attention_plain,
+                                   *plain_qk(q, k, scale, "K8"), v8, sv)
         for name, fn, plain, f32_tol in (
                 (r3, A.flash_attention_int8, plain3, TOL_INT8_F32),
                 (r8, A.flash_attention_int8pv, plain8, TOL_INT8PV_F32)):
@@ -1883,8 +1898,9 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
         time_kernel(table, r8, shape,
                     lambda: A.flash_attention_int8pv(q, k, v),
                     lambda: A.int8pv_attention_plain(
-                        *plain_qk(q, k, scale), *A.quantize_per_head(v)),
-                    8, True)
+                        *plain_qk(q, k, scale, "K8"),
+                        *A.quantize_per_head(v)), 8, True)
+        k3_beside_k1(shape, q, k, v)
         table[r1]["library_ms"] = sdpa_ms(q, k, v)
         log(f"time {r1} library F.scaled_dot_product_attention {shape}: "
             f"{table[r1]['library_ms']:.3f} ms")
@@ -1897,11 +1913,11 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
         rate_line(table, r1, shape, 2 * pv)
         log(f"exp2 floor {r1} {shape}: {exp2_floor_ms(n, b * h):.3f} ms "
             f"beside the tensor floor {table[r1]['bound_ms']:.3f} ms; the "
-            f"instantiations' tiles do {tile_work(d, 'K1')} (K1), "
-            f"{tile_work(d, 'K3')} (K3, K8) the tensor work of width {d}")
+            f"instantiations' tiles do {tile_work(d, 'K1')} (K1, K3), "
+            f"{tile_work(d, 'K8')} (K8) the tensor work of width {d}")
         if d == VIT_H_D:
             quant_padded(table, q, scale * LOG2E)
-        del q, k, v, q8, k8, v8
+        del q, k, v, v8, plain3, plain8
     torch.cuda.empty_cache()
 
     m, kd, f = MAIN_N, VIT_H_K, VIT_H_F
@@ -1929,25 +1945,28 @@ def phase_width_kernels(table: dict, gen, dev) -> None:
 
 def quant_padded(table: dict, q, mult: float) -> None:
     """R6 at a head width below its instantiation's (the "quantize d80"
-    row): q's codes at the instantiation's width, zeros past d, bit for bit
-    the plain padded codes (`quantize_per_head` with width) in the input's
-    layout and in K8's (`quantize_v_kernel_layout`), timed beside the
-    plain pass; its bound, one read of q and one write of the padded
-    codes."""
+    row): q's codes at K3's code width (96), zeros past d, bit for bit the
+    plain padded codes (`quantize_per_head` with width); at K8's (128) the
+    same in the input's layout and in K8's (`quantize_v_kernel_layout`);
+    timed at K3's width, whose launches the row keeps, beside the plain
+    pass; its bound, one read of q and one write of the padded codes."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
 
     b, n, h, d = q.shape
-    w = A._tile_width(d, "R6")
+    w, w8 = A._code_width(d, "K3"), A._code_width(d, "K8")
     name, shape = "quantize d80", f"B={b} N={n} H={h} d={d} -> {w}"
     want8, want_s = A.quantize_per_head(q, mult, width=w)
     x8, s = A.quantize_per_head_kernel(q, mult, width=w)
-    vt, sv = A.quantize_per_head_kernel(q, mult, v_layout=True, width=w)
+    want128, _ = A.quantize_per_head(q, mult, width=w8)
+    x128, s128 = A.quantize_per_head_kernel(q, mult, width=w8)
+    vt, sv = A.quantize_per_head_kernel(q, mult, v_layout=True, width=w8)
     torch.cuda.synchronize()
     same = (torch.equal(x8, want8) and torch.equal(s, want_s)
+            and torch.equal(x128, want128) and torch.equal(s128, want_s)
             and torch.equal(sv, want_s)
-            and torch.equal(vt, A.quantize_v_kernel_layout(want8)))
+            and torch.equal(vt, A.quantize_v_kernel_layout(want128)))
     log(f"{name:<14} {shape}: codes and scales bit for bit the plain "
         f"padded pass in both layouts: {same}; zeros past d: "
         f"{not bool(x8[..., d:].any())}")
@@ -2181,7 +2200,7 @@ def run_vit_h_legs(work: Path, vols: Path, table: dict) -> None:
     on the host's CPU), batch 2, in
     the three configurations of VIT_H_LEGS: N "auto" (K1 at d 80, K2 at K
     1,280), T --attn_impl pallas_int8 with mlp_impl pallas_bwd (K3 at d 80
-    on R6's codes at width 128, K6 at K 1,280), U --attn_impl
+    on R6's codes at width 96, K6 at K 1,280), U --attn_impl
     pallas_int8pv (K8 at d 80, K2). Each kernel launches once a layer and
     batch (R6 twice, for q and k, under K3, three times under K8), the
     plain attention never; the rows of WIDTH_ROWS take these launches."""
@@ -6465,10 +6484,12 @@ def run_leg_m(work: Path, items: list, manifest: Path, card: str,
 
 
 # the kernels that must match the other checkout's, compared by SASS: K1,
-# K3, K4, K7 and K8 at d 32, 64 and 128 and their NARROW instantiations
+# K3, K4, K7 and K8 at d 32, 64 and 128, K1 and K4 on their d-80 tiles,
+# and their NARROW instantiations
 # (which store a narrower head) by a part of their mangled names (this
-# tree's, the other's: the same since K1's and K4's kernels took the tail
-# maps of the d-80 tiles as a last parameter, which the part leaves out),
+# tree's, the other's: the same since K1's, K4's and K7's kernels took the
+# tail maps of the d-80 tiles as a last parameter, which the part leaves
+# out),
 # and every kernel of the MLP forward and backward and the glue sources
 # (K2, K6, K5a, K9 and their LayerNorm pass, K5b, K10a and its row pass,
 # K10b) by its whole name, but any kernel this tree adds there
@@ -6483,6 +6504,11 @@ UNCHANGED = {f"{k} d{d}{tag}": (name.format(d=d, n=n),) * 2
                  ("K4", "flash_bwd_sm90_kernelILi{d}ELb{n}EE"),
                  ("K7", "flash_bwd_i8_sm90_kernelILi{d}ELb{n}EE"),
                  ("K8", "flash_fwd_i8pv_sm90_kernelILi{d}ELb{n}EE"))}
+UNCHANGED.update({f"{k} d80{tag}": (name.format(n=n),) * 2
+                  for n, tag in ((0, ""), (1, " narrow"))
+                  for k, name in (
+                      ("K1", "flash_fwd_sm90_kernelILi80ELb0ELb{n}EE"),
+                      ("K4", "flash_bwd_sm90_kernelILi80ELb{n}EE"))})
 UNCHANGED_SOURCES = ("mlp_fwd_cu", "mlp_bwd_cu", "attn_glue_cu")
 NEW_KERNELS: tuple = ()
 
@@ -6527,7 +6553,9 @@ def unchanged_outputs(dev) -> tuple:
     V-JEPA encoder's MLP), K9 at DINOv2-giant batch 1 (K 1,536), K10a
     and K10b at the embed shape, and, for the LayerNorm pass at each K
     the parent compiled it for, K2 at K 128, 256, 384 and 512 and K9 at
-    K 768 and 1,024."""
+    K 768 and 1,024; then past the instantiations' widths, K1, K4 and K8
+    at d 72 and 80 and K1, K4, K3, K7 and K8 at d 96 (where the d-80
+    tiles of K3 and K7 change nothing)."""
     import torch
 
     from smb_vision_tpu_torch.ops import attention as A
@@ -6604,7 +6632,26 @@ def unchanged_outputs(dev) -> tuple:
             r(m, k, dtype=bf), 1.0 + r(k, s=0.1), r(k, s=0.1),
             r(2 * f, k, s=k ** -0.5, dtype=bf).t(), r(2 * f, s=0.1),
             r(k, f, s=f ** -0.5, dtype=bf).t(), r(k, s=0.1), eps=1e-6))
+    for n, h, d in ((SO400M_N, 16, 72), (4096, 16, 80), (4096, 8, 96)):
+        q, k, v, do = (r(2, n, h, d, s=0.4, dtype=bf) for _ in range(4))
+        out, lse = A.flash_attention(q, k, v, with_lse=True)
+        outs += [out, lse, *A.flash_attention_bwd(q, k, v, out, lse, do),
+                 A.flash_attention_int8pv(q, k, v)]
+        if d == 96:
+            outs += [A.flash_attention_int8(q, k, v),
+                     *A.flash_attention_bwd_i8(q, k, v, out, lse, do)]
     return outs
+
+
+def other_routing(lib) -> dict:
+    """{kernel: instantiation widths} of K3 and K7 in a kernel library that
+    lacks their d-80 tiles (their entry points `smb_flash_fwd_i8_d80`,
+    `smb_flash_bwd_i8_d80`): there they ran heads of 66 to 80 on the d-128
+    tiles, on codes of 128 bytes. Set in `ops/attention.py` while that
+    library runs, this package's wrappers quantise as its kernels read."""
+    return {kernel: (32, 64, 128) for kernel, fn in (
+        ("K3", "smb_flash_fwd_i8_d80"), ("K7", "smb_flash_bwd_i8_d80"))
+        if not hasattr(lib, fn)}
 
 
 def other_library(other: Path, path: Path):
@@ -6706,8 +6753,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     backward K2, K6, K5a, K9 and K5b, and the glue K10a and K10b) are
     compared by SASS and by output, bit for bit;
     then, in turns (other, this, this, other a round), the flash kernels
-    at their table shapes (K1 and K4 at heads of 80 and 72, this tree's
-    d-80 tiles against the other's d-128 ones; K3 at d 64 and 128, K7
+    at their table shapes (K1, K4, K3 and K7 at heads of 80 and 72, this
+    tree's d-80 tiles against the other's d-128 ones, each on the codes
+    its side's tiles read, `other_routing`; K3 at d 64 and 128, K7
     at the V-JEPA encoder's and the reference head's), the MLP family (K2 and K6 at the embed
     shape, K6 at the V-JEPA teacher's K 1,024, K5a at the MIM encoder's,
     K5b at the MIM encoder's and decoder's and the V-JEPA encoder's), K9
@@ -6720,7 +6768,9 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     models (bf16, int8 and int8 p v + glue encoders, batch 4), the MIM
     step of the preset at batch 1 and 2, as shipped and with glue_impl
     "pallas", and the V-JEPA step of its preset at batch 1 and 2 are
-    timed; beside any run that a Python garbage collection of more than
+    timed, and after them, in turns again, the int8 ViT-H encode (leg T's
+    model, 32 layers, batch 2) and the ViT-H V-JEPA step (32 layers, batch
+    1; also its device time from the profiler); beside any run that a Python garbage collection of more than
     10 ms interrupted, the log gives the collections' host time. K10a's
     wrapper passes its workspace after the arguments of the parent's
     `smb_qkv_ln_fwd`, which takes none and runs without it. Then
@@ -6750,10 +6800,16 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
         compare_sass(sass)
     dev = torch.device("cuda")
 
+    routing = {"other": other_routing(libs["other"]),
+               "this": {k: A._FLASH_HEAD_DIMS[k] for k in ("K3", "K7")}}
+
     def use(side):
         """This package's wrappers on `side`'s library (the parent's has
-        the quantisation kernel too, with the same C interface)."""
+        the quantisation kernel too, with the same C interface), K3 and K7
+        routed as that library's kernels read their codes."""
         _build._lib = libs[side]
+        A._FLASH_HEAD_DIMS.update(routing["this"])
+        A._FLASH_HEAD_DIMS.update(routing[side])
         return contextlib.nullcontext()
 
     outs = {}
@@ -6764,8 +6820,10 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
                                               outs["this"])]
     log(f"against: outputs of K1, K3, K8, K4, K7 (d 32 too), K2 (K 128 "
         f"to 1,024), K6 (K 768 and 1,024), K5a, K5b, K9 (K 768, 1,024 and "
-        f"1,536), K10a and K10b through their wrappers bit for bit equal: "
-        f"{all(same)} ({sum(same)} of {len(same)} tensors)")
+        f"1,536), K10a and K10b, K1, K4, K8 at d 72 and 80 and K3, K7 at d "
+        f"96 through their wrappers bit for bit equal: "
+        f"{all(same)} ({sum(same)} of {len(same)} tensors); K3 and K7 "
+        f"routed on the other side as {routing['other'] or 'on this side'}")
     del outs
 
     def inputs(seed, shape):
@@ -6881,15 +6939,22 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
     vith = inputs(7, (1, MAIN_N, VIT_H_HEADS, VIT_H_D))
     vith_enc = inputs(8, (1, ENC_N, VIT_H_HEADS, VIT_H_D))
     so400m = inputs(9, (SIGLIP_BATCH, SO400M_N, 16, 72))
+    vjh = inputs(10, (1, VJ_N, VIT_H_HEADS, VIT_H_D))
     fwd_lse.update({name: A.flash_attention(*x[:3], with_lse=True)
                     for name, x in (("vith_enc", vith_enc),
-                                    ("so400m", so400m))})
+                                    ("so400m", so400m), ("vjh", vjh))})
     probes = {
         "K1 ViT-H d 80": lambda: A.flash_attention(*vith[:3]),
         "K1 so400m d 72": lambda: A.flash_attention(*so400m[:3]),
         "K4 ViT-H MIM encoder d 80": lambda: A.flash_attention_bwd(
             *vith_enc[:3], *fwd_lse["vith_enc"], vith_enc[3]),
         "K4 so400m d 72": lambda: A.flash_attention_bwd(
+            *so400m[:3], *fwd_lse["so400m"], so400m[3]),
+        "K3 ViT-H d 80": lambda: A.flash_attention_int8(*vith[:3]),
+        "K3 so400m d 72": lambda: A.flash_attention_int8(*so400m[:3]),
+        "K7 V-JEPA ViT-H d 80": lambda: A.flash_attention_bwd_i8(
+            *vjh[:3], *fwd_lse["vjh"], vjh[3]),
+        "K7 so400m d 72": lambda: A.flash_attention_bwd_i8(
             *so400m[:3], *fwd_lse["so400m"], so400m[3]),
         "K1 embed": lambda: A.flash_attention(q, k, v),
         "K1 V-JEPA d 128": lambda: A.flash_attention(*vj[:3]),
@@ -7008,8 +7073,46 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
                        f"{REF_AGAINST_BATCH} ms", lambda: cuda_ms(
                            lambda: steps(*vjepa_ref), iters=1,
                            warmup=1) / 3)
+    del models, mim, vjepa, vstate, vjepa_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the paths that run K3 and K7 at d 80 at full depth: the int8 ViT-H
+    # encode (leg T's model) and the ViT-H V-JEPA step (K7 in the student,
+    # K3 in the teacher)
+    layers = VIT_H["num_hidden_layers"]
+    vit_h = seeded_vit_h(dev, layers)
+    set_impls(vit_h, "pallas_int8", "pallas_bwd")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    hx = [torch.rand((2, 320, 1, 512, 512), generator=gen, device=dev)
+          .to(torch.bfloat16) for _ in range(4)]
+    hcfg, hpreset = vjepa_config(**VIT_H_VJEPA, num_hidden_layers=layers)
+    _, hinit, hstep, _ = vjepa_workload(hcfg, hpreset, dev,
+                                        hpreset["teacher_attn_impl"])
+    vjepa_h = (hinit(0), hstep, [
+        torch.rand((1, hcfg.frames_per_clip, 1, hcfg.crop_size,
+                    hcfg.crop_size), generator=gen, device=dev)
+        for _ in range(4)])
+
+    def encode_h():
+        with torch.inference_mode():
+            for px in hx[1:]:
+                vit_h(px)
+
+    for r in range(rounds):
+        for side in ("other", "this", "this", "other"):
+            with use(side):
+                record(side, "int8 ViT-H encode batch 2 ms", lambda: cuda_ms(
+                    encode_h, iters=1, warmup=1) / 3)
+                record(side, "ViT-H V-JEPA step batch 1 ms", lambda: cuda_ms(
+                    lambda: steps(*vjepa_h), iters=1, warmup=1) / 3)
+                # its device time apart from the host's, which spreads
+                # the step's wall at batch 1
+                record(side, "ViT-H V-JEPA step batch 1 device ms "
+                       "(profiler)", lambda: pass_ms(
+                           lambda: steps(*vjepa_h), "", calls=1) / 3)
     gc.callbacks.remove(gc_pause)
     _build._lib = libs["this"]
+    A._FLASH_HEAD_DIMS.update(routing["this"])
     means = {side: {k: sum(v) / len(v) for k, v in got.items()}
              for side, got in times.items()}
     for key in means["this"]:
@@ -7021,7 +7124,8 @@ def phase_against(other: Path, card: str, rounds: int = 2) -> dict:
             f"{[round(x, 3) for x in times['this'][key]]}"
             + (f"; garbage-collection ms in them: {slow}" if slow else "")
             + f") on {card}")
-    del models, mim, vjepa, vstate, vjepa_ref
+    del vit_h, hx, vjepa_h, hinit, hstep
+    gc.collect()
     torch.cuda.empty_cache()
     for seed in DINO_PARITY_SEEDS:
         got = dinov2_parity(seed, libs)

@@ -60,23 +60,24 @@
 // (a multiple of 8 up to 128; the wrapper pads any other by a copy and cuts
 // dq, dk and dv back, as the JAX `attention` pads it) runs on the
 // instantiation of the next of its widths up (the template's D; the real
-// width is p.D; K4's are 32, 64, 80 and 128, K7's 32, 64 and 128), as K1
+// width is p.D; K4's and K7's are 32, 64, 80 and 128), as K1
 // does (flash_fwd.cu): the bf16 operands (q, k,
 // v and do; K7's k, q and do) are read in place by tensor maps whose
 // global width is the real D while their boxes keep the instantiation's
 // panels, so TMA reads the columns past D as zeros; K7's int8 codes come
-// from the quantisation kernel at the instantiation's width with zero
-// columns past D (a row of 72 or 80 bytes has no TMA stride and no int8
-// swizzle). The zero columns add nothing to s or dp, and the columns of
+// from the quantisation kernel at the instantiation's code width (96 on
+// the d-80 tiles) with zero columns past D (a row of 72 or 80 bytes has
+// no TMA stride and no int8 swizzle). The zero columns add nothing to s
+// or dp, and the columns of
 // dq, dk and dv past D come out zero and are not stored: only D columns
 // are, by an instantiation of its own (NARROW), so a head as wide as its
 // instantiation runs the code it ran before the narrower widths came.
 // K7's NARROW instantiations are compiled in a translation unit of their
 // own (flash_bwd_i8_narrow.cu includes this file): beside them here, nvcc
 // compiled K7's d-32 and d-64 kernels for full-width heads to other SASS
-// (the producer warp's registers renamed, an add merged). K7 at D 72 and
-// 80 on the 128-wide tiles does 1.6 to 1.8 times the tensor work the
-// width needs; delta and the lse2 cotangent are the wrapper's, unchanged.
+// (the producer warp's registers renamed, an add merged); its d-80 tiles
+// compile in flash_bwd_i8_d80.cu, beside no other kernel. Delta and the
+// lse2 cotangent are the wrapper's, unchanged.
 //
 // K4 on tiles of 80 columns (heads of 72 and 80), K1's layout
 // (flash_fwd.cu; Panels<80> and TailMaps, sm90.cuh): each bf16 operand a
@@ -93,6 +94,33 @@
 // with dk and dv in 40 floats each beside s^T and dp^T in 32 each: 176
 // accumulator and fragment registers of the 232, as at d 128. The d-80
 // instantiations compile in flash_bwd_d80.cu, beside no other kernel.
+//
+// K7 on the same tiles of 80 columns (heads of 72 and 80; the d-128 ones
+// did 1.6 to 1.8 times the tensor work, streaming 32 queries a tile in the
+// dk/dv pass). Its int8 codes q8, k8, v8 and do8 are rows of 96 bytes (an
+// int8 wgmma step is 32 bytes, 80 is 2 1/2 of them), a 64-byte panel in
+// the 64-byte swizzle and a 32-byte tail panel in the 32-byte one, each by
+// a map of its own (Codes<80>, sm90.cuh), so s, dp, s^T and dp^T take 3
+// k32 steps in place of 4; its bf16 k, q and do take K4 d80's panel pairs,
+// and dq += ds k, dk += ds^T q and dv += p^T do are K4 d80's n64 + n16
+// wgmma pairs. 22 tensor maps a launch (11 and their tails, TailMaps).
+// Tiles: the dq pass owns q8 and do8 (12 KB each), a stage holds 64 keys
+// of k8 and v8 (6 KB each) and the bf16 k (10 KB): 113 KB with 4 stages;
+// the dk/dv pass streams 64 queries a tile, as K4 d80: it owns k8 and v8
+// (12 KB each), a stage holds q8 and do8 (6 KB each), q and do (10 KB
+// each) and 512 bytes of lse2 and delta: 155 KB. A consumer thread holds
+// dk and dv in 40 floats each beside s^T and dp^T in 32 each, K4 d80's
+// 176 registers of the 232. At N 9,216 with 16 heads the tensor work is
+// 1.19 ms (1.76 on the d-128 tiles): s and dp twice over 96 bytes at the
+// int8 rate, the three bf16 products over 80 columns; the exp2 of the two
+// passes, 2*N^2*H of them, is ~0.7 ms beside it. At that little tensor
+// work a tile, the two consumer warpgroups, which wait on the same stages,
+// ran in step: their products and their exp2 and elementwise work came at
+// the same time, and each left the other's units idle. On these tiles
+// they take turns at issuing their wgmma (ping-pong, `Turns`, as K1's),
+// so one's exp2 runs under the other's products; the sums are the same,
+// bit for bit (PERF.md has the times with and without; a ring of 6 stages
+// and a dq key tile of 128 gained nothing past the spread).
 //
 // K7 is K4 with the two recomputed products on int8: from per-(batch,
 // head) symmetric quantisations q8 (of q*scale*log2(e)), k8, v8, do8 and
@@ -668,16 +696,17 @@ struct BwdI8Params {
   int D;  // the real head width: D of the instantiation, or less (NARROW)
 };
 
-// shared memory of a K7 pass: its two own int8 operands (ROWS rows of D
-// bytes), a ring of kStages stages of the streamed tiles (two int8 tiles
-// of BT rows and N16 bf16 tiles of BT rows in the panels of sm90.cuh), AUX
-// bytes of lse2 and delta a stage, and the barriers
+// shared memory of a K7 pass: its two own int8 operands (ROWS code rows of
+// Codes<D>::W bytes), a ring of kStages stages of the streamed tiles (two
+// int8 tiles of BT rows and N16 bf16 tiles of BT rows in the panels of
+// sm90.cuh), AUX bytes of lse2 and delta a stage, and the barriers
 template <int D, int ROWS, int BT, int N16, int AUX>
 struct BwdI8Tiles {
   using P = Panels<D>;
-  static constexpr int OWN = ROWS * D;              // one own operand
-  static constexpr int T8 = BT * D;                 // one int8 tile
-  static constexpr int T16 = P::N * BT * P::ROW;    // one bf16 tile
+  using C = Codes<D>;
+  static constexpr int OWN = ROWS * C::W;           // one own operand
+  static constexpr int T8 = BT * C::W;              // one int8 tile
+  static constexpr int T16 = BT * P::BYTES_ROW;     // one bf16 tile
   static constexpr int STAGE = 2 * T8 + N16 * T16;
   static constexpr int BARS = (2 * kStages + 1) * 8;
   static constexpr int BYTES =
@@ -698,19 +727,50 @@ __device__ __forceinline__ float i8_exponent(uint32_t x, float c,
   return fmaf(__int_as_float((int)x + 0x4B400000), c, -bias);
 }
 
+// whether K7's consumer warpgroups take turns at issuing their wgmma
+// (ping-pong, K1's in flash_fwd.cu): on the d-80 tiles (see the note at
+// the top); at the other widths the turns compile to nothing
+template <int D>
+constexpr bool kI8PingPong = Codes<D>::TAIL;
+
+// the turns of consumer warpgroup cw: it issues its wgmma between a sync
+// on named barrier 1 + cw and an arrive on the other's, so one warpgroup's
+// exp2 and elementwise work runs under the other's products; warpgroup 0
+// goes first, and warpgroup 1 skips its last arrive so the counts balance
+template <int D>
+struct Turns {
+  int cw;
+  __device__ __forceinline__ explicit Turns(int cw_) : cw(cw_) {
+    if constexpr (kI8PingPong<D>) {
+      if (cw == 1) named_arrive(1, kConsumers);
+    }
+  }
+  __device__ __forceinline__ void begin() const {
+    if constexpr (kI8PingPong<D>) named_sync(1 + cw, kConsumers);
+  }
+  __device__ __forceinline__ void end(bool last) const {
+    if constexpr (kI8PingPong<D>) {
+      if (!(last && cw == 1)) named_arrive(2 - cw, kConsumers);
+    }
+  }
+};
+
 // dq pass: block bx owns 128 query rows (q8, do8); k8, v8 and the bf16 k
-// stream in tiles of 64 keys
+// stream in tiles of 64 keys (tails: at d 80 the tail panels' maps of q8,
+// do8, k8, v8, k, then of the dk/dv pass's k8, v8, q8, do8, q, do)
 template <int D, bool NARROW>
 __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
                                            const CUtensorMap& tdo8,
                                            const CUtensorMap& tk8,
                                            const CUtensorMap& tv8,
                                            const CUtensorMap& tkb,
+                                           const TailMaps<D, 11>& tails,
                                            const BwdI8Params& p, int bx,
                                            char* smem_raw) {
   constexpr int BM = DqShape<D>::BM, BN = DqShape<D>::BN, ST = kStages;
   using T = BwdI8Tiles<D, BM, BN, 1, 0>;
   using P = typename T::P;
+  using C = typename T::C;
   char* qs = align1024(smem_raw);  // q8, then do8
   char* ring = qs + 2 * T::OWN;    // stage s: k8, v8, then k's panels
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE);
@@ -737,6 +797,11 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
       mbar_expect_tx(own, 2 * T::OWN);
       tma_load_4d(qs, &tq8, own, 0, h, q0, b);
       tma_load_4d(qs + T::OWN, &tdo8, own, 0, h, q0, b);
+      if constexpr (C::TAIL) {  // the last 32 bytes of q8 and do8
+        tma_load_4d(qs + BM * C::ROW, &tails.m[0], own, C::ROW, h, q0, b);
+        tma_load_4d(qs + T::OWN + BM * C::ROW, &tails.m[1], own, C::ROW, h,
+                    q0, b);
+      }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
         if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
@@ -748,6 +813,14 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
         for (int pn = 0; pn < P::N; ++pn)
           tma_load_4d(ks + 2 * T::T8 + pn * BN * P::ROW, &tkb, &full[s],
                       pn * P::COLS, h, it * BN, b);
+        if constexpr (C::TAIL) {  // k8's, v8's last 32 bytes, k's 16 columns
+          tma_load_4d(ks + BN * C::ROW, &tails.m[2], &full[s], C::ROW, h,
+                      it * BN, b);
+          tma_load_4d(ks + T::T8 + BN * C::ROW, &tails.m[3], &full[s],
+                      C::ROW, h, it * BN, b);
+          tma_load_4d(ks + 2 * T::T8 + BN * P::ROW, &tails.m[4], &full[s],
+                      P::COLS, h, it * BN, b);
+        }
       }
     }
   } else {  // consumer warpgroups cw = 0, 1: 64 query rows each
@@ -763,7 +836,10 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
     const float dl0 = r0 < p.Nq ? db[r0] : 0.f;
     const float dl1 = r0 + 8 < p.Nq ? db[r0 + 8] : 0.f;
     const float cqk = p.sqk[bh], cdv = p.sdv[bh];
-    const uint32_t qa = smem_u32(qs) + cw * 64 * D, doa = qa + T::OWN;
+    // this warpgroup's q8 and do8 rows; at d 80, whose tail panels lie past
+    // the first panels' BM rows, rows cw * 64.. of the tiles at qa, doa
+    const uint32_t qa = smem_u32(qs) + (C::TAIL ? 0 : cw * 64 * D);
+    const uint32_t doa = qa + T::OWN;
     const uint32_t ra = smem_u32(ring);
 
     // s32 sums of q8 k8^T and do8 v8^T; ds is written over s (f32 bits)
@@ -781,18 +857,33 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
 
     auto issue_s_dp = [&](int it) {  // s = q8 k8^T, dp = do8 v8^T over d
       const uint32_t ka = ra + (it % ST) * T::STAGE, va = ka + T::T8;
+      if constexpr (C::TAIL) {  // 3 k32 steps over the code rows
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        wgmma_i8<BN>(s, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
+        for (int kk = 0; kk < C::STEPS; ++kk)
+          wgmma_i8<BN>(s, desc_c96(qa, BM, cw * 64, kk),
+                       desc_c96(ka, BN, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        wgmma_i8<BN>(dp, desc_i8<D>(doa, kk), desc_i8<D>(va, kk), kk > 0);
+        for (int kk = 0; kk < C::STEPS; ++kk)
+          wgmma_i8<BN>(dp, desc_c96(doa, BM, cw * 64, kk),
+                       desc_c96(va, BN, 0, kk), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk)
+          wgmma_i8<BN>(s, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk)
+          wgmma_i8<BN>(dp, desc_i8<D>(doa, kk), desc_i8<D>(va, kk), kk > 0);
+      }
     };
     auto issue_dq = [&](int it) {  // dq += ds k over the tile's keys
       const uint32_t kb = ra + (it % ST) * T::STAGE + 2 * T::T8;
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<D, 1>(acc, dsa[kk], desc_mn<D>(kb, BN, kk), 1);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        if constexpr (P::TAIL)  // an n64 and an n16 wgmma (sm90.cuh)
+          wgmma_rs_mn<D>(acc, dsa[kk], kb, BN, kk);
+        else
+          wgmma_rs<D, 1>(acc, dsa[kk], desc_mn<D>(kb, BN, kk), 1);
+      }
     };
 
     // ds = p (dp sdv - delta), p = exp2(s sqk - lse2); kv columns past
@@ -813,11 +904,14 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
       }
     };
 
+    const Turns<D> turns(cw);
     mbar_wait(own, 0);
     mbar_wait(&full[0], 0);
+    turns.begin();
     wgmma_fence();
     issue_s_dp(0);
     wgmma_commit();
+    turns.end(false);
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
@@ -825,11 +919,13 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
     acc_to_a<BN>(dsa, s);
     for (int it = 1; it < ntiles; ++it) {
       mbar_wait(&full[it % ST], (it / ST) & 1);
+      turns.begin();
       wgmma_fence();
       issue_s_dp(it);
       wgmma_commit();
       issue_dq(it - 1);
       wgmma_commit();
+      turns.end(false);
       wgmma_wait<1>();  // s and dp of tile it; ds k of tile it - 1 runs on
       fence_regs(s);
       fence_regs(dp);
@@ -839,9 +935,11 @@ __device__ __forceinline__ void dq_pass_i8(const CUtensorMap& tq8,
       mbar_arrive(&empty[(it - 1) % ST]);  // tile it - 1 done
       acc_to_a<BN>(dsa, s);
     }
+    turns.begin();
     wgmma_fence();
     issue_dq(ntiles - 1);
     wgmma_commit();
+    turns.end(true);
     wgmma_wait<0>();
     fence_regs(acc);
     store_acc<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, r0,
@@ -859,12 +957,14 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
                                             const CUtensorMap& tdo8,
                                             const CUtensorMap& tqb,
                                             const CUtensorMap& tdob,
+                                            const TailMaps<D, 11>& tails,
                                             const BwdI8Params& p, int bx,
                                             char* smem_raw) {
   using Sh = DkvShape<D>;
   constexpr int BN = Sh::BN, BQ = Sh::BQ, ST = kStages;
   using T = BwdI8Tiles<D, BN, BQ, 2, Sh::AUX>;
   using P = typename T::P;
+  using C = typename T::C;
   char* ks = align1024(smem_raw);  // k8, then v8
   char* ring = ks + 2 * T::OWN;    // stage s: q8, do8, q's, then do's panels
   float* aux = reinterpret_cast<float*>(ring + ST * T::STAGE);
@@ -896,6 +996,11 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
         mbar_expect_tx(own, 2 * T::OWN);
         tma_load_4d(ks, &tk8, own, 0, h, k0, b);
         tma_load_4d(ks + T::OWN, &tv8, own, 0, h, k0, b);
+        if constexpr (C::TAIL) {  // the last 32 bytes of k8 and v8
+          tma_load_4d(ks + BN * C::ROW, &tails.m[5], own, C::ROW, h, k0, b);
+          tma_load_4d(ks + T::OWN + BN * C::ROW, &tails.m[6], own, C::ROW,
+                      h, k0, b);
+        }
       }
       // each lane stages BQ / 32 of a tile's lse2 and delta; they are read
       // into registers two tiles ahead, so their latency runs under the
@@ -930,6 +1035,16 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
             tma_load_4d(qt + 2 * T::T8 + T::T16 + pn * BQ * P::ROW, &tdob,
                         &full[s], pn * P::COLS, h, it * BQ, b);
           }
+          if constexpr (C::TAIL) {  // the tails of q8, do8, q and do
+            tma_load_4d(qt + BQ * C::ROW, &tails.m[7], &full[s], C::ROW, h,
+                        it * BQ, b);
+            tma_load_4d(qt + T::T8 + BQ * C::ROW, &tails.m[8], &full[s],
+                        C::ROW, h, it * BQ, b);
+            tma_load_4d(qt + 2 * T::T8 + BQ * P::ROW, &tails.m[9], &full[s],
+                        P::COLS, h, it * BQ, b);
+            tma_load_4d(qt + 2 * T::T8 + T::T16 + BQ * P::ROW, &tails.m[10],
+                        &full[s], P::COLS, h, it * BQ, b);
+          }
         }
         float* as = aux + s * 2 * BQ;
 #pragma unroll
@@ -951,7 +1066,9 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
     const int g = lane >> 2, t = lane & 3;
     const int r0 = k0 + cw * 64 + warp * 16 + g;  // this thread's keys
     const float cqk = p.sqk[bh], cdv = p.sdv[bh];
-    const uint32_t ka = smem_u32(ks) + cw * 64 * D, va = ka + T::OWN;
+    // this warpgroup's k8 and v8 rows (at d 80 rows cw * 64.., as dq's)
+    const uint32_t ka = smem_u32(ks) + (C::TAIL ? 0 : cw * 64 * D);
+    const uint32_t va = ka + T::OWN;
     const uint32_t ra = smem_u32(ring);
 
     // s32 sums of k8 q8^T and v8 do8^T; p^T and ds^T are written over
@@ -966,23 +1083,45 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
 
     auto issue_s_dp = [&](int it) {  // s^T = k8 q8^T, dp^T = v8 do8^T
       const uint32_t qt = ra + (it % ST) * T::STAGE, dot = qt + T::T8;
+      if constexpr (C::TAIL) {  // 3 k32 steps over the code rows
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        wgmma_i8<BQ>(st, desc_i8<D>(ka, kk), desc_i8<D>(qt, kk), kk > 0);
+        for (int kk = 0; kk < C::STEPS; ++kk)
+          wgmma_i8<BQ>(st, desc_c96(ka, BN, cw * 64, kk),
+                       desc_c96(qt, BQ, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
-        wgmma_i8<BQ>(dpt, desc_i8<D>(va, kk), desc_i8<D>(dot, kk), kk > 0);
+        for (int kk = 0; kk < C::STEPS; ++kk)
+          wgmma_i8<BQ>(dpt, desc_c96(va, BN, cw * 64, kk),
+                       desc_c96(dot, BQ, 0, kk), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk)
+          wgmma_i8<BQ>(st, desc_i8<D>(ka, kk), desc_i8<D>(qt, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk)
+          wgmma_i8<BQ>(dpt, desc_i8<D>(va, kk), desc_i8<D>(dot, kk),
+                       kk > 0);
+      }
     };
-    // dv += p^T do, dk += ds^T q over the tile's queries
+    // dv += p^T do, dk += ds^T q over the tile's queries (at d 80 each an
+    // n64 and an n16 wgmma, sm90.cuh)
     auto issue_dkv = [&](int it) {
       const uint32_t qb = ra + (it % ST) * T::STAGE + 2 * T::T8;
       const uint32_t dob = qb + T::T16;
+      if constexpr (P::TAIL) {
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(dob, BQ, kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_mn<D>(dv, pa[kk], dob, BQ, kk);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, 1>(dk, da[kk], desc_mn<D>(qb, BQ, kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_mn<D>(dk, da[kk], qb, BQ, kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(dob, BQ, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<D, 1>(dk, da[kk], desc_mn<D>(qb, BQ, kk), 1);
+      }
     };
     // p^T = exp2(s^T sqk - lse2), ds^T = p^T (dp^T sdv - delta)
     auto elementwise = [&](int it) {
@@ -1006,11 +1145,14 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
       }
     };
 
+    const Turns<D> turns(cw);
     mbar_wait(own, 0);
     mbar_wait(&full[0], 0);
+    turns.begin();
     wgmma_fence();
     issue_s_dp(0);
     wgmma_commit();
+    turns.end(false);
     wgmma_wait<0>();
     fence_regs(st);
     fence_regs(dpt);
@@ -1019,11 +1161,13 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
     acc_to_a<BQ>(da, dpt);
     for (int it = 1; it < ntiles; ++it) {
       mbar_wait(&full[it % ST], (it / ST) & 1);
+      turns.begin();
       wgmma_fence();
       issue_s_dp(it);
       wgmma_commit();
       issue_dkv(it - 1);
       wgmma_commit();
+      turns.end(false);
       wgmma_wait<1>();  // s^T and dp^T of tile it; tile it - 1's run on
       fence_regs(st);
       fence_regs(dpt);
@@ -1035,9 +1179,11 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
       acc_to_a<BQ>(pa, st);
       acc_to_a<BQ>(da, dpt);
     }
+    turns.begin();
     wgmma_fence();
     issue_dkv(ntiles - 1);
     wgmma_commit();
+    turns.end(true);
     wgmma_wait<0>();
     fence_regs(dk);
     fence_regs(dv);
@@ -1048,7 +1194,8 @@ __device__ __forceinline__ void dkv_pass_i8(const CUtensorMap& tk8,
   }
 }
 
-// both K7 passes in one grid, as K4's
+// both K7 passes in one grid, as K4's; the tail panels' maps last (empty
+// but at d 80), so the other widths' kernels keep their SASS
 template <int D, bool NARROW>
 __global__ void __launch_bounds__(3 * kWG, 1)
     flash_bwd_i8_sm90_kernel(const __grid_constant__ CUtensorMap mq8,
@@ -1062,18 +1209,20 @@ __global__ void __launch_bounds__(3 * kWG, 1)
                              const __grid_constant__ CUtensorMap ndo8,
                              const __grid_constant__ CUtensorMap nqb,
                              const __grid_constant__ CUtensorMap ndob,
-                             const BwdI8Params p) {
+                             const BwdI8Params p,
+                             const __grid_constant__ TailMaps<D, 11> tails) {
   extern __shared__ char smem_raw[];
   const int gq = (p.Nq + DqShape<D>::BM - 1) / DqShape<D>::BM;
   if ((int)blockIdx.x < gq)
-    dq_pass_i8<D, NARROW>(mq8, mdo8, mk8, mv8, mkb, p, blockIdx.x, smem_raw);
+    dq_pass_i8<D, NARROW>(mq8, mdo8, mk8, mv8, mkb, tails, p, blockIdx.x,
+                          smem_raw);
   else
-    dkv_pass_i8<D, NARROW>(nk8, nv8, nq8, ndo8, nqb, ndob, p,
+    dkv_pass_i8<D, NARROW>(nk8, nv8, nq8, ndo8, nqb, ndob, tails, p,
                            blockIdx.x - gq, smem_raw);
 }
 
-// the int8 codes at the instantiation's width D, the bf16 k, q and do at
-// the real width p.D (the note at the top)
+// the int8 codes at the instantiation's code width Codes<D>::W, the bf16
+// k, q and do at the real width p.D (the note at the top)
 template <int D, bool NARROW>
 cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
                       cudaStream_t stream) {
@@ -1081,6 +1230,7 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
   using Sk = DkvShape<D>;
   using Tq = BwdI8Tiles<D, Sq::BM, Sq::BN, 1, 0>;
   using Tk = BwdI8Tiles<D, Sk::BN, Sk::BQ, 2, Sk::AUX>;
+  constexpr int W = Codes<D>::W;
   CUtensorMap mq8, mdo8, mk8, mv8, mkb, nk8, nv8, nq8, ndo8, nqb, ndob;
   const struct {
     CUtensorMap* map;
@@ -1102,11 +1252,23 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
       {&ndob, p.dobf, p.Nq, Sk::BQ, p.ob_sb, p.ob_sn, p.ob_sh, false}};
   for (const auto& m : maps) {
     cudaError_t err =
-        m.i8 ? make_map_i8(m.map, m.base, B, m.n, p.H, D, m.sb, m.sn, m.sh,
+        m.i8 ? make_map_i8(m.map, m.base, B, m.n, p.H, W, m.sb, m.sn, m.sh,
                            m.rows)
              : make_map_head(m.map, m.base, B, m.n, p.H, p.D, m.sb, m.sn,
                              m.sh, m.rows);
     if (err != cudaSuccess) return err;
+  }
+  TailMaps<D, 11> tails;  // at d 80: the same eleven for the tail panels
+  if constexpr (Codes<D>::TAIL) {
+    for (int i = 0; i < 11; ++i) {
+      const auto& m = maps[i];
+      cudaError_t err =
+          m.i8 ? make_map_i8_tail(&tails.m[i], m.base, B, m.n, p.H, W, m.sb,
+                                  m.sn, m.sh, m.rows)
+               : make_map_tail(&tails.m[i], m.base, B, m.n, p.H, p.D, m.sb,
+                               m.sn, m.sh, m.rows);
+      if (err != cudaSuccess) return err;
+    }
   }
   auto kernel = flash_bwd_i8_sm90_kernel<D, NARROW>;
   const int bytes = Tq::BYTES > Tk::BYTES ? Tq::BYTES : Tk::BYTES;
@@ -1116,13 +1278,14 @@ cudaError_t launch_i8(const BwdI8Params& p, int B, int BH,
   const int gq = (p.Nq + Sq::BM - 1) / Sq::BM;
   const int gk = (p.Nk + Sk::BN - 1) / Sk::BN;
   kernel<<<dim3(gq + gk, BH), 3 * kWG, bytes, stream>>>(
-      mq8, mdo8, mk8, mv8, mkb, nk8, nv8, nq8, ndo8, nqb, ndob, p);
+      mq8, mdo8, mk8, mv8, mkb, nk8, nv8, nq8, ndo8, nqb, ndob, p, tails);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-#if !defined(SMB_FLASH_BWD_I8_NARROW) && !defined(SMB_FLASH_BWD_D80)
+#if !defined(SMB_FLASH_BWD_I8_NARROW) && !defined(SMB_FLASH_BWD_D80) && \
+    !defined(SMB_FLASH_BWD_I8_D80)
 
 // K4's d-80 tiles, compiled apart in flash_bwd_d80.cu (below, under
 // SMB_FLASH_BWD_D80)
@@ -1177,14 +1340,18 @@ extern "C" int smb_flash_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// K7's instantiations for heads narrower than their width, compiled apart
-// in flash_bwd_i8_narrow.cu (below, under SMB_FLASH_BWD_I8_NARROW)
+// K7's instantiations for heads narrower than their width and on the d-80
+// tiles, compiled apart in flash_bwd_i8_narrow.cu and flash_bwd_i8_d80.cu
+// (below, under SMB_FLASH_BWD_I8_NARROW and SMB_FLASH_BWD_I8_D80)
 extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
                                        void* stream);
+extern "C" int smb_flash_bwd_i8_d80(const void* params, int B, int BH,
+                                    void* stream);
 
 // K7. D, the head width, a multiple of 8 up to 128, runs on the
-// instantiation of width DI, the next of 32, 64 and 128 up. q8, k8, v8,
-// do8: int8 (B, N, H, DI), codes past D zero; kbf, qbf, dobf: the bf16 k,
+// instantiation of width DI, the next of 32, 64, 80 and 128 up. q8, k8,
+// v8, do8: int8 (B, N, H, W), W the code width of DI (32, 64, 96 or 128),
+// codes past D zero; kbf, qbf, dobf: the bf16 k,
 // q and do; dq, dk, dv: bf16 (B, N, H, D); all through strides: 30 int64 in
 // elements, (batch, token, head) for q8, k8, v8, do8, kbf, qbf, dobf, dq,
 // dk, dv (the seven inputs are read by TMA: base pointers and strides
@@ -1238,6 +1405,7 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
   if (D == 32) return (int)launch_i8<32, false>(p, B, BH, s);
   if (D == 64) return (int)launch_i8<64, false>(p, B, BH, s);
   if (D == 128) return (int)launch_i8<128, false>(p, B, BH, s);
+  if (D > 64 && D <= 80) return smb_flash_bwd_i8_d80(&p, B, BH, stream);
   return smb_flash_bwd_i8_narrow(&p, B, BH, stream);
 }
 
@@ -1245,7 +1413,7 @@ extern "C" int smb_flash_bwd_i8(const void* q8, const void* k8,
 
 // K7 for a head narrower than its instantiation (NARROW); params: the
 // BwdI8Params that smb_flash_bwd_i8 filled, D a multiple of 8 below 128
-// but 32 and 64
+// but 32, 64, 72 and 80
 extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
                                        void* stream) {
   const BwdI8Params& p = *static_cast<const BwdI8Params*>(params);
@@ -1255,7 +1423,7 @@ extern "C" int smb_flash_bwd_i8_narrow(const void* params, int B, int BH,
   return (int)launch_i8<128, true>(p, B, BH, s);
 }
 
-#else  // flash_bwd_d80.cu
+#elif defined(SMB_FLASH_BWD_D80)  // flash_bwd_d80.cu
 
 // K4 on the d-80 tiles; params: the BwdParams that smb_flash_bwd filled,
 // D 72 or 80 (the NARROW instantiation stores 72 columns)
@@ -1263,6 +1431,19 @@ extern "C" int smb_flash_bwd_d80(const void* params, int B, int BH,
                                  void* stream) {
   const BwdParams& p = *static_cast<const BwdParams*>(params);
   return (int)launch_width<80>(p, B, BH, static_cast<cudaStream_t>(stream));
+}
+
+#else  // flash_bwd_i8_d80.cu
+
+// K7 on the d-80 tiles (codes of 96 bytes); params: the BwdI8Params that
+// smb_flash_bwd_i8 filled, D 72 or 80 (the NARROW instantiation stores 72
+// columns)
+extern "C" int smb_flash_bwd_i8_d80(const void* params, int B, int BH,
+                                    void* stream) {
+  const BwdI8Params& p = *static_cast<const BwdI8Params*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.D == 80 ? (int)launch_i8<80, false>(p, B, BH, s)
+                   : (int)launch_i8<80, true>(p, B, BH, s);
 }
 
 #endif

@@ -54,18 +54,19 @@
 // Head widths past the instantiations. A head of width D (a multiple of 8
 // up to 128; the wrapper pads any other by a copy, as the JAX `attention`
 // does) runs on the instantiation of the next of its widths up (the
-// template's D; the real width is p.D): K1's are 32, 64, 80 and 128, K3's
-// and K8's 32, 64 and 128. It runs unchanged but for three things:
+// template's D; the real width is p.D): K1's and K3's are 32, 64, 80 and
+// 128, K8's 32, 64 and 128. It runs unchanged but for three things:
 // the tensor maps of the bf16 operands (K1's q, k, v; K3's v) declare the
 // real D as their global width while their boxes keep the instantiation's
 // panels, so TMA reads the columns past D as zeros, as it reads the keys
 // past Nk; the int8 codes of K3 and K8 (q8, k8, K8's v8) come from the
-// quantisation kernel at the instantiation's width with zeros past D (a
-// row of 72 or 80 bytes has no TMA stride and no int8 swizzle); and only D
+// quantisation kernel at the instantiation's code width with zeros past D
+// (a row of 72 or 80 bytes has no TMA stride and no int8 swizzle: K3's
+// d-80 tiles take rows of 96, K8's d-128 ones rows of 128); and only D
 // columns of o are stored. The zero columns add nothing to any score or
 // output column that is kept, so the kernel computes the function at D,
-// with the tensor work of the instantiation: K3 and K8 at D 72 and 80 on
-// the 128-wide tiles do 1.6 to 1.8 times what D needs. The store of the
+// with the tensor work of the instantiation: K8 at D 72 and 80 on the
+// 128-wide tiles does 1.6 to 1.8 times what D needs. The store of the
 // real width is an instantiation of its own (NARROW), so a head as wide as
 // its instantiation runs the code it ran before the narrower widths came.
 //
@@ -91,6 +92,21 @@
 // two still overlap under the ping-pong. The d-80 instantiations compile
 // in flash_fwd_d80.cu, beside no other kernel, so the kernels of the other
 // widths keep their SASS.
+//
+// K3 on the same tiles of 80 columns (heads of 72 and 80; the d-128 ones
+// did 1.6 to 1.8 times the tensor work, on d 128's key tile of 64). Its
+// int8 codes are rows of 96 bytes (an int8 wgmma step is 32 bytes, 80 is
+// 2 1/2 of them): q8 and k8 a 64-byte panel in the 64-byte swizzle and a
+// 32-byte tail panel in the 32-byte one, each by a map of its own
+// (make_map_i8, make_map_i8_tail; Codes<80>), so s = q8 k8^T takes 3 k32
+// steps in place of 4; p v is K1 d80's, an n64 and an n16 wgmma on v's
+// panel pair from the same P fragments. The key tile is BN 128: q8 (12 KB)
+// and 4 stages of k8 (12 KB) and v (20 KB) are 141 KB of the 227. At N
+// 20,480 with 16 heads the tensor work is 0.65 ms of int8 q8 k8^T over 96
+// bytes and 1.09 ms of bf16 p v over 80 columns, 1.74 ms (2.61 on the
+// d-128 tiles), beside the exp2 floor of 1.605 ms that K1 d80 shares: the
+// exp2 now weighs as much as the products, and the ping-pong overlaps
+// them. The d-80 instantiations compile in flash_fwd_i8_d80.cu.
 //
 // K3 is K1 with the score product on int8 (the I8 instantiation). Bound
 // on the H100 at N = 20,480, 12 heads of 64: the int8 q8 k8^T at 1,979
@@ -156,6 +172,7 @@ struct FlashParams {
 template <int D, bool I8>
 struct FwdTiles {
   using P = Panels<D>;                           // bf16 panels (sm90.cuh)
+  using C = Codes<D>;                            // K3's int8 code rows
   static constexpr int BM = 128;                 // query rows a block owns
   static constexpr int BN = D <= 80 ? 128 : 64;  // keys of a streamed tile
   static constexpr int STAGES = 4;
@@ -163,8 +180,8 @@ struct FwdTiles {
   // bytes of a q or k row in its tile: a bf16 panel's row (K1), or the
   // whole int8 row (K3)
   static constexpr int QK_ROW = I8 ? D : P::ROW;
-  static constexpr int Q_BYTES = I8 ? BM * D : BM * P::BYTES_ROW;
-  static constexpr int K_BYTES = I8 ? BN * D : BN * P::BYTES_ROW;
+  static constexpr int Q_BYTES = I8 ? BM * C::W : BM * P::BYTES_ROW;
+  static constexpr int K_BYTES = I8 ? BN * C::W : BN * P::BYTES_ROW;
   static constexpr int V_BYTES = BN * P::BYTES_ROW;
   static constexpr int STAGE = K_BYTES + V_BYTES;
   static constexpr int ONES = I8 ? 256 : 0;  // K3: bf16 ones (desc_ones)
@@ -225,8 +242,11 @@ __global__ void __launch_bounds__(3 * kWG, 1)
           tma_load_4d(qs + pn * BM * P::ROW, &tq, qbar, pn * P::COLS, h, q0,
                       b);
       }
-      if constexpr (P::TAIL)  // q's last 16 columns (k's, v's by stage)
-        tma_load_4d(qs + BM * P::ROW, &tails.m[0], qbar, P::COLS, h, q0, b);
+      // q's last 16 columns, or q8's last 32 bytes (k's, v's by stage;
+      // the tails start at column, or byte, P::COLS = Codes::ROW = 64)
+      if constexpr (P::TAIL)
+        tma_load_4d(qs + BM * (I8 ? T::C::ROW : P::ROW), &tails.m[0], qbar,
+                    P::COLS, h, q0, b);
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % ST;
         if (it >= ST) mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
@@ -238,6 +258,12 @@ __global__ void __launch_bounds__(3 * kWG, 1)
           for (int pn = 0; pn < T::PANELS; ++pn)
             tma_load_4d(ks + T::K_BYTES + pn * BN * P::ROW, &tv, &full[s],
                         pn * P::COLS, h, it * BN, b);
+          if constexpr (P::TAIL) {  // k8's last 32 bytes, v's 16 columns
+            tma_load_4d(ks + BN * T::C::ROW, &tails.m[1], &full[s],
+                        T::C::ROW, h, it * BN, b);
+            tma_load_4d(ks + T::K_BYTES + BN * P::ROW, &tails.m[2],
+                        &full[s], P::COLS, h, it * BN, b);
+          }
         } else {
 #pragma unroll
           for (int pn = 0; pn < T::PANELS; ++pn) {
@@ -263,7 +289,8 @@ __global__ void __launch_bounds__(3 * kWG, 1)
     const int r0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows
     const float c = I8 ? p.sq[bh] * p.sk[bh] : p.scale_log2;
     // this warpgroup's q rows: from qa, or at d 80, whose tail panel lies
-    // past the 64-column panel's BM rows, rows qrow.. of the tile at qa
+    // past the first panel's BM rows (q's or q8's), rows qrow.. of the
+    // tile at qa
     const uint32_t qa = smem_u32(qs) + (P::TAIL ? 0 : cw * 64 * T::QK_ROW);
     const int qrow = P::TAIL ? cw * 64 : 0;
     const uint32_t kva = smem_u32(kv);
@@ -289,7 +316,12 @@ __global__ void __launch_bounds__(3 * kWG, 1)
 
     auto issue_s = [&](int it) {  // s = q k^T over d
       const uint32_t ka = kva + (it % ST) * T::STAGE;
-      if constexpr (I8) {
+      if constexpr (I8 && T::C::TAIL) {  // 3 k32 steps over the code rows
+#pragma unroll
+        for (int kk = 0; kk < T::C::STEPS; ++kk)
+          wgmma_i8<BN>(si, desc_c96(qa, BM, qrow, kk),
+                       desc_c96(ka, BN, 0, kk), kk > 0);
+      } else if constexpr (I8) {
 #pragma unroll
         for (int kk = 0; kk < D / 32; ++kk)
           wgmma_i8<BN>(si, desc_i8<D>(qa, kk), desc_i8<D>(ka, kk), kk > 0);
@@ -453,14 +485,14 @@ __global__ void __launch_bounds__(3 * kWG, 1)
   }
 }
 
-// q, k (bf16 at the real width p.D, or int8 codes at D's) and v (bf16 at
-// p.D) through their maps, as the note at the top says
+// q, k (bf16 at the real width p.D, or int8 codes at D's code width) and
+// v (bf16 at p.D) through their maps, as the note at the top says
 template <int D, bool I8, bool NARROW>
 cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                         cudaStream_t stream) {
   using T = FwdTiles<D, I8>;
   auto qk_map = I8 ? make_map_i8 : make_map_head;
-  const int qk_d = I8 ? D : p.D;
+  const int qk_d = I8 ? T::C::W : p.D;
   CUtensorMap tq, tk, tv;
   cudaError_t err = qk_map(&tq, p.q, B, p.Nq, p.H, qk_d, p.q_sb, p.q_sn,
                            p.q_sh, T::BM);
@@ -472,12 +504,14 @@ cudaError_t launch_sm90(const FlashParams& p, int B, int BH,
                         T::BN);
   TailMaps<D, 3> tails;
   if constexpr (T::P::TAIL) {  // the last 16 columns of q, k and v
+    // (K3: the last 32 bytes of q8 and k8)
+    auto qk_tail = I8 ? make_map_i8_tail : make_map_tail;
     if (err == cudaSuccess)
-      err = make_map_tail(&tails.m[0], p.q, B, p.Nq, p.H, p.D, p.q_sb,
-                          p.q_sn, p.q_sh, T::BM);
+      err = qk_tail(&tails.m[0], p.q, B, p.Nq, p.H, qk_d, p.q_sb, p.q_sn,
+                    p.q_sh, T::BM);
     if (err == cudaSuccess)
-      err = make_map_tail(&tails.m[1], p.k, B, p.Nk, p.H, p.D, p.k_sb,
-                          p.k_sn, p.k_sh, T::BN);
+      err = qk_tail(&tails.m[1], p.k, B, p.Nk, p.H, qk_d, p.k_sb, p.k_sn,
+                    p.k_sh, T::BN);
     if (err == cudaSuccess)
       err = make_map_tail(&tails.m[2], p.v, B, p.Nk, p.H, p.D, p.v_sb,
                           p.v_sn, p.v_sh, T::BN);
@@ -903,20 +937,23 @@ cudaError_t launch_pv_width(const void* q8, const void* k8, const void* vt8,
 
 }  // namespace
 
-#ifndef SMB_FLASH_FWD_D80
+#if !defined(SMB_FLASH_FWD_D80) && !defined(SMB_FLASH_FWD_I8_D80)
 
-// K1's d-80 tiles, compiled apart in flash_fwd_d80.cu (below, under
-// SMB_FLASH_FWD_D80)
+// K1's and K3's d-80 tiles, compiled apart in flash_fwd_d80.cu and
+// flash_fwd_i8_d80.cu (below, under SMB_FLASH_FWD_D80 and
+// SMB_FLASH_FWD_I8_D80)
 extern "C" int smb_flash_fwd_d80(const void* params, int B, int BH,
                                  void* stream);
+extern "C" int smb_flash_fwd_i8_d80(const void* params, int B, int BH,
+                                    void* stream);
 
 // strides: 12 int64 in elements, (batch, token, head) for q, k, v, o.
 // int8 != 0 selects K3 (q, k int8 with per-(b*H + h) scales sq, sk);
 // otherwise K1 (q, k bf16, scores scaled by scale_log2). D, the head width
-// of v and o (and of K1's q and k), is a multiple of 8 up to 128; K3 runs
-// it on the instantiation of the next of 32, 64 and 128 up, whose width
-// its int8 rows hold (zeros past D), K1 on the next of 32, 64, 80 and 128
-// up. q, k and v are
+// of v and o (and of K1's q and k), is a multiple of 8 up to 128; K1 and
+// K3 run it on the instantiation of the next of 32, 64, 80 and 128 up,
+// whose code width K3's int8 rows hold (32, 64, 96 or 128 bytes, zeros
+// past D). q, k and v are
 // read by TMA, so their base pointers and strides must be 16-byte
 // multiples. v and o are bf16.
 // Returns a cudaError_t (0 on success).
@@ -949,6 +986,7 @@ extern "C" int smb_flash_fwd(const void* q, const void* k, const void* v,
   if (int8) {
     if (D <= 32) return (int)launch_width<32, true>(p, B, BH, s);
     if (D <= 64) return (int)launch_width<64, true>(p, B, BH, s);
+    if (D <= 80) return smb_flash_fwd_i8_d80(&p, B, BH, stream);
     if (D <= 128) return (int)launch_width<128, true>(p, B, BH, s);
   } else {
     if (D <= 32) return (int)launch_width<32, false>(p, B, BH, s);
@@ -1000,7 +1038,7 @@ extern "C" const char* smb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-#else  // flash_fwd_d80.cu
+#elif defined(SMB_FLASH_FWD_D80)  // flash_fwd_d80.cu
 
 // K1 on the d-80 tiles; params: the FlashParams that smb_flash_fwd filled,
 // D 72 or 80 (the NARROW instantiation stores 72 columns)
@@ -1009,6 +1047,18 @@ extern "C" int smb_flash_fwd_d80(const void* params, int B, int BH,
   const FlashParams& p = *static_cast<const FlashParams*>(params);
   return (int)launch_width<80, false>(p, B, BH,
                                       static_cast<cudaStream_t>(stream));
+}
+
+#else  // flash_fwd_i8_d80.cu
+
+// K3 on the d-80 tiles (codes of 96 bytes); params: the FlashParams that
+// smb_flash_fwd filled, D 72 or 80 (the NARROW instantiation stores 72
+// columns)
+extern "C" int smb_flash_fwd_i8_d80(const void* params, int B, int BH,
+                                    void* stream) {
+  const FlashParams& p = *static_cast<const FlashParams*>(params);
+  return (int)launch_width<80, true>(p, B, BH,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 #endif

@@ -51,6 +51,14 @@
 // wgmma on the 64-column panel and an n16 one on the tail into the last
 // 8 floats of the accumulator (`wgmma_rs_mn`), the tail's k-step kk of 16
 // rows kk * 512 bytes in.
+// The int8 codes of the d-80 tiles (K3, K7) are rows of 96 bytes: an int8
+// wgmma step is 32 bytes deep, and 80 is 2 1/2 of them, so the quantisation
+// writes 96 with zeros past d. A row is a 64-byte panel in the 64-byte
+// swizzle and after it, `rows` * 64 bytes on, a 32-byte tail panel in the
+// 32-byte swizzle (256-byte aligned), each loaded by a tensor map of its
+// own (make_map_i8, make_map_i8_tail): a product over d takes k32 steps 0
+// and 1 from the first panel and step 2, the whole tail row, from the
+// second (`Codes`, `desc_c96`).
 // (PTX ISA, "Matrix Descriptor Format" and the canonical layouts of
 // wgmma.mma_async for .bf16 and .s8.)
 
@@ -130,6 +138,26 @@ __device__ __forceinline__ uint64_t desc_i8(uint32_t addr, int kk) {
   if constexpr (D == 32) return desc_sw32(addr);
   if constexpr (D == 64) return desc_sw64(addr + kk * 32);
   return desc_sw128(addr + kk * 32);
+}
+
+// The int8 code tile of an instantiation of head width D (K3, K7; see the
+// top): rows of W bytes, whole rows of D (one box) at D = 32, 64 and 128,
+// and at D = 80 rows of 96 bytes, a panel of ROW = 64 bytes a row and the
+// tail panel of the last 32; STEPS k32 steps over a row.
+template <int D>
+struct Codes {
+  static constexpr bool TAIL = D == 80;
+  static constexpr int W = TAIL ? 96 : D;
+  static constexpr int ROW = TAIL ? 64 : D;
+  static constexpr int STEPS = W / 32;
+};
+
+// the K-major descriptor of k32 step kk (0 to 2) of rows row0.. of a tile
+// of `rows` code rows of 96 bytes (Codes<80>) at shared address a
+__device__ __forceinline__ uint64_t desc_c96(uint32_t a, int rows, int row0,
+                                             int kk) {
+  if (kk == 2) return desc_sw32(a + rows * 64 + row0 * 32);
+  return desc_sw64(a + row0 * 64 + kk * 32);
 }
 
 // A bf16 tile of head width D in shared memory (see the top): N panels of
@@ -782,17 +810,34 @@ struct TailMaps<80, NM> {
 };
 
 // int8: a box holds whole rows of D = 32, 64 or 128 bytes, with the swizzle
-// of their width (see the top). CUtensorMapDataType has no signed 8-bit
-// type; UINT8 copies the same bytes.
+// of their width (see the top); rows of D = 96 bytes (the d-80 tiles'
+// codes) by two maps, boxes of the first 64 bytes with the 64-byte swizzle
+// here and of the last 32 in make_map_i8_tail. CUtensorMapDataType has no
+// signed 8-bit type; UINT8 copies the same bytes.
 inline cudaError_t make_map_i8(CUtensorMap* map, const void* base, int B,
                                int N, int H, int D, long long sb,
                                long long sn, long long sh, int rows) {
+  if (D == 96)
+    return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 64,
+                        CU_TENSOR_MAP_SWIZZLE_64B, B, N, H, D, sb, sn, sh,
+                        rows);
   if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
   return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D,
                       D == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
                       : D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                 : CU_TENSOR_MAP_SWIZZLE_128B,
                       B, N, H, D, sb, sn, sh, rows);
+}
+
+// the tail panel of int8 codes of D = 96 bytes a row (the d-80 tiles):
+// boxes of 32 bytes with the 32-byte swizzle, loaded at byte 64
+inline cudaError_t make_map_i8_tail(CUtensorMap* map, const void* base,
+                                    int B, int N, int H, int D, long long sb,
+                                    long long sn, long long sh, int rows) {
+  if (D != 96) return cudaErrorInvalidValue;
+  return make_map_box(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 32,
+                      CU_TENSOR_MAP_SWIZZLE_32B, B, N, H, D, sb, sn, sh,
+                      rows);
 }
 
 }  // namespace

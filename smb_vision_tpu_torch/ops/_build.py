@@ -26,9 +26,10 @@ from typing import Optional
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
-SOURCES = ("flash_fwd.cu", "flash_fwd_d80.cu", "flash_bwd.cu",
-           "flash_bwd_d80.cu", "flash_bwd_i8_narrow.cu", "mlp_fwd.cu",
-           "mlp_bwd.cu", "attn_glue.cu", "quant.cu", "w8a8.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_d80.cu", "flash_fwd_i8_d80.cu",
+           "flash_bwd.cu", "flash_bwd_d80.cu", "flash_bwd_i8_d80.cu",
+           "flash_bwd_i8_narrow.cu", "mlp_fwd.cu", "mlp_bwd.cu",
+           "attn_glue.cu", "quant.cu", "w8a8.cu")
 HEADERS = ("sm90.cuh", "gemm_sm90.cuh")
 LIB_NAME = "libsmb_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

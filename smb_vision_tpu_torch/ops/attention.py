@@ -28,13 +28,14 @@ quantisation `quantize_per_head`, bit for bit, which the JAX package
 leaves to XLA. It also writes v8 straight in the layout K8 reads.
 
 Head widths. The kernels run a head of width d on the instantiation of
-the next of their widths up (`_tile_width`): 32, 64, 80 and 128 for K1
-and K4, 32, 64 and 128 for K3, K8, K7 and R6. bf16 operands are read in
-place by TMA maps whose global width is d (the columns past d read as
-zero; K1's and K4's tiles of 80 columns are a 64-column panel and a
-16-column one, `_tma_geometry`), int8 codes are written by R6 at the
-instantiation's width with zero columns past d, and only d columns are
-stored. A d that is not a
+the next of their widths up (`_tile_width`): 32, 64, 80 and 128 for K1,
+K4, K3 and K7, 32, 64 and 128 for K8. bf16 operands are read in place by
+TMA maps whose global width is d (the columns past d read as zero; the
+tiles of 80 columns are a 64-column panel and a 16-column one,
+`_tma_geometry`), int8 codes are written by R6 at the code width of the
+kernel's instantiation (`_code_width`: its width, but 96 on the tiles of
+80 columns, a 64-byte panel and a 32-byte one) with zero columns past d,
+and only d columns are stored. A d that is not a
 multiple of 8 is padded with zeros by a copy first, as the JAX
 `attention` pads it, and the outputs are cut back (the backward's: do
 padded, dq, dk and dv cut). Past 128 no kernel runs: "auto" takes the
@@ -70,19 +71,31 @@ INV127 = float(torch.tensor(1.0) / 127.0)
 _PLAIN_SCORE_ELEMS = 1 << 28
 # the widths of the flash kernels' instantiations, by kernel: each runs any
 # head width up to _FLASH_MAX_D on the next of its widths up
-# (`_tile_width`). K1 and K4 have tiles of 80 columns (heads of 66 to 80);
-# K3, K8, K7 and R6, whose codes the three int8 kernels read, do not
+# (`_tile_width`). K1, K4, K3 and K7 have tiles of 80 columns (heads of 66
+# to 80); K8 does not
 _FLASH_HEAD_DIMS = {"K1": (32, 64, 80, 128), "K4": (32, 64, 80, 128),
-                    "K3": (32, 64, 128), "K8": (32, 64, 128),
-                    "K7": (32, 64, 128), "R6": (32, 64, 128)}
+                    "K3": (32, 64, 80, 128), "K7": (32, 64, 80, 128),
+                    "K8": (32, 64, 128)}
 _FLASH_MAX_D = 128
+# the bytes of an int8 code row on an instantiation of each width: whole
+# rows of the width, but 96 on the tiles of 80 columns (an int8 wgmma step
+# is 32 bytes deep and 80 is 2 1/2 of them: a 64-byte panel and a 32-byte
+# one, `_tma_geometry`)
+_CODE_BYTES = {32: 32, 64: 64, 80: 96, 128: 128}
 
 
-def _tile_width(d: int, kernel: str = "R6") -> int:
+def _tile_width(d: int, kernel: str = "K8") -> int:
     """The head width of `kernel`'s instantiation that runs heads of width
-    d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS[kernel] up. The
-    default, R6, gives the width of the int8 codes of K3, K8 and K7."""
+    d (at most _FLASH_MAX_D): the next of _FLASH_HEAD_DIMS[kernel] up (by
+    default K8's, whose codes R6 also writes in v's layout)."""
     return next(w for w in _FLASH_HEAD_DIMS[kernel] if d <= w)
+
+
+def _code_width(d: int, kernel: str = "K8") -> int:
+    """The width of the int8 code rows that `kernel` (K3, K7 or K8) reads
+    for heads of width d: that of its instantiation (`_tile_width`), or 96
+    on the tiles of 80 columns. R6 writes the codes at it, zeros past d."""
+    return _CODE_BYTES[_tile_width(d, kernel)]
 
 
 def _pad8(*ts):
@@ -216,16 +229,16 @@ def _quantize(x, mult: float = 1.0, zero_scale: bool = False,
     return quantize_per_head(x, mult, zero_scale, width)
 
 
-def quantize_qk(q, k, scale: float, quant=_quantize):
-    """The scores' operands of K3 and K8, as the JAX `_fwd_i8` quantises
-    them: q is pre-scaled by scale*log2(e), so q8 k8^T * sq * sk is a
-    score in log2 units. Returns q8, k8 (int8, rows of the codes' width
-    K3 and K8 read: their instantiation's, `_tile_width(D)`, zeros past D;
+def quantize_qk(q, k, scale: float, quant=_quantize, kernel: str = "K3"):
+    """The scores' operands of K3 (or K8 with kernel="K8"), as the JAX
+    `_fwd_i8` quantises them: q is pre-scaled by scale*log2(e), so q8 k8^T
+    * sq * sk is a score in log2 units. Returns q8, k8 (int8, rows of the
+    code width the kernel reads, `_code_width(D, kernel)`, zeros past D;
     D past the kernels' widths, where only the plain versions run) and sq,
     sk (f32, (B, H)), by the kernel on CUDA tensors
     (`quant=quantize_per_head` for the plain version there)."""
     d = q.shape[-1]
-    w = _tile_width(d) if d <= _FLASH_MAX_D else d
+    w = _code_width(d, kernel) if d <= _FLASH_MAX_D else d
     q8, sq = quant(q, scale * LOG2E, width=w)
     k8, sk = quant(k, width=w)
     return q8, k8, sq, sk
@@ -352,17 +365,20 @@ def _check_qkv(q, k, v, qk_dtype, kernel: str = "K1"):
 # the TMA boxes of the wgmma kernels: bf16 (K1, K4, and the bf16 operands
 # of K3 and K7) in panels of 64 columns, one 128-byte swizzle span, or on
 # the instantiation of head width 32 rows of 32 columns (64 bytes) in the
-# 64-byte swizzle, and on K1's and K4's tiles of 80 columns a second map of
-# the last 16 (32 bytes) in the 32-byte swizzle; the map's global width is
-# the head's, so the columns of the boxes past it read as zero; int8 (K3,
-# K7, K8) in whole rows of 32, 64 or 128 bytes, swizzled by their width;
-# up to 256 rows of one (batch, head)
+# 64-byte swizzle, and on the tiles of 80 columns (K1, K4, K3, K7) a
+# second map of the last 16 (32 bytes) in the 32-byte swizzle; the map's
+# global width is the head's, so the columns of the boxes past it read as
+# zero; int8 (K3, K7, K8) in whole rows of 32, 64 or 128 bytes, swizzled
+# by their width, or rows of 96 (the tiles of 80 columns) by two maps, the
+# first 64 bytes in the 64-byte swizzle and the last 32 in the 32-byte
+# one; up to 256 rows of one (batch, head)
 _TMA_BOX_COLS = 64
 _TMA_TAIL_COLS = 16
+_TMA_I8_TAIL = 32
 _TMA_MAX_ROWS = 256
 
 
-def _tma_geometry(t, rows: int, kernel: str = "R6"):
+def _tma_geometry(t, rows: int, kernel: str = "K8"):
     """The tensor map `kernel`'s launch builds (`csrc/sm90.cuh::make_map`,
     `make_map_head`, `make_map_i8`) for a bf16 or int8 (B, N, H, D) tensor
     read by TMA in boxes of `rows` rows: dims (D, H, N, B), byte strides of
@@ -370,21 +386,24 @@ def _tma_geometry(t, rows: int, kernel: str = "R6"):
     (cols, 1, rows, 1) and the swizzle in bytes: 64 bf16 columns with the
     128-byte swizzle (32 columns with the 64-byte swizzle for D up to 32,
     the instantiation of width 32), or a whole int8 row of D = 32, 64 or
-    128 bytes with the swizzle of its width. On K1's and K4's tiles of 80
-    columns a bf16 tensor has a second map (`make_map_tail`), "tail": the
-    same dims and strides, boxes of 16 columns at column 64 with the
-    32-byte swizzle. A bf16 D is a multiple of 8 up to 128; the box
-    columns past D read as zero. TMA takes a 16-byte-aligned base and
-    stride multiples of 16 below 2^40; anything else raises here, before
-    the launch, instead of failing the descriptor encode."""
+    128 bytes with the swizzle of its width. On the tiles of 80 columns
+    (`kernel` K1, K4, K3 or K7) a bf16 tensor has a second map
+    (`make_map_tail`), "tail": the same dims and strides, boxes of 16
+    columns at column 64 with the 32-byte swizzle; an int8 row of D = 96
+    (their codes) is read by boxes of its first 64 bytes with the 64-byte
+    swizzle and a "tail" map (`make_map_i8_tail`) of boxes of the last 32
+    at byte 64 with the 32-byte swizzle. A bf16 D is a multiple of 8 up to
+    128; the box columns past D read as zero. TMA takes a 16-byte-aligned
+    base and stride multiples of 16 below 2^40; anything else raises here,
+    before the launch, instead of failing the descriptor encode."""
     b, n, h, d = t.shape
+    code_widths = tuple(_CODE_BYTES.values())
     if t.dtype == torch.int8:
-        if t.stride(-1) != 1 or d not in _FLASH_HEAD_DIMS["R6"]:
+        if t.stride(-1) != 1 or d not in code_widths:
             raise ValueError(f"TMA reads int8 (B, N, H, D) with D in "
-                             f"{_FLASH_HEAD_DIMS['R6']} and contiguous; got "
-                             f"shape {tuple(t.shape)}, strides "
-                             f"{t.stride()}")
-        cols = d
+                             f"{code_widths} and contiguous; got shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+        cols = _TMA_BOX_COLS if d == _CODE_BYTES[80] else d
     elif t.dtype == torch.bfloat16:
         if t.stride(-1) != 1 or d % 8 or not 0 < d <= _FLASH_MAX_D:
             raise ValueError(f"TMA reads (B, N, H, D) with D a multiple of "
@@ -415,6 +434,10 @@ def _tma_geometry(t, rows: int, kernel: str = "R6"):
         geometry["tail"] = {"col": _TMA_BOX_COLS,
                             "box": (_TMA_TAIL_COLS, 1, rows, 1),
                             "swizzle": _TMA_TAIL_COLS * 2}
+    elif d == _CODE_BYTES[80] and t.dtype == torch.int8:
+        geometry["tail"] = {"col": _TMA_BOX_COLS,
+                            "box": (_TMA_I8_TAIL, 1, rows, 1),
+                            "swizzle": _TMA_I8_TAIL}
     return geometry
 
 
@@ -576,8 +599,8 @@ def _i8_operands(q, k, v, do, scale: float, quant=_quantize,
     does: q8 of q*scale*log2(e), k8, v8, do8, and the scale products sqk =
     sq*sk, sdv = sdo*sv (f32, (B, H)); by the kernel on CUDA tensors
     (`quant=quantize_per_head` for the plain version); with width, the
-    codes' rows hold `width` bytes, zeros past D (K7's instantiation's,
-    `_tile_width(D, "K7")`)."""
+    codes' rows hold `width` bytes, zeros past D (K7's,
+    `_code_width(D, "K7")`)."""
     q8, sq = quant(q, scale * LOG2E, width=width)
     k8, sk = quant(k, width=width)
     v8, sv = quant(v, width=width)
@@ -590,19 +613,23 @@ def _i8_operands(q, k, v, do, scale: float, quant=_quantize,
 
 
 def attention_bwd_i8_plain(q, k, v, out, lse, do, *, scale: float,
-                           g_lse=None):
+                           g_lse=None, width: Optional[int] = None):
     """Plain version of K7, its formula in f32 on the quantised integers
     (|q8 k8^T| <= 127^2 * 128 < 2^24 is exact in f32), query-chunked like
     `attention_bwd_plain`:
       s = q8 k8^T * sqk, p = exp2(s - lse2), dp = do8 v8^T * sdv,
       ds = bf16(p (dp - delta)), dq = scale ds k, dk = scale ds^T q,
       dv = bf16(p)^T do,
-    with q, k, do as given (bf16 on the card). Returns dq, dk, dv in the
-    dtypes of q, k, v."""
-    b, nq, h, _ = q.shape
+    with q, k, do as given (bf16 on the card), the codes in rows of
+    `width` (K7's code width `_code_width(D, "K7")` by default, D past the
+    kernels' widths; the zero columns change no sum). Returns dq, dk, dv
+    in the dtypes of q, k, v."""
+    b, nq, h, d = q.shape
     nk = k.shape[1]
+    if width is None:
+        width = _code_width(d, "K7") if d <= _FLASH_MAX_D else d
     q8, k8, v8, do8, sqk, sdv = _i8_operands(q, k, v, do, scale,
-                                             quantize_per_head)
+                                             quantize_per_head, width)
     k8t = k8.float().permute(0, 2, 3, 1)                # (B, H, D, Nk)
     v8t = v8.float().permute(0, 2, 3, 1)
     kf = k.float().permute(0, 2, 1, 3)                  # (B, H, Nk, D)
@@ -660,20 +687,20 @@ def flash_attention_bwd_i8(q, k, v, out, lse, do, *,
                          f"lse {tuple(lse.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     for t in (q, k, do):
-        _tma_geometry(t, 128)
-    ops = _i8_operands(q, k, v, do, scale, width=_tile_width(d, "K7"))
+        _tma_geometry(t, 128, "K7")
+    ops = _i8_operands(q, k, v, do, scale, width=_code_width(d, "K7"))
     dq, dk, dv = _launch_bwd_i8(q, k, do, out, lse, ops, scale, g_lse)
     return _cut(dq, d0), _cut(dk, d0), _cut(dv, d0)
 
 
 def _launch_bwd_i8(q, k, do, out, lse, ops, scale: float, g_lse=None):
     """K7's kernel on its quantised operands ops = (q8, k8, v8, do8, sqk,
-    sdv), as `_i8_operands` makes them (rows of `_tile_width(D, "K7")`
+    sdv), as `_i8_operands` makes them (rows of `_code_width(D, "K7")`
     codes for q's head width D, a multiple of 8); returns dq, dk, dv."""
     q8, k8, v8, do8, sqk, sdv = ops
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    w = _tile_width(d, "K7")
+    w = _code_width(d, "K7")
     if q8.shape[-1] != w:
         raise ValueError(f"K7: codes of width {q8.shape[-1]} for heads of "
                          f"{d}; _i8_operands writes {w} with its width")
@@ -768,18 +795,18 @@ def flash_attention_int8(q, k, v, *, scale: Optional[float] = None):
     d0 = q.shape[-1]
     q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16, "K3")
-    _tma_geometry(v, 128)
+    _tma_geometry(v, 128, "K3")
     return _cut(_launch_int8(*quantize_qk(q, k, scale), v), d0)
 
 
 def _launch_int8(q8, k8, sq, sk, v):
     """K3's kernel on its quantised operands, as `quantize_qk` makes them
-    (rows of the instantiation's width for v's head width, a multiple of
-    8)."""
+    (rows of the code width `_code_width(D, "K3")` for v's head width D, a
+    multiple of 8)."""
     d = v.shape[-1]
-    if q8.shape[-1] != _tile_width(d, "K3"):
+    if q8.shape[-1] != _code_width(d, "K3"):
         raise ValueError(f"K3: codes of width {q8.shape[-1]} for heads of "
-                         f"{d}; quantize_qk writes {_tile_width(d, 'K3')}")
+                         f"{d}; quantize_qk writes {_code_width(d, 'K3')}")
     for t in (q8, k8):
         _tma_geometry(t, 128)
     out = torch.empty(q8.shape[:3] + (d,), dtype=torch.bfloat16,
@@ -809,7 +836,7 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return int8pv_attention_plain(*quantize_qk(q, k, scale),
+        return int8pv_attention_plain(*quantize_qk(q, k, scale, kernel="K8"),
                                       *quantize_per_head(v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8pv runs on cpu or cuda, not "
@@ -817,7 +844,7 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
     d0 = q.shape[-1]
     q, k, v = _pad8(q, k, v)
     _check_qkv(q, k, v, torch.bfloat16, "K8")
-    q8, k8, sq, sk = quantize_qk(q, k, scale)
+    q8, k8, sq, sk = quantize_qk(q, k, scale, kernel="K8")
     vt8, sv = quantize_per_head_kernel(v, v_layout=True,
                                        width=q8.shape[-1])
     return _cut(_launch_int8pv(q8, k8, sq, sk, vt8, sv, v.shape[-1]), d0)
@@ -825,17 +852,17 @@ def flash_attention_int8pv(q, k, v, *, scale: Optional[float] = None):
 
 def _launch_int8pv(q8, k8, sq, sk, vt8, sv, d: Optional[int] = None):
     """K8's kernel on its quantised operands: q8, k8 as `quantize_qk`
-    makes them, vt8 in `quantize_v_kernel_layout` at the codes' width;
-    d, the head width (a multiple of 8; the codes' width by default),
-    is the output's."""
+    makes them for K8, vt8 in `quantize_v_kernel_layout` at the codes'
+    width; d, the head width (a multiple of 8; the codes' width by
+    default), is the output's."""
     for t in (q8, k8):
         _tma_geometry(t, 128)
     b, nq, h, w = q8.shape
     d = w if d is None else d
-    if w != _tile_width(d, "K8") or vt8.shape[2] != w:
+    if w != _code_width(d, "K8") or vt8.shape[2] != w:
         raise ValueError(f"K8: codes of width {w} and v8 rows "
                          f"{vt8.shape[2]} for heads of {d}; R6 writes "
-                         f"{_tile_width(d, 'K8')}")
+                         f"{_code_width(d, 'K8')}")
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q8.device)
     sq, sk, sv = sq.contiguous(), sk.contiguous(), sv.contiguous()
     strides = (ctypes.c_longlong * 6)(*q8.stride()[:3], *k8.stride()[:3])

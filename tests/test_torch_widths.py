@@ -88,11 +88,12 @@ def _bf16(seed, n, d):
                                             ("pallas_int8pv", 3e-2)])
 @pytest.mark.parametrize("d", [72, 80])
 def test_int8_forwards_widths_match_jax_pallas(impl, f32_bound, d):
-    """K3's and K8's plain versions at d 72 and 80 (q8 and k8 at the
-    instantiation's width 128, zeros past d) against the JAX `_fwd_i8` (pv
-    False / True) in interpret mode at block_k 64, so its sub-block is
-    K8's: within 1e-2 of max, the d-32 tests' bound, and within the JAX
-    package's bounds of float32 attention."""
+    """K3's and K8's plain versions at d 72 and 80 (q8 and k8 in rows of
+    the code width each kernel reads, zeros past d: 96 on K3's d-80 tiles,
+    128 on K8's d-128 ones) against the JAX `_fwd_i8` (pv False / True) in
+    interpret mode at block_k 64, so its sub-block is K8's: within 1e-2 of
+    max, the d-32 tests' bound, and within the JAX package's bounds of
+    float32 attention."""
     (jq, q), (jk, k), (jv, v) = _bf16(90 + d, 129, d)
     ref = jattn.attention(jq, jk, jv, impl=impl, interpret=True,
                           block_q=64, block_k=64)
@@ -100,8 +101,9 @@ def test_int8_forwards_widths_match_jax_pallas(impl, f32_bound, d):
     assert out.dtype == torch.bfloat16 and out.shape == (1, 129, 2, d)
     assert _rel(out, ref) < 1e-2
     assert _rel(out, jattn.xla_attention(jq, jk, jv)) < f32_bound
-    q8, k8, _, _ = tattn.quantize_qk(q, k, d ** -0.5)
-    assert q8.shape[-1] == k8.shape[-1] == 128
+    kernel, width = ("K3", 96) if impl == "pallas_int8" else ("K8", 128)
+    q8, k8, _, _ = tattn.quantize_qk(q, k, d ** -0.5, kernel=kernel)
+    assert q8.shape[-1] == k8.shape[-1] == width
 
 
 @pytest.mark.parametrize("d", [8, 40, 72, 80, 120])
@@ -269,12 +271,15 @@ def test_routing_of_the_new_widths(monkeypatch):
                 "dims": (d, 16, 729, 1), "strides": (2 * d, 32 * d, 16),
                 "box": (cols, 1, 128, 1), "swizzle": swz, **tail}
             assert tattn._tile_width(d, kernel) == (80 if d > 64 else 32)
-        assert tattn._tile_width(d, "K7") == (128 if d > 64 else 32)
+        for kernel in ("K3", "K7"):     # their d-80 tiles too
+            assert tattn._tile_width(d, kernel) == (80 if d > 64 else 32)
+    # K3's codes of a head of 80: rows of 96 bytes, two maps
     q8, k8, _, _ = tattn.quantize_qk(torch.zeros(2, 65, 3, 80),
                                      torch.zeros(2, 65, 3, 80), 0.1)
     assert tattn._tma_geometry(q8, 64) == {
-        "dims": (128, 3, 65, 2), "strides": (128, 384, 24960),
-        "box": (128, 1, 64, 1), "swizzle": 128}
+        "dims": (96, 3, 65, 2), "strides": (96, 288, 18720),
+        "box": (64, 1, 64, 1), "swizzle": 64,
+        "tail": {"col": 64, "box": (32, 1, 64, 1), "swizzle": 32}}
 
 
 def _so400m_pair():
